@@ -1,0 +1,173 @@
+"""Parameter trees of the JAX package -> `state_dict`s of the port.
+
+Plain numpy: each function takes the JAX package's nested parameter
+dict (its leaves already numpy arrays, e.g.
+`jax.tree.map(np.asarray, params)`) and returns a flat
+`{name: np.ndarray}` dict in the reference torch layout that the port's
+modules load (`nn.Linear.weight` is (out, in), convolutions are OIHW).
+Wrap the values with `torch.from_numpy` for `load_state_dict`.
+
+The denoiser keys are the reference `Denoiser`'s, the VAE keys are
+diffusers' `AutoencoderKL` (decoder and `post_quant_conv` only), and the
+CLIP keys are openai CLIP's text side, so published checkpoints load
+into the same modules.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+
+StateDict = Dict[str, np.ndarray]
+
+
+def _f32(x) -> np.ndarray:
+    return np.array(x, dtype=np.float32)  # a writable copy
+
+
+def _linear(out: StateDict, name: str, leaf) -> None:
+    out[f"{name}.weight"] = _f32(leaf["kernel"]).T.copy()
+    if "bias" in leaf:
+        out[f"{name}.bias"] = _f32(leaf["bias"])
+
+
+def _norm(out: StateDict, name: str, leaf) -> None:
+    out[f"{name}.weight"] = _f32(leaf["scale"])
+    out[f"{name}.bias"] = _f32(leaf["bias"])
+
+
+def _conv(out: StateDict, name: str, leaf) -> None:
+    # flax HWIO -> torch OIHW
+    out[f"{name}.weight"] = _f32(leaf["kernel"]).transpose(3, 2, 0, 1).copy()
+    out[f"{name}.bias"] = _f32(leaf["bias"])
+
+
+def sinusoidal_angular_speeds(embedding_dims: int) -> np.ndarray:
+    """The reference's `SinusoidalEmbedding` buffer: 2*pi times
+    log-spaced frequencies in [1, 1000], built in float64."""
+    half = embedding_dims // 2
+    freqs = np.exp(np.linspace(np.log(1.0), np.log(1000.0), half))
+    return (2.0 * np.pi * freqs).astype(np.float32)
+
+
+def denoiser_state_dict(params: Dict[str, Any], cfg) -> StateDict:
+    """JAX `Denoiser` params -> reference `Denoiser` state_dict.
+
+    cfg: a DenoiserConfig of either package (patch and channel sizes)."""
+    p = cfg.patch_size
+    c = cfg.n_channels
+    patch_dim = c * p * p
+    sd: StateDict = {
+        "fourier_feats.0.angular_speeds":
+            sinusoidal_angular_speeds(cfg.noise_embed_dims),
+        "denoiser_trans_block.precomputed_pos_enc":
+            np.arange((cfg.image_size // p) ** 2, dtype=np.int64),
+    }
+    _linear(sd, "fourier_feats.1", params["fourier_dense1"])
+    _linear(sd, "fourier_feats.3", params["fourier_dense2"])
+    _linear(sd, "label_proj", params["label_proj"])
+    _norm(sd, "norm", params["cond_norm"])
+
+    tb = params["denoiser_trans_block"]
+    pre = "denoiser_trans_block"
+    sd[f"{pre}.patchify_and_embed.0.weight"] = (
+        _f32(tb["patch_proj"]["kernel"]).T.reshape(patch_dim, c, p, p).copy())
+    sd[f"{pre}.patchify_and_embed.0.bias"] = _f32(tb["patch_proj"]["bias"])
+    _norm(sd, f"{pre}.patchify_and_embed.2", tb["patch_norm1"])
+    _linear(sd, f"{pre}.patchify_and_embed.3", tb["embed_proj"])
+    _norm(sd, f"{pre}.patchify_and_embed.4", tb["patch_norm2"])
+    sd[f"{pre}.pos_embed.weight"] = _f32(tb["pos_embed"])
+
+    i = 0
+    while f"decoder_block_{i}" in tb:
+        blk = tb[f"decoder_block_{i}"]
+        base = f"{pre}.decoder_blocks.{i}"
+        _linear(sd, f"{base}.self_attention.qkv_linear",
+                blk["self_attention"]["qkv_linear"])
+        _linear(sd, f"{base}.cross_attention.q_linear",
+                blk["cross_attention"]["q_linear"])
+        _linear(sd, f"{base}.cross_attention.kv_linear",
+                blk["cross_attention"]["kv_linear"])
+        mlp = blk["mlp"]
+        # 1x1 convolutions (out, in, 1, 1) and the depthwise (hidden, 1, 3, 3)
+        sd[f"{base}.mlp.mlp.0.weight"] = (
+            _f32(mlp["expand"]["kernel"]).T[:, :, None, None].copy())
+        sd[f"{base}.mlp.mlp.0.bias"] = _f32(mlp["expand"]["bias"])
+        sd[f"{base}.mlp.mlp.1.weight"] = (
+            _f32(mlp["depthwise_kernel"]).transpose(3, 2, 0, 1).copy())
+        sd[f"{base}.mlp.mlp.1.bias"] = _f32(mlp["depthwise_bias"])
+        sd[f"{base}.mlp.mlp.3.weight"] = (
+            _f32(mlp["contract"]["kernel"]).T[:, :, None, None].copy())
+        sd[f"{base}.mlp.mlp.3.bias"] = _f32(mlp["contract"]["bias"])
+        for n in ("norm1", "norm2", "norm3"):
+            _norm(sd, f"{base}.{n}", blk[n])
+        i += 1
+
+    _linear(sd, f"{pre}.out_proj.0", tb["out_proj"])
+    return sd
+
+
+def _vae_resnet(sd: StateDict, name: str, leaf) -> None:
+    _norm(sd, f"{name}.norm1", leaf["norm1"])
+    _conv(sd, f"{name}.conv1", leaf["conv1"])
+    _norm(sd, f"{name}.norm2", leaf["norm2"])
+    _conv(sd, f"{name}.conv2", leaf["conv2"])
+    if "conv_shortcut" in leaf:
+        _conv(sd, f"{name}.conv_shortcut", leaf["conv_shortcut"])
+
+
+def vae_decoder_state_dict(params: Dict[str, Any]) -> StateDict:
+    """JAX `AutoencoderKL` params -> diffusers-layout state_dict of the
+    decoder and `post_quant_conv` (the encoder is not ported yet)."""
+    dec = params["decoder"]
+    sd: StateDict = {}
+    _conv(sd, "post_quant_conv", params["post_quant_conv"])
+    _conv(sd, "decoder.conv_in", dec["conv_in"])
+    mid = dec["mid_block"]
+    _vae_resnet(sd, "decoder.mid_block.resnets.0", mid["resnet_0"])
+    _vae_resnet(sd, "decoder.mid_block.resnets.1", mid["resnet_1"])
+    attn = mid["attn"]
+    base = "decoder.mid_block.attentions.0"
+    _norm(sd, f"{base}.group_norm", attn["group_norm"])
+    for n in ("to_q", "to_k", "to_v"):
+        _linear(sd, f"{base}.{n}", attn[n])
+    _linear(sd, f"{base}.to_out.0", attn["to_out"])
+    i = 0
+    while f"up_{i}_resnet_0" in dec:
+        j = 0
+        while f"up_{i}_resnet_{j}" in dec:
+            _vae_resnet(sd, f"decoder.up_blocks.{i}.resnets.{j}",
+                        dec[f"up_{i}_resnet_{j}"])
+            j += 1
+        if f"up_{i}_upsample" in dec:
+            _conv(sd, f"decoder.up_blocks.{i}.upsamplers.0.conv",
+                  dec[f"up_{i}_upsample"]["conv"])
+        i += 1
+    _norm(sd, "decoder.conv_norm_out", dec["conv_norm_out"])
+    _conv(sd, "decoder.conv_out", dec["conv_out"])
+    return sd
+
+
+def clip_text_state_dict(params: Dict[str, Any]) -> StateDict:
+    """JAX `ClipTextModel` params -> openai CLIP text-side state_dict."""
+    sd: StateDict = {
+        "token_embedding.weight": _f32(params["token_embedding"]["embedding"]),
+        "positional_embedding": _f32(params["positional_embedding"]),
+        "text_projection": _f32(params["text_projection"]),
+    }
+    _norm(sd, "ln_final", params["ln_final"])
+    i = 0
+    while f"resblock_{i}" in params:
+        blk = params[f"resblock_{i}"]
+        base = f"transformer.resblocks.{i}"
+        _norm(sd, f"{base}.ln_1", blk["ln_1"])
+        sd[f"{base}.attn.in_proj_weight"] = (
+            _f32(blk["attn_in_proj"]["kernel"]).T.copy())
+        sd[f"{base}.attn.in_proj_bias"] = _f32(blk["attn_in_proj"]["bias"])
+        _linear(sd, f"{base}.attn.out_proj", blk["attn_out_proj"])
+        _norm(sd, f"{base}.ln_2", blk["ln_2"])
+        _linear(sd, f"{base}.mlp.c_fc", blk["mlp_c_fc"])
+        _linear(sd, f"{base}.mlp.c_proj", blk["mlp_c_proj"])
+        i += 1
+    return sd

@@ -1,0 +1,184 @@
+"""Transformer building blocks of the denoiser, plain PyTorch.
+
+Counterpart of the JAX package's `models/blocks.py`. Module and
+parameter names follow the reference torch `Denoiser`'s state_dict, so
+its checkpoints load as they are. Tokens are (B, N, D); the depthwise
+convolution runs on an NHWC view of the token grid, with its taps in the
+order of the flax HWIO kernel (3, 3, 1, hidden).
+
+Each module holds float32 parameters and computes in its `dtype`, as
+flax modules do: dense inputs and weights are cast to `dtype`, LayerNorm
+statistics and softmax stay float32. Only the plain path is here: no
+mixture of experts, and dropout only at 0 (inference).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+LN_EPS = 1e-5
+
+
+def sinusoidal_embedding(x: torch.Tensor, embedding_dims: int = 32,
+                         emb_min_freq: float = 1.0,
+                         emb_max_freq: float = 1000.0) -> torch.Tensor:
+    """Log-spaced sin/cos features of a noise level: (..., 1) -> (..., dims).
+
+    The frequency table is built in float64 on the host and cast once to
+    `x.dtype`, as the JAX package does."""
+    freqs = np.exp(np.linspace(math.log(emb_min_freq), math.log(emb_max_freq),
+                               embedding_dims // 2))
+    speeds = torch.as_tensor(2.0 * np.pi * freqs, device=x.device).to(x.dtype)
+    return torch.cat([torch.sin(speeds * x), torch.cos(speeds * x)], dim=-1)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The exact (erf) GELU."""
+    return F.gelu(x, approximate="none")
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor, bias, dtype) -> torch.Tensor:
+    """x @ weight.T + bias with operands cast to `dtype`; weight is (out, in)."""
+    return F.linear(x.to(dtype), weight.to(dtype),
+                    None if bias is None else bias.to(dtype))
+
+
+def layer_norm(x: torch.Tensor, norm: nn.LayerNorm, dtype) -> torch.Tensor:
+    """LayerNorm with float32 statistics, result cast to `dtype`."""
+    y = F.layer_norm(x.float(), norm.normalized_shape, norm.weight.float(),
+                     norm.bias.float(), norm.eps)
+    return y.to(dtype)
+
+
+def multi_head_attention(q, k, v, n_heads: int) -> torch.Tensor:
+    """Non-causal softmax(q k^T / sqrt(dh)) v per head, float32 scores and
+    softmax, probabilities cast to v's dtype. (B, N, D) -> (B, Nq, D)."""
+    b, nq, d = q.shape
+    nk = k.shape[1]
+    dh = d // n_heads
+    qh = q.reshape(b, nq, n_heads, dh).transpose(1, 2)
+    kh = k.reshape(b, nk, n_heads, dh).transpose(1, 2)
+    vh = v.reshape(b, nk, n_heads, dh).transpose(1, 2)
+    s = (qh.float() @ kh.float().transpose(-1, -2)) * (1.0 / math.sqrt(dh))
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    out = p @ vh
+    return out.transpose(1, 2).reshape(b, nq, d)
+
+
+class SinusoidalEmbedding(nn.Module):
+    """Holds the reference's `angular_speeds` buffer so that its state_dict
+    loads; the forward recomputes the table in float64 like the JAX
+    package (`sinusoidal_embedding`)."""
+
+    def __init__(self, embedding_dims: int):
+        super().__init__()
+        self.embedding_dims = embedding_dims
+        half = embedding_dims // 2
+        freqs = np.exp(np.linspace(math.log(1.0), math.log(1000.0), half))
+        self.register_buffer("angular_speeds", torch.as_tensor(
+            2.0 * np.pi * freqs, dtype=torch.float32))
+
+    def forward(self, x):
+        return sinusoidal_embedding(x, self.embedding_dims)
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, embed_dim: int, n_heads: int, dtype=torch.float32):
+        super().__init__()
+        self.n_heads = n_heads
+        self.dtype = dtype
+        self.qkv_linear = nn.Linear(embed_dim, 3 * embed_dim, bias=False)
+
+    def forward(self, x):
+        qkv = dense(x, self.qkv_linear.weight, None, self.dtype)
+        q, k, v = qkv.chunk(3, dim=-1)
+        return multi_head_attention(q, k, v, self.n_heads)
+
+
+class CrossAttention(nn.Module):
+    """Q from the tokens, K and V from the 2-token conditioning sequence."""
+
+    def __init__(self, embed_dim: int, n_heads: int, dtype=torch.float32):
+        super().__init__()
+        self.n_heads = n_heads
+        self.dtype = dtype
+        self.q_linear = nn.Linear(embed_dim, embed_dim, bias=False)
+        self.kv_linear = nn.Linear(embed_dim, 2 * embed_dim, bias=False)
+
+    def forward(self, x, y):
+        q = dense(x, self.q_linear.weight, None, self.dtype)
+        kv = dense(y, self.kv_linear.weight, None, self.dtype)
+        k, v = kv.chunk(2, dim=-1)
+        return multi_head_attention(q, k, v, self.n_heads)
+
+
+def depthwise_conv3x3(x: torch.Tensor, weight: torch.Tensor,
+                      bias: torch.Tensor) -> torch.Tensor:
+    """3x3 depthwise convolution with zero padding on an NHWC grid, as nine
+    shifted multiply-adds in x's dtype (the JAX package's order).
+
+    weight: the reference layout (C, 1, 3, 3); bias: (C,)."""
+    b, h, w, c = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    taps = weight[:, 0].to(x.dtype)  # (C, 3, 3)
+    acc = torch.zeros_like(x)
+    for di in range(3):
+        for dj in range(3):
+            acc = acc + xp[:, di:di + h, dj:dj + w, :] * taps[:, di, dj]
+    return acc + bias.to(x.dtype)
+
+
+class MLPSepConv(nn.Module):
+    """LocalViT FFN: 1x1 conv -> 3x3 depthwise -> GELU -> 1x1 conv, on the
+    square token grid. `mlp` keeps the reference's Sequential indices."""
+
+    def __init__(self, embed_dim: int, mlp_multiplier: int,
+                 dtype=torch.float32):
+        super().__init__()
+        hidden = mlp_multiplier * embed_dim
+        self.dtype = dtype
+        self.mlp = nn.Sequential(
+            nn.Conv2d(embed_dim, hidden, kernel_size=1),
+            nn.Conv2d(hidden, hidden, kernel_size=3, padding=1, groups=hidden),
+            nn.GELU(),
+            nn.Conv2d(hidden, embed_dim, kernel_size=1),
+            nn.Dropout(0.0),
+        )
+
+    def forward(self, x):
+        b, n, d = x.shape
+        hw = math.isqrt(n)
+        expand, dw, _, contract, _ = self.mlp
+        h = dense(x.reshape(b, hw, hw, d), expand.weight[:, :, 0, 0],
+                  expand.bias, self.dtype)
+        h = gelu(depthwise_conv3x3(h, dw.weight, dw.bias))
+        out = dense(h, contract.weight[:, :, 0, 0], contract.bias, self.dtype)
+        return out.reshape(b, n, d)
+
+
+class DecoderBlock(nn.Module):
+    """Pre-LN DiT block: x += SA(LN x); x += CA(LN x, cond); x += MLP(LN x).
+    Heads = embed_dim // 64."""
+
+    def __init__(self, embed_dim: int, mlp_multiplier: int,
+                 dtype=torch.float32):
+        super().__init__()
+        n_heads = embed_dim // 64
+        self.dtype = dtype
+        self.norm1 = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        self.self_attention = SelfAttention(embed_dim, n_heads, dtype)
+        self.norm2 = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        self.cross_attention = CrossAttention(embed_dim, n_heads, dtype)
+        self.norm3 = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        self.mlp = MLPSepConv(embed_dim, mlp_multiplier, dtype)
+
+    def forward(self, x, y):
+        dt = self.dtype
+        x = x + self.self_attention(layer_norm(x, self.norm1, dt))
+        x = x + self.cross_attention(layer_norm(x, self.norm2, dt), y)
+        return x + self.mlp(layer_norm(x, self.norm3, dt))

@@ -1,0 +1,164 @@
+"""The transformer denoiser, plain PyTorch.
+
+Counterpart of the JAX package's `models/denoiser.py`: patchify ->
+LayerNorm/Linear/LayerNorm embedding -> learned positional table -> N
+decoder blocks -> out projection -> unpatchify, conditioned on a
+2-token (noise level, text) sequence. Module names are the reference
+torch `Denoiser`'s, so its state_dict loads as it is. Latents are NCHW.
+
+The fused inference engine (`fast_denoiser.FusedEngine`) runs the same
+parameters through the hand-written kernels; this module is the plain
+version it is checked against, and what the pipeline runs on the CPU.
+Only the native token grid is supported (`resize_pos_embed` waits for
+the hi-res slice).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from transformer_latent_diffusion_tpu_torch.models.blocks import (
+    LN_EPS,
+    DecoderBlock,
+    SinusoidalEmbedding,
+    dense,
+    gelu,
+    layer_norm,
+)
+
+
+def patchify(x: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """(B, C, H, W) -> (B, h*w, C*p*p) with (c, p1, p2) flatten order."""
+    b, c, hh, ww = x.shape
+    p = patch_size
+    h, w = hh // p, ww // p
+    x = x.reshape(b, c, h, p, w, p).permute(0, 2, 4, 1, 3, 5)
+    return x.reshape(b, h * w, c * p * p)
+
+
+def unpatchify(x: torch.Tensor, patch_size: int, h: int, w: int,
+               n_channels: int) -> torch.Tensor:
+    """(B, h*w, C*p*p) -> (B, C, H, W); inverse of `patchify`."""
+    b = x.shape[0]
+    p = patch_size
+    x = x.reshape(b, h, w, n_channels, p, p).permute(0, 3, 1, 4, 2, 5)
+    return x.reshape(b, n_channels, h * p, w * p)
+
+
+class _Patchify(nn.Module):
+    """Stands at index 1 of `patchify_and_embed`, where the reference has
+    its einops Rearrange, so the Sequential's indices match its keys."""
+
+    def __init__(self, patch_size: int):
+        super().__init__()
+        self.patch_size = patch_size
+
+    def forward(self, x):
+        return patchify(x, self.patch_size)
+
+
+class DenoiserTransBlock(nn.Module):
+    def __init__(self, patch_size: int, img_size: int, embed_dim: int,
+                 n_layers: int, mlp_multiplier: int = 4, n_channels: int = 4,
+                 dtype=torch.float32):
+        super().__init__()
+        self.patch_size = patch_size
+        self.n_channels = n_channels
+        self.dtype = dtype
+        patch_dim = n_channels * patch_size * patch_size
+        seq_len = (img_size // patch_size) ** 2
+        self.patchify_and_embed = nn.Sequential(
+            nn.Conv2d(n_channels, patch_dim, kernel_size=patch_size,
+                      stride=patch_size),
+            _Patchify(patch_size),
+            nn.LayerNorm(patch_dim, eps=LN_EPS),
+            nn.Linear(patch_dim, embed_dim),
+            nn.LayerNorm(embed_dim, eps=LN_EPS),
+        )
+        self.pos_embed = nn.Embedding(seq_len, embed_dim)
+        self.register_buffer("precomputed_pos_enc",
+                             torch.arange(seq_len, dtype=torch.int64))
+        self.decoder_blocks = nn.ModuleList(
+            DecoderBlock(embed_dim, mlp_multiplier, dtype)
+            for _ in range(n_layers))
+        self.out_proj = nn.Sequential(nn.Linear(embed_dim, patch_dim))
+
+    def forward(self, x, cond):
+        dt = self.dtype
+        p = self.patch_size
+        b, c, hh, ww = x.shape
+        h, w = hh // p, ww // p
+        conv, _, norm1, embed, norm2 = self.patchify_and_embed
+        tokens = patchify(x, p).to(dt)
+        # the patchify convolution is a per-patch linear over (c, p1, p2)
+        tokens = layer_norm(
+            dense(tokens, conv.weight.reshape(conv.out_channels, -1),
+                  conv.bias, dt), norm1, dt)
+        tokens = layer_norm(dense(tokens, embed.weight, embed.bias, dt),
+                            norm2, dt)
+        tokens = tokens + self.pos_embed.weight[:h * w].to(dt)[None]
+        for block in self.decoder_blocks:
+            tokens = block(tokens, cond)
+        out = dense(tokens, self.out_proj[0].weight, self.out_proj[0].bias, dt)
+        return unpatchify(out.float(), p, h, w, self.n_channels)
+
+
+class Denoiser(nn.Module):
+    """forward(x, noise_level, label):
+      x           (B, n_channels, S, S) noisy latent
+      noise_level (B, 1) in (0, 1)
+      label       (B, text_emb_size) pooled CLIP text embedding
+    returns the network's prediction (float32), same shape as x."""
+
+    def __init__(self, image_size: int, noise_embed_dims: int,
+                 patch_size: int, embed_dim: int, dropout: float,
+                 n_layers: int, text_emb_size: int = 768,
+                 mlp_multiplier: int = 4, n_channels: int = 4,
+                 mlp_class: str = "sep_conv", n_experts: int = 8,
+                 expert_capacity_factor: float = 1.25,
+                 input_channels=None, objective: str = "x0",
+                 dtype=torch.float32):
+        super().__init__()
+        if mlp_class != "sep_conv":
+            raise NotImplementedError(
+                f"mlp_class={mlp_class!r} is not ported yet "
+                "(ROADMAP, modules still to port)")
+        if dropout:
+            raise NotImplementedError("dropout > 0 belongs to the training "
+                                      "slice (ROADMAP item 7)")
+        if input_channels not in (None, n_channels):
+            raise NotImplementedError("widened (outpainting) inputs wait for "
+                                      "the editing slice (ROADMAP item 9)")
+        self.image_size = image_size
+        self.patch_size = patch_size
+        self.n_channels = n_channels
+        self.objective = objective
+        self.dtype = dtype
+        self.fourier_feats = nn.Sequential(
+            SinusoidalEmbedding(noise_embed_dims),
+            nn.Linear(noise_embed_dims, embed_dim),
+            nn.GELU(),
+            nn.Linear(embed_dim, embed_dim),
+        )
+        self.label_proj = nn.Linear(text_emb_size, embed_dim)
+        self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        self.denoiser_trans_block = DenoiserTransBlock(
+            patch_size, image_size, embed_dim, n_layers, mlp_multiplier,
+            n_channels, dtype)
+
+    @classmethod
+    def from_config(cls, cfg, dtype=torch.float32) -> "Denoiser":
+        from dataclasses import asdict
+
+        return cls(**asdict(cfg), dtype=dtype)
+
+    def forward(self, x, noise_level, label):
+        dt = self.dtype
+        sin, lin1, _, lin2 = self.fourier_feats
+        nemb = sin(noise_level.to(dt))
+        nemb = dense(gelu(dense(nemb, lin1.weight, lin1.bias, dt)),
+                     lin2.weight, lin2.bias, dt)
+        lemb = dense(label, self.label_proj.weight, self.label_proj.bias, dt)
+        cond = layer_norm(torch.stack([nemb, lemb], dim=1), self.norm, dt)
+        return self.denoiser_trans_block(x, cond)

@@ -1,0 +1,134 @@
+"""The fused inference engine of the denoiser.
+
+Counterpart of the JAX package's `models/fast_denoiser.py`: a pure-function
+engine over the same parameters as `models.denoiser.Denoiser` (here its
+state_dict, in the reference layout). The prologue (noise and label
+embeddings, patchify, embedding projections, positional table) and the
+epilogue (out projection, unpatchify) are plain PyTorch, as the JAX
+engine leaves them to XLA; the decoder layers run through
+`ops.fused_stack.fused_layer_stack`, which on CUDA tensors is the four
+hand-written kernels and on CPU tensors their plain versions.
+
+`prepare(params)` packs the per-layer weights once per generation, outside
+the sampling loop; `apply_prepared(...)` runs one forward. Numerics:
+float32 LayerNorm statistics, softmax and accumulation inside the layer
+kernels; activations cross layers in `compute_dtype`.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import torch
+
+from transformer_latent_diffusion_tpu_torch.models.blocks import (
+    LN_EPS,
+    gelu,
+    sinusoidal_embedding,
+)
+from transformer_latent_diffusion_tpu_torch.models.denoiser import (
+    patchify,
+    unpatchify,
+)
+from transformer_latent_diffusion_tpu_torch.ops.fused_stack import (
+    fused_layer_stack,
+    pack_layer_stack,
+)
+
+_INT8_TODO = ("quantize='int8' (the W8A8 engine, kernel K7) is not ported "
+              "yet (ROADMAP, TPU kernels still to port: K7)")
+
+
+def _ln(x, params, name):
+    """LayerNorm with float32 statistics, result in x's dtype."""
+    x32 = x.float()
+    m = x32.mean(-1, keepdim=True)
+    var = (x32 - m).square().mean(-1, keepdim=True)
+    out = (x32 - m) * torch.rsqrt(var + LN_EPS)
+    return (out * params[f"{name}.weight"] + params[f"{name}.bias"]).to(x.dtype)
+
+
+def _dense(x, params, name, dtype):
+    out = x.to(dtype) @ params[f"{name}.weight"].to(dtype).T
+    bias = params.get(f"{name}.bias")
+    return out if bias is None else out + bias.to(dtype)
+
+
+class FusedEngine:
+    """Callable engine with a hoistable weight-packing stage.
+
+    quantize: None (bf16 weights and activations). "int8" is the JAX
+    package's opt-in W8A8 engine and is not ported yet."""
+
+    def __init__(self, cfg, compute_dtype=torch.bfloat16,
+                 quantize: str | None = None):
+        if quantize == "int8":
+            raise NotImplementedError(_INT8_TODO)
+        if quantize is not None:
+            raise ValueError(f"unknown quantize mode: {quantize!r}")
+        self.cfg = cfg
+        self.dtype = compute_dtype
+        self.n_heads = cfg.embed_dim // 64
+
+    def prepare(self, params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+        """Pack each layer's weights (once, outside the sampling loop).
+        params: a `Denoiser` state_dict. One `fused_layer_stack` call per
+        layer, as the JAX engine runs its kernel: the residual is float32
+        within a call and rounded to `compute_dtype` at its end, so this
+        keeps the JAX engine's rounding between layers."""
+        layers = [pack_layer_stack(params, [i], self.dtype)
+                  for i in range(self.cfg.n_layers)]
+        return {"params": params, "layers": layers}
+
+    def _prologue(self, params, x, noise_level, label):
+        cfg = self.cfg
+        dt = self.dtype
+        nemb = sinusoidal_embedding(noise_level.to(dt), cfg.noise_embed_dims)
+        nemb = _dense(nemb, params, "fourier_feats.1", dt)
+        nemb = _dense(gelu(nemb), params, "fourier_feats.3", dt)
+        lemb = _dense(label.to(dt), params, "label_proj", dt)
+        cond = _ln(torch.stack([nemb, lemb], dim=1), params, "norm")
+
+        pre = "denoiser_trans_block"
+        b, c, hh, ww = x.shape
+        p_sz = cfg.patch_size
+        h, w = hh // p_sz, ww // p_sz
+        conv_w = params[f"{pre}.patchify_and_embed.0.weight"]
+        tokens = patchify(x, p_sz).to(dt)
+        tokens = tokens @ conv_w.reshape(conv_w.shape[0], -1).to(dt).T \
+            + params[f"{pre}.patchify_and_embed.0.bias"].to(dt)
+        tokens = _ln(tokens, params, f"{pre}.patchify_and_embed.2")
+        tokens = _ln(_dense(tokens, params, f"{pre}.patchify_and_embed.3", dt),
+                     params, f"{pre}.patchify_and_embed.4")
+        pos = params[f"{pre}.pos_embed.weight"][:h * w]
+        tokens = tokens + pos.to(dt)[None]
+        return tokens.contiguous(), cond.contiguous(), h, w
+
+    def _epilogue(self, params, tokens, h, w):
+        cfg = self.cfg
+        out = _dense(tokens, params, "denoiser_trans_block.out_proj.0",
+                     self.dtype)
+        return unpatchify(out.float(), cfg.patch_size, h, w, cfg.n_channels)
+
+    def apply_prepared(self, prepared, x, noise_level, label):
+        params = prepared["params"]
+        tokens, cond, h, w = self._prologue(params, x, noise_level, label)
+        for layer in prepared["layers"]:
+            tokens = fused_layer_stack(tokens, cond, layer, hw=h,
+                                       n_heads=self.n_heads)
+        return self._epilogue(params, tokens, h, w)
+
+    def apply_prepared_cached(self, prepared, x, noise_level, label, delta,
+                              refresh):
+        raise NotImplementedError(
+            "block caching (cache_interval > 1) is not ported yet "
+            "(ROADMAP item 9, sampler extras)")
+
+    def __call__(self, params, x, noise_level, label):
+        return self.apply_prepared(self.prepare(params), x, noise_level, label)
+
+
+def make_fused_apply(cfg, compute_dtype=torch.bfloat16,
+                     quantize: str | None = None) -> FusedEngine:
+    """Build the fused engine; mirrors `Denoiser.forward`."""
+    return FusedEngine(cfg, compute_dtype=compute_dtype, quantize=quantize)

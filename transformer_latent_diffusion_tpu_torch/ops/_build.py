@@ -1,0 +1,92 @@
+"""Build the hand-written CUDA kernels (`csrc/*.cu`) at first use.
+
+`nvcc` compiles every source in `csrc/` for Hopper (`sm_90a`) into one
+shared library with a plain C interface, which is loaded with `ctypes`.
+The library goes to `build/kernels/<hash>/` at the repository root (listed
+in `.gitignore`), keyed by a hash of the sources and the compiler flags,
+so an edit to a kernel rebuilds it and an unchanged tree reuses the last
+build. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LIB_NAME = "libltd_kernels.so"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: each returns the cudaError_t of its launch
+SIGNATURES = {
+    "ltd_ln_gemm": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "ltd_self_attention": (_P, _P, _I, _I, _I, _I, _P),
+    "ltd_cross_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ltd_dwconv_gelu": (_P, _P, _P, _P, _I, _I, _I, _P),
+}
+
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
+                       "CUDA toolkit's nvcc (PATH or /usr/local/cuda/bin)")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_ROOT / digest.hexdigest()[:16] / LIB_NAME
+
+
+def build() -> Path:
+    """Compile the kernels unless this exact source set is built already.
+    The compiler's log (with ptxas register and shared-memory counts) is
+    kept beside the library as `build.log`."""
+    out = library_path()
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *map(str, sorted(CSRC.glob("*.cu")))]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = (f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+           f"\nseconds: {time.perf_counter() - t0:.1f}\n")
+    (out.parent / "build.log").write_text(log)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' library, built on first use and loaded once."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib

@@ -1,0 +1,206 @@
+"""Text-to-image pipeline: the port's `DiffusionTransformer`.
+
+Counterpart of the text-to-image part of the JAX package's
+`sampling/pipeline.py`: build the denoiser, VAE decoder and CLIP text
+tower from an `LTDConfig` on an explicit device, with weights from the
+configured files or seeded random weights, and expose
+`generate_image_from_text` (a PIL grid) and `generate_array_from_text`
+((N, H, W, 3) uint8).
+
+On a CUDA device the denoiser always runs through the fused engine (the
+hand-written decoder-layer kernels); on the CPU it runs the plain
+`Denoiser`, as the JAX package does off the TPU.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+
+import numpy as np
+import torch
+
+from transformer_latent_diffusion_tpu_torch.configs import LTDConfig, resolve_dtype
+from transformer_latent_diffusion_tpu_torch.models.clip import ClipTextModel
+from transformer_latent_diffusion_tpu_torch.models.denoiser import Denoiser
+from transformer_latent_diffusion_tpu_torch.models.fast_denoiser import (
+    make_fused_apply,
+)
+from transformer_latent_diffusion_tpu_torch.models.vae import VaeDecoder
+from transformer_latent_diffusion_tpu_torch.sampling.diffusion import (
+    DiffusionGenerator,
+)
+from transformer_latent_diffusion_tpu_torch.utils.common import (
+    init_random_weights_,
+    load_state_dict_file,
+    uint8_grid_to_pil,
+)
+
+# LTDConfig fields the port does not run yet: field -> (default, ROADMAP item)
+_NOT_PORTED = {
+    "mesh_shape": (None, "item 14 (parallelism)"),
+    "sequence_parallel": (None, "item 14 (parallelism)"),
+    "pipeline_parallel": (False, "item 14 (parallelism)"),
+    "pipeline_microbatches": (None, "item 14 (parallelism)"),
+    "lora_path": (None, "item 11 (fine-tune variants)"),
+    "lora_scale": (None, "item 11 (fine-tune variants)"),
+    "consistency": (False, "item 11 (fine-tune variants)"),
+    "clip_vision_cfg": (None, "item 12 (eval towers)"),
+}
+
+
+def _load_or_init(module, path, seed: int, keep=None):
+    """Weights from `path` when it exists (keys filtered by `keep`, then a
+    strict load), else seeded random weights."""
+    if path and os.path.exists(path):
+        sd = load_state_dict_file(path)
+        if keep is not None:
+            sd = {k: v for k, v in sd.items() if keep(k)}
+        module.load_state_dict(sd)
+        return module
+    print(f"{type(module).__name__}: no weights file — random weights from "
+          f"seed {seed}")
+    return init_random_weights_(module, seed)
+
+
+class DiffusionTransformer:
+    """cfg: the inference config; device: where every tower runs ("cuda",
+    "cuda:0", "cpu"); seed: the seed of the random weights of any tower
+    without a weights file."""
+
+    def __init__(self, cfg: LTDConfig, device, seed: int = 0):
+        for name, (default, item) in _NOT_PORTED.items():
+            if getattr(cfg, name) != default:
+                raise NotImplementedError(
+                    f"LTDConfig.{name} is not ported yet (ROADMAP {item})")
+        if cfg.clip_cfg.vocab_path:
+            raise NotImplementedError(
+                "the CLIP BPE tokenizer waits for its vocab file in the "
+                "repository (ROADMAP item 5)")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        dtype = resolve_dtype(cfg.denoiser_load.dtype)
+        if self.device.type == "cuda" and not cfg.use_pallas:
+            raise NotImplementedError(
+                "LTDConfig.use_pallas=False: the port has no switch off its "
+                "kernels; on CUDA the denoiser always runs them (the plain "
+                "versions serve the CPU only)")
+        if self.device.type == "cuda" and dtype != torch.bfloat16:
+            raise NotImplementedError(
+                f"DenoiserLoad.dtype={cfg.denoiser_load.dtype!r}: on CUDA the "
+                "fused engine's kernels take bf16 weights only, so set "
+                "DenoiserLoad.dtype='bfloat16' (a float32 engine on CUDA is "
+                "ROADMAP item 4)")
+
+        load = cfg.denoiser_load
+        if load.file_url is not None and not (
+                load.local_filename and os.path.exists(load.local_filename)):
+            raise NotImplementedError(
+                "downloading denoiser weights is not ported; fetch "
+                f"{load.file_url} to DenoiserLoad.local_filename")
+        denoiser = Denoiser.from_config(cfg.denoiser_cfg, dtype=dtype)
+        _load_or_init(denoiser, load.local_filename, seed)
+        denoiser.to(self.device).eval()
+
+        self.vae = VaeDecoder.from_config(cfg.vae_cfg)
+        _load_or_init(self.vae, cfg.vae_cfg.weights_path, seed + 1,
+                      keep=lambda k: k.startswith(("decoder.",
+                                                   "post_quant_conv.")))
+        self.vae.to(self.device, resolve_dtype(cfg.vae_cfg.vae_dtype)).eval()
+
+        self.clip_model = ClipTextModel.from_config(
+            cfg.clip_cfg, dtype=resolve_dtype(cfg.clip_cfg.clip_dtype))
+        text_keys = set(self.clip_model.state_dict())
+        _load_or_init(self.clip_model, cfg.clip_cfg.weights_path, seed + 2,
+                      keep=text_keys.__contains__)
+        self.clip_model.to(self.device).eval()
+
+        fast_apply = None
+        if self.device.type == "cuda":
+            fast_apply = make_fused_apply(cfg.denoiser_cfg, compute_dtype=dtype,
+                                          quantize=cfg.quantize)
+        elif cfg.quantize is not None:
+            raise NotImplementedError(
+                "quantize='int8' is not ported yet (ROADMAP, kernel K7)")
+        self.schedule_shift = cfg.schedule_shift
+        if self.schedule_shift is not None:
+            self.schedule_shift = float(self.schedule_shift)
+            if self.schedule_shift <= 0.0:
+                raise ValueError("LTDConfig.schedule_shift must be > 0, "
+                                 f"got {self.schedule_shift}")
+        self.diffuser = DiffusionGenerator(
+            model=denoiser, vae=self.vae, fast_apply=fast_apply,
+            device=self.device)
+        self._scale_factor = float(cfg.vae_cfg.vae_scale_factor)
+
+    @staticmethod
+    def _resolve_pad(pad_to, num_imgs: int) -> int:
+        """Generation batch size: `pad_to` >= num_imgs images are generated
+        and the first num_imgs returned (one batch shape per bucket)."""
+        if pad_to is None:
+            return num_imgs
+        p = int(pad_to)
+        if p < num_imgs:
+            raise ValueError(f"pad_to={p} is smaller than num_imgs={num_imgs}")
+        return p
+
+    def _encode_prompts(self, prompt, negative_prompt, num_imgs):
+        prompts = (list(prompt) if isinstance(prompt, (list, tuple))
+                   else [prompt] * num_imgs)
+        labels = self.clip_model.encode_text(prompts)
+        negative_labels = None
+        if negative_prompt is not None:
+            negative_labels = self.clip_model.encode_text(
+                [negative_prompt] * num_imgs)
+        return labels, negative_labels
+
+    def generate_image_from_text(self, prompt, class_guidance=6, seed=11,
+                                 num_imgs=1, img_size=32, n_iter=15,
+                                 cache_interval=1, negative_prompt=None,
+                                 pad_to=None, cfg_rescale=0.0,
+                                 guidance_interval=None, sampler=None,
+                                 schedule="poly", eta=0.0,
+                                 schedule_shift=None):
+        """Prompt -> PIL image grid. The latent size comes from the model's
+        image_size; `img_size` is accepted and unused, as in the
+        reference. A list of prompts gives one image per prompt."""
+        num_imgs = len(prompt) if isinstance(prompt, (list, tuple)) \
+            else num_imgs
+        out = self.generate_array_from_text(
+            prompt, class_guidance=class_guidance, seed=seed,
+            num_imgs=num_imgs, n_iter=n_iter, cache_interval=cache_interval,
+            negative_prompt=negative_prompt, pad_to=pad_to,
+            cfg_rescale=cfg_rescale, guidance_interval=guidance_interval,
+            sampler=sampler, schedule=schedule, eta=eta,
+            schedule_shift=schedule_shift)
+        return uint8_grid_to_pil(out, nrow=int(math.sqrt(num_imgs)), padding=4)
+
+    def generate_array_from_text(self, prompt, class_guidance=6, seed=11,
+                                 num_imgs=1, n_iter=15, cache_interval=1,
+                                 negative_prompt=None, pad_to=None,
+                                 cfg_rescale=0.0, guidance_interval=None,
+                                 sampler=None, schedule="poly", eta=0.0,
+                                 schedule_shift=None) -> np.ndarray:
+        """Like generate_image_from_text, but returns the images as a
+        (num_imgs, H, W, 3) uint8 array."""
+        if isinstance(prompt, (list, tuple)):
+            prompts = list(prompt)
+            num_imgs = len(prompts)
+        else:
+            prompts = [prompt] * num_imgs
+        gen_n = self._resolve_pad(pad_to, num_imgs)
+        prompts = prompts + [prompts[-1]] * (gen_n - num_imgs)
+        labels, negative_labels = self._encode_prompts(
+            prompts, negative_prompt, gen_n)
+        if schedule_shift is None:
+            schedule_shift = self.schedule_shift
+        out, _ = self.diffuser.generate(
+            labels=labels, num_imgs=gen_n,
+            img_size=self.diffuser.model.image_size,
+            class_guidance=class_guidance, seed=seed, n_iter=n_iter,
+            exponent=1, scale_factor=self._scale_factor, sharp_f=0,
+            bright_f=0, cache_interval=cache_interval, output="uint8",
+            negative_labels=negative_labels, cfg_rescale=cfg_rescale,
+            guidance_interval=guidance_interval, sampler=sampler,
+            schedule=schedule, eta=eta, schedule_shift=schedule_shift)
+        return out[:num_imgs].cpu().numpy()

@@ -1,0 +1,327 @@
+"""HTTP serving of text-to-image generation: the dependency-free WSGI app.
+
+Counterpart of the WSGI frontend of the JAX package's `serve/app.py`:
+`GET /` (welcome JSON), `GET /healthz` (device inventory snapshotted at
+start, request counters) and `POST /generate-image/` with bearer-token
+auth against the API_TOKEN environment variable, the request schema
+{prompt, class_guidance=6, seed=11, num_imgs=1, img_size=32, n_iter=15,
+...}, a JPEG response, 401 on a missing or wrong token, 422 on malformed
+fields and 500 with the error's text when generation fails.
+
+Plain text-to-image only. The editing fields (init_image, mask,
+strength, interpolate_to, seed_b, best_of), block caching and the solver
+extras answer 422 naming their ROADMAP item. The FastAPI frontend and the
+micro-batcher wait (ROADMAP item 10).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+from typing import Optional
+
+from transformer_latent_diffusion_tpu_torch.configs import DenoiserLoad, LTDConfig
+
+
+def default_config() -> LTDConfig:
+    """What the service runs when given no config: `LTDConfig()` with a
+    bf16 denoiser, the dtype the CUDA kernels take."""
+    return LTDConfig(denoiser_load=DenoiserLoad(dtype="bfloat16"))
+
+
+class GenerationService:
+    """The model behind the frontend.
+
+    cfg: the LTDConfig to build (None: `default_config()`). num_imgs is
+    snapped up to a bucket (the padded images are generated
+    and dropped) and n_iter up to a bucket (the largest bucket caps the
+    step count), so that only a few batch shapes and step counts ever
+    run. SERVE_NUM_IMGS_BUCKETS / SERVE_N_ITER_BUCKETS override the
+    buckets ("" or "0" disables)."""
+
+    DEFAULT_NUM_IMGS_BUCKETS = (1, 2, 4, 8, 16, 32)
+    DEFAULT_N_ITER_BUCKETS = (4, 8, 15, 25, 50)
+
+    @staticmethod
+    def _env_buckets(env: str, default):
+        raw = os.getenv(env)
+        if raw is None:
+            return default
+        raw = raw.strip()
+        if not raw or raw == "0":
+            return None
+        return tuple(sorted(int(x) for x in raw.split(",")))
+
+    @staticmethod
+    def _snap_up(value: int, buckets) -> int:
+        """Smallest bucket >= value, else the largest bucket."""
+        for b in buckets:
+            if b >= value:
+                return b
+        return buckets[-1]
+
+    def __init__(self, cfg: Optional[LTDConfig] = None, device=None,
+                 transformer=None):
+        if transformer is None:
+            if device is None:
+                raise ValueError("GenerationService needs a device "
+                                 "(or a built transformer)")
+            from transformer_latent_diffusion_tpu_torch.sampling.pipeline import (
+                DiffusionTransformer,
+            )
+
+            transformer = DiffusionTransformer(cfg or default_config(),
+                                               device=device)
+        self.transformer = transformer
+        nb = self._env_buckets("SERVE_NUM_IMGS_BUCKETS",
+                               self.DEFAULT_NUM_IMGS_BUCKETS)
+        ib = self._env_buckets("SERVE_N_ITER_BUCKETS",
+                               self.DEFAULT_N_ITER_BUCKETS)
+        self.num_imgs_buckets = tuple(sorted(nb)) if nb else None
+        self.n_iter_buckets = tuple(sorted(ib)) if ib else None
+        self._stats_lock = threading.Lock()
+        self._stats = {"requests": 0, "images": 0, "errors": 0,
+                       "generate_seconds": 0.0}
+        # snapshot the device inventory now; health() never queries it live
+        dev = transformer.device
+        if dev.type == "cuda":
+            import torch
+
+            self._device_info = {
+                "backend": "cuda",
+                "n_devices": torch.cuda.device_count(),
+                "device_kind": torch.cuda.get_device_name(dev),
+            }
+        else:
+            self._device_info = {"backend": dev.type, "n_devices": 1,
+                                 "device_kind": dev.type}
+
+    def effective_n_iter(self, n_iter) -> Optional[int]:
+        """The step count a request actually runs after bucketing."""
+        if isinstance(n_iter, bool) or not isinstance(n_iter, int):
+            return None
+        if self.n_iter_buckets:
+            return self._snap_up(n_iter, self.n_iter_buckets)
+        return n_iter
+
+    def health(self) -> dict:
+        info = {"status": "ok", "microbatch": False}
+        info.update(self._device_info)
+        with self._stats_lock:
+            info.update(self._stats)
+        return info
+
+    def generate_jpeg(self, prompt: str, num_imgs: int = 1, **kwargs) -> bytes:
+        """Counted and timed wrapper of `_generate_jpeg` (feeds /healthz)."""
+        t0 = time.perf_counter()
+        try:
+            jpeg = self._generate_jpeg(prompt, num_imgs=num_imgs, **kwargs)
+        except Exception:
+            with self._stats_lock:
+                self._stats["requests"] += 1
+                self._stats["errors"] += 1
+            raise
+        with self._stats_lock:
+            self._stats["requests"] += 1
+            self._stats["images"] += num_imgs
+            self._stats["generate_seconds"] += time.perf_counter() - t0
+        return jpeg
+
+    def _generate_jpeg(self, prompt: str, class_guidance: float = 6,
+                       seed: int = 11, num_imgs: int = 1, img_size: int = 32,
+                       n_iter: int = 15, negative_prompt: Optional[str] = None,
+                       sampler: Optional[str] = None,
+                       schedule: str = "poly") -> bytes:
+        import io
+
+        if self.n_iter_buckets:
+            n_iter = self._snap_up(n_iter, self.n_iter_buckets)
+        pad_to = None
+        if self.num_imgs_buckets and num_imgs <= self.num_imgs_buckets[-1]:
+            pad_to = self._snap_up(num_imgs, self.num_imgs_buckets)
+            if pad_to == num_imgs:
+                pad_to = None
+        solver_kw = {}
+        if sampler is not None:
+            solver_kw["sampler"] = sampler
+        if schedule != "poly":
+            solver_kw["schedule"] = schedule
+        img = self.transformer.generate_image_from_text(
+            prompt=prompt, class_guidance=class_guidance, seed=seed,
+            num_imgs=num_imgs, img_size=img_size, n_iter=n_iter,
+            negative_prompt=negative_prompt, pad_to=pad_to, **solver_kw)
+        buf = io.BytesIO()
+        img.save(buf, format="JPEG")
+        return buf.getvalue()
+
+
+WELCOME = {"message": "Welcome to Image Generator"}
+# the text-to-image request fields and their defaults
+REQUEST_DEFAULTS = {"class_guidance": 6, "seed": 11, "num_imgs": 1,
+                    "img_size": 32, "n_iter": 15, "negative_prompt": None,
+                    "sampler": None, "schedule": "poly"}
+NON_NULLABLE_FIELDS = ("prompt", "class_guidance", "seed", "num_imgs",
+                       "img_size", "n_iter", "cache_interval", "schedule",
+                       "cfg_rescale", "eta")
+INT_FIELDS = ("class_guidance", "seed", "num_imgs", "img_size", "n_iter",
+              "cache_interval", "seed_b", "best_of")
+# fields of the JAX service that the port does not serve yet -> ROADMAP item
+NOT_PORTED_FIELDS = {
+    "init_image": "item 9 (editing)", "mask": "item 9 (editing)",
+    "strength": "item 9 (editing)", "interpolate_to": "item 9 (editing)",
+    "seed_b": "item 9 (editing)", "best_of": "item 12 (eval towers)",
+}
+
+
+def _validate_int_fields(payload: dict) -> Optional[str]:
+    """pydantic-v2-style lax int coercion: ints pass, bools and integral
+    floats or numeric strings coerce (written back), the rest is a 422."""
+    for k in INT_FIELDS:
+        v = payload.get(k)
+        if v is None:
+            continue
+        if isinstance(v, bool):
+            payload[k] = int(v)
+            continue
+        if isinstance(v, int):
+            continue
+        if isinstance(v, str):
+            try:
+                v = float(v)
+            except ValueError:
+                return f"{k} must be an integer"
+        if isinstance(v, float) and v.is_integer():
+            payload[k] = int(v)
+        else:
+            return f"{k} must be an integer"
+    return None
+
+
+def _validate_fields(payload: dict) -> Optional[str]:
+    """422-level checks of a text-to-image request; an error text or None."""
+    for k in NON_NULLABLE_FIELDS:
+        if k in payload and payload[k] is None:
+            return f"{k} must not be null"
+    for k, item in NOT_PORTED_FIELDS.items():
+        if payload.get(k) is not None:
+            return f"{k} is not served by this port yet (ROADMAP {item})"
+    if payload.get("cache_interval", 1) != 1:
+        return ("cache_interval > 1 (block caching) is not served by this "
+                "port yet (ROADMAP item 9)")
+    for k in ("cfg_rescale", "eta"):
+        try:
+            value = float(payload.get(k, 0.0))
+        except (TypeError, ValueError):
+            return f"{k} must be a number"
+        if value:
+            return (f"{k} is not served by this port yet "
+                    f"(ROADMAP item 9, sampler extras)")
+    sampler = payload.get("sampler")
+    schedule = payload.get("schedule", "poly")
+    if sampler is not None and not isinstance(sampler, str):
+        return "sampler must be a string"
+    if not isinstance(schedule, str):
+        return "schedule must be a string"
+    if sampler == "heun":
+        return ("sampler='heun' is not served by this port yet "
+                "(ROADMAP item 9, sampler extras)")
+    if sampler is not None and sampler not in ("ddim", "dpm"):
+        return "sampler must be one of 'ddim', 'dpm', 'heun'"
+    if schedule not in ("poly", "cosine", "karras"):
+        return "schedule must be one of 'poly', 'cosine', 'karras'"
+    if not isinstance(payload["prompt"], str):
+        return "prompt must be a string"
+    if not isinstance(payload.get("negative_prompt") or "", str):
+        return "negative_prompt must be a string"
+    if payload.get("num_imgs", 1) < 1 or payload.get("n_iter", 15) < 1:
+        return "num_imgs and n_iter must be >= 1"
+    return None
+
+
+def _check_token(auth_header: Optional[str]):
+    """(status, detail): 401 on a missing or wrong bearer token."""
+    if not auth_header or not auth_header.lower().startswith("bearer "):
+        return 401, "Not authenticated"
+    if auth_header[7:] != os.getenv("API_TOKEN"):
+        return 401, "Invalid authentication credentials"
+    return 200, None
+
+
+_REASONS = {200: "OK", 401: "Unauthorized", 404: "Not Found",
+            422: "Unprocessable Entity", 500: "Internal Server Error"}
+
+
+def create_wsgi_app(cfg: Optional[LTDConfig] = None, service=None,
+                    device=None):
+    """The WSGI app over `service`, or over a new GenerationService built
+    from `cfg` on `device`."""
+    svc = service or GenerationService(cfg, device=device)
+
+    def app(environ, start_response):
+        method = environ["REQUEST_METHOD"]
+        path = environ.get("PATH_INFO", "/")
+
+        def respond(status_code, body, content_type="application/json",
+                    extra_headers=()):
+            headers = [("Content-Type", content_type),
+                       ("Content-Length", str(len(body)))]
+            headers.extend(extra_headers)
+            if status_code == 401:
+                headers.append(("WWW-Authenticate", "Bearer"))
+            start_response(f"{status_code} {_REASONS[status_code]}", headers)
+            return [body]
+
+        def detail(status_code, text):
+            return respond(status_code, json.dumps({"detail": text}).encode())
+
+        if path == "/" and method == "GET":
+            return respond(200, json.dumps(WELCOME).encode())
+        if path == "/healthz" and method == "GET":
+            return respond(200, json.dumps(svc.health()).encode())
+        if path == "/generate-image/" and method == "POST":
+            status, text = _check_token(environ.get("HTTP_AUTHORIZATION"))
+            if status != 200:
+                return detail(status, text)
+            try:
+                length = int(environ.get("CONTENT_LENGTH") or 0)
+                payload = json.loads(environ["wsgi.input"].read(length) or b"{}")
+            except (ValueError, UnicodeDecodeError):
+                return detail(422, "body must be a JSON object")
+            if not isinstance(payload, dict):
+                return detail(422, "body must be a JSON object")
+            if "prompt" not in payload:
+                return detail(422, "prompt is required")
+            err = _validate_int_fields(payload) or _validate_fields(payload)
+            if err:
+                return detail(422, err)
+            kwargs = {k: payload.get(k, v) for k, v in REQUEST_DEFAULTS.items()}
+            try:
+                jpeg = svc.generate_jpeg(prompt=payload["prompt"], **kwargs)
+            except Exception as e:  # the reference's 500 semantics
+                return detail(500, f"{type(e).__name__}: {e}")
+            eff = svc.effective_n_iter(kwargs["n_iter"])
+            extra = ([("X-Effective-N-Iter", str(eff))]
+                     if eff is not None and eff != kwargs["n_iter"] else [])
+            return respond(200, jpeg, content_type="image/jpeg",
+                           extra_headers=extra)
+        return detail(404, "Not Found")
+
+    app.service = svc
+    return app
+
+
+def serve(cfg: Optional[LTDConfig] = None, device="cuda",
+          host: str = "0.0.0.0", port: int = 8000):
+    """Serve with wsgiref, one thread per request."""
+    from socketserver import ThreadingMixIn
+    from wsgiref.simple_server import WSGIServer, make_server
+
+    class _ThreadingWSGIServer(ThreadingMixIn, WSGIServer):
+        daemon_threads = True
+
+    print(f"serving (wsgiref, threaded) on {host}:{port}")
+    make_server(host, port, create_wsgi_app(cfg, device=device),
+                server_class=_ThreadingWSGIServer).serve_forever()
+
