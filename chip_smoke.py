@@ -2,40 +2,66 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels of the fused decoder layer from
-`transformer_latent_diffusion_tpu_torch/csrc/`, holds each against its
-plain PyTorch version at the main path's shapes, holds one fused-engine
-forward against the plain bf16 forward, drives the library entry point
-(32 images, 50-step DDIM, CFG 6, flagship 101M denoiser, random weights
-from a seed) and the HTTP service on a real socket, and checks that the
-main path's run launched every kernel. Any failure raises: there is no
-CPU fallback and no caught phase.
+Builds the hand-written CUDA kernels from
+`transformer_latent_diffusion_tpu_torch/csrc/` and drives the port's two
+paths, each checked against plain PyTorch versions on the same inputs:
+
+- serving (TPU kernel K1, the inference decoder layer): each kernel at the
+  main path's shapes, one fused-engine forward against the plain bf16
+  forward, the library entry point (32 images, 50-step DDIM, CFG 6,
+  flagship 101M denoiser, random weights from a seed) and the HTTP
+  service on a real socket;
+- training (TPU kernel K2, the differentiable decoder layer): each
+  backward kernel at the flagship layer's shapes (batch 128), one layer's
+  forward and backward against the plain layer, one train step's
+  gradients against the plain bf16 autograd path, and `train.main` at
+  batch 128 on random latents (20 steps, one eval through the K1 engine,
+  a checkpoint, then a resume that continues the step count).
+
+It checks that each path's run launched its kernels the expected number
+of times. Any failure raises: there is no CPU fallback and no caught
+phase.
 
 Output: one line per phase; then the card's name and power limit as
-nvidia-smi reports them, one JSON line with the kernels' launches,
-errors and times, and as the last line
+nvidia-smi reports them, one JSON line with every kernel's launches,
+errors, times and bounds, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
 import urllib.request
 
+import numpy as np
 import torch
 
 # main-path shapes: CFG doubles batch 32 to 64; 16x16 tokens; flagship width
 B, HW, D, HEADS = 64, 16, 768, 12
 N, HIDDEN = HW * HW, 4 * 768
 N_IMGS, N_ITER = 32, 50
+# training shapes: the flagship step's batch (TrainConfig.batch_size)
+TB = 128
+TRAIN_STEPS = 20  # steps of the train.main run (one epoch)
+EVAL_CALLS = 40  # denoiser calls of one eval grid (eval_gen: 40 steps)
 DEVICE = "cuda"
-TPU_KERNEL = "transformer_latent_diffusion_tpu/ops/fused_stack.py:59"
+TPU_KERNEL = "transformer_latent_diffusion_tpu/ops/fused_stack.py:120"
+TPU_K2_FWD = "transformer_latent_diffusion_tpu/ops/fused_layer_vjp.py:267"
+TPU_K2_BWD = "transformer_latent_diffusion_tpu/ops/fused_layer_vjp.py:289"
+# the card's published peaks (H100 SXM, dense, at 700 W): the least time
+# of a kernel is the larger of its bytes over the memory rate and its
+# operations over the peak rate of their type
+HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_FLOP_S = 989e12
+F32_FLOP_S = 67e12
 # kernel vs plain version on the same inputs: rel-L2 and max-abs bounds
 # (max-abs relative to the plain output's largest magnitude). The two
 # accumulate the same bf16 products in float32 in different orders, so a
@@ -72,6 +98,14 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes, flops, peak):
+    """(least ms, "bytes" or "operations") for moving `nbytes` and doing
+    `flops` at `peak` operations per second."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_env():
@@ -240,18 +274,63 @@ def phase_kernels():
         results[name] = (kern_t, plain_t)
     torch.cuda.synchronize()
 
+    timing = time_against_plain(results, "kernels")
+
+    # one PyTorch call per launch for the same products / attention (the
+    # fused LayerNorm prologues and residual epilogues not included)
+    F = torch.nn.functional
+    bf = torch.bfloat16
+    xb = x.to(bf)
+    heads = qkv.reshape(B, N, 3, HEADS, 64).permute(2, 0, 3, 1, 4).contiguous()
+    qh = qc.reshape(B, N, HEADS, 64).transpose(1, 2).contiguous()
+    kvh = kv.reshape(B, 2, 2, HEADS, 64).permute(2, 0, 3, 1, 4).contiguous()
+    library = {
+        "ln_gemm": lambda: (F.linear(xb, wqkv), F.linear(xb, wq), F.linear(cond, wkv),
+                            F.linear(xn, w1, b1.to(bf)), F.linear(act, w2, b2.to(bf))),
+        "self_attention": lambda: F.scaled_dot_product_attention(heads[0], heads[1], heads[2]),
+        "cross_attention": lambda: F.scaled_dot_product_attention(qh, kvh[0], kvh[1]),
+    }
+    library = {k: time_ms(fn) for k, fn in library.items()}
+    library["dwconv_gelu"] = None  # no one call: a depthwise conv, then a GELU
+    for name, ms in library.items():
+        log(f"[kernels] {name}: library call {ms if ms is None else f'{ms:.4f}'} ms")
+    return worst, timing, library
+
+
+def time_against_plain(results, tag):
+    """{name: (kernel ms, plain ms)}, each the mean of two timings taken
+    plain, kernel, kernel, plain."""
     timing = {}
     for name, (kern, plain) in results.items():
-        # plain, kernel, kernel, plain: the medians of each side
         p1 = time_ms(plain)
         k1 = time_ms(kern)
         k2 = time_ms(kern)
         p2 = time_ms(plain)
         timing[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        log(f"[kernels] {name}: {timing[name][0]:.4f} ms per layer, plain "
+        log(f"[{tag}] {name}: {timing[name][0]:.4f} ms per layer, plain "
             f"{timing[name][1]:.4f} ms (kernel runs {k1:.4f}/{k2:.4f}, plain "
             f"{p1:.4f}/{p2:.4f})")
-    return worst, timing
+    return timing
+
+
+def k1_bounds():
+    """Least ms per decoder layer of each K1 kernel at the main path's
+    shapes (each input read once, each output written once)."""
+    m = B * N
+    gemms = [  # (rows, N, K, A bytes per element, out bytes, extra bytes)
+        (m, 3 * D, D, 4, 2, 0), (m, D, D, 4, 2, 0), (2 * B, 2 * D, D, 2, 2, 0),
+        (m, HIDDEN, D, 2, 2, HIDDEN * 4), (m, D, HIDDEN, 2, 0, m * D * 8 + D * 4)]
+    gbytes = sum(r * k * ab + n * k * 2 + r * n * ob + ex for r, n, k, ab, ob, ex in gemms)
+    gflops = sum(2 * r * n * k for r, n, k, *_ in gemms)
+    return {
+        "ln_gemm": bound(gbytes, gflops, BF16_TENSOR_FLOP_S),
+        "self_attention": bound(m * 3 * D * 2 + m * D * 8,
+                                4 * B * HEADS * N * N * 64, BF16_TENSOR_FLOP_S),
+        "cross_attention": bound(m * D * 2 + 2 * B * 2 * D * 2 + m * D * 8 + m * D * 2,
+                                 16 * m * D, F32_FLOP_S),
+        "dwconv_gelu": bound(m * HIDDEN * 4 + 9 * HIDDEN * 2 + HIDDEN * 4,
+                             26 * m * HIDDEN, F32_FLOP_S),
+    }
 
 
 def flagship_configs():
@@ -414,27 +493,461 @@ def phase_serving(tr):
         thread.join(timeout=30)
 
 
+# ------------------------------ training (K2) ------------------------------
+
+# one training layer, kernels vs fused_layer_*_plain: rel-L2 of the
+# forward's update (as for the serving layer) and of each of the 17
+# backward outputs. Measured on an H100 80GB HBM3 at 700 W: forward
+# 2.55e-3, worst backward output 3.59e-3 (dcond); about 3x margin.
+LAYER_FWD_REL_L2 = 2e-2
+LAYER_GRAD_REL_L2 = 1e-2
+# one train step's gradients, kernels vs the plain bf16 autograd Denoiser
+# (other rounding points: bf16 LayerNorm outputs and hidden state), global
+# and worst-leaf rel-L2. Measured on the same card: 0.00294 global, 0.00606
+# worst leaf; about 3x margin.
+STEP_GRAD_REL_L2 = 1e-2
+STEP_GRAD_LEAF_REL_L2 = 2e-2
+
+
+def _check(name, got, want, tag):
+    """Kernel vs plain: rel-L2 and max-abs (relative to max |plain|)."""
+    worst = 0.0
+    for u, v in zip(got, want):
+        r, a, rel_a = _errors(u, v)
+        worst = max(worst, a)
+        log(f"[{tag}] {name}: rel-L2 {r:.2e} max-abs {a:.3e} ({rel_a:.2e} of max |ref|)")
+        if not (r < KERNEL_REL_L2 and rel_a < KERNEL_MAX_ABS):
+            raise AssertionError(f"{name} disagrees with its plain version")
+    return worst
+
+
+def _tuple(v):
+    return v if isinstance(v, tuple) else (v,)
+
+
+def phase_train_kernels():
+    """Each backward kernel, and the float32 modes of ln_gemm and
+    dwconv_gelu that the training layer uses, against their plain
+    versions at the flagship layer's shapes at batch TB."""
+    from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device="cpu").manual_seed(2)
+    bf = torch.bfloat16
+
+    def randn(*shape, std=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g) * std).to(dev, dtype)
+
+    m = TB * N
+    g32 = randn(m, D, std=1e-3)          # upstream gradient (float32)
+    glp = g32.to(bf)
+    a = randn(m, HIDDEN, dtype=bf)       # GELU output
+    h = randn(m, HIDDEN)                 # expanded hidden state
+    c = randn(m, HIDDEN)                 # pre-GELU values
+    da = randn(m, HIDDEN, std=1e-3)
+    dhid = randn(m, HIDDEN, std=1e-3, dtype=bf)
+    xn = randn(m, D, dtype=bf)
+    x = randn(m, D)
+    cond = randn(2 * TB, D, dtype=bf)
+    dkv = randn(2 * TB, 2 * D, std=1e-3, dtype=bf)
+    dqkv = randn(m, 3 * D, std=1e-3, dtype=bf)
+    qkv = randn(m, 3 * D, dtype=bf)
+    qc = randn(m, D, dtype=bf)
+    kv = randn(2 * TB, 2 * D, dtype=bf)
+    dw = randn(9, HIDDEN, std=1 / 3, dtype=bf)
+    dwb = randn(HIDDEN, std=0.1)
+    b1 = randn(HIDDEN, std=0.1)
+    w1 = randn(HIDDEN, D, std=D ** -0.5, dtype=bf)
+    w2t = randn(HIDDEN, D, std=HIDDEN ** -0.5, dtype=bf)  # W2^T, the (out, in) operand of dX
+    scale = 1.0 + randn(D, std=0.1)
+
+    wg_cases = [(glp, a), (dhid, xn), (glp, xn), (dkv, cond), (dqkv, xn)]
+    # a batch of 8 gives 16 conditioning rows: M padded to 32 in the wrapper
+    _check("weight_grad/ragged M", (lv.weight_grad(dkv[:16], cond[:16]),),
+           (lv.weight_grad_plain(dkv[:16], cond[:16]),), "train-kernels")
+    cases = {  # name: (kernel call, plain call, timed kernel, timed plain)
+        "weight_grad": (lambda: lv.weight_grad(glp, a),
+                        lambda: lv.weight_grad_plain(glp, a),
+                        lambda: [lv.weight_grad(u, v) for u, v in wg_cases],
+                        lambda: [lv.weight_grad_plain(u, v) for u, v in wg_cases]),
+        "colsum": (lambda: lv.colsum(g32), lambda: lv.colsum_plain(g32),
+                   lambda: lv.colsum(g32), lambda: lv.colsum_plain(g32)),
+        "layernorm_bwd": (lambda: lv.layernorm_bwd(g32, x, scale, g32),
+                          lambda: lv.layernorm_bwd_plain(g32, x, scale, g32),
+                          lambda: [lv.layernorm_bwd(g32, x, scale, g32) for _ in range(3)],
+                          lambda: [lv.layernorm_bwd_plain(g32, x, scale, g32)
+                                   for _ in range(3)]),
+        "dwconv_gelu_bwd": (lambda: lv.dwconv_gelu_bwd(da, c, h, dw, HW),
+                            lambda: lv.dwconv_gelu_bwd_plain(da, c, h, dw, HW),
+                            None, None),
+        "self_attention_bwd": (lambda: lv.self_attention_bwd(qkv, g32, HEADS, N),
+                               lambda: lv.self_attention_bwd_plain(qkv, g32, HEADS, N),
+                               None, None),
+        "cross_attention_bwd": (lambda: lv.cross_attention_bwd(qc, kv, g32, HEADS, N),
+                                lambda: lv.cross_attention_bwd_plain(qc, kv, g32, HEADS, N),
+                                None, None),
+    }
+    worst, timed = {}, {}
+    for name, (kern, plain, kern_t, plain_t) in cases.items():
+        worst[name] = _check(name, _tuple(kern()), _tuple(plain()), "train-kernels")
+        timed[name] = (kern_t or kern, plain_t or plain)
+    # K1's kernels in the modes only the training layer uses
+    _check("ln_gemm/expand float32 out",
+           (fs.ln_gemm(xn, w1, bias=b1, out_dtype=torch.float32),),
+           (fs.ln_gemm_plain(xn, w1, bias=b1, out_dtype=torch.float32),), "train-kernels")
+    _check("ln_gemm/dX = dY W float32 out",
+           (fs.ln_gemm(glp, w2t, out_dtype=torch.float32),),
+           (fs.ln_gemm_plain(glp, w2t, out_dtype=torch.float32),),
+           "train-kernels")
+    ln = (scale, randn(D, std=0.1))
+    _check("ln_gemm/LN rows out", fs.ln_gemm(x, w1[:D].contiguous(), ln=ln, return_xn=True),
+           fs.ln_gemm_plain(x, w1[:D].contiguous(), ln=ln, return_xn=True), "train-kernels")
+    _check("dwconv_gelu/float32 in, c out", fs.dwconv_gelu(h, dw, dwb, HW, return_c=True),
+           fs.dwconv_gelu_plain(h, dw, dwb, HW, return_c=True), "train-kernels")
+    torch.cuda.synchronize()
+    timing = time_against_plain(timed, "train-kernels")
+    library = {
+        "weight_grad": time_ms(lambda: [u.t() @ v for u, v in wg_cases]),
+        "colsum": time_ms(lambda: g32.sum(0)),
+        # no one call on the same inputs: PyTorch's LayerNorm and attention
+        # backwards take the forward's saved statistics / outputs
+        "layernorm_bwd": None, "dwconv_gelu_bwd": None,
+        "self_attention_bwd": None, "cross_attention_bwd": None,
+    }
+    log(f"[train-kernels] library calls (ms): {library}")
+
+    def wg_bytes(mm, nn, kk):
+        return mm * nn * 2 + mm * kk * 2 + nn * kk * 4
+
+    wg_shapes = [(m, D, HIDDEN), (m, HIDDEN, D), (m, D, D), (2 * TB, 2 * D, D), (m, 3 * D, D)]
+    bounds = {
+        "weight_grad": bound(sum(wg_bytes(*t) for t in wg_shapes),
+                             sum(2 * mm * nn * kk for mm, nn, kk in wg_shapes),
+                             BF16_TENSOR_FLOP_S),
+        "colsum": bound(m * D * 4 + D * 4, m * D, F32_FLOP_S),
+        "layernorm_bwd": bound(3 * (m * D * 16 + D * 4), 3 * 15 * m * D, F32_FLOP_S),
+        "dwconv_gelu_bwd": bound(m * HIDDEN * 14 + 9 * HIDDEN * 2 + 11 * HIDDEN * 4,
+                                 56 * m * HIDDEN, F32_FLOP_S),
+        "self_attention_bwd": bound(m * 3 * D * 4 + m * D * 4,
+                                    10 * TB * HEADS * N * N * 64, BF16_TENSOR_FLOP_S),
+        "cross_attention_bwd": bound(m * D * 8 + 2 * TB * 2 * D * 4, 10 * m * D, F32_FLOP_S),
+    }
+    return worst, timing, library, bounds
+
+
+def _layer_params(gen, dev):
+    """One flagship layer's parameters in PARAM_NAMES order (bf16 weights,
+    float32 LayerNorm and biases), requiring gradients."""
+    bf = torch.bfloat16
+
+    def p(*shape, std=1.0, dtype=torch.float32, base=0.0):
+        t = (base + torch.randn(*shape, generator=gen) * std).to(dev, dtype)
+        return t.requires_grad_(True)
+
+    return [p(D, std=0.1, base=1.0), p(D, std=0.1), p(3 * D, D, std=D ** -0.5, dtype=bf),
+            p(D, std=0.1, base=1.0), p(D, std=0.1), p(D, D, std=D ** -0.5, dtype=bf),
+            p(2 * D, D, std=D ** -0.5, dtype=bf), p(D, std=0.1, base=1.0), p(D, std=0.1),
+            p(HIDDEN, D, std=D ** -0.5, dtype=bf), p(HIDDEN, std=0.1),
+            p(9, HIDDEN, std=1 / 3, dtype=bf), p(HIDDEN, std=0.1),
+            p(D, HIDDEN, std=HIDDEN ** -0.5, dtype=bf), p(D, std=0.1)]
+
+
+def _reset_counts():
+    from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
+
+    fs.reset_launch_counts()
+    lv.reset_launch_counts()
+    torch.cuda.synchronize()
+
+
+def _counts():
+    from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
+
+    torch.cuda.synchronize()
+    return {**fs.LAUNCHES, **lv.LAUNCHES}
+
+
+def phase_train_layer():
+    """One decoder layer at batch TB: FusedLayerFunction forward and
+    backward against the plain layer forward and backward (all 17
+    outputs), its launches per layer, and its times."""
+    from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    params = _layer_params(gen, dev)
+    bf = torch.bfloat16
+    x = torch.randn(TB, N, D, generator=gen).to(dev, bf).requires_grad_(True)
+    cond = torch.randn(TB, 2, D, generator=gen).to(dev, bf).requires_grad_(True)
+    g = (torch.randn(TB, N, D, generator=gen) * 1e-3).to(dev, bf)
+    _reset_counts()
+    out = lv.fused_layer(x, cond, params, HEADS, HW)
+    out.backward(g)
+    per_layer = {k: v for k, v in _counts().items() if v}
+    log(f"[train-layer] launches of one layer's forward + backward: {per_layer}")
+    with torch.no_grad():
+        want = lv.fused_layer_fwd_plain(x, cond, params, HEADS, HW)
+        r = rel_l2(out.float() - x.float(), want.float() - x.float())
+        log(f"[train-layer] forward, kernels vs fused_layer_fwd_plain: rel-L2 of the "
+            f"layer's update {r:.2e} (bound {LAYER_FWD_REL_L2})")
+        if not r < LAYER_FWD_REL_L2:
+            raise AssertionError("the training layer's forward disagrees with the plain layer")
+        dx, dcond, grads = lv.fused_layer_bwd_plain(x, cond, g, params, HEADS, HW)
+    worst = 0.0
+    rels = {}
+    for name, t, w in zip(("x", "cond") + lv.PARAM_NAMES, [x, cond, *params],
+                          [dx, dcond, *grads]):
+        rels[name] = rel_l2(t.grad.float(), w.float())
+        worst = max(worst, rels[name])
+    log("[train-layer] backward, kernels vs fused_layer_bwd_plain, rel-L2 per output: "
+        + " ".join(f"{k} {v:.2e}" for k, v in rels.items())
+        + f" (worst {worst:.2e}, bound {LAYER_GRAD_REL_L2})")
+    if not worst < LAYER_GRAD_REL_L2:
+        raise AssertionError("the training layer's gradients disagree with the plain layer")
+
+    detached = [t.detach() for t in params]
+    xd, cd = x.detach(), cond.detach()
+    timing = time_against_plain({
+        "layer forward": (lambda: lv.fused_layer_fwd(xd, cd, detached, HEADS, HW),
+                          lambda: lv.fused_layer_fwd_plain(xd, cd, detached, HEADS, HW)),
+        "layer backward (with recompute)": (
+            lambda: lv.fused_layer_bwd(xd, cd, g, detached, HEADS, HW),
+            lambda: lv.fused_layer_bwd_plain(xd, cd, g, detached, HEADS, HW)),
+    }, "train-layer")
+
+    def keep_fwd():  # the forward as the backward's recompute runs it
+        r = lv._layer_forward(xd, cd, detached, HEADS, HW, keep=True)
+        return fs.ln_gemm(r["a"], detached[13], bias=detached[14], residual=r["x2"])
+
+    lean = [time_ms(lambda: lv.fused_layer_fwd(xd, cd, detached, HEADS, HW))]
+    keep = [time_ms(keep_fwd), time_ms(keep_fwd)]
+    lean.append(time_ms(lambda: lv.fused_layer_fwd(xd, cd, detached, HEADS, HW)))
+    keep_ms, lean_ms = sum(keep) / 2, sum(lean) / 2
+    n_layers = flagship_configs().denoiser_cfg.n_layers
+    log(f"[train-layer] layer forward writing what a backward reads (keep=True, as the "
+        f"recompute): {keep_ms:.4f} ms per layer, lean forward (keep=False) {lean_ms:.4f} ms; "
+        f"difference {keep_ms - lean_ms:.4f} ms per layer, x {n_layers} layers = "
+        f"{(keep_ms - lean_ms) * n_layers:.3f} ms per step (runs keep "
+        f"{keep[0]:.4f}/{keep[1]:.4f}, lean {lean[0]:.4f}/{lean[1]:.4f})")
+    # the layer's least time: its products at the bf16 tensor peak (the
+    # bytes it must move, x, cond, g, the weights and the outputs, are
+    # ~0.1 GB, an order less)
+    m = TB * N
+    products = 2 * m * (3 * D * D + D * D + 2 * HIDDEN * D) + 2 * 2 * TB * 2 * D * D
+    attention = 4 * TB * HEADS * N * N * 64
+    contract = 2 * m * HIDDEN * D
+    fwd = bound(0, products + attention, BF16_TENSOR_FLOP_S)
+    # recompute (less the contract product), dX and dW of every product,
+    # five attention-backward products
+    bwd = bound(0, (products - contract + attention) + 2 * products
+                + 10 * TB * HEADS * N * N * 64, BF16_TENSOR_FLOP_S)
+    log(f"[train-layer] least time of one layer at batch {TB}: forward {fwd[0]:.3f} ms, "
+        f"backward with recompute {bwd[0]:.3f} ms (operations at 989 TFLOP/s)")
+    return per_layer, rels, timing
+
+
+def train_configs(data_dir, **train_kw):
+    from transformer_latent_diffusion_tpu_torch.configs import (
+        DataConfig,
+        ModelConfig,
+        TrainConfig,
+    )
+
+    cfg = flagship_configs()
+    return ModelConfig(
+        data_config=DataConfig(*(os.path.join(data_dir, f) for f in
+                                 ("latents.npy", "text_emb.npy", "val_emb.npy"))),
+        denoiser_config=cfg.denoiser_cfg,
+        train_config=TrainConfig(batch_size=TB, n_epoch=1, checkpoint_dir=os.path.join(
+            data_dir, "ckpts"), model_name="smoke", **train_kw),
+        vae_cfg=cfg.vae_cfg)
+
+
+def phase_train_step(smi):
+    """One train step's gradients at batch TB: the fused layers (kernels)
+    against the plain bf16 autograd Denoiser on the same weights and the
+    same draws; then ms per step of both and the peak memory."""
+    from transformer_latent_diffusion_tpu_torch.configs import TrainConfig
+    from transformer_latent_diffusion_tpu_torch.models.denoiser import Denoiser
+    from transformer_latent_diffusion_tpu_torch.train import train as tt
+    from transformer_latent_diffusion_tpu_torch.utils.common import init_random_weights_
+
+    dev = torch.device(DEVICE)
+    den = flagship_configs().denoiser_cfg
+    models = {}
+    for fused in (True, False):
+        mdl = Denoiser.from_config(den, dtype=torch.bfloat16, fused_layer_vjp=fused)
+        models[fused] = init_random_weights_(mdl, 0).to(dev).train()
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    x = torch.randn(TB, 4, den.image_size, den.image_size, generator=gen).to(dev)
+    y = torch.randn(TB, den.text_emb_size, generator=gen).to(dev)
+    tc = TrainConfig(batch_size=TB)
+    loss_fn = tt.build_loss_fn(models[True], tc, 8.0)
+    draws = loss_fn.sample_draws(torch.Generator(device=dev).manual_seed(5), x)
+    grads = {}
+    for fused, mdl in models.items():
+        loss = loss_fn.loss_from_draws(mdl, x, y, **draws)
+        loss.backward()
+        grads[fused] = {k: p.grad.float() for k, p in mdl.named_parameters()}
+        log(f"[train-step] loss ({'kernels' if fused else 'plain bf16'}): {float(loss.detach()):.6f}")
+    num = sum(float((grads[True][k] - v).square().sum()) for k, v in grads[False].items())
+    den2 = sum(float(v.square().sum()) for v in grads[False].values())
+    glob = (num / den2) ** 0.5
+    leaf, leaf_name = max((rel_l2(grads[True][k], v), k) for k, v in grads[False].items())
+    log(f"[train-step] gradients, kernels vs plain bf16 autograd, same draws: global "
+        f"rel-L2 {glob:.5f} (bound {STEP_GRAD_REL_L2}), worst leaf {leaf:.5f} {leaf_name} "
+        f"(bound {STEP_GRAD_LEAF_REL_L2})")
+    if not (glob < STEP_GRAD_REL_L2 and leaf < STEP_GRAD_LEAF_REL_L2):
+        raise AssertionError("the train step's gradients disagree with the plain path")
+    del grads
+
+    step_ms = {}
+    for fused in (False, True, True, False):
+        mdl = models[fused]
+        opt, sched = tt.make_optimizer(tc, mdl.parameters())
+        state = {"model": mdl, "ema_model": copy.deepcopy(mdl).requires_grad_(False),
+                 "optimizer": opt, "scheduler": sched, "step": 0}
+        grads_of = tt.make_grads_of(loss_fn)
+        sgen = torch.Generator(device=dev).manual_seed(6)
+        for _ in range(2):
+            tt.train_step(state, grads_of, tc, x, y, sgen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            tt.train_step(state, grads_of, tc, x, y, sgen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        step_ms.setdefault(fused, []).append((ms, peak))
+        del state, opt, sched
+    kern = sum(v[0] for v in step_ms[True]) / 2
+    plain = sum(v[0] for v in step_ms[False]) / 2
+    peak = max(v[1] for v in step_ms[True])
+    log(f"[train-step] flagship 101M, batch {TB}, bf16 compute, float32 master weights, "
+        f"Adam + EMA: {kern:.2f} ms/step ({TB / kern * 1e3:.1f} samples/s), peak "
+        f"memory {peak:.2f} GiB; plain bf16 autograd {plain:.2f} ms/step (peak "
+        f"{max(v[1] for v in step_ms[False]):.2f} GiB); runs {step_ms} | {smi}")
+    del models
+    torch.cuda.empty_cache()
+    return glob, leaf, kern, plain, peak
+
+
+def phase_train_main(per_layer, smi):
+    """train.main at batch TB on random latents: TRAIN_STEPS steps, one
+    eval grid through the K1 engine and a checkpoint at step 0, the final
+    checkpoint; then a resume that continues the step count. Launch counts
+    of both runs against the per-layer counts."""
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
+    from transformer_latent_diffusion_tpu_torch.train import main as train_main
+
+    den = flagship_configs().denoiser_cfg
+    n_layers = den.n_layers
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(0)
+        n = TRAIN_STEPS * TB + TB // 2
+        size = (den.n_channels, den.image_size, den.image_size)
+        np.save(os.path.join(tmp, "latents.npy"),
+                rng.standard_normal((n, *size), dtype=np.float32))
+        np.save(os.path.join(tmp, "text_emb.npy"),
+                rng.standard_normal((n, den.text_emb_size), dtype=np.float32))
+        np.save(os.path.join(tmp, "val_emb.npy"),
+                rng.standard_normal((8, den.text_emb_size), dtype=np.float32))
+        _reset_counts()
+        t0 = time.perf_counter()
+        r = train_main(train_configs(tmp, save_and_eval_every_iters=1000), device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        losses = r["losses"]
+        steps = r["global_step"]
+        expect = {k: v * n_layers * steps for k, v in per_layer.items()}
+        for k, v in fs.LAUNCHES_PER_LAYER.items():
+            expect[k] = expect.get(k, 0) + v * n_layers * EVAL_CALLS
+        expect = {k: v for k, v in expect.items() if v}
+        got = {k: v for k, v in launches.items() if v}
+        first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+        # the first full-lr Adam step from the seeded init spikes the loss
+        # (no warmup), which alone can put first-10 above last-10: also ask
+        # that the last 10 end below the untrained loss of step 1, and that
+        # the loss still falls from steps 11-15 to steps 16-20
+        mid, end = float(np.mean(losses[-10:-5])), float(np.mean(losses[-5:]))
+        ckpt = sorted(os.listdir(os.path.join(tmp, "ckpts", "smoke")))
+        log(f"[train-main] train.main, batch {TB}, {steps} steps in {wall:.1f} s (eval grid "
+            f"and checkpoints included); loss first-10 mean {first:.5f}, last-10 mean "
+            f"{last:.5f}, step 1 {losses[0]:.5f}, steps 11-15 mean {mid:.5f}, steps 16-20 "
+            f"mean {end:.5f} (per step: {' '.join(f'{v:.3f}' for v in losses)}); "
+            f"checkpoints {ckpt}; launches {got} (expected {expect}) | {smi}")
+        falls = last < first and last < losses[0] and end < mid
+        if steps != TRAIN_STEPS or not all(np.isfinite(losses)) or not falls:
+            raise AssertionError(f"train.main: {steps} steps, losses {losses}")
+        if got != expect:
+            raise AssertionError(f"train.main launches {got} != expected {expect}")
+        eval_png = os.path.join(tmp, "ckpts", "smoke", "eval", "emb_val_cfg:4.5_seed:10.png")
+        if not os.path.exists(eval_png) or ckpt != ["0", str(steps), "eval"]:
+            raise AssertionError(f"eval grid or checkpoints missing: {ckpt}")
+        del r
+        torch.cuda.empty_cache()
+
+        _reset_counts()
+        r2 = train_main(train_configs(tmp, from_scratch=False, save_model=False,
+                                      save_and_eval_every_iters=1000), device=DEVICE)
+        launches2 = {k: v for k, v in _counts().items() if v}
+        expect2 = {k: v * n_layers * TRAIN_STEPS for k, v in per_layer.items()}
+        log(f"[train-main] resume (from_scratch=False): step {steps} -> "
+            f"{r2['global_step']}, losses finite {all(np.isfinite(r2['losses']))}; "
+            f"launches {launches2}")
+        if r2["global_step"] != 2 * steps or not all(np.isfinite(r2["losses"])):
+            raise AssertionError("the resume did not continue the step count")
+        if launches2 != expect2:
+            raise AssertionError(f"resume launches {launches2} != expected {expect2}")
+    return launches, wall / steps
+
+
 def main():
     smi = phase_env()
     phase_build()
-    worst, timing = phase_kernels()
+    worst, timing, library = phase_kernels()
     cfg = flagship_configs()
     phase_engine(cfg)
     torch.cuda.empty_cache()
     tr, launches = phase_library(cfg)
     phase_serving(tr)
+    del tr
+    torch.cuda.empty_cache()
 
+    t_worst, t_timing, t_library, t_bounds = phase_train_kernels()
+    torch.cuda.empty_cache()
+    per_layer, _, _ = phase_train_layer()
+    torch.cuda.empty_cache()
+    phase_train_step(smi)
+    t_launches, _ = phase_train_main(per_layer, smi)
+
+    from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
     from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
 
+    bounds = k1_bounds()
+    sources = {"weight_grad": "gemm_bwd", "colsum": "gemm_bwd",
+               "layernorm_bwd": "layernorm_bwd", "dwconv_gelu_bwd": "dwconv_gelu_bwd",
+               "self_attention_bwd": "attention_bwd", "cross_attention_bwd": "attention_bwd"}
     kernels = []
-    for name in fs.KERNELS:
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"transformer_latent_diffusion_tpu_torch/csrc/{name}.cu",
-            "replaces": TPU_KERNEL, "launches": launches[name],
-            "max_abs_err": worst[name], "ms": timing[name][0],
-            "plain_ms": timing[name][1],
-        })
+    for names, src, tpu, counts, err, tim, lib, bnd in (
+            (fs.KERNELS, {k: k for k in fs.KERNELS}, TPU_KERNEL, launches, worst, timing,
+             library, bounds),
+            (lv.KERNELS, sources, TPU_K2_BWD, t_launches, t_worst, t_timing, t_library,
+             t_bounds)):
+        for name in names:
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": f"transformer_latent_diffusion_tpu_torch/csrc/{src[name]}.cu",
+                "replaces": tpu, "launches": counts[name], "max_abs_err": err[name],
+                "ms": tim[name][0], "plain_ms": tim[name][1], "bound_ms": bnd[name][0],
+                "bound_by": bnd[name][1], "library_ms": lib[name],
+            })
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

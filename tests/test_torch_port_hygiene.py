@@ -1,5 +1,5 @@
 """The port stands alone: it imports torch and never jax, flax or the JAX
-package, and its inference configs keep the JAX package's field names and
+package, and its configs keep the JAX package's field names and
 defaults, so one JSON config serves both."""
 
 import ast
@@ -25,6 +25,7 @@ def test_importing_the_port_loads_no_jax():
             "import transformer_latent_diffusion_tpu_torch.serve\n"
             "import transformer_latent_diffusion_tpu_torch.convert\n"
             "import transformer_latent_diffusion_tpu_torch.ops._build\n"
+            "import transformer_latent_diffusion_tpu_torch.train\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
@@ -49,7 +50,8 @@ def test_no_jax_import_in_source(path):
 
 
 CONFIGS = ["DenoiserConfig", "DenoiserLoad", "VaeConfig", "ClipConfig",
-           "ClipVisionConfig", "LTDConfig"]
+           "ClipVisionConfig", "LTDConfig", "DataDownloadConfig", "DataConfig",
+           "TrainConfig", "ModelConfig"]
 
 
 @pytest.mark.parametrize("name", CONFIGS)
@@ -79,3 +81,21 @@ def test_ltd_config_json_crosses_packages(tmp_path):
     assert json.loads(jax_configs.config_to_json(back)) == json.loads(path.read_text())
     assert port_configs.ltd_config_from_json(str(path)) == cfg
     assert port_configs.resolve_dtype(cfg.denoiser_load.dtype).is_floating_point
+
+
+def test_model_config_json_crosses_packages(tmp_path):
+    """A training config written by the port reads back in the JAX
+    package with the same fields."""
+    cfg = port_configs.ModelConfig(
+        data_config=port_configs.DataConfig("l.npy", "t.npy", "v.npy"),
+        denoiser_config=port_configs.DenoiserConfig(embed_dim=768, n_layers=12),
+        train_config=port_configs.TrainConfig(batch_size=64, warmup_steps=10))
+    want = json.loads(port_configs.config_to_json(cfg))
+    back = jax_configs.ModelConfig(
+        data_config=jax_configs.DataConfig(**want["data_config"]),
+        denoiser_config=jax_configs.DenoiserConfig(**want["denoiser_config"]),
+        train_config=jax_configs.TrainConfig(**want["train_config"]),
+        vae_cfg=jax_configs.VaeConfig(**{k: tuple(v) if isinstance(v, list) else v
+                                         for k, v in want["vae_cfg"].items()}),
+        clip_cfg=jax_configs.ClipConfig(**want["clip_cfg"]))
+    assert json.loads(jax_configs.config_to_json(back)) == want

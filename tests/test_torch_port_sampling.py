@@ -121,7 +121,7 @@ def test_text_to_image_slice_matches_jax(towers, sampler):
         labels=jclip.encode_text(prompts),
         negative_labels=None if negative is None else jclip.encode_text(negative),
         **kw)
-    gen = td.DiffusionGenerator(model, vae=vae)
+    gen = td.DiffusionGenerator(model, vae=vae, device="cpu")
     img, lat = gen.generate(
         labels=clip.encode_text(prompts),
         negative_labels=None if negative is None else clip.encode_text(negative),
@@ -150,12 +150,19 @@ def test_flagship_golden_replay():
                                (spec["num_imgs"], jcfg.text_emb_size))
     noise = jax.random.normal(jax.random.PRNGKey(spec["seed"]), shape,
                               dtype=jnp.float32)
-    _, lat = td.DiffusionGenerator(model).generate(
+    _, lat = td.DiffusionGenerator(model, device="cpu").generate(
         labels=np.asarray(labels), n_iter=spec["n_iter"],
         num_imgs=spec["num_imgs"], class_guidance=spec["class_guidance"],
         img_size=spec["img_size"], sharp_f=0.0, bright_f=0.0,
         use_ddpm_plus=False, seeds=np.asarray(noise))
     assert rel_l2(lat.numpy(), load_golden()) < 1e-4
+
+
+def test_generator_requires_a_device():
+    """The generator is an entry point: it runs where the caller says,
+    never on a default device."""
+    with pytest.raises(TypeError, match="device"):
+        td.DiffusionGenerator(Denoiser.from_config(pc.DenoiserConfig()))
 
 
 def _tiny_ltd(**kw):

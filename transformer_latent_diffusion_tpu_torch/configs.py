@@ -1,17 +1,18 @@
-"""Inference configuration dataclasses of the PyTorch port.
+"""Configuration dataclasses of the PyTorch port.
 
 Same dataclass names, field names and defaults as the JAX package's
 `configs.py`, so one `config_to_json` file configures either package.
 Dtypes stay strings in the configs (they round-trip through JSON);
-`resolve_dtype` maps them to torch dtypes. `ModelConfig`, `TrainConfig`
-and `DataConfig` belong to the training slice and are not here yet.
+`resolve_dtype` maps them to torch dtypes. Fields whose feature the port
+does not run yet keep their defaults; `check_train_config` raises
+NotImplementedError, naming the ROADMAP item, for any other value.
 """
 
 from __future__ import annotations
 
 import json
 from dataclasses import asdict, dataclass, field
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -30,6 +31,28 @@ def resolve_dtype(dtype) -> torch.dtype:
         raise ValueError(f"unknown dtype {dtype!r}; expected one of "
                          f"{sorted(_DTYPE_MAP)}")
     return _DTYPE_MAP[dtype]
+
+
+@dataclass
+class DataDownloadConfig:
+    """Where and how latents were made (the data-preparation step is not
+    ported yet; the dataclass keeps `ModelConfig`'s JSON whole)."""
+
+    data_link: str
+    caption_col: str = "caption"
+    url_col: str = "url"
+    latent_save_path: str = "latents_folder"
+    raw_imgs_save_path: str = "raw_imgs_folder"
+    use_drive: bool = False
+    initial_csv_path: str = "imgs.csv"
+    number_sample_per_shard: int = 10000
+    image_size: int = 256
+    batch_size: int = 64
+    download_data: bool = True
+    first_n_rows: int = 1000000
+    use_wandb: bool = False
+    process_index: int = 0
+    process_count: int = 1
 
 
 @dataclass
@@ -128,6 +151,139 @@ class LTDConfig:
     clip_vision_cfg: Optional[ClipVisionConfig] = None
     consistency: bool = False
     schedule_shift: Optional[float] = None
+
+
+@dataclass
+class DataConfig:
+    """Where the latent data is stored: (N, C, S, S) latents and (N, E)
+    text embeddings as .npy, and the eval embeddings. Multi-resolution
+    buckets (`extra_*_paths`) wait for the hi-res slice."""
+
+    latent_path: str
+    text_emb_path: str
+    val_path: str
+    extra_latent_paths: Tuple[str, ...] = ()
+    extra_text_emb_paths: Tuple[str, ...] = ()
+
+
+@dataclass
+class TrainConfig:
+    """The JAX package's training knobs, same names and defaults.
+
+    `compile` has no PyTorch meaning: the JAX package used it to donate
+    the train state's buffers to its jitted step; the port runs eagerly
+    and updates the state in place, so the field is read by nothing.
+    `fused_layer_vjp` None = auto: the hand-written K2 kernels on CUDA,
+    the plain autograd path on the CPU; False on CUDA raises, since the
+    port has no switch off its kernels."""
+
+    batch_size: int = 128
+    lr: float = 3e-4
+    n_epoch: int = 100
+    alpha: float = 0.999
+    from_scratch: bool = True
+    beta_a: float = 1
+    beta_b: float = 2.5
+    save_and_eval_every_iters: int = 1000
+    warmup_steps: int = 0
+    lr_schedule: Optional[str] = None
+    lr_decay_steps: int = 0
+    lr_final_frac: float = 0.0
+    grad_clip_norm: Optional[float] = None
+    run_id: str = ""
+    model_name: str = ""
+    compile: bool = True
+    save_model: bool = True
+    use_wandb: bool = False
+    val_holdout: int = 0
+    loss_weighting: Optional[str] = None
+    min_snr_gamma: float = 5.0
+    log_grad_norm: bool = False
+    offset_noise: float = 0.0
+    schedule_shift: Optional[Union[float, str]] = None
+    mesh_shape: Optional[Tuple[int, int]] = None
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    grad_accum_steps: int = 1
+    checkpoint_dir: str = "checkpoints"
+    seed: int = 0
+    fused_mlp_vjp: Optional[bool] = None
+    fused_attn_vjp: Optional[bool] = None
+    fused_layer_vjp: Optional[bool] = None
+    remat: Optional[bool] = None
+    sequence_parallel: Optional[bool] = None
+    pipeline_parallel: Optional[bool] = None
+    pipeline_microbatches: Optional[int] = None
+    fsdp: bool = False
+    moe_aux_weight: float = 0.01
+    outpaint: bool = False
+    lora_rank: int = 0
+    lora_alpha: Optional[float] = None
+    lora_targets: Optional[Tuple[str, ...]] = None
+    handle_signals: bool = True
+
+
+@dataclass
+class ModelConfig:
+    """Main config for training: data, denoiser, training, eval towers."""
+
+    data_config: DataConfig
+    download_config: Optional[DataDownloadConfig] = None
+    denoiser_config: DenoiserConfig = field(default_factory=DenoiserConfig)
+    train_config: TrainConfig = field(default_factory=TrainConfig)
+    vae_cfg: VaeConfig = field(default_factory=VaeConfig)
+    clip_cfg: ClipConfig = field(default_factory=ClipConfig)
+
+
+# (field, is the value unported?, ROADMAP item) of the training configs
+_UNPORTED_TRAIN = (
+    ("mesh_shape", lambda v: v is not None, "item 14 (parallelism)"),
+    ("fsdp", bool, "item 14 (parallelism)"),
+    ("pipeline_parallel", bool, "item 14 (parallelism)"),
+    ("sequence_parallel", bool, "item 14 (parallelism)"),
+    ("lora_rank", lambda v: v > 0, "item 11 (LoRA)"),
+    ("outpaint", bool, "item 9 (outpaint)"),
+    ("fused_mlp_vjp", lambda v: v is True, "kernel K5 (hi-res)"),
+    ("fused_attn_vjp", lambda v: v is True, "kernel K6 (MoE)"),
+    ("remat", lambda v: v is True, "item 8 (hi-res)"),
+    ("use_wandb", bool, "item 12 (logging)"),
+    ("schedule_shift", lambda v: v == "auto", "item 8 (multires)"),
+    ("param_dtype", lambda v: v != "float32", "item 7 (bf16 master weights)"),
+)
+
+
+def check_train_config(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for a field whose feature the port does
+    not run yet (set to anything but its default)."""
+    tc = cfg.train_config
+    for name, unported, item in _UNPORTED_TRAIN:
+        value = getattr(tc, name)
+        if unported(value):
+            raise NotImplementedError(
+                f"TrainConfig.{name}={value!r} is not ported yet (ROADMAP {item})")
+    dc = cfg.data_config
+    if dc.extra_latent_paths or dc.extra_text_emb_paths:
+        raise NotImplementedError("DataConfig.extra_latent_paths (multires "
+                                  "training) is not ported yet (ROADMAP item 8)")
+    den = cfg.denoiser_config
+    if den.mlp_class != "sep_conv":
+        raise NotImplementedError(f"mlp_class={den.mlp_class!r} is not ported "
+                                  "yet (ROADMAP kernel K6, MoE)")
+    if den.dropout:
+        raise NotImplementedError("dropout > 0 is not ported yet (ROADMAP, "
+                                  "what the training slice left out)")
+    # imported here: the models package imports this module
+    from transformer_latent_diffusion_tpu_torch.models.blocks import (
+        FUSED_LAYER_MAX_TOKENS,
+    )
+
+    side = den.image_size // den.patch_size
+    if side * side > FUSED_LAYER_MAX_TOKENS:
+        raise NotImplementedError(
+            f"image_size={den.image_size} with patch_size={den.patch_size} "
+            f"gives {side * side} tokens: training beyond "
+            f"{FUSED_LAYER_MAX_TOKENS} tokens is not ported yet (ROADMAP "
+            "item 8, hi-res, kernels K3-K5)")
 
 
 def config_to_json(cfg) -> str:

@@ -19,6 +19,14 @@
 // kernel's summation order (row taps per column shift first, then the three
 // column shifts), + dwb, then the exact erf GELU (`erff`; the TPU kernel's
 // polynomial only stood in for a missing erf), rounded to bf16 once.
+//
+// The training layer (TPU kernel
+// transformer_latent_diffusion_tpu/ops/fused_layer_vjp.py::_mlp_fwd,
+// :99-112) keeps the expanded hidden state h and the convolution's output
+// c in float32 and rounds only the GELU output to bf16; for it the kernel
+// is instantiated with float32 input (the slab in shared memory is then
+// 83 KB) and optionally also stores c (float32), which the backward reads
+// for GELU'(c).
 
 #include "common.cuh"
 
@@ -29,9 +37,22 @@ constexpr int VEC = 8;     // channels per thread (16 bytes of bf16)
 constexpr int CHUNK = 64;  // channels per block
 constexpr int GROUPS = CHUNK / VEC;
 
+template <typename T>
 inline size_t smem_bytes(int hw) {
-  return static_cast<size_t>(hw + 2) * (hw + 2) * CHUNK * sizeof(bf16);
+  return static_cast<size_t>(hw + 2) * (hw + 2) * CHUNK * sizeof(T);
 }
+
+// 8 channels of one pixel as the tile stores them (16 bytes of bf16, 32 of float)
+template <typename T>
+struct Vec8;
+template <>
+struct Vec8<bf16> {
+  uint4 u;
+};
+template <>
+struct Vec8<float> {
+  float4 a, b;
+};
 
 __device__ __forceinline__ void unpack8(const uint4& u, float* f) {
   const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
@@ -43,24 +64,33 @@ __device__ __forceinline__ void unpack8(const uint4& u, float* f) {
   }
 }
 
+__device__ __forceinline__ void unpack8(const Vec8<bf16>& v, float* f) { unpack8(v.u, f); }
+
+__device__ __forceinline__ void unpack8(const Vec8<float>& v, float* f) {
+  f[0] = v.a.x, f[1] = v.a.y, f[2] = v.a.z, f[3] = v.a.w;
+  f[4] = v.b.x, f[5] = v.b.y, f[6] = v.b.z, f[7] = v.b.w;
+}
+
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-dwconv_gelu_kernel(const bf16* __restrict__ h, const bf16* __restrict__ dw,
-                   const float* __restrict__ dwb, bf16* __restrict__ out, int hw, int C) {
+dwconv_gelu_kernel(const T* __restrict__ h, const bf16* __restrict__ dw,
+                   const float* __restrict__ dwb, bf16* __restrict__ out,
+                   float* __restrict__ c_out, int hw, int C) {
   extern __shared__ __align__(16) unsigned char smem[];
-  uint4* tile = reinterpret_cast<uint4*>(smem);  // [(hw+2) * (hw+2)][GROUPS]
+  Vec8<T>* tile = reinterpret_cast<Vec8<T>*>(smem);  // [(hw+2) * (hw+2)][GROUPS]
   const int pw = hw + 2;
   const int c0 = blockIdx.x * CHUNK;
   const size_t b = blockIdx.y;
-  const bf16* hb = h + b * hw * hw * C + c0;
+  const T* hb = h + b * hw * hw * C + c0;
   bf16* ob = out + b * hw * hw * C + c0;
   const int tid = threadIdx.x;
 
   for (int idx = tid; idx < pw * pw * GROUPS; idx += THREADS) {
     const int grp = idx % GROUPS, p = idx / GROUPS;
     const int i = p / pw - 1, j = p % pw - 1;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    Vec8<T> v = {};
     if (i >= 0 && i < hw && j >= 0 && j < hw)
-      v = *reinterpret_cast<const uint4*>(hb + static_cast<size_t>(i * hw + j) * C + grp * VEC);
+      v = *reinterpret_cast<const Vec8<T>*>(hb + static_cast<size_t>(i * hw + j) * C + grp * VEC);
     tile[idx] = v;
   }
 
@@ -95,29 +125,43 @@ dwconv_gelu_kernel(const bf16* __restrict__ h, const bf16* __restrict__ dw,
 #pragma unroll
       for (int e = 0; e < VEC; ++e) acc[e] += z[e];
     }
-    float g[VEC];
+    float g[VEC], x[VEC];
 #pragma unroll
     for (int e = 0; e < VEC; ++e) {
-      const float x = acc[e] + bias[e];
-      g[e] = 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
+      x[e] = acc[e] + bias[e];
+      g[e] = 0.5f * x[e] * (1.f + erff(x[e] * 0.70710678118654752f));
     }
     *reinterpret_cast<uint4*>(ob + static_cast<size_t>(p) * C + grp * VEC) = pack8_bf16(g);
+    if (c_out != nullptr) {
+      float4* cp = reinterpret_cast<float4*>(c_out + (b * hw * hw + p) * C + c0 + grp * VEC);
+      cp[0] = make_float4(x[0], x[1], x[2], x[3]);
+      cp[1] = make_float4(x[4], x[5], x[6], x[7]);
+    }
   }
+}
+
+template <typename T>
+int launch(const void* h, const void* dw, const float* dwb, void* out, float* c_out, int B, int hw,
+           int C, cudaStream_t s) {
+  const size_t smem = smem_bytes<T>(hw);
+  cudaError_t err = cudaFuncSetAttribute(
+      dwconv_gelu_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dwconv_gelu_kernel<T><<<dim3(C / CHUNK, B), THREADS, smem, s>>>(
+      static_cast<const T*>(h), static_cast<const bf16*>(dw), dwb, static_cast<bf16*>(out), c_out,
+      hw, C);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// h, out: (B*hw*hw, C) bf16 token rows of a row-major hw x hw grid.
-// dw: (9, C) bf16 taps, tap di*3+dj. dwb: (C,) float32.
-// Requires C % 64 == 0 and hw <= 32.
-LTD_API int ltd_dwconv_gelu(const void* h, const void* dw, const float* dwb, void* out, int B,
-                            int hw, int C, void* stream) {
-  const size_t smem = smem_bytes(hw);
-  cudaError_t err = cudaFuncSetAttribute(
-      dwconv_gelu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dwconv_gelu_kernel<<<dim3(C / CHUNK, B), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(h), static_cast<const bf16*>(dw), dwb, static_cast<bf16*>(out), hw,
-      C);
-  return static_cast<int>(cudaGetLastError());
+// h: (B*hw*hw, C) token rows of a row-major hw x hw grid, float32 when
+// h_f32 is non-zero, else bf16. out: the same rows, bf16. c_out: null, or
+// (B*hw*hw, C) float32 for the pre-GELU values. dw: (9, C) bf16 taps, tap
+// di*3+dj. dwb: (C,) float32. Requires C % 64 == 0 and hw <= 32.
+LTD_API int ltd_dwconv_gelu(const void* h, const void* dw, const float* dwb, void* out,
+                            float* c_out, int B, int hw, int C, int h_f32, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return h_f32 ? launch<float>(h, dw, dwb, out, c_out, B, hw, C, s)
+               : launch<bf16>(h, dw, dwb, out, c_out, B, hw, C, s);
 }

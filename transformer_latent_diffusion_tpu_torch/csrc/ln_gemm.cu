@@ -42,6 +42,16 @@
 // Rounding points are the TPU kernel's: float32 accumulation; the stored
 // output is bf16(acc [+ bias]); the residual epilogue adds (x + acc) + bias
 // in float32.
+//
+// The training layer (ops/fused_layer_vjp.py, TPU kernel
+// transformer_latent_diffusion_tpu/ops/fused_layer_vjp.py::_fwd_kernel and
+// the recompute of _bwd_kernel) uses two more modes of the same bodies:
+// `out_f32` stores acc [+ bias] in float32 (the expanded hidden state h,
+// which that kernel keeps float32, and the backward's input gradients
+// dX = dY W, run here with W^T as the (out, in) operand), and `xn_out`
+// has the LayerNorm prologue also write its bf16 normalised rows (the
+// xn1 / xn2 operands of the weight gradients), from the first column
+// split of each row block only, so each row has one writer.
 
 #include "common.cuh"
 
@@ -55,8 +65,8 @@ constexpr float LN_EPS = 1e-5f;
 
 // epilogue of accumulator elements (2h, 2h+1) of one 16x8 fragment
 __device__ __forceinline__ void store_pair(const float (&acc)[4], int h, int row, int col, int N,
-                                           const float* __restrict__ bias, bf16* __restrict__ out,
-                                           float* __restrict__ resid) {
+                                           const float* __restrict__ bias, void* __restrict__ out,
+                                           float* __restrict__ resid, bool out_f32) {
   float v0 = acc[2 * h], v1 = acc[2 * h + 1];
   if (resid != nullptr) {
     float2* rp = reinterpret_cast<float2*>(resid + static_cast<size_t>(row) * N + col);
@@ -73,7 +83,11 @@ __device__ __forceinline__ void store_pair(const float (&acc)[4], int h, int row
       v0 += bias[col];
       v1 += bias[col + 1];
     }
-    *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row) * N + col) = pack_bf16x2(v0, v1);
+    const size_t at = static_cast<size_t>(row) * N + col;
+    if (out_f32)
+      *reinterpret_cast<float2*>(static_cast<float*>(out) + at) = make_float2(v0, v1);
+    else
+      *reinterpret_cast<uint32_t*>(static_cast<bf16*>(out) + at) = pack_bf16x2(v0, v1);
   }
 }
 
@@ -105,10 +119,12 @@ inline int resident_smem(int K) { return (RBM * (K + 8) + RSTAGES * RBN * LDT) *
 __global__ void __launch_bounds__(THREADS)
 ln_gemm_resident_kernel(const float* __restrict__ a, const float* __restrict__ ln_s,
                         const float* __restrict__ ln_b, const bf16* __restrict__ w,
-                        const float* __restrict__ bias, bf16* __restrict__ out,
-                        float* __restrict__ resid, int M, int N, int K) {
+                        const float* __restrict__ bias, void* __restrict__ out,
+                        float* __restrict__ resid, bf16* __restrict__ xn_out, int M, int N, int K,
+                        bool out_f32) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int lda = K + 8;
+  const bool write_xn = xn_out != nullptr && blockIdx.x == 0;
   bf16* As = reinterpret_cast<bf16*>(smem);
   bf16* Ws = As + RBM * lda;
 
@@ -184,6 +200,7 @@ ln_gemm_resident_kernel(const float* __restrict__ a, const float* __restrict__ l
         p.y = pack_bf16x2((v[j].z - mean) * rstd * sc.z + sh.z,
                           (v[j].w - mean) * rstd * sc.w + sh.w);
         *reinterpret_cast<uint2*>(dst + k) = p;
+        if (write_xn) *reinterpret_cast<uint2*>(xn_out + static_cast<size_t>(row) * K + k) = p;
       }
     }
   }
@@ -227,7 +244,8 @@ ln_gemm_resident_kernel(const float* __restrict__ a, const float* __restrict__ l
           if (row < M) {
 #pragma unroll
             for (int j = 0; j < 4; ++j)
-              store_pair(acc[i][j], h, row, n0 + wn * 32 + j * 8 + 2 * t4, N, bias, out, resid);
+              store_pair(acc[i][j], h, row, n0 + wn * 32 + j * 8 + 2 * t4, N, bias, out, resid,
+                         out_f32);
           }
         }
 #pragma unroll
@@ -250,8 +268,8 @@ constexpr int STREAM_SMEM = STAGES * STREAM_STAGE;
 
 __global__ void __launch_bounds__(THREADS)
 gemm_stream_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
-                   const float* __restrict__ bias, bf16* __restrict__ out,
-                   float* __restrict__ resid, int M, int N, int K) {
+                   const float* __restrict__ bias, void* __restrict__ out,
+                   float* __restrict__ resid, int M, int N, int K, bool out_f32) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -324,7 +342,8 @@ gemm_stream_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
       if (row >= M) continue;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        store_pair(acc[i][j], h, row, n_blk + wn * 32 + j * 8 + 2 * t4, N, bias, out, resid);
+        store_pair(acc[i][j], h, row, n_blk + wn * 32 + j * 8 + 2 * t4, N, bias, out, resid,
+                   out_f32);
     }
   }
 }
@@ -343,15 +362,16 @@ int sm_count() {
 
 // a: (M, K) float32 when ln_s/ln_b are given (LayerNorm prologue; then
 // K <= 768), else bf16. N % 128 == 0. w: (N, K)
-// bf16. bias: (N,) float32 or null. Exactly one of out (M, N) bf16 and
-// resid (M, N) float32 (updated in place) is non-null. Requires
-// K % 32 == 0; any M >= 1.
+// bf16. bias: (N,) float32 or null. Exactly one of out (M, N) and
+// resid (M, N) float32 (updated in place) is non-null; out is float32 when
+// out_f32 is non-zero, else bf16. xn_out: (M, K) bf16 or null, the
+// normalised rows (LayerNorm prologue only). Requires K % 32 == 0; any
+// M >= 1.
 LTD_API int ltd_ln_gemm(const void* a, const float* ln_s, const float* ln_b, const void* w,
-                        const float* bias, void* out, float* resid, int M, int N, int K,
-                        void* stream) {
+                        const float* bias, void* out, float* resid, void* xn_out, int M, int N,
+                        int K, int out_f32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* wb = static_cast<const bf16*>(w);
-  bf16* ob = static_cast<bf16*>(out);
   cudaError_t err;
   if (ln_s != nullptr) {
     const int smem = resident_smem(K);
@@ -361,13 +381,15 @@ LTD_API int ltd_ln_gemm(const void* a, const float* ln_s, const float* ln_b, con
     const int row_blocks = (M + RBM - 1) / RBM;
     const int splits = max(1, min(N / RBN, sm_count() / row_blocks));
     ln_gemm_resident_kernel<<<dim3(splits, row_blocks), THREADS, smem, s>>>(
-        static_cast<const float*>(a), ln_s, ln_b, wb, bias, ob, resid, M, N, K);
+        static_cast<const float*>(a), ln_s, ln_b, wb, bias, out, resid,
+        static_cast<bf16*>(xn_out), M, N, K, out_f32 != 0);
   } else {
+    if (xn_out != nullptr) return static_cast<int>(cudaErrorInvalidValue);
     err = cudaFuncSetAttribute(gemm_stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                STREAM_SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     gemm_stream_kernel<<<dim3(N / BN, (M + BM - 1) / BM), THREADS, STREAM_SMEM, s>>>(
-        static_cast<const bf16*>(a), wb, bias, ob, resid, M, N, K);
+        static_cast<const bf16*>(a), wb, bias, out, resid, M, N, K, out_f32 != 0);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,8 +8,10 @@ order of the flax HWIO kernel (3, 3, 1, hidden).
 
 Each module holds float32 parameters and computes in its `dtype`, as
 flax modules do: dense inputs and weights are cast to `dtype`, LayerNorm
-statistics and softmax stay float32. Only the plain path is here: no
-mixture of experts, and dropout only at 0 (inference).
+statistics and softmax stay float32. No mixture of experts, and dropout
+only at 0. `DecoderBlock(fused_layer_vjp=True)` runs the whole layer as
+`ops.fused_layer_vjp.FusedLayerFunction` (TPU kernel K2) where the JAX
+package's gate allows it.
 """
 
 from __future__ import annotations
@@ -22,6 +24,9 @@ import torch.nn.functional as F
 from torch import nn
 
 LN_EPS = 1e-5
+# the fused decoder layer's token limit (the JAX package's
+# FUSED_LAYER_MAX_TOKENS)
+FUSED_LAYER_MAX_TOKENS = 256
 
 
 def sinusoidal_embedding(x: torch.Tensor, embedding_dims: int = 32,
@@ -163,13 +168,17 @@ class MLPSepConv(nn.Module):
 
 class DecoderBlock(nn.Module):
     """Pre-LN DiT block: x += SA(LN x); x += CA(LN x, cond); x += MLP(LN x).
-    Heads = embed_dim // 64."""
+    Heads = embed_dim // 64. fused_layer_vjp: run the layer as one
+    `FusedLayerFunction` on a square grid of at most 256 tokens (the JAX
+    package's gate, models/blocks.py:269-274); outside the gate the plain
+    modules on CPU tensors, and NotImplementedError on any other device."""
 
     def __init__(self, embed_dim: int, mlp_multiplier: int,
-                 dtype=torch.float32):
+                 dtype=torch.float32, fused_layer_vjp: bool = False):
         super().__init__()
         n_heads = embed_dim // 64
         self.dtype = dtype
+        self.fused_layer_vjp = fused_layer_vjp
         self.norm1 = nn.LayerNorm(embed_dim, eps=LN_EPS)
         self.self_attention = SelfAttention(embed_dim, n_heads, dtype)
         self.norm2 = nn.LayerNorm(embed_dim, eps=LN_EPS)
@@ -177,7 +186,42 @@ class DecoderBlock(nn.Module):
         self.norm3 = nn.LayerNorm(embed_dim, eps=LN_EPS)
         self.mlp = MLPSepConv(embed_dim, mlp_multiplier, dtype)
 
+    def _fused(self, x, y, hw: int):
+        from transformer_latent_diffusion_tpu_torch.ops.fused_layer_vjp import (
+            fused_layer,
+        )
+
+        dt = self.dtype
+        expand, dw, _, contract, _ = self.mlp.mlp
+        # weights cast to the compute dtype, LayerNorm and biases float32,
+        # as the JAX package feeds its kernel (models/blocks.py:309-326)
+        params = [
+            self.norm1.weight.float(), self.norm1.bias.float(),
+            self.self_attention.qkv_linear.weight.to(dt),
+            self.norm2.weight.float(), self.norm2.bias.float(),
+            self.cross_attention.q_linear.weight.to(dt),
+            self.cross_attention.kv_linear.weight.to(dt),
+            self.norm3.weight.float(), self.norm3.bias.float(),
+            expand.weight[:, :, 0, 0].to(dt), expand.bias.float(),
+            dw.weight.reshape(dw.out_channels, 9).T.to(dt), dw.bias.float(),
+            contract.weight[:, :, 0, 0].to(dt), contract.bias.float(),
+        ]
+        out = fused_layer(x.to(dt), y.to(dt), params,
+                          self.self_attention.n_heads, hw)
+        return out.to(dt)
+
     def forward(self, x, y):
+        n = x.shape[1]
+        hw = math.isqrt(n)
+        if self.fused_layer_vjp:
+            if hw * hw == n and n <= FUSED_LAYER_MAX_TOKENS:
+                return self._fused(x, y, hw)
+            if x.device.type != "cpu":
+                # the JAX package runs the component kernels K5/K6 here
+                raise NotImplementedError(
+                    f"fused_layer_vjp on {n} tokens: beyond a square grid of "
+                    f"{FUSED_LAYER_MAX_TOKENS} tokens the layer needs kernels "
+                    "K5/K6, not ported yet (ROADMAP item 8, hi-res)")
         dt = self.dtype
         x = x + self.self_attention(layer_norm(x, self.norm1, dt))
         x = x + self.cross_attention(layer_norm(x, self.norm2, dt), y)

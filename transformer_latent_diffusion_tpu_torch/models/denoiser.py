@@ -9,6 +9,10 @@ torch `Denoiser`'s, so its state_dict loads as it is. Latents are NCHW.
 The fused inference engine (`fast_denoiser.FusedEngine`) runs the same
 parameters through the hand-written kernels; this module is the plain
 version it is checked against, and what the pipeline runs on the CPU.
+With `fused_layer_vjp=True` (training) its decoder blocks run as the
+differentiable fused layer (TPU kernel K2); the dense layers before and
+after them stay plain PyTorch with autograd, as the JAX package leaves
+them to XLA.
 Only the native token grid is supported (`resize_pos_embed` waits for
 the hi-res slice).
 """
@@ -61,7 +65,7 @@ class _Patchify(nn.Module):
 class DenoiserTransBlock(nn.Module):
     def __init__(self, patch_size: int, img_size: int, embed_dim: int,
                  n_layers: int, mlp_multiplier: int = 4, n_channels: int = 4,
-                 dtype=torch.float32):
+                 dtype=torch.float32, fused_layer_vjp: bool = False):
         super().__init__()
         self.patch_size = patch_size
         self.n_channels = n_channels
@@ -80,7 +84,7 @@ class DenoiserTransBlock(nn.Module):
         self.register_buffer("precomputed_pos_enc",
                              torch.arange(seq_len, dtype=torch.int64))
         self.decoder_blocks = nn.ModuleList(
-            DecoderBlock(embed_dim, mlp_multiplier, dtype)
+            DecoderBlock(embed_dim, mlp_multiplier, dtype, fused_layer_vjp)
             for _ in range(n_layers))
         self.out_proj = nn.Sequential(nn.Linear(embed_dim, patch_dim))
 
@@ -118,7 +122,7 @@ class Denoiser(nn.Module):
                  mlp_class: str = "sep_conv", n_experts: int = 8,
                  expert_capacity_factor: float = 1.25,
                  input_channels=None, objective: str = "x0",
-                 dtype=torch.float32):
+                 dtype=torch.float32, fused_layer_vjp: bool = False):
         super().__init__()
         if mlp_class != "sep_conv":
             raise NotImplementedError(
@@ -145,13 +149,14 @@ class Denoiser(nn.Module):
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
         self.denoiser_trans_block = DenoiserTransBlock(
             patch_size, image_size, embed_dim, n_layers, mlp_multiplier,
-            n_channels, dtype)
+            n_channels, dtype, fused_layer_vjp)
 
     @classmethod
-    def from_config(cls, cfg, dtype=torch.float32) -> "Denoiser":
+    def from_config(cls, cfg, dtype=torch.float32,
+                    fused_layer_vjp: bool = False) -> "Denoiser":
         from dataclasses import asdict
 
-        return cls(**asdict(cfg), dtype=dtype)
+        return cls(**asdict(cfg), dtype=dtype, fused_layer_vjp=fused_layer_vjp)
 
     def forward(self, x, noise_level, label):
         dt = self.dtype

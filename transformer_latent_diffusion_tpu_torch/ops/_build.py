@@ -1,6 +1,7 @@
 """Build the hand-written CUDA kernels (`csrc/*.cu`) at first use.
 
-`nvcc` compiles every source in `csrc/` for Hopper (`sm_90a`) into one
+`nvcc` compiles every source in `csrc/` for Hopper (`sm_90a`), one
+process per source, all started together, and links the objects into one
 shared library with a plain C interface, which is loaded with `ctypes`.
 The library goes to `build/kernels/<hash>/` at the repository root (listed
 in `.gitignore`), keyed by a hash of the sources and the compiler flags,
@@ -21,17 +22,24 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libltd_kernels.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: each returns the cudaError_t of its launch
 SIGNATURES = {
-    "ltd_ln_gemm": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "ltd_ln_gemm": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ltd_self_attention": (_P, _P, _I, _I, _I, _I, _P),
     "ltd_cross_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "ltd_dwconv_gelu": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "ltd_dwconv_gelu": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ltd_weight_grad": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "ltd_colsum": (_P, _P, _I, _I, _I, _P),
+    "ltd_layernorm_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "ltd_dwconv_gelu_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "ltd_self_attention_bwd_dq": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ltd_self_attention_bwd_dkv": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ltd_cross_attention_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lib = None
@@ -59,22 +67,37 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels unless this exact source set is built already.
-    The compiler's log (with ptxas register and shared-memory counts) is
+    The compilers' logs (with ptxas register and shared-memory counts) are
     kept beside the library as `build.log`."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = (f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-           f"\nseconds: {time.perf_counter() - t0:.1f}\n")
-    (out.parent / "build.log").write_text(log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out.parent / f"{src.stem}.{os.getpid()}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], False
+    for cmd, _, proc in jobs:
+        text, _ = proc.communicate()
+        log.append(f"$ {' '.join(cmd)}\n{text}")
+        failed |= proc.returncode != 0
+    if not failed:
+        tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        failed = proc.returncode != 0
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    text = "".join(log) + f"\nseconds: {time.perf_counter() - t0:.1f}\n"
+    (out.parent / "build.log").write_text(text)
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{text}")
     os.replace(tmp, out)
     return out
 

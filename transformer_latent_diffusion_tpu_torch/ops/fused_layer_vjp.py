@@ -1,0 +1,631 @@
+"""The differentiable decoder layer of the training step (TPU kernel K2).
+
+Counterpart of the JAX package's `ops/fused_layer_vjp.py`, whose two
+Pallas kernels run one whole decoder layer per batch element:
+
+    x1 = x + SelfAttn(LN1 x)
+    x2 = x1 + CrossAttn(LN2 x1, cond)
+    x3 = x2 + Contract(GELU(DW3x3(Expand(LN3 x2))))
+
+forward in one kernel, and backward in one kernel that recomputes the
+forward internals in VMEM and returns dx, dcond and all 15 parameter
+gradients, accumulating the weight gradients across its sequential batch
+grid. A Hopper SM has 227 KB of shared memory and its blocks run in no
+order, so here:
+
+- the forward is K1's four kernels (`ops/fused_stack.py`) with K2's own
+  rounding points: the expanded hidden state h and the depthwise output c
+  stay float32 (`ln_gemm` with `out_dtype=float32`, `dwconv_gelu` on
+  float32 input), only the GELU output is rounded before the contract
+  product;
+- the backward recomputes the forward with the same kernels, keeping only
+  what it reads (the bf16 rows xn1, xn2, xn3, qkv, qc, kv, a and the
+  float32 x1, x2, h, c; one layer's at a time, as the TPU kernel's
+  recompute), and then runs in reverse through the kernels of `csrc/`:
+  `weight_grad` (dW = dY^T X, deterministic split-M partials), `colsum`
+  (the bias and LayerNorm sums and the partials' second pass),
+  `layernorm_bwd`, `dwconv_gelu_bwd`, `self_attention_bwd` and
+  `cross_attention_bwd`; the input-gradient products dX = dY W run in
+  `ln_gemm`'s streaming body with W^T as its (out, in) operand.
+
+Each kernel has a plain PyTorch version here (`*_plain`), and a wrapper
+that runs the plain version for CPU tensors and otherwise checks its
+inputs, launches the kernel, raises if the launch failed and counts it in
+`LAUNCHES`. `fused_layer_fwd_plain` / `fused_layer_bwd_plain` write the
+whole layer's math out in one piece (the TPU kernel's `_fwd_kernel` and
+`_bwd_kernel`); `FusedLayerFunction` is the autograd function over the
+kernel path.
+
+Rounding points are the TPU kernel's (`_bwd_kernel:175-243`): the upstream
+gradient g, dhid, the attention's output-gradient head slices, ds, dqc,
+dkv and dqkv are rounded to the weights' dtype before each product, and so
+are a, the xn rows, p and cond as product operands; every sum is float32.
+Parameters use the port's (reference torch) layouts: projections (out,
+in), depthwise taps (9, hidden) with tap di*3+dj, LayerNorm scales and
+shifts and biases as vectors.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
+from transformer_latent_diffusion_tpu_torch.ops._build import load_library
+from transformer_latent_diffusion_tpu_torch.ops.fused_stack import (
+    _check_launch,
+    _on_cuda,
+    _ptr,
+    _require,
+    _stream,
+)
+
+LN_EPS = 1e-5
+
+PARAM_NAMES = ("ln1s", "ln1b", "wqkv", "ln2s", "ln2b", "wq", "wkv",
+               "ln3s", "ln3b", "w1", "b1", "dw", "dwb", "w2", "b2")
+
+KERNELS = ("weight_grad", "colsum", "layernorm_bwd", "dwconv_gelu_bwd",
+           "self_attention_bwd", "cross_attention_bwd")
+# kernel launches since the last reset_launch_counts() (self_attention_bwd
+# is two kernels and counts both)
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+# a column sum over more rows than this runs as two passes (row blocks,
+# then their partial sums)
+COLSUM_ONE_PASS_ROWS = 1024
+COLSUM_BLOCK_ROWS = 256
+
+
+def reset_launch_counts() -> None:
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+
+
+# ------------------------- the TPU kernel's helpers -------------------------
+
+
+def _ln_fwd(x, scale, bias):
+    m = x.mean(-1, keepdim=True)
+    var = (x - m).square().mean(-1, keepdim=True)
+    rstd = torch.rsqrt(var + LN_EPS)
+    xhat = (x - m) * rstd
+    return xhat * scale + bias, xhat, rstd
+
+
+def _ln_bwd(dy, xhat, rstd, scale):
+    """(dx, dscale, dbias) of a LayerNorm over the last axis; the sums run
+    over every other axis."""
+    rows = tuple(range(dy.ndim - 1))
+    dscale = (dy * xhat).sum(rows)
+    dbias = dy.sum(rows)
+    dxhat = dy * scale
+    dx = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
+                 - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    return dx, dscale, dbias
+
+
+def _softmax_rows(s):
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    return e / e.sum(-1, keepdim=True)
+
+
+def _softmax_bwd(p, dp):
+    return p * (dp - (dp * p).sum(-1, keepdim=True))
+
+
+def _gelu_f32(c):
+    return 0.5 * c * (1.0 + torch.erf(c * (1.0 / math.sqrt(2.0))))
+
+
+def _gelu_grad_f32(c):
+    cdf = 0.5 * (1.0 + torch.erf(c * (1.0 / math.sqrt(2.0))))
+    pdf = torch.exp(-0.5 * c * c) * (1.0 / math.sqrt(2.0 * math.pi))
+    return cdf + c * pdf
+
+
+def _dw_fwd(grid, w, hw: int, flip: bool = False):
+    """3x3 depthwise correlation (zero padding) of (B, hw, hw, K) with taps
+    w (9, K), in the TPU kernel's order; flip=True uses the reversed taps
+    (the input gradient)."""
+    def tap(di, dj):
+        idx = di * 3 + dj
+        return w[8 - idx] if flip else w[idx]
+
+    pr = F.pad(grid, (0, 0, 0, 0, 1, 1))
+    zs = [pr[:, 0:hw] * tap(0, dj) + pr[:, 1:hw + 1] * tap(1, dj)
+          + pr[:, 2:hw + 2] * tap(2, dj) for dj in range(3)]
+    return (F.pad(zs[0], (0, 0, 1, 1))[:, :, 0:hw] + zs[1]
+            + F.pad(zs[2], (0, 0, 1, 1))[:, :, 2:hw + 2])
+
+
+def _dw_input_grad(dc, w, hw: int):
+    return _dw_fwd(dc, w, hw, flip=True)
+
+
+def _dw_tap_grads(h, dc, hw: int):
+    """(9, K): sum over images and pixels of h[p + (di-1, dj-1)] dc[p]."""
+    pr = F.pad(h, (0, 0, 0, 0, 1, 1))
+    pd = F.pad(dc, (0, 0, 1, 1))
+    dcs = [pd[:, :, 2:hw + 2], dc, pd[:, :, 0:hw]]
+    return torch.stack([(pr[:, di:di + hw] * dcs[dj]).sum((0, 1, 2))
+                        for di in range(3) for dj in range(3)])
+
+
+def _heads(t, n_heads):
+    """(B, N, D) -> (B, H, N, dh)."""
+    b, n, d = t.shape
+    return t.reshape(b, n, n_heads, d // n_heads).transpose(1, 2)
+
+
+def _merge(t):
+    """(B, H, N, dh) -> (B, N, D)."""
+    b, h, n, dh = t.shape
+    return t.transpose(1, 2).reshape(b, n, h * dh)
+
+
+def _mm(a, b, lp):
+    """a @ b of `lp`-rounded operands, float32 accumulation."""
+    return a.to(lp).float() @ b.to(lp).float()
+
+
+# ------------------------------ the layer, plain ------------------------------
+
+
+def _forward_residuals(x, cond, params, n_heads: int, hw: int):
+    (ln1s, ln1b, wqkv, ln2s, ln2b, wq, wkv,
+     ln3s, ln3b, w1, b1, dw, dwb, w2, b2) = params
+    lp = wqkv.dtype
+    d = x.shape[-1]
+    scale = 1.0 / math.sqrt(d // n_heads)
+    x = x.float()
+    cond = cond.float()
+    xn1, xhat1, rstd1 = _ln_fwd(x, ln1s.float(), ln1b.float())
+    qkv = _mm(xn1, wqkv.T, lp).to(lp)
+    q, k, v = (_heads(t, n_heads) for t in qkv.split(d, -1))
+    p_self = _softmax_rows(_mm(q, k.transpose(-1, -2), lp) * scale)
+    x1 = x + _merge(_mm(p_self, v, lp))
+    xn2, xhat2, rstd2 = _ln_fwd(x1, ln2s.float(), ln2b.float())
+    qc = _mm(xn2, wq.T, lp).to(lp)
+    kv = _mm(cond, wkv.T, lp).to(lp)
+    kc, vc = (_heads(t, n_heads) for t in kv.split(d, -1))
+    qch = _heads(qc, n_heads)
+    p_cross = _softmax_rows(_mm(qch, kc.transpose(-1, -2), lp) * scale)
+    x2 = x1 + _merge(_mm(p_cross, vc, lp))
+    xn3, xhat3, rstd3 = _ln_fwd(x2, ln3s.float(), ln3b.float())
+    b = x.shape[0]
+    h = _mm(xn3, w1.T, lp) + b1.float()
+    c = _dw_fwd(h.reshape(b, hw, hw, -1), dw.float(), hw) + dwb.float()
+    a = _gelu_f32(c).reshape(h.shape)
+    return dict(x=x, cond=cond, lp=lp, scale=scale, xn1=xn1, xhat1=xhat1,
+                rstd1=rstd1, q=q, k=k, v=v, p_self=p_self, x1=x1, xn2=xn2,
+                xhat2=xhat2, rstd2=rstd2, qc=qch, kc=kc, vc=vc,
+                p_cross=p_cross, x2=x2, xn3=xn3, xhat3=xhat3, rstd3=rstd3,
+                h=h, c=c, a=a)
+
+
+def fused_layer_fwd_plain(x, cond, params: Sequence[torch.Tensor],
+                          n_heads: int, hw: int):
+    """The TPU kernel's `_fwd_kernel`, written out: x (B, N, D), cond
+    (B, 2, D); the result in x's dtype."""
+    r = _forward_residuals(x, cond, params, n_heads, hw)
+    w2, b2 = params[13], params[14]
+    y = _mm(r["a"], w2.T, r["lp"]) + b2.float()
+    return (r["x2"] + y).to(x.dtype)
+
+
+def _attention_bwd_plain(p, q, k, v, dout, scale, lp):
+    """dq, dk, dv of softmax attention per head from the recomputed p;
+    dout (B, H, Nq, dh) float32."""
+    gh = dout.to(lp)
+    dv = _mm(p.transpose(-1, -2), gh, lp)
+    dp = _mm(gh, v.transpose(-1, -2), lp)
+    ds = (_softmax_bwd(p, dp) * scale).to(lp)
+    return _mm(ds, k, lp), _mm(ds.transpose(-1, -2), q, lp), dv
+
+
+def fused_layer_bwd_plain(x, cond, g, params: Sequence[torch.Tensor],
+                          n_heads: int, hw: int):
+    """The TPU kernel's `_bwd_kernel`, written out: (dx in x's dtype, dcond
+    in cond's dtype, the 15 parameter gradients in float32, shaped like
+    the parameters)."""
+    r = _forward_residuals(x, cond, params, n_heads, hw)
+    (_, _, wqkv, _, _, wq, wkv, ln3s, _, w1, _, dw, _, w2, _) = params
+    lp, scale = r["lp"], r["scale"]
+    b, n, d = x.shape
+    rows = (0, 1)
+
+    def tn(a, bb):  # a^T b over all B*N rows: (out, in) weight gradients
+        return _mm(a.reshape(-1, a.shape[-1]).T, bb.reshape(-1, bb.shape[-1]), lp)
+
+    g = g.float()
+    g_lp = g.to(lp)
+    dw2 = tn(g_lp, r["a"])
+    db2 = g.sum(rows)
+    da = _mm(g_lp, w2, lp)
+    dc = da.reshape(b, hw, hw, -1) * _gelu_grad_f32(r["c"])
+    ddwb = dc.sum((0, 1, 2))
+    ddw = _dw_tap_grads(r["h"].reshape(b, hw, hw, -1), dc, hw)
+    dhid = _dw_input_grad(dc, dw.float(), hw).reshape(b, n, -1)
+    dhid_lp = dhid.to(lp)
+    dw1 = tn(dhid_lp, r["xn3"])
+    db1 = dhid.sum(rows)
+    dxn3 = _mm(dhid_lp, w1, lp)
+    dx2_ln, ds3, db3 = _ln_bwd(dxn3, r["xhat3"], r["rstd3"], ln3s.float())
+    dx2 = g + dx2_ln
+
+    dqc, dkc, dvc = _attention_bwd_plain(r["p_cross"], r["qc"], r["kc"],
+                                         r["vc"], _heads(dx2, n_heads),
+                                         scale, lp)
+    dqc_lp = _merge(dqc).to(lp)
+    dkv_lp = torch.cat([_merge(dkc), _merge(dvc)], -1).to(lp)
+    dwq = tn(dqc_lp, r["xn2"])
+    dxn2 = _mm(dqc_lp, wq, lp)
+    dwkv = tn(dkv_lp, r["cond"])
+    dcond = _mm(dkv_lp, wkv, lp)
+    dx1_ln, ds2, db2v = _ln_bwd(dxn2, r["xhat2"], r["rstd2"],
+                                params[3].float())
+    dx1 = dx2 + dx1_ln
+
+    dq, dk, dv = _attention_bwd_plain(r["p_self"], r["q"], r["k"], r["v"],
+                                      _heads(dx1, n_heads), scale, lp)
+    dqkv_lp = torch.cat([_merge(dq), _merge(dk), _merge(dv)], -1).to(lp)
+    dwqkv = tn(dqkv_lp, r["xn1"])
+    dxn1 = _mm(dqkv_lp, wqkv, lp)
+    dx_ln, ds1, db1v = _ln_bwd(dxn1, r["xhat1"], r["rstd1"],
+                               params[0].float())
+    grads = [ds1, db1v, dwqkv, ds2, db2v, dwq, dwkv, ds3, db3, dw1, db1,
+             ddw, ddwb, dw2, db2]
+    return ((dx1 + dx_ln).to(x.dtype), dcond.to(cond.dtype),
+            [gr.reshape(p.shape) for gr, p in zip(grads, params)])
+
+
+# ------------------------------ kernel plain versions ------------------------------
+
+
+def weight_grad_plain(dy, x):
+    """dY^T X in float32 from operands as given: dy (M, N), x (M, K) ->
+    (N, K)."""
+    return dy.float().T @ x.float()
+
+
+def colsum_plain(x):
+    """Column sums of a float32 (R, C) matrix -> (C,)."""
+    return x.float().sum(0)
+
+
+def layernorm_bwd_plain(dy, x, scale, upstream):
+    """(upstream + the LayerNorm backward of dy, dscale, dbias): x is the
+    LayerNorm's float32 input (its statistics are recomputed, eps 1e-5);
+    dy, upstream (M, D) float32; scale (D,)."""
+    _, xhat, rstd = _ln_fwd(x.float(), 1.0, 0.0)
+    dx, dscale, dbias = _ln_bwd(dy.float(), xhat, rstd, scale.reshape(-1))
+    return upstream + dx, dscale, dbias
+
+
+def dwconv_gelu_bwd_plain(da, c, h, dw, hw: int):
+    """Backward of GELU(3x3 depthwise(h) + dwb) on the hw x hw grid:
+    (dhid rounded to dw.dtype, the (9, C) tap gradients, ddwb, db1), all
+    sums float32 over the (B*hw*hw, C) rows."""
+    m, ch = da.shape
+    b = m // (hw * hw)
+    dc = (da.float() * _gelu_grad_f32(c.float())).reshape(b, hw, hw, ch)
+    dhid = _dw_input_grad(dc, dw.float(), hw).reshape(m, ch)
+    taps = _dw_tap_grads(h.float().reshape(b, hw, hw, ch), dc, hw)
+    return dhid.to(dw.dtype), taps, dc.sum((0, 1, 2)), dhid.sum(0)
+
+
+def self_attention_bwd_plain(qkv, dout, n_heads: int, n_tokens: int):
+    """(B*N, 3D) rows [dq | dk | dv] in qkv's dtype, from the forward's qkv
+    rows and the float32 gradient of the attention output (B*N, D)."""
+    m, three_d = qkv.shape
+    d = three_d // 3
+    b = m // n_tokens
+    lp = qkv.dtype
+    q, k, v = (_heads(t.reshape(b, n_tokens, d), n_heads)
+               for t in qkv.split(d, -1))
+    scale = 1.0 / math.sqrt(d // n_heads)
+    p = _softmax_rows(_mm(q, k.transpose(-1, -2), lp) * scale)
+    grads = _attention_bwd_plain(p, q, k, v,
+                                 _heads(dout.reshape(b, n_tokens, d), n_heads),
+                                 scale, lp)
+    return torch.cat([_merge(t) for t in grads], -1).reshape(m, three_d).to(lp)
+
+
+def cross_attention_bwd_plain(qc, kv, dout, n_heads: int, n_tokens: int):
+    """(dqc (B*N, D), dkv (B*2, 2D) in kv's row layout), both in qc's
+    dtype, of the 2-key cross-attention."""
+    m, d = qc.shape
+    b = m // n_tokens
+    lp = qc.dtype
+    q = _heads(qc.reshape(b, n_tokens, d), n_heads)
+    k, v = (_heads(t.reshape(b, 2, d), n_heads) for t in kv.split(d, -1))
+    scale = 1.0 / math.sqrt(d // n_heads)
+    p = _softmax_rows(_mm(q, k.transpose(-1, -2), lp) * scale)
+    dq, dk, dv = _attention_bwd_plain(
+        p, q, k, v, _heads(dout.reshape(b, n_tokens, d), n_heads), scale, lp)
+    dkv = torch.cat([_merge(dk), _merge(dv)], -1).reshape(2 * b, 2 * d)
+    return _merge(dq).reshape(m, d).to(lp), dkv.to(lp)
+
+
+# ------------------------------ kernel wrappers ------------------------------
+
+
+def _count(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def colsum(x):
+    """Kernel wrapper of `colsum_plain` (deterministic: one or two passes,
+    each summing in a fixed order)."""
+    if x.device.type == "cpu":
+        return colsum_plain(x)
+    dev = _on_cuda("colsum", x)
+    _require(x.dtype == torch.float32 and x.ndim == 2,
+             "colsum: x must be a float32 (R, C) matrix")
+    lib = load_library()
+    while True:
+        r, c = x.shape
+        rows = r if r <= COLSUM_ONE_PASS_ROWS else COLSUM_BLOCK_ROWS
+        out = torch.empty(((r + rows - 1) // rows, c), dtype=torch.float32,
+                          device=dev)
+        _count("colsum")
+        _check_launch(lib.ltd_colsum(_ptr(x), _ptr(out), r, c, rows,
+                                     _stream(dev)), "colsum")
+        if out.shape[0] == 1:
+            return out[0]
+        x = out
+
+
+def weight_grad(dy, x):
+    """Kernel wrapper of `weight_grad_plain`; on CUDA dy and x are bf16
+    with N % 128 == 0 and K % 128 == 0 (M is padded to a multiple of 32
+    with zero rows)."""
+    if dy.device.type == "cpu":
+        return weight_grad_plain(dy, x)
+    dev = _on_cuda("weight_grad", dy, x)
+    m, n = dy.shape
+    k = x.shape[1]
+    _require(dy.dtype == torch.bfloat16 and x.dtype == torch.bfloat16
+             and x.shape[0] == m,
+             "weight_grad: dy (M, N) and x (M, K) bf16")
+    _require(n % 128 == 0 and k % 128 == 0,
+             f"weight_grad: needs N % 128 == 0 and K % 128 == 0, got {n}, {k}")
+    if m % 32:
+        dy = F.pad(dy, (0, 0, 0, 32 - m % 32))
+        x = F.pad(x, (0, 0, 0, 32 - m % 32))
+        m = dy.shape[0]
+    # split the M rows until the output tiles fill about two waves
+    tiles = (n // 128) * (k // 128)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = max(1, min(8, -(-2 * sms // tiles), m // 32))
+    chunk = -(-m // splits // 32) * 32
+    splits = -(-m // chunk)
+    out = torch.empty((splits, n, k), dtype=torch.float32, device=dev)
+    lib = load_library()
+    _count("weight_grad")
+    _check_launch(lib.ltd_weight_grad(_ptr(dy), _ptr(x), _ptr(out), m, n, k,
+                                      splits, chunk, _stream(dev)),
+                  "weight_grad")
+    if splits == 1:
+        return out[0]
+    return colsum(out.reshape(splits, n * k)).reshape(n, k)
+
+
+def layernorm_bwd(dy, x, scale, upstream):
+    """Kernel wrapper of `layernorm_bwd_plain`; on CUDA all float32, D a
+    multiple of 4 and at most 768."""
+    if dy.device.type == "cpu":
+        return layernorm_bwd_plain(dy, x, scale, upstream)
+    dev = _on_cuda("layernorm_bwd", dy, x, scale, upstream)
+    m, d = dy.shape
+    _require(all(t.dtype == torch.float32 for t in (dy, x, scale, upstream))
+             and x.shape == (m, d) and upstream.shape == (m, d)
+             and scale.numel() == d and d % 4 == 0 and d <= 768,
+             "layernorm_bwd: float32 dy, x, upstream (M, D) and scale (D,), "
+             "D % 4 == 0 and D <= 768")
+    dx = torch.empty_like(dy)
+    partial = torch.empty(((m + 31) // 32, 2 * d), dtype=torch.float32,
+                          device=dev)
+    lib = load_library()
+    _count("layernorm_bwd")
+    _check_launch(lib.ltd_layernorm_bwd(_ptr(dy), _ptr(x), _ptr(scale),
+                                        _ptr(upstream), _ptr(dx), _ptr(partial),
+                                        m, d, _stream(dev)), "layernorm_bwd")
+    sums = colsum(partial)
+    return dx, sums[:d], sums[d:]
+
+
+def dwconv_gelu_bwd(da, c, h, dw, hw: int):
+    """Kernel wrapper of `dwconv_gelu_bwd_plain`; on CUDA da, c, h float32,
+    dw bf16 (9, C), C % 32 == 0 and hw <= 16."""
+    if da.device.type == "cpu":
+        return dwconv_gelu_bwd_plain(da, c, h, dw, hw)
+    dev = _on_cuda("dwconv_gelu_bwd", da, c, h, dw)
+    m, ch = da.shape
+    _require(da.dtype == c.dtype == h.dtype == torch.float32
+             and dw.dtype == torch.bfloat16 and c.shape == (m, ch)
+             and h.shape == (m, ch) and dw.shape == (9, ch),
+             "dwconv_gelu_bwd: float32 da, c, h (M, C) and bf16 dw (9, C)")
+    _require(ch % 32 == 0 and hw <= 16 and m % (hw * hw) == 0,
+             "dwconv_gelu_bwd: needs C % 32 == 0, hw <= 16, (B*hw*hw, C) rows")
+    b = m // (hw * hw)
+    dhid = torch.empty((m, ch), dtype=torch.bfloat16, device=dev)
+    partial = torch.empty((b, 11 * ch), dtype=torch.float32, device=dev)
+    lib = load_library()
+    _count("dwconv_gelu_bwd")
+    _check_launch(lib.ltd_dwconv_gelu_bwd(_ptr(da), _ptr(c), _ptr(h), _ptr(dw),
+                                          _ptr(dhid), _ptr(partial), b, hw, ch,
+                                          _stream(dev)), "dwconv_gelu_bwd")
+    sums = colsum(partial).reshape(11, ch)
+    return dhid, sums[:9], sums[9], sums[10]
+
+
+def self_attention_bwd(qkv, dout, n_heads: int, n_tokens: int):
+    """Kernel wrapper of `self_attention_bwd_plain`: two kernels, dq (and
+    each row's softmax statistics), then dk and dv, each launch counted.
+    On CUDA: qkv bf16, dout float32, head dim 64, N % 64 == 0 and
+    N <= 256."""
+    if qkv.device.type == "cpu":
+        return self_attention_bwd_plain(qkv, dout, n_heads, n_tokens)
+    dev = _on_cuda("self_attention_bwd", qkv, dout)
+    m, three_d = qkv.shape
+    d = three_d // 3
+    _require(qkv.dtype == torch.bfloat16 and dout.dtype == torch.float32
+             and dout.shape == (m, d) and d == 64 * n_heads,
+             "self_attention_bwd: qkv bf16 (B*N, 3D), dout float32 (B*N, D), "
+             "head dim 64")
+    _require(n_tokens % 64 == 0 and n_tokens <= 256 and m % n_tokens == 0,
+             f"self_attention_bwd: needs N % 64 == 0 and N <= 256, got {n_tokens}")
+    b = m // n_tokens
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((b, n_heads, n_tokens, 3), dtype=torch.float32,
+                        device=dev)
+    lib = load_library()
+    args = (_ptr(qkv), _ptr(dout), _ptr(dqkv), _ptr(stats), b, n_tokens, d,
+            n_heads, _stream(dev))
+    _count("self_attention_bwd")
+    _check_launch(lib.ltd_self_attention_bwd_dq(*args), "self_attention_bwd (dq)")
+    _count("self_attention_bwd")
+    _check_launch(lib.ltd_self_attention_bwd_dkv(*args), "self_attention_bwd (dk, dv)")
+    return dqkv
+
+
+def cross_attention_bwd(qc, kv, dout, n_heads: int, n_tokens: int):
+    """Kernel wrapper of `cross_attention_bwd_plain`. On CUDA: qc and kv
+    bf16, dout float32, head dim 64, at most 12 heads."""
+    if qc.device.type == "cpu":
+        return cross_attention_bwd_plain(qc, kv, dout, n_heads, n_tokens)
+    dev = _on_cuda("cross_attention_bwd", qc, kv, dout)
+    m, d = qc.shape
+    b = m // n_tokens
+    _require(qc.dtype == kv.dtype == torch.bfloat16
+             and dout.dtype == torch.float32 and dout.shape == (m, d)
+             and kv.shape == (2 * b, 2 * d) and d == 64 * n_heads
+             and n_heads <= 12 and m == b * n_tokens,
+             "cross_attention_bwd: qc bf16 (B*N, D), kv bf16 (2B, 2D), dout "
+             "float32 (B*N, D), head dim 64, <= 12 heads")
+    dqc = torch.empty_like(qc)
+    dkv = torch.empty_like(kv)
+    lib = load_library()
+    _count("cross_attention_bwd")
+    _check_launch(lib.ltd_cross_attention_bwd(_ptr(qc), _ptr(kv), _ptr(dout),
+                                              _ptr(dqc), _ptr(dkv), b, n_tokens,
+                                              d, n_heads, _stream(dev)),
+                  "cross_attention_bwd")
+    return dqc, dkv
+
+
+# ------------------------------ the layer through the kernels ------------------------------
+
+
+def _layer_forward(x, cond, params, n_heads: int, hw: int, keep: bool):
+    """The layer forward through the kernels up to the GELU output.
+    keep=True (the backward's recompute) also writes what the backward
+    reads: the normalised rows xn1 and xn2, the pre-GELU c, and the
+    residuals x0, x1, x2 as separate tensors. keep=False (the forward)
+    updates one float32 residual in place and writes none of those."""
+    (ln1s, ln1b, wqkv, ln2s, ln2b, wq, wkv,
+     ln3s, ln3b, w1, b1, dw, dwb, _, _) = params
+    b, n, d = x.shape
+    x0 = x.reshape(b * n, d).to(torch.float32, copy=True)
+    c2 = cond.reshape(b * 2, d).to(wqkv.dtype).contiguous()
+
+    def residual(t):  # the attention kernels add into it in place
+        return t.clone() if keep else t
+
+    def ln_product(t, w, ln):  # (product, normalised rows or None)
+        out = fs.ln_gemm(t, w, ln=ln, return_xn=keep)
+        return out if keep else (out, None)
+
+    qkv, xn1 = ln_product(x0, wqkv, (ln1s, ln1b))
+    x1 = fs.self_attention(qkv, residual(x0), n_heads, n)
+    qc, xn2 = ln_product(x1, wq, (ln2s, ln2b))
+    kv = fs.ln_gemm(c2, wkv)
+    x2, xn3 = fs.cross_attention(qc, kv, residual(x1), (ln3s, ln3b), n_heads, n)
+    h = fs.ln_gemm(xn3, w1, bias=b1, out_dtype=torch.float32)
+    a, c = (fs.dwconv_gelu(h, dw, dwb, hw, return_c=True) if keep
+            else (fs.dwconv_gelu(h, dw, dwb, hw), None))
+    return dict(x0=x0, c2=c2, qkv=qkv, xn1=xn1, x1=x1, qc=qc, xn2=xn2, kv=kv,
+                x2=x2, xn3=xn3, h=h, c=c, a=a)
+
+
+def fused_layer_fwd(x, cond, params: Sequence[torch.Tensor], n_heads: int,
+                    hw: int):
+    """The layer forward (`_fwd_kernel`) through the kernels: x (B, N, D),
+    cond (B, 2, D); the result in x's dtype."""
+    r = _layer_forward(x, cond, params, n_heads, hw, keep=False)
+    out = fs.ln_gemm(r["a"], params[13], bias=params[14], residual=r["x2"])
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def fused_layer_bwd(x, cond, g, params: Sequence[torch.Tensor], n_heads: int,
+                    hw: int):
+    """The layer backward (`_bwd_kernel`) through the kernels, recomputing
+    the forward: (dx in x's dtype, dcond in cond's dtype, the 15 parameter
+    gradients in float32, shaped like the parameters)."""
+    (ln1s, _, wqkv, ln2s, _, wq, wkv, ln3s, _, w1, _, dw, _, w2, _) = params
+    b, n, d = x.shape
+    r = _layer_forward(x, cond, params, n_heads, hw, keep=True)
+    lp = wqkv.dtype
+
+    def dx_of(dy, w):  # dY W, float32: W^T is the (out, in) operand
+        return fs.ln_gemm(dy, w.T.contiguous(), out_dtype=torch.float32)
+
+    g32 = g.reshape(b * n, d).float()
+    g_lp = g32.to(lp)
+    db2 = colsum(g32)
+    dw2 = weight_grad(g_lp, r["a"])
+    dhid, ddw, ddwb, db1 = dwconv_gelu_bwd(dx_of(g_lp, w2), r["c"], r["h"],
+                                           dw, hw)
+    dw1 = weight_grad(dhid, r["xn3"])
+    dx2, ds3, db3 = layernorm_bwd(dx_of(dhid, w1), r["x2"], ln3s, g32)
+    del r["h"], r["c"], r["a"]
+
+    dqc, dkv = cross_attention_bwd(r["qc"], r["kv"], dx2, n_heads, n)
+    dwq = weight_grad(dqc, r["xn2"])
+    dwkv = weight_grad(dkv, r["c2"])
+    dcond = dx_of(dkv, wkv)
+    dx1, ds2, db2v = layernorm_bwd(dx_of(dqc, wq), r["x1"], ln2s, dx2)
+    del dx2
+
+    dqkv = self_attention_bwd(r["qkv"], dx1, n_heads, n)
+    dwqkv = weight_grad(dqkv, r["xn1"])
+    dx, ds1, db1v = layernorm_bwd(dx_of(dqkv, wqkv), r["x0"], ln1s, dx1)
+    grads = [ds1, db1v, dwqkv, ds2, db2v, dwq, dwkv, ds3, db3, dw1, db1,
+             ddw, ddwb, dw2, db2]
+    return (dx.reshape(b, n, d).to(x.dtype),
+            dcond.reshape(b, 2, d).to(cond.dtype),
+            [gr.reshape(p.shape) for gr, p in zip(grads, params)])
+
+
+class FusedLayerFunction(torch.autograd.Function):
+    """One decoder layer as an autograd function over the kernels (their
+    plain versions on CPU tensors). The forward saves only (x, cond,
+    params), as the TPU kernel's `_vjp_fwd_real` does; the backward
+    recomputes. The parameter gradients come back in each parameter's
+    dtype (bf16 for the projections and taps, float32 for the LayerNorm
+    scales and shifts and the biases); dx and dcond in theirs."""
+
+    @staticmethod
+    def forward(ctx, x, cond, n_heads: int, hw: int, *params):
+        ctx.save_for_backward(x, cond, *params)
+        ctx.n_heads, ctx.hw = n_heads, hw
+        return fused_layer_fwd(x, cond, params, n_heads, hw)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, cond, *params = ctx.saved_tensors
+        dx, dcond, grads = fused_layer_bwd(x, cond, g.contiguous(), params,
+                                           ctx.n_heads, ctx.hw)
+        return (dx, dcond, None, None,
+                *(gr.to(p.dtype) for gr, p in zip(grads, params)))
+
+
+def fused_layer(x, cond, params: List[torch.Tensor], n_heads: int, hw: int):
+    """Differentiable decoder layer; params in `PARAM_NAMES` order."""
+    return FusedLayerFunction.apply(x, cond, n_heads, hw,
+                                    *(p.contiguous() for p in params))

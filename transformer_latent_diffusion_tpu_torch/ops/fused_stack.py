@@ -31,6 +31,13 @@ call and cast to the input dtype at its end; qkv, the cross-attention
 query and K/V, the expanded hidden state and the GELU output are rounded
 to the weights' dtype (bf16) after float32 accumulation; softmax
 probabilities are rounded to that dtype before they weigh V.
+
+The training layer (`ops/fused_layer_vjp.py`, TPU kernel K2) runs the same
+kernels in three more modes: `ln_gemm(out_dtype=torch.float32)` (the
+float32 hidden state, and the backward's dX = dY W products),
+`ln_gemm(return_xn=True)` (also the bf16 normalised rows) and
+`dwconv_gelu` on a float32 hidden state with `return_c=True` (also the
+float32 pre-GELU values).
 """
 
 from __future__ import annotations
@@ -72,21 +79,26 @@ def _layer_norm_plain(x, ln):
         + shift.reshape(-1)
 
 
-def ln_gemm_plain(a, w, bias=None, ln=None, residual=None):
+def ln_gemm_plain(a, w, bias=None, ln=None, residual=None, out_dtype=None,
+                  return_xn=False):
     """LN?(a) @ w.T with float32 accumulation of w.dtype operands.
 
     a: (M, K); w: (N, K); bias: (N,) float32; ln: (scale, shift) float32,
     statistics in float32 with eps 1e-5. Without `residual`, returns
-    (acc + bias) rounded to w.dtype; with it, returns the float32
-    (residual + acc) + bias."""
+    (acc + bias) rounded to `out_dtype` (default w.dtype); with it,
+    returns the float32 (residual + acc) + bias. return_xn (with `ln`):
+    returns (out, the normalised rows rounded to w.dtype)."""
     x = a.float() if ln is None else _layer_norm_plain(a, ln)
-    acc = x.to(w.dtype).float() @ w.float().T
+    xn = x.to(w.dtype)
+    acc = xn.float() @ w.float().T
     if residual is not None:
         out = residual + acc
-        return out if bias is None else out + bias.reshape(-1)
-    if bias is not None:
-        acc = acc + bias.reshape(-1)
-    return acc.to(w.dtype)
+        out = out if bias is None else out + bias.reshape(-1)
+    else:
+        if bias is not None:
+            acc = acc + bias.reshape(-1)
+        out = acc.to(out_dtype or w.dtype)
+    return (out, xn) if return_xn else out
 
 
 def _softmax_pv(s, v, dtype):
@@ -126,10 +138,11 @@ def cross_attention_plain(qc, kv, residual, ln, n_heads: int, n_tokens: int):
     return x, _layer_norm_plain(x, ln).to(qc.dtype)
 
 
-def dwconv_gelu_plain(h, dw, dwb, hw: int):
-    """bf16(GELU(depthwise3x3(h) + dwb)) on the hw x hw token grid, in
-    float32, summed in the TPU kernel's order. h: (B*hw*hw, C);
-    dw: (9, C) taps di*3+dj; dwb: (C,) float32."""
+def dwconv_gelu_plain(h, dw, dwb, hw: int, return_c=False):
+    """GELU(depthwise3x3(h) + dwb) on the hw x hw token grid, in float32,
+    summed in the TPU kernel's order, rounded to dw.dtype. h: (B*hw*hw, C);
+    dw: (9, C) taps di*3+dj; dwb: (C,) float32. return_c: also return the
+    float32 pre-GELU values c."""
     m, c = h.shape
     g = h.float().reshape(m // (hw * hw), hw, hw, c)
     w = dw.float()
@@ -140,7 +153,8 @@ def dwconv_gelu_plain(h, dw, dwb, hw: int):
            + F.pad(zs[2], (0, 0, 1, 1))[:, :, 2:hw + 2])
     acc = acc + dwb.reshape(-1)
     act = 0.5 * acc * (1.0 + torch.erf(acc * (1.0 / math.sqrt(2.0))))
-    return act.reshape(m, c).to(h.dtype)
+    act = act.reshape(m, c).to(dw.dtype)
+    return (act, acc.reshape(m, c)) if return_c else act
 
 
 # ------------------------------ kernel wrappers ------------------------------
@@ -176,14 +190,16 @@ def _ptr(t: Optional[torch.Tensor]):
     return ctypes.c_void_p(t.data_ptr()) if t is not None else None
 
 
-def ln_gemm(a, w, bias=None, ln=None, residual=None):
+def ln_gemm(a, w, bias=None, ln=None, residual=None, out_dtype=None,
+            return_xn=False):
     """Kernel wrapper of `ln_gemm_plain` (same arguments and result; with
     `residual` the kernel updates it in place and returns it).
 
     On CUDA: w bf16 (N, K) with N % 128 == 0 and K % 32 == 0; a float32
-    with `ln` (then K <= 768), else bf16; bias, ln and residual float32."""
+    with `ln` (then K <= 768), else bf16; bias, ln and residual float32;
+    out_dtype bf16 or float32."""
     if a.device.type == "cpu":
-        return ln_gemm_plain(a, w, bias, ln, residual)
+        return ln_gemm_plain(a, w, bias, ln, residual, out_dtype, return_xn)
     scale, shift = ln if ln is not None else (None, None)
     extra = [t for t in (bias, scale, shift, residual) if t is not None]
     dev = _on_cuda("ln_gemm", a, w, *extra)
@@ -198,6 +214,11 @@ def ln_gemm(a, w, bias=None, ln=None, residual=None):
     for t in extra:
         _require(t.dtype == torch.float32, "ln_gemm: bias, ln and residual "
                                            "are float32")
+    out_dtype = out_dtype or torch.bfloat16
+    _require(out_dtype in (torch.bfloat16, torch.float32),
+             "ln_gemm: out_dtype is bf16 or float32")
+    _require(ln is not None or not return_xn,
+             "ln_gemm: return_xn needs the LayerNorm prologue")
     if bias is not None:
         _require(bias.numel() == n, "ln_gemm: bias must have N elements")
     if ln is not None:
@@ -207,14 +228,18 @@ def ln_gemm(a, w, bias=None, ln=None, residual=None):
     if residual is not None:
         _require(residual.shape == (m, n), "ln_gemm: residual must be (M, N)")
     else:
-        out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+        out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    xn = (torch.empty((m, k), dtype=torch.bfloat16, device=dev)
+          if return_xn else None)
     lib = load_library()
     LAUNCHES["ln_gemm"] += 1
     err = lib.ltd_ln_gemm(_ptr(a), _ptr(scale), _ptr(shift), _ptr(w),
-                          _ptr(bias), _ptr(out), _ptr(residual), m, n, k,
+                          _ptr(bias), _ptr(out), _ptr(residual), _ptr(xn),
+                          m, n, k, int(out_dtype == torch.float32),
                           _stream(dev))
     _check_launch(err, "ln_gemm")
-    return residual if residual is not None else out
+    result = residual if residual is not None else out
+    return (result, xn) if return_xn else result
 
 
 def self_attention(qkv, residual, n_heads: int, n_tokens: int):
@@ -268,27 +293,30 @@ def cross_attention(qc, kv, residual, ln, n_heads: int, n_tokens: int):
     return residual, xn
 
 
-def dwconv_gelu(h, dw, dwb, hw: int):
+def dwconv_gelu(h, dw, dwb, hw: int, return_c=False):
     """Kernel wrapper of `dwconv_gelu_plain`. Needs C % 64 == 0 and
-    hw <= 32 on CUDA."""
+    hw <= 32 on CUDA; h bf16 or float32, dw bf16, dwb float32."""
     if h.device.type == "cpu":
-        return dwconv_gelu_plain(h, dw, dwb, hw)
+        return dwconv_gelu_plain(h, dw, dwb, hw, return_c)
     dev = _on_cuda("dwconv_gelu", h, dw, dwb)
     m, c = h.shape
-    _require(h.dtype == torch.bfloat16 and dw.dtype == torch.bfloat16
-             and dwb.dtype == torch.float32,
-             "dwconv_gelu: h and dw bf16, dwb float32")
+    _require(h.dtype in (torch.bfloat16, torch.float32)
+             and dw.dtype == torch.bfloat16 and dwb.dtype == torch.float32,
+             "dwconv_gelu: h bf16 or float32, dw bf16, dwb float32")
     _require(c % 64 == 0 and hw <= 32 and m % (hw * hw) == 0
              and dw.shape == (9, c) and dwb.numel() == c,
              "dwconv_gelu: needs C % 64 == 0, hw <= 32, (B*hw*hw, C) rows, "
              "dw (9, C), dwb (C,)")
-    out = torch.empty_like(h)
+    out = torch.empty((m, c), dtype=torch.bfloat16, device=dev)
+    c_out = (torch.empty((m, c), dtype=torch.float32, device=dev)
+             if return_c else None)
     lib = load_library()
     LAUNCHES["dwconv_gelu"] += 1
     err = lib.ltd_dwconv_gelu(_ptr(h), _ptr(dw), _ptr(dwb), _ptr(out),
-                              m // (hw * hw), hw, c, _stream(dev))
+                              _ptr(c_out), m // (hw * hw), hw, c,
+                              int(h.dtype == torch.float32), _stream(dev))
     _check_launch(err, "dwconv_gelu")
-    return out
+    return (out, c_out) if return_c else out
 
 
 # ------------------------------ the layer stack ------------------------------

@@ -121,10 +121,11 @@ class DiffusionGenerator:
     packs). fast_apply: an engine with `prepare(state_dict)` and
     `apply_prepared(prepared, x, noise_level, label)` (the fused engine);
     None runs `model` itself. vae: an object with `decode(latents_nchw)`,
-    or None to return latents only. device: where sampling runs.
+    or None to return latents only. device: where sampling runs, a
+    required keyword ("cuda" or "cpu"), as for `DiffusionTransformer`.
     """
 
-    def __init__(self, model, vae=None, fast_apply=None, device="cpu",
+    def __init__(self, model, vae=None, fast_apply=None, *, device,
                  prediction_type: Optional[str] = None, mesh: Any = None):
         if mesh is not None:
             raise _not_ported("mesh-sharded generation", "item 14")

@@ -1,5 +1,5 @@
-"""Shared utilities of the port: seeded random weights, checkpoint files,
-image grids and PIL conversion."""
+"""Shared utilities of the port: seeded random weights, parameter counts,
+checkpoint files, image grids and PIL conversion."""
 
 from __future__ import annotations
 
@@ -29,6 +29,11 @@ def init_random_weights_(module: nn.Module, seed: int) -> nn.Module:
             std = 1.0 / math.sqrt(p[0].numel())
             p.copy_(torch.randn(p.shape, generator=gen) * std)
     return module
+
+
+def count_parameters(module: nn.Module) -> int:
+    """Number of parameter elements of a module (trainable or not)."""
+    return sum(p.numel() for p in module.parameters())
 
 
 def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
