@@ -3,14 +3,22 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from
-`transformer_latent_diffusion_tpu_torch/csrc/` and drives the port's two
+`transformer_latent_diffusion_tpu_torch/csrc/` and drives the port's three
 paths, each checked against plain PyTorch versions on the same inputs:
 
 - serving (TPU kernel K1, the inference decoder layer): each kernel at the
   main path's shapes, one fused-engine forward against the plain bf16
   forward, the library entry point (32 images, 50-step DDIM, CFG 6,
-  flagship 101M denoiser, random weights from a seed) and the HTTP
-  service on a real socket;
+  flagship 101M denoiser, random weights from a seed), the HTTP service on
+  a real socket, and the 256 px model sampled on a 32 x 32-token grid
+  (resized positional table, the linen path with K3);
+- hi-res serving (TPU kernels K3, flash attention, and K5's forward, the
+  fused sep-conv MLP): each at the 512 px and 1024 px shapes (and a ragged
+  400-token grid), one 512 px Denoiser forward with the kernels against
+  the plain bf16 forward, the library entry point on a 512 px deployment
+  (the flagship's seeded weights with the positional table upsampled; 32
+  images, 50-step DDIM, CFG 6), its HTTP service, and a 1024 px deployment
+  (4 images x 20 DDIM steps, cut from 32 x 50 for time);
 - training (TPU kernel K2, the differentiable decoder layer): each
   backward kernel at the flagship layer's shapes (batch 128), one layer's
   forward and backward against the plain layer, one train step's
@@ -19,8 +27,8 @@ paths, each checked against plain PyTorch versions on the same inputs:
   a checkpoint, then a resume that continues the step count).
 
 It checks that each path's run launched its kernels the expected number
-of times. Any failure raises: there is no CPU fallback and no caught
-phase.
+of times, and no other kernel of the port. Any failure raises: there is
+no CPU fallback and no caught phase.
 
 Output: one line per phase; then the card's name and power limit as
 nvidia-smi reports them, one JSON line with every kernel's launches,
@@ -56,6 +64,17 @@ DEVICE = "cuda"
 TPU_KERNEL = "transformer_latent_diffusion_tpu/ops/fused_stack.py:120"
 TPU_K2_FWD = "transformer_latent_diffusion_tpu/ops/fused_layer_vjp.py:267"
 TPU_K2_BWD = "transformer_latent_diffusion_tpu/ops/fused_layer_vjp.py:289"
+TPU_K3 = "transformer_latent_diffusion_tpu/ops/attention.py:99"
+TPU_K5 = "transformer_latent_diffusion_tpu/ops/fused_mlp_vjp.py:186"
+# hi-res shapes: 512 px is a 32 x 32 grid (CFG doubles 32 images to 64),
+# 1024 px a 64 x 64 grid (CFG doubles 4 images to 8); a ragged 20 x 20 grid
+HR_HW, HR_B = 32, 64
+HR_N = HR_HW * HR_HW
+XR_N, XR_B = 64 * 64, 8
+RAG_N, RAG_B = 400, 2
+HR_IMGS, HR_ITER = 32, 50
+XR_IMGS, XR_ITER = 4, 20  # 1024 px: cut from 32 x 50 for time
+RESIZE_ITER = 4  # steps of the 256 px model sampled on the 512 px grid
 # the card's published peaks (H100 SXM, dense, at 700 W): the least time
 # of a kernel is the larger of its bytes over the memory rate and its
 # operations over the peak rate of their type
@@ -76,6 +95,11 @@ LAYER_REL_L2 = 2e-2
 # 0.0106 on an H100 80GB HBM3 at 700 W (random flagship weights, batch 64);
 # the bound leaves about 3x margin
 ENGINE_REL_L2 = 0.03
+# one 512 px Denoiser forward, kernels (K3, K5) vs the plain bf16 forward
+# (rel-L2; the kernel route keeps the MLP's hidden state in float32, the
+# plain one in bf16): measured 0.00996 on an H100 80GB HBM3 at 700 W
+# (random weights, batch 64); the bound leaves about 3x margin
+HIRES_MODEL_REL_L2 = 0.03
 
 
 def log(msg: str) -> None:
@@ -410,13 +434,12 @@ def phase_library(cfg):
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     latents.clear()
-    fs.reset_launch_counts()
-    torch.cuda.synchronize()
+    _reset_counts()
     t0 = time.perf_counter()
     imgs = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(fs.LAUNCHES)
+    launches = _counts()
     px = 8 * cfg.denoiser_cfg.image_size
     if imgs.shape != (N_IMGS, px, px, 3) or imgs.dtype.name != "uint8":
         raise AssertionError(f"images {imgs.shape} {imgs.dtype}")
@@ -425,30 +448,35 @@ def phase_library(cfg):
     if float(imgs.std()) <= 0:
         raise AssertionError("images are constant")
     calls = N_ITER  # n_iter - 1 update steps + the final denoise
-    expect = {k: v * cfg.denoiser_cfg.n_layers * calls
-              for k, v in fs.LAUNCHES_PER_LAYER.items()}
+    expect = _expect({k: v * cfg.denoiser_cfg.n_layers * calls
+                      for k, v in fs.LAUNCHES_PER_LAYER.items()})
     log(f"[library] generate_array_from_text {N_IMGS} imgs x {N_ITER} DDIM steps: "
         f"{wall:.3f} s ({N_IMGS / wall:.3f} imgs/s; warm-up run {warm:.1f} s); "
-        f"launches {launches} (expected {expect})")
+        f"launches { {k: v for k, v in launches.items() if v} } (expected "
+        f"{ {k: v for k, v in expect.items() if v} }, no other kernel)")
     if launches != expect:
         raise AssertionError(f"kernel launches {launches} != expected {expect}")
     return tr, launches
 
 
-def phase_serving(tr):
+def phase_serving(service, tag="serving"):
+    """The WSGI service on a real socket: GET /, 3 x POST /generate-image/
+    at the defaults (JPEGs of the model's size), a 401, /healthz."""
+    import io
     from wsgiref.simple_server import WSGIRequestHandler, make_server
 
-    from transformer_latent_diffusion_tpu_torch.serve.app import (
-        GenerationService,
-        create_wsgi_app,
-    )
+    from PIL import Image
+
+    from transformer_latent_diffusion_tpu_torch.serve.app import create_wsgi_app
+
+    px = 8 * service.transformer.cfg.denoiser_cfg.image_size
 
     class QuietHandler(WSGIRequestHandler):
         def log_message(self, *args):
             pass
 
     os.environ["API_TOKEN"] = "smoke-token"
-    app = create_wsgi_app(service=GenerationService(transformer=tr))
+    app = create_wsgi_app(service=service)
     server = make_server("127.0.0.1", 0, app, handler_class=QuietHandler)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -476,6 +504,9 @@ def phase_serving(tr):
             times.append(time.perf_counter() - t0)
             if status != 200 or not body.startswith(b"\xff\xd8\xff"):
                 raise AssertionError(f"POST /generate-image/ -> {status} {body[:200]!r}")
+            size = Image.open(io.BytesIO(body)).size
+            if size != (px + 8, px + 8):  # one image, a 4-pixel border
+                raise AssertionError(f"JPEG of {size}, expected {px + 8} px a side")
         status, _ = request("/generate-image/", {"prompt": "x"}, token=None)
         if status != 401:
             raise AssertionError(f"POST without a token -> {status}, expected 401")
@@ -483,14 +514,290 @@ def phase_serving(tr):
         health = json.loads(body)
         if status != 200 or health["requests"] != 3 or health["errors"] != 0:
             raise AssertionError(f"/healthz -> {status} {health}")
-        log(f"[serving] GET / 200; 3 x POST /generate-image/ (defaults: 1 image, "
-            f"15-step DPM++) 200 JPEG in {', '.join(f'{t:.3f}' for t in times)} s; "
-            f"no token 401; /healthz {health['requests']} requests on "
-            f"{health['device_kind']}")
+        log(f"[{tag}] GET / 200; 3 x POST /generate-image/ (defaults: 1 image, "
+            f"15-step DPM++) 200 JPEG of {px} px in "
+            f"{', '.join(f'{t:.3f}' for t in times)} s; no token 401; /healthz "
+            f"{health['requests']} requests on {health['device_kind']}")
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
+
+
+def phase_resized_grid(tr):
+    """The 256 px flagship sampled on a 32 x 32-token grid (generate with
+    img_size=64): the positional table resized once, the Denoiser's linen
+    path (flash attention; the MLP plain, as the JAX gates have it for a
+    native 16 x 16 grid), not the fused engine."""
+    den = tr.cfg.denoiser_cfg
+    labels = tr.clip_model.encode_text(["a cute cat"] * 4)
+    _reset_counts()
+    t0 = time.perf_counter()
+    img, x0 = tr.diffuser.generate(labels, n_iter=RESIZE_ITER, num_imgs=4,
+                                   img_size=2 * den.image_size, class_guidance=6,
+                                   sampler="ddim", output="uint8", sharp_f=0,
+                                   bright_f=0, scale_factor=tr._scale_factor)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    expect = _expect({"flash_attention": den.n_layers * RESIZE_ITER})
+    px = 16 * den.image_size
+    log(f"[resized-grid] 256 px model, generate(img_size={2 * den.image_size}): "
+        f"4 images x {RESIZE_ITER} DDIM steps in {wall:.3f} s; launches "
+        f"{ {k: v for k, v in launches.items() if v} } (expected only "
+        f"flash_attention {expect['flash_attention']})")
+    if img.shape != (4, px, px, 3) or not torch.isfinite(x0).all():
+        raise AssertionError(f"resized-grid images {tuple(img.shape)}")
+    if launches != expect:
+        raise AssertionError(f"resized-grid launches {launches} != {expect}")
+
+
+# ------------------------------ hi-res serving (K3, K5) ------------------------------
+
+
+def phase_hires_kernels():
+    """Flash attention (K3) at the 512 px, 1024 px and a ragged grid's
+    shapes and the fused sep-conv MLP (K5's forward) at 512 px against
+    their plain versions; times, the SDPA yardstick and bounds."""
+    from transformer_latent_diffusion_tpu_torch.ops import attention as att
+    from transformer_latent_diffusion_tpu_torch.ops import fused_mlp_vjp as fm
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device="cpu").manual_seed(8)
+    bf = torch.bfloat16
+    F = torch.nn.functional
+
+    def randn(*shape, std=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g) * std).to(dev, dtype)
+
+    worst, timing, library, bounds = {}, {}, {}, {}
+    with torch.no_grad():
+        for b, n in ((HR_B, HR_N), (XR_B, XR_N), (RAG_B, RAG_N)):
+            qkv = randn(b, n, 3 * D, dtype=bf)
+            q, k, v = qkv.chunk(3, dim=-1)  # strided row views, as the model passes them
+            kern = lambda: att.flash_attention(q, k, v, HEADS)  # noqa: E731
+            plain = lambda: att.multi_head_attention(q, k, v, HEADS)  # noqa: E731
+            worst["flash_attention"] = max(worst.get("flash_attention", 0.0), _check(
+                f"flash_attention B={b} N={n}", (kern(),), (plain(),), "hires-kernels"))
+            t = time_against_plain({f"flash_attention B={b} N={n}": (kern, plain)},
+                                   "hires-kernels")
+            heads = [t_.reshape(b, n, HEADS, 64).transpose(1, 2).contiguous()
+                     for t_ in (q, k, v)]
+            sdpa = time_ms(lambda: F.scaled_dot_product_attention(*heads))
+            bnd = bound(4 * b * n * D * 2, 4 * b * HEADS * n * n * 64, BF16_TENSOR_FLOP_S)
+            ms = t[f"flash_attention B={b} N={n}"][0]
+            log(f"[hires-kernels] flash_attention B={b} N={n}: {ms:.4f} ms, "
+                f"{4 * b * HEADS * n * n * 64 / ms / 1e9:.1f} TFLOP/s; SDPA "
+                f"{sdpa:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]})")
+            if n == HR_N:  # the 512 px main path's shape
+                timing["flash_attention"] = t[f"flash_attention B={b} N={n}"]
+                library["flash_attention"] = sdpa
+                bounds["flash_attention"] = bnd
+            del qkv, q, k, v, heads
+
+        m = HR_B * HR_N
+        x = randn(HR_B, HR_N, D, dtype=bf)
+        w1 = randn(HIDDEN, D, std=D ** -0.5, dtype=bf)
+        w2 = randn(D, HIDDEN, std=HIDDEN ** -0.5, dtype=bf)
+        b1, b2 = randn(HIDDEN, std=0.1), randn(D, std=0.1)
+        dw, dwb = randn(9, HIDDEN, std=1 / 3, dtype=bf), randn(HIDDEN, std=0.1)
+        args = (x, w1, b1, dw, dwb, w2, b2, HR_HW)
+        kern = lambda: fm.fused_mlp_sepconv(*args)  # noqa: E731
+        plain = lambda: fm.fused_mlp_sepconv_plain(*args)  # noqa: E731
+        worst["fused_mlp_sepconv"] = _check("fused_mlp_sepconv hw=32", (kern(),), (plain(),),
+                                            "hires-kernels")
+        timing.update(time_against_plain({"fused_mlp_sepconv": (kern, plain)},
+                                         "hires-kernels"))
+        library["fused_mlp_sepconv"] = None  # no one call: two products around a depthwise conv
+        bounds["fused_mlp_sepconv"] = bound(
+            2 * m * D * 2 + 2 * HIDDEN * D * 2 + 9 * HIDDEN * 2 + (2 * HIDDEN + D) * 4,
+            4 * m * D * HIDDEN, BF16_TENSOR_FLOP_S)
+        # its three launches one by one, and the row-band body against its plain version
+        x2 = x.reshape(m, D)
+        h = fs.ln_gemm(x2, w1, bias=b1, out_dtype=torch.float32)
+        a = fs.dwconv_gelu(h, dw, dwb, HR_HW)
+        _check("dwconv_gelu float32 row bands hw=32", (a,),
+               (fs.dwconv_gelu_plain(h, dw, dwb, HR_HW),), "hires-kernels")
+        parts = {"ln_gemm expand (float32 h)": lambda: fs.ln_gemm(x2, w1, bias=b1,
+                                                                  out_dtype=torch.float32),
+                 "dwconv_gelu row bands": lambda: fs.dwconv_gelu(h, dw, dwb, HR_HW),
+                 "ln_gemm contract": lambda: fs.ln_gemm(a, w2, bias=b2)}
+        part_bounds = {
+            "ln_gemm expand (float32 h)": bound(m * D * 2 + HIDDEN * D * 2 + m * HIDDEN * 4,
+                                                2 * m * D * HIDDEN, BF16_TENSOR_FLOP_S),
+            "dwconv_gelu row bands": bound(m * HIDDEN * 6, 26 * m * HIDDEN, F32_FLOP_S),
+            "ln_gemm contract": bound(m * HIDDEN * 2 + HIDDEN * D * 2 + m * D * 2,
+                                      2 * m * D * HIDDEN, BF16_TENSOR_FLOP_S)}
+        for name, fn in parts.items():
+            ms = time_ms(fn)
+            log(f"[hires-kernels] K5 part {name}: {ms:.4f} ms, bound "
+                f"{part_bounds[name][0]:.4f} ms ({part_bounds[name][1]})")
+        del x, x2, h, a
+    torch.cuda.synchronize()
+    log(f"[hires-kernels] bounds (ms): { {k: round(v[0], 4) for k, v in bounds.items()} }")
+    return worst, timing, library, bounds
+
+
+def hires_config(tmp, image_size):
+    """The flagship LTDConfig at `image_size` (64: 512 px, 128: 1024 px),
+    whose denoiser file holds the 256 px flagship's seeded random weights
+    with the positional table upsampled (train.highres)."""
+    import dataclasses
+
+    from transformer_latent_diffusion_tpu_torch.configs import DenoiserLoad
+    from transformer_latent_diffusion_tpu_torch.models.denoiser import Denoiser
+    from transformer_latent_diffusion_tpu_torch.train.highres import (
+        upsample_denoiser_params,
+    )
+    from transformer_latent_diffusion_tpu_torch.utils.common import init_random_weights_
+
+    base = flagship_configs()
+    den = base.denoiser_cfg
+    sd = init_random_weights_(Denoiser.from_config(den), 0).state_dict()
+    path = os.path.join(tmp, f"denoiser_{image_size}.pt")
+    torch.save(upsample_denoiser_params(sd, den.image_size, image_size, den.patch_size), path)
+    return dataclasses.replace(
+        base, denoiser_cfg=dataclasses.replace(den, image_size=image_size),
+        denoiser_load=DenoiserLoad(dtype="bfloat16", local_filename=path))
+
+
+def _hires_per_layer(den):
+    """Kernel launches per decoder layer on the linen path, by the JAX
+    package's gates: flash attention always, the fused MLP (two ln_gemm
+    launches, one dwconv_gelu) for a native grid of 16 < hw <= 32."""
+    hw = den.image_size // den.patch_size
+    per_layer = {"flash_attention": 1}
+    if 16 < hw <= 32:
+        per_layer.update(fused_mlp_sepconv=1, ln_gemm=2, dwconv_gelu=1)
+    return per_layer
+
+
+def phase_hires_model(cfg):
+    """One 512 px Denoiser forward at batch HR_B with the kernels (K3, K5)
+    against the same module's plain bf16 forward; its launches and times."""
+    from transformer_latent_diffusion_tpu_torch.models.denoiser import Denoiser
+    from transformer_latent_diffusion_tpu_torch.utils.common import load_state_dict_file
+
+    dev = torch.device(DEVICE)
+    den = cfg.denoiser_cfg
+    sd = load_state_dict_file(cfg.denoiser_load.local_filename)
+    models = {}
+    for flag in (True, False):
+        mdl = Denoiser.from_config(den, dtype=torch.bfloat16, use_pallas=flag,
+                                   fused_mlp_vjp=flag)
+        mdl.load_state_dict(sd)
+        models[flag] = mdl.to(dev).eval()
+    g = torch.Generator(device="cpu").manual_seed(9)
+    x = torch.randn(HR_B, 4, den.image_size, den.image_size, generator=g).to(dev)
+    noise = torch.full((HR_B, 1), 0.5, device=dev)
+    label = torch.randn(HR_B, den.text_emb_size, generator=g).to(dev)
+    with torch.no_grad():
+        _reset_counts()
+        out = models[True](x, noise, label)
+        launches = {k: v for k, v in _counts().items() if v}
+        ref = models[False](x, noise, label)
+    torch.cuda.synchronize()
+    r = rel_l2(out, ref)
+    cos = float(torch.nn.functional.cosine_similarity(
+        out.double().flatten(), ref.double().flatten(), dim=0))
+    expect = {k: v * den.n_layers for k, v in _hires_per_layer(den).items()}
+    log(f"[hires-model] 512 px Denoiser, kernels vs plain bf16 forward, batch {HR_B}: "
+        f"rel-L2 {r:.5f} (bound {HIRES_MODEL_REL_L2}), cos {cos:.6f}; launches "
+        f"{launches} (expected {expect})")
+    if not (torch.isfinite(out).all() and r < HIRES_MODEL_REL_L2):
+        raise AssertionError("the 512 px kernels' forward disagrees with the plain forward")
+    if launches != expect:
+        raise AssertionError(f"512 px forward launches {launches} != {expect}")
+    with torch.no_grad():
+        fwd = lambda flag: models[flag](x, noise, label)  # noqa: E731
+        tk = [time_ms(lambda: fwd(True), 5, 2)]
+        tp = [time_ms(lambda: fwd(False), 5, 2), time_ms(lambda: fwd(False), 5, 2)]
+        tk.append(time_ms(lambda: fwd(True), 5, 2))
+        log(f"[hires-model] one 512 px forward at batch {HR_B}: kernels "
+            f"{sum(tk) / 2:.3f} ms, plain bf16 {sum(tp) / 2:.3f} ms (runs {tk}, {tp})")
+    del models, out, ref
+
+
+def _breakdown(tr, n_imgs, n_iter):
+    """Where a library run's time goes: one denoiser forward at the CFG
+    batch (host clock around it, and a profile of its device time by
+    kernel), the VAE decode and the CLIP encode, each timed alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device(DEVICE)
+    den = tr.cfg.denoiser_cfg
+    g = torch.Generator(device="cpu").manual_seed(10)
+    x = torch.randn(2 * n_imgs, 4, den.image_size, den.image_size, generator=g).to(dev)
+    noise = torch.full((2 * n_imgs, 1), 0.5, device=dev)
+    prompts = ["a cute cat"] * n_imgs
+    with torch.no_grad():
+        label = tr.clip_model.encode_text(prompts + prompts)
+        fwd_ms = time_ms(lambda: tr.diffuser.model(x, noise, label), 3, 1)
+        vae_ms = time_ms(lambda: tr.vae.decode(x[:n_imgs] * tr._scale_factor), 2, 1)
+        clip_ms = time_ms(lambda: tr.clip_model.encode_text(prompts), 3, 1)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            tr.diffuser.model(x, noise, label)
+            torch.cuda.synchronize()
+    # device kernels (and copies) only: the aten rows are host-side ops
+    rows = sorted((e for e in prof.key_averages()
+                   if _device_us(e) > 0 and not e.key.startswith("aten::")),
+                  key=lambda e: -_device_us(e))
+    busy = sum(_device_us(e) for e in rows) / 1e3
+    px = 8 * den.image_size
+    log(f"[hires-breakdown] {px} px, batch {2 * n_imgs}: one denoiser forward {fwd_ms:.3f} ms "
+        f"(x {n_iter} calls = {fwd_ms * n_iter / 1e3:.3f} s), VAE decode of {n_imgs} images "
+        f"{vae_ms:.3f} ms, CLIP encode {clip_ms:.3f} ms; profiled forward: device busy "
+        f"{busy:.3f} ms ({busy / fwd_ms:.1%} of the timed forward); by kernel, us: "
+        + "; ".join(f"{e.key[:70]} x{e.count} {_device_us(e):.0f}" for e in rows[:14]))
+
+
+def _device_us(event):
+    return float(getattr(event, "device_time_total", 0.0)
+                 or getattr(event, "cuda_time_total", 0.0))
+
+
+def phase_hires_library(cfg, n_imgs, n_iter, smi):
+    """DiffusionTransformer on a hi-res deployment: a warm-up run, then a
+    timed run of n_imgs images x n_iter DDIM steps (CFG 6) with its exact
+    launch counts, images/s and peak memory."""
+    from transformer_latent_diffusion_tpu_torch.sampling import DiffusionTransformer
+
+    den = cfg.denoiser_cfg
+    t0 = time.perf_counter()
+    tr = DiffusionTransformer(cfg, device=DEVICE, seed=0)
+    torch.cuda.synchronize()
+    log(f"[hires-library] {8 * den.image_size} px DiffusionTransformer built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def run():
+        return tr.generate_array_from_text("a cute cat", num_imgs=n_imgs, n_iter=n_iter,
+                                           sampler="ddim", class_guidance=6)
+
+    t0 = time.perf_counter()
+    run()  # warm-up
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    imgs = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    px = 8 * den.image_size
+    expect = _expect({k: v * den.n_layers * n_iter for k, v in _hires_per_layer(den).items()})
+    log(f"[hires-library] {px} px: generate_array_from_text {n_imgs} imgs x {n_iter} DDIM "
+        f"steps: {wall:.3f} s ({n_imgs / wall:.3f} imgs/s; warm-up run {warm:.1f} s), peak "
+        f"memory {peak:.2f} GiB; launches { {k: v for k, v in launches.items() if v} } "
+        f"(expected { {k: v for k, v in expect.items() if v} }, no other kernel) | {smi}")
+    if imgs.shape != (n_imgs, px, px, 3) or imgs.dtype.name != "uint8" or float(imgs.std()) <= 0:
+        raise AssertionError(f"images {imgs.shape} {imgs.dtype}")
+    if launches != expect:
+        raise AssertionError(f"{px} px launches {launches} != expected {expect}")
+    _breakdown(tr, n_imgs, n_iter)
+    return tr, launches
 
 
 # ------------------------------ training (K2) ------------------------------
@@ -653,21 +960,34 @@ def _layer_params(gen, dev):
             p(D, HIDDEN, std=HIDDEN ** -0.5, dtype=bf), p(D, std=0.1)]
 
 
-def _reset_counts():
+def _count_modules():
+    from transformer_latent_diffusion_tpu_torch.ops import attention as att
     from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
+    from transformer_latent_diffusion_tpu_torch.ops import fused_mlp_vjp as fm
     from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
 
-    fs.reset_launch_counts()
-    lv.reset_launch_counts()
+    return fs, lv, att, fm
+
+
+def _reset_counts():
+    """Every kernel's launch count to 0, after the device's queued work."""
     torch.cuda.synchronize()
+    for mod in _count_modules():
+        mod.reset_launch_counts()
 
 
 def _counts():
-    from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
-    from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
-
+    """Every kernel's launches since the last _reset_counts()."""
     torch.cuda.synchronize()
-    return {**fs.LAUNCHES, **lv.LAUNCHES}
+    out = {}
+    for mod in _count_modules():
+        out.update(mod.LAUNCHES)
+    return out
+
+
+def _expect(nonzero):
+    """The launch counts of a run that launched `nonzero` and nothing else."""
+    return {**{k: 0 for k in _counts()}, **nonzero}
 
 
 def phase_train_layer():
@@ -909,6 +1229,7 @@ def phase_train_main(per_layer, smi):
 
 
 def main():
+    t_start = time.perf_counter()
     smi = phase_env()
     phase_build()
     worst, timing, library = phase_kernels()
@@ -916,9 +1237,27 @@ def main():
     phase_engine(cfg)
     torch.cuda.empty_cache()
     tr, launches = phase_library(cfg)
-    phase_serving(tr)
+    from transformer_latent_diffusion_tpu_torch.serve.app import GenerationService
+
+    phase_serving(GenerationService(transformer=tr))
+    phase_resized_grid(tr)
     del tr
     torch.cuda.empty_cache()
+
+    h_worst, h_timing, h_library, h_bounds = phase_hires_kernels()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg512 = hires_config(tmp, 64)
+        phase_hires_model(cfg512)
+        torch.cuda.empty_cache()
+        tr, h_launches = phase_hires_library(cfg512, HR_IMGS, HR_ITER, smi)
+        del tr
+        torch.cuda.empty_cache()
+        phase_serving(GenerationService(cfg=cfg512, device=DEVICE), "hires-serving")
+        torch.cuda.empty_cache()
+        tr, _ = phase_hires_library(hires_config(tmp, 128), XR_IMGS, XR_ITER, smi)
+        del tr
+        torch.cuda.empty_cache()
 
     t_worst, t_timing, t_library, t_bounds = phase_train_kernels()
     torch.cuda.empty_cache()
@@ -931,23 +1270,32 @@ def main():
     from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
 
     bounds = k1_bounds()
-    sources = {"weight_grad": "gemm_bwd", "colsum": "gemm_bwd",
-               "layernorm_bwd": "layernorm_bwd", "dwconv_gelu_bwd": "dwconv_gelu_bwd",
-               "self_attention_bwd": "attention_bwd", "cross_attention_bwd": "attention_bwd"}
+    port = "transformer_latent_diffusion_tpu_torch"
+    sources = {**{k: f"csrc/{k}.cu" for k in fs.KERNELS},
+               "weight_grad": "csrc/gemm_bwd.cu", "colsum": "csrc/gemm_bwd.cu",
+               "layernorm_bwd": "csrc/layernorm_bwd.cu",
+               "dwconv_gelu_bwd": "csrc/dwconv_gelu_bwd.cu",
+               "self_attention_bwd": "csrc/attention_bwd.cu",
+               "cross_attention_bwd": "csrc/attention_bwd.cu",
+               "flash_attention": "csrc/flash_attention.cu",
+               # composes ln_gemm.cu and dwconv_gelu.cu's row-band body
+               "fused_mlp_sepconv": "ops/fused_mlp_vjp.py"}
     kernels = []
-    for names, src, tpu, counts, err, tim, lib, bnd in (
-            (fs.KERNELS, {k: k for k in fs.KERNELS}, TPU_KERNEL, launches, worst, timing,
-             library, bounds),
-            (lv.KERNELS, sources, TPU_K2_BWD, t_launches, t_worst, t_timing, t_library,
-             t_bounds)):
+    for names, tpu, counts, err, tim, lib, bnd in (
+            (fs.KERNELS, TPU_KERNEL, launches, worst, timing, library, bounds),
+            (lv.KERNELS, TPU_K2_BWD, t_launches, t_worst, t_timing, t_library, t_bounds),
+            (("flash_attention",), TPU_K3, h_launches, h_worst, h_timing, h_library,
+             h_bounds),
+            (("fused_mlp_sepconv",), TPU_K5, h_launches, h_worst, h_timing, h_library,
+             h_bounds)):
         for name in names:
             kernels.append({
-                "name": name, "route": "cuda",
-                "source": f"transformer_latent_diffusion_tpu_torch/csrc/{src[name]}.cu",
+                "name": name, "route": "cuda", "source": f"{port}/{sources[name]}",
                 "replaces": tpu, "launches": counts[name], "max_abs_err": err[name],
                 "ms": tim[name][0], "plain_ms": tim[name][1], "bound_ms": bnd[name][0],
                 "bound_by": bnd[name][1], "library_ms": lib[name],
             })
+    log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -27,6 +27,22 @@
 // is instantiated with float32 input (the slab in shared memory is then
 // 83 KB) and optionally also stores c (float32), which the backward reads
 // for GELU'(c).
+//
+// Two bodies, one per template flag. The whole-grid body (above; one block
+// per (image, 64 channels)) holds a (hw+2)^2 x 64 slab: bf16 up to hw = 40,
+// float32 up to hw = 28 within the 227 KB a block may use. The row-band
+// body serves larger grids, such as the float32 hidden state of the hi-res
+// sep-conv MLP (TPU kernel
+// transformer_latent_diffusion_tpu/ops/fused_mlp_vjp.py::_pallas_fwd,
+// :182-205, at hw = 32: 34 x 34 x 64 float32 = 296 KB would not fit): one
+// block per (band of `band` grid rows, 64 channels, image) stages the band
+// plus a one-row halo above and below, (band+2) x (hw+2) x 64 (87 KB for
+// 8 rows of float32 at hw = 32, two blocks per SM). Each halo row is read
+// by two blocks, so device memory sees (band+2)/band reads per input
+// element; the arithmetic and its order are the whole-grid body's. The
+// wrapper (ops/fused_stack.py::dwconv_gelu_body) takes the whole grid where
+// it fits and bands of 8 rows beyond (float32 up to hw = 88, bf16 up to
+// hw = 179).
 
 #include "common.cuh"
 
@@ -38,8 +54,8 @@ constexpr int CHUNK = 64;  // channels per block
 constexpr int GROUPS = CHUNK / VEC;
 
 template <typename T>
-inline size_t smem_bytes(int hw) {
-  return static_cast<size_t>(hw + 2) * (hw + 2) * CHUNK * sizeof(T);
+inline size_t smem_bytes(int rows, int hw) {
+  return static_cast<size_t>(rows + 2) * (hw + 2) * CHUNK * sizeof(T);
 }
 
 // 8 channels of one pixel as the tile stores them (16 bytes of bf16, 32 of float)
@@ -71,23 +87,26 @@ __device__ __forceinline__ void unpack8(const Vec8<float>& v, float* f) {
   f[4] = v.b.x, f[5] = v.b.y, f[6] = v.b.z, f[7] = v.b.w;
 }
 
-template <typename T>
+template <typename T, bool BAND>
 __global__ void __launch_bounds__(THREADS)
 dwconv_gelu_kernel(const T* __restrict__ h, const bf16* __restrict__ dw,
                    const float* __restrict__ dwb, bf16* __restrict__ out,
-                   float* __restrict__ c_out, int hw, int C) {
+                   float* __restrict__ c_out, int hw, int C, int band) {
   extern __shared__ __align__(16) unsigned char smem[];
-  Vec8<T>* tile = reinterpret_cast<Vec8<T>*>(smem);  // [(hw+2) * (hw+2)][GROUPS]
+  Vec8<T>* tile = reinterpret_cast<Vec8<T>*>(smem);  // [(rows+2) * (hw+2)][GROUPS]
   const int pw = hw + 2;
   const int c0 = blockIdx.x * CHUNK;
-  const size_t b = blockIdx.y;
+  // whole grid: blockIdx.y is the image; row band: the band, and blockIdx.z the image
+  const size_t b = BAND ? blockIdx.z : blockIdx.y;
+  const int r0 = BAND ? blockIdx.y * band : 0;
+  const int rows = BAND ? min(band, hw - r0) : hw;
   const T* hb = h + b * hw * hw * C + c0;
   bf16* ob = out + b * hw * hw * C + c0;
   const int tid = threadIdx.x;
 
-  for (int idx = tid; idx < pw * pw * GROUPS; idx += THREADS) {
+  for (int idx = tid; idx < (rows + 2) * pw * GROUPS; idx += THREADS) {
     const int grp = idx % GROUPS, p = idx / GROUPS;
-    const int i = p / pw - 1, j = p % pw - 1;
+    const int i = r0 + p / pw - 1, j = p % pw - 1;
     Vec8<T> v = {};
     if (i >= 0 && i < hw && j >= 0 && j < hw)
       v = *reinterpret_cast<const Vec8<T>*>(hb + static_cast<size_t>(i * hw + j) * C + grp * VEC);
@@ -104,8 +123,8 @@ dwconv_gelu_kernel(const T* __restrict__ h, const bf16* __restrict__ dw,
   const float bias[VEC] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
   __syncthreads();
 
-  for (int p = tid / GROUPS; p < hw * hw; p += THREADS / GROUPS) {
-    const int i = p / hw, j = p % hw;
+  for (int p = tid / GROUPS; p < rows * hw; p += THREADS / GROUPS) {
+    const int i = p / hw, j = p % hw;  // i counts rows from the band's first
     float acc[VEC];
 #pragma unroll
     for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
@@ -131,25 +150,28 @@ dwconv_gelu_kernel(const T* __restrict__ h, const bf16* __restrict__ dw,
       x[e] = acc[e] + bias[e];
       g[e] = 0.5f * x[e] * (1.f + erff(x[e] * 0.70710678118654752f));
     }
-    *reinterpret_cast<uint4*>(ob + static_cast<size_t>(p) * C + grp * VEC) = pack8_bf16(g);
+    const size_t pix = static_cast<size_t>(r0) * hw + p;  // the pixel's index in the image
+    *reinterpret_cast<uint4*>(ob + pix * C + grp * VEC) = pack8_bf16(g);
     if (c_out != nullptr) {
-      float4* cp = reinterpret_cast<float4*>(c_out + (b * hw * hw + p) * C + c0 + grp * VEC);
+      float4* cp = reinterpret_cast<float4*>(c_out + (b * hw * hw + pix) * C + c0 + grp * VEC);
       cp[0] = make_float4(x[0], x[1], x[2], x[3]);
       cp[1] = make_float4(x[4], x[5], x[6], x[7]);
     }
   }
 }
 
-template <typename T>
+template <typename T, bool BAND>
 int launch(const void* h, const void* dw, const float* dwb, void* out, float* c_out, int B, int hw,
-           int C, cudaStream_t s) {
-  const size_t smem = smem_bytes<T>(hw);
-  cudaError_t err = cudaFuncSetAttribute(
-      dwconv_gelu_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+           int C, int band, cudaStream_t s) {
+  const size_t smem = smem_bytes<T>(BAND ? band : hw, hw);
+  cudaError_t err = cudaFuncSetAttribute(dwconv_gelu_kernel<T, BAND>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dwconv_gelu_kernel<T><<<dim3(C / CHUNK, B), THREADS, smem, s>>>(
+  const dim3 grid = BAND ? dim3(C / CHUNK, (hw + band - 1) / band, B) : dim3(C / CHUNK, B);
+  dwconv_gelu_kernel<T, BAND><<<grid, THREADS, smem, s>>>(
       static_cast<const T*>(h), static_cast<const bf16*>(dw), dwb, static_cast<bf16*>(out), c_out,
-      hw, C);
+      hw, C, band);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -158,10 +180,17 @@ int launch(const void* h, const void* dw, const float* dwb, void* out, float* c_
 // h: (B*hw*hw, C) token rows of a row-major hw x hw grid, float32 when
 // h_f32 is non-zero, else bf16. out: the same rows, bf16. c_out: null, or
 // (B*hw*hw, C) float32 for the pre-GELU values. dw: (9, C) bf16 taps, tap
-// di*3+dj. dwb: (C,) float32. Requires C % 64 == 0 and hw <= 32.
+// di*3+dj. dwb: (C,) float32. band: 0 for the whole-grid body, else the
+// grid rows of each block of the row-band body. Requires C % 64 == 0 and
+// the body's slab within 227 KB (see the header).
 LTD_API int ltd_dwconv_gelu(const void* h, const void* dw, const float* dwb, void* out,
-                            float* c_out, int B, int hw, int C, int h_f32, void* stream) {
+                            float* c_out, int B, int hw, int C, int h_f32, int band,
+                            void* stream) {
+  if (C % CHUNK || band < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return h_f32 ? launch<float>(h, dw, dwb, out, c_out, B, hw, C, s)
-               : launch<bf16>(h, dw, dwb, out, c_out, B, hw, C, s);
+  if (band > 0)
+    return h_f32 ? launch<float, true>(h, dw, dwb, out, c_out, B, hw, C, band, s)
+                 : launch<bf16, true>(h, dw, dwb, out, c_out, B, hw, C, band, s);
+  return h_f32 ? launch<float, false>(h, dw, dwb, out, c_out, B, hw, C, 0, s)
+               : launch<bf16, false>(h, dw, dwb, out, c_out, B, hw, C, 0, s);
 }

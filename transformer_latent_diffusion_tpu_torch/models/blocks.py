@@ -11,7 +11,11 @@ flax modules do: dense inputs and weights are cast to `dtype`, LayerNorm
 statistics and softmax stay float32. No mixture of experts, and dropout
 only at 0. `DecoderBlock(fused_layer_vjp=True)` runs the whole layer as
 `ops.fused_layer_vjp.FusedLayerFunction` (TPU kernel K2) where the JAX
-package's gate allows it.
+package's gate allows it. Outside it (the linen path), `use_pallas` sends
+self-attention to the flash-attention kernel (K3, `ops.attention`) and
+`fused_mlp_vjp` sends the sep-conv MLP of a square grid of at most
+`FUSED_MLP_MAX_TOKENS` tokens to K5's forward (`ops.fused_mlp_vjp`), as
+the JAX package's flags do; cross-attention stays plain.
 """
 
 from __future__ import annotations
@@ -23,10 +27,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from transformer_latent_diffusion_tpu_torch.ops.attention import (
+    multi_head_attention,
+)
+from transformer_latent_diffusion_tpu_torch.ops.fused_mlp_vjp import (
+    fused_mlp_sepconv,
+)
+
 LN_EPS = 1e-5
 # the fused decoder layer's token limit (the JAX package's
 # FUSED_LAYER_MAX_TOKENS)
 FUSED_LAYER_MAX_TOKENS = 256
+# the fused sep-conv MLP's token limit (the JAX package's
+# FUSED_MLP_MAX_TOKENS)
+FUSED_MLP_MAX_TOKENS = 1024
 
 
 def sinusoidal_embedding(x: torch.Tensor, embedding_dims: int = 32,
@@ -60,21 +74,6 @@ def layer_norm(x: torch.Tensor, norm: nn.LayerNorm, dtype) -> torch.Tensor:
     return y.to(dtype)
 
 
-def multi_head_attention(q, k, v, n_heads: int) -> torch.Tensor:
-    """Non-causal softmax(q k^T / sqrt(dh)) v per head, float32 scores and
-    softmax, probabilities cast to v's dtype. (B, N, D) -> (B, Nq, D)."""
-    b, nq, d = q.shape
-    nk = k.shape[1]
-    dh = d // n_heads
-    qh = q.reshape(b, nq, n_heads, dh).transpose(1, 2)
-    kh = k.reshape(b, nk, n_heads, dh).transpose(1, 2)
-    vh = v.reshape(b, nk, n_heads, dh).transpose(1, 2)
-    s = (qh.float() @ kh.float().transpose(-1, -2)) * (1.0 / math.sqrt(dh))
-    p = torch.softmax(s, dim=-1).to(v.dtype)
-    out = p @ vh
-    return out.transpose(1, 2).reshape(b, nq, d)
-
-
 class SinusoidalEmbedding(nn.Module):
     """Holds the reference's `angular_speeds` buffer so that its state_dict
     loads; the forward recomputes the table in float64 like the JAX
@@ -93,16 +92,20 @@ class SinusoidalEmbedding(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    def __init__(self, embed_dim: int, n_heads: int, dtype=torch.float32):
+    """Fused-QKV self-attention; use_pallas: the K3 kernel route."""
+
+    def __init__(self, embed_dim: int, n_heads: int, dtype=torch.float32,
+                 use_pallas: bool = False):
         super().__init__()
         self.n_heads = n_heads
         self.dtype = dtype
+        self.use_pallas = use_pallas
         self.qkv_linear = nn.Linear(embed_dim, 3 * embed_dim, bias=False)
 
     def forward(self, x):
         qkv = dense(x, self.qkv_linear.weight, None, self.dtype)
         q, k, v = qkv.chunk(3, dim=-1)
-        return multi_head_attention(q, k, v, self.n_heads)
+        return multi_head_attention(q, k, v, self.n_heads, self.use_pallas)
 
 
 class CrossAttention(nn.Module):
@@ -140,13 +143,19 @@ def depthwise_conv3x3(x: torch.Tensor, weight: torch.Tensor,
 
 class MLPSepConv(nn.Module):
     """LocalViT FFN: 1x1 conv -> 3x3 depthwise -> GELU -> 1x1 conv, on the
-    square token grid. `mlp` keeps the reference's Sequential indices."""
+    square token grid. `mlp` keeps the reference's Sequential indices.
+
+    fused_vjp: on a square grid of at most FUSED_MLP_MAX_TOKENS tokens, run
+    K5's forward (`ops.fused_mlp_vjp.fused_mlp_sepconv`: float32 hidden
+    state, the GELU output rounded to `dtype`); elsewhere, and without the
+    flag, the plain modules in `dtype` throughout."""
 
     def __init__(self, embed_dim: int, mlp_multiplier: int,
-                 dtype=torch.float32):
+                 dtype=torch.float32, fused_vjp: bool = False):
         super().__init__()
         hidden = mlp_multiplier * embed_dim
         self.dtype = dtype
+        self.fused_vjp = fused_vjp
         self.mlp = nn.Sequential(
             nn.Conv2d(embed_dim, hidden, kernel_size=1),
             nn.Conv2d(hidden, hidden, kernel_size=3, padding=1, groups=hidden),
@@ -159,6 +168,14 @@ class MLPSepConv(nn.Module):
         b, n, d = x.shape
         hw = math.isqrt(n)
         expand, dw, _, contract, _ = self.mlp
+        if self.fused_vjp and hw * hw == n and n <= FUSED_MLP_MAX_TOKENS:
+            dt = self.dtype
+            out = fused_mlp_sepconv(
+                x.to(dt), expand.weight[:, :, 0, 0].to(dt), expand.bias.float(),
+                dw.weight.reshape(dw.out_channels, 9).T.contiguous().to(dt),
+                dw.bias.float(), contract.weight[:, :, 0, 0].to(dt),
+                contract.bias.float(), hw)
+            return out.to(dt)
         h = dense(x.reshape(b, hw, hw, d), expand.weight[:, :, 0, 0],
                   expand.bias, self.dtype)
         h = gelu(depthwise_conv3x3(h, dw.weight, dw.bias))
@@ -171,20 +188,25 @@ class DecoderBlock(nn.Module):
     Heads = embed_dim // 64. fused_layer_vjp: run the layer as one
     `FusedLayerFunction` on a square grid of at most 256 tokens (the JAX
     package's gate, models/blocks.py:269-274); outside the gate the plain
-    modules on CPU tensors, and NotImplementedError on any other device."""
+    modules on CPU tensors, and NotImplementedError on any other device.
+    Otherwise the linen path (models/blocks.py:356-378): use_pallas and
+    fused_mlp_vjp pass down to the self-attention (K3) and the sep-conv
+    MLP (K5's forward), with the residual adds in `dtype`."""
 
     def __init__(self, embed_dim: int, mlp_multiplier: int,
-                 dtype=torch.float32, fused_layer_vjp: bool = False):
+                 dtype=torch.float32, fused_layer_vjp: bool = False,
+                 use_pallas: bool = False, fused_mlp_vjp: bool = False):
         super().__init__()
         n_heads = embed_dim // 64
         self.dtype = dtype
         self.fused_layer_vjp = fused_layer_vjp
         self.norm1 = nn.LayerNorm(embed_dim, eps=LN_EPS)
-        self.self_attention = SelfAttention(embed_dim, n_heads, dtype)
+        self.self_attention = SelfAttention(embed_dim, n_heads, dtype,
+                                            use_pallas)
         self.norm2 = nn.LayerNorm(embed_dim, eps=LN_EPS)
         self.cross_attention = CrossAttention(embed_dim, n_heads, dtype)
         self.norm3 = nn.LayerNorm(embed_dim, eps=LN_EPS)
-        self.mlp = MLPSepConv(embed_dim, mlp_multiplier, dtype)
+        self.mlp = MLPSepConv(embed_dim, mlp_multiplier, dtype, fused_mlp_vjp)
 
     def _fused(self, x, y, hw: int):
         from transformer_latent_diffusion_tpu_torch.ops.fused_layer_vjp import (

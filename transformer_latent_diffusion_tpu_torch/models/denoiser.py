@@ -12,14 +12,23 @@ version it is checked against, and what the pipeline runs on the CPU.
 With `fused_layer_vjp=True` (training) its decoder blocks run as the
 differentiable fused layer (TPU kernel K2); the dense layers before and
 after them stay plain PyTorch with autograd, as the JAX package leaves
-them to XLA.
-Only the native token grid is supported (`resize_pos_embed` waits for
-the hi-res slice).
+them to XLA. Otherwise `use_pallas` and `fused_mlp_vjp` select the
+hi-res kernels of the linen path (K3 and K5's forward, see
+`models.blocks.DecoderBlock`).
+
+Another grid than the native one takes the first h*w rows of the learned
+positional table, or a table passed as `pos_embed_override`, such as
+`resize_pos_embed`'s bilinear resize of it (what the sampler passes for a
+non-native grid, and what `train.highres.upsample_denoiser_params` bakes
+into a state_dict).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from transformer_latent_diffusion_tpu_torch.models.blocks import (
@@ -50,6 +59,22 @@ def unpatchify(x: torch.Tensor, patch_size: int, h: int, w: int,
     return x.reshape(b, n_channels, h * p, w * p)
 
 
+def resize_pos_embed(pos_table: torch.Tensor, old_grid: int,
+                     new_grid: int) -> torch.Tensor:
+    """2D-resize a learned positional table for another token grid:
+    (old_grid^2, D) -> (new_grid^2, D), bilinear with half-pixel centres
+    and antialiasing when it shrinks, as the JAX package's
+    `resize_pos_embed` (jax.image.resize, whose triangle-kernel weights
+    `F.interpolate(antialias=True)` reproduces in both directions).
+    Computed in float32, returned in the table's dtype."""
+    d = pos_table.shape[-1]
+    grid = pos_table.reshape(old_grid, old_grid, d).permute(2, 0, 1)[None]
+    out = F.interpolate(grid.float(), size=(new_grid, new_grid),
+                        mode="bilinear", align_corners=False, antialias=True)
+    return out[0].permute(1, 2, 0).reshape(new_grid * new_grid, d) \
+        .to(pos_table.dtype)
+
+
 class _Patchify(nn.Module):
     """Stands at index 1 of `patchify_and_embed`, where the reference has
     its einops Rearrange, so the Sequential's indices match its keys."""
@@ -65,7 +90,8 @@ class _Patchify(nn.Module):
 class DenoiserTransBlock(nn.Module):
     def __init__(self, patch_size: int, img_size: int, embed_dim: int,
                  n_layers: int, mlp_multiplier: int = 4, n_channels: int = 4,
-                 dtype=torch.float32, fused_layer_vjp: bool = False):
+                 dtype=torch.float32, fused_layer_vjp: bool = False,
+                 use_pallas: bool = False, fused_mlp_vjp: bool = False):
         super().__init__()
         self.patch_size = patch_size
         self.n_channels = n_channels
@@ -84,11 +110,15 @@ class DenoiserTransBlock(nn.Module):
         self.register_buffer("precomputed_pos_enc",
                              torch.arange(seq_len, dtype=torch.int64))
         self.decoder_blocks = nn.ModuleList(
-            DecoderBlock(embed_dim, mlp_multiplier, dtype, fused_layer_vjp)
+            DecoderBlock(embed_dim, mlp_multiplier, dtype, fused_layer_vjp,
+                         use_pallas, fused_mlp_vjp)
             for _ in range(n_layers))
         self.out_proj = nn.Sequential(nn.Linear(embed_dim, patch_dim))
 
-    def forward(self, x, cond):
+    def forward(self, x, cond,
+                pos_embed_override: Optional[torch.Tensor] = None):
+        """pos_embed_override: an (h*w, D) table to add instead of the
+        first h*w rows of the learned one."""
         dt = self.dtype
         p = self.patch_size
         b, c, hh, ww = x.shape
@@ -101,7 +131,9 @@ class DenoiserTransBlock(nn.Module):
                   conv.bias, dt), norm1, dt)
         tokens = layer_norm(dense(tokens, embed.weight, embed.bias, dt),
                             norm2, dt)
-        tokens = tokens + self.pos_embed.weight[:h * w].to(dt)[None]
+        pos = (self.pos_embed.weight[:h * w] if pos_embed_override is None
+               else pos_embed_override)
+        tokens = tokens + pos.to(dt)[None]
         for block in self.decoder_blocks:
             tokens = block(tokens, cond)
         out = dense(tokens, self.out_proj[0].weight, self.out_proj[0].bias, dt)
@@ -122,7 +154,8 @@ class Denoiser(nn.Module):
                  mlp_class: str = "sep_conv", n_experts: int = 8,
                  expert_capacity_factor: float = 1.25,
                  input_channels=None, objective: str = "x0",
-                 dtype=torch.float32, fused_layer_vjp: bool = False):
+                 dtype=torch.float32, fused_layer_vjp: bool = False,
+                 use_pallas: bool = False, fused_mlp_vjp: bool = False):
         super().__init__()
         if mlp_class != "sep_conv":
             raise NotImplementedError(
@@ -139,6 +172,8 @@ class Denoiser(nn.Module):
         self.n_channels = n_channels
         self.objective = objective
         self.dtype = dtype
+        self.use_pallas = use_pallas
+        self.fused_mlp_vjp = fused_mlp_vjp
         self.fourier_feats = nn.Sequential(
             SinusoidalEmbedding(noise_embed_dims),
             nn.Linear(noise_embed_dims, embed_dim),
@@ -149,16 +184,19 @@ class Denoiser(nn.Module):
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
         self.denoiser_trans_block = DenoiserTransBlock(
             patch_size, image_size, embed_dim, n_layers, mlp_multiplier,
-            n_channels, dtype, fused_layer_vjp)
+            n_channels, dtype, fused_layer_vjp, use_pallas, fused_mlp_vjp)
 
     @classmethod
     def from_config(cls, cfg, dtype=torch.float32,
-                    fused_layer_vjp: bool = False) -> "Denoiser":
+                    fused_layer_vjp: bool = False, use_pallas: bool = False,
+                    fused_mlp_vjp: bool = False) -> "Denoiser":
         from dataclasses import asdict
 
-        return cls(**asdict(cfg), dtype=dtype, fused_layer_vjp=fused_layer_vjp)
+        return cls(**asdict(cfg), dtype=dtype, fused_layer_vjp=fused_layer_vjp,
+                   use_pallas=use_pallas, fused_mlp_vjp=fused_mlp_vjp)
 
-    def forward(self, x, noise_level, label):
+    def forward(self, x, noise_level, label,
+                pos_embed_override: Optional[torch.Tensor] = None):
         dt = self.dtype
         sin, lin1, _, lin2 = self.fourier_feats
         nemb = sin(noise_level.to(dt))
@@ -166,4 +204,4 @@ class Denoiser(nn.Module):
                      lin2.weight, lin2.bias, dt)
         lemb = dense(label, self.label_proj.weight, self.label_proj.bias, dt)
         cond = layer_norm(torch.stack([nemb, lemb], dim=1), self.norm, dt)
-        return self.denoiser_trans_block(x, cond)
+        return self.denoiser_trans_block(x, cond, pos_embed_override)

@@ -37,7 +37,9 @@ kernels in three more modes: `ln_gemm(out_dtype=torch.float32)` (the
 float32 hidden state, and the backward's dX = dY W products),
 `ln_gemm(return_xn=True)` (also the bf16 normalised rows) and
 `dwconv_gelu` on a float32 hidden state with `return_c=True` (also the
-float32 pre-GELU values).
+float32 pre-GELU values). The hi-res sep-conv MLP (`ops/fused_mlp_vjp.py`,
+TPU kernel K5's forward) runs `dwconv_gelu` on a float32 hidden state at
+hw = 32, which takes its row-band body (`dwconv_gelu_body`).
 """
 
 from __future__ import annotations
@@ -293,9 +295,32 @@ def cross_attention(qc, kv, residual, ln, n_heads: int, n_tokens: int):
     return residual, xn
 
 
+# shared memory one block may use on the H100 (227 KB)
+SMEM_PER_BLOCK = 232448
+# dwconv_gelu's channels per block, and grid rows per block of its row-band body
+DW_CHUNK = 64
+DW_BAND_ROWS = 8
+
+
+def dwconv_gelu_body(hw: int, dtype) -> int:
+    """The `dwconv_gelu` body that holds an hw x hw grid of `dtype` rows:
+    0 for the whole-grid body, whose (hw+2)^2 x 64 slab fits a block's
+    shared memory (bf16 up to hw = 40, float32 up to 28), else the rows of
+    a band of the row-band body, whose (rows+2) x (hw+2) x 64 slab does
+    (float32 up to hw = 88, bf16 up to 179). Raises ValueError beyond."""
+    item = torch.empty((), dtype=dtype).element_size()
+    if (hw + 2) ** 2 * DW_CHUNK * item <= SMEM_PER_BLOCK:
+        return 0
+    if (DW_BAND_ROWS + 2) * (hw + 2) * DW_CHUNK * item <= SMEM_PER_BLOCK:
+        return DW_BAND_ROWS
+    raise ValueError(f"dwconv_gelu: a {hw} x {hw} grid of {dtype} rows exceeds "
+                     f"the {SMEM_PER_BLOCK}-byte shared memory of both bodies")
+
+
 def dwconv_gelu(h, dw, dwb, hw: int, return_c=False):
-    """Kernel wrapper of `dwconv_gelu_plain`. Needs C % 64 == 0 and
-    hw <= 32 on CUDA; h bf16 or float32, dw bf16, dwb float32."""
+    """Kernel wrapper of `dwconv_gelu_plain`. Needs C % 64 == 0 on CUDA;
+    h bf16 or float32, dw bf16, dwb float32, and a grid one of the two
+    bodies holds (`dwconv_gelu_body`)."""
     if h.device.type == "cpu":
         return dwconv_gelu_plain(h, dw, dwb, hw, return_c)
     dev = _on_cuda("dwconv_gelu", h, dw, dwb)
@@ -303,10 +328,11 @@ def dwconv_gelu(h, dw, dwb, hw: int, return_c=False):
     _require(h.dtype in (torch.bfloat16, torch.float32)
              and dw.dtype == torch.bfloat16 and dwb.dtype == torch.float32,
              "dwconv_gelu: h bf16 or float32, dw bf16, dwb float32")
-    _require(c % 64 == 0 and hw <= 32 and m % (hw * hw) == 0
+    _require(c % DW_CHUNK == 0 and m % (hw * hw) == 0
              and dw.shape == (9, c) and dwb.numel() == c,
-             "dwconv_gelu: needs C % 64 == 0, hw <= 32, (B*hw*hw, C) rows, "
-             "dw (9, C), dwb (C,)")
+             "dwconv_gelu: needs C % 64 == 0, (B*hw*hw, C) rows, dw (9, C), "
+             "dwb (C,)")
+    band = dwconv_gelu_body(hw, h.dtype)
     out = torch.empty((m, c), dtype=torch.bfloat16, device=dev)
     c_out = (torch.empty((m, c), dtype=torch.float32, device=dev)
              if return_c else None)
@@ -314,7 +340,7 @@ def dwconv_gelu(h, dw, dwb, hw: int, return_c=False):
     LAUNCHES["dwconv_gelu"] += 1
     err = lib.ltd_dwconv_gelu(_ptr(h), _ptr(dw), _ptr(dwb), _ptr(out),
                               _ptr(c_out), m // (hw * hw), hw, c,
-                              int(h.dtype == torch.float32), _stream(dev))
+                              int(h.dtype == torch.float32), band, _stream(dev))
     _check_launch(err, "dwconv_gelu")
     return (out, c_out) if return_c else out
 

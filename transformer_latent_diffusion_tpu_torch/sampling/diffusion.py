@@ -20,6 +20,10 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from transformer_latent_diffusion_tpu_torch.models.denoiser import (
+    resize_pos_embed,
+)
+
 NOISE_SCHEDULES = ("poly", "cosine", "karras")
 PREDICTION_OBJECTIVES = ("x0", "eps", "v")
 
@@ -119,14 +123,21 @@ class DiffusionGenerator:
 
     model: the plain `Denoiser` (its parameters are what the fused engine
     packs). fast_apply: an engine with `prepare(state_dict)` and
-    `apply_prepared(prepared, x, noise_level, label)` (the fused engine);
-    None runs `model` itself. vae: an object with `decode(latents_nchw)`,
-    or None to return latents only. device: where sampling runs, a
-    required keyword ("cuda" or "cpu"), as for `DiffusionTransformer`.
+    `apply_prepared(prepared, x, noise_level, label)` (the fused engine),
+    which runs the model on grids of at most 16 x 16 tokens at the native
+    size, as the JAX package gates it (sampling/diffusion.py:304-334);
+    otherwise, or with None, `model` itself runs. vae: an object with
+    `decode(latents_nchw)`, or None to return latents only. device: where
+    sampling runs, a required keyword ("cuda" or "cpu"), as for
+    `DiffusionTransformer`. pos_resize: on a grid other than the model's
+    native one, None (the default) bilinear-resizes the learned positional
+    table onto it (`resize_pos_embed`, once per `generate` call); False
+    takes its first h*w rows (smaller grids only), as in the JAX package.
     """
 
     def __init__(self, model, vae=None, fast_apply=None, *, device,
-                 prediction_type: Optional[str] = None, mesh: Any = None):
+                 prediction_type: Optional[str] = None, mesh: Any = None,
+                 pos_resize: Optional[bool] = None):
         if mesh is not None:
             raise _not_ported("mesh-sharded generation", "item 14")
         self.model = model
@@ -134,6 +145,21 @@ class DiffusionGenerator:
         self.fast_apply = fast_apply
         self.device = torch.device(device)
         self.prediction_type = prediction_type
+        self.pos_resize = pos_resize
+
+    def _resize_grid(self, size: int) -> Optional[int]:
+        """The token grid to resize the positional table onto for latents
+        of `size`, or None (the native grid, or pos_resize=False)."""
+        patch = self.model.patch_size
+        grid, native = size // patch, self.model.image_size // patch
+        return grid if self.pos_resize is not False and grid != native else None
+
+    def uses_engine(self, size: int) -> bool:
+        """Whether latents of `size` run through `fast_apply`: the engine
+        holds at most 16 x 16 tokens and the native positional table."""
+        return (self.fast_apply is not None
+                and size // self.model.patch_size <= 16
+                and self._resize_grid(size) is None)
 
     def initialize_image(self, seeds, num_imgs: int, img_size: int,
                          seed: int) -> torch.Tensor:
@@ -249,9 +275,18 @@ class DiffusionGenerator:
         guidance = torch.as_tensor(class_guidance, dtype=torch.float32,
                                    device=dev)
 
-        engine = self.fast_apply
+        size = x_t.shape[-1]
+        engine = self.fast_apply if self.uses_engine(size) else None
         prepared = (engine.prepare(self.model.state_dict())
                     if engine is not None else None)
+        # the resized positional table, once per call, outside the step loop
+        resize_grid = self._resize_grid(size)
+        pos = None
+        if resize_grid is not None:
+            patch = self.model.patch_size
+            pos = resize_pos_embed(
+                self.model.denoiser_trans_block.pos_embed.weight,
+                self.model.image_size // patch, resize_grid)
 
         def pred_x0(x_t, noise_level):
             num = x_t.shape[0]
@@ -260,6 +295,8 @@ class DiffusionGenerator:
                                 dtype=torch.float32, device=dev)
             if engine is not None:
                 x0 = engine.apply_prepared(prepared, x2, noises, labels_cat)
+            elif pos is not None:
+                x0 = self.model(x2, noises, labels_cat, pos_embed_override=pos)
             else:
                 x0 = self.model(x2, noises, labels_cat)
             out = cfg_combine(x0[:num], x0[num:], guidance)

@@ -7,9 +7,14 @@ configured files or seeded random weights, and expose
 `generate_image_from_text` (a PIL grid) and `generate_array_from_text`
 ((N, H, W, 3) uint8).
 
-On a CUDA device the denoiser always runs through the fused engine (the
-hand-written decoder-layer kernels); on the CPU it runs the plain
-`Denoiser`, as the JAX package does off the TPU.
+On a CUDA device the denoiser runs the hand-written kernels, as the JAX
+package runs its Pallas kernels on the TPU (sampling/pipeline.py:113-131,
+225-237): grids of at most 16 x 16 tokens at the native size go through
+the fused engine (K1); larger grids (512 and 1024 px deployments, or a
+256 px model sampled on a larger grid) through the `Denoiser`'s linen path
+with flash attention (K3) in every self-attention and, for a native grid
+of 16 < hw <= 32 tokens a side, the fused sep-conv MLP (K5's forward). On
+the CPU it runs the plain `Denoiser`, as the JAX package does off the TPU.
 """
 
 from __future__ import annotations
@@ -63,6 +68,20 @@ def _load_or_init(module, path, seed: int, keep=None):
     return init_random_weights_(module, seed)
 
 
+def denoiser_kernel_flags(cfg: LTDConfig, device) -> dict:
+    """The `Denoiser` flags of the linen path on `device`: on CUDA flash
+    attention everywhere (use_pallas) and the fused sep-conv MLP for a
+    native grid of 16 < hw <= 32 (the JAX package's hybrid regime); on the
+    CPU `cfg.use_pallas` (the plain versions either way) and no fused MLP,
+    as the JAX package off the TPU."""
+    den = cfg.denoiser_cfg
+    hw = den.image_size // den.patch_size
+    on_cuda = torch.device(device).type == "cuda"
+    return {"use_pallas": bool(cfg.use_pallas),
+            "fused_mlp_vjp": bool(on_cuda and cfg.use_pallas and 16 < hw <= 32
+                                  and den.mlp_class == "sep_conv")}
+
+
 class DiffusionTransformer:
     """cfg: the inference config; device: where every tower runs ("cuda",
     "cuda:0", "cpu"); seed: the seed of the random weights of any tower
@@ -88,7 +107,7 @@ class DiffusionTransformer:
         if self.device.type == "cuda" and dtype != torch.bfloat16:
             raise NotImplementedError(
                 f"DenoiserLoad.dtype={cfg.denoiser_load.dtype!r}: on CUDA the "
-                "fused engine's kernels take bf16 weights only, so set "
+                "denoiser's kernels take bf16 weights only, so set "
                 "DenoiserLoad.dtype='bfloat16' (a float32 engine on CUDA is "
                 "ROADMAP item 4)")
 
@@ -98,7 +117,9 @@ class DiffusionTransformer:
             raise NotImplementedError(
                 "downloading denoiser weights is not ported; fetch "
                 f"{load.file_url} to DenoiserLoad.local_filename")
-        denoiser = Denoiser.from_config(cfg.denoiser_cfg, dtype=dtype)
+        denoiser = Denoiser.from_config(
+            cfg.denoiser_cfg, dtype=dtype,
+            **denoiser_kernel_flags(cfg, self.device))
         _load_or_init(denoiser, load.local_filename, seed)
         denoiser.to(self.device).eval()
 
