@@ -24,7 +24,15 @@ paths, each checked against plain PyTorch versions on the same inputs:
   forward and backward against the plain layer, one train step's
   gradients against the plain bf16 autograd path, and `train.main` at
   batch 128 on random latents (20 steps, one eval through the K1 engine,
-  a checkpoint, then a resume that continues the step count).
+  a checkpoint, then a resume that continues the step count);
+- hi-res training (TPU kernels K4a/K4b, the flash-attention backward, and
+  K5's backward, the sep-conv MLP's): each at the 512 px and 1024 px
+  shapes against its plain version, one 512 px step's gradients against
+  the plain bf16 autograd path, ms per step and peak memory at 512 px
+  (batch 64) and 1024 px (batch 16, remat), remat's gradients against
+  no remat, `finetune_highres` from the 256 px flagship's seeded weights to
+  512 px (16 steps, an eval, checkpoints), and `train.main` on a 512 px
+  model with a 256 px bucket (multires).
 
 It checks that each path's run launched its kernels the expected number
 of times, and no other kernel of the port. Any failure raises: there is
@@ -66,6 +74,9 @@ TPU_K2_FWD = "transformer_latent_diffusion_tpu/ops/fused_layer_vjp.py:267"
 TPU_K2_BWD = "transformer_latent_diffusion_tpu/ops/fused_layer_vjp.py:289"
 TPU_K3 = "transformer_latent_diffusion_tpu/ops/attention.py:99"
 TPU_K5 = "transformer_latent_diffusion_tpu/ops/fused_mlp_vjp.py:186"
+TPU_K4A = "transformer_latent_diffusion_tpu/ops/attention.py:247"
+TPU_K4B = "transformer_latent_diffusion_tpu/ops/attention.py:313"
+TPU_K5_BWD = "transformer_latent_diffusion_tpu/ops/fused_mlp_vjp.py:212"
 # hi-res shapes: 512 px is a 32 x 32 grid (CFG doubles 32 images to 64),
 # 1024 px a 64 x 64 grid (CFG doubles 4 images to 8); a ragged 20 x 20 grid
 HR_HW, HR_B = 32, 64
@@ -75,6 +86,17 @@ RAG_N, RAG_B = 400, 2
 HR_IMGS, HR_ITER = 32, 50
 XR_IMGS, XR_ITER = 4, 20  # 1024 px: cut from 32 x 50 for time
 RESIZE_ITER = 4  # steps of the 256 px model sampled on the 512 px grid
+# hi-res training: 512 px at batch 64 and 1024 px at batch 16 (the JAX
+# package's documented fine-tune recipe); the 512 px gradient check at
+# batch 8 (the plain path holds every layer's B x 12 x N^2 scores), K4's
+# 4096-token check at batch 2 for the same reason, a third K4 size in
+# K4a's range, and the 1024 px remat check at batch 2
+HT_B, XT_B = 64, 16
+HT_SIZE, XT_SIZE = 64, 128  # latent sizes: 1024 and 4096 tokens at patch 2
+HT_GRAD_B, XT_GRAD_B, XR_CHECK_B = 8, 2, 2
+K4_THIRD_N, K4_THIRD_B = 1536, 8
+FT_STEPS = 16  # finetune_highres steps (one epoch)
+MR_STEPS = 2  # multires: batches per bucket
 # the card's published peaks (H100 SXM, dense, at 700 W): the least time
 # of a kernel is the larger of its bytes over the memory rate and its
 # operations over the peak rate of their type
@@ -739,22 +761,31 @@ def _breakdown(tr, n_imgs, n_iter):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             tr.diffuser.model(x, noise, label)
             torch.cuda.synchronize()
-    # device kernels (and copies) only: the aten rows are host-side ops
-    rows = sorted((e for e in prof.key_averages()
-                   if _device_us(e) > 0 and not e.key.startswith("aten::")),
-                  key=lambda e: -_device_us(e))
-    busy = sum(_device_us(e) for e in rows) / 1e3
+    busy, by_kernel = _device_time(prof)
     px = 8 * den.image_size
     log(f"[hires-breakdown] {px} px, batch {2 * n_imgs}: one denoiser forward {fwd_ms:.3f} ms "
         f"(x {n_iter} calls = {fwd_ms * n_iter / 1e3:.3f} s), VAE decode of {n_imgs} images "
         f"{vae_ms:.3f} ms, CLIP encode {clip_ms:.3f} ms; profiled forward: device busy "
-        f"{busy:.3f} ms ({busy / fwd_ms:.1%} of the timed forward); by kernel, us: "
-        + "; ".join(f"{e.key[:70]} x{e.count} {_device_us(e):.0f}" for e in rows[:14]))
+        f"{busy:.3f} ms ({busy / fwd_ms:.1%} of the timed forward); by kernel, us: {by_kernel}")
 
 
 def _device_us(event):
     return float(getattr(event, "device_time_total", 0.0)
                  or getattr(event, "cuda_time_total", 0.0))
+
+
+def _device_time(prof, top=14):
+    """(device busy ms, the `top` device kernels by time) of a profile:
+    the events that ran on the device (kernels, copies), not the host-side
+    ops and autograd nodes that carry their children's device time, nor
+    user annotations that span them."""
+    on_device = torch.autograd.DeviceType.CUDA
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == on_device and _device_us(e) > 0
+                   and not getattr(e, "is_user_annotation", False)),
+                  key=lambda e: -_device_us(e))
+    busy = sum(_device_us(e) for e in rows) / 1e3
+    return busy, "; ".join(f"{e.key[:70]} x{e.count} {_device_us(e):.0f}" for e in rows[:top])
 
 
 def phase_hires_library(cfg, n_imgs, n_iter, smi):
@@ -1228,6 +1259,420 @@ def phase_train_main(per_layer, smi):
     return launches, wall / steps
 
 
+# ------------------------------ hi-res training (K4, K5's backward) ------------------------------
+
+# one hi-res train step's gradients, kernels vs the plain bf16 autograd
+# Denoiser, as the 256 px step (STEP_GRAD_REL_L2, STEP_GRAD_LEAF_REL_L2);
+# remat against no remat: the recompute repeats the same kernels on the
+# same inputs, so the gradients agree to float32 rounding at most
+REMAT_REL_L2 = 1e-5
+
+
+def _hires_sd(image_size):
+    """The 256 px flagship's seeded random weights with the positional
+    table upsampled to `image_size` (as hires_config writes them)."""
+    from transformer_latent_diffusion_tpu_torch.models.denoiser import Denoiser
+    from transformer_latent_diffusion_tpu_torch.train.highres import (
+        upsample_denoiser_params,
+    )
+    from transformer_latent_diffusion_tpu_torch.utils.common import init_random_weights_
+
+    den = flagship_configs().denoiser_cfg
+    sd = init_random_weights_(Denoiser.from_config(den), 0).state_dict()
+    return upsample_denoiser_params(sd, den.image_size, image_size, den.patch_size)
+
+
+def _hires_model(image_size, sd, **flags):
+    """The flagship Denoiser at `image_size` on `sd`, bf16 compute, on the
+    card, in train mode."""
+    import dataclasses
+
+    from transformer_latent_diffusion_tpu_torch.models.denoiser import Denoiser
+
+    den = dataclasses.replace(flagship_configs().denoiser_cfg, image_size=image_size)
+    mdl = Denoiser.from_config(den, dtype=torch.bfloat16, **flags)
+    mdl.load_state_dict(sd)
+    return mdl.to(DEVICE).train()
+
+
+def phase_hires_train_kernels():
+    """K4 (flash_attention_bwd, after the forward with its log-sum-exp) at
+    N = 1024 (B = 64), 4096 (B = 2; timed at B = 16 too) and 1536, and K5's
+    backward and its row-band dwconv_gelu_bwd at hw = 32 (B = 64), each
+    against its plain version; times, bounds, and autograd through SDPA
+    as K4's yardstick."""
+    from transformer_latent_diffusion_tpu_torch.ops import attention as att
+    from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
+    from transformer_latent_diffusion_tpu_torch.ops import fused_mlp_vjp as fm
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device="cpu").manual_seed(12)
+    bf = torch.bfloat16
+    F = torch.nn.functional
+
+    def randn(*shape, std=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g) * std).to(dev, dtype)
+
+    def k4_bound(b, n):
+        return bound(7 * b * n * D * 2, 10 * b * HEADS * n * n * 64, BF16_TENSOR_FLOP_S)
+
+    worst, timing, library, bounds = {}, {}, {}, {}
+    for b, n, key in ((HT_B, HR_N, "flash_attention_bwd"), (XT_GRAD_B, XR_N, "k4b"),
+                      (K4_THIRD_B, K4_THIRD_N, None)):
+        qkv = randn(b, n, 3 * D, dtype=bf)
+        q, k, v = qkv.chunk(3, dim=-1)  # strided row views, as the model passes them
+        gr = randn(b, n, D, std=1e-2, dtype=bf)
+        o, lse = att._flash_forward(q, k, v, HEADS, with_lse=True)
+        heads = [att._heads(t, HEADS) for t in (q, k, v, gr)]
+        kern = lambda: att.flash_attention_bwd(q, k, v, gr, HEADS, o=o, lse=lse)  # noqa: E731
+        plain = lambda: att.attention_bwd_plain(*heads)  # noqa: E731
+        name = f"flash_attention_bwd B={b} N={n} ({att.attention_bwd_route(n, n, 64)})"
+        err = _check(name, kern(), tuple(att._merge(t) for t in plain()), "hires-train-kernels")
+        worst["flash_attention_bwd"] = max(worst.get("flash_attention_bwd", 0.0), err)
+        t = time_against_plain({name: (kern, plain)}, "hires-train-kernels")[name]
+        if key is None:
+            del qkv, q, k, v, gr, o, lse, heads
+            continue
+        hs = [h_.contiguous().requires_grad_(True) for h_ in heads[:3]]
+        out = F.scaled_dot_product_attention(*hs)
+        sdpa = time_ms(lambda: torch.autograd.grad(out, hs, heads[3], retain_graph=True))
+        bnd = k4_bound(b, n)
+        log(f"[hires-train-kernels] {name}: {t[0]:.4f} ms, "
+            f"{10 * b * HEADS * n * n * 64 / t[0] / 1e9:.1f} TFLOP/s; autograd through "
+            f"SDPA {sdpa:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]})")
+        timing[key], library[key], bounds[key] = t, sdpa, bnd
+        del qkv, q, k, v, gr, o, lse, heads, hs, out
+    # K4b at the 1024 px batch: the kernel alone (the plain version would
+    # hold 16 x 12 x 4096^2 float32 scores several times over)
+    qkv = randn(XT_B, XR_N, 3 * D, dtype=bf)
+    q, k, v = qkv.chunk(3, dim=-1)
+    gr = randn(XT_B, XR_N, D, std=1e-2, dtype=bf)
+    o, lse = att._flash_forward(q, k, v, HEADS, with_lse=True)
+    ms = time_ms(lambda: att.flash_attention_bwd(q, k, v, gr, HEADS, o=o, lse=lse), 10, 2)
+    bnd = k4_bound(XT_B, XR_N)
+    log(f"[hires-train-kernels] flash_attention_bwd B={XT_B} N={XR_N} (k4b, the 1024 px "
+        f"step's shape): {ms:.4f} ms, {10 * XT_B * HEADS * XR_N ** 2 * 64 / ms / 1e9:.1f} "
+        f"TFLOP/s; bound {bnd[0]:.4f} ms ({bnd[1]})")
+    del qkv, q, k, v, gr, o, lse
+    torch.cuda.empty_cache()
+
+    m = HT_B * HR_N
+    x = randn(HT_B, HR_N, D, dtype=bf)
+    gr = randn(HT_B, HR_N, D, std=1e-2, dtype=bf)
+    w1 = randn(HIDDEN, D, std=D ** -0.5, dtype=bf)
+    w2 = randn(D, HIDDEN, std=HIDDEN ** -0.5, dtype=bf)
+    b1, dw, dwb = randn(HIDDEN, std=0.1), randn(9, HIDDEN, std=1 / 3, dtype=bf), randn(HIDDEN, std=0.1)
+    args = (x, gr, w1, b1, dw, dwb, w2, HR_HW)
+    kern = lambda: fm.fused_mlp_sepconv_bwd(*args)  # noqa: E731
+    plain = lambda: fm.fused_mlp_sepconv_bwd_plain(*args)  # noqa: E731
+    worst["fused_mlp_sepconv_bwd"] = _check("fused_mlp_sepconv_bwd hw=32 (7 outputs)", kern(),
+                                            plain(), "hires-train-kernels")
+    timing.update(time_against_plain({"fused_mlp_sepconv_bwd": (kern, plain)},
+                                     "hires-train-kernels"))
+    library["fused_mlp_sepconv_bwd"] = None  # no one call takes these inputs
+    # five products of 2 M 768 3072 (the recomputed h, da, dx, dW1, dW2); the
+    # bytes: x, g, the weights in, dx and the float32 weight gradients out
+    bounds["fused_mlp_sepconv_bwd"] = bound(
+        3 * m * D * 2 + 2 * HIDDEN * D * 2 + 9 * HIDDEN * 2 + 2 * HIDDEN * 4
+        + 2 * HIDDEN * D * 4 + (11 * HIDDEN + D) * 4, 10 * m * D * HIDDEN, BF16_TENSOR_FLOP_S)
+    # what the composition adds against a fused kernel: the float32 h, c
+    # and da each written and read once, the bf16 a and dh likewise
+    extra = 3 * 2 * m * HIDDEN * 4 + 2 * 2 * m * HIDDEN * 2
+    log(f"[hires-train-kernels] fused_mlp_sepconv_bwd: bound "
+        f"{bounds['fused_mlp_sepconv_bwd'][0]:.4f} ms ({bounds['fused_mlp_sepconv_bwd'][1]}); "
+        f"the composition's own traffic (float32 h, c, da and bf16 a, dh, each written and "
+        f"read) {extra / 1e9:.2f} GB = {extra / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s")
+    del args, x, gr
+    h, c, da = randn(m, HIDDEN), randn(m, HIDDEN), randn(m, HIDDEN, std=1e-3)
+    body = lv.dwconv_gelu_bwd_body(HR_HW)
+    _check(f"dwconv_gelu_bwd row bands of {body} hw=32 (4 outputs)",
+           lv.dwconv_gelu_bwd(da, c, h, dw, HR_HW), lv.dwconv_gelu_bwd_plain(da, c, h, dw, HR_HW),
+           "hires-train-kernels")
+    t = time_against_plain({"dwconv_gelu_bwd row bands": (
+        lambda: lv.dwconv_gelu_bwd(da, c, h, dw, HR_HW),
+        lambda: lv.dwconv_gelu_bwd_plain(da, c, h, dw, HR_HW))}, "hires-train-kernels")
+    bnd = bound(m * HIDDEN * 14 + 9 * HIDDEN * 2 + 11 * HIDDEN * 4, 56 * m * HIDDEN, F32_FLOP_S)
+    log(f"[hires-train-kernels] dwconv_gelu_bwd row bands hw=32 B={HT_B}: "
+        f"{t['dwconv_gelu_bwd row bands'][0]:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+    del h, c, da
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return worst, timing, library, bounds
+
+
+def _require_launches(got, expect, what):
+    if got != expect:
+        raise AssertionError(f"{what} launches {got} != expected {expect}")
+
+
+def _grad_check(models, x, y):
+    """Global and worst-leaf rel-L2 of models[True]'s gradients against
+    models[False]'s on the same batch and draws."""
+    from transformer_latent_diffusion_tpu_torch.configs import TrainConfig
+    from transformer_latent_diffusion_tpu_torch.train import train as tt
+
+    loss_fn = tt.build_loss_fn(models[True], TrainConfig(), 8.0)
+    draws = loss_fn.sample_draws(torch.Generator(device=DEVICE).manual_seed(5), x)
+    grads = {}
+    for key, mdl in models.items():
+        loss_fn.loss_from_draws(mdl, x, y, **draws).backward()
+        grads[key] = {k: p.grad.float() for k, p in mdl.named_parameters()}
+        mdl.zero_grad(set_to_none=True)
+    num = sum(float((grads[True][k] - v).square().sum()) for k, v in grads[False].items())
+    den2 = sum(float(v.square().sum()) for v in grads[False].values())
+    leaf, leaf_name = max((rel_l2(grads[True][k], v), k) for k, v in grads[False].items())
+    return (num / den2) ** 0.5, leaf, leaf_name
+
+
+def _time_steps(mdl, batch, size):
+    """ms per step (host clock around 5 steps ending in a synchronise,
+    after 2 warm-up steps) and peak GiB of train_step (Adam, EMA) at
+    `batch`; the launches of one step; a profile of one more step (device
+    busy ms, host ms, the top kernels)."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from transformer_latent_diffusion_tpu_torch.configs import TrainConfig
+    from transformer_latent_diffusion_tpu_torch.models.denoiser import Denoiser
+    from transformer_latent_diffusion_tpu_torch.train import train as tt
+
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    x = torch.randn(batch, 4, size, size, generator=gen).to(DEVICE)
+    y = torch.randn(batch, 768, generator=gen).to(DEVICE)
+    tc = TrainConfig(batch_size=batch)
+    opt, sched = tt.make_optimizer(tc, mdl.parameters())
+    den = dataclasses.replace(flagship_configs().denoiser_cfg, image_size=size)
+    ema = Denoiser.from_config(den, dtype=torch.bfloat16).to(DEVICE).requires_grad_(False)
+    state = {"model": mdl, "ema_model": ema, "optimizer": opt, "scheduler": sched, "step": 0}
+    grads_of = tt.make_grads_of(tt.build_loss_fn(mdl, tc, 8.0))
+    sgen = torch.Generator(device=DEVICE).manual_seed(6)
+    for _ in range(2):
+        tt.train_step(state, grads_of, tc, x, y, sgen)
+    _reset_counts()
+    tt.train_step(state, grads_of, tc, x, y, sgen)
+    launches = {k: v for k, v in _counts().items() if v}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        tt.train_step(state, grads_of, tc, x, y, sgen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tt.train_step(state, grads_of, tc, x, y, sgen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, by_kernel = _device_time(prof, 16)
+    del state, opt, sched, ema
+    return ms, peak, launches, (busy, wall, by_kernel)
+
+
+def _hires_layer_launches(size, batch):
+    """The kernel launches of one flagship decoder block's forward and
+    backward on the hi-res component route (fused_layer_vjp and use_pallas
+    beyond K2's gate), at `size` and `batch`."""
+    from transformer_latent_diffusion_tpu_torch.models.blocks import DecoderBlock
+
+    n = (size // 2) ** 2
+    block = DecoderBlock(D, 4, dtype=torch.bfloat16, fused_layer_vjp=True,
+                         use_pallas=True).to(DEVICE)
+    gen = torch.Generator(device="cpu").manual_seed(14)
+    x = torch.randn(batch, n, D, generator=gen).to(DEVICE, torch.bfloat16).requires_grad_(True)
+    cond = torch.randn(batch, 2, D, generator=gen).to(DEVICE, torch.bfloat16)
+    _reset_counts()
+    block(x, cond).float().square().mean().backward()
+    launches = {k: v for k, v in _counts().items() if v}
+    del block, x
+    return launches
+
+
+def phase_hires_train_step(smi):
+    """512 px: one step's gradients (batch HT_GRAD_B) with the kernels
+    against the plain bf16 autograd Denoiser, the launches of one block and
+    of one step, ms per step and peak memory at batch HT_B. 1024 px:
+    remat's gradients against no remat (batch XR_CHECK_B), ms per step,
+    peak memory and launches at batch XT_B with remat on (auto from 2048
+    tokens)."""
+    n_layers = flagship_configs().denoiser_cfg.n_layers
+    sd512 = _hires_sd(HT_SIZE)
+    models = {True: _hires_model(HT_SIZE, sd512, fused_layer_vjp=True, use_pallas=True),
+              False: _hires_model(HT_SIZE, sd512)}
+    gen = torch.Generator(device="cpu").manual_seed(15)
+    x = torch.randn(HT_GRAD_B, 4, HT_SIZE, HT_SIZE, generator=gen).to(DEVICE)
+    y = torch.randn(HT_GRAD_B, 768, generator=gen).to(DEVICE)
+    glob, leaf, leaf_name = _grad_check(models, x, y)
+    log(f"[hires-train-step] 512 px gradients at batch {HT_GRAD_B}, kernels (K3, K4, K5) vs "
+        f"plain bf16 autograd, same draws: global rel-L2 {glob:.5f} (bound {STEP_GRAD_REL_L2}), "
+        f"worst leaf {leaf:.5f} {leaf_name} (bound {STEP_GRAD_LEAF_REL_L2})")
+    if not (glob < STEP_GRAD_REL_L2 and leaf < STEP_GRAD_LEAF_REL_L2):
+        raise AssertionError("the 512 px step's gradients disagree with the plain path")
+    del models[False]
+    torch.cuda.empty_cache()
+
+    per_layer = _hires_layer_launches(HT_SIZE, HT_B)
+    log(f"[hires-train-step] 512 px, one block's forward + backward at batch {HT_B}: {per_layer}")
+    # K3 and K5's forward, K4's two kernels, K5's backward (the K1/K2 kernels
+    # under them: ln_gemm, dwconv_gelu, weight_grad, colsum, dwconv_gelu_bwd)
+    # and nothing of K1's attention or K2's own backward kernels
+    calls = {"flash_attention": 1, "flash_attention_bwd": 2, "fused_mlp_sepconv": 1,
+             "fused_mlp_sepconv_bwd": 1}
+    _require_launches({k: per_layer.get(k, 0) for k in calls}, calls, "512 px block")
+    _require_launches(set(per_layer), {*calls, "ln_gemm", "dwconv_gelu", "weight_grad",
+                                       "colsum", "dwconv_gelu_bwd"}, "512 px block kernels")
+    ms512, peak512, launches, prof512 = _time_steps(models[True], HT_B, HT_SIZE)
+    expect = {k: v * n_layers for k, v in per_layer.items()}
+    log(f"[hires-train-step] 512 px flagship, batch {HT_B}, bf16 compute, float32 master "
+        f"weights, Adam + EMA: {ms512:.2f} ms/step ({HT_B / ms512 * 1e3:.1f} samples/s), peak "
+        f"memory {peak512:.2f} GiB; launches of one step {launches} (expected {expect}) | {smi}")
+    _require_launches(launches, expect, "512 px step")
+    log(f"[hires-train-step] 512 px profiled step: device busy {prof512[0]:.1f} ms of "
+        f"{prof512[1]:.1f} ms ({prof512[0] / prof512[1]:.1%}); by kernel, us: {prof512[2]}")
+    del models
+    torch.cuda.empty_cache()
+
+    sd1024 = _hires_sd(XT_SIZE)
+    gen = torch.Generator(device="cpu").manual_seed(16)
+    x = torch.randn(XR_CHECK_B, 4, XT_SIZE, XT_SIZE, generator=gen).to(DEVICE)
+    y = torch.randn(XR_CHECK_B, 768, generator=gen).to(DEVICE)
+    models = {remat: _hires_model(XT_SIZE, sd1024, fused_layer_vjp=True, use_pallas=True,
+                                  remat=remat) for remat in (True, False)}
+    glob, leaf, leaf_name = _grad_check(models, x, y)
+    log(f"[hires-train-step] 1024 px gradients at batch {XR_CHECK_B}, remat vs no remat: global "
+        f"rel-L2 {glob:.2e}, worst leaf {leaf:.2e} {leaf_name} (bound {REMAT_REL_L2})")
+    if not leaf < REMAT_REL_L2:
+        raise AssertionError("remat's gradients differ from no remat's")
+    del models[False]
+    torch.cuda.empty_cache()
+    ms1024, peak1024, launches1024, prof1024 = _time_steps(models[True], XT_B, XT_SIZE)
+    expect = {"flash_attention": 2 * n_layers, "flash_attention_bwd": 2 * n_layers}
+    log(f"[hires-train-step] 1024 px flagship, batch {XT_B}, remat: {ms1024:.2f} ms/step "
+        f"({XT_B / ms1024 * 1e3:.2f} samples/s), peak memory {peak1024:.2f} GiB; launches of one "
+        f"step {launches1024} (expected {expect}: the forward's flash attention again in the "
+        f"recompute, no K5 beyond 1024 tokens) | {smi}")
+    _require_launches(launches1024, expect, "1024 px step")
+    log(f"[hires-train-step] 1024 px profiled step: device busy {prof1024[0]:.1f} ms of "
+        f"{prof1024[1]:.1f} ms ({prof1024[0] / prof1024[1]:.1%}); by kernel, us: {prof1024[2]}")
+    del models
+    torch.cuda.empty_cache()
+    return per_layer, launches1024
+
+
+def _write_latents(path, n, size, seed):
+    rng = np.random.default_rng(seed)
+    np.save(os.path.join(path, f"latents_{size}.npy"),
+            rng.standard_normal((n, 4, size, size), dtype=np.float32))
+    np.save(os.path.join(path, f"text_emb_{size}.npy"),
+            rng.standard_normal((n, 768), dtype=np.float32))
+    return os.path.join(path, f"latents_{size}.npy"), os.path.join(path, f"text_emb_{size}.npy")
+
+
+def _hires_train_config(tmp, size, n, **train_kw):
+    import dataclasses
+
+    from transformer_latent_diffusion_tpu_torch.configs import DataConfig, ModelConfig, TrainConfig
+
+    cfg = flagship_configs()
+    lat, emb = _write_latents(tmp, n, size, size)
+    val = os.path.join(tmp, "val_emb.npy")
+    np.save(val, np.random.default_rng(0).standard_normal((8, 768), dtype=np.float32))
+    return ModelConfig(
+        data_config=DataConfig(lat, emb, val),
+        denoiser_config=dataclasses.replace(cfg.denoiser_cfg, image_size=size),
+        train_config=TrainConfig(batch_size=HT_B, n_epoch=1, model_name="ft",
+                                 checkpoint_dir=os.path.join(tmp, "ckpts"),
+                                 save_and_eval_every_iters=1000, **train_kw),
+        vae_cfg=cfg.vae_cfg)
+
+
+def phase_hires_finetune(per_layer, smi):
+    """finetune_highres from the 256 px flagship's seeded weights to a 512
+    px config at batch HT_B: FT_STEPS steps, the step-0 eval grid (the EMA
+    weights in JAX's eval_model: flash attention, the plain MLP) and
+    checkpoints; the loss falls; exact launch counts."""
+    from transformer_latent_diffusion_tpu_torch.models.denoiser import Denoiser
+    from transformer_latent_diffusion_tpu_torch.train.highres import finetune_highres
+    from transformer_latent_diffusion_tpu_torch.utils.common import init_random_weights_
+
+    den = flagship_configs().denoiser_cfg
+    base = init_random_weights_(Denoiser.from_config(den), 0).state_dict()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = _hires_train_config(tmp, HT_SIZE, FT_STEPS * HT_B)
+        _reset_counts()
+        t0 = time.perf_counter()
+        r = finetune_highres(cfg, base, den.image_size, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in _counts().items() if v}
+        losses, steps = r["losses"], r["global_step"]
+        expect = {k: v * den.n_layers * steps for k, v in per_layer.items()}
+        # the eval grid's forwards: flash attention only
+        expect["flash_attention"] = expect.get("flash_attention", 0) + den.n_layers * EVAL_CALLS
+        first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+        ckpt = sorted(os.listdir(os.path.join(tmp, "ckpts", "ft")))
+        log(f"[hires-finetune] finetune_highres 256 -> 512 px, batch {HT_B}, {steps} steps in "
+            f"{wall:.1f} s (eval grid and checkpoints included); loss first-4 mean {first:.5f}, "
+            f"last-4 mean {last:.5f}, step 1 {losses[0]:.5f} (per step: "
+            f"{' '.join(f'{v:.3f}' for v in losses)}); checkpoints {ckpt}; launches {launches} "
+            f"(expected {expect}) | {smi}")
+        if steps != FT_STEPS or not all(np.isfinite(losses)) or not (
+                last < first and last < losses[0]):
+            raise AssertionError(f"finetune_highres: {steps} steps, losses {losses}")
+        _require_launches(launches, expect, "finetune_highres")
+        eval_png = os.path.join(tmp, "ckpts", "ft", "eval", "emb_val_cfg:4.5_seed:10.png")
+        if not os.path.exists(eval_png) or ckpt != ["0", str(steps), "eval"]:
+            raise AssertionError(f"eval grid or checkpoints missing: {ckpt}")
+        del r
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_multires(per_layer, smi):
+    """train.main on a 512 px model with a 256 px bucket (batch HT_B,
+    MR_STEPS batches each, interleaved; the 256 px batches add the
+    positional table resized onto their 16 x 16 grid): the 1024-token
+    batches launch K3, K4 and K5, the 256-token ones K2; exact counts."""
+    from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
+    from transformer_latent_diffusion_tpu_torch.train import main as train_main
+
+    n_layers = flagship_configs().denoiser_cfg.n_layers
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    params = _layer_params(gen, torch.device(DEVICE))
+    x = torch.randn(HT_B, N, D, generator=gen).to(DEVICE, torch.bfloat16).requires_grad_(True)
+    cond = torch.randn(HT_B, 2, D, generator=gen).to(DEVICE, torch.bfloat16)
+    _reset_counts()
+    lv.fused_layer(x, cond, params, HEADS, HW).float().square().mean().backward()
+    k2_layer = {k: v for k, v in _counts().items() if v}
+    del params, x, cond
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = _hires_train_config(tmp, HT_SIZE, MR_STEPS * HT_B, save_model=False)
+        lat, emb = _write_latents(tmp, MR_STEPS * HT_B, HT_SIZE // 2, 32)
+        cfg.data_config.extra_latent_paths = (lat,)
+        cfg.data_config.extra_text_emb_paths = (emb,)
+        _reset_counts()
+        t0 = time.perf_counter()
+        r = train_main(cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in _counts().items() if v}
+    expect = {}
+    for counts in (per_layer, k2_layer):
+        for k, v in counts.items():
+            expect[k] = expect.get(k, 0) + v * n_layers * MR_STEPS
+    expect["flash_attention"] = expect.get("flash_attention", 0) + n_layers * EVAL_CALLS
+    losses = r["losses"]
+    log(f"[multires] train.main, 512 px model + 256 px bucket, batch {HT_B}: "
+        f"{r['global_step']} steps in {wall:.1f} s (step-0 eval grid included); losses "
+        f"{' '.join(f'{v:.3f}' for v in losses)}; K2 per layer at batch {HT_B} {k2_layer}; "
+        f"launches {launches} (expected {expect}) | {smi}")
+    if r["global_step"] != 2 * MR_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"multires: {r['global_step']} steps, losses {losses}")
+    _require_launches(launches, expect, "multires")
+    del r
+    torch.cuda.empty_cache()
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase_env()
@@ -1265,6 +1710,12 @@ def main():
     torch.cuda.empty_cache()
     phase_train_step(smi)
     t_launches, _ = phase_train_main(per_layer, smi)
+    torch.cuda.empty_cache()
+
+    ht_worst, ht_timing, ht_library, ht_bounds = phase_hires_train_kernels()
+    hr_layer, xr_launches = phase_hires_train_step(smi)
+    ft_launches = phase_hires_finetune(hr_layer, smi)
+    phase_multires(hr_layer, smi)
 
     from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
     from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
@@ -1279,7 +1730,10 @@ def main():
                "cross_attention_bwd": "csrc/attention_bwd.cu",
                "flash_attention": "csrc/flash_attention.cu",
                # composes ln_gemm.cu and dwconv_gelu.cu's row-band body
-               "fused_mlp_sepconv": "ops/fused_mlp_vjp.py"}
+               "fused_mlp_sepconv": "ops/fused_mlp_vjp.py",
+               "flash_attention_bwd": "csrc/flash_attention_bwd.cu",
+               # composes the K1/K2 kernels and dwconv_gelu_bwd.cu's row-band body
+               "fused_mlp_sepconv_bwd": "ops/fused_mlp_vjp.py"}
     kernels = []
     for names, tpu, counts, err, tim, lib, bnd in (
             (fs.KERNELS, TPU_KERNEL, launches, worst, timing, library, bounds),
@@ -1295,6 +1749,23 @@ def main():
                 "ms": tim[name][0], "plain_ms": tim[name][1], "bound_ms": bnd[name][0],
                 "bound_by": bnd[name][1], "library_ms": lib[name],
             })
+    # K4a and K4b are one Hopper kernel: a row at 512 px (B = 64, N = 1024;
+    # launches of the fine-tune) and one at 4096 tokens (B = 2; launches of
+    # the 1024 px step); K5's backward at 512 px (launches of the fine-tune)
+    for row, name, key, tpu, counts in (
+            ("flash_attention_bwd", "flash_attention_bwd", "flash_attention_bwd", TPU_K4A,
+             ft_launches),
+            ("flash_attention_bwd (N = 4096)", "flash_attention_bwd", "k4b", TPU_K4B,
+             xr_launches),
+            ("fused_mlp_sepconv_bwd", "fused_mlp_sepconv_bwd", "fused_mlp_sepconv_bwd",
+             TPU_K5_BWD, ft_launches)):
+        kernels.append({
+            "name": row, "route": "cuda", "source": f"{port}/{sources[name]}",
+            "replaces": tpu, "launches": counts[name], "max_abs_err": ht_worst[name],
+            "ms": ht_timing[key][0], "plain_ms": ht_timing[key][1],
+            "bound_ms": ht_bounds[key][0], "bound_by": ht_bounds[key][1],
+            "library_ms": ht_library[key],
+        })
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -7,6 +7,7 @@ preemption, unported fields). Mirrors tests/test_training.py and
 tests/test_preemption.py."""
 
 import math
+import os
 import signal
 from dataclasses import asdict
 
@@ -16,6 +17,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from PIL import Image
 
 from transformer_latent_diffusion_tpu.configs import DenoiserConfig as JaxDenoiserConfig
 from transformer_latent_diffusion_tpu.configs import TrainConfig as JaxTrainConfig
@@ -313,8 +315,29 @@ def test_sigterm_stops_at_a_step_boundary_and_resumes(tmp_path, monkeypatch):
     ("use_wandb", True), ("schedule_shift", "auto"), ("param_dtype", "bfloat16"),
 ])
 def test_unported_train_field_raises(tmp_path, field, value):
-    with pytest.raises(NotImplementedError, match=field):
-        ttrain.main(_cfg(tmp_path, **{field: value}), device="cpu")
+    """A field whose feature the port does not run raises, naming it.
+    fused_mlp_vjp=True, remat=True and schedule_shift="auto" came with
+    hi-res training: each now trains one CPU step with the feature on
+    (the MLP flag, here without the fused layer, and remat on the model;
+    "auto" on the native bucket is no shift, so its loss equals
+    schedule_shift=None's)."""
+    if field not in ("fused_mlp_vjp", "remat", "schedule_shift"):
+        with pytest.raises(NotImplementedError, match=field):
+            ttrain.main(_cfg(tmp_path, **{field: value}), device="cpu")
+        return
+    one_step = dict(n_epoch=1, batch_size=64)
+    if field == "fused_mlp_vjp":
+        one_step["fused_layer_vjp"] = None
+    r = ttrain.main(_cfg(tmp_path, **one_step, **{field: value}), device="cpu")
+    assert r["global_step"] == 1 and np.isfinite(r["losses"][0])
+    tb = r["model"].denoiser_trans_block
+    if field == "fused_mlp_vjp":
+        assert all(b.mlp.fused_vjp for b in tb.decoder_blocks)
+    elif field == "remat":
+        assert tb.remat
+    else:
+        base = ttrain.main(_cfg(tmp_path, **one_step), device="cpu")
+        assert r["losses"] == base["losses"]
 
 
 def test_unported_model_fields_raise(tmp_path):
@@ -322,35 +345,83 @@ def test_unported_model_fields_raise(tmp_path):
     cfg.denoiser_config.mlp_class = "moe"
     with pytest.raises(NotImplementedError, match="moe"):
         ttrain.main(cfg, device="cpu")
-    cfg = _cfg(tmp_path)
-    cfg.data_config.extra_latent_paths = ("x.npy",)
-    with pytest.raises(NotImplementedError, match="extra_latent_paths"):
+    # multires buckets came with hi-res training: a 2x bucket trains
+    # beside the native one, and unpaired paths raise
+    cfg = _cfg(tmp_path, n_epoch=1)
+    lat, emb = str(tmp_path / "x2_lat.npy"), str(tmp_path / "x2_emb.npy")
+    np.save(lat, np.random.default_rng(1).standard_normal((64, 4, 16, 16)).astype(np.float32))
+    np.save(emb, np.random.default_rng(2).standard_normal((64, 768)).astype(np.float32))
+    cfg.data_config.extra_latent_paths = (lat,)
+    cfg.data_config.extra_text_emb_paths = (emb,)
+    r = ttrain.main(cfg, device="cpu")
+    assert r["global_step"] == 4 and all(np.isfinite(r["losses"]))
+    cfg.data_config.extra_text_emb_paths = ()
+    with pytest.raises(ValueError, match="extra_latent_paths"):
         ttrain.main(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("image_size,patch_size", [(64, 2), (36, 2), (32, 1)])
-def test_train_beyond_fused_layer_tokens_raises(tmp_path, image_size, patch_size):
-    """More than 256 tokens needs the hi-res kernels (K3-K5): the config
-    check rejects it before any model is built."""
-    cfg = _cfg(tmp_path)
+def test_train_beyond_fused_layer_tokens_raises(tmp_path, image_size, patch_size,
+                                                monkeypatch):
+    """More than 256 tokens (1024, 324, 1024) raised before hi-res training
+    was ported; now a fused-layer model of that size trains one CPU step,
+    its blocks beyond K2's gate taking K5's route for the MLP (one call
+    per layer in the forward), with remat off below 2048 tokens."""
+    cfg = _cfg(tmp_path, n_epoch=1, batch_size=2)
     cfg.denoiser_config.image_size = image_size
     cfg.denoiser_config.patch_size = patch_size
-    with pytest.raises(NotImplementedError, match="hi-res"):
-        ttrain.main(cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    np.save(cfg.data_config.latent_path,
+            rng.standard_normal((2, 4, image_size, image_size)).astype(np.float32))
+    np.save(cfg.data_config.text_emb_path,
+            rng.standard_normal((2, 768)).astype(np.float32))
+    calls = []
+    real = blocks.fused_mlp_sepconv
+    monkeypatch.setattr(blocks, "fused_mlp_sepconv", lambda *a: calls.append(a[-1]) or real(*a))
+    # the step-0 eval grid (16 images x 40 steps on the CPU) is not what is
+    # checked here: a blank image stands in for it
+    monkeypatch.setattr(ttrain, "eval_gen", lambda diffuser, labels, size, out_dir: (
+        os.makedirs(out_dir, exist_ok=True), Image.new("RGB", (8, 8)))[1])
+    r = ttrain.main(cfg, device="cpu")
+    assert r["global_step"] == 1 and np.isfinite(r["losses"][0])
+    assert calls == [image_size // patch_size] * TINY["n_layers"]
+    assert not r["model"].denoiser_trans_block.remat
 
 
 @pytest.mark.parametrize("n_tokens", [324, 200])
 def test_fused_block_outside_gate_raises_off_cpu(n_tokens):
-    """Outside the fused layer's gate (more than 256 tokens, or no square
-    grid) a DecoderBlock with fused_layer_vjp=True runs the plain modules
-    on CPU tensors only; on any other device it raises (checked on the
-    meta device, which needs no card)."""
+    """Outside the fused layer's gate a DecoderBlock with
+    fused_layer_vjp=True takes the JAX block's component route. On a
+    square grid (324 tokens) that is K5 for the MLP: the block now matches
+    the JAX block (float32, K5 in interpret mode there) to rel-L2 1e-5,
+    and off the CPU the K5 wrapper takes the tensors (on the meta device,
+    which needs no card, it refuses them as not CUDA). A grid that is not
+    square (200 tokens) needs the attention pair K6, not ported: it
+    raises NotImplementedError naming K6 on any device but the CPU."""
     block = blocks.DecoderBlock(64, 4, fused_layer_vjp=True)
     x, y = torch.zeros(1, n_tokens, 64), torch.zeros(1, 2, 64)
     if math.isqrt(n_tokens) ** 2 == n_tokens:
-        assert block(x, y).shape == x.shape
+        from transformer_latent_diffusion_tpu.models.blocks import DecoderBlock as JaxBlock
+
+        rng = np.random.default_rng(n_tokens)
+        xs = rng.standard_normal((1, n_tokens, 64)).astype(np.float32)
+        ys = rng.standard_normal((1, 2, 64)).astype(np.float32)
+        jblock = JaxBlock(embed_dim=64, mlp_multiplier=4, dropout_level=0.0,
+                          fused_layer_vjp=True)
+        params = jblock.init(jax.random.PRNGKey(0), jnp.asarray(xs), jnp.asarray(ys))["params"]
+        want = np.asarray(jblock.apply({"params": params}, jnp.asarray(xs), jnp.asarray(ys)))
+        block.load_state_dict({k: torch.from_numpy(v) for k, v in
+                               convert.decoder_block_state_dict(
+                                   jax.tree.map(np.asarray, params)).items()})
+        with torch.no_grad():
+            got = block(torch.from_numpy(xs), torch.from_numpy(ys)).numpy()
+        assert _rel_l2(got, want) < 1e-5
+        block.to("meta")
+        with pytest.raises(ValueError, match="CUDA"):
+            block(x.to("meta"), y.to("meta"))
+        return
     block.to("meta")
-    with pytest.raises(NotImplementedError, match="K5/K6"):
+    with pytest.raises(NotImplementedError, match="K6"):
         block(x.to("meta"), y.to("meta"))
 
 

@@ -156,8 +156,8 @@ class LTDConfig:
 @dataclass
 class DataConfig:
     """Where the latent data is stored: (N, C, S, S) latents and (N, E)
-    text embeddings as .npy, and the eval embeddings. Multi-resolution
-    buckets (`extra_*_paths`) wait for the hi-res slice."""
+    text embeddings as .npy, and the eval embeddings. `extra_*_paths`:
+    further resolution buckets (multires training), paired by index."""
 
     latent_path: str
     text_emb_path: str
@@ -243,11 +243,8 @@ _UNPORTED_TRAIN = (
     ("sequence_parallel", bool, "item 14 (parallelism)"),
     ("lora_rank", lambda v: v > 0, "item 11 (LoRA)"),
     ("outpaint", bool, "item 9 (outpaint)"),
-    ("fused_mlp_vjp", lambda v: v is True, "kernel K5 (hi-res)"),
     ("fused_attn_vjp", lambda v: v is True, "kernel K6 (MoE)"),
-    ("remat", lambda v: v is True, "item 8 (hi-res)"),
     ("use_wandb", bool, "item 12 (logging)"),
-    ("schedule_shift", lambda v: v == "auto", "item 8 (multires)"),
     ("param_dtype", lambda v: v != "float32", "item 7 (bf16 master weights)"),
 )
 
@@ -261,10 +258,6 @@ def check_train_config(cfg: ModelConfig) -> None:
         if unported(value):
             raise NotImplementedError(
                 f"TrainConfig.{name}={value!r} is not ported yet (ROADMAP {item})")
-    dc = cfg.data_config
-    if dc.extra_latent_paths or dc.extra_text_emb_paths:
-        raise NotImplementedError("DataConfig.extra_latent_paths (multires "
-                                  "training) is not ported yet (ROADMAP item 8)")
     den = cfg.denoiser_config
     if den.mlp_class != "sep_conv":
         raise NotImplementedError(f"mlp_class={den.mlp_class!r} is not ported "
@@ -272,18 +265,6 @@ def check_train_config(cfg: ModelConfig) -> None:
     if den.dropout:
         raise NotImplementedError("dropout > 0 is not ported yet (ROADMAP, "
                                   "what the training slice left out)")
-    # imported here: the models package imports this module
-    from transformer_latent_diffusion_tpu_torch.models.blocks import (
-        FUSED_LAYER_MAX_TOKENS,
-    )
-
-    side = den.image_size // den.patch_size
-    if side * side > FUSED_LAYER_MAX_TOKENS:
-        raise NotImplementedError(
-            f"image_size={den.image_size} with patch_size={den.patch_size} "
-            f"gives {side * side} tokens: training beyond "
-            f"{FUSED_LAYER_MAX_TOKENS} tokens is not ported yet (ROADMAP "
-            "item 8, hi-res, kernels K3-K5)")
 
 
 def config_to_json(cfg) -> str:

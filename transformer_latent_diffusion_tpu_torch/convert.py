@@ -81,30 +81,31 @@ def denoiser_state_dict(params: Dict[str, Any], cfg) -> StateDict:
 
     i = 0
     while f"decoder_block_{i}" in tb:
-        blk = tb[f"decoder_block_{i}"]
         base = f"{pre}.decoder_blocks.{i}"
-        _linear(sd, f"{base}.self_attention.qkv_linear",
-                blk["self_attention"]["qkv_linear"])
-        _linear(sd, f"{base}.cross_attention.q_linear",
-                blk["cross_attention"]["q_linear"])
-        _linear(sd, f"{base}.cross_attention.kv_linear",
-                blk["cross_attention"]["kv_linear"])
-        mlp = blk["mlp"]
-        # 1x1 convolutions (out, in, 1, 1) and the depthwise (hidden, 1, 3, 3)
-        sd[f"{base}.mlp.mlp.0.weight"] = (
-            _f32(mlp["expand"]["kernel"]).T[:, :, None, None].copy())
-        sd[f"{base}.mlp.mlp.0.bias"] = _f32(mlp["expand"]["bias"])
-        sd[f"{base}.mlp.mlp.1.weight"] = (
-            _f32(mlp["depthwise_kernel"]).transpose(3, 2, 0, 1).copy())
-        sd[f"{base}.mlp.mlp.1.bias"] = _f32(mlp["depthwise_bias"])
-        sd[f"{base}.mlp.mlp.3.weight"] = (
-            _f32(mlp["contract"]["kernel"]).T[:, :, None, None].copy())
-        sd[f"{base}.mlp.mlp.3.bias"] = _f32(mlp["contract"]["bias"])
-        for n in ("norm1", "norm2", "norm3"):
-            _norm(sd, f"{base}.{n}", blk[n])
+        sd.update({f"{base}.{k}": v for k, v in
+                   decoder_block_state_dict(tb[f"decoder_block_{i}"]).items()})
         i += 1
 
     _linear(sd, f"{pre}.out_proj.0", tb["out_proj"])
+    return sd
+
+
+def decoder_block_state_dict(blk: Dict[str, Any]) -> StateDict:
+    """JAX `DecoderBlock` params -> the port's `DecoderBlock` state_dict."""
+    sd: StateDict = {}
+    _linear(sd, "self_attention.qkv_linear", blk["self_attention"]["qkv_linear"])
+    _linear(sd, "cross_attention.q_linear", blk["cross_attention"]["q_linear"])
+    _linear(sd, "cross_attention.kv_linear", blk["cross_attention"]["kv_linear"])
+    mlp = blk["mlp"]
+    # 1x1 convolutions (out, in, 1, 1) and the depthwise (hidden, 1, 3, 3)
+    sd["mlp.mlp.0.weight"] = _f32(mlp["expand"]["kernel"]).T[:, :, None, None].copy()
+    sd["mlp.mlp.0.bias"] = _f32(mlp["expand"]["bias"])
+    sd["mlp.mlp.1.weight"] = _f32(mlp["depthwise_kernel"]).transpose(3, 2, 0, 1).copy()
+    sd["mlp.mlp.1.bias"] = _f32(mlp["depthwise_bias"])
+    sd["mlp.mlp.3.weight"] = _f32(mlp["contract"]["kernel"]).T[:, :, None, None].copy()
+    sd["mlp.mlp.3.bias"] = _f32(mlp["contract"]["bias"])
+    for n in ("norm1", "norm2", "norm3"):
+        _norm(sd, n, blk[n])
     return sd
 
 

@@ -25,6 +25,22 @@
 // atomics. GELU' is exact: Phi(c) + c phi(c) with `erff` and `expf`, the
 // derivative of the exact GELU the forward uses. The input gradient sums
 // in the TPU kernel's order (row taps per column shift, then the shifts).
+//
+// Two bodies, one per template flag, as dwconv_gelu.cu has. The whole-grid
+// body (above) holds two (hw+2)^2 x 32 float32 slabs, up to hw = 28 within
+// the 227 KB a block may use. The row-band body serves larger grids, such as
+// the backward of the hi-res sep-conv MLP (TPU kernel
+// transformer_latent_diffusion_tpu/ops/fused_mlp_vjp.py::_pallas_bwd,
+// `_bwd_kernel` :135-179, at hw = 32, where the whole grid's 296 KB would
+// not fit): one block per (32 channels, band of `band` grid rows, image)
+// stages dc and h of the band plus a one-row halo above and below,
+// 2 x (band+2) x (hw+2) x 32 float32 (87 KB for 8 rows at hw = 32, two
+// blocks per SM). The halo's dc is recomputed from da and c by both blocks
+// that read it, so device memory sees (band+2)/band reads per input
+// element. Each block writes one partial row per (image, band), and colsum
+// sums those; the arithmetic and its order are the whole-grid body's. The
+// wrapper (ops/fused_layer_vjp.py::dwconv_gelu_bwd_body) takes the whole
+// grid where it fits and bands of 8 rows beyond (up to hw = 88).
 
 #include "common.cuh"
 
@@ -37,8 +53,8 @@ constexpr int GROUPS = CHUNK / VEC;
 constexpr int PIX = THREADS / GROUPS;  // pixels in flight
 constexpr int NSUM = 11;               // 9 taps, ddwb, db1
 
-inline size_t smem_bytes(int hw) {
-  const size_t tiles = 2 * static_cast<size_t>(hw + 2) * (hw + 2) * CHUNK * sizeof(float);
+inline size_t smem_bytes(int rows, int hw) {
+  const size_t tiles = 2 * static_cast<size_t>(rows + 2) * (hw + 2) * CHUNK * sizeof(float);
   const size_t red = static_cast<size_t>(NSUM) * VEC * THREADS * sizeof(float);
   return tiles > red ? tiles : red;
 }
@@ -49,22 +65,28 @@ __device__ __forceinline__ float gelu_grad(float c) {
   return cdf + c * pdf;
 }
 
+template <bool BAND>
 __global__ void __launch_bounds__(THREADS)
 dwconv_gelu_bwd_kernel(const float* __restrict__ da, const float* __restrict__ cpre,
                        const float* __restrict__ h, const bf16* __restrict__ dw,
-                       bf16* __restrict__ dhid, float* __restrict__ partial, int hw, int C) {
+                       bf16* __restrict__ dhid, float* __restrict__ partial, int hw, int C,
+                       int band) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int pw = hw + 2;
-  float4* dcs = reinterpret_cast<float4*>(smem);  // [pw * pw][GROUPS]
-  float4* hs = dcs + pw * pw * GROUPS;
   const int c0 = blockIdx.x * CHUNK;
-  const int b = blockIdx.y;
+  // whole grid: blockIdx.y is the image; row band: the band, and blockIdx.z the image
+  const int b = BAND ? blockIdx.z : blockIdx.y;
+  const int r0 = BAND ? blockIdx.y * band : 0;
+  const int rows = BAND ? min(band, hw - r0) : hw;
+  const size_t part = BAND ? static_cast<size_t>(b) * gridDim.y + blockIdx.y : b;  // partial row
+  float4* dcs = reinterpret_cast<float4*>(smem);  // [(rows+2) * pw][GROUPS]
+  float4* hs = dcs + (rows + 2) * pw * GROUPS;
   const size_t img = static_cast<size_t>(b) * hw * hw;
   const int tid = threadIdx.x;
 
-  for (int idx = tid; idx < pw * pw * GROUPS; idx += THREADS) {
+  for (int idx = tid; idx < (rows + 2) * pw * GROUPS; idx += THREADS) {
     const int grp = idx % GROUPS, p = idx / GROUPS;
-    const int i = p / pw - 1, j = p % pw - 1;
+    const int i = r0 + p / pw - 1, j = p % pw - 1;
     float4 d = make_float4(0.f, 0.f, 0.f, 0.f), hv = d;
     if (i >= 0 && i < hw && j >= 0 && j < hw) {
       const size_t at = (img + i * hw + j) * C + c0 + grp * VEC;
@@ -95,8 +117,8 @@ dwconv_gelu_bwd_kernel(const float* __restrict__ da, const float* __restrict__ c
     for (int e = 0; e < VEC; ++e) sums[q][e] = 0.f;
   __syncthreads();
 
-  for (int p = tid / GROUPS; p < hw * hw; p += PIX) {
-    const int i = p / hw, j = p % hw;
+  for (int p = tid / GROUPS; p < rows * hw; p += PIX) {
+    const int i = p / hw, j = p % hw;  // i counts rows from the band's first
     float acc[VEC] = {0.f, 0.f, 0.f, 0.f};
     const float4 dc4 = dcs[((i + 1) * pw + (j + 1)) * GROUPS + grp];
     const float dcv[VEC] = {dc4.x, dc4.y, dc4.z, dc4.w};
@@ -127,7 +149,7 @@ dwconv_gelu_bwd_kernel(const float* __restrict__ da, const float* __restrict__ c
     uint2 o;
     o.x = pack_bf16x2(acc[0], acc[1]);
     o.y = pack_bf16x2(acc[2], acc[3]);
-    *reinterpret_cast<uint2*>(dhid + (img + p) * C + c) = o;
+    *reinterpret_cast<uint2*>(dhid + (img + static_cast<size_t>(r0) * hw + p) * C + c) = o;
   }
 
   // the 32 threads of each channel group add their sums in a fixed order
@@ -143,8 +165,22 @@ dwconv_gelu_bwd_kernel(const float* __restrict__ da, const float* __restrict__ c
     const float* row = red + (q * VEC + ch % VEC) * THREADS + ch / VEC;
     float t = 0.f;
     for (int l = 0; l < PIX; ++l) t += row[l * GROUPS];
-    partial[(static_cast<size_t>(b) * NSUM + q) * C + c0 + ch] = t;
+    partial[(part * NSUM + q) * C + c0 + ch] = t;
   }
+}
+
+template <bool BAND>
+int launch(const float* da, const float* c, const float* h, const void* dw, void* dhid,
+           float* partial, int B, int hw, int C, int band, cudaStream_t s) {
+  const size_t smem = smem_bytes(BAND ? band : hw, hw);
+  cudaError_t err = cudaFuncSetAttribute(dwconv_gelu_bwd_kernel<BAND>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid = BAND ? dim3(C / CHUNK, (hw + band - 1) / band, B) : dim3(C / CHUNK, B);
+  dwconv_gelu_bwd_kernel<BAND><<<grid, THREADS, smem, s>>>(
+      da, c, h, static_cast<const bf16*>(dw), static_cast<bf16*>(dhid), partial, hw, C, band);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -152,17 +188,16 @@ dwconv_gelu_bwd_kernel(const float* __restrict__ da, const float* __restrict__ c
 // da, c, h: (B*hw*hw, C) float32 token rows of a row-major hw x hw grid
 // (the upstream gradient of the GELU output, the pre-GELU values and the
 // convolution's input). dw: (9, C) bf16 taps, tap di*3+dj. dhid: (B*hw*hw,
-// C) bf16. partial: (B, 11, C) float32: per image the 9 tap gradients,
-// ddwb and db1. Requires C % 32 == 0 and hw <= 16 (the fused layer's gate
-// of 256 tokens; 16 keeps the two staged grids within shared memory).
+// C) bf16. band: 0 for the whole-grid body, else the grid rows of each
+// block of the row-band body. partial: (B, 11, C) float32 for the whole
+// grid, (B, ceil(hw / band), 11, C) for bands: per image (and band) the 9
+// tap gradients, ddwb and db1. Requires C % 32 == 0 and the body's slabs
+// within 227 KB (see the header).
 LTD_API int ltd_dwconv_gelu_bwd(const float* da, const float* c, const float* h, const void* dw,
-                                void* dhid, float* partial, int B, int hw, int C, void* stream) {
-  if (C % CHUNK || hw > 16) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(hw);
-  cudaError_t err = cudaFuncSetAttribute(
-      dwconv_gelu_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dwconv_gelu_bwd_kernel<<<dim3(C / CHUNK, B), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      da, c, h, static_cast<const bf16*>(dw), static_cast<bf16*>(dhid), partial, hw, C);
-  return static_cast<int>(cudaGetLastError());
+                                void* dhid, float* partial, int B, int hw, int C, int band,
+                                void* stream) {
+  if (C % CHUNK || band < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return band > 0 ? launch<true>(da, c, h, dw, dhid, partial, B, hw, C, band, s)
+                  : launch<false>(da, c, h, dw, dhid, partial, B, hw, C, 0, s);
 }

@@ -36,7 +36,13 @@
 // values divides at the end. Both round p once to bf16 with a float32
 // softmax; they differ by about one bf16 step of p.
 //
-// Not yet: `wgmma` and TMA (a later PR), and the backward (K4).
+// For training, the wrapper also passes `lse`, and the kernel writes each
+// query row's float32 log-sum-exp m + log(l) of the scaled scores there,
+// (B, H, Nq) row-major, which the backward (flash_attention_bwd.cu, TPU
+// kernel K4) reads to recompute p = exp(s - lse) without a row pass of its
+// own. Serving passes null and writes nothing more.
+//
+// Not yet: `wgmma` and TMA (a later PR).
 
 #include "common.cuh"
 
@@ -55,8 +61,9 @@ constexpr size_t SMEM_BYTES = static_cast<size_t>(QT * LDH + STAGES * 2 * KT * L
 
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, bf16* __restrict__ out, int Nq, int Nk,
-                       int D, int q_row, int k_row, int v_row) {
+                       const bf16* __restrict__ v, bf16* __restrict__ out,
+                       float* __restrict__ lse, int Nq, int Nk, int D, int q_row, int k_row,
+                       int v_row) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* KVs = Qs + QT * LDH;  // stage s: K at KVs + s * 2 * KT * LDH, V after it
@@ -221,17 +228,23 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (r1 < Nq)
       *reinterpret_cast<uint32_t*>(o1 + d * 8) = pack_bf16x2(o[d][2] * inv1, o[d][3] * inv1);
   }
+  if (lse != nullptr && t4 == 0) {  // the 4 lanes of a quad hold the same m and l
+    float* lb = lse + (b * gridDim.y + h) * Nq;
+    if (r0 < Nq) lb[r0] = m0 + logf(l0);
+    if (r1 < Nq) lb[r1] = m1 + logf(l1);
+  }
 }
 
 }  // namespace
 
 // q: (B*Nq, *) bf16 rows with row stride q_row elements, head h at columns
 // h*64; k, v: (B*Nk, *) bf16 rows with strides k_row, v_row. out: (B*Nq, D)
-// bf16, D = n_heads * 64. Row strides are multiples of 8 and the pointers
+// bf16, D = n_heads * 64. lse: null, or (B, n_heads, Nq) float32 for each
+// row's log-sum-exp. Row strides are multiples of 8 and the pointers
 // 16-byte aligned. Requires Nq, Nk >= 1 (the wrapper asks for >= 8).
-LTD_API int ltd_flash_attention(const void* q, const void* k, const void* v, void* out, int B,
-                                int Nq, int Nk, int n_heads, int q_row, int k_row, int v_row,
-                                void* stream) {
+LTD_API int ltd_flash_attention(const void* q, const void* k, const void* v, void* out,
+                                float* lse, int B, int Nq, int Nk, int n_heads, int q_row,
+                                int k_row, int v_row, void* stream) {
   if (Nq < 1 || Nk < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -240,6 +253,6 @@ LTD_API int ltd_flash_attention(const void* q, const void* k, const void* v, voi
   dim3 grid((Nq + QT - 1) / QT, n_heads, B);
   flash_attention_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), Nq, Nk, n_heads * DH, q_row, k_row, v_row);
+      static_cast<bf16*>(out), lse, Nq, Nk, n_heads * DH, q_row, k_row, v_row);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,10 +12,12 @@ statistics and softmax stay float32. No mixture of experts, and dropout
 only at 0. `DecoderBlock(fused_layer_vjp=True)` runs the whole layer as
 `ops.fused_layer_vjp.FusedLayerFunction` (TPU kernel K2) where the JAX
 package's gate allows it. Outside it (the linen path), `use_pallas` sends
-self-attention to the flash-attention kernel (K3, `ops.attention`) and
-`fused_mlp_vjp` sends the sep-conv MLP of a square grid of at most
-`FUSED_MLP_MAX_TOKENS` tokens to K5's forward (`ops.fused_mlp_vjp`), as
-the JAX package's flags do; cross-attention stays plain.
+self-attention to the flash-attention kernels (K3 forward, K4 backward,
+`ops.attention`) and `fused_mlp_vjp` sends the sep-conv MLP of a square
+grid of at most `FUSED_MLP_MAX_TOKENS` tokens to K5 (`ops.fused_mlp_vjp`,
+forward and backward), as the JAX package's flags do; a fused-layer block
+beyond K2's gate takes K5 too (the JAX block's `want_mlp`);
+cross-attention stays plain.
 """
 
 from __future__ import annotations
@@ -38,6 +40,9 @@ LN_EPS = 1e-5
 # the fused decoder layer's token limit (the JAX package's
 # FUSED_LAYER_MAX_TOKENS)
 FUSED_LAYER_MAX_TOKENS = 256
+# the fused attention pair's token limit (the JAX package's
+# FUSED_ATTN_MAX_TOKENS; its kernel K6 is not ported)
+FUSED_ATTN_MAX_TOKENS = 256
 # the fused sep-conv MLP's token limit (the JAX package's
 # FUSED_MLP_MAX_TOKENS)
 FUSED_MLP_MAX_TOKENS = 1024
@@ -146,9 +151,9 @@ class MLPSepConv(nn.Module):
     square token grid. `mlp` keeps the reference's Sequential indices.
 
     fused_vjp: on a square grid of at most FUSED_MLP_MAX_TOKENS tokens, run
-    K5's forward (`ops.fused_mlp_vjp.fused_mlp_sepconv`: float32 hidden
-    state, the GELU output rounded to `dtype`); elsewhere, and without the
-    flag, the plain modules in `dtype` throughout."""
+    K5 (`ops.fused_mlp_vjp.fused_mlp_sepconv`, differentiable: float32
+    hidden state, the GELU output rounded to `dtype`); elsewhere, and
+    without the flag, the plain modules in `dtype` throughout."""
 
     def __init__(self, embed_dim: int, mlp_multiplier: int,
                  dtype=torch.float32, fused_vjp: bool = False):
@@ -185,13 +190,22 @@ class MLPSepConv(nn.Module):
 
 class DecoderBlock(nn.Module):
     """Pre-LN DiT block: x += SA(LN x); x += CA(LN x, cond); x += MLP(LN x).
-    Heads = embed_dim // 64. fused_layer_vjp: run the layer as one
-    `FusedLayerFunction` on a square grid of at most 256 tokens (the JAX
-    package's gate, models/blocks.py:269-274); outside the gate the plain
-    modules on CPU tensors, and NotImplementedError on any other device.
-    Otherwise the linen path (models/blocks.py:356-378): use_pallas and
-    fused_mlp_vjp pass down to the self-attention (K3) and the sep-conv
-    MLP (K5's forward), with the residual adds in `dtype`."""
+    Heads = embed_dim // 64. The JAX block's gates (models/blocks.py:
+    269-284), per call on the token count:
+
+    - use_layer: fused_layer_vjp on a square grid of at most 256 tokens
+      runs the layer as one `FusedLayerFunction` (K2);
+    - use_attn: beyond that gate, a fused-layer block of at most 256
+      tokens (a grid that is not square) needs the attention pair K6,
+      which is not ported: NotImplementedError on any tensor not on the
+      CPU, the plain attention modules on the CPU;
+    - use_mlp: fused_mlp_vjp, or a fused-layer block beyond K2's gate, on
+      a square grid of at most 1024 tokens runs the MLP through K5 (the
+      MLP module's own gate: a fused-layer block builds it with
+      fused_vjp, which inside K2's gate it never calls).
+
+    Otherwise the linen path (models/blocks.py:356-378): use_pallas sends
+    self-attention to K3/K4, with the residual adds in `dtype`."""
 
     def __init__(self, embed_dim: int, mlp_multiplier: int,
                  dtype=torch.float32, fused_layer_vjp: bool = False,
@@ -206,7 +220,8 @@ class DecoderBlock(nn.Module):
         self.norm2 = nn.LayerNorm(embed_dim, eps=LN_EPS)
         self.cross_attention = CrossAttention(embed_dim, n_heads, dtype)
         self.norm3 = nn.LayerNorm(embed_dim, eps=LN_EPS)
-        self.mlp = MLPSepConv(embed_dim, mlp_multiplier, dtype, fused_mlp_vjp)
+        self.mlp = MLPSepConv(embed_dim, mlp_multiplier, dtype,
+                              fused_mlp_vjp or fused_layer_vjp)
 
     def _fused(self, x, y, hw: int):
         from transformer_latent_diffusion_tpu_torch.ops.fused_layer_vjp import (
@@ -235,15 +250,16 @@ class DecoderBlock(nn.Module):
     def forward(self, x, y):
         n = x.shape[1]
         hw = math.isqrt(n)
-        if self.fused_layer_vjp:
-            if hw * hw == n and n <= FUSED_LAYER_MAX_TOKENS:
-                return self._fused(x, y, hw)
-            if x.device.type != "cpu":
-                # the JAX package runs the component kernels K5/K6 here
-                raise NotImplementedError(
-                    f"fused_layer_vjp on {n} tokens: beyond a square grid of "
-                    f"{FUSED_LAYER_MAX_TOKENS} tokens the layer needs kernels "
-                    "K5/K6, not ported yet (ROADMAP item 8, hi-res)")
+        use_layer = (self.fused_layer_vjp and hw * hw == n
+                     and n <= FUSED_LAYER_MAX_TOKENS)
+        if use_layer:
+            return self._fused(x, y, hw)
+        use_attn = self.fused_layer_vjp and n <= FUSED_ATTN_MAX_TOKENS
+        if use_attn and x.device.type != "cpu":
+            raise NotImplementedError(
+                f"fused_layer_vjp on {n} tokens (no square grid): the JAX "
+                "package runs the attention pair kernel K6 here, not ported "
+                "yet (ROADMAP 1c item 6)")
         dt = self.dtype
         x = x + self.self_attention(layer_norm(x, self.norm1, dt))
         x = x + self.cross_attention(layer_norm(x, self.norm2, dt), y)

@@ -13,8 +13,11 @@ With `fused_layer_vjp=True` (training) its decoder blocks run as the
 differentiable fused layer (TPU kernel K2); the dense layers before and
 after them stay plain PyTorch with autograd, as the JAX package leaves
 them to XLA. Otherwise `use_pallas` and `fused_mlp_vjp` select the
-hi-res kernels of the linen path (K3 and K5's forward, see
-`models.blocks.DecoderBlock`).
+hi-res kernels of the linen path (K3/K4 and K5, see
+`models.blocks.DecoderBlock`). `remat=True` checkpoints each decoder
+block (`torch.utils.checkpoint`, as the JAX package's
+`nn.remat(DecoderBlock)`): its activations are recomputed in the backward
+instead of stored, which 1024 px training needs.
 
 Another grid than the native one takes the first h*w rows of the learned
 positional table, or a table passed as `pos_embed_override`, such as
@@ -30,6 +33,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from transformer_latent_diffusion_tpu_torch.models.blocks import (
     LN_EPS,
@@ -91,11 +95,13 @@ class DenoiserTransBlock(nn.Module):
     def __init__(self, patch_size: int, img_size: int, embed_dim: int,
                  n_layers: int, mlp_multiplier: int = 4, n_channels: int = 4,
                  dtype=torch.float32, fused_layer_vjp: bool = False,
-                 use_pallas: bool = False, fused_mlp_vjp: bool = False):
+                 use_pallas: bool = False, fused_mlp_vjp: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.patch_size = patch_size
         self.n_channels = n_channels
         self.dtype = dtype
+        self.remat = remat
         patch_dim = n_channels * patch_size * patch_size
         seq_len = (img_size // patch_size) ** 2
         self.patchify_and_embed = nn.Sequential(
@@ -134,8 +140,10 @@ class DenoiserTransBlock(nn.Module):
         pos = (self.pos_embed.weight[:h * w] if pos_embed_override is None
                else pos_embed_override)
         tokens = tokens + pos.to(dt)[None]
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.decoder_blocks:
-            tokens = block(tokens, cond)
+            tokens = (checkpoint(block, tokens, cond, use_reentrant=False)
+                      if remat else block(tokens, cond))
         out = dense(tokens, self.out_proj[0].weight, self.out_proj[0].bias, dt)
         return unpatchify(out.float(), p, h, w, self.n_channels)
 
@@ -155,7 +163,8 @@ class Denoiser(nn.Module):
                  expert_capacity_factor: float = 1.25,
                  input_channels=None, objective: str = "x0",
                  dtype=torch.float32, fused_layer_vjp: bool = False,
-                 use_pallas: bool = False, fused_mlp_vjp: bool = False):
+                 use_pallas: bool = False, fused_mlp_vjp: bool = False,
+                 remat: bool = False):
         super().__init__()
         if mlp_class != "sep_conv":
             raise NotImplementedError(
@@ -184,16 +193,19 @@ class Denoiser(nn.Module):
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
         self.denoiser_trans_block = DenoiserTransBlock(
             patch_size, image_size, embed_dim, n_layers, mlp_multiplier,
-            n_channels, dtype, fused_layer_vjp, use_pallas, fused_mlp_vjp)
+            n_channels, dtype, fused_layer_vjp, use_pallas, fused_mlp_vjp,
+            remat)
 
     @classmethod
     def from_config(cls, cfg, dtype=torch.float32,
                     fused_layer_vjp: bool = False, use_pallas: bool = False,
-                    fused_mlp_vjp: bool = False) -> "Denoiser":
+                    fused_mlp_vjp: bool = False,
+                    remat: bool = False) -> "Denoiser":
         from dataclasses import asdict
 
         return cls(**asdict(cfg), dtype=dtype, fused_layer_vjp=fused_layer_vjp,
-                   use_pallas=use_pallas, fused_mlp_vjp=fused_mlp_vjp)
+                   use_pallas=use_pallas, fused_mlp_vjp=fused_mlp_vjp,
+                   remat=remat)
 
     def forward(self, x, noise_level, label,
                 pos_embed_override: Optional[torch.Tensor] = None):

@@ -439,9 +439,33 @@ def layernorm_bwd(dy, x, scale, upstream):
     return dx, sums[:d], sums[d:]
 
 
+# dwconv_gelu_bwd's channels per block, and grid rows per block of its
+# row-band body
+DWB_CHUNK = 32
+DWB_BAND_ROWS = 8
+
+
+def dwconv_gelu_bwd_body(hw: int) -> int:
+    """The `dwconv_gelu_bwd` body that holds an hw x hw grid: 0 for the
+    whole-grid body, whose two float32 slabs (dc and h) of (hw+2)^2 x 32
+    fit a block's shared memory (up to hw = 28), else the rows of a band
+    of the row-band body, whose slabs of (rows+2) x (hw+2) x 32 do (up to
+    hw = 88). Raises ValueError beyond."""
+    def slabs(rows):
+        return 2 * (rows + 2) * (hw + 2) * DWB_CHUNK * 4
+
+    if slabs(hw) <= fs.SMEM_PER_BLOCK:
+        return 0
+    if slabs(DWB_BAND_ROWS) <= fs.SMEM_PER_BLOCK:
+        return DWB_BAND_ROWS
+    raise ValueError(f"dwconv_gelu_bwd: a {hw} x {hw} grid exceeds the "
+                     f"{fs.SMEM_PER_BLOCK}-byte shared memory of both bodies")
+
+
 def dwconv_gelu_bwd(da, c, h, dw, hw: int):
     """Kernel wrapper of `dwconv_gelu_bwd_plain`; on CUDA da, c, h float32,
-    dw bf16 (9, C), C % 32 == 0 and hw <= 16."""
+    dw bf16 (9, C), C % 32 == 0 and a grid one of the two bodies holds
+    (`dwconv_gelu_bwd_body`)."""
     if da.device.type == "cpu":
         return dwconv_gelu_bwd_plain(da, c, h, dw, hw)
     dev = _on_cuda("dwconv_gelu_bwd", da, c, h, dw)
@@ -450,16 +474,18 @@ def dwconv_gelu_bwd(da, c, h, dw, hw: int):
              and dw.dtype == torch.bfloat16 and c.shape == (m, ch)
              and h.shape == (m, ch) and dw.shape == (9, ch),
              "dwconv_gelu_bwd: float32 da, c, h (M, C) and bf16 dw (9, C)")
-    _require(ch % 32 == 0 and hw <= 16 and m % (hw * hw) == 0,
-             "dwconv_gelu_bwd: needs C % 32 == 0, hw <= 16, (B*hw*hw, C) rows")
+    _require(ch % DWB_CHUNK == 0 and m % (hw * hw) == 0,
+             "dwconv_gelu_bwd: needs C % 32 == 0 and (B*hw*hw, C) rows")
+    band = dwconv_gelu_bwd_body(hw)
     b = m // (hw * hw)
+    rows = b * (-(-hw // band) if band else 1)  # a partial row per (image, band)
     dhid = torch.empty((m, ch), dtype=torch.bfloat16, device=dev)
-    partial = torch.empty((b, 11 * ch), dtype=torch.float32, device=dev)
+    partial = torch.empty((rows, 11 * ch), dtype=torch.float32, device=dev)
     lib = load_library()
     _count("dwconv_gelu_bwd")
     _check_launch(lib.ltd_dwconv_gelu_bwd(_ptr(da), _ptr(c), _ptr(h), _ptr(dw),
                                           _ptr(dhid), _ptr(partial), b, hw, ch,
-                                          _stream(dev)), "dwconv_gelu_bwd")
+                                          band, _stream(dev)), "dwconv_gelu_bwd")
     sums = colsum(partial).reshape(11, ch)
     return dhid, sums[:9], sums[9], sums[10]
 

@@ -9,8 +9,9 @@ carries over as it is:
     sd_512 = upsample_denoiser_params(denoiser.state_dict(), 32, 64, 2)
     Denoiser.from_config(DenoiserConfig(image_size=64, ...)).load_state_dict(sd_512)
 
-The fine-tune that follows it in the JAX package (`finetune_highres`)
-belongs to the hi-res training slice.
+`finetune_highres` is that upsample followed by `train.main` at the new
+size, warm-started from the result (the reference's 512 and 1024 px
+fine-tunes from the 256 px checkpoint).
 """
 
 from __future__ import annotations
@@ -42,8 +43,17 @@ def upsample_denoiser_params(state_dict: Dict[str, torch.Tensor],
     return out
 
 
-def finetune_highres(config, base_params, old_image_size: int):
-    raise NotImplementedError(
-        "finetune_highres is not ported yet: hi-res training (the attention "
-        "backward K4, K5's backward, remat, multires) is the hi-res "
-        "training slice (ROADMAP 1d)")
+def finetune_highres(config, base_state_dict: Dict[str, torch.Tensor],
+                     old_image_size: int, device):
+    """Upsample the positional table of a trained base model's state_dict
+    (`old_image_size`) to `config.denoiser_config.image_size` and run
+    `train.main` on `device` ("cuda" or "cpu", required) from it; returns
+    `train.main`'s result. As in the JAX package, schedule_shift="auto"
+    resolves to no shift here (the new size is the model's native one):
+    pass new / old size explicitly to train with the shift."""
+    from transformer_latent_diffusion_tpu_torch.train.train import main
+
+    den = config.denoiser_config
+    state_dict = upsample_denoiser_params(base_state_dict, old_image_size,
+                                          den.image_size, den.patch_size)
+    return main(config, device, init_state_dict=state_dict)

@@ -10,9 +10,17 @@ checkpoints, held-out validation loss, resume and graceful preemption.
 
 PyTorch runs eagerly, so the JAX package's one jitted step becomes a
 Python step over an `nn.Module` with float32 master weights computing in
-`compute_dtype`: on CUDA its decoder blocks run as the hand-written K2
-kernels (`ops/fused_layer_vjp.py`), and the eval grid samples through the
-K1 engine. The random draws come from a `torch.Generator` on the device,
+`compute_dtype`. On CUDA its decoder blocks take the hand-written kernels
+by the JAX package's gates: K2 (`ops/fused_layer_vjp.py`) on square grids
+of at most 256 tokens; beyond, flash attention with its backward (K3/K4,
+`ops/attention.py`) and, up to 1024 tokens, the sep-conv MLP's K5
+(`ops/fused_mlp_vjp.py`); per-block remat from 2048 tokens. Multires
+buckets (`DataConfig.extra_latent_paths`) interleave whole batches, and a
+bucket off the native grid trains the positional table through a
+differentiable bilinear resize inside the loss. The eval grid samples the
+EMA weights through the K1 engine on a native grid of at most 256 tokens,
+else through a Denoiser with flash attention only (the JAX package's
+`eval_model`). The random draws come from a `torch.Generator` on the device,
 reseeded per step from (seed, step); they do not reproduce the JAX
 package's threefry draws, so the loss is split into `sample_draws` and a
 pure `loss_from_draws`, through which a test feeds the JAX draws.
@@ -20,7 +28,6 @@ pure `loss_from_draws`, through which a test feeds the JAX draws.
 
 from __future__ import annotations
 
-import copy
 import math
 import os
 import signal
@@ -35,7 +42,10 @@ from transformer_latent_diffusion_tpu_torch.configs import (
     resolve_dtype,
 )
 from transformer_latent_diffusion_tpu_torch.data.loader import LatentBatcher
-from transformer_latent_diffusion_tpu_torch.models.denoiser import Denoiser
+from transformer_latent_diffusion_tpu_torch.models.denoiser import (
+    Denoiser,
+    resize_pos_embed,
+)
 from transformer_latent_diffusion_tpu_torch.models.fast_denoiser import (
     make_fused_apply,
 )
@@ -187,10 +197,12 @@ def clip_by_global_norm_(grads, max_norm: Optional[float]):
 
 
 def resolve_fused_flags(train_cfg, on_cuda: bool):
-    """(fused_layer, fused_mlp, fused_attn). None = auto: the fused layer
-    (K2) on CUDA, the plain autograd path on the CPU. On CUDA the port has
-    no switch off its kernels, so fused_layer_vjp=False raises there; the
-    component kernels K5 and K6 are not ported (check_train_config)."""
+    """(fused_layer, fused_mlp, fused_attn), the JAX package's defaults
+    (train.py:204-212) with CUDA for the TPU. None = auto: the fused layer
+    (K2) on CUDA, the plain autograd path on the CPU; the fused MLP (K5)
+    on CUDA where the fused layer is off. On CUDA the port has no switch
+    off its kernels, so fused_layer_vjp=False raises there; K6
+    (fused_attn_vjp) is not ported (check_train_config)."""
     fused_layer = (train_cfg.fused_layer_vjp
                    if train_cfg.fused_layer_vjp is not None else on_cuda)
     if on_cuda and not fused_layer:
@@ -198,23 +210,39 @@ def resolve_fused_flags(train_cfg, on_cuda: bool):
             "TrainConfig.fused_layer_vjp=False: the port has no switch off "
             "its kernels; on CUDA the decoder layers always run them (the "
             "plain versions serve the CPU only)")
-    return bool(fused_layer), bool(train_cfg.fused_mlp_vjp), \
-        bool(train_cfg.fused_attn_vjp)
+    fused_mlp = (train_cfg.fused_mlp_vjp
+                 if train_cfg.fused_mlp_vjp is not None
+                 else (on_cuda and not fused_layer))
+    return bool(fused_layer), bool(fused_mlp), bool(train_cfg.fused_attn_vjp)
 
 
 class DiffusionLoss:
     """The per-batch diffusion loss of `build_loss_fn`, in two parts:
     `sample_draws` (the random noise level, noise and label-dropout mask)
-    and the pure `loss_from_draws`; calling it runs both."""
+    and the pure `loss_from_draws`; calling it runs both.
+
+    image_size, patch_size: the model's native size. A batch on another
+    token grid adds the learned positional table bilinear-resized onto its
+    grid (differentiable: every bucket trains the one table), and
+    schedule_shift="auto" shifts by the batch's size over the native one
+    (1.0, the native bucket, is no shift), as the JAX package's
+    `_pos_override` and `_resolve_shift` do."""
 
     def __init__(self, train_cfg, vae_scale_factor: float,
-                 objective: str = "x0"):
+                 objective: str = "x0", image_size: Optional[int] = None,
+                 patch_size: Optional[int] = None):
         shift = train_cfg.schedule_shift
-        if shift is not None:
+        if shift == "auto":
+            if not image_size:
+                raise ValueError("schedule_shift='auto' needs the model's "
+                                 "native image_size; pass a float shift")
+        elif shift is not None:
             shift = float(shift)
             if shift <= 0.0:
-                raise ValueError(f"schedule_shift must be > 0, got {shift}")
-        self.shift = None if shift == 1.0 else shift
+                raise ValueError(f"schedule_shift must be > 0 or 'auto', "
+                                 f"got {shift}")
+        self.shift = shift
+        self.image_size, self.patch_size = image_size, patch_size
         if objective not in ("x0", "eps", "v"):
             raise ValueError(f"unknown objective {objective!r}")
         self.objective = objective
@@ -255,17 +283,37 @@ class DiffusionLoss:
             w = w * s.square()
         return w
 
+    def _resolve_shift(self, x) -> Optional[float]:
+        if self.shift is None:
+            return None
+        k = x.shape[-1] / self.image_size if self.shift == "auto" else self.shift
+        return None if k == 1.0 else k
+
+    def _pos_override(self, model, x):
+        """None on the native grid; else the master positional table
+        resized onto the batch's grid."""
+        if not (self.image_size and self.patch_size):
+            return None
+        grid = x.shape[-1] // self.patch_size
+        native = self.image_size // self.patch_size
+        if grid == native:
+            return None
+        return resize_pos_embed(model.denoiser_trans_block.pos_embed.weight,
+                                native, grid)
+
     def loss_from_draws(self, model, x, y, noise_level, noise, keep):
+        pos = self._pos_override(model, x)
         x = x / self.vae_scale_factor
-        if self.shift is not None:
-            k = self.shift
+        k = self._resolve_shift(x)
+        if k is not None:
             noise_level = k * noise_level / (1.0 + (k - 1.0) * noise_level)
         nl = noise_level[:, :, None, None]
         x_noisy = nl * noise + (1.0 - nl) * x
         target = (x if self.objective == "x0" else noise
                   if self.objective == "eps" else noise - x)
         label = y * keep.to(y.dtype)
-        pred = model(x_noisy, noise_level, label)
+        pred = (model(x_noisy, noise_level, label) if pos is None else
+                model(x_noisy, noise_level, label, pos_embed_override=pos))
         w = self._weight(noise_level.float())
         if w is None:
             return torch.mean((pred - target) ** 2)
@@ -278,9 +326,11 @@ class DiffusionLoss:
 
 def build_loss_fn(model, train_cfg, vae_scale_factor) -> DiffusionLoss:
     """The diffusion loss of the JAX package's build_loss_fn for `model`
-    (its `objective`), native grid only."""
+    (its `objective` and native size)."""
     return DiffusionLoss(train_cfg, vae_scale_factor,
-                         str(getattr(model, "objective", "x0")))
+                         str(getattr(model, "objective", "x0")),
+                         getattr(model, "image_size", None),
+                         getattr(model, "patch_size", None))
 
 
 def make_grads_of(loss_fn, accum: int = 1):
@@ -318,6 +368,22 @@ def train_step(state: Dict[str, Any], grads_of, train_cfg, x, y, generator):
     return loss, gnorm
 
 
+def _interleave_epochs(batchers):
+    """Whole batches round-robin across the resolution buckets until every
+    bucket's epoch is done (the JAX package's `_interleave_epochs`); one
+    batcher is its plain epoch."""
+    iters = [b.epoch() for b in batchers]
+    while iters:
+        alive = []
+        for it in iters:
+            try:
+                yield next(it)
+            except StopIteration:
+                continue
+            alive.append(it)
+        iters = alive
+
+
 def _state_dict(state) -> Dict[str, Any]:
     return {"params": state["model"].state_dict(),
             "ema_params": state["ema_model"].state_dict(),
@@ -348,6 +414,18 @@ def main(config: ModelConfig, device,
                             batch_size=train_config.batch_size,
                             seed=train_config.seed,
                             holdout=train_config.val_holdout)
+    # multires buckets: one batcher per extra dataset, whole batches
+    # interleaved so each keeps its static shape
+    extra_lat = tuple(dataconfig.extra_latent_paths or ())
+    extra_emb = tuple(dataconfig.extra_text_emb_paths or ())
+    if len(extra_lat) != len(extra_emb):
+        raise ValueError(f"extra_latent_paths ({len(extra_lat)}) and "
+                         f"extra_text_emb_paths ({len(extra_emb)}) must pair up")
+    batchers = [batcher] + [
+        LatentBatcher(lp, ep, batch_size=train_config.batch_size,
+                      seed=train_config.seed + 1 + i,
+                      holdout=train_config.val_holdout)
+        for i, (lp, ep) in enumerate(zip(extra_lat, extra_emb))]
     emb_val = np.load(dataconfig.val_path).astype(np.float32)
     in_ch = denoiser_config.input_channels or denoiser_config.n_channels
     if in_ch != denoiser_config.n_channels:
@@ -355,15 +433,28 @@ def main(config: ModelConfig, device,
                          f"{denoiser_config.n_channels} but outpaint=False")
 
     compute_dtype = resolve_dtype(train_config.compute_dtype)
-    fused_layer, _, _ = resolve_fused_flags(train_config, on_cuda)
+    fused_layer, fused_mlp, _ = resolve_fused_flags(train_config, on_cuda)
+    # remat's auto choice covers the largest bucket of the run
+    patch = denoiser_config.patch_size
+    max_tokens = max([(denoiser_config.image_size // patch) ** 2] + [
+        (b.latents.shape[-1] // patch) ** 2 for b in batchers[1:]])
+    remat = (train_config.remat if train_config.remat is not None
+             else max_tokens >= 2048)
     model = Denoiser.from_config(denoiser_config, dtype=compute_dtype,
-                                 fused_layer_vjp=fused_layer)
+                                 fused_layer_vjp=fused_layer,
+                                 use_pallas=on_cuda, fused_mlp_vjp=fused_mlp,
+                                 remat=remat)
     if init_state_dict is not None:
         model.load_state_dict(init_state_dict)
     else:
         init_random_weights_(model, train_config.seed)
     model.to(device).train()
-    ema_model = copy.deepcopy(model).requires_grad_(False).eval()
+    # the EMA weights live in the JAX package's eval_model: flash attention
+    # on CUDA, no training kernels (eval grid and validation loss only)
+    ema_model = Denoiser.from_config(denoiser_config, dtype=compute_dtype,
+                                     use_pallas=on_cuda)
+    ema_model.load_state_dict(model.state_dict())
+    ema_model.to(device).requires_grad_(False).eval()
     optimizer, scheduler = make_optimizer(train_config, model.parameters())
     state = {"model": model, "ema_model": ema_model, "optimizer": optimizer,
              "scheduler": scheduler, "step": 0}
@@ -413,12 +504,16 @@ def main(config: ModelConfig, device,
         return DiffusionGenerator(ema_model, vae=vae[0], fast_apply=engine,
                                   device=device)
 
-    val_set = None
+    # every bucket's held-out tail, one fixed-draw loss each on the EMA
+    # weights; `val_losses` is the native bucket's series
+    val_sets = []
     val_losses = []
     val_losses_by_size = {}
     if train_config.val_holdout > 0:
-        vx, vy = batcher.holdout_batch()
-        val_set = (torch.from_numpy(vx).to(device), torch.from_numpy(vy).to(device))
+        for b in batchers:
+            vx, vy = b.holdout_batch()
+            val_sets.append((int(vx.shape[-1]), torch.from_numpy(vx).to(device),
+                             torch.from_numpy(vy).to(device)))
         val_gen = torch.Generator(device=device)
 
     log(f"{count_parameters(model)} parameters")
@@ -432,7 +527,7 @@ def main(config: ModelConfig, device,
             if shutdown.requested:
                 break
             log(f"epoch: {epoch}")
-            for x_host, y_host in batcher.epoch():
+            for x_host, y_host in _interleave_epochs(batchers):
                 if shutdown.requested:
                     break
                 x = torch.from_numpy(x_host).to(device, non_blocking=True)
@@ -443,15 +538,18 @@ def main(config: ModelConfig, device,
                     out = eval_gen(get_diffuser(), emb_val,
                                    denoiser_config.image_size, eval_dir)
                     out.save(os.path.join(eval_dir, "img.jpg"))
-                    if val_set is not None:
+                    rec = []
+                    for bi, (size, vx, vy) in enumerate(val_sets):
                         val_gen.manual_seed(train_config.seed + 1_000_003)
                         with torch.no_grad():
-                            vl = float(loss_fn(ema_model, *val_set, val_gen))
-                        val_losses.append((step, vl))
-                        size = int(val_set[0].shape[-1])
+                            vl = float(loss_fn(ema_model, vx, vy, val_gen))
+                        if bi == 0:
+                            val_losses.append((step, vl))
+                            rec.append(f"val_loss {vl:.5f}")
                         val_losses_by_size.setdefault(size, []).append((step, vl))
-                        log(f"step {step} val_loss {vl:.5f} "
-                            f"val_loss/{size} {vl:.5f}")
+                        rec.append(f"val_loss/{size} {vl:.5f}")
+                    if rec:
+                        log(f"step {step} " + " ".join(rec))
                     if train_config.save_model and ckpt_mgr is not None:
                         ckpt_mgr.save(step, _state_dict(state))
 
