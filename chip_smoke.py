@@ -12,6 +12,12 @@ paths, each checked against plain PyTorch versions on the same inputs:
   flagship 101M denoiser, random weights from a seed), the HTTP service on
   a real socket, and the 256 px model sampled on a 32 x 32-token grid
   (resized positional table, the linen path with K3);
+- int8 serving (TPU kernel K7, the W8A8 decoder layer): its two kernels
+  (rowquant, gemm_i8) and the float32-out dwconv_gelu at the main path's
+  shapes, one int8-engine forward against the plain int8 stack and the
+  plain bf16 forward, the library entry point and the HTTP service on a
+  `quantize="int8"` deployment, and S1 (the MLP product pair at
+  scripts/microbench_int8.py's shapes, bf16 against W8A8);
 - hi-res serving (TPU kernels K3, flash attention, and K5's forward, the
   fused sep-conv MLP): each at the 512 px and 1024 px shapes (and a ragged
   400-token grid), one 512 px Denoiser forward with the kernels against
@@ -47,6 +53,7 @@ errors, times and bounds, and as the last line
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -77,6 +84,9 @@ TPU_K5 = "transformer_latent_diffusion_tpu/ops/fused_mlp_vjp.py:186"
 TPU_K4A = "transformer_latent_diffusion_tpu/ops/attention.py:247"
 TPU_K4B = "transformer_latent_diffusion_tpu/ops/attention.py:313"
 TPU_K5_BWD = "transformer_latent_diffusion_tpu/ops/fused_mlp_vjp.py:212"
+TPU_K7 = "transformer_latent_diffusion_tpu/ops/fused_stack_int8.py:132"
+# S1's x is (256, 256, 768): 65,536 rows through the MLP product pair
+S1_ROWS = 256 * 256
 # hi-res shapes: 512 px is a 32 x 32 grid (CFG doubles 32 images to 64),
 # 1024 px a 64 x 64 grid (CFG doubles 4 images to 8); a ragged 20 x 20 grid
 HR_HW, HR_B = 32, 64
@@ -102,6 +112,7 @@ MR_STEPS = 2  # multires: batches per bucket
 # operations over the peak rate of their type
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOP_S = 989e12
+INT8_TENSOR_OP_S = 1979e12
 F32_FLOP_S = 67e12
 # kernel vs plain version on the same inputs: rel-L2 and max-abs bounds
 # (max-abs relative to the plain output's largest magnitude). The two
@@ -122,6 +133,22 @@ ENGINE_REL_L2 = 0.03
 # plain one in bf16): measured 0.00996 on an H100 80GB HBM3 at 700 W
 # (random weights, batch 64); the bound leaves about 3x margin
 HIRES_MODEL_REL_L2 = 0.03
+# rowquant against rowquant_plain: the LayerNorm statistics are summed in
+# another order, so an int8 value may move by one, in at most this share
+ROWQUANT_FLIP_SHARE = 1e-3
+# gemm_i8 against gemm_i8_plain on the same int8 operands: integer sums
+# are exact and the float32 epilogue rounds at the same points, so only
+# this much of the output's scale is allowed
+GEMM_I8_MAX_ABS = 1e-5
+# one int8-engine forward, kernels vs the plain int8 stack on the card
+# (rel-L2): the attention kernels' one-step bf16 differences (as in the
+# bf16 engine) and rowquant's rare one-step flips, through 12 layers.
+# Measured 0.01412 on an H100 80GB HBM3 at 700 W (random flagship
+# weights, batch 64); the bound leaves about 3x margin
+INT8_ENGINE_REL_L2 = 0.04
+# the W8A8 forward against the plain bf16 forward: the gate of the JAX
+# package's int8 test (tests/test_fused_int8.py)
+INT8_COSINE = 0.995
 
 
 def log(msg: str) -> None:
@@ -434,14 +461,18 @@ def phase_engine(cfg):
     del model, prepared
 
 
-def phase_library(cfg):
+def phase_library(cfg, per_layer=None, tag="library"):
+    """The library entry point: a warm-up run, then N_IMGS x N_ITER DDIM
+    steps (CFG 6) with exact launch counts (`per_layer` per decoder layer
+    and call, K1's by default). Returns (transformer, launches, images/s)."""
     from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
     from transformer_latent_diffusion_tpu_torch.sampling import DiffusionTransformer
 
+    per_layer = per_layer or fs.LAUNCHES_PER_LAYER
     t0 = time.perf_counter()
     tr = DiffusionTransformer(cfg, device=DEVICE, seed=0)
     torch.cuda.synchronize()
-    log(f"[library] DiffusionTransformer built in {time.perf_counter() - t0:.1f} s")
+    log(f"[{tag}] DiffusionTransformer built in {time.perf_counter() - t0:.1f} s")
     latents = []
     tr.vae.post_quant_conv.register_forward_pre_hook(
         lambda mod, args: latents.append(args[0].detach()))
@@ -471,14 +502,14 @@ def phase_library(cfg):
         raise AssertionError("images are constant")
     calls = N_ITER  # n_iter - 1 update steps + the final denoise
     expect = _expect({k: v * cfg.denoiser_cfg.n_layers * calls
-                      for k, v in fs.LAUNCHES_PER_LAYER.items()})
-    log(f"[library] generate_array_from_text {N_IMGS} imgs x {N_ITER} DDIM steps: "
+                      for k, v in per_layer.items()})
+    log(f"[{tag}] generate_array_from_text {N_IMGS} imgs x {N_ITER} DDIM steps: "
         f"{wall:.3f} s ({N_IMGS / wall:.3f} imgs/s; warm-up run {warm:.1f} s); "
         f"launches { {k: v for k, v in launches.items() if v} } (expected "
         f"{ {k: v for k, v in expect.items() if v} }, no other kernel)")
     if launches != expect:
         raise AssertionError(f"kernel launches {launches} != expected {expect}")
-    return tr, launches
+    return tr, launches, N_IMGS / wall
 
 
 def phase_serving(service, tag="serving"):
@@ -572,6 +603,228 @@ def phase_resized_grid(tr):
         raise AssertionError(f"resized-grid images {tuple(img.shape)}")
     if launches != expect:
         raise AssertionError(f"resized-grid launches {launches} != {expect}")
+
+
+# ------------------------------ int8 serving (K7) ------------------------------
+
+
+def phase_int8_kernels():
+    """K7's kernels against their plain versions at the main path's shapes
+    (M = B*N = 16384 rows): rowquant with LN (K = 768) and without (the
+    GELU output, K = 3072), int8 values within one step; gemm_i8 at the
+    four product shapes on the same int8 operands as its plain version;
+    dwconv_gelu with its float32 output. Times per layer, bounds, and
+    torch._int_mm (int32 out, no epilogue) as gemm_i8's yardstick."""
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack_int8 as q8
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device="cpu").manual_seed(13)
+    f32 = torch.float32
+
+    def randn(*shape, std=1.0, dtype=f32):
+        return (torch.randn(*shape, generator=g) * std).to(dev, dtype)
+
+    m = B * N
+    x = randn(m, D)
+    ln = (1.0 + randn(D, std=0.1), randn(D, std=0.1))
+    act = torch.nn.functional.gelu(randn(m, HIDDEN))  # a GELU output's distribution
+    b1, b2 = randn(HIDDEN, std=0.1), randn(D, std=0.1)
+    worst = {}
+    for name, args in (("LN, K=768", (x, ln)), ("no LN, K=3072", (act, None))):
+        q, rs = q8.rowquant(*args)
+        qp, rsp = q8.rowquant_plain(*args)
+        diff = (q.int() - qp.int()).abs()
+        share = float((diff > 0).float().mean())
+        srel = float(((rs - rsp).abs() / rsp).max())
+        log(f"[int8-kernels] rowquant {name}: int8 max |diff| {int(diff.max())}, share "
+            f"differing {share:.2e} (bound {ROWQUANT_FLIP_SHARE}), scale max rel diff {srel:.2e}")
+        if int(diff.max()) > 1 or share > ROWQUANT_FLIP_SHARE or srel > 1e-6:
+            raise AssertionError(f"rowquant {name} disagrees with its plain version")
+        worst["rowquant"] = max(worst.get("rowquant", 0.0), float(diff.max()))
+    xq, rs = q8.rowquant_plain(x, ln)
+    aq, ars = q8.rowquant_plain(act)
+    # the four projections of a layer, quantized per output channel from bf16
+    w = {name: q8.colquant(randn(n, k, std=k ** -0.5, dtype=torch.bfloat16))
+         for name, (n, k) in {"qkv": (3 * D, D), "q": (D, D), "expand": (HIDDEN, D),
+                              "contract": (D, HIDDEN)}.items()}
+    products = {  # name: (A, row scales, kwargs)
+        "qkv": (xq, rs, {}), "q": (xq, rs, {}),
+        "expand": (xq, rs, {"bias": b1, "out_dtype": f32}),
+        "contract": (aq, ars, {"bias": b2, "residual": x})}
+
+    def run(fn, name, residual=None):
+        a, r, kw = products[name]
+        kw = dict(kw, residual=residual) if "residual" in kw else kw
+        return fn(a, r, *w[name], **kw)
+
+    for name in products:
+        got = run(q8.gemm_i8, name, x.clone())
+        want = run(q8.gemm_i8_plain, name, x)
+        err = float((got.float() - want.float()).abs().max())
+        rel = err / float(want.float().abs().max())
+        log(f"[int8-kernels] gemm_i8/{name} on the plain version's int8 operands: max-abs "
+            f"{err:.3e} ({rel:.2e} of max |ref|, bound {GEMM_I8_MAX_ABS})")
+        if not rel <= GEMM_I8_MAX_ABS:
+            raise AssertionError(f"gemm_i8/{name} disagrees with its plain version")
+        worst["gemm_i8"] = max(worst.get("gemm_i8", 0.0), err)
+    h = randn(m, HIDDEN)
+    dw, dwb = randn(9, HIDDEN, std=1 / 3, dtype=torch.bfloat16), randn(HIDDEN, std=0.1)
+    _check("dwconv_gelu float32 in and out", (fs.dwconv_gelu(h, dw, dwb, HW, out_dtype=f32),),
+           (fs.dwconv_gelu_plain(h, dw, dwb, HW, out_dtype=f32),), "int8-kernels")
+    torch.cuda.synchronize()
+
+    xr = x.clone()
+    layer = {  # name: (the kernels of one layer, their plain versions)
+        "rowquant": (lambda: [q8.rowquant(x, ln) for _ in range(3)] + [q8.rowquant(act)],
+                     lambda: [q8.rowquant_plain(x, ln) for _ in range(3)]
+                     + [q8.rowquant_plain(act)]),
+        "gemm_i8": (lambda: [run(q8.gemm_i8, k, xr) for k in products],
+                    lambda: [run(q8.gemm_i8_plain, k, x) for k in products])}
+    timing = time_against_plain(layer, "int8-kernels")
+    ops = {"qkv": (m, 3 * D, D), "q": (m, D, D), "expand": (m, HIDDEN, D),
+           "contract": (m, D, HIDDEN)}
+    lib = {}
+    for name, (mm, nn, kk) in ops.items():
+        ms = time_ms(lambda: run(q8.gemm_i8, name, xr))
+        a = products[name][0]
+        lib[name] = time_ms(lambda: torch._int_mm(a, w[name][0].t()))
+        log(f"[int8-kernels] gemm_i8/{name} ({mm}x{nn}x{kk}): {ms:.4f} ms, "
+            f"{2 * mm * nn * kk / ms / 1e9:.1f} TOP/s; torch._int_mm {lib[name]:.4f} ms")
+    for name, args in (("LN, K=768", (x, ln)), ("no LN, K=3072", (act, None))):
+        log(f"[int8-kernels] rowquant {name}: {time_ms(lambda: q8.rowquant(*args)):.4f} ms")
+    log(f"[int8-kernels] dwconv_gelu float32 out: "
+        f"{time_ms(lambda: fs.dwconv_gelu(h, dw, dwb, HW, out_dtype=f32)):.4f} ms (bf16 out "
+        f"{time_ms(lambda: fs.dwconv_gelu(h, dw, dwb, HW)):.4f} ms)")
+    library = {"gemm_i8": time_ms(lambda: [torch._int_mm(products[k][0], w[k][0].t())
+                                           for k in products]),
+               "rowquant": None}  # no one call: a LayerNorm, a row max, a division, a round
+    # least time per layer: each input read once, each output written once
+    gbytes = sum(mm * kk + nn * kk + 4 * (mm + nn) for mm, nn, kk in ops.values()) \
+        + m * 3 * D * 2 + m * D * 2 + (m * HIDDEN * 4 + HIDDEN * 4) + (m * D * 8 + D * 4)
+    gops = sum(2 * mm * nn * kk for mm, nn, kk in ops.values())
+    rbytes = 3 * (m * D * 5 + m * 4 + 2 * D * 4) + m * HIDDEN * 5 + m * 4
+    bounds = {"gemm_i8": bound(gbytes, gops, INT8_TENSOR_OP_S),
+              "rowquant": bound(rbytes, 3 * 12 * m * D + 4 * m * HIDDEN, F32_FLOP_S)}
+    log(f"[int8-kernels] per layer: gemm_i8 {timing['gemm_i8'][0]:.4f} ms (bound "
+        f"{bounds['gemm_i8'][0]:.4f} {bounds['gemm_i8'][1]}, torch._int_mm "
+        f"{library['gemm_i8']:.4f}); rowquant {timing['rowquant'][0]:.4f} ms (bound "
+        f"{bounds['rowquant'][0]:.4f} {bounds['rowquant'][1]})")
+    del x, act, h, xq, aq, xr
+    torch.cuda.empty_cache()
+    return worst, timing, library, bounds
+
+
+def phase_int8_engine(cfg8):
+    """One int8-engine forward at batch B against the plain int8 stack on
+    the card (the same engine with every stage's plain version) and the
+    plain bf16 Denoiser; its launches, its time beside the bf16 engine's,
+    and its device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from transformer_latent_diffusion_tpu_torch.models.denoiser import Denoiser
+    from transformer_latent_diffusion_tpu_torch.models.fast_denoiser import make_fused_apply
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack_int8 as q8
+    from transformer_latent_diffusion_tpu_torch.utils.common import init_random_weights_
+
+    dev = torch.device(DEVICE)
+    den = cfg8.denoiser_cfg
+    model = Denoiser.from_config(den, dtype=torch.bfloat16)
+    init_random_weights_(model, 0)
+    model.to(dev).eval()
+    g = torch.Generator(device="cpu").manual_seed(1)
+    x = torch.randn(B, 4, den.image_size, den.image_size, generator=g).to(dev)
+    noise = torch.full((B, 1), 0.5, device=dev)
+    label = torch.randn(B, den.text_emb_size, generator=g).to(dev)
+    engine = make_fused_apply(den, compute_dtype=torch.bfloat16, quantize=cfg8.quantize)
+    bf16 = make_fused_apply(den, compute_dtype=torch.bfloat16)
+    sd = model.state_dict()
+    with torch.no_grad():
+        prepared, prepared_bf16 = engine.prepare(sd), bf16.prepare(sd)
+        _reset_counts()
+        out = engine.apply_prepared(prepared, x, noise, label)
+        launches = {k: v for k, v in _counts().items() if v}
+        tokens, cond, h, w = engine._prologue(sd, x, noise, label)
+        for layer in prepared["layers"]:
+            tokens = q8.fused_layer_stack_int8_plain(tokens, cond, layer, h, engine.n_heads)
+        plain = engine._epilogue(sd, tokens, h, w)
+        ref = model(x, noise, label)
+    torch.cuda.synchronize()
+    expect = {k: v * den.n_layers for k, v in q8.LAUNCHES_PER_LAYER.items()}
+    r = rel_l2(out, plain)
+    cos = float(torch.nn.functional.cosine_similarity(
+        out.double().flatten(), ref.double().flatten(), dim=0))
+    r_ref = rel_l2(out, ref)
+    log(f"[int8-engine] W8A8 engine vs the plain int8 stack, batch {B}: rel-L2 {r:.5f} "
+        f"(bound {INT8_ENGINE_REL_L2}); vs the plain bf16 forward: cos {cos:.6f} (bound "
+        f"{INT8_COSINE}), rel-L2 {r_ref:.5f}; launches {launches} (expected {expect})")
+    if not (torch.isfinite(out).all() and r < INT8_ENGINE_REL_L2 and cos > INT8_COSINE):
+        raise AssertionError("the int8 engine disagrees with its plain version or the "
+                             "bf16 forward")
+    if launches != expect:
+        raise AssertionError(f"int8 engine launches {launches} != {expect}")
+    with torch.no_grad():
+        fwd8 = lambda: engine.apply_prepared(prepared, x, noise, label)  # noqa: E731
+        fwd16 = lambda: bf16.apply_prepared(prepared_bf16, x, noise, label)  # noqa: E731
+        t8 = [time_ms(fwd8, 5, 2)]
+        t16 = [time_ms(fwd16, 5, 2), time_ms(fwd16, 5, 2)]
+        t8.append(time_ms(fwd8, 5, 2))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fwd8()
+            torch.cuda.synchronize()
+    busy, by_kernel = _device_time(prof)
+    log(f"[int8-engine] one forward at batch {B}: W8A8 {sum(t8) / 2:.3f} ms, bf16 engine "
+        f"{sum(t16) / 2:.3f} ms (runs {t8}, {t16}); profiled W8A8 forward: device busy "
+        f"{busy:.3f} ms; by kernel, us: {by_kernel}")
+    del model, prepared, prepared_bf16
+
+
+def phase_s1():
+    """S1 (scripts/microbench_int8.py): the MLP product pair y = (x W1) W2
+    at its shapes (x 65,536 x 768, W1 768 -> 3072, W2 3072 -> 768), bf16
+    (ln_gemm twice, the hidden state bf16) against W8A8 (rowquant, gemm_i8
+    with a float32 hidden state, rowquant, gemm_i8), in TFLOP/s; the W8A8
+    result against its plain version and against the bf16 one."""
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack_int8 as q8
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device="cpu").manual_seed(14)
+    m, f32 = S1_ROWS, torch.float32
+    x = (torch.randn(m, D, generator=g) * 0.1).to(dev)
+    w1 = (torch.randn(HIDDEN, D, generator=g) * 0.02).to(dev, torch.bfloat16)
+    w2 = (torch.randn(D, HIDDEN, generator=g) * 0.02).to(dev, torch.bfloat16)
+    (w1q, s1), (w2q, s2) = q8.colquant(w1), q8.colquant(w2)
+    xb = x.to(torch.bfloat16)
+
+    def w8a8(quant, qmm):
+        xq, rs = quant(x)
+        hq, rs2 = quant(qmm(xq, rs, w1q, s1, out_dtype=f32))
+        return qmm(hq, rs2, w2q, s2)
+
+    with torch.no_grad():
+        got = w8a8(q8.rowquant, q8.gemm_i8)
+        want = w8a8(q8.rowquant_plain, q8.gemm_i8_plain)
+        ybf = fs.ln_gemm(fs.ln_gemm(xb, w1), w2)
+        torch.cuda.synchronize()
+        r, r_bf = rel_l2(got.float(), want.float()), rel_l2(got.float(), ybf.float())
+        log(f"[s1] W8A8 pair, kernels vs plain: rel-L2 {r:.2e} (bound {KERNEL_REL_L2}); "
+            f"W8A8 vs bf16: rel-L2 {r_bf:.2e}")
+        if not (torch.isfinite(got).all() and r < KERNEL_REL_L2):
+            raise AssertionError("S1's W8A8 pair disagrees with its plain version")
+        timing = time_against_plain({"s1 W8A8": (lambda: w8a8(q8.rowquant, q8.gemm_i8),
+                                                 lambda: w8a8(q8.rowquant_plain,
+                                                              q8.gemm_i8_plain))}, "s1")
+        t8 = timing["s1 W8A8"][0]
+        t16 = [time_ms(lambda: fs.ln_gemm(fs.ln_gemm(xb, w1), w2)) for _ in range(2)]
+    flops = 4 * m * D * HIDDEN
+    bnd = bound(m * D * 4 + 2 * HIDDEN * D + 4 * (HIDDEN + D) + m * D * 2, flops,
+                INT8_TENSOR_OP_S)
+    log(f"[s1] MLP pair at {m} rows: W8A8 {t8:.4f} ms ({flops / t8 / 1e9:.1f} TOP/s, bound "
+        f"{bnd[0]:.4f} ms {bnd[1]}), bf16 {sum(t16) / 2:.4f} ms "
+        f"({flops / (sum(t16) / 2) / 1e9:.1f} TFLOP/s; runs {t16})")
+    del x, xb, got, want, ybf
+    torch.cuda.empty_cache()
 
 
 # ------------------------------ hi-res serving (K3, K5) ------------------------------
@@ -996,8 +1249,9 @@ def _count_modules():
     from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
     from transformer_latent_diffusion_tpu_torch.ops import fused_mlp_vjp as fm
     from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack_int8 as q8
 
-    return fs, lv, att, fm
+    return fs, lv, att, fm, q8
 
 
 def _reset_counts():
@@ -1350,10 +1604,14 @@ def phase_hires_train_kernels():
     o, lse = att._flash_forward(q, k, v, HEADS, with_lse=True)
     ms = time_ms(lambda: att.flash_attention_bwd(q, k, v, gr, HEADS, o=o, lse=lse), 10, 2)
     bnd = k4_bound(XT_B, XR_N)
+    hs = [att._heads(t_, HEADS).contiguous().requires_grad_(True) for t_ in (q, k, v)]
+    out = F.scaled_dot_product_attention(*hs)
+    sdpa = time_ms(lambda: torch.autograd.grad(out, hs, att._heads(gr, HEADS),
+                                               retain_graph=True), 10, 2)
     log(f"[hires-train-kernels] flash_attention_bwd B={XT_B} N={XR_N} (k4b, the 1024 px "
         f"step's shape): {ms:.4f} ms, {10 * XT_B * HEADS * XR_N ** 2 * 64 / ms / 1e9:.1f} "
-        f"TFLOP/s; bound {bnd[0]:.4f} ms ({bnd[1]})")
-    del qkv, q, k, v, gr, o, lse
+        f"TFLOP/s; autograd through SDPA {sdpa:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]})")
+    del qkv, q, k, v, gr, o, lse, hs, out
     torch.cuda.empty_cache()
 
     m = HT_B * HR_N
@@ -1681,13 +1939,38 @@ def main():
     cfg = flagship_configs()
     phase_engine(cfg)
     torch.cuda.empty_cache()
-    tr, launches = phase_library(cfg)
+    tr, launches, ips = phase_library(cfg)
     from transformer_latent_diffusion_tpu_torch.serve.app import GenerationService
 
     phase_serving(GenerationService(transformer=tr))
     phase_resized_grid(tr)
     del tr
     torch.cuda.empty_cache()
+
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack_int8 as q8
+
+    i_worst, i_timing, i_library, i_bounds = phase_int8_kernels()
+    cfg8 = dataclasses.replace(cfg, quantize="int8")
+    phase_int8_engine(cfg8)
+    torch.cuda.empty_cache()
+    tr, i_launches, ips8 = phase_library(cfg8, q8.LAUNCHES_PER_LAYER, "int8-library")
+    log(f"[int8-library] {ips8:.3f} images/s (W8A8) against {ips:.3f} (bf16 engine, the "
+        f"library phase above)")
+    del tr
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:  # as `serve --config ltd.json` loads it
+        from transformer_latent_diffusion_tpu_torch.configs import (
+            config_to_json,
+            ltd_config_from_json,
+        )
+
+        path = os.path.join(tmp, "ltd.json")
+        with open(path, "w") as f:
+            f.write(config_to_json(cfg8))
+        phase_serving(GenerationService(cfg=ltd_config_from_json(path), device=DEVICE),
+                      "int8-serving")
+    torch.cuda.empty_cache()
+    phase_s1()
 
     h_worst, h_timing, h_library, h_bounds = phase_hires_kernels()
     torch.cuda.empty_cache()
@@ -1733,7 +2016,8 @@ def main():
                "fused_mlp_sepconv": "ops/fused_mlp_vjp.py",
                "flash_attention_bwd": "csrc/flash_attention_bwd.cu",
                # composes the K1/K2 kernels and dwconv_gelu_bwd.cu's row-band body
-               "fused_mlp_sepconv_bwd": "ops/fused_mlp_vjp.py"}
+               "fused_mlp_sepconv_bwd": "ops/fused_mlp_vjp.py",
+               "rowquant": "csrc/rowquant.cu", "gemm_i8": "csrc/gemm_i8.cu"}
     kernels = []
     for names, tpu, counts, err, tim, lib, bnd in (
             (fs.KERNELS, TPU_KERNEL, launches, worst, timing, library, bounds),
@@ -1741,7 +2025,8 @@ def main():
             (("flash_attention",), TPU_K3, h_launches, h_worst, h_timing, h_library,
              h_bounds),
             (("fused_mlp_sepconv",), TPU_K5, h_launches, h_worst, h_timing, h_library,
-             h_bounds)):
+             h_bounds),
+            (q8.KERNELS, TPU_K7, i_launches, i_worst, i_timing, i_library, i_bounds)):
         for name in names:
             kernels.append({
                 "name": name, "route": "cuda", "source": f"{port}/{sources[name]}",

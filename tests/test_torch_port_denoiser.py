@@ -182,8 +182,6 @@ def test_fused_engine_rounds_between_layers(tiny):
 
 def test_engine_options_not_ported_raise(tiny):
     cfg = port_configs.DenoiserConfig()
-    with pytest.raises(NotImplementedError, match="K7"):
-        make_fused_apply(cfg, quantize="int8")
     engine = make_fused_apply(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.apply_prepared_cached(None, None, None, None, None, True)

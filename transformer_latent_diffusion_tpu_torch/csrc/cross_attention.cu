@@ -24,6 +24,11 @@
 // the normalised, scaled, shifted row rounded to bf16: the A operand of the
 // expand product, which can then stream bf16 rows instead of normalising
 // float32 ones per output tile.
+//
+// The W8A8 engine (TPU kernel
+// transformer_latent_diffusion_tpu/ops/fused_stack_int8.py, :91) quantizes
+// LN3's float32 output, which rowquant.cu takes from the updated residual:
+// there xn is null and the kernel stops after the residual add.
 
 #include "common.cuh"
 
@@ -87,6 +92,7 @@ cross_attention_kernel(const bf16* __restrict__ qc, const bf16* __restrict__ kv,
     }
   }
 
+  if (xn == nullptr) return;
   // LN3 of the updated row: float32 mean, then mean of squared deviations
   const float mean = warp_sum(sum) / D;
   float sq = 0.f;
@@ -116,8 +122,8 @@ cross_attention_kernel(const bf16* __restrict__ qc, const bf16* __restrict__ kv,
 // qc: (B*N, D) bf16 queries. kv: (B*2, 2D) bf16, row 2b+j = [k | v] of
 // conditioning token j of batch element b. resid: (B*N, D) float32, updated
 // in place. ln_s, ln_b: (D,) float32, the LayerNorm after the residual add;
-// xn: (B*N, D) bf16, the normalised rows. Requires D == n_heads * 64 and
-// n_heads <= 12.
+// xn: (B*N, D) bf16, the normalised rows, or null (then ln_s and ln_b are
+// not read). Requires D == n_heads * 64 and n_heads <= 12.
 LTD_API int ltd_cross_attention(const void* qc, const void* kv, float* resid, const float* ln_s,
                                 const float* ln_b, void* xn, int B, int N, int D, int n_heads,
                                 void* stream) {

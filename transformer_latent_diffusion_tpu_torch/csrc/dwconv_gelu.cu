@@ -28,6 +28,12 @@
 // 83 KB) and optionally also stores c (float32), which the backward reads
 // for GELU'(c).
 //
+// The W8A8 engine (TPU kernel
+// transformer_latent_diffusion_tpu/ops/fused_stack_int8.py::_layer_stack_int8_kernel,
+// :92-99) feeds the float32 hidden state and quantizes the GELU output in
+// float32 (ops/fused_stack_int8.py: rowquant.cu reads it), so `out_f32`
+// stores the GELU output as float32, unrounded (twice the bytes out).
+//
 // Two bodies, one per template flag. The whole-grid body (above; one block
 // per (image, 64 channels)) holds a (hw+2)^2 x 64 slab: bf16 up to hw = 40,
 // float32 up to hw = 28 within the 227 KB a block may use. The row-band
@@ -90,8 +96,8 @@ __device__ __forceinline__ void unpack8(const Vec8<float>& v, float* f) {
 template <typename T, bool BAND>
 __global__ void __launch_bounds__(THREADS)
 dwconv_gelu_kernel(const T* __restrict__ h, const bf16* __restrict__ dw,
-                   const float* __restrict__ dwb, bf16* __restrict__ out,
-                   float* __restrict__ c_out, int hw, int C, int band) {
+                   const float* __restrict__ dwb, void* __restrict__ out,
+                   float* __restrict__ c_out, int hw, int C, int band, bool out_f32) {
   extern __shared__ __align__(16) unsigned char smem[];
   Vec8<T>* tile = reinterpret_cast<Vec8<T>*>(smem);  // [(rows+2) * (hw+2)][GROUPS]
   const int pw = hw + 2;
@@ -101,7 +107,6 @@ dwconv_gelu_kernel(const T* __restrict__ h, const bf16* __restrict__ dw,
   const int r0 = BAND ? blockIdx.y * band : 0;
   const int rows = BAND ? min(band, hw - r0) : hw;
   const T* hb = h + b * hw * hw * C + c0;
-  bf16* ob = out + b * hw * hw * C + c0;
   const int tid = threadIdx.x;
 
   for (int idx = tid; idx < (rows + 2) * pw * GROUPS; idx += THREADS) {
@@ -151,9 +156,16 @@ dwconv_gelu_kernel(const T* __restrict__ h, const bf16* __restrict__ dw,
       g[e] = 0.5f * x[e] * (1.f + erff(x[e] * 0.70710678118654752f));
     }
     const size_t pix = static_cast<size_t>(r0) * hw + p;  // the pixel's index in the image
-    *reinterpret_cast<uint4*>(ob + pix * C + grp * VEC) = pack8_bf16(g);
+    const size_t at = (b * hw * hw + pix) * C + c0 + grp * VEC;
+    if (out_f32) {
+      float4* op = reinterpret_cast<float4*>(static_cast<float*>(out) + at);
+      op[0] = make_float4(g[0], g[1], g[2], g[3]);
+      op[1] = make_float4(g[4], g[5], g[6], g[7]);
+    } else {
+      *reinterpret_cast<uint4*>(static_cast<bf16*>(out) + at) = pack8_bf16(g);
+    }
     if (c_out != nullptr) {
-      float4* cp = reinterpret_cast<float4*>(c_out + (b * hw * hw + pix) * C + c0 + grp * VEC);
+      float4* cp = reinterpret_cast<float4*>(c_out + at);
       cp[0] = make_float4(x[0], x[1], x[2], x[3]);
       cp[1] = make_float4(x[4], x[5], x[6], x[7]);
     }
@@ -162,7 +174,7 @@ dwconv_gelu_kernel(const T* __restrict__ h, const bf16* __restrict__ dw,
 
 template <typename T, bool BAND>
 int launch(const void* h, const void* dw, const float* dwb, void* out, float* c_out, int B, int hw,
-           int C, int band, cudaStream_t s) {
+           int C, int band, bool out_f32, cudaStream_t s) {
   const size_t smem = smem_bytes<T>(BAND ? band : hw, hw);
   cudaError_t err = cudaFuncSetAttribute(dwconv_gelu_kernel<T, BAND>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -170,27 +182,29 @@ int launch(const void* h, const void* dw, const float* dwb, void* out, float* c_
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid = BAND ? dim3(C / CHUNK, (hw + band - 1) / band, B) : dim3(C / CHUNK, B);
   dwconv_gelu_kernel<T, BAND><<<grid, THREADS, smem, s>>>(
-      static_cast<const T*>(h), static_cast<const bf16*>(dw), dwb, static_cast<bf16*>(out), c_out,
-      hw, C, band);
+      static_cast<const T*>(h), static_cast<const bf16*>(dw), dwb, out, c_out, hw, C, band,
+      out_f32);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // h: (B*hw*hw, C) token rows of a row-major hw x hw grid, float32 when
-// h_f32 is non-zero, else bf16. out: the same rows, bf16. c_out: null, or
+// h_f32 is non-zero, else bf16. out: the same rows, float32 when out_f32
+// is non-zero, else bf16. c_out: null, or
 // (B*hw*hw, C) float32 for the pre-GELU values. dw: (9, C) bf16 taps, tap
 // di*3+dj. dwb: (C,) float32. band: 0 for the whole-grid body, else the
 // grid rows of each block of the row-band body. Requires C % 64 == 0 and
 // the body's slab within 227 KB (see the header).
 LTD_API int ltd_dwconv_gelu(const void* h, const void* dw, const float* dwb, void* out,
-                            float* c_out, int B, int hw, int C, int h_f32, int band,
-                            void* stream) {
+                            float* c_out, int B, int hw, int C, int h_f32, int out_f32,
+                            int band, void* stream) {
   if (C % CHUNK || band < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool of = out_f32 != 0;
   if (band > 0)
-    return h_f32 ? launch<float, true>(h, dw, dwb, out, c_out, B, hw, C, band, s)
-                 : launch<bf16, true>(h, dw, dwb, out, c_out, B, hw, C, band, s);
-  return h_f32 ? launch<float, false>(h, dw, dwb, out, c_out, B, hw, C, 0, s)
-               : launch<bf16, false>(h, dw, dwb, out, c_out, B, hw, C, 0, s);
+    return h_f32 ? launch<float, true>(h, dw, dwb, out, c_out, B, hw, C, band, of, s)
+                 : launch<bf16, true>(h, dw, dwb, out, c_out, B, hw, C, band, of, s);
+  return h_f32 ? launch<float, false>(h, dw, dwb, out, c_out, B, hw, C, 0, of, s)
+               : launch<bf16, false>(h, dw, dwb, out, c_out, B, hw, C, 0, of, s);
 }

@@ -7,7 +7,9 @@ embeddings, patchify, embedding projections, positional table) and the
 epilogue (out projection, unpatchify) are plain PyTorch, as the JAX
 engine leaves them to XLA; the decoder layers run through
 `ops.fused_stack.fused_layer_stack`, which on CUDA tensors is the four
-hand-written kernels and on CPU tensors their plain versions.
+hand-written kernels and on CPU tensors their plain versions, or, with
+`quantize="int8"`, through the W8A8 stack
+`ops.fused_stack_int8.fused_layer_stack_int8` (TPU kernel K7).
 
 `prepare(params)` packs the per-layer weights once per generation, outside
 the sampling loop; `apply_prepared(...)` runs one forward. Numerics:
@@ -34,9 +36,12 @@ from transformer_latent_diffusion_tpu_torch.ops.fused_stack import (
     fused_layer_stack,
     pack_layer_stack,
 )
+from transformer_latent_diffusion_tpu_torch.ops.fused_stack_int8 import (
+    fused_layer_stack_int8,
+    pack_layer_stack_int8,
+)
 
-_INT8_TODO = ("quantize='int8' (the W8A8 engine, kernel K7) is not ported "
-              "yet (ROADMAP, TPU kernels still to port: K7)")
+QUANTIZE_MODES = (None, "int8")
 
 
 def _ln(x, params, name):
@@ -57,26 +62,31 @@ def _dense(x, params, name, dtype):
 class FusedEngine:
     """Callable engine with a hoistable weight-packing stage.
 
-    quantize: None (bf16 weights and activations). "int8" is the JAX
-    package's opt-in W8A8 engine and is not ported yet."""
+    quantize: None (weights and activations in `compute_dtype`) or
+    "int8", the JAX package's opt-in W8A8 engine: the QKV, cross-attention
+    Q, expand and contract products in int8 with per-row activation and
+    per-output-channel weight scales (`ops/fused_stack_int8.py`)."""
 
     def __init__(self, cfg, compute_dtype=torch.bfloat16,
                  quantize: str | None = None):
-        if quantize == "int8":
-            raise NotImplementedError(_INT8_TODO)
-        if quantize is not None:
+        if quantize not in QUANTIZE_MODES:
             raise ValueError(f"unknown quantize mode: {quantize!r}")
         self.cfg = cfg
         self.dtype = compute_dtype
+        self.quantize = quantize
         self.n_heads = cfg.embed_dim // 64
+        int8 = quantize == "int8"
+        self._pack = pack_layer_stack_int8 if int8 else pack_layer_stack
+        self._stack = fused_layer_stack_int8 if int8 else fused_layer_stack
 
     def prepare(self, params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         """Pack each layer's weights (once, outside the sampling loop).
         params: a `Denoiser` state_dict. One `fused_layer_stack` call per
         layer, as the JAX engine runs its kernel: the residual is float32
         within a call and rounded to `compute_dtype` at its end, so this
-        keeps the JAX engine's rounding between layers."""
-        layers = [pack_layer_stack(params, [i], self.dtype)
+        keeps the JAX engine's rounding between layers. With
+        quantize="int8" the four large projections are quantized here."""
+        layers = [self._pack(params, [i], self.dtype)
                   for i in range(self.cfg.n_layers)]
         return {"params": params, "layers": layers}
 
@@ -114,8 +124,8 @@ class FusedEngine:
         params = prepared["params"]
         tokens, cond, h, w = self._prologue(params, x, noise_level, label)
         for layer in prepared["layers"]:
-            tokens = fused_layer_stack(tokens, cond, layer, hw=h,
-                                       n_heads=self.n_heads)
+            tokens = self._stack(tokens, cond, layer, hw=h,
+                                 n_heads=self.n_heads)
         return self._epilogue(params, tokens, h, w)
 
     def apply_prepared_cached(self, prepared, x, noise_level, label, delta,

@@ -32,7 +32,7 @@ SIGNATURES = {
     "ltd_ln_gemm": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ltd_self_attention": (_P, _P, _I, _I, _I, _I, _P),
     "ltd_cross_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "ltd_dwconv_gelu": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "ltd_dwconv_gelu": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "ltd_weight_grad": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "ltd_colsum": (_P, _P, _I, _I, _I, _P),
     "ltd_layernorm_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
@@ -45,6 +45,8 @@ SIGNATURES = {
                                    _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "ltd_flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _I, _P),
+    "ltd_rowquant": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "ltd_gemm_i8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lib = None

@@ -39,7 +39,10 @@ float32 hidden state, and the backward's dX = dY W products),
 `dwconv_gelu` on a float32 hidden state with `return_c=True` (also the
 float32 pre-GELU values). The hi-res sep-conv MLP (`ops/fused_mlp_vjp.py`,
 TPU kernel K5's forward) runs `dwconv_gelu` on a float32 hidden state at
-hw = 32, which takes its row-band body (`dwconv_gelu_body`).
+hw = 32, which takes its row-band body (`dwconv_gelu_body`). The W8A8
+stack (`ops/fused_stack_int8.py`, TPU kernel K7) runs `cross_attention`
+without its LN3 output (`ln=None`) and `dwconv_gelu` with a float32
+output (`out_dtype=torch.float32`).
 """
 
 from __future__ import annotations
@@ -126,9 +129,10 @@ def self_attention_plain(qkv, residual, n_heads: int, n_tokens: int):
 
 def cross_attention_plain(qc, kv, residual, ln, n_heads: int, n_tokens: int):
     """(x, xn): x = residual + 2-key softmax attention of qc against the
-    conditioning K/V, and xn = LN(x) rounded to qc's dtype.
+    conditioning K/V, and xn = LN(x) rounded to qc's dtype (None when ln
+    is None, as the W8A8 stack asks).
     qc: (B*N, D); kv: (B*2, 2D) rows [k | v]; residual float32;
-    ln: (scale, shift) float32."""
+    ln: (scale, shift) float32, or None."""
     m, d = qc.shape
     b, dh = m // n_tokens, d // n_heads
     q = qc.reshape(b, n_tokens, n_heads, dh).transpose(1, 2).float()
@@ -137,14 +141,14 @@ def cross_attention_plain(qc, kv, residual, ln, n_heads: int, n_tokens: int):
     s = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(dh))
     o = _softmax_pv(s, v, qc.dtype)
     x = residual + o.transpose(1, 2).reshape(m, d)
-    return x, _layer_norm_plain(x, ln).to(qc.dtype)
+    return x, None if ln is None else _layer_norm_plain(x, ln).to(qc.dtype)
 
 
-def dwconv_gelu_plain(h, dw, dwb, hw: int, return_c=False):
+def dwconv_gelu_plain(h, dw, dwb, hw: int, return_c=False, out_dtype=None):
     """GELU(depthwise3x3(h) + dwb) on the hw x hw token grid, in float32,
-    summed in the TPU kernel's order, rounded to dw.dtype. h: (B*hw*hw, C);
-    dw: (9, C) taps di*3+dj; dwb: (C,) float32. return_c: also return the
-    float32 pre-GELU values c."""
+    summed in the TPU kernel's order, rounded to `out_dtype` (default
+    dw.dtype). h: (B*hw*hw, C); dw: (9, C) taps di*3+dj; dwb: (C,) float32.
+    return_c: also return the float32 pre-GELU values c."""
     m, c = h.shape
     g = h.float().reshape(m // (hw * hw), hw, hw, c)
     w = dw.float()
@@ -155,7 +159,7 @@ def dwconv_gelu_plain(h, dw, dwb, hw: int, return_c=False):
            + F.pad(zs[2], (0, 0, 1, 1))[:, :, 2:hw + 2])
     acc = acc + dwb.reshape(-1)
     act = 0.5 * acc * (1.0 + torch.erf(acc * (1.0 / math.sqrt(2.0))))
-    act = act.reshape(m, c).to(dw.dtype)
+    act = act.reshape(m, c).to(out_dtype or dw.dtype)
     return (act, acc.reshape(m, c)) if return_c else act
 
 
@@ -268,24 +272,26 @@ def self_attention(qkv, residual, n_heads: int, n_tokens: int):
 
 def cross_attention(qc, kv, residual, ln, n_heads: int, n_tokens: int):
     """Kernel wrapper of `cross_attention_plain`; on CUDA it updates
-    `residual` in place and returns it with the new bf16 `xn`. Needs head
-    dim 64 and at most 12 heads."""
+    `residual` in place and returns it with the new bf16 `xn` (None, and
+    no LayerNorm, when ln is None). Needs head dim 64 and at most 12
+    heads."""
     if qc.device.type == "cpu":
         return cross_attention_plain(qc, kv, residual, ln, n_heads, n_tokens)
-    scale, shift = ln
-    dev = _on_cuda("cross_attention", qc, kv, residual, scale, shift)
+    scale, shift = ln if ln is not None else (None, None)
+    lnp = [t for t in (scale, shift) if t is not None]
+    dev = _on_cuda("cross_attention", qc, kv, residual, *lnp)
     m, d = qc.shape
     b = m // n_tokens
     _require(qc.dtype == torch.bfloat16 and kv.dtype == torch.bfloat16
-             and residual.dtype == torch.float32 and scale.dtype == torch.float32
-             and shift.dtype == torch.float32,
-             "cross_attention: qc and kv bf16; residual and ln float32")
+             and residual.dtype == torch.float32
+             and all(t.dtype == torch.float32 and t.numel() == d for t in lnp),
+             "cross_attention: qc and kv bf16; residual and ln (D,) float32")
     _require(d == 64 * n_heads and n_heads <= 12 and m == b * n_tokens
-             and kv.shape == (2 * b, 2 * d) and residual.shape == (m, d)
-             and scale.numel() == d and shift.numel() == d,
+             and kv.shape == (2 * b, 2 * d) and residual.shape == (m, d),
              "cross_attention: needs head dim 64, <= 12 heads, kv (2B, 2D), "
-             "residual (B*N, D), ln (D,)")
-    xn = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
+             "residual (B*N, D)")
+    xn = (torch.empty((m, d), dtype=torch.bfloat16, device=dev)
+          if ln is not None else None)
     lib = load_library()
     LAUNCHES["cross_attention"] += 1
     err = lib.ltd_cross_attention(_ptr(qc), _ptr(kv), _ptr(residual),
@@ -317,12 +323,13 @@ def dwconv_gelu_body(hw: int, dtype) -> int:
                      f"the {SMEM_PER_BLOCK}-byte shared memory of both bodies")
 
 
-def dwconv_gelu(h, dw, dwb, hw: int, return_c=False):
+def dwconv_gelu(h, dw, dwb, hw: int, return_c=False, out_dtype=None):
     """Kernel wrapper of `dwconv_gelu_plain`. Needs C % 64 == 0 on CUDA;
-    h bf16 or float32, dw bf16, dwb float32, and a grid one of the two
-    bodies holds (`dwconv_gelu_body`)."""
+    h bf16 or float32, dw bf16, dwb float32, out_dtype bf16 (the default)
+    or float32, and a grid one of the two bodies holds
+    (`dwconv_gelu_body`)."""
     if h.device.type == "cpu":
-        return dwconv_gelu_plain(h, dw, dwb, hw, return_c)
+        return dwconv_gelu_plain(h, dw, dwb, hw, return_c, out_dtype)
     dev = _on_cuda("dwconv_gelu", h, dw, dwb)
     m, c = h.shape
     _require(h.dtype in (torch.bfloat16, torch.float32)
@@ -332,15 +339,19 @@ def dwconv_gelu(h, dw, dwb, hw: int, return_c=False):
              and dw.shape == (9, c) and dwb.numel() == c,
              "dwconv_gelu: needs C % 64 == 0, (B*hw*hw, C) rows, dw (9, C), "
              "dwb (C,)")
+    out_dtype = out_dtype or torch.bfloat16
+    _require(out_dtype in (torch.bfloat16, torch.float32),
+             "dwconv_gelu: out_dtype is bf16 or float32")
     band = dwconv_gelu_body(hw, h.dtype)
-    out = torch.empty((m, c), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((m, c), dtype=out_dtype, device=dev)
     c_out = (torch.empty((m, c), dtype=torch.float32, device=dev)
              if return_c else None)
     lib = load_library()
     LAUNCHES["dwconv_gelu"] += 1
     err = lib.ltd_dwconv_gelu(_ptr(h), _ptr(dw), _ptr(dwb), _ptr(out),
                               _ptr(c_out), m // (hw * hw), hw, c,
-                              int(h.dtype == torch.float32), band, _stream(dev))
+                              int(h.dtype == torch.float32),
+                              int(out_dtype == torch.float32), band, _stream(dev))
     _check_launch(err, "dwconv_gelu")
     return (out, c_out) if return_c else out
 

@@ -1,0 +1,245 @@
+"""The W8A8 decoder-layer stack of the int8 engine: two hand-written CUDA
+kernels beside K1's, and their plain PyTorch versions.
+
+Counterpart of the JAX package's `ops/fused_stack_int8.py`, whose Pallas
+kernel `_layer_stack_int8_kernel` (TPU kernel K7) runs whole decoder
+layers as `ops/fused_stack.py`'s K1 does, with the four large projections
+(QKV, cross-attention Q, MLP expand and contract) in int8: per-row dynamic
+symmetric int8 activations, per-output-channel int8 weights
+(`pack_layer_stack_int8`), int32 accumulation and a float32
+dequantization. Here a layer is twelve launches of six kernels (sources
+in `csrc/`, built by `ops/_build.py`):
+
+  rowquant         (csrc/rowquant.cu) optional float32 LayerNorm, then
+                   per-row int8 quantization: LN1, LN2, LN3, GELU output
+  gemm_i8          (csrc/gemm_i8.cu) int8 x int8 -> int32 on the tensor
+                   cores with the dequantization epilogue: QKV and Q
+                   (bf16 out), expand (float32 + b1), contract (added
+                   with b2 into the float32 residual, in place)
+  ln_gemm          K1's, the conditioning K/V projection (bf16)
+  self_attention   K1's
+  cross_attention  K1's, without its LN3 output (`ln=None`): rowquant
+                   takes LN3 of the updated residual in float32
+  dwconv_gelu      K1's, float32 hidden state in and float32 GELU out
+
+Why LN3 moved out of `cross_attention`: the int8 route quantizes LN3's
+float32 output, not a bf16 one, so the LayerNorm has to feed the
+quantization directly. Fusing both into `cross_attention` would save one
+read of the float32 residual (50 MB per layer at batch 64, ~15 us at
+3.35 TB/s); keeping every quantized row in `rowquant` keeps one place
+where the quantization rounds, which the parity checks hold.
+
+Rounding points are the TPU kernel's (fused_stack_int8.py:48-102): LN1-3
+outputs and the GELU output are quantized in float32, never rounded to
+bf16 first; `rscale = max(max|y|, 1e-8) * (1/127)` and
+`q = round_half_even(y * (1/rscale))`; products dequantize as
+`float(acc) * rs * cs`; qkv and qc are rounded to the compute dtype; the
+expanded hidden state stays float32 with `+ b1`; the contract adds
+`(x + deq) + b2`; the conditioning K/V stays in the compute dtype. Weights
+are quantized from the compute-dtype weights `pack_layer_stack` gives
+(for bf16, the bf16-rounded weights).
+
+Wrappers work as `ops/fused_stack.py`'s: a CPU tensor takes the plain
+version, a CUDA tensor launches the kernel (counted in `LAUNCHES`), any
+other device raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Mapping
+
+import torch
+
+from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
+from transformer_latent_diffusion_tpu_torch.ops._build import load_library
+
+KERNELS = ("rowquant", "gemm_i8")
+# launches of each kernel since the last reset_launch_counts()
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+# kernel launches per decoder layer, K1's kernels (counted in
+# fused_stack.LAUNCHES) included
+LAUNCHES_PER_LAYER = {"rowquant": 4, "gemm_i8": 4, "ln_gemm": 1,
+                      "self_attention": 1, "cross_attention": 1,
+                      "dwconv_gelu": 1}
+# the projections quantized to int8, and their scales' names
+QUANTIZED = (("wqkv", "sqkv"), ("wq", "sq"), ("w1", "s1"), ("w2", "s2"))
+# rowquant holds a row of at most this many float32 values in registers
+ROWQUANT_MAX_K = 3072
+
+
+def reset_launch_counts() -> None:
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+
+
+# ------------------------------ plain versions ------------------------------
+
+
+def _symquant(x, dim: int):
+    """Symmetric int8 quantization of float32 `x` along `dim`: (int8
+    values, float32 scale max(max|x|, 1e-8) / 127 with `dim` kept)."""
+    scale = x.abs().amax(dim, keepdim=True).clamp_min(1e-8) * (1.0 / 127.0)
+    return torch.round(x * (1.0 / scale)).to(torch.int8), scale
+
+
+def rowquant_plain(x, ln=None):
+    """(q, rscale): the rows of x (M, K) quantized to int8, with their
+    float32 scales (M, 1). ln: (scale, shift) float32 of a LayerNorm taken
+    first (float32 statistics, eps 1e-5), or None."""
+    return _symquant(x.float() if ln is None else fs._layer_norm_plain(x, ln), -1)
+
+
+def gemm_i8_plain(xq, rs, wq, cs, bias=None, residual=None,
+                  out_dtype=torch.bfloat16):
+    """dequant(xq @ wq.T): xq (M, K) int8 with row scales rs (M, 1); wq
+    (N, K) int8 with per-output-channel scales cs (1, N). The integer
+    product is taken in float64, which is exact here (|sum| <= 127^2 K
+    < 2^53) on any device, then rounded to float32 and scaled as
+    (acc * rs) * cs. Without `residual`, returns (deq + bias) in
+    `out_dtype`; with it, the float32 (residual + deq) + bias."""
+    acc = (xq.double() @ wq.double().T).float()
+    deq = acc * rs.reshape(-1, 1) * cs.reshape(1, -1)
+    if residual is not None:
+        out = residual + deq
+        return out if bias is None else out + bias.reshape(-1)
+    if bias is not None:
+        deq = deq + bias.reshape(-1)
+    return deq.to(out_dtype)
+
+
+# ------------------------------ kernel wrappers ------------------------------
+
+
+def rowquant(x, ln=None):
+    """Kernel wrapper of `rowquant_plain`. On CUDA: x float32 (M, K) with
+    K % 128 == 0 and K <= 3072; ln float32 (K,) each, or None."""
+    if x.device.type == "cpu":
+        return rowquant_plain(x, ln)
+    scale, shift = ln if ln is not None else (None, None)
+    lnp = [t for t in (scale, shift) if t is not None]
+    dev = fs._on_cuda("rowquant", x, *lnp)
+    m, k = x.shape
+    fs._require(x.dtype == torch.float32, "rowquant: x must be float32")
+    fs._require(k % 128 == 0 and k <= ROWQUANT_MAX_K,
+                f"rowquant: needs K % 128 == 0 and K <= {ROWQUANT_MAX_K}, got K={k}")
+    fs._require(all(t.dtype == torch.float32 and t.numel() == k for t in lnp),
+                "rowquant: LayerNorm scale/shift must be float32 (K,)")
+    q = torch.empty((m, k), dtype=torch.int8, device=dev)
+    rs = torch.empty((m, 1), dtype=torch.float32, device=dev)
+    lib = load_library()
+    LAUNCHES["rowquant"] += 1
+    err = lib.ltd_rowquant(fs._ptr(x), fs._ptr(scale), fs._ptr(shift), fs._ptr(q),
+                           fs._ptr(rs), m, k, fs._stream(dev))
+    fs._check_launch(err, "rowquant")
+    return q, rs
+
+
+def gemm_i8(xq, rs, wq, cs, bias=None, residual=None, out_dtype=torch.bfloat16):
+    """Kernel wrapper of `gemm_i8_plain` (same arguments and result; with
+    `residual` the kernel updates it in place and returns it). On CUDA:
+    xq, wq int8 with N % 128 == 0 and K % 64 == 0; rs, cs, bias and
+    residual float32; out_dtype bf16 or float32."""
+    if xq.device.type == "cpu":
+        return gemm_i8_plain(xq, rs, wq, cs, bias, residual, out_dtype)
+    extra = [t for t in (bias, residual) if t is not None]
+    dev = fs._on_cuda("gemm_i8", xq, rs, wq, cs, *extra)
+    m, k = xq.shape
+    n = wq.shape[0]
+    fs._require(xq.dtype == torch.int8 and wq.dtype == torch.int8
+                and wq.shape == (n, k),
+                f"gemm_i8: xq and wq must be int8, wq (N, {k}); got {xq.dtype}, "
+                f"{wq.dtype} {tuple(wq.shape)}")
+    fs._require(n % 128 == 0 and k % 64 == 0,
+                f"gemm_i8: needs N % 128 == 0 and K % 64 == 0, got N={n} K={k}")
+    fs._require(all(t.dtype == torch.float32 for t in (rs, cs, *extra)),
+                "gemm_i8: rs, cs, bias and residual are float32")
+    fs._require(rs.numel() == m and cs.numel() == n
+                and (bias is None or bias.numel() == n),
+                "gemm_i8: rs has M elements, cs and bias N")
+    fs._require(out_dtype in (torch.bfloat16, torch.float32),
+                "gemm_i8: out_dtype is bf16 or float32")
+    out = None
+    if residual is not None:
+        fs._require(residual.shape == (m, n), "gemm_i8: residual must be (M, N)")
+    else:
+        out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    lib = load_library()
+    LAUNCHES["gemm_i8"] += 1
+    err = lib.ltd_gemm_i8(fs._ptr(xq), fs._ptr(rs), fs._ptr(wq), fs._ptr(cs),
+                          fs._ptr(bias), fs._ptr(out), fs._ptr(residual), m, n, k,
+                          int(out_dtype == torch.float32), fs._stream(dev))
+    fs._check_launch(err, "gemm_i8")
+    return residual if residual is not None else out
+
+
+# ------------------------------ the layer stack ------------------------------
+
+_KERNEL_OPS = (rowquant, gemm_i8, fs.ln_gemm, fs.self_attention,
+               fs.cross_attention, fs.dwconv_gelu)
+_PLAIN_OPS = (rowquant_plain, gemm_i8_plain, fs.ln_gemm_plain,
+              fs.self_attention_plain, fs.cross_attention_plain,
+              fs.dwconv_gelu_plain)
+
+
+def _layer_stack_int8(x, cond, stack, hw: int, n_heads: int, ops):
+    quant, qmm, gemm, sa, ca, dwg = ops
+    b, n, d = x.shape
+    mxu = stack["wkv"].dtype
+    f32 = torch.float32
+    # the float32 residual; a copy, since the kernels update it in place
+    xres = x.reshape(b * n, d).to(f32, copy=True)
+    c2 = cond.reshape(b * 2, d)
+    for l in range(stack["wqkv"].shape[0]):
+        def p(name):
+            return stack[name][l]
+
+        xq, rs = quant(xres, (p("ln1s"), p("ln1b")))
+        qkv = qmm(xq, rs, p("wqkv"), p("sqkv"), out_dtype=mxu)
+        xres = sa(qkv, xres, n_heads, n)
+        xq, rs = quant(xres, (p("ln2s"), p("ln2b")))
+        qc = qmm(xq, rs, p("wq"), p("sq"), out_dtype=mxu)
+        kv = gemm(c2, p("wkv"))
+        xres, _ = ca(qc, kv, xres, None, n_heads, n)
+        xq, rs = quant(xres, (p("ln3s"), p("ln3b")))
+        hmat = qmm(xq, rs, p("w1"), p("s1"), bias=p("b1"), out_dtype=f32)
+        act = dwg(hmat, p("dw"), p("dwb"), hw, out_dtype=f32)
+        xq, rs = quant(act)
+        xres = qmm(xq, rs, p("w2"), p("s2"), bias=p("b2"), residual=xres)
+    return xres.reshape(b, n, d).to(x.dtype)
+
+
+def fused_layer_stack_int8(x, cond, stack: Mapping[str, torch.Tensor], hw: int,
+                           n_heads: int):
+    """Run the K stacked W8A8 decoder layers of `stack` (from
+    `pack_layer_stack_int8`). x: (B, N, D) tokens; cond: (B, 2, D), both
+    in the compute dtype. On CUDA every stage is a kernel; on the CPU
+    every stage is its plain version."""
+    return _layer_stack_int8(x, cond, stack, hw, n_heads, _KERNEL_OPS)
+
+
+def fused_layer_stack_int8_plain(x, cond, stack: Mapping[str, torch.Tensor],
+                                 hw: int, n_heads: int):
+    """The plain PyTorch version of `fused_layer_stack_int8`, on any
+    device."""
+    return _layer_stack_int8(x, cond, stack, hw, n_heads, _PLAIN_OPS)
+
+
+def colquant(w):
+    """Per-output-channel symmetric int8 quantization of a projection in
+    the (out, in) layout: (int8 (N, K), float32 scales (1, N)). The JAX
+    package's `_colquant` of its (in, out) kernel, transposed."""
+    wq, scale = _symquant(w.float(), -1)
+    return wq, scale.reshape(1, -1)
+
+
+def pack_layer_stack_int8(params: Mapping[str, torch.Tensor],
+                          layer_indices: List[int], dtype) -> Dict[str, torch.Tensor]:
+    """`fused_stack.pack_layer_stack`, then the four large projections
+    (wqkv, wq, w1, w2) quantized per output channel from their `dtype`
+    values, with their float32 scales (sqkv, sq, s1, s2: (K, 1, N))."""
+    stack = fs.pack_layer_stack(params, layer_indices, dtype)
+    for name, scale_name in QUANTIZED:
+        pairs = [colquant(w) for w in stack[name]]
+        stack[name] = torch.stack([q for q, _ in pairs]).contiguous()
+        stack[scale_name] = torch.stack([s for _, s in pairs]).contiguous()
+    return stack

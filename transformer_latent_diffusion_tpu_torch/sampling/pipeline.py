@@ -13,8 +13,12 @@ package runs its Pallas kernels on the TPU (sampling/pipeline.py:113-131,
 the fused engine (K1); larger grids (512 and 1024 px deployments, or a
 256 px model sampled on a larger grid) through the `Denoiser`'s linen path
 with flash attention (K3) in every self-attention and, for a native grid
-of 16 < hw <= 32 tokens a side, the fused sep-conv MLP (K5's forward). On
-the CPU it runs the plain `Denoiser`, as the JAX package does off the TPU.
+of 16 < hw <= 32 tokens a side, the fused sep-conv MLP (K5's forward).
+`LTDConfig.quantize="int8"` builds the W8A8 engine (K7) instead of K1's,
+behind the same gate, so a hi-res int8 deployment runs K3/K5 and no K7,
+as in JAX. On the CPU it runs the plain `Denoiser`, as the JAX package
+does off the TPU: no engine, so `quantize` has no effect there
+(sampling/pipeline.py:225-237).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from transformer_latent_diffusion_tpu_torch.configs import LTDConfig, resolve_dt
 from transformer_latent_diffusion_tpu_torch.models.clip import ClipTextModel
 from transformer_latent_diffusion_tpu_torch.models.denoiser import Denoiser
 from transformer_latent_diffusion_tpu_torch.models.fast_denoiser import (
+    QUANTIZE_MODES,
     make_fused_apply,
 )
 from transformer_latent_diffusion_tpu_torch.models.vae import VaeDecoder
@@ -96,6 +101,8 @@ class DiffusionTransformer:
             raise NotImplementedError(
                 "the CLIP BPE tokenizer waits for its vocab file in the "
                 "repository (ROADMAP item 5)")
+        if cfg.quantize not in QUANTIZE_MODES:
+            raise ValueError(f"unknown quantize mode: {cfg.quantize!r}")
         self.cfg = cfg
         self.device = torch.device(device)
         dtype = resolve_dtype(cfg.denoiser_load.dtype)
@@ -140,9 +147,6 @@ class DiffusionTransformer:
         if self.device.type == "cuda":
             fast_apply = make_fused_apply(cfg.denoiser_cfg, compute_dtype=dtype,
                                           quantize=cfg.quantize)
-        elif cfg.quantize is not None:
-            raise NotImplementedError(
-                "quantize='int8' is not ported yet (ROADMAP, kernel K7)")
         self.schedule_shift = cfg.schedule_shift
         if self.schedule_shift is not None:
             self.schedule_shift = float(self.schedule_shift)
