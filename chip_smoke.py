@@ -31,6 +31,17 @@ paths, each checked against plain PyTorch versions on the same inputs:
   gradients against the plain bf16 autograd path, and `train.main` at
   batch 128 on random latents (20 steps, one eval through the K1 engine,
   a checkpoint, then a resume that continues the step count);
+- the other FFNs (TPU kernel K6, the differentiable attention pair, and
+  the K8 and K9 entry points): self_attention and its backward on ragged
+  tiles (144 and 200 tokens), K6's forward and backward (all nine
+  outputs) at batch 128 and on the ragged tiles, K8 and K9 at the 256 px
+  serving shapes, each against its plain version (autograd through
+  SDPA timed beside K6); for the flagship with the "moe" FFN (8 experts,
+  capacity factor 1.25) and with the "mlp" FFN: one Denoiser forward
+  (flash attention, no engine) against the plain bf16 forward, the
+  library (8 images x 20 DDIM steps) and the HTTP service, one train
+  step's gradients with K6 against the plain bf16 autograd path, ms per
+  step and peak memory, and `train.main` (10 steps, an eval grid);
 - hi-res training (TPU kernels K4a/K4b, the flash-attention backward, and
   K5's backward, the sep-conv MLP's): each at the 512 px and 1024 px
   shapes against its plain version, one 512 px step's gradients against
@@ -773,9 +784,17 @@ def phase_int8_engine(cfg8):
             fwd8()
             torch.cuda.synchronize()
     busy, by_kernel = _device_time(prof)
+    # one W8A8 layer's least time: its four int8 products at the int8
+    # tensor peak plus the bf16 cond K/V product and self-attention at the
+    # bf16 peak (the bytes, about 10 MB of weights and activations, are an
+    # order less)
+    m = B * N
+    layer = (2 * m * D * (3 * D + D + 2 * HIDDEN) / INT8_TENSOR_OP_S
+             + (2 * 2 * B * D * 2 * D + 4 * B * HEADS * N * N * 64) / BF16_TENSOR_FLOP_S) * 1e3
     log(f"[int8-engine] one forward at batch {B}: W8A8 {sum(t8) / 2:.3f} ms, bf16 engine "
         f"{sum(t16) / 2:.3f} ms (runs {t8}, {t16}); profiled W8A8 forward: device busy "
-        f"{busy:.3f} ms; by kernel, us: {by_kernel}")
+        f"{busy:.3f} ms ({busy / den.n_layers:.3f} a layer, least time of one W8A8 layer "
+        f"{layer:.4f} ms by operations); by kernel, us: {by_kernel}")
     del model, prepared, prepared_bf16
 
 
@@ -1242,16 +1261,6 @@ def _layer_params(gen, dev):
             p(HIDDEN, D, std=D ** -0.5, dtype=bf), p(HIDDEN, std=0.1),
             p(9, HIDDEN, std=1 / 3, dtype=bf), p(HIDDEN, std=0.1),
             p(D, HIDDEN, std=HIDDEN ** -0.5, dtype=bf), p(D, std=0.1)]
-
-
-def _count_modules():
-    from transformer_latent_diffusion_tpu_torch.ops import attention as att
-    from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
-    from transformer_latent_diffusion_tpu_torch.ops import fused_mlp_vjp as fm
-    from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
-    from transformer_latent_diffusion_tpu_torch.ops import fused_stack_int8 as q8
-
-    return fs, lv, att, fm, q8
 
 
 def _reset_counts():
@@ -1931,6 +1940,482 @@ def phase_multires(per_layer, smi):
     torch.cuda.empty_cache()
 
 
+# ------------------------------ K6, K8, K9 and the other FFNs ------------------------------
+
+TPU_K6_FWD = "transformer_latent_diffusion_tpu/ops/fused_attn_vjp.py:255"
+TPU_K6_BWD = "transformer_latent_diffusion_tpu/ops/fused_attn_vjp.py:276"
+TPU_K8 = "transformer_latent_diffusion_tpu/ops/fused_block.py:141"
+TPU_K9 = "transformer_latent_diffusion_tpu/ops/fused_block.py:215"
+# ragged attention tiles: a 12 x 12 multires bucket and a 200-token grid
+# that is not square, at batch 16
+RAGGED_NS, RAGGED_B = (144, 200), 16
+# the other FFNs' library run (cut from 32 x 50 for time) and train.main
+FFN_IMGS, FFN_ITER = 8, 20
+FFN_TRAIN_STEPS = 10
+# one Denoiser forward with the "mlp" FFN, flash attention (K3) vs the
+# plain bf16 forward: the bf16 attention's one-step differences through 12
+# layers, as HIRES_MODEL_REL_L2; with the MoE a token whose top-1 expert
+# flips between the two (near ties of the float32 router on bf16 LN3
+# rows) takes another expert's output, so its bound is looser, and the
+# share of flipped (token, layer) routes is bounded on its own. Measured on
+# an H100 80GB HBM3 at 700 W (random flagship weights, batch 64): rel-L2
+# 0.00900 (mlp) and 0.01607 (moe), 5.59e-3 of the routes flipped; each
+# bound leaves about 3x margin
+FFN_FWD_REL_L2 = {"mlp": 0.03, "moe": 0.05}
+MOE_FLIP_SHARE = 0.02
+# one train step's gradients with K6 vs the plain bf16 autograd Denoiser,
+# per parameter group (attention pair, FFN, the rest). Measured on the same
+# card at batch 128: worst group 0.00300 (mlp); 0.01340 (moe, its FFN, with
+# 7.6e-3 of the routes flipped); about 3x margin
+FFN_GRAD_REL_L2 = {"mlp": 1e-2, "moe": 0.05}
+
+
+def _count_modules():
+    from transformer_latent_diffusion_tpu_torch.ops import attention as att
+    from transformer_latent_diffusion_tpu_torch.ops import fused_attn_vjp as k6
+    from transformer_latent_diffusion_tpu_torch.ops import fused_block as fb
+    from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
+    from transformer_latent_diffusion_tpu_torch.ops import fused_mlp_vjp as fm
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack_int8 as q8
+
+    return fs, lv, att, fm, q8, k6, fb
+
+
+def _pair_inputs(gen, b, n):
+    """x, cond, the upstream gradient and the seven parameters of one
+    flagship attention pair (bf16 activations and weights, float32
+    LayerNorm), from `gen`."""
+    dev = torch.device(DEVICE)
+    bf = torch.bfloat16
+    params = [t.detach() for t in _layer_params(gen, dev)[:7]]
+    x = torch.randn(b, n, D, generator=gen).to(dev, bf)
+    cond = torch.randn(b, 2, D, generator=gen).to(dev, bf)
+    g = (torch.randn(b, n, D, generator=gen) * 1e-3).to(dev, bf)
+    return x, cond, g, params
+
+
+def _pair_flops(b, n):
+    """(forward, backward with its recompute) operations of the attention
+    pair: the QKV, Q and cond K/V products, the self-attention's two
+    products (the 2-key cross-attention's are negligible); the backward
+    adds dX and dW of the three products and the five attention-backward
+    products."""
+    m = b * n
+    products = 2 * m * D * 3 * D + 2 * m * D * D + 2 * 2 * b * D * 2 * D
+    attention = 4 * b * HEADS * n * n * 64
+    fwd = products + attention
+    return fwd, fwd + 2 * products + 10 * b * HEADS * n * n * 64
+
+
+def _sdpa_pair(x, cond, params):
+    """The attention pair as F.layer_norm + F.linear + SDPA (a yardstick
+    the port never calls)."""
+    import torch.nn.functional as F
+
+    ln1s, ln1b, wqkv, ln2s, ln2b, wq, wkv = params
+    b, n, d = x.shape
+
+    def heads(t):
+        return t.reshape(b, -1, HEADS, d // HEADS).transpose(1, 2)
+
+    def merge(t):
+        return t.transpose(1, 2).reshape(b, -1, d)
+
+    q, k, v = F.linear(F.layer_norm(x, (d,), ln1s.to(x.dtype), ln1b.to(x.dtype)),
+                       wqkv).chunk(3, -1)
+    x1 = x + merge(F.scaled_dot_product_attention(heads(q), heads(k), heads(v)))
+    qc = F.linear(F.layer_norm(x1, (d,), ln2s.to(x.dtype), ln2b.to(x.dtype)), wq)
+    kc, vc = F.linear(cond, wkv).chunk(2, -1)
+    return x1 + merge(F.scaled_dot_product_attention(heads(qc), heads(kc), heads(vc)))
+
+
+def phase_attn_pair_kernels():
+    """self_attention and self_attention_bwd on ragged tiles (N = 144,
+    200), K6 forward and backward (all nine outputs) at the training
+    shapes and on the ragged tiles, K8 and K9 at the 256 px serving shapes,
+    each against its plain version; K8's and K9's launches through their
+    entry points; times, bounds, and autograd through F.layer_norm +
+    F.linear + SDPA beside K6."""
+    from transformer_latent_diffusion_tpu_torch.ops import fused_attn_vjp as k6
+    from transformer_latent_diffusion_tpu_torch.ops import fused_block as fb
+    from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
+
+    tag = "attn-pair-kernels"
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    bf = torch.bfloat16
+    for n in RAGGED_NS:
+        m = RAGGED_B * n
+        qkv = torch.randn(m, 3 * D, generator=gen).to(dev, bf)
+        res = torch.randn(m, D, generator=gen).to(dev)
+        dout = (torch.randn(m, D, generator=gen) * 1e-3).to(dev)
+        _check(f"self_attention/N = {n} (the update)",
+               (fs.self_attention(qkv, res.clone(), HEADS, n) - res,),
+               (fs.self_attention_plain(qkv, res.clone(), HEADS, n) - res,), tag)
+        _check(f"self_attention_bwd/N = {n}", (lv.self_attention_bwd(qkv, dout, HEADS, n),),
+               (lv.self_attention_bwd_plain(qkv, dout, HEADS, n),), tag)
+
+    names = ("x", "cond") + k6.PARAM_NAMES
+    worst = {}
+    for b, n in ((TB, N),) + tuple((RAGGED_B, n) for n in RAGGED_NS):
+        x, cond, g, params = _pair_inputs(gen, b, n)
+        out = k6.fused_attention_pair_fwd(x, cond, *params, HEADS)
+        want = k6.fused_attention_pair_fwd_plain(x, cond, *params, HEADS)
+        r = rel_l2(out.float() - x.float(), want.float() - x.float())
+        err_f = float((out.float() - want.float()).abs().max())
+        grads = k6.fused_attention_pair_bwd(x, cond, g, *params, HEADS)
+        gwant = k6.fused_attention_pair_bwd_plain(x, cond, g, *params, HEADS)
+        rels = {k: rel_l2(u.float(), w.float()) for k, u, w in zip(names, grads, gwant)}
+        err_b = max(float((u.float() - w.float()).abs().max()) for u, w in zip(grads, gwant))
+        log(f"[{tag}] K6 at B = {b}, N = {n}: forward rel-L2 of the update {r:.2e} (bound "
+            f"{LAYER_FWD_REL_L2}), max-abs {err_f:.3e}; backward rel-L2 per output: "
+            + " ".join(f"{k} {v:.2e}" for k, v in rels.items())
+            + f" (bound {LAYER_GRAD_REL_L2}), max-abs {err_b:.3e}")
+        if not (r < LAYER_FWD_REL_L2 and max(rels.values()) < LAYER_GRAD_REL_L2):
+            raise AssertionError(f"K6 at N = {n} disagrees with its plain version")
+        if n == N:
+            worst = {"fused_attention_pair_vjp": err_f, "fused_attention_pair_vjp_bwd": err_b}
+            main_case = (x, cond, g, params)
+    torch.cuda.synchronize()
+
+    x, cond, g, params = main_case
+    timing = time_against_plain({
+        "fused_attention_pair_vjp": (
+            lambda: k6.fused_attention_pair_fwd(x, cond, *params, HEADS),
+            lambda: k6.fused_attention_pair_fwd_plain(x, cond, *params, HEADS)),
+        "fused_attention_pair_vjp_bwd": (
+            lambda: k6.fused_attention_pair_bwd(x, cond, g, *params, HEADS),
+            lambda: k6.fused_attention_pair_bwd_plain(x, cond, g, *params, HEADS)),
+    }, tag)
+    leaves = [t.clone().requires_grad_(True) for t in (x, cond, *params)]
+
+    def sdpa_fwd_bwd():
+        _sdpa_pair(leaves[0], leaves[1], leaves[2:]).backward(g)
+
+    with torch.no_grad():
+        sdpa_fwd = time_ms(lambda: _sdpa_pair(x, cond, params))
+    sdpa_both = time_ms(sdpa_fwd_bwd)
+    fwd_ops, bwd_ops = _pair_flops(TB, N)
+    bounds = {"fused_attention_pair_vjp": bound(0, fwd_ops, BF16_TENSOR_FLOP_S),
+              "fused_attention_pair_vjp_bwd": bound(0, bwd_ops, BF16_TENSOR_FLOP_S)}
+    k_both = timing["fused_attention_pair_vjp"][0] + timing["fused_attention_pair_vjp_bwd"][0]
+    log(f"[{tag}] K6 at B = {TB}, N = {N}: forward {timing['fused_attention_pair_vjp'][0]:.4f} "
+        f"ms (bound {bounds['fused_attention_pair_vjp'][0]:.4f}, {fwd_ops / 1e9:.1f} GFLOP), "
+        f"backward with recompute {timing['fused_attention_pair_vjp_bwd'][0]:.4f} ms (bound "
+        f"{bounds['fused_attention_pair_vjp_bwd'][0]:.4f}, {bwd_ops / 1e9:.1f} GFLOP), both "
+        f"{k_both:.4f} ms; yardstick, autograd through F.layer_norm + F.linear + SDPA: "
+        f"forward {sdpa_fwd:.4f} ms, forward + backward {sdpa_both:.4f} ms")
+
+    # K8 and K9 at the 256 px serving shapes, through their entry points
+    x8, cond8, _, p8 = _pair_inputs(gen, B, N)
+    kc, vc = (torch.randn(B, 2, D, generator=gen).to(dev, bf) for _ in range(2))
+    k8 = (x8, *p8[:5], p8[5], kc, vc)
+    lp = [t.detach() for t in _layer_params(gen, dev)]
+    k9 = (x8, lp[7], lp[8], lp[9], lp[10], lp[11], lp[12], lp[13], lp[14])
+    _reset_counts()
+    out8 = fb.fused_attention_pair(*k8, HEADS)
+    out9 = fb.fused_mlp_sepconv(*k9, HW)
+    launches = {k: v for k, v in _counts().items() if v}
+    expect = {"fused_block.fused_attention_pair": 1, "fused_block.fused_mlp_sepconv": 1,
+              "ln_gemm": 4, "self_attention": 1, "cross_attention": 1, "dwconv_gelu": 1}
+    log(f"[{tag}] K8 and K9 through their entry points at batch {B}: launches {launches} "
+        f"(expected {expect})")
+    _require_launches(launches, expect, "K8/K9")
+    xf = x8.float()
+    for name, got, want in (
+            ("fused_block.fused_attention_pair", out8, fb.fused_attention_pair_plain(*k8, HEADS)),
+            ("fused_block.fused_mlp_sepconv", out9, fb.fused_mlp_sepconv_plain(*k9, HW))):
+        r = rel_l2(got.float() - xf, want.float() - xf)
+        worst[name] = float((got.float() - want.float()).abs().max())
+        log(f"[{tag}] {name}: rel-L2 of the update {r:.2e} (bound {LAYER_FWD_REL_L2}), "
+            f"max-abs {worst[name]:.3e}")
+        if not r < LAYER_FWD_REL_L2:
+            raise AssertionError(f"{name} disagrees with its plain version")
+    timing.update(time_against_plain({
+        "fused_block.fused_attention_pair": (lambda: fb.fused_attention_pair(*k8, HEADS),
+                                             lambda: fb.fused_attention_pair_plain(*k8, HEADS)),
+        "fused_block.fused_mlp_sepconv": (lambda: fb.fused_mlp_sepconv(*k9, HW),
+                                          lambda: fb.fused_mlp_sepconv_plain(*k9, HW)),
+    }, tag))
+    m = B * N
+    bounds["fused_block.fused_attention_pair"] = bound(
+        0, 2 * m * D * 4 * D + 4 * B * HEADS * N * N * 64, BF16_TENSOR_FLOP_S)
+    bounds["fused_block.fused_mlp_sepconv"] = bound(
+        0, 4 * m * D * HIDDEN, BF16_TENSOR_FLOP_S)
+    log(f"[{tag}] least times: "
+        + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in bounds.items()))
+    library = dict.fromkeys(bounds)  # no one PyTorch call computes any of them
+    return worst, timing, library, bounds, launches
+
+
+def ffn_config(mlp_class):
+    """The flagship deployment with the "mlp" or "moe" FFN (the MoE with the
+    JAX defaults: 8 experts, capacity factor 1.25)."""
+    cfg = flagship_configs()
+    return dataclasses.replace(cfg, denoiser_cfg=dataclasses.replace(
+        cfg.denoiser_cfg, mlp_class=mlp_class))
+
+
+def _route_recorder(model):
+    """Forward hooks that keep each MoE block's top-1 expert per token, in
+    call order (empty for the other FFNs)."""
+    routes = []
+    for blk in model.denoiser_trans_block.decoder_blocks:
+        if blk.mlp_class == "moe":
+            blk.mlp.register_forward_hook(
+                lambda mod, inp, out: routes.append(mod.route(inp[0])[3].argmax(-1)))
+    return routes
+
+
+def _flip_share(a, b):
+    """The share of (token, layer) routes that differ between two runs."""
+    if not a:
+        return 0.0
+    return float(sum(int((u != v).sum()) for u, v in zip(a, b))
+                 / sum(u.numel() for u in a))
+
+
+def phase_ffn_serving(mlp_class, smi):
+    """DiffusionTransformer on the flagship with the "mlp" or "moe" FFN:
+    no fused engine, so the linen path with flash attention (K3); one
+    Denoiser forward at batch B against the plain bf16 forward, a library
+    run (FFN_IMGS x FFN_ITER DDIM steps, CFG 6) with exact launch counts,
+    the WSGI service."""
+    from transformer_latent_diffusion_tpu_torch.models.denoiser import Denoiser
+    from transformer_latent_diffusion_tpu_torch.sampling import DiffusionTransformer
+    from transformer_latent_diffusion_tpu_torch.serve.app import GenerationService
+
+    tag = f"{mlp_class}-serving"
+    cfg = ffn_config(mlp_class)
+    den = cfg.denoiser_cfg
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    tr = DiffusionTransformer(cfg, device=DEVICE, seed=0)
+    torch.cuda.synchronize()
+    log(f"[{tag}] DiffusionTransformer built in {time.perf_counter() - t0:.1f} s, fused "
+        f"engine: {tr.diffuser.fast_apply}")
+    if tr.diffuser.fast_apply is not None:
+        raise AssertionError(f"a {mlp_class} deployment built a fused engine")
+    model = tr.diffuser.model
+    plain = Denoiser.from_config(den, dtype=torch.bfloat16)
+    plain.load_state_dict(model.state_dict())
+    plain.to(dev).eval()
+    g = torch.Generator(device="cpu").manual_seed(9)
+    x = torch.randn(B, 4, den.image_size, den.image_size, generator=g).to(dev)
+    noise = torch.rand(B, 1, generator=g).to(dev)
+    label = torch.randn(B, den.text_emb_size, generator=g).to(dev)
+    routes_k, routes_p = _route_recorder(model), _route_recorder(plain)
+    with torch.no_grad():
+        _reset_counts()
+        out = model(x, noise, label)
+        launches = {k: v for k, v in _counts().items() if v}
+        ref = plain(x, noise, label)
+    torch.cuda.synchronize()
+    flips = _flip_share(routes_k, routes_p)
+    routes_k.clear(), routes_p.clear()
+    r = rel_l2(out, ref)
+    cos = float(torch.nn.functional.cosine_similarity(
+        out.double().flatten(), ref.double().flatten(), dim=0))
+    expect = {"flash_attention": den.n_layers}
+    log(f"[{tag}] Denoiser forward, flash attention vs the plain bf16 forward, batch {B}: "
+        f"rel-L2 {r:.5f} (bound {FFN_FWD_REL_L2[mlp_class]}), cos {cos:.6f}; MoE routes "
+        f"that differ: {flips:.2e} of (token, layer) (bound {MOE_FLIP_SHARE}); launches "
+        f"{launches} (expected {expect})")
+    if not (torch.isfinite(out).all() and r < FFN_FWD_REL_L2[mlp_class]
+            and flips < MOE_FLIP_SHARE):
+        raise AssertionError(f"the {mlp_class} forward disagrees with the plain forward")
+    _require_launches(launches, expect, f"{mlp_class} forward")
+    with torch.no_grad():
+        tk = [time_ms(lambda: model(x, noise, label), 5, 2)]
+        tp = [time_ms(lambda: plain(x, noise, label), 5, 2) for _ in range(2)]
+        tk.append(time_ms(lambda: model(x, noise, label), 5, 2))
+    log(f"[{tag}] one forward at batch {B}: {sum(tk) / 2:.3f} ms (flash attention), plain "
+        f"{sum(tp) / 2:.3f} ms (runs {tk}, {tp})")
+    del plain
+
+    def run():
+        return tr.generate_array_from_text("a cute cat", num_imgs=FFN_IMGS, n_iter=FFN_ITER,
+                                           sampler="ddim", class_guidance=6)
+
+    run()  # warm-up
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    imgs = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expect = _expect({"flash_attention": den.n_layers * FFN_ITER})
+    px = 8 * den.image_size
+    log(f"[{tag}] generate_array_from_text {FFN_IMGS} imgs x {FFN_ITER} DDIM steps: "
+        f"{wall:.3f} s ({FFN_IMGS / wall:.3f} imgs/s), peak memory {peak:.2f} GiB; launches "
+        f"{ {k: v for k, v in launches.items() if v} } (expected flash_attention "
+        f"{expect['flash_attention']} only, no K1) | {smi}")
+    if imgs.shape != (FFN_IMGS, px, px, 3) or imgs.dtype.name != "uint8" or float(imgs.std()) <= 0:
+        raise AssertionError(f"images {imgs.shape} {imgs.dtype}")
+    _require_launches(launches, expect, f"{mlp_class} library")
+    phase_serving(GenerationService(transformer=tr), tag)
+    del tr, model
+    torch.cuda.empty_cache()
+
+
+def _param_groups(names):
+    """Parameter name -> group: the attention pair (K6's seven), the FFN
+    (norm3 and mlp.*), the rest (embeddings, out projection)."""
+    def group(k):
+        if ".decoder_blocks." not in k:
+            return "rest"
+        leaf = k.split(".decoder_blocks.")[1].split(".", 1)[1]
+        return "ffn" if leaf.startswith(("mlp.", "norm3.")) else "attention pair"
+
+    return {k: group(k) for k in names}
+
+
+def phase_ffn_train(mlp_class, smi):
+    """Training with the "mlp" or "moe" FFN at batch TB: one step's
+    gradients with K6 (the JAX gate: K2 does not take these FFNs) against
+    the plain bf16 autograd Denoiser on the same weights and draws (cosine
+    and rel-L2 per parameter group), ms per step and peak memory of both,
+    then train.main for FFN_TRAIN_STEPS steps with exact launch counts.
+    Returns train.main's launches."""
+    from transformer_latent_diffusion_tpu_torch.configs import DataConfig, ModelConfig, TrainConfig
+    from transformer_latent_diffusion_tpu_torch.models.denoiser import Denoiser
+    from transformer_latent_diffusion_tpu_torch.train import main as train_main
+    from transformer_latent_diffusion_tpu_torch.train import train as tt
+    from transformer_latent_diffusion_tpu_torch.utils.common import init_random_weights_
+
+    tag = f"{mlp_class}-train"
+    dev = torch.device(DEVICE)
+    cfg = ffn_config(mlp_class)
+    den = cfg.denoiser_cfg
+    models = {}
+    for fused in (True, False):
+        mdl = Denoiser.from_config(den, dtype=torch.bfloat16, fused_layer_vjp=fused,
+                                   use_pallas=fused)
+        models[fused] = init_random_weights_(mdl, 0).to(dev).train()
+    gen = torch.Generator(device="cpu").manual_seed(10)
+    x = torch.randn(TB, 4, den.image_size, den.image_size, generator=gen).to(dev)
+    y = torch.randn(TB, den.text_emb_size, generator=gen).to(dev)
+    tc = TrainConfig(batch_size=TB)
+    loss_fn = tt.build_loss_fn(models[True], tc, 8.0)
+    draws = loss_fn.sample_draws(torch.Generator(device=dev).manual_seed(11), x)
+    grads, routes, losses = {}, {}, {}
+    for fused, mdl in models.items():
+        routes[fused] = _route_recorder(mdl)
+        _reset_counts()
+        loss = loss_fn.loss_from_draws(mdl, x, y, **draws)
+        loss.backward()
+        if fused:
+            per_step = {k: v for k, v in _counts().items() if v}
+        losses[fused] = float(loss.detach())
+        grads[fused] = {k: p.grad.float() for k, p in mdl.named_parameters()}
+    flips = _flip_share(routes[True], routes[False])
+    groups = _param_groups(grads[False])
+    stats = {}
+    for name in sorted(set(groups.values())):
+        keys = [k for k, v in groups.items() if v == name]
+        u = torch.cat([grads[True][k].flatten() for k in keys]).double()
+        w = torch.cat([grads[False][k].flatten() for k in keys]).double()
+        stats[name] = (float((u - w).norm() / w.norm()),
+                       float(torch.nn.functional.cosine_similarity(u, w, dim=0)))
+    del grads
+    log(f"[{tag}] loss kernels {losses[True]:.6f}, plain bf16 {losses[False]:.6f}; "
+        f"gradients, K6 vs plain bf16 autograd, same draws, per group (rel-L2, cosine): "
+        + "; ".join(f"{k} {v[0]:.5f}, {v[1]:.6f}" for k, v in stats.items())
+        + f" (bound {FFN_GRAD_REL_L2[mlp_class]}); MoE routes that differ {flips:.2e}; "
+        f"launches of the step {per_step}")
+    if not all(v[0] < FFN_GRAD_REL_L2[mlp_class] for v in stats.values()):
+        raise AssertionError(f"the {mlp_class} step's gradients disagree with the plain path")
+    # K6 in every layer, forward and backward; no flash attention, and none
+    # of K2's MLP kernels
+    watch = {"fused_attention_pair_vjp": den.n_layers,
+             "fused_attention_pair_vjp_bwd": den.n_layers, "flash_attention": 0,
+             "dwconv_gelu": 0, "dwconv_gelu_bwd": 0}
+    _require_launches({k: per_step.get(k, 0) for k in watch}, watch, f"the {mlp_class} step")
+
+    step_ms = {}
+    for fused in (False, True, True, False):
+        mdl = models[fused]
+        opt, sched = tt.make_optimizer(tc, mdl.parameters())
+        state = {"model": mdl, "ema_model": copy.deepcopy(mdl).requires_grad_(False),
+                 "optimizer": opt, "scheduler": sched, "step": 0}
+        grads_of = tt.make_grads_of(loss_fn)
+        sgen = torch.Generator(device=dev).manual_seed(12)
+        for _ in range(2):
+            tt.train_step(state, grads_of, tc, x, y, sgen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            tt.train_step(state, grads_of, tc, x, y, sgen)
+        torch.cuda.synchronize()
+        step_ms.setdefault(fused, []).append(((time.perf_counter() - t0) / 5 * 1e3,
+                                              torch.cuda.max_memory_allocated() / 2 ** 30))
+        del state, opt, sched
+    kern = sum(v[0] for v in step_ms[True]) / 2
+    plain = sum(v[0] for v in step_ms[False]) / 2
+    log(f"[{tag}] flagship, {mlp_class} FFN, batch {TB}, bf16 compute, float32 master "
+        f"weights, Adam + EMA: {kern:.2f} ms/step ({TB / kern * 1e3:.1f} samples/s), peak "
+        f"memory {max(v[1] for v in step_ms[True]):.2f} GiB; plain bf16 autograd "
+        f"{plain:.2f} ms/step (peak {max(v[1] for v in step_ms[False]):.2f} GiB); runs "
+        f"{step_ms} | {smi}")
+    del models
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(1)
+        n = FFN_TRAIN_STEPS * TB + TB // 2
+        size = (den.n_channels, den.image_size, den.image_size)
+        paths = [os.path.join(tmp, f) for f in ("latents.npy", "text_emb.npy", "val_emb.npy")]
+        np.save(paths[0], rng.standard_normal((n, *size), dtype=np.float32))
+        np.save(paths[1], rng.standard_normal((n, den.text_emb_size), dtype=np.float32))
+        np.save(paths[2], rng.standard_normal((8, den.text_emb_size), dtype=np.float32))
+        mcfg = ModelConfig(
+            data_config=DataConfig(*paths), denoiser_config=den,
+            train_config=TrainConfig(batch_size=TB, n_epoch=1, save_model=False,
+                                     save_and_eval_every_iters=1000,
+                                     checkpoint_dir=os.path.join(tmp, "ckpts")),
+            vae_cfg=cfg.vae_cfg)
+        _reset_counts()
+        t0 = time.perf_counter()
+        r = train_main(mcfg, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+    steps, losses = r["global_step"], r["losses"]
+    expect = {k: v * steps for k, v in per_step.items()}
+    expect["flash_attention"] = den.n_layers * EVAL_CALLS  # the step-0 eval grid
+    expect = _expect(expect)
+    got = {k: v for k, v in launches.items() if v}
+    aux = load = None
+    if mlp_class == "moe":
+        model = r["model"]
+        aux = float(model.moe_aux_loss().detach())
+        load = [round(float(v), 4) for v in model.denoiser_trans_block.decoder_blocks[-1].mlp.load]
+    tail = float(np.mean(losses[-3:]))
+    log(f"[{tag}] train.main, batch {TB}, {steps} steps in {wall:.1f} s (one eval grid "
+        f"through flash attention included); losses {' '.join(f'{v:.3f}' for v in losses)}; "
+        f"last-3 mean {tail:.4f}; Switch loss of the last step {aux} ({den.n_layers} "
+        f"layers, each in [1, {den.n_experts}]), last layer's expert load {load}; launches "
+        f"{got} (expected "
+        f"{ {k: v for k, v in expect.items() if v} })")
+    falls = tail < losses[0] and tail < max(losses[:5])
+    if steps != FFN_TRAIN_STEPS or not all(np.isfinite(losses)) or not falls:
+        raise AssertionError(f"{mlp_class} train.main: {steps} steps, losses {losses}")
+    n_l = den.n_layers
+    if aux is not None and not (np.isfinite(aux) and n_l * (1 - 1e-3) <= aux
+                                <= n_l * den.n_experts):
+        raise AssertionError(f"the Switch loss {aux} is out of [{n_l}, "
+                             f"{n_l * den.n_experts}]")
+    _require_launches(launches, expect, f"{mlp_class} train.main")
+    del r
+    torch.cuda.empty_cache()
+    return launches, kern, plain
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase_env()
@@ -1999,6 +2484,14 @@ def main():
     hr_layer, xr_launches = phase_hires_train_step(smi)
     ft_launches = phase_hires_finetune(hr_layer, smi)
     phase_multires(hr_layer, smi)
+    torch.cuda.empty_cache()
+
+    p_worst, p_timing, p_library, p_bounds, p_launches = phase_attn_pair_kernels()
+    torch.cuda.empty_cache()
+    ffn_launches = {}
+    for mlp_class in ("moe", "mlp"):
+        phase_ffn_serving(mlp_class, smi)
+        ffn_launches[mlp_class], _, _ = phase_ffn_train(mlp_class, smi)
 
     from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
     from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
@@ -2050,6 +2543,21 @@ def main():
             "ms": ht_timing[key][0], "plain_ms": ht_timing[key][1],
             "bound_ms": ht_bounds[key][0], "bound_by": ht_bounds[key][1],
             "library_ms": ht_library[key],
+        })
+    # K6's launches: the MoE model's train.main; K8's and K9's: their entry
+    # points (no path of the system calls them, as in the JAX package)
+    for name, tpu, src, counts in (
+            ("fused_attention_pair_vjp", TPU_K6_FWD, "ops/fused_attn_vjp.py",
+             ffn_launches["moe"]),
+            ("fused_attention_pair_vjp_bwd", TPU_K6_BWD, "ops/fused_attn_vjp.py",
+             ffn_launches["moe"]),
+            ("fused_block.fused_attention_pair", TPU_K8, "ops/fused_block.py", p_launches),
+            ("fused_block.fused_mlp_sepconv", TPU_K9, "ops/fused_block.py", p_launches)):
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{port}/{src}", "replaces": tpu,
+            "launches": counts[name], "max_abs_err": p_worst[name], "ms": p_timing[name][0],
+            "plain_ms": p_timing[name][1], "bound_ms": p_bounds[name][0],
+            "bound_by": p_bounds[name][1], "library_ms": p_library[name],
         })
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -1,0 +1,361 @@
+"""The port's hand-written CUDA kernels against their plain versions on the
+card, at small shapes with inputs from a seed. The file imports only
+torch, numpy, pytest and the port (no jax, no JAX package), so it runs on
+a machine with a card and no jax:
+
+    python3 -m pytest tests/test_torch_port_cuda.py -q --noconftest
+
+(`--noconftest`: tests/conftest.py sets jax up for the rest of the
+suite). Every test carries the `cuda` marker and skips where
+torch.cuda.is_available() is false; `chip_smoke.py` checks the same
+kernels at the main path's shapes."""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from transformer_latent_diffusion_tpu_torch.ops import attention as att
+from transformer_latent_diffusion_tpu_torch.ops import fused_attn_vjp as k6
+from transformer_latent_diffusion_tpu_torch.ops import fused_block as fb
+from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
+from transformer_latent_diffusion_tpu_torch.ops import fused_mlp_vjp as fm
+from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
+from transformer_latent_diffusion_tpu_torch.ops import fused_stack_int8 as q8
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (no interpret mode for CUDA kernels)")
+
+
+def _rel_l2(a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _tuple(v):
+    return v if isinstance(v, tuple) else (v,)
+
+
+# ------------------------------ K1 ------------------------------
+
+
+def _stage_args(name, device):
+    g = torch.Generator().manual_seed(1)
+    b, hw, d, heads = 2, 8, 128, 2
+    n = hw * hw
+
+    def r(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g).to(device=device, dtype=dtype)
+
+    bf = torch.bfloat16
+    if name == "ln_gemm":
+        return (r(b * n, d), r(3 * d, d, dtype=bf)), {"ln": (r(d), r(d))}
+    if name == "self_attention":
+        return (r(b * n, 3 * d, dtype=bf), r(b * n, d), heads, n), {}
+    if name == "cross_attention":
+        return (r(b * n, d, dtype=bf), r(2 * b, 2 * d, dtype=bf), r(b * n, d),
+                (r(d), r(d)), heads, n), {}
+    return (r(b * n, 4 * d, dtype=bf), r(9, 4 * d, dtype=bf), r(4 * d), hw), {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", fs.KERNELS)
+def test_kernel_matches_plain_on_card(name):
+    """The CUDA kernel against its plain version on the card, at the tiny
+    shapes above: bf16 outputs may differ by one rounding step, so rel-L2
+    below 1e-2 for every output."""
+    _need_card()
+    args, kw = _stage_args(name, "cuda")
+    plain_args = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+    want = getattr(fs, f"{name}_plain")(*plain_args, **kw)
+    before = fs.LAUNCHES[name]
+    got = getattr(fs, name)(*args, **kw)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES[name] == before + 1
+    for g, w in zip(_tuple(got), _tuple(want)):
+        assert _rel_l2(g.float(), w.float()) < 1e-2
+
+
+# ------------------------------ K2's backward kernels ------------------------------
+
+
+def _kernel_cases(dev):
+    """(name, kernel call, plain call) of every K2 backward kernel at a
+    small shape on `dev`, inputs from a seed."""
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    bb, n, d, heads, hid = 32, 256, 128, 2, 256
+
+    def rnd(*s, dtype=torch.float32, std=1.0):
+        return (torch.randn(*s, generator=gen) * std).to(dev, dtype)
+
+    m = bb * n
+    bf = torch.bfloat16
+    dy, xx = rnd(m, 256, dtype=bf), rnd(m, 128, dtype=bf)
+    da, c, h = rnd(m, hid), rnd(m, hid), rnd(m, hid)
+    dw = rnd(9, hid, dtype=bf, std=1 / 3)
+    x, ups, sc = rnd(m, d), rnd(m, d), 1 + rnd(d, std=0.1)
+    qkv, dout = rnd(m, 3 * d, dtype=bf), rnd(m, d)
+    kv = rnd(2 * bb, 2 * d, dtype=bf)
+    return [
+        ("weight_grad", lambda: lv.weight_grad(dy, xx),
+         lambda: lv.weight_grad_plain(dy, xx)),
+        ("colsum", lambda: lv.colsum(da), lambda: lv.colsum_plain(da)),
+        ("layernorm_bwd", lambda: lv.layernorm_bwd(dout, x, sc, ups),
+         lambda: lv.layernorm_bwd_plain(dout, x, sc, ups)),
+        ("dwconv_gelu_bwd", lambda: lv.dwconv_gelu_bwd(da, c, h, dw, 16),
+         lambda: lv.dwconv_gelu_bwd_plain(da, c, h, dw, 16)),
+        ("self_attention_bwd", lambda: lv.self_attention_bwd(qkv, dout, heads, n),
+         lambda: lv.self_attention_bwd_plain(qkv, dout, heads, n)),
+        ("cross_attention_bwd",
+         lambda: lv.cross_attention_bwd(qkv[:, :d].contiguous(), kv, dout, heads, n),
+         lambda: lv.cross_attention_bwd_plain(qkv[:, :d].contiguous(), kv, dout,
+                                              heads, n)),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["weight_grad", "colsum", "layernorm_bwd",
+                                  "dwconv_gelu_bwd", "self_attention_bwd",
+                                  "cross_attention_bwd"])
+def test_kernel_matches_plain_on_cuda(name):
+    """Each backward kernel against its plain version on the card: rel-L2
+    < 1e-2 per output (bf16 outputs may differ by one rounding step)."""
+    _need_card()
+    kern, plain = next((k, p) for n, k, p in _kernel_cases("cuda") if n == name)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    for u, v in zip(_tuple(got), _tuple(want)):
+        assert _rel_l2(u.float(), v.float()) < 1e-2
+
+
+# ------------------------------ K3, K4, K5 ------------------------------
+
+
+def _mlp_inputs(hw, d=64, hidden=256, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((2, hw * hw, d)).astype(np.float32),
+            (rng.standard_normal((d, hidden)) * d ** -0.5).astype(np.float32),
+            (rng.standard_normal(hidden) * 0.1).astype(np.float32),
+            (rng.standard_normal((9, hidden)) / 3).astype(np.float32),
+            (rng.standard_normal(hidden) * 0.1).astype(np.float32),
+            (rng.standard_normal((hidden, d)) * hidden ** -0.5).astype(np.float32),
+            (rng.standard_normal(d) * 0.1).astype(np.float32))
+
+
+def _port_mlp_args(x, w1, b1, dw, dwb, w2, b2, dtype, device="cpu"):
+    """The (in, out) layouts above in the port's: (out, in) products,
+    float32 biases."""
+    def t(a, dt=dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)
+
+    return (t(x), t(w1.T), t(b1, torch.float32), t(dw), t(dwb, torch.float32),
+            t(w2.T), t(b2, torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 400, 1024])
+def test_flash_attention_matches_plain_on_card(n):
+    """K3's kernel against attention_plain on the fused QKV rows (strided
+    q, k, v views): bf16 output within rel-L2 1e-2 and max-abs 2e-2 of the
+    output's scale (p is rounded at another point, see the kernel)."""
+    _need_card()
+    qkv = torch.randn(2, n, 3 * 128, device="cuda").to(torch.bfloat16)
+    q, k, v = qkv.chunk(3, dim=-1)
+    before = att.LAUNCHES["flash_attention"]
+    with torch.no_grad():
+        got = att.flash_attention(q, k, v, 2).float()
+        want = att.multi_head_attention(q, k, v, 2)
+    torch.cuda.synchronize()
+    assert att.LAUNCHES["flash_attention"] == before + 1
+    want = want.float()
+    assert float((got - want).norm() / want.norm()) < 1e-2
+    assert float((got - want).abs().max()) < 2e-2 * float(want.abs().max())
+    # with a gradient asked for, the same forward through FlashAttentionFunction
+    q.requires_grad_(True)
+    out = att.flash_attention(q, k, v, 2)
+    assert float((out.detach().float() - got).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_fused_mlp_sepconv_and_band_body_match_plain_on_card():
+    """K5's forward at hw = 32 (float32 h through the row-band body of
+    dwconv_gelu) against its plain version: rel-L2 below 1e-2. D = 128:
+    ln_gemm's output width is a multiple of 128."""
+    _need_card()
+    args = _port_mlp_args(*_mlp_inputs(32, d=128), torch.bfloat16, "cuda")
+    with torch.no_grad():
+        got = fm.fused_mlp_sepconv(*args, 32).float()
+        want = fm.fused_mlp_sepconv_plain(*args, 32).float()
+        h = torch.randn(2 * 32 * 32, 256, device="cuda")
+        band = fs.dwconv_gelu(h, args[3], args[4], 32).float()
+        band_want = fs.dwconv_gelu_plain(h, args[3], args[4], 32).float()
+    torch.cuda.synchronize()
+    assert float((got - want).norm() / want.norm()) < 1e-2
+    assert float((band - band_want).norm() / band_want.norm()) < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [512, 1024])
+def test_flash_attention_bwd_matches_plain_on_card(n):
+    """K4 (`flash_attention_bwd`, after the forward with its log-sum-exp)
+    against `attention_bwd_plain` on the fused QKV rows: dq, dk, dv each
+    within rel-L2 1e-2 (D = rowsum(g o) from the bf16 output, and bf16
+    outputs)."""
+    _need_card()
+    qkv = torch.randn(2, n, 3 * 128, device="cuda").to(torch.bfloat16)
+    q, k, v = qkv.chunk(3, dim=-1)
+    g = torch.randn(2, n, 128, device="cuda").to(torch.bfloat16)
+    o, lse = att._flash_forward(q, k, v, 2, with_lse=True)
+    got = att.flash_attention_bwd(q, k, v, g, 2, o=o, lse=lse)
+    want = att.flash_attention_bwd(*(t.cpu() for t in (q, k, v, g)), 2)
+    torch.cuda.synchronize()
+    for u, w in zip(got, want):
+        assert _rel_l2(u.float(), w.float()) < 1e-2
+
+
+@pytest.mark.cuda
+def test_fused_mlp_sepconv_bwd_matches_plain_on_card():
+    """K5's backward at hw = 32 (the row-band dwconv_gelu_bwd body) against
+    `fused_mlp_sepconv_bwd_plain`: each of the 7 outputs within rel-L2
+    1e-2. D = 128: weight_grad's and ln_gemm's output widths are multiples
+    of 128."""
+    _need_card()
+    args = _port_mlp_args(*_mlp_inputs(32, d=128), torch.bfloat16, "cuda")
+    g = torch.randn(args[0].shape, device="cuda").to(torch.bfloat16)
+    x, w1, b1, dw, dwb, w2, _ = args
+    got = fm.fused_mlp_sepconv_bwd(x, g, w1, b1, dw, dwb, w2, 32)
+    want = fm.fused_mlp_sepconv_bwd_plain(x, g, w1, b1, dw, dwb, w2, 32)
+    torch.cuda.synchronize()
+    for u, w in zip(got, want):
+        assert _rel_l2(u.float(), w.float()) < 1e-2
+    assert math.isfinite(float(got[0].float().sum()))
+
+
+# ------------------------------ K7 ------------------------------
+
+
+def _int8_stage_args(name, device):
+    g = torch.Generator().manual_seed(6)
+    m, k, n = 64, 256, 384
+
+    def r(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g).to(device=device, dtype=dtype)
+
+    if name == "rowquant":
+        return (r(m, k),), {"ln": (r(k), r(k))}
+    xq = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8).to(device)
+    wq = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8).to(device)
+    return (xq, r(m, 1).abs(), wq, r(1, n).abs()), {"bias": r(n), "residual": r(m, n)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", q8.KERNELS)
+def test_int8_kernel_matches_plain_on_card(name):
+    """The CUDA kernel against its plain version on the card, at the small
+    shapes above: gemm_i8 on the same int8 operands is exact by
+    construction (integer sums, the same float32 epilogue roundings);
+    rowquant's LayerNorm statistics are summed in another order, so int8
+    values within 1 in under 0.1% of elements and scales within 1e-6."""
+    _need_card()
+    args, kw = _int8_stage_args(name, "cuda")
+    kw_plain = {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    want = getattr(q8, f"{name}_plain")(*args, **kw_plain)
+    before = q8.LAUNCHES[name]
+    got = getattr(q8, name)(*args, **kw)
+    torch.cuda.synchronize()
+    assert q8.LAUNCHES[name] == before + 1
+    if name == "gemm_i8":
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+    else:
+        diff = (got[0].int() - want[0].int()).abs()
+        assert diff.max() <= 1 and (diff > 0).float().mean() < 1e-3
+        torch.testing.assert_close(got[1], want[1], atol=0, rtol=1e-6)
+
+
+# ------------------------------ the ragged tile, K6, K8, K9 ------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [144, 200, 37])
+def test_ragged_self_attention_matches_plain_on_card(n):
+    """self_attention and self_attention_bwd on a token count that is not a
+    multiple of 64 (the ragged last tile: keys past N masked, rows past N
+    neither read nor written) against their plain versions: rel-L2 below
+    1e-2; the rows of the next batch element stay untouched."""
+    _need_card()
+    gen = torch.Generator().manual_seed(n)
+    b, d, heads = 3, 128, 2
+    qkv = torch.randn(b * n, 3 * d, generator=gen).to("cuda", torch.bfloat16)
+    res = torch.randn(b * n, d, generator=gen).to("cuda")
+    dout = torch.randn(b * n, d, generator=gen).to("cuda")
+    want = fs.self_attention_plain(qkv, res.clone(), heads, n)
+    got = fs.self_attention(qkv, res.clone(), heads, n)
+    dwant = lv.self_attention_bwd_plain(qkv, dout, heads, n)
+    dgot = lv.self_attention_bwd(qkv, dout, heads, n)
+    torch.cuda.synchronize()
+    assert _rel_l2(got, want) < 1e-2
+    assert _rel_l2(dgot.float(), dwant.float()) < 1e-2
+    for t in (got, dgot):
+        assert torch.isfinite(t.float()).all()
+
+
+def _k6_inputs(b, n, d=128, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    bf = torch.bfloat16
+
+    def r(*s, std=1.0, dtype=torch.float32, base=0.0):
+        return (base + torch.randn(*s, generator=gen) * std).to("cuda", dtype)
+
+    return [r(b, n, d, dtype=bf), r(b, 2, d, dtype=bf), r(d, std=0.1, base=1.0),
+            r(d, std=0.1), r(3 * d, d, std=d ** -0.5, dtype=bf), r(d, std=0.1, base=1.0),
+            r(d, std=0.1), r(d, d, std=d ** -0.5, dtype=bf),
+            r(2 * d, d, std=d ** -0.5, dtype=bf)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 200])
+def test_attention_pair_vjp_matches_plain_on_card(n):
+    """K6's forward and its nine gradients through the kernels against the
+    written-out plain versions on the same inputs: the layer's update and
+    every gradient within rel-L2 2e-2 (the bf16 intermediates' one-step
+    flips through two attentions and two LayerNorms)."""
+    _need_card()
+    args = _k6_inputs(4, n)
+    g = (torch.randn(4, n, 128, generator=torch.Generator().manual_seed(1)) * 0.1).to(
+        "cuda", torch.bfloat16)
+    before = dict(k6.LAUNCHES)
+    out = k6.fused_attention_pair_fwd(*args, 2)
+    want = k6.fused_attention_pair_fwd_plain(*args, 2)
+    grads = k6.fused_attention_pair_bwd(args[0], args[1], g, *args[2:], 2)
+    gwant = k6.fused_attention_pair_bwd_plain(args[0], args[1], g, *args[2:], 2)
+    torch.cuda.synchronize()
+    assert k6.LAUNCHES["fused_attention_pair_vjp"] == before["fused_attention_pair_vjp"] + 1
+    x = args[0].float()
+    assert _rel_l2(out.float() - x, want.float() - x) < 2e-2
+    for name, u, w in zip(("x", "cond") + k6.PARAM_NAMES, grads, gwant):
+        assert _rel_l2(u.float(), w.float()) < 2e-2, name
+
+
+@pytest.mark.cuda
+def test_fused_block_entry_points_match_plain_on_card():
+    """K8 (`fused_attention_pair`, the cond K/V given) and K9
+    (`fused_mlp_sepconv`) through K1's kernels against their plain
+    versions: the updates within rel-L2 1e-2."""
+    _need_card()
+    a = _k6_inputs(2, 256, seed=2)
+    gen = torch.Generator().manual_seed(3)
+    kc, vc = (torch.randn(2, 2, 128, generator=gen).to("cuda", torch.bfloat16)
+              for _ in range(2))
+    k8 = (a[0], *a[2:7], a[7], kc, vc)
+    x = a[0].float()
+    got, want = fb.fused_attention_pair(*k8, 2), fb.fused_attention_pair_plain(*k8, 2)
+    assert _rel_l2(got.float() - x, want.float() - x) < 1e-2
+    m = _port_mlp_args(*_mlp_inputs(16, d=128, hidden=512), torch.bfloat16, "cuda")
+    k9 = (m[0], a[2], a[3], m[1], m[2], m[3], m[4], m[5], m[6])
+    x = m[0].float()
+    got, want = fb.fused_mlp_sepconv(*k9, 16), fb.fused_mlp_sepconv_plain(*k9, 16)
+    torch.cuda.synchronize()
+    assert _rel_l2(got.float() - x, want.float() - x) < 1e-2

@@ -181,9 +181,17 @@ def test_fused_engine_rounds_between_layers(tiny):
 
 
 def test_engine_options_not_ported_raise(tiny):
+    """Block caching still raises, naming its ROADMAP item. mlp_class="moe"
+    raised too before the MoE FFN was ported; now the Denoiser builds with
+    the MoE FFN in every block (the JAX leaves' names), and an unknown FFN
+    raises ValueError."""
     cfg = port_configs.DenoiserConfig()
     engine = make_fused_apply(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.apply_prepared_cached(None, None, None, None, None, True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Denoiser.from_config(port_configs.DenoiserConfig(mlp_class="moe"))
+    moe = Denoiser.from_config(port_configs.DenoiserConfig(mlp_class="moe", n_experts=4))
+    sd = moe.state_dict()
+    assert sd["denoiser_trans_block.decoder_blocks.0.mlp.wi"].shape == (4, 128, 512)
+    assert sd["denoiser_trans_block.decoder_blocks.0.mlp.router.weight"].shape == (4, 128)
+    with pytest.raises(ValueError, match="mlp_class"):
+        Denoiser.from_config(port_configs.DenoiserConfig(mlp_class="conv"))

@@ -7,8 +7,8 @@ routing between the fused engine and the linen path.
 On the CPU the port's wrappers run their kernels' plain versions; the
 JAX package runs K3's plain reference `_xla_attention` (its `_pallas_ok`
 is false off the TPU) and K5 in Pallas interpret mode. The CUDA kernels
-themselves are checked against the plain versions on the card (the
-`cuda`-marked tests here, and chip_smoke.py)."""
+themselves are checked against the plain versions on the card
+(tests/test_torch_port_cuda.py, and chip_smoke.py)."""
 
 import re
 from dataclasses import asdict
@@ -401,52 +401,3 @@ def test_c_entry_points_match_the_ctypes_signatures():
                                      src.read_text()):
             found[name] = len(args.split(","))
     assert found == {k: len(v) for k, v in _build.SIGNATURES.items()}
-
-
-# ------------------------------ on the card ------------------------------
-
-
-def _need_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (no interpret mode for CUDA kernels)")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [64, 400, 1024])
-def test_flash_attention_matches_plain_on_card(n):
-    """K3's kernel against attention_plain on the fused QKV rows (strided
-    q, k, v views): bf16 output within rel-L2 1e-2 and max-abs 2e-2 of the
-    output's scale (p is rounded at another point, see the kernel)."""
-    _need_card()
-    qkv = torch.randn(2, n, 3 * 128, device="cuda").to(torch.bfloat16)
-    q, k, v = qkv.chunk(3, dim=-1)
-    before = att.LAUNCHES["flash_attention"]
-    with torch.no_grad():
-        got = att.flash_attention(q, k, v, 2).float()
-        want = att.multi_head_attention(q, k, v, 2)
-    torch.cuda.synchronize()
-    assert att.LAUNCHES["flash_attention"] == before + 1
-    want = want.float()
-    assert float((got - want).norm() / want.norm()) < 1e-2
-    assert float((got - want).abs().max()) < 2e-2 * float(want.abs().max())
-    # with a gradient asked for, the same forward through FlashAttentionFunction
-    q.requires_grad_(True)
-    out = att.flash_attention(q, k, v, 2)
-    assert float((out.detach().float() - got).abs().max()) == 0.0
-
-
-@pytest.mark.cuda
-def test_fused_mlp_sepconv_and_band_body_match_plain_on_card():
-    """K5's forward at hw = 32 (float32 h through the row-band body of
-    dwconv_gelu) against its plain version: rel-L2 below 1e-2."""
-    _need_card()
-    args = _port_mlp_args(*_mlp_inputs(32), torch.bfloat16, "cuda")
-    with torch.no_grad():
-        got = fm.fused_mlp_sepconv(*args, 32).float()
-        want = fm.fused_mlp_sepconv_plain(*args, 32).float()
-        h = torch.randn(2 * 32 * 32, 256, device="cuda")
-        band = fs.dwconv_gelu(h, args[3], args[4], 32).float()
-        band_want = fs.dwconv_gelu_plain(h, args[3], args[4], 32).float()
-    torch.cuda.synchronize()
-    assert float((got - want).norm() / want.norm()) < 1e-2
-    assert float((band - band_want).norm() / band_want.norm()) < 1e-2

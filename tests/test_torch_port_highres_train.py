@@ -8,10 +8,9 @@ On the CPU the port's wrappers run their kernels' plain versions; the JAX
 package runs its Pallas kernels K4a, K4b and K5 in interpret mode and its
 attention's plain reference `_xla_attention` (its `_pallas_ok` is false
 off the TPU), as its own tests do. The CUDA kernels are checked against the
-plain versions on the card (the `cuda`-marked tests here, and
+plain versions on the card (tests/test_torch_port_cuda.py, and
 chip_smoke.py)."""
 
-import math
 from dataclasses import asdict
 
 import jax
@@ -522,47 +521,3 @@ def test_train_main_builds_the_jax_kernel_flags(tmp_path):
                    for b in ema.denoiser_trans_block.decoder_blocks)
     cfg.train_config.remat = False
     assert not ttrain.main(cfg, device="cpu")["model"].denoiser_trans_block.remat
-
-
-# ------------------------------ on the card ------------------------------
-
-
-def _need_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (no interpret mode for CUDA kernels)")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [512, 1024])
-def test_flash_attention_bwd_matches_plain_on_card(n):
-    """K4 (`flash_attention_bwd`, after the forward with its log-sum-exp)
-    against `attention_bwd_plain` on the fused QKV rows: dq, dk, dv each
-    within rel-L2 1e-2 (D = rowsum(g o) from the bf16 output, and bf16
-    outputs)."""
-    _need_card()
-    qkv = torch.randn(2, n, 3 * 128, device="cuda").to(torch.bfloat16)
-    q, k, v = qkv.chunk(3, dim=-1)
-    g = torch.randn(2, n, 128, device="cuda").to(torch.bfloat16)
-    o, lse = att._flash_forward(q, k, v, 2, with_lse=True)
-    got = att.flash_attention_bwd(q, k, v, g, 2, o=o, lse=lse)
-    want = att.flash_attention_bwd(*(t.cpu() for t in (q, k, v, g)), 2)
-    torch.cuda.synchronize()
-    for u, w in zip(got, want):
-        assert rel_l2(_np(u.cpu()), _np(w)) < 1e-2
-
-
-@pytest.mark.cuda
-def test_fused_mlp_sepconv_bwd_matches_plain_on_card():
-    """K5's backward at hw = 32 (the row-band dwconv_gelu_bwd body) against
-    `fused_mlp_sepconv_bwd_plain`: each of the 7 outputs within rel-L2
-    1e-2."""
-    _need_card()
-    args = _port_mlp_args(*_mlp_inputs(32), torch.bfloat16, "cuda")
-    g = torch.randn(args[0].shape, device="cuda").to(torch.bfloat16)
-    x, w1, b1, dw, dwb, w2, _ = args
-    got = fm.fused_mlp_sepconv_bwd(x, g, w1, b1, dw, dwb, w2, 32)
-    want = fm.fused_mlp_sepconv_bwd_plain(x, g, w1, b1, dw, dwb, w2, 32)
-    torch.cuda.synchronize()
-    for u, w in zip(got, want):
-        assert rel_l2(_np(u.cpu()), _np(w.cpu())) < 1e-2
-    assert math.isfinite(float(got[0].float().sum()))

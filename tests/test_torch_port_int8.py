@@ -392,28 +392,3 @@ def test_int8_stages_match_independent_forms():
     x_no, none = fs.cross_attention_plain(qc, kv, res, None, heads, n)
     assert none is None and xn is not None
     torch.testing.assert_close(x_no, x_ln, atol=0, rtol=0)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", q8.KERNELS)
-def test_int8_kernel_matches_plain_on_card(name):
-    """The CUDA kernel against its plain version on the card, at the small
-    shapes above: gemm_i8 on the same int8 operands is exact by
-    construction (integer sums, the same float32 epilogue roundings);
-    rowquant's LayerNorm statistics are summed in another order, so int8
-    values within 1 in under 0.1% of elements and scales within 1e-6."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (no interpret mode for CUDA kernels)")
-    args, kw = _stage_args(name, "cuda")
-    kw_plain = {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
-    want = getattr(q8, f"{name}_plain")(*args, **kw_plain)
-    before = q8.LAUNCHES[name]
-    got = getattr(q8, name)(*args, **kw)
-    torch.cuda.synchronize()
-    assert q8.LAUNCHES[name] == before + 1
-    if name == "gemm_i8":
-        torch.testing.assert_close(got, want, atol=0, rtol=0)
-    else:
-        diff = (got[0].int() - want[0].int()).abs()
-        assert diff.max() <= 1 and (diff > 0).float().mean() < 1e-3
-        torch.testing.assert_close(got[1], want[1], atol=0, rtol=1e-6)

@@ -1,6 +1,7 @@
 """The port's WSGI service on the CPU with tiny random weights: routes,
-bearer auth, the text-to-image 422 checks, and the 422 that names the
-ROADMAP item of a field the port does not serve yet."""
+bearer auth, the text-to-image 422 checks, the 422 that names the
+ROADMAP item of a field the port does not serve yet, and the 500s and
+non-object bodies against the JAX WSGI app's answers."""
 
 import io
 import json
@@ -103,3 +104,52 @@ def test_default_config_runs_bf16():
     assert default_config().denoiser_load.dtype == "bfloat16"
     assert default_config().denoiser_cfg == pc.LTDConfig().denoiser_cfg
     assert pc.LTDConfig().denoiser_load.dtype == "float32"
+
+
+class _FailingService:
+    """A service whose generation raises, for both packages' frontends."""
+
+    class transformer:  # noqa: N801 - the attribute the JAX app reads
+        consistency = False
+
+    def generate_jpeg(self, **kwargs):
+        raise RuntimeError("the card is gone")
+
+    def effective_n_iter(self, n_iter):
+        return n_iter
+
+    def health(self):
+        return {}
+
+
+def _raw_call(app, raw: bytes):
+    environ = {"REQUEST_METHOD": "POST", "PATH_INFO": "/generate-image/",
+               "CONTENT_LENGTH": str(len(raw)), "wsgi.input": io.BytesIO(raw),
+               "HTTP_AUTHORIZATION": f"Bearer {TOKEN}"}
+    seen = {}
+
+    def start_response(status, headers):
+        seen["status"] = int(status.split()[0])
+
+    out = b"".join(app(environ, start_response))
+    return seen["status"], json.loads(out)
+
+
+@pytest.mark.parametrize("raw", [
+    b'{"prompt": "a cat"}', b"{not json", b"[1, 2]", b'["prompt"]', b'"text"',
+    b"5", b"null"], ids=["generation_fails", "not_json", "list", "list_with_prompt",
+                         "string", "number", "null"])
+def test_500_and_non_object_bodies_answer_as_the_jax_app(raw):
+    """A failing generation is a 500 with {"detail": str(e)}, and a body
+    that is not a JSON object gets the JAX WSGI app's status and detail
+    (a 500 with the parser's or the lookup's message, or the 422 of the
+    prompt check), as the JAX frontend answers them."""
+    from transformer_latent_diffusion_tpu.serve.app import create_wsgi_app as jax_app
+
+    got = _raw_call(create_wsgi_app(service=_FailingService()), raw)
+    want = _raw_call(jax_app(service=_FailingService()), raw)
+    assert got == want
+    if raw.startswith(b"{"):
+        assert got[0] == 500
+    if raw == b'{"prompt": "a cat"}':
+        assert got == (500, {"detail": "the card is gone"})

@@ -317,22 +317,24 @@ def test_sigterm_stops_at_a_step_boundary_and_resumes(tmp_path, monkeypatch):
 def test_unported_train_field_raises(tmp_path, field, value):
     """A field whose feature the port does not run raises, naming it.
     fused_mlp_vjp=True, remat=True and schedule_shift="auto" came with
-    hi-res training: each now trains one CPU step with the feature on
-    (the MLP flag, here without the fused layer, and remat on the model;
-    "auto" on the native bucket is no shift, so its loss equals
-    schedule_shift=None's)."""
-    if field not in ("fused_mlp_vjp", "remat", "schedule_shift"):
+    hi-res training, fused_attn_vjp=True with the attention pair K6: each
+    now trains one CPU step with the feature on (the MLP and attention
+    flags here without the fused layer, remat on the model; "auto" on the
+    native bucket is no shift, so its loss equals schedule_shift=None's)."""
+    if field not in ("fused_mlp_vjp", "fused_attn_vjp", "remat", "schedule_shift"):
         with pytest.raises(NotImplementedError, match=field):
             ttrain.main(_cfg(tmp_path, **{field: value}), device="cpu")
         return
     one_step = dict(n_epoch=1, batch_size=64)
-    if field == "fused_mlp_vjp":
+    if field in ("fused_mlp_vjp", "fused_attn_vjp"):
         one_step["fused_layer_vjp"] = None
     r = ttrain.main(_cfg(tmp_path, **one_step, **{field: value}), device="cpu")
     assert r["global_step"] == 1 and np.isfinite(r["losses"][0])
     tb = r["model"].denoiser_trans_block
     if field == "fused_mlp_vjp":
         assert all(b.mlp.fused_vjp for b in tb.decoder_blocks)
+    elif field == "fused_attn_vjp":
+        assert all(b.fused_attn_vjp and not b.fused_layer_vjp for b in tb.decoder_blocks)
     elif field == "remat":
         assert tb.remat
     else:
@@ -341,10 +343,14 @@ def test_unported_train_field_raises(tmp_path, field, value):
 
 
 def test_unported_model_fields_raise(tmp_path):
-    cfg = _cfg(tmp_path)
+    """mlp_class="moe" raised before the MoE FFN was ported; now a fused-
+    layer MoE model trains one CPU step, its blocks taking K6's route (the
+    JAX block's want_attn) with the Switch loss in the objective."""
+    cfg = _cfg(tmp_path, n_epoch=1, batch_size=64)
     cfg.denoiser_config.mlp_class = "moe"
-    with pytest.raises(NotImplementedError, match="moe"):
-        ttrain.main(cfg, device="cpu")
+    r = ttrain.main(cfg, device="cpu")
+    assert r["global_step"] == 1 and np.isfinite(r["losses"][0])
+    assert r["model"].mlp_class == "moe" and float(r["model"].moe_aux_loss().detach()) > 0
     # multires buckets came with hi-res training: a 2x bucket trains
     # beside the native one, and unpaired paths raise
     cfg = _cfg(tmp_path, n_epoch=1)
@@ -392,36 +398,37 @@ def test_train_beyond_fused_layer_tokens_raises(tmp_path, image_size, patch_size
 def test_fused_block_outside_gate_raises_off_cpu(n_tokens):
     """Outside the fused layer's gate a DecoderBlock with
     fused_layer_vjp=True takes the JAX block's component route. On a
-    square grid (324 tokens) that is K5 for the MLP: the block now matches
-    the JAX block (float32, K5 in interpret mode there) to rel-L2 1e-5,
-    and off the CPU the K5 wrapper takes the tensors (on the meta device,
-    which needs no card, it refuses them as not CUDA). A grid that is not
-    square (200 tokens) needs the attention pair K6, not ported: it
-    raises NotImplementedError naming K6 on any device but the CPU."""
-    block = blocks.DecoderBlock(64, 4, fused_layer_vjp=True)
-    x, y = torch.zeros(1, n_tokens, 64), torch.zeros(1, 2, 64)
-    if math.isqrt(n_tokens) ** 2 == n_tokens:
-        from transformer_latent_diffusion_tpu.models.blocks import DecoderBlock as JaxBlock
+    square grid (324 tokens) that is K5 for the MLP; on a grid that is not
+    square (200 tokens, with the plain MLP, since the sep-conv one needs a
+    square grid in both packages) the attention pair K6, which raised
+    NotImplementedError off the CPU before K6 was ported. Either block
+    now matches the JAX block (float32, the kernel in interpret mode
+    there) to rel-L2 1e-5, and off the CPU the kernel's wrapper takes the
+    tensors (on the meta device, which needs no card, it refuses them as
+    not CUDA)."""
+    from transformer_latent_diffusion_tpu.models.blocks import MLP as JaxMLP
+    from transformer_latent_diffusion_tpu.models.blocks import DecoderBlock as JaxBlock
+    from transformer_latent_diffusion_tpu.models.blocks import MLPSepConv as JaxSepConv
 
-        rng = np.random.default_rng(n_tokens)
-        xs = rng.standard_normal((1, n_tokens, 64)).astype(np.float32)
-        ys = rng.standard_normal((1, 2, 64)).astype(np.float32)
-        jblock = JaxBlock(embed_dim=64, mlp_multiplier=4, dropout_level=0.0,
-                          fused_layer_vjp=True)
-        params = jblock.init(jax.random.PRNGKey(0), jnp.asarray(xs), jnp.asarray(ys))["params"]
-        want = np.asarray(jblock.apply({"params": params}, jnp.asarray(xs), jnp.asarray(ys)))
-        block.load_state_dict({k: torch.from_numpy(v) for k, v in
-                               convert.decoder_block_state_dict(
-                                   jax.tree.map(np.asarray, params)).items()})
-        with torch.no_grad():
-            got = block(torch.from_numpy(xs), torch.from_numpy(ys)).numpy()
-        assert _rel_l2(got, want) < 1e-5
-        block.to("meta")
-        with pytest.raises(ValueError, match="CUDA"):
-            block(x.to("meta"), y.to("meta"))
-        return
+    square = math.isqrt(n_tokens) ** 2 == n_tokens
+    mlp_class = "sep_conv" if square else "mlp"
+    block = blocks.DecoderBlock(64, 4, fused_layer_vjp=True, mlp_class=mlp_class)
+    x, y = torch.zeros(1, n_tokens, 64), torch.zeros(1, 2, 64)
+    rng = np.random.default_rng(n_tokens)
+    xs = rng.standard_normal((1, n_tokens, 64)).astype(np.float32)
+    ys = rng.standard_normal((1, 2, 64)).astype(np.float32)
+    jblock = JaxBlock(embed_dim=64, mlp_multiplier=4, dropout_level=0.0,
+                      fused_layer_vjp=True, mlp_class=JaxSepConv if square else JaxMLP)
+    params = jblock.init(jax.random.PRNGKey(0), jnp.asarray(xs), jnp.asarray(ys))["params"]
+    want = np.asarray(jblock.apply({"params": params}, jnp.asarray(xs), jnp.asarray(ys)))
+    block.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           convert.decoder_block_state_dict(
+                               jax.tree.map(np.asarray, params)).items()})
+    with torch.no_grad():
+        got = block(torch.from_numpy(xs), torch.from_numpy(ys)).numpy()
+    assert _rel_l2(got, want) < 1e-5
     block.to("meta")
-    with pytest.raises(NotImplementedError, match="K6"):
+    with pytest.raises(ValueError, match="CUDA"):
         block(x.to("meta"), y.to("meta"))
 
 

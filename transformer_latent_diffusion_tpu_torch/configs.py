@@ -68,8 +68,8 @@ class DenoiserConfig:
     text_emb_size: int = 768
     n_channels: int = 4
     mlp_multiplier: int = 4
-    # "sep_conv" is the only FFN the port runs so far; "mlp" and "moe"
-    # raise NotImplementedError at model construction
+    # the FFN: "sep_conv" (LocalViT), "mlp" (Linear/GELU/Linear) or "moe"
+    # (Switch top-1 mixture of experts; models.blocks.MLP_CLASSES)
     mlp_class: str = "sep_conv"
     n_experts: int = 8
     expert_capacity_factor: float = 1.25
@@ -243,7 +243,6 @@ _UNPORTED_TRAIN = (
     ("sequence_parallel", bool, "item 14 (parallelism)"),
     ("lora_rank", lambda v: v > 0, "item 11 (LoRA)"),
     ("outpaint", bool, "item 9 (outpaint)"),
-    ("fused_attn_vjp", lambda v: v is True, "kernel K6 (MoE)"),
     ("use_wandb", bool, "item 12 (logging)"),
     ("param_dtype", lambda v: v != "float32", "item 7 (bf16 master weights)"),
 )
@@ -258,11 +257,7 @@ def check_train_config(cfg: ModelConfig) -> None:
         if unported(value):
             raise NotImplementedError(
                 f"TrainConfig.{name}={value!r} is not ported yet (ROADMAP {item})")
-    den = cfg.denoiser_config
-    if den.mlp_class != "sep_conv":
-        raise NotImplementedError(f"mlp_class={den.mlp_class!r} is not ported "
-                                  "yet (ROADMAP kernel K6, MoE)")
-    if den.dropout:
+    if cfg.denoiser_config.dropout:
         raise NotImplementedError("dropout > 0 is not ported yet (ROADMAP, "
                                   "what the training slice left out)")
 

@@ -91,19 +91,31 @@ def denoiser_state_dict(params: Dict[str, Any], cfg) -> StateDict:
 
 
 def decoder_block_state_dict(blk: Dict[str, Any]) -> StateDict:
-    """JAX `DecoderBlock` params -> the port's `DecoderBlock` state_dict."""
+    """JAX `DecoderBlock` params -> the port's `DecoderBlock` state_dict, for
+    each FFN: the sep-conv MLP (the reference layout), the plain MLP
+    (`Dense_0`/`Dense_1` -> `mlp.mlp.0`/`mlp.mlp.2`) and the MoE
+    (`router.kernel` (D, E) -> `mlp.router.weight` (E, D); `wi`, `bi`,
+    `wo`, `bo` as they are, the layout `models.moe` defines)."""
     sd: StateDict = {}
     _linear(sd, "self_attention.qkv_linear", blk["self_attention"]["qkv_linear"])
     _linear(sd, "cross_attention.q_linear", blk["cross_attention"]["q_linear"])
     _linear(sd, "cross_attention.kv_linear", blk["cross_attention"]["kv_linear"])
     mlp = blk["mlp"]
-    # 1x1 convolutions (out, in, 1, 1) and the depthwise (hidden, 1, 3, 3)
-    sd["mlp.mlp.0.weight"] = _f32(mlp["expand"]["kernel"]).T[:, :, None, None].copy()
-    sd["mlp.mlp.0.bias"] = _f32(mlp["expand"]["bias"])
-    sd["mlp.mlp.1.weight"] = _f32(mlp["depthwise_kernel"]).transpose(3, 2, 0, 1).copy()
-    sd["mlp.mlp.1.bias"] = _f32(mlp["depthwise_bias"])
-    sd["mlp.mlp.3.weight"] = _f32(mlp["contract"]["kernel"]).T[:, :, None, None].copy()
-    sd["mlp.mlp.3.bias"] = _f32(mlp["contract"]["bias"])
+    if "router" in mlp:  # MoEMLP: the expert stacks as they are
+        sd["mlp.router.weight"] = _f32(mlp["router"]["kernel"]).T.copy()
+        for n in ("wi", "bi", "wo", "bo"):
+            sd[f"mlp.{n}"] = _f32(mlp[n])
+    elif "Dense_0" in mlp:  # MLP: Linear, GELU, Linear
+        _linear(sd, "mlp.mlp.0", mlp["Dense_0"])
+        _linear(sd, "mlp.mlp.2", mlp["Dense_1"])
+    else:
+        # 1x1 convolutions (out, in, 1, 1) and the depthwise (hidden, 1, 3, 3)
+        sd["mlp.mlp.0.weight"] = _f32(mlp["expand"]["kernel"]).T[:, :, None, None].copy()
+        sd["mlp.mlp.0.bias"] = _f32(mlp["expand"]["bias"])
+        sd["mlp.mlp.1.weight"] = _f32(mlp["depthwise_kernel"]).transpose(3, 2, 0, 1).copy()
+        sd["mlp.mlp.1.bias"] = _f32(mlp["depthwise_bias"])
+        sd["mlp.mlp.3.weight"] = _f32(mlp["contract"]["kernel"]).T[:, :, None, None].copy()
+        sd["mlp.mlp.3.bias"] = _f32(mlp["contract"]["bias"])
     for n in ("norm1", "norm2", "norm3"):
         _norm(sd, n, blk[n])
     return sd

@@ -30,7 +30,13 @@
 //     the dk and dv tiles staying in registers.
 // Both multiply with m16n8k16 bf16 `mma.sync`, operands from shared memory
 // through `ldmatrix` (transposed where the product reads a row-major
-// operand along its rows); each output element has one writer.
+// operand along its rows); each output element has one writer. Any
+// N <= 256 is taken: both kernels work on N rounded up to a multiple of 64
+// (their template) with the rows of the ragged last tile past N
+// zero-filled in shared memory and never read from device memory; key
+// columns past N enter the softmax as -inf (before the row max), query
+// rows past N get p = 0 (their stored row max is +inf), and no row of dq,
+// dk or dv past N is written.
 //
 // Cross-attention: per token two 64-wide dot products per head: 4
 // multiply-adds per byte read, memory-bound. One block per (batch, head),
@@ -41,6 +47,8 @@
 
 #include "common.cuh"
 
+#include <math.h>
+
 namespace {
 
 constexpr int DH = 64;
@@ -49,13 +57,15 @@ constexpr int QT = 64;       // rows per block of the two self-attention kernels
 constexpr int THREADS = 128;
 constexpr float SCALE = 0.125f;  // 1 / sqrt(64)
 
-// rows [r0, r0 + rows) of one head's upstream gradient (float32, row stride D)
-// into shared memory as bf16
-__device__ __forceinline__ void load_do(bf16* dst, const float* __restrict__ src, int rows, int D,
-                                        int tid) {
+// `rows` rows of one head's upstream gradient (float32, row stride D) into
+// shared memory as bf16; rows from `valid` on are zeros, not read
+__device__ __forceinline__ void load_do(bf16* dst, const float* __restrict__ src, int rows,
+                                        int valid, int D, int tid) {
   for (int c = tid; c < rows * (DH / 4); c += THREADS) {
     const int r = c / (DH / 4), col = (c % (DH / 4)) * 4;
-    const float4 v = *reinterpret_cast<const float4*>(src + static_cast<size_t>(r) * D + col);
+    const float4 v = r < valid
+                         ? *reinterpret_cast<const float4*>(src + static_cast<size_t>(r) * D + col)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
     uint2 p;
     p.x = pack_bf16x2(v.x, v.y);
     p.y = pack_bf16x2(v.z, v.w);
@@ -63,12 +73,14 @@ __device__ __forceinline__ void load_do(bf16* dst, const float* __restrict__ src
   }
 }
 
-// 64 bf16 columns of `rows` rows (row stride `stride`) into shared memory
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int rows, size_t stride,
-                                          int tid) {
+// 64 bf16 columns of `rows` rows (row stride `stride`) into shared memory;
+// rows from `valid` on are zero-filled (src-size 0: nothing is read)
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int rows, int valid,
+                                          size_t stride, int tid) {
   for (int c = tid; c < rows * 8; c += THREADS) {
     const int r = c >> 3, col = (c & 7) * 8;
-    cp_async16(dst + r * LDH + col, src + r * stride + col, 16);
+    const int ok = r < valid ? 16 : 0;
+    cp_async16(dst + r * LDH + col, src + (ok ? r : 0) * stride + col, ok);
   }
 }
 
@@ -114,29 +126,31 @@ __device__ __forceinline__ void to_a(uint32_t (&pa)[4], const float (&t0)[4], co
   pa[3] = pack_bf16x2(t1[2], t1[3]);
 }
 
-// 16 x 64 float32 accumulators -> bf16 at columns col0.. of rows row0 + g, row0 + g + 8
-__device__ __forceinline__ void store_rows(bf16* out, size_t stride, size_t row0, int col0,
-                                           const float (&acc)[DH / 8][4], int lane) {
+// 16 x 64 float32 accumulators -> bf16 at columns col0.. of rows row0 + g,
+// row0 + g + 8; only rows below row0 + valid are written
+__device__ __forceinline__ void store_rows(bf16* out, size_t stride, size_t row0, int valid,
+                                           int col0, const float (&acc)[DH / 8][4], int lane) {
   const int g = lane >> 2, t4 = lane & 3;
   bf16* r0 = out + (row0 + g) * stride + col0 + 2 * t4;
   bf16* r1 = r0 + 8 * stride;
 #pragma unroll
   for (int d = 0; d < DH / 8; ++d) {
-    *reinterpret_cast<uint32_t*>(r0 + d * 8) = pack_bf16x2(acc[d][0], acc[d][1]);
-    *reinterpret_cast<uint32_t*>(r1 + d * 8) = pack_bf16x2(acc[d][2], acc[d][3]);
+    if (g < valid) *reinterpret_cast<uint32_t*>(r0 + d * 8) = pack_bf16x2(acc[d][0], acc[d][1]);
+    if (g + 8 < valid)
+      *reinterpret_cast<uint32_t*>(r1 + d * 8) = pack_bf16x2(acc[d][2], acc[d][3]);
   }
 }
 
 template <int NT>
 __global__ void __launch_bounds__(THREADS)
 self_attention_bwd_dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ dout,
-                             bf16* __restrict__ dqkv, float* __restrict__ stats, int D) {
-  constexpr int N = NT * 64;
-  constexpr int NK8 = N / 8;
+                             bf16* __restrict__ dqkv, float* __restrict__ stats, int N, int D) {
+  constexpr int NP = NT * 64;  // N padded to whole tiles
+  constexpr int NK8 = NP / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + N * LDH;
-  bf16* Qs = Vs + N * LDH;
+  bf16* Vs = Ks + NP * LDH;
+  bf16* Qs = Vs + NP * LDH;
   bf16* Os = Qs + QT * LDH;
 
   const int q0 = blockIdx.x * QT;
@@ -151,11 +165,11 @@ self_attention_bwd_dq_kernel(const bf16* __restrict__ qkv, const float* __restri
   const size_t stride = 3 * static_cast<size_t>(D);
   const bf16* base = qkv + static_cast<size_t>(b) * N * stride + h * DH;
 
-  load_rows(Ks, base + D, N, stride, tid);
-  load_rows(Vs, base + 2 * D, N, stride, tid);
-  load_rows(Qs, base + q0 * stride, QT, stride, tid);
+  load_rows(Ks, base + D, NP, N, stride, tid);
+  load_rows(Vs, base + 2 * D, NP, N, stride, tid);
+  load_rows(Qs, base + q0 * stride, QT, N - q0, stride, tid);
   cp_async_commit();
-  load_do(Os, dout + (static_cast<size_t>(b) * N + q0) * D + h * DH, QT, D, tid);
+  load_do(Os, dout + (static_cast<size_t>(b) * N + q0) * D + h * DH, QT, N - q0, D, tid);
   cp_async_wait<0>();
   __syncthreads();
 
@@ -179,12 +193,14 @@ self_attention_bwd_dq_kernel(const bf16* __restrict__ qkv, const float* __restri
       }
     }
   }
-  // the forward's float32 softmax: rows g and g + 8 of the warp's 16
+  // the forward's float32 softmax: rows g and g + 8 of the warp's 16; keys
+  // past N are -inf
   float mx0 = -3.0e38f, mx1 = -3.0e38f;
 #pragma unroll
   for (int j = 0; j < NK8; ++j) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] *= SCALE;
+    for (int e = 0; e < 4; ++e)
+      s[j][e] = 8 * j + 2 * t4 + (e & 1) < N ? s[j][e] * SCALE : -INFINITY;
     mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
     mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
   }
@@ -257,25 +273,26 @@ self_attention_bwd_dq_kernel(const bf16* __restrict__ qkv, const float* __restri
     mma_pb(dq, pa, Ks, j2 * 16, lane);
   }
   const size_t row = static_cast<size_t>(b) * N + q0 + wr;
-  store_rows(dqkv, stride, row, h * DH, dq, lane);
+  store_rows(dqkv, stride, row, N - q0 - wr, h * DH, dq, lane);
   if (t4 == 0) {
     float* st = stats + ((static_cast<size_t>(b) * H + h) * N + q0 + wr + g) * 3;
-    st[0] = mx0, st[1] = sum0, st[2] = dl0;
-    st[24] = mx1, st[25] = sum1, st[26] = dl1;  // row g + 8
+    if (q0 + wr + g < N) st[0] = mx0, st[1] = sum0, st[2] = dl0;
+    if (q0 + wr + g + 8 < N) st[24] = mx1, st[25] = sum1, st[26] = dl1;  // row g + 8
   }
 }
 
 template <int NT>
 __global__ void __launch_bounds__(THREADS)
 self_attention_bwd_dkv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ dout,
-                              bf16* __restrict__ dqkv, const float* __restrict__ stats, int D) {
-  constexpr int N = NT * 64;
+                              bf16* __restrict__ dqkv, const float* __restrict__ stats, int N,
+                              int D) {
+  constexpr int NP = NT * 64;  // N padded to whole tiles
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Os = Qs + N * LDH;
-  bf16* Ks = Os + N * LDH;
+  bf16* Os = Qs + NP * LDH;
+  bf16* Ks = Os + NP * LDH;
   bf16* Vs = Ks + QT * LDH;
-  float* st = reinterpret_cast<float*>(Vs + QT * LDH);  // [N][3]
+  float* st = reinterpret_cast<float*>(Vs + QT * LDH);  // [NP][3]
 
   const int k0 = blockIdx.x * QT;
   const int h = blockIdx.y;
@@ -288,13 +305,15 @@ self_attention_bwd_dkv_kernel(const bf16* __restrict__ qkv, const float* __restr
   const size_t stride = 3 * static_cast<size_t>(D);
   const bf16* base = qkv + static_cast<size_t>(b) * N * stride + h * DH;
 
-  load_rows(Qs, base, N, stride, tid);
-  load_rows(Ks, base + k0 * stride + D, QT, stride, tid);
-  load_rows(Vs, base + k0 * stride + 2 * D, QT, stride, tid);
+  load_rows(Qs, base, NP, N, stride, tid);
+  load_rows(Ks, base + k0 * stride + D, QT, N - k0, stride, tid);
+  load_rows(Vs, base + k0 * stride + 2 * D, QT, N - k0, stride, tid);
   cp_async_commit();
-  load_do(Os, dout + static_cast<size_t>(b) * N * D + h * DH, N, D, tid);
+  load_do(Os, dout + static_cast<size_t>(b) * N * D + h * DH, NP, N, D, tid);
+  // a query row past N: max +inf, so its p is exp(-inf) = 0
   const float* sg = stats + (static_cast<size_t>(b) * H + h) * N * 3;
-  for (int i = tid; i < N * 3; i += THREADS) st[i] = sg[i];
+  for (int i = tid; i < NP * 3; i += THREADS)
+    st[i] = i < N * 3 ? sg[i] : (i % 3 == 0 ? INFINITY : (i % 3 == 1 ? 1.f : 0.f));
   cp_async_wait<0>();
   __syncthreads();
 
@@ -308,7 +327,7 @@ self_attention_bwd_dkv_kernel(const bf16* __restrict__ qkv, const float* __restr
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.f;
 
-  for (int qc = 0; qc < N / 16; ++qc) {
+  for (int qc = 0; qc < NP / 16; ++qc) {
     // s^T: rows = this warp's keys, columns = queries qc*16 + u*8 + 2*t4 + (e & 1)
     float p[2][4] = {};
     mma_abt(p, kf, Qs, qc * 16, lane);
@@ -329,8 +348,8 @@ self_attention_bwd_dkv_kernel(const bf16* __restrict__ qkv, const float* __restr
     mma_pb(dk, pa, Qs, qc * 16, lane);
   }
   const size_t row = static_cast<size_t>(b) * N + k0 + wr;
-  store_rows(dqkv, stride, row, D + h * DH, dk, lane);
-  store_rows(dqkv, stride, row, 2 * D + h * DH, dv, lane);
+  store_rows(dqkv, stride, row, N - k0 - wr, D + h * DH, dk, lane);
+  store_rows(dqkv, stride, row, N - k0 - wr, 2 * D + h * DH, dv, lane);
 }
 
 constexpr int CA_WARPS = 8;
@@ -398,23 +417,24 @@ cross_attention_bwd_kernel(const bf16* __restrict__ qc, const bf16* __restrict__
 // dk/dv kernel (dkv true)
 template <int NT>
 int launch_self(bool dkv, const bf16* qkv, const float* dout, bf16* dqkv, float* stats, int B,
-                int D, int H, cudaStream_t s) {
-  constexpr int N = NT * 64;
-  const size_t smem_dq = static_cast<size_t>(2 * N * LDH + 2 * QT * LDH) * sizeof(bf16);
-  const dim3 grid(N / QT, H, B);
+                int N, int D, int H, cudaStream_t s) {
+  constexpr int NP = NT * 64;
+  const size_t smem_dq = static_cast<size_t>(2 * NP * LDH + 2 * QT * LDH) * sizeof(bf16);
+  const dim3 grid(NP / QT, H, B);
   cudaError_t err;
   if (dkv) {
-    const size_t smem = smem_dq + static_cast<size_t>(N) * 3 * sizeof(float);
+    const size_t smem = smem_dq + static_cast<size_t>(NP) * 3 * sizeof(float);
     err = cudaFuncSetAttribute(self_attention_bwd_dkv_kernel<NT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    self_attention_bwd_dkv_kernel<NT><<<grid, THREADS, smem, s>>>(qkv, dout, dqkv, stats, D);
+    self_attention_bwd_dkv_kernel<NT><<<grid, THREADS, smem, s>>>(qkv, dout, dqkv, stats, N, D);
   } else {
     err = cudaFuncSetAttribute(self_attention_bwd_dq_kernel<NT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem_dq));
     if (err != cudaSuccess) return static_cast<int>(err);
-    self_attention_bwd_dq_kernel<NT><<<grid, THREADS, smem_dq, s>>>(qkv, dout, dqkv, stats, D);
+    self_attention_bwd_dq_kernel<NT><<<grid, THREADS, smem_dq, s>>>(qkv, dout, dqkv, stats, N,
+                                                                    D);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -424,13 +444,12 @@ int launch_self_n(bool dkv, const void* qkv, const float* dout, void* dqkv, floa
   const bf16* q = static_cast<const bf16*>(qkv);
   bf16* dq = static_cast<bf16*>(dqkv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D != H * DH) return static_cast<int>(cudaErrorInvalidValue);
-  switch (N) {
-    case 64: return launch_self<1>(dkv, q, dout, dq, stats, B, D, H, s);
-    case 128: return launch_self<2>(dkv, q, dout, dq, stats, B, D, H, s);
-    case 192: return launch_self<3>(dkv, q, dout, dq, stats, B, D, H, s);
-    case 256: return launch_self<4>(dkv, q, dout, dq, stats, B, D, H, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (D != H * DH || N < 1 || N > 256) return static_cast<int>(cudaErrorInvalidValue);
+  switch ((N + 63) / 64) {
+    case 1: return launch_self<1>(dkv, q, dout, dq, stats, B, N, D, H, s);
+    case 2: return launch_self<2>(dkv, q, dout, dq, stats, B, N, D, H, s);
+    case 3: return launch_self<3>(dkv, q, dout, dq, stats, B, N, D, H, s);
+    default: return launch_self<4>(dkv, q, dout, dq, stats, B, N, D, H, s);
   }
 }
 
@@ -441,8 +460,7 @@ int launch_self_n(bool dkv, const void* qkv, const float* dout, void* dqkv, floa
 // dqkv: (B*N, 3D) bf16 rows [dq | dk | dv]; stats: (B, H, N, 3) float32.
 // The dq kernel writes the dq columns and each row's statistics; the dk/dv
 // kernel, launched after it on the same stream, reads the statistics and
-// writes the dk and dv columns. Requires D == H * 64, N % 64 == 0 and
-// N <= 256.
+// writes the dk and dv columns. Requires D == H * 64 and 1 <= N <= 256.
 LTD_API int ltd_self_attention_bwd_dq(const void* qkv, const float* dout, void* dqkv,
                                       float* stats, int B, int N, int D, int H, void* stream) {
   return launch_self_n(false, qkv, dout, dqkv, stats, B, N, D, H, stream);

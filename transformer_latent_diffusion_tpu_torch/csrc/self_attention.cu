@@ -22,8 +22,16 @@
 // `ldmatrix`), and O added into the float32 residual straight from the
 // accumulators. Each residual element has one writer, so no atomics. At
 // <= 256 tokens the whole score row fits, so no online (flash) rescaling.
+//
+// Any N <= 256 is taken: the block works on N rounded up to a multiple of
+// 64 (its template), the ragged last tile's K, V and Q rows past N are
+// zero-filled in shared memory and never read from device memory, key
+// columns past N enter the softmax as -inf (before the row max), and query
+// rows past N are not written.
 
 #include "common.cuh"
+
+#include <math.h>
 
 namespace {
 
@@ -36,16 +44,16 @@ inline size_t smem_bytes(int n) {
   return static_cast<size_t>(2 * n * LDH + QT * LDH) * sizeof(bf16);
 }
 
-// NT = N / 64 (1..4): the warp's score row has 8 * NT tiles of 8 keys
+// NT = ceil(N / 64) (1..4): the warp's score row has 8 * NT tiles of 8 keys
 template <int NT>
 __global__ void __launch_bounds__(THREADS)
-self_attention_kernel(const bf16* __restrict__ qkv, float* __restrict__ resid, int D) {
-  constexpr int N = NT * 64;
-  constexpr int NK8 = N / 8;
+self_attention_kernel(const bf16* __restrict__ qkv, float* __restrict__ resid, int N, int D) {
+  constexpr int NP = NT * 64;  // N padded to whole tiles
+  constexpr int NK8 = NP / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + N * LDH;
-  bf16* Qs = Vs + N * LDH;
+  bf16* Vs = Ks + NP * LDH;
+  bf16* Qs = Vs + NP * LDH;
 
   const int q0 = blockIdx.x * QT;
   const int h = blockIdx.y;
@@ -58,16 +66,19 @@ self_attention_kernel(const bf16* __restrict__ qkv, float* __restrict__ resid, i
   const size_t row_stride = 3 * static_cast<size_t>(D);
   const bf16* base = qkv + static_cast<size_t>(b) * N * row_stride + h * DH;
 
-  // K and V of every token, Q of this tile: 8 chunks of 16 bytes per row
-  for (int c = tid; c < N * 8; c += THREADS) {
+  // K and V of every token, Q of this tile: 8 chunks of 16 bytes per row;
+  // rows past N are zero-filled (src-size 0: nothing is read)
+  for (int c = tid; c < NP * 8; c += THREADS) {
     const int r = c >> 3, col = (c & 7) * 8;
-    const bf16* src = base + r * row_stride + col;
-    cp_async16(&Ks[r * LDH + col], src + D, 16);
-    cp_async16(&Vs[r * LDH + col], src + 2 * D, 16);
+    const int ok = r < N ? 16 : 0;
+    const bf16* src = base + (ok ? r : 0) * row_stride + col;
+    cp_async16(&Ks[r * LDH + col], src + D, ok);
+    cp_async16(&Vs[r * LDH + col], src + 2 * D, ok);
   }
   for (int c = tid; c < QT * 8; c += THREADS) {
     const int r = c >> 3, col = (c & 7) * 8;
-    cp_async16(&Qs[r * LDH + col], base + (q0 + r) * row_stride + col, 16);
+    const int ok = q0 + r < N ? 16 : 0;
+    cp_async16(&Qs[r * LDH + col], base + (ok ? q0 + r : 0) * row_stride + col, ok);
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -97,12 +108,14 @@ self_attention_kernel(const bf16* __restrict__ qkv, float* __restrict__ resid, i
     }
   }
 
-  // float32 row softmax; the 4 lanes of a quad hold one row
+  // float32 row softmax; the 4 lanes of a quad hold one row; keys past N
+  // are -inf, so they weigh nothing
   float mx0 = -3.0e38f, mx1 = -3.0e38f;
 #pragma unroll
   for (int j = 0; j < NK8; ++j) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] *= 0.125f;
+    for (int e = 0; e < 4; ++e)
+      s[j][e] = 8 * j + 2 * t4 + (e & 1) < N ? s[j][e] * 0.125f : -INFINITY;
     mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
     mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
   }
@@ -134,7 +147,7 @@ self_attention_kernel(const bf16* __restrict__ qkv, float* __restrict__ resid, i
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
 #pragma unroll
-  for (int kc = 0; kc < N / 16; ++kc) {
+  for (int kc = 0; kc < NP / 16; ++kc) {
     uint32_t pa[4];
     pa[0] = pack_bf16x2(s[2 * kc][0] / sum0, s[2 * kc][1] / sum0);
     pa[1] = pack_bf16x2(s[2 * kc][2] / sum1, s[2 * kc][3] / sum1);
@@ -150,47 +163,54 @@ self_attention_kernel(const bf16* __restrict__ qkv, float* __restrict__ resid, i
     }
   }
 
-  float* x0 = resid + (static_cast<size_t>(b) * N + q0 + wr + g) * D + h * DH + 2 * t4;
+  // rows past N are neither read nor written
+  const int r0 = q0 + wr + g;
+  float* x0 = resid + (static_cast<size_t>(b) * N + r0) * D + h * DH + 2 * t4;
   float* x1 = x0 + static_cast<size_t>(8) * D;
 #pragma unroll
   for (int d = 0; d < DH / 8; ++d) {
-    float2* p0 = reinterpret_cast<float2*>(x0 + d * 8);
-    float2* p1 = reinterpret_cast<float2*>(x1 + d * 8);
-    float2 a = *p0, c = *p1;
-    a.x += o[d][0];
-    a.y += o[d][1];
-    c.x += o[d][2];
-    c.y += o[d][3];
-    *p0 = a;
-    *p1 = c;
+    if (r0 < N) {
+      float2* p0 = reinterpret_cast<float2*>(x0 + d * 8);
+      float2 a = *p0;
+      a.x += o[d][0];
+      a.y += o[d][1];
+      *p0 = a;
+    }
+    if (r0 + 8 < N) {
+      float2* p1 = reinterpret_cast<float2*>(x1 + d * 8);
+      float2 c = *p1;
+      c.x += o[d][2];
+      c.y += o[d][3];
+      *p1 = c;
+    }
   }
 }
 
 template <int NT>
-int launch(const bf16* qkv, float* resid, int B, int D, int n_heads, cudaStream_t s) {
+int launch(const bf16* qkv, float* resid, int B, int N, int D, int n_heads, cudaStream_t s) {
   const size_t smem = smem_bytes(NT * 64);
   cudaError_t err = cudaFuncSetAttribute(
       self_attention_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(NT * 64 / QT, n_heads, B);
-  self_attention_kernel<NT><<<grid, THREADS, smem, s>>>(qkv, resid, D);
+  self_attention_kernel<NT><<<grid, THREADS, smem, s>>>(qkv, resid, N, D);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // qkv: (B*N, 3D) bf16, rows [q | k | v], head h at columns h*64 of each.
-// resid: (B*N, D) float32, updated in place. Requires D == n_heads * 64,
-// N % 64 == 0 and N <= 256.
+// resid: (B*N, D) float32, updated in place. Requires D == n_heads * 64 and
+// 1 <= N <= 256.
 LTD_API int ltd_self_attention(const void* qkv, float* resid, int B, int N, int D,
                                int n_heads, void* stream) {
   const bf16* q = static_cast<const bf16*>(qkv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (N) {
-    case 64: return launch<1>(q, resid, B, D, n_heads, s);
-    case 128: return launch<2>(q, resid, B, D, n_heads, s);
-    case 192: return launch<3>(q, resid, B, D, n_heads, s);
-    case 256: return launch<4>(q, resid, B, D, n_heads, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (N < 1 || N > 256) return static_cast<int>(cudaErrorInvalidValue);
+  switch ((N + 63) / 64) {
+    case 1: return launch<1>(q, resid, B, N, D, n_heads, s);
+    case 2: return launch<2>(q, resid, B, N, D, n_heads, s);
+    case 3: return launch<3>(q, resid, B, N, D, n_heads, s);
+    default: return launch<4>(q, resid, B, N, D, n_heads, s);
   }
 }

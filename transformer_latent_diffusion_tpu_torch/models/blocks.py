@@ -8,16 +8,19 @@ order of the flax HWIO kernel (3, 3, 1, hidden).
 
 Each module holds float32 parameters and computes in its `dtype`, as
 flax modules do: dense inputs and weights are cast to `dtype`, LayerNorm
-statistics and softmax stay float32. No mixture of experts, and dropout
-only at 0. `DecoderBlock(fused_layer_vjp=True)` runs the whole layer as
+statistics and softmax stay float32. Dropout only at 0. The FFN is one of
+`MLP_CLASSES`: the LocalViT sep-conv MLP (the default), the plain `MLP`,
+or the Switch mixture of experts (`models.moe.MoEMLP`).
+`DecoderBlock(fused_layer_vjp=True)` runs the whole sep-conv layer as
 `ops.fused_layer_vjp.FusedLayerFunction` (TPU kernel K2) where the JAX
-package's gate allows it. Outside it (the linen path), `use_pallas` sends
-self-attention to the flash-attention kernels (K3 forward, K4 backward,
-`ops.attention`) and `fused_mlp_vjp` sends the sep-conv MLP of a square
-grid of at most `FUSED_MLP_MAX_TOKENS` tokens to K5 (`ops.fused_mlp_vjp`,
-forward and backward), as the JAX package's flags do; a fused-layer block
-beyond K2's gate takes K5 too (the JAX block's `want_mlp`);
-cross-attention stays plain.
+package's gate allows it; a block of at most 256 tokens outside that gate
+runs its attention pair as `ops.fused_attn_vjp` (TPU kernel K6). Otherwise
+(the linen path), `use_pallas` sends self-attention to the flash-attention
+kernels (K3 forward, K4 backward, `ops.attention`) and `fused_mlp_vjp`
+sends the sep-conv MLP of a square grid of at most `FUSED_MLP_MAX_TOKENS`
+tokens to K5 (`ops.fused_mlp_vjp`, forward and backward), as the JAX
+package's flags do; a fused-layer block beyond K2's gate takes K5 too (the
+JAX block's `want_mlp`); cross-attention stays plain.
 """
 
 from __future__ import annotations
@@ -29,8 +32,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from transformer_latent_diffusion_tpu_torch.models.moe import MoEMLP
 from transformer_latent_diffusion_tpu_torch.ops.attention import (
     multi_head_attention,
+)
+from transformer_latent_diffusion_tpu_torch.ops.fused_attn_vjp import (
+    fused_attention_pair_vjp,
 )
 from transformer_latent_diffusion_tpu_torch.ops.fused_mlp_vjp import (
     fused_mlp_sepconv,
@@ -41,7 +48,7 @@ LN_EPS = 1e-5
 # FUSED_LAYER_MAX_TOKENS)
 FUSED_LAYER_MAX_TOKENS = 256
 # the fused attention pair's token limit (the JAX package's
-# FUSED_ATTN_MAX_TOKENS; its kernel K6 is not ported)
+# FUSED_ATTN_MAX_TOKENS)
 FUSED_ATTN_MAX_TOKENS = 256
 # the fused sep-conv MLP's token limit (the JAX package's
 # FUSED_MLP_MAX_TOKENS)
@@ -130,6 +137,24 @@ class CrossAttention(nn.Module):
         return multi_head_attention(q, k, v, self.n_heads)
 
 
+class MLP(nn.Module):
+    """Linear -> exact GELU -> Linear (the reference `MLP`); `mlp` keeps the
+    reference's Sequential indices (Linear, GELU, Linear, Dropout)."""
+
+    def __init__(self, embed_dim: int, mlp_multiplier: int,
+                 dtype=torch.float32):
+        super().__init__()
+        hidden = mlp_multiplier * embed_dim
+        self.dtype = dtype
+        self.mlp = nn.Sequential(nn.Linear(embed_dim, hidden), nn.GELU(),
+                                 nn.Linear(hidden, embed_dim), nn.Dropout(0.0))
+
+    def forward(self, x):
+        expand, _, contract, _ = self.mlp
+        h = gelu(dense(x, expand.weight, expand.bias, self.dtype))
+        return dense(h, contract.weight, contract.bias, self.dtype)
+
+
 def depthwise_conv3x3(x: torch.Tensor, weight: torch.Tensor,
                       bias: torch.Tensor) -> torch.Tensor:
     """3x3 depthwise convolution with zero padding on an NHWC grid, as nine
@@ -188,20 +213,25 @@ class MLPSepConv(nn.Module):
         return out.reshape(b, n, d)
 
 
+# DenoiserConfig.mlp_class -> the FFN module (the JAX package's MLP_CLASSES)
+MLP_CLASSES = {"sep_conv": MLPSepConv, "mlp": MLP, "moe": MoEMLP}
+
+
 class DecoderBlock(nn.Module):
     """Pre-LN DiT block: x += SA(LN x); x += CA(LN x, cond); x += MLP(LN x).
-    Heads = embed_dim // 64. The JAX block's gates (models/blocks.py:
-    269-284), per call on the token count:
+    Heads = embed_dim // 64; the FFN is `MLP_CLASSES[mlp_class]` (the MoE
+    one with n_experts and capacity_factor). The JAX block's gates
+    (models/blocks.py:269-284), per call on the token count:
 
-    - use_layer: fused_layer_vjp on a square grid of at most 256 tokens
-      runs the layer as one `FusedLayerFunction` (K2);
-    - use_attn: beyond that gate, a fused-layer block of at most 256
-      tokens (a grid that is not square) needs the attention pair K6,
-      which is not ported: NotImplementedError on any tensor not on the
-      CPU, the plain attention modules on the CPU;
+    - use_layer: fused_layer_vjp with the sep-conv FFN on a square grid of
+      at most 256 tokens runs the layer as one `FusedLayerFunction` (K2);
+    - use_attn: fused_attn_vjp, or a fused-layer block outside K2's gate
+      (the FFN is "mlp" or "moe", or the grid is not square), of at most
+      256 tokens runs the attention pair as `fused_attention_pair_vjp`
+      (K6), then the FFN;
     - use_mlp: fused_mlp_vjp, or a fused-layer block beyond K2's gate, on
-      a square grid of at most 1024 tokens runs the MLP through K5 (the
-      MLP module's own gate: a fused-layer block builds it with
+      a square grid of at most 1024 tokens runs the sep-conv MLP through
+      K5 (the MLP module's own gate: a fused-layer block builds it with
       fused_vjp, which inside K2's gate it never calls).
 
     Otherwise the linen path (models/blocks.py:356-378): use_pallas sends
@@ -209,19 +239,32 @@ class DecoderBlock(nn.Module):
 
     def __init__(self, embed_dim: int, mlp_multiplier: int,
                  dtype=torch.float32, fused_layer_vjp: bool = False,
-                 use_pallas: bool = False, fused_mlp_vjp: bool = False):
+                 use_pallas: bool = False, fused_mlp_vjp: bool = False,
+                 fused_attn_vjp: bool = False, mlp_class: str = "sep_conv",
+                 n_experts: int = 8, capacity_factor: float = 1.25):
         super().__init__()
+        if mlp_class not in MLP_CLASSES:
+            raise ValueError(f"unknown mlp_class {mlp_class!r}; expected one "
+                             f"of {sorted(MLP_CLASSES)}")
         n_heads = embed_dim // 64
         self.dtype = dtype
         self.fused_layer_vjp = fused_layer_vjp
+        self.fused_attn_vjp = fused_attn_vjp
+        self.mlp_class = mlp_class
         self.norm1 = nn.LayerNorm(embed_dim, eps=LN_EPS)
         self.self_attention = SelfAttention(embed_dim, n_heads, dtype,
                                             use_pallas)
         self.norm2 = nn.LayerNorm(embed_dim, eps=LN_EPS)
         self.cross_attention = CrossAttention(embed_dim, n_heads, dtype)
         self.norm3 = nn.LayerNorm(embed_dim, eps=LN_EPS)
-        self.mlp = MLPSepConv(embed_dim, mlp_multiplier, dtype,
-                              fused_mlp_vjp or fused_layer_vjp)
+        if mlp_class == "sep_conv":
+            self.mlp = MLPSepConv(embed_dim, mlp_multiplier, dtype,
+                                  fused_mlp_vjp or fused_layer_vjp)
+        elif mlp_class == "mlp":
+            self.mlp = MLP(embed_dim, mlp_multiplier, dtype)
+        else:
+            self.mlp = MoEMLP(embed_dim, mlp_multiplier, dtype, n_experts,
+                              capacity_factor)
 
     def _fused(self, x, y, hw: int):
         from transformer_latent_diffusion_tpu_torch.ops.fused_layer_vjp import (
@@ -247,20 +290,32 @@ class DecoderBlock(nn.Module):
                           self.self_attention.n_heads, hw)
         return out.to(dt)
 
+    def _fused_attn(self, x, y):
+        dt = self.dtype
+        # weights cast to the compute dtype, LayerNorm float32, as the JAX
+        # package feeds its kernel (models/blocks.py:341-355)
+        out = fused_attention_pair_vjp(
+            x.to(dt), y.to(dt),
+            self.norm1.weight.float(), self.norm1.bias.float(),
+            self.self_attention.qkv_linear.weight.to(dt),
+            self.norm2.weight.float(), self.norm2.bias.float(),
+            self.cross_attention.q_linear.weight.to(dt),
+            self.cross_attention.kv_linear.weight.to(dt),
+            self.self_attention.n_heads)
+        return out.to(dt)
+
     def forward(self, x, y):
         n = x.shape[1]
         hw = math.isqrt(n)
-        use_layer = (self.fused_layer_vjp and hw * hw == n
-                     and n <= FUSED_LAYER_MAX_TOKENS)
+        use_layer = (self.fused_layer_vjp and self.mlp_class == "sep_conv"
+                     and hw * hw == n and n <= FUSED_LAYER_MAX_TOKENS)
         if use_layer:
             return self._fused(x, y, hw)
-        use_attn = self.fused_layer_vjp and n <= FUSED_ATTN_MAX_TOKENS
-        if use_attn and x.device.type != "cpu":
-            raise NotImplementedError(
-                f"fused_layer_vjp on {n} tokens (no square grid): the JAX "
-                "package runs the attention pair kernel K6 here, not ported "
-                "yet (ROADMAP 1c item 6)")
+        want_attn = self.fused_attn_vjp or self.fused_layer_vjp
         dt = self.dtype
-        x = x + self.self_attention(layer_norm(x, self.norm1, dt))
-        x = x + self.cross_attention(layer_norm(x, self.norm2, dt), y)
+        if want_attn and n <= FUSED_ATTN_MAX_TOKENS:
+            x = self._fused_attn(x, y)
+        else:
+            x = x + self.self_attention(layer_norm(x, self.norm1, dt))
+            x = x + self.cross_attention(layer_norm(x, self.norm2, dt), y)
         return x + self.mlp(layer_norm(x, self.norm3, dt))

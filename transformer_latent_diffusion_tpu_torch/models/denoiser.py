@@ -10,11 +10,14 @@ The fused inference engine (`fast_denoiser.FusedEngine`) runs the same
 parameters through the hand-written kernels; this module is the plain
 version it is checked against, and what the pipeline runs on the CPU.
 With `fused_layer_vjp=True` (training) its decoder blocks run as the
-differentiable fused layer (TPU kernel K2); the dense layers before and
-after them stay plain PyTorch with autograd, as the JAX package leaves
-them to XLA. Otherwise `use_pallas` and `fused_mlp_vjp` select the
+differentiable fused layer (TPU kernel K2), or, with the "mlp" or "moe"
+FFN (`mlp_class`, `models.blocks.MLP_CLASSES`), their attention pair as
+TPU kernel K6 (also asked for by `fused_attn_vjp`); the dense layers
+before and after them stay plain PyTorch with autograd, as the JAX package
+leaves them to XLA. Otherwise `use_pallas` and `fused_mlp_vjp` select the
 hi-res kernels of the linen path (K3/K4 and K5, see
-`models.blocks.DecoderBlock`). `remat=True` checkpoints each decoder
+`models.blocks.DecoderBlock`). A MoE denoiser's Switch load-balancing
+losses of its last forward add up in `moe_aux_loss()`. `remat=True` checkpoints each decoder
 block (`torch.utils.checkpoint`, as the JAX package's
 `nn.remat(DecoderBlock)`): its activations are recomputed in the backward
 instead of stored, which 1024 px training needs.
@@ -96,7 +99,9 @@ class DenoiserTransBlock(nn.Module):
                  n_layers: int, mlp_multiplier: int = 4, n_channels: int = 4,
                  dtype=torch.float32, fused_layer_vjp: bool = False,
                  use_pallas: bool = False, fused_mlp_vjp: bool = False,
-                 remat: bool = False):
+                 remat: bool = False, fused_attn_vjp: bool = False,
+                 mlp_class: str = "sep_conv", n_experts: int = 8,
+                 expert_capacity_factor: float = 1.25):
         super().__init__()
         self.patch_size = patch_size
         self.n_channels = n_channels
@@ -117,7 +122,8 @@ class DenoiserTransBlock(nn.Module):
                              torch.arange(seq_len, dtype=torch.int64))
         self.decoder_blocks = nn.ModuleList(
             DecoderBlock(embed_dim, mlp_multiplier, dtype, fused_layer_vjp,
-                         use_pallas, fused_mlp_vjp)
+                         use_pallas, fused_mlp_vjp, fused_attn_vjp, mlp_class,
+                         n_experts, expert_capacity_factor)
             for _ in range(n_layers))
         self.out_proj = nn.Sequential(nn.Linear(embed_dim, patch_dim))
 
@@ -164,12 +170,8 @@ class Denoiser(nn.Module):
                  input_channels=None, objective: str = "x0",
                  dtype=torch.float32, fused_layer_vjp: bool = False,
                  use_pallas: bool = False, fused_mlp_vjp: bool = False,
-                 remat: bool = False):
+                 remat: bool = False, fused_attn_vjp: bool = False):
         super().__init__()
-        if mlp_class != "sep_conv":
-            raise NotImplementedError(
-                f"mlp_class={mlp_class!r} is not ported yet "
-                "(ROADMAP, modules still to port)")
         if dropout:
             raise NotImplementedError("dropout > 0 belongs to the training "
                                       "slice (ROADMAP item 7)")
@@ -181,6 +183,7 @@ class Denoiser(nn.Module):
         self.n_channels = n_channels
         self.objective = objective
         self.dtype = dtype
+        self.mlp_class = mlp_class
         self.use_pallas = use_pallas
         self.fused_mlp_vjp = fused_mlp_vjp
         self.fourier_feats = nn.Sequential(
@@ -194,18 +197,26 @@ class Denoiser(nn.Module):
         self.denoiser_trans_block = DenoiserTransBlock(
             patch_size, image_size, embed_dim, n_layers, mlp_multiplier,
             n_channels, dtype, fused_layer_vjp, use_pallas, fused_mlp_vjp,
-            remat)
+            remat, fused_attn_vjp, mlp_class, n_experts,
+            expert_capacity_factor)
 
     @classmethod
     def from_config(cls, cfg, dtype=torch.float32,
                     fused_layer_vjp: bool = False, use_pallas: bool = False,
-                    fused_mlp_vjp: bool = False,
-                    remat: bool = False) -> "Denoiser":
+                    fused_mlp_vjp: bool = False, remat: bool = False,
+                    fused_attn_vjp: bool = False) -> "Denoiser":
         from dataclasses import asdict
 
         return cls(**asdict(cfg), dtype=dtype, fused_layer_vjp=fused_layer_vjp,
                    use_pallas=use_pallas, fused_mlp_vjp=fused_mlp_vjp,
-                   remat=remat)
+                   remat=remat, fused_attn_vjp=fused_attn_vjp)
+
+    def moe_aux_loss(self) -> torch.Tensor:
+        """The sum over the decoder blocks of the Switch load-balancing
+        loss of the last forward (the JAX package's sown "losses"
+        collection); a "moe" denoiser only."""
+        blocks = self.denoiser_trans_block.decoder_blocks
+        return sum(b.mlp.aux_loss for b in blocks)
 
     def forward(self, x, noise_level, label,
                 pos_embed_override: Optional[torch.Tensor] = None):

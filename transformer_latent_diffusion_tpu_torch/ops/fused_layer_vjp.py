@@ -175,9 +175,10 @@ def _mm(a, b, lp):
 # ------------------------------ the layer, plain ------------------------------
 
 
-def _forward_residuals(x, cond, params, n_heads: int, hw: int):
-    (ln1s, ln1b, wqkv, ln2s, ln2b, wq, wkv,
-     ln3s, ln3b, w1, b1, dw, dwb, w2, b2) = params
+def _attn_pair_residuals(x, cond, attn_params, n_heads: int):
+    """The attention pair's forward, plain (the first seven parameters of
+    PARAM_NAMES): everything its backward reads, x2 included."""
+    ln1s, ln1b, wqkv, ln2s, ln2b, wq, wkv = attn_params
     lp = wqkv.dtype
     d = x.shape[-1]
     scale = 1.0 / math.sqrt(d // n_heads)
@@ -195,16 +196,23 @@ def _forward_residuals(x, cond, params, n_heads: int, hw: int):
     qch = _heads(qc, n_heads)
     p_cross = _softmax_rows(_mm(qch, kc.transpose(-1, -2), lp) * scale)
     x2 = x1 + _merge(_mm(p_cross, vc, lp))
-    xn3, xhat3, rstd3 = _ln_fwd(x2, ln3s.float(), ln3b.float())
+    return dict(x=x, cond=cond, lp=lp, scale=scale, xn1=xn1, xhat1=xhat1,
+                rstd1=rstd1, q=q, k=k, v=v, p_self=p_self, x1=x1, xn2=xn2,
+                xhat2=xhat2, rstd2=rstd2, qc=qch, kc=kc, vc=vc,
+                p_cross=p_cross, x2=x2)
+
+
+def _forward_residuals(x, cond, params, n_heads: int, hw: int):
+    r = _attn_pair_residuals(x, cond, params[:7], n_heads)
+    ln3s, ln3b, w1, b1, dw, dwb = params[7:13]
+    lp = r["lp"]
+    xn3, xhat3, rstd3 = _ln_fwd(r["x2"], ln3s.float(), ln3b.float())
     b = x.shape[0]
     h = _mm(xn3, w1.T, lp) + b1.float()
     c = _dw_fwd(h.reshape(b, hw, hw, -1), dw.float(), hw) + dwb.float()
     a = _gelu_f32(c).reshape(h.shape)
-    return dict(x=x, cond=cond, lp=lp, scale=scale, xn1=xn1, xhat1=xhat1,
-                rstd1=rstd1, q=q, k=k, v=v, p_self=p_self, x1=x1, xn2=xn2,
-                xhat2=xhat2, rstd2=rstd2, qc=qch, kc=kc, vc=vc,
-                p_cross=p_cross, x2=x2, xn3=xn3, xhat3=xhat3, rstd3=rstd3,
-                h=h, c=c, a=a)
+    r.update(xn3=xn3, xhat3=xhat3, rstd3=rstd3, h=h, c=c, a=a)
+    return r
 
 
 def fused_layer_fwd_plain(x, cond, params: Sequence[torch.Tensor],
@@ -227,23 +235,52 @@ def _attention_bwd_plain(p, q, k, v, dout, scale, lp):
     return _mm(ds, k, lp), _mm(ds.transpose(-1, -2), q, lp), dv
 
 
+def _tn(a, b, lp):
+    """a^T b over all rows of lp-rounded operands: (out, in) weight
+    gradients."""
+    return _mm(a.reshape(-1, a.shape[-1]).T, b.reshape(-1, b.shape[-1]), lp)
+
+
+def _attn_pair_bwd_plain(r, dx2, attn_params, n_heads: int):
+    """The attention pair's backward, plain, from the float32 gradient dx2
+    at its output x2 and its residuals `r` (`_attn_pair_residuals`): (dx,
+    dcond, the seven parameter gradients), all float32."""
+    ln1s, _, wqkv, ln2s, _, wq, wkv = attn_params
+    lp, scale = r["lp"], r["scale"]
+    dqc, dkc, dvc = _attention_bwd_plain(r["p_cross"], r["qc"], r["kc"],
+                                         r["vc"], _heads(dx2, n_heads),
+                                         scale, lp)
+    dqc_lp = _merge(dqc).to(lp)
+    dkv_lp = torch.cat([_merge(dkc), _merge(dvc)], -1).to(lp)
+    dwq = _tn(dqc_lp, r["xn2"], lp)
+    dxn2 = _mm(dqc_lp, wq, lp)
+    dwkv = _tn(dkv_lp, r["cond"], lp)
+    dcond = _mm(dkv_lp, wkv, lp)
+    dx1_ln, ds2, db2 = _ln_bwd(dxn2, r["xhat2"], r["rstd2"], ln2s.float())
+    dx1 = dx2 + dx1_ln
+
+    dq, dk, dv = _attention_bwd_plain(r["p_self"], r["q"], r["k"], r["v"],
+                                      _heads(dx1, n_heads), scale, lp)
+    dqkv_lp = torch.cat([_merge(dq), _merge(dk), _merge(dv)], -1).to(lp)
+    dwqkv = _tn(dqkv_lp, r["xn1"], lp)
+    dxn1 = _mm(dqkv_lp, wqkv, lp)
+    dx_ln, ds1, db1 = _ln_bwd(dxn1, r["xhat1"], r["rstd1"], ln1s.float())
+    return dx1 + dx_ln, dcond, [ds1, db1, dwqkv, ds2, db2, dwq, dwkv]
+
+
 def fused_layer_bwd_plain(x, cond, g, params: Sequence[torch.Tensor],
                           n_heads: int, hw: int):
     """The TPU kernel's `_bwd_kernel`, written out: (dx in x's dtype, dcond
     in cond's dtype, the 15 parameter gradients in float32, shaped like
     the parameters)."""
     r = _forward_residuals(x, cond, params, n_heads, hw)
-    (_, _, wqkv, _, _, wq, wkv, ln3s, _, w1, _, dw, _, w2, _) = params
-    lp, scale = r["lp"], r["scale"]
+    ln3s, _, w1, _, dw, _, w2, _ = params[7:]
+    lp = r["lp"]
     b, n, d = x.shape
     rows = (0, 1)
-
-    def tn(a, bb):  # a^T b over all B*N rows: (out, in) weight gradients
-        return _mm(a.reshape(-1, a.shape[-1]).T, bb.reshape(-1, bb.shape[-1]), lp)
-
     g = g.float()
     g_lp = g.to(lp)
-    dw2 = tn(g_lp, r["a"])
+    dw2 = _tn(g_lp, r["a"], lp)
     db2 = g.sum(rows)
     da = _mm(g_lp, w2, lp)
     dc = da.reshape(b, hw, hw, -1) * _gelu_grad_f32(r["c"])
@@ -251,35 +288,14 @@ def fused_layer_bwd_plain(x, cond, g, params: Sequence[torch.Tensor],
     ddw = _dw_tap_grads(r["h"].reshape(b, hw, hw, -1), dc, hw)
     dhid = _dw_input_grad(dc, dw.float(), hw).reshape(b, n, -1)
     dhid_lp = dhid.to(lp)
-    dw1 = tn(dhid_lp, r["xn3"])
+    dw1 = _tn(dhid_lp, r["xn3"], lp)
     db1 = dhid.sum(rows)
     dxn3 = _mm(dhid_lp, w1, lp)
     dx2_ln, ds3, db3 = _ln_bwd(dxn3, r["xhat3"], r["rstd3"], ln3s.float())
-    dx2 = g + dx2_ln
-
-    dqc, dkc, dvc = _attention_bwd_plain(r["p_cross"], r["qc"], r["kc"],
-                                         r["vc"], _heads(dx2, n_heads),
-                                         scale, lp)
-    dqc_lp = _merge(dqc).to(lp)
-    dkv_lp = torch.cat([_merge(dkc), _merge(dvc)], -1).to(lp)
-    dwq = tn(dqc_lp, r["xn2"])
-    dxn2 = _mm(dqc_lp, wq, lp)
-    dwkv = tn(dkv_lp, r["cond"])
-    dcond = _mm(dkv_lp, wkv, lp)
-    dx1_ln, ds2, db2v = _ln_bwd(dxn2, r["xhat2"], r["rstd2"],
-                                params[3].float())
-    dx1 = dx2 + dx1_ln
-
-    dq, dk, dv = _attention_bwd_plain(r["p_self"], r["q"], r["k"], r["v"],
-                                      _heads(dx1, n_heads), scale, lp)
-    dqkv_lp = torch.cat([_merge(dq), _merge(dk), _merge(dv)], -1).to(lp)
-    dwqkv = tn(dqkv_lp, r["xn1"])
-    dxn1 = _mm(dqkv_lp, wqkv, lp)
-    dx_ln, ds1, db1v = _ln_bwd(dxn1, r["xhat1"], r["rstd1"],
-                               params[0].float())
-    grads = [ds1, db1v, dwqkv, ds2, db2v, dwq, dwkv, ds3, db3, dw1, db1,
-             ddw, ddwb, dw2, db2]
-    return ((dx1 + dx_ln).to(x.dtype), dcond.to(cond.dtype),
+    dx, dcond, attn_grads = _attn_pair_bwd_plain(r, g + dx2_ln, params[:7],
+                                                 n_heads)
+    grads = attn_grads + [ds3, db3, dw1, db1, ddw, ddwb, dw2, db2]
+    return (dx.to(x.dtype), dcond.to(cond.dtype),
             [gr.reshape(p.shape) for gr, p in zip(grads, params)])
 
 
@@ -493,8 +509,8 @@ def dwconv_gelu_bwd(da, c, h, dw, hw: int):
 def self_attention_bwd(qkv, dout, n_heads: int, n_tokens: int):
     """Kernel wrapper of `self_attention_bwd_plain`: two kernels, dq (and
     each row's softmax statistics), then dk and dv, each launch counted.
-    On CUDA: qkv bf16, dout float32, head dim 64, N % 64 == 0 and
-    N <= 256."""
+    On CUDA: qkv bf16, dout float32, head dim 64 and N <= 256 (a ragged
+    last 64-token tile is masked in the kernels)."""
     if qkv.device.type == "cpu":
         return self_attention_bwd_plain(qkv, dout, n_heads, n_tokens)
     dev = _on_cuda("self_attention_bwd", qkv, dout)
@@ -504,8 +520,8 @@ def self_attention_bwd(qkv, dout, n_heads: int, n_tokens: int):
              and dout.shape == (m, d) and d == 64 * n_heads,
              "self_attention_bwd: qkv bf16 (B*N, 3D), dout float32 (B*N, D), "
              "head dim 64")
-    _require(n_tokens % 64 == 0 and n_tokens <= 256 and m % n_tokens == 0,
-             f"self_attention_bwd: needs N % 64 == 0 and N <= 256, got {n_tokens}")
+    _require(0 < n_tokens <= 256 and m % n_tokens == 0,
+             f"self_attention_bwd: needs N <= 256 and (B*N) rows, got {n_tokens}")
     b = m // n_tokens
     dqkv = torch.empty_like(qkv)
     stats = torch.empty((b, n_heads, n_tokens, 3), dtype=torch.float32,
@@ -548,14 +564,16 @@ def cross_attention_bwd(qc, kv, dout, n_heads: int, n_tokens: int):
 # ------------------------------ the layer through the kernels ------------------------------
 
 
-def _layer_forward(x, cond, params, n_heads: int, hw: int, keep: bool):
-    """The layer forward through the kernels up to the GELU output.
-    keep=True (the backward's recompute) also writes what the backward
-    reads: the normalised rows xn1 and xn2, the pre-GELU c, and the
-    residuals x0, x1, x2 as separate tensors. keep=False (the forward)
-    updates one float32 residual in place and writes none of those."""
-    (ln1s, ln1b, wqkv, ln2s, ln2b, wq, wkv,
-     ln3s, ln3b, w1, b1, dw, dwb, _, _) = params
+def _attn_pair_forward(x, cond, attn_params, n_heads: int, keep: bool,
+                       ln3=None):
+    """The attention pair's forward through the kernels (the first seven
+    parameters of PARAM_NAMES), up to the float32 residual x2 and, with
+    ln3, its bf16 LayerNorm xn3 (cross_attention's epilogue). keep=True
+    (the backward's recompute) also writes what the backward reads: the
+    normalised rows xn1 and xn2 and the residuals x0, x1, x2 as separate
+    tensors. keep=False (the forward) updates one float32 residual in
+    place and writes none of those."""
+    ln1s, ln1b, wqkv, ln2s, ln2b, wq, wkv = attn_params
     b, n, d = x.shape
     x0 = x.reshape(b * n, d).to(torch.float32, copy=True)
     c2 = cond.reshape(b * 2, d).to(wqkv.dtype).contiguous()
@@ -571,12 +589,21 @@ def _layer_forward(x, cond, params, n_heads: int, hw: int, keep: bool):
     x1 = fs.self_attention(qkv, residual(x0), n_heads, n)
     qc, xn2 = ln_product(x1, wq, (ln2s, ln2b))
     kv = fs.ln_gemm(c2, wkv)
-    x2, xn3 = fs.cross_attention(qc, kv, residual(x1), (ln3s, ln3b), n_heads, n)
-    h = fs.ln_gemm(xn3, w1, bias=b1, out_dtype=torch.float32)
+    x2, xn3 = fs.cross_attention(qc, kv, residual(x1), ln3, n_heads, n)
+    return dict(x0=x0, c2=c2, qkv=qkv, xn1=xn1, x1=x1, qc=qc, xn2=xn2, kv=kv,
+                x2=x2, xn3=xn3)
+
+
+def _layer_forward(x, cond, params, n_heads: int, hw: int, keep: bool):
+    """The layer forward through the kernels up to the GELU output, with
+    `_attn_pair_forward`'s `keep`; keep=True also writes the pre-GELU c."""
+    ln3s, ln3b, w1, b1, dw, dwb = params[7:13]
+    r = _attn_pair_forward(x, cond, params[:7], n_heads, keep, (ln3s, ln3b))
+    h = fs.ln_gemm(r["xn3"], w1, bias=b1, out_dtype=torch.float32)
     a, c = (fs.dwconv_gelu(h, dw, dwb, hw, return_c=True) if keep
             else (fs.dwconv_gelu(h, dw, dwb, hw), None))
-    return dict(x0=x0, c2=c2, qkv=qkv, xn1=xn1, x1=x1, qc=qc, xn2=xn2, kv=kv,
-                x2=x2, xn3=xn3, h=h, c=c, a=a)
+    r.update(h=h, c=c, a=a)
+    return r
 
 
 def fused_layer_fwd(x, cond, params: Sequence[torch.Tensor], n_heads: int,
@@ -588,41 +615,50 @@ def fused_layer_fwd(x, cond, params: Sequence[torch.Tensor], n_heads: int,
     return out.reshape(x.shape).to(x.dtype)
 
 
+def _dx_of(dy, w):
+    """dY W in float32 (`ln_gemm` with W^T as its (out, in) operand)."""
+    return fs.ln_gemm(dy, w.T.contiguous(), out_dtype=torch.float32)
+
+
+def _attn_pair_bwd(r, dx2, attn_params, n_heads: int, n: int):
+    """The attention pair's backward through the kernels, from the float32
+    gradient dx2 (B*N, D) at x2 and `_attn_pair_forward(keep=True)`'s
+    tensors `r`: (dx (B*N, D), dcond (B*2, D), both float32, the seven
+    parameter gradients float32)."""
+    ln1s, _, wqkv, ln2s, _, wq, wkv = attn_params
+    dqc, dkv = cross_attention_bwd(r["qc"], r["kv"], dx2, n_heads, n)
+    dwq = weight_grad(dqc, r["xn2"])
+    dwkv = weight_grad(dkv, r["c2"])
+    dcond = _dx_of(dkv, wkv)
+    dx1, ds2, db2 = layernorm_bwd(_dx_of(dqc, wq), r["x1"], ln2s, dx2)
+    del dqc, dkv
+
+    dqkv = self_attention_bwd(r["qkv"], dx1, n_heads, n)
+    dwqkv = weight_grad(dqkv, r["xn1"])
+    dx, ds1, db1 = layernorm_bwd(_dx_of(dqkv, wqkv), r["x0"], ln1s, dx1)
+    return dx, dcond, [ds1, db1, dwqkv, ds2, db2, dwq, dwkv]
+
+
 def fused_layer_bwd(x, cond, g, params: Sequence[torch.Tensor], n_heads: int,
                     hw: int):
     """The layer backward (`_bwd_kernel`) through the kernels, recomputing
     the forward: (dx in x's dtype, dcond in cond's dtype, the 15 parameter
     gradients in float32, shaped like the parameters)."""
-    (ln1s, _, wqkv, ln2s, _, wq, wkv, ln3s, _, w1, _, dw, _, w2, _) = params
+    ln3s, _, w1, _, dw, _, w2, _ = params[7:]
     b, n, d = x.shape
     r = _layer_forward(x, cond, params, n_heads, hw, keep=True)
-    lp = wqkv.dtype
-
-    def dx_of(dy, w):  # dY W, float32: W^T is the (out, in) operand
-        return fs.ln_gemm(dy, w.T.contiguous(), out_dtype=torch.float32)
-
+    lp = w2.dtype
     g32 = g.reshape(b * n, d).float()
     g_lp = g32.to(lp)
     db2 = colsum(g32)
     dw2 = weight_grad(g_lp, r["a"])
-    dhid, ddw, ddwb, db1 = dwconv_gelu_bwd(dx_of(g_lp, w2), r["c"], r["h"],
+    dhid, ddw, ddwb, db1 = dwconv_gelu_bwd(_dx_of(g_lp, w2), r["c"], r["h"],
                                            dw, hw)
     dw1 = weight_grad(dhid, r["xn3"])
-    dx2, ds3, db3 = layernorm_bwd(dx_of(dhid, w1), r["x2"], ln3s, g32)
+    dx2, ds3, db3 = layernorm_bwd(_dx_of(dhid, w1), r["x2"], ln3s, g32)
     del r["h"], r["c"], r["a"]
-
-    dqc, dkv = cross_attention_bwd(r["qc"], r["kv"], dx2, n_heads, n)
-    dwq = weight_grad(dqc, r["xn2"])
-    dwkv = weight_grad(dkv, r["c2"])
-    dcond = dx_of(dkv, wkv)
-    dx1, ds2, db2v = layernorm_bwd(dx_of(dqc, wq), r["x1"], ln2s, dx2)
-    del dx2
-
-    dqkv = self_attention_bwd(r["qkv"], dx1, n_heads, n)
-    dwqkv = weight_grad(dqkv, r["xn1"])
-    dx, ds1, db1v = layernorm_bwd(dx_of(dqkv, wqkv), r["x0"], ln1s, dx1)
-    grads = [ds1, db1v, dwqkv, ds2, db2v, dwq, dwkv, ds3, db3, dw1, db1,
-             ddw, ddwb, dw2, db2]
+    dx, dcond, attn_grads = _attn_pair_bwd(r, dx2, params[:7], n_heads, n)
+    grads = attn_grads + [ds3, db3, dw1, db1, ddw, ddwb, dw2, db2]
     return (dx.reshape(b, n, d).to(x.dtype),
             dcond.reshape(b, 2, d).to(cond.dtype),
             [gr.reshape(p.shape) for gr, p in zip(grads, params)])

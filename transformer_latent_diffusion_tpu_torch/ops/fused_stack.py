@@ -250,7 +250,8 @@ def ln_gemm(a, w, bias=None, ln=None, residual=None, out_dtype=None,
 
 def self_attention(qkv, residual, n_heads: int, n_tokens: int):
     """Kernel wrapper of `self_attention_plain`; updates `residual` in place
-    on CUDA. Needs head dim 64, N % 64 == 0 and N <= 256."""
+    on CUDA. Needs head dim 64 and N <= 256 (a ragged last 64-token tile
+    is masked in the kernel)."""
     if qkv.device.type == "cpu":
         return self_attention_plain(qkv, residual, n_heads, n_tokens)
     dev = _on_cuda("self_attention", qkv, residual)
@@ -260,8 +261,8 @@ def self_attention(qkv, residual, n_heads: int, n_tokens: int):
              "self_attention: qkv bf16, residual float32")
     _require(d == 64 * n_heads and residual.shape == (m, d),
              "self_attention: needs head dim 64 and residual (B*N, D)")
-    _require(n_tokens % 64 == 0 and n_tokens <= 256 and m % n_tokens == 0,
-             f"self_attention: needs N % 64 == 0 and N <= 256, got N={n_tokens}")
+    _require(0 < n_tokens <= 256 and m % n_tokens == 0,
+             f"self_attention: needs N <= 256 and (B*N) rows, got N={n_tokens}")
     lib = load_library()
     LAUNCHES["self_attention"] += 1
     err = lib.ltd_self_attention(_ptr(qkv), _ptr(residual), m // n_tokens,

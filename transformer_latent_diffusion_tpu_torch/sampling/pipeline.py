@@ -16,7 +16,10 @@ with flash attention (K3) in every self-attention and, for a native grid
 of 16 < hw <= 32 tokens a side, the fused sep-conv MLP (K5's forward).
 `LTDConfig.quantize="int8"` builds the W8A8 engine (K7) instead of K1's,
 behind the same gate, so a hi-res int8 deployment runs K3/K5 and no K7,
-as in JAX. On the CPU it runs the plain `Denoiser`, as the JAX package
+as in JAX. The engines pack the sep-conv layer: a model with the "mlp" or
+"moe" FFN runs the linen path on every grid, flash attention (K3) in
+every self-attention and its FFN in plain PyTorch, and `quantize` has no
+effect on it. On the CPU it runs the plain `Denoiser`, as the JAX package
 does off the TPU: no engine, so `quantize` has no effect there
 (sampling/pipeline.py:225-237).
 """
@@ -87,6 +90,15 @@ def denoiser_kernel_flags(cfg: LTDConfig, device) -> dict:
                                   and den.mlp_class == "sep_conv")}
 
 
+def uses_fused_engine(cfg: LTDConfig, device) -> bool:
+    """Whether the deployment builds a fused engine (K1's, or K7's with
+    quantize="int8"): on CUDA for the sep-conv FFN, whose layer the
+    engines pack (JAX sampling/pipeline.py:225-237). The "mlp" and "moe"
+    FFNs take the linen path, with flash attention (K3)."""
+    return (torch.device(device).type == "cuda"
+            and cfg.denoiser_cfg.mlp_class == "sep_conv")
+
+
 class DiffusionTransformer:
     """cfg: the inference config; device: where every tower runs ("cuda",
     "cuda:0", "cpu"); seed: the seed of the random weights of any tower
@@ -144,7 +156,7 @@ class DiffusionTransformer:
         self.clip_model.to(self.device).eval()
 
         fast_apply = None
-        if self.device.type == "cuda":
+        if uses_fused_engine(cfg, self.device):
             fast_apply = make_fused_apply(cfg.denoiser_cfg, compute_dtype=dtype,
                                           quantize=cfg.quantize)
         self.schedule_shift = cfg.schedule_shift

@@ -6,7 +6,9 @@ start, request counters) and `POST /generate-image/` with bearer-token
 auth against the API_TOKEN environment variable, the request schema
 {prompt, class_guidance=6, seed=11, num_imgs=1, img_size=32, n_iter=15,
 ...}, a JPEG response, 401 on a missing or wrong token, 422 on malformed
-fields and 500 with the error's text when generation fails.
+fields, and, as the JAX frontend, 500 with `{"detail": str(e)}` when the
+body is not JSON, is a JSON value that is not an object (where the
+prompt check does not already answer 422), or generation fails.
 
 Plain text-to-image only. The editing fields (init_image, mask,
 strength, interpolate_to, seed_b, best_of), block caching and the solver
@@ -284,28 +286,26 @@ def create_wsgi_app(cfg: Optional[LTDConfig] = None, service=None,
             status, text = _check_token(environ.get("HTTP_AUTHORIZATION"))
             if status != 200:
                 return detail(status, text)
+            # as the JAX frontend: any exception from the body's parsing on
+            # (a body that is not JSON, or a JSON value without .get) is a
+            # 500 with str(e) as its detail (the reference's 500 semantics)
             try:
                 length = int(environ.get("CONTENT_LENGTH") or 0)
                 payload = json.loads(environ["wsgi.input"].read(length) or b"{}")
-            except (ValueError, UnicodeDecodeError):
-                return detail(422, "body must be a JSON object")
-            if not isinstance(payload, dict):
-                return detail(422, "body must be a JSON object")
-            if "prompt" not in payload:
-                return detail(422, "prompt is required")
-            err = _validate_int_fields(payload) or _validate_fields(payload)
-            if err:
-                return detail(422, err)
-            kwargs = {k: payload.get(k, v) for k, v in REQUEST_DEFAULTS.items()}
-            try:
+                if "prompt" not in payload:
+                    return detail(422, "prompt is required")
+                err = _validate_int_fields(payload) or _validate_fields(payload)
+                if err:
+                    return detail(422, err)
+                kwargs = {k: payload.get(k, v) for k, v in REQUEST_DEFAULTS.items()}
                 jpeg = svc.generate_jpeg(prompt=payload["prompt"], **kwargs)
-            except Exception as e:  # the reference's 500 semantics
-                return detail(500, f"{type(e).__name__}: {e}")
-            eff = svc.effective_n_iter(kwargs["n_iter"])
-            extra = ([("X-Effective-N-Iter", str(eff))]
-                     if eff is not None and eff != kwargs["n_iter"] else [])
-            return respond(200, jpeg, content_type="image/jpeg",
-                           extra_headers=extra)
+                eff = svc.effective_n_iter(kwargs["n_iter"])
+                extra = ([("X-Effective-N-Iter", str(eff))]
+                         if eff is not None and eff != kwargs["n_iter"] else [])
+                return respond(200, jpeg, content_type="image/jpeg",
+                               extra_headers=extra)
+            except Exception as e:
+                return detail(500, str(e))
         return detail(404, "Not Found")
 
     app.service = svc

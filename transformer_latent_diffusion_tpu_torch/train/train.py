@@ -12,18 +12,22 @@ PyTorch runs eagerly, so the JAX package's one jitted step becomes a
 Python step over an `nn.Module` with float32 master weights computing in
 `compute_dtype`. On CUDA its decoder blocks take the hand-written kernels
 by the JAX package's gates: K2 (`ops/fused_layer_vjp.py`) on square grids
-of at most 256 tokens; beyond, flash attention with its backward (K3/K4,
-`ops/attention.py`) and, up to 1024 tokens, the sep-conv MLP's K5
-(`ops/fused_mlp_vjp.py`); per-block remat from 2048 tokens. Multires
-buckets (`DataConfig.extra_latent_paths`) interleave whole batches, and a
-bucket off the native grid trains the positional table through a
-differentiable bilinear resize inside the loss. The eval grid samples the
-EMA weights through the K1 engine on a native grid of at most 256 tokens,
-else through a Denoiser with flash attention only (the JAX package's
-`eval_model`). The random draws come from a `torch.Generator` on the device,
-reseeded per step from (seed, step); they do not reproduce the JAX
-package's threefry draws, so the loss is split into `sample_draws` and a
-pure `loss_from_draws`, through which a test feeds the JAX draws.
+of at most 256 tokens with the sep-conv FFN; the attention pair K6
+(`ops/fused_attn_vjp.py`) in the other blocks of at most 256 tokens (the
+"mlp" and "moe" FFNs, whose MoE adds its Switch load-balancing loss);
+beyond, flash attention with its backward (K3/K4, `ops/attention.py`)
+and, up to 1024 tokens, the sep-conv MLP's K5 (`ops/fused_mlp_vjp.py`);
+per-block remat from 2048 tokens. Multires buckets
+(`DataConfig.extra_latent_paths`) interleave whole batches, and a bucket
+off the native grid trains the positional table through a differentiable
+bilinear resize inside the loss. The eval grid samples the
+EMA weights through the K1 engine on a sep-conv model's native grid of at
+most 256 tokens, else through a Denoiser with flash attention only (the
+JAX package's `eval_model`). The random draws come from a
+`torch.Generator` on the device, reseeded per step from (seed, step);
+they do not reproduce the JAX package's threefry draws, so the loss is
+split into `sample_draws` and a pure `loss_from_draws`, through which a
+test feeds the JAX draws.
 """
 
 from __future__ import annotations
@@ -200,9 +204,11 @@ def resolve_fused_flags(train_cfg, on_cuda: bool):
     """(fused_layer, fused_mlp, fused_attn), the JAX package's defaults
     (train.py:204-212) with CUDA for the TPU. None = auto: the fused layer
     (K2) on CUDA, the plain autograd path on the CPU; the fused MLP (K5)
-    on CUDA where the fused layer is off. On CUDA the port has no switch
-    off its kernels, so fused_layer_vjp=False raises there; K6
-    (fused_attn_vjp) is not ported (check_train_config)."""
+    and the fused attention pair (K6) on CUDA where the fused layer is
+    off. A fused-layer block that K2 does not take (the "mlp" and "moe"
+    FFNs) runs K6 all the same (models.blocks.DecoderBlock). On CUDA the
+    port has no switch off its kernels, so fused_layer_vjp=False raises
+    there."""
     fused_layer = (train_cfg.fused_layer_vjp
                    if train_cfg.fused_layer_vjp is not None else on_cuda)
     if on_cuda and not fused_layer:
@@ -213,7 +219,10 @@ def resolve_fused_flags(train_cfg, on_cuda: bool):
     fused_mlp = (train_cfg.fused_mlp_vjp
                  if train_cfg.fused_mlp_vjp is not None
                  else (on_cuda and not fused_layer))
-    return bool(fused_layer), bool(fused_mlp), bool(train_cfg.fused_attn_vjp)
+    fused_attn = (train_cfg.fused_attn_vjp
+                  if train_cfg.fused_attn_vjp is not None
+                  else (on_cuda and not fused_layer))
+    return bool(fused_layer), bool(fused_mlp), bool(fused_attn)
 
 
 class DiffusionLoss:
@@ -226,7 +235,9 @@ class DiffusionLoss:
     grid (differentiable: every bucket trains the one table), and
     schedule_shift="auto" shifts by the batch's size over the native one
     (1.0, the native bucket, is no shift), as the JAX package's
-    `_pos_override` and `_resolve_shift` do."""
+    `_pos_override` and `_resolve_shift` do. A "moe" model adds
+    `moe_aux_weight` times its Switch load-balancing loss (the JAX
+    package's sown "losses", train.py:403-416)."""
 
     def __init__(self, train_cfg, vae_scale_factor: float,
                  objective: str = "x0", image_size: Optional[int] = None,
@@ -255,6 +266,7 @@ class DiffusionLoss:
         self.offset_noise = float(train_cfg.offset_noise)
         self.beta = (float(train_cfg.beta_a), float(train_cfg.beta_b))
         self.vae_scale_factor = float(vae_scale_factor)
+        self.moe_aux_weight = float(train_cfg.moe_aux_weight)
 
     def sample_draws(self, generator: torch.Generator, x) -> Dict[str, Any]:
         """noise_level (n, 1) ~ Beta(a, b) (before any schedule shift),
@@ -316,9 +328,13 @@ class DiffusionLoss:
                 model(x_noisy, noise_level, label, pos_embed_override=pos))
         w = self._weight(noise_level.float())
         if w is None:
-            return torch.mean((pred - target) ** 2)
-        per = (pred - target).float().square().mean(tuple(range(1, pred.ndim)))
-        return torch.mean(w[:, 0] * per)
+            loss = torch.mean((pred - target) ** 2)
+        else:
+            per = (pred - target).float().square().mean(tuple(range(1, pred.ndim)))
+            loss = torch.mean(w[:, 0] * per)
+        if getattr(model, "mlp_class", "sep_conv") == "moe":
+            loss = loss + self.moe_aux_weight * model.moe_aux_loss()
+        return loss
 
     def __call__(self, model, x, y, generator):
         return self.loss_from_draws(model, x, y, **self.sample_draws(generator, x))
@@ -433,7 +449,8 @@ def main(config: ModelConfig, device,
                          f"{denoiser_config.n_channels} but outpaint=False")
 
     compute_dtype = resolve_dtype(train_config.compute_dtype)
-    fused_layer, fused_mlp, _ = resolve_fused_flags(train_config, on_cuda)
+    fused_layer, fused_mlp, fused_attn = resolve_fused_flags(train_config,
+                                                             on_cuda)
     # remat's auto choice covers the largest bucket of the run
     patch = denoiser_config.patch_size
     max_tokens = max([(denoiser_config.image_size // patch) ** 2] + [
@@ -443,7 +460,7 @@ def main(config: ModelConfig, device,
     model = Denoiser.from_config(denoiser_config, dtype=compute_dtype,
                                  fused_layer_vjp=fused_layer,
                                  use_pallas=on_cuda, fused_mlp_vjp=fused_mlp,
-                                 remat=remat)
+                                 remat=remat, fused_attn_vjp=fused_attn)
     if init_state_dict is not None:
         model.load_state_dict(init_state_dict)
     else:
@@ -499,8 +516,11 @@ def main(config: ModelConfig, device,
             else:
                 init_random_weights_(dec, train_config.seed + 1)
             vae.append(dec.to(device, resolve_dtype(config.vae_cfg.vae_dtype)).eval())
+        # the K1 engine packs the sep-conv layer; the other FFNs sample
+        # through the linen path (flash attention on CUDA)
         engine = (make_fused_apply(denoiser_config, torch.bfloat16)
-                  if on_cuda else None)
+                  if on_cuda and denoiser_config.mlp_class == "sep_conv"
+                  else None)
         return DiffusionGenerator(ema_model, vae=vae[0], fast_apply=engine,
                                   device=device)
 

@@ -17,16 +17,20 @@ def init_random_weights_(module: nn.Module, seed: int) -> nn.Module:
     `seed`, in the order of `named_parameters()`: biases zero, other 1-D
     parameters (norm scales) one, the rest normal with std
     1/sqrt(fan_in), fan_in being the elements per output row of the
-    (out, ...) layout. Random weights stand in where trained ones are not
-    in the repository; buffers are left as they are."""
+    (out, ...) layout, or for the stacked experts of `models.moe.MoEMLP`
+    (`wi` (E, D, H), `wo` (E, H, D), biases `bi`, `bo`) the middle axis.
+    Random weights stand in where trained ones are not in the repository;
+    buffers are left as they are."""
     gen = torch.Generator(device="cpu").manual_seed(int(seed))
     for name, p in module.named_parameters():
-        if name.endswith("bias"):
+        leaf = name.rsplit(".", 1)[-1]
+        if name.endswith("bias") or leaf in ("bi", "bo"):
             p.zero_()
         elif p.ndim == 1:
             p.fill_(1.0)
         else:
-            std = 1.0 / math.sqrt(p[0].numel())
+            fan_in = p.shape[1] if leaf in ("wi", "wo") else p[0].numel()
+            std = 1.0 / math.sqrt(fan_in)
             p.copy_(torch.randn(p.shape, generator=gen) * std)
     return module
 
