@@ -706,7 +706,8 @@ def phase_int8_kernels():
         log(f"[int8-kernels] rowquant {name}: {time_ms(lambda: q8.rowquant(*args)):.4f} ms")
     log(f"[int8-kernels] dwconv_gelu float32 out: "
         f"{time_ms(lambda: fs.dwconv_gelu(h, dw, dwb, HW, out_dtype=f32)):.4f} ms (bf16 out "
-        f"{time_ms(lambda: fs.dwconv_gelu(h, dw, dwb, HW)):.4f} ms)")
+        f"{time_ms(lambda: fs.dwconv_gelu(h, dw, dwb, HW)):.4f} ms; plain, float32 out "
+        f"{time_ms(lambda: fs.dwconv_gelu_plain(h, dw, dwb, HW, out_dtype=f32), 3, 1):.4f} ms)")
     library = {"gemm_i8": time_ms(lambda: [torch._int_mm(products[k][0], w[k][0].t())
                                            for k in products]),
                "rowquant": None}  # no one call: a LayerNorm, a row max, a division, a round
@@ -799,51 +800,18 @@ def phase_int8_engine(cfg8):
 
 
 def phase_s1():
-    """S1 (scripts/microbench_int8.py): the MLP product pair y = (x W1) W2
-    at its shapes (x 65,536 x 768, W1 768 -> 3072, W2 3072 -> 768), bf16
-    (ln_gemm twice, the hidden state bf16) against W8A8 (rowquant, gemm_i8
-    with a float32 hidden state, rowquant, gemm_i8), in TFLOP/s; the W8A8
-    result against its plain version and against the bf16 one."""
-    from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
-    from transformer_latent_diffusion_tpu_torch.ops import fused_stack_int8 as q8
+    """S1 (scripts/microbench_int8.py) through its entry point,
+    `transformer_latent_diffusion_tpu_torch.scripts.microbench_int8`: the
+    MLP product pair y = (x W1) W2 at its shapes (x 65,536 x 768, W1
+    768 -> 3072, W2 3072 -> 768), bf16 (ln_gemm twice) against W8A8
+    (rowquant, gemm_i8 with a float32 hidden state, rowquant, gemm_i8), in
+    TFLOP/s; the W8A8 result against its plain version (the probe raises
+    past KERNEL_REL_L2) and against the bf16 one."""
+    from transformer_latent_diffusion_tpu_torch.scripts import microbench_int8
 
-    dev = torch.device(DEVICE)
-    g = torch.Generator(device="cpu").manual_seed(14)
-    m, f32 = S1_ROWS, torch.float32
-    x = (torch.randn(m, D, generator=g) * 0.1).to(dev)
-    w1 = (torch.randn(HIDDEN, D, generator=g) * 0.02).to(dev, torch.bfloat16)
-    w2 = (torch.randn(D, HIDDEN, generator=g) * 0.02).to(dev, torch.bfloat16)
-    (w1q, s1), (w2q, s2) = q8.colquant(w1), q8.colquant(w2)
-    xb = x.to(torch.bfloat16)
-
-    def w8a8(quant, qmm):
-        xq, rs = quant(x)
-        hq, rs2 = quant(qmm(xq, rs, w1q, s1, out_dtype=f32))
-        return qmm(hq, rs2, w2q, s2)
-
-    with torch.no_grad():
-        got = w8a8(q8.rowquant, q8.gemm_i8)
-        want = w8a8(q8.rowquant_plain, q8.gemm_i8_plain)
-        ybf = fs.ln_gemm(fs.ln_gemm(xb, w1), w2)
-        torch.cuda.synchronize()
-        r, r_bf = rel_l2(got.float(), want.float()), rel_l2(got.float(), ybf.float())
-        log(f"[s1] W8A8 pair, kernels vs plain: rel-L2 {r:.2e} (bound {KERNEL_REL_L2}); "
-            f"W8A8 vs bf16: rel-L2 {r_bf:.2e}")
-        if not (torch.isfinite(got).all() and r < KERNEL_REL_L2):
-            raise AssertionError("S1's W8A8 pair disagrees with its plain version")
-        timing = time_against_plain({"s1 W8A8": (lambda: w8a8(q8.rowquant, q8.gemm_i8),
-                                                 lambda: w8a8(q8.rowquant_plain,
-                                                              q8.gemm_i8_plain))}, "s1")
-        t8 = timing["s1 W8A8"][0]
-        t16 = [time_ms(lambda: fs.ln_gemm(fs.ln_gemm(xb, w1), w2)) for _ in range(2)]
-    flops = 4 * m * D * HIDDEN
-    bnd = bound(m * D * 4 + 2 * HIDDEN * D + 4 * (HIDDEN + D) + m * D * 2, flops,
-                INT8_TENSOR_OP_S)
-    log(f"[s1] MLP pair at {m} rows: W8A8 {t8:.4f} ms ({flops / t8 / 1e9:.1f} TOP/s, bound "
-        f"{bnd[0]:.4f} ms {bnd[1]}), bf16 {sum(t16) / 2:.4f} ms "
-        f"({flops / (sum(t16) / 2) / 1e9:.1f} TFLOP/s; runs {t16})")
-    del x, xb, got, want, ybf
+    res = microbench_int8.main(["--rows", str(S1_ROWS), "--device", DEVICE])
     torch.cuda.empty_cache()
+    return res
 
 
 # ------------------------------ hi-res serving (K3, K5) ------------------------------
@@ -1978,8 +1946,9 @@ def _count_modules():
     from transformer_latent_diffusion_tpu_torch.ops import fused_mlp_vjp as fm
     from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
     from transformer_latent_diffusion_tpu_torch.ops import fused_stack_int8 as q8
+    from transformer_latent_diffusion_tpu_torch.ops import layer_variants as lvar
 
-    return fs, lv, att, fm, q8, k6, fb
+    return fs, lv, att, fm, q8, k6, fb, lvar
 
 
 def _pair_inputs(gen, b, n):
@@ -2416,6 +2385,337 @@ def phase_ffn_train(mlp_class, smi):
     return launches, kern, plain
 
 
+# ------------------------------ the probes S3, S2, S4 ------------------------------
+
+TPU_S1 = "scripts/microbench_int8.py:74"
+TPU_S2 = "scripts/probe_train_bwd_stage.py:259"
+TPU_S3 = "scripts/probe_attn_softmax.py:55"
+TPU_S4 = "scripts/microbench_layer.py:252"
+# the probes' own shapes: S3 at B = 4, 12 heads, 4096 tokens; S2 and S4 at
+# batch 256 of the flagship layer (256 tokens)
+S3_B, S3_N = 4, 4096
+S2_B = S4_B = 256
+# the plain versions' timings take this many calls (they are references,
+# and the whole-layer ones take 50-300 ms a call at these shapes)
+PLAIN_REPS = 3
+
+
+def _check_rows(tag, cases):
+    """{name: (check kernel, check plain, time kernel, time plain, (bound
+    ms, bound by), library call or None)}: each kernel call's outputs
+    against its plain version's (every output not None, rel-L2 <
+    KERNEL_REL_L2 and max-abs < KERNEL_MAX_ABS of the plain output's
+    scale), then times taken plain, kernel, kernel, plain, and the library
+    call's. Returns {name: row of the kernels line, without launches}."""
+    from transformer_latent_diffusion_tpu_torch.scripts import _probe
+
+    dev = torch.device(DEVICE)
+    rows = {}
+    for name, (kern, plain, kern_t, plain_t, bnd, lib) in cases.items():
+        with torch.no_grad():
+            got, want = _tuple(kern()), _tuple(plain())
+            torch.cuda.synchronize()
+            worst_r = worst_rel = worst_a = 0.0
+            for u, w in zip(got, want):
+                if (u is None) != (w is None):
+                    raise AssertionError(f"{name}: the kernel path and the plain version "
+                                         f"compute different outputs")
+                if u is None:
+                    continue
+                r, a, rel_a = _errors(u, w)
+                worst_r, worst_a, worst_rel = max(worst_r, r), max(worst_a, a), max(worst_rel, rel_a)
+            del got, want
+            ok = worst_r < KERNEL_REL_L2 and worst_rel < KERNEL_MAX_ABS
+            kms, pms = _probe.time_against_plain(kern_t, plain_t, dev, 20, PLAIN_REPS)
+            lms = time_ms(lib) if lib is not None else None
+        log(f"[{tag}] {name}: rel-L2 {worst_r:.2e} max-abs {worst_a:.3e} ({worst_rel:.2e} of "
+            f"max |ref|; bounds {KERNEL_REL_L2}, {KERNEL_MAX_ABS}); {kms:.4f} ms, plain "
+            f"{pms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), library "
+            f"{'none' if lms is None else f'{lms:.4f} ms'}")
+        if not ok:
+            raise AssertionError(f"{tag} {name} disagrees with its plain version")
+        rows[name] = {"max_abs_err": worst_a, "ms": kms, "plain_ms": pms, "bound_ms": bnd[0],
+                      "bound_by": bnd[1], "library_ms": lms}
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _line_rows(rows, tpu, label, source, launches):
+    """Rows of the kernels line from `_check_rows`'s: `label(name)` and
+    `source(name)` name each, `launches(name)` its launches in the
+    probe's run."""
+    port = "transformer_latent_diffusion_tpu_torch"
+    return [{"name": label(name), "route": "cuda", "source": f"{port}/{source(name)}",
+             "replaces": tpu, "launches": launches(name), **row}
+            for name, row in rows.items()]
+
+
+def _nbytes(*tensors):
+    """Bytes of the tensors (None skipped, lists flattened)."""
+    total = 0
+    for t in tensors:
+        if isinstance(t, (list, tuple)):
+            total += _nbytes(*t)
+        elif t is not None:
+            total += t.numel() * t.element_size()
+    return total
+
+
+def phase_s3():
+    """S3 (scripts/probe_attn_softmax.py) through its entry point at its
+    shapes (B = 4, 12 heads, N = 4096; with each form's compiled
+    instruction counts), its launches; then each softmax form's kernel
+    against its plain version, with SDPA on the same q, k, v as the
+    library call, and how far prediv (the TPU K3's rounding) lands from
+    K3's own form."""
+    from transformer_latent_diffusion_tpu_torch.scripts import probe_attn_softmax as s3
+
+    F = torch.nn.functional
+    _reset_counts()
+    res = s3.main(["--batch", str(S3_B), "--heads", str(HEADS), "--tokens", str(S3_N),
+                   "--device", DEVICE, "--sass"])
+    _require_launches(_counts(), _expect({"flash_attention_variant": sum(
+        sum(r["launches"].values()) for r in res["variants"].values())}), "s3")
+    q, k, v = res["inputs"]
+    b, h, n, dh = q.shape
+    bnd = bound(4 * _nbytes(q), 4 * b * h * n * n * dh, BF16_TENSOR_FLOP_S)
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+    cases = {}
+    for tag, r in res["variants"].items():
+        e2, pd = r["use_exp2"], r["postdiv"]
+        cases[tag] = (lambda e2=e2, pd=pd: s3.attn(q, k, v, e2, pd),
+                      lambda e2=e2, pd=pd: s3.attn_plain(q, k, v, e2, pd),
+                      lambda e2=e2, pd=pd: s3.attn(q, k, v, e2, pd),
+                      lambda e2=e2, pd=pd: s3.attn_plain(q, k, v, e2, pd), bnd, sdpa)
+    rows = _check_rows("s3", cases)
+    outs = {tag: r["out"].float() for tag, r in res["variants"].items()}
+    k3 = outs["exp,postdiv (K3)"]
+    r, a, rel_a = _errors(outs["exp,prediv"], k3)
+    log(f"[s3] prediv (the TPU K3's rounding) against K3's postdiv form: rel-L2 {r:.2e}, "
+        f"max-abs {a:.3e} ({rel_a:.2e} of max |K3|)")
+    launches = {tag: sum(r["launches"].values()) for tag, r in res["variants"].items()}
+    del res, outs, k3
+    torch.cuda.empty_cache()
+    return _line_rows(rows, TPU_S3, "flash_attention_variant ({})".format,
+                      lambda _: "csrc/flash_attention.cu", launches.get)
+
+
+def phase_s2():
+    """S2 (scripts/probe_train_bwd_stage.py) through its entry point at
+    batch 256: the forward and the six backward modes timed, the shares of
+    the backward, bwd/fwd; each mode's outputs against its written-out
+    plain version; then the bf16 modes of the kernels that bf16res runs
+    (dwconv_gelu writing a bf16 c from bf16 h, layernorm_bwd reading a bf16
+    x, dwconv_gelu_bwd reading bf16 c and h) at its shapes."""
+    from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
+    from transformer_latent_diffusion_tpu_torch.scripts import probe_train_bwd_stage as s2
+
+    _reset_counts()
+    res = s2.main(["--batch", str(S2_B), "--device", DEVICE])
+    log(f"[s2] launches of the probe's run: { {k: v for k, v in _counts().items() if v} }")
+    x, cond, g, params = res["inputs"]
+    flops = {k: v * S2_B for k, v in res["flops"].items()}
+    work = {"full": flops["full"], "bf16res": flops["full"],
+            "recompute": flops["recompute"], "no_mlp": flops["full"] - flops["mlp"],
+            "no_cross": flops["full"] - flops["cross"], "no_self": flops["full"] - flops["self"]}
+    cases = {}
+    for mode, r in res["modes"].items():
+        bnd = bound(_nbytes(x, cond, g, params, r["out"]), work[mode], BF16_TENSOR_FLOP_S)
+
+        def kern(m=mode):
+            dx, dcond, grads = lv.fused_layer_bwd_variant(m, x, cond, g, params, HEADS, HW)
+            return (dx, dcond, *grads)
+
+        def plain(m=mode):
+            dx, dcond, grads = lv.fused_layer_bwd_variant_plain(m, x, cond, g, params,
+                                                                 HEADS, HW)
+            return (dx, dcond, *grads)
+
+        cases[mode] = (kern, plain, kern, plain, bnd, None)
+    rows = _line_rows(_check_rows("s2", cases), TPU_S2, "fused_layer_bwd_variant ({})".format,
+                      lambda _: "ops/fused_layer_vjp.py",
+                      lambda m: sum(res["modes"][m]["launches"].values()))
+    bf16res = res["modes"]["bf16res"]["launches"]
+    del res
+
+    # the bf16 modes of three kernels, at the probe's shapes
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device="cpu").manual_seed(72)
+    bf = torch.bfloat16
+    m = S2_B * N
+
+    def randn(*shape, std=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=gen) * std).to(dev, dtype)
+
+    h, dw, dwb = randn(m, HIDDEN, dtype=bf), randn(9, HIDDEN, std=1 / 3, dtype=bf), randn(HIDDEN)
+    c, da = randn(m, HIDDEN, dtype=bf), randn(m, HIDDEN)
+    dy, xb, up, sc = randn(m, D), randn(m, D, dtype=bf), randn(m, D), 1 + randn(D, std=0.1)
+    kcases = {
+        "dwconv_gelu (bf16 c)": (
+            lambda: fs.dwconv_gelu(h, dw, dwb, HW, return_c=True, c_dtype=bf),
+            lambda: fs.dwconv_gelu_plain(h, dw, dwb, HW, return_c=True, c_dtype=bf),
+            lambda: fs.dwconv_gelu(h, dw, dwb, HW, return_c=True, c_dtype=bf),
+            lambda: fs.dwconv_gelu_plain(h, dw, dwb, HW, return_c=True, c_dtype=bf),
+            bound(m * HIDDEN * 6 + 9 * HIDDEN * 2 + HIDDEN * 4, 26 * m * HIDDEN, F32_FLOP_S),
+            None),
+        "layernorm_bwd (bf16 x)": (
+            lambda: lv.layernorm_bwd(dy, xb, sc, up), lambda: lv.layernorm_bwd_plain(dy, xb, sc, up),
+            lambda: lv.layernorm_bwd(dy, xb, sc, up), lambda: lv.layernorm_bwd_plain(dy, xb, sc, up),
+            bound(m * D * 14 + 3 * D * 4, 15 * m * D, F32_FLOP_S), None),
+        "dwconv_gelu_bwd (bf16 c, h)": (
+            lambda: lv.dwconv_gelu_bwd(da, c, h, dw, HW),
+            lambda: lv.dwconv_gelu_bwd_plain(da, c, h, dw, HW),
+            lambda: lv.dwconv_gelu_bwd(da, c, h, dw, HW),
+            lambda: lv.dwconv_gelu_bwd_plain(da, c, h, dw, HW),
+            bound(m * HIDDEN * 10 + 9 * HIDDEN * 2 + 11 * HIDDEN * 4, 40 * m * HIDDEN,
+                  F32_FLOP_S), None),
+    }
+    # the same kernels in the full backward's float32 modes, for comparison
+    h32, c32, x32 = h.float(), c.float(), xb.float()
+    ref = {"dwconv_gelu (float32 h, c)": lambda: fs.dwconv_gelu(h32, dw, dwb, HW, return_c=True),
+           "layernorm_bwd (float32 x)": lambda: lv.layernorm_bwd(dy, x32, sc, up),
+           "dwconv_gelu_bwd (float32 c, h)": lambda: lv.dwconv_gelu_bwd(da, c32, h32, dw, HW)}
+    log("[s2] the float32 modes, for comparison: " + ", ".join(
+        f"{name} {time_ms(fn):.4f} ms" for name, fn in ref.items()))
+    del h32, c32, x32
+    # a kernel mode's launches: its kernel's in the bf16res mode's run
+    kernel = lambda name: name.split(" (")[0]  # noqa: E731
+    rows += _line_rows(_check_rows("s2", kcases), TPU_S2, str,
+                       lambda name: f"csrc/{kernel(name)}.cu",
+                       lambda name: bf16res.get(kernel(name), 0))
+    del h, c, da, dy, xb, up
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_s4():
+    """S4 (scripts/microbench_layer.py) through its entry point at batch
+    256: each forward variant (and the backward and the training forward's
+    entry point) timed chained, its launches; each variant's output against
+    its plain version (and its update, output - x, within LAYER_FWD_REL_L2);
+    then the variant kernels alone at its shapes: head_group_attention
+    (packed, paired, onehead; SDPA per head, or one 768-wide head with
+    scale 1/8, as the library call), cross_attention with the heads summed,
+    dwconv_gelu without the convolution and commuted (whose output must be
+    base's)."""
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
+    from transformer_latent_diffusion_tpu_torch.ops import layer_variants as lvar
+    from transformer_latent_diffusion_tpu_torch.scripts import microbench_layer as s4
+    from transformer_latent_diffusion_tpu_torch.scripts import probe_train_bwd_stage as s2
+
+    F = torch.nn.functional
+    _reset_counts()
+    res = s4.main(["--batch", str(S4_B), "--device", DEVICE])
+    log(f"[s4] launches of the probe's run: { {k: v for k, v in _counts().items() if v} }")
+    x, cond, _, params = res["inputs"]
+    xf = x.float()
+    fwd_flops = s2.stage_flops(N, D, HIDDEN)["fwd"] * S4_B
+    cases = {}
+    for tag, am, dm in s4.VARIANTS:
+        out = res["variants"][tag]["out"]
+        want = lvar.fused_layer_fwd_variant_plain(am, dm, x, cond, params, HEADS, HW)
+        r = rel_l2(out.float() - xf, want.float() - xf)
+        log(f"[s4] {tag}: the layer's update, kernels vs plain: rel-L2 {r:.2e} "
+            f"(bound {LAYER_FWD_REL_L2})")
+        if not r < LAYER_FWD_REL_L2:
+            raise AssertionError(f"s4 {tag}: the layer's update disagrees with the plain one")
+        del want
+        fn = (lambda am=am, dm=dm: lvar.fused_layer_fwd_variant(am, dm, x, cond, params,
+                                                                HEADS, HW))
+        plain = (lambda am=am, dm=dm: lvar.fused_layer_fwd_variant_plain(
+            am, dm, x, cond, params, HEADS, HW))
+        cases[tag] = (fn, plain, fn, plain,
+                      bound(_nbytes(x, cond, params, out), fwd_flops, BF16_TENSOR_FLOP_S), None)
+    launches = {tag: r["launches"] for tag, r in res["variants"].items()}
+    rows = _line_rows(_check_rows("s4", cases), TPU_S4, "fused_layer_fwd_variant ({})".format,
+                      lambda _: "ops/layer_variants.py",
+                      lambda tag: sum(launches[tag].values()))
+    base = res["variants"]["base"]["out"].float()
+    for tag in s4.SAME_AS_BASE:
+        log(f"[s4] {tag} max|diff| vs base: "
+            f"{float((res['variants'][tag]['out'].float() - base).abs().max()):.3e}")
+    log("[s4] summary (ms/call, chained): " + " ".join(
+        f"{tag} {r['ms']:.3f}" for tag, r in res["variants"].items()))
+    del res, base
+
+    # the variant kernels alone, at the probe's shapes
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device="cpu").manual_seed(74)
+    bf = torch.bfloat16
+    m = S4_B * N
+
+    def randn(*shape, std=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=gen) * std).to(dev, dtype)
+
+    qkv, res_x = randn(m, 3 * D, dtype=bf), randn(m, D)
+    xr = res_x.clone()
+    heads = qkv.reshape(S4_B, N, 3, HEADS, 64).permute(2, 0, 3, 1, 4).contiguous()
+    wide = qkv.reshape(S4_B, N, 3, 1, D).permute(2, 0, 3, 1, 4).contiguous()
+    attn_bound = bound(m * 3 * D * 2 + m * D * 8, 4 * S4_B * HEADS * N * N * 64,
+                       BF16_TENSOR_FLOP_S)
+    per_head = lambda: F.scaled_dot_product_attention(heads[0], heads[1], heads[2])  # noqa: E731
+    one_head = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        wide[0], wide[1], wide[2], scale=1 / 8)
+    kcases = {}
+    # each kernel mode's launches: its kernel's in the variant that runs it
+    runs = {"head_group_attention (packed)": "attn_packed",
+            "head_group_attention (paired)": "attn_paired",
+            "head_group_attention (onehead)": "attn_onehead",
+            "cross_attention (summed heads)": "attn_onehead",
+            "dwconv_gelu (none)": "nodw", "dwconv_gelu (commuted)": "dw_commuted"}
+    for mode in ("packed", "paired", "onehead"):
+        group, summed = lvar.attention_group(mode, HEADS)
+        kcases[f"head_group_attention ({mode})"] = (
+            lambda gr=group, su=summed: lvar.head_group_attention(
+                qkv, res_x.clone(), HEADS, N, gr, su) - res_x,
+            lambda gr=group, su=summed: lvar.head_group_attention_plain(
+                qkv, res_x, HEADS, N, gr, su) - res_x,
+            lambda gr=group, su=summed: lvar.head_group_attention(qkv, xr, HEADS, N, gr, su),
+            lambda gr=group, su=summed: lvar.head_group_attention_plain(
+                qkv, res_x, HEADS, N, gr, su),
+            attn_bound, one_head if summed else per_head)
+    qc, kv = randn(m, D, dtype=bf), randn(2 * S4_B, 2 * D, dtype=bf)
+    ln = (1 + randn(D, std=0.1), randn(D, std=0.1))
+
+    def updates(outs):
+        return torch.cat([(outs[0] - res_x).flatten(), outs[1].float().flatten()])
+
+    kcases["cross_attention (summed heads)"] = (
+        lambda: updates(fs.cross_attention(qc, kv, res_x.clone(), ln, HEADS, N, True)),
+        lambda: updates(fs.cross_attention_plain(qc, kv, res_x, ln, HEADS, N, True)),
+        lambda: fs.cross_attention(qc, kv, xr, ln, HEADS, N, True),
+        lambda: fs.cross_attention_plain(qc, kv, res_x, ln, HEADS, N, True),
+        bound(m * D * 2 + 2 * S4_B * 2 * D * 2 + m * D * 8 + m * D * 2, 16 * m * D, F32_FLOP_S),
+        None)
+    h, dw, dwb = randn(m, HIDDEN), randn(9, HIDDEN, std=1 / 3, dtype=bf), randn(HIDDEN, std=0.1)
+    dw_bytes = m * HIDDEN * 6 + 9 * HIDDEN * 2 + HIDDEN * 4
+    for mode, ops in (("none", 8), ("commuted", 26)):
+        kcases[f"dwconv_gelu ({mode})"] = (
+            lambda mo=mode: fs.dwconv_gelu(h, dw, dwb, HW, dw_mode=mo),
+            lambda mo=mode: fs.dwconv_gelu_plain(h, dw, dwb, HW, dw_mode=mo),
+            lambda mo=mode: fs.dwconv_gelu(h, dw, dwb, HW, dw_mode=mo),
+            lambda mo=mode: fs.dwconv_gelu_plain(h, dw, dwb, HW, dw_mode=mo),
+            bound(dw_bytes, ops * m * HIDDEN, F32_FLOP_S), None)
+    with torch.no_grad():
+        same = torch.equal(fs.dwconv_gelu(h, dw, dwb, HW, dw_mode="commuted"),
+                           fs.dwconv_gelu(h, dw, dwb, HW))
+    log(f"[s4] dwconv_gelu commuted equals base bit for bit: {same}")
+    log(f"[s4] the base modes, for comparison: self_attention "
+        f"{time_ms(lambda: fs.self_attention(qkv, xr, HEADS, N)):.4f} ms, head_group_attention "
+        f"with groups of one "
+        f"{time_ms(lambda: lvar.head_group_attention(qkv, xr, HEADS, N, 1, False)):.4f} ms, "
+        f"cross_attention {time_ms(lambda: fs.cross_attention(qc, kv, xr, ln, HEADS, N)):.4f} "
+        f"ms, dwconv_gelu (base) {time_ms(lambda: fs.dwconv_gelu(h, dw, dwb, HW)):.4f} ms")
+    kernel = lambda name: name.split(" (")[0]  # noqa: E731
+    rows += _line_rows(_check_rows("s4", kcases), TPU_S4, str,
+                       lambda name: f"csrc/{kernel(name)}.cu",
+                       lambda name: launches[runs[name]].get(kernel(name), 0))
+    del qkv, res_x, xr, heads, wide, qc, kv, h
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase_env()
@@ -2455,7 +2755,7 @@ def main():
         phase_serving(GenerationService(cfg=ltd_config_from_json(path), device=DEVICE),
                       "int8-serving")
     torch.cuda.empty_cache()
-    phase_s1()
+    s1 = phase_s1()
 
     h_worst, h_timing, h_library, h_bounds = phase_hires_kernels()
     torch.cuda.empty_cache()
@@ -2492,6 +2792,12 @@ def main():
     for mlp_class in ("moe", "mlp"):
         phase_ffn_serving(mlp_class, smi)
         ffn_launches[mlp_class], _, _ = phase_ffn_train(mlp_class, smi)
+    torch.cuda.empty_cache()
+
+    probe_rows = phase_s3() + phase_s2() + phase_s4()
+    unlaunched = [r["name"] for r in probe_rows if not r["launches"]]
+    if unlaunched:
+        raise AssertionError(f"the probes' runs launched no kernel for {unlaunched}")
 
     from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
     from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
@@ -2559,6 +2865,17 @@ def main():
             "plain_ms": p_timing[name][1], "bound_ms": p_bounds[name][0],
             "bound_by": p_bounds[name][1], "library_ms": p_library[name],
         })
+    # the probes (no serving or training path runs them): S1's pair, and a
+    # row per variant or mode of S3, S2 and S4 and per kernel mode they add;
+    # launches are those of the probe's own run (a kernel mode's: its
+    # kernel's launches in the variant that runs it)
+    kernels.append({
+        "name": "s1 W8A8 MLP pair (rowquant + gemm_i8)", "route": "cuda",
+        "source": f"{port}/scripts/microbench_int8.py", "replaces": TPU_S1,
+        "launches": sum(s1["launches"].values()), "max_abs_err": s1["max_abs"], "ms": s1["ms"],
+        "plain_ms": s1["plain_ms"], "bound_ms": s1["bound"][0], "bound_by": s1["bound"][1],
+        "library_ms": None})
+    kernels += probe_rows
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

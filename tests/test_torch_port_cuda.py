@@ -23,6 +23,7 @@ from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
 from transformer_latent_diffusion_tpu_torch.ops import fused_mlp_vjp as fm
 from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
 from transformer_latent_diffusion_tpu_torch.ops import fused_stack_int8 as q8
+from transformer_latent_diffusion_tpu_torch.ops import layer_variants as lvar
 
 
 def _need_card():
@@ -359,3 +360,161 @@ def test_fused_block_entry_points_match_plain_on_card():
     got, want = fb.fused_mlp_sepconv(*k9, 16), fb.fused_mlp_sepconv_plain(*k9, 16)
     torch.cuda.synchronize()
     assert _rel_l2(got.float() - x, want.float() - x) < 1e-2
+
+
+# ------------------------------ the probes S3, S2, S4 ------------------------------
+
+S3_FORMS = [(e2, pd) for e2 in (False, True) for pd in (False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_exp2,postdiv", S3_FORMS)
+@pytest.mark.parametrize("n", [1000, 256])
+def test_flash_attention_variant_matches_plain_on_card(n, use_exp2, postdiv):
+    """S3's four softmax forms against `attention_variant_plain`, on the
+    probe's (B*H, N, 64) head rows (one head per row block) and on fused
+    QKV rows (strided, two heads): rel-L2 < 1e-2 and max-abs < 2e-2 of the
+    output's scale (postdiv rounds e against a running max)."""
+    _need_card()
+    gen = torch.Generator().manual_seed(n)
+    q, k, v = (torch.randn(2 * 3, n, 64, generator=gen).to("cuda", torch.bfloat16)
+               for _ in range(3))
+    qkv = torch.randn(2, n, 3 * 128, generator=gen).to("cuda", torch.bfloat16)
+    before = att.LAUNCHES["flash_attention_variant"]
+    for args, heads in (((q, k, v), 1), (qkv.chunk(3, dim=-1), 2)):
+        got = att.flash_attention_variant(*args, heads, use_exp2, postdiv).float()
+        want = att.attention_variant_plain(*args, heads, use_exp2, postdiv).float()
+        torch.cuda.synchronize()
+        assert _rel_l2(got, want) < 1e-2
+        assert float((got - want).abs().max()) < 2e-2 * float(want.abs().max())
+    assert att.LAUNCHES["flash_attention_variant"] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group,summed", [(1, False), (2, False), (4, False), (4, True)])
+@pytest.mark.parametrize("n", [256, 200])
+def test_head_group_attention_matches_plain_on_card(n, group, summed):
+    """S4's attention kernel (per-head, paired, packed, summed onehead) on
+    a full and a ragged tile against its plain version: rel-L2 < 1e-2;
+    a group of one is the layer's own self_attention kernel."""
+    _need_card()
+    gen = torch.Generator().manual_seed(n + group)
+    b, d, heads = 3, 256, 4
+    qkv = torch.randn(b * n, 3 * d, generator=gen).to("cuda", torch.bfloat16)
+    res = torch.randn(b * n, d, generator=gen).to("cuda")
+    want = lvar.head_group_attention_plain(qkv, res.clone(), heads, n, group, summed)
+    before = lvar.LAUNCHES["head_group_attention"]
+    got = lvar.head_group_attention(qkv, res.clone(), heads, n, group, summed)
+    torch.cuda.synchronize()
+    assert lvar.LAUNCHES["head_group_attention"] == before + 1
+    assert _rel_l2(got - res, want - res) < 1e-2
+    if group == 1 and not summed:
+        base = fs.self_attention(qkv, res.clone(), heads, n)
+        assert _rel_l2(got - res, base - res) < 1e-5
+
+
+@pytest.mark.cuda
+def test_layer_kernel_modes_match_plain_on_card():
+    """The probes' modes of K1's and K2's kernels against their plain
+    versions: cross_attention with the heads summed, dwconv_gelu without
+    the convolution and with it commuted (float32 h; commuted sums as base
+    does), with a bf16 c (bf16 h), and layernorm_bwd and dwconv_gelu_bwd
+    reading bf16 residuals: rel-L2 < 1e-2 per output."""
+    _need_card()
+    gen = torch.Generator().manual_seed(7)
+    bf = torch.bfloat16
+    b, hw, d, heads, hid = 4, 16, 256, 4, 512
+    m = b * hw * hw
+
+    def r(*s, std=1.0, dtype=torch.float32):
+        return (torch.randn(*s, generator=gen) * std).to("cuda", dtype)
+
+    qc, kv, res, lns = r(m, d, dtype=bf), r(2 * b, 2 * d, dtype=bf), r(m, d), (1 + r(d, std=0.1), r(d))
+    got = fs.cross_attention(qc, kv, res.clone(), lns, heads, hw * hw, summed=True)
+    want = fs.cross_attention_plain(qc, kv, res.clone(), lns, heads, hw * hw, summed=True)
+    for u, w in zip(got, want):
+        assert _rel_l2(u.float(), w.float()) < 1e-2
+    h, dw, dwb = r(m, hid), r(9, hid, std=1 / 3, dtype=bf), r(hid, std=0.1)
+    base = fs.dwconv_gelu(h, dw, dwb, hw, return_c=True)
+    for mode in ("none", "commuted"):
+        got = fs.dwconv_gelu(h, dw, dwb, hw, return_c=True, dw_mode=mode)
+        want = fs.dwconv_gelu_plain(h, dw, dwb, hw, return_c=True, dw_mode=mode)
+        for u, w in zip(got, want):
+            assert _rel_l2(u.float(), w.float()) < 1e-2, mode
+    commuted = fs.dwconv_gelu(h, dw, dwb, hw, return_c=True, dw_mode="commuted")
+    assert _rel_l2(commuted[1], base[1]) < 1e-6
+    hb = h.to(bf)
+    got = fs.dwconv_gelu(hb, dw, dwb, hw, return_c=True, c_dtype=bf)
+    want = fs.dwconv_gelu_plain(hb, dw, dwb, hw, return_c=True, c_dtype=bf)
+    assert got[1].dtype == bf
+    for u, w in zip(got, want):
+        assert _rel_l2(u.float(), w.float()) < 1e-2
+    dy, xb, ups, sc = r(m, d), r(m, d, dtype=bf), r(m, d), 1 + r(d, std=0.1)
+    for u, w in zip(lv.layernorm_bwd(dy, xb, sc, ups), lv.layernorm_bwd_plain(dy, xb, sc, ups)):
+        assert _rel_l2(u, w) < 1e-2
+    da, cb = r(m, hid), r(m, hid, dtype=bf)
+    got = lv.dwconv_gelu_bwd(da, cb, hb, dw, hw)
+    want = lv.dwconv_gelu_bwd_plain(da, cb, hb, dw, hw)
+    torch.cuda.synchronize()
+    for u, w in zip(got, want):
+        assert _rel_l2(u.float(), w.float()) < 1e-2
+
+
+def _layer_args(b, hw, d=128, hidden=512, seed=0):
+    """x, cond, g and the 15 layer parameters (PARAM_NAMES order, the
+    port's layouts), bf16 activations and weights, float32 LayerNorm and
+    biases."""
+    gen = torch.Generator().manual_seed(seed)
+    bf = torch.bfloat16
+
+    def r(*s, std=1.0, dtype=torch.float32, base=0.0):
+        return (base + torch.randn(*s, generator=gen) * std).to("cuda", dtype)
+
+    n = hw * hw
+    params = [r(d, std=0.1, base=1.0), r(d, std=0.1), r(3 * d, d, std=d ** -0.5, dtype=bf),
+              r(d, std=0.1, base=1.0), r(d, std=0.1), r(d, d, std=d ** -0.5, dtype=bf),
+              r(2 * d, d, std=d ** -0.5, dtype=bf), r(d, std=0.1, base=1.0), r(d, std=0.1),
+              r(hidden, d, std=d ** -0.5, dtype=bf), r(hidden, std=0.1),
+              r(9, hidden, std=1 / 3, dtype=bf), r(hidden, std=0.1),
+              r(d, hidden, std=hidden ** -0.5, dtype=bf), r(d, std=0.1)]
+    return (r(b, n, d, dtype=bf), r(b, 2, d, dtype=bf), r(b, n, d, std=0.1, dtype=bf),
+            params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", lv.BWD_MODES)
+def test_layer_bwd_variant_matches_plain_on_card(mode):
+    """S2's backward modes through the kernels against their written-out
+    plain versions: the same outputs computed (None where the mode skips
+    one), each within rel-L2 2e-2 (as the K6 gradients: bf16
+    intermediates' one-step flips through the layer)."""
+    _need_card()
+    x, cond, g, params = _layer_args(2, 16, seed=8)
+    got = lv.fused_layer_bwd_variant(mode, x, cond, g, params, 2, 16)
+    want = lv.fused_layer_bwd_variant_plain(mode, x, cond, g, params, 2, 16)
+    torch.cuda.synchronize()
+    names = ("x", "cond") + lv.PARAM_NAMES
+    for name, u, w in zip(names, [got[0], got[1], *got[2]], [want[0], want[1], *want[2]]):
+        assert (u is None) == (w is None), name
+        if u is not None:
+            assert _rel_l2(u.float(), w.float()) < 2e-2, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn_mode,dw_mode", [
+    ("base", "base"), ("base", "none"), ("base", "commuted"), ("onehead", "base"),
+    ("packed", "base"), ("paired", "base"), ("packed", "commuted")])
+def test_layer_fwd_variant_matches_plain_on_card(attn_mode, dw_mode):
+    """S4's forward variants through the kernels against their plain
+    versions: the layer's update within rel-L2 2e-2 (LAYER_REL_L2 of
+    chip_smoke.py); base x base is the training forward itself."""
+    _need_card()
+    x, cond, _, params = _layer_args(2, 16, d=256, seed=9)
+    got = lvar.fused_layer_fwd_variant(attn_mode, dw_mode, x, cond, params, 4, 16)
+    want = lvar.fused_layer_fwd_variant_plain(attn_mode, dw_mode, x, cond, params, 4, 16)
+    torch.cuda.synchronize()
+    xf = x.float()
+    assert _rel_l2(got.float() - xf, want.float() - xf) < 2e-2
+    if (attn_mode, dw_mode) == ("base", "base"):
+        ref = lv.fused_layer_fwd(x, cond, params, 4, 16)
+        assert torch.equal(got, ref)

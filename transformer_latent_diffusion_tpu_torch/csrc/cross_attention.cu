@@ -29,6 +29,14 @@
 // transformer_latent_diffusion_tpu/ops/fused_stack_int8.py, :91) quantizes
 // LN3's float32 output, which rowquant.cu takes from the updated residual:
 // there xn is null and the kernel stops after the residual add.
+//
+// SUMMED (a template flag; the main path's instantiation is the other) is
+// the cross-attention of the probe scripts/microbench_layer.py's "onehead"
+// variant (`_attn_onehead`, pallas_call at :252): one head as wide as D,
+// scale still 1/sqrt(D / heads) = 1/8, so each of the 2 scores is the sum of
+// the per-head dot products over all heads, and one pair of probabilities
+// (rounded to bf16) weighs every column of V. The lanes accumulate their
+// products over the heads first and reduce once.
 
 #include "common.cuh"
 
@@ -39,6 +47,7 @@ constexpr int THREADS = 32 * TOKENS_PER_BLOCK;
 constexpr int MAX_HEADS = 12;  // D <= 768
 constexpr float LN_EPS = 1e-5f;
 
+template <bool SUMMED>
 __global__ void __launch_bounds__(THREADS)
 cross_attention_kernel(const bf16* __restrict__ qc, const bf16* __restrict__ kv,
                        float* __restrict__ resid, const float* __restrict__ ln_s,
@@ -65,22 +74,45 @@ cross_attention_kernel(const bf16* __restrict__ qc, const bf16* __restrict__ kv,
   const __nv_bfloat162* k1 = reinterpret_cast<const __nv_bfloat162*>(kvs + 2 * D);
   const __nv_bfloat162* v1 = reinterpret_cast<const __nv_bfloat162*>(kvs + 3 * D);
 
+  // 2-way float32 softmax of the scores s0, s1; probabilities rounded to bf16
+  auto probs = [&](float s0, float s1, float& p0, float& p1) {
+    const float m = fmaxf(s0, s1);
+    const float e0 = expf(s0 - m), e1 = expf(s1 - m);
+    const float den = e0 + e1;
+    p0 = __bfloat162float(__float2bfloat16_rn(e0 / den));
+    p1 = __bfloat162float(__float2bfloat16_rn(e1 / den));
+  };
+  float p0_all = 0.f, p1_all = 0.f;  // SUMMED: one pair for every head
+  if constexpr (SUMMED) {
+    float a0s = 0.f, a1s = 0.f;
+#pragma unroll
+    for (int h = 0; h < MAX_HEADS; ++h) {
+      if (h < n_heads) {
+        const int c = h * 32 + lane;
+        const float2 q = __bfloat1622float2(q2[c]);
+        const float2 a0 = __bfloat1622float2(k0[c]);
+        const float2 a1 = __bfloat1622float2(k1[c]);
+        a0s += q.x * a0.x + q.y * a0.y;
+        a1s += q.x * a1.x + q.y * a1.y;
+      }
+    }
+    probs(warp_sum(a0s) * scale, warp_sum(a1s) * scale, p0_all, p1_all);
+  }
+
   float2 xr[MAX_HEADS];
   float sum = 0.f;
 #pragma unroll
   for (int h = 0; h < MAX_HEADS; ++h) {
     if (h < n_heads) {
       const int c = h * 32 + lane;  // bf16 pair index within the row
-      const float2 q = __bfloat1622float2(q2[c]);
-      const float2 a0 = __bfloat1622float2(k0[c]);
-      const float2 a1 = __bfloat1622float2(k1[c]);
-      const float s0 = warp_sum(q.x * a0.x + q.y * a0.y) * scale;
-      const float s1 = warp_sum(q.x * a1.x + q.y * a1.y) * scale;
-      const float m = fmaxf(s0, s1);
-      const float e0 = expf(s0 - m), e1 = expf(s1 - m);
-      const float den = e0 + e1;
-      const float p0 = __bfloat162float(__float2bfloat16_rn(e0 / den));
-      const float p1 = __bfloat162float(__float2bfloat16_rn(e1 / den));
+      float p0 = p0_all, p1 = p1_all;
+      if constexpr (!SUMMED) {
+        const float2 q = __bfloat1622float2(q2[c]);
+        const float2 a0 = __bfloat1622float2(k0[c]);
+        const float2 a1 = __bfloat1622float2(k1[c]);
+        probs(warp_sum(q.x * a0.x + q.y * a0.y) * scale, warp_sum(q.x * a1.x + q.y * a1.y) * scale,
+              p0, p1);
+      }
       const float2 b0 = __bfloat1622float2(v0[c]);
       const float2 b1 = __bfloat1622float2(v1[c]);
       float2 x = x2[c];
@@ -123,14 +155,16 @@ cross_attention_kernel(const bf16* __restrict__ qc, const bf16* __restrict__ kv,
 // conditioning token j of batch element b. resid: (B*N, D) float32, updated
 // in place. ln_s, ln_b: (D,) float32, the LayerNorm after the residual add;
 // xn: (B*N, D) bf16, the normalised rows, or null (then ln_s and ln_b are
-// not read). Requires D == n_heads * 64 and n_heads <= 12.
+// not read). summed != 0: one head as wide as D (see the header). Requires
+// D == n_heads * 64 and n_heads <= 12.
 LTD_API int ltd_cross_attention(const void* qc, const void* kv, float* resid, const float* ln_s,
                                 const float* ln_b, void* xn, int B, int N, int D, int n_heads,
-                                void* stream) {
+                                int summed, void* stream) {
   if (n_heads > MAX_HEADS) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid((N + TOKENS_PER_BLOCK - 1) / TOKENS_PER_BLOCK, B);
   const size_t smem = static_cast<size_t>(4) * D * sizeof(bf16);
-  cross_attention_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = summed ? cross_attention_kernel<true> : cross_attention_kernel<false>;
+  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(qc), static_cast<const bf16*>(kv), resid, ln_s, ln_b,
       static_cast<bf16*>(xn), N, D, n_heads, 0.125f);
   return static_cast<int>(cudaGetLastError());

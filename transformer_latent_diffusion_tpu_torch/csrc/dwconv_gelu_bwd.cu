@@ -41,6 +41,12 @@
 // sums those; the arithmetic and its order are the whole-grid body's. The
 // wrapper (ops/fused_layer_vjp.py::dwconv_gelu_bwd_body) takes the whole
 // grid where it fits and bands of 8 rows beyond (up to hw = 88).
+//
+// c and h are float32 on the training path; the "bf16res" backward of the
+// probe scripts/probe_train_bwd_stage.py (`pallas_bwd_variant`,
+// pallas_call at :259), which keeps its residuals in bf16, passes them in
+// bf16 (a template parameter, whole-grid body; they are widened to float32
+// as they are staged, and the arithmetic is the same).
 
 #include "common.cuh"
 
@@ -65,10 +71,20 @@ __device__ __forceinline__ float gelu_grad(float c) {
   return cdf + c * pdf;
 }
 
-template <bool BAND>
+// four consecutive channels as float32
+__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+template <bool BAND, typename IT>
 __global__ void __launch_bounds__(THREADS)
-dwconv_gelu_bwd_kernel(const float* __restrict__ da, const float* __restrict__ cpre,
-                       const float* __restrict__ h, const bf16* __restrict__ dw,
+dwconv_gelu_bwd_kernel(const float* __restrict__ da, const IT* __restrict__ cpre,
+                       const IT* __restrict__ h, const bf16* __restrict__ dw,
                        bf16* __restrict__ dhid, float* __restrict__ partial, int hw, int C,
                        int band) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -91,10 +107,10 @@ dwconv_gelu_bwd_kernel(const float* __restrict__ da, const float* __restrict__ c
     if (i >= 0 && i < hw && j >= 0 && j < hw) {
       const size_t at = (img + i * hw + j) * C + c0 + grp * VEC;
       const float4 a = *reinterpret_cast<const float4*>(da + at);
-      const float4 c = *reinterpret_cast<const float4*>(cpre + at);
+      const float4 c = load4(cpre + at);
       d = make_float4(a.x * gelu_grad(c.x), a.y * gelu_grad(c.y), a.z * gelu_grad(c.z),
                       a.w * gelu_grad(c.w));
-      hv = *reinterpret_cast<const float4*>(h + at);
+      hv = load4(h + at);
     }
     dcs[idx] = d;
     hs[idx] = hv;
@@ -169,35 +185,39 @@ dwconv_gelu_bwd_kernel(const float* __restrict__ da, const float* __restrict__ c
   }
 }
 
-template <bool BAND>
-int launch(const float* da, const float* c, const float* h, const void* dw, void* dhid,
+template <bool BAND, typename IT>
+int launch(const float* da, const void* c, const void* h, const void* dw, void* dhid,
            float* partial, int B, int hw, int C, int band, cudaStream_t s) {
   const size_t smem = smem_bytes(BAND ? band : hw, hw);
-  cudaError_t err = cudaFuncSetAttribute(dwconv_gelu_bwd_kernel<BAND>,
+  cudaError_t err = cudaFuncSetAttribute(dwconv_gelu_bwd_kernel<BAND, IT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid = BAND ? dim3(C / CHUNK, (hw + band - 1) / band, B) : dim3(C / CHUNK, B);
-  dwconv_gelu_bwd_kernel<BAND><<<grid, THREADS, smem, s>>>(
-      da, c, h, static_cast<const bf16*>(dw), static_cast<bf16*>(dhid), partial, hw, C, band);
+  dwconv_gelu_bwd_kernel<BAND, IT><<<grid, THREADS, smem, s>>>(
+      da, static_cast<const IT*>(c), static_cast<const IT*>(h), static_cast<const bf16*>(dw),
+      static_cast<bf16*>(dhid), partial, hw, C, band);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// da, c, h: (B*hw*hw, C) float32 token rows of a row-major hw x hw grid
-// (the upstream gradient of the GELU output, the pre-GELU values and the
-// convolution's input). dw: (9, C) bf16 taps, tap di*3+dj. dhid: (B*hw*hw,
-// C) bf16. band: 0 for the whole-grid body, else the grid rows of each
-// block of the row-band body. partial: (B, 11, C) float32 for the whole
-// grid, (B, ceil(hw / band), 11, C) for bands: per image (and band) the 9
-// tap gradients, ddwb and db1. Requires C % 32 == 0 and the body's slabs
-// within 227 KB (see the header).
-LTD_API int ltd_dwconv_gelu_bwd(const float* da, const float* c, const float* h, const void* dw,
+// da: (B*hw*hw, C) float32 token rows of a row-major hw x hw grid (the
+// upstream gradient of the GELU output); c, h: the same rows of the
+// pre-GELU values and the convolution's input, float32, or bf16 when
+// in_bf16 is non-zero (whole-grid body only). dw: (9, C) bf16 taps, tap
+// di*3+dj. dhid: (B*hw*hw, C) bf16. band: 0 for the whole-grid body, else
+// the grid rows of each block of the row-band body. partial: (B, 11, C)
+// float32 for the whole grid, (B, ceil(hw / band), 11, C) for bands: per
+// image (and band) the 9 tap gradients, ddwb and db1. Requires C % 32 == 0
+// and the body's slabs within 227 KB (see the header).
+LTD_API int ltd_dwconv_gelu_bwd(const float* da, const void* c, const void* h, const void* dw,
                                 void* dhid, float* partial, int B, int hw, int C, int band,
-                                void* stream) {
-  if (C % CHUNK || band < 0) return static_cast<int>(cudaErrorInvalidValue);
+                                int in_bf16, void* stream) {
+  if (C % CHUNK || band < 0 || (in_bf16 && band > 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return band > 0 ? launch<true>(da, c, h, dw, dhid, partial, B, hw, C, band, s)
-                  : launch<false>(da, c, h, dw, dhid, partial, B, hw, C, 0, s);
+  if (in_bf16) return launch<false, bf16>(da, c, h, dw, dhid, partial, B, hw, C, 0, s);
+  return band > 0 ? launch<true, float>(da, c, h, dw, dhid, partial, B, hw, C, band, s)
+                  : launch<false, float>(da, c, h, dw, dhid, partial, B, hw, C, 0, s);
 }

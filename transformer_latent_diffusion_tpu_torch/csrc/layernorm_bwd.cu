@@ -21,6 +21,11 @@
 // warp over its ROWS_PER_WARP rows and written as one partial row per warp;
 // colsum (gemm_bwd.cu) adds the partials in a fixed order, so the result
 // is deterministic and needs no atomics.
+//
+// x is float32 on the training path; the "bf16res" backward of the probe
+// scripts/probe_train_bwd_stage.py (`pallas_bwd_variant`, pallas_call at
+// :259), which keeps its residuals in bf16, passes a bf16 x (a template
+// parameter: the statistics and xhat are then those of the rounded rows).
 
 #include "common.cuh"
 
@@ -31,8 +36,19 @@ constexpr int ROWS_PER_WARP = 32;
 constexpr int MAX_V = 768 / 128;  // float4 per lane
 constexpr float LN_EPS = 1e-5f;
 
+// four consecutive elements of x as float32
+__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+template <typename XT>
 __global__ void __launch_bounds__(WARPS * 32)
-layernorm_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ x,
+layernorm_bwd_kernel(const float* __restrict__ dy, const XT* __restrict__ x,
                      const float* __restrict__ scale, const float* __restrict__ upstream,
                      float* __restrict__ dx, float* __restrict__ partial, int M, int D) {
   const int warp = threadIdx.x >> 5;
@@ -56,7 +72,7 @@ layernorm_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ x,
     for (int j = 0; j < MAX_V; ++j) {
       const int k = j * 128 + lane * 4;
       const bool in = k < D;
-      xv[j] = in ? *reinterpret_cast<const float4*>(x + off + k) : make_float4(0.f, 0.f, 0.f, 0.f);
+      xv[j] = in ? load4(x + off + k) : make_float4(0.f, 0.f, 0.f, 0.f);
       gv[j] = in ? *reinterpret_cast<const float4*>(dy + off + k) : make_float4(0.f, 0.f, 0.f, 0.f);
       s += (xv[j].x + xv[j].y) + (xv[j].z + xv[j].w);
     }
@@ -127,16 +143,22 @@ layernorm_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ x,
 
 }  // namespace
 
-// dy, x, upstream, dx: (M, D) float32, dx not aliasing the inputs; scale: (D,)
-// float32; partial: (ceil(M / 32), 2, D) float32, per 32 rows the sums of
-// dy * xhat (dscale) and of dy (dbias). Requires D % 4 == 0 and D <= 768.
-LTD_API int ltd_layernorm_bwd(const float* dy, const float* x, const float* scale,
+// dy, upstream, dx: (M, D) float32, dx not aliasing the inputs; x: (M, D)
+// float32, or bf16 when x_bf16 is non-zero; scale: (D,) float32; partial:
+// (ceil(M / 32), 2, D) float32, per 32 rows the sums of dy * xhat (dscale)
+// and of dy (dbias). Requires D % 4 == 0 and D <= 768.
+LTD_API int ltd_layernorm_bwd(const float* dy, const void* x, const float* scale,
                               const float* upstream, float* dx, float* partial, int M, int D,
-                              void* stream) {
+                              int x_bf16, void* stream) {
   if (D % 4 || D > 768) return static_cast<int>(cudaErrorInvalidValue);
   const int warps = (M + ROWS_PER_WARP - 1) / ROWS_PER_WARP;
-  layernorm_bwd_kernel<<<(warps + WARPS - 1) / WARPS, WARPS * 32, 0,
-                         static_cast<cudaStream_t>(stream)>>>(dy, x, scale, upstream, dx,
-                                                              partial, M, D);
+  const int blocks = (warps + WARPS - 1) / WARPS;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_bf16)
+    layernorm_bwd_kernel<bf16><<<blocks, WARPS * 32, 0, s>>>(
+        dy, static_cast<const bf16*>(x), scale, upstream, dx, partial, M, D);
+  else
+    layernorm_bwd_kernel<float><<<blocks, WARPS * 32, 0, s>>>(
+        dy, static_cast<const float*>(x), scale, upstream, dx, partial, M, D);
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,16 +31,19 @@ _I = ctypes.c_int
 SIGNATURES = {
     "ltd_ln_gemm": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ltd_self_attention": (_P, _P, _I, _I, _I, _I, _P),
-    "ltd_cross_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "ltd_dwconv_gelu": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "ltd_cross_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "ltd_dwconv_gelu": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "ltd_weight_grad": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "ltd_colsum": (_P, _P, _I, _I, _I, _P),
-    "ltd_layernorm_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
-    "ltd_dwconv_gelu_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ltd_layernorm_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "ltd_dwconv_gelu_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "ltd_self_attention_bwd_dq": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ltd_self_attention_bwd_dkv": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ltd_cross_attention_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ltd_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "ltd_flash_attention_variant": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                    _I, _I, _P),
+    "ltd_head_group_attention": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "ltd_flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "ltd_flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P,

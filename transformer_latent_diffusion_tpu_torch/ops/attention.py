@@ -26,6 +26,12 @@ for "plain", where the JAX package runs XLA, torch autograd through
 `attention_plain`. On CPU tensors the wrappers run the plain versions
 (`attention_plain`, `attention_bwd_plain`); on any other device they
 launch the kernels or raise.
+
+The probe scripts/probe_attn_softmax.py (S3) times four softmax forms of
+the same attention: `flash_attention_variant` runs them as template
+flags of the same kernel (exp or exp2; p normalised before it is rounded,
+"prediv", in two passes over the keys, or after P V, "postdiv", K3's own
+form), and `attention_variant_plain` is their plain version.
 """
 
 from __future__ import annotations
@@ -43,7 +49,7 @@ from transformer_latent_diffusion_tpu_torch.ops.fused_stack import (
     _stream,
 )
 
-KERNELS = ("flash_attention", "flash_attention_bwd")
+KERNELS = ("flash_attention", "flash_attention_bwd", "flash_attention_variant")
 # launches of each kernel since the last reset_launch_counts()
 # (flash_attention_bwd is two kernels, dq then dk/dv, and counts both)
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -57,6 +63,7 @@ K4A_MIN_TOKENS, K4A_MAX_TOKENS = 512, 2048
 K4B_MAX_TOKENS = 8192
 # the backward kernel's query and key tiles
 BWD_TILE = 64
+LOG2E = 1.4426950408889634
 
 
 def reset_launch_counts() -> None:
@@ -275,3 +282,47 @@ def multi_head_attention(q, k, v, n_heads: int, use_pallas: bool = False):
             and dh % 8 == 0):
         return flash_attention(q, k, v, n_heads)
     return _mha_plain(q, k, v, n_heads)
+
+
+# ------------------------------ S3: the softmax variants ------------------------------
+
+
+def attention_variant_plain(q, k, v, n_heads: int, use_exp2: bool, postdiv: bool):
+    """The probe's `_kernel` (scripts/probe_attn_softmax.py) on (B, N, D)
+    tokens, heads split and merged: float32 scores s = q k^T / sqrt(dh)
+    over the whole key row, m its max, e = exp2((s - m) log2 e) or
+    exp(s - m), z = sum(e); postdiv: (bf16(e) v) / z, prediv: bf16(e / z)
+    v, the products in float32; the result in v's dtype."""
+    qh, kh, vh = (_heads(t, n_heads) for t in (q, k, v))
+    dh = qh.shape[-1]
+    s = (qh.float() @ kh.float().transpose(-1, -2)) * (1.0 / math.sqrt(dh))
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp2((s - m) * LOG2E) if use_exp2 else torch.exp(s - m)
+    z = e.sum(-1, keepdim=True)
+    if postdiv:
+        out = (e.to(v.dtype).float() @ vh.float()) / z
+    else:
+        out = (e / z).to(v.dtype).float() @ vh.float()
+    return _merge(out.to(v.dtype))
+
+
+def flash_attention_variant(q, k, v, n_heads: int, use_exp2: bool, postdiv: bool):
+    """Kernel wrapper of `attention_variant_plain` (no gradient): q, k, v as
+    `flash_attention` takes them, (B, N, D) views of evenly spaced rows.
+    The probe's (B, H, N, 64) heads are (B*H, N, 64) rows with one head.
+    The kernel keeps a running max, so postdiv rounds e against it where
+    the plain version uses the row's final max (about one bf16 step of p);
+    prediv's two passes use the final max and sum, as the plain version."""
+    if q.device.type == "cpu":
+        return attention_variant_plain(q, k, v, n_heads, use_exp2, postdiv)
+    dev = _check_qkv(q, k, v, n_heads)
+    b, nq, d = q.shape
+    strides = [_row_stride(name, t) for name, t in (("q", q), ("k", k), ("v", v))]
+    out = torch.empty((b, nq, d), dtype=torch.bfloat16, device=dev)
+    lib = load_library()
+    LAUNCHES["flash_attention_variant"] += 1
+    err = lib.ltd_flash_attention_variant(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(out), b, nq, k.shape[1], n_heads, *strides,
+        int(use_exp2), int(not postdiv), _stream(dev))
+    _check_launch(err, "flash_attention_variant")
+    return out

@@ -36,6 +36,19 @@ whole layer's math out in one piece (the TPU kernel's `_fwd_kernel` and
 `_bwd_kernel`); `FusedLayerFunction` is the autograd function over the
 kernel path.
 
+The probe scripts/probe_train_bwd_stage.py (S2, `pallas_bwd_variant`)
+ablates the backward: `fused_layer_bwd_variant(mode, ...)` runs it in the
+modes `BWD_MODES` over the same kernels, and `fused_layer_bwd_variant_plain`
+is its plain version ("full" is `fused_layer_bwd` and
+`fused_layer_bwd_plain` themselves). The port has no dead-code elimination
+to defeat, so an ablated section is simply not run; the outputs it would
+write come back as None. "bf16res" keeps the recompute's residuals in
+bf16: the input rows x (as given), x1 and x2 (whose LayerNorm statistics
+and xhat `layernorm_bwd` recomputes from the rounded rows), h and c
+(`dwconv_gelu_bwd` reads them as bf16). The attention probabilities are
+recomputed in registers by the backward kernels, never stored, so they
+stay float32 (the TPU variant rounds them too).
+
 Rounding points are the TPU kernel's (`_bwd_kernel:175-243`): the upstream
 gradient g, dhid, the attention's output-gradient head slices, ds, dqc,
 dkv and dqkv are rounded to the weights' dtype before each product, and so
@@ -70,6 +83,10 @@ PARAM_NAMES = ("ln1s", "ln1b", "wqkv", "ln2s", "ln2b", "wq", "wkv",
 
 KERNELS = ("weight_grad", "colsum", "layernorm_bwd", "dwconv_gelu_bwd",
            "self_attention_bwd", "cross_attention_bwd")
+# the backward's modes of scripts/probe_train_bwd_stage.py (S2): the whole
+# backward, its residuals in bf16, the recompute alone, and the backward
+# without its MLP, cross-attention or self-attention section
+BWD_MODES = ("full", "bf16res", "recompute", "no_mlp", "no_cross", "no_self")
 # kernel launches since the last reset_launch_counts() (self_attention_bwd
 # is two kernels and counts both)
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -202,16 +219,28 @@ def _attn_pair_residuals(x, cond, attn_params, n_heads: int):
                 p_cross=p_cross, x2=x2)
 
 
-def _forward_residuals(x, cond, params, n_heads: int, hw: int):
+def _forward_residuals(x, cond, params, n_heads: int, hw: int,
+                       bf16res: bool = False):
+    """Everything the backward reads. bf16res: as the kernel path keeps
+    them in that mode, h is rounded to the weights' dtype before the
+    depthwise convolution, c after it (the GELU output a is taken from the
+    unrounded c), and the LayerNorms' xhat and rstd are recomputed from
+    the rounded rows x, x1 and x2."""
     r = _attn_pair_residuals(x, cond, params[:7], n_heads)
     ln3s, ln3b, w1, b1, dw, dwb = params[7:13]
     lp = r["lp"]
     xn3, xhat3, rstd3 = _ln_fwd(r["x2"], ln3s.float(), ln3b.float())
     b = x.shape[0]
     h = _mm(xn3, w1.T, lp) + b1.float()
+    if bf16res:
+        h = h.to(lp).float()
     c = _dw_fwd(h.reshape(b, hw, hw, -1), dw.float(), hw) + dwb.float()
     a = _gelu_f32(c).reshape(h.shape)
     r.update(xn3=xn3, xhat3=xhat3, rstd3=rstd3, h=h, c=c, a=a)
+    if bf16res:
+        r["c"] = c.to(lp).float()
+        for i, key in ((1, "x"), (2, "x1"), (3, "x2")):
+            _, r[f"xhat{i}"], r[f"rstd{i}"] = _ln_fwd(r[key].to(lp).float(), 1.0, 0.0)
     return r
 
 
@@ -241,31 +270,92 @@ def _tn(a, b, lp):
     return _mm(a.reshape(-1, a.shape[-1]).T, b.reshape(-1, b.shape[-1]), lp)
 
 
-def _attn_pair_bwd_plain(r, dx2, attn_params, n_heads: int):
+def _attn_pair_bwd_plain(r, dx2, attn_params, n_heads: int, cross: bool = True,
+                         self_attn: bool = True):
     """The attention pair's backward, plain, from the float32 gradient dx2
     at its output x2 and its residuals `r` (`_attn_pair_residuals`): (dx,
-    dcond, the seven parameter gradients), all float32."""
+    dcond, the seven parameter gradients), all float32. cross=False or
+    self_attn=False skips that attention's section (S2's "no_cross" and
+    "no_self"): the gradient passes through it unchanged, and what it
+    would compute comes back as None."""
     ln1s, _, wqkv, ln2s, _, wq, wkv = attn_params
     lp, scale = r["lp"], r["scale"]
-    dqc, dkc, dvc = _attention_bwd_plain(r["p_cross"], r["qc"], r["kc"],
-                                         r["vc"], _heads(dx2, n_heads),
-                                         scale, lp)
-    dqc_lp = _merge(dqc).to(lp)
-    dkv_lp = torch.cat([_merge(dkc), _merge(dvc)], -1).to(lp)
-    dwq = _tn(dqc_lp, r["xn2"], lp)
-    dxn2 = _mm(dqc_lp, wq, lp)
-    dwkv = _tn(dkv_lp, r["cond"], lp)
-    dcond = _mm(dkv_lp, wkv, lp)
-    dx1_ln, ds2, db2 = _ln_bwd(dxn2, r["xhat2"], r["rstd2"], ln2s.float())
-    dx1 = dx2 + dx1_ln
+    dx1, dcond, ds2, db2, dwq, dwkv = dx2, None, None, None, None, None
+    if cross:
+        dqc, dkc, dvc = _attention_bwd_plain(r["p_cross"], r["qc"], r["kc"],
+                                             r["vc"], _heads(dx2, n_heads),
+                                             scale, lp)
+        dqc_lp = _merge(dqc).to(lp)
+        dkv_lp = torch.cat([_merge(dkc), _merge(dvc)], -1).to(lp)
+        dwq = _tn(dqc_lp, r["xn2"], lp)
+        dxn2 = _mm(dqc_lp, wq, lp)
+        dwkv = _tn(dkv_lp, r["cond"], lp)
+        dcond = _mm(dkv_lp, wkv, lp)
+        dx1_ln, ds2, db2 = _ln_bwd(dxn2, r["xhat2"], r["rstd2"], ln2s.float())
+        dx1 = dx2 + dx1_ln
 
-    dq, dk, dv = _attention_bwd_plain(r["p_self"], r["q"], r["k"], r["v"],
-                                      _heads(dx1, n_heads), scale, lp)
-    dqkv_lp = torch.cat([_merge(dq), _merge(dk), _merge(dv)], -1).to(lp)
-    dwqkv = _tn(dqkv_lp, r["xn1"], lp)
-    dxn1 = _mm(dqkv_lp, wqkv, lp)
-    dx_ln, ds1, db1 = _ln_bwd(dxn1, r["xhat1"], r["rstd1"], ln1s.float())
-    return dx1 + dx_ln, dcond, [ds1, db1, dwqkv, ds2, db2, dwq, dwkv]
+    dx, ds1, db1, dwqkv = dx1, None, None, None
+    if self_attn:
+        dq, dk, dv = _attention_bwd_plain(r["p_self"], r["q"], r["k"], r["v"],
+                                          _heads(dx1, n_heads), scale, lp)
+        dqkv_lp = torch.cat([_merge(dq), _merge(dk), _merge(dv)], -1).to(lp)
+        dwqkv = _tn(dqkv_lp, r["xn1"], lp)
+        dxn1 = _mm(dqkv_lp, wqkv, lp)
+        dx_ln, ds1, db1 = _ln_bwd(dxn1, r["xhat1"], r["rstd1"], ln1s.float())
+        dx = dx1 + dx_ln
+    return dx, dcond, [ds1, db1, dwqkv, ds2, db2, dwq, dwkv]
+
+
+def _bwd_outputs(dx, dcond, grads, x, cond, params):
+    """(dx in x's dtype, dcond in cond's dtype, the parameter gradients
+    shaped like the parameters); an output a mode skips stays None."""
+    return (dx.reshape(x.shape).to(x.dtype),
+            None if dcond is None else dcond.reshape(cond.shape).to(cond.dtype),
+            [None if gr is None else gr.reshape(p.shape)
+             for gr, p in zip(grads, params)])
+
+
+def fused_layer_bwd_variant_plain(mode: str, x, cond, g,
+                                  params: Sequence[torch.Tensor], n_heads: int,
+                                  hw: int):
+    """The TPU kernel's `_bwd_kernel` (mode "full"), and S2's ablations of
+    it (`BWD_MODES`, scripts/probe_train_bwd_stage.py's `make_bwd_kernel`),
+    written out: (dx, dcond, the 15 parameter gradients in float32), with
+    None for what a mode does not compute. "recompute" returns the
+    recomputed x2 as dx; "no_mlp" starts the attention pair's backward
+    from dx2 = g; "no_cross" and "no_self" pass the gradient through that
+    attention; "bf16res" reads the residuals as `_forward_residuals`
+    rounds them."""
+    _require(mode in BWD_MODES, f"fused_layer_bwd: mode is one of {BWD_MODES}")
+    r = _forward_residuals(x, cond, params, n_heads, hw, mode == "bf16res")
+    if mode == "recompute":
+        return _bwd_outputs(r["x2"], None, [None] * len(params), x, cond, params)
+    ln3s, _, w1, _, dw, _, w2, _ = params[7:]
+    lp = r["lp"]
+    b, n, d = x.shape
+    rows = (0, 1)
+    g = g.float()
+    dx2, mlp_grads = g, [None] * 8
+    if mode != "no_mlp":
+        g_lp = g.to(lp)
+        dw2 = _tn(g_lp, r["a"], lp)
+        db2 = g.sum(rows)
+        da = _mm(g_lp, w2, lp)
+        dc = da.reshape(b, hw, hw, -1) * _gelu_grad_f32(r["c"])
+        ddwb = dc.sum((0, 1, 2))
+        ddw = _dw_tap_grads(r["h"].reshape(b, hw, hw, -1), dc, hw)
+        dhid = _dw_input_grad(dc, dw.float(), hw).reshape(b, n, -1)
+        dhid_lp = dhid.to(lp)
+        dw1 = _tn(dhid_lp, r["xn3"], lp)
+        db1 = dhid.sum(rows)
+        dxn3 = _mm(dhid_lp, w1, lp)
+        dx2_ln, ds3, db3 = _ln_bwd(dxn3, r["xhat3"], r["rstd3"], ln3s.float())
+        dx2 = g + dx2_ln
+        mlp_grads = [ds3, db3, dw1, db1, ddw, ddwb, dw2, db2]
+    dx, dcond, attn_grads = _attn_pair_bwd_plain(
+        r, dx2, params[:7], n_heads, cross=mode != "no_cross",
+        self_attn=mode != "no_self")
+    return _bwd_outputs(dx, dcond, attn_grads + mlp_grads, x, cond, params)
 
 
 def fused_layer_bwd_plain(x, cond, g, params: Sequence[torch.Tensor],
@@ -273,30 +363,7 @@ def fused_layer_bwd_plain(x, cond, g, params: Sequence[torch.Tensor],
     """The TPU kernel's `_bwd_kernel`, written out: (dx in x's dtype, dcond
     in cond's dtype, the 15 parameter gradients in float32, shaped like
     the parameters)."""
-    r = _forward_residuals(x, cond, params, n_heads, hw)
-    ln3s, _, w1, _, dw, _, w2, _ = params[7:]
-    lp = r["lp"]
-    b, n, d = x.shape
-    rows = (0, 1)
-    g = g.float()
-    g_lp = g.to(lp)
-    dw2 = _tn(g_lp, r["a"], lp)
-    db2 = g.sum(rows)
-    da = _mm(g_lp, w2, lp)
-    dc = da.reshape(b, hw, hw, -1) * _gelu_grad_f32(r["c"])
-    ddwb = dc.sum((0, 1, 2))
-    ddw = _dw_tap_grads(r["h"].reshape(b, hw, hw, -1), dc, hw)
-    dhid = _dw_input_grad(dc, dw.float(), hw).reshape(b, n, -1)
-    dhid_lp = dhid.to(lp)
-    dw1 = _tn(dhid_lp, r["xn3"], lp)
-    db1 = dhid.sum(rows)
-    dxn3 = _mm(dhid_lp, w1, lp)
-    dx2_ln, ds3, db3 = _ln_bwd(dxn3, r["xhat3"], r["rstd3"], ln3s.float())
-    dx, dcond, attn_grads = _attn_pair_bwd_plain(r, g + dx2_ln, params[:7],
-                                                 n_heads)
-    grads = attn_grads + [ds3, db3, dw1, db1, ddw, ddwb, dw2, db2]
-    return (dx.to(x.dtype), dcond.to(cond.dtype),
-            [gr.reshape(p.shape) for gr, p in zip(grads, params)])
+    return fused_layer_bwd_variant_plain("full", x, cond, g, params, n_heads, hw)
 
 
 # ------------------------------ kernel plain versions ------------------------------
@@ -432,17 +499,19 @@ def weight_grad(dy, x):
 
 
 def layernorm_bwd(dy, x, scale, upstream):
-    """Kernel wrapper of `layernorm_bwd_plain`; on CUDA all float32, D a
-    multiple of 4 and at most 768."""
+    """Kernel wrapper of `layernorm_bwd_plain`; on CUDA x float32 or bf16
+    (the "bf16res" residuals), the rest float32, D a multiple of 4 and at
+    most 768."""
     if dy.device.type == "cpu":
         return layernorm_bwd_plain(dy, x, scale, upstream)
     dev = _on_cuda("layernorm_bwd", dy, x, scale, upstream)
     m, d = dy.shape
-    _require(all(t.dtype == torch.float32 for t in (dy, x, scale, upstream))
+    _require(all(t.dtype == torch.float32 for t in (dy, scale, upstream))
+             and x.dtype in (torch.float32, torch.bfloat16)
              and x.shape == (m, d) and upstream.shape == (m, d)
              and scale.numel() == d and d % 4 == 0 and d <= 768,
-             "layernorm_bwd: float32 dy, x, upstream (M, D) and scale (D,), "
-             "D % 4 == 0 and D <= 768")
+             "layernorm_bwd: float32 dy, upstream (M, D) and scale (D,), x "
+             "(M, D) float32 or bf16, D % 4 == 0 and D <= 768")
     dx = torch.empty_like(dy)
     partial = torch.empty(((m + 31) // 32, 2 * d), dtype=torch.float32,
                           device=dev)
@@ -450,7 +519,8 @@ def layernorm_bwd(dy, x, scale, upstream):
     _count("layernorm_bwd")
     _check_launch(lib.ltd_layernorm_bwd(_ptr(dy), _ptr(x), _ptr(scale),
                                         _ptr(upstream), _ptr(dx), _ptr(partial),
-                                        m, d, _stream(dev)), "layernorm_bwd")
+                                        m, d, int(x.dtype == torch.bfloat16),
+                                        _stream(dev)), "layernorm_bwd")
     sums = colsum(partial)
     return dx, sums[:d], sums[d:]
 
@@ -479,20 +549,26 @@ def dwconv_gelu_bwd_body(hw: int) -> int:
 
 
 def dwconv_gelu_bwd(da, c, h, dw, hw: int):
-    """Kernel wrapper of `dwconv_gelu_bwd_plain`; on CUDA da, c, h float32,
-    dw bf16 (9, C), C % 32 == 0 and a grid one of the two bodies holds
-    (`dwconv_gelu_bwd_body`)."""
+    """Kernel wrapper of `dwconv_gelu_bwd_plain`; on CUDA da float32, c and
+    h both float32 or both bf16 (the "bf16res" residuals, whole-grid body
+    only), dw bf16 (9, C), C % 32 == 0 and a grid one of the two bodies
+    holds (`dwconv_gelu_bwd_body`)."""
     if da.device.type == "cpu":
         return dwconv_gelu_bwd_plain(da, c, h, dw, hw)
     dev = _on_cuda("dwconv_gelu_bwd", da, c, h, dw)
     m, ch = da.shape
-    _require(da.dtype == c.dtype == h.dtype == torch.float32
+    _require(da.dtype == torch.float32 and c.dtype == h.dtype
+             and c.dtype in (torch.float32, torch.bfloat16)
              and dw.dtype == torch.bfloat16 and c.shape == (m, ch)
              and h.shape == (m, ch) and dw.shape == (9, ch),
-             "dwconv_gelu_bwd: float32 da, c, h (M, C) and bf16 dw (9, C)")
+             "dwconv_gelu_bwd: float32 da, c and h (M, C) both float32 or "
+             "both bf16, and bf16 dw (9, C)")
     _require(ch % DWB_CHUNK == 0 and m % (hw * hw) == 0,
              "dwconv_gelu_bwd: needs C % 32 == 0 and (B*hw*hw, C) rows")
     band = dwconv_gelu_bwd_body(hw)
+    in_bf16 = c.dtype == torch.bfloat16
+    _require(not (in_bf16 and band), "dwconv_gelu_bwd: bf16 c and h take the "
+                                     "whole-grid body")
     b = m // (hw * hw)
     rows = b * (-(-hw // band) if band else 1)  # a partial row per (image, band)
     dhid = torch.empty((m, ch), dtype=torch.bfloat16, device=dev)
@@ -501,7 +577,8 @@ def dwconv_gelu_bwd(da, c, h, dw, hw: int):
     _count("dwconv_gelu_bwd")
     _check_launch(lib.ltd_dwconv_gelu_bwd(_ptr(da), _ptr(c), _ptr(h), _ptr(dw),
                                           _ptr(dhid), _ptr(partial), b, hw, ch,
-                                          band, _stream(dev)), "dwconv_gelu_bwd")
+                                          band, int(in_bf16), _stream(dev)),
+                  "dwconv_gelu_bwd")
     sums = colsum(partial).reshape(11, ch)
     return dhid, sums[:9], sums[9], sums[10]
 
@@ -565,43 +642,56 @@ def cross_attention_bwd(qc, kv, dout, n_heads: int, n_tokens: int):
 
 
 def _attn_pair_forward(x, cond, attn_params, n_heads: int, keep: bool,
-                       ln3=None):
+                       ln3=None, bf16res: bool = False):
     """The attention pair's forward through the kernels (the first seven
     parameters of PARAM_NAMES), up to the float32 residual x2 and, with
     ln3, its bf16 LayerNorm xn3 (cross_attention's epilogue). keep=True
     (the backward's recompute) also writes what the backward reads: the
     normalised rows xn1 and xn2 and the residuals x0, x1, x2 as separate
     tensors. keep=False (the forward) updates one float32 residual in
-    place and writes none of those."""
+    place and writes none of those. bf16res (with keep): the residuals are
+    kept in the weights' dtype instead, x0 the input rows as given, x1 and
+    x2 rounded where the float32 copies would be cloned; the one float32
+    residual is updated in place."""
     ln1s, ln1b, wqkv, ln2s, ln2b, wq, wkv = attn_params
     b, n, d = x.shape
+    lp = wqkv.dtype
     x0 = x.reshape(b * n, d).to(torch.float32, copy=True)
-    c2 = cond.reshape(b * 2, d).to(wqkv.dtype).contiguous()
+    c2 = cond.reshape(b * 2, d).to(lp).contiguous()
 
     def residual(t):  # the attention kernels add into it in place
-        return t.clone() if keep else t
+        return t.clone() if keep and not bf16res else t
+
+    def kept(t):  # what the backward reads of a residual
+        return t.to(lp) if bf16res else t
 
     def ln_product(t, w, ln):  # (product, normalised rows or None)
         out = fs.ln_gemm(t, w, ln=ln, return_xn=keep)
         return out if keep else (out, None)
 
     qkv, xn1 = ln_product(x0, wqkv, (ln1s, ln1b))
+    x0_kept = x.reshape(b * n, d).to(lp) if bf16res else x0
     x1 = fs.self_attention(qkv, residual(x0), n_heads, n)
     qc, xn2 = ln_product(x1, wq, (ln2s, ln2b))
     kv = fs.ln_gemm(c2, wkv)
+    x1_kept = kept(x1)  # before cross_attention updates it in place
     x2, xn3 = fs.cross_attention(qc, kv, residual(x1), ln3, n_heads, n)
-    return dict(x0=x0, c2=c2, qkv=qkv, xn1=xn1, x1=x1, qc=qc, xn2=xn2, kv=kv,
-                x2=x2, xn3=xn3)
+    return dict(x0=x0_kept, c2=c2, qkv=qkv, xn1=xn1, x1=x1_kept, qc=qc,
+                xn2=xn2, kv=kv, x2=kept(x2), xn3=xn3)
 
 
-def _layer_forward(x, cond, params, n_heads: int, hw: int, keep: bool):
+def _layer_forward(x, cond, params, n_heads: int, hw: int, keep: bool,
+                   bf16res: bool = False):
     """The layer forward through the kernels up to the GELU output, with
-    `_attn_pair_forward`'s `keep`; keep=True also writes the pre-GELU c."""
+    `_attn_pair_forward`'s `keep` and `bf16res`; keep=True also writes the
+    pre-GELU c. bf16res: the expanded h and c are bf16 too."""
     ln3s, ln3b, w1, b1, dw, dwb = params[7:13]
-    r = _attn_pair_forward(x, cond, params[:7], n_heads, keep, (ln3s, ln3b))
-    h = fs.ln_gemm(r["xn3"], w1, bias=b1, out_dtype=torch.float32)
-    a, c = (fs.dwconv_gelu(h, dw, dwb, hw, return_c=True) if keep
-            else (fs.dwconv_gelu(h, dw, dwb, hw), None))
+    r = _attn_pair_forward(x, cond, params[:7], n_heads, keep, (ln3s, ln3b),
+                           bf16res)
+    res_dtype = w1.dtype if bf16res else torch.float32
+    h = fs.ln_gemm(r["xn3"], w1, bias=b1, out_dtype=res_dtype)
+    a, c = (fs.dwconv_gelu(h, dw, dwb, hw, return_c=True, c_dtype=res_dtype)
+            if keep else (fs.dwconv_gelu(h, dw, dwb, hw), None))
     r.update(h=h, c=c, a=a)
     return r
 
@@ -620,23 +710,65 @@ def _dx_of(dy, w):
     return fs.ln_gemm(dy, w.T.contiguous(), out_dtype=torch.float32)
 
 
-def _attn_pair_bwd(r, dx2, attn_params, n_heads: int, n: int):
+def _attn_pair_bwd(r, dx2, attn_params, n_heads: int, n: int,
+                   cross: bool = True, self_attn: bool = True):
     """The attention pair's backward through the kernels, from the float32
     gradient dx2 (B*N, D) at x2 and `_attn_pair_forward(keep=True)`'s
     tensors `r`: (dx (B*N, D), dcond (B*2, D), both float32, the seven
-    parameter gradients float32)."""
+    parameter gradients float32). cross=False or self_attn=False skips
+    that attention's section as `_attn_pair_bwd_plain` does."""
     ln1s, _, wqkv, ln2s, _, wq, wkv = attn_params
-    dqc, dkv = cross_attention_bwd(r["qc"], r["kv"], dx2, n_heads, n)
-    dwq = weight_grad(dqc, r["xn2"])
-    dwkv = weight_grad(dkv, r["c2"])
-    dcond = _dx_of(dkv, wkv)
-    dx1, ds2, db2 = layernorm_bwd(_dx_of(dqc, wq), r["x1"], ln2s, dx2)
-    del dqc, dkv
+    dx1, dcond, ds2, db2, dwq, dwkv = dx2, None, None, None, None, None
+    if cross:
+        dqc, dkv = cross_attention_bwd(r["qc"], r["kv"], dx2, n_heads, n)
+        dwq = weight_grad(dqc, r["xn2"])
+        dwkv = weight_grad(dkv, r["c2"])
+        dcond = _dx_of(dkv, wkv)
+        dx1, ds2, db2 = layernorm_bwd(_dx_of(dqc, wq), r["x1"], ln2s, dx2)
+        del dqc, dkv
 
-    dqkv = self_attention_bwd(r["qkv"], dx1, n_heads, n)
-    dwqkv = weight_grad(dqkv, r["xn1"])
-    dx, ds1, db1 = layernorm_bwd(_dx_of(dqkv, wqkv), r["x0"], ln1s, dx1)
+    dx, ds1, db1, dwqkv = dx1, None, None, None
+    if self_attn:
+        dqkv = self_attention_bwd(r["qkv"], dx1, n_heads, n)
+        dwqkv = weight_grad(dqkv, r["xn1"])
+        dx, ds1, db1 = layernorm_bwd(_dx_of(dqkv, wqkv), r["x0"], ln1s, dx1)
     return dx, dcond, [ds1, db1, dwqkv, ds2, db2, dwq, dwkv]
+
+
+def fused_layer_bwd_variant(mode: str, x, cond, g,
+                            params: Sequence[torch.Tensor], n_heads: int,
+                            hw: int):
+    """`fused_layer_bwd_variant_plain` through the kernels: the layer
+    backward (`_bwd_kernel`, mode "full") recomputing the forward, or one
+    of S2's ablations of it (`BWD_MODES`). Every mode runs the whole
+    recompute (`_layer_forward(keep=True)`), as the TPU variants keep it
+    alive; "recompute" stops there. (dx in x's dtype, dcond in cond's
+    dtype, the 15 parameter gradients in float32 shaped like the
+    parameters), None for what the mode does not compute."""
+    _require(mode in BWD_MODES, f"fused_layer_bwd: mode is one of {BWD_MODES}")
+    ln3s, _, w1, _, dw, _, w2, _ = params[7:]
+    b, n, d = x.shape
+    r = _layer_forward(x, cond, params, n_heads, hw, keep=True,
+                       bf16res=mode == "bf16res")
+    if mode == "recompute":
+        return _bwd_outputs(r["x2"], None, [None] * len(params), x, cond, params)
+    lp = w2.dtype
+    g32 = g.reshape(b * n, d).float()
+    dx2, mlp_grads = g32, [None] * 8
+    if mode != "no_mlp":
+        g_lp = g32.to(lp)
+        db2 = colsum(g32)
+        dw2 = weight_grad(g_lp, r["a"])
+        dhid, ddw, ddwb, db1 = dwconv_gelu_bwd(_dx_of(g_lp, w2), r["c"], r["h"],
+                                               dw, hw)
+        dw1 = weight_grad(dhid, r["xn3"])
+        dx2, ds3, db3 = layernorm_bwd(_dx_of(dhid, w1), r["x2"], ln3s, g32)
+        mlp_grads = [ds3, db3, dw1, db1, ddw, ddwb, dw2, db2]
+    del r["h"], r["c"], r["a"]
+    dx, dcond, attn_grads = _attn_pair_bwd(r, dx2, params[:7], n_heads, n,
+                                           cross=mode != "no_cross",
+                                           self_attn=mode != "no_self")
+    return _bwd_outputs(dx, dcond, attn_grads + mlp_grads, x, cond, params)
 
 
 def fused_layer_bwd(x, cond, g, params: Sequence[torch.Tensor], n_heads: int,
@@ -644,24 +776,7 @@ def fused_layer_bwd(x, cond, g, params: Sequence[torch.Tensor], n_heads: int,
     """The layer backward (`_bwd_kernel`) through the kernels, recomputing
     the forward: (dx in x's dtype, dcond in cond's dtype, the 15 parameter
     gradients in float32, shaped like the parameters)."""
-    ln3s, _, w1, _, dw, _, w2, _ = params[7:]
-    b, n, d = x.shape
-    r = _layer_forward(x, cond, params, n_heads, hw, keep=True)
-    lp = w2.dtype
-    g32 = g.reshape(b * n, d).float()
-    g_lp = g32.to(lp)
-    db2 = colsum(g32)
-    dw2 = weight_grad(g_lp, r["a"])
-    dhid, ddw, ddwb, db1 = dwconv_gelu_bwd(_dx_of(g_lp, w2), r["c"], r["h"],
-                                           dw, hw)
-    dw1 = weight_grad(dhid, r["xn3"])
-    dx2, ds3, db3 = layernorm_bwd(_dx_of(dhid, w1), r["x2"], ln3s, g32)
-    del r["h"], r["c"], r["a"]
-    dx, dcond, attn_grads = _attn_pair_bwd(r, dx2, params[:7], n_heads, n)
-    grads = attn_grads + [ds3, db3, dw1, db1, ddw, ddwb, dw2, db2]
-    return (dx.reshape(b, n, d).to(x.dtype),
-            dcond.reshape(b, 2, d).to(cond.dtype),
-            [gr.reshape(p.shape) for gr, p in zip(grads, params)])
+    return fused_layer_bwd_variant("full", x, cond, g, params, n_heads, hw)
 
 
 class FusedLayerFunction(torch.autograd.Function):

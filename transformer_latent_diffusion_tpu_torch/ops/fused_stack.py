@@ -42,7 +42,11 @@ TPU kernel K5's forward) runs `dwconv_gelu` on a float32 hidden state at
 hw = 32, which takes its row-band body (`dwconv_gelu_body`). The W8A8
 stack (`ops/fused_stack_int8.py`, TPU kernel K7) runs `cross_attention`
 without its LN3 output (`ln=None`) and `dwconv_gelu` with a float32
-output (`out_dtype=torch.float32`).
+output (`out_dtype=torch.float32`). The probes of `scripts/` run
+`cross_attention` with the heads summed into one (`summed=True`, the
+"onehead" layer variant) and `dwconv_gelu` without the convolution or with
+its shifts commuted (`dw_mode`) or with a bf16 pre-GELU output
+(`c_dtype=torch.bfloat16`, the "bf16res" backward).
 """
 
 from __future__ import annotations
@@ -127,40 +131,60 @@ def self_attention_plain(qkv, residual, n_heads: int, n_tokens: int):
     return residual + o.transpose(1, 2).reshape(m, d)
 
 
-def cross_attention_plain(qc, kv, residual, ln, n_heads: int, n_tokens: int):
+def cross_attention_plain(qc, kv, residual, ln, n_heads: int, n_tokens: int,
+                          summed: bool = False):
     """(x, xn): x = residual + 2-key softmax attention of qc against the
     conditioning K/V, and xn = LN(x) rounded to qc's dtype (None when ln
     is None, as the W8A8 stack asks).
     qc: (B*N, D); kv: (B*2, 2D) rows [k | v]; residual float32;
-    ln: (scale, shift) float32, or None."""
+    ln: (scale, shift) float32, or None. summed: one head as wide as D
+    with the scale 1/sqrt(D / n_heads) (the "onehead" layer variant of
+    scripts/microbench_layer.py): the per-head scores summed over the
+    heads, one softmax, its probabilities weighing every column of V."""
     m, d = qc.shape
     b, dh = m // n_tokens, d // n_heads
     q = qc.reshape(b, n_tokens, n_heads, dh).transpose(1, 2).float()
     kvh = kv.reshape(b, 2, 2, n_heads, dh).permute(2, 0, 3, 1, 4)
     k, v = kvh[0].float(), kvh[1]                          # (B, H, 2, dh)
     s = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(dh))
+    if summed:  # every head takes the heads' summed scores
+        s = s.sum(1, keepdim=True).expand(-1, n_heads, -1, -1)
     o = _softmax_pv(s, v, qc.dtype)
     x = residual + o.transpose(1, 2).reshape(m, d)
     return x, None if ln is None else _layer_norm_plain(x, ln).to(qc.dtype)
 
 
-def dwconv_gelu_plain(h, dw, dwb, hw: int, return_c=False, out_dtype=None):
+# the depthwise modes of `dwconv_gelu` (csrc/dwconv_gelu.cu's MODE)
+DW_MODES = ("base", "none", "commuted")
+
+
+def dwconv_gelu_plain(h, dw, dwb, hw: int, return_c=False, out_dtype=None,
+                      dw_mode="base", c_dtype=None):
     """GELU(depthwise3x3(h) + dwb) on the hw x hw token grid, in float32,
     summed in the TPU kernel's order, rounded to `out_dtype` (default
     dw.dtype). h: (B*hw*hw, C); dw: (9, C) taps di*3+dj; dwb: (C,) float32.
-    return_c: also return the float32 pre-GELU values c."""
+    return_c: also return the pre-GELU values c, rounded to `c_dtype`
+    (default float32). dw_mode "none": c = h + dwb, no convolution;
+    "commuted" (scripts/microbench_layer.py's `_dw_fwd_commuted`: row taps
+    first, then the column shifts) is the TPU kernel's order already, so
+    its sums are base's."""
     m, c = h.shape
     g = h.float().reshape(m // (hw * hw), hw, hw, c)
     w = dw.float()
-    pr = F.pad(g, (0, 0, 0, 0, 1, 1))                      # zero rows
-    zs = [pr[:, 0:hw] * w[dj] + pr[:, 1:hw + 1] * w[3 + dj]
-          + pr[:, 2:hw + 2] * w[6 + dj] for dj in range(3)]
-    acc = (F.pad(zs[0], (0, 0, 1, 1))[:, :, 0:hw] + zs[1]
-           + F.pad(zs[2], (0, 0, 1, 1))[:, :, 2:hw + 2])
+    if dw_mode == "none":
+        acc = g
+    else:
+        pr = F.pad(g, (0, 0, 0, 0, 1, 1))                  # zero rows
+        zs = [pr[:, 0:hw] * w[dj] + pr[:, 1:hw + 1] * w[3 + dj]
+              + pr[:, 2:hw + 2] * w[6 + dj] for dj in range(3)]
+        acc = (F.pad(zs[0], (0, 0, 1, 1))[:, :, 0:hw] + zs[1]
+               + F.pad(zs[2], (0, 0, 1, 1))[:, :, 2:hw + 2])
     acc = acc + dwb.reshape(-1)
     act = 0.5 * acc * (1.0 + torch.erf(acc * (1.0 / math.sqrt(2.0))))
     act = act.reshape(m, c).to(out_dtype or dw.dtype)
-    return (act, acc.reshape(m, c)) if return_c else act
+    if return_c:
+        return act, acc.reshape(m, c).to(c_dtype or torch.float32)
+    return act
 
 
 # ------------------------------ kernel wrappers ------------------------------
@@ -271,13 +295,15 @@ def self_attention(qkv, residual, n_heads: int, n_tokens: int):
     return residual
 
 
-def cross_attention(qc, kv, residual, ln, n_heads: int, n_tokens: int):
+def cross_attention(qc, kv, residual, ln, n_heads: int, n_tokens: int,
+                    summed: bool = False):
     """Kernel wrapper of `cross_attention_plain`; on CUDA it updates
     `residual` in place and returns it with the new bf16 `xn` (None, and
     no LayerNorm, when ln is None). Needs head dim 64 and at most 12
     heads."""
     if qc.device.type == "cpu":
-        return cross_attention_plain(qc, kv, residual, ln, n_heads, n_tokens)
+        return cross_attention_plain(qc, kv, residual, ln, n_heads, n_tokens,
+                                     summed)
     scale, shift = ln if ln is not None else (None, None)
     lnp = [t for t in (scale, shift) if t is not None]
     dev = _on_cuda("cross_attention", qc, kv, residual, *lnp)
@@ -297,7 +323,8 @@ def cross_attention(qc, kv, residual, ln, n_heads: int, n_tokens: int):
     LAUNCHES["cross_attention"] += 1
     err = lib.ltd_cross_attention(_ptr(qc), _ptr(kv), _ptr(residual),
                                   _ptr(scale), _ptr(shift), _ptr(xn), b,
-                                  n_tokens, d, n_heads, _stream(dev))
+                                  n_tokens, d, n_heads, int(summed),
+                                  _stream(dev))
     _check_launch(err, "cross_attention")
     return residual, xn
 
@@ -324,13 +351,18 @@ def dwconv_gelu_body(hw: int, dtype) -> int:
                      f"the {SMEM_PER_BLOCK}-byte shared memory of both bodies")
 
 
-def dwconv_gelu(h, dw, dwb, hw: int, return_c=False, out_dtype=None):
+def dwconv_gelu(h, dw, dwb, hw: int, return_c=False, out_dtype=None,
+                dw_mode="base", c_dtype=None):
     """Kernel wrapper of `dwconv_gelu_plain`. Needs C % 64 == 0 on CUDA;
     h bf16 or float32, dw bf16, dwb float32, out_dtype bf16 (the default)
     or float32, and a grid one of the two bodies holds
-    (`dwconv_gelu_body`)."""
+    (`dwconv_gelu_body`). dw_mode "none" and "commuted" take float32 h
+    and c and the whole-grid body; c_dtype bf16 takes bf16 h, the base
+    mode and the whole-grid body."""
+    _require(dw_mode in DW_MODES, f"dwconv_gelu: dw_mode is one of {DW_MODES}")
     if h.device.type == "cpu":
-        return dwconv_gelu_plain(h, dw, dwb, hw, return_c, out_dtype)
+        return dwconv_gelu_plain(h, dw, dwb, hw, return_c, out_dtype, dw_mode,
+                                 c_dtype)
     dev = _on_cuda("dwconv_gelu", h, dw, dwb)
     m, c = h.shape
     _require(h.dtype in (torch.bfloat16, torch.float32)
@@ -343,16 +375,27 @@ def dwconv_gelu(h, dw, dwb, hw: int, return_c=False, out_dtype=None):
     out_dtype = out_dtype or torch.bfloat16
     _require(out_dtype in (torch.bfloat16, torch.float32),
              "dwconv_gelu: out_dtype is bf16 or float32")
+    c_dtype = c_dtype or torch.float32
     band = dwconv_gelu_body(hw, h.dtype)
+    if dw_mode != "base":
+        _require(h.dtype == torch.float32 and c_dtype == torch.float32 and band == 0,
+                 f"dwconv_gelu: dw_mode {dw_mode!r} takes float32 h and c on a "
+                 f"grid of the whole-grid body")
+    if c_dtype != torch.float32:
+        _require(c_dtype == torch.bfloat16 and h.dtype == torch.bfloat16
+                 and band == 0, "dwconv_gelu: a bf16 c takes bf16 h on a grid "
+                                "of the whole-grid body")
     out = torch.empty((m, c), dtype=out_dtype, device=dev)
-    c_out = (torch.empty((m, c), dtype=torch.float32, device=dev)
+    c_out = (torch.empty((m, c), dtype=c_dtype, device=dev)
              if return_c else None)
     lib = load_library()
     LAUNCHES["dwconv_gelu"] += 1
     err = lib.ltd_dwconv_gelu(_ptr(h), _ptr(dw), _ptr(dwb), _ptr(out),
                               _ptr(c_out), m // (hw * hw), hw, c,
                               int(h.dtype == torch.float32),
-                              int(out_dtype == torch.float32), band, _stream(dev))
+                              int(out_dtype == torch.float32), band,
+                              int(c_dtype == torch.bfloat16),
+                              DW_MODES.index(dw_mode), _stream(dev))
     _check_launch(err, "dwconv_gelu")
     return (out, c_out) if return_c else out
 
