@@ -184,6 +184,19 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_ms(fn, reps: int = 50) -> float:
+    """Host time per call of `fn` (the wrapper's checks, tensor maps and
+    launch), the device's queue left to drain afterwards."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e3
+
+
 def bound(nbytes, flops, peak):
     """(least ms, "bytes" or "operations") for moving `nbytes` and doing
     `flops` at `peak` operations per second."""
@@ -357,6 +370,16 @@ def phase_kernels():
         worst[name] = a
         results[name] = (kern_t, plain_t)
     torch.cuda.synchronize()
+    # the TMA reduce-add gives each residual element one writer: two
+    # launches on the same inputs are bit-equal
+    twice = [x.clone(), x.clone()]
+    for t in twice:
+        fs.self_attention(qkv, t, HEADS, N)
+    if not torch.equal(*twice):
+        raise AssertionError("self_attention: two launches on the same inputs differ")
+    log(f"[kernels] self_attention: two launches bit-equal; host time per call "
+        f"{host_ms(lambda: fs.self_attention(qkv, xr, HEADS, N)):.4f} ms")
+    del twice
 
     timing = time_against_plain(results, "kernels")
 
@@ -378,6 +401,16 @@ def phase_kernels():
     library["dwconv_gelu"] = None  # no one call: a depthwise conv, then a GELU
     for name, ms in library.items():
         log(f"[kernels] {name}: library call {ms if ms is None else f'{ms:.4f}'} ms")
+    # the same work as self_attention: SDPA, then its output added into the
+    # float32 residual in place (SDPA alone writes bf16 and reads no residual)
+    xv = xr.view(B, N, HEADS, 64)
+    eq = time_ms(lambda: xv.add_(F.scaled_dot_product_attention(
+        heads[0], heads[1], heads[2]).transpose(1, 2)))
+    library["self_attention (equal work)"] = eq
+    ms = timing["self_attention"][0]
+    log(f"[kernels] self_attention: {ms:.4f} ms; equal-work yardstick (SDPA + the add into "
+        f"the float32 residual) {eq:.4f} ms: the kernel is "
+        f"{'no slower' if ms <= eq else f'{ms / eq:.2f}x slower'}")
     return worst, timing, library
 
 
@@ -1141,9 +1174,20 @@ def phase_train_kernels():
     scale = 1.0 + randn(D, std=0.1)
 
     wg_cases = [(glp, a), (dhid, xn), (glp, xn), (dkv, cond), (dqkv, xn)]
-    # a batch of 8 gives 16 conditioning rows: M padded to 32 in the wrapper
+    wg_names = ("dW2", "dW1", "dWq", "dWkv", "dWqkv")
+    # a batch of 8 gives 16 conditioning rows: one stage, its rows past M
+    # zero-filled by the tensor map
     _check("weight_grad/ragged M", (lv.weight_grad(dkv[:16], cond[:16]),),
            (lv.weight_grad_plain(dkv[:16], cond[:16]),), "train-kernels")
+    for name, (u, v) in zip(wg_names, wg_cases):
+        _check(f"weight_grad/{name}", (lv.weight_grad(u, v),), (lv.weight_grad_plain(u, v),),
+               "train-kernels")
+    # the split partials are summed in a fixed order: bit-equal launches
+    for name, (u, v) in zip(wg_names, wg_cases):
+        if not torch.equal(lv.weight_grad(u, v), lv.weight_grad(u, v)):
+            raise AssertionError(f"weight_grad/{name}: two launches on the same inputs differ")
+    log(f"[train-kernels] weight_grad: two launches bit-equal for all five; host time per "
+        f"call {host_ms(lambda: lv.weight_grad(glp, a)):.4f} ms")
     cases = {  # name: (kernel call, plain call, timed kernel, timed plain)
         "weight_grad": (lambda: lv.weight_grad(glp, a),
                         lambda: lv.weight_grad_plain(glp, a),
@@ -1185,13 +1229,27 @@ def phase_train_kernels():
            fs.dwconv_gelu_plain(h, dw, dwb, HW, return_c=True), "train-kernels")
     torch.cuda.synchronize()
     timing = time_against_plain(timed, "train-kernels")
+    # the attention backwards' yardstick: autograd through SDPA on the same
+    # q, k, v and output gradient, the backward alone (as K4's)
+    F = torch.nn.functional
+    hs = [t.contiguous().requires_grad_(True)
+          for t in qkv.reshape(TB, N, 3, HEADS, 64).permute(2, 0, 3, 1, 4)]
+    dout = g32.to(bf).reshape(TB, N, HEADS, 64).transpose(1, 2).contiguous()
+    out = F.scaled_dot_product_attention(*hs)
+    sa_sdpa = time_ms(lambda: torch.autograd.grad(out, hs, dout, retain_graph=True))
+    kvh = [t.contiguous() for t in kv.reshape(TB, 2, 2, HEADS, 64).permute(2, 0, 3, 1, 4)]
+    cs = [qc.reshape(TB, N, HEADS, 64).transpose(1, 2).contiguous().requires_grad_(True),
+          *(t.requires_grad_(True) for t in kvh)]
+    cout = F.scaled_dot_product_attention(*cs)
+    ca_sdpa = time_ms(lambda: torch.autograd.grad(cout, cs, dout, retain_graph=True))
+    del hs, out, kvh, cs, cout, dout
     library = {
         "weight_grad": time_ms(lambda: [u.t() @ v for u, v in wg_cases]),
         "colsum": time_ms(lambda: g32.sum(0)),
-        # no one call on the same inputs: PyTorch's LayerNorm and attention
-        # backwards take the forward's saved statistics / outputs
+        # no one call on the same inputs: PyTorch's LayerNorm backward takes
+        # the forward's saved statistics
         "layernorm_bwd": None, "dwconv_gelu_bwd": None,
-        "self_attention_bwd": None, "cross_attention_bwd": None,
+        "self_attention_bwd": sa_sdpa, "cross_attention_bwd": ca_sdpa,
     }
     log(f"[train-kernels] library calls (ms): {library}")
 
@@ -1199,6 +1257,14 @@ def phase_train_kernels():
         return mm * nn * 2 + mm * kk * 2 + nn * kk * 4
 
     wg_shapes = [(m, D, HIDDEN), (m, HIDDEN, D), (m, D, D), (2 * TB, 2 * D, D), (m, 3 * D, D)]
+    # each product alone: which shape loses
+    for name, (u, v), (mm, nn, kk) in zip(wg_names, wg_cases, wg_shapes):
+        ms = time_ms(lambda u=u, v=v: lv.weight_grad(u, v))
+        lib_ms = time_ms(lambda u=u, v=v: u.t() @ v)
+        bnd = bound(wg_bytes(mm, nn, kk), 2 * mm * nn * kk, BF16_TENSOR_FLOP_S)
+        log(f"[train-kernels] weight_grad/{name} (M {mm}, N {nn}, K {kk}): {ms:.4f} ms, "
+            f"{2 * mm * nn * kk / ms / 1e9:.1f} TFLOP/s; u.t() @ v {lib_ms:.4f} ms; bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]})")
     bounds = {
         "weight_grad": bound(sum(wg_bytes(*t) for t in wg_shapes),
                              sum(2 * mm * nn * kk for mm, nn, kk in wg_shapes),
@@ -2833,6 +2899,8 @@ def main():
                 "ms": tim[name][0], "plain_ms": tim[name][1], "bound_ms": bnd[name][0],
                 "bound_by": bnd[name][1], "library_ms": lib[name],
             })
+            if f"{name} (equal work)" in lib:
+                kernels[-1]["equal_work_ms"] = lib[f"{name} (equal work)"]
     # K4a and K4b are one Hopper kernel: a row at 512 px (B = 64, N = 1024;
     # launches of the fine-tune) and one at 4096 tokens (B = 2; launches of
     # the 1024 px step); K5's backward at 512 px (launches of the fine-tune)

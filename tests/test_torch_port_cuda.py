@@ -518,3 +518,100 @@ def test_layer_fwd_variant_matches_plain_on_card(attn_mode, dw_mode):
     if (attn_mode, dw_mode) == ("base", "base"):
         ref = lv.fused_layer_fwd(x, cond, params, 4, 16)
         assert torch.equal(got, ref)
+
+
+# ------------------------- the Hopper (TMA + wgmma) redesigns -------------------------
+
+
+def _close(got, want):
+    """rel-L2 < 1e-2 and max-abs < 2e-2 of the plain output's scale (the
+    two sum the same bf16 products in float32 in other orders)."""
+    got, want = got.double().cpu(), want.double().cpu()
+    scale = float(want.abs().max())
+    return (_rel_l2(got, want) < 1e-2
+            and float((got - want).abs().max()) < 2e-2 * max(scale, 1e-30))
+
+
+def _attention_inputs(b, n, d=128, pad=8, seed=0):
+    """qkv (B*N, 3D) bf16, and a float32 residual of B*N rows followed by
+    `pad` sentinel rows in the same allocation."""
+    gen = torch.Generator().manual_seed(seed + n)
+    qkv = torch.randn(b * n, 3 * d, generator=gen).to("cuda", torch.bfloat16)
+    store = torch.randn(b * n + pad, d, generator=gen).to("cuda")
+    return qkv, store
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 37, 64, 144, 200, 256])
+def test_self_attention_update_matches_plain_on_card(n):
+    """The TMA + wgmma self_attention at every query-tile count, ragged or
+    whole: the update of the float32 residual against the plain version's
+    (rel-L2 < 1e-2, max-abs < 2e-2 of its scale), and the rows after the
+    last image, in the same allocation, untouched (a ragged tile's rows past
+    N are clipped by the tensor map)."""
+    _need_card()
+    b, heads = 3, 2
+    qkv, store = _attention_inputs(b, n)
+    before = store.clone()
+    res = store[:b * n]
+    want = fs.self_attention_plain(qkv, before[:b * n].clone(), heads, n) - before[:b * n]
+    fs.self_attention(qkv, res, heads, n)
+    torch.cuda.synchronize()
+    assert _close(res - before[:b * n], want)
+    assert torch.equal(store[b * n:], before[b * n:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [37, 256])
+def test_self_attention_is_bit_equal_across_launches(n):
+    """Two launches on the same inputs give bit-equal residuals: each
+    element has one writer and one float32 add."""
+    _need_card()
+    qkv, store = _attention_inputs(4, n)
+    res = store[:4 * n]
+    a, b2 = res.clone(), res.clone()
+    fs.self_attention(qkv, a, 2, n)
+    fs.self_attention(qkv, b2, 2, n)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b2)
+
+
+# (N, K) of the five weight gradients of a flagship layer: dW2, dW1, dWq,
+# dWkv, dWqkv
+WG_NK = [(768, 3072), (3072, 768), (768, 768), (1536, 768), (2304, 768)]
+
+
+def _wg_inputs(m, n, k, seed=0):
+    gen = torch.Generator().manual_seed(seed + m + n + k)
+    dy = (torch.randn(m, n, generator=gen) * 1e-2).to("cuda", torch.bfloat16)
+    x = torch.randn(m, k, generator=gen).to("cuda", torch.bfloat16)
+    return dy, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [16, 256, 8192 + 32])
+@pytest.mark.parametrize("n,k", WG_NK)
+def test_weight_grad_shapes_match_plain_on_card(m, n, k):
+    """weight_grad at the five (N, K) classes and at M = 16, 256 and a
+    ragged 8224 (the tensor map zero-fills the last stage past M): against
+    its plain version, rel-L2 < 1e-2 and max-abs < 2e-2 of the scale."""
+    _need_card()
+    dy, x = _wg_inputs(m, n, k)
+    got = lv.weight_grad(dy, x)
+    want = lv.weight_grad_plain(dy, x)
+    torch.cuda.synchronize()
+    assert got.shape == (n, k) and got.dtype == torch.float32
+    assert _close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(32768, 768, 3072), (8192 + 32, 256, 128), (256, 1536, 768)])
+def test_weight_grad_is_bit_equal_across_launches(m, n, k):
+    """Two launches on the same inputs give bit-equal gradients: the split
+    partials are summed in a fixed order, whichever block finishes last."""
+    _need_card()
+    dy, x = _wg_inputs(m, n, k, seed=1)
+    first = lv.weight_grad(dy, x)
+    second = lv.weight_grad(dy, x)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)

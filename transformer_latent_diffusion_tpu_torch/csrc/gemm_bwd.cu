@@ -6,137 +6,208 @@
 // partial sums of the LayerNorm, depthwise and bias gradients). The TPU
 // kernel accumulates each weight gradient in VMEM across its sequential
 // batch grid. CUDA blocks run in no order, so here the reduction over the
-// B*N rows is split over blocks that each write a float32 partial, and a
-// second launch sums the partials in a fixed order (colsum): the result
-// does not depend on the schedule, and no atomics are used.
+// B*N rows is split over blocks that each keep a float32 partial, and the
+// partials of an output tile are summed in a fixed order: the result does
+// not depend on the schedule, and no two writers add into one element.
 //
 // weight_grad. dW[n, k] = sum_m dY[m, n] X[m, k], dY (M, N) and X (M, K)
 // bf16 row-major (the bf16 gradient and the bf16 forward operand, as the
 // TPU kernel rounds both before its product), float32 accumulation. What
 // bounds it on the H100: at M = 32768 rows it does 2*N*K*M FLOP on
-// 2*M*(N+K) bytes, 100-800 FLOP per byte, so the tensor cores (989 TFLOP/s
-// dense bf16 at 700 W). The design: 128 x 128 output tiles, 8 warps of
-// 64 x 32, m16n8k16 bf16 `mma.sync`; both operands arrive as [m][n] and
-// [m][k] tiles of 32 rows through a 4-stage `cp.async` ring, and both are
-// read transposed with `ldmatrix.trans` (dY^T is the A operand, X the
-// row-major B operand), so neither is transposed in device memory. When
-// the output has too few tiles to fill the card, the M rows are split over
-// gridDim.z blocks, each writing its own float32 partial slab.
+// 2*M*(N+K) bytes, 400-800 FLOP per byte, so the tensor cores (989 TFLOP/s
+// dense bf16 at 700 W): 0.470 ms for the five products of a flagship layer
+// at batch 128.
+//
+// What this design does about that:
+// - `wgmma` m64n256k16 (bf16 in, float32 accumulators in registers) on a
+//   128 x 256 output tile: two consumer warpgroups of 64 x 256, given 232
+//   registers each by `setmaxnreg`. Both operands are MN-major in shared
+//   memory, as stored: A = dY^T read from [m][n] tiles and B = X from
+//   [m][k] tiles (the wgmma transpose flags), so nothing is transposed in
+//   device memory or through registers.
+// - One producer thread issues TMA loads (`cp.async.bulk.tensor`, 2-D
+//   maps over the real M rows, 64 x 64 boxes, 128-byte swizzle) into a
+//   ring of 4 stages of 64 rows of M (48 KB each), with full and empty
+//   `mbarrier`s; the consumers keep one stage of products in flight.
+//   Rows past M (M = 16, 256 + ragged) and columns past K (K % 256 ==
+//   128) arrive as zeros, so M needs no padding.
+// - A persistent grid of one block per SM walks a plan made on the host
+//   (ops/fused_layer_vjp.py::weight_grad_plan): the (tile, stage) space is
+//   cut into at most two M-splits of each tile and dealt out stream-K
+//   fashion, so every SM gets the same number of 64-row stages to within
+//   one (no tail wave), and the SMs that run at once read the same rows of
+//   dY and X, so L2 serves the tiles that share them. With too few stages
+//   to share (the cond rows' M = 256) it deals whole tiles instead.
+// - A tile cut into several segments sums them deterministically: each
+//   segment writes its float32 partial to a workspace slab and bumps the
+//   tile's counter; the segment that finds itself last sums the slabs in
+//   segment order into its registers (the counter orders, it adds no data;
+//   each thread's loads of a slab are independent, so the sum costs about
+//   one L2 round trip per segment) and writes the tile. A tile of one
+//   segment is written straight from the registers.
 //
 // colsum. out[c] = sum_r x[r, c], float32. Memory-bound (one read of x).
 // 32 columns per block, 8 row lanes per column summing strided rows, then
 // the 8 lane sums added in a fixed order in shared memory.
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int BM = 32;          // rows of the reduction per stage
-constexpr int BT = 128;         // output tile: 128 x 128
-constexpr int LDS = BT + 8;     // bf16 row stride of a stage tile (272 bytes)
+constexpr int BN = 128;                   // output tile rows (n): two warpgroups of 64
+constexpr int BK = 256;                   // output tile columns (k)
+constexpr int BM = 64;                    // rows of the reduction (m) per stage
+constexpr int BOX_BYTES = 64 * 64 * 2;    // one 64 x 64 bf16 TMA box
+constexpr int A_BYTES = BM * BN * 2;      // dY: two boxes
+constexpr int STAGE_BYTES = A_BYTES + BM * BK * 2;  // + X: four boxes (48 KB)
 constexpr int STAGES = 4;
-constexpr int STAGE_ELEMS = 2 * BM * LDS;
-constexpr int SMEM = STAGES * STAGE_ELEMS * 2;
+constexpr int CONSUMERS = 2;
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8 + 16;
+constexpr int TILE_FLOATS = BN * BK;
+constexpr int REC = 8;  // ints per plan record
 
-__global__ void __launch_bounds__(THREADS)
-weight_grad_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ x,
-                   float* __restrict__ out, int M, int N, int K, int m_chunk) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* base = reinterpret_cast<bf16*>(smem);
+// plan: blocks + 1 offsets into the records, then the records, REC ints
+// each: tile row, tile column, first stage, stages, first workspace slab
+// of the tile (-1: the tile has one segment), this segment's index among
+// the tile's segments, the tile's segments, the tile's counter
+__global__ void __launch_bounds__(THREADS, 1)
+weight_grad_kernel(const __grid_constant__ CUtensorMap map_dy,
+                   const __grid_constant__ CUtensorMap map_x, const int* __restrict__ plan,
+                   float* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
+                   int K) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+  volatile int* last = reinterpret_cast<volatile int*>(empty + STAGES);
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int wm = warp >> 2;  // 0..1: 64-row half (n) of the tile
-  const int wn = warp & 3;   // 0..3: 32-column quarter (k) of the tile
-  const int k_blk = blockIdx.x * BT;
-  const int n_blk = blockIdx.y * BT;
-  const int m_begin = blockIdx.z * m_chunk;
-  const int m_end = min(M, m_begin + m_chunk);
-  const int steps = max(0, (m_end - m_begin) / BM);
-
-  auto load_stage = [&](int step) {
-    bf16* ys = base + (step % STAGES) * STAGE_ELEMS;
-    bf16* xs = ys + BM * LDS;
-    const int m0 = m_begin + step * BM;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // 32 rows x 16 chunks of 16 bytes, each operand
-      const int c = tid + i * THREADS;
-      const int r = c >> 4, col = (c & 15) * 8;
-      cp_async16(ys + r * LDS + col, dy + static_cast<size_t>(m0 + r) * N + n_blk + col, 16);
-      cp_async16(xs + r * LDS + col, x + static_cast<size_t>(m0 + r) * K + k_blk + col, 16);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
     }
-  };
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < steps) load_stage(s);
-    cp_async_commit();
+    mbar_fence_init();
   }
+  __syncthreads();
+  const int seg_begin = plan[blockIdx.x], seg_end = plan[blockIdx.x + 1];
+  const int* recs = plan + gridDim.x + 1;
 
-  float acc[4][4][4];
+  if (tid >= CONSUMERS * 128) {
+    setmaxnreg_dec<40>();
+    if (tid == CONSUMERS * 128) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int sg = seg_begin; sg < seg_end; ++sg) {
+        const int* r = recs + sg * REC;
+        const int n0 = r[0] * BN, k0 = r[1] * BK, st0 = r[2], ns = r[3];
+        for (int i = 0; i < ns; ++i) {
+          const int m0 = (st0 + i) * BM;
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_arrive_expect_tx(&full[stage], STAGE_BYTES);
+          unsigned char* a = smem + stage * STAGE_BYTES;
+          tma_load_2d(a, &map_dy, &full[stage], n0, m0);
+          tma_load_2d(a + BOX_BYTES, &map_dy, &full[stage], n0 + 64, m0);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  for (int step = 0; step < steps; ++step) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    if (step + STAGES - 1 < steps) load_stage(step + STAGES - 1);
-    cp_async_commit();
-    const bf16* ys = base + (step % STAGES) * STAGE_ELEMS;
-    const bf16* xs = ys + BM * LDS;
-#pragma unroll
-    for (int kk = 0; kk < BM; kk += 16) {
-      // A = dY^T: the 16 x 16 fragment (n rows, m cols) from the [m][n] tile
-      uint32_t af[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ldmatrix_x4_trans(af[i], ys + (kk + (lane & 7) + ((lane >> 4) << 3)) * LDS + wm * 64 +
-                                     i * 16 + ((lane >> 3) & 1) * 8);
-      // B = X: k x n = m x k, row-major [m][k]
-      uint32_t bfr[4][2];
-#pragma unroll
-      for (int j2 = 0; j2 < 2; ++j2) {
-        uint32_t r4[4];
-        ldmatrix_x4_trans(r4, xs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS + wn * 32 +
-                                  j2 * 16 + (lane >> 4) * 8);
-        bfr[2 * j2][0] = r4[0];
-        bfr[2 * j2][1] = r4[1];
-        bfr[2 * j2 + 1][0] = r4[2];
-        bfr[2 * j2 + 1][1] = r4[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16_16816(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
-    }
-  }
-  cp_async_wait<0>();
-
-  float* o = out + static_cast<size_t>(blockIdx.z) * N * K;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int n = n_blk + wm * 64 + i * 16 + h * 8 + g;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k = k_blk + wn * 32 + j * 8 + 2 * t4;
-        *reinterpret_cast<float2*>(o + static_cast<size_t>(n) * K + k) =
-            make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+          for (int j = 0; j < BK / 64; ++j)
+            tma_load_2d(a + A_BYTES + j * BOX_BYTES, &map_x, &full[stage], k0 + 64 * j, m0);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
       }
     }
+  } else {
+    setmaxnreg_inc<232>();
+    const int wg = tid >> 7;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t4 = lane & 3;
+    int stage = 0;
+    uint32_t phase = 0;
+    float acc[BK / 2];
+    for (int sg = seg_begin; sg < seg_end; ++sg) {
+      const int* r = recs + sg * REC;
+      const int n0 = r[0] * BN, k0 = r[1] * BK, ns = r[3];
+      const int slab0 = r[4], local = r[5], nseg = r[6], tile = r[7];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) acc[i] = 0.f;
+      fence_regs(acc);
+      int prev = 0;
+      for (int i = 0; i < ns; ++i) {
+        mbar_wait(&full[stage], phase);
+        const unsigned char* a = smem + stage * STAGE_BYTES + wg * BOX_BYTES;
+        const unsigned char* b = smem + stage * STAGE_BYTES + A_BYTES;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BM / 16; ++kk)  // 16 rows of m = 2048 bytes of each operand
+          wgmma_m64n256k16_ss<1, 1>(acc, sw128_desc(a + kk * 2048, BOX_BYTES, 1024),
+                                    sw128_desc(b + kk * 2048, BOX_BYTES, 1024));
+        wgmma_commit();
+        // the previous stage's products are done: give its buffers back
+        wgmma_wait<1>();
+        if (i > 0 && (tid & 127) == 0) mbar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if ((tid & 127) == 0) mbar_arrive(&empty[prev]);
+
+      if (nseg > 1) {
+        // the partial in the accumulators' own order (float4 v of thread t
+        // at v * 256 + t); the segment that arrives last sums all of them
+        float4* slabs = reinterpret_cast<float4*>(ws + static_cast<size_t>(slab0) * TILE_FLOATS);
+#pragma unroll
+        for (int v = 0; v < BK / 8; ++v)
+          slabs[local * (TILE_FLOATS / 4) + v * 256 + tid] =
+              make_float4(acc[4 * v], acc[4 * v + 1], acc[4 * v + 2], acc[4 * v + 3]);
+        __threadfence();
+        named_barrier(1, CONSUMERS * 128);
+        if (tid == 0) *last = atomicAdd(&counters[tile], 1) == nseg - 1;
+        named_barrier(1, CONSUMERS * 128);
+        if (!*last) continue;
+        __threadfence();
+        // in segment order, whichever segment this is: ((0 + p0) + p1) + ...;
+        // each slab's 32 loads of a thread are independent
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) acc[i] = 0.f;
+        for (int q = 0; q < nseg; ++q) {
+#pragma unroll
+          for (int v = 0; v < BK / 8; ++v) {
+            const float4 u = __ldcg(slabs + q * (TILE_FLOATS / 4) + v * 256 + tid);
+            acc[4 * v] += u.x;
+            acc[4 * v + 1] += u.y;
+            acc[4 * v + 2] += u.z;
+            acc[4 * v + 3] += u.w;
+          }
+        }
+      }
+      // this thread's output rows n and n + 8, columns k0 + 8j + 2 t4 (+1)
+      const int n = n0 + wg * 64 + ((tid & 127) >> 5) * 16 + g;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const int k = k0 + 8 * j + 2 * t4;
+        if (k < K) {
+          *reinterpret_cast<float2*>(out + static_cast<size_t>(n) * K + k) =
+              make_float2(acc[4 * j], acc[4 * j + 1]);
+          *reinterpret_cast<float2*>(out + static_cast<size_t>(n + 8) * K + k) =
+              make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+        }
+      }
+    }
+  }
 }
 
+constexpr int CS_THREADS = 256;
 constexpr int CS_COLS = 32;
-constexpr int CS_LANES = THREADS / CS_COLS;
+constexpr int CS_LANES = CS_THREADS / CS_COLS;
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(CS_THREADS)
 colsum_kernel(const float* __restrict__ x, float* __restrict__ out, int R, int C,
               int rows_per_block) {
   __shared__ float part[CS_LANES][CS_COLS];
@@ -159,19 +230,31 @@ colsum_kernel(const float* __restrict__ x, float* __restrict__ out, int R, int C
 
 }  // namespace
 
-// dy: (M, N) bf16; x: (M, K) bf16; out: (splits, N, K) float32, one slab of
-// partial sums per split of the M rows (splits == 1: the result itself).
-// Requires M % 32 == 0, N % 128 == 0, K % 128 == 0 and m_chunk % 32 == 0
-// with splits * m_chunk >= M.
-LTD_API int ltd_weight_grad(const void* dy, const void* x, float* out, int M, int N, int K,
-                            int splits, int m_chunk, void* stream) {
-  if (M % BM || N % BT || K % BT || m_chunk % BM) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err =
+// dy: (M, N) bf16; x: (M, K) bf16; out: (N, K) float32. plan: the int32
+// plan of `blocks` blocks (see weight_grad_kernel) in device memory; ws:
+// float32 workspace of 128 x 256 floats per slab the plan names; counters:
+// one int32 per output tile, zero. Requires N % 128 == 0, K % 128 == 0
+// and 16-byte aligned dy and x (TMA).
+LTD_API int ltd_weight_grad(const void* dy, const void* x, float* out, float* ws, int* counters,
+                            const int* plan, int M, int N, int K, int blocks, void* stream) {
+  if (M < 1 || N % BN || K % 128 || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_dy, map_x;
+  const uint32_t box[2] = {64, BM};
+  const uint64_t ddims[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(M)};
+  const uint64_t dstride[1] = {static_cast<uint64_t>(N) * 2};
+  const uint64_t xdims[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(M)};
+  const uint64_t xstride[1] = {static_cast<uint64_t>(K) * 2};
+  int err = encode_map(&map_dy, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, dy, ddims, dstride, box,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err) return err;
+  err = encode_map(&map_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, xdims, xstride, box,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err) return err;
+  cudaError_t e =
       cudaFuncSetAttribute(weight_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  weight_grad_kernel<<<dim3(K / BT, N / BT, splits), THREADS, SMEM,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(dy), static_cast<const bf16*>(x), out, M, N, K, m_chunk);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  weight_grad_kernel<<<blocks, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
+      map_dy, map_x, plan, out, ws, counters, K);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -180,7 +263,7 @@ LTD_API int ltd_weight_grad(const void* dy, const void* x, float* out, int M, in
 LTD_API int ltd_colsum(const float* x, float* out, int R, int C, int rows_per_block,
                        void* stream) {
   const dim3 grid((C + CS_COLS - 1) / CS_COLS, (R + rows_per_block - 1) / rows_per_block);
-  colsum_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(x, out, R, C,
-                                                                        rows_per_block);
+  colsum_kernel<<<grid, CS_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(x, out, R, C,
+                                                                           rows_per_block);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,213 +4,292 @@
 // transformer_latent_diffusion_tpu/ops/fused_stack.py::_layer_stack_kernel
 // (`_mha` over the fused QKV projection, fused_stack.py:40-56 and :72).
 //
-// What bounds it on the H100: per (batch, head) it reads 3 x 256 x 64 bf16
-// (96 KB) and does 2 x 2 x 256 x 256 x 64 = 16.8 MFLOP, ~170 FLOP per byte:
-// near the card's balance point, so it is bound by how well the loads, the
-// two products and the softmax overlap rather than by either peak.
+// What bounds it on the H100: device memory. Per (batch, head) at N = 256
+// it reads 3 x 256 x 64 bf16 (96 KB) and reads and writes 256 x 64 float32
+// of the residual (128 KB), for 16.8 MFLOP: ~75 FLOP per byte, a quarter of
+// the card's balance point. At batch 64 x 12 heads that is 176 MB, 0.053
+// ms at 3.35 TB/s; the products alone would take 0.013 ms at 989 TFLOP/s.
 //
-// What this design does about that: one block per (batch, head, 64-query
-// tile), four warps of 16 query rows each. `cp.async` brings the head's K
-// and V for all (<= 256) tokens and the tile's Q into shared memory
-// (2 x 36 KB + 9 KB, padded rows so `ldmatrix` is conflict-free), so two
-// blocks fit on an SM. Each warp then works in registers only: S = Q K^T as
-// m16n8k16 bf16 `mma.sync` products with float32 accumulation (the warp's
-// 16 x N score rows stay in registers), the float32 row softmax with quad
-// shuffles for the max and the sum, the probabilities rounded to bf16
-// (exactly where the TPU kernel rounds them, fused_stack.py:54) and reused
-// in registers as the A operand of O = P V (V read with transposing
-// `ldmatrix`), and O added into the float32 residual straight from the
-// accumulators. Each residual element has one writer, so no atomics. At
-// <= 256 tokens the whole score row fits, so no online (flash) rescaling.
+// What this design does about that: every byte crosses device memory once
+// and the copies run behind the products.
+// - A persistent grid (one block per SM) walks the (batch, head) pairs.
+//   One producer warp brings a pair's Q, K and V with TMA
+//   (`cp.async.bulk.tensor`) through a 3-D tensor map over (B, N, 3D), in
+//   64 x 64 boxes, 128-byte swizzled, into a ring of two stages with full
+//   and empty `mbarrier`s: the next pair's copies are in flight while this
+//   one computes, and K and V are read once per (batch, head), not once
+//   per query tile. The map's middle dimension is N, so the rows of a
+//   ragged last tile past N arrive as zeros and never as the next image's
+//   rows.
+// - Two consumer warpgroups (`setmaxnreg` gives them the registers) take
+//   the query tiles of 64 rows in turn (N = 256: two each). S = Q K^T is
+//   `wgmma` m64nNk16 (N = the keys, up to 256) from shared memory, float32
+//   accumulation; the row max and sum are float32 over quad shuffles, with
+//   log2(e) / 8 folded into one scale for `exp2f`, and one division per
+//   row (p = e * (1 / sum): at most one float32 ulp from e / sum before the
+//   bf16 rounding, where the TPU kernel rounds, fused_stack.py:54; the
+//   plain version keeps the division). Keys past N enter as -inf before
+//   the row max. P stays in registers as the A operand of O = P V
+//   (`wgmma` m64n64k16, V the MN-major B operand: its rows of 64 head
+//   columns are K rows of the product).
+// - O is staged in shared memory in the residual map's 128-byte swizzle
+//   and added into the float32 residual by a TMA reduce-add
+//   (`cp.reduce.async.bulk.tensor .add`) over a 3-D map on (B, N, D):
+//   whole lines leave the SM, the residual is never read into it, and rows
+//   past N are clipped. Each element has one writer and one float32 add,
+//   so two runs give bit-equal residuals.
 //
-// Any N <= 256 is taken: the block works on N rounded up to a multiple of
-// 64 (its template), the ragged last tile's K, V and Q rows past N are
-// zero-filled in shared memory and never read from device memory, key
-// columns past N enter the softmax as -inf (before the row max), and query
-// rows past N are not written.
+// Shared memory at N = 256: a stage holds Q, K and V, 3 x 4 boxes of 8 KB
+// (96 KB); two stages are 192 KB, the two warpgroups' O staging 2 x 16 KB,
+// 224 KB in all plus barriers (227 KB is the limit): hence two stages and
+// two consumer warpgroups (the registers allow no third: 2 x 128 threads
+// at 232 registers and a producer warpgroup at 40 fill the SM's 64 K).
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 #include <math.h>
 
 namespace {
 
-constexpr int DH = 64;
-constexpr int LDH = DH + 8;  // bf16 row stride of Q, K, V in shared memory (144 bytes)
-constexpr int QT = 64;       // query rows per block
-constexpr int THREADS = 128;
+constexpr int DH = 64;                    // head dim
+constexpr int TILE = 64;                  // rows of a TMA box and of a query tile
+constexpr int BOX_BYTES = TILE * DH * 2;  // one 64 x 64 bf16 box: 8 KB
+constexpr int OUT_BYTES = TILE * DH * 4;  // one query tile's float32 O: two 64 x 32 boxes
+constexpr int STAGES = 2;
+constexpr int CONSUMERS = 2;  // consumer warpgroups
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+// log2(e) / sqrt(64): exp((s - m) / 8) = exp2(s * C - m * C)
+constexpr float SCALE_LOG2 = 0.18033688011112042f;
 
-inline size_t smem_bytes(int n) {
-  return static_cast<size_t>(2 * n * LDH + QT * LDH) * sizeof(bf16);
+__host__ __device__ constexpr int stage_bytes(int nt) { return 3 * nt * BOX_BYTES; }
+__host__ __device__ constexpr int smem_bytes(int nt) {
+  return STAGES * stage_bytes(nt) + CONSUMERS * OUT_BYTES + 1024 + 2 * STAGES * 8;
 }
 
-// NT = ceil(N / 64) (1..4): the warp's score row has 8 * NT tiles of 8 keys
 template <int NT>
-__global__ void __launch_bounds__(THREADS)
-self_attention_kernel(const bf16* __restrict__ qkv, float* __restrict__ resid, int N, int D) {
-  constexpr int NP = NT * 64;  // N padded to whole tiles
-  constexpr int NK8 = NP / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + NP * LDH;
-  bf16* Qs = Vs + NP * LDH;
+__device__ __forceinline__ void scores(float (&s)[NT * 32], uint64_t da, uint64_t db) {
+  if constexpr (NT == 1) wgmma_m64n64k16_ss<0, 0>(s, da, db);
+  if constexpr (NT == 2) wgmma_m64n128k16_ss<0, 0>(s, da, db);
+  if constexpr (NT == 3) wgmma_m64n192k16_ss<0, 0>(s, da, db);
+  if constexpr (NT == 4) wgmma_m64n256k16_ss<0, 0>(s, da, db);
+}
 
-  const int q0 = blockIdx.x * QT;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+// NT = ceil(N / 64) (1..4): the keys of a pair fill NT boxes
+template <int NT>
+__global__ void __launch_bounds__(THREADS, 1)
+self_attention_kernel(const __grid_constant__ CUtensorMap map_qkv,
+                      const __grid_constant__ CUtensorMap map_res, int n_pairs, int n_heads,
+                      int N, int D) {
+  constexpr int SB = stage_bytes(NT);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * SB + CONSUMERS * OUT_BYTES);
+  uint64_t* empty = full + STAGES;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const size_t row_stride = 3 * static_cast<size_t>(D);
-  const bf16* base = qkv + static_cast<size_t>(b) * N * row_stride + h * DH;
-
-  // K and V of every token, Q of this tile: 8 chunks of 16 bytes per row;
-  // rows past N are zero-filled (src-size 0: nothing is read)
-  for (int c = tid; c < NP * 8; c += THREADS) {
-    const int r = c >> 3, col = (c & 7) * 8;
-    const int ok = r < N ? 16 : 0;
-    const bf16* src = base + (ok ? r : 0) * row_stride + col;
-    cp_async16(&Ks[r * LDH + col], src + D, ok);
-    cp_async16(&Vs[r * LDH + col], src + 2 * D, ok);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    mbar_fence_init();
   }
-  for (int c = tid; c < QT * 8; c += THREADS) {
-    const int r = c >> 3, col = (c & 7) * 8;
-    const int ok = q0 + r < N ? 16 : 0;
-    cp_async16(&Qs[r * LDH + col], base + (ok ? q0 + r : 0) * row_stride + col, ok);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
   __syncthreads();
 
-  const int wr = warp * 16;
-  uint32_t qf[DH / 16][4];
+  if (tid >= CONSUMERS * 128) {
+    // producer warpgroup: one thread issues every copy
+    setmaxnreg_dec<40>();
+    if (tid == CONSUMERS * 128) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int p = blockIdx.x; p < n_pairs; p += gridDim.x) {
+        const int b = p / n_heads, col = (p % n_heads) * DH;
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_arrive_expect_tx(&full[stage], SB);
+        unsigned char* q = smem + stage * SB;
 #pragma unroll
-  for (int kc = 0; kc < DH / 16; ++kc)
-    ldmatrix_x4(qf[kc], &Qs[(wr + (lane & 15)) * LDH + kc * 16 + (lane >> 4) * 8]);
-
-  // S = Q K^T * 1/8: rows g and g+8, keys 8j + 2t, 8j + 2t + 1
-  float s[NK8][4];
-#pragma unroll
-  for (int j = 0; j < NK8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-  for (int j2 = 0; j2 < NK8 / 2; ++j2) {
-#pragma unroll
-    for (int kc = 0; kc < DH / 16; ++kc) {
-      uint32_t kb[4];
-      ldmatrix_x4(kb, &Ks[(j2 * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDH + kc * 16 +
-                          ((lane >> 3) & 1) * 8]);
-      mma_bf16_16816(s[2 * j2], qf[kc], kb[0], kb[1]);
-      mma_bf16_16816(s[2 * j2 + 1], qf[kc], kb[2], kb[3]);
+        for (int t = 0; t < NT; ++t) {
+          tma_load_3d(q + t * BOX_BYTES, &map_qkv, &full[stage], col, t * TILE, b);
+          tma_load_3d(q + (NT + t) * BOX_BYTES, &map_qkv, &full[stage], D + col, t * TILE, b);
+          tma_load_3d(q + (2 * NT + t) * BOX_BYTES, &map_qkv, &full[stage], 2 * D + col,
+                      t * TILE, b);
+        }
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
     }
-  }
+  } else {
+    setmaxnreg_inc<232>();
+    const int wg = tid >> 7;
+    const int wt = tid & 127;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t4 = lane & 3;
+    const int r_lo = (wt >> 5) * 16 + g;  // this thread's rows r_lo and r_lo + 8 of a tile
+    unsigned char* obuf = smem + STAGES * SB + wg * OUT_BYTES;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int p = blockIdx.x; p < n_pairs; p += gridDim.x) {
+      const int b = p / n_heads, col = (p % n_heads) * DH;
+      mbar_wait(&full[stage], phase);
+      const unsigned char* qs = smem + stage * SB;
+      const unsigned char* ks = qs + NT * BOX_BYTES;
+      const unsigned char* vs = qs + 2 * NT * BOX_BYTES;
+      for (int qt = wg; qt < NT; qt += CONSUMERS) {
+        // S = Q K^T: Q (64 x 64) and K (keys x 64) both K-major
+        float s[NT * 32];
+#pragma unroll
+        for (int i = 0; i < NT * 32; ++i) s[i] = 0.f;
+        fence_regs(s);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk)
+          scores<NT>(s, sw128_desc(qs + qt * BOX_BYTES + kk * 32, 16, 1024),
+                     sw128_desc(ks + kk * 32, 16, 1024));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
 
-  // float32 row softmax; the 4 lanes of a quad hold one row; keys past N
-  // are -inf, so they weigh nothing
-  float mx0 = -3.0e38f, mx1 = -3.0e38f;
+        // float32 row softmax; the 4 lanes of a quad hold rows r_lo, r_lo + 8
+        float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-  for (int j = 0; j < NK8; ++j) {
+        for (int j = 0; j < NT * 8; ++j) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      s[j][e] = 8 * j + 2 * t4 + (e & 1) < N ? s[j][e] * 0.125f : -INFINITY;
-    mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-    mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-  }
+          for (int e = 0; e < 4; ++e)
+            if (8 * j + 2 * t4 + (e & 1) >= N) s[4 * j + e] = -INFINITY;
+          mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+          mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+        }
 #pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
-  }
-  float sum0 = 0.f, sum1 = 0.f;
+        for (int o = 1; o <= 2; o <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+        }
+        const float off0 = -mx0 * SCALE_LOG2, off1 = -mx1 * SCALE_LOG2;
+        float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-  for (int j = 0; j < NK8; ++j) {
-    s[j][0] = expf(s[j][0] - mx0);
-    s[j][1] = expf(s[j][1] - mx0);
-    s[j][2] = expf(s[j][2] - mx1);
-    s[j][3] = expf(s[j][3] - mx1);
-    sum0 += s[j][0] + s[j][1];
-    sum1 += s[j][2] + s[j][3];
-  }
+        for (int j = 0; j < NT * 8; ++j) {
+          s[4 * j] = exp2f(fmaf(s[4 * j], SCALE_LOG2, off0));
+          s[4 * j + 1] = exp2f(fmaf(s[4 * j + 1], SCALE_LOG2, off0));
+          s[4 * j + 2] = exp2f(fmaf(s[4 * j + 2], SCALE_LOG2, off1));
+          s[4 * j + 3] = exp2f(fmaf(s[4 * j + 3], SCALE_LOG2, off1));
+          sum0 += s[4 * j] + s[4 * j + 1];
+          sum1 += s[4 * j + 2] + s[4 * j + 3];
+        }
 #pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, o);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, o);
-  }
+        for (int o = 1; o <= 2; o <<= 1) {
+          sum0 += __shfl_xor_sync(0xffffffffu, sum0, o);
+          sum1 += __shfl_xor_sync(0xffffffffu, sum1, o);
+        }
+        const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
 
-  // O = P V: P's accumulator layout is the A-operand layout of the next product
-  float o[DH / 8][4];
+        // P in bf16, in the A-operand layout of m64k16: block kc holds keys
+        // 16 kc .. 16 kc + 15, i.e. accumulator blocks 2 kc and 2 kc + 1
+        uint32_t pa[NT * 4][4];
 #pragma unroll
-  for (int d = 0; d < DH / 8; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
-#pragma unroll
-  for (int kc = 0; kc < NP / 16; ++kc) {
-    uint32_t pa[4];
-    pa[0] = pack_bf16x2(s[2 * kc][0] / sum0, s[2 * kc][1] / sum0);
-    pa[1] = pack_bf16x2(s[2 * kc][2] / sum1, s[2 * kc][3] / sum1);
-    pa[2] = pack_bf16x2(s[2 * kc + 1][0] / sum0, s[2 * kc + 1][1] / sum0);
-    pa[3] = pack_bf16x2(s[2 * kc + 1][2] / sum1, s[2 * kc + 1][3] / sum1);
-#pragma unroll
-    for (int d2 = 0; d2 < DH / 16; ++d2) {
-      uint32_t vb[4];
-      ldmatrix_x4_trans(vb, &Vs[(kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDH + d2 * 16 +
-                                (lane >> 4) * 8]);
-      mma_bf16_16816(o[2 * d2], pa, vb[0], vb[1]);
-      mma_bf16_16816(o[2 * d2 + 1], pa, vb[2], vb[3]);
-    }
-  }
+        for (int kc = 0; kc < NT * 4; ++kc) {
+          const float* s0 = s + 8 * kc;
+          pa[kc][0] = pack_bf16x2(s0[0] * inv0, s0[1] * inv0);
+          pa[kc][1] = pack_bf16x2(s0[2] * inv1, s0[3] * inv1);
+          pa[kc][2] = pack_bf16x2(s0[4] * inv0, s0[5] * inv0);
+          pa[kc][3] = pack_bf16x2(s0[6] * inv1, s0[7] * inv1);
+        }
 
-  // rows past N are neither read nor written
-  const int r0 = q0 + wr + g;
-  float* x0 = resid + (static_cast<size_t>(b) * N + r0) * D + h * DH + 2 * t4;
-  float* x1 = x0 + static_cast<size_t>(8) * D;
+        // O = P V: V (keys x 64) is the MN-major B operand
+        float o[32];
 #pragma unroll
-  for (int d = 0; d < DH / 8; ++d) {
-    if (r0 < N) {
-      float2* p0 = reinterpret_cast<float2*>(x0 + d * 8);
-      float2 a = *p0;
-      a.x += o[d][0];
-      a.y += o[d][1];
-      *p0 = a;
+        for (int i = 0; i < 32; ++i) o[i] = 0.f;
+        fence_regs(o);
+        wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < NT * 4; ++kc)
+          wgmma_m64n64k16_rs<1>(o, pa[kc], sw128_desc(vs + kc * 2048, BOX_BYTES, 1024));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+#pragma unroll
+        for (int kc = 0; kc < NT * 4; ++kc) fence_regs(pa[kc]);
+
+        // stage O as two 64 x 32 float32 boxes in the residual map's
+        // 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8)),
+        // once the previous tile's reduce has read the buffer
+        if (wt == 0) bulk_wait_read();
+        named_barrier(1 + wg, 128);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int cc = 8 * (j & 3) + 2 * t4;  // column within the 32-wide box
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = r_lo + 8 * h;
+            const int off =
+                (j >> 2) * (OUT_BYTES / 2) + r * 128 + (((cc >> 2) ^ (r & 7)) << 4) + (cc & 3) * 4;
+            *reinterpret_cast<float2*>(obuf + off) = make_float2(o[4 * j + 2 * h], o[4 * j + 2 * h + 1]);
+          }
+        }
+        fence_proxy_async();
+        named_barrier(1 + wg, 128);
+        if (wt == 0) {
+          tma_reduce_add_3d(&map_res, obuf, col, qt * TILE, b);
+          tma_reduce_add_3d(&map_res, obuf + OUT_BYTES / 2, col + 32, qt * TILE, b);
+          bulk_commit();
+        }
+      }
+      // every wgmma that read this stage has completed
+      if (wt == 0) mbar_arrive(&empty[stage]);
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
     }
-    if (r0 + 8 < N) {
-      float2* p1 = reinterpret_cast<float2*>(x1 + d * 8);
-      float2 c = *p1;
-      c.x += o[d][2];
-      c.y += o[d][3];
-      *p1 = c;
-    }
+    if (wt == 0) bulk_wait();
   }
 }
 
 template <int NT>
-int launch(const bf16* qkv, float* resid, int B, int N, int D, int n_heads, cudaStream_t s) {
-  const size_t smem = smem_bytes(NT * 64);
-  cudaError_t err = cudaFuncSetAttribute(
-      self_attention_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(NT * 64 / QT, n_heads, B);
-  self_attention_kernel<NT><<<grid, THREADS, smem, s>>>(qkv, resid, N, D);
+int launch(const void* qkv, float* resid, int B, int N, int D, int n_heads, cudaStream_t s) {
+  CUtensorMap map_qkv, map_res;
+  const uint64_t qdims[3] = {static_cast<uint64_t>(3 * D), static_cast<uint64_t>(N),
+                             static_cast<uint64_t>(B)};
+  const uint64_t qstrides[2] = {static_cast<uint64_t>(3 * D) * 2,
+                                static_cast<uint64_t>(N) * 3 * D * 2};
+  const uint32_t qbox[3] = {DH, TILE, 1};
+  const uint64_t rdims[3] = {static_cast<uint64_t>(D), static_cast<uint64_t>(N),
+                             static_cast<uint64_t>(B)};
+  const uint64_t rstrides[2] = {static_cast<uint64_t>(D) * 4, static_cast<uint64_t>(N) * D * 4};
+  const uint32_t rbox[3] = {32, TILE, 1};
+  int err = encode_map(&map_qkv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, qkv, qdims, qstrides, qbox,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err) return err;
+  err = encode_map(&map_res, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, resid, rdims, rstrides, rbox,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err) return err;
+  const int smem = smem_bytes(NT);
+  cudaError_t e = cudaFuncSetAttribute(self_attention_kernel<NT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int pairs = B * n_heads;
+  self_attention_kernel<NT><<<pairs < sms ? pairs : sms, THREADS, smem, s>>>(map_qkv, map_res,
+                                                                             pairs, n_heads, N, D);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // qkv: (B*N, 3D) bf16, rows [q | k | v], head h at columns h*64 of each.
-// resid: (B*N, D) float32, updated in place. Requires D == n_heads * 64 and
-// 1 <= N <= 256.
+// resid: (B*N, D) float32, updated in place. Requires D == n_heads * 64,
+// 1 <= N <= 256, both 16-byte aligned (TMA).
 LTD_API int ltd_self_attention(const void* qkv, float* resid, int B, int N, int D,
                                int n_heads, void* stream) {
-  const bf16* q = static_cast<const bf16*>(qkv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N < 1 || N > 256) return static_cast<int>(cudaErrorInvalidValue);
-  switch ((N + 63) / 64) {
-    case 1: return launch<1>(q, resid, B, N, D, n_heads, s);
-    case 2: return launch<2>(q, resid, B, N, D, n_heads, s);
-    case 3: return launch<3>(q, resid, B, N, D, n_heads, s);
-    default: return launch<4>(q, resid, B, N, D, n_heads, s);
+  if (N < 1 || N > 256 || D != n_heads * DH) return static_cast<int>(cudaErrorInvalidValue);
+  switch ((N + TILE - 1) / TILE) {
+    case 1: return launch<1>(qkv, resid, B, N, D, n_heads, s);
+    case 2: return launch<2>(qkv, resid, B, N, D, n_heads, s);
+    case 3: return launch<3>(qkv, resid, B, N, D, n_heads, s);
+    default: return launch<4>(qkv, resid, B, N, D, n_heads, s);
   }
 }

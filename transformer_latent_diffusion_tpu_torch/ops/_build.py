@@ -2,7 +2,9 @@
 
 `nvcc` compiles every source in `csrc/` for Hopper (`sm_90a`), one
 process per source, all started together, and links the objects into one
-shared library with a plain C interface, which is loaded with `ctypes`.
+shared library with a plain C interface, linked against the CUDA driver
+library (`-lcuda`, for the TMA kernels' tensor maps), which is loaded with
+`ctypes`.
 The library goes to `build/kernels/<hash>/` at the repository root (listed
 in `.gitignore`), keyed by a hash of the sources and the compiler flags,
 so an edit to a kernel rebuilds it and an unchanged tree reuses the last
@@ -23,6 +25,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the link step: the driver library gives cuTensorMapEncodeTiled, with
+# which the TMA kernels encode their tensor maps
+LINK_FLAGS = ("-lcuda",)
 LIB_NAME = "libltd_kernels.so"
 
 _P = ctypes.c_void_p
@@ -33,7 +38,7 @@ SIGNATURES = {
     "ltd_self_attention": (_P, _P, _I, _I, _I, _I, _P),
     "ltd_cross_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "ltd_dwconv_gelu": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "ltd_weight_grad": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "ltd_weight_grad": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ltd_colsum": (_P, _P, _I, _I, _I, _P),
     "ltd_layernorm_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "ltd_dwconv_gelu_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -68,7 +73,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -98,7 +103,8 @@ def build() -> Path:
         failed |= proc.returncode != 0
     if not failed:
         tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs),
+               *LINK_FLAGS]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         log.append(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
         failed = proc.returncode != 0

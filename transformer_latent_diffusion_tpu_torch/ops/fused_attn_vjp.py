@@ -35,8 +35,9 @@ stage:
             weight_grad          dWqkv = dqkv^T xn1
             ln_gemm              dxn1 = dqkv Wqkv
             layernorm_bwd        dx = dx1 + LN1's backward, dLN1
-            (weight_grad's split-M partials and layernorm_bwd's row-block
-            partials are summed by `colsum`: deterministic, no atomics)
+            (weight_grad sums its split-M partials itself and
+            layernorm_bwd's row-block partials are summed by `colsum`:
+            deterministic, no atomics)
 
 Rounding points are the TPU kernel's: qkv, qc and kv rounded to the
 weights' dtype after float32 accumulation; the softmax in float32 with p
@@ -80,7 +81,7 @@ KERNELS = ("fused_attention_pair_vjp", "fused_attention_pair_vjp_bwd")
 # fused_stack.LAUNCHES, the backward's under those (the recompute) and
 # "ln_gemm" (3 more) there, and under "cross_attention_bwd",
 # "weight_grad" (3), "layernorm_bwd" (2), "self_attention_bwd" (2) and
-# "colsum" (the partial sums of weight_grad and layernorm_bwd) in
+# "colsum" (layernorm_bwd's partial sums) in
 # fused_layer_vjp.LAUNCHES
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -22,8 +22,8 @@ order, so here:
   what it reads (the bf16 rows xn1, xn2, xn3, qkv, qc, kv, a and the
   float32 x1, x2, h, c; one layer's at a time, as the TPU kernel's
   recompute), and then runs in reverse through the kernels of `csrc/`:
-  `weight_grad` (dW = dY^T X, deterministic split-M partials), `colsum`
-  (the bias and LayerNorm sums and the partials' second pass),
+  `weight_grad` (dW = dY^T X, split over M with deterministic partial
+  sums inside the kernel), `colsum` (the bias and LayerNorm sums),
   `layernorm_bwd`, `dwconv_gelu_bwd`, `self_attention_bwd` and
   `cross_attention_bwd`; the input-gradient products dX = dY W run in
   `ln_gemm`'s streaming body with W^T as its (out, in) operand.
@@ -60,8 +60,10 @@ shifts and biases as vectors.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, List, Sequence
+from dataclasses import dataclass
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -463,39 +465,144 @@ def colsum(x):
         x = out
 
 
+# weight_grad's output tile (rows n, columns k) and the rows of M per stage
+WG_TILE = (128, 256)
+WG_STAGE_ROWS = 64
+# ints per record of a plan's table (csrc/gemm_bwd.cu)
+WG_RECORD = 8
+# below this many stages per SM, weight_grad runs whole tiles
+WG_MIN_STAGES = 16
+
+
+@dataclass(frozen=True)
+class WeightGradPlan:
+    """How `weight_grad`'s persistent grid covers dW = dY^T X.
+
+    The output is cut into `tiles` tiles of WG_TILE (`tile_cols` per
+    row of tiles), the M rows into `depth` stages of WG_STAGE_ROWS, the
+    last one masked by the tensor map where M is ragged, and each tile's
+    stages into `splits` contiguous M-splits. `segments[p]` are the pieces
+    that block p of `blocks` runs, in order, each a record (tile row, tile
+    column, first stage, stages, first slab of the tile or -1, index among
+    the tile's segments, the tile's segments, tile): a tile of several
+    segments sums their float32 partials, `slabs` of them in all, in
+    segment (M) order."""
+    tile_cols: int
+    tiles: int
+    depth: int
+    splits: int
+    blocks: int
+    segments: Tuple[Tuple[Tuple[int, ...], ...], ...]
+    slabs: int
+
+    def table(self) -> List[int]:
+        """The int32 table the kernel reads: blocks + 1 offsets into the
+        records, then the records."""
+        offsets, recs = [0], []
+        for block in self.segments:
+            offsets.append(offsets[-1] + len(block))
+            for rec in block:
+                recs.extend(rec)
+        return offsets + recs
+
+
+@functools.lru_cache(maxsize=64)
+def weight_grad_plan(m: int, n: int, k: int, sms: int) -> WeightGradPlan:
+    """The work plan of `weight_grad` for dY (m, n) and X (m, k) on `sms`
+    SMs (pure: no device is touched).
+
+    With fewer than WG_MIN_STAGES stages per SM (the cond rows' M = 16 or
+    256) a split tile's float32 partials would cost more than they save:
+    whole tiles are dealt round-robin, one block per tile up to one per
+    SM, so the blocks' stages differ by at most one tile's depth. Beyond,
+    the stages are dealt stream-K fashion: every SM gets the same number
+    of 64-row stages to within one (no tail wave). The tiles are then cut
+    into at most two M-splits (more were slower on an H100: more
+    segments, more partials), and each SM runs its pieces in the order of
+    their offset in their split, so that the SMs running at once read the
+    same rows of dY and X from L2."""
+    if m < 1 or n % WG_TILE[0] or k % 128 or sms < 1:
+        raise ValueError(f"weight_grad_plan: needs M >= 1, N % 128 == 0 and K % 128 "
+                         f"== 0, got {m}, {n}, {k} on {sms} SMs")
+    tile_cols = -(-k // WG_TILE[1])
+    tiles = (n // WG_TILE[0]) * tile_cols
+    depth = -(-m // WG_STAGE_ROWS)
+    total = tiles * depth
+    # (tile, first stage, stages, offset in its split) per block
+    if total < WG_MIN_STAGES * sms:
+        splits, blocks = 1, min(sms, tiles)
+        pieces = [[(t, 0, depth, 0) for t in range(p, tiles, blocks)] for p in range(blocks)]
+    else:
+        splits, blocks = min(2, depth, -(-sms // tiles)), sms
+        bounds = [j * depth // splits for j in range(splits + 1)]
+        cuts = [p * total // blocks for p in range(blocks + 1)]
+        pieces = [[] for _ in range(blocks)]
+        pos, p = 0, 0
+        for j in range(splits):
+            for t in range(tiles):
+                lo, hi = bounds[j], bounds[j + 1]
+                while lo < hi:
+                    while cuts[p + 1] <= pos:
+                        p += 1
+                    take = min(hi - lo, cuts[p + 1] - pos)
+                    pieces[p].append((t, lo, take, lo - bounds[j]))
+                    lo += take
+                    pos += take
+    by_tile: Dict[int, List[int]] = {}
+    for block in pieces:
+        for t, lo, _, _ in block:
+            by_tile.setdefault(t, []).append(lo)
+    slab0, slabs = {}, 0
+    for t in range(tiles):
+        by_tile[t].sort()
+        if len(by_tile[t]) > 1:
+            slab0[t] = slabs
+            slabs += len(by_tile[t])
+    segments = tuple(
+        tuple((t // tile_cols, t % tile_cols, lo, cnt, slab0.get(t, -1),
+               by_tile[t].index(lo), len(by_tile[t]), t)
+              for t, lo, cnt, _ in sorted(block, key=lambda piece: piece[3]))
+        for block in pieces)
+    return WeightGradPlan(tile_cols, tiles, depth, splits, blocks, segments, slabs)
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_on(m: int, n: int, k: int, dev: torch.device):
+    """`weight_grad_plan` for `dev`'s SMs, and its int32 table on `dev`
+    (copied there once per shape)."""
+    plan = weight_grad_plan(m, n, k, torch.cuda.get_device_properties(dev).multi_processor_count)
+    return plan, torch.tensor(plan.table(), dtype=torch.int32, device=dev)
+
+
 def weight_grad(dy, x):
-    """Kernel wrapper of `weight_grad_plain`; on CUDA dy and x are bf16
-    with N % 128 == 0 and K % 128 == 0 (M is padded to a multiple of 32
-    with zero rows)."""
+    """Kernel wrapper of `weight_grad_plain`; on CUDA dy and x are
+    contiguous bf16 with N % 128 == 0 and K % 128 == 0, any M. One launch:
+    the partial sums of a tile cut over several SMs are combined by the
+    kernel itself, in a fixed order (`weight_grad_plan`)."""
     if dy.device.type == "cpu":
         return weight_grad_plain(dy, x)
     dev = _on_cuda("weight_grad", dy, x)
     m, n = dy.shape
     k = x.shape[1]
     _require(dy.dtype == torch.bfloat16 and x.dtype == torch.bfloat16
-             and x.shape[0] == m,
+             and x.shape[0] == m and m > 0,
              "weight_grad: dy (M, N) and x (M, K) bf16")
     _require(n % 128 == 0 and k % 128 == 0,
              f"weight_grad: needs N % 128 == 0 and K % 128 == 0, got {n}, {k}")
-    if m % 32:
-        dy = F.pad(dy, (0, 0, 0, 32 - m % 32))
-        x = F.pad(x, (0, 0, 0, 32 - m % 32))
-        m = dy.shape[0]
-    # split the M rows until the output tiles fill about two waves
-    tiles = (n // 128) * (k // 128)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = max(1, min(8, -(-2 * sms // tiles), m // 32))
-    chunk = -(-m // splits // 32) * 32
-    splits = -(-m // chunk)
-    out = torch.empty((splits, n, k), dtype=torch.float32, device=dev)
+    _require(fs.tma_operand(dy) and fs.tma_operand(x),
+             "weight_grad: dy and x must be contiguous and 16-byte aligned")
+    plan, table = _plan_on(m, n, k, dev)
+    out = torch.empty((n, k), dtype=torch.float32, device=dev)
+    ws = torch.empty((max(plan.slabs, 1), WG_TILE[0] * WG_TILE[1]),
+                     dtype=torch.float32, device=dev)
+    counters = torch.zeros(plan.tiles, dtype=torch.int32, device=dev)
     lib = load_library()
     _count("weight_grad")
-    _check_launch(lib.ltd_weight_grad(_ptr(dy), _ptr(x), _ptr(out), m, n, k,
-                                      splits, chunk, _stream(dev)),
+    _check_launch(lib.ltd_weight_grad(_ptr(dy), _ptr(x), _ptr(out), _ptr(ws),
+                                      _ptr(counters), _ptr(table), m, n, k,
+                                      plan.blocks, _stream(dev)),
                   "weight_grad")
-    if splits == 1:
-        return out[0]
-    return colsum(out.reshape(splits, n * k)).reshape(n, k)
+    return out
 
 
 def layernorm_bwd(dy, x, scale, upstream):

@@ -216,6 +216,12 @@ def _stream(dev: torch.device):
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
+def tma_operand(t: torch.Tensor) -> bool:
+    """Whether a TMA tensor map can address `t` as stored: contiguous and
+    16-byte aligned."""
+    return t.is_contiguous() and t.data_ptr() % 16 == 0
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return ctypes.c_void_p(t.data_ptr()) if t is not None else None
 
@@ -274,8 +280,9 @@ def ln_gemm(a, w, bias=None, ln=None, residual=None, out_dtype=None,
 
 def self_attention(qkv, residual, n_heads: int, n_tokens: int):
     """Kernel wrapper of `self_attention_plain`; updates `residual` in place
-    on CUDA. Needs head dim 64 and N <= 256 (a ragged last 64-token tile
-    is masked in the kernel)."""
+    on CUDA. Needs head dim 64, N <= 256 (a ragged last 64-token tile is
+    masked in the kernel) and contiguous, 16-byte aligned qkv and
+    residual (the kernel's TMA tensor maps)."""
     if qkv.device.type == "cpu":
         return self_attention_plain(qkv, residual, n_heads, n_tokens)
     dev = _on_cuda("self_attention", qkv, residual)
@@ -287,6 +294,8 @@ def self_attention(qkv, residual, n_heads: int, n_tokens: int):
              "self_attention: needs head dim 64 and residual (B*N, D)")
     _require(0 < n_tokens <= 256 and m % n_tokens == 0,
              f"self_attention: needs N <= 256 and (B*N) rows, got N={n_tokens}")
+    _require(tma_operand(qkv) and tma_operand(residual),
+             "self_attention: qkv and residual must be contiguous and 16-byte aligned")
     lib = load_library()
     LAUNCHES["self_attention"] += 1
     err = lib.ltd_self_attention(_ptr(qkv), _ptr(residual), m // n_tokens,
