@@ -233,6 +233,9 @@ def phase_build():
     for line in (path.parent / "build.log").read_text().splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
+        elif "Performance Loss" in line:  # names its function itself
+            log(f"[build]   {line.split('function', 1)[-1].strip()}: "
+                f"{line.split(':', 1)[1].split(' in the function')[0].strip()}")
         elif "registers" in line:
             log(f"[build]   {name}: {line.split(':', 1)[1].strip()}")
         elif "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
@@ -306,11 +309,28 @@ def phase_kernels():
              "kv": lambda: fs.ln_gemm(cond, wkv),
              "expand": lambda: fs.ln_gemm(xn, w1, bias=b1),
              "contract": lambda: fs.ln_gemm(act, w2, bias=b2, residual=xr)}
+    F = torch.nn.functional
+    bf = torch.bfloat16
+    xb = x.to(bf)
+    linear = {"qkv": lambda: F.linear(xb, wqkv), "q": lambda: F.linear(xb, wq),
+              "kv": lambda: F.linear(cond, wkv), "expand": lambda: F.linear(xn, w1, b1.to(bf)),
+              "contract": lambda: F.linear(act, w2, b2.to(bf))}
     for name, fn in alone.items():
         ms = time_ms(fn)
+        lin = time_ms(linear[name])
         mm, nn, kk = flops[name]
         log(f"[kernels] ln_gemm/{name} ({mm}x{nn}x{kk}): {ms:.4f} ms, "
-            f"{2 * mm * nn * kk / ms / 1e9:.1f} TFLOP/s")
+            f"{2 * mm * nn * kk / ms / 1e9:.1f} TFLOP/s; F.linear {lin:.4f} ms")
+    # one writer per output element: two launches of each product bit-equal
+    for name, fn in alone.items():
+        twice = ([fs.ln_gemm(act, w2, bias=b2, residual=x.clone()) for _ in range(2)]
+                 if name == "contract" else [fn(), fn()])
+        if not torch.equal(*twice):
+            raise AssertionError(f"ln_gemm/{name}: two launches on the same inputs differ")
+    del twice
+    log(f"[kernels] ln_gemm: two launches bit-equal for all five products; host time per "
+        f"call {host_ms(alone['qkv']):.4f} ms (LayerNorm), "
+        f"{host_ms(alone['expand']):.4f} ms (streaming)")
     layer_gemm = lambda: (fs.ln_gemm(x, wqkv, ln=ln), fs.ln_gemm(x, wq, ln=ln),  # noqa: E731
                           fs.ln_gemm(cond, wkv), fs.ln_gemm(xn, w1, bias=b1),
                           fs.ln_gemm(act, w2, bias=b2, residual=xr))
@@ -385,9 +405,6 @@ def phase_kernels():
 
     # one PyTorch call per launch for the same products / attention (the
     # fused LayerNorm prologues and residual epilogues not included)
-    F = torch.nn.functional
-    bf = torch.bfloat16
-    xb = x.to(bf)
     heads = qkv.reshape(B, N, 3, HEADS, 64).permute(2, 0, 3, 1, 4).contiguous()
     qh = qc.reshape(B, N, HEADS, 64).transpose(1, 2).contiguous()
     kvh = kv.reshape(B, 2, 2, HEADS, 64).permute(2, 0, 3, 1, 4).contiguous()
@@ -407,6 +424,26 @@ def phase_kernels():
     eq = time_ms(lambda: xv.add_(F.scaled_dot_product_attention(
         heads[0], heads[1], heads[2]).transpose(1, 2)))
     library["self_attention (equal work)"] = eq
+    # the same work as the five products: F.layer_norm + F.linear for qkv
+    # and q (the bf16 rounding of the normalised rows between them),
+    # F.linear for kv and expand, and contract's F.linear output added into
+    # the float32 residual in place (torch.addmm takes one dtype for all
+    # three operands, so it cannot add bf16 products into float32)
+    def equal_work():
+        for w_ in (wqkv, wq):
+            F.linear(F.layer_norm(x, (D,), ln[0], ln[1], 1e-5).to(bf), w_)
+        F.linear(cond, wkv)
+        F.linear(xn, w1, b1.to(bf))
+        xr.add_(F.linear(act, w2, b2.to(bf)))
+
+    eq_gemm = time_ms(equal_work)
+    library["ln_gemm (equal work)"] = eq_gemm
+    ms = timing["ln_gemm"][0]
+    log(f"[kernels] ln_gemm: {ms:.4f} ms for the five products; equal-work yardstick "
+        f"(F.layer_norm + F.linear, F.linear, the add into the float32 residual) "
+        f"{eq_gemm:.4f} ms: the kernel is "
+        f"{'no slower' if ms <= eq_gemm else f'{ms / eq_gemm:.2f}x slower'}; F.linear alone "
+        f"{library['ln_gemm']:.4f} ms")
     ms = timing["self_attention"][0]
     log(f"[kernels] self_attention: {ms:.4f} ms; equal-work yardstick (SDPA + the add into "
         f"the float32 residual) {eq:.4f} ms: the kernel is "
@@ -885,6 +922,18 @@ def phase_hires_kernels():
             log(f"[hires-kernels] flash_attention B={b} N={n}: {ms:.4f} ms, "
                 f"{4 * b * HEADS * n * n * 64 / ms / 1e9:.1f} TFLOP/s; SDPA "
                 f"{sdpa:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]})")
+            # one writer per output element: two launches bit-equal; K3 is
+            # S3's exp2,postdiv form of the same body
+            first, second = kern(), kern()
+            form = att.flash_attention_variant(q, k, v, HEADS, use_exp2=True, postdiv=True)
+            if not (torch.equal(first, second) and torch.equal(first, form)):
+                raise AssertionError(f"flash_attention B={b} N={n}: two launches, or K3 and "
+                                     f"its exp2,postdiv form, differ")
+            del first, second, form
+            log(f"[hires-kernels] flash_attention B={b} N={n}: two launches bit-equal, and "
+                f"bit-equal to flash_attention_variant(exp2, postdiv); host time per call "
+                f"{host_ms(kern, reps=20):.4f} ms; {'no slower than' if ms <= sdpa else f'{ms / sdpa:.2f}x'} "
+                f"SDPA")
             if n == HR_N:  # the 512 px main path's shape
                 timing["flash_attention"] = t[f"flash_attention B={b} N={n}"]
                 library["flash_attention"] = sdpa
@@ -924,10 +973,17 @@ def phase_hires_kernels():
             "dwconv_gelu row bands": bound(m * HIDDEN * 6, 26 * m * HIDDEN, F32_FLOP_S),
             "ln_gemm contract": bound(m * HIDDEN * 2 + HIDDEN * D * 2 + m * D * 2,
                                       2 * m * D * HIDDEN, BF16_TENSOR_FLOP_S)}
+        # the two products against one F.linear on the same operands (bf16 out)
+        part_linear = {"ln_gemm expand (float32 h)": lambda: F.linear(x2, w1, b1.to(bf)),
+                       "ln_gemm contract": lambda: F.linear(a, w2, b2.to(bf))}
         for name, fn in parts.items():
             ms = time_ms(fn)
+            extra = ""
+            if name in part_linear:
+                extra = (f", {2 * m * D * HIDDEN / ms / 1e9:.1f} TFLOP/s; F.linear "
+                         f"{time_ms(part_linear[name]):.4f} ms")
             log(f"[hires-kernels] K5 part {name}: {ms:.4f} ms, bound "
-                f"{part_bounds[name][0]:.4f} ms ({part_bounds[name][1]})")
+                f"{part_bounds[name][0]:.4f} ms ({part_bounds[name][1]}){extra}")
         del x, x2, h, a
     torch.cuda.synchronize()
     log(f"[hires-kernels] bounds (ms): { {k: round(v[0], 4) for k, v in bounds.items()} }")
@@ -1170,7 +1226,7 @@ def phase_train_kernels():
     dwb = randn(HIDDEN, std=0.1)
     b1 = randn(HIDDEN, std=0.1)
     w1 = randn(HIDDEN, D, std=D ** -0.5, dtype=bf)
-    w2t = randn(HIDDEN, D, std=HIDDEN ** -0.5, dtype=bf)  # W2^T, the (out, in) operand of dX
+    w2 = randn(D, HIDDEN, std=HIDDEN ** -0.5, dtype=bf)  # W2 as stored: dX reads it MN-major
     scale = 1.0 + randn(D, std=0.1)
 
     wg_cases = [(glp, a), (dhid, xn), (glp, xn), (dkv, cond), (dqkv, xn)]
@@ -1219,9 +1275,17 @@ def phase_train_kernels():
            (fs.ln_gemm(xn, w1, bias=b1, out_dtype=torch.float32),),
            (fs.ln_gemm_plain(xn, w1, bias=b1, out_dtype=torch.float32),), "train-kernels")
     _check("ln_gemm/dX = dY W float32 out",
-           (fs.ln_gemm(glp, w2t, out_dtype=torch.float32),),
-           (fs.ln_gemm_plain(glp, w2t, out_dtype=torch.float32),),
+           (fs.ln_gemm(glp, w2, out_dtype=torch.float32, w_transposed=True),),
+           (fs.ln_gemm_plain(glp, w2, out_dtype=torch.float32, w_transposed=True),),
            "train-kernels")
+    dx_twice = [fs.ln_gemm(glp, w2, out_dtype=torch.float32, w_transposed=True)
+                for _ in range(2)]
+    if not torch.equal(*dx_twice):
+        raise AssertionError("ln_gemm/dX: two launches on the same inputs differ")
+    del dx_twice
+    log(f"[train-kernels] ln_gemm/dX (W as stored, w_transposed): two launches bit-equal; "
+        f"{time_ms(lambda: fs.ln_gemm(glp, w2, out_dtype=torch.float32, w_transposed=True)):.4f}"
+        f" ms, F.linear(dY, W^T) {time_ms(lambda: torch.nn.functional.linear(glp, w2.t())):.4f} ms")
     ln = (scale, randn(D, std=0.1))
     _check("ln_gemm/LN rows out", fs.ln_gemm(x, w1[:D].contiguous(), ln=ln, return_xn=True),
            fs.ln_gemm_plain(x, w1[:D].contiguous(), ln=ln, return_xn=True), "train-kernels")
@@ -2555,7 +2619,7 @@ def phase_s3():
                       lambda e2=e2, pd=pd: s3.attn_plain(q, k, v, e2, pd), bnd, sdpa)
     rows = _check_rows("s3", cases)
     outs = {tag: r["out"].float() for tag, r in res["variants"].items()}
-    k3 = outs["exp,postdiv (K3)"]
+    k3 = outs["exp2,postdiv (K3)"]
     r, a, rel_a = _errors(outs["exp,prediv"], k3)
     log(f"[s3] prediv (the TPU K3's rounding) against K3's postdiv form: rel-L2 {r:.2e}, "
         f"max-abs {a:.3e} ({rel_a:.2e} of max |K3|)")

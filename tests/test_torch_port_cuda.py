@@ -615,3 +615,129 @@ def test_weight_grad_is_bit_equal_across_launches(m, n, k):
     second = lv.weight_grad(dy, x)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+# ------------------- ln_gemm and flash_attention on TMA + wgmma -------------------
+
+LN_GEMM_M = [1, 4, 127, 129, 16384]
+# K = 96 leaves half of the second 64-wide K box past K (zero-filled)
+LN_GEMM_CASES = [(m, k, n, ln) for m in LN_GEMM_M for k in (96, 768, 3072)
+                 for n in (128, 2304) for ln in (False, True) if not (ln and k > 768)]
+
+
+def _gemm_inputs(m, k, n, ln, seed=0):
+    """a (float32 with `ln`, else bf16), w (N, K) bf16, bias, LayerNorm."""
+    gen = torch.Generator().manual_seed(seed + m + 7 * k + 13 * n)
+
+    def r(*s, std=1.0, base=0.0):
+        return base + torch.randn(*s, generator=gen) * std
+
+    a = r(m, k, base=0.5).to("cuda", torch.float32 if ln else torch.bfloat16)
+    w = r(n, k, std=k ** -0.5).to("cuda", torch.bfloat16)
+    lnp = (r(k, std=0.1, base=1.0).cuda(), r(k, std=0.1).cuda()) if ln else None
+    return a, w, r(n, std=0.1).cuda(), lnp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,ln", LN_GEMM_CASES)
+def test_ln_gemm_shapes_match_plain_on_card(m, k, n, ln):
+    """ln_gemm's one body at M in {1, 4, 127, 129, 16384} (ragged row
+    blocks), K in {96, 768, 3072} and N in {128, 2304}, with the LayerNorm
+    prologue (K <= 768) and streaming: against its plain version (rel-L2
+    < 1e-2, max-abs < 2e-2 of the scale), two launches bit-equal."""
+    _need_card()
+    a, w, _, lnp = _gemm_inputs(m, k, n, ln)
+    want = fs.ln_gemm_plain(a, w, ln=lnp)
+    before = fs.LAUNCHES["ln_gemm"]
+    got = fs.ln_gemm(a, w, ln=lnp)
+    again = fs.ln_gemm(a, w, ln=lnp)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["ln_gemm"] == before + 2
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    assert _close(got.float(), want.float())
+    assert torch.equal(got, again)
+
+
+LN_GEMM_MODES = ["ln_xn", "bias", "f32", "residual", "w_transposed", "w_transposed_ln_f32"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", LN_GEMM_MODES)
+def test_ln_gemm_modes_match_plain_on_card(mode):
+    """ln_gemm's epilogue and operand modes at M = 1000 (a ragged last row
+    block), K = 768, N = 384: the LayerNorm rows out, bias, float32 out,
+    the float32 residual update, and W given as (K, N) (`w_transposed`,
+    the backward's dX products); each against its plain version, two
+    launches bit-equal (the residual: from the same starting values)."""
+    _need_card()
+    m, k, n = 1000, 768, 384
+    ln = mode in ("ln_xn", "w_transposed_ln_f32")
+    a, w, bias, lnp = _gemm_inputs(m, k, n, ln, seed=3)
+    kw = {"ln": lnp}
+    if mode == "ln_xn":
+        kw["return_xn"] = True
+    if mode == "bias":
+        kw["bias"] = bias
+    if mode in ("f32", "w_transposed_ln_f32"):
+        kw["out_dtype"] = torch.float32
+    if mode.startswith("w_transposed"):
+        w = w.T.contiguous()
+        kw["w_transposed"] = True
+    res = torch.randn(m, n, device="cuda") if mode == "residual" else None
+
+    def run(fn):
+        if res is not None:
+            return (fn(a, w, bias=bias, residual=res.clone()) - res,)
+        return _tuple(fn(a, w, **kw))
+
+    want, got, again = run(fs.ln_gemm_plain), run(fs.ln_gemm), run(fs.ln_gemm)
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for u, v in zip(got, want):
+        assert u.shape == v.shape and u.dtype == v.dtype
+        assert _close(u.float(), v.float())
+    for u, v in zip(got, again):
+        assert torch.equal(u, v)
+
+
+FLASH_SHAPES = [(8, 8), (65, 65), (1000, 1000), (4096, 4096), (65, 1000), (1000, 8),
+                (4096, 65)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,nk", FLASH_SHAPES)
+def test_flash_attention_shapes_and_lse_on_card(nq, nk):
+    """K3 at N in {8, 65, 1000, 4096} and with Nq != Nk (ragged query and
+    key tiles): the output against attention_plain (rel-L2 < 1e-2, max-abs
+    < 2e-2 of the scale), each row's log-sum-exp against the plain
+    logsumexp of q k^T / 8 (max-abs < 1e-3: float32 sums of the same
+    terms), and two launches bit-equal."""
+    _need_card()
+    gen = torch.Generator().manual_seed(nq + 3 * nk)
+    b, heads, d = 2, 2, 128
+    q = torch.randn(b, nq, d, generator=gen).to("cuda", torch.bfloat16)
+    kv = torch.randn(b, nk, 2 * d, generator=gen).to("cuda", torch.bfloat16)
+    k, v = kv.chunk(2, dim=-1)  # strided row views
+    out, lse = att._flash_forward(q, k, v, heads, with_lse=True)
+    again, lse2 = att._flash_forward(q, k, v, heads, with_lse=True)
+    want = att._mha_plain(q, k, v, heads)
+    qh, kh = att._heads(q, heads).float(), att._heads(k, heads).float()
+    lse_want = torch.logsumexp(qh @ kh.transpose(-1, -2) / 8.0, dim=-1)
+    torch.cuda.synchronize()
+    assert _close(out.float(), want.float())
+    assert float((lse - lse_want).abs().max()) < 1e-3
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_is_the_exp2_postdiv_form_on_card():
+    """K3 is the probe's exp2,postdiv form of the same kernel body: the
+    two entry points give bit-equal outputs."""
+    _need_card()
+    qkv = torch.randn(2, 1000, 3 * 128, device="cuda").to(torch.bfloat16)
+    q, k, v = qkv.chunk(3, dim=-1)
+    with torch.no_grad():
+        k3 = att.flash_attention(q, k, v, 2)
+        form = att.flash_attention_variant(q, k, v, 2, use_exp2=True, postdiv=True)
+    torch.cuda.synchronize()
+    assert torch.equal(k3, form)

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the TMA + wgmma kernels
-// (self_attention.cu, gemm_bwd.cu): mbarriers, TMA tensor copies, wgmma
-// shared-memory descriptors and the wgmma instructions themselves, in PTX.
+// (self_attention.cu, gemm_bwd.cu, ln_gemm.cu, flash_attention.cu):
+// mbarriers, TMA tensor copies, wgmma shared-memory descriptors and the
+// wgmma instructions themselves, in PTX.
 #pragma once
 
 #include <cuda.h>
@@ -111,6 +112,41 @@ __device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map, const 
       : "memory");
 }
 
+// global[box at (c0, c1)] = shared (TMA store); elements outside the
+// tensor are skipped
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// global[box at (c0, c1)] += shared, element by element (float32 add in
+// L2); elements outside the tensor are skipped
+__device__ __forceinline__ void tma_reduce_add_2d(const CUtensorMap* map, const void* src, int c0,
+                                                  int c1) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// this thread's generic-proxy writes to global memory become visible to
+// later TMA (async-proxy) reads
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// ask L2 to fetch `bytes` (a multiple of 16) from p (16-byte aligned) ahead of use
+__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(reinterpret_cast<uint64_t>(p)),
+               "r"(bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -133,6 +169,11 @@ __device__ __forceinline__ void fence_proxy_async() {
 // barrier `id` (1..15) over `count` threads (a multiple of 32)
 __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// arrive at barrier `id` over `count` threads without waiting for it
+__device__ __forceinline__ void named_barrier_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 template <int N>
@@ -232,6 +273,25 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
+// d (64 x 128, float32) = A (64 x 16) B (16 x 128), both bf16 in shared
+// memory, K-major (descriptors). d is written only: the registers' old
+// values are no input, so instructions that wrote them before (a softmax
+// in place) do not tie this wgmma to them (ptxas would serialise)
+__device__ __forceinline__ void wgmma_m64n128k16_ss_first(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "l"(da), "l"(db), "r"(0));
+}
+
 // d (64 x 192, float32) += A (64 x 16) B (16 x 192), both bf16 in shared
 // memory (descriptors); TA / TB = 1: the operand is MN-major
 template <int TA, int TB>
@@ -261,9 +321,11 @@ __device__ __forceinline__ void wgmma_m64n192k16_ss(float (&d)[96], uint64_t da,
 }
 
 // d (64 x 256, float32) += A (64 x 16) B (16 x 256), both bf16 in shared
-// memory (descriptors); TA / TB = 1: the operand is MN-major
+// memory (descriptors); TA / TB = 1: the operand is MN-major; scale_d = 0:
+// d = A B, d's old values ignored
 template <int TA, int TB>
-__device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t da, uint64_t db) {
+__device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t da, uint64_t db,
+                                                     uint32_t scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
@@ -291,7 +353,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t da
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 // d (64 x 64, float32) += A (64 x 16, bf16 in registers, the

@@ -34,7 +34,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: each returns the cudaError_t of its launch
 SIGNATURES = {
-    "ltd_ln_gemm": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ltd_ln_gemm": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "ltd_ln_gemm_scratch_rows": (_I, _I, _I, _I),
     "ltd_self_attention": (_P, _P, _I, _I, _I, _I, _P),
     "ltd_cross_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "ltd_dwconv_gelu": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),

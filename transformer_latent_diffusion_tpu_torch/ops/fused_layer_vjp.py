@@ -26,7 +26,7 @@ order, so here:
   sums inside the kernel), `colsum` (the bias and LayerNorm sums),
   `layernorm_bwd`, `dwconv_gelu_bwd`, `self_attention_bwd` and
   `cross_attention_bwd`; the input-gradient products dX = dY W run in
-  `ln_gemm`'s streaming body with W^T as its (out, in) operand.
+  `ln_gemm`'s streaming mode with W read as stored (`w_transposed`).
 
 Each kernel has a plain PyTorch version here (`*_plain`), and a wrapper
 that runs the plain version for CPU tensors and otherwise checks its
@@ -813,8 +813,9 @@ def fused_layer_fwd(x, cond, params: Sequence[torch.Tensor], n_heads: int,
 
 
 def _dx_of(dy, w):
-    """dY W in float32 (`ln_gemm` with W^T as its (out, in) operand)."""
-    return fs.ln_gemm(dy, w.T.contiguous(), out_dtype=torch.float32)
+    """dY W in float32 (`ln_gemm` reading W (out, in) as stored, the
+    MN-major operand: no transposed copy)."""
+    return fs.ln_gemm(dy, w, out_dtype=torch.float32, w_transposed=True)
 
 
 def _attn_pair_bwd(r, dx2, attn_params, n_heads: int, n: int,

@@ -97,12 +97,12 @@ def _mlp_bwd(x, g, w1, b1, dw, dwb, w2, hw: int, ops):
     dw2 = wgrad(g_lp, a)
     db2 = csum(g32)
     del a
-    # dY W: W^T is the (out, in) operand
-    da = gemm(g_lp, w2.T.contiguous(), out_dtype=torch.float32)
+    # dY W: W read as stored (w_transposed), no transposed copy
+    da = gemm(g_lp, w2, out_dtype=torch.float32, w_transposed=True)
     dh, ddw, ddwb, db1 = dwg_bwd(da, c, h, dw, hw)
     del da, c, h
     dw1 = wgrad(dh, x2)
-    dx = gemm(dh, w1.T.contiguous(), out_dtype=x.dtype)
+    dx = gemm(dh, w1, out_dtype=x.dtype, w_transposed=True)
     return dx.reshape(b, n, d), dw1, db1, ddw, ddwb, dw2, db2
 
 

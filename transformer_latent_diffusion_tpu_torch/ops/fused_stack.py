@@ -89,20 +89,20 @@ def _layer_norm_plain(x, ln):
 
 
 def ln_gemm_plain(a, w, bias=None, ln=None, residual=None, out_dtype=None,
-                  return_xn=False):
+                  return_xn=False, w_transposed=False):
     """LN?(a) @ w.T with float32 accumulation of w.dtype operands.
 
-    a: (M, K); w: (N, K); bias: (N,) float32; ln: (scale, shift) float32,
-    statistics in float32 with eps 1e-5. Without `residual`, returns
-    (acc + bias) rounded to `out_dtype` (default w.dtype); with it,
-    returns the float32 (residual + acc) + bias. return_xn (with `ln`):
-    returns (out, the normalised rows rounded to w.dtype)."""
+    a: (M, K); w: (N, K), or (K, N) with w_transposed (then a @ w); bias:
+    (N,) float32; ln: (scale, shift) float32, statistics in float32 with
+    eps 1e-5. Without `residual`, returns (acc + bias) rounded to
+    `out_dtype` (default w.dtype); with it, returns the float32
+    residual + (acc + bias), the TPU kernel's order. return_xn (with
+    `ln`): returns (out, the normalised rows rounded to w.dtype)."""
     x = a.float() if ln is None else _layer_norm_plain(a, ln)
     xn = x.to(w.dtype)
-    acc = xn.float() @ w.float().T
+    acc = xn.float() @ (w.float() if w_transposed else w.float().T)
     if residual is not None:
-        out = residual + acc
-        out = out if bias is None else out + bias.reshape(-1)
+        out = residual + (acc if bias is None else acc + bias.reshape(-1))
     else:
         if bias is not None:
             acc = acc + bias.reshape(-1)
@@ -227,22 +227,25 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def ln_gemm(a, w, bias=None, ln=None, residual=None, out_dtype=None,
-            return_xn=False):
+            return_xn=False, w_transposed=False):
     """Kernel wrapper of `ln_gemm_plain` (same arguments and result; with
     `residual` the kernel updates it in place and returns it).
 
-    On CUDA: w bf16 (N, K) with N % 128 == 0 and K % 32 == 0; a float32
-    with `ln` (then K <= 768), else bf16; bias, ln and residual float32;
-    out_dtype bf16 or float32."""
+    On CUDA: w bf16 (N, K), or (K, N) with w_transposed (read as stored,
+    no copy), N % 128 == 0 and K % 32 == 0; a float32 with `ln` (then
+    K <= 768), else bf16; bias, ln and residual float32; out_dtype bf16
+    or float32."""
     if a.device.type == "cpu":
-        return ln_gemm_plain(a, w, bias, ln, residual, out_dtype, return_xn)
+        return ln_gemm_plain(a, w, bias, ln, residual, out_dtype, return_xn,
+                             w_transposed)
     scale, shift = ln if ln is not None else (None, None)
     extra = [t for t in (bias, scale, shift, residual) if t is not None]
     dev = _on_cuda("ln_gemm", a, w, *extra)
     m, k = a.shape
-    n = w.shape[0]
-    _require(w.dtype == torch.bfloat16 and w.shape == (n, k),
-             f"ln_gemm: w must be bf16 (N, {k}), got {w.dtype} {tuple(w.shape)}")
+    n = w.shape[1] if w_transposed else w.shape[0]
+    want = (k, n) if w_transposed else (n, k)
+    _require(w.dtype == torch.bfloat16 and w.shape == want,
+             f"ln_gemm: w must be bf16 {want}, got {w.dtype} {tuple(w.shape)}")
     _require(n % 128 == 0 and k % 32 == 0,
              f"ln_gemm: needs N % 128 == 0 and K % 32 == 0, got N={n} K={k}")
     _require(a.dtype == (torch.float32 if ln is not None else torch.bfloat16),
@@ -268,11 +271,15 @@ def ln_gemm(a, w, bias=None, ln=None, residual=None, out_dtype=None,
     xn = (torch.empty((m, k), dtype=torch.bfloat16, device=dev)
           if return_xn else None)
     lib = load_library()
+    # the LayerNorm prologue's bf16 rows, where xn does not hold them
+    rows = lib.ltd_ln_gemm_scratch_rows(m, n, int(ln is not None), int(return_xn))
+    scratch = (torch.empty((rows, k), dtype=torch.bfloat16, device=dev)
+               if rows else None)
     LAUNCHES["ln_gemm"] += 1
     err = lib.ltd_ln_gemm(_ptr(a), _ptr(scale), _ptr(shift), _ptr(w),
                           _ptr(bias), _ptr(out), _ptr(residual), _ptr(xn),
-                          m, n, k, int(out_dtype == torch.float32),
-                          _stream(dev))
+                          _ptr(scratch), m, n, k, int(out_dtype == torch.float32),
+                          int(w_transposed), _stream(dev))
     _check_launch(err, "ln_gemm")
     result = residual if residual is not None else out
     return (result, xn) if return_xn else result

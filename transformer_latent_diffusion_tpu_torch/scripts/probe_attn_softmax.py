@@ -6,15 +6,15 @@ flash-attention kernel (csrc/flash_attention.cu, `flash_attention_variant`
 in ops/attention.py):
   exp2     exp(x) == exp2(x * log2 e): log2 e folded into the score scale
   postdiv  (e @ v) / z instead of (e / z) @ v: e rounded to bf16 and O
-           divided at the end (the port's K3 does this), where prediv
+           divided at the end (the port's K3 is exp2,postdiv), where prediv
            normalises each p in float32 before rounding it (the TPU K3's
            rounding), which here takes a second pass over the keys
 
 The inputs are the JAX probe's (B, H, N, 64) heads, handed to the kernel
 as (B*H, N, 64) rows of one head each (a view, no copy). `--sass` also
 prints what each form's kernel compiled to (cuobjdump -sass on the built
-library: the SFU exponentials, reciprocals, FMAs and tensor-core products
-of each instantiation).
+library: the SFU exponentials, reciprocals, FMAs and `wgmma` tensor-core
+products of each instantiation).
 
 Usage: python -m transformer_latent_diffusion_tpu_torch.scripts.probe_attn_softmax
            [--batch 4] [--heads 12] [--tokens 4096] [--reps 20]
@@ -39,9 +39,9 @@ HEAD_DIM = 64
 # reference of the maxdiff column
 VARIANTS = (("exp,prediv", False, False),
             ("exp2,prediv", True, False),
-            ("exp,postdiv (K3)", False, True),
-            ("exp2,postdiv", True, True))
-SASS_OPS = ("MUFU.EX2", "MUFU.RCP", "FFMA", "FMUL", "FADD", "HMMA")
+            ("exp,postdiv", False, True),
+            ("exp2,postdiv (K3)", True, True))
+SASS_OPS = ("MUFU.EX2", "MUFU.RCP", "FFMA", "FMUL", "FADD", "HGMMA")
 
 
 def make_inputs(batch, heads, tokens, dev, seed=0):
