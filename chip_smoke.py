@@ -242,6 +242,35 @@ def phase_build():
             log(f"[build]   {name}: {line.strip()}")
 
 
+def _ptxas_report(tag, fragments):
+    """Registers and spills that ptxas reported for the kernels whose names
+    hold one of `fragments`, and whether it serialised their `wgmma`s
+    (build.log's C7515 / C7520 lines); a spill raises."""
+    from transformer_latent_diffusion_tpu_torch.ops import _build
+
+    name, found, serial = "?", {}, set()
+    for line in (_build.library_path().parent / "build.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "Performance Loss" in line:
+            serial.add(line.split("function '")[-1].rstrip("'"))
+        elif not any(f in name for f in fragments):
+            continue
+        elif "spill stores" in line:
+            found.setdefault(name, {})["spills"] = line.strip()
+        elif "registers" in line:
+            found.setdefault(name, {})["registers"] = line.split("Used")[1].split(",")[0].strip()
+    for fn, info in sorted(found.items()):
+        frag = next(f for f in fragments if f in fn)
+        short = fn[fn.index(frag):fn.index(frag) + len(frag) + 6]  # with NT's <Li4EE>
+        log(f"[{tag}] ptxas {short}: {info.get('registers')} at launch, {info.get('spills')}")
+    serialised = [f for f in serial if any(x in f for x in fragments)]
+    log(f"[{tag}] ptxas serialised the wgmma of: {serialised or 'none of them'} (C7515/C7520)")
+    if not found or any("0 bytes spill stores, 0 bytes spill loads" not in i.get("spills", "")
+                        for i in found.values()):
+        raise AssertionError(f"{fragments}: missing from build.log, or spilling")
+
+
 def _errors(out, ref):
     scale = float(ref.abs().max())
     err = float((out.float() - ref.float()).abs().max())
@@ -448,6 +477,21 @@ def phase_kernels():
     log(f"[kernels] self_attention: {ms:.4f} ms; equal-work yardstick (SDPA + the add into "
         f"the float32 residual) {eq:.4f} ms: the kernel is "
         f"{'no slower' if ms <= eq else f'{ms / eq:.2f}x slower'}")
+    # the same work as cross_attention: SDPA against the 2 conditioning keys,
+    # its output added into the float32 residual in place, and the LN3 rows
+    # (F.layer_norm of the updated residual) written in bf16
+
+    def cross_equal_work():
+        xv.add_(F.scaled_dot_product_attention(qh, kvh[0], kvh[1]).transpose(1, 2))
+        F.layer_norm(xr, (D,), ln[0], ln[1], 1e-5).to(bf)
+
+    eq_ca = time_ms(cross_equal_work)
+    library["cross_attention (equal work)"] = eq_ca
+    ms = timing["cross_attention"][0]
+    log(f"[kernels] cross_attention: {ms:.4f} ms; equal-work yardstick (SDPA + the add into "
+        f"the float32 residual + F.layer_norm to bf16 rows) {eq_ca:.4f} ms: the kernel is "
+        f"{'no slower' if ms <= eq_ca else f'{ms / eq_ca:.2f}x slower'}; SDPA alone "
+        f"{library['cross_attention']:.4f} ms")
     return worst, timing, library
 
 
@@ -1259,8 +1303,10 @@ def phase_train_kernels():
         "dwconv_gelu_bwd": (lambda: lv.dwconv_gelu_bwd(da, c, h, dw, HW),
                             lambda: lv.dwconv_gelu_bwd_plain(da, c, h, dw, HW),
                             None, None),
-        "self_attention_bwd": (lambda: lv.self_attention_bwd(qkv, g32, HEADS, N),
-                               lambda: lv.self_attention_bwd_plain(qkv, g32, HEADS, N),
+        # dq, dk and dv checked each on its own
+        "self_attention_bwd": (lambda: lv.self_attention_bwd(qkv, g32, HEADS, N).split(D, -1),
+                               lambda: lv.self_attention_bwd_plain(qkv, g32, HEADS,
+                                                                   N).split(D, -1),
                                None, None),
         "cross_attention_bwd": (lambda: lv.cross_attention_bwd(qc, kv, g32, HEADS, N),
                                 lambda: lv.cross_attention_bwd_plain(qc, kv, g32, HEADS, N),
@@ -1270,6 +1316,13 @@ def phase_train_kernels():
     for name, (kern, plain, kern_t, plain_t) in cases.items():
         worst[name] = _check(name, _tuple(kern()), _tuple(plain()), "train-kernels")
         timed[name] = (kern_t or kern, plain_t or plain)
+    # one writer per element and sums in a fixed order: bit-equal launches
+    if not torch.equal(lv.self_attention_bwd(qkv, g32, HEADS, N),
+                       lv.self_attention_bwd(qkv, g32, HEADS, N)):
+        raise AssertionError("self_attention_bwd: two launches on the same inputs differ")
+    log(f"[train-kernels] self_attention_bwd: two launches bit-equal; host time per call "
+        f"{host_ms(lambda: lv.self_attention_bwd(qkv, g32, HEADS, N)):.4f} ms")
+    _ptxas_report("train-kernels", ("self_attention_bwd_kernel",))
     # K1's kernels in the modes only the training layer uses
     _check("ln_gemm/expand float32 out",
            (fs.ln_gemm(xn, w1, bias=b1, out_dtype=torch.float32),),
@@ -1301,6 +1354,11 @@ def phase_train_kernels():
     dout = g32.to(bf).reshape(TB, N, HEADS, 64).transpose(1, 2).contiguous()
     out = F.scaled_dot_product_attention(*hs)
     sa_sdpa = time_ms(lambda: torch.autograd.grad(out, hs, dout, retain_graph=True))
+    # the same work as self_attention_bwd, which reads the float32 gradient
+    # and has no saved log-sum-exp: the gradient rounded to bf16, then the
+    # backward through SDPA
+    sa_eq = time_ms(lambda: torch.autograd.grad(
+        out, hs, g32.to(bf).view(TB, N, HEADS, 64).transpose(1, 2), retain_graph=True))
     kvh = [t.contiguous() for t in kv.reshape(TB, 2, 2, HEADS, 64).permute(2, 0, 3, 1, 4)]
     cs = [qc.reshape(TB, N, HEADS, 64).transpose(1, 2).contiguous().requires_grad_(True),
           *(t.requires_grad_(True) for t in kvh)]
@@ -1314,8 +1372,13 @@ def phase_train_kernels():
         # the forward's saved statistics
         "layernorm_bwd": None, "dwconv_gelu_bwd": None,
         "self_attention_bwd": sa_sdpa, "cross_attention_bwd": ca_sdpa,
+        "self_attention_bwd (equal work)": sa_eq,
     }
     log(f"[train-kernels] library calls (ms): {library}")
+    ms = timing["self_attention_bwd"][0]
+    log(f"[train-kernels] self_attention_bwd: {ms:.4f} ms; equal-work yardstick (the "
+        f"gradient to bf16, then autograd through SDPA's backward) {sa_eq:.4f} ms: the kernel "
+        f"is {'no slower' if ms <= sa_eq else f'{ms / sa_eq:.2f}x slower'}")
 
     def wg_bytes(mm, nn, kk):
         return mm * nn * 2 + mm * kk * 2 + nn * kk * 4
@@ -1690,6 +1753,9 @@ def phase_hires_train_kernels():
         name = f"flash_attention_bwd B={b} N={n} ({att.attention_bwd_route(n, n, 64)})"
         err = _check(name, kern(), tuple(att._merge(t) for t in plain()), "hires-train-kernels")
         worst["flash_attention_bwd"] = max(worst.get("flash_attention_bwd", 0.0), err)
+        if not all(torch.equal(u, w) for u, w in zip(kern(), kern())):
+            raise AssertionError(f"{name}: two launches on the same inputs differ")
+        log(f"[hires-train-kernels] {name}: two launches bit-equal")
         t = time_against_plain({name: (kern, plain)}, "hires-train-kernels")[name]
         if key is None:
             del qkv, q, k, v, gr, o, lse, heads
@@ -1709,6 +1775,10 @@ def phase_hires_train_kernels():
     q, k, v = qkv.chunk(3, dim=-1)
     gr = randn(XT_B, XR_N, D, std=1e-2, dtype=bf)
     o, lse = att._flash_forward(q, k, v, HEADS, with_lse=True)
+    twice = [att.flash_attention_bwd(q, k, v, gr, HEADS, o=o, lse=lse) for _ in range(2)]
+    if not all(torch.equal(u, w) for u, w in zip(*twice)):
+        raise AssertionError(f"flash_attention_bwd B={XT_B} N={XR_N}: two launches differ")
+    del twice
     ms = time_ms(lambda: att.flash_attention_bwd(q, k, v, gr, HEADS, o=o, lse=lse), 10, 2)
     bnd = k4_bound(XT_B, XR_N)
     hs = [att._heads(t_, HEADS).contiguous().requires_grad_(True) for t_ in (q, k, v)]
@@ -1717,9 +1787,11 @@ def phase_hires_train_kernels():
                                                retain_graph=True), 10, 2)
     log(f"[hires-train-kernels] flash_attention_bwd B={XT_B} N={XR_N} (k4b, the 1024 px "
         f"step's shape): {ms:.4f} ms, {10 * XT_B * HEADS * XR_N ** 2 * 64 / ms / 1e9:.1f} "
-        f"TFLOP/s; autograd through SDPA {sdpa:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]})")
+        f"TFLOP/s; autograd through SDPA {sdpa:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}); two "
+        f"launches bit-equal")
     del qkv, q, k, v, gr, o, lse, hs, out
     torch.cuda.empty_cache()
+    _ptxas_report("hires-train-kernels", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
 
     m = HT_B * HR_N
     x = randn(HT_B, HR_N, D, dtype=bf)

@@ -199,16 +199,18 @@ def test_fused_mlp_sepconv_and_band_body_match_plain_on_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [512, 1024])
+@pytest.mark.parametrize("n", [512, 1024, 576, 1536, 4096])
 def test_flash_attention_bwd_matches_plain_on_card(n):
     """K4 (`flash_attention_bwd`, after the forward with its log-sum-exp)
     against `attention_bwd_plain` on the fused QKV rows: dq, dk, dv each
     within rel-L2 1e-2 (D = rowsum(g o) from the bf16 output, and bf16
-    outputs)."""
+    outputs). Batch 2 at K4a's 512 and 1024 tokens; batch 1 at 576 (a
+    ragged last 128-row block), 1536 and 4096 (K4b's range)."""
     _need_card()
-    qkv = torch.randn(2, n, 3 * 128, device="cuda").to(torch.bfloat16)
+    b = 2 if n in (512, 1024) else 1
+    qkv = torch.randn(b, n, 3 * 128, device="cuda").to(torch.bfloat16)
     q, k, v = qkv.chunk(3, dim=-1)
-    g = torch.randn(2, n, 128, device="cuda").to(torch.bfloat16)
+    g = torch.randn(b, n, 128, device="cuda").to(torch.bfloat16)
     o, lse = att._flash_forward(q, k, v, 2, with_lse=True)
     got = att.flash_attention_bwd(q, k, v, g, 2, o=o, lse=lse)
     want = att.flash_attention_bwd(*(t.cpu() for t in (q, k, v, g)), 2)
@@ -741,3 +743,56 @@ def test_flash_attention_is_the_exp2_postdiv_form_on_card():
         form = att.flash_attention_variant(q, k, v, 2, use_exp2=True, postdiv=True)
     torch.cuda.synchronize()
     assert torch.equal(k3, form)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [512, 576])
+def test_flash_attention_bwd_is_bit_equal_across_launches(n):
+    """Two launches of K4's backward on the same inputs give bit-equal dq,
+    dk and dv: each element has one writer and every sum a fixed order."""
+    _need_card()
+    gen = torch.Generator().manual_seed(n)
+    qkv = torch.randn(2, n, 3 * 128, generator=gen).to("cuda", torch.bfloat16)
+    q, k, v = qkv.chunk(3, dim=-1)
+    g = torch.randn(2, n, 128, generator=gen).to("cuda", torch.bfloat16)
+    o, lse = att._flash_forward(q, k, v, 2, with_lse=True)
+    first = att.flash_attention_bwd(q, k, v, g, 2, o=o, lse=lse)
+    second = att.flash_attention_bwd(q, k, v, g, 2, o=o, lse=lse)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, w) for u, w in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [37, 256])
+def test_self_attention_bwd_is_bit_equal_across_launches(n):
+    """Two launches of self_attention_bwd on the same inputs give bit-equal
+    dq, dk and dv rows."""
+    _need_card()
+    gen = torch.Generator().manual_seed(n)
+    qkv = torch.randn(4 * n, 3 * 128, generator=gen).to("cuda", torch.bfloat16)
+    dout = torch.randn(4 * n, 128, generator=gen).to("cuda")
+    first = lv.self_attention_bwd(qkv, dout, 2, n)
+    second = lv.self_attention_bwd(qkv, dout, 2, n)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_self_attention_bwd_partial_last_wave_on_card():
+    """self_attention_bwd at batch 12 x 12 heads: 144 (batch, head) pairs on
+    the persistent grid of one block per SM leave its last wave partial on
+    an H100 (132 SMs). dq, dk and dv each within the kernel bound of the
+    plain version; two launches bit-equal."""
+    _need_card()
+    gen = torch.Generator().manual_seed(12)
+    b, n, heads = 12, 256, 12
+    d = 64 * heads
+    qkv = torch.randn(b * n, 3 * d, generator=gen).to("cuda", torch.bfloat16)
+    dout = (torch.randn(b * n, d, generator=gen) * 1e-2).to("cuda")
+    got = lv.self_attention_bwd(qkv, dout, heads, n)
+    want = lv.self_attention_bwd_plain(qkv, dout, heads, n)
+    again = lv.self_attention_bwd(qkv, dout, heads, n)
+    torch.cuda.synchronize()
+    for u, w in zip(got.split(d, -1), want.split(d, -1)):
+        assert _close(u.float(), w.float())
+    assert torch.equal(got, again)

@@ -10,33 +10,60 @@
 // float32 and rounded to bf16 once (the bf16 dqkv / dqc / dkv operands of
 // the weight-gradient products), exactly where the TPU kernel rounds.
 //
-// Self-attention, what bounds it on the H100: per (batch, head) at N = 256
-// it reads q, k, v and dO (4 x 32 KB of bf16) and does five 256 x 256 x 64
-// products (84 MFLOP), ~600 FLOP per byte: the tensor cores, if the
-// products overlap the softmax work. The TPU kernel keeps one batch
-// element's whole N x N probabilities of every head in VMEM; an SM holds
-// 227 KB. So the work is split FlashAttention-2 style into two kernels
-// that never store p:
-//   self_attention_bwd_dq: one block per (batch, head, 64-query tile),
-//     K and V of all tokens in shared memory, four warps of 16 query rows
-//     that keep their score rows in registers (as the forward kernel
-//     does): softmax, then delta = sum_j dp p over 16-key chunks of
-//     dp = dO V^T, then dq = ds K, recomputing each dp chunk. It stores
-//     each row's max, sum and delta (12 bytes a row).
-//   self_attention_bwd_dkv: one block per (batch, head, 64-key tile), Q and
-//     dO of all tokens in shared memory, four warps of 16 key rows that
-//     walk over 16-query chunks: p^T = exp(s^T - max) / sum from the stored
-//     statistics, dv += bf16(p)^T dO, dp^T = V dO^T, ds^T, dk += ds^T Q,
-//     the dk and dv tiles staying in registers.
-// Both multiply with m16n8k16 bf16 `mma.sync`, operands from shared memory
-// through `ldmatrix` (transposed where the product reads a row-major
-// operand along its rows); each output element has one writer. Any
-// N <= 256 is taken: both kernels work on N rounded up to a multiple of 64
-// (their template) with the rows of the ragged last tile past N
-// zero-filled in shared memory and never read from device memory; key
-// columns past N enter the softmax as -inf (before the row max), query
-// rows past N get p = 0 (their stored row max is +inf), and no row of dq,
-// dk or dv past N is written.
+// Self-attention, what bounds it on the H100: device memory. Per (batch,
+// head) at N = 256 it reads q, k, v (3 x 32 KB of bf16) and the float32
+// dO (64 KB) and writes dq, dk, dv (96 KB): 256 KB for five 256 x 256 x
+// 64 products (42 MFLOP), ~160 FLOP per byte, half the card's balance
+// point. At batch 128 x 12 heads that is 402 MB, 0.120 ms at 3.35 TB/s;
+// the five products take 0.065 ms at 989 TFLOP/s.
+//
+// What this design does about that: every input byte crosses device
+// memory once, and the next head's copies run behind this one's products.
+// - A persistent grid (one block per SM) walks the (batch, head) pairs.
+//   At N <= 256 a whole head fits on chip: one producer thread brings Q,
+//   K and V by TMA through a 3-D tensor map over (B, N, 3D) in 64 x 64
+//   boxes, 128-byte swizzled (rows past N of a ragged last tile arrive as
+//   zeros, never as the next image's rows), and dO through a float32 map
+//   over (B, N, D) into a staging buffer. The consumers round dO to bf16
+//   once, into the swizzled layout the products read, and free the
+//   staging buffer at once, so the next pair's dO is loaded while this
+//   pair computes; the next pair's Q, K and V are asked of L2 ahead
+//   (`cp.async.bulk.prefetch.tensor`) and copied in when this pair is done.
+// - Two consumer warpgroups (`setmaxnreg`: 240 registers; the producer's
+//   warpgroup 24, all the 168 x 384 a block is given at launch) compute in
+//   two phases, every product a `wgmma` with
+//   float32 accumulators:
+//   1. query-major: both warpgroups on each 64-query tile, each over its
+//      own 64-key tiles (kt = wg, wg + 2): s = Q K^T and dp = dO V^T
+//      (m64n64k16 from shared memory), the float32 softmax (keys past N
+//      -inf before the row max; one MUFU.EX2 per score), with the row max,
+//      the row sum of e = exp(s / 8 - m) and the sum of e dp exchanged
+//      between the two through shared memory (two named barriers), so
+//      p = e / sum and delta = sum_j p dp are the whole row's; then
+//      ds = p (dp - delta) / 8 in bf16 registers as the A operand of this
+//      warpgroup's part of dq = ds K (K the MN-major B operand). Warpgroup
+//      1 hands its part over; warpgroup 0 adds it (one fixed order), stores
+//      dq from the registers and each row's max, 1 / sum and delta.
+//   2. key-major, a 64-key tile per warpgroup: K and V of the tile as
+//      register A operands (`ldmatrix` from the swizzled tile), then over
+//      64-query chunks s^T = K Q^T and dp^T = V dO^T, p^T and ds^T from
+//      the stored statistics, dv += bf16(p^T) dO and dk += ds^T Q (p^T and
+//      ds^T the register A operands, dO and Q the MN-major B operands);
+//      chunk c's s^T and dp^T are issued before chunk c - 1's dv and dk
+//      products, so the exponentials run while the tensor cores do, and
+//      dk and dv stay in float32 registers over the chunks.
+//   Seven 64 x N x 64 products where the TPU kernel does five (phase 2
+//   recomputes s and dp): the tensor work is not what bounds it. The key
+//   split of phase 1 keeps each warpgroup's s and dp at 64 x 128 float32
+//   (no spills), where a whole 64 x 256 score row would not leave room.
+// - Each output element has one writer (dq by warpgroup 0, dk and dv by
+//   the warpgroup of their key tile) and every sum runs in a fixed order,
+//   so two launches are bit-equal. Query rows past N carry zero q and dO,
+//   so their p^T and ds^T add nothing; no row past N is stored.
+//
+// Shared memory at N = 256: Q, K, V and the bf16 dO, 4 x 32 KB; the
+// float32 dO staging, 64 KB; the statistics and the warpgroups' exchange
+// (a 64 x 64 float32 dq part), 20.5 KB: 213 KB of the 227.
 //
 // Cross-attention: per token two 64-wide dot products per head: 4
 // multiply-adds per byte read, memory-bound. One block per (batch, head),
@@ -45,312 +72,425 @@
 // conditioning tokens summed over the batch element's tokens in registers
 // and then over the 8 warps in a fixed order in shared memory.
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 #include <math.h>
 
 namespace {
 
 constexpr int DH = 64;
-constexpr int LDH = DH + 8;  // bf16 row stride in shared memory (144 bytes)
-constexpr int QT = 64;       // rows per block of the two self-attention kernels
-constexpr int THREADS = 128;
 constexpr float SCALE = 0.125f;  // 1 / sqrt(64)
 
-// `rows` rows of one head's upstream gradient (float32, row stride D) into
-// shared memory as bf16; rows from `valid` on are zeros, not read
-__device__ __forceinline__ void load_do(bf16* dst, const float* __restrict__ src, int rows,
-                                        int valid, int D, int tid) {
-  for (int c = tid; c < rows * (DH / 4); c += THREADS) {
-    const int r = c / (DH / 4), col = (c % (DH / 4)) * 4;
-    const float4 v = r < valid
-                         ? *reinterpret_cast<const float4*>(src + static_cast<size_t>(r) * D + col)
-                         : make_float4(0.f, 0.f, 0.f, 0.f);
-    uint2 p;
-    p.x = pack_bf16x2(v.x, v.y);
-    p.y = pack_bf16x2(v.z, v.w);
-    *reinterpret_cast<uint2*>(dst + r * LDH + col) = p;
-  }
+// ------------------------------ self-attention ------------------------------
+
+constexpr int TILE = 64;                   // rows of a TMA box, a query tile and a key tile
+constexpr int BOX = TILE * DH * 2;         // one 64 x 64 bf16 box: 8 KB
+constexpr int F32_BOX = TILE * DH * 4;     // one 64 x 64 float32 box of dO: 16 KB
+constexpr int SA_CONSUMERS = 2;
+constexpr int SA_THREADS = (SA_CONSUMERS + 1) * 128;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float C2 = SCALE * LOG2E;  // exp(s / 8 - m) = exp2(s C2 - m C2)
+
+// NT = ceil(N / 64) (1..4): Q, K, V and dO fill NT boxes each
+template <int NT>
+struct SaShape {
+  static constexpr int NP = NT * TILE;
+  static constexpr int QKV_BYTES = 3 * NT * BOX;
+  static constexpr int F32_BYTES = NT * F32_BOX;
+  // byte offsets: Q, K, V, dO (bf16, NT boxes each), the float32 dO
+  // staging, the statistics (per query row: m C2, 1 / sum, delta), the two
+  // warpgroups' exchange (row max, sum, sum of e dp: [2][64] each; a
+  // 64 x 64 dq part), 4 barriers
+  static constexpr int F32_OFF = 4 * NT * BOX;
+  static constexpr int STATS_OFF = F32_OFF + F32_BYTES;
+  static constexpr int X_OFF = STATS_OFF + 3 * NP * 4;
+  static constexpr int BAR_OFF = X_OFF + (3 * 2 * TILE + TILE * DH) * 4;
+  static constexpr int SMEM = 1024 + BAR_OFF + 4 * 8;
+};
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
-// 64 bf16 columns of `rows` rows (row stride `stride`) into shared memory;
-// rows from `valid` on are zero-filled (src-size 0: nothing is read)
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int rows, int valid,
-                                          size_t stride, int tid) {
-  for (int c = tid; c < rows * 8; c += THREADS) {
-    const int r = c >> 3, col = (c & 7) * 8;
-    const int ok = r < valid ? 16 : 0;
-    cp_async16(dst + r * LDH + col, src + (ok ? r : 0) * stride + col, ok);
-  }
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// the A fragments (16 rows from `row0`, all 64 columns) of a [row][64] tile
-__device__ __forceinline__ void load_a(uint32_t (&f)[DH / 16][4], const bf16* tile, int row0,
-                                       int lane) {
+// the float32 dO of pair p (NT boxes of 64 rows) into the staging buffer
+template <int NT>
+__device__ __forceinline__ void load_do(float* fs, const CUtensorMap* map, uint64_t* bar, int p,
+                                        int n_heads) {
+  const int b = p / n_heads, col = (p % n_heads) * DH;
+  mbar_arrive_expect_tx(bar, SaShape<NT>::F32_BYTES);
 #pragma unroll
-  for (int kc = 0; kc < DH / 16; ++kc)
-    ldmatrix_x4(f[kc], tile + (row0 + (lane & 15)) * LDH + kc * 16 + (lane >> 4) * 8);
-}
-
-// acc (16 x 16, two n8 tiles) += A (16 x 64) B^T, B = 16 rows from `row0` of a [row][64] tile
-__device__ __forceinline__ void mma_abt(float (&acc)[2][4], const uint32_t (&a)[DH / 16][4],
-                                        const bf16* tile, int row0, int lane) {
-#pragma unroll
-  for (int kc = 0; kc < DH / 16; ++kc) {
-    uint32_t b[4];
-    ldmatrix_x4(b, tile + (row0 + (lane & 7) + ((lane >> 4) << 3)) * LDH + kc * 16 +
-                       ((lane >> 3) & 1) * 8);
-    mma_bf16_16816(acc[0], a[kc], b[0], b[1]);
-    mma_bf16_16816(acc[1], a[kc], b[2], b[3]);
-  }
-}
-
-// out (16 x 64) += P (16 x 16, as an A fragment) B, B = 16 rows from `row0` of a [row][64] tile
-__device__ __forceinline__ void mma_pb(float (&out)[DH / 8][4], const uint32_t (&pa)[4],
-                                       const bf16* tile, int row0, int lane) {
-#pragma unroll
-  for (int d2 = 0; d2 < DH / 16; ++d2) {
-    uint32_t b[4];
-    ldmatrix_x4_trans(b, tile + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDH + d2 * 16 +
-                             (lane >> 4) * 8);
-    mma_bf16_16816(out[2 * d2], pa, b[0], b[1]);
-    mma_bf16_16816(out[2 * d2 + 1], pa, b[2], b[3]);
-  }
-}
-
-// an accumulator pair of n8 tiles (16 x 16) as the bf16 A fragment of the next product
-__device__ __forceinline__ void to_a(uint32_t (&pa)[4], const float (&t0)[4], const float (&t1)[4]) {
-  pa[0] = pack_bf16x2(t0[0], t0[1]);
-  pa[1] = pack_bf16x2(t0[2], t0[3]);
-  pa[2] = pack_bf16x2(t1[0], t1[1]);
-  pa[3] = pack_bf16x2(t1[2], t1[3]);
-}
-
-// 16 x 64 float32 accumulators -> bf16 at columns col0.. of rows row0 + g,
-// row0 + g + 8; only rows below row0 + valid are written
-__device__ __forceinline__ void store_rows(bf16* out, size_t stride, size_t row0, int valid,
-                                           int col0, const float (&acc)[DH / 8][4], int lane) {
-  const int g = lane >> 2, t4 = lane & 3;
-  bf16* r0 = out + (row0 + g) * stride + col0 + 2 * t4;
-  bf16* r1 = r0 + 8 * stride;
-#pragma unroll
-  for (int d = 0; d < DH / 8; ++d) {
-    if (g < valid) *reinterpret_cast<uint32_t*>(r0 + d * 8) = pack_bf16x2(acc[d][0], acc[d][1]);
-    if (g + 8 < valid)
-      *reinterpret_cast<uint32_t*>(r1 + d * 8) = pack_bf16x2(acc[d][2], acc[d][3]);
-  }
+  for (int t = 0; t < NT; ++t)
+    tma_load_3d(reinterpret_cast<unsigned char*>(fs) + t * F32_BOX, map, bar, col, t * TILE, b);
 }
 
 template <int NT>
-__global__ void __launch_bounds__(THREADS)
-self_attention_bwd_dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ dout,
-                             bf16* __restrict__ dqkv, float* __restrict__ stats, int N, int D) {
-  constexpr int NP = NT * 64;  // N padded to whole tiles
-  constexpr int NK8 = NP / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + NP * LDH;
-  bf16* Qs = Vs + NP * LDH;
-  bf16* Os = Qs + QT * LDH;
-
-  const int q0 = blockIdx.x * QT;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int H = gridDim.y;
+__global__ void __launch_bounds__(SA_THREADS, 1)
+self_attention_bwd_kernel(const __grid_constant__ CUtensorMap map_qkv,
+                          const __grid_constant__ CUtensorMap map_do, bf16* __restrict__ dqkv,
+                          int n_pairs, int n_heads, int N, int D) {
+  using S = SaShape<NT>;
+  constexpr int NP = S::NP;
+  constexpr int KU = (NT + 1) / 2;  // key tiles per warpgroup in phase 1, at most
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  float* fs = reinterpret_cast<float*>(smem + S::F32_OFF);  // dO in float32, [NP][64]
+  float* st_m = reinterpret_cast<float*>(smem + S::STATS_OFF);
+  float* st_inv = st_m + NP;
+  float* st_dl = st_inv + NP;
+  float* xmax = reinterpret_cast<float*>(smem + S::X_OFF);
+  float* xsum = xmax + 2 * TILE;
+  float* xde = xsum + 2 * TILE;
+  float* xdq = xde + 2 * TILE;  // [32][128]: warpgroup 1's dq part, accumulator order
+  uint64_t* qkv_full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
+  uint64_t* qkv_empty = qkv_full + 1;
+  uint64_t* do_full = qkv_full + 2;
+  uint64_t* do_empty = qkv_full + 3;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  if (tid == 0) {
+    mbar_init(qkv_full, 1);
+    mbar_init(qkv_empty, SA_CONSUMERS);
+    mbar_init(do_full, 1);
+    mbar_init(do_empty, SA_CONSUMERS);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= SA_CONSUMERS * 128) {
+    // producer warpgroup: one thread issues every copy
+    setmaxnreg_dec<24>();
+    if (tid == SA_CONSUMERS * 128) {
+      unsigned char* qs = smem;
+      unsigned char* ks = qs + NT * BOX;
+      unsigned char* vs = ks + NT * BOX;
+      if (static_cast<int>(blockIdx.x) < n_pairs)
+        load_do<NT>(fs, &map_do, do_full, blockIdx.x, n_heads);
+      int i = 0;
+      for (int p = blockIdx.x; p < n_pairs; p += gridDim.x, ++i) {
+        const int b = p / n_heads, col = (p % n_heads) * DH;
+        mbar_wait(qkv_empty, (i & 1) ^ 1);  // the last pair is done with Q, K, V
+        mbar_arrive_expect_tx(qkv_full, S::QKV_BYTES);
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          tma_load_3d(qs + t * BOX, &map_qkv, qkv_full, col, t * TILE, b);
+          tma_load_3d(ks + t * BOX, &map_qkv, qkv_full, D + col, t * TILE, b);
+          tma_load_3d(vs + t * BOX, &map_qkv, qkv_full, 2 * D + col, t * TILE, b);
+        }
+        const int next = p + gridDim.x;
+        if (next < n_pairs) {
+          const int nb = next / n_heads, ncol = (next % n_heads) * DH;
+#pragma unroll
+          for (int t = 0; t < NT; ++t)
+#pragma unroll
+            for (int w = 0; w < 3; ++w) tma_prefetch_3d(&map_qkv, w * D + ncol, t * TILE, nb);
+          mbar_wait(do_empty, i & 1);  // this pair's dO has been rounded to bf16
+          load_do<NT>(fs, &map_do, do_full, next, n_heads);
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  const int wg = tid >> 7;
+  const int wt = tid & 127;
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t4 = lane & 3;
+  const int r_lo = (wt >> 5) * 16 + g;  // this thread's rows r_lo and r_lo + 8 of a tile
   const size_t stride = 3 * static_cast<size_t>(D);
-  const bf16* base = qkv + static_cast<size_t>(b) * N * stride + h * DH;
+  int i = 0;
+  for (int p = blockIdx.x; p < n_pairs; p += gridDim.x, ++i) {
+    const int b = p / n_heads, col = (p % n_heads) * DH;
+    const size_t row0 = static_cast<size_t>(b) * N;
+    // the tiles through a base the compiler cannot see through, so that it
+    // computes each wgmma descriptor next to its product instead of
+    // hoisting all of them out of the pair loop (and spilling them)
+    unsigned char* qs = smem;
+    asm volatile("" : "+l"(qs));
+    unsigned char* ks = qs + NT * BOX;
+    unsigned char* vs = ks + NT * BOX;
+    unsigned char* os = vs + NT * BOX;
+    // both warpgroups are done with the last pair's dO and statistics
+    named_barrier(1, SA_CONSUMERS * 128);
+    mbar_wait(do_full, i & 1);
+    // dO to bf16 once, in the 128-byte swizzle of the boxes the products
+    // read (16-byte chunk c of row r at chunk c ^ (r % 8))
+    for (int idx = tid; idx < NP * 8; idx += SA_CONSUMERS * 128) {
+      const int r = idx >> 3, c = idx & 7;
+      const float4* src = reinterpret_cast<const float4*>(fs + r * DH + c * 8);
+      const float4 a = src[0], bq = src[1];
+      uint4 u;
+      u.x = pack_bf16x2(a.x, a.y);
+      u.y = pack_bf16x2(a.z, a.w);
+      u.z = pack_bf16x2(bq.x, bq.y);
+      u.w = pack_bf16x2(bq.z, bq.w);
+      *reinterpret_cast<uint4*>(os + (r >> 6) * BOX + (r & 63) * 128 + ((c ^ (r & 7)) << 4)) = u;
+    }
+    fence_proxy_async();  // the bf16 dO is read by wgmma (the async proxy)
+    named_barrier(1, SA_CONSUMERS * 128);
+    if (wt == 0) mbar_arrive(do_empty);  // the staging buffer is free for the next pair
+    mbar_wait(qkv_full, i & 1);
 
-  load_rows(Ks, base + D, NP, N, stride, tid);
-  load_rows(Vs, base + 2 * D, NP, N, stride, tid);
-  load_rows(Qs, base + q0 * stride, QT, N - q0, stride, tid);
-  cp_async_commit();
-  load_do(Os, dout + (static_cast<size_t>(b) * N + q0) * D + h * DH, QT, N - q0, D, tid);
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int wr = warp * 16;
-  float s[NK8][4];
-  {
-    uint32_t qf[DH / 16][4];
-    load_a(qf, Qs, wr, lane);
+    // phase 1, query-major: both warpgroups on each 64-query tile, each
+    // over its own 64-key tiles kt = wg, wg + 2, ..., the row statistics and
+    // dq summed across the two in a fixed order through shared memory
+    for (int qt = 0; qt < NT; ++qt) {
+      const int q0 = qt * TILE;
+      float s[KU][32], dp[KU][32];
+      // a tile index past NT (NT odd: warpgroup 1's last) multiplies the
+      // last tile and is masked below: every wgmma is issued on every path
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < NK8; ++j)
+      for (int u = 0; u < KU; ++u) {
+        const int kt = min(wg + 2 * u, NT - 1);
+        wgmma_abt64_ss(s[u], qs + qt * BOX, ks + kt * BOX);
+        wgmma_abt64_ss(dp[u], os + qt * BOX, vs + kt * BOX);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      for (int u = 0; u < KU; ++u) {
+        fence_regs(s[u]);
+        fence_regs(dp[u]);
+      }
+      // the float32 softmax of rows r_lo (e < 2) and r_lo + 8: keys past N,
+      // and the tiles this warpgroup does not have, -inf
+      float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int j2 = 0; j2 < NK8 / 2; ++j2) {
-      float t[2][4] = {};
-      mma_abt(t, qf, Ks, j2 * 16, lane);
+      for (int u = 0; u < KU; ++u) {
+        const int key0 = (wg + 2 * u) * TILE;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[2 * j2][e] = t[0][e];
-        s[2 * j2 + 1][e] = t[1][e];
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (key0 + 8 * j + 2 * t4 + (e & 1) >= N) {
+              s[u][4 * j + e] = -INFINITY;
+              dp[u][4 * j + e] = 0.f;
+            }
+          mx0 = fmaxf(mx0, fmaxf(s[u][4 * j], s[u][4 * j + 1]));
+          mx1 = fmaxf(mx1, fmaxf(s[u][4 * j + 2], s[u][4 * j + 3]));
+        }
+      }
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+      if (t4 == 0) {
+        xmax[wg * TILE + r_lo] = mx0;
+        xmax[wg * TILE + r_lo + 8] = mx1;
+      }
+      named_barrier(1, SA_CONSUMERS * 128);
+      mx0 = fmaxf(xmax[r_lo], xmax[TILE + r_lo]) * C2;
+      mx1 = fmaxf(xmax[r_lo + 8], xmax[TILE + r_lo + 8]) * C2;
+      // e = exp(s / 8 - m); the sums of e and of e dp
+      float sum0 = 0.f, sum1 = 0.f, de0 = 0.f, de1 = 0.f;
+#pragma unroll
+      for (int u = 0; u < KU; ++u)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float* sj = s[u] + 4 * j;
+          const float* dj = dp[u] + 4 * j;
+          sj[0] = exp2_approx(fmaf(sj[0], C2, -mx0));
+          sj[1] = exp2_approx(fmaf(sj[1], C2, -mx0));
+          sj[2] = exp2_approx(fmaf(sj[2], C2, -mx1));
+          sj[3] = exp2_approx(fmaf(sj[3], C2, -mx1));
+          sum0 += sj[0] + sj[1];
+          sum1 += sj[2] + sj[3];
+          de0 += sj[0] * dj[0] + sj[1] * dj[1];
+          de1 += sj[2] * dj[2] + sj[3] * dj[3];
+        }
+      sum0 = quad_sum(sum0);
+      sum1 = quad_sum(sum1);
+      de0 = quad_sum(de0);
+      de1 = quad_sum(de1);
+      if (t4 == 0) {
+        xsum[wg * TILE + r_lo] = sum0;
+        xsum[wg * TILE + r_lo + 8] = sum1;
+        xde[wg * TILE + r_lo] = de0;
+        xde[wg * TILE + r_lo + 8] = de1;
+      }
+      named_barrier(1, SA_CONSUMERS * 128);
+      // p = e / sum; delta = sum_j p dp; ds = p (dp - delta) / 8 in bf16
+      const float inv0 = 1.f / (xsum[r_lo] + xsum[TILE + r_lo]);
+      const float inv1 = 1.f / (xsum[r_lo + 8] + xsum[TILE + r_lo + 8]);
+      const float dl0 = (xde[r_lo] + xde[TILE + r_lo]) * inv0;
+      const float dl1 = (xde[r_lo + 8] + xde[TILE + r_lo + 8]) * inv1;
+      uint32_t da[KU][4][4];
+#pragma unroll
+      for (int u = 0; u < KU; ++u) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float* sj = s[u] + 4 * j;
+          float* dj = dp[u] + 4 * j;
+          dj[0] = sj[0] * inv0 * (dj[0] - dl0) * SCALE;
+          dj[1] = sj[1] * inv0 * (dj[1] - dl0) * SCALE;
+          dj[2] = sj[2] * inv1 * (dj[2] - dl1) * SCALE;
+          dj[3] = sj[3] * inv1 * (dj[3] - dl1) * SCALE;
+        }
+        pack_frags(da[u], dp[u]);
+      }
+      // this warpgroup's part of dq = ds K
+      float dq[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dq[e] = 0.f;
+      fence_regs(dq);
+      wgmma_fence();
+#pragma unroll
+      for (int u = 0; u < KU; ++u) wgmma_ab64_rs<4>(dq, da[u], ks + min(wg + 2 * u, NT - 1) * BOX);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+#pragma unroll
+      for (int u = 0; u < KU; ++u) fence_frags(da[u]);
+      // dq = part 0 + part 1: warpgroup 1 hands its part over
+      if (wg == 1) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) xdq[e * 128 + wt] = dq[e];
+      }
+      named_barrier(1, SA_CONSUMERS * 128);
+      if (wg == 0) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) dq[e] += xdq[e * 128 + wt];
+        if (t4 == 0) {
+          st_m[q0 + r_lo] = mx0;
+          st_inv[q0 + r_lo] = inv0;
+          st_dl[q0 + r_lo] = dl0;
+          st_m[q0 + r_lo + 8] = mx1;
+          st_inv[q0 + r_lo + 8] = inv1;
+          st_dl[q0 + r_lo + 8] = dl1;
+        }
+        store_acc64(dqkv, stride, row0 + q0, r_lo, N - q0, col + 2 * t4, dq);
       }
     }
-  }
-  // the forward's float32 softmax: rows g and g + 8 of the warp's 16; keys
-  // past N are -inf
-  float mx0 = -3.0e38f, mx1 = -3.0e38f;
-#pragma unroll
-  for (int j = 0; j < NK8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      s[j][e] = 8 * j + 2 * t4 + (e & 1) < N ? s[j][e] * SCALE : -INFINITY;
-    mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-    mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-  }
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
-  }
-  float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < NK8; ++j) {
-    s[j][0] = expf(s[j][0] - mx0);
-    s[j][1] = expf(s[j][1] - mx0);
-    s[j][2] = expf(s[j][2] - mx1);
-    s[j][3] = expf(s[j][3] - mx1);
-    sum0 += s[j][0] + s[j][1];
-    sum1 += s[j][2] + s[j][3];
-  }
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, o);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, o);
-  }
-#pragma unroll
-  for (int j = 0; j < NK8; ++j) {
-    s[j][0] /= sum0;
-    s[j][1] /= sum0;
-    s[j][2] /= sum1;
-    s[j][3] /= sum1;
-  }
+    // every query row's statistics are in shared memory
+    named_barrier(1, SA_CONSUMERS * 128);
 
-  uint32_t of[DH / 16][4];
-  load_a(of, Os, wr, lane);
-  // delta = sum_j dp p, dp = dO V^T in 16-key chunks
-  float dl0 = 0.f, dl1 = 0.f;
+    // phase 2, key-major: dk and dv of a 64-key tile over 64-query chunks;
+    // chunk c's s^T and dp^T are issued before chunk c - 1's dv and dk
+    // products, so its exponentials run while those do
+    for (int kt = wg; kt < NT; kt += SA_CONSUMERS) {
+      uint32_t kf[4][4], vf[4][4];  // the tile's K and V as register A operands
+      sw128_frags(kf, ks + kt * BOX, wt >> 5, lane);
+      sw128_frags(vf, vs + kt * BOX, wt >> 5, lane);
+      float dk[32], dv[32];
 #pragma unroll
-  for (int j2 = 0; j2 < NK8 / 2; ++j2) {
-    float dp[2][4] = {};
-    mma_abt(dp, of, Vs, j2 * 16, lane);
+      for (int e = 0; e < 32; ++e) dk[e] = dv[e] = 0.f;
+      fence_regs(dk);
+      fence_regs(dv);
+      float sT[32], dpT[32];  // rows: this tile's keys; columns: the chunk's queries
+      uint32_t pa[4][4], dsa[4][4];
+      // p^T and ds^T of chunk c in place, from the stored statistics
+      auto grads = [&](int c) {
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      dl0 += dp[u][0] * s[2 * j2 + u][0] + dp[u][1] * s[2 * j2 + u][1];
-      dl1 += dp[u][2] * s[2 * j2 + u][2] + dp[u][3] * s[2 * j2 + u][3];
+        for (int j = 0; j < 8; ++j) {
+          const int qi = c * TILE + 8 * j + 2 * t4;  // columns qi, qi + 1
+          const float2 m = *reinterpret_cast<const float2*>(st_m + qi);
+          const float2 iv = *reinterpret_cast<const float2*>(st_inv + qi);
+          const float2 dl = *reinterpret_cast<const float2*>(st_dl + qi);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool odd = e & 1;
+            const float pv = exp2_approx(fmaf(sT[4 * j + e], C2, -(odd ? m.y : m.x))) *
+                             (odd ? iv.y : iv.x);
+            sT[4 * j + e] = pv;
+            dpT[4 * j + e] = pv * (dpT[4 * j + e] - (odd ? dl.y : dl.x)) * SCALE;
+          }
+        }
+      };
+      wgmma_fence();
+      wgmma_abt64_rs(sT, kf, qs);
+      wgmma_abt64_rs(dpT, vf, os);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sT);
+      fence_regs(dpT);
+      grads(0);
+      pack_frags(pa, sT);
+      pack_frags(dsa, dpT);
+#pragma unroll 1
+      for (int c = 1; c < NT; ++c) {
+        wgmma_fence();
+        wgmma_abt64_rs(sT, kf, qs + c * BOX);
+        wgmma_abt64_rs(dpT, vf, os + c * BOX);
+        wgmma_commit();
+        wgmma_ab64_rs<4>(dv, pa, os + (c - 1) * BOX);
+        wgmma_ab64_rs<4>(dk, dsa, qs + (c - 1) * BOX);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(sT);
+        fence_regs(dpT);
+        grads(c);
+        wgmma_wait<0>();
+        fence_regs(dk);
+        fence_regs(dv);
+        fence_frags(pa);
+        fence_frags(dsa);
+        pack_frags(pa, sT);
+        pack_frags(dsa, dpT);
+      }
+      wgmma_fence();
+      wgmma_ab64_rs<4>(dv, pa, os + (NT - 1) * BOX);
+      wgmma_ab64_rs<4>(dk, dsa, qs + (NT - 1) * BOX);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dk);
+      fence_regs(dv);
+      fence_frags(pa);
+      fence_frags(dsa);
+      const int k0 = kt * TILE;
+      store_acc64(dqkv, stride, row0 + k0, r_lo, N - k0, D + col + 2 * t4, dk);
+      store_acc64(dqkv, stride, row0 + k0, r_lo, N - k0, 2 * D + col + 2 * t4, dv);
     }
+    // every wgmma of this warpgroup that read Q, K or V has completed
+    if (wt == 0) mbar_arrive(qkv_empty);
   }
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    dl0 += __shfl_xor_sync(0xffffffffu, dl0, o);
-    dl1 += __shfl_xor_sync(0xffffffffu, dl1, o);
-  }
+}
 
-  float dq[DH / 8][4];
-#pragma unroll
-  for (int d = 0; d < DH / 8; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[d][e] = 0.f;
-#pragma unroll
-  for (int j2 = 0; j2 < NK8 / 2; ++j2) {
-    float dp[2][4] = {};
-    mma_abt(dp, of, Vs, j2 * 16, lane);
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      dp[u][0] = s[2 * j2 + u][0] * (dp[u][0] - dl0) * SCALE;
-      dp[u][1] = s[2 * j2 + u][1] * (dp[u][1] - dl0) * SCALE;
-      dp[u][2] = s[2 * j2 + u][2] * (dp[u][2] - dl1) * SCALE;
-      dp[u][3] = s[2 * j2 + u][3] * (dp[u][3] - dl1) * SCALE;
-    }
-    uint32_t pa[4];
-    to_a(pa, dp[0], dp[1]);
-    mma_pb(dq, pa, Ks, j2 * 16, lane);
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
   }
-  const size_t row = static_cast<size_t>(b) * N + q0 + wr;
-  store_rows(dqkv, stride, row, N - q0 - wr, h * DH, dq, lane);
-  if (t4 == 0) {
-    float* st = stats + ((static_cast<size_t>(b) * H + h) * N + q0 + wr + g) * 3;
-    if (q0 + wr + g < N) st[0] = mx0, st[1] = sum0, st[2] = dl0;
-    if (q0 + wr + g + 8 < N) st[24] = mx1, st[25] = sum1, st[26] = dl1;  // row g + 8
-  }
+  return count;
 }
 
 template <int NT>
-__global__ void __launch_bounds__(THREADS)
-self_attention_bwd_dkv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ dout,
-                              bf16* __restrict__ dqkv, const float* __restrict__ stats, int N,
-                              int D) {
-  constexpr int NP = NT * 64;  // N padded to whole tiles
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Os = Qs + NP * LDH;
-  bf16* Ks = Os + NP * LDH;
-  bf16* Vs = Ks + QT * LDH;
-  float* st = reinterpret_cast<float*>(Vs + QT * LDH);  // [NP][3]
-
-  const int k0 = blockIdx.x * QT;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int H = gridDim.y;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int t4 = lane & 3;
-  const size_t stride = 3 * static_cast<size_t>(D);
-  const bf16* base = qkv + static_cast<size_t>(b) * N * stride + h * DH;
-
-  load_rows(Qs, base, NP, N, stride, tid);
-  load_rows(Ks, base + k0 * stride + D, QT, N - k0, stride, tid);
-  load_rows(Vs, base + k0 * stride + 2 * D, QT, N - k0, stride, tid);
-  cp_async_commit();
-  load_do(Os, dout + static_cast<size_t>(b) * N * D + h * DH, NP, N, D, tid);
-  // a query row past N: max +inf, so its p is exp(-inf) = 0
-  const float* sg = stats + (static_cast<size_t>(b) * H + h) * N * 3;
-  for (int i = tid; i < NP * 3; i += THREADS)
-    st[i] = i < N * 3 ? sg[i] : (i % 3 == 0 ? INFINITY : (i % 3 == 1 ? 1.f : 0.f));
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int wr = warp * 16;
-  uint32_t kf[DH / 16][4], vf[DH / 16][4];
-  load_a(kf, Ks, wr, lane);
-  load_a(vf, Vs, wr, lane);
-  float dk[DH / 8][4], dv[DH / 8][4];
-#pragma unroll
-  for (int d = 0; d < DH / 8; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.f;
-
-  for (int qc = 0; qc < NP / 16; ++qc) {
-    // s^T: rows = this warp's keys, columns = queries qc*16 + u*8 + 2*t4 + (e & 1)
-    float p[2][4] = {};
-    mma_abt(p, kf, Qs, qc * 16, lane);
-    float dp[2][4] = {};
-    mma_abt(dp, vf, Os, qc * 16, lane);
-#pragma unroll
-    for (int u = 0; u < 2; ++u)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float* sq = st + (qc * 16 + u * 8 + 2 * t4 + (e & 1)) * 3;
-        p[u][e] = expf(p[u][e] * SCALE - sq[0]) / sq[1];
-        dp[u][e] = p[u][e] * (dp[u][e] - sq[2]) * SCALE;
-      }
-    uint32_t pa[4];
-    to_a(pa, p[0], p[1]);
-    mma_pb(dv, pa, Os, qc * 16, lane);
-    to_a(pa, dp[0], dp[1]);
-    mma_pb(dk, pa, Qs, qc * 16, lane);
-  }
-  const size_t row = static_cast<size_t>(b) * N + k0 + wr;
-  store_rows(dqkv, stride, row, N - k0 - wr, D + h * DH, dk, lane);
-  store_rows(dqkv, stride, row, N - k0 - wr, 2 * D + h * DH, dv, lane);
+int launch_self(const void* qkv, const float* dout, void* dqkv, int B, int N, int D, int H,
+                cudaStream_t s) {
+  CUtensorMap map_qkv, map_do;
+  const uint64_t qdims[3] = {static_cast<uint64_t>(3 * D), static_cast<uint64_t>(N),
+                             static_cast<uint64_t>(B)};
+  const uint64_t qstrides[2] = {static_cast<uint64_t>(3 * D) * 2,
+                                static_cast<uint64_t>(N) * 3 * D * 2};
+  const uint32_t qbox[3] = {DH, TILE, 1};
+  const uint64_t ddims[3] = {static_cast<uint64_t>(D), static_cast<uint64_t>(N),
+                             static_cast<uint64_t>(B)};
+  const uint64_t dstrides[2] = {static_cast<uint64_t>(D) * 4, static_cast<uint64_t>(N) * D * 4};
+  const uint32_t dbox[3] = {DH, TILE, 1};
+  int err = encode_map(&map_qkv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, qkv, qdims, qstrides, qbox,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err) return err;
+  err = encode_map(&map_do, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, dout, ddims, dstrides, dbox,
+                   CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err) return err;
+  const int smem = SaShape<NT>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(self_attention_bwd_kernel<NT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int pairs = B * H;
+  const int sms = sm_count();
+  self_attention_bwd_kernel<NT><<<pairs < sms ? pairs : sms, SA_THREADS, smem, s>>>(
+      map_qkv, map_do, static_cast<bf16*>(dqkv), pairs, H, N, D);
+  return static_cast<int>(cudaGetLastError());
 }
+
+// ------------------------------ cross-attention ------------------------------
 
 constexpr int CA_WARPS = 8;
 constexpr int MAX_HEADS = 12;
@@ -413,62 +553,23 @@ cross_attention_bwd_kernel(const bf16* __restrict__ qc, const bf16* __restrict__
   dkv[out_row + (j & 1) * D + h * DH + d] = __float2bfloat16_rn(t);
 }
 
-// one of the two self-attention kernels: the dq kernel (dkv false) or the
-// dk/dv kernel (dkv true)
-template <int NT>
-int launch_self(bool dkv, const bf16* qkv, const float* dout, bf16* dqkv, float* stats, int B,
-                int N, int D, int H, cudaStream_t s) {
-  constexpr int NP = NT * 64;
-  const size_t smem_dq = static_cast<size_t>(2 * NP * LDH + 2 * QT * LDH) * sizeof(bf16);
-  const dim3 grid(NP / QT, H, B);
-  cudaError_t err;
-  if (dkv) {
-    const size_t smem = smem_dq + static_cast<size_t>(NP) * 3 * sizeof(float);
-    err = cudaFuncSetAttribute(self_attention_bwd_dkv_kernel<NT>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    self_attention_bwd_dkv_kernel<NT><<<grid, THREADS, smem, s>>>(qkv, dout, dqkv, stats, N, D);
-  } else {
-    err = cudaFuncSetAttribute(self_attention_bwd_dq_kernel<NT>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem_dq));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    self_attention_bwd_dq_kernel<NT><<<grid, THREADS, smem_dq, s>>>(qkv, dout, dqkv, stats, N,
-                                                                    D);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-int launch_self_n(bool dkv, const void* qkv, const float* dout, void* dqkv, float* stats, int B,
-                  int N, int D, int H, void* stream) {
-  const bf16* q = static_cast<const bf16*>(qkv);
-  bf16* dq = static_cast<bf16*>(dqkv);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D != H * DH || N < 1 || N > 256) return static_cast<int>(cudaErrorInvalidValue);
-  switch ((N + 63) / 64) {
-    case 1: return launch_self<1>(dkv, q, dout, dq, stats, B, N, D, H, s);
-    case 2: return launch_self<2>(dkv, q, dout, dq, stats, B, N, D, H, s);
-    case 3: return launch_self<3>(dkv, q, dout, dq, stats, B, N, D, H, s);
-    default: return launch_self<4>(dkv, q, dout, dq, stats, B, N, D, H, s);
-  }
-}
 
 }  // namespace
 
 // qkv: (B*N, 3D) bf16 rows [q | k | v] of the forward; dout: (B*N, D)
 // float32, the gradient of the attention's output (rounded to bf16 here);
-// dqkv: (B*N, 3D) bf16 rows [dq | dk | dv]; stats: (B, H, N, 3) float32.
-// The dq kernel writes the dq columns and each row's statistics; the dk/dv
-// kernel, launched after it on the same stream, reads the statistics and
-// writes the dk and dv columns. Requires D == H * 64 and 1 <= N <= 256.
-LTD_API int ltd_self_attention_bwd_dq(const void* qkv, const float* dout, void* dqkv,
-                                      float* stats, int B, int N, int D, int H, void* stream) {
-  return launch_self_n(false, qkv, dout, dqkv, stats, B, N, D, H, stream);
-}
-
-LTD_API int ltd_self_attention_bwd_dkv(const void* qkv, const float* dout, void* dqkv,
-                                       float* stats, int B, int N, int D, int H, void* stream) {
-  return launch_self_n(true, qkv, dout, dqkv, stats, B, N, D, H, stream);
+// dqkv: (B*N, 3D) bf16 rows [dq | dk | dv], every row written. Requires
+// D == H * 64, 1 <= N <= 256, 16-byte aligned qkv and dout (TMA).
+LTD_API int ltd_self_attention_bwd(const void* qkv, const float* dout, void* dqkv, int B, int N,
+                                   int D, int H, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B < 1 || D != H * DH || N < 1 || N > 256) return static_cast<int>(cudaErrorInvalidValue);
+  switch ((N + TILE - 1) / TILE) {
+    case 1: return launch_self<1>(qkv, dout, dqkv, B, N, D, H, s);
+    case 2: return launch_self<2>(qkv, dout, dqkv, B, N, D, H, s);
+    case 3: return launch_self<3>(qkv, dout, dqkv, B, N, D, H, s);
+    default: return launch_self<4>(qkv, dout, dqkv, B, N, D, H, s);
+  }
 }
 
 // qc: (B*N, D) bf16 queries; kv: (B*2, 2D) bf16, row 2b+j = [k | v] of

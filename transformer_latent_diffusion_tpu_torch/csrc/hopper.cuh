@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the TMA + wgmma kernels
-// (self_attention.cu, gemm_bwd.cu, ln_gemm.cu, flash_attention.cu):
+// (self_attention.cu, gemm_bwd.cu, ln_gemm.cu, flash_attention.cu,
+// flash_attention_bwd.cu, attention_bwd.cu):
 // mbarriers, TMA tensor copies, wgmma shared-memory descriptors and the
 // wgmma instructions themselves, in PTX.
 #pragma once
@@ -101,6 +102,25 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// ask L2 to fetch the box at (c0, c1, c2) of a tensor map ahead of use
+__device__ __forceinline__ void tma_prefetch_3d(const CUtensorMap* map, int c0, int c1, int c2) {
+  asm volatile("cp.async.bulk.prefetch.tensor.3d.L2.global.tile [%0, {%1, %2, %3}];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
+}
+
+// `bytes` (a multiple of 16) from global src (16-byte aligned) to shared
+// dst by the TMA unit, completing on `bar`'s transaction count
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // global[box at (c0, c1, c2)] += shared, element by element (float32 add in
 // L2); elements outside the tensor are skipped
 __device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map, const void* src, int c0,
@@ -176,6 +196,13 @@ __device__ __forceinline__ void named_barrier_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// 2^x as one MUFU.EX2 (`ex2.approx.ftz`: relative error ~2^-22; -inf gives 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
@@ -249,6 +276,21 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, 
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d (64 x 64, float32) = A (64 x 16) B (16 x 64), both bf16 in shared
+// memory, K-major (descriptors); d is written only (see
+// wgmma_m64n128k16_ss_first)
+__device__ __forceinline__ void wgmma_m64n64k16_ss_first(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
 }
 
 // d (64 x 128, float32) += A (64 x 16) B (16 x 128), both bf16 in shared
@@ -356,6 +398,23 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t da
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+// d (64 x 64, float32) = A (64 x 16, bf16 in registers, the accumulator's
+// fragment layout) B (16 x 64, bf16 in shared memory, K-major); d is
+// written only (see wgmma_m64n128k16_ss_first)
+__device__ __forceinline__ void wgmma_m64n64k16_rs_first(float (&d)[32], const uint32_t (&a)[4],
+                                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0));
+}
+
 // d (64 x 64, float32) += A (64 x 16, bf16 in registers, the
 // accumulator's fragment layout) B (16 x 64, bf16 in shared memory); TB = 1:
 // B is MN-major
@@ -372,4 +431,83 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
+// ------------- 64 x 64 x 64 products (the attention backwards) -------------
+// Operand tiles are 64 rows of 64 bf16 (128 bytes), 128-byte swizzled (8 KB
+// each, consecutive tiles contiguous); fragments are the A operands of the
+// register forms, block kc holding columns 16 kc .. 16 kc + 15.
+
+// d (64 x 64) = A B^T over the 64 columns: A and B 64-row tiles, both
+// K-major (issued, not committed)
+__device__ __forceinline__ void wgmma_abt64_ss(float (&d)[32], const unsigned char* a,
+                                               const unsigned char* b) {
+  wgmma_m64n64k16_ss_first(d, sw128_desc(a, 16, 1024), sw128_desc(b, 16, 1024));
+#pragma unroll
+  for (int kk = 1; kk < 4; ++kk)
+    wgmma_m64n64k16_ss<0, 0>(d, sw128_desc(a + kk * 32, 16, 1024),
+                             sw128_desc(b + kk * 32, 16, 1024));
+}
+
+// d (64 x 64) = A B^T: A (64 x 64) in registers, B a 64-row tile, K-major
+// (issued, not committed)
+__device__ __forceinline__ void wgmma_abt64_rs(float (&d)[32], const uint32_t (&a)[4][4],
+                                               const unsigned char* b) {
+  wgmma_m64n64k16_rs_first(d, a[0], sw128_desc(b, 16, 1024));
+#pragma unroll
+  for (int kk = 1; kk < 4; ++kk) wgmma_m64n64k16_rs<0>(d, a[kk], sw128_desc(b + kk * 32, 16, 1024));
+}
+
+// d (64 x 64) += A B: A (64 x 16 KC) in registers, B 16 KC rows of
+// consecutive tiles, the MN-major operand (issued, not committed)
+template <int KC>
+__device__ __forceinline__ void wgmma_ab64_rs(float (&d)[32], const uint32_t (&a)[KC][4],
+                                              const unsigned char* b) {
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc)
+    wgmma_m64n64k16_rs<1>(d, a[kc], sw128_desc(b + kc * 2048, 8192, 1024));
+}
+
+// the accumulator's columns (x: 8 KC floats of this thread) as bf16 fragments
+template <int KC>
+__device__ __forceinline__ void pack_frags(uint32_t (&a)[KC][4], const float* x) {
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc) {
+    const float* x0 = x + 8 * kc;
+    a[kc][0] = pack_bf16x2(x0[0], x0[1]);
+    a[kc][1] = pack_bf16x2(x0[2], x0[3]);
+    a[kc][2] = pack_bf16x2(x0[4], x0[5]);
+    a[kc][3] = pack_bf16x2(x0[6], x0[7]);
+  }
+}
+
+template <int KC>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[KC][4]) {
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc) fence_regs(a[kc]);
+}
+
+// the fragments of this warp's 16 rows of a 64-row tile (ldmatrix; 16-byte
+// chunk c of row r lies at chunk c ^ (r % 8))
+__device__ __forceinline__ void sw128_frags(uint32_t (&a)[4][4], const unsigned char* tile,
+                                            int warp, int lane) {
+  const int r = 16 * warp + (lane & 15);
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc)
+    ldmatrix_x4(a[kc], tile + r * 128 + (((2 * kc + (lane >> 4)) ^ (r & 7)) << 4));
+}
+
+// this thread's rows of a 64 x 64 float32 accumulator to bf16: rows base + r
+// and base + r + 8 (row stride `stride` elements), each written only where
+// its r is below `limit`, at columns col + 8 j and col + 8 j + 1
+__device__ __forceinline__ void store_acc64(bf16* out, size_t stride, size_t base, int r, int limit,
+                                            int col, const float (&acc)[32]) {
+  bf16* o0 = out + (base + r) * stride + col;
+  bf16* o1 = o0 + 8 * stride;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (r < limit) *reinterpret_cast<uint32_t*>(o0 + 8 * j) = pack_bf16x2(acc[4 * j], acc[4 * j + 1]);
+    if (r + 8 < limit)
+      *reinterpret_cast<uint32_t*>(o1 + 8 * j) = pack_bf16x2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
 }

@@ -43,8 +43,7 @@ SIGNATURES = {
     "ltd_colsum": (_P, _P, _I, _I, _I, _P),
     "ltd_layernorm_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "ltd_dwconv_gelu_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "ltd_self_attention_bwd_dq": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "ltd_self_attention_bwd_dkv": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ltd_self_attention_bwd": (_P, _P, _P, _I, _I, _I, _I, _P),
     "ltd_cross_attention_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ltd_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "ltd_flash_attention_variant": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

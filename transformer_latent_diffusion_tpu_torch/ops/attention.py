@@ -207,8 +207,8 @@ def flash_attention_bwd(q, k, v, g, n_heads: int, o=None, lse=None):
         _require(t.device == dev and t.dtype == torch.bfloat16 and t.shape == q.shape,
                  f"flash_attention_bwd: {name} must be bf16 (B, N, D) on {dev}")
     _require(lse.device == dev and lse.dtype == torch.float32 and lse.is_contiguous()
-             and lse.shape == (b, n_heads, n),
-             "flash_attention_bwd: lse must be contiguous float32 (B, H, N)")
+             and lse.shape == (b, n_heads, n) and lse.data_ptr() % 16 == 0,
+             "flash_attention_bwd: lse must be contiguous 16-byte aligned float32 (B, H, N)")
     strides = [_row_stride(name, t) for name, t in
                (("q", q), ("k", k), ("v", v), ("o", o), ("g", g))]
     delta = torch.empty_like(lse)

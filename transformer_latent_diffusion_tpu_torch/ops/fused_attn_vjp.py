@@ -31,7 +31,7 @@ stage:
             weight_grad (2)      dWq = dqc^T xn2, dWkv = dkv^T cond
             ln_gemm (2)          dcond = dkv Wkv, dxn2 = dqc Wq
             layernorm_bwd        dx1 = g + LN2's backward, dLN2
-            self_attention_bwd   dqkv from dx1 (two kernels)
+            self_attention_bwd   dqkv from dx1
             weight_grad          dWqkv = dqkv^T xn1
             ln_gemm              dxn1 = dqkv Wqkv
             layernorm_bwd        dx = dx1 + LN1's backward, dLN1
@@ -80,7 +80,7 @@ KERNELS = ("fused_attention_pair_vjp", "fused_attention_pair_vjp_bwd")
 # under "ln_gemm" (3), "self_attention" and "cross_attention" in
 # fused_stack.LAUNCHES, the backward's under those (the recompute) and
 # "ln_gemm" (3 more) there, and under "cross_attention_bwd",
-# "weight_grad" (3), "layernorm_bwd" (2), "self_attention_bwd" (2) and
+# "weight_grad" (3), "layernorm_bwd" (2), "self_attention_bwd" and
 # "colsum" (layernorm_bwd's partial sums) in
 # fused_layer_vjp.LAUNCHES
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -89,8 +89,7 @@ KERNELS = ("weight_grad", "colsum", "layernorm_bwd", "dwconv_gelu_bwd",
 # backward, its residuals in bf16, the recompute alone, and the backward
 # without its MLP, cross-attention or self-attention section
 BWD_MODES = ("full", "bf16res", "recompute", "no_mlp", "no_cross", "no_self")
-# kernel launches since the last reset_launch_counts() (self_attention_bwd
-# is two kernels and counts both)
+# kernel launches since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 # a column sum over more rows than this runs as two passes (row blocks,
@@ -691,10 +690,9 @@ def dwconv_gelu_bwd(da, c, h, dw, hw: int):
 
 
 def self_attention_bwd(qkv, dout, n_heads: int, n_tokens: int):
-    """Kernel wrapper of `self_attention_bwd_plain`: two kernels, dq (and
-    each row's softmax statistics), then dk and dv, each launch counted.
-    On CUDA: qkv bf16, dout float32, head dim 64 and N <= 256 (a ragged
-    last 64-token tile is masked in the kernels)."""
+    """Kernel wrapper of `self_attention_bwd_plain`: one kernel, one launch
+    counted. On CUDA: qkv bf16, dout float32, head dim 64 and N <= 256 (a
+    ragged last 64-token tile is masked in the kernel)."""
     if qkv.device.type == "cpu":
         return self_attention_bwd_plain(qkv, dout, n_heads, n_tokens)
     dev = _on_cuda("self_attention_bwd", qkv, dout)
@@ -706,17 +704,14 @@ def self_attention_bwd(qkv, dout, n_heads: int, n_tokens: int):
              "head dim 64")
     _require(0 < n_tokens <= 256 and m % n_tokens == 0,
              f"self_attention_bwd: needs N <= 256 and (B*N) rows, got {n_tokens}")
-    b = m // n_tokens
+    _require(fs.tma_operand(qkv) and fs.tma_operand(dout),
+             "self_attention_bwd: qkv and dout must be contiguous and 16-byte aligned")
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty((b, n_heads, n_tokens, 3), dtype=torch.float32,
-                        device=dev)
     lib = load_library()
-    args = (_ptr(qkv), _ptr(dout), _ptr(dqkv), _ptr(stats), b, n_tokens, d,
-            n_heads, _stream(dev))
     _count("self_attention_bwd")
-    _check_launch(lib.ltd_self_attention_bwd_dq(*args), "self_attention_bwd (dq)")
-    _count("self_attention_bwd")
-    _check_launch(lib.ltd_self_attention_bwd_dkv(*args), "self_attention_bwd (dk, dv)")
+    _check_launch(lib.ltd_self_attention_bwd(_ptr(qkv), _ptr(dout), _ptr(dqkv),
+                                             m // n_tokens, n_tokens, d, n_heads,
+                                             _stream(dev)), "self_attention_bwd")
     return dqkv
 
 
