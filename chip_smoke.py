@@ -245,7 +245,8 @@ def phase_build():
 def _ptxas_report(tag, fragments):
     """Registers and spills that ptxas reported for the kernels whose names
     hold one of `fragments`, and whether it serialised their `wgmma`s
-    (build.log's C7515 / C7520 lines); a spill raises."""
+    (build.log's C7515 / C7520 lines); a spill or a serialised `wgmma`
+    raises."""
     from transformer_latent_diffusion_tpu_torch.ops import _build
 
     name, found, serial = "?", {}, set()
@@ -269,12 +270,40 @@ def _ptxas_report(tag, fragments):
     if not found or any("0 bytes spill stores, 0 bytes spill loads" not in i.get("spills", "")
                         for i in found.values()):
         raise AssertionError(f"{fragments}: missing from build.log, or spilling")
+    if serialised:
+        raise AssertionError(f"ptxas serialised the wgmma of {serialised}")
 
 
 def _errors(out, ref):
     scale = float(ref.abs().max())
     err = float((out.float() - ref.float()).abs().max())
     return rel_l2(out.float(), ref.float()), err, err / max(scale, 1e-30)
+
+
+def dw_equal_work(h, dw, dwb, hw, out_dtype=torch.bfloat16):
+    """The same work as `dwconv_gelu` in PyTorch calls: the depthwise 3x3
+    convolution with its bias (`F.conv2d`, groups = C, on the channels-last
+    rows as stored), then `F.gelu` (exact erf), in h's dtype, cast to
+    `out_dtype` where that differs. The weights' re-layout is done once,
+    outside the timed call."""
+    F = torch.nn.functional
+    c = h.shape[1]
+    grid = h.view(-1, hw, hw, c).permute(0, 3, 1, 2)  # NCHW view, channels-last strides
+    w = dw.t().reshape(c, 1, 3, 3).to(h.dtype).contiguous(memory_format=torch.channels_last)
+    bias = dwb.reshape(-1).to(h.dtype)
+
+    def run():
+        y = F.gelu(F.conv2d(grid, w, bias, padding=1, groups=c))
+        return y if y.dtype == out_dtype else y.to(out_dtype)
+    return run
+
+
+def _bit_equal_twice(name, fn, tag):
+    """Two launches of `fn` on the same inputs give the same bits."""
+    a, b = _tuple(fn()), _tuple(fn())
+    if not all(torch.equal(u, v) for u, v in zip(a, b)):
+        raise AssertionError(f"{name}: two launches on the same inputs differ")
+    log(f"[{tag}] {name}: two launches bit-equal")
 
 
 def phase_kernels():
@@ -447,6 +476,16 @@ def phase_kernels():
     library["dwconv_gelu"] = None  # no one call: a depthwise conv, then a GELU
     for name, ms in library.items():
         log(f"[kernels] {name}: library call {ms if ms is None else f'{ms:.4f}'} ms")
+    # dwconv_gelu on its TMA body: two launches bit-equal, the equal-work
+    # yardstick (F.conv2d, groups = C, with bias, then F.gelu), ptxas
+    _bit_equal_twice("dwconv_gelu", lambda: fs.dwconv_gelu(hmat, dw, dwb, HW), "kernels")
+    eq_dw = time_ms(dw_equal_work(hmat, dw, dwb, HW))
+    library["dwconv_gelu (equal work)"] = eq_dw
+    ms = timing["dwconv_gelu"][0]
+    log(f"[kernels] dwconv_gelu: {ms:.4f} ms; equal-work yardstick (F.conv2d groups=C with "
+        f"bias + F.gelu, bf16) {eq_dw:.4f} ms: the kernel is "
+        f"{'no slower' if ms <= eq_dw else f'{ms / eq_dw:.2f}x slower'}")
+    _ptxas_report("kernels", ("dwconv_gelu_kernel",))
     # the same work as self_attention: SDPA, then its output added into the
     # float32 residual in place (SDPA alone writes bf16 and reads no residual)
     xv = xr.view(B, N, HEADS, 64)
@@ -783,20 +822,31 @@ def phase_int8_kernels():
         kw = dict(kw, residual=residual) if "residual" in kw else kw
         return fn(a, r, *w[name], **kw)
 
+    # a ragged last column tile: the QKV product of a 3-head (D = 192) layer
+    # is 576 wide; here on the flagship's rows
+    w["qkv576"] = q8.colquant(randn(576, D, std=D ** -0.5, dtype=torch.bfloat16))
+    products["qkv576"] = (xq, rs, {})
     for name in products:
         got = run(q8.gemm_i8, name, x.clone())
+        again = run(q8.gemm_i8, name, x.clone())
         want = run(q8.gemm_i8_plain, name, x)
         err = float((got.float() - want.float()).abs().max())
         rel = err / float(want.float().abs().max())
+        same = torch.equal(got, want)
         log(f"[int8-kernels] gemm_i8/{name} on the plain version's int8 operands: max-abs "
-            f"{err:.3e} ({rel:.2e} of max |ref|, bound {GEMM_I8_MAX_ABS})")
-        if not rel <= GEMM_I8_MAX_ABS:
+            f"{err:.3e} ({rel:.2e} of max |ref|, bound {GEMM_I8_MAX_ABS}), bit-equal to the "
+            f"plain version: {same}, two launches bit-equal: {torch.equal(got, again)}")
+        if not (rel <= GEMM_I8_MAX_ABS and same and torch.equal(got, again)):
             raise AssertionError(f"gemm_i8/{name} disagrees with its plain version")
         worst["gemm_i8"] = max(worst.get("gemm_i8", 0.0), err)
+    del products["qkv576"], got, again, want
+    _ptxas_report("int8-kernels", ("gemm_i8_kernel",))
     h = randn(m, HIDDEN)
     dw, dwb = randn(9, HIDDEN, std=1 / 3, dtype=torch.bfloat16), randn(HIDDEN, std=0.1)
     _check("dwconv_gelu float32 in and out", (fs.dwconv_gelu(h, dw, dwb, HW, out_dtype=f32),),
            (fs.dwconv_gelu_plain(h, dw, dwb, HW, out_dtype=f32),), "int8-kernels")
+    _bit_equal_twice("dwconv_gelu float32 in and out",
+                     lambda: fs.dwconv_gelu(h, dw, dwb, HW, out_dtype=f32), "int8-kernels")
     torch.cuda.synchronize()
 
     xr = x.clone()
@@ -825,6 +875,23 @@ def phase_int8_kernels():
     library = {"gemm_i8": time_ms(lambda: [torch._int_mm(products[k][0], w[k][0].t())
                                            for k in products]),
                "rowquant": None}  # no one call: a LayerNorm, a row max, a division, a round
+    F = torch.nn.functional
+
+    def quant_equal_work(rows, lnp):
+        # the same work as rowquant in PyTorch calls: F.layer_norm (where
+        # given), the row's |max|, its scale, the rounded int8 values
+        y = rows if lnp is None else F.layer_norm(rows, (rows.shape[1],), *lnp, 1e-5)
+        scale = y.abs().amax(-1, keepdim=True).clamp_min(1e-8) * (1.0 / 127.0)
+        return torch.round(y * (1.0 / scale)).to(torch.int8), scale
+
+    library["rowquant (equal work)"] = time_ms(
+        lambda: [quant_equal_work(x, ln) for _ in range(3)] + [quant_equal_work(act, None)])
+    log(f"[int8-kernels] rowquant: {timing['rowquant'][0]:.4f} ms a layer; equal-work "
+        f"yardstick (F.layer_norm + |max| + scale + round, 3 LN rows of 768 and one GELU row "
+        f"of 3072) {library['rowquant (equal work)']:.4f} ms")
+    log(f"[int8-kernels] dwconv_gelu float32 in and out: equal-work yardstick (F.conv2d "
+        f"groups=C with bias + F.gelu, float32) "
+        f"{time_ms(dw_equal_work(h, dw, dwb, HW, f32)):.4f} ms")
     # least time per layer: each input read once, each output written once
     gbytes = sum(mm * kk + nn * kk + 4 * (mm + nn) for mm, nn, kk in ops.values()) \
         + m * 3 * D * 2 + m * D * 2 + (m * HIDDEN * 4 + HIDDEN * 4) + (m * D * 8 + D * 4)
@@ -928,6 +995,148 @@ def phase_s1():
     return res
 
 
+# ------------------------------ every width 64 x n_heads ------------------------------
+
+# [widths]: the port at embed_dim = 64 x n_heads other than the flagship's
+# 768, where the kernels meet ragged tiles (N % 128 != 0), LayerNorm rows
+# past 768, more than 12 heads and rowquant rows past 3072. Two layers,
+# small batches: a check of the kernels at these widths, not a measurement
+WIDTHS_BF16_ENGINE = (192, 1024)
+WIDTHS_INT8_ENGINE = (64, 192)
+WIDTHS_TRAIN = (64, 192, 1024)
+WIDTHS_LAYERS, WIDTHS_B, WIDTHS_TB = 2, 16, 16
+
+
+def width_config(d, mlp_class="sep_conv"):
+    """The flagship deployment at embed_dim d (d / 64 heads), two layers."""
+    cfg = flagship_configs()
+    return dataclasses.replace(cfg, denoiser_cfg=dataclasses.replace(
+        cfg.denoiser_cfg, embed_dim=d, n_layers=WIDTHS_LAYERS, mlp_class=mlp_class))
+
+
+def _width_forward(d, quantize):
+    """One engine forward (bf16, or W8A8 with `quantize`) at embed_dim d
+    against the plain bf16 Denoiser (and, for W8A8, the plain int8 stack),
+    with the engine's launches."""
+    from transformer_latent_diffusion_tpu_torch.models.denoiser import Denoiser
+    from transformer_latent_diffusion_tpu_torch.models.fast_denoiser import make_fused_apply
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack_int8 as q8
+    from transformer_latent_diffusion_tpu_torch.utils.common import init_random_weights_
+
+    dev = torch.device(DEVICE)
+    den = width_config(d).denoiser_cfg
+    model = init_random_weights_(Denoiser.from_config(den, dtype=torch.bfloat16), 0).to(dev).eval()
+    g = torch.Generator(device="cpu").manual_seed(d)
+    x = torch.randn(WIDTHS_B, 4, den.image_size, den.image_size, generator=g).to(dev)
+    noise = torch.full((WIDTHS_B, 1), 0.5, device=dev)
+    label = torch.randn(WIDTHS_B, den.text_emb_size, generator=g).to(dev)
+    engine = make_fused_apply(den, compute_dtype=torch.bfloat16, quantize=quantize)
+    with torch.no_grad():
+        prepared = engine.prepare(model.state_dict())
+        _reset_counts()
+        out = engine.apply_prepared(prepared, x, noise, label)
+        launches = {k: v for k, v in _counts().items() if v}
+        ref = model(x, noise, label)
+        plain = None
+        if quantize:
+            tokens, cond, h, w = engine._prologue(model.state_dict(), x, noise, label)
+            for layer in prepared["layers"]:
+                tokens = q8.fused_layer_stack_int8_plain(tokens, cond, layer, h, engine.n_heads)
+            plain = engine._epilogue(model.state_dict(), tokens, h, w)
+    per_layer = q8.LAUNCHES_PER_LAYER if quantize else fs.LAUNCHES_PER_LAYER
+    expect = {k: v * den.n_layers for k, v in per_layer.items()}
+    r_ref = rel_l2(out, ref)
+    cos = float(torch.nn.functional.cosine_similarity(out.double().flatten(),
+                                                      ref.double().flatten(), dim=0))
+    if quantize:
+        r = rel_l2(out, plain)
+        log(f"[widths] W8A8 engine at D = {d} ({d // 64} heads), batch {WIDTHS_B}: vs the "
+            f"plain int8 stack rel-L2 {r:.5f} (bound {INT8_ENGINE_REL_L2}); vs the plain bf16 "
+            f"forward cos {cos:.6f} (bound {INT8_COSINE}), rel-L2 {r_ref:.5f}; launches "
+            f"{launches}")
+        ok = r < INT8_ENGINE_REL_L2 and cos > INT8_COSINE
+    else:
+        log(f"[widths] bf16 engine at D = {d} ({d // 64} heads), batch {WIDTHS_B}: vs the "
+            f"plain bf16 forward rel-L2 {r_ref:.5f} (bound {ENGINE_REL_L2}), cos {cos:.6f}; "
+            f"launches {launches}")
+        ok = r_ref < ENGINE_REL_L2
+    if not (torch.isfinite(out).all() and ok):
+        raise AssertionError(f"the {'W8A8' if quantize else 'bf16'} engine at D = {d} "
+                             f"disagrees with its plain version")
+    _require_launches(launches, expect, f"the engine at D = {d}")
+    del model, prepared
+
+
+def _width_step(d, mlp_class):
+    """One train step's gradients at embed_dim d with the kernels (K2 for
+    the sep-conv FFN, K6 for the dense MLP) against the plain bf16 autograd
+    Denoiser on the same weights and draws, per parameter group."""
+    from transformer_latent_diffusion_tpu_torch.configs import TrainConfig
+    from transformer_latent_diffusion_tpu_torch.models.denoiser import Denoiser
+    from transformer_latent_diffusion_tpu_torch.train import train as tt
+    from transformer_latent_diffusion_tpu_torch.utils.common import init_random_weights_
+
+    dev = torch.device(DEVICE)
+    den = width_config(d, mlp_class).denoiser_cfg
+    models = {}
+    for fused in (True, False):
+        mdl = Denoiser.from_config(den, dtype=torch.bfloat16, fused_layer_vjp=fused,
+                                   use_pallas=fused)
+        models[fused] = init_random_weights_(mdl, 0).to(dev).train()
+    gen = torch.Generator(device="cpu").manual_seed(d + 1)
+    x = torch.randn(WIDTHS_TB, 4, den.image_size, den.image_size, generator=gen).to(dev)
+    y = torch.randn(WIDTHS_TB, den.text_emb_size, generator=gen).to(dev)
+    tc = TrainConfig(batch_size=WIDTHS_TB)
+    loss_fn = tt.build_loss_fn(models[True], tc, 8.0)
+    draws = loss_fn.sample_draws(torch.Generator(device=dev).manual_seed(d + 2), x)
+    grads = {}
+    for fused, mdl in models.items():
+        _reset_counts()
+        loss_fn.loss_from_draws(mdl, x, y, **draws).backward()
+        if fused:
+            launches = {k: v for k, v in _counts().items() if v}
+        grads[fused] = {k: p.grad.float() for k, p in mdl.named_parameters()}
+    groups = _param_groups(grads[False])
+    stats = {}
+    for name in sorted(set(groups.values())):
+        keys = [k for k, v in groups.items() if v == name]
+        u = torch.cat([grads[True][k].flatten() for k in keys]).double()
+        w = torch.cat([grads[False][k].flatten() for k in keys]).double()
+        stats[name] = float((u - w).norm() / w.norm())
+    route = "K2" if mlp_class == "sep_conv" else "K6"
+    bound_ = STEP_GRAD_REL_L2 if mlp_class == "sep_conv" else FFN_GRAD_REL_L2[mlp_class]
+    log(f"[widths] {route} train step at D = {d} ({d // 64} heads), batch {WIDTHS_TB}: "
+        f"gradients vs plain bf16 autograd per group (rel-L2) "
+        + ", ".join(f"{k} {v:.5f}" for k, v in stats.items()) + f" (bound {bound_}); "
+        f"launches {launches}")
+    if not all(v < bound_ for v in stats.values()):
+        raise AssertionError(f"the {route} step at D = {d} disagrees with the plain path")
+    need = (("weight_grad", "layernorm_bwd", "cross_attention_bwd", "self_attention_bwd",
+             "dwconv_gelu_bwd") if route == "K2" else
+            ("fused_attention_pair_vjp", "fused_attention_pair_vjp_bwd"))
+    missing = [k for k in need if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"the {route} step at D = {d} launched no {missing}")
+    del models, grads
+
+
+def phase_widths():
+    """[widths]: the bf16 engine at D = 192 and 1024, the W8A8 engine at D
+    = 64 and 192, one K2 (sep-conv) and one K6 (dense MLP) train step at D
+    = 64, 192 and 1024, each against its plain bf16 version."""
+    t0 = time.perf_counter()
+    for d in WIDTHS_BF16_ENGINE:
+        _width_forward(d, None)
+    for d in WIDTHS_INT8_ENGINE:
+        _width_forward(d, "int8")
+    for d in WIDTHS_TRAIN:
+        _width_step(d, "sep_conv")
+        _width_step(d, "mlp")
+    torch.cuda.empty_cache()
+    log(f"[widths] done in {time.perf_counter() - t0:.1f} s")
+
+
 # ------------------------------ hi-res serving (K3, K5) ------------------------------
 
 
@@ -1007,6 +1216,11 @@ def phase_hires_kernels():
         a = fs.dwconv_gelu(h, dw, dwb, HR_HW)
         _check("dwconv_gelu float32 row bands hw=32", (a,),
                (fs.dwconv_gelu_plain(h, dw, dwb, HR_HW),), "hires-kernels")
+        _bit_equal_twice("dwconv_gelu float32 row bands hw=32",
+                         lambda: fs.dwconv_gelu(h, dw, dwb, HR_HW), "hires-kernels")
+        log(f"[hires-kernels] dwconv_gelu row bands: equal-work yardstick (F.conv2d groups=C "
+            f"with bias + F.gelu in float32, then bf16) "
+            f"{time_ms(dw_equal_work(h, dw, dwb, HR_HW)):.4f} ms")
         parts = {"ln_gemm expand (float32 h)": lambda: fs.ln_gemm(x2, w1, bias=b1,
                                                                   out_dtype=torch.float32),
                  "dwconv_gelu row bands": lambda: fs.dwconv_gelu(h, dw, dwb, HR_HW),
@@ -1344,6 +1558,8 @@ def phase_train_kernels():
            fs.ln_gemm_plain(x, w1[:D].contiguous(), ln=ln, return_xn=True), "train-kernels")
     _check("dwconv_gelu/float32 in, c out", fs.dwconv_gelu(h, dw, dwb, HW, return_c=True),
            fs.dwconv_gelu_plain(h, dw, dwb, HW, return_c=True), "train-kernels")
+    _bit_equal_twice("dwconv_gelu/float32 in, c out",
+                     lambda: fs.dwconv_gelu(h, dw, dwb, HW, return_c=True), "train-kernels")
     torch.cuda.synchronize()
     timing = time_against_plain(timed, "train-kernels")
     # the attention backwards' yardstick: autograd through SDPA on the same
@@ -1365,6 +1581,23 @@ def phase_train_kernels():
     cout = F.scaled_dot_product_attention(*cs)
     ca_sdpa = time_ms(lambda: torch.autograd.grad(cout, cs, dout, retain_graph=True))
     del hs, out, kvh, cs, cout, dout
+    # equal-work yardsticks of the two backwards with no one library call:
+    # layernorm_bwd's three calls as three aten LayerNorm backwards (dx,
+    # dscale, dbias; the forward's statistics computed beforehand, untimed),
+    # and dwconv_gelu_bwd as autograd's backward alone through the same
+    # conv (groups = C, with bias) and F.gelu in float32
+    lnb = randn(D, std=0.1)
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [D], scale, lnb, 1e-5)
+    ln_eq = time_ms(lambda: [torch.ops.aten.native_layer_norm_backward(
+        g32, x, [D], mean, rstd, scale, lnb, [True, True, True]) for _ in range(3)])
+    hg = h.detach().view(TB, HW, HW, HIDDEN).permute(0, 3, 1, 2).requires_grad_(True)
+    wg_ = dw.float().t().reshape(HIDDEN, 1, 3, 3).contiguous(
+        memory_format=torch.channels_last).requires_grad_(True)
+    bg = dwb.detach().clone().requires_grad_(True)
+    dwo = F.gelu(F.conv2d(hg, wg_, bg, padding=1, groups=HIDDEN))
+    dag = da.view(TB, HW, HW, HIDDEN).permute(0, 3, 1, 2)
+    dw_eq = time_ms(lambda: torch.autograd.grad(dwo, (hg, wg_, bg), dag, retain_graph=True))
+    del hg, wg_, bg, dwo, dag, mean, rstd
     library = {
         "weight_grad": time_ms(lambda: [u.t() @ v for u, v in wg_cases]),
         "colsum": time_ms(lambda: g32.sum(0)),
@@ -1373,7 +1606,12 @@ def phase_train_kernels():
         "layernorm_bwd": None, "dwconv_gelu_bwd": None,
         "self_attention_bwd": sa_sdpa, "cross_attention_bwd": ca_sdpa,
         "self_attention_bwd (equal work)": sa_eq,
+        "layernorm_bwd (equal work)": ln_eq, "dwconv_gelu_bwd (equal work)": dw_eq,
     }
+    for name, eq in (("layernorm_bwd", ln_eq), ("dwconv_gelu_bwd", dw_eq)):
+        ms = timing[name][0]
+        log(f"[train-kernels] {name}: {ms:.4f} ms; equal-work yardstick {eq:.4f} ms: the "
+            f"kernel is {'no slower' if ms <= eq else f'{ms / eq:.2f}x slower'}")
     log(f"[train-kernels] library calls (ms): {library}")
     ms = timing["self_attention_bwd"][0]
     log(f"[train-kernels] self_attention_bwd: {ms:.4f} ms; equal-work yardstick (the "
@@ -2958,6 +3196,7 @@ def main():
                       "int8-serving")
     torch.cuda.empty_cache()
     s1 = phase_s1()
+    phase_widths()
 
     h_worst, h_timing, h_library, h_bounds = phase_hires_kernels()
     torch.cuda.empty_cache()

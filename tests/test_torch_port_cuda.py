@@ -796,3 +796,193 @@ def test_self_attention_bwd_partial_last_wave_on_card():
     for u, w in zip(got.split(d, -1), want.split(d, -1)):
         assert _close(u.float(), w.float())
     assert torch.equal(got, again)
+
+
+# ------------- every width 64 x n_heads; gemm_i8 and dwconv_gelu on TMA -------------
+
+WIDTHS = (64, 192, 1024)  # embed_dim: 1, 3 and 16 heads
+WIDE_KERNELS = ("ln_gemm", "weight_grad", "layernorm_bwd", "cross_attention",
+                "cross_attention_bwd", "rowquant", "gemm_i8")
+
+
+def _width_cases(name, d):
+    """(kernel call, plain call) pairs of `name` at embed_dim d: the shapes
+    a layer of that width gives it (2 images of a 16 x 16 grid, ragged
+    tiles wherever d % 128 != 0), inputs from a seed."""
+    gen = torch.Generator().manual_seed(d)
+    b, n, heads, hid = 2, 256, d // 64, 4 * d
+    m = b * n
+
+    def r(*s, std=1.0, base=0.0, dtype=torch.float32):
+        return (base + torch.randn(*s, generator=gen) * std).to("cuda", dtype)
+
+    bf = torch.bfloat16
+    x, ln = r(m, d, base=0.5), (r(d, std=0.1, base=1.0), r(d, std=0.1))
+    if name == "ln_gemm":
+        xn, act, cond = r(m, d, dtype=bf), r(m, hid, dtype=bf), r(2 * b, d, dtype=bf)
+        w = {k: r(nn, kk, std=kk ** -0.5, dtype=bf) for k, (nn, kk) in {
+            "qkv": (3 * d, d), "q": (d, d), "kv": (2 * d, d), "w1": (hid, d),
+            "w2": (d, hid)}.items()}
+        b1, b2 = r(hid, std=0.1), r(d, std=0.1)
+        return [
+            (lambda: fs.ln_gemm(x, w["qkv"], ln=ln), lambda: fs.ln_gemm_plain(x, w["qkv"], ln=ln)),
+            (lambda: fs.ln_gemm(x, w["q"], ln=ln, return_xn=True),
+             lambda: fs.ln_gemm_plain(x, w["q"], ln=ln, return_xn=True)),
+            (lambda: fs.ln_gemm(cond, w["kv"]), lambda: fs.ln_gemm_plain(cond, w["kv"])),
+            (lambda: fs.ln_gemm(xn, w["w1"], bias=b1, out_dtype=torch.float32),
+             lambda: fs.ln_gemm_plain(xn, w["w1"], bias=b1, out_dtype=torch.float32)),
+            (lambda: fs.ln_gemm(act, w["w2"], bias=b2, residual=x.clone()) - x,
+             lambda: fs.ln_gemm_plain(act, w["w2"], bias=b2, residual=x) - x),
+            # the backward's dX = dY W: W (hid, d) read as stored
+            (lambda: fs.ln_gemm(act, w["w1"], w_transposed=True, out_dtype=torch.float32),
+             lambda: fs.ln_gemm_plain(act, w["w1"], w_transposed=True, out_dtype=torch.float32)),
+        ]
+    if name == "weight_grad":  # the five dW of a layer: dW2, dW1, dWq, dWkv, dWqkv
+        pairs = [(r(m, nn, std=1e-2, dtype=bf), r(m, kk, dtype=bf))
+                 for nn, kk in ((d, hid), (hid, d), (d, d), (2 * d, d), (3 * d, d))]
+        return [(lambda p=p: lv.weight_grad(*p), lambda p=p: lv.weight_grad_plain(*p))
+                for p in pairs]
+    if name == "layernorm_bwd":
+        dy, ups = r(m, d), r(m, d)
+        return [(lambda: lv.layernorm_bwd(dy, x, ln[0], ups),
+                 lambda: lv.layernorm_bwd_plain(dy, x, ln[0], ups))]
+    qc, kv = r(m, d, dtype=bf), r(2 * b, 2 * d, dtype=bf)
+    if name == "cross_attention":
+        def update(out):  # the residual's update and the LN3 rows
+            return (out[0] - x,) + ((out[1],) if out[1] is not None else ())
+
+        return [(lambda: update(fs.cross_attention(qc, kv, x.clone(), ln, heads, n)),
+                 lambda: update(fs.cross_attention_plain(qc, kv, x, ln, heads, n))),
+                (lambda: update(fs.cross_attention(qc, kv, x.clone(), None, heads, n)),
+                 lambda: update(fs.cross_attention_plain(qc, kv, x, None, heads, n)))]
+    if name == "cross_attention_bwd":
+        dout = r(m, d, std=0.1)
+        return [(lambda: lv.cross_attention_bwd(qc, kv, dout, heads, n),
+                 lambda: lv.cross_attention_bwd_plain(qc, kv, dout, heads, n))]
+    if name == "rowquant":
+        act = torch.nn.functional.gelu(r(m, hid))
+        return [(lambda: q8.rowquant(x, ln), lambda: q8.rowquant_plain(x, ln)),
+                (lambda: q8.rowquant(act), lambda: q8.rowquant_plain(act))]
+    xq, rs = q8.rowquant_plain(x, ln)
+    aq, ars = q8.rowquant_plain(torch.nn.functional.gelu(r(m, hid)))
+    w = {k: q8.colquant(r(nn, kk, std=kk ** -0.5, dtype=bf)) for k, (nn, kk) in {
+        "qkv": (3 * d, d), "q": (d, d), "w1": (hid, d), "w2": (d, hid)}.items()}
+    b1, b2 = r(hid, std=0.1), r(d, std=0.1)
+    return [
+        (lambda: q8.gemm_i8(xq, rs, *w["qkv"]), lambda: q8.gemm_i8_plain(xq, rs, *w["qkv"])),
+        (lambda: q8.gemm_i8(xq, rs, *w["q"]), lambda: q8.gemm_i8_plain(xq, rs, *w["q"])),
+        (lambda: q8.gemm_i8(xq, rs, *w["w1"], bias=b1, out_dtype=torch.float32),
+         lambda: q8.gemm_i8_plain(xq, rs, *w["w1"], bias=b1, out_dtype=torch.float32)),
+        (lambda: q8.gemm_i8(aq, ars, *w["w2"], bias=b2, residual=x.clone()),
+         lambda: q8.gemm_i8_plain(aq, ars, *w["w2"], bias=b2, residual=x)),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("name", WIDE_KERNELS)
+def test_widened_kernel_matches_plain_on_card(name, d):
+    """Each kernel that took only the flagship's widths, at embed_dim 64,
+    192 and 1024 (ragged N and K tiles, LayerNorm rows past 768, more than
+    12 heads, rowquant rows past its 3072-wide register path) against its
+    plain version: rel-L2 < 1e-2 and max-abs < 2e-2 of the scale per
+    output; gemm_i8 bit-equal on the same int8 operands; rowquant's int8
+    values within one step in under 0.1% of elements."""
+    _need_card()
+    for kern, plain in _width_cases(name, d):
+        got, want = _tuple(kern()), _tuple(plain())
+        torch.cuda.synchronize()
+        for u, w in zip(got, want):
+            if name == "gemm_i8":
+                torch.testing.assert_close(u, w, atol=0, rtol=0)
+            elif u.dtype == torch.int8:
+                diff = (u.int() - w.int()).abs()
+                assert diff.max() <= 1 and (diff > 0).float().mean() < 1e-3
+            elif name == "rowquant":
+                torch.testing.assert_close(u, w, atol=0, rtol=1e-6)
+            else:
+                assert _close(u.float(), w.float()), (name, d)
+
+
+GEMM_I8_MODES = ("bf16", "f32_bias", "residual")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", GEMM_I8_MODES)
+@pytest.mark.parametrize("n", [192, 576, 4096])
+def test_gemm_i8_ragged_n_is_bit_exact_on_card(n, mode):
+    """gemm_i8 on TMA + wgmma at N = 192 and 576 (a ragged last 256-wide
+    column tile) and 4096, K = 1024, M = 1000 (a ragged last row block), in
+    each epilogue mode: bit-equal to its plain version on the same int8
+    operands (exact integer sums, the same float32 roundings), and two
+    launches bit-equal (one writer per element)."""
+    _need_card()
+    gen = torch.Generator().manual_seed(n)
+    m, k = 1000, 1024
+    xq = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8).cuda()
+    wq = torch.randint(-127, 128, (n, k), generator=gen, dtype=torch.int8).cuda()
+    rs = (torch.rand(m, 1, generator=gen) * 1e-2).cuda()
+    cs = (torch.rand(1, n, generator=gen) * 1e-2).cuda()
+    bias = torch.randn(n, generator=gen).cuda()
+    res = torch.randn(m, n, generator=gen).cuda()
+    kw = {"bf16": {}, "f32_bias": {"bias": bias, "out_dtype": torch.float32},
+          "residual": {"bias": bias}}[mode]
+
+    def run(fn):
+        extra = {"residual": res.clone()} if mode == "residual" else {}
+        return fn(xq, rs, wq, cs, **kw, **extra)
+
+    got, again, want = run(q8.gemm_i8), run(q8.gemm_i8), run(q8.gemm_i8_plain)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert torch.equal(got, again)
+
+
+DW_CASES = [("bf16", {}), ("f32_h_c", {"h32": True, "return_c": True}),
+            ("f32_out", {"h32": True, "out_dtype": torch.float32})]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [c[0] for c in DW_CASES])
+@pytest.mark.parametrize("hw", [16, 32])
+@pytest.mark.parametrize("c", [256, 3072])
+def test_dwconv_gelu_modes_match_plain_on_card(c, hw, mode):
+    """dwconv_gelu's TMA body in each mode (bf16 h and out; float32 h with
+    the float32 c; float32 h and out) at C = 256 and 3072 on a 16 x 16 and
+    a 32 x 32 grid (float32 at hw 32 takes the row-band body): against its
+    plain version (rel-L2 < 1e-2, max-abs < 2e-2 of the scale per output),
+    and two launches bit-equal."""
+    _need_card()
+    gen = torch.Generator().manual_seed(c + hw)
+    opts = dict(next(o for name, o in DW_CASES if name == mode))
+    h32 = opts.pop("h32", False)
+    b = 3
+    h = torch.randn(b * hw * hw, c, generator=gen).to("cuda", torch.float32 if h32 else torch.bfloat16)
+    dw = (torch.randn(9, c, generator=gen) / 3).to("cuda", torch.bfloat16)
+    dwb = (torch.randn(c, generator=gen) * 0.1).cuda()
+    got = _tuple(fs.dwconv_gelu(h, dw, dwb, hw, **opts))
+    again = _tuple(fs.dwconv_gelu(h, dw, dwb, hw, **opts))
+    want = _tuple(fs.dwconv_gelu_plain(h, dw, dwb, hw, **opts))
+    torch.cuda.synchronize()
+    for u, a, w in zip(got, again, want):
+        assert u.dtype == w.dtype and _close(u.float(), w.float())
+        assert torch.equal(u, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1280, 2048])
+def test_ln_gemm_layernorm_past_1024_on_card(k):
+    """ln_gemm's LayerNorm prologue on rows wider than the 1024 a warp holds
+    in registers (embed_dim 1280 and 2048: each row read three times, in
+    the register path's summation order), with the normalised rows out:
+    against its plain version (rel-L2 < 1e-2, max-abs < 2e-2 of the
+    scale), two launches bit-equal."""
+    _need_card()
+    a, w, _, lnp = _gemm_inputs(300, k, 3 * k // 2, True)
+    want = fs.ln_gemm_plain(a, w, ln=lnp, return_xn=True)
+    got = fs.ln_gemm(a, w, ln=lnp, return_xn=True)
+    again = fs.ln_gemm(a, w, ln=lnp, return_xn=True)
+    torch.cuda.synchronize()
+    for u, v, x in zip(got, want, again):
+        assert _close(u.float(), v.float())
+        assert torch.equal(u, x)

@@ -13,8 +13,14 @@ from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
 # 512 px, 16 x 4096 at 1024 px), the cond rows 2 x 128, and ragged M
 FIVE = [(32768, 768, 3072), (32768, 3072, 768), (32768, 768, 768), (256, 1536, 768),
         (32768, 2304, 768)]
+# the five products at the widths 64 x n_heads the JAX package runs (D =
+# 64, 192, 1024: ragged last tiles where N % 128 or K % 256 != 0)
+WIDTHS = [(m, n, k) for d in (64, 192, 1024)
+          for m, n, k in ((8192, d, 4 * d), (8192, 4 * d, d), (8192, d, d), (128, 2 * d, d),
+                          (8192, 3 * d, d))]
 SHAPES = FIVE + [(65536, n, k) for _, n, k in FIVE] + [
-    (16, 1536, 768), (8192 + 32, 768, 3072), (8224, 256, 128), (100, 128, 384)]
+    (16, 1536, 768), (8192 + 32, 768, 3072), (8224, 256, 128), (100, 128, 384)] + WIDTHS + [
+    (8192, n, k) for n in (64, 192, 576, 1024) for k in (64, 192, 576, 1024)]
 SMS = [132, 114, 78, 7]
 
 
@@ -29,7 +35,7 @@ def test_plan_covers_each_tile_stage_once(m, n, k, sms):
     starts inside M, so it is whole or its rows past M are masked by the
     tensor map (only the last stage of a ragged M)."""
     plan = lv.weight_grad_plan(m, n, k, sms)
-    assert plan.tiles == (n // 128) * -(-k // 256)
+    assert plan.tiles == -(-n // 128) * -(-k // 256)
     assert plan.depth == -(-m // 64)
     spans = {}
     for tr, tc, lo, cnt, _, _, _, tile in _records(plan):
@@ -121,7 +127,7 @@ def test_plan_keeps_sms_on_the_same_rows():
     assert max(first_offsets) <= 2 * plan.depth // plan.blocks
 
 
-@pytest.mark.parametrize("m,n,k", [(0, 128, 128), (64, 100, 128), (64, 128, 64)])
+@pytest.mark.parametrize("m,n,k", [(0, 128, 128), (64, 100, 128), (64, 128, 60)])
 def test_plan_rejects_shapes_the_kernel_does_not_take(m, n, k):
     with pytest.raises(ValueError):
         lv.weight_grad_plan(m, n, k, 132)

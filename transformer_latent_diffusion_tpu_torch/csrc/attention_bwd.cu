@@ -493,7 +493,6 @@ int launch_self(const void* qkv, const float* dout, void* dqkv, int B, int N, in
 // ------------------------------ cross-attention ------------------------------
 
 constexpr int CA_WARPS = 8;
-constexpr int MAX_HEADS = 12;
 
 __global__ void __launch_bounds__(CA_WARPS * 32)
 cross_attention_bwd_kernel(const bf16* __restrict__ qc, const bf16* __restrict__ kv,
@@ -575,10 +574,11 @@ LTD_API int ltd_self_attention_bwd(const void* qkv, const float* dout, void* dqk
 // qc: (B*N, D) bf16 queries; kv: (B*2, 2D) bf16, row 2b+j = [k | v] of
 // conditioning token j; dout: (B*N, D) float32, the gradient of the
 // attention's output (rounded to bf16 here); dqc: (B*N, D) bf16; dkv:
-// (B*2, 2D) bf16 in kv's layout. Requires D == H * 64 and H <= 12.
+// (B*2, 2D) bf16 in kv's layout. Requires D == H * 64 (one block per
+// (head, batch element): any number of heads).
 LTD_API int ltd_cross_attention_bwd(const void* qc, const void* kv, const float* dout, void* dqc,
                                     void* dkv, int B, int N, int D, int H, void* stream) {
-  if (D != H * DH || H > MAX_HEADS) return static_cast<int>(cudaErrorInvalidValue);
+  if (H < 1 || D != H * DH) return static_cast<int>(cudaErrorInvalidValue);
   cross_attention_bwd_kernel<<<dim3(H, B), CA_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(qc), static_cast<const bf16*>(kv), dout, static_cast<bf16*>(dqc),
       static_cast<bf16*>(dkv), N, D);

@@ -15,11 +15,15 @@
 // with 4-byte (2-element) accesses so that a warp covers one head's 64
 // columns in one 128-byte transaction. One warp per token, 8 tokens per
 // block; the batch's 2 x 2D conditioning K/V are staged once per block in
-// shared memory. The two dot products per head are warp-shuffle sums in
+// shared memory (8 bytes per channel; above 48 KB, D > 6144, the kernel
+// asks for the larger dynamic shared memory). The two dot products per
+// head are warp-shuffle sums in
 // float32, the 2-way softmax is float32, the two probabilities are rounded
 // to bf16 before they weigh V (as the TPU kernel rounds P before its P.V
 // product), and the result is added into the residual in float32. Because
-// the warp then holds the whole updated row in registers, it also takes
+// the warp then holds the whole updated row in registers (up to 12 heads;
+// the heads past 12 it reads back from the row it has just written, in
+// the same order, so any number of heads sums alike), it also takes
 // the row's float32 LayerNorm statistics (two passes, eps 1e-5) and writes
 // the normalised, scaled, shifted row rounded to bf16: the A operand of the
 // expand product, which can then stream bf16 rows instead of normalising
@@ -44,7 +48,7 @@ namespace {
 
 constexpr int TOKENS_PER_BLOCK = 8;
 constexpr int THREADS = 32 * TOKENS_PER_BLOCK;
-constexpr int MAX_HEADS = 12;  // D <= 768
+constexpr int MAX_HEADS = 12;  // heads whose updated row a lane keeps in registers
 constexpr float LN_EPS = 1e-5f;
 
 template <bool SUMMED>
@@ -85,44 +89,44 @@ cross_attention_kernel(const bf16* __restrict__ qc, const bf16* __restrict__ kv,
   float p0_all = 0.f, p1_all = 0.f;  // SUMMED: one pair for every head
   if constexpr (SUMMED) {
     float a0s = 0.f, a1s = 0.f;
-#pragma unroll
-    for (int h = 0; h < MAX_HEADS; ++h) {
-      if (h < n_heads) {
-        const int c = h * 32 + lane;
-        const float2 q = __bfloat1622float2(q2[c]);
-        const float2 a0 = __bfloat1622float2(k0[c]);
-        const float2 a1 = __bfloat1622float2(k1[c]);
-        a0s += q.x * a0.x + q.y * a0.y;
-        a1s += q.x * a1.x + q.y * a1.y;
-      }
+    for (int h = 0; h < n_heads; ++h) {
+      const int c = h * 32 + lane;
+      const float2 q = __bfloat1622float2(q2[c]);
+      const float2 a0 = __bfloat1622float2(k0[c]);
+      const float2 a1 = __bfloat1622float2(k1[c]);
+      a0s += q.x * a0.x + q.y * a0.y;
+      a1s += q.x * a1.x + q.y * a1.y;
     }
     probs(warp_sum(a0s) * scale, warp_sum(a1s) * scale, p0_all, p1_all);
   }
 
+  // heads' updated pairs: in registers up to MAX_HEADS; past them, read back
   float2 xr[MAX_HEADS];
+  auto updated = [&](int h) { return x2[h * 32 + lane]; };
   float sum = 0.f;
-#pragma unroll
-  for (int h = 0; h < MAX_HEADS; ++h) {
-    if (h < n_heads) {
-      const int c = h * 32 + lane;  // bf16 pair index within the row
-      float p0 = p0_all, p1 = p1_all;
-      if constexpr (!SUMMED) {
-        const float2 q = __bfloat1622float2(q2[c]);
-        const float2 a0 = __bfloat1622float2(k0[c]);
-        const float2 a1 = __bfloat1622float2(k1[c]);
-        probs(warp_sum(q.x * a0.x + q.y * a0.y) * scale, warp_sum(q.x * a1.x + q.y * a1.y) * scale,
-              p0, p1);
-      }
-      const float2 b0 = __bfloat1622float2(v0[c]);
-      const float2 b1 = __bfloat1622float2(v1[c]);
-      float2 x = x2[c];
-      x.x += p0 * b0.x + p1 * b1.x;
-      x.y += p0 * b0.y + p1 * b1.y;
-      x2[c] = x;
-      xr[h] = x;
-      sum += x.x + x.y;
+  auto attend = [&](int h) {
+    const int c = h * 32 + lane;  // bf16 pair index within the row
+    float p0 = p0_all, p1 = p1_all;
+    if constexpr (!SUMMED) {
+      const float2 q = __bfloat1622float2(q2[c]);
+      const float2 a0 = __bfloat1622float2(k0[c]);
+      const float2 a1 = __bfloat1622float2(k1[c]);
+      probs(warp_sum(q.x * a0.x + q.y * a0.y) * scale, warp_sum(q.x * a1.x + q.y * a1.y) * scale,
+            p0, p1);
     }
-  }
+    const float2 b0 = __bfloat1622float2(v0[c]);
+    const float2 b1 = __bfloat1622float2(v1[c]);
+    float2 x = x2[c];
+    x.x += p0 * b0.x + p1 * b1.x;
+    x.y += p0 * b0.y + p1 * b1.y;
+    x2[c] = x;
+    sum += x.x + x.y;
+    return x;
+  };
+#pragma unroll
+  for (int h = 0; h < MAX_HEADS; ++h)
+    if (h < n_heads) xr[h] = attend(h);
+  for (int h = MAX_HEADS; h < n_heads; ++h) attend(h);
 
   if (xn == nullptr) return;
   // LN3 of the updated row: float32 mean, then mean of squared deviations
@@ -135,18 +139,23 @@ cross_attention_kernel(const bf16* __restrict__ qc, const bf16* __restrict__ kv,
       sq += d0 * d0 + d1 * d1;
     }
   }
+  for (int h = MAX_HEADS; h < n_heads; ++h) {
+    const float2 x = updated(h);
+    const float d0 = x.x - mean, d1 = x.y - mean;
+    sq += d0 * d0 + d1 * d1;
+  }
   const float rstd = rsqrtf(warp_sum(sq) / D + LN_EPS);
   uint32_t* xn2 = reinterpret_cast<uint32_t*>(xn + row * D);
+  auto normalise = [&](int h, float2 x) {
+    const int c = h * 32 + lane;
+    const float2 sc = reinterpret_cast<const float2*>(ln_s)[c];
+    const float2 sh = reinterpret_cast<const float2*>(ln_b)[c];
+    xn2[c] = pack_bf16x2((x.x - mean) * rstd * sc.x + sh.x, (x.y - mean) * rstd * sc.y + sh.y);
+  };
 #pragma unroll
-  for (int h = 0; h < MAX_HEADS; ++h) {
-    if (h < n_heads) {
-      const int c = h * 32 + lane;
-      const float2 sc = reinterpret_cast<const float2*>(ln_s)[c];
-      const float2 sh = reinterpret_cast<const float2*>(ln_b)[c];
-      xn2[c] = pack_bf16x2((xr[h].x - mean) * rstd * sc.x + sh.x,
-                           (xr[h].y - mean) * rstd * sc.y + sh.y);
-    }
-  }
+  for (int h = 0; h < MAX_HEADS; ++h)
+    if (h < n_heads) normalise(h, xr[h]);
+  for (int h = MAX_HEADS; h < n_heads; ++h) normalise(h, updated(h));
 }
 
 }  // namespace
@@ -156,14 +165,20 @@ cross_attention_kernel(const bf16* __restrict__ qc, const bf16* __restrict__ kv,
 // in place. ln_s, ln_b: (D,) float32, the LayerNorm after the residual add;
 // xn: (B*N, D) bf16, the normalised rows, or null (then ln_s and ln_b are
 // not read). summed != 0: one head as wide as D (see the header). Requires
-// D == n_heads * 64 and n_heads <= 12.
+// D == n_heads * 64 (any n_heads >= 1 whose 8 D bytes of K/V fit a block's
+// shared memory: D <= 29056).
 LTD_API int ltd_cross_attention(const void* qc, const void* kv, float* resid, const float* ln_s,
                                 const float* ln_b, void* xn, int B, int N, int D, int n_heads,
                                 int summed, void* stream) {
-  if (n_heads > MAX_HEADS) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_heads < 1 || D != n_heads * 64) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid((N + TOKENS_PER_BLOCK - 1) / TOKENS_PER_BLOCK, B);
   const size_t smem = static_cast<size_t>(4) * D * sizeof(bf16);
   auto kernel = summed ? cross_attention_kernel<true> : cross_attention_kernel<false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(qc), static_cast<const bf16*>(kv), resid, ln_s, ln_b,
       static_cast<bf16*>(xn), N, D, n_heads, 0.125f);

@@ -3,70 +3,76 @@
 // Replaces the depthwise convolution and GELU of
 // transformer_latent_diffusion_tpu/ops/fused_stack.py::_layer_stack_kernel
 // (fused_stack.py:84-88: `_dw_fwd` from ops/fused_mlp_vjp.py:68 and
-// `_gelu_exact` from ops/fused_block.py:60).
+// `_gelu_exact` from ops/fused_block.py:60). The same body serves three
+// more TPU kernels: the training layer's forward
+// (transformer_latent_diffusion_tpu/ops/fused_layer_vjp.py::_mlp_fwd,
+// :99-112), which keeps the expanded hidden state h and the convolution's
+// output c in float32 (float32 input; c stored as well, for GELU'(c) in the
+// backward); the hi-res sep-conv MLP's forward
+// (transformer_latent_diffusion_tpu/ops/fused_mlp_vjp.py::_pallas_fwd,
+// :182-205, float32 h at hw = 32); and the W8A8 layer
+// (transformer_latent_diffusion_tpu/ops/fused_stack_int8.py::_layer_stack_int8_kernel,
+// :92-99), which quantizes the GELU output in float32 (rowquant.cu reads
+// it), so `out_f32` stores it as float32, unrounded.
+//
+// What it computes: everything in float32 in the TPU kernel's summation
+// order (row taps per column shift first, then the three column shifts),
+// + dwb, then the exact erf GELU (`erff`; the TPU kernel's polynomial only
+// stood in for a missing erf), rounded to the output type once.
 //
 // What bounds it on the H100: 9 multiply-adds and one erf per element
-// against 4 bytes moved (bf16 in, bf16 out): memory-bound (3.35 TB/s).
+// against 4 bytes moved (bf16 in, bf16 out; 8 for float32 in, 12 with
+// float32 out or c) make it memory-bound on paper (3.35 TB/s), but the
+// instructions it issues per element (the taps, the bf16 widening,
+// `erff`, which computes both of its polynomials and selects, the GELU)
+// take longer than the bytes: at batch 64 and 3072 channels, 50M elements
+// against 0.060 ms of bytes. So the slab's copy has to overlap the
+// arithmetic, and the arithmetic has to be lean.
 //
-// What this design does about that: one block per (image, 64 channels)
-// copies that slab of the whole hw x hw grid into shared memory once, with
-// a ring of zeros as the padding (18 x 18 x 64 bf16 = 41 KB at hw = 16), so
-// device memory sees exactly one read and one write per element and the 9
-// neighbour reads of every output come from shared memory. Each thread owns
-// 8 channels (16-byte loads and stores; a warp reads 512 contiguous bytes
-// of shared memory, conflict-free) and keeps their 9 taps and bias in
-// registers while it walks over pixels. Everything in float32 in the TPU
-// kernel's summation order (row taps per column shift first, then the three
-// column shifts), + dwb, then the exact erf GELU (`erff`; the TPU kernel's
-// polynomial only stood in for a missing erf), rounded to bf16 once.
-//
-// The training layer (TPU kernel
-// transformer_latent_diffusion_tpu/ops/fused_layer_vjp.py::_mlp_fwd,
-// :99-112) keeps the expanded hidden state h and the convolution's output
-// c in float32 and rounds only the GELU output to bf16; for it the kernel
-// is instantiated with float32 input (the slab in shared memory is then
-// 83 KB) and optionally also stores c (float32), which the backward reads
-// for GELU'(c).
-//
-// The W8A8 engine (TPU kernel
-// transformer_latent_diffusion_tpu/ops/fused_stack_int8.py::_layer_stack_int8_kernel,
-// :92-99) feeds the float32 hidden state and quantizes the GELU output in
-// float32 (ops/fused_stack_int8.py: rowquant.cu reads it), so `out_f32`
-// stores the GELU output as float32, unrounded (twice the bytes out).
-//
-// Two bodies, one per template flag. The whole-grid body (above; one block
-// per (image, 64 channels)) holds a (hw+2)^2 x 64 slab: bf16 up to hw = 40,
-// float32 up to hw = 28 within the 227 KB a block may use. The row-band
-// body serves larger grids, such as the float32 hidden state of the hi-res
-// sep-conv MLP (TPU kernel
-// transformer_latent_diffusion_tpu/ops/fused_mlp_vjp.py::_pallas_fwd,
-// :182-205, at hw = 32: 34 x 34 x 64 float32 = 296 KB would not fit): one
-// block per (band of `band` grid rows, 64 channels, image) stages the band
-// plus a one-row halo above and below, (band+2) x (hw+2) x 64 (87 KB for
-// 8 rows of float32 at hw = 32, two blocks per SM). Each halo row is read
-// by two blocks, so device memory sees (band+2)/band reads per input
-// element; the arithmetic and its order are the whole-grid body's. The
+// What this design does about that (dwconv_gelu_kernel):
+// - A unit of work is (image, 64 channels) for the whole-grid body, or
+//   (image, band of `band` grid rows, 64 channels) for the row-band body.
+//   Its slab, the unit's rows with a one-row halo above and below and a
+//   one-column halo left and right, (rows + 2) x (hw + 2) x 64, arrives
+//   by one TMA copy through a rank-4 tensor map over (B, hw, hw, C), a box
+//   at (r0 - 1, -1, c0): TMA fills the halo outside the grid with zeros,
+//   so the padding ring costs no instruction, and the copy needs no
+//   address arithmetic or bounds test per element.
+// - A persistent grid (as many blocks as fit on the SMs) walks the units;
+//   the slabs sit in a two-stage `mbarrier` ring, so the next unit's slab
+//   arrives while this one is computed. Where two slabs do not fit the 227
+//   KB of a block (bf16 past hw = 28, float32 past hw = 19 with the whole
+//   grid), the ring has one stage and a unit's copy waits for the last.
+// - The slab is walked commuted: a thread owns 4 channels of a run of 16
+//   pixels of a row, slides along it and takes each padded column's three
+//   row taps z_dj once (3 slab reads per column instead of 9 per pixel);
+//   pixel j then sums z0 (column j), z1 (j + 1) and z2 (j + 2), which is
+//   the same float32 sum, in the same order, as the 9-tap walk. Taps and
+//   bias sit in registers (117-123 a thread: two blocks of 8 warps per
+//   SM), bf16 is widened by a shift and a mask, and the column loop is
+//   unrolled so the sliding window costs no moves.
+// - Outputs leave as 8-byte (bf16) or 16-byte (float32) stores, the 16
+//   threads of a pixel writing its 64 channels' contiguous bytes.
+// Each halo row of the row-band body is read by two units, so device
+// memory sees (band + 2) / band reads per input element there. The
 // wrapper (ops/fused_stack.py::dwconv_gelu_body) takes the whole grid where
-// it fits and bands of 8 rows beyond (float32 up to hw = 88, bf16 up to
-// hw = 179).
+// one slab fits (bf16 up to hw = 40, float32 up to hw = 28) and bands of 8
+// rows beyond (float32 up to hw = 88, bf16 up to hw = 179).
 //
-// Two more template parameters serve the probes; the instantiations above
-// are <MODE = DW_BASE, CT = float> and unchanged by them.
+// The probe modes stay on the first, synchronous-slab body
+// (dwconv_gelu_slab_kernel: one block per unit copies its slab with
+// 16-byte loads and a bounds test per element, then computes), whole grid
+// only. Its template parameters:
 // - MODE, the depthwise variants of scripts/microbench_layer.py
-//   (`_mlp_tail`, pallas_call at :252), whole-grid body and float32 input:
-//   DW_NONE ("nodw": c = h + dwb, no convolution; no slab, each element
-//   read once from device memory) and DW_COMMUTED ("dw_commuted",
-//   `_dw_fwd_commuted`: the row taps z_dj of each padded column first, then
-//   acc[j] = z0[j-1] + z1[j] + z2[j+1]). DW_COMMUTED computes the same
-//   float32 sums in the same order as DW_BASE, so its output is the same;
-//   what changes is the walk: a thread slides along 8 pixels of a row,
-//   computing each padded column's three z once (3 slab reads a column)
-//   instead of reading the 9 neighbours of every pixel.
+//   (`_mlp_tail`, pallas_call at :252), float32 input: DW_NONE ("nodw": c
+//   = h + dwb, no convolution; no slab, each element read once from device
+//   memory) and DW_COMMUTED ("dw_commuted", `_dw_fwd_commuted`: the
+//   commuted walk above, on the synchronous slab); DW_BASE with
 // - CT, the type of the stored pre-GELU c: bf16 for the "bf16res" backward
 //   of scripts/probe_train_bwd_stage.py (pallas_call at :259), which keeps
-//   its residuals in bf16 (whole-grid body, base mode).
+//   its residuals in bf16 (bf16 input, base mode, the 9-tap walk).
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -111,19 +117,18 @@ __device__ __forceinline__ void unpack8(const Vec8<float>& v, float* f) {
   f[4] = v.b.x, f[5] = v.b.y, f[6] = v.b.z, f[7] = v.b.w;
 }
 
-template <typename T, bool BAND, int MODE, typename CT>
+// One block per (64 channels, image); the whole grid's slab.
+template <typename T, int MODE, typename CT>
 __global__ void __launch_bounds__(THREADS)
-dwconv_gelu_kernel(const T* __restrict__ h, const bf16* __restrict__ dw,
-                   const float* __restrict__ dwb, void* __restrict__ out,
-                   CT* __restrict__ c_out, int hw, int C, int band, bool out_f32) {
+dwconv_gelu_slab_kernel(const T* __restrict__ h, const bf16* __restrict__ dw,
+                        const float* __restrict__ dwb, void* __restrict__ out,
+                        CT* __restrict__ c_out, int hw, int C, bool out_f32) {
   extern __shared__ __align__(16) unsigned char smem[];
-  Vec8<T>* tile = reinterpret_cast<Vec8<T>*>(smem);  // [(rows+2) * (hw+2)][GROUPS]
+  Vec8<T>* tile = reinterpret_cast<Vec8<T>*>(smem);  // [(hw+2) * (hw+2)][GROUPS]
   const int pw = hw + 2;
   const int c0 = blockIdx.x * CHUNK;
-  // whole grid: blockIdx.y is the image; row band: the band, and blockIdx.z the image
-  const size_t b = BAND ? blockIdx.z : blockIdx.y;
-  const int r0 = BAND ? blockIdx.y * band : 0;
-  const int rows = BAND ? min(band, hw - r0) : hw;
+  const size_t b = blockIdx.y;
+  const int r0 = 0, rows = hw;
   const T* hb = h + b * hw * hw * C + c0;
   const int tid = threadIdx.x;
 
@@ -148,7 +153,7 @@ dwconv_gelu_kernel(const T* __restrict__ h, const bf16* __restrict__ dw,
   const float bias[VEC] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
   if constexpr (MODE != DW_NONE) __syncthreads();
 
-  // + dwb, exact GELU, stores; p counts pixels from the band's first
+  // + dwb, exact GELU, stores; p counts the image's pixels
   auto finish = [&](const float (&acc)[VEC], int p) {
     float g[VEC], x[VEC];
 #pragma unroll
@@ -223,7 +228,7 @@ dwconv_gelu_kernel(const T* __restrict__ h, const bf16* __restrict__ dw,
     }
   } else {
     for (int p = tid / GROUPS; p < rows * hw; p += THREADS / GROUPS) {
-      const int i = p / hw, j = p % hw;  // i counts rows from the band's first
+      const int i = p / hw, j = p % hw;
       float acc[VEC];
 #pragma unroll
       for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
@@ -248,18 +253,209 @@ dwconv_gelu_kernel(const T* __restrict__ h, const bf16* __restrict__ dw,
   }
 }
 
-template <typename T, bool BAND, int MODE, typename CT>
+template <typename T, int MODE, typename CT>
 int launch(const void* h, const void* dw, const float* dwb, void* out, void* c_out, int B, int hw,
-           int C, int band, bool out_f32, cudaStream_t s) {
-  const size_t smem = MODE == DW_NONE ? 0 : smem_bytes<T>(BAND ? band : hw, hw);
-  cudaError_t err = cudaFuncSetAttribute(dwconv_gelu_kernel<T, BAND, MODE, CT>,
+           int C, bool out_f32, cudaStream_t s) {
+  const size_t smem = MODE == DW_NONE ? 0 : smem_bytes<T>(hw, hw);
+  cudaError_t err = cudaFuncSetAttribute(dwconv_gelu_slab_kernel<T, MODE, CT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid = BAND ? dim3(C / CHUNK, (hw + band - 1) / band, B) : dim3(C / CHUNK, B);
-  dwconv_gelu_kernel<T, BAND, MODE, CT><<<grid, THREADS, smem, s>>>(
+  dwconv_gelu_slab_kernel<T, MODE, CT><<<dim3(C / CHUNK, B), THREADS, smem, s>>>(
       static_cast<const T*>(h), static_cast<const bf16*>(dw), dwb, out, static_cast<CT*>(c_out),
-      hw, C, band, out_f32);
+      hw, C, out_f32);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------ the TMA body (dwconv_gelu_kernel) ------------------------
+
+// a block's shared memory, less the alignment and the barriers
+constexpr int SMEM_LIMIT = 232448 - 128 - 16;
+constexpr int MAX_STAGES = 2;
+// The TMA body's thread owns 4 channels (16 threads cover a pixel's 64)
+// of a run of 16 pixels of a row. Chosen on an H100 among 8 or 4 channels
+// and runs of 4, 8 or 16 pixels: 8 channels hold 72 taps in registers and
+// leave one block of 8 warps per SM, too few to hide the latencies; 4
+// channels take 117-123 registers, two blocks; runs of 16 walk 18 padded
+// columns for 16 pixels instead of 10 for 8.
+constexpr int TV = 4;
+constexpr int TG = CHUNK / TV;  // threads of one pixel's 64 channels
+constexpr int TSEG = 16;
+
+// TV channels of one pixel as the slab stores them
+template <typename T>
+struct Lanes;
+template <>
+struct Lanes<bf16> {
+  uint2 u;
+};
+template <>
+struct Lanes<float> {
+  float4 a;
+};
+
+// bf16 widened to float32 by a shift and a mask (low half first)
+__device__ __forceinline__ void to_float(const Lanes<bf16>& v, float* f) {
+  f[0] = __uint_as_float(v.u.x << 16), f[1] = __uint_as_float(v.u.x & 0xffff0000u);
+  f[2] = __uint_as_float(v.u.y << 16), f[3] = __uint_as_float(v.u.y & 0xffff0000u);
+}
+__device__ __forceinline__ void to_float(const Lanes<float>& v, float* f) {
+  f[0] = v.a.x, f[1] = v.a.y, f[2] = v.a.z, f[3] = v.a.w;
+}
+
+// Units: u = (b * bands + band) * chunks + chunk; slab s of the ring holds
+// unit blockIdx.x + k * gridDim.x for k % stages == s. Thread t owns the
+// channels c0 + TV (t % TG) .. + TV - 1 of runs of TSEG pixels of a row.
+template <typename T, bool BAND>
+__global__ void __launch_bounds__(THREADS, 2)
+dwconv_gelu_kernel(const __grid_constant__ CUtensorMap map_h, const bf16* __restrict__ dw,
+                   const float* __restrict__ dwb, void* __restrict__ out,
+                   float* __restrict__ c_out, int B, int hw, int C, int band, int stages,
+                   int slab_bytes, bool out_f32) {
+  extern __shared__ unsigned char smem_raw[];
+  // TMA writes an unswizzled box to a 128-byte aligned address
+  unsigned char* ring = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * static_cast<size_t>(slab_bytes));
+  const int tid = threadIdx.x;
+  const int pw = hw + 2;
+  const int chunks = C / CHUNK;
+  const int bands = BAND ? (hw + band - 1) / band : 1;
+  const int units = B * bands * chunks;
+  // the unit's first grid row, image and first channel
+  auto where = [&](int u, int& r0, int& b, int& c0) {
+    c0 = (u % chunks) * CHUNK;
+    r0 = BAND ? ((u / chunks) % bands) * band : 0;
+    b = u / (chunks * bands);
+  };
+  auto issue = [&](int s, int u) {
+    int r0, b, c0;
+    where(u, r0, b, c0);
+    mbar_arrive_expect_tx(&full[s], slab_bytes);
+    tma_load_4d(ring + s * static_cast<size_t>(slab_bytes), &map_h, &full[s], c0, -1, r0 - 1, b);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(&full[s], 1);
+    mbar_fence_init();
+    for (int s = 0; s < stages; ++s)
+      if (blockIdx.x + s * gridDim.x < units) issue(s, blockIdx.x + s * gridDim.x);
+  }
+  __syncthreads();
+
+  const int grp = tid % TG;
+  const int segs = (hw + TSEG - 1) / TSEG;
+  for (int k = 0, u = blockIdx.x; u < units; ++k, u += gridDim.x) {
+    int r0, b, c0;
+    where(u, r0, b, c0);
+    const int rows = BAND ? min(band, hw - r0) : hw;
+    const int c = c0 + grp * TV;
+    float w[9][TV];
+#pragma unroll
+    for (int t = 0; t < 9; ++t)
+      to_float(Lanes<bf16>{*reinterpret_cast<const uint2*>(dw + t * C + c)}, w[t]);
+    const float4 b4 = *reinterpret_cast<const float4*>(dwb + c);
+    const float bias[TV] = {b4.x, b4.y, b4.z, b4.w};
+    const int s = k % stages;
+    mbar_wait(&full[s], (k / stages) & 1);
+    const Lanes<T>* tile =
+        reinterpret_cast<const Lanes<T>*>(ring + s * static_cast<size_t>(slab_bytes));
+    const size_t img = static_cast<size_t>(b) * hw * hw;
+    for (int item = tid / TG; item < rows * segs; item += THREADS / TG) {
+      const int i = item / segs, j0 = (item % segs) * TSEG, j1 = min(j0 + TSEG, hw);
+      float z0a[TV] = {}, z0b[TV] = {}, z1b[TV] = {};  // z0 two and one columns back, z1 one back
+      // unrolled, so the window slides by renaming registers
+#pragma unroll
+      for (int cc = 0; cc < TSEG + 2; ++cc) {
+        const int col = j0 + cc;
+        if (col >= j1 + 2) break;
+        float z[3][TV];
+#pragma unroll
+        for (int dj = 0; dj < 3; ++dj)
+#pragma unroll
+          for (int e = 0; e < TV; ++e) z[dj][e] = 0.f;
+#pragma unroll
+        for (int di = 0; di < 3; ++di) {
+          float v[TV];
+          to_float(tile[((i + di) * pw + col) * TG + grp], v);
+#pragma unroll
+          for (int dj = 0; dj < 3; ++dj)
+#pragma unroll
+            for (int e = 0; e < TV; ++e) z[dj][e] += v[e] * w[di * 3 + dj][e];
+        }
+        if (cc >= 2) {
+          // pixel (r0 + i, col - 2): + dwb, exact GELU, one 16-byte (float32)
+          // or 8-byte (bf16) store
+          float x[TV], g[TV];
+#pragma unroll
+          for (int e = 0; e < TV; ++e) {
+            x[e] = (z0a[e] + z1b[e] + z[2][e]) + bias[e];
+            g[e] = 0.5f * x[e] * (1.f + erff(x[e] * 0.70710678118654752f));
+          }
+          const size_t at = (img + static_cast<size_t>(r0 + i) * hw + col - 2) * C + c;
+          if (out_f32)
+            *reinterpret_cast<float4*>(static_cast<float*>(out) + at) =
+                make_float4(g[0], g[1], g[2], g[3]);
+          else
+            *reinterpret_cast<uint2*>(static_cast<bf16*>(out) + at) =
+                make_uint2(pack_bf16x2(g[0], g[1]), pack_bf16x2(g[2], g[3]));
+          if (c_out != nullptr)
+            *reinterpret_cast<float4*>(c_out + at) = make_float4(x[0], x[1], x[2], x[3]);
+        }
+#pragma unroll
+        for (int e = 0; e < TV; ++e) {
+          z0a[e] = z0b[e];
+          z0b[e] = z[0][e];
+          z1b[e] = z[1][e];
+        }
+      }
+    }
+    __syncthreads();  // every thread is done with slab s: refill it
+    if (tid == 0 && u + stages * gridDim.x < units) issue(s, u + stages * gridDim.x);
+  }
+}
+
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return count;
+}
+
+template <typename T, bool BAND>
+int launch_tma(const void* h, const void* dw, const float* dwb, void* out, void* c_out, int B,
+               int hw, int C, int band, bool out_f32, cudaStream_t s) {
+  const int rows = BAND ? band : hw;
+  const int slab = static_cast<int>(smem_bytes<T>(rows, hw));
+  const int stages = 2 * slab <= SMEM_LIMIT ? 2 : 1;
+  if (slab > SMEM_LIMIT || hw + 2 > 256 || rows + 2 > 256)  // a TMA box dimension is <= 256
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = 128 + stages * slab + MAX_STAGES * 8;  // the barriers after the slabs
+  const uint64_t dims[4] = {static_cast<uint64_t>(C), static_cast<uint64_t>(hw),
+                            static_cast<uint64_t>(hw), static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {static_cast<uint64_t>(C) * sizeof(T),
+                               static_cast<uint64_t>(hw) * C * sizeof(T),
+                               static_cast<uint64_t>(hw) * hw * C * sizeof(T)};
+  const uint32_t box[4] = {CHUNK, static_cast<uint32_t>(hw + 2), static_cast<uint32_t>(rows + 2),
+                           1};
+  CUtensorMap map;
+  const int err = encode_map(&map, sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                  : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                             4, h, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err) return err;
+  auto kernel = dwconv_gelu_kernel<T, BAND>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int bands = BAND ? (hw + band - 1) / band : 1;
+  const int units = B * bands * (C / CHUNK);
+  const int fit = sm_count() * (per_sm > 0 ? per_sm : 1);
+  kernel<<<units < fit ? units : fit, THREADS, smem, s>>>(
+      map, static_cast<const bf16*>(dw), dwb, out, static_cast<float*>(c_out), B, hw, C, band,
+      stages, slab, out_f32);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -284,18 +480,18 @@ LTD_API int ltd_dwconv_gelu(const void* h, const void* dw, const float* dwb, voi
     if (band > 0) return static_cast<int>(cudaErrorInvalidValue);
     if (c_bf16)
       return dw_mode == DW_BASE && !h_f32
-                 ? launch<bf16, false, DW_BASE, bf16>(h, dw, dwb, out, c_out, B, hw, C, 0, of, s)
+                 ? launch<bf16, DW_BASE, bf16>(h, dw, dwb, out, c_out, B, hw, C, of, s)
                  : static_cast<int>(cudaErrorInvalidValue);
     if (!h_f32) return static_cast<int>(cudaErrorInvalidValue);
     if (dw_mode == DW_NONE)
-      return launch<float, false, DW_NONE, float>(h, dw, dwb, out, c_out, B, hw, C, 0, of, s);
+      return launch<float, DW_NONE, float>(h, dw, dwb, out, c_out, B, hw, C, of, s);
     if (dw_mode == DW_COMMUTED)
-      return launch<float, false, DW_COMMUTED, float>(h, dw, dwb, out, c_out, B, hw, C, 0, of, s);
+      return launch<float, DW_COMMUTED, float>(h, dw, dwb, out, c_out, B, hw, C, of, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (band > 0)
-    return h_f32 ? launch<float, true, DW_BASE, float>(h, dw, dwb, out, c_out, B, hw, C, band, of, s)
-                 : launch<bf16, true, DW_BASE, float>(h, dw, dwb, out, c_out, B, hw, C, band, of, s);
-  return h_f32 ? launch<float, false, DW_BASE, float>(h, dw, dwb, out, c_out, B, hw, C, 0, of, s)
-               : launch<bf16, false, DW_BASE, float>(h, dw, dwb, out, c_out, B, hw, C, 0, of, s);
+    return h_f32 ? launch_tma<float, true>(h, dw, dwb, out, c_out, B, hw, C, band, of, s)
+                 : launch_tma<bf16, true>(h, dw, dwb, out, c_out, B, hw, C, band, of, s);
+  return h_f32 ? launch_tma<float, false>(h, dw, dwb, out, c_out, B, hw, C, 0, of, s)
+               : launch_tma<bf16, false>(h, dw, dwb, out, c_out, B, hw, C, 0, of, s);
 }

@@ -29,8 +29,10 @@
 //   maps over the real M rows, 64 x 64 boxes, 128-byte swizzle) into a
 //   ring of 4 stages of 64 rows of M (48 KB each), with full and empty
 //   `mbarrier`s; the consumers keep one stage of products in flight.
-//   Rows past M (M = 16, 256 + ragged) and columns past K (K % 256 ==
-//   128) arrive as zeros, so M needs no padding.
+//   Rows past M (M = 16, 256 + ragged), columns of dY past N and columns
+//   of X past K (a ragged last output tile: N % 128 or K % 256 != 0, as at
+//   the widths 64 x n_heads) arrive as zeros, so nothing needs padding;
+//   the epilogue writes only the rows below N and the columns below K.
 // - A persistent grid of one block per SM walks a plan made on the host
 //   (ops/fused_layer_vjp.py::weight_grad_plan): the (tile, stage) space is
 //   cut into at most two M-splits of each tile and dealt out stream-K
@@ -75,7 +77,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 weight_grad_kernel(const __grid_constant__ CUtensorMap map_dy,
                    const __grid_constant__ CUtensorMap map_x, const int* __restrict__ plan,
                    float* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
-                   int K) {
+                   int N, int K) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
@@ -191,12 +193,14 @@ weight_grad_kernel(const __grid_constant__ CUtensorMap map_dy,
       const int n = n0 + wg * 64 + ((tid & 127) >> 5) * 16 + g;
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
-        const int k = k0 + 8 * j + 2 * t4;
+        const int k = k0 + 8 * j + 2 * t4;  // K % 8 == 0: k + 1 < K too
         if (k < K) {
-          *reinterpret_cast<float2*>(out + static_cast<size_t>(n) * K + k) =
-              make_float2(acc[4 * j], acc[4 * j + 1]);
-          *reinterpret_cast<float2*>(out + static_cast<size_t>(n + 8) * K + k) =
-              make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+          if (n < N)
+            *reinterpret_cast<float2*>(out + static_cast<size_t>(n) * K + k) =
+                make_float2(acc[4 * j], acc[4 * j + 1]);
+          if (n + 8 < N)
+            *reinterpret_cast<float2*>(out + static_cast<size_t>(n + 8) * K + k) =
+                make_float2(acc[4 * j + 2], acc[4 * j + 3]);
         }
       }
     }
@@ -233,11 +237,12 @@ colsum_kernel(const float* __restrict__ x, float* __restrict__ out, int R, int C
 // dy: (M, N) bf16; x: (M, K) bf16; out: (N, K) float32. plan: the int32
 // plan of `blocks` blocks (see weight_grad_kernel) in device memory; ws:
 // float32 workspace of 128 x 256 floats per slab the plan names; counters:
-// one int32 per output tile, zero. Requires N % 128 == 0, K % 128 == 0
-// and 16-byte aligned dy and x (TMA).
+// one int32 per output tile, zero. Requires N % 8 == 0 and K % 8 == 0
+// (the maps' row strides) and 16-byte aligned dy and x (TMA).
 LTD_API int ltd_weight_grad(const void* dy, const void* x, float* out, float* ws, int* counters,
                             const int* plan, int M, int N, int K, int blocks, void* stream) {
-  if (M < 1 || N % BN || K % 128 || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (M < 1 || N < 8 || K < 8 || N % 8 || K % 8 || blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map_dy, map_x;
   const uint32_t box[2] = {64, BM};
   const uint64_t ddims[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(M)};
@@ -254,7 +259,7 @@ LTD_API int ltd_weight_grad(const void* dy, const void* x, float* out, float* ws
       cudaFuncSetAttribute(weight_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
   weight_grad_kernel<<<blocks, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
-      map_dy, map_x, plan, out, ws, counters, K);
+      map_dy, map_x, plan, out, ws, counters, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 

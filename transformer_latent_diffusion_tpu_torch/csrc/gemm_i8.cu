@@ -17,167 +17,347 @@
 // resid = (resid + deq) [+ bias] (`__fadd_rn`; the TPU kernel's
 // `x + deq + b2`). No FMA contraction is possible in the epilogue, so on
 // the same int8 operands the kernel gives the plain version's result
-// (ops/fused_stack_int8.py::gemm_i8_plain) bit for bit.
+// (ops/fused_stack_int8.py::gemm_i8_plain) bit for bit, and each output
+// element has one writer, so two launches are bit-equal.
 //
 // What bounds it on the H100: at M = B*N = 16384 rows these products do
 // ~360 to ~650 operations per byte they must move, around the int8 ridge
 // of ~590 (1979 TOPS dense at 700 W over 3.35 TB/s): the QKV product is
-// bound by the tensor cores; the expand product's float32 output and the
-// contract product's float32 residual (read and written) make the others
-// bound by bytes. Either way the operand loads must hide behind the
-// multiplies.
+// bound by the tensor cores; the expand product's float32 output (201 MB)
+// and the contract product's float32 residual (read and written) make the
+// others bound by bytes. The four together: 0.149 ms of bytes, 0.117 ms of
+// operations. So the operand loads must hide behind the multiplies, and
+// the stores behind the next tile's multiplies.
 //
-// What this design does about that: the shape of ln_gemm.cu's streaming
-// body. A 128 x 128 output tile per block of 8 warps, each warp a 64 x 32
-// sub-tile; A and W stream through a 4-stage `cp.async` ring in k-tiles of
-// 64 int8 values (64 bytes a row, rows padded to 80 bytes so that
-// `ldmatrix` is conflict-free); `mma.sync.m16n8k32.s8.s8.s32`. The int8
-// fragments of m16n8k32 have byte for byte the layout of bf16's m16n8k16
-// (a 16-byte row of 16 int8 values is 8 bf16 to `ldmatrix`), so one k32
-// slice loads with the same `ldmatrix_x4` addressing as one k16 bf16
-// slice, and each `mma` does twice the multiply-adds. The dequantization
-// and the epilogue run from the int32 accumulators in registers. Not yet
-// used: wgmma's s8 form, TMA, warp specialisation (later work).
+// What this design does about that: ln_gemm.cu's pipeline with the 8-bit
+// `wgmma` (wgmma.mma_async m64n256k32 .s32.s8.s8), a 128 x 256 output tile.
+// - The 8-bit forms take K-major operands only, which is how both are
+//   stored: the activations (M, K) and the packed weights (N, K). So
+//   nothing is re-laid out. A k-tile row of 128 int8 is one 128-byte
+//   swizzle atom: one producer thread issues TMA loads of 64-row x 128-byte
+//   boxes (A's 128 rows, W's 256) into a ring of four 48 KB stages with
+//   full and empty `mbarrier`s; each stage feeds four k32 products of each
+//   of the two consumer warpgroups (64 rows each, int32 accumulators in
+//   128 registers a thread; `setmaxnreg` 232, the producer's warpgroup 40),
+//   which keep one stage of products in flight. Rows past M, W rows past N
+//   (a ragged last column tile, N % 256 != 0, as at the widths 64 x
+//   n_heads) and columns past K arrive as zeros and add nothing.
+// - A persistent grid (one block per SM) walks the output tiles in
+//   row-major order (column tile fastest): the SMs that run at once share
+//   each A row block, and W (at most 2.4 MB) stays in L2.
+// - The epilogue, a template flag per mode, scales the accumulators in
+//   registers (deq = (float(acc) * rs) * cs) and leaves through a 16 KB
+//   staging buffer per warpgroup in the output map's 128-byte swizzle:
+//   bf16 or float32 outputs by TMA stores (the warpgroup goes on to its
+//   next tile's products while they drain); the residual in passes of 32
+//   columns through the buffer's two halves, each pass's residual box
+//   brought in by TMA (the first two while the tile's products run, the
+//   tile's rows also asked of L2 then, each later one as soon as the store
+//   two passes back has read its half), added into in place by the thread
+//   that owns the element, (resid + deq) + b2 in the TPU kernel's order (a
+//   TMA reduce-add would compute resid + (deq + b2)), and stored by TMA.
+//   One writer per element; no split-K. Rows past M and columns past N
+//   are clipped by the maps. (An epilogue that loaded the residual into
+//   registers, even batched and asked of L2 ahead, stalled each
+//   warpgroup on the loads: on an H100 it was the contract product's
+//   largest cost.)
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 64;        // int8 values (bytes) of a row of a streamed tile
-constexpr int LDT = BK + 16;  // its byte row stride (80: conflict-free ldmatrix)
+constexpr int BM = 128;                  // output tile rows: two warpgroups of 64
+constexpr int BN = 256;                  // output tile columns
+constexpr int BK = 128;                  // K per stage: one 128-byte swizzled row of int8
+constexpr int BOX_BYTES = 64 * BK;       // one 64-row x 128-byte TMA box
+constexpr int A_BYTES = 2 * BOX_BYTES;   // A's 128 x 128 of a stage
+constexpr int STAGE_BYTES = A_BYTES + BN / 64 * BOX_BYTES;  // + W's 256 x 128
 constexpr int STAGES = 4;
-constexpr int STAGE_BYTES = (BM + BN) * LDT;
-constexpr int SMEM = STAGES * STAGE_BYTES;
+// a warpgroup's output staging (16 KB): passes of 64 rows x BF_COLS bf16
+// or F32_COLS float32 columns, in the output map's 128-byte swizzle
+constexpr int OUT_BYTES = 64 * 64 * 4;
+constexpr int BF_COLS = OUT_BYTES / 128;
+constexpr int F32_COLS = OUT_BYTES / 256;
+constexpr int OUT_BOX = 64 * 128;  // one 64-row x 128-byte box of the staging
+constexpr int CONSUMERS = 2;
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+constexpr int RES_COLS = 32;  // the residual mode's pass: one 64 x 32 float32 box, two in flight
+constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + CONSUMERS * OUT_BYTES + (2 * STAGES + 4) * 8;
 
-// d += a (16x32 int8, row-major) * b (32x8 int8, column-major), int32 sums.
-// Fragments (g = lane / 4, t = lane % 4), each register 4 int8 values:
-// a = {(g, 4t..4t+3), (g+8, 4t..), (g, 16+4t..), (g+8, 16+4t..)};
-// b = {(k 4t..4t+3, n g), (k 16+4t.., n g)}; d as in m16n8k16.
-__device__ __forceinline__ void mma_s8_16832(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                             uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+enum Out { OUT_BF16 = 0, OUT_F32 = 1, OUT_RESIDUAL = 2 };
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, 1)
+gemm_i8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
+               const __grid_constant__ CUtensorMap map_o, const float* __restrict__ rs,
+               const float* __restrict__ cs, const float* __restrict__ bias,
+               float* __restrict__ resid, int M, int N, int K) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  unsigned char* stage_out = ring + STAGES * STAGE_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(stage_out + CONSUMERS * OUT_BYTES);
+  uint64_t* empty = full + STAGES;
+  uint64_t* res_full = empty + STAGES;  // per warpgroup, per half of its staging
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    for (int i = 0; i < 4; ++i) mbar_init(&res_full[i], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int nk = (K + BK - 1) / BK;
+  const int n_tiles = (N + BN - 1) / BN;
+  const int units = ((M + BM - 1) / BM) * n_tiles;
+
+  if (tid >= CONSUMERS * 128) {
+    setmaxnreg_dec<40>();
+    if (tid == CONSUMERS * 128) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int m0 = (u / n_tiles) * BM, n0 = (u % n_tiles) * BN;
+        for (int kc = 0; kc < nk; ++kc) {
+          const int k0 = kc * BK;
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_arrive_expect_tx(&full[stage], STAGE_BYTES);
+          unsigned char* st = ring + stage * STAGE_BYTES;
+          tma_load_2d(st, &map_a, &full[stage], k0, m0);
+          tma_load_2d(st + BOX_BYTES, &map_a, &full[stage], k0, m0 + 64);
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)  // box j: W rows n0 + 64 j ..
+            tma_load_2d(st + A_BYTES + j * BOX_BYTES, &map_w, &full[stage], k0, n0 + 64 * j);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const int wg = tid >> 7;
+    const int wt = tid & 127;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t4 = lane & 3;
+    unsigned char* obuf = stage_out + wg * OUT_BYTES;
+    const int r = (wt >> 5) * 16 + g;  // this thread's rows r, r + 8 of the warpgroup's 64
+    int stage = 0;
+    uint32_t phase = 0, res_phase[2] = {0, 0};
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int m0 = (u / n_tiles) * BM, n0 = (u % n_tiles) * BN;
+      const int row0 = m0 + wg * 64;
+      // the residual mode's passes over this tile, and where its rows' staging is loaded
+      const int res_passes = (min(BN, N - n0) + RES_COLS - 1) / RES_COLS;
+      auto load_res = [&](int p) {  // pass p's residual box into half p % 2 of the staging
+        uint64_t* bar = &res_full[2 * wg + (p & 1)];
+        mbar_arrive_expect_tx(bar, OUT_BOX);
+        tma_load_2d(obuf + (p & 1) * OUT_BOX, &map_o, bar, n0 + RES_COLS * p, row0);
+      };
+      if (MODE == OUT_RESIDUAL && row0 < M) {
+        // the tile's residual rows into L2 while the products run (this
+        // thread's two rows, 1 KB each), and its first two passes' boxes
+        // into the staging, once the last tile's stores have read it
+        if (t4 == 0) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = row0 + r + 8 * h;
+            if (row < M)
+              prefetch_l2(resid + static_cast<size_t>(row) * N + n0, 4 * min(BN, N - n0));
+          }
+        }
+        if (wt == 0) {
+          bulk_wait_read();
+          for (int p = 0; p < min(2, res_passes); ++p) load_res(p);
+        }
+      }
+      int acc[BN / 2];  // the first product of the tile overwrites it
+      int prev = 0;
+      for (int kc = 0; kc < nk; ++kc) {
+        mbar_wait(&full[stage], phase);
+        const unsigned char* a = ring + stage * STAGE_BYTES + wg * BOX_BYTES;
+        const unsigned char* w = ring + stage * STAGE_BYTES + A_BYTES;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 32; ++kk) {
+          const uint32_t keep = kc > 0 || kk > 0;  // the first product overwrites acc
+          wgmma_m64n256k32_s8(acc, sw128_desc(a + kk * 32, 16, 1024),
+                              sw128_desc(w + kk * 32, 16, 1024), keep);
+        }
+        wgmma_commit();
+        // the previous stage's products are done: give its buffers back
+        wgmma_wait<1>();
+        if (kc > 0 && wt == 0) mbar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (wt == 0) mbar_arrive(&empty[prev]);
+
+      // epilogue. Thread t holds rows r, r + 8 and columns 8 j + 2 t4 (+1)
+      // of the warpgroup's 64 x BN, acc[4 j + 2 h + e]: deq = (float(acc)
+      // * rs) * cs, each product rounded
+      float rv[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) rv[h] = row0 + r + 8 * h < M ? rs[row0 + r + 8 * h] : 0.f;
+      auto scale2 = [&](int col) {  // cs at col, col + 1 (zero past N)
+        return col < N ? *reinterpret_cast<const float2*>(cs + col) : make_float2(0.f, 0.f);
+      };
+      auto bias2 = [&](int col) {
+        return bias != nullptr && col < N ? *reinterpret_cast<const float2*>(bias + col)
+                                          : make_float2(0.f, 0.f);
+      };
+      auto deq = [&](int j, int h, float2 c2) {
+        return make_float2(
+            __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), rv[h]), c2.x),
+            __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), rv[h]), c2.y));
+      };
+      if constexpr (MODE == OUT_RESIDUAL) {
+        // resid = (resid + deq) + bias in passes of 32 columns through the
+        // staging's two halves: pass p's box arrived by TMA (issued two
+        // passes back, or before the products), each thread adds into its
+        // own elements in place, the box leaves by a TMA store, and once
+        // that store has read the half, pass p + 2's box is loaded into it
+        if (row0 < M) {
+#pragma unroll
+          for (int p = 0; p < BN / RES_COLS; ++p) {
+            if (p >= res_passes) break;
+            unsigned char* half = obuf + (p & 1) * OUT_BOX;
+            mbar_wait(&res_full[2 * wg + (p & 1)], res_phase[p & 1]);
+            res_phase[p & 1] ^= 1;
+#pragma unroll
+            for (int jj = 0; jj < RES_COLS / 8; ++jj) {
+              const int cc = 8 * jj + 2 * t4;  // column within the box
+              const int col = n0 + RES_COLS * p + cc;
+              const float2 c2 = scale2(col), b2 = bias2(col);
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int rr = r + 8 * h;
+                const int off = rr * 128 + (((cc >> 2) ^ (rr & 7)) << 4) + (cc & 3) * 4;
+                float2* at = reinterpret_cast<float2*>(half + off);
+                const float2 v = deq((RES_COLS / 8) * p + jj, h, c2);
+                float2 y = make_float2(__fadd_rn(at->x, v.x), __fadd_rn(at->y, v.y));
+                if (bias != nullptr) y = make_float2(__fadd_rn(y.x, b2.x), __fadd_rn(y.y, b2.y));
+                *at = y;
+              }
+            }
+            fence_proxy_async();
+            named_barrier(1 + wg, 128);
+            if (wt == 0) {
+              tma_store_2d(&map_o, half, n0 + RES_COLS * p, row0);
+              bulk_commit();
+              if (p + 2 < res_passes) {
+                bulk_wait_read();
+                load_res(p + 2);
+              }
+            }
+          }
+        }
+      } else {
+        // staged in shared memory in the output map's 128-byte swizzle
+        // (16-byte chunk c of row rr at c ^ (rr % 8)), once the previous
+        // store has read the buffer, then one TMA store per box; rows past
+        // M and columns past N are clipped by the map
+        auto begin_pass = [&]() {
+          if (wt == 0) bulk_wait_read();
+          named_barrier(1 + wg, 128);
+        };
+        auto end_pass = [&](int c0, int boxes, int box_cols) {
+          fence_proxy_async();
+          named_barrier(1 + wg, 128);
+          if (wt == 0 && row0 < M) {
+            for (int i = 0; i < boxes; ++i) {
+              const int c = c0 + box_cols * i;
+              if (c >= N) break;
+              tma_store_2d(&map_o, obuf + i * OUT_BOX, c, row0);
+            }
+            bulk_commit();
+          }
+        };
+        auto value = [&](int j, int h) {  // deq (+ bias) at columns 8 j + 2 t4 (+1)
+          const int col = n0 + 8 * j + 2 * t4;
+          float2 v = deq(j, h, scale2(col));
+          if (bias != nullptr) {
+            const float2 b2 = bias2(col);
+            v = make_float2(__fadd_rn(v.x, b2.x), __fadd_rn(v.y, b2.y));
+          }
+          return v;
+        };
+        if constexpr (MODE == OUT_BF16) {
+#pragma unroll
+          for (int ps = 0; ps < BN / BF_COLS; ++ps) {
+            begin_pass();
+#pragma unroll
+            for (int jj = 0; jj < BF_COLS / 8; ++jj) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int rr = r + 8 * h;
+                const float2 v = value(ps * (BF_COLS / 8) + jj, h);
+                const int off = (jj >> 3) * OUT_BOX + rr * 128 +
+                                (((jj & 7) ^ (rr & 7)) << 4) + t4 * 4;
+                *reinterpret_cast<uint32_t*>(obuf + off) = pack_bf16x2(v.x, v.y);
+              }
+            }
+            end_pass(n0 + ps * BF_COLS, BF_COLS / 64, 64);
+          }
+        } else {
+#pragma unroll
+          for (int ps = 0; ps < BN / F32_COLS; ++ps) {
+            begin_pass();
+#pragma unroll
+            for (int jj = 0; jj < F32_COLS / 8; ++jj) {
+              const int cc = 8 * (jj & 3) + 2 * t4;  // column within the 32-wide box jj / 4
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int rr = r + 8 * h;
+                const float2 v = value(ps * (F32_COLS / 8) + jj, h);
+                const int off = (jj >> 2) * OUT_BOX + rr * 128 +
+                                (((cc >> 2) ^ (rr & 7)) << 4) + (cc & 3) * 4;
+                *reinterpret_cast<float2*>(obuf + off) = v;
+              }
+            }
+            end_pass(n0 + ps * F32_COLS, F32_COLS / 32, 32);
+          }
+        }
+      }
+    }
+    if (wt == 0) bulk_wait();
+  }
 }
 
-__global__ void __launch_bounds__(THREADS)
-gemm_i8_kernel(const int8_t* __restrict__ a, const float* __restrict__ rs,
-               const int8_t* __restrict__ w, const float* __restrict__ cs,
-               const float* __restrict__ bias, void* __restrict__ out,
-               float* __restrict__ resid, int M, int N, int K, bool out_f32) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int wm = warp >> 2;  // 0..1: 64-row half of the tile
-  const int wn = warp & 3;   // 0..3: 32-column quarter of the tile
-  const int m_blk = blockIdx.y * BM;
-  const int n_blk = blockIdx.x * BN;
-
-  auto load_stage = [&](int stage, int kt) {
-    const int k0 = kt * BK;
-    unsigned char* as = smem + stage * STAGE_BYTES;
-    unsigned char* ws = as + BM * LDT;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // 128 rows x 4 chunks of 16 bytes, each operand
-      const int c = tid + i * THREADS;
-      const int r = c >> 2, col = (c & 3) * 16;
-      const int row = m_blk + r;
-      cp_async16(as + r * LDT + col, a + static_cast<size_t>(row < M ? row : 0) * K + k0 + col,
-                 row < M ? 16 : 0);
-      cp_async16(ws + r * LDT + col, w + static_cast<size_t>(n_blk + r) * K + k0 + col, 16);
-    }
-  };
-
-  const int nk = K / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_async_commit();
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
   }
+  return count;
+}
 
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+// a row-major (rows, cols) output of elem_bytes, 64-row boxes of
+// box_cols (128 bytes), 128-byte swizzle
+int encode_out(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int cols, int rows,
+               int elem_bytes, int box_cols) {
+  const uint64_t dims[2] = {static_cast<uint64_t>(cols), static_cast<uint64_t>(rows)};
+  const uint64_t stride[1] = {static_cast<uint64_t>(cols) * elem_bytes};
+  const uint32_t box[2] = {static_cast<uint32_t>(box_cols), 64};
+  return encode_map(map, type, 2, ptr, dims, stride, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
 
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    if (kt + STAGES - 1 < nk) load_stage((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
-    cp_async_commit();
-    const unsigned char* as = smem + (kt % STAGES) * STAGE_BYTES;
-    const unsigned char* ws = as + BM * LDT;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ldmatrix_x4(af[i], as + (wm * 64 + i * 16 + (lane & 15)) * LDT + kk + (lane >> 4) * 16);
-      uint32_t bfr[4][2];
-#pragma unroll
-      for (int j2 = 0; j2 < 2; ++j2) {
-        uint32_t r4[4];
-        ldmatrix_x4(r4, ws + (wn * 32 + j2 * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDT + kk +
-                            ((lane >> 3) & 1) * 16);
-        bfr[2 * j2][0] = r4[0];
-        bfr[2 * j2][1] = r4[1];
-        bfr[2 * j2 + 1][0] = r4[2];
-        bfr[2 * j2 + 1][1] = r4[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8_16832(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m_blk + wm * 64 + i * 16 + h * 8 + g;
-      if (row >= M) continue;
-      const float r = rs[row];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n_blk + wn * 32 + j * 8 + 2 * t4;
-        float v0 = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][2 * h]), r), cs[col]);
-        float v1 = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][2 * h + 1]), r), cs[col + 1]);
-        const size_t at = static_cast<size_t>(row) * N + col;
-        if (resid != nullptr) {
-          float2 x = *reinterpret_cast<float2*>(resid + at);
-          x.x = __fadd_rn(x.x, v0);
-          x.y = __fadd_rn(x.y, v1);
-          if (bias != nullptr) {
-            x.x = __fadd_rn(x.x, bias[col]);
-            x.y = __fadd_rn(x.y, bias[col + 1]);
-          }
-          *reinterpret_cast<float2*>(resid + at) = x;
-          continue;
-        }
-        if (bias != nullptr) {
-          v0 = __fadd_rn(v0, bias[col]);
-          v1 = __fadd_rn(v1, bias[col + 1]);
-        }
-        if (out_f32)
-          *reinterpret_cast<float2*>(static_cast<float*>(out) + at) = make_float2(v0, v1);
-        else
-          *reinterpret_cast<uint32_t*>(static_cast<bf16*>(out) + at) = pack_bf16x2(v0, v1);
-      }
-    }
-  }
+int encode_i8(CUtensorMap* map, const void* ptr, int cols, int rows) {
+  const uint64_t dims[2] = {static_cast<uint64_t>(cols), static_cast<uint64_t>(rows)};
+  const uint64_t stride[1] = {static_cast<uint64_t>(cols)};
+  const uint32_t box[2] = {BK, 64};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, ptr, dims, stride, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace
@@ -186,18 +366,32 @@ gemm_i8_kernel(const int8_t* __restrict__ a, const float* __restrict__ rs,
 // (out, in) layout), cs: (N,) float32 per-output-channel scales. bias: (N,)
 // float32 or null. Exactly one of out (M, N) and resid (M, N) float32
 // (updated in place) is non-null; out is float32 when out_f32 is non-zero,
-// else bf16. Requires N % 128 == 0 and K % 64 == 0; any M >= 1.
+// else bf16. Requires N % 16 == 0 and K % 16 == 0 (the TMA maps' row
+// strides), any M >= 1; a and w 16-byte aligned.
 LTD_API int ltd_gemm_i8(const void* a, const float* rs, const void* w, const float* cs,
                         const float* bias, void* out, float* resid, int M, int N, int K,
                         int out_f32, void* stream) {
-  if (N % BN || K % BK || (out == nullptr) == (resid == nullptr))
+  if (M < 1 || N < 16 || K < 16 || N % 16 || K % 16 || (out == nullptr) == (resid == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err =
-      cudaFuncSetAttribute(gemm_i8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  gemm_i8_kernel<<<dim3(N / BN, (M + BM - 1) / BM), THREADS, SMEM,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(a), rs, static_cast<const int8_t*>(w), cs, bias, out, resid, M,
-      N, K, out_f32 != 0);
-  return static_cast<int>(cudaGetLastError());
+  CUtensorMap map_a, map_w, map_o;
+  const int mode = resid != nullptr ? OUT_RESIDUAL : out_f32 ? OUT_F32 : OUT_BF16;
+  int err = encode_i8(&map_a, a, K, M);
+  if (!err) err = encode_i8(&map_w, w, K, N);
+  if (!err && mode == OUT_BF16)
+    err = encode_out(&map_o, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, out, N, M, 2, 64);
+  else if (!err)  // float32 out, or the residual read and written through it
+    err = encode_out(&map_o, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, mode == OUT_F32 ? out : resid, N,
+                     M, 4, 32);
+  if (err) return err;
+  const void* kernel = mode == OUT_RESIDUAL ? (const void*)gemm_i8_kernel<OUT_RESIDUAL>
+                       : mode == OUT_F32    ? (const void*)gemm_i8_kernel<OUT_F32>
+                                            : (const void*)gemm_i8_kernel<OUT_BF16>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int units = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  const int grid = units < sm_count() ? units : sm_count();
+  void* args[] = {&map_a, &map_w, &map_o, &rs, &cs, &bias, &resid, &M, &N, &K};
+  e = cudaLaunchKernel(kernel, dim3(grid), dim3(THREADS), args, SMEM,
+                       static_cast<cudaStream_t>(stream));
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }

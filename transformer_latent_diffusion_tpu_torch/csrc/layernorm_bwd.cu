@@ -12,10 +12,12 @@
 // gradient (float32, 12 bytes) and writes dx (4 bytes), against ~15 FLOP:
 // memory-bound (3.35 TB/s).
 //
-// What this design does about that: one warp per row (D <= 768, so a row
-// is at most 24 values per lane, held in registers), each element read
-// once with 16-byte loads. Mean and variance in float32, two passes over
-// the registers, eps 1e-5, exactly the forward's statistics;
+// What this design does about that: one warp per row (D <= 1024, so a row
+// is at most 32 values per lane, held in registers; a template parameter
+// holds 24 up to D = 768, the flagship's width, and 32 beyond; the lanes'
+// sums run over their values in the same order for either), each element
+// read once with 16-byte loads. Mean and variance in float32, two passes
+// over the registers, eps 1e-5, exactly the forward's statistics;
 // dxhat = dy * scale; dx = rstd (dxhat - mean(dxhat) - xhat mean(dxhat
 // xhat)). dscale = sum dy xhat and dbias = sum dy over rows are summed per
 // warp over its ROWS_PER_WARP rows and written as one partial row per warp;
@@ -33,7 +35,6 @@ namespace {
 
 constexpr int WARPS = 8;
 constexpr int ROWS_PER_WARP = 32;
-constexpr int MAX_V = 768 / 128;  // float4 per lane
 constexpr float LN_EPS = 1e-5f;
 
 // four consecutive elements of x as float32
@@ -46,7 +47,7 @@ __device__ __forceinline__ float4 load4(const bf16* p) {
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
-template <typename XT>
+template <typename XT, int MAX_V>  // MAX_V: float4 per lane (D <= 128 MAX_V)
 __global__ void __launch_bounds__(WARPS * 32)
 layernorm_bwd_kernel(const float* __restrict__ dy, const XT* __restrict__ x,
                      const float* __restrict__ scale, const float* __restrict__ upstream,
@@ -141,24 +142,33 @@ layernorm_bwd_kernel(const float* __restrict__ dy, const XT* __restrict__ x,
   }
 }
 
+template <int V>
+void launch(const float* dy, const void* x, const float* scale, const float* upstream, float* dx,
+            float* partial, int M, int D, bool x_bf16, int blocks, cudaStream_t s) {
+  if (x_bf16)
+    layernorm_bwd_kernel<bf16, V><<<blocks, WARPS * 32, 0, s>>>(
+        dy, static_cast<const bf16*>(x), scale, upstream, dx, partial, M, D);
+  else
+    layernorm_bwd_kernel<float, V><<<blocks, WARPS * 32, 0, s>>>(
+        dy, static_cast<const float*>(x), scale, upstream, dx, partial, M, D);
+}
+
 }  // namespace
 
 // dy, upstream, dx: (M, D) float32, dx not aliasing the inputs; x: (M, D)
 // float32, or bf16 when x_bf16 is non-zero; scale: (D,) float32; partial:
 // (ceil(M / 32), 2, D) float32, per 32 rows the sums of dy * xhat (dscale)
-// and of dy (dbias). Requires D % 4 == 0 and D <= 768.
+// and of dy (dbias). Requires D % 4 == 0 and D <= 1024.
 LTD_API int ltd_layernorm_bwd(const float* dy, const void* x, const float* scale,
                               const float* upstream, float* dx, float* partial, int M, int D,
                               int x_bf16, void* stream) {
-  if (D % 4 || D > 768) return static_cast<int>(cudaErrorInvalidValue);
+  if (D % 4 || D > 1024) return static_cast<int>(cudaErrorInvalidValue);
   const int warps = (M + ROWS_PER_WARP - 1) / ROWS_PER_WARP;
   const int blocks = (warps + WARPS - 1) / WARPS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bf16)
-    layernorm_bwd_kernel<bf16><<<blocks, WARPS * 32, 0, s>>>(
-        dy, static_cast<const bf16*>(x), scale, upstream, dx, partial, M, D);
+  if (D <= 768)
+    launch<6>(dy, x, scale, upstream, dx, partial, M, D, x_bf16 != 0, blocks, s);
   else
-    layernorm_bwd_kernel<float><<<blocks, WARPS * 32, 0, s>>>(
-        dy, static_cast<const float*>(x), scale, upstream, dx, partial, M, D);
+    launch<8>(dy, x, scale, upstream, dx, partial, M, D, x_bf16 != 0, blocks, s);
   return static_cast<int>(cudaGetLastError());
 }

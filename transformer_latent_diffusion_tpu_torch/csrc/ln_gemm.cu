@@ -26,8 +26,9 @@
 // - W is read by a 2-D tensor map as stored: (N, K), K-major, or with
 //   `w_transposed` (K, N), the MN-major B operand (the backward's dX = dY W
 //   products pass W as it is, no transposed copy). Columns of a 64-wide K
-//   box past K (K % 64 == 32), rows past M and W rows past N (N % 256 ==
-//   128) arrive as zeros.
+//   box past K (K % 64 == 32), rows past M and W rows past N (a ragged
+//   last column tile, N % 256 != 0) arrive as zeros; the epilogue's TMA
+//   stores clip the columns past N.
 // - A persistent grid (one block per SM) walks the work: whole output
 //   tiles in row-major order (column tile fastest), so the SMs that run at
 //   once share each A row block and all of W (at most 4.7 MB here) stays
@@ -41,10 +42,11 @@
 //   warpgroup goes on to the next tile's products while the copy runs;
 //   rows past M are clipped by the map. Each element has one writer and
 //   one float32 add, so two launches give bit-equal results.
-// - LayerNorm mode (A the float32 residual, K <= 768): a unit of work is a
-//   row block of 128 rows and its run of column tiles. The consumer
-//   warpgroups first normalise the block's rows in float32 (mean, then
-//   variance over the registers, eps 1e-5; each warp two rows at a time)
+// - LayerNorm mode (A the float32 residual): a unit of work is a row block
+//   of 128 rows and its run of column tiles. The consumer warpgroups first
+//   normalise the block's rows in float32 (mean, then variance over the
+//   registers, eps 1e-5; each warp two rows at a time up to K = 1024, and
+//   one row read three times from L2 beyond, in the same summation order)
 //   and write them in bf16 to a 128-row region of this block in an
 //   L2-resident scratch (25 MB at M = 16384), or straight to `xn_out` when
 //   the caller asks for the rows and each row block is one unit; a
@@ -91,7 +93,7 @@ static_assert(BN % BF_COLS == 0 && BN % F32_COLS == 0, "whole staging passes");
 constexpr int CONSUMERS = 2;
 constexpr int THREADS = (CONSUMERS + 1) * 128;
 constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + CONSUMERS * OUT_BYTES + (2 * STAGES + 1) * 8;
-constexpr int MAX_LN_K = 768;
+constexpr int MAX_LN_K = 1024;  // rows a warp normalises in registers; wider ones re-read
 constexpr int LN_ROWS = 2;  // rows a warp normalises at once
 constexpr float LN_EPS = 1e-5f;
 
@@ -102,6 +104,7 @@ enum Out { OUT_BF16 = 0, OUT_F32 = 1, OUT_RESIDUAL = 2 };
 // scaled, shifted and rounded to bf16 into `rows` (row r at rows + r * K)
 // and, if given, xn_out (global row m0 + r); rows past M are skipped (their
 // outputs are never stored). The LN_ROWS rows' loads are in flight together.
+// K <= MAX_LN_K: lane l holds the 8-column chunks l, l + 32, ...
 __device__ __forceinline__ void normalise_rows(const float* __restrict__ a,
                                                const float* __restrict__ ln_s,
                                                const float* __restrict__ ln_b,
@@ -167,6 +170,58 @@ __device__ __forceinline__ void normalise_rows(const float* __restrict__ a,
       if (xn_out != nullptr)
         *reinterpret_cast<uint4*>(xn_out + static_cast<size_t>(row) * K + 8 * c) = p;
     }
+  }
+}
+
+// The same for one row of any K (K > MAX_LN_K): the row is read three
+// times (mean, variance, output; from L2 after the first), each lane
+// summing its chunks l, l + 32, ... in the order of the register path, so
+// both give the same statistics.
+__device__ __forceinline__ void normalise_row_wide(const float* __restrict__ a,
+                                                   const float* __restrict__ ln_s,
+                                                   const float* __restrict__ ln_b,
+                                                   bf16* __restrict__ rows,
+                                                   bf16* __restrict__ xn_out, int m0, int r, int M,
+                                                   int K, int lane) {
+  const int row = m0 + r;
+  if (row >= M) return;  // warp-uniform
+  const float4* p = reinterpret_cast<const float4*>(a + static_cast<size_t>(row) * K);
+  const int chunks = K / 8;
+  float s = 0.f;
+  for (int c = lane; c < chunks; c += 32) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 v = p[2 * c + h];
+      s += (v.x + v.y) + (v.z + v.w);
+    }
+  }
+  const float mean = warp_sum(s) / K;
+  float q = 0.f;
+  for (int c = lane; c < chunks; c += 32) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 v = p[2 * c + h];
+      const float d0 = v.x - mean, d1 = v.y - mean, d2 = v.z - mean, d3 = v.w - mean;
+      q += (d0 * d0 + d1 * d1) + (d2 * d2 + d3 * d3);
+    }
+  }
+  const float rstd = rsqrtf(warp_sum(q) / K + LN_EPS);
+  for (int c = lane; c < chunks; c += 32) {
+    float y[8];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 v = p[2 * c + h];
+      const float4 s4 = reinterpret_cast<const float4*>(ln_s + 8 * c)[h];
+      const float4 b4 = reinterpret_cast<const float4*>(ln_b + 8 * c)[h];
+      y[4 * h] = (v.x - mean) * rstd * s4.x + b4.x;
+      y[4 * h + 1] = (v.y - mean) * rstd * s4.y + b4.y;
+      y[4 * h + 2] = (v.z - mean) * rstd * s4.z + b4.z;
+      y[4 * h + 3] = (v.w - mean) * rstd * s4.w + b4.w;
+    }
+    const uint4 o = pack8_bf16(y);
+    *reinterpret_cast<uint4*>(rows + static_cast<size_t>(r) * K + 8 * c) = o;
+    if (xn_out != nullptr)
+      *reinterpret_cast<uint4*>(xn_out + static_cast<size_t>(row) * K + 8 * c) = o;
   }
 }
 
@@ -271,8 +326,14 @@ ln_gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
         // of the region have all landed (every stage was consumed)
         bf16* dst = rows + static_cast<size_t>(rows_global ? m0 : blockIdx.x * BM) * K;
         bf16* xo = u % splits == 0 ? xn_extra : nullptr;
-        for (int r = 0; r < 16; r += LN_ROWS)
-          normalise_rows(a32, ln_s, ln_b, dst, xo, m0, wg * 64 + (wt >> 5) * 16 + r, M, K, lane);
+        const int r0 = wg * 64 + (wt >> 5) * 16;
+        if (K <= MAX_LN_K) {
+          for (int r = 0; r < 16; r += LN_ROWS)
+            normalise_rows(a32, ln_s, ln_b, dst, xo, m0, r0 + r, M, K, lane);
+        } else {
+          for (int r = 0; r < 16; ++r)
+            normalise_row_wide(a32, ln_s, ln_b, dst, xo, m0, r0 + r, M, K, lane);
+        }
         fence_proxy_async_global();  // the rows become visible to the TMA loads
         named_barrier(1 + wg, 128);
         if (wt == 0) mbar_arrive(rows_ready);
@@ -427,17 +488,18 @@ int encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int c
 // normalised rows of a LayerNorm product (0 without the prologue, or when
 // xn_out is given and each row block has one unit: the rows go there).
 LTD_API int ltd_ln_gemm_scratch_rows(int M, int N, int ln, int with_xn) {
-  if (!ln || M < 1 || N < 128) return 0;
+  if (!ln || M < 1 || N < 1) return 0;
   int splits, per, grid;
   plan(true, M, N, &splits, &per, &grid);
   return with_xn && splits == 1 ? 0 : grid * BM;
 }
 
-// a: (M, K) float32 when ln_s/ln_b are given (LayerNorm prologue; then
-// K <= 768), else bf16. w: bf16 (N, K), or (K, N) when w_transposed is
-// non-zero. N % 128 == 0, K % 32 == 0, any M >= 1; every pointer 16-byte
-// aligned (TMA). bias: (N,) float32 or null. Exactly one of out (M, N)
-// and resid (M, N) float32 (updated in place: resid += acc + bias) is
+// a: (M, K) float32 when ln_s/ln_b are given (LayerNorm prologue), else
+// bf16. w: bf16 (N, K), or (K, N) when w_transposed is non-zero. N % 8 ==
+// 0 (the maps' row strides; a ragged last column tile reads zeros and
+// stores only its columns below N), K % 32 == 0, any M >= 1; every pointer
+// 16-byte aligned (TMA). bias: (N,) float32 or null. Exactly one of out
+// (M, N) and resid (M, N) float32 (updated in place: resid += acc + bias) is
 // non-null; out is float32 when out_f32 is non-zero, else bf16. xn_out:
 // (M, K) bf16 or null, the normalised rows (LayerNorm prologue only).
 // scratch: ltd_ln_gemm_scratch_rows(M, N, 1, xn_out != null) rows of K
@@ -446,7 +508,7 @@ LTD_API int ltd_ln_gemm(const void* a, const float* ln_s, const float* ln_b, con
                         const float* bias, void* out, float* resid, void* xn_out, void* scratch,
                         int M, int N, int K, int out_f32, int w_transposed, void* stream) {
   const bool ln = ln_s != nullptr;
-  if (M < 1 || N % 128 || N < 128 || K % 32 || K < 32 || (ln && K > MAX_LN_K) ||
+  if (M < 1 || N % 8 || N < 8 || K % 32 || K < 32 ||
       (!ln && xn_out != nullptr) || ((out == nullptr) == (resid == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   int splits, per, grid;

@@ -23,18 +23,23 @@
 // 5 bytes moved (float32 in, int8 out): memory-bound (3.35 TB/s).
 //
 // What this design does about that: one warp per row reads the row once
-// into registers (float4 per lane, up to K = 3072: 24 float4 a lane),
-// takes the statistics and the absolute maximum with warp shuffles, and
-// writes the int8 row with 4-byte stores (a warp covers 128 contiguous
-// bytes) and the row's scale. Nothing is read twice and nothing but the
-// int8 row and its scale is written.
+// into registers (lane l holds the float4s l, l + 32, ...; up to K = 3072,
+// 24 float4 a lane), takes the statistics and the absolute maximum with
+// warp shuffles, and writes the int8 row with 4-byte stores (a warp covers
+// 128 contiguous bytes) and the row's scale. Nothing is read twice and
+// nothing but the int8 row and its scale is written. A wider row (the GELU
+// output at D = 1024 is 4096 wide) keeps its first 3072 values in
+// registers and reads the rest again for each pass (mean, variance,
+// maximum, quantization), from L2 after the first; each lane visits its
+// values in the same order either way, so the sums and the roundings are
+// those of the register path.
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;  // 8 warps, one row each
-constexpr int MAX_VEC = 24;   // float4s a lane holds: K <= 3072
+constexpr int MAX_VEC = 24;   // float4s a lane holds: K <= 3072 in registers
 constexpr float LN_EPS = 1e-5f;
 
 __device__ __forceinline__ uint32_t quant4(const float4& v, float inv) {
@@ -58,56 +63,74 @@ rowquant_kernel(const float* __restrict__ x, const float* __restrict__ ln_s,
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (THREADS / 32) + warp;
   if (row >= M) return;
-  const int nv = K / 128;
-  const float* xr = x + static_cast<size_t>(row) * K;
+  // slot j of this lane: float4 32 j + lane of the row, for j < nv (all
+  // lanes alike when K % 128 == 0); in registers for j < MAX_VEC, re-read
+  // past them
+  const int nv = (K / 4 - lane + 31) / 32;
+  const float4* xr = reinterpret_cast<const float4*>(x + static_cast<size_t>(row) * K);
+  const bool ln = ln_s != nullptr;
   float4 v[MAX_VEC];
 #pragma unroll
   for (int j = 0; j < MAX_VEC; ++j)
-    if (j < nv) v[j] = *reinterpret_cast<const float4*>(xr + j * 128 + lane * 4);
+    if (j < nv) v[j] = xr[32 * j + lane];
+  auto slot = [&](int j) { return xr[32 * j + lane]; };
 
-  if (ln_s != nullptr) {
+  float mean = 0.f, rstd = 0.f;
+  if (ln) {
     float s = 0.f;
 #pragma unroll
     for (int j = 0; j < MAX_VEC; ++j)
       if (j < nv) s += (v[j].x + v[j].y) + (v[j].z + v[j].w);
-    const float mean = warp_sum(s) / K;
+    for (int j = MAX_VEC; j < nv; ++j) {
+      const float4 u = slot(j);
+      s += (u.x + u.y) + (u.z + u.w);
+    }
+    mean = warp_sum(s) / K;
     float sq = 0.f;
+    auto dev2 = [&](const float4& u) {
+      const float d0 = u.x - mean, d1 = u.y - mean;
+      const float d2 = u.z - mean, d3 = u.w - mean;
+      return (d0 * d0 + d1 * d1) + (d2 * d2 + d3 * d3);
+    };
 #pragma unroll
-    for (int j = 0; j < MAX_VEC; ++j) {
-      if (j < nv) {
-        const float d0 = v[j].x - mean, d1 = v[j].y - mean;
-        const float d2 = v[j].z - mean, d3 = v[j].w - mean;
-        sq += (d0 * d0 + d1 * d1) + (d2 * d2 + d3 * d3);
-      }
-    }
-    const float rstd = rsqrtf(warp_sum(sq) / K + LN_EPS);
-#pragma unroll
-    for (int j = 0; j < MAX_VEC; ++j) {
-      if (j < nv) {
-        const int k = j * 128 + lane * 4;
-        const float4 sc = *reinterpret_cast<const float4*>(ln_s + k);
-        const float4 sh = *reinterpret_cast<const float4*>(ln_b + k);
-        v[j].x = ln1(v[j].x, mean, rstd, sc.x, sh.x);
-        v[j].y = ln1(v[j].y, mean, rstd, sc.y, sh.y);
-        v[j].z = ln1(v[j].z, mean, rstd, sc.z, sh.z);
-        v[j].w = ln1(v[j].w, mean, rstd, sc.w, sh.w);
-      }
-    }
+    for (int j = 0; j < MAX_VEC; ++j)
+      if (j < nv) sq += dev2(v[j]);
+    for (int j = MAX_VEC; j < nv; ++j) sq += dev2(slot(j));
+    rstd = rsqrtf(warp_sum(sq) / K + LN_EPS);
   }
+  // the value quantized: LN(x) or x
+  auto y = [&](float4 u, int j) {
+    if (ln) {
+      const int k = 4 * (32 * j + lane);
+      const float4 sc = *reinterpret_cast<const float4*>(ln_s + k);
+      const float4 sh = *reinterpret_cast<const float4*>(ln_b + k);
+      u.x = ln1(u.x, mean, rstd, sc.x, sh.x);
+      u.y = ln1(u.y, mean, rstd, sc.y, sh.y);
+      u.z = ln1(u.z, mean, rstd, sc.z, sh.z);
+      u.w = ln1(u.w, mean, rstd, sc.w, sh.w);
+    }
+    return u;
+  };
+#pragma unroll
+  for (int j = 0; j < MAX_VEC; ++j)
+    if (j < nv) v[j] = y(v[j], j);
 
+  auto amax4 = [](const float4& u) {
+    return fmaxf(fmaxf(fabsf(u.x), fabsf(u.y)), fmaxf(fabsf(u.z), fabsf(u.w)));
+  };
   float amax = 0.f;
 #pragma unroll
   for (int j = 0; j < MAX_VEC; ++j)
-    if (j < nv)
-      amax = fmaxf(amax, fmaxf(fmaxf(fabsf(v[j].x), fabsf(v[j].y)),
-                               fmaxf(fabsf(v[j].z), fabsf(v[j].w))));
+    if (j < nv) amax = fmaxf(amax, amax4(v[j]));
+  for (int j = MAX_VEC; j < nv; ++j) amax = fmaxf(amax, amax4(y(slot(j), j)));
   amax = warp_max(amax);
   const float rs = __fmul_rn(fmaxf(amax, 1e-8f), 1.0f / 127.0f);
   const float inv = __fdiv_rn(1.0f, rs);
   uint32_t* qr = reinterpret_cast<uint32_t*>(q + static_cast<size_t>(row) * K);
 #pragma unroll
   for (int j = 0; j < MAX_VEC; ++j)
-    if (j < nv) qr[j * 32 + lane] = quant4(v[j], inv);
+    if (j < nv) qr[32 * j + lane] = quant4(v[j], inv);
+  for (int j = MAX_VEC; j < nv; ++j) qr[32 * j + lane] = quant4(y(slot(j), j), inv);
   if (lane == 0) rscale[row] = rs;
 }
 
@@ -115,10 +138,10 @@ rowquant_kernel(const float* __restrict__ x, const float* __restrict__ ln_s,
 
 // x: (M, K) float32 rows. ln_s, ln_b: (K,) float32, or both null for no
 // LayerNorm. q: (M, K) int8 out; rscale: (M,) float32 out. Requires
-// K % 128 == 0 and K <= 3072.
+// K % 4 == 0 (16-byte rows: K % 16 == 0 for the int8 product's maps).
 LTD_API int ltd_rowquant(const float* x, const float* ln_s, const float* ln_b, void* q,
                          float* rscale, int M, int K, void* stream) {
-  if (K % 128 || K > 128 * MAX_VEC || (ln_s == nullptr) != (ln_b == nullptr))
+  if (K < 4 || K % 4 || (ln_s == nullptr) != (ln_b == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int rows = THREADS / 32;
   rowquant_kernel<<<(M + rows - 1) / rows, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -478,8 +478,10 @@ class WeightGradPlan:
     """How `weight_grad`'s persistent grid covers dW = dY^T X.
 
     The output is cut into `tiles` tiles of WG_TILE (`tile_cols` per
-    row of tiles), the M rows into `depth` stages of WG_STAGE_ROWS, the
-    last one masked by the tensor map where M is ragged, and each tile's
+    row of tiles; the last row and column of tiles ragged where N or K is
+    not a multiple of the tile, masked by the kernel), the M rows into
+    `depth` stages of WG_STAGE_ROWS, the last one masked by the tensor
+    map where M is ragged, and each tile's
     stages into `splits` contiguous M-splits. `segments[p]` are the pieces
     that block p of `blocks` runs, in order, each a record (tile row, tile
     column, first stage, stages, first slab of the tile or -1, index among
@@ -520,11 +522,11 @@ def weight_grad_plan(m: int, n: int, k: int, sms: int) -> WeightGradPlan:
     segments, more partials), and each SM runs its pieces in the order of
     their offset in their split, so that the SMs running at once read the
     same rows of dY and X from L2."""
-    if m < 1 or n % WG_TILE[0] or k % 128 or sms < 1:
-        raise ValueError(f"weight_grad_plan: needs M >= 1, N % 128 == 0 and K % 128 "
+    if m < 1 or n < 8 or k < 8 or n % 8 or k % 8 or sms < 1:
+        raise ValueError(f"weight_grad_plan: needs M >= 1, N % 8 == 0 and K % 8 "
                          f"== 0, got {m}, {n}, {k} on {sms} SMs")
     tile_cols = -(-k // WG_TILE[1])
-    tiles = (n // WG_TILE[0]) * tile_cols
+    tiles = -(-n // WG_TILE[0]) * tile_cols
     depth = -(-m // WG_STAGE_ROWS)
     total = tiles * depth
     # (tile, first stage, stages, offset in its split) per block
@@ -575,7 +577,8 @@ def _plan_on(m: int, n: int, k: int, dev: torch.device):
 
 def weight_grad(dy, x):
     """Kernel wrapper of `weight_grad_plain`; on CUDA dy and x are
-    contiguous bf16 with N % 128 == 0 and K % 128 == 0, any M. One launch:
+    contiguous bf16 with N % 8 == 0 and K % 8 == 0 (ragged last tiles are
+    masked), any M. One launch:
     the partial sums of a tile cut over several SMs are combined by the
     kernel itself, in a fixed order (`weight_grad_plan`)."""
     if dy.device.type == "cpu":
@@ -586,8 +589,8 @@ def weight_grad(dy, x):
     _require(dy.dtype == torch.bfloat16 and x.dtype == torch.bfloat16
              and x.shape[0] == m and m > 0,
              "weight_grad: dy (M, N) and x (M, K) bf16")
-    _require(n % 128 == 0 and k % 128 == 0,
-             f"weight_grad: needs N % 128 == 0 and K % 128 == 0, got {n}, {k}")
+    _require(n % 8 == 0 and k % 8 == 0,
+             f"weight_grad: needs N % 8 == 0 and K % 8 == 0, got {n}, {k}")
     _require(fs.tma_operand(dy) and fs.tma_operand(x),
              "weight_grad: dy and x must be contiguous and 16-byte aligned")
     plan, table = _plan_on(m, n, k, dev)
@@ -604,10 +607,14 @@ def weight_grad(dy, x):
     return out
 
 
+# the widest row layernorm_bwd's warp holds in registers (csrc/layernorm_bwd.cu)
+LN_BWD_MAX_D = 1024
+
+
 def layernorm_bwd(dy, x, scale, upstream):
     """Kernel wrapper of `layernorm_bwd_plain`; on CUDA x float32 or bf16
     (the "bf16res" residuals), the rest float32, D a multiple of 4 and at
-    most 768."""
+    most LN_BWD_MAX_D."""
     if dy.device.type == "cpu":
         return layernorm_bwd_plain(dy, x, scale, upstream)
     dev = _on_cuda("layernorm_bwd", dy, x, scale, upstream)
@@ -615,9 +622,9 @@ def layernorm_bwd(dy, x, scale, upstream):
     _require(all(t.dtype == torch.float32 for t in (dy, scale, upstream))
              and x.dtype in (torch.float32, torch.bfloat16)
              and x.shape == (m, d) and upstream.shape == (m, d)
-             and scale.numel() == d and d % 4 == 0 and d <= 768,
+             and scale.numel() == d and d % 4 == 0 and d <= LN_BWD_MAX_D,
              "layernorm_bwd: float32 dy, upstream (M, D) and scale (D,), x "
-             "(M, D) float32 or bf16, D % 4 == 0 and D <= 768")
+             f"(M, D) float32 or bf16, D % 4 == 0 and D <= {LN_BWD_MAX_D}")
     dx = torch.empty_like(dy)
     partial = torch.empty(((m + 31) // 32, 2 * d), dtype=torch.float32,
                           device=dev)
@@ -717,7 +724,7 @@ def self_attention_bwd(qkv, dout, n_heads: int, n_tokens: int):
 
 def cross_attention_bwd(qc, kv, dout, n_heads: int, n_tokens: int):
     """Kernel wrapper of `cross_attention_bwd_plain`. On CUDA: qc and kv
-    bf16, dout float32, head dim 64, at most 12 heads."""
+    bf16, dout float32, head dim 64 (any number of heads)."""
     if qc.device.type == "cpu":
         return cross_attention_bwd_plain(qc, kv, dout, n_heads, n_tokens)
     dev = _on_cuda("cross_attention_bwd", qc, kv, dout)
@@ -726,9 +733,9 @@ def cross_attention_bwd(qc, kv, dout, n_heads: int, n_tokens: int):
     _require(qc.dtype == kv.dtype == torch.bfloat16
              and dout.dtype == torch.float32 and dout.shape == (m, d)
              and kv.shape == (2 * b, 2 * d) and d == 64 * n_heads
-             and n_heads <= 12 and m == b * n_tokens,
+             and m == b * n_tokens,
              "cross_attention_bwd: qc bf16 (B*N, D), kv bf16 (2B, 2D), dout "
-             "float32 (B*N, D), head dim 64, <= 12 heads")
+             "float32 (B*N, D), head dim 64")
     dqc = torch.empty_like(qc)
     dkv = torch.empty_like(kv)
     lib = load_library()

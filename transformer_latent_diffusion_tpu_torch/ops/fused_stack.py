@@ -232,9 +232,9 @@ def ln_gemm(a, w, bias=None, ln=None, residual=None, out_dtype=None,
     `residual` the kernel updates it in place and returns it).
 
     On CUDA: w bf16 (N, K), or (K, N) with w_transposed (read as stored,
-    no copy), N % 128 == 0 and K % 32 == 0; a float32 with `ln` (then
-    K <= 768), else bf16; bias, ln and residual float32; out_dtype bf16
-    or float32."""
+    no copy), N % 8 == 0 (a ragged last column tile is masked) and
+    K % 32 == 0; a float32 with `ln`, else bf16; bias, ln and residual
+    float32; out_dtype bf16 or float32."""
     if a.device.type == "cpu":
         return ln_gemm_plain(a, w, bias, ln, residual, out_dtype, return_xn,
                              w_transposed)
@@ -246,8 +246,8 @@ def ln_gemm(a, w, bias=None, ln=None, residual=None, out_dtype=None,
     want = (k, n) if w_transposed else (n, k)
     _require(w.dtype == torch.bfloat16 and w.shape == want,
              f"ln_gemm: w must be bf16 {want}, got {w.dtype} {tuple(w.shape)}")
-    _require(n % 128 == 0 and k % 32 == 0,
-             f"ln_gemm: needs N % 128 == 0 and K % 32 == 0, got N={n} K={k}")
+    _require(n % 8 == 0 and k % 32 == 0,
+             f"ln_gemm: needs N % 8 == 0 and K % 32 == 0, got N={n} K={k}")
     _require(a.dtype == (torch.float32 if ln is not None else torch.bfloat16),
              "ln_gemm: a is float32 with a LayerNorm prologue, else bf16")
     for t in extra:
@@ -261,8 +261,8 @@ def ln_gemm(a, w, bias=None, ln=None, residual=None, out_dtype=None,
     if bias is not None:
         _require(bias.numel() == n, "ln_gemm: bias must have N elements")
     if ln is not None:
-        _require(scale.numel() == k and shift.numel() == k and k <= 768,
-                 "ln_gemm: LayerNorm scale/shift must have K <= 768 elements")
+        _require(scale.numel() == k and shift.numel() == k,
+                 "ln_gemm: LayerNorm scale/shift must have K elements")
     out = None
     if residual is not None:
         _require(residual.shape == (m, n), "ln_gemm: residual must be (M, N)")
@@ -315,8 +315,8 @@ def cross_attention(qc, kv, residual, ln, n_heads: int, n_tokens: int,
                     summed: bool = False):
     """Kernel wrapper of `cross_attention_plain`; on CUDA it updates
     `residual` in place and returns it with the new bf16 `xn` (None, and
-    no LayerNorm, when ln is None). Needs head dim 64 and at most 12
-    heads."""
+    no LayerNorm, when ln is None). Needs head dim 64 (any number of
+    heads)."""
     if qc.device.type == "cpu":
         return cross_attention_plain(qc, kv, residual, ln, n_heads, n_tokens,
                                      summed)
@@ -329,10 +329,9 @@ def cross_attention(qc, kv, residual, ln, n_heads: int, n_tokens: int,
              and residual.dtype == torch.float32
              and all(t.dtype == torch.float32 and t.numel() == d for t in lnp),
              "cross_attention: qc and kv bf16; residual and ln (D,) float32")
-    _require(d == 64 * n_heads and n_heads <= 12 and m == b * n_tokens
+    _require(d == 64 * n_heads and m == b * n_tokens
              and kv.shape == (2 * b, 2 * d) and residual.shape == (m, d),
-             "cross_attention: needs head dim 64, <= 12 heads, kv (2B, 2D), "
-             "residual (B*N, D)")
+             "cross_attention: needs head dim 64, kv (2B, 2D), residual (B*N, D)")
     xn = (torch.empty((m, d), dtype=torch.bfloat16, device=dev)
           if ln is not None else None)
     lib = load_library()

@@ -63,8 +63,6 @@ LAUNCHES_PER_LAYER = {"rowquant": 4, "gemm_i8": 4, "ln_gemm": 1,
                       "dwconv_gelu": 1}
 # the projections quantized to int8, and their scales' names
 QUANTIZED = (("wqkv", "sqkv"), ("wq", "sq"), ("w1", "s1"), ("w2", "s2"))
-# rowquant holds a row of at most this many float32 values in registers
-ROWQUANT_MAX_K = 3072
 
 
 def reset_launch_counts() -> None:
@@ -112,7 +110,8 @@ def gemm_i8_plain(xq, rs, wq, cs, bias=None, residual=None,
 
 def rowquant(x, ln=None):
     """Kernel wrapper of `rowquant_plain`. On CUDA: x float32 (M, K) with
-    K % 128 == 0 and K <= 3072; ln float32 (K,) each, or None."""
+    K % 16 == 0 (the int8 rows' TMA maps in `gemm_i8`); ln float32 (K,)
+    each, or None."""
     if x.device.type == "cpu":
         return rowquant_plain(x, ln)
     scale, shift = ln if ln is not None else (None, None)
@@ -120,8 +119,7 @@ def rowquant(x, ln=None):
     dev = fs._on_cuda("rowquant", x, *lnp)
     m, k = x.shape
     fs._require(x.dtype == torch.float32, "rowquant: x must be float32")
-    fs._require(k % 128 == 0 and k <= ROWQUANT_MAX_K,
-                f"rowquant: needs K % 128 == 0 and K <= {ROWQUANT_MAX_K}, got K={k}")
+    fs._require(k % 16 == 0 and k > 0, f"rowquant: needs K % 16 == 0, got K={k}")
     fs._require(all(t.dtype == torch.float32 and t.numel() == k for t in lnp),
                 "rowquant: LayerNorm scale/shift must be float32 (K,)")
     q = torch.empty((m, k), dtype=torch.int8, device=dev)
@@ -137,8 +135,9 @@ def rowquant(x, ln=None):
 def gemm_i8(xq, rs, wq, cs, bias=None, residual=None, out_dtype=torch.bfloat16):
     """Kernel wrapper of `gemm_i8_plain` (same arguments and result; with
     `residual` the kernel updates it in place and returns it). On CUDA:
-    xq, wq int8 with N % 128 == 0 and K % 64 == 0; rs, cs, bias and
-    residual float32; out_dtype bf16 or float32."""
+    xq, wq int8 with N % 16 == 0 and K % 16 == 0 (ragged last tiles are
+    masked); rs, cs, bias and residual float32; out_dtype bf16 or
+    float32."""
     if xq.device.type == "cpu":
         return gemm_i8_plain(xq, rs, wq, cs, bias, residual, out_dtype)
     extra = [t for t in (bias, residual) if t is not None]
@@ -149,8 +148,8 @@ def gemm_i8(xq, rs, wq, cs, bias=None, residual=None, out_dtype=torch.bfloat16):
                 and wq.shape == (n, k),
                 f"gemm_i8: xq and wq must be int8, wq (N, {k}); got {xq.dtype}, "
                 f"{wq.dtype} {tuple(wq.shape)}")
-    fs._require(n % 128 == 0 and k % 64 == 0,
-                f"gemm_i8: needs N % 128 == 0 and K % 64 == 0, got N={n} K={k}")
+    fs._require(n % 16 == 0 and k % 16 == 0 and n > 0 and k > 0,
+                f"gemm_i8: needs N % 16 == 0 and K % 16 == 0, got N={n} K={k}")
     fs._require(all(t.dtype == torch.float32 for t in (rs, cs, *extra)),
                 "gemm_i8: rs, cs, bias and residual are float32")
     fs._require(rs.numel() == m and cs.numel() == n
