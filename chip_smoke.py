@@ -298,6 +298,22 @@ def dw_equal_work(h, dw, dwb, hw, out_dtype=torch.bfloat16):
     return run
 
 
+def dwb_equal_work(da, h, dw, dwb, hw):
+    """The same work as `dwconv_gelu_bwd` in PyTorch calls: autograd's
+    backward alone through the depthwise convolution (groups = C, with
+    bias) and F.gelu in float32 on the channels-last rows as stored, the
+    forward run once beforehand, untimed."""
+    F = torch.nn.functional
+    ch = h.shape[1]
+    hg = h.detach().view(-1, hw, hw, ch).permute(0, 3, 1, 2).requires_grad_(True)
+    wg = dw.float().t().reshape(ch, 1, 3, 3).contiguous(
+        memory_format=torch.channels_last).requires_grad_(True)
+    bg = dwb.detach().clone().requires_grad_(True)
+    out = F.gelu(F.conv2d(hg, wg, bg, padding=1, groups=ch))
+    dag = da.view(-1, hw, hw, ch).permute(0, 3, 1, 2)
+    return lambda: torch.autograd.grad(out, (hg, wg, bg), dag, retain_graph=True)
+
+
 def _bit_equal_twice(name, fn, tag):
     """Two launches of `fn` on the same inputs give the same bits."""
     a, b = _tuple(fn()), _tuple(fn())
@@ -1530,6 +1546,24 @@ def phase_train_kernels():
     for name, (kern, plain, kern_t, plain_t) in cases.items():
         worst[name] = _check(name, _tuple(kern()), _tuple(plain()), "train-kernels")
         timed[name] = (kern_t or kern, plain_t or plain)
+    # colsum and dwconv_gelu_bwd: one launch a call each (the kernel sums its
+    # own partials, so no colsum follows it), partials added in a fixed
+    # order: bit-equal launches, at the db2 shape and at a ragged R
+    ragged = g32[:m - 37]
+    _check(f"colsum/ragged R = {m - 37}", (lv.colsum(ragged),), (lv.colsum_plain(ragged),),
+           "train-kernels")
+    _reset_counts()
+    lv.colsum(g32)
+    lv.dwconv_gelu_bwd(da, c, h, dw, HW)
+    _require_launches(_counts(), _expect({"colsum": 1, "dwconv_gelu_bwd": 1}),
+                      "one colsum and one dwconv_gelu_bwd call")
+    for name, fn in ((f"colsum (db2, {m} x {D})", lambda: lv.colsum(g32)),
+                     (f"colsum (ragged R = {m - 37})", lambda: lv.colsum(ragged)),
+                     ("dwconv_gelu_bwd (float32, whole grid)",
+                      lambda: lv.dwconv_gelu_bwd(da, c, h, dw, HW))):
+        _bit_equal_twice(name, fn, "train-kernels")
+    _ptxas_report("train-kernels", ("dwconv_gelu_bwd_kernel", "colsum_kernel"))
+    del ragged
     # one writer per element and sums in a fixed order: bit-equal launches
     if not torch.equal(lv.self_attention_bwd(qkv, g32, HEADS, N),
                        lv.self_attention_bwd(qkv, g32, HEADS, N)):
@@ -1590,14 +1624,8 @@ def phase_train_kernels():
     _, mean, rstd = torch.ops.aten.native_layer_norm(x, [D], scale, lnb, 1e-5)
     ln_eq = time_ms(lambda: [torch.ops.aten.native_layer_norm_backward(
         g32, x, [D], mean, rstd, scale, lnb, [True, True, True]) for _ in range(3)])
-    hg = h.detach().view(TB, HW, HW, HIDDEN).permute(0, 3, 1, 2).requires_grad_(True)
-    wg_ = dw.float().t().reshape(HIDDEN, 1, 3, 3).contiguous(
-        memory_format=torch.channels_last).requires_grad_(True)
-    bg = dwb.detach().clone().requires_grad_(True)
-    dwo = F.gelu(F.conv2d(hg, wg_, bg, padding=1, groups=HIDDEN))
-    dag = da.view(TB, HW, HW, HIDDEN).permute(0, 3, 1, 2)
-    dw_eq = time_ms(lambda: torch.autograd.grad(dwo, (hg, wg_, bg), dag, retain_graph=True))
-    del hg, wg_, bg, dwo, dag, mean, rstd
+    dw_eq = time_ms(dwb_equal_work(da, h, dw, dwb, HW))
+    del mean, rstd
     library = {
         "weight_grad": time_ms(lambda: [u.t() @ v for u, v in wg_cases]),
         "colsum": time_ms(lambda: g32.sum(0)),
@@ -1642,6 +1670,12 @@ def phase_train_kernels():
                                     10 * TB * HEADS * N * N * 64, BF16_TENSOR_FLOP_S),
         "cross_attention_bwd": bound(m * D * 8 + 2 * TB * 2 * D * 4, 10 * m * D, F32_FLOP_S),
     }
+    for name, target in (("colsum", 0.040), ("dwconv_gelu_bwd", 0.55)):
+        ms = timing[name][0]
+        log(f"[train-kernels] {name}: {ms:.4f} ms against its bound {bounds[name][0]:.4f} ms "
+            f"({bounds[name][1]}; {bounds[name][0] / ms:.0%} of it), target {target} ms "
+            f"({'met' if ms <= target else 'missed'}); yardstick "
+            f"{library[name] if name == 'colsum' else library[name + ' (equal work)']:.4f} ms")
     return worst, timing, library, bounds
 
 
@@ -1702,6 +1736,10 @@ def phase_train_layer():
     out.backward(g)
     per_layer = {k: v for k, v in _counts().items() if v}
     log(f"[train-layer] launches of one layer's forward + backward: {per_layer}")
+    # db2 and the three layernorm_bwd partials, one colsum launch each;
+    # dwconv_gelu_bwd sums its own partials
+    _require_launches({k: per_layer.get(k, 0) for k in ("colsum", "dwconv_gelu_bwd")},
+                      {"colsum": 4, "dwconv_gelu_bwd": 1}, "one layer's backward")
     with torch.no_grad():
         want = lv.fused_layer_fwd_plain(x, cond, params, HEADS, HW)
         r = rel_l2(out.float() - x.float(), want.float() - x.float())
@@ -2060,15 +2098,23 @@ def phase_hires_train_kernels():
     del args, x, gr
     h, c, da = randn(m, HIDDEN), randn(m, HIDDEN), randn(m, HIDDEN, std=1e-3)
     body = lv.dwconv_gelu_bwd_body(HR_HW)
-    _check(f"dwconv_gelu_bwd row bands of {body} hw=32 (4 outputs)",
-           lv.dwconv_gelu_bwd(da, c, h, dw, HR_HW), lv.dwconv_gelu_bwd_plain(da, c, h, dw, HR_HW),
-           "hires-train-kernels")
-    t = time_against_plain({"dwconv_gelu_bwd row bands": (
+    key = "dwconv_gelu_bwd (row band)"
+    worst[key] = _check(f"dwconv_gelu_bwd row bands of {body} hw=32 (4 outputs)",
+                        lv.dwconv_gelu_bwd(da, c, h, dw, HR_HW),
+                        lv.dwconv_gelu_bwd_plain(da, c, h, dw, HR_HW), "hires-train-kernels")
+    _bit_equal_twice(f"dwconv_gelu_bwd row bands of {body} hw=32",
+                     lambda: lv.dwconv_gelu_bwd(da, c, h, dw, HR_HW), "hires-train-kernels")
+    timing.update(time_against_plain({key: (
         lambda: lv.dwconv_gelu_bwd(da, c, h, dw, HR_HW),
-        lambda: lv.dwconv_gelu_bwd_plain(da, c, h, dw, HR_HW))}, "hires-train-kernels")
-    bnd = bound(m * HIDDEN * 14 + 9 * HIDDEN * 2 + 11 * HIDDEN * 4, 56 * m * HIDDEN, F32_FLOP_S)
-    log(f"[hires-train-kernels] dwconv_gelu_bwd row bands hw=32 B={HT_B}: "
-        f"{t['dwconv_gelu_bwd row bands'][0]:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+        lambda: lv.dwconv_gelu_bwd_plain(da, c, h, dw, HR_HW))}, "hires-train-kernels"))
+    library[key] = time_ms(dwb_equal_work(da, h, dw, dwb, HR_HW), 10, 2)
+    bounds[key] = bound(m * HIDDEN * 14 + 9 * HIDDEN * 2 + 11 * HIDDEN * 4, 56 * m * HIDDEN,
+                        F32_FLOP_S)
+    ms = timing[key][0]
+    log(f"[hires-train-kernels] dwconv_gelu_bwd row bands hw=32 B={HT_B}: {ms:.4f} ms, bound "
+        f"{bounds[key][0]:.4f} ms ({bounds[key][1]}; {bounds[key][0] / ms:.0%} of it), target "
+        f"1.10 ms ({'met' if ms <= 1.10 else 'missed'}); equal-work yardstick (autograd's "
+        f"backward through F.conv2d + F.gelu) {library[key]:.4f} ms")
     del h, c, da
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2196,6 +2242,9 @@ def phase_hires_train_step(smi):
     _require_launches({k: per_layer.get(k, 0) for k in calls}, calls, "512 px block")
     _require_launches(set(per_layer), {*calls, "ln_gemm", "dwconv_gelu", "weight_grad",
                                        "colsum", "dwconv_gelu_bwd"}, "512 px block kernels")
+    # K5's backward: db2 in one colsum launch; dwconv_gelu_bwd sums its own partials
+    _require_launches({k: per_layer[k] for k in ("colsum", "dwconv_gelu_bwd")},
+                      {"colsum": 1, "dwconv_gelu_bwd": 1}, "512 px block's K5 backward")
     ms512, peak512, launches, prof512 = _time_steps(models[True], HT_B, HT_SIZE)
     expect = {k: v * n_layers for k, v in per_layer.items()}
     log(f"[hires-train-step] 512 px flagship, batch {HT_B}, bf16 compute, float32 master "
@@ -3024,6 +3073,7 @@ def phase_s2():
     rows += _line_rows(_check_rows("s2", kcases), TPU_S2, str,
                        lambda name: f"csrc/{kernel(name)}.cu",
                        lambda name: bf16res.get(kernel(name), 0))
+    _bit_equal_twice("dwconv_gelu_bwd (bf16 c, h)", kcases["dwconv_gelu_bwd (bf16 c, h)"][0], "s2")
     del h, c, da, dy, xb, up
     torch.cuda.empty_cache()
     return rows
@@ -3278,17 +3328,21 @@ def main():
                 kernels[-1]["equal_work_ms"] = lib[f"{name} (equal work)"]
     # K4a and K4b are one Hopper kernel: a row at 512 px (B = 64, N = 1024;
     # launches of the fine-tune) and one at 4096 tokens (B = 2; launches of
-    # the 1024 px step); K5's backward at 512 px (launches of the fine-tune)
-    for row, name, key, tpu, counts in (
+    # the 1024 px step); K5's backward and its row-band dwconv_gelu_bwd at
+    # 512 px (launches of the fine-tune)
+    for row, name, key, tpu, counts, err in (
             ("flash_attention_bwd", "flash_attention_bwd", "flash_attention_bwd", TPU_K4A,
-             ft_launches),
+             ft_launches, "flash_attention_bwd"),
             ("flash_attention_bwd (N = 4096)", "flash_attention_bwd", "k4b", TPU_K4B,
-             xr_launches),
+             xr_launches, "flash_attention_bwd"),
             ("fused_mlp_sepconv_bwd", "fused_mlp_sepconv_bwd", "fused_mlp_sepconv_bwd",
-             TPU_K5_BWD, ft_launches)):
+             TPU_K5_BWD, ft_launches, "fused_mlp_sepconv_bwd"),
+            ("dwconv_gelu_bwd (row band, hw = 32)", "dwconv_gelu_bwd",
+             "dwconv_gelu_bwd (row band)", TPU_K5_BWD, ft_launches,
+             "dwconv_gelu_bwd (row band)")):
         kernels.append({
             "name": row, "route": "cuda", "source": f"{port}/{sources[name]}",
-            "replaces": tpu, "launches": counts[name], "max_abs_err": ht_worst[name],
+            "replaces": tpu, "launches": counts[name], "max_abs_err": ht_worst[err],
             "ms": ht_timing[key][0], "plain_ms": ht_timing[key][1],
             "bound_ms": ht_bounds[key][0], "bound_by": ht_bounds[key][1],
             "library_ms": ht_library[key],

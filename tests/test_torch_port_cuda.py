@@ -986,3 +986,99 @@ def test_ln_gemm_layernorm_past_1024_on_card(k):
     for u, v, x in zip(got, want, again):
         assert _close(u.float(), v.float())
         assert torch.equal(u, x)
+
+
+# --------------- dwconv_gelu_bwd (TMA slab ring) and colsum (one launch) ---------------
+
+
+def _dwb_inputs(b, hw, c, dtype, seed=0):
+    """da float32 (the GELU output's gradient), c and h in `dtype`, bf16 taps."""
+    gen = torch.Generator().manual_seed(seed + 31 * hw + c)
+    m = b * hw * hw
+
+    def r(*s, std=1.0, dt=torch.float32):
+        return (torch.randn(*s, generator=gen) * std).to("cuda", dt)
+
+    return r(m, c, std=1e-3), r(m, c, dt=dtype), r(m, c, dt=dtype), r(9, c, std=1 / 3,
+                                                                     dt=torch.bfloat16)
+
+
+# C = 96: three chunks, a number of units that 132 SMs do not divide (a
+# partial last wave and chunks spread unevenly over the SMs); C = 3072: the
+# flagship's; hw = 16 the whole grid, 20 ragged bands (float32) or the whole
+# grid at its limit (bf16), 32 bands of 8
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bf16"])
+@pytest.mark.parametrize("hw", [16, 20, 32])
+@pytest.mark.parametrize("b,c", [(5, 96), (3, 3072)])
+def test_dwconv_gelu_bwd_modes_match_plain_on_card(b, c, hw, dtype):
+    """dwconv_gelu_bwd's TMA body in each mode (float32 or bf16 c and h; the
+    whole grid or row bands) against its plain version: rel-L2 < 1e-2 and
+    max-abs < 2e-2 of the scale for dhid, the taps, ddwb and db1; two
+    launches bit-equal; one launch a call and no colsum after it."""
+    _need_card()
+    da, cc, h, dw = _dwb_inputs(b, hw, c, dtype)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert lv.dwconv_gelu_bwd_plan(b, hw, c, dtype).units % sms  # a partial last wave
+    before = dict(lv.LAUNCHES)
+    got = lv.dwconv_gelu_bwd(da, cc, h, dw, hw)
+    torch.cuda.synchronize()
+    assert lv.LAUNCHES["dwconv_gelu_bwd"] == before["dwconv_gelu_bwd"] + 1
+    assert lv.LAUNCHES["colsum"] == before["colsum"]
+    again = lv.dwconv_gelu_bwd(da, cc, h, dw, hw)
+    want = lv.dwconv_gelu_bwd_plain(da, cc, h, dw, hw)
+    torch.cuda.synchronize()
+    for u, a, w in zip(got, again, want):
+        assert u.dtype == w.dtype and u.shape == w.shape
+        assert _close(u.float(), w.float())
+        assert torch.equal(u, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 31, 1025, 32768])
+@pytest.mark.parametrize("c", [768, 1536, 100, 33])
+def test_colsum_shapes_match_plain_on_card(r, c):
+    """colsum in one launch at R = 1, 31, 1025 and 32768 (db2 at batch 128)
+    and at C = 768, 1536 (layernorm_bwd's partials), 100 and 33 (not
+    multiples of 32; 33 takes 4-byte loads): against `colsum_plain`
+    (rel-L2 < 1e-2, max-abs < 2e-2 of the scale) and two launches
+    bit-equal."""
+    _need_card()
+    gen = torch.Generator().manual_seed(r + c)
+    x = torch.randn(r, c, generator=gen).cuda()
+    before = lv.LAUNCHES["colsum"]
+    got = lv.colsum(x)
+    torch.cuda.synchronize()
+    assert lv.LAUNCHES["colsum"] == before + 1
+    again = lv.colsum(x)
+    want = lv.colsum_plain(x)
+    torch.cuda.synchronize()
+    assert got.shape == (c,) and _close(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_backward_colsum_launches_drop_on_card():
+    """The launches that the in-kernel sums take away: a K2 layer's backward
+    runs 4 colsum launches (db2 and the three layernorm_bwd partials, each
+    one launch) and one dwconv_gelu_bwd; K5's backward 8 launches in all
+    (ln_gemm 3, dwconv_gelu 1, weight_grad 2, colsum 1 for db2 at 2048
+    rows, dwconv_gelu_bwd 1)."""
+    _need_card()
+    x, cond, g, params = _layer_args(2, 16, seed=9)
+    x.requires_grad_(True)
+    lv.reset_launch_counts()
+    lv.fused_layer(x, cond, params, 2, 16).backward(g)
+    torch.cuda.synchronize()
+    assert lv.LAUNCHES["colsum"] == 4 and lv.LAUNCHES["dwconv_gelu_bwd"] == 1
+    args = _port_mlp_args(*_mlp_inputs(32, d=128), torch.bfloat16, "cuda")
+    xm, w1, b1, dw, dwb, w2, _ = args
+    gm = torch.randn(xm.shape, device="cuda").to(torch.bfloat16)
+    lv.reset_launch_counts()
+    fs.reset_launch_counts()
+    fm.fused_mlp_sepconv_bwd(xm, gm, w1, b1, dw, dwb, w2, 32)
+    torch.cuda.synchronize()
+    counts = {**{k: v for k, v in fs.LAUNCHES.items() if v},
+              **{k: v for k, v in lv.LAUNCHES.items() if v}}
+    assert counts == {"ln_gemm": 3, "dwconv_gelu": 1, "weight_grad": 2, "colsum": 1,
+                      "dwconv_gelu_bwd": 1}

@@ -196,20 +196,42 @@ def test_fused_mlp_sepconv_gradient_is_its_backward():
     assert all(v == 0 for v in fm.LAUNCHES.values())
 
 
-@pytest.mark.parametrize("hw,band", [(16, 0), (28, 0), (29, 8), (32, 8), (88, 8),
-                                     (89, None)])
+@pytest.mark.parametrize("hw,band", [(16, 0), (17, 0), (18, 8), (28, 8), (29, 8), (32, 8),
+                                     (88, 2), (89, 1), (118, 1), (119, None)])
 def test_dwconv_gelu_bwd_body_holds_its_slabs(hw, band):
-    """The backward depthwise kernel's gate is what each body holds in a
-    block's 227 KB: two float32 slabs (dc and h) of 32 channels, the whole
-    grid up to hw 28, then bands of 8 rows with a one-row halo up to hw
-    88 (the 512 px MLP's hw = 32 takes bands); beyond that it raises."""
+    """The backward depthwise kernel's gate is what a block's 227 KB holds:
+    a two-stage ring of float32 dc and h slabs of 32 channels and one c
+    slab. The whole grid up to hw 17, then bands of the most rows up to 8
+    that fit, with a one-row halo (the 512 px MLP's hw = 32 takes bands of
+    8), down to one row at hw 118; beyond that it raises."""
     if band is None:
         with pytest.raises(ValueError, match="shared memory"):
             lv.dwconv_gelu_bwd_body(hw)
         return
     assert lv.dwconv_gelu_bwd_body(hw) == band
     rows = hw if band == 0 else band
-    assert 2 * (rows + 2) * (hw + 2) * lv.DWB_CHUNK * 4 <= fs.SMEM_PER_BLOCK
+    assert lv.dwconv_gelu_bwd_smem(rows, hw, 4) <= fs.SMEM_PER_BLOCK
+    if band:  # the most rows that fit
+        assert band == lv.DWB_BAND_ROWS or lv.dwconv_gelu_bwd_smem(band + 1, hw, 4) > fs.SMEM_PER_BLOCK
+    # two float32 slabs of each of dc and h, one of c
+    assert lv.dwconv_gelu_bwd_smem(rows, hw, 4) >= 5 * (rows + 2) * (hw + 2) * lv.DWB_CHUNK * 4
+
+
+@pytest.mark.parametrize("hw,band", [(16, 0), (20, 0), (21, 8), (32, 8), (64, 5), (170, 1),
+                                     (171, None)])
+def test_dwconv_gelu_bwd_body_bf16_holds_its_slabs(hw, band):
+    """With bf16 c and h (S2's bf16res) the slabs of c and h are half as
+    large: the whole grid up to hw 20, then bands, down to one row at hw
+    170."""
+    if band is None:
+        with pytest.raises(ValueError, match="shared memory"):
+            lv.dwconv_gelu_bwd_body(hw, torch.bfloat16)
+        return
+    assert lv.dwconv_gelu_bwd_body(hw, torch.bfloat16) == band
+    rows = hw if band == 0 else band
+    assert lv.dwconv_gelu_bwd_smem(rows, hw, 2) <= fs.SMEM_PER_BLOCK
+    if band:
+        assert band == lv.DWB_BAND_ROWS or lv.dwconv_gelu_bwd_smem(band + 1, hw, 2) > fs.SMEM_PER_BLOCK
 
 
 # ------------------------------ the decoder block beyond K2's gate ------------------------------

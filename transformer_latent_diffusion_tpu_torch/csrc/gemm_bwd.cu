@@ -48,9 +48,20 @@
 //   one L2 round trip per segment) and writes the tile. A tile of one
 //   segment is written straight from the registers.
 //
-// colsum. out[c] = sum_r x[r, c], float32. Memory-bound (one read of x).
-// 32 columns per block, 8 row lanes per column summing strided rows, then
-// the 8 lane sums added in a fixed order in shared memory.
+// colsum. out[c] = sum_r x[r, c], float32, in one launch at any R. What
+// bounds it: one read of x (0.030 ms for db2's 32768 x 768 at 3.35 TB/s).
+// What this design does about that:
+// - A block takes 128 columns (32 threads of a float4) of a slice of
+//   `slice` rows (ops/fused_layer_vjp.py::colsum_slice_rows: about 384
+//   blocks a call, one wave of 3 blocks an SM, slices of at least 64
+//   rows); its 8 row lanes each keep 8 independent 16-byte loads in
+//   flight, summed in row order, and the lanes add in lane order.
+// - A slice's sums go to a workspace row; the block that finds itself last
+//   of its column tile (a counter taken after a fence) sums the slices'
+//   rows, 8 runs of consecutive slices, each in slice order, then the runs
+//   in order. The order depends only on R and C: two launches on the same
+//   input give the same bits, and no second launch is needed.
+// C % 4 != 0 (rows not 16-byte aligned) takes 4-byte loads.
 
 #include "hopper.cuh"
 
@@ -208,28 +219,104 @@ weight_grad_kernel(const __grid_constant__ CUtensorMap map_dy,
 }
 
 constexpr int CS_THREADS = 256;
-constexpr int CS_COLS = 32;
-constexpr int CS_LANES = CS_THREADS / CS_COLS;
+constexpr int CS_VCOLS = 32;                      // float4 columns per block
+constexpr int CS_LANES = CS_THREADS / CS_VCOLS;  // row lanes
+constexpr int CS_DEPTH = 8;                       // loads in flight per lane
 
-__global__ void __launch_bounds__(CS_THREADS)
-colsum_kernel(const float* __restrict__ x, float* __restrict__ out, int R, int C,
-              int rows_per_block) {
-  __shared__ float part[CS_LANES][CS_COLS];
-  const int col = blockIdx.x * CS_COLS + (threadIdx.x & (CS_COLS - 1));
-  const int lane_r = threadIdx.x / CS_COLS;
-  const int r0 = blockIdx.y * rows_per_block;
-  const int r1 = min(R, r0 + rows_per_block);
-  float s = 0.f;
-  if (col < C)
-    for (int r = r0 + lane_r; r < r1; r += CS_LANES) s += x[static_cast<size_t>(r) * C + col];
-  part[lane_r][threadIdx.x & (CS_COLS - 1)] = s;
-  __syncthreads();
-  if (lane_r == 0 && col < C) {
-    float t = 0.f;
-#pragma unroll
-    for (int i = 0; i < CS_LANES; ++i) t += part[i][threadIdx.x];
-    out[static_cast<size_t>(blockIdx.y) * C + col] = t;
+// one float32 of x: streamed from device memory (x, read once), or from L2
+// (the slices' sums, which other blocks of this launch wrote)
+template <bool FROM_L2>
+__device__ __forceinline__ float cs_ld(const float* p) {
+  return FROM_L2 ? __ldcg(p) : __ldcs(p);
+}
+template <bool FROM_L2>
+__device__ __forceinline__ float4 cs_ld(const float4* p) {
+  return FROM_L2 ? __ldcg(p) : __ldcs(p);
+}
+
+// x[r, c .. c + 3] as float32, zero past R or C
+template <bool FROM_L2>
+__device__ __forceinline__ float4 cs_load(const float* x, int r, int R, int c, int C, bool vec) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (r >= R) return v;
+  const float* p = x + static_cast<size_t>(r) * C + c;
+  if (vec) {
+    if (c < C) v = cs_ld<FROM_L2>(reinterpret_cast<const float4*>(p));
+  } else {
+    if (c < C) v.x = cs_ld<FROM_L2>(p);
+    if (c + 1 < C) v.y = cs_ld<FROM_L2>(p + 1);
+    if (c + 2 < C) v.z = cs_ld<FROM_L2>(p + 2);
+    if (c + 3 < C) v.w = cs_ld<FROM_L2>(p + 3);
   }
+  return v;
+}
+
+__device__ __forceinline__ void cs_add(float4& s, const float4& v) {
+  s.x += v.x, s.y += v.y, s.z += v.z, s.w += v.w;
+}
+
+__device__ __forceinline__ void cs_store(float* p, int c, int C, bool vec, const float4& v) {
+  if (vec) {
+    if (c < C) *reinterpret_cast<float4*>(p) = v;
+  } else {
+    if (c < C) p[0] = v.x;
+    if (c + 1 < C) p[1] = v.y;
+    if (c + 2 < C) p[2] = v.z;
+    if (c + 3 < C) p[3] = v.w;
+  }
+}
+
+// blockIdx.x: the column tile of 128 columns; blockIdx.y: the slice of rows
+__global__ void __launch_bounds__(CS_THREADS)
+colsum_kernel(const float* __restrict__ x, float* __restrict__ out, float* __restrict__ ws,
+              int* __restrict__ counters, int R, int C, int slice, bool vec) {
+  __shared__ float4 part[CS_LANES][CS_VCOLS];
+  __shared__ int last;
+  const int vc = threadIdx.x % CS_VCOLS, lane = threadIdx.x / CS_VCOLS;
+  const int c = (blockIdx.x * CS_VCOLS + vc) * 4;
+  const int slices = gridDim.y;
+  const int r1 = min(R, static_cast<int>(blockIdx.y + 1) * slice);
+  // rows r0 + lane, r0 + lane + 8, ... of the slice, in order
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int r = blockIdx.y * slice + lane; r < r1; r += CS_LANES * CS_DEPTH) {
+    float4 v[CS_DEPTH];
+#pragma unroll
+    for (int i = 0; i < CS_DEPTH; ++i) v[i] = cs_load<false>(x, r + i * CS_LANES, r1, c, C, vec);
+#pragma unroll
+    for (int i = 0; i < CS_DEPTH; ++i) cs_add(s, v[i]);
+  }
+  part[lane][vc] = s;
+  __syncthreads();
+  if (lane == 0) {
+#pragma unroll
+    for (int l = 1; l < CS_LANES; ++l) cs_add(s, part[l][vc]);
+    cs_store(ws + static_cast<size_t>(blockIdx.y) * C + c, c, C, vec, s);
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(&counters[blockIdx.x], 1) == slices - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // lane l: slices [l * slices / 8, (l + 1) * slices / 8) in order, with
+  // CS_DEPTH loads in flight
+  s = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int q1 = (lane + 1) * slices / CS_LANES;
+  for (int q = lane * slices / CS_LANES; q < q1; q += CS_DEPTH) {
+    float4 v[CS_DEPTH];
+#pragma unroll
+    for (int i = 0; i < CS_DEPTH; ++i) v[i] = cs_load<true>(ws, q + i, q1, c, C, vec);
+#pragma unroll
+    for (int i = 0; i < CS_DEPTH; ++i) cs_add(s, v[i]);
+  }
+  part[lane][vc] = s;
+  __syncthreads();
+  if (lane == 0) {
+#pragma unroll
+    for (int l = 1; l < CS_LANES; ++l) cs_add(s, part[l][vc]);
+    cs_store(out + c, c, C, vec, s);
+  }
+  if (threadIdx.x == 0) counters[blockIdx.x] = 0;  // as the next launch expects it
 }
 
 }  // namespace
@@ -263,12 +350,15 @@ LTD_API int ltd_weight_grad(const void* dy, const void* x, float* out, float* ws
   return static_cast<int>(cudaGetLastError());
 }
 
-// x: (R, C) float32; out: (ceil(R / rows_per_block), C) float32, the sums
-// of each block of rows_per_block rows (one block of rows: the column sums).
-LTD_API int ltd_colsum(const float* x, float* out, int R, int C, int rows_per_block,
-                       void* stream) {
-  const dim3 grid((C + CS_COLS - 1) / CS_COLS, (R + rows_per_block - 1) / rows_per_block);
-  colsum_kernel<<<grid, CS_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(x, out, R, C,
-                                                                           rows_per_block);
+// x: (R, C) float32; out: (C,) float32, the column sums. slice: rows per
+// block, a multiple of 8; ws: (ceil(R / slice), C) float32 workspace;
+// counters: ceil(C / 128) int32, zero, and left zero.
+LTD_API int ltd_colsum(const float* x, float* out, float* ws, int* counters, int R, int C,
+                       int slice, void* stream) {
+  if (R < 1 || C < 1 || slice < CS_LANES || slice % CS_LANES || (R - 1) / slice >= 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((C + 4 * CS_VCOLS - 1) / (4 * CS_VCOLS), (R + slice - 1) / slice);
+  colsum_kernel<<<grid, CS_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, out, ws, counters, R, C, slice, C % 4 == 0);
   return static_cast<int>(cudaGetLastError());
 }

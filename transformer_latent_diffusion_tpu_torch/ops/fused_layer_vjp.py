@@ -92,10 +92,10 @@ BWD_MODES = ("full", "bf16res", "recompute", "no_mlp", "no_cross", "no_self")
 # kernel launches since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
-# a column sum over more rows than this runs as two passes (row blocks,
-# then their partial sums)
-COLSUM_ONE_PASS_ROWS = 1024
-COLSUM_BLOCK_ROWS = 256
+# colsum's columns per block (csrc/gemm_bwd.cu), and the blocks a call aims
+# at: one wave of three 256-thread blocks on each of an H100's 132 SMs
+COLSUM_COLS = 128
+COLSUM_BLOCKS = 384
 
 
 def reset_launch_counts() -> None:
@@ -442,26 +442,49 @@ def _count(name: str) -> None:
     LAUNCHES[name] += 1
 
 
+def colsum_slice_rows(r: int, c: int) -> int:
+    """The rows of an (r, c) x that one `colsum` block sums: about
+    COLSUM_BLOCKS blocks in all, slices of at least 64 rows, a multiple of
+    the kernel's 8 row lanes. It depends on the shape alone, so the order
+    of the sums does too."""
+    slices = max(1, min(-(-r // 64), COLSUM_BLOCKS // -(-c // COLSUM_COLS)))
+    return -(-(-(-r // slices)) // 8) * 8
+
+
+# zeroed int32 counters of the kernels that count their blocks in (colsum,
+# dwconv_gelu_bwd): one buffer per device and stream, which those kernels
+# leave at zero again (work on one stream runs in order)
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _zeroed_counters(dev: torch.device, n: int) -> torch.Tensor:
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+    return buf
+
+
 def colsum(x):
-    """Kernel wrapper of `colsum_plain` (deterministic: one or two passes,
-    each summing in a fixed order)."""
+    """Kernel wrapper of `colsum_plain`: one launch at any R, deterministic
+    (the slices' sums are added in a fixed order inside the kernel)."""
     if x.device.type == "cpu":
         return colsum_plain(x)
     dev = _on_cuda("colsum", x)
-    _require(x.dtype == torch.float32 and x.ndim == 2,
-             "colsum: x must be a float32 (R, C) matrix")
+    _require(x.dtype == torch.float32 and x.ndim == 2 and x.numel() > 0,
+             "colsum: x must be a non-empty float32 (R, C) matrix")
+    r, c = x.shape
+    rows = colsum_slice_rows(r, c)
+    # the sums, then the slices' sums (at most COLSUM_BLOCKS rows of c), in
+    # one allocation
+    buf = torch.empty((1 + -(-r // rows)) * c, dtype=torch.float32, device=dev)
+    out, ws = buf[:c], buf[c:]
+    counters = _zeroed_counters(dev, -(-c // COLSUM_COLS))
     lib = load_library()
-    while True:
-        r, c = x.shape
-        rows = r if r <= COLSUM_ONE_PASS_ROWS else COLSUM_BLOCK_ROWS
-        out = torch.empty(((r + rows - 1) // rows, c), dtype=torch.float32,
-                          device=dev)
-        _count("colsum")
-        _check_launch(lib.ltd_colsum(_ptr(x), _ptr(out), r, c, rows,
-                                     _stream(dev)), "colsum")
-        if out.shape[0] == 1:
-            return out[0]
-        x = out
+    _count("colsum")
+    _check_launch(lib.ltd_colsum(_ptr(x), _ptr(out), _ptr(ws), _ptr(counters), r, c,
+                                 rows, _stream(dev)), "colsum")
+    return out
 
 
 # weight_grad's output tile (rows n, columns k) and the rows of M per stage
@@ -638,34 +661,109 @@ def layernorm_bwd(dy, x, scale, upstream):
     return dx, sums[:d], sums[d:]
 
 
-# dwconv_gelu_bwd's channels per block, and grid rows per block of its
-# row-band body
+# dwconv_gelu_bwd's channels per unit, the most grid rows of a band, the
+# stages of its ring and the bytes of its walk group's sum exchange (8 warps
+# x 11 sums x 32 channels; csrc/dwconv_gelu_bwd.cu)
 DWB_CHUNK = 32
 DWB_BAND_ROWS = 8
+DWB_STAGES = 2
+DWB_RED_BYTES = 8 * 11 * DWB_CHUNK * 4
 
 
-def dwconv_gelu_bwd_body(hw: int) -> int:
-    """The `dwconv_gelu_bwd` body that holds an hw x hw grid: 0 for the
-    whole-grid body, whose two float32 slabs (dc and h) of (hw+2)^2 x 32
-    fit a block's shared memory (up to hw = 28), else the rows of a band
-    of the row-band body, whose slabs of (rows+2) x (hw+2) x 32 do (up to
-    hw = 88). Raises ValueError beyond."""
-    def slabs(rows):
-        return 2 * (rows + 2) * (hw + 2) * DWB_CHUNK * 4
+def dwconv_gelu_bwd_smem(band: int, hw: int, item: int) -> int:
+    """The shared memory of a `dwconv_gelu_bwd` block whose units hold
+    `band` rows of an hw-wide grid, c and h of `item` bytes an element
+    (`smem_bytes` of csrc/dwconv_gelu_bwd.cu): the alignment slack, the
+    ring's stages (the dc (float32) and h slabs, or the sum exchange where
+    that is larger), one buffer of c, 5 barriers and a flag, each slab
+    (band + 2) x (hw + 2) x 32 rounded up to 128 bytes."""
+    box = (band + 2) * (hw + 2) * DWB_CHUNK
 
-    if slabs(hw) <= fs.SMEM_PER_BLOCK:
+    def slab(n):
+        return -(-n // 128) * 128
+
+    stage = max(slab(box * 4) + slab(box * item), DWB_RED_BYTES)
+    return 128 + DWB_STAGES * stage + slab(box * item) + 48
+
+
+def dwconv_gelu_bwd_body(hw: int, dtype=torch.float32) -> int:
+    """How `dwconv_gelu_bwd` cuts an hw x hw grid whose c and h are of
+    `dtype`: 0 for the whole grid as one unit, where its slabs fit a
+    block's shared memory (float32 up to hw = 17, bf16 up to 20), else the
+    grid rows of a band, the most up to DWB_BAND_ROWS that fit (8 at hw =
+    32; float32 down to 1 row at hw = 118, bf16 at 170). Raises ValueError
+    beyond."""
+    item = torch.finfo(dtype).bits // 8
+    if dwconv_gelu_bwd_smem(hw, hw, item) <= fs.SMEM_PER_BLOCK:
         return 0
-    if slabs(DWB_BAND_ROWS) <= fs.SMEM_PER_BLOCK:
-        return DWB_BAND_ROWS
-    raise ValueError(f"dwconv_gelu_bwd: a {hw} x {hw} grid exceeds the "
-                     f"{fs.SMEM_PER_BLOCK}-byte shared memory of both bodies")
+    for rows in range(min(DWB_BAND_ROWS, hw), 0, -1):
+        if dwconv_gelu_bwd_smem(rows, hw, item) <= fs.SMEM_PER_BLOCK:
+            return rows
+    raise ValueError(f"dwconv_gelu_bwd: one row of a {hw} x {hw} grid of {dtype} exceeds "
+                     f"the {fs.SMEM_PER_BLOCK}-byte shared memory of a block")
+
+
+@dataclass(frozen=True)
+class DwconvGeluBwdPlan:
+    """How `dwconv_gelu_bwd`'s persistent grid covers `images` hw x hw grids
+    of `channels` channels, as csrc/dwconv_gelu_bwd.cu walks them.
+
+    A unit is (image, band of `band` grid rows, chunk of DWB_CHUNK
+    channels), numbered u = (image * bands + band) * chunks + chunk (the
+    whole grid is one band of hw rows); block p of a grid of g blocks walks
+    units p, p + g, ... (`walk`). Each unit writes its 11 x 32 partial sums
+    to workspace row image * bands + band; the unit that arrives last of
+    its chunk adds the chunk's `rows` rows, each of `sum_runs` in row order
+    (image-major, bands in order within an image), then the second run's
+    total to the first's. No part of this depends on the grid."""
+    images: int
+    hw: int
+    channels: int
+    band: int
+    bands: int
+    chunks: int
+
+    @property
+    def rows(self) -> int:
+        """The partial rows of a chunk."""
+        return self.images * self.bands
+
+    @property
+    def units(self) -> int:
+        return self.rows * self.chunks
+
+    def unit(self, u: int) -> Tuple[int, int, int]:
+        """(image, band, chunk) of unit u."""
+        row, chunk = divmod(u, self.chunks)
+        return row // self.bands, row % self.bands, chunk
+
+    def walk(self, block: int, grid: int) -> range:
+        """The units block `block` of `grid` takes, in order."""
+        return range(block, self.units, grid)
+
+    def sum_runs(self) -> Tuple[range, range]:
+        """The two runs of partial rows that the last unit of a chunk sums."""
+        half = -(-self.rows // 2)
+        return range(half), range(half, self.rows)
+
+
+def dwconv_gelu_bwd_plan(images: int, hw: int, channels: int,
+                         dtype=torch.float32) -> DwconvGeluBwdPlan:
+    """The plan of `dwconv_gelu_bwd` for `images` grids (pure: no device is
+    touched); c and h of `dtype`."""
+    if channels % DWB_CHUNK or images < 1 or hw < 1:
+        raise ValueError(f"dwconv_gelu_bwd_plan: needs C % {DWB_CHUNK} == 0 and a "
+                         f"grid, got {images} x {hw} x {hw} x {channels}")
+    band = dwconv_gelu_bwd_body(hw, dtype) or hw
+    return DwconvGeluBwdPlan(images, hw, channels, band, -(-hw // band),
+                             channels // DWB_CHUNK)
 
 
 def dwconv_gelu_bwd(da, c, h, dw, hw: int):
     """Kernel wrapper of `dwconv_gelu_bwd_plain`; on CUDA da float32, c and
-    h both float32 or both bf16 (the "bf16res" residuals, whole-grid body
-    only), dw bf16 (9, C), C % 32 == 0 and a grid one of the two bodies
-    holds (`dwconv_gelu_bwd_body`)."""
+    h both float32 or both bf16 (the "bf16res" residuals), dw bf16 (9, C),
+    C % 32 == 0 and a grid that `dwconv_gelu_bwd_body` cuts. One launch:
+    the kernel sums its units' partials itself."""
     if da.device.type == "cpu":
         return dwconv_gelu_bwd_plain(da, c, h, dw, hw)
     dev = _on_cuda("dwconv_gelu_bwd", da, c, h, dw)
@@ -676,23 +774,20 @@ def dwconv_gelu_bwd(da, c, h, dw, hw: int):
              and h.shape == (m, ch) and dw.shape == (9, ch),
              "dwconv_gelu_bwd: float32 da, c and h (M, C) both float32 or "
              "both bf16, and bf16 dw (9, C)")
-    _require(ch % DWB_CHUNK == 0 and m % (hw * hw) == 0,
-             "dwconv_gelu_bwd: needs C % 32 == 0 and (B*hw*hw, C) rows")
-    band = dwconv_gelu_bwd_body(hw)
-    in_bf16 = c.dtype == torch.bfloat16
-    _require(not (in_bf16 and band), "dwconv_gelu_bwd: bf16 c and h take the "
-                                     "whole-grid body")
-    b = m // (hw * hw)
-    rows = b * (-(-hw // band) if band else 1)  # a partial row per (image, band)
+    _require(ch % DWB_CHUNK == 0 and m % (hw * hw) == 0 and m > 0,
+             f"dwconv_gelu_bwd: needs C % {DWB_CHUNK} == 0 and (B*hw*hw, C) rows")
+    plan = dwconv_gelu_bwd_plan(m // (hw * hw), hw, ch, c.dtype)
     dhid = torch.empty((m, ch), dtype=torch.bfloat16, device=dev)
-    partial = torch.empty((rows, 11 * ch), dtype=torch.float32, device=dev)
+    sums = torch.empty((11, ch), dtype=torch.float32, device=dev)
+    ws = torch.empty((plan.rows * 11, ch), dtype=torch.float32, device=dev)
+    counters = _zeroed_counters(dev, plan.chunks)
     lib = load_library()
     _count("dwconv_gelu_bwd")
     _check_launch(lib.ltd_dwconv_gelu_bwd(_ptr(da), _ptr(c), _ptr(h), _ptr(dw),
-                                          _ptr(dhid), _ptr(partial), b, hw, ch,
-                                          band, int(in_bf16), _stream(dev)),
+                                          _ptr(dhid), _ptr(ws), _ptr(sums), _ptr(counters),
+                                          plan.images, hw, ch, plan.band,
+                                          int(c.dtype == torch.bfloat16), _stream(dev)),
                   "dwconv_gelu_bwd")
-    sums = colsum(partial).reshape(11, ch)
     return dhid, sums[:9], sums[9], sums[10]
 
 

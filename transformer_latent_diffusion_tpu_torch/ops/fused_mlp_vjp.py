@@ -62,7 +62,7 @@ KERNELS = ("fused_mlp_sepconv", "fused_mlp_sepconv_bwd")
 # launches themselves count under their kernels' names: the forward's
 # under "ln_gemm" (2 per call) and "dwconv_gelu" (1) in fused_stack.LAUNCHES,
 # the backward's under "ln_gemm" (3), "dwconv_gelu" (1) and, in
-# fused_layer_vjp.LAUNCHES, "weight_grad" (2), "colsum" and
+# fused_layer_vjp.LAUNCHES, "weight_grad" (2), "colsum" (1) and
 # "dwconv_gelu_bwd" (1)
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -144,7 +144,7 @@ def _forward(x, w1, b1, dw, dwb, w2, b2, hw: int):
 
 def fused_mlp_sepconv_bwd(x, g, w1, b1, dw, dwb, w2, hw: int):
     """Kernel route of `fused_mlp_sepconv_bwd_plain` (same arguments and
-    results): on CUDA the nine launches of the module docstring, x and g
+    results): on CUDA the eight launches of the module docstring, x and g
     bf16 (B, hw*hw, D), the weights bf16; on CPU tensors the plain
     version."""
     if x.device.type == "cpu":
