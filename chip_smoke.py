@@ -263,7 +263,9 @@ def _ptxas_report(tag, fragments):
             found.setdefault(name, {})["registers"] = line.split("Used")[1].split(",")[0].strip()
     for fn, info in sorted(found.items()):
         frag = next(f for f in fragments if f in fn)
-        short = fn[fn.index(frag):fn.index(frag) + len(frag) + 6]  # with NT's <Li4EE>
+        start = fn.index(frag)
+        end = fn.find("Ev", start)  # the template arguments end before the void return type
+        short = fn[start:end if end > start else start + len(frag) + 6]
         log(f"[{tag}] ptxas {short}: {info.get('registers')} at launch, {info.get('spills')}")
     serialised = [f for f in serial if any(x in f for x in fragments)]
     log(f"[{tag}] ptxas serialised the wgmma of: {serialised or 'none of them'} (C7515/C7520)")
@@ -2995,7 +2997,9 @@ def phase_s2():
     the backward, bwd/fwd; each mode's outputs against its written-out
     plain version; then the bf16 modes of the kernels that bf16res runs
     (dwconv_gelu writing a bf16 c from bf16 h, layernorm_bwd reading a bf16
-    x, dwconv_gelu_bwd reading bf16 c and h) at its shapes."""
+    x, dwconv_gelu_bwd reading bf16 c and h) at its shapes, dwconv_gelu's and
+    dwconv_gelu_bwd's bf16 modes bit-equal across two launches, and ptxas's
+    registers and spills of dwconv_gelu's TMA body."""
     from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
     from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
     from transformer_latent_diffusion_tpu_torch.scripts import probe_train_bwd_stage as s2
@@ -3074,6 +3078,9 @@ def phase_s2():
                        lambda name: f"csrc/{kernel(name)}.cu",
                        lambda name: bf16res.get(kernel(name), 0))
     _bit_equal_twice("dwconv_gelu_bwd (bf16 c, h)", kcases["dwconv_gelu_bwd (bf16 c, h)"][0], "s2")
+    _bit_equal_twice("dwconv_gelu (bf16 c)", kcases["dwconv_gelu (bf16 c)"][0], "s2")
+    # the TMA body's instantiations, the bf16 c's among them
+    _ptxas_report("s2", ("dwconv_gelu_kernel",))
     del h, c, da, dy, xb, up
     torch.cuda.empty_cache()
     return rows
@@ -3088,7 +3095,10 @@ def phase_s4():
     (packed, paired, onehead; SDPA per head, or one 768-wide head with
     scale 1/8, as the library call), cross_attention with the heads summed,
     dwconv_gelu without the convolution and commuted (whose output must be
-    base's)."""
+    base's, bit for bit); a group of one within 1e-5 of self_attention;
+    every head_group_attention and dwconv_gelu mode bit-equal across two
+    launches; ptxas's registers and spills of head_group_attention and of
+    dwconv_gelu's pointwise pass (a spill fails)."""
     from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
     from transformer_latent_diffusion_tpu_torch.ops import layer_variants as lvar
     from transformer_latent_diffusion_tpu_torch.scripts import microbench_layer as s4
@@ -3190,7 +3200,14 @@ def phase_s4():
     with torch.no_grad():
         same = torch.equal(fs.dwconv_gelu(h, dw, dwb, HW, dw_mode="commuted"),
                            fs.dwconv_gelu(h, dw, dwb, HW))
+        one = rel_l2(lvar.head_group_attention(qkv, res_x.clone(), HEADS, N, 1, False) - res_x,
+                     fs.self_attention(qkv, res_x.clone(), HEADS, N) - res_x)
     log(f"[s4] dwconv_gelu commuted equals base bit for bit: {same}")
+    log(f"[s4] head_group_attention with groups of one against self_attention: rel-L2 "
+        f"{one:.2e} (bound 1e-5)")
+    if not same or not one < 1e-5:
+        raise AssertionError("s4: commuted differs from base, or a group of one from "
+                             "self_attention")
     log(f"[s4] the base modes, for comparison: self_attention "
         f"{time_ms(lambda: fs.self_attention(qkv, xr, HEADS, N)):.4f} ms, head_group_attention "
         f"with groups of one "
@@ -3201,6 +3218,12 @@ def phase_s4():
     rows += _line_rows(_check_rows("s4", kcases), TPU_S4, str,
                        lambda name: f"csrc/{kernel(name)}.cu",
                        lambda name: launches[runs[name]].get(kernel(name), 0))
+    # every head_group_attention and dwconv_gelu probe mode twice on the
+    # same inputs (a fresh residual each time); the two kernels' registers
+    for name in runs:
+        if name.startswith(("head_group_attention", "dwconv_gelu")):
+            _bit_equal_twice(name, kcases[name][0], "s4")
+    _ptxas_report("s4", ("head_group_attention_kernel", "dwconv_gelu_pointwise_kernel"))
     del qkv, res_x, xr, heads, wide, qc, kv, h
     torch.cuda.empty_cache()
     return rows

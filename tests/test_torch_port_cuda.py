@@ -393,23 +393,29 @@ def test_flash_attention_variant_matches_plain_on_card(n, use_exp2, postdiv):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("group,summed", [(1, False), (2, False), (4, False), (4, True)])
-@pytest.mark.parametrize("n", [256, 200])
-def test_head_group_attention_matches_plain_on_card(n, group, summed):
-    """S4's attention kernel (per-head, paired, packed, summed onehead) on
-    a full and a ragged tile against its plain version: rel-L2 < 1e-2;
-    a group of one is the layer's own self_attention kernel."""
+@pytest.mark.parametrize("group,summed", [(1, False), (2, False), (3, False), (4, False),
+                                          (6, False), (12, False), (12, True)])
+@pytest.mark.parametrize("n,b", [(1, 3), (64, 3), (65, 3), (200, 3), (256, 3), (200, 137)])
+def test_head_group_attention_matches_plain_on_card(n, b, group, summed):
+    """S4's attention kernel at 12 heads (every group size that divides
+    them, and the heads summed) on one token, a full tile, ragged tiles and
+    256 tokens, and at batch 137, which leaves a partial last wave of the
+    persistent grid on 132 SMs, against its plain version: rel-L2 < 1e-2;
+    two launches bit-equal; a group of one within 1e-5 of the layer's own
+    self_attention kernel."""
     _need_card()
-    gen = torch.Generator().manual_seed(n + group)
-    b, d, heads = 3, 256, 4
+    gen = torch.Generator().manual_seed(n + group + b)
+    d, heads = 768, 12
     qkv = torch.randn(b * n, 3 * d, generator=gen).to("cuda", torch.bfloat16)
     res = torch.randn(b * n, d, generator=gen).to("cuda")
     want = lvar.head_group_attention_plain(qkv, res.clone(), heads, n, group, summed)
     before = lvar.LAUNCHES["head_group_attention"]
     got = lvar.head_group_attention(qkv, res.clone(), heads, n, group, summed)
+    again = lvar.head_group_attention(qkv, res.clone(), heads, n, group, summed)
     torch.cuda.synchronize()
-    assert lvar.LAUNCHES["head_group_attention"] == before + 1
+    assert lvar.LAUNCHES["head_group_attention"] == before + 2
     assert _rel_l2(got - res, want - res) < 1e-2
+    assert torch.equal(got, again)
     if group == 1 and not summed:
         base = fs.self_attention(qkv, res.clone(), heads, n)
         assert _rel_l2(got - res, base - res) < 1e-5
@@ -419,9 +425,12 @@ def test_head_group_attention_matches_plain_on_card(n, group, summed):
 def test_layer_kernel_modes_match_plain_on_card():
     """The probes' modes of K1's and K2's kernels against their plain
     versions: cross_attention with the heads summed, dwconv_gelu without
-    the convolution and with it commuted (float32 h; commuted sums as base
-    does), with a bf16 c (bf16 h), and layernorm_bwd and dwconv_gelu_bwd
-    reading bf16 residuals: rel-L2 < 1e-2 per output."""
+    the convolution and with it commuted (float32 h; commuted is base's
+    walk, bit-equal to base on the whole grid and on the row bands of hw
+    32), with a bf16 c (bf16 h, hw 16 and 20, and the row bands of hw 41),
+    and layernorm_bwd and dwconv_gelu_bwd reading bf16 residuals: rel-L2 <
+    1e-2 per output; every dwconv_gelu mode bit-equal across two
+    launches."""
     _need_card()
     gen = torch.Generator().manual_seed(7)
     bf = torch.bfloat16
@@ -431,26 +440,31 @@ def test_layer_kernel_modes_match_plain_on_card():
     def r(*s, std=1.0, dtype=torch.float32):
         return (torch.randn(*s, generator=gen) * std).to("cuda", dtype)
 
+    def dw_check(h, grid, **kw):
+        got = fs.dwconv_gelu(h, dw, dwb, grid, return_c=True, **kw)
+        again = fs.dwconv_gelu(h, dw, dwb, grid, return_c=True, **kw)
+        want = fs.dwconv_gelu_plain(h, dw, dwb, grid, return_c=True, **kw)
+        for u, a, w in zip(got, again, want):
+            assert u.dtype == w.dtype and _rel_l2(u.float(), w.float()) < 1e-2, kw
+            assert torch.equal(u, a), kw
+        return got
+
     qc, kv, res, lns = r(m, d, dtype=bf), r(2 * b, 2 * d, dtype=bf), r(m, d), (1 + r(d, std=0.1), r(d))
     got = fs.cross_attention(qc, kv, res.clone(), lns, heads, hw * hw, summed=True)
     want = fs.cross_attention_plain(qc, kv, res.clone(), lns, heads, hw * hw, summed=True)
     for u, w in zip(got, want):
         assert _rel_l2(u.float(), w.float()) < 1e-2
-    h, dw, dwb = r(m, hid), r(9, hid, std=1 / 3, dtype=bf), r(hid, std=0.1)
-    base = fs.dwconv_gelu(h, dw, dwb, hw, return_c=True)
-    for mode in ("none", "commuted"):
-        got = fs.dwconv_gelu(h, dw, dwb, hw, return_c=True, dw_mode=mode)
-        want = fs.dwconv_gelu_plain(h, dw, dwb, hw, return_c=True, dw_mode=mode)
-        for u, w in zip(got, want):
-            assert _rel_l2(u.float(), w.float()) < 1e-2, mode
-    commuted = fs.dwconv_gelu(h, dw, dwb, hw, return_c=True, dw_mode="commuted")
-    assert _rel_l2(commuted[1], base[1]) < 1e-6
-    hb = h.to(bf)
-    got = fs.dwconv_gelu(hb, dw, dwb, hw, return_c=True, c_dtype=bf)
-    want = fs.dwconv_gelu_plain(hb, dw, dwb, hw, return_c=True, c_dtype=bf)
-    assert got[1].dtype == bf
-    for u, w in zip(got, want):
-        assert _rel_l2(u.float(), w.float()) < 1e-2
+    dw, dwb = r(9, hid, std=1 / 3, dtype=bf), r(hid, std=0.1)
+    for grid in (16, 32):
+        h = r(b * grid * grid, hid)
+        dw_check(h, grid, dw_mode="none")
+        commuted = dw_check(h, grid, dw_mode="commuted")
+        base = fs.dwconv_gelu(h, dw, dwb, grid, return_c=True)
+        assert all(torch.equal(u, v) for u, v in zip(commuted, base))
+    for grid in (16, 20, 41):
+        got = dw_check(r(b * grid * grid, hid, dtype=bf), grid, c_dtype=bf)
+        assert got[1].dtype == bf
+    hb = r(m, hid, dtype=bf)
     dy, xb, ups, sc = r(m, d), r(m, d, dtype=bf), r(m, d), 1 + r(d, std=0.1)
     for u, w in zip(lv.layernorm_bwd(dy, xb, sc, ups), lv.layernorm_bwd_plain(dy, xb, sc, ups)):
         assert _rel_l2(u, w) < 1e-2

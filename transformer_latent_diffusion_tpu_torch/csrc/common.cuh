@@ -27,25 +27,6 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&p);
 }
 
-// 16-byte global -> shared copy that bypasses registers; bytes past
-// src_bytes (0 or 16) are zero-filled.
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem_src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N committed copy groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Four 8x8 b16 matrices from shared memory; lane l gives the address of
 // row l % 8 of matrix l / 8.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem_src) {
@@ -53,27 +34,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem_s
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(s));
-}
-
-// The same, each matrix transposed.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem_src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_src));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// d += a (16x16, row-major) * b (16x8, column-major), bf16 in, float32 out.
-// Fragment layout (g = lane / 4, t = lane % 4): a = {(g, 2t..2t+1),
-// (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..)}; b = {(k 2t..2t+1, n g),
-// (k 2t+8.., n g)}; d = {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}.
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // 8 floats -> 8 bf16 (round to nearest even) packed into 16 bytes.

@@ -59,28 +59,28 @@
 // one slab fits (bf16 up to hw = 40, float32 up to hw = 28) and bands of 8
 // rows beyond (float32 up to hw = 88, bf16 up to hw = 179).
 //
-// The probe modes stay on the first, synchronous-slab body
-// (dwconv_gelu_slab_kernel: one block per unit copies its slab with
-// 16-byte loads and a bounds test per element, then computes), whole grid
-// only. Its template parameters:
-// - MODE, the depthwise variants of scripts/microbench_layer.py
-//   (`_mlp_tail`, pallas_call at :252), float32 input: DW_NONE ("nodw": c
-//   = h + dwb, no convolution; no slab, each element read once from device
-//   memory) and DW_COMMUTED ("dw_commuted", `_dw_fwd_commuted`: the
-//   commuted walk above, on the synchronous slab); DW_BASE with
-// - CT, the type of the stored pre-GELU c: bf16 for the "bf16res" backward
-//   of scripts/probe_train_bwd_stage.py (pallas_call at :259), which keeps
-//   its residuals in bf16 (bf16 input, base mode, the 9-tap walk).
+// Which mode runs where (the wrapper's routing is
+// ops/fused_stack.py::dwconv_gelu_route):
+// - base, and the probes' "commuted" (scripts/microbench_layer.py's
+//   `_dw_fwd_commuted`, `_mlp_tail`, pallas_call at :252: row taps first,
+//   then the column shifts, which is the walk above in the same float32
+//   order, so its output is base's bit for bit): the TMA body, whole grid
+//   or row bands. Its template parameter CT is the type of the stored
+//   pre-GELU c: float32 for the training forward, bf16 for the "bf16res"
+//   backward of scripts/probe_train_bwd_stage.py (pallas_call at :259),
+//   which keeps its residuals in bf16 (bf16 h; 8-byte stores like the bf16
+//   output's).
+// - "none" (the probe's "nodw": c = h + dwb, no convolution, float32 h)
+//   reads no slab: dwconv_gelu_pointwise_kernel, an elementwise pass over
+//   the rows with 16-byte loads and stores on a persistent grid, each
+//   element read once, the same `erff` GELU and rounding.
 
 #include "hopper.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int VEC = 8;     // channels per thread (16 bytes of bf16)
-constexpr int CHUNK = 64;  // channels per block
-constexpr int GROUPS = CHUNK / VEC;
-constexpr int SEG = 8;  // DW_COMMUTED: pixels of a row per thread
+constexpr int CHUNK = 64;  // channels per unit of the TMA body
 enum { DW_BASE = 0, DW_NONE = 1, DW_COMMUTED = 2 };
 
 template <typename T>
@@ -88,182 +88,69 @@ inline size_t smem_bytes(int rows, int hw) {
   return static_cast<size_t>(rows + 2) * (hw + 2) * CHUNK * sizeof(T);
 }
 
-// 8 channels of one pixel as the tile stores them (16 bytes of bf16, 32 of float)
-template <typename T>
-struct Vec8;
-template <>
-struct Vec8<bf16> {
-  uint4 u;
-};
-template <>
-struct Vec8<float> {
-  float4 a, b;
-};
-
-__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float2 v = __bfloat1622float2(p[e]);
-    f[2 * e] = v.x;
-    f[2 * e + 1] = v.y;
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
   }
+  return count;
 }
 
-__device__ __forceinline__ void unpack8(const Vec8<bf16>& v, float* f) { unpack8(v.u, f); }
-
-__device__ __forceinline__ void unpack8(const Vec8<float>& v, float* f) {
-  f[0] = v.a.x, f[1] = v.a.y, f[2] = v.a.z, f[3] = v.a.w;
-  f[4] = v.b.x, f[5] = v.b.y, f[6] = v.b.z, f[7] = v.b.w;
+__device__ __forceinline__ float gelu(float x) {
+  return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
 }
 
-// One block per (64 channels, image); the whole grid's slab.
-template <typename T, int MODE, typename CT>
+// ------------------- dw_mode "none" (dwconv_gelu_pointwise_kernel) -------------------
+
+// act = GELU(h + dwb) and c = h + dwb over the (M, C) float32 rows, in
+// 16-byte chunks of 4 channels (n4 = M * C / 4 of them). A block's step
+// covers 2 x THREADS consecutive chunks, a thread its chunks tid and
+// THREADS + tid, so each thread has two loads in flight.
 __global__ void __launch_bounds__(THREADS)
-dwconv_gelu_slab_kernel(const T* __restrict__ h, const bf16* __restrict__ dw,
-                        const float* __restrict__ dwb, void* __restrict__ out,
-                        CT* __restrict__ c_out, int hw, int C, bool out_f32) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  Vec8<T>* tile = reinterpret_cast<Vec8<T>*>(smem);  // [(hw+2) * (hw+2)][GROUPS]
-  const int pw = hw + 2;
-  const int c0 = blockIdx.x * CHUNK;
-  const size_t b = blockIdx.y;
-  const int r0 = 0, rows = hw;
-  const T* hb = h + b * hw * hw * C + c0;
-  const int tid = threadIdx.x;
-
-  if constexpr (MODE != DW_NONE) {
-    for (int idx = tid; idx < (rows + 2) * pw * GROUPS; idx += THREADS) {
-      const int grp = idx % GROUPS, p = idx / GROUPS;
-      const int i = r0 + p / pw - 1, j = p % pw - 1;
-      Vec8<T> v = {};
-      if (i >= 0 && i < hw && j >= 0 && j < hw)
-        v = *reinterpret_cast<const Vec8<T>*>(hb + static_cast<size_t>(i * hw + j) * C + grp * VEC);
-      tile[idx] = v;
-    }
-  }
-
-  const int grp = tid % GROUPS;
-  const int c = c0 + grp * VEC;
-  float w[9][VEC];
-#pragma unroll
-  for (int t = 0; t < 9; ++t) unpack8(*reinterpret_cast<const uint4*>(dw + t * C + c), w[t]);
-  const float4 b0 = *reinterpret_cast<const float4*>(dwb + c);
-  const float4 b1 = *reinterpret_cast<const float4*>(dwb + c + 4);
-  const float bias[VEC] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-  if constexpr (MODE != DW_NONE) __syncthreads();
-
-  // + dwb, exact GELU, stores; p counts the image's pixels
-  auto finish = [&](const float (&acc)[VEC], int p) {
-    float g[VEC], x[VEC];
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      x[e] = acc[e] + bias[e];
-      g[e] = 0.5f * x[e] * (1.f + erff(x[e] * 0.70710678118654752f));
-    }
-    const size_t pix = static_cast<size_t>(r0) * hw + p;  // the pixel's index in the image
-    const size_t at = (b * hw * hw + pix) * C + c0 + grp * VEC;
-    if (out_f32) {
-      float4* op = reinterpret_cast<float4*>(static_cast<float*>(out) + at);
-      op[0] = make_float4(g[0], g[1], g[2], g[3]);
-      op[1] = make_float4(g[4], g[5], g[6], g[7]);
-    } else {
-      *reinterpret_cast<uint4*>(static_cast<bf16*>(out) + at) = pack8_bf16(g);
-    }
-    if (c_out != nullptr) {
-      if constexpr (sizeof(CT) == 2) {
-        *reinterpret_cast<uint4*>(c_out + at) = pack8_bf16(x);
-      } else {
-        float4* cp = reinterpret_cast<float4*>(c_out + at);
-        cp[0] = make_float4(x[0], x[1], x[2], x[3]);
-        cp[1] = make_float4(x[4], x[5], x[6], x[7]);
-      }
-    }
+dwconv_gelu_pointwise_kernel(const float4* __restrict__ h, const float4* __restrict__ dwb,
+                             void* __restrict__ out, float4* __restrict__ c_out, size_t n4,
+                             int C, bool out_f32) {
+  const int c4s = C / 4;
+  const size_t step = static_cast<size_t>(gridDim.x) * 2 * THREADS;
+  const int half = THREADS % c4s, stride = static_cast<int>(step % c4s);
+  size_t i = static_cast<size_t>(blockIdx.x) * 2 * THREADS + threadIdx.x;
+  int ca = static_cast<int>(i % c4s);  // chunk i's channel / 4, carried along
+  auto finish = [&](size_t k, int ck, const float4& v) {
+    const float4 b4 = dwb[ck];
+    const float4 x = make_float4(v.x + b4.x, v.y + b4.y, v.z + b4.z, v.w + b4.w);
+    const float4 g = make_float4(gelu(x.x), gelu(x.y), gelu(x.z), gelu(x.w));
+    if (out_f32)
+      static_cast<float4*>(out)[k] = g;
+    else
+      static_cast<uint2*>(out)[k] = make_uint2(pack_bf16x2(g.x, g.y), pack_bf16x2(g.z, g.w));
+    if (c_out != nullptr) c_out[k] = x;
   };
-
-  if constexpr (MODE == DW_NONE) {
-    for (int p = tid / GROUPS; p < rows * hw; p += THREADS / GROUPS) {
-      float acc[VEC];
-      unpack8(*reinterpret_cast<const Vec8<T>*>(hb + (static_cast<size_t>(r0) * hw + p) * C +
-                                                grp * VEC),
-              acc);
-      finish(acc, p);
-    }
-  } else if constexpr (MODE == DW_COMMUTED) {
-    // a thread slides along SEG pixels of a row: at padded column col it
-    // takes that column's three row taps z_dj once; pixel j = col - 2 then
-    // sums z0 (column j), z1 (j + 1) and z2 (j + 2)
-    const int segs = (hw + SEG - 1) / SEG;
-    for (int item = tid / GROUPS; item < rows * segs; item += THREADS / GROUPS) {
-      const int i = item / segs, j0 = (item % segs) * SEG, j1 = min(j0 + SEG, hw);
-      float z0a[VEC] = {}, z0b[VEC] = {}, z1b[VEC] = {};  // z0 two and one columns back, z1 one back
-      for (int col = j0; col < j1 + 2; ++col) {
-        float z[3][VEC];
-#pragma unroll
-        for (int dj = 0; dj < 3; ++dj)
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) z[dj][e] = 0.f;
-#pragma unroll
-        for (int di = 0; di < 3; ++di) {
-          float v[VEC];
-          unpack8(tile[((i + di) * pw + col) * GROUPS + grp], v);
-#pragma unroll
-          for (int dj = 0; dj < 3; ++dj)
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) z[dj][e] += v[e] * w[di * 3 + dj][e];
-        }
-        if (col >= j0 + 2) {
-          float acc[VEC];
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) acc[e] = z0a[e] + z1b[e] + z[2][e];
-          finish(acc, i * hw + col - 2);
-        }
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) {
-          z0a[e] = z0b[e];
-          z0b[e] = z[0][e];
-          z1b[e] = z[1][e];
-        }
-      }
-    }
-  } else {
-    for (int p = tid / GROUPS; p < rows * hw; p += THREADS / GROUPS) {
-      const int i = p / hw, j = p % hw;
-      float acc[VEC];
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
-      // z[dj] at column j + dj - 1: the three row taps of column shift dj
-#pragma unroll
-      for (int dj = 0; dj < 3; ++dj) {
-        float z[VEC];
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) z[e] = 0.f;
-#pragma unroll
-        for (int di = 0; di < 3; ++di) {
-          float v[VEC];
-          unpack8(tile[((i + di) * pw + (j + dj)) * GROUPS + grp], v);
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) z[e] += v[e] * w[di * 3 + dj][e];
-        }
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[e] += z[e];
-      }
-      finish(acc, p);
-    }
+  for (; i < n4; i += step) {
+    const size_t j = i + THREADS;
+    const int cb = ca + half < c4s ? ca + half : ca + half - c4s;
+    const float4 va = h[i];
+    const float4 vb = j < n4 ? h[j] : va;
+    finish(i, ca, va);
+    if (j < n4) finish(j, cb, vb);
+    ca += stride;
+    if (ca >= c4s) ca -= c4s;
   }
 }
 
-template <typename T, int MODE, typename CT>
-int launch(const void* h, const void* dw, const float* dwb, void* out, void* c_out, int B, int hw,
-           int C, bool out_f32, cudaStream_t s) {
-  const size_t smem = MODE == DW_NONE ? 0 : smem_bytes<T>(hw, hw);
-  cudaError_t err = cudaFuncSetAttribute(dwconv_gelu_slab_kernel<T, MODE, CT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dwconv_gelu_slab_kernel<T, MODE, CT><<<dim3(C / CHUNK, B), THREADS, smem, s>>>(
-      static_cast<const T*>(h), static_cast<const bf16*>(dw), dwb, out, static_cast<CT*>(c_out),
-      hw, C, out_f32);
+int launch_pointwise(const void* h, const float* dwb, void* out, void* c_out, size_t m, int C,
+                     bool out_f32, cudaStream_t s) {
+  int per_sm = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, dwconv_gelu_pointwise_kernel, THREADS, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const size_t n4 = m * C / 4;
+  const size_t fit = static_cast<size_t>(sm_count()) * (per_sm > 0 ? per_sm : 1);
+  const size_t need = (n4 + 2 * THREADS - 1) / (2 * THREADS);
+  dwconv_gelu_pointwise_kernel<<<static_cast<unsigned>(need < fit ? need : fit), THREADS, 0, s>>>(
+      static_cast<const float4*>(h), reinterpret_cast<const float4*>(dwb), out,
+      static_cast<float4*>(c_out), n4, C, out_f32);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -306,11 +193,12 @@ __device__ __forceinline__ void to_float(const Lanes<float>& v, float* f) {
 // Units: u = (b * bands + band) * chunks + chunk; slab s of the ring holds
 // unit blockIdx.x + k * gridDim.x for k % stages == s. Thread t owns the
 // channels c0 + TV (t % TG) .. + TV - 1 of runs of TSEG pixels of a row.
-template <typename T, bool BAND>
+// CT: the type of the stored c (float32, or bf16).
+template <typename T, bool BAND, typename CT>
 __global__ void __launch_bounds__(THREADS, 2)
 dwconv_gelu_kernel(const __grid_constant__ CUtensorMap map_h, const bf16* __restrict__ dw,
                    const float* __restrict__ dwb, void* __restrict__ out,
-                   float* __restrict__ c_out, int B, int hw, int C, int band, int stages,
+                   CT* __restrict__ c_out, int B, int hw, int C, int band, int stages,
                    int slab_bytes, bool out_f32) {
   extern __shared__ unsigned char smem_raw[];
   // TMA writes an unswizzled box to a 128-byte aligned address
@@ -388,7 +276,7 @@ dwconv_gelu_kernel(const __grid_constant__ CUtensorMap map_h, const bf16* __rest
 #pragma unroll
           for (int e = 0; e < TV; ++e) {
             x[e] = (z0a[e] + z1b[e] + z[2][e]) + bias[e];
-            g[e] = 0.5f * x[e] * (1.f + erff(x[e] * 0.70710678118654752f));
+            g[e] = gelu(x[e]);
           }
           const size_t at = (img + static_cast<size_t>(r0 + i) * hw + col - 2) * C + c;
           if (out_f32)
@@ -397,8 +285,13 @@ dwconv_gelu_kernel(const __grid_constant__ CUtensorMap map_h, const bf16* __rest
           else
             *reinterpret_cast<uint2*>(static_cast<bf16*>(out) + at) =
                 make_uint2(pack_bf16x2(g[0], g[1]), pack_bf16x2(g[2], g[3]));
-          if (c_out != nullptr)
-            *reinterpret_cast<float4*>(c_out + at) = make_float4(x[0], x[1], x[2], x[3]);
+          if (c_out != nullptr) {
+            if constexpr (sizeof(CT) == 2)
+              *reinterpret_cast<uint2*>(c_out + at) =
+                  make_uint2(pack_bf16x2(x[0], x[1]), pack_bf16x2(x[2], x[3]));
+            else
+              *reinterpret_cast<float4*>(c_out + at) = make_float4(x[0], x[1], x[2], x[3]);
+          }
         }
 #pragma unroll
         for (int e = 0; e < TV; ++e) {
@@ -413,17 +306,7 @@ dwconv_gelu_kernel(const __grid_constant__ CUtensorMap map_h, const bf16* __rest
   }
 }
 
-int sm_count() {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return count;
-}
-
-template <typename T, bool BAND>
+template <typename T, bool BAND, typename CT>
 int launch_tma(const void* h, const void* dw, const float* dwb, void* out, void* c_out, int B,
                int hw, int C, int band, bool out_f32, cudaStream_t s) {
   const int rows = BAND ? band : hw;
@@ -444,7 +327,7 @@ int launch_tma(const void* h, const void* dw, const float* dwb, void* out, void*
                                                   : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                              4, h, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err) return err;
-  auto kernel = dwconv_gelu_kernel<T, BAND>;
+  auto kernel = dwconv_gelu_kernel<T, BAND, CT>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   int per_sm = 0;
@@ -454,7 +337,7 @@ int launch_tma(const void* h, const void* dw, const float* dwb, void* out, void*
   const int units = B * bands * (C / CHUNK);
   const int fit = sm_count() * (per_sm > 0 ? per_sm : 1);
   kernel<<<units < fit ? units : fit, THREADS, smem, s>>>(
-      map, static_cast<const bf16*>(dw), dwb, out, static_cast<float*>(c_out), B, hw, C, band,
+      map, static_cast<const bf16*>(dw), dwb, out, static_cast<CT*>(c_out), B, hw, C, band,
       stages, slab, out_f32);
   return static_cast<int>(cudaGetLastError());
 }
@@ -467,31 +350,28 @@ int launch_tma(const void* h, const void* dw, const float* dwb, void* out, void*
 // values, bf16 when c_bf16 is non-zero, else float32. dw: (9, C) bf16
 // taps, tap di*3+dj. dwb: (C,) float32. band: 0 for the whole-grid body,
 // else the grid rows of each block of the row-band body. dw_mode: 0 base,
-// 1 none, 2 commuted. Requires C % 64 == 0 and the body's slab within 227
-// KB (see the header); dw_mode 1 and 2 only with the whole-grid body and
-// float32 h and c, c_bf16 only with the whole-grid body, bf16 h and base mode.
+// 1 none, 2 commuted (the TMA body, as base). Requires C % 64 == 0; the
+// TMA body its slab within 227 KB (see the header); dw_mode 1 float32 h
+// and c (band not read); c_bf16 bf16 h.
 LTD_API int ltd_dwconv_gelu(const void* h, const void* dw, const float* dwb, void* out,
                             void* c_out, int B, int hw, int C, int h_f32, int out_f32,
                             int band, int c_bf16, int dw_mode, void* stream) {
-  if (C % CHUNK || band < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (C % CHUNK || band < 0 || dw_mode < DW_BASE || dw_mode > DW_COMMUTED)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool of = out_f32 != 0;
-  if (dw_mode != DW_BASE || c_bf16) {
-    if (band > 0) return static_cast<int>(cudaErrorInvalidValue);
-    if (c_bf16)
-      return dw_mode == DW_BASE && !h_f32
-                 ? launch<bf16, DW_BASE, bf16>(h, dw, dwb, out, c_out, B, hw, C, of, s)
-                 : static_cast<int>(cudaErrorInvalidValue);
-    if (!h_f32) return static_cast<int>(cudaErrorInvalidValue);
-    if (dw_mode == DW_NONE)
-      return launch<float, DW_NONE, float>(h, dw, dwb, out, c_out, B, hw, C, of, s);
-    if (dw_mode == DW_COMMUTED)
-      return launch<float, DW_COMMUTED, float>(h, dw, dwb, out, c_out, B, hw, C, of, s);
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (dw_mode == DW_NONE)
+    return h_f32 && !c_bf16 ? launch_pointwise(h, dwb, out, c_out,
+                                               static_cast<size_t>(B) * hw * hw, C, of, s)
+                            : static_cast<int>(cudaErrorInvalidValue);
+  if (c_bf16) {
+    if (h_f32) return static_cast<int>(cudaErrorInvalidValue);
+    return band > 0 ? launch_tma<bf16, true, bf16>(h, dw, dwb, out, c_out, B, hw, C, band, of, s)
+                    : launch_tma<bf16, false, bf16>(h, dw, dwb, out, c_out, B, hw, C, 0, of, s);
   }
   if (band > 0)
-    return h_f32 ? launch_tma<float, true>(h, dw, dwb, out, c_out, B, hw, C, band, of, s)
-                 : launch_tma<bf16, true>(h, dw, dwb, out, c_out, B, hw, C, band, of, s);
-  return h_f32 ? launch_tma<float, false>(h, dw, dwb, out, c_out, B, hw, C, 0, of, s)
-               : launch_tma<bf16, false>(h, dw, dwb, out, c_out, B, hw, C, 0, of, s);
+    return h_f32 ? launch_tma<float, true, float>(h, dw, dwb, out, c_out, B, hw, C, band, of, s)
+                 : launch_tma<bf16, true, float>(h, dw, dwb, out, c_out, B, hw, C, band, of, s);
+  return h_f32 ? launch_tma<float, false, float>(h, dw, dwb, out, c_out, B, hw, C, 0, of, s)
+               : launch_tma<bf16, false, float>(h, dw, dwb, out, c_out, B, hw, C, 0, of, s);
 }

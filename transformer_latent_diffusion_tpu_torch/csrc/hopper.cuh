@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the TMA + wgmma kernels
 // (self_attention.cu, gemm_bwd.cu, ln_gemm.cu, flash_attention.cu,
-// flash_attention_bwd.cu, attention_bwd.cu, gemm_i8.cu, dwconv_gelu.cu):
+// flash_attention_bwd.cu, attention_bwd.cu, gemm_i8.cu, dwconv_gelu.cu,
+// head_group_attention.cu):
 // mbarriers, TMA tensor copies, wgmma shared-memory descriptors and the
 // wgmma instructions themselves, in PTX.
 #pragma once

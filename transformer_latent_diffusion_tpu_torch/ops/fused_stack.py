@@ -53,7 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, List, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -154,7 +154,7 @@ def cross_attention_plain(qc, kv, residual, ln, n_heads: int, n_tokens: int,
     return x, None if ln is None else _layer_norm_plain(x, ln).to(qc.dtype)
 
 
-# the depthwise modes of `dwconv_gelu` (csrc/dwconv_gelu.cu's MODE)
+# the depthwise modes of `dwconv_gelu` (csrc/dwconv_gelu.cu's dw_mode)
 DW_MODES = ("base", "none", "commuted")
 
 
@@ -366,14 +366,32 @@ def dwconv_gelu_body(hw: int, dtype) -> int:
                      f"the {SMEM_PER_BLOCK}-byte shared memory of both bodies")
 
 
+def dwconv_gelu_route(hw: int, h_dtype, dw_mode: str = "base",
+                      c_dtype=torch.float32) -> Tuple[str, int]:
+    """The body of csrc/dwconv_gelu.cu that runs a `dwconv_gelu` call, and
+    its band (pure: no device is touched): ("pointwise", 0) for dw_mode
+    "none" (c = h + dwb reads no slab: any grid), else ("tma", band) with
+    the band of `dwconv_gelu_body`; "commuted" is the TMA body's own
+    float32 walk, so it runs base's code. "none" and "commuted" take
+    float32 h and c, a bf16 c bf16 h. Raises ValueError on any other
+    combination."""
+    _require(dw_mode in DW_MODES, f"dwconv_gelu: dw_mode is one of {DW_MODES}")
+    if dw_mode != "base":
+        _require(h_dtype == torch.float32 and c_dtype == torch.float32,
+                 f"dwconv_gelu: dw_mode {dw_mode!r} takes float32 h and c")
+    _require(c_dtype in (torch.float32, torch.bfloat16)
+             and (c_dtype == torch.float32 or h_dtype == torch.bfloat16),
+             "dwconv_gelu: c is float32, or bf16 from bf16 h")
+    if dw_mode == "none":
+        return "pointwise", 0
+    return "tma", dwconv_gelu_body(hw, h_dtype)
+
+
 def dwconv_gelu(h, dw, dwb, hw: int, return_c=False, out_dtype=None,
                 dw_mode="base", c_dtype=None):
     """Kernel wrapper of `dwconv_gelu_plain`. Needs C % 64 == 0 on CUDA;
     h bf16 or float32, dw bf16, dwb float32, out_dtype bf16 (the default)
-    or float32, and a grid one of the two bodies holds
-    (`dwconv_gelu_body`). dw_mode "none" and "commuted" take float32 h
-    and c and the whole-grid body; c_dtype bf16 takes bf16 h, the base
-    mode and the whole-grid body."""
+    or float32, and the modes and grids that `dwconv_gelu_route` takes."""
     _require(dw_mode in DW_MODES, f"dwconv_gelu: dw_mode is one of {DW_MODES}")
     if h.device.type == "cpu":
         return dwconv_gelu_plain(h, dw, dwb, hw, return_c, out_dtype, dw_mode,
@@ -391,15 +409,7 @@ def dwconv_gelu(h, dw, dwb, hw: int, return_c=False, out_dtype=None,
     _require(out_dtype in (torch.bfloat16, torch.float32),
              "dwconv_gelu: out_dtype is bf16 or float32")
     c_dtype = c_dtype or torch.float32
-    band = dwconv_gelu_body(hw, h.dtype)
-    if dw_mode != "base":
-        _require(h.dtype == torch.float32 and c_dtype == torch.float32 and band == 0,
-                 f"dwconv_gelu: dw_mode {dw_mode!r} takes float32 h and c on a "
-                 f"grid of the whole-grid body")
-    if c_dtype != torch.float32:
-        _require(c_dtype == torch.bfloat16 and h.dtype == torch.bfloat16
-                 and band == 0, "dwconv_gelu: a bf16 c takes bf16 h on a grid "
-                                "of the whole-grid body")
+    _, band = dwconv_gelu_route(hw, h.dtype, dw_mode, c_dtype)
     out = torch.empty((m, c), dtype=out_dtype, device=dev)
     c_out = (torch.empty((m, c), dtype=c_dtype, device=dev)
              if return_c else None)
