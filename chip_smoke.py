@@ -9,9 +9,19 @@ paths, each checked against plain PyTorch versions on the same inputs:
 - serving (TPU kernel K1, the inference decoder layer): each kernel at the
   main path's shapes, one fused-engine forward against the plain bf16
   forward, the library entry point (32 images, 50-step DDIM, CFG 6,
-  flagship 101M denoiser, random weights from a seed), the HTTP service on
-  a real socket, and the 256 px model sampled on a 32 x 32-token grid
-  (resized positional table, the linen path with K3);
+  flagship 101M denoiser, random weights from a seed), the sampler's step
+  loop as a CUDA graph (captured at a key's second call; its replay
+  bit-equal to the eager loop, exact launches through the replays, one
+  capture for calls with other prompts and seeds, a new one after
+  `load_state_dict` and the memory it holds, the graph's and the eager
+  loop's times; briefly also on the W8A8 engine and the 512 px linen
+  path), what a key's graph costs on the HTTP default request's loop
+  (its first calls, a mix of more keys than kept, a new generator per
+  call), the sampler extras through the graph (heun, eta, cfg_rescale, a
+  guidance interval, block caching; each engine call along the loop
+  against the plain bf16 Denoiser's), the HTTP service on a real socket,
+  and the 256 px model sampled on a 32 x 32-token grid (resized
+  positional table, the linen path with K3);
 - int8 serving (TPU kernel K7, the W8A8 decoder layer): its two kernels
   (rowquant, gemm_i8) and the float32-out dwconv_gelu at the main path's
   shapes, one int8-engine forward against the plain int8 stack and the
@@ -85,7 +95,9 @@ N_IMGS, N_ITER = 32, 50
 # training shapes: the flagship step's batch (TrainConfig.batch_size)
 TB = 128
 TRAIN_STEPS = 20  # steps of the train.main run (one epoch)
-EVAL_CALLS = 40  # denoiser calls of one eval grid (eval_gen: 40 steps)
+# denoiser calls of one eval grid: eval_gen's 40 steps (each eval builds a
+# new generator, whose one call runs the loop eagerly)
+EVAL_CALLS = 40
 DEVICE = "cuda"
 TPU_KERNEL = "transformer_latent_diffusion_tpu/ops/fused_stack.py:120"
 TPU_K2_FWD = "transformer_latent_diffusion_tpu/ops/fused_layer_vjp.py:267"
@@ -314,6 +326,121 @@ def dwb_equal_work(da, h, dw, dwb, hw):
     out = F.gelu(F.conv2d(hg, wg, bg, padding=1, groups=ch))
     dag = da.view(-1, hw, hw, ch).permute(0, 3, 1, 2)
     return lambda: torch.autograd.grad(out, (hg, wg, bg), dag, retain_graph=True)
+
+
+def _sepconv_calls(x, w1, b1, wdw, dwb, w2, b2, hw, lnw=None):
+    """(LN,) expand, depthwise 3x3 + bias, GELU, contract (+ x): the
+    sep-conv MLP in PyTorch calls, in x's dtype, on the token rows."""
+    F = torch.nn.functional
+    b, n, d = x.shape
+    c = w1.shape[0]
+    h = x if lnw is None else F.layer_norm(x, (d,), *lnw)
+    h = F.linear(h, w1, b1).view(b, hw, hw, c).permute(0, 3, 1, 2)
+    a = F.gelu(F.conv2d(h, wdw, dwb, padding=1, groups=c))
+    y = F.linear(a.permute(0, 2, 3, 1).reshape(b, n, c), w2, b2)
+    return y if lnw is None else x + y
+
+
+def _dw_weight(dw):
+    c = dw.shape[1]
+    return dw.t().reshape(c, 1, 3, 3).contiguous(memory_format=torch.channels_last)
+
+
+def sepconv_equal_work(x, w1, b1, dw, dwb, w2, b2, hw, ln=None):
+    """The same work as K5's forward (ln None) or K9 (LN3 first, the
+    residual after) in PyTorch calls: (F.layer_norm,) F.linear, F.conv2d
+    groups=C with bias, F.gelu, F.linear (, + x), all in x's dtype."""
+    dt = x.dtype
+    args = (w1, b1.reshape(-1).to(dt), _dw_weight(dw), dwb.reshape(-1).to(dt), w2,
+            b2.reshape(-1).to(dt), hw)
+    lnw = None if ln is None else tuple(t.reshape(-1).to(dt) for t in ln)
+    return lambda: _sepconv_calls(x, *args, lnw=lnw)
+
+
+def sepconv_bwd_equal_work(x, g, w1, b1, dw, dwb, w2, hw):
+    """The same work as K5's backward in PyTorch calls: autograd's backward
+    alone through `sepconv_equal_work`'s calls to x and the six weights and
+    biases (the forward run once beforehand, untimed: the kernel recomputes
+    h and c besides)."""
+    dt = x.dtype
+    leaves = [t.detach().clone().requires_grad_(True) for t in (
+        x, w1, b1.reshape(-1).to(dt), _dw_weight(dw), dwb.reshape(-1).to(dt), w2,
+        torch.zeros(w2.shape[0], device=x.device, dtype=dt))]
+    out = _sepconv_calls(*leaves, hw)
+    return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+
+def pair_equal_work(x, ln1s, ln1b, wqkv, ln2s, ln2b, wq, k_cond, v_cond, heads):
+    """The same work as K8 in PyTorch calls: x + SDPA(F.linear(F.layer_norm
+    x)), then + SDPA of F.linear(F.layer_norm) against the given cond K/V,
+    in x's dtype."""
+    F = torch.nn.functional
+    b, n, d = x.shape
+    dt = x.dtype
+    ln1 = tuple(t.reshape(-1).to(dt) for t in (ln1s, ln1b))
+    ln2 = tuple(t.reshape(-1).to(dt) for t in (ln2s, ln2b))
+
+    def split(t):
+        return t.reshape(b, -1, heads, d // heads).transpose(1, 2)
+
+    def merge(t):
+        return t.transpose(1, 2).reshape(b, n, d)
+
+    def run():
+        q, k, v = F.linear(F.layer_norm(x, (d,), *ln1), wqkv).chunk(3, dim=-1)
+        x1 = x + merge(F.scaled_dot_product_attention(split(q), split(k), split(v)))
+        qc = F.linear(F.layer_norm(x1, (d,), *ln2), wq)
+        return x1 + merge(F.scaled_dot_product_attention(split(qc), split(k_cond),
+                                                         split(v_cond)))
+    return run
+
+
+def int8_layer_equal_work(tokens, cond, layer, hw, heads):
+    """The same work as one W8A8 layer (K7) in PyTorch calls: the layer of
+    `ops/fused_stack_int8.py` with each stage a PyTorch composition:
+    F.layer_norm + |max| + scale + round for rowquant, `torch._int_mm` and
+    the scales for gemm_i8, F.linear for the cond K/V, SDPA for the two
+    attentions, F.conv2d + F.gelu for the depthwise stage."""
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack_int8 as q8
+    from transformer_latent_diffusion_tpu_torch.scripts.microbench_int8 import (
+        int_mm_equal_work,
+        quant_equal_work,
+    )
+
+    F = torch.nn.functional
+
+    def quant(x, ln=None):
+        if ln is not None:
+            x = F.layer_norm(x, (x.shape[1],), ln[0].reshape(-1), ln[1].reshape(-1), 1e-5)
+        return quant_equal_work(x)
+
+    def gemm(a, w):
+        return F.linear(a, w)
+
+    def attend(q, kv_rows, residual, n_q, n_kv):
+        d = q.shape[1]
+        b = q.shape[0] // n_q
+
+        def split(t, n):
+            return t.reshape(b, n, heads, d // heads).transpose(1, 2)
+
+        k, v = kv_rows.chunk(2, dim=-1)
+        o = F.scaled_dot_product_attention(split(q, n_q), split(k, n_kv), split(v, n_kv))
+        return residual + o.transpose(1, 2).reshape(b * n_q, d).float()
+
+    def sa(qkv, residual, n_heads, n):
+        q, kv = qkv.split([qkv.shape[1] // 3, 2 * qkv.shape[1] // 3], dim=-1)
+        return attend(q, kv, residual, n, n)
+
+    def ca(qc, kv, residual, ln, n_heads, n):
+        return attend(qc, kv, residual, n, 2), None
+
+    def dwg(h, dw, dwb, hw_, out_dtype=None):
+        y = dw_equal_work(h, dw, dwb, hw_, out_dtype or torch.bfloat16)()  # NCHW view
+        return y.permute(0, 2, 3, 1).reshape(h.shape)
+
+    ops = (quant, int_mm_equal_work, gemm, sa, ca, dwg)
+    return lambda: q8._layer_stack_int8(tokens, cond, layer, hw, heads, ops)
 
 
 def _bit_equal_twice(name, fn, tag):
@@ -664,10 +791,8 @@ def phase_library(cfg, per_layer=None, tag="library"):
                                            n_iter=N_ITER, sampler="ddim",
                                            class_guidance=6)
 
-    t0 = time.perf_counter()
-    run()  # warm-up
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
+    # warm-up: the loop's first call runs eagerly, the second captures it
+    (_, warm), ((_, capture), held) = _host_s(run), _held_gib(lambda: _host_s(run))
     latents.clear()
     _reset_counts()
     t0 = time.perf_counter()
@@ -686,7 +811,8 @@ def phase_library(cfg, per_layer=None, tag="library"):
     expect = _expect({k: v * cfg.denoiser_cfg.n_layers * calls
                       for k, v in per_layer.items()})
     log(f"[{tag}] generate_array_from_text {N_IMGS} imgs x {N_ITER} DDIM steps: "
-        f"{wall:.3f} s ({N_IMGS / wall:.3f} imgs/s; warm-up run {warm:.1f} s); "
+        f"{wall:.3f} s ({N_IMGS / wall:.3f} imgs/s; warm-up runs: the first {warm:.3f} s, "
+        f"eager, the second {capture:.3f} s, the loop's capture, which holds {held:.3f} GiB); "
         f"launches { {k: v for k, v in launches.items() if v} } (expected "
         f"{ {k: v for k, v in expect.items() if v} }, no other kernel)")
     if launches != expect:
@@ -766,12 +892,18 @@ def phase_resized_grid(tr):
     native 16 x 16 grid), not the fused engine."""
     den = tr.cfg.denoiser_cfg
     labels = tr.clip_model.encode_text(["a cute cat"] * 4)
+
+    def run():
+        return tr.diffuser.generate(labels, n_iter=RESIZE_ITER, num_imgs=4,
+                                    img_size=2 * den.image_size, class_guidance=6,
+                                    sampler="ddim", output="uint8", sharp_f=0,
+                                    bright_f=0, scale_factor=tr._scale_factor)
+
+    run()  # the loop of this grid: its first call runs eagerly,
+    run()  # the second captures it
     _reset_counts()
     t0 = time.perf_counter()
-    img, x0 = tr.diffuser.generate(labels, n_iter=RESIZE_ITER, num_imgs=4,
-                                   img_size=2 * den.image_size, class_guidance=6,
-                                   sampler="ddim", output="uint8", sharp_f=0,
-                                   bright_f=0, scale_factor=tr._scale_factor)
+    img, x0 = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _counts()
@@ -785,6 +917,264 @@ def phase_resized_grid(tr):
         raise AssertionError(f"resized-grid images {tuple(img.shape)}")
     if launches != expect:
         raise AssertionError(f"resized-grid launches {launches} != {expect}")
+
+
+# ------------------------------ the sampler's CUDA graph ------------------------------
+
+# [sampler-graph] on the int8 engine and the 512 px linen path: a small
+# batch and few steps (the 256 px bf16 engine runs the library workload)
+GRAPH_BRIEF_IMGS, GRAPH_BRIEF_ITER = 4, 8
+# [sampler-extras]: each option at 8 images x 10 steps through the graph,
+# bit-equal to the same loop run eagerly, in which every denoiser call is
+# held against the plain bf16 Denoiser's call on the same inputs (for
+# block caching: the engine with the plain stack, the same delta) within
+# the engine's bound for one forward (ENGINE_REL_L2)
+EXTRA_IMGS, EXTRA_ITER = 8, 10
+# [graph-keys]: the HTTP default request's loop (1 image, 15 DPM++ steps),
+# its first calls and a mix of keys cycling in turn, more keys (n_iter
+# 11, 12, ...) than the generator keeps
+KEYS_ITER, KEYS_MIX = 15, 10
+
+
+def _loop_calls(spec):
+    """Denoiser calls of one run of a step loop (no block caching)."""
+    per_step = 2 if spec.step == "heun" else 1
+    return per_step * spec.n_steps + 1
+
+
+def _plan(tr, prompt, seed, n_imgs, n_iter, gen=None, **kw):
+    """The plan of generate_array_from_text's sampler call for `prompt`
+    (on tr's generator unless `gen` is given)."""
+    labels, _ = tr._encode_prompts([prompt] * n_imgs, None, n_imgs)
+    kw.setdefault("sampler", "ddim")
+    return (gen or tr.diffuser).plan_loop(labels, num_imgs=n_imgs, n_iter=n_iter, seed=seed,
+                                          img_size=tr.diffuser.model.image_size,
+                                          class_guidance=6, exponent=1,
+                                          schedule_shift=tr.schedule_shift, **kw)
+
+
+def _host_s(fn):
+    """Seconds of fn() on the host clock, the device's queue drained."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _held_gib(fn):
+    """fn()'s result and the GiB of device memory it left reserved, the
+    caching allocator's free blocks released before and after (for a call
+    that captures a loop: the graph's pool, static inputs and output)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    out = fn()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out, (torch.cuda.memory_reserved() - before) / 2 ** 30
+
+
+def phase_sampler_graph(tr, per_layer, tag, n_imgs, n_iter):
+    """The sampler's step loop through its CUDA graph against the same
+    loop run eagerly (`SamplePlan.run_eager`) on the same inputs:
+    bit-equal latents, the exact launch counts through a replay, one
+    capture for two calls with other prompts and seeds, the graph's and
+    the eager loop's times, and after `load_state_dict` with other weights
+    an eager first call and a new capture at the second, both the new
+    weights' eager result, with the device memory the capture holds."""
+    from transformer_latent_diffusion_tpu_torch.models.denoiser import Denoiser
+    from transformer_latent_diffusion_tpu_torch.utils.common import init_random_weights_
+
+    gen = tr.diffuser
+    n_layers = tr.cfg.denoiser_cfg.n_layers
+    calls = [("a cute cat", 11), ("a red car on a road at night", 23)]
+    for _ in range(2):  # the key's eager first call and its capture, at the latest
+        gen.run_plan(_plan(tr, *calls[0], n_imgs, n_iter))
+    captures = gen.graphs.captures
+    first = None
+    for prompt, seed in calls:
+        plan = _plan(tr, prompt, seed, n_imgs, n_iter)
+        eager = plan.run_eager()
+        _reset_counts()
+        got = gen.run_plan(plan)
+        launches = _counts()
+        expect = _expect({k: v * n_layers * _loop_calls(plan.spec)
+                          for k, v in per_layer.items()})
+        same = torch.equal(got, eager)
+        log(f"[{tag}] {n_imgs} imgs x {n_iter} DDIM steps, seed {seed}: graph replay vs "
+            f"eager loop bit-equal {same} (rel-L2 {rel_l2(got, eager):.3e}); captures "
+            f"{gen.graphs.captures} (before {captures}); launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        if not same or not torch.isfinite(got).all():
+            raise AssertionError(f"[{tag}] the graph's latents differ from the eager loop's")
+        _require_launches(launches, expect, f"{tag} replay")
+        first = got if first is None else first
+    if gen.graphs.captures != captures:
+        raise AssertionError(f"[{tag}] a call with other prompts and seed captured again")
+    times = {"eager": [], "graph": []}
+    for which in ("eager", "graph", "graph", "eager"):
+        run = plan.run_eager if which == "eager" else (lambda: gen.run_plan(plan))
+        times[which].append(_host_s(run)[1])
+    log(f"[{tag}] step loop + final denoise ({_loop_calls(plan.spec)} forwards at batch "
+        f"{2 * n_imgs}): graph {np.mean(times['graph']):.4f} s, eager "
+        f"{np.mean(times['eager']):.4f} s (runs graph {times['graph']}, eager "
+        f"{times['eager']}); graphs held {len(gen.graphs)}")
+
+    other = Denoiser.from_config(tr.cfg.denoiser_cfg, dtype=torch.bfloat16)
+    gen.model.load_state_dict(init_random_weights_(other, 5).state_dict())
+    del other
+    plan = _plan(tr, *calls[0], n_imgs, n_iter)
+    (once, t_once), ((got, t_capture), held) = (
+        _host_s(lambda: gen.run_plan(plan)), _held_gib(lambda: _host_s(lambda: gen.run_plan(plan))))
+    eager = plan.run_eager()
+    log(f"[{tag}] after load_state_dict (other weights): first call {t_once:.4f} s (eager), "
+        f"second {t_capture:.4f} s (captures {gen.graphs.captures}, was {captures}; the graph "
+        f"holds {held:.3f} GiB); both bit-equal to the eager loop {torch.equal(once, eager)} "
+        f"{torch.equal(got, eager)}, rel-L2 to the old weights' result {rel_l2(got, first):.3f}")
+    if (not torch.equal(got, eager) or not torch.equal(once, eager)
+            or gen.graphs.captures != captures + 1 or torch.equal(got, first)):
+        raise AssertionError(f"[{tag}] the graph did not follow the new weights")
+    torch.cuda.synchronize()
+
+
+def phase_graph_keys(tr):
+    """What a key's graph costs on the HTTP default request's loop (1 image,
+    15 DPM++ steps, the bf16 engine) on a new generator: its first four
+    calls (eager, capture, two replays) beside the eager loop, the device
+    memory the capture holds, a mix of KEYS_MIX keys cycling in turn (more
+    than the generator keeps: every call runs eagerly, none captures),
+    and a new generator for each call, as each training eval builds one."""
+    from transformer_latent_diffusion_tpu_torch.sampling import graph as tg
+    from transformer_latent_diffusion_tpu_torch.sampling.diffusion import DiffusionGenerator
+
+    def new_gen():
+        return DiffusionGenerator(tr.diffuser.model, fast_apply=tr.diffuser.fast_apply,
+                                  device=DEVICE)
+
+    gen = new_gen()
+    plan = _plan(tr, "a cute cat", 11, 1, KEYS_ITER, gen, sampler="dpm")
+    eager = [_host_s(plan.run_eager)[1] for _ in range(2)]
+    first = [_host_s(lambda: gen.run_plan(plan))[1]]
+    (_, t), held = _held_gib(lambda: _host_s(lambda: gen.run_plan(plan)))
+    first.append(t)
+    first += [_host_s(lambda: gen.run_plan(plan))[1] for _ in range(2)]
+    log(f"[graph-keys] 1 image x {KEYS_ITER} DPM++ steps (batch 2), a new generator: calls "
+        f"{', '.join(f'{x:.4f}' for x in first)} s (eager, capture, replay, replay); the "
+        f"eager loop {', '.join(f'{x:.4f}' for x in eager)} s; the capture holds {held:.4f} "
+        f"GiB; captures {gen.graphs.captures}")
+    if gen.graphs.captures != 1:
+        raise AssertionError("[graph-keys] the second call did not capture")
+
+    mix = [_plan(tr, "a cute cat", 11, 1, KEYS_ITER + 1 + k, gen, sampler="dpm")
+           for k in range(KEYS_MIX)]
+    t_mix = [_host_s(lambda: gen.run_plan(p))[1] for _ in range(2) for p in mix]
+    t_eager = [_host_s(p.run_eager)[1] for p in mix]
+    log(f"[graph-keys] {KEYS_MIX} keys (n_iter {KEYS_ITER + 1}-{KEYS_ITER + KEYS_MIX}) "
+        f"cycled twice, the generator keeping {tg.MAX_GRAPHS}: mean {np.mean(t_mix):.4f} s a "
+        f"call (runs {[round(x, 4) for x in t_mix]}), eager loops {np.mean(t_eager):.4f} s; "
+        f"captures {gen.graphs.captures}")
+    if gen.graphs.captures != 1:
+        raise AssertionError("[graph-keys] a cycle of more keys than kept captured")
+
+    def one_shot():
+        other = new_gen()
+        return other.run_plan(_plan(tr, "a cute cat", 11, 1, KEYS_ITER, other, sampler="dpm"))
+
+    t_one = [_host_s(one_shot)[1] for _ in range(3)]
+    log(f"[graph-keys] a new generator for each call (as each training eval builds one; "
+        f"the CLIP encode, the weights packed, then its one call runs eagerly): "
+        f"{', '.join(f'{x:.4f}' for x in t_one)} s")
+    del gen, plan, mix
+    torch.cuda.synchronize()
+
+
+def _paired(f, g, errs):
+    """A denoiser call that returns f's result and appends to errs the
+    rel-L2 of f's prediction against g's on the same inputs."""
+    def call(*args):
+        a, b = f(*args), g(*args)
+        errs.append(rel_l2(a[0] if isinstance(a, tuple) else a,
+                           b[0] if isinstance(b, tuple) else b))
+        return a
+    return call
+
+
+def phase_sampler_extras(tr):
+    """heun, eta = 0.5, cfg_rescale = 0.7, a guidance interval and block
+    caching (cache_interval = 2) on the 256 px bf16 engine, each through
+    its captured graph: bit-equal to the same loop run eagerly, in which
+    every engine call is held against the plain bf16 Denoiser's call on
+    the same inputs (the engine with the plain stack for block caching)
+    within ENGINE_REL_L2; the exact launches of each replay (block
+    caching's from the engine's `cache_span`). The whole trajectory's
+    rel-L2 to the plain loop is printed, not bounded: the two loops' states
+    part further at each step."""
+    from transformer_latent_diffusion_tpu_torch.models.denoiser import Denoiser
+    from transformer_latent_diffusion_tpu_torch.models.fast_denoiser import make_fused_apply
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
+    from transformer_latent_diffusion_tpu_torch.sampling.diffusion import (
+        DiffusionGenerator,
+        sample_loop,
+    )
+
+    gen = tr.diffuser
+    den = tr.cfg.denoiser_cfg
+    plain = Denoiser.from_config(den, dtype=torch.bfloat16)
+    plain.load_state_dict(gen.model.state_dict())
+    plain_gen = DiffusionGenerator(plain.to(DEVICE).eval(), device=DEVICE)
+    plain_engine = make_fused_apply(den, compute_dtype=torch.bfloat16)
+    plain_engine._stack = fs.fused_layer_stack_plain
+    plain_cached = DiffusionGenerator(gen.model, fast_apply=plain_engine, device=DEVICE)
+    s, e = gen.fast_apply.cache_span()
+    labels, _ = tr._encode_prompts(["a cute cat"] * EXTRA_IMGS, None, EXTRA_IMGS)
+    common = dict(num_imgs=EXTRA_IMGS, n_iter=EXTRA_ITER, seed=11, img_size=den.image_size,
+                  class_guidance=6)
+    for name, kw in (("heun", dict(sampler="heun")),
+                     ("eta 0.5", dict(sampler="ddim", eta=0.5)),
+                     ("cfg_rescale 0.7", dict(sampler="dpm", cfg_rescale=0.7)),
+                     ("guidance_interval (0.2, 0.8)",
+                      dict(sampler="dpm", guidance_interval=(0.2, 0.8))),
+                     ("cache_interval 2", dict(sampler="ddim", cache_interval=2))):
+        plan = gen.plan_loop(labels, **common, **kw)
+        spec = plan.spec
+        ref_gen = plain_cached if spec.cache_interval > 1 else plain_gen
+        ref = ref_gen.plan_loop(labels, **common, **kw)
+        errs = []
+        with torch.no_grad():
+            eager = sample_loop(spec, _paired(plan.forward, ref.forward, errs), **plan.inputs,
+                                forward_cached=plan.forward_cached and _paired(
+                                    plan.forward_cached, ref.forward_cached, errs))
+        captures = gen.graphs.captures
+        for _ in range(2):  # the key's eager first call, then its capture
+            gen.run_plan(plan)
+        _reset_counts()
+        got, secs = _host_s(lambda: gen.run_plan(plan))
+        launches = _counts()
+        if spec.cache_interval > 1:
+            refresh = sum(1 for i in range(spec.n_steps) if i % spec.cache_interval == 0)
+            layers = den.n_layers * (spec.n_steps + 1) - (e - s) * (spec.n_steps - refresh)
+        else:
+            layers = den.n_layers * _loop_calls(spec)
+        traj = rel_l2(got, ref.run_eager())
+        expect = _expect({k: v * layers for k, v in fs.LAUNCHES_PER_LAYER.items()})
+        log(f"[sampler-extras] {name}: {EXTRA_IMGS} imgs x {EXTRA_ITER} steps through the "
+            f"graph ({gen.graphs.captures - captures} capture, replay {secs:.4f} s), bit-equal "
+            f"to the eager loop {torch.equal(got, eager)}; its {len(errs)} engine calls vs the "
+            f"plain bf16 {'engine stack' if spec.cache_interval > 1 else 'Denoiser'} on the "
+            f"same inputs: rel-L2 max {max(errs):.5f} (bound {ENGINE_REL_L2}), mean "
+            f"{np.mean(errs):.5f}; the whole trajectory vs the plain loop {traj:.5f} (not "
+            f"bounded); launches {dict((k, v) for k, v in launches.items() if v)} ({layers} "
+            f"layer calls)")
+        if gen.graphs.captures != captures + 1 or not torch.isfinite(got).all():
+            raise AssertionError(f"[sampler-extras] {name}: no capture or non-finite latents")
+        if not torch.equal(got, eager):
+            raise AssertionError(f"[sampler-extras] {name}: the graph differs from the eager loop")
+        if max(errs) >= ENGINE_REL_L2:
+            raise AssertionError(f"[sampler-extras] {name} disagrees with the plain version")
+        _require_launches(launches, expect, f"sampler-extras {name}")
+    del plain, plain_gen, plain_cached
+    torch.cuda.synchronize()
 
 
 # ------------------------------ int8 serving (K7) ------------------------------
@@ -984,6 +1374,15 @@ def phase_int8_engine(cfg8):
             fwd8()
             torch.cuda.synchronize()
     busy, by_kernel = _device_time(prof)
+    with torch.no_grad():
+        tokens, cond, h, w = engine._prologue(sd, x, noise, label)
+        layer0 = prepared["layers"][0]
+        t_layer = time_ms(lambda: q8.fused_layer_stack_int8(tokens, cond, layer0, h,
+                                                            engine.n_heads))
+        t_equal = time_ms(int8_layer_equal_work(tokens, cond, layer0, h, engine.n_heads))
+    log(f"[int8-engine] one W8A8 layer at batch {B}: kernels {t_layer:.4f} ms; equal-work "
+        f"yardstick (F.layer_norm + |max| + round, torch._int_mm + scales, SDPA, F.conv2d + "
+        f"F.gelu) {t_equal:.4f} ms")
     # one W8A8 layer's least time: its four int8 products at the int8
     # tensor peak plus the bf16 cond K/V product and self-attention at the
     # bf16 peak (the bytes, about 10 MB of weights and activations, are an
@@ -1225,6 +1624,11 @@ def phase_hires_kernels():
         timing.update(time_against_plain({"fused_mlp_sepconv": (kern, plain)},
                                          "hires-kernels"))
         library["fused_mlp_sepconv"] = None  # no one call: two products around a depthwise conv
+        library["fused_mlp_sepconv (equal work)"] = time_ms(
+            sepconv_equal_work(x, w1, b1, dw, dwb, w2, b2, HR_HW), 10, 2)
+        log(f"[hires-kernels] fused_mlp_sepconv: equal-work yardstick (F.linear, F.conv2d "
+            f"groups=C + bias, F.gelu, F.linear, bf16) "
+            f"{library['fused_mlp_sepconv (equal work)']:.4f} ms")
         bounds["fused_mlp_sepconv"] = bound(
             2 * m * D * 2 + 2 * HIDDEN * D * 2 + 9 * HIDDEN * 2 + (2 * HIDDEN + D) * 4,
             4 * m * D * HIDDEN, BF16_TENSOR_FLOP_S)
@@ -1410,10 +1814,8 @@ def phase_hires_library(cfg, n_imgs, n_iter, smi):
         return tr.generate_array_from_text("a cute cat", num_imgs=n_imgs, n_iter=n_iter,
                                            sampler="ddim", class_guidance=6)
 
-    t0 = time.perf_counter()
-    run()  # warm-up
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
+    # warm-up: the loop's first call runs eagerly, the second captures it
+    (_, warm), ((_, capture), held) = _host_s(run), _held_gib(lambda: _host_s(run))
     _reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1425,7 +1827,9 @@ def phase_hires_library(cfg, n_imgs, n_iter, smi):
     px = 8 * den.image_size
     expect = _expect({k: v * den.n_layers * n_iter for k, v in _hires_per_layer(den).items()})
     log(f"[hires-library] {px} px: generate_array_from_text {n_imgs} imgs x {n_iter} DDIM "
-        f"steps: {wall:.3f} s ({n_imgs / wall:.3f} imgs/s; warm-up run {warm:.1f} s), peak "
+        f"steps: {wall:.3f} s ({n_imgs / wall:.3f} imgs/s; warm-up runs: the first "
+        f"{warm:.3f} s, eager, the second {capture:.3f} s, the loop's capture, which holds "
+        f"{held:.3f} GiB), peak "
         f"memory {peak:.2f} GiB; launches { {k: v for k, v in launches.items() if v} } "
         f"(expected { {k: v for k, v in expect.items() if v} }, no other kernel) | {smi}")
     if imgs.shape != (n_imgs, px, px, 3) or imgs.dtype.name != "uint8" or float(imgs.std()) <= 0:
@@ -2085,6 +2489,11 @@ def phase_hires_train_kernels():
     timing.update(time_against_plain({"fused_mlp_sepconv_bwd": (kern, plain)},
                                      "hires-train-kernels"))
     library["fused_mlp_sepconv_bwd"] = None  # no one call takes these inputs
+    library["fused_mlp_sepconv_bwd (equal work)"] = time_ms(
+        sepconv_bwd_equal_work(x, gr, w1, b1, dw, dwb, w2, HR_HW), 10, 2)
+    log(f"[hires-train-kernels] fused_mlp_sepconv_bwd: equal-work yardstick (autograd's "
+        f"backward through F.linear, F.conv2d + F.gelu, F.linear; 7 gradients) "
+        f"{library['fused_mlp_sepconv_bwd (equal work)']:.4f} ms")
     # five products of 2 M 768 3072 (the recomputed h, da, dx, dW1, dW2); the
     # bytes: x, g, the weights in, dx and the float32 weight gradients out
     bounds["fused_mlp_sepconv_bwd"] = bound(
@@ -2607,6 +3016,13 @@ def phase_attn_pair_kernels():
     log(f"[{tag}] least times: "
         + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in bounds.items()))
     library = dict.fromkeys(bounds)  # no one PyTorch call computes any of them
+    library["fused_block.fused_attention_pair (equal work)"] = time_ms(pair_equal_work(*k8, HEADS))
+    library["fused_block.fused_mlp_sepconv (equal work)"] = time_ms(sepconv_equal_work(
+        x8, *k9[3:], HW, ln=k9[1:3]))
+    log(f"[{tag}] equal-work yardsticks in PyTorch calls (bf16): K8 (F.layer_norm, F.linear, "
+        f"SDPA, twice) {library['fused_block.fused_attention_pair (equal work)']:.4f} ms, K9 "
+        f"(F.layer_norm, F.linear, F.conv2d + F.gelu, F.linear, + x) "
+        f"{library['fused_block.fused_mlp_sepconv (equal work)']:.4f} ms")
     return worst, timing, library, bounds, launches
 
 
@@ -2699,7 +3115,8 @@ def phase_ffn_serving(mlp_class, smi):
         return tr.generate_array_from_text("a cute cat", num_imgs=FFN_IMGS, n_iter=FFN_ITER,
                                            sampler="ddim", class_guidance=6)
 
-    run()  # warm-up
+    run()  # warm-up: the loop's first call runs eagerly,
+    run()  # the second captures it
     _reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3230,6 +3647,8 @@ def phase_s4():
 
 
 def main():
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
+
     t_start = time.perf_counter()
     smi = phase_env()
     phase_build()
@@ -3240,6 +3659,9 @@ def main():
     tr, launches, ips = phase_library(cfg)
     from transformer_latent_diffusion_tpu_torch.serve.app import GenerationService
 
+    phase_sampler_graph(tr, fs.LAUNCHES_PER_LAYER, "sampler-graph", N_IMGS, N_ITER)
+    phase_graph_keys(tr)
+    phase_sampler_extras(tr)
     phase_serving(GenerationService(transformer=tr))
     phase_resized_grid(tr)
     del tr
@@ -3254,6 +3676,8 @@ def main():
     tr, i_launches, ips8 = phase_library(cfg8, q8.LAUNCHES_PER_LAYER, "int8-library")
     log(f"[int8-library] {ips8:.3f} images/s (W8A8) against {ips:.3f} (bf16 engine, the "
         f"library phase above)")
+    phase_sampler_graph(tr, q8.LAUNCHES_PER_LAYER, "int8-sampler-graph", GRAPH_BRIEF_IMGS,
+                        GRAPH_BRIEF_ITER)
     del tr
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:  # as `serve --config ltd.json` loads it
@@ -3278,6 +3702,8 @@ def main():
         phase_hires_model(cfg512)
         torch.cuda.empty_cache()
         tr, h_launches = phase_hires_library(cfg512, HR_IMGS, HR_ITER, smi)
+        phase_sampler_graph(tr, _hires_per_layer(cfg512.denoiser_cfg), "hires-sampler-graph",
+                            GRAPH_BRIEF_IMGS, GRAPH_BRIEF_ITER)
         del tr
         torch.cuda.empty_cache()
         phase_serving(GenerationService(cfg=cfg512, device=DEVICE), "hires-serving")
@@ -3370,6 +3796,8 @@ def main():
             "bound_ms": ht_bounds[key][0], "bound_by": ht_bounds[key][1],
             "library_ms": ht_library[key],
         })
+        if f"{key} (equal work)" in ht_library:
+            kernels[-1]["equal_work_ms"] = ht_library[f"{key} (equal work)"]
     # K6's launches: the MoE model's train.main; K8's and K9's: their entry
     # points (no path of the system calls them, as in the JAX package)
     for name, tpu, src, counts in (
@@ -3385,6 +3813,8 @@ def main():
             "plain_ms": p_timing[name][1], "bound_ms": p_bounds[name][0],
             "bound_by": p_bounds[name][1], "library_ms": p_library[name],
         })
+        if f"{name} (equal work)" in p_library:
+            kernels[-1]["equal_work_ms"] = p_library[f"{name} (equal work)"]
     # the probes (no serving or training path runs them): S1's pair, and a
     # row per variant or mode of S3, S2 and S4 and per kernel mode they add;
     # launches are those of the probe's own run (a kernel mode's: its
@@ -3394,7 +3824,7 @@ def main():
         "source": f"{port}/scripts/microbench_int8.py", "replaces": TPU_S1,
         "launches": sum(s1["launches"].values()), "max_abs_err": s1["max_abs"], "ms": s1["ms"],
         "plain_ms": s1["plain_ms"], "bound_ms": s1["bound"][0], "bound_by": s1["bound"][1],
-        "library_ms": None})
+        "library_ms": None, "equal_work_ms": s1["equal_work_ms"]})
     kernels += probe_rows
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     log(smi)

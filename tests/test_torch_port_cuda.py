@@ -1096,3 +1096,44 @@ def test_backward_colsum_launches_drop_on_card():
               **{k: v for k, v in lv.LAUNCHES.items() if v}}
     assert counts == {"ln_gemm": 3, "dwconv_gelu": 1, "weight_grad": 2, "colsum": 1,
                       "dwconv_gelu_bwd": 1}
+
+
+# ------------------------------ the sampler's CUDA graph ------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(sampler="ddim"), dict(sampler="dpm", cache_interval=2),
+                                dict(sampler="ddim", eta=0.5), dict(sampler="heun")],
+                         ids=["ddim", "dpm_cached", "eta", "heun"])
+def test_sampler_graph_replay_matches_eager_on_card(kw):
+    """A tiny bf16 engine (4 layers, d = 128, 8 x 8 tokens): a key's first
+    call runs eagerly, its second captures and replays, a third with
+    another seed and guidance replays (no new capture); each is bit-equal
+    to `sample_loop` run eagerly on its inputs, and the kernels' counts
+    are the eager run's (the capture's taken back, a replay's added)."""
+    _need_card()
+    from transformer_latent_diffusion_tpu_torch.configs import DenoiserConfig
+    from transformer_latent_diffusion_tpu_torch.models.denoiser import Denoiser
+    from transformer_latent_diffusion_tpu_torch.models.fast_denoiser import make_fused_apply
+    from transformer_latent_diffusion_tpu_torch.sampling.diffusion import DiffusionGenerator
+    from transformer_latent_diffusion_tpu_torch.utils.common import init_random_weights_
+
+    cfg = DenoiserConfig(image_size=16, embed_dim=128, n_layers=4, noise_embed_dims=64)
+    model = init_random_weights_(Denoiser.from_config(cfg, dtype=torch.bfloat16), 0)
+    model.to("cuda").eval()
+    gen = DiffusionGenerator(model, fast_apply=make_fused_apply(cfg), device="cuda")
+    labels = torch.randn(2, cfg.text_emb_size, generator=torch.Generator().manual_seed(2))
+    call = dict(n_iter=5, num_imgs=2, img_size=16, sharp_f=0, bright_f=0, **kw)
+    for n, (seed, g) in enumerate(((3, 4.0), (7, 6.5), (9, 2.0))):
+        plan = gen.plan_loop(labels, seed=seed, class_guidance=g,
+                             **{k: v for k, v in call.items() if k not in ("sharp_f", "bright_f")})
+        fs.reset_launch_counts()
+        eager = plan.run_eager()
+        torch.cuda.synchronize()
+        want_launches = dict(fs.LAUNCHES)
+        fs.reset_launch_counts()
+        _, got = gen.generate(labels, seed=seed, class_guidance=g, **call)
+        torch.cuda.synchronize()
+        assert (gen.graphs.captures, gen.graphs.replays) == (min(n, 1), n)
+        assert torch.equal(got, eager)
+        assert dict(fs.LAUNCHES) == want_launches

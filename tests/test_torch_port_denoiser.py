@@ -181,14 +181,16 @@ def test_fused_engine_rounds_between_layers(tiny):
 
 
 def test_engine_options_not_ported_raise(tiny):
-    """Block caching still raises, naming its ROADMAP item. mlp_class="moe"
-    raised too before the MoE FFN was ported; now the Denoiser builds with
-    the MoE FFN in every block (the JAX leaves' names), and an unknown FFN
-    raises ValueError."""
+    """Block caching raised here until it was ported: the engine now has
+    the JAX engine's cached span (the middle half of the layers; its
+    forward is held against JAX in tests/test_torch_port_block_cache.py).
+    mlp_class="moe" raised too before the MoE FFN was ported; now the
+    Denoiser builds with the MoE FFN in every block (the JAX leaves'
+    names), and an unknown FFN raises ValueError."""
     cfg = port_configs.DenoiserConfig()
-    engine = make_fused_apply(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.apply_prepared_cached(None, None, None, None, None, True)
+    assert make_fused_apply(cfg).cache_span() == (0, 3)
+    assert make_fused_apply(port_configs.DenoiserConfig(
+        n_layers=12)).cache_span() == (3, 9)
     moe = Denoiser.from_config(port_configs.DenoiserConfig(mlp_class="moe", n_experts=4))
     sd = moe.state_dict()
     assert sd["denoiser_trans_block.decoder_blocks.0.mlp.wi"].shape == (4, 128, 512)

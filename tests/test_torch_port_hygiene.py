@@ -1,5 +1,5 @@
-"""The port stands alone: it imports torch and never jax, flax or the JAX
-package (nor do chip_smoke.py and tests/test_torch_port_cuda.py, which run
+"""The port stands alone: it imports torch and never jax, flax, the JAX
+package or `regex` (nor do chip_smoke.py and tests/test_torch_port_cuda.py, which run
 on the card's machine, where jax is not installed), and its configs keep
 the JAX package's field names and defaults, so one JSON config serves
 both."""
@@ -18,7 +18,8 @@ from transformer_latent_diffusion_tpu_torch import configs as port_configs
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "transformer_latent_diffusion_tpu_torch"
-FORBIDDEN = ("jax", "flax", "jaxlib", "transformer_latent_diffusion_tpu")
+# regex: the JAX package's CLIP tokenizer needs it, the card's machine lacks it
+FORBIDDEN = ("jax", "flax", "jaxlib", "transformer_latent_diffusion_tpu", "regex")
 
 
 def test_importing_the_port_loads_no_jax():

@@ -223,24 +223,57 @@ def test_cuda_configs_the_kernels_cannot_run_raise_at_construction():
 
 def test_options_not_ported_raise():
     """What the slice leaves out raises NotImplementedError naming its
-    ROADMAP item instead of running something else."""
+    ROADMAP item instead of running something else: parallelism, LoRA and
+    the editing inputs. (The CLIP vocab, the sampler extras and block
+    caching raised here too until they were ported; they run in the tests
+    below.)"""
     with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
         DiffusionTransformer(_tiny_ltd(mesh_shape=(8, 1)), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
         DiffusionTransformer(_tiny_ltd(pipeline_microbatches=4), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
         DiffusionTransformer(_tiny_ltd(lora_scale=0.5), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-        DiffusionTransformer(_tiny_ltd(clip_cfg=pc.ClipConfig(
-            width=64, heads=2, layers=2, vocab_path="bpe.txt.gz")), device="cpu")
     tr = DiffusionTransformer(_tiny_ltd(), device="cpu")
-    for kw in (dict(sampler="heun"), dict(eta=0.5, sampler="ddim"),
-               dict(cfg_rescale=0.5), dict(guidance_interval=(0.1, 0.9)),
-               dict(cache_interval=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tr.generate_array_from_text("x", n_iter=2, **kw)
     labels = np.zeros((1, 768), np.float32)
-    for kw in (dict(init_latents=np.zeros((1, 4, 16, 16))), dict(fresh_noise=True),
+    for kw in (dict(init_latents=np.zeros((1, 4, 16, 16))),
                dict(mask=np.ones((16, 16))), dict(context_latents=np.zeros(1))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tr.diffuser.generate(labels, n_iter=2, num_imgs=1, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(sampler="heun"), dict(eta=0.5, sampler="ddim"), dict(cfg_rescale=0.5),
+    dict(guidance_interval=(0.1, 0.9)), dict(cache_interval=2)],
+    ids=["heun", "eta", "cfg_rescale", "guidance_interval", "cache_interval"])
+def test_sampler_options_run_through_the_pipeline(kw):
+    """The options that raised NotImplementedError before the sampler
+    extras and block caching were ported now generate through the
+    pipeline: images of the right shape, another result than the default
+    (block caching on the CPU has no engine: it warns and samples
+    exactly, as the JAX generator does)."""
+    tr = DiffusionTransformer(_tiny_ltd(), device="cpu")
+    base = tr.generate_array_from_text("x", n_iter=3, sampler="ddim")
+    if "cache_interval" in kw:
+        with pytest.warns(UserWarning, match="exact sampling"):
+            got = tr.generate_array_from_text("x", n_iter=3, sampler="ddim", **kw)
+        np.testing.assert_array_equal(got, base)
+        return
+    got = tr.generate_array_from_text("x", n_iter=3, **{"sampler": "ddim", **kw})
+    assert got.shape == base.shape == (1, 32, 32, 3) and got.dtype == np.uint8
+    assert not np.array_equal(got, base)
+
+
+def test_fresh_noise_runs_on_the_generator():
+    """fresh_noise raised NotImplementedError before it was ported; it now
+    samples, deterministically per seed, and refuses DPM++ as JAX does."""
+    tr = DiffusionTransformer(_tiny_ltd(), device="cpu")
+    labels = np.ones((2, 768), np.float32)
+    kw = dict(n_iter=3, num_imgs=2, img_size=16, seed=4, sampler="ddim")
+    _, a = tr.diffuser.generate(labels, fresh_noise=True, **kw)
+    _, b = tr.diffuser.generate(labels, fresh_noise=True, **kw)
+    _, ddim = tr.diffuser.generate(labels, **kw)
+    torch.testing.assert_close(a, b, atol=0, rtol=0)
+    assert torch.isfinite(a).all() and not torch.equal(a, ddim)
+    with pytest.raises(ValueError, match="use_ddpm_plus"):
+        tr.diffuser.generate(labels, n_iter=3, num_imgs=2, img_size=16,
+                             fresh_noise=True)

@@ -1,6 +1,7 @@
 """The port's WSGI service on the CPU with tiny random weights: routes,
-bearer auth, the text-to-image 422 checks, the 422 that names the
-ROADMAP item of a field the port does not serve yet, and the 500s and
+bearer auth, the text-to-image 422 checks (the JAX service's checks of the
+solver fields among them), the solver fields served, the 422 that names
+the ROADMAP item of a field the port does not serve yet, and the 500s and
 non-object bodies against the JAX WSGI app's answers."""
 
 import io
@@ -80,14 +81,31 @@ def test_bad_token_is_401(app, token, detail):
     ({"prompt": "x", "sampler": "euler"}, "sampler must be one of"),
     ({"prompt": "x", "init_image": "abc"}, "ROADMAP item 9"),
     ({"prompt": "x", "best_of": 4}, "ROADMAP item 12"),
-    ({"prompt": "x", "eta": 0.5, "sampler": "ddim"}, "ROADMAP item 9"),
-    ({"prompt": "x", "cache_interval": 2}, "ROADMAP item 9"),
+    ({"prompt": "x", "eta": 1.5, "sampler": "ddim"}, "eta must be in [0, 1]"),
+    ({"prompt": "x", "eta": 0.5, "sampler": "dpm"}, "requires sampler='ddim'"),
+    ({"prompt": "x", "sampler": "heun", "cache_interval": 2},
+     "cache_interval > 1 excludes sampler='heun'"),
+    ({"prompt": "x", "cfg_rescale": 2}, "cfg_rescale must be in [0, 1]"),
 ], ids=["no_prompt", "float_n_iter", "str_n_iter", "null_prompt", "bad_sampler",
-        "editing", "best_of", "eta", "cache"])
+        "editing", "best_of", "eta", "eta_with_dpm", "cache", "cfg_rescale"])
 def test_malformed_or_not_served_is_422(app, body, detail):
     status, _, out = call(app, "POST", "/generate-image/", body)
     assert status == 422
     assert detail in json.loads(out)["detail"]
+
+
+@pytest.mark.parametrize("body", [
+    {"sampler": "heun"}, {"sampler": "ddim", "eta": 0.5}, {"cfg_rescale": "0.7"},
+    {"cache_interval": 2}], ids=["heun", "eta", "cfg_rescale", "cache_interval"])
+def test_solver_fields_are_served(app, body):
+    """The JAX service's solver fields answer 200 with a JPEG: heun, eta
+    (with DDIM), cfg_rescale (a numeric string coerces, as pydantic's lax
+    mode does) and block caching (on the CPU no engine: exact sampling,
+    with the generator's warning)."""
+    status, headers, out = call(app, "POST", "/generate-image/",
+                                {"prompt": "a cute cat", "n_iter": 2, **body})
+    assert status == 200 and headers["Content-Type"] == "image/jpeg"
+    assert out[:3] == b"\xff\xd8\xff"
 
 
 def test_unknown_route_is_404_and_service_needs_a_device():

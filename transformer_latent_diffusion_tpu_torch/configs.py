@@ -106,8 +106,8 @@ class ClipConfig:
     clip_dtype: str = "float16"
     # openai CLIP state_dict (.pth); None = random weights
     weights_path: Optional[str] = None
-    # the CLIP BPE vocab; the BPE tokenizer is not ported yet, so a set
-    # vocab_path raises NotImplementedError
+    # the openai CLIP BPE vocab (bpe_simple_vocab_16e6.txt.gz); None or a
+    # missing file = the HashTokenizer stand-in
     vocab_path: Optional[str] = None
     width: int = 768
     heads: int = 12

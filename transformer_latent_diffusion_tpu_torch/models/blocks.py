@@ -25,6 +25,7 @@ JAX block's `want_mlp`); cross-attention stays plain.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -62,10 +63,19 @@ def sinusoidal_embedding(x: torch.Tensor, embedding_dims: int = 32,
 
     The frequency table is built in float64 on the host and cast once to
     `x.dtype`, as the JAX package does."""
+    speeds = _angular_speeds(embedding_dims, emb_min_freq, emb_max_freq,
+                             x.device, x.dtype)
+    return torch.cat([torch.sin(speeds * x), torch.cos(speeds * x)], dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _angular_speeds(embedding_dims: int, emb_min_freq: float,
+                    emb_max_freq: float, device: torch.device, dtype):
+    """The frequency table on `device`, copied there once: a sampler loop
+    captured into a CUDA graph copies nothing from the host."""
     freqs = np.exp(np.linspace(math.log(emb_min_freq), math.log(emb_max_freq),
                                embedding_dims // 2))
-    speeds = torch.as_tensor(2.0 * np.pi * freqs, device=x.device).to(x.dtype)
-    return torch.cat([torch.sin(speeds * x), torch.cos(speeds * x)], dim=-1)
+    return torch.as_tensor(2.0 * np.pi * freqs, device=device).to(dtype)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -11,16 +11,22 @@ As in the JAX tower, the embeddings and the residual stream stay float32
 while each block's LayerNorm output, projections and MLP run in the
 tower's dtype (float16 by default); scores and softmax are float32.
 
-Tokenizer: `HashTokenizer`, the deterministic stand-in that gives the
-same ids as the JAX package's. The real CLIP BPE waits for its vocab
-file (ROADMAP).
+Tokenizers: `BpeTokenizer`, the CLIP byte-pair tokenizer read from the
+openai vocab file (`bpe_simple_vocab_16e6.txt.gz`, not in the
+repository), and `HashTokenizer`, the deterministic stand-in used when no
+vocab file is given. Both give the JAX package's ids.
 """
 
 from __future__ import annotations
 
+import gzip
 import hashlib
 import math
-from typing import List, Sequence, Union
+import os
+import re
+import unicodedata
+import warnings
+from typing import Dict, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -146,8 +152,8 @@ def _basic_clean(text: str) -> str:
 class HashTokenizer:
     """Deterministic stand-in tokenizer (no vocab file needed): maps
     whitespace-separated words to stable ids in [1, 49405]. Not the real
-    CLIP BPE, so embeddings only mean something with trained weights once
-    the BPE is ported with its vocab file."""
+    CLIP BPE, so embeddings only mean something with trained weights when
+    `BpeTokenizer` reads the vocab file."""
 
     def encode(self, text: str) -> List[int]:
         ids = []
@@ -158,6 +164,149 @@ class HashTokenizer:
                                "little")
             ids.append(1 + h % (SOT_TOKEN - 1))
         return ids
+
+
+# the JAX tokenizer's pattern (the `regex` package, IGNORECASE):
+#   <\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d|[\p{L}]+|[\p{N}]|[^\s\p{L}\p{N}]+
+# Python's `re` has no \p{L} or \p{N} (`[^\W\d_]` and `\d` are other
+# classes: they take or miss characters such as "½" or "Ⅻ"), so the
+# literal alternatives go through `re` and the three classes are read from
+# `unicodedata.category`, scanned as the pattern's alternatives would be.
+_LITERALS = re.compile(r"<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d",
+                       re.IGNORECASE)
+# U+0345 (Mn) folds to a letter under IGNORECASE, so the negated class
+# refuses it, though \p{L} does not take it either: no alternative matches
+_UNMATCHED = "\u0345"
+
+
+def _char_class(c: str) -> str:
+    """"L" (a letter), "N" (a number), "S" (whitespace, or a character no
+    alternative takes) or "O" (the rest: the pattern's last class)."""
+    if c.isspace() or c in _UNMATCHED:
+        return "S"
+    cat = unicodedata.category(c)[0]
+    return cat if cat in "LN" else "O"
+
+
+def _pre_tokenize(text: str) -> List[str]:
+    """`regex.findall` of the JAX tokenizer's pattern over `text`."""
+    out: List[str] = []
+    i, n = 0, len(text)
+    while i < n:
+        m = _LITERALS.match(text, i)
+        if m:
+            out.append(m.group())
+            i = m.end()
+            continue
+        kind = _char_class(text[i])
+        if kind == "S":
+            i += 1
+            continue
+        j = i + 1
+        if kind != "N":  # [\p{L}]+ and [^\s\p{L}\p{N}]+ are greedy runs
+            while j < n and _char_class(text[j]) == kind:
+                j += 1
+        out.append(text[i:j])
+        i = j
+    return out
+
+
+def _byte_encoder() -> Tuple[List[int], Dict[int, str]]:
+    """CLIP's reversible byte -> printable character map (the bytes in
+    their vocabulary order, and the map)."""
+    bs = list(range(ord("!"), ord("~") + 1)) + \
+        list(range(ord("¡"), ord("¬") + 1)) + list(range(ord("®"), ord("ÿ") + 1))
+    cs = bs[:]
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return bs, dict(zip(bs, [chr(c) for c in cs]))
+
+
+class BpeTokenizer:
+    """The CLIP byte-pair tokenizer, loaded from the standard
+    `bpe_simple_vocab_16e6.txt.gz` vocab file. Counterpart of the JAX
+    package's `BpeTokenizer`, with the standard library only: the
+    character classes come from the interpreter's `unicodedata`, so a
+    character that a newer Unicode database assigns (the `regex` package
+    may carry one) can split differently."""
+
+    def __init__(self, vocab_path: str):
+        bs, self.byte_encoder = _byte_encoder()
+        with gzip.open(vocab_path, "rt", encoding="utf-8") as f:
+            merges = f.read().split("\n")
+        merges = [tuple(m.split()) for m in merges[1: 49152 - 256 - 2 + 1]]
+        vocab = sorted({self.byte_encoder[b] for b in bs})
+        vocab = vocab + [v + "</w>" for v in vocab]
+        vocab.extend("".join(merge) for merge in merges)
+        vocab.extend(["<|startoftext|>", "<|endoftext|>"])
+        self.encoder = {v: i for i, v in enumerate(vocab)}
+        self.bpe_ranks = {m: i for i, m in enumerate(merges)}
+        self.cache: Dict[str, str] = {}
+
+    def _bpe(self, token: str) -> str:
+        if token in self.cache:
+            return self.cache[token]
+        word = tuple(token[:-1]) + (token[-1] + "</w>",)
+        pairs = {(word[i], word[i + 1]) for i in range(len(word) - 1)}
+        if not pairs:
+            return token + "</w>"
+        while True:
+            bigram = min(pairs, key=lambda p: self.bpe_ranks.get(p, float("inf")))
+            if bigram not in self.bpe_ranks:
+                break
+            first, second = bigram
+            new_word: List[str] = []
+            i = 0
+            while i < len(word):
+                try:
+                    j = word.index(first, i)
+                except ValueError:
+                    new_word.extend(word[i:])
+                    break
+                new_word.extend(word[i:j])
+                i = j
+                if i < len(word) - 1 and word[i] == first and word[i + 1] == second:
+                    new_word.append(first + second)
+                    i += 2
+                else:
+                    new_word.append(word[i])
+                    i += 1
+            word = tuple(new_word)
+            if len(word) == 1:
+                break
+            pairs = {(word[i], word[i + 1]) for i in range(len(word) - 1)}
+        out = " ".join(word)
+        self.cache[token] = out
+        return out
+
+    def encode(self, text: str) -> List[int]:
+        ids: List[int] = []
+        for token in _pre_tokenize(_basic_clean(text)):
+            token = "".join(self.byte_encoder[b] for b in token.encode("utf-8"))
+            ids.extend(self.encoder[t] for t in self._bpe(token).split(" "))
+        return ids
+
+
+def make_tokenizer(vocab_path=None, real_weights: bool = False):
+    """The tokenizer that the JAX package's `FlaxClip.create` picks: the BPE
+    when `vocab_path` names a file, else `HashTokenizer`, with its loud
+    warning when trained tower weights come without a vocab."""
+    import os
+
+    if vocab_path and os.path.exists(vocab_path):
+        return BpeTokenizer(vocab_path)
+    if real_weights:
+        warnings.warn(
+            "CLIP weights were provided but no BPE vocab_path: falling back "
+            "to the HashTokenizer stub, whose token ids DO NOT match the "
+            "trained vocabulary — text embeddings will be garbage. Pass "
+            "ClipConfig(vocab_path=...) pointing at the openai CLIP "
+            "bpe_simple_vocab_16e6.txt.gz.", stacklevel=2)
+    return HashTokenizer()
 
 
 def tokenize(texts: Union[str, Sequence[str]], tokenizer=None,

@@ -11,8 +11,10 @@ hand-written kernels and on CPU tensors their plain versions, or, with
 `quantize="int8"`, through the W8A8 stack
 `ops.fused_stack_int8.fused_layer_stack_int8` (TPU kernel K7).
 
-`prepare(params)` packs the per-layer weights once per generation, outside
-the sampling loop; `apply_prepared(...)` runs one forward. Numerics:
+`prepare(params)` packs the per-layer weights once, outside the sampling
+loop (the sampler keeps them while the model's weights do not change);
+`apply_prepared(...)` runs one forward and `apply_prepared_cached(...)`
+one block-cached forward. Numerics:
 float32 LayerNorm statistics, softmax and accumulation inside the layer
 kernels; activations cross layers in `compute_dtype`.
 """
@@ -120,19 +122,47 @@ class FusedEngine:
                      self.dtype)
         return unpatchify(out.float(), cfg.patch_size, h, w, cfg.n_channels)
 
+    def _run_layers(self, prepared, tokens, cond, hw, lo, hi):
+        for layer in prepared["layers"][lo:hi]:
+            tokens = self._stack(tokens, cond, layer, hw=hw,
+                                 n_heads=self.n_heads)
+        return tokens
+
     def apply_prepared(self, prepared, x, noise_level, label):
         params = prepared["params"]
         tokens, cond, h, w = self._prologue(params, x, noise_level, label)
-        for layer in prepared["layers"]:
-            tokens = self._stack(tokens, cond, layer, hw=h,
-                                 n_heads=self.n_heads)
+        tokens = self._run_layers(prepared, tokens, cond, h, 0,
+                                  self.cfg.n_layers)
         return self._epilogue(params, tokens, h, w)
 
+    def cache_span(self) -> tuple:
+        """The cached layers [s, e) of block caching: the middle half of the
+        decoder (one layer per call, so layers 3-8 of the flagship's 12),
+        as the JAX engine's `cache_span` over its one-layer groups."""
+        n = self.cfg.n_layers
+        s, e = n // 4, n - n // 4
+        return (s, max(e, s + 1))
+
     def apply_prepared_cached(self, prepared, x, noise_level, label, delta,
-                              refresh):
-        raise NotImplementedError(
-            "block caching (cache_interval > 1) is not ported yet "
-            "(ROADMAP item 9, sampler extras)")
+                              refresh: bool):
+        """Block-cached forward (Delta-DiT): the span's residual
+        contribution `delta` (B, N, D) in `compute_dtype` is recomputed when
+        `refresh` is true and reused otherwise. Returns (output, delta).
+        `refresh` is a Python bool: the sampler's schedule is static, so
+        the host picks the branch (a captured loop holds the branch of
+        each step); `delta` is not read when it is true."""
+        params = prepared["params"]
+        tokens, cond, h, w = self._prologue(params, x, noise_level, label)
+        s, e = self.cache_span()
+        tokens = self._run_layers(prepared, tokens, cond, h, 0, s)
+        if refresh:
+            out = self._run_layers(prepared, tokens, cond, h, s, e)
+            tokens, delta = out, out - tokens
+        else:
+            tokens = tokens + delta.to(tokens.dtype)
+        tokens = self._run_layers(prepared, tokens, cond, h, e,
+                                  self.cfg.n_layers)
+        return self._epilogue(params, tokens, h, w), delta
 
     def __call__(self, params, x, noise_level, label):
         return self.apply_prepared(self.prepare(params), x, noise_level, label)

@@ -2,20 +2,31 @@
 
 Counterpart of the JAX package's `sampling/diffusion.py`: the
 linear-interpolation noise schedule with its first level clamped to 0.99,
-DDIM or DPM-Solver++(2M) updates, classifier-free guidance by batch
-doubling, the final extra denoise, the sharp/bright latent shifts, and
-the VAE decode with a scale factor. The JAX package runs the steps as one
-`lax.scan`; here they are a Python loop over the steps, each a few
-kernel launches on the device.
+DDIM, DPM-Solver++(2M), Heun, eta-stochastic DDIM and fresh-noise
+updates, classifier-free guidance by batch doubling (with guidance
+rescale and a guidance interval), block caching on the fused engine, the
+final extra denoise, the sharp/bright latent shifts, and the VAE decode
+with a scale factor.
 
-The schedule's coefficients are computed on the host in float64 and
-rounded to float32 once, as the JAX package passes them to its scan.
+The JAX package runs the steps as one `lax.scan` under `jit`. Here the
+steps are `sample_loop`, one function of tensors: every level,
+coefficient, guidance value and option value is read from a device
+tensor, as the scan reads its `xs`, so on CUDA the loop of a key called
+again is captured once into a CUDA graph and replayed
+(`sampling/graph.py`); the CPU runs the same function eagerly.
+
+The schedule's coefficients and the options' scalars are computed on the
+host in float64 and rounded to float32 once, as the JAX package passes
+them to its scan.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import math
-from typing import Any, Optional, Tuple
+import warnings
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +34,7 @@ import torch
 from transformer_latent_diffusion_tpu_torch.models.denoiser import (
     resize_pos_embed,
 )
+from transformer_latent_diffusion_tpu_torch.sampling.graph import LoopGraphs
 
 NOISE_SCHEDULES = ("poly", "cosine", "karras")
 PREDICTION_OBJECTIVES = ("x0", "eps", "v")
@@ -82,6 +94,30 @@ def make_step_coeffs(noise_levels: np.ndarray,
     return c1, c2
 
 
+def fresh_noise_image_seeds(seed: int, num_imgs: int) -> List[int]:
+    """Per-image fresh-noise seeds for `generate(fresh_noise=True)` or
+    eta > 0: image j's step noise comes from a CPU `torch.Generator`
+    seeded with the j-th value, a pure function of (seed, j). So an
+    image's stream does not depend on the batch it sits in (a request's
+    images sample alike solo or in a larger batch), nor on the initial
+    noise drawn from the same seed. The counterpart of the JAX package's
+    `fresh_noise_image_keys`; threefry keys cannot be reproduced here."""
+    return [int(np.random.SeedSequence([int(seed), 1, j]).generate_state(
+        1, np.uint64)[0]) for j in range(num_imgs)]
+
+
+def draw_step_noise(image_seeds, n_steps: int, shape) -> torch.Tensor:
+    """(n_steps, N, *shape) float32 on the CPU: image j's noise for step i
+    is the i-th draw of `shape` from a generator seeded with
+    image_seeds[j]."""
+    per_image = []
+    for s in image_seeds:
+        gen = torch.Generator(device="cpu").manual_seed(int(s))
+        per_image.append(torch.randn((n_steps, *shape), generator=gen,
+                                     dtype=torch.float32))
+    return torch.stack(per_image, dim=1).contiguous()
+
+
 def prediction_to_x0(pred, x_t, sigma, objective: str):
     """Network prediction -> x0 estimate under x_t = s eps + (1 - s) x0.
     sigma: a scalar, or per-sample (n,) / (n, 1)."""
@@ -98,13 +134,42 @@ def prediction_to_x0(pred, x_t, sigma, objective: str):
                      f"{PREDICTION_OBJECTIVES}")
 
 
-def cfg_combine(cond, uncond, class_guidance):
-    """Classifier-free guidance g cond + (1 - g) uncond; g a scalar or a
-    per-image vector (num,)."""
-    g = class_guidance
+def _guided(cond, uncond, g):
+    """g cond + (1 - g) uncond; g a scalar or a per-image vector (num,)."""
     if isinstance(g, torch.Tensor) and g.ndim == 1:
         g = g.reshape(-1, *([1] * (cond.ndim - 1)))
     return g * cond + (1.0 - g) * uncond
+
+
+def cfg_combine(cond, uncond, class_guidance, sigma=None,
+                cfg_rescale=0.0, guidance_interval=None):
+    """Classifier-free guidance g cond + (1 - g) uncond; g a scalar or a
+    per-image vector (num,). cfg_rescale in [0, 1] (Lin et al. 2023)
+    blends in the combination rescaled to the cond half's per-sample std;
+    guidance_interval=(lo, hi) (Kynkäänniemi et al. 2024) applies guidance
+    only at noise levels sigma in [lo, hi] and returns cond elsewhere.
+
+    cfg_rescale is a float (0: off), or the pair (r, 1 - r) of device
+    scalars that `sample_loop` reads from `loop_scalars` (1 - r computed on
+    the host); lo, hi and sigma are floats or device scalars. A float and
+    a float32 device scalar of its value give the same result."""
+    out = _guided(cond, uncond, class_guidance)
+    if isinstance(cfg_rescale, tuple):
+        rescale, keep = cfg_rescale
+    else:
+        rescale, keep = float(cfg_rescale), 1.0 - float(cfg_rescale)
+    if isinstance(rescale, torch.Tensor) or rescale:
+        dims = tuple(range(1, cond.ndim))
+        std_c = cond.std(dim=dims, correction=0, keepdim=True)
+        std_o = out.std(dim=dims, correction=0, keepdim=True)
+        out = rescale * (out * (std_c / std_o.clamp_min(1e-8))) + keep * out
+    if guidance_interval is not None and sigma is not None:
+        lo, hi = guidance_interval
+        if isinstance(sigma, torch.Tensor):
+            out = torch.where((sigma >= lo) & (sigma <= hi), out, cond)
+        elif not lo <= sigma <= hi:
+            out = cond
+    return out
 
 
 def _as_f32(x, device) -> torch.Tensor:
@@ -118,21 +183,147 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
+@dataclasses.dataclass(frozen=True)
+class LoopSpec:
+    """What fixes the operations of the step loop (a graph's key with the
+    shapes and the route): the number of update steps, the prediction
+    objective, the step's branch (`step`: "plain" DDIM / DPM++, "fresh"
+    the fresh-noise re-noising, for fresh_noise=True and for eta = 1, one
+    expression so that the two stay bit-equal, "eta" 0 < eta < 1, "heun"
+    Heun's method), the block-caching interval (1 = off) and whether
+    guidance rescale and the guidance interval are on."""
+    n_steps: int
+    objective: str = "x0"
+    step: str = "plain"
+    cache_interval: int = 1
+    rescale: bool = False
+    interval: bool = False
+
+
+def loop_scalars(eta: float = 0.0, cfg_rescale: float = 0.0,
+                 guidance_interval=None) -> np.ndarray:
+    """The options' values as `sample_loop` reads them: sqrt(1 - eta^2),
+    eta, cfg_rescale, 1 - cfg_rescale, lo, hi; computed in float64 and
+    rounded to float32 once (the JAX scan folds them as constants)."""
+    lo, hi = guidance_interval if guidance_interval is not None else (0.0, 1.0)
+    eta, r = float(eta), float(cfg_rescale)
+    return np.array([math.sqrt(1.0 - eta * eta), eta, r, 1.0 - r, lo, hi],
+                    dtype=np.float32)
+
+
+def sample_loop(spec: LoopSpec, forward, x_init, labels_cat, levels, c1, c2,
+                guidance, scalars, step_noise=None, forward_cached=None):
+    """The step loop and the final extra denoise; returns the x0 estimate.
+
+    forward(x2, noises, labels) -> prediction: one denoiser call on the
+    CFG double batch. forward_cached(x2, noises, labels, delta, refresh)
+    -> (prediction, delta): the block-cached call (spec.cache_interval >
+    1). x_init (N, C, S, S) float32; labels_cat (2N, E): the labels, then
+    the unconditional (or negative) ones; levels (n_steps + 1,), c1, c2
+    (n_steps,), guidance (N,) and scalars (6,) (`loop_scalars`) float32; and
+    with spec.step "fresh" or "eta" step_noise (n_steps, N, C, S, S).
+    Everything that varies between calls of one spec is a tensor, so a
+    captured graph of this function serves every value."""
+    num = x_init.shape[0]
+    sqrt_1m_eta2, eta, rescale, keep, lo, hi = scalars.unbind(0)
+
+    def combine(pred, sigma):
+        return cfg_combine(
+            pred[:num], pred[num:], guidance, sigma,
+            cfg_rescale=(rescale, keep) if spec.rescale else 0.0,
+            guidance_interval=(lo, hi) if spec.interval else None)
+
+    def call(x_t, sigma, cached=None):
+        """The CFG double-batch call at level sigma -> the x0 estimate
+        (and the block cache's delta)."""
+        x2 = torch.cat([x_t, x_t], dim=0)
+        noises = sigma.reshape(1, 1).expand(2 * num, 1).contiguous()
+        if cached is None:
+            pred = forward(x2, noises, labels_cat)
+        else:
+            pred, delta = forward_cached(x2, noises, labels_cat, *cached)
+        x0 = prediction_to_x0(combine(pred, sigma), x_t, sigma,
+                              spec.objective)
+        return x0 if cached is None else (x0, delta)
+
+    x_t = x_init
+    x0_prev = torch.zeros_like(x_init)
+    delta = None
+    for i in range(spec.n_steps):
+        curr, nxt, a, b = levels[i], levels[i + 1], c1[i], c2[i]
+        if spec.step == "heun":
+            # Heun on dx/ds = (x - x0(x, s)) / s: an Euler (DDIM) predictor
+            # to the next level, a corrector there, the slopes averaged
+            x0_a = call(x_t, curr)
+            k1 = (x_t - x0_a) / curr
+            x_e = x_t + (nxt - curr) * k1
+            x0_b = call(x_e, nxt)
+            k2 = (x_e - x0_b) / nxt
+            x_t = x_t + (nxt - curr) * 0.5 * (k1 + k2)
+            continue
+        if spec.cache_interval > 1:
+            # the refresh schedule is static: the host picks the branch
+            x0, delta = call(x_t, curr,
+                             (delta, i % spec.cache_interval == 0))
+        else:
+            x0 = call(x_t, curr)
+        d = a * x0 + b * x0_prev
+        if spec.step == "fresh":
+            # re-noise the estimate to the next level with fresh noise
+            x_t = nxt * step_noise[i] + (1.0 - nxt) * d
+        elif spec.step == "eta":
+            # eps_hat is the noise the state implies; mixing it with fresh
+            # noise keeps the noise unit-variance (eta 0: DDIM, 1: fresh)
+            eps_hat = (x_t - (1.0 - curr) * d) / curr
+            mix = sqrt_1m_eta2 * eps_hat + eta * step_noise[i]
+            x_t = nxt * mix + (1.0 - nxt) * d
+        else:
+            x_t = ((curr - nxt) * d + nxt * x_t) / curr
+        x0_prev = x0
+    # final extra denoise at the last level
+    return call(x_t, levels[-1])
+
+
+@dataclasses.dataclass
+class SamplePlan:
+    """One call's step loop: its graph key, spec, denoiser calls and input
+    tensors."""
+    key: Tuple
+    spec: LoopSpec
+    forward: Callable
+    forward_cached: Optional[Callable]
+    inputs: Dict[str, torch.Tensor]
+
+    @torch.no_grad()
+    def run_eager(self) -> torch.Tensor:
+        return sample_loop(self.spec, self.forward, **self.inputs,
+                           forward_cached=self.forward_cached)
+
+
 class DiffusionGenerator:
     """Reverse-diffusion generator over a denoiser and an optional VAE.
 
     model: the plain `Denoiser` (its parameters are what the fused engine
     packs). fast_apply: an engine with `prepare(state_dict)` and
-    `apply_prepared(prepared, x, noise_level, label)` (the fused engine),
-    which runs the model on grids of at most 16 x 16 tokens at the native
-    size, as the JAX package gates it (sampling/diffusion.py:304-334);
-    otherwise, or with None, `model` itself runs. vae: an object with
-    `decode(latents_nchw)`, or None to return latents only. device: where
-    sampling runs, a required keyword ("cuda" or "cpu"), as for
-    `DiffusionTransformer`. pos_resize: on a grid other than the model's
-    native one, None (the default) bilinear-resizes the learned positional
-    table onto it (`resize_pos_embed`, once per `generate` call); False
-    takes its first h*w rows (smaller grids only), as in the JAX package.
+    `apply_prepared(prepared, x, noise_level, label)` (the fused engine;
+    with `apply_prepared_cached` and `cache_span` it also runs block
+    caching), which runs the model on grids of at most 16 x 16 tokens at
+    the native size, as the JAX package gates it
+    (sampling/diffusion.py:304-334); otherwise, or with None, `model`
+    itself runs. vae: an object with `decode(latents_nchw)`, or None to
+    return latents only. device: where sampling runs, a required keyword
+    ("cuda" or "cpu"), as for `DiffusionTransformer`. pos_resize: on a
+    grid other than the model's native one, None (the default)
+    bilinear-resizes the learned positional table onto it
+    (`resize_pos_embed`); False takes its first h*w rows (smaller grids
+    only), as in the JAX package.
+
+    The engine's packed weights and the resized table are kept while the
+    model's parameters stay as they are (the same tensors at the same
+    versions); any change to them, such as a `load_state_dict`, packs
+    again and drops the captured graphs. On CUDA the first call for a key
+    (`SamplePlan.key`) runs the step loop eagerly, the second captures it
+    into a CUDA graph, and later calls replay it (`sampling/graph.py`).
     """
 
     def __init__(self, model, vae=None, fast_apply=None, *, device,
@@ -146,6 +337,8 @@ class DiffusionGenerator:
         self.device = torch.device(device)
         self.prediction_type = prediction_type
         self.pos_resize = pos_resize
+        self.graphs = LoopGraphs()
+        self._weights: Tuple = (None, {})  # (parameter versions, packed)
 
     def _resize_grid(self, size: int) -> Optional[int]:
         """The token grid to resize the positional table onto for latents
@@ -160,6 +353,25 @@ class DiffusionGenerator:
         return (self.fast_apply is not None
                 and size // self.model.patch_size <= 16
                 and self._resize_grid(size) is None)
+
+    def _check_weights(self) -> None:
+        """Drop every packed item and captured graph when the model's
+        parameters and buffers are no longer the same tensors at the same
+        versions (a `load_state_dict`, an optimizer step, a replaced
+        parameter): a graph reads the weights by address."""
+        versions = tuple((t.data_ptr(), t._version) for t in itertools.chain(
+            self.model.parameters(), self.model.buffers()))
+        if self._weights[0] != versions:
+            self.graphs.clear()
+            self._weights = (versions, {})
+
+    def _packed(self, what, make: Callable):
+        """`make()` (weights packed from the model's), kept until
+        `_check_weights` finds the model's weights changed."""
+        packed = self._weights[1]
+        if what not in packed:
+            packed[what] = make()
+        return packed[what]
 
     def initialize_image(self, seeds, num_imgs: int, img_size: int,
                          seed: int) -> torch.Tensor:
@@ -176,23 +388,19 @@ class DiffusionGenerator:
                            dtype=torch.float32).to(self.device)
 
     @torch.no_grad()
-    def generate(
+    def plan_loop(
         self,
         labels,
         n_iter: int = 30,
         num_imgs: int = 16,
         class_guidance: float = 3,
         seed: int = 10,
-        scale_factor: float = 8,
         img_size: int = 32,
-        sharp_f: float = 0.1,
-        bright_f: float = 0.1,
         exponent: float = 1,
         seeds=None,
         noise_levels=None,
         use_ddpm_plus: bool = True,
         cache_interval: int = 1,
-        output: str = "float",
         negative_labels=None,
         init_latents=None,
         strength: float = 1.0,
@@ -207,45 +415,72 @@ class DiffusionGenerator:
         schedule: str = "poly",
         eta: float = 0.0,
         schedule_shift=None,
-    ):
-        """Generate images by reverse diffusion.
-
-        Returns (images, x0 latents (N, C, S, S) float32): images are
-        (N, 3, H, W) float, or (N, H, W, 3) uint8 with output="uint8"
-        (clip((x+1)/2) * 255 + 0.5, truncated), or None without a VAE.
-
-        Runs DDIM (sampler="ddim" or use_ddpm_plus=False) or
-        DPM-Solver++(2M), with CFG, negative labels, explicit initial
-        noise (`seeds`), any of the three noise schedules and a float
-        schedule shift. The other options of the JAX generator raise
-        NotImplementedError naming their ROADMAP item."""
+    ) -> SamplePlan:
+        """Check the options as the JAX generator does and build the step
+        loop of one `generate` call (its arguments, less the output ones)."""
         if sampler is None:
             sampler = "dpm" if use_ddpm_plus else "ddim"
-        if sampler == "heun":
-            raise _not_ported("sampler='heun'", "item 9 (sampler extras)")
-        if sampler not in ("ddim", "dpm"):
-            raise ValueError(f"unknown sampler {sampler!r}; expected 'ddim', "
-                             f"'dpm' or 'heun'")
-        for name, value, default in (("eta", eta, 0.0),
-                                     ("fresh_noise", fresh_noise, False),
-                                     ("cfg_rescale", cfg_rescale, 0.0),
-                                     ("guidance_interval", guidance_interval,
-                                      None),
-                                     ("fresh_noise_keys", fresh_noise_keys,
-                                      None)):
-            if value != default:
-                raise _not_ported(name, "item 9 (sampler extras)")
+        if sampler not in ("ddim", "dpm", "heun"):
+            raise ValueError(f"unknown sampler {sampler!r}; expected "
+                             f"'ddim', 'dpm' or 'heun'")
+        use_ddpm_plus = sampler == "dpm"
+        heun = sampler == "heun"
+        if heun:
+            if mask is not None:
+                raise ValueError("sampler='heun' does not compose with "
+                                 "inpainting (use ddim/dpm)")
+            if fresh_noise:
+                raise ValueError("fresh_noise is its own (consistency-"
+                                 "multistep) update; it excludes "
+                                 "sampler='heun'")
+            if cache_interval > 1:
+                raise ValueError("cache_interval > 1 (block caching) "
+                                 "assumes the DDIM/DPM scan body; it "
+                                 "excludes sampler='heun'")
+        eta = float(eta)
+        if not 0.0 <= eta <= 1.0:
+            raise ValueError(f"eta must be in [0, 1], got {eta}")
+        if eta:
+            if use_ddpm_plus or heun:
+                raise ValueError(
+                    "eta > 0 (stochastic DDIM) requires the DDIM update "
+                    "— pass sampler='ddim' or use_ddpm_plus=False (the "
+                    "DPM++/heun multistep history assumes a "
+                    "deterministic trajectory)")
+            if fresh_noise:
+                raise ValueError("fresh_noise IS eta=1; pass one or the "
+                                 "other")
+            if mask is not None:
+                raise ValueError("eta > 0 does not compose with "
+                                 "inpainting (the keep-region pinning "
+                                 "assumes the deterministic DDIM update)")
         for name, value in (("init_latents", init_latents), ("mask", mask),
                             ("context_latents", context_latents)):
             if value is not None:
                 raise _not_ported(name, "item 9 (editing)")
-        if cache_interval != 1:
-            raise _not_ported("cache_interval > 1 (block caching)",
-                              "item 9 (sampler extras)")
-        if output not in ("float", "uint8"):
-            raise ValueError(f"unknown output {output!r}")
+        if mask is not None and init_latents is None:
+            raise ValueError("mask requires init_latents (inpainting is "
+                             "masked img2img)")
+        if fresh_noise:
+            if mask is not None:
+                raise ValueError("fresh_noise does not compose with "
+                                 "inpainting (the keep-region pinning "
+                                 "assumes the deterministic DDIM update)")
+            if use_ddpm_plus:
+                raise ValueError("fresh_noise replaces the deterministic "
+                                 "update entirely; pass use_ddpm_plus="
+                                 "False (the DPM++ multistep history is "
+                                 "meaningless across re-noising)")
+        if not 0.0 <= cfg_rescale <= 1.0:
+            raise ValueError(f"cfg_rescale must be in [0, 1], got "
+                             f"{cfg_rescale}")
+        if guidance_interval is not None:
+            lo, hi = guidance_interval
+            if not 0.0 <= lo <= hi <= 1.0:
+                raise ValueError(f"guidance_interval must satisfy 0 <= lo "
+                                 f"<= hi <= 1, got {guidance_interval}")
+            guidance_interval = (float(lo), float(hi))
 
-        use_ddpm_plus = sampler == "dpm"
         if noise_levels is None:
             noise_levels = make_noise_levels(n_iter, exponent, schedule)
         else:
@@ -258,8 +493,7 @@ class DiffusionGenerator:
             if float(schedule_shift) != 1.0:
                 noise_levels = shift_noise_levels(noise_levels, schedule_shift)
         c1, c2 = make_step_coeffs(noise_levels, use_ddpm_plus)
-        levels = noise_levels.astype(np.float32)
-        c1, c2 = c1.astype(np.float32), c2.astype(np.float32)
+        n_steps = len(noise_levels) - 1
 
         pred_kind = self.prediction_type or str(
             getattr(self.model, "objective", "x0"))
@@ -267,52 +501,120 @@ class DiffusionGenerator:
             raise ValueError(f"unknown prediction_type {pred_kind!r}")
 
         dev = self.device
-        x_t = self.initialize_image(seeds, num_imgs, img_size, seed)
+        x_init = self.initialize_image(seeds, num_imgs, img_size, seed)
         labels = _as_f32(labels, dev)
         uncond = (torch.zeros_like(labels) if negative_labels is None
                   else _as_f32(negative_labels, dev).expand_as(labels))
         labels_cat = torch.cat([labels, uncond], dim=0)
-        guidance = torch.as_tensor(class_guidance, dtype=torch.float32,
-                                   device=dev)
+        guidance = _as_f32(class_guidance, dev).expand(num_imgs).contiguous()
 
-        size = x_t.shape[-1]
+        size = x_init.shape[-1]
+        self._check_weights()
         engine = self.fast_apply if self.uses_engine(size) else None
-        prepared = (engine.prepare(self.model.state_dict())
-                    if engine is not None else None)
-        # the resized positional table, once per call, outside the step loop
         resize_grid = self._resize_grid(size)
-        pos = None
-        if resize_grid is not None:
-            patch = self.model.patch_size
-            pos = resize_pos_embed(
-                self.model.denoiser_trans_block.pos_embed.weight,
-                self.model.image_size // patch, resize_grid)
+        forward_cached = None
+        if engine is not None:
+            prepared = self._packed("engine", lambda: engine.prepare(
+                self.model.state_dict()))
 
-        def pred_x0(x_t, noise_level):
-            num = x_t.shape[0]
-            x2 = torch.cat([x_t, x_t], dim=0)
-            noises = torch.full((2 * num, 1), float(noise_level),
-                                dtype=torch.float32, device=dev)
-            if engine is not None:
-                x0 = engine.apply_prepared(prepared, x2, noises, labels_cat)
-            elif pos is not None:
-                x0 = self.model(x2, noises, labels_cat, pos_embed_override=pos)
-            else:
-                x0 = self.model(x2, noises, labels_cat)
-            out = cfg_combine(x0[:num], x0[num:], guidance)
-            return prediction_to_x0(out, x_t, noise_level, pred_kind)
+            def forward(x2, noises, labels):
+                return engine.apply_prepared(prepared, x2, noises, labels)
 
-        x0_prev = torch.zeros_like(x_t)
-        for i in range(len(levels) - 1):
-            # float32 scalars, as the JAX scan sees them
-            curr, nxt = float(levels[i]), float(levels[i + 1])
-            x0 = pred_x0(x_t, curr)
-            d = float(c1[i]) * x0 + float(c2[i]) * x0_prev
-            x_t = (float(levels[i] - levels[i + 1]) * d + nxt * x_t) / curr
-            x0_prev = x0
-        # final extra denoise at the last level
-        x0 = pred_x0(x_t, float(levels[-1]))
+            if hasattr(engine, "apply_prepared_cached"):
+                def forward_cached(x2, noises, labels, delta, refresh):
+                    return engine.apply_prepared_cached(
+                        prepared, x2, noises, labels, delta, refresh)
+            route = ("engine", getattr(engine, "quantize", None))
+        elif resize_grid is not None:
+            model = self.model  # not self: a captured graph holds forward
+            pos = self._packed(("pos", resize_grid), lambda: resize_pos_embed(
+                model.denoiser_trans_block.pos_embed.weight,
+                model.image_size // model.patch_size, resize_grid))
 
+            def forward(x2, noises, labels):
+                return model(x2, noises, labels, pos_embed_override=pos)
+
+            route = ("linen", resize_grid)
+        else:
+            forward = self.model
+            route = ("linen", None)
+
+        if fresh_noise or eta:
+            cache_interval = 1  # block caching: plain DDIM/DPM loops only
+        if cache_interval > 1 and forward_cached is None:
+            warnings.warn(
+                "cache_interval > 1 requires the fused engine (fast_apply "
+                "with apply_prepared_cached) and <= 256 tokens; falling "
+                "back to exact sampling", stacklevel=3)
+            cache_interval = 1
+        step = ("heun" if heun else "fresh" if fresh_noise or eta == 1.0
+                else "eta" if eta else "plain")
+        spec = LoopSpec(n_steps=n_steps, objective=pred_kind, step=step,
+                        cache_interval=max(int(cache_interval), 1),
+                        rescale=bool(cfg_rescale),
+                        interval=guidance_interval is not None)
+        inputs = {
+            "x_init": x_init, "labels_cat": labels_cat,
+            "levels": _as_f32(noise_levels, dev), "c1": _as_f32(c1, dev),
+            "c2": _as_f32(c2, dev), "guidance": guidance,
+            "scalars": torch.from_numpy(loop_scalars(
+                eta, cfg_rescale, guidance_interval)).to(dev),
+        }
+        if step in ("fresh", "eta"):
+            if fresh_noise_keys is None:
+                fresh_noise_keys = fresh_noise_image_seeds(seed, num_imgs)
+            elif len(fresh_noise_keys) != num_imgs:
+                raise ValueError(f"fresh_noise_keys carries "
+                                 f"{len(fresh_noise_keys)} keys for "
+                                 f"{num_imgs} images")
+            inputs["step_noise"] = draw_step_noise(
+                fresh_noise_keys, n_steps, x_init.shape[1:]).to(dev)
+        key = (route, tuple(x_init.shape), tuple(labels_cat.shape), spec)
+        return SamplePlan(key, spec, forward, forward_cached, inputs)
+
+    @torch.no_grad()
+    def run_plan(self, plan: SamplePlan) -> torch.Tensor:
+        """The plan's x0 estimate: on CUDA through the captured graph of its
+        key (captured at the key's first call), on the CPU eagerly."""
+        if self.device.type != "cuda":
+            return plan.run_eager()
+        # a captured graph keeps `loop`: it holds the denoiser calls (and so
+        # the weights the graph reads), not the plan's inputs
+        spec, forward, forward_cached = (plan.spec, plan.forward,
+                                         plan.forward_cached)
+
+        def loop(**inputs):
+            return sample_loop(spec, forward, **inputs,
+                               forward_cached=forward_cached)
+
+        return self.graphs.run(plan.key, loop, plan.inputs)
+
+    @torch.no_grad()
+    def generate(self, labels, *, scale_factor: float = 8,
+                 sharp_f: float = 0.1, bright_f: float = 0.1,
+                 output: str = "float", **kw):
+        """Generate images by reverse diffusion.
+
+        Returns (images, x0 latents (N, C, S, S) float32): images are
+        (N, 3, H, W) float, or (N, H, W, 3) uint8 with output="uint8"
+        (clip((x+1)/2) * 255 + 0.5, truncated), or None without a VAE.
+        sharp_f and bright_f shift latent channels 3 and 0 before the
+        decode of x0 * scale_factor.
+
+        The other keywords are `plan_loop`'s, the JAX generator's options:
+        sampler "ddim", "dpm" or "heun"; eta in [0, 1] (stochastic DDIM)
+        and fresh_noise, with per-image noise streams
+        (`fresh_noise_image_seeds`; pass `fresh_noise_keys`, one seed per
+        image, to set them); cfg_rescale and guidance_interval;
+        cache_interval > 1, block caching on the fused engine; negative
+        labels, explicit initial noise (`seeds`), the three noise schedules
+        and a schedule shift. The editing options (init_latents, mask,
+        context_latents) raise NotImplementedError naming their ROADMAP
+        item."""
+        if output not in ("float", "uint8"):
+            raise ValueError(f"unknown output {output!r}")
+        plan = self.plan_loop(labels, **kw)
+        x0 = self.run_plan(plan)
         x0[:, 3] += sharp_f
         x0[:, 0] += bright_f
         if self.vae is None:

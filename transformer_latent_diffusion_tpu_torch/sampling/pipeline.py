@@ -33,7 +33,10 @@ import numpy as np
 import torch
 
 from transformer_latent_diffusion_tpu_torch.configs import LTDConfig, resolve_dtype
-from transformer_latent_diffusion_tpu_torch.models.clip import ClipTextModel
+from transformer_latent_diffusion_tpu_torch.models.clip import (
+    ClipTextModel,
+    make_tokenizer,
+)
 from transformer_latent_diffusion_tpu_torch.models.denoiser import Denoiser
 from transformer_latent_diffusion_tpu_torch.models.fast_denoiser import (
     QUANTIZE_MODES,
@@ -109,10 +112,6 @@ class DiffusionTransformer:
             if getattr(cfg, name) != default:
                 raise NotImplementedError(
                     f"LTDConfig.{name} is not ported yet (ROADMAP {item})")
-        if cfg.clip_cfg.vocab_path:
-            raise NotImplementedError(
-                "the CLIP BPE tokenizer waits for its vocab file in the "
-                "repository (ROADMAP item 5)")
         if cfg.quantize not in QUANTIZE_MODES:
             raise ValueError(f"unknown quantize mode: {cfg.quantize!r}")
         self.cfg = cfg
@@ -154,6 +153,10 @@ class DiffusionTransformer:
         _load_or_init(self.clip_model, cfg.clip_cfg.weights_path, seed + 2,
                       keep=text_keys.__contains__)
         self.clip_model.to(self.device).eval()
+        clip_file = cfg.clip_cfg.weights_path
+        self.tokenizer = make_tokenizer(
+            cfg.clip_cfg.vocab_path,
+            real_weights=bool(clip_file and os.path.exists(clip_file)))
 
         fast_apply = None
         if uses_fused_engine(cfg, self.device):
@@ -184,11 +187,11 @@ class DiffusionTransformer:
     def _encode_prompts(self, prompt, negative_prompt, num_imgs):
         prompts = (list(prompt) if isinstance(prompt, (list, tuple))
                    else [prompt] * num_imgs)
-        labels = self.clip_model.encode_text(prompts)
+        labels = self.clip_model.encode_text(prompts, self.tokenizer)
         negative_labels = None
         if negative_prompt is not None:
             negative_labels = self.clip_model.encode_text(
-                [negative_prompt] * num_imgs)
+                [negative_prompt] * num_imgs, self.tokenizer)
         return labels, negative_labels
 
     def generate_image_from_text(self, prompt, class_guidance=6, seed=11,

@@ -24,6 +24,25 @@ from transformer_latent_diffusion_tpu_torch.ops import fused_stack_int8 as q8
 from transformer_latent_diffusion_tpu_torch.scripts import _probe
 
 
+def quant_equal_work(x):
+    """rowquant's work (no LayerNorm) in PyTorch calls: the row's |max|,
+    its scale, the rounded int8 values."""
+    scale = x.abs().amax(-1, keepdim=True).clamp_min(1e-8) * (1.0 / 127.0)
+    return torch.round(x * (1.0 / scale)).to(torch.int8), scale
+
+
+def int_mm_equal_work(xq, rs, wq, cs, bias=None, residual=None,
+                      out_dtype=torch.bfloat16):
+    """gemm_i8's work in PyTorch calls: `torch._int_mm`, then the row and
+    column scales (and the bias, or the float32 residual), as
+    `gemm_i8_plain` takes them."""
+    deq = torch._int_mm(xq, wq.t()).float() * rs.reshape(-1, 1) * cs.reshape(1, -1)
+    if residual is not None:
+        out = residual + deq
+        return out if bias is None else out + bias.reshape(-1)
+    return (deq if bias is None else deq + bias.reshape(-1)).to(out_dtype)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=256 * 256)
@@ -70,15 +89,20 @@ def main(argv=None):
         t8, tp = _probe.time_against_plain(kern, plain, dev, args.reps)
         print(f"[s1] s1 W8A8: {t8:.4f} ms, plain {tp:.4f} ms", flush=True)
         t16 = [_probe.time_ms(bf16, dev, args.reps) for _ in range(2)]
+        # the same W8A8 pair in PyTorch calls (torch._int_mm runs on the card)
+        equal = (_probe.time_ms(lambda: w8a8(quant_equal_work, int_mm_equal_work), dev,
+                                args.reps) if dev.type == "cuda" else None)
     flops = 4 * m * d * hidden
     bnd = _probe.bound(m * d * 4 + 2 * hidden * d + 4 * (hidden + d) + m * d * 2, flops,
                        _probe.INT8_TENSOR_OP_S)
     rate = "TOP/s" if dev.type == "cuda" else "TOP/s, host clock"
     print(f"[s1] MLP pair at {m} rows: W8A8 {t8:.4f} ms ({flops / t8 / 1e9:.1f} {rate}, "
           f"bound {bnd[0]:.4f} ms {bnd[1]}), bf16 {sum(t16) / 2:.4f} ms "
-          f"({flops / (sum(t16) / 2) / 1e9:.1f} {rate}; runs {t16})", flush=True)
+          f"({flops / (sum(t16) / 2) / 1e9:.1f} {rate}; runs {t16}); equal work "
+          f"(|max|, scale, round, torch._int_mm, scales) "
+          f"{'not measured' if equal is None else f'{equal:.4f} ms'}", flush=True)
     return dict(rel_l2=r, max_abs=max_abs, ms=t8, plain_ms=tp, bf16_ms=sum(t16) / 2,
-                bound=bnd, launches=launches)
+                bound=bnd, launches=launches, equal_work_ms=equal)
 
 
 if __name__ == "__main__":

@@ -10,10 +10,16 @@ fields, and, as the JAX frontend, 500 with `{"detail": str(e)}` when the
 body is not JSON, is a JSON value that is not an object (where the
 prompt check does not already answer 422), or generation fails.
 
-Plain text-to-image only. The editing fields (init_image, mask,
-strength, interpolate_to, seed_b, best_of), block caching and the solver
-extras answer 422 naming their ROADMAP item. The FastAPI frontend and the
-micro-batcher wait (ROADMAP item 10).
+Plain text-to-image, with the JAX service's solver fields: sampler
+("ddim", "dpm", "heun"), schedule, eta, cfg_rescale and cache_interval
+(block caching), under its checks (eta and cfg_rescale in [0, 1], eta
+only with sampler="ddim", heun without block caching), each a 422 that
+names the field. Unlike the JAX service, eta and cfg_rescale are not
+snapped to quarters: the sampler's captured graph holds only their branch,
+so any value runs without a new capture. The editing fields (init_image,
+mask, strength, interpolate_to, seed_b, best_of) answer 422 naming their
+ROADMAP item. The FastAPI frontend and the micro-batcher wait (ROADMAP
+item 10).
 """
 
 from __future__ import annotations
@@ -133,9 +139,11 @@ class GenerationService:
 
     def _generate_jpeg(self, prompt: str, class_guidance: float = 6,
                        seed: int = 11, num_imgs: int = 1, img_size: int = 32,
-                       n_iter: int = 15, negative_prompt: Optional[str] = None,
+                       n_iter: int = 15, cache_interval: int = 1,
+                       negative_prompt: Optional[str] = None,
                        sampler: Optional[str] = None,
-                       schedule: str = "poly") -> bytes:
+                       schedule: str = "poly", cfg_rescale: float = 0.0,
+                       eta: float = 0.0) -> bytes:
         import io
 
         if self.n_iter_buckets:
@@ -153,7 +161,8 @@ class GenerationService:
         img = self.transformer.generate_image_from_text(
             prompt=prompt, class_guidance=class_guidance, seed=seed,
             num_imgs=num_imgs, img_size=img_size, n_iter=n_iter,
-            negative_prompt=negative_prompt, pad_to=pad_to, **solver_kw)
+            cache_interval=cache_interval, negative_prompt=negative_prompt,
+            pad_to=pad_to, cfg_rescale=cfg_rescale, eta=eta, **solver_kw)
         buf = io.BytesIO()
         img.save(buf, format="JPEG")
         return buf.getvalue()
@@ -162,8 +171,9 @@ class GenerationService:
 WELCOME = {"message": "Welcome to Image Generator"}
 # the text-to-image request fields and their defaults
 REQUEST_DEFAULTS = {"class_guidance": 6, "seed": 11, "num_imgs": 1,
-                    "img_size": 32, "n_iter": 15, "negative_prompt": None,
-                    "sampler": None, "schedule": "poly"}
+                    "img_size": 32, "n_iter": 15, "cache_interval": 1,
+                    "negative_prompt": None, "sampler": None,
+                    "schedule": "poly", "cfg_rescale": 0.0, "eta": 0.0}
 NON_NULLABLE_FIELDS = ("prompt", "class_guidance", "seed", "num_imgs",
                        "img_size", "n_iter", "cache_interval", "schedule",
                        "cfg_rescale", "eta")
@@ -209,30 +219,29 @@ def _validate_fields(payload: dict) -> Optional[str]:
     for k, item in NOT_PORTED_FIELDS.items():
         if payload.get(k) is not None:
             return f"{k} is not served by this port yet (ROADMAP {item})"
-    if payload.get("cache_interval", 1) != 1:
-        return ("cache_interval > 1 (block caching) is not served by this "
-                "port yet (ROADMAP item 9)")
-    for k in ("cfg_rescale", "eta"):
-        try:
-            value = float(payload.get(k, 0.0))
-        except (TypeError, ValueError):
-            return f"{k} must be a number"
-        if value:
-            return (f"{k} is not served by this port yet "
-                    f"(ROADMAP item 9, sampler extras)")
     sampler = payload.get("sampler")
     schedule = payload.get("schedule", "poly")
     if sampler is not None and not isinstance(sampler, str):
         return "sampler must be a string"
     if not isinstance(schedule, str):
         return "schedule must be a string"
-    if sampler == "heun":
-        return ("sampler='heun' is not served by this port yet "
-                "(ROADMAP item 9, sampler extras)")
-    if sampler is not None and sampler not in ("ddim", "dpm"):
+    for k in ("cfg_rescale", "eta"):  # pydantic v2 lax floats, written back
+        try:
+            payload[k] = float(payload.get(k, 0.0))
+        except (TypeError, ValueError):
+            return f"{k} must be a number"
+    if sampler is not None and sampler not in ("ddim", "dpm", "heun"):
         return "sampler must be one of 'ddim', 'dpm', 'heun'"
     if schedule not in ("poly", "cosine", "karras"):
         return "schedule must be one of 'poly', 'cosine', 'karras'"
+    if not 0.0 <= payload["cfg_rescale"] <= 1.0:
+        return "cfg_rescale must be in [0, 1]"
+    if not 0.0 <= payload["eta"] <= 1.0:
+        return "eta must be in [0, 1]"
+    if payload["eta"] and sampler != "ddim":
+        return "eta > 0 (stochastic DDIM) requires sampler='ddim'"
+    if sampler == "heun" and payload.get("cache_interval", 1) > 1:
+        return "cache_interval > 1 excludes sampler='heun'"
     if not isinstance(payload["prompt"], str):
         return "prompt must be a string"
     if not isinstance(payload.get("negative_prompt") or "", str):
