@@ -20,8 +20,15 @@ paths, each checked against plain PyTorch versions on the same inputs:
   call), the sampler extras through the graph (heun, eta, cfg_rescale, a
   guidance interval, block caching; each engine call along the loop
   against the plain bf16 Denoiser's), the HTTP service on a real socket,
-  and the 256 px model sampled on a 32 x 32-token grid (resized
-  positional table, the linen path with K3);
+  the 256 px model sampled on a 32 x 32-token grid (resized
+  positional table, the linen path with K3), and image editing through
+  the K1 engine and the graph (`[editing]`: the full-width VAE encode
+  against the CPU's, image_to_image and inpaint at 32 images x 50 steps
+  with every engine call against the plain bf16 Denoiser's and
+  inpainting's keep region bit-equal to the init latents, outpaint with
+  the widened flagship, interpolate, the HTTP init_image and mask
+  requests; and after the training phases the outpaint fine-tune through
+  K2);
 - int8 serving (TPU kernel K7, the W8A8 decoder layer): its two kernels
   (rowquant, gemm_i8) and the float32-out dwconv_gelu at the main path's
   shapes, one int8-engine forward against the plain int8 stack and the
@@ -73,6 +80,7 @@ errors, times and bounds, and as the last line
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -820,17 +828,13 @@ def phase_library(cfg, per_layer=None, tag="library"):
     return tr, launches, N_IMGS / wall
 
 
-def phase_serving(service, tag="serving"):
-    """The WSGI service on a real socket: GET /, 3 x POST /generate-image/
-    at the defaults (JPEGs of the model's size), a 401, /healthz."""
-    import io
+@contextlib.contextmanager
+def _wsgi_server(service):
+    """The service's WSGI app on a local socket; yields request(path,
+    body=None, token=...) -> (status, body bytes). Stops the server."""
     from wsgiref.simple_server import WSGIRequestHandler, make_server
 
-    from PIL import Image
-
     from transformer_latent_diffusion_tpu_torch.serve.app import create_wsgi_app
-
-    px = 8 * service.transformer.cfg.denoiser_cfg.image_size
 
     class QuietHandler(WSGIRequestHandler):
         def log_message(self, *args):
@@ -842,19 +846,36 @@ def phase_serving(service, tag="serving"):
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     base = f"http://127.0.0.1:{server.server_port}"
-    try:
-        def request(path, body=None, token="smoke-token"):
-            headers = {"Content-Type": "application/json"}
-            if token:
-                headers["Authorization"] = f"Bearer {token}"
-            data = None if body is None else json.dumps(body).encode()
-            req = urllib.request.Request(base + path, data=data, headers=headers)
-            try:
-                with urllib.request.urlopen(req, timeout=600) as resp:
-                    return resp.status, resp.read()
-            except urllib.error.HTTPError as e:
-                return e.code, e.read()
 
+    def request(path, body=None, token="smoke-token"):
+        headers = {"Content-Type": "application/json"}
+        if token:
+            headers["Authorization"] = f"Bearer {token}"
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(base + path, data=data, headers=headers)
+        try:
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                return resp.status, resp.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    try:
+        yield request
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+
+
+def phase_serving(service, tag="serving"):
+    """The WSGI service on a real socket: GET /, 3 x POST /generate-image/
+    at the defaults (JPEGs of the model's size), a 401, /healthz."""
+    import io
+
+    from PIL import Image
+
+    px = 8 * service.transformer.cfg.denoiser_cfg.image_size
+    with _wsgi_server(service) as request:
         status, _ = request("/")
         if status != 200:
             raise AssertionError(f"GET / -> {status}")
@@ -879,10 +900,6 @@ def phase_serving(service, tag="serving"):
             f"15-step DPM++) 200 JPEG of {px} px in "
             f"{', '.join(f'{t:.3f}' for t in times)} s; no token 401; /healthz "
             f"{health['requests']} requests on {health['device_kind']}")
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=30)
 
 
 def phase_resized_grid(tr):
@@ -1110,7 +1127,6 @@ def phase_sampler_extras(tr):
     caching's from the engine's `cache_span`). The whole trajectory's
     rel-L2 to the plain loop is printed, not bounded: the two loops' states
     part further at each step."""
-    from transformer_latent_diffusion_tpu_torch.models.denoiser import Denoiser
     from transformer_latent_diffusion_tpu_torch.models.fast_denoiser import make_fused_apply
     from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
     from transformer_latent_diffusion_tpu_torch.sampling.diffusion import (
@@ -1120,9 +1136,8 @@ def phase_sampler_extras(tr):
 
     gen = tr.diffuser
     den = tr.cfg.denoiser_cfg
-    plain = Denoiser.from_config(den, dtype=torch.bfloat16)
-    plain.load_state_dict(gen.model.state_dict())
-    plain_gen = DiffusionGenerator(plain.to(DEVICE).eval(), device=DEVICE)
+    plain = _plain_twin(gen.model, den)
+    plain_gen = DiffusionGenerator(plain, device=DEVICE)
     plain_engine = make_fused_apply(den, compute_dtype=torch.bfloat16)
     plain_engine._stack = fs.fused_layer_stack_plain
     plain_cached = DiffusionGenerator(gen.model, fast_apply=plain_engine, device=DEVICE)
@@ -1175,6 +1190,358 @@ def phase_sampler_extras(tr):
         _require_launches(launches, expect, f"sampler-extras {name}")
     del plain, plain_gen, plain_cached
     torch.cuda.synchronize()
+
+
+# ------------------------------ image editing ------------------------------
+
+# [editing] on the 256 px flagship and its full-width float32 VAE (the
+# encoder's convolutions on cuDNN, TF32 off as phase_env sets it):
+# image_to_image and inpaint at the library workload's size (32 images,
+# 50 steps, CFG 6; the entry points' DPM++(2M) solver, the same denoiser
+# calls as DDIM), outpaint (the flagship widened by expand_input_channels,
+# 2 tiles of one image), interpolate (8 frames), the HTTP service's
+# init_image and mask requests at its defaults
+EDIT_IMGS, EDIT_ITER, EDIT_STRENGTH = 32, 50, 0.5
+ENCODE_CHECK_IMGS = 2
+# the card's float32 encode against the CPU's on the same weights, images
+# and eps: rel-L2 of the latent sample. Both float32, the convolutions
+# summed in other orders (cuDNN without TF32 against oneDNN), so float32
+# rounding through the encoder's ~30 layers; the bound leaves room for
+# two orders of magnitude more than that
+ENCODE_REL_L2 = 1e-4
+OUTPAINT_TILES, OUTPAINT_ITER = 2, 15
+INTERP_FRAMES, INTERP_ITER = 8, 15
+# the outpaint fine-tune's train.main: 2 warm-up steps, then the timed ones
+OUTPAINT_WARM, OUTPAINT_STEPS = 2, 5
+
+
+def _record_plans(gen):
+    """Wrap gen.run_plan so each call's (plan, x0) is appended to the list
+    returned (`del gen.run_plan` restores it)."""
+    calls = []
+    run = gen.run_plan
+
+    def recording(plan):
+        out = run(plan)
+        calls.append((plan, out.clone()))
+        return out
+
+    gen.run_plan = recording
+    return calls
+
+
+def _plain_twin(model, den):
+    """The plain bf16 Denoiser (no kernels) on `model`'s weights."""
+    from transformer_latent_diffusion_tpu_torch.models.denoiser import Denoiser
+
+    plain = Denoiser.from_config(den, dtype=torch.bfloat16)
+    plain.load_state_dict(model.state_dict())
+    return plain.to(DEVICE).eval()
+
+
+def _edit_calls(tag, gen, calls, run, n_runs, per_run, plain=None):
+    """Run `run()` n_runs times, each with its launches counted: the runs'
+    host seconds and loops' launches, the last run's replay bit-equal to
+    its plan run eagerly, and (with `plain`) every engine call of that
+    eager loop against the plain bf16 Denoiser's call on the same inputs
+    within ENGINE_REL_L2. `per_run`: the loops (plans) one run makes.
+    Returns (seconds per run, the last run's result, its last plan, that
+    plan's x0, the engine calls' rel-L2s)."""
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
+    from transformer_latent_diffusion_tpu_torch.sampling.diffusion import sample_loop
+
+    n_layers = len(gen.model.denoiser_trans_block.decoder_blocks)
+    secs = []
+    for _ in range(n_runs):
+        calls.clear()
+        _reset_counts()
+        out, t = _host_s(run)
+        secs.append(t)
+        launches = _counts()
+        if len(calls) != per_run:
+            raise AssertionError(f"[editing] {tag}: {len(calls)} loops, expected {per_run}")
+        loop_calls = sum(_loop_calls(plan.spec) for plan, _ in calls)
+        _require_launches(launches, _expect({k: v * n_layers * loop_calls
+                                             for k, v in fs.LAUNCHES_PER_LAYER.items()}),
+                          f"editing {tag}")
+    plan, got = calls[-1]
+    eager = plan.run_eager()
+    if not torch.equal(got, eager) or not torch.isfinite(got).all():
+        raise AssertionError(f"[editing] {tag}: the replay differs from the eager loop")
+    errs = []
+    if plain is not None:
+        with torch.no_grad():
+            sample_loop(plan.spec, _paired(plan.forward, plain, errs), **plan.inputs)
+        if max(errs) >= ENGINE_REL_L2:
+            raise AssertionError(f"[editing] {tag}: an engine call disagrees with plain bf16")
+    return secs, out, plan, got, errs
+
+
+def phase_editing(tr, smi):
+    """The editing entry points on the 256 px flagship (the K1 engine,
+    the sampler's graph): the VAE encode of EDIT_IMGS images timed and
+    held against the CPU's; image_to_image and inpaint at EDIT_IMGS x
+    EDIT_ITER, CFG 6 (a call eager, one the capture, one a replay;
+    the replay bit-equal to its loop run eagerly, every engine call of it
+    against the plain bf16 Denoiser's, the exact K1 launches, inpaint's
+    keep region bit-equal to the init latents); outpaint with the widened
+    flagship (its output against the plain-width engine's, any context),
+    2 tiles twice; interpolate (8 frames, prompt_b and seed_b); and the
+    HTTP service's init_image and mask requests."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    from transformer_latent_diffusion_tpu_torch.models.denoiser import (
+        Denoiser,
+        expand_input_channels,
+    )
+    from transformer_latent_diffusion_tpu_torch.models.fast_denoiser import make_fused_apply
+    from transformer_latent_diffusion_tpu_torch.sampling.diffusion import DiffusionGenerator
+    from transformer_latent_diffusion_tpu_torch.serve.app import GenerationService
+
+    t_phase = time.perf_counter()
+    gen, den, vae = tr.diffuser, tr.cfg.denoiser_cfg, tr.vae
+    size = den.image_size
+    px = 8 * size
+    rng = np.random.default_rng(0)
+    # smooth random images (a coarse noise upsampled), so the latents are
+    # not the encoder's response to pixel noise
+    coarse = rng.integers(0, 256, (EDIT_IMGS, px // 16, px // 16, 3)).astype(np.float32)
+    imgs = torch.nn.functional.interpolate(
+        torch.from_numpy(coarse).permute(0, 3, 1, 2), size=(px, px), mode="bilinear",
+        align_corners=False).round().clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).numpy()
+
+    # the encode: timed at EDIT_IMGS, checked against the CPU on 2
+    x = torch.from_numpy(imgs.astype(np.float32) / 127.5 - 1.0).permute(0, 3, 1, 2)
+    x = x.contiguous().to(DEVICE)
+    enc_ms = time_ms(lambda: vae.encode(x), reps=3, warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    vae.encode(x)
+    enc_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = ENCODE_CHECK_IMGS
+    eps = torch.randn((n, 4, size, size), generator=torch.Generator().manual_seed(1))
+    cpu_vae = copy.deepcopy(vae).cpu()
+    t0 = time.perf_counter()
+    want = cpu_vae.encode(x[:n].cpu(), eps=eps)
+    cpu_s = time.perf_counter() - t0
+    del cpu_vae
+    got = vae.encode(x[:n], eps=eps)
+    enc_err = rel_l2(got.cpu(), want)
+    log(f"[editing] VAE encode (full width, float32, cudnn.allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32}) of {EDIT_IMGS} images of {px} px: {enc_ms:.3f} ms "
+        f"({EDIT_IMGS / enc_ms * 1e3:.1f} images/s), peak {enc_peak:.2f} GiB; {n} images vs the "
+        f"CPU's float32 encode ({cpu_s:.1f} s) on the same eps: rel-L2 {enc_err:.2e} (bound "
+        f"{ENCODE_REL_L2}) | {smi}")
+    if not (torch.isfinite(got).all() and enc_err < ENCODE_REL_L2):
+        raise AssertionError("[editing] the card's encode disagrees with the CPU's")
+
+    plain = _plain_twin(gen.model, den)
+    calls = _record_plans(gen)
+    prompt = "a cute cat"
+    # img2img: eager, capture, replay
+    captures, replays = gen.graphs.captures, gen.graphs.replays
+    secs, grid, plan, got, errs = _edit_calls(
+        "image_to_image", gen, calls, lambda: tr.image_to_image(
+            imgs, prompt, strength=EDIT_STRENGTH, n_iter=EDIT_ITER, class_guidance=6,
+            seed=11), 3, 1, plain)
+    if (gen.graphs.captures - captures, gen.graphs.replays - replays) != (1, 2):
+        raise AssertionError("[editing] image_to_image: not eager, capture, replay")
+    log(f"[editing] image_to_image {EDIT_IMGS} imgs, strength {EDIT_STRENGTH}, {EDIT_ITER} "
+        f"steps ({plan.spec.n_steps} run, DPM++), CFG 6: {', '.join(f'{t:.3f}' for t in secs)} s "
+        f"(eager, capture, replay: {EDIT_IMGS / secs[-1]:.3f} images/s); replay bit-equal to "
+        f"the eager loop; its {len(errs)} engine calls vs plain bf16: rel-L2 max "
+        f"{max(errs):.5f} (bound {ENGINE_REL_L2}), mean {np.mean(errs):.5f}; grid {grid.size} "
+        f"| {smi}")
+
+    # inpainting: the top half regenerated, the bottom half kept
+    mask = np.zeros((px, px), np.uint8)
+    mask[: px // 2] = 255
+    captures, replays = gen.graphs.captures, gen.graphs.replays
+    secs, grid, plan, got, errs = _edit_calls(
+        "inpaint", gen, calls, lambda: tr.inpaint(
+            imgs, mask, prompt, n_iter=EDIT_ITER, class_guidance=6, seed=11), 3, 1, plain)
+    keep = plan.inputs["mask"] == 0
+    kept = torch.equal(got[keep], plan.inputs["init"][keep])
+    log(f"[editing] inpaint {EDIT_IMGS} imgs, half mask, strength 1.0, {EDIT_ITER} steps: "
+        f"{', '.join(f'{t:.3f}' for t in secs)} s (eager, capture, replay: "
+        f"{EDIT_IMGS / secs[-1]:.3f} images/s); replay bit-equal to the eager loop, keep region "
+        f"({int(keep.sum())} values) bit-equal to init {kept}; engine calls vs plain bf16 "
+        f"rel-L2 max {max(errs):.5f}, mean {np.mean(errs):.5f} | {smi}")
+    if (gen.graphs.captures - captures, gen.graphs.replays - replays) != (1, 2) or not kept:
+        raise AssertionError("[editing] inpaint: the keep region moved, or no capture")
+
+    # interpolate: 8 frames, both axes
+    secs, strip, plan, got, _ = _edit_calls(
+        "interpolate", gen, calls, lambda: tr.interpolate(
+            prompt, "a red car on a road", n_frames=INTERP_FRAMES, seed=11, seed_b=12,
+            n_iter=INTERP_ITER), 3, 1)
+    if strip.size != (4 + INTERP_FRAMES * (px + 4), px + 8):
+        raise AssertionError(f"[editing] interpolate strip {strip.size}")
+    log(f"[editing] interpolate {INTERP_FRAMES} frames (prompt_b, seed_b), {INTERP_ITER} steps: "
+        f"{', '.join(f'{t:.3f}' for t in secs)} s (eager, capture, replay); replay bit-equal")
+
+    # HTTP: init_image and init_image + mask at the service's defaults
+    def b64(arr):
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, format="PNG")
+        return base64.b64encode(buf.getvalue()).decode()
+
+    http = {}
+    with _wsgi_server(GenerationService(transformer=tr)) as request:
+        for name, body in (("init_image", {"init_image": b64(imgs[0])}),
+                           ("init_image + mask", {"init_image": b64(imgs[1]),
+                                                  "mask": b64(mask)})):
+            http[name] = []
+            for i in range(3):
+                t0 = time.perf_counter()
+                status, out = request("/generate-image/", {"prompt": f"a cat {i}", **body})
+                http[name].append(time.perf_counter() - t0)
+                if status != 200 or Image.open(io.BytesIO(out)).size != (px + 8, px + 8):
+                    raise AssertionError(f"[editing] POST {name} -> {status} {out[:200]!r}")
+    log("[editing] HTTP (1 image, 15-step DPM++, strength 0.5 / 1.0 with the mask): "
+        + "; ".join(f"{k} {', '.join(f'{t:.3f}' for t in v)} s (eager, capture, replay)"
+                    for k, v in http.items()) + f" | {smi}")
+
+    # outpaint: the flagship widened with zero rows
+    wide_cfg = dataclasses.replace(den, input_channels=2 * den.n_channels)
+    wide = Denoiser.from_config(wide_cfg, dtype=torch.bfloat16)
+    wide.load_state_dict(expand_input_channels(gen.model.state_dict(), den.n_channels,
+                                               2 * den.n_channels, den.patch_size))
+    wide.to(DEVICE).eval()
+    engine = make_fused_apply(wide_cfg)
+    g = torch.Generator().manual_seed(2)
+    xb = torch.randn(2 * EDIT_IMGS, 4, size, size, generator=g).to(DEVICE)
+    ctx = torch.randn(2 * EDIT_IMGS, 4, size, size, generator=g).to(DEVICE) * 3
+    lvl = torch.full((2 * EDIT_IMGS, 1), 0.5, device=DEVICE)
+    lab = torch.randn(2 * EDIT_IMGS, den.text_emb_size, generator=g).to(DEVICE)
+    with torch.no_grad():
+        w_out = engine.apply_prepared(engine.prepare(wide.state_dict()),
+                                      torch.cat([xb, ctx], 1), lvl, lab)
+        n_out = gen.fast_apply.apply_prepared(
+            gen.fast_apply.prepare(gen.model.state_dict()), xb, lvl, lab)
+    zero_row = rel_l2(w_out, n_out)
+    log(f"[editing] widened flagship (expand_input_channels, zero rows) vs the plain-width "
+        f"engine, batch {2 * EDIT_IMGS}, a random context: rel-L2 {zero_row:.3e}, bit-equal "
+        f"{torch.equal(w_out, n_out)} (bound {ENGINE_REL_L2}; the prologue's K 16 -> 32)")
+    if not zero_row < ENGINE_REL_L2:
+        raise AssertionError("[editing] the widened model's zero rows changed the output")
+    del w_out, n_out, xb, ctx
+    base_gen = tr.diffuser
+    tr.diffuser = DiffusionGenerator(wide, vae=vae, fast_apply=engine, device=DEVICE)
+    try:
+        wcalls = _record_plans(tr.diffuser)
+        secs, pan, plan, got, errs = _edit_calls(
+            "outpaint", tr.diffuser, wcalls, lambda: tr.outpaint(
+                imgs[0], "a mountain lake", n_tiles=OUTPAINT_TILES, n_iter=OUTPAINT_ITER),
+            2, OUTPAINT_TILES, _plain_twin(wide, wide_cfg))
+        graphs = tr.diffuser.graphs
+        if pan.size != (px + OUTPAINT_TILES * px // 2, px) or (graphs.captures,
+                                                               graphs.replays) != (1, 3):
+            raise AssertionError(f"[editing] outpaint {pan.size}, graphs "
+                                 f"{graphs.captures}/{graphs.replays}")
+        log(f"[editing] outpaint, widened flagship, {OUTPAINT_TILES} tiles right, "
+            f"{OUTPAINT_ITER} steps a tile: {', '.join(f'{t:.3f}' for t in secs)} s (tile 1 "
+            f"eager and tile 2 the capture, then both replays); the last replay bit-equal; its "
+            f"engine calls vs plain bf16 rel-L2 max {max(errs):.5f}; panorama {pan.size}")
+    finally:
+        tr.diffuser = base_gen
+    del gen.run_plan
+    del plain, wide, engine
+    torch.cuda.empty_cache()
+    log(f"[editing] serving part in {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_outpaint_train(per_layer, smi):
+    """The outpaint fine-tune on the widened flagship at batch TB: one
+    step's gradients with the fused layers (K2) against the plain bf16
+    autograd Denoiser on the same draws (the context mask among them);
+    then train.main with outpaint=True from the widened weights, an eval
+    grid at step 0 (K1) and OUTPAINT_WARM + OUTPAINT_STEPS steps, its ms
+    per step (the timed ones) and peak memory, with exact launches."""
+    from transformer_latent_diffusion_tpu_torch.configs import TrainConfig
+    from transformer_latent_diffusion_tpu_torch.models.denoiser import (
+        Denoiser,
+        expand_input_channels,
+    )
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
+    from transformer_latent_diffusion_tpu_torch.train import train as tt
+    from transformer_latent_diffusion_tpu_torch.utils.common import init_random_weights_
+
+    t_phase = time.perf_counter()
+    den = flagship_configs().denoiser_cfg
+    wide_cfg = dataclasses.replace(den, input_channels=2 * den.n_channels)
+    base = init_random_weights_(Denoiser.from_config(den), 0)
+    wide_sd = expand_input_channels(base.state_dict(), den.n_channels,
+                                    2 * den.n_channels, den.patch_size)
+    del base
+    models = {}
+    for fused in (True, False):
+        mdl = Denoiser.from_config(wide_cfg, dtype=torch.bfloat16, fused_layer_vjp=fused)
+        mdl.load_state_dict(wide_sd)
+        models[fused] = mdl.to(DEVICE).train()
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(TB, 4, den.image_size, den.image_size, generator=g).to(DEVICE)
+    y = torch.randn(TB, den.text_emb_size, generator=g).to(DEVICE)
+    glob, leaf, leaf_name = _grad_check(models, x, y, TrainConfig(batch_size=TB, outpaint=True))
+    log(f"[editing] outpaint fine-tune step, widened flagship, batch {TB}: gradients, kernels "
+        f"vs plain bf16 autograd, same draws: global rel-L2 {glob:.5f} (bound "
+        f"{STEP_GRAD_REL_L2}), worst leaf {leaf:.5f} {leaf_name} (bound {STEP_GRAD_LEAF_REL_L2})")
+    if not (glob < STEP_GRAD_REL_L2 and leaf < STEP_GRAD_LEAF_REL_L2):
+        raise AssertionError("[editing] the outpaint step's gradients disagree with plain")
+    del models, x, y
+    torch.cuda.empty_cache()
+
+    steps = OUTPAINT_WARM + OUTPAINT_STEPS
+    times = []
+    real_step = tt.train_step
+
+    def timed_step(*args, **kw):
+        torch.cuda.synchronize()
+        if len(times) == OUTPAINT_WARM:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = real_step(*args, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(1)
+        shape = (steps * TB, den.n_channels, den.image_size, den.image_size)
+        np.save(os.path.join(tmp, "latents.npy"), rng.standard_normal(shape, dtype=np.float32))
+        np.save(os.path.join(tmp, "text_emb.npy"),
+                rng.standard_normal((steps * TB, den.text_emb_size), dtype=np.float32))
+        np.save(os.path.join(tmp, "val_emb.npy"),
+                rng.standard_normal((8, den.text_emb_size), dtype=np.float32))
+        cfg = train_configs(tmp, outpaint=True, save_model=False,
+                            save_and_eval_every_iters=1000)
+        cfg.denoiser_config = wide_cfg
+        tt.train_step = timed_step
+        try:
+            _reset_counts()
+            r = tt.main(cfg, device=DEVICE, init_state_dict=wide_sd)
+            launches = {k: v for k, v in _counts().items() if v}
+        finally:
+            tt.train_step = real_step
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = float(np.mean(times[OUTPAINT_WARM:])) * 1e3
+    expect = {k: v * den.n_layers * steps for k, v in per_layer.items()}
+    for k, v in fs.LAUNCHES_PER_LAYER.items():
+        expect[k] = expect.get(k, 0) + v * den.n_layers * EVAL_CALLS
+    log(f"[editing] outpaint fine-tune, train.main (outpaint=True, widened flagship), batch "
+        f"{TB}: {r['global_step']} steps, {ms:.2f} ms/step over the last {OUTPAINT_STEPS} "
+        f"({TB / ms * 1e3:.1f} samples/s; each step synchronised), peak memory {peak:.2f} GiB; "
+        f"losses {' '.join(f'{v:.3f}' for v in r['losses'])}; launches {launches} "
+        f"(phase {time.perf_counter() - t_phase:.1f} s) | {smi}")
+    if r["global_step"] != steps or not all(np.isfinite(r["losses"])):
+        raise AssertionError(f"[editing] outpaint train.main: {r['global_step']} steps")
+    _require_launches(launches, {k: v for k, v in expect.items() if v},
+                      "editing outpaint train.main")
+    del r
+    torch.cuda.empty_cache()
+    return ms, peak
 
 
 # ------------------------------ int8 serving (K7) ------------------------------
@@ -2537,13 +2904,14 @@ def _require_launches(got, expect, what):
         raise AssertionError(f"{what} launches {got} != expected {expect}")
 
 
-def _grad_check(models, x, y):
+def _grad_check(models, x, y, train_cfg=None):
     """Global and worst-leaf rel-L2 of models[True]'s gradients against
-    models[False]'s on the same batch and draws."""
+    models[False]'s on the same batch and draws (of `train_cfg`'s loss,
+    TrainConfig() by default)."""
     from transformer_latent_diffusion_tpu_torch.configs import TrainConfig
     from transformer_latent_diffusion_tpu_torch.train import train as tt
 
-    loss_fn = tt.build_loss_fn(models[True], TrainConfig(), 8.0)
+    loss_fn = tt.build_loss_fn(models[True], train_cfg or TrainConfig(), 8.0)
     draws = loss_fn.sample_draws(torch.Generator(device=DEVICE).manual_seed(5), x)
     grads = {}
     for key, mdl in models.items():
@@ -3664,6 +4032,7 @@ def main():
     phase_sampler_extras(tr)
     phase_serving(GenerationService(transformer=tr))
     phase_resized_grid(tr)
+    phase_editing(tr, smi)
     del tr
     torch.cuda.empty_cache()
 
@@ -3719,6 +4088,7 @@ def main():
     phase_train_step(smi)
     t_launches, _ = phase_train_main(per_layer, smi)
     torch.cuda.empty_cache()
+    phase_outpaint_train(per_layer, smi)
 
     ht_worst, ht_timing, ht_library, ht_bounds = phase_hires_train_kernels()
     hr_layer, xr_launches = phase_hires_train_step(smi)

@@ -1137,3 +1137,45 @@ def test_sampler_graph_replay_matches_eager_on_card(kw):
         assert (gen.graphs.captures, gen.graphs.replays) == (min(n, 1), n)
         assert torch.equal(got, eager)
         assert dict(fs.LAUNCHES) == want_launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler", ["ddim", "dpm"])
+def test_inpaint_graph_keeps_the_region_on_card(sampler):
+    """Inpainting through the engine and the sampler's graph on a tiny
+    bf16 model (2 layers, d = 128, 8 x 8 tokens), a half mask and other
+    init latents at each call: the eager first call, the capture and a
+    replay are each bit-equal to `sample_loop` run eagerly on their inputs
+    and keep the unmasked region bit-equal to init (with sharp/bright
+    shifts); a widened model's context goes through the same route."""
+    _need_card()
+    from transformer_latent_diffusion_tpu_torch.configs import DenoiserConfig
+    from transformer_latent_diffusion_tpu_torch.models.denoiser import Denoiser
+    from transformer_latent_diffusion_tpu_torch.models.fast_denoiser import make_fused_apply
+    from transformer_latent_diffusion_tpu_torch.sampling.diffusion import DiffusionGenerator
+    from transformer_latent_diffusion_tpu_torch.utils.common import init_random_weights_
+
+    g = torch.Generator().manual_seed(5)
+    labels = torch.randn(2, 768, generator=g)
+    mask = torch.zeros(1, 1, 16, 16)
+    mask[..., :8, :] = 1.0
+    for input_channels in (None, 8):
+        cfg = DenoiserConfig(image_size=16, embed_dim=128, n_layers=2, noise_embed_dims=64,
+                             input_channels=input_channels)
+        model = init_random_weights_(Denoiser.from_config(cfg, dtype=torch.bfloat16), 0)
+        gen = DiffusionGenerator(model.to("cuda").eval(), fast_apply=make_fused_apply(cfg),
+                                 device="cuda")
+        for n in range(3):
+            init = torch.randn(2, 4, 16, 16, generator=g)
+            call = dict(n_iter=5, num_imgs=2, img_size=16, seed=n, sampler=sampler,
+                        init_latents=init, mask=mask, strength=0.8)
+            if input_channels:
+                call["context_latents"] = torch.randn(2, 4, 16, 16, generator=g)
+            eager = gen.plan_loop(labels, **call).run_eager()
+            _, got = gen.generate(labels, sharp_f=0.1, bright_f=0.1, **call)
+            torch.cuda.synchronize()
+            assert (gen.graphs.captures, gen.graphs.replays) == (min(n, 1), n)
+            assert torch.equal(got[..., 8:, :], init.cuda()[..., 8:, :])
+            eager[:, 3] += 0.1 * mask.cuda()[:, 0]
+            eager[:, 0] += 0.1 * mask.cuda()[:, 0]
+            assert torch.equal(got, eager)

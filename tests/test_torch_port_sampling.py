@@ -223,22 +223,19 @@ def test_cuda_configs_the_kernels_cannot_run_raise_at_construction():
 
 def test_options_not_ported_raise():
     """What the slice leaves out raises NotImplementedError naming its
-    ROADMAP item instead of running something else: parallelism, LoRA and
-    the editing inputs. (The CLIP vocab, the sampler extras and block
-    caching raised here too until they were ported; they run in the tests
-    below.)"""
+    ROADMAP item instead of running something else: parallelism and LoRA.
+    (The CLIP vocab, the sampler extras, block caching and the editing
+    inputs raised here too until they were ported; they run in the tests
+    below and in tests/test_torch_port_editing.py.)"""
     with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
         DiffusionTransformer(_tiny_ltd(mesh_shape=(8, 1)), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
         DiffusionTransformer(_tiny_ltd(pipeline_microbatches=4), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
         DiffusionTransformer(_tiny_ltd(lora_scale=0.5), device="cpu")
-    tr = DiffusionTransformer(_tiny_ltd(), device="cpu")
-    labels = np.zeros((1, 768), np.float32)
-    for kw in (dict(init_latents=np.zeros((1, 4, 16, 16))),
-               dict(mask=np.ones((16, 16))), dict(context_latents=np.zeros(1))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tr.diffuser.generate(labels, n_iter=2, num_imgs=1, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+        td.DiffusionGenerator(Denoiser.from_config(pc.DenoiserConfig()), device="cpu",
+                              mesh=object())
 
 
 @pytest.mark.parametrize("kw", [

@@ -1,8 +1,9 @@
 """The port's WSGI service on the CPU with tiny random weights: routes,
-bearer auth, the text-to-image 422 checks (the JAX service's checks of the
-solver fields among them), the solver fields served, the 422 that names
+bearer auth, the 422 checks (the JAX service's checks of the solver and
+editing fields among them), the solver fields served, the 422 that names
 the ROADMAP item of a field the port does not serve yet, and the 500s and
-non-object bodies against the JAX WSGI app's answers."""
+non-object bodies against the JAX WSGI app's answers. The editing
+requests themselves: tests/test_torch_port_editing.py."""
 
 import io
 import json
@@ -79,7 +80,8 @@ def test_bad_token_is_401(app, token, detail):
     ({"prompt": "x", "n_iter": "many"}, "n_iter must be an integer"),
     ({"prompt": None}, "prompt must not be null"),
     ({"prompt": "x", "sampler": "euler"}, "sampler must be one of"),
-    ({"prompt": "x", "init_image": "abc"}, "ROADMAP item 9"),
+    ({"prompt": "x", "init_image": "abc", "seed_b": 3},
+     "interpolate_to/seed_b do not compose with init_image"),
     ({"prompt": "x", "best_of": 4}, "ROADMAP item 12"),
     ({"prompt": "x", "eta": 1.5, "sampler": "ddim"}, "eta must be in [0, 1]"),
     ({"prompt": "x", "eta": 0.5, "sampler": "dpm"}, "requires sampler='ddim'"),

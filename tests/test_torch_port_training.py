@@ -317,18 +317,26 @@ def test_sigterm_stops_at_a_step_boundary_and_resumes(tmp_path, monkeypatch):
 def test_unported_train_field_raises(tmp_path, field, value):
     """A field whose feature the port does not run raises, naming it.
     fused_mlp_vjp=True, remat=True and schedule_shift="auto" came with
-    hi-res training, fused_attn_vjp=True with the attention pair K6: each
-    now trains one CPU step with the feature on (the MLP and attention
-    flags here without the fused layer, remat on the model; "auto" on the
-    native bucket is no shift, so its loss equals schedule_shift=None's)."""
-    if field not in ("fused_mlp_vjp", "fused_attn_vjp", "remat", "schedule_shift"):
+    hi-res training, fused_attn_vjp=True with the attention pair K6,
+    outpaint=True with editing: each now trains one CPU step with the
+    feature on (the MLP and attention flags here without the fused layer,
+    remat on the model; "auto" on the native bucket is no shift, so its
+    loss equals schedule_shift=None's; outpaint on a widened model, after
+    the JAX package's ValueError for a plain one)."""
+    ported = ("fused_mlp_vjp", "fused_attn_vjp", "remat", "schedule_shift", "outpaint")
+    if field not in ported:
         with pytest.raises(NotImplementedError, match=field):
             ttrain.main(_cfg(tmp_path, **{field: value}), device="cpu")
         return
     one_step = dict(n_epoch=1, batch_size=64)
     if field in ("fused_mlp_vjp", "fused_attn_vjp"):
         one_step["fused_layer_vjp"] = None
-    r = ttrain.main(_cfg(tmp_path, **one_step, **{field: value}), device="cpu")
+    cfg = _cfg(tmp_path, **one_step, **{field: value})
+    if field == "outpaint":
+        with pytest.raises(ValueError, match="input_channels"):
+            ttrain.main(cfg, device="cpu")
+        cfg.denoiser_config.input_channels = 8
+    r = ttrain.main(cfg, device="cpu")
     assert r["global_step"] == 1 and np.isfinite(r["losses"][0])
     tb = r["model"].denoiser_trans_block
     if field == "fused_mlp_vjp":
@@ -337,6 +345,8 @@ def test_unported_train_field_raises(tmp_path, field, value):
         assert all(b.fused_attn_vjp and not b.fused_layer_vjp for b in tb.decoder_blocks)
     elif field == "remat":
         assert tb.remat
+    elif field == "outpaint":
+        assert tb.patchify_and_embed[0].in_channels == 8
     else:
         base = ttrain.main(_cfg(tmp_path, **one_step), device="cpu")
         assert r["losses"] == base["losses"]

@@ -73,8 +73,9 @@ class DenoiserConfig:
     mlp_class: str = "sep_conv"
     n_experts: int = 8
     expert_capacity_factor: float = 1.25
-    # width of the model's input latent; None = n_channels (widened
-    # outpainting inputs wait for the editing slice)
+    # width of the model's input latent; None = n_channels. The
+    # outpainting model takes 2 * n_channels: the noisy latent, then the
+    # masked context (models.denoiser.expand_input_channels)
     input_channels: Optional[int] = None
     # what the network predicts: "x0", "eps" or "v"
     # (sampling.diffusion.prediction_to_x0)
@@ -242,7 +243,6 @@ _UNPORTED_TRAIN = (
     ("pipeline_parallel", bool, "item 14 (parallelism)"),
     ("sequence_parallel", bool, "item 14 (parallelism)"),
     ("lora_rank", lambda v: v > 0, "item 11 (LoRA)"),
-    ("outpaint", bool, "item 9 (outpaint)"),
     ("use_wandb", bool, "item 12 (logging)"),
     ("param_dtype", lambda v: v != "float32", "item 7 (bf16 master weights)"),
 )

@@ -8,8 +8,7 @@ modules load (`nn.Linear.weight` is (out, in), convolutions are OIHW).
 Wrap the values with `torch.from_numpy` for `load_state_dict`.
 
 The denoiser keys are the reference `Denoiser`'s, the VAE keys are
-diffusers' `AutoencoderKL` (decoder and `post_quant_conv` only), and the
-CLIP keys are openai CLIP's text side, so published checkpoints load
+diffusers' `AutoencoderKL`'s, and the CLIP keys are openai CLIP's text side, so published checkpoints load
 into the same modules.
 """
 
@@ -54,9 +53,11 @@ def sinusoidal_angular_speeds(embedding_dims: int) -> np.ndarray:
 def denoiser_state_dict(params: Dict[str, Any], cfg) -> StateDict:
     """JAX `Denoiser` params -> reference `Denoiser` state_dict.
 
-    cfg: a DenoiserConfig of either package (patch and channel sizes)."""
+    cfg: a DenoiserConfig of either package (patch and channel sizes; a
+    widened outpainting model's `input_channels`)."""
     p = cfg.patch_size
     c = cfg.n_channels
+    in_ch = getattr(cfg, "input_channels", None) or c
     patch_dim = c * p * p
     sd: StateDict = {
         "fourier_feats.0.angular_speeds":
@@ -72,7 +73,7 @@ def denoiser_state_dict(params: Dict[str, Any], cfg) -> StateDict:
     tb = params["denoiser_trans_block"]
     pre = "denoiser_trans_block"
     sd[f"{pre}.patchify_and_embed.0.weight"] = (
-        _f32(tb["patch_proj"]["kernel"]).T.reshape(patch_dim, c, p, p).copy())
+        _f32(tb["patch_proj"]["kernel"]).T.reshape(patch_dim, in_ch, p, p).copy())
     sd[f"{pre}.patchify_and_embed.0.bias"] = _f32(tb["patch_proj"]["bias"])
     _norm(sd, f"{pre}.patchify_and_embed.2", tb["patch_norm1"])
     _linear(sd, f"{pre}.patchify_and_embed.3", tb["embed_proj"])
@@ -130,22 +131,25 @@ def _vae_resnet(sd: StateDict, name: str, leaf) -> None:
         _conv(sd, f"{name}.conv_shortcut", leaf["conv_shortcut"])
 
 
-def vae_decoder_state_dict(params: Dict[str, Any]) -> StateDict:
-    """JAX `AutoencoderKL` params -> diffusers-layout state_dict of the
-    decoder and `post_quant_conv` (the encoder is not ported yet)."""
-    dec = params["decoder"]
-    sd: StateDict = {}
-    _conv(sd, "post_quant_conv", params["post_quant_conv"])
-    _conv(sd, "decoder.conv_in", dec["conv_in"])
-    mid = dec["mid_block"]
-    _vae_resnet(sd, "decoder.mid_block.resnets.0", mid["resnet_0"])
-    _vae_resnet(sd, "decoder.mid_block.resnets.1", mid["resnet_1"])
+def _vae_mid(sd: StateDict, name: str, mid) -> None:
+    _vae_resnet(sd, f"{name}.resnets.0", mid["resnet_0"])
+    _vae_resnet(sd, f"{name}.resnets.1", mid["resnet_1"])
     attn = mid["attn"]
-    base = "decoder.mid_block.attentions.0"
+    base = f"{name}.attentions.0"
     _norm(sd, f"{base}.group_norm", attn["group_norm"])
     for n in ("to_q", "to_k", "to_v"):
         _linear(sd, f"{base}.{n}", attn[n])
     _linear(sd, f"{base}.to_out.0", attn["to_out"])
+
+
+def vae_decoder_state_dict(params: Dict[str, Any]) -> StateDict:
+    """JAX `AutoencoderKL` params -> diffusers-layout state_dict of the
+    decoder and `post_quant_conv` (what `VaeDecoder` loads)."""
+    dec = params["decoder"]
+    sd: StateDict = {}
+    _conv(sd, "post_quant_conv", params["post_quant_conv"])
+    _conv(sd, "decoder.conv_in", dec["conv_in"])
+    _vae_mid(sd, "decoder.mid_block", dec["mid_block"])
     i = 0
     while f"up_{i}_resnet_0" in dec:
         j = 0
@@ -160,6 +164,38 @@ def vae_decoder_state_dict(params: Dict[str, Any]) -> StateDict:
     _norm(sd, "decoder.conv_norm_out", dec["conv_norm_out"])
     _conv(sd, "decoder.conv_out", dec["conv_out"])
     return sd
+
+
+def vae_encoder_state_dict(params: Dict[str, Any]) -> StateDict:
+    """JAX `AutoencoderKL` params -> diffusers-layout state_dict of the
+    encoder and `quant_conv`: the inverse of the JAX package's
+    `convert_torch_vae_state_dict` (models/torch_compat.py) on these
+    keys."""
+    enc = params["encoder"]
+    sd: StateDict = {}
+    _conv(sd, "quant_conv", params["quant_conv"])
+    _conv(sd, "encoder.conv_in", enc["conv_in"])
+    i = 0
+    while f"down_{i}_resnet_0" in enc:
+        j = 0
+        while f"down_{i}_resnet_{j}" in enc:
+            _vae_resnet(sd, f"encoder.down_blocks.{i}.resnets.{j}",
+                        enc[f"down_{i}_resnet_{j}"])
+            j += 1
+        if f"down_{i}_downsample" in enc:
+            _conv(sd, f"encoder.down_blocks.{i}.downsamplers.0.conv",
+                  enc[f"down_{i}_downsample"]["conv"])
+        i += 1
+    _vae_mid(sd, "encoder.mid_block", enc["mid_block"])
+    _norm(sd, "encoder.conv_norm_out", enc["conv_norm_out"])
+    _conv(sd, "encoder.conv_out", enc["conv_out"])
+    return sd
+
+
+def vae_state_dict(params: Dict[str, Any]) -> StateDict:
+    """JAX `AutoencoderKL` params -> the whole autoencoder's diffusers-layout
+    state_dict (what `AutoencoderKL` loads)."""
+    return {**vae_decoder_state_dict(params), **vae_encoder_state_dict(params)}
 
 
 def clip_text_state_dict(params: Dict[str, Any]) -> StateDict:

@@ -4,7 +4,10 @@ from transformer_latent_diffusion_tpu_torch.models.fast_denoiser import (
     FusedEngine,
     make_fused_apply,
 )
-from transformer_latent_diffusion_tpu_torch.models.vae import VaeDecoder
+from transformer_latent_diffusion_tpu_torch.models.vae import (
+    AutoencoderKL,
+    VaeDecoder,
+)
 
-__all__ = ["ClipTextModel", "Denoiser", "FusedEngine", "VaeDecoder",
-           "make_fused_apply"]
+__all__ = ["AutoencoderKL", "ClipTextModel", "Denoiser", "FusedEngine",
+           "VaeDecoder", "make_fused_apply"]

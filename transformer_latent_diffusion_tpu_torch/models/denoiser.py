@@ -22,6 +22,11 @@ block (`torch.utils.checkpoint`, as the JAX package's
 `nn.remat(DecoderBlock)`): its activations are recomputed in the backward
 instead of stored, which 1024 px training needs.
 
+A widened model (`input_channels` > `n_channels`, the outpainting
+fine-tune) takes the noisy latent and `input_channels - n_channels`
+context channels after it; only the patch projection's input widens, and
+`expand_input_channels` widens a trained state_dict with zero rows.
+
 Another grid than the native one takes the first h*w rows of the learned
 positional table, or a table passed as `pos_embed_override`, such as
 `resize_pos_embed`'s bilinear resize of it (what the sampler passes for a
@@ -94,6 +99,28 @@ class _Patchify(nn.Module):
         return patchify(x, self.patch_size)
 
 
+def expand_input_channels(state_dict, old_channels: int, new_channels: int,
+                          patch_size: int):
+    """Zero-init widening of a `Denoiser` state_dict's patch projection
+    from `old_channels` to `new_channels` input channels (the outpainting
+    model, as the JAX package's `expand_input_channels`): the original
+    channels come first, the appended ones have zero weights, so the
+    widened model's output equals the original's for any context until
+    fine-tuning moves them. Returns a new dict; the input is untouched."""
+    if new_channels < old_channels:
+        raise ValueError(f"cannot shrink input: {old_channels} -> "
+                         f"{new_channels}")
+    pp = patch_size * patch_size
+    name = "denoiser_trans_block.patchify_and_embed.0.weight"
+    w = state_dict[name]
+    if w.shape[1] != old_channels:
+        raise ValueError(f"patch_proj kernel has {w.shape[1] * pp} input rows, "
+                         f"expected {old_channels}*{pp}")
+    wide = w.new_zeros((w.shape[0], new_channels, *w.shape[2:]))
+    wide[:, :old_channels] = w
+    return {**state_dict, name: wide}
+
+
 class DenoiserTransBlock(nn.Module):
     def __init__(self, patch_size: int, img_size: int, embed_dim: int,
                  n_layers: int, mlp_multiplier: int = 4, n_channels: int = 4,
@@ -101,7 +128,8 @@ class DenoiserTransBlock(nn.Module):
                  use_pallas: bool = False, fused_mlp_vjp: bool = False,
                  remat: bool = False, fused_attn_vjp: bool = False,
                  mlp_class: str = "sep_conv", n_experts: int = 8,
-                 expert_capacity_factor: float = 1.25):
+                 expert_capacity_factor: float = 1.25,
+                 input_channels: Optional[int] = None):
         super().__init__()
         self.patch_size = patch_size
         self.n_channels = n_channels
@@ -110,8 +138,8 @@ class DenoiserTransBlock(nn.Module):
         patch_dim = n_channels * patch_size * patch_size
         seq_len = (img_size // patch_size) ** 2
         self.patchify_and_embed = nn.Sequential(
-            nn.Conv2d(n_channels, patch_dim, kernel_size=patch_size,
-                      stride=patch_size),
+            nn.Conv2d(input_channels or n_channels, patch_dim,
+                      kernel_size=patch_size, stride=patch_size),
             _Patchify(patch_size),
             nn.LayerNorm(patch_dim, eps=LN_EPS),
             nn.Linear(patch_dim, embed_dim),
@@ -156,10 +184,11 @@ class DenoiserTransBlock(nn.Module):
 
 class Denoiser(nn.Module):
     """forward(x, noise_level, label):
-      x           (B, n_channels, S, S) noisy latent
+      x           (B, input_channels, S, S) noisy latent (and, on a widened
+                  model, its context channels after it)
       noise_level (B, 1) in (0, 1)
       label       (B, text_emb_size) pooled CLIP text embedding
-    returns the network's prediction (float32), same shape as x."""
+    returns the network's prediction (B, n_channels, S, S), float32."""
 
     def __init__(self, image_size: int, noise_embed_dims: int,
                  patch_size: int, embed_dim: int, dropout: float,
@@ -175,12 +204,10 @@ class Denoiser(nn.Module):
         if dropout:
             raise NotImplementedError("dropout > 0 belongs to the training "
                                       "slice (ROADMAP item 7)")
-        if input_channels not in (None, n_channels):
-            raise NotImplementedError("widened (outpainting) inputs wait for "
-                                      "the editing slice (ROADMAP item 9)")
         self.image_size = image_size
         self.patch_size = patch_size
         self.n_channels = n_channels
+        self.input_channels = input_channels
         self.objective = objective
         self.dtype = dtype
         self.mlp_class = mlp_class
@@ -198,7 +225,7 @@ class Denoiser(nn.Module):
             patch_size, image_size, embed_dim, n_layers, mlp_multiplier,
             n_channels, dtype, fused_layer_vjp, use_pallas, fused_mlp_vjp,
             remat, fused_attn_vjp, mlp_class, n_experts,
-            expert_capacity_factor)
+            expert_capacity_factor, input_channels)
 
     @classmethod
     def from_config(cls, cfg, dtype=torch.float32,

@@ -14,7 +14,10 @@ hand-written kernels and on CPU tensors their plain versions, or, with
 `prepare(params)` packs the per-layer weights once, outside the sampling
 loop (the sampler keeps them while the model's weights do not change);
 `apply_prepared(...)` runs one forward and `apply_prepared_cached(...)`
-one block-cached forward. Numerics:
+one block-cached forward. A widened (outpainting) model takes its context
+channels after the latent's: the prologue's patch product reads the
+(patch_dim, input_channels, p, p) weight flattened channel-major, the
+order `patchify` gives the tokens, so only its K grows. Numerics:
 float32 LayerNorm statistics, softmax and accumulation inside the layer
 kernels; activations cross layers in `compute_dtype`.
 """

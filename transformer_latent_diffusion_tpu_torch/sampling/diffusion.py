@@ -6,7 +6,10 @@ DDIM, DPM-Solver++(2M), Heun, eta-stochastic DDIM and fresh-noise
 updates, classifier-free guidance by batch doubling (with guidance
 rescale and a guidance interval), block caching on the fused engine, the
 final extra denoise, the sharp/bright latent shifts, and the VAE decode
-with a scale factor.
+with a scale factor; and the editing inputs: img2img (`init_latents` and
+`strength`), inpainting (a `mask` whose keep region is pinned to the
+init's corruption at every step and comes out equal to the init) and a
+widened model's context channels (`context_latents`, outpainting).
 
 The JAX package runs the steps as one `lax.scan` under `jit`. Here the
 steps are `sample_loop`, one function of tensors: every level,
@@ -190,14 +193,18 @@ class LoopSpec:
     objective, the step's branch (`step`: "plain" DDIM / DPM++, "fresh"
     the fresh-noise re-noising, for fresh_noise=True and for eta = 1, one
     expression so that the two stay bit-equal, "eta" 0 < eta < 1, "heun"
-    Heun's method), the block-caching interval (1 = off) and whether
-    guidance rescale and the guidance interval are on."""
+    Heun's method), the block-caching interval (1 = off), whether
+    guidance rescale and the guidance interval are on, whether an
+    inpainting mask pins the keep region (`masked`) and the number of
+    context channels a widened model takes after the latent's."""
     n_steps: int
     objective: str = "x0"
     step: str = "plain"
     cache_interval: int = 1
     rescale: bool = False
     interval: bool = False
+    masked: bool = False
+    context_channels: int = 0
 
 
 def loop_scalars(eta: float = 0.0, cfg_rescale: float = 0.0,
@@ -212,7 +219,8 @@ def loop_scalars(eta: float = 0.0, cfg_rescale: float = 0.0,
 
 
 def sample_loop(spec: LoopSpec, forward, x_init, labels_cat, levels, c1, c2,
-                guidance, scalars, step_noise=None, forward_cached=None):
+                guidance, scalars, step_noise=None, mask=None, init=None,
+                eps=None, context=None, forward_cached=None):
     """The step loop and the final extra denoise; returns the x0 estimate.
 
     forward(x2, noises, labels) -> prediction: one denoiser call on the
@@ -222,8 +230,15 @@ def sample_loop(spec: LoopSpec, forward, x_init, labels_cat, levels, c1, c2,
     the unconditional (or negative) ones; levels (n_steps + 1,), c1, c2
     (n_steps,), guidance (N,) and scalars (6,) (`loop_scalars`) float32; and
     with spec.step "fresh" or "eta" step_noise (n_steps, N, C, S, S).
-    Everything that varies between calls of one spec is a tensor, so a
-    captured graph of this function serves every value."""
+    With spec.masked, mask (1 = generate, 0 = keep), init and eps (the
+    initial noise), each (N, C, S, S): after each update the keep region
+    is pinned to nxt eps + (1 - nxt) init, and the result is
+    mask x0 + (1 - mask) init, so the keep region comes out equal to
+    init. context (N, spec.context_channels, S, S): concatenated after
+    x_t at every call, the same for both CFG halves (conditioning, not
+    guided). Everything that varies between calls of one spec is a tensor
+    (no input is written), so a captured graph of this function serves
+    every value."""
     num = x_init.shape[0]
     sqrt_1m_eta2, eta, rescale, keep, lo, hi = scalars.unbind(0)
 
@@ -236,7 +251,8 @@ def sample_loop(spec: LoopSpec, forward, x_init, labels_cat, levels, c1, c2,
     def call(x_t, sigma, cached=None):
         """The CFG double-batch call at level sigma -> the x0 estimate
         (and the block cache's delta)."""
-        x2 = torch.cat([x_t, x_t], dim=0)
+        xin = x_t if context is None else torch.cat([x_t, context], dim=1)
+        x2 = torch.cat([xin, xin], dim=0)
         noises = sigma.reshape(1, 1).expand(2 * num, 1).contiguous()
         if cached is None:
             pred = forward(x2, noises, labels_cat)
@@ -279,9 +295,14 @@ def sample_loop(spec: LoopSpec, forward, x_init, labels_cat, levels, c1, c2,
             x_t = nxt * mix + (1.0 - nxt) * d
         else:
             x_t = ((curr - nxt) * d + nxt * x_t) / curr
+            if spec.masked:
+                # the keep region back on the init's forward corruption
+                x_keep = nxt * eps + (1.0 - nxt) * init
+                x_t = mask * x_t + (1.0 - mask) * x_keep
         x0_prev = x0
     # final extra denoise at the last level
-    return call(x_t, levels[-1])
+    x0 = call(x_t, levels[-1])
+    return mask * x0 + (1.0 - mask) * init if spec.masked else x0
 
 
 @dataclasses.dataclass
@@ -454,10 +475,8 @@ class DiffusionGenerator:
                 raise ValueError("eta > 0 does not compose with "
                                  "inpainting (the keep-region pinning "
                                  "assumes the deterministic DDIM update)")
-        for name, value in (("init_latents", init_latents), ("mask", mask),
-                            ("context_latents", context_latents)):
-            if value is not None:
-                raise _not_ported(name, "item 9 (editing)")
+        if init_latents is not None and not 0.0 < strength <= 1.0:
+            raise ValueError(f"strength must be in (0, 1], got {strength}")
         if mask is not None and init_latents is None:
             raise ValueError("mask requires init_latents (inpainting is "
                              "masked img2img)")
@@ -471,6 +490,12 @@ class DiffusionGenerator:
                                  "update entirely; pass use_ddpm_plus="
                                  "False (the DPM++ multistep history is "
                                  "meaningless across re-noising)")
+        n_ch = self.model.n_channels
+        in_ch = getattr(self.model, "input_channels", None) or n_ch
+        if context_latents is not None and in_ch <= n_ch:
+            raise ValueError(
+                "context_latents requires a widened-input model "
+                "(DenoiserConfig.input_channels > n_channels)")
         if not 0.0 <= cfg_rescale <= 1.0:
             raise ValueError(f"cfg_rescale must be in [0, 1], got "
                              f"{cfg_rescale}")
@@ -492,6 +517,12 @@ class DiffusionGenerator:
                 schedule_shift = img_size / self.model.image_size
             if float(schedule_shift) != 1.0:
                 noise_levels = shift_noise_levels(noise_levels, schedule_shift)
+        if init_latents is not None:
+            # skip the first (1 - strength) of the schedule; start from the
+            # corruption of init at the first level left
+            n_skip = min(int(round((1.0 - strength) * (len(noise_levels) - 1))),
+                         len(noise_levels) - 2)
+            noise_levels = noise_levels[n_skip:]
         c1, c2 = make_step_coeffs(noise_levels, use_ddpm_plus)
         n_steps = len(noise_levels) - 1
 
@@ -501,7 +532,13 @@ class DiffusionGenerator:
             raise ValueError(f"unknown prediction_type {pred_kind!r}")
 
         dev = self.device
-        x_init = self.initialize_image(seeds, num_imgs, img_size, seed)
+        noise = self.initialize_image(seeds, num_imgs, img_size, seed)
+        x_init, init = noise, None
+        if init_latents is not None:
+            # a (1, C, S, S) init broadcasts over the images
+            init = _as_f32(init_latents, dev).expand_as(noise).contiguous()
+            sigma0 = float(noise_levels[0])
+            x_init = sigma0 * noise + (1.0 - sigma0) * init
         labels = _as_f32(labels, dev)
         uncond = (torch.zeros_like(labels) if negative_labels is None
                   else _as_f32(negative_labels, dev).expand_as(labels))
@@ -539,7 +576,7 @@ class DiffusionGenerator:
             forward = self.model
             route = ("linen", None)
 
-        if fresh_noise or eta:
+        if fresh_noise or eta or mask is not None:
             cache_interval = 1  # block caching: plain DDIM/DPM loops only
         if cache_interval > 1 and forward_cached is None:
             warnings.warn(
@@ -552,7 +589,9 @@ class DiffusionGenerator:
         spec = LoopSpec(n_steps=n_steps, objective=pred_kind, step=step,
                         cache_interval=max(int(cache_interval), 1),
                         rescale=bool(cfg_rescale),
-                        interval=guidance_interval is not None)
+                        interval=guidance_interval is not None,
+                        masked=mask is not None,
+                        context_channels=in_ch - n_ch)
         inputs = {
             "x_init": x_init, "labels_cat": labels_cat,
             "levels": _as_f32(noise_levels, dev), "c1": _as_f32(c1, dev),
@@ -560,6 +599,15 @@ class DiffusionGenerator:
             "scalars": torch.from_numpy(loop_scalars(
                 eta, cfg_rescale, guidance_interval)).to(dev),
         }
+        if mask is not None:
+            inputs.update(mask=_as_f32(mask, dev).expand_as(noise).contiguous(),
+                          init=init, eps=noise)
+        if in_ch > n_ch:
+            # a widened model without context gets zeros ("fully unknown")
+            extra = (noise.shape[0], in_ch - n_ch, *noise.shape[2:])
+            inputs["context"] = (
+                torch.zeros(extra, device=dev) if context_latents is None
+                else _as_f32(context_latents, dev).expand(extra).contiguous())
         if step in ("fresh", "eta"):
             if fresh_noise_keys is None:
                 fresh_noise_keys = fresh_noise_image_seeds(seed, num_imgs)
@@ -599,7 +647,8 @@ class DiffusionGenerator:
         (N, 3, H, W) float, or (N, H, W, 3) uint8 with output="uint8"
         (clip((x+1)/2) * 255 + 0.5, truncated), or None without a VAE.
         sharp_f and bright_f shift latent channels 3 and 0 before the
-        decode of x0 * scale_factor.
+        decode of x0 * scale_factor (under a mask, only where it is 1, so
+        the keep region stays equal to init_latents).
 
         The other keywords are `plan_loop`'s, the JAX generator's options:
         sampler "ddim", "dpm" or "heun"; eta in [0, 1] (stochastic DDIM)
@@ -608,15 +657,21 @@ class DiffusionGenerator:
         image, to set them); cfg_rescale and guidance_interval;
         cache_interval > 1, block caching on the fused engine; negative
         labels, explicit initial noise (`seeds`), the three noise schedules
-        and a schedule shift. The editing options (init_latents, mask,
-        context_latents) raise NotImplementedError naming their ROADMAP
-        item."""
+        and a schedule shift; and the editing options: init_latents
+        (sampler units, (N or 1, C, S, S)) with strength in (0, 1]
+        (img2img: the first round((1 - strength) (len - 1)) levels are
+        skipped, the loop starts at s0 noise + (1 - s0) init), mask
+        (inpainting, broadcastable to the latents, 1 = generate; DDIM or
+        DPM++ only) and context_latents (a widened model's extra input
+        channels, zeros when not given)."""
         if output not in ("float", "uint8"):
             raise ValueError(f"unknown output {output!r}")
         plan = self.plan_loop(labels, **kw)
         x0 = self.run_plan(plan)
-        x0[:, 3] += sharp_f
-        x0[:, 0] += bright_f
+        mask = plan.inputs.get("mask")
+        shift = 1.0 if mask is None else mask[:, 0]
+        x0[:, 3] += sharp_f * shift
+        x0[:, 0] += bright_f * shift
         if self.vae is None:
             return None, x0
         img = self.vae.decode(x0 * scale_factor)

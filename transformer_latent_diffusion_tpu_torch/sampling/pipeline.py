@@ -1,11 +1,14 @@
-"""Text-to-image pipeline: the port's `DiffusionTransformer`.
+"""The pipeline: the port's `DiffusionTransformer`.
 
-Counterpart of the text-to-image part of the JAX package's
-`sampling/pipeline.py`: build the denoiser, VAE decoder and CLIP text
-tower from an `LTDConfig` on an explicit device, with weights from the
-configured files or seeded random weights, and expose
-`generate_image_from_text` (a PIL grid) and `generate_array_from_text`
-((N, H, W, 3) uint8).
+Counterpart of the JAX package's `sampling/pipeline.py` less best-of-N:
+build the denoiser, the VAE (both halves) and the CLIP text tower from an
+`LTDConfig` on an explicit device, with weights from the configured files
+or seeded random weights, and expose text-to-image
+(`generate_image_from_text`, a PIL grid; `generate_array_from_text`,
+(N, H, W, 3) uint8) and image editing: `image_to_image` (img2img),
+`inpaint`, `outpaint` (a widened-input model) and `interpolate` (slerped
+prompts and/or initial noise). Editing runs at the model's native size,
+so on CUDA through the same fused engine as text-to-image.
 
 On a CUDA device the denoiser runs the hand-written kernels, as the JAX
 package runs its Pallas kernels on the TPU (sampling/pipeline.py:113-131,
@@ -42,13 +45,14 @@ from transformer_latent_diffusion_tpu_torch.models.fast_denoiser import (
     QUANTIZE_MODES,
     make_fused_apply,
 )
-from transformer_latent_diffusion_tpu_torch.models.vae import VaeDecoder
+from transformer_latent_diffusion_tpu_torch.models.vae import AutoencoderKL
 from transformer_latent_diffusion_tpu_torch.sampling.diffusion import (
     DiffusionGenerator,
 )
 from transformer_latent_diffusion_tpu_torch.utils.common import (
     init_random_weights_,
     load_state_dict_file,
+    slerp,
     uint8_grid_to_pil,
 )
 
@@ -63,6 +67,24 @@ _NOT_PORTED = {
     "consistency": (False, "item 11 (fine-tune variants)"),
     "clip_vision_cfg": (None, "item 12 (eval towers)"),
 }
+
+
+def pool_mask_to_latent(mask, want: int) -> np.ndarray:
+    """Image-space inpainting mask -> (1, 1, S, S) latent-grid mask (the
+    JAX package's function): nonzero = regenerate, zero = keep; a
+    multi-channel mask uses its first channel; max-pooled to the latent
+    grid, so any touched latent cell regenerates."""
+    m = np.asarray(mask, dtype=np.float32)
+    if m.ndim == 3:  # RGB(A)/channel-last mask -> first channel
+        m = m[..., 0]
+    m = (m > 0).astype(np.float32)
+    down = m.shape[-1] // want
+    if down < 1 or m.shape[-1] != want * down or m.shape[-2] != want * down:
+        raise ValueError(
+            f"mask is {m.shape[-2]}x{m.shape[-1]}; expected a square "
+            f"multiple of the {want}-wide latent grid")
+    m = m.reshape(want, down, want, down).max(axis=(1, 3))
+    return m[None, None]  # (1,1,S,S) broadcasts over batch+channels
 
 
 def _load_or_init(module, path, seed: int, keep=None):
@@ -141,10 +163,11 @@ class DiffusionTransformer:
         _load_or_init(denoiser, load.local_filename, seed)
         denoiser.to(self.device).eval()
 
-        self.vae = VaeDecoder.from_config(cfg.vae_cfg)
+        self.vae = AutoencoderKL.from_config(cfg.vae_cfg)
         _load_or_init(self.vae, cfg.vae_cfg.weights_path, seed + 1,
-                      keep=lambda k: k.startswith(("decoder.",
-                                                   "post_quant_conv.")))
+                      keep=lambda k: k.startswith(("decoder.", "encoder.",
+                                                   "post_quant_conv.",
+                                                   "quant_conv.")))
         self.vae.to(self.device, resolve_dtype(cfg.vae_cfg.vae_dtype)).eval()
 
         self.clip_model = ClipTextModel.from_config(
@@ -244,3 +267,191 @@ class DiffusionTransformer:
             guidance_interval=guidance_interval, sampler=sampler,
             schedule=schedule, eta=eta, schedule_shift=schedule_shift)
         return out[:num_imgs].cpu().numpy()
+
+    # ------------------------------ editing ------------------------------
+
+    def _encode_init_image(self, image) -> torch.Tensor:
+        """PIL / (H, W, 3) / (B, H, W, 3) image -> sampler-unit latents
+        (B, C, S, S) float32 on the device. Integer inputs are uint8 pixels
+        rescaled to [-1, 1]; float inputs are taken as [-1, 1] (decided by
+        the dtype, not the value range)."""
+        raw = np.asarray(image)
+        is_int = np.issubdtype(raw.dtype, np.integer)
+        arr = raw.astype(np.float32)
+        if arr.ndim == 3:
+            arr = arr[None]
+        if arr.shape[-1] == 3:  # HWC -> CHW
+            arr = np.transpose(arr, (0, 3, 1, 2))
+        if is_int:
+            arr = arr / 127.5 - 1.0
+        img = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        lat = self.vae.encode(img) / self._scale_factor
+        want = self.diffuser.model.image_size
+        if tuple(lat.shape[-2:]) != (want, want):  # non-square must fail too
+            down = arr.shape[-1] // lat.shape[-1]  # this VAE's spatial factor
+            raise ValueError(
+                f"input image is {arr.shape[-2]}x{arr.shape[-1]}px -> latent "
+                f"{lat.shape[-2]}x{lat.shape[-1]}, but the model expects a "
+                f"square {want} latent ({want * down}px with this VAE); "
+                f"resize the image first")
+        return lat
+
+    def _edit(self, lat, prompt, num_imgs, pad_to, negative_prompt, **kw):
+        """img2img / inpainting from the latents `lat`: one variation per
+        input image, or num_imgs of a single one; returns the PIL grid."""
+        if not (lat.shape[0] == 1 and num_imgs > 1):
+            # (1, C, S, S) broadcasts against num_imgs noise draws; a real
+            # batch fixes num_imgs to the batch size
+            num_imgs = int(lat.shape[0])
+        gen_n = self._resolve_pad(pad_to, num_imgs)
+        if gen_n > num_imgs and lat.shape[0] > 1:
+            lat = torch.cat([lat, lat[-1:].expand(gen_n - num_imgs, -1, -1, -1)])
+        labels, negative_labels = self._encode_prompts(
+            prompt, negative_prompt, gen_n)
+        out, _ = self.diffuser.generate(
+            labels=labels, num_imgs=gen_n,
+            img_size=self.diffuser.model.image_size, exponent=1,
+            scale_factor=self._scale_factor, sharp_f=0, bright_f=0,
+            output="uint8", negative_labels=negative_labels, init_latents=lat,
+            **kw)
+        return uint8_grid_to_pil(out[:num_imgs].cpu().numpy(),
+                                 nrow=int(math.sqrt(num_imgs)), padding=4)
+
+    def image_to_image(self, image, prompt: str, strength: float = 0.5,
+                       class_guidance=6, seed=11, num_imgs=1, n_iter=15,
+                       negative_prompt=None, pad_to=None):
+        """Image + prompt -> PIL grid (img2img). `image` is a PIL image or
+        an (H, W, 3) / (B, H, W, 3) uint8 or float ([-1, 1]) array at the
+        model's pixel size; it is VAE-encoded and re-noised to the
+        schedule's `strength` point, then denoised under the prompt. One
+        input image with num_imgs > 1 gives num_imgs variations."""
+        return self._edit(self._encode_init_image(image), prompt, num_imgs,
+                          pad_to, negative_prompt,
+                          class_guidance=class_guidance, seed=seed,
+                          n_iter=n_iter, strength=strength)
+
+    def inpaint(self, image, mask, prompt: str, strength: float = 1.0,
+                class_guidance=6, seed=11, num_imgs=1, n_iter=15,
+                negative_prompt=None, pad_to=None):
+        """Regenerate the masked region of `image` under `prompt`. `mask`
+        is a PIL image or (H, W) array in image space, nonzero =
+        regenerate (see `pool_mask_to_latent`); the keep region's latents
+        come out equal to the encoded image's. strength < 1 also limits
+        how far the masked region departs."""
+        lat = self._encode_init_image(image)
+        m = pool_mask_to_latent(mask, self.diffuser.model.image_size)
+        return self._edit(lat, prompt, num_imgs, pad_to, negative_prompt,
+                          class_guidance=class_guidance, seed=seed,
+                          n_iter=n_iter, strength=strength, mask=m)
+
+    def outpaint(self, image, prompt: str, n_tiles: int = 1,
+                 direction: str = "right", overlap: float = 0.5,
+                 class_guidance=6, seed=11, n_iter=15, negative_prompt=None):
+        """Extend `image` by `n_tiles` model-sized tiles toward `direction`
+        with a widened-input model (input_channels == 2 * n_channels, e.g.
+        `expand_input_channels` then `TrainConfig.outpaint`). Each tile's
+        context channels hold the `overlap` fraction of the previous tile's
+        x0 at the seam (zeros elsewhere); one `generate` a tile. The
+        panorama keeps the input's pixels and appends each tile's part
+        past the seam. Returns a PIL image."""
+        from PIL import Image
+
+        model = self.diffuser.model
+        if (model.input_channels or model.n_channels) <= model.n_channels:
+            raise ValueError(
+                "outpaint requires a widened-input model "
+                "(DenoiserConfig.input_channels == 2*n_channels); expand "
+                "a trained checkpoint with "
+                "models.denoiser.expand_input_channels and fine-tune")
+        if direction not in ("right", "left", "down", "up"):
+            raise ValueError(f"unknown direction {direction!r}")
+        s = model.image_size
+        k = int(round(overlap * s))
+        if not 0 < k < s:
+            raise ValueError(
+                f"overlap={overlap} must leave 0 < overlap < 1 of the "
+                f"{s}-wide latent grid shared across the seam")
+        axis = -1 if direction in ("right", "left") else -2
+        at_end = direction in ("right", "down")  # seam side of the last tile
+
+        prev = self._encode_init_image(image)
+        if prev.shape[0] != 1:
+            raise ValueError("outpaint takes a single image")
+        labels, negative_labels = self._encode_prompts(
+            prompt, negative_prompt, 1)
+        # the canvas keeps the input's pixels, not a VAE round trip
+        raw = np.asarray(image)
+        if raw.ndim == 4:
+            raw = raw[0]
+        if np.issubdtype(raw.dtype, np.integer):
+            pan = raw.astype(np.uint8)
+        else:
+            pan = ((np.clip(raw, -1.0, 1.0) + 1.0) * 127.5 + 0.5).astype(np.uint8)
+        k_px = k * (pan.shape[0] // s)
+        pix_axis = 1 if axis == -1 else 0
+        for i in range(n_tiles):
+            ctx = torch.zeros_like(prev)
+            src = [slice(None)] * prev.ndim
+            dst = [slice(None)] * prev.ndim
+            # the new tile's seam-facing edge sees prev's opposite edge
+            src[axis] = slice(-k, None) if at_end else slice(0, k)
+            dst[axis] = slice(0, k) if at_end else slice(-k, None)
+            ctx[tuple(dst)] = prev[tuple(src)]
+            img_u8, prev = self.diffuser.generate(
+                labels=labels, num_imgs=1, img_size=s,
+                class_guidance=class_guidance, seed=seed + i, n_iter=n_iter,
+                exponent=1, scale_factor=self._scale_factor, sharp_f=0,
+                bright_f=0, output="uint8", negative_labels=negative_labels,
+                context_latents=ctx)
+            tile = img_u8[0].cpu().numpy()
+            keep = [slice(None)] * 3
+            keep[pix_axis] = (slice(k_px, None) if at_end
+                              else slice(0, tile.shape[pix_axis] - k_px))
+            pieces = ([pan, tile[tuple(keep)]] if at_end
+                      else [tile[tuple(keep)], pan])
+            pan = np.concatenate(pieces, axis=pix_axis)
+        return Image.fromarray(pan)
+
+    def interpolate(self, prompt_a: str, prompt_b=None, n_frames: int = 8,
+                    class_guidance=6, seed=11, seed_b=None, n_iter=15,
+                    negative_prompt=None):
+        """An interpolation strip, frame 0 = (prompt_a, seed), the last =
+        (prompt_b, seed_b): prompt_b slerps the two pooled CLIP embeddings,
+        seed_b the two seeds' initial noise (either or both; the other
+        axis stays fixed). All frames run in one sampler call. Returns a
+        one-row PIL strip."""
+        if n_frames < 2:
+            raise ValueError(f"n_frames must be >= 2, got {n_frames}")
+        if prompt_b is None and seed_b is None:
+            raise ValueError("nothing to interpolate: give prompt_b "
+                             "and/or seed_b")
+
+        def embed(prompts):
+            return self.clip_model.encode_text(
+                prompts, self.tokenizer).detach().float().cpu().numpy()
+
+        ts = np.linspace(0.0, 1.0, n_frames)
+        if prompt_b is not None:
+            emb = embed([prompt_a, prompt_b])
+            labels = slerp(emb[0], emb[1], ts)
+        else:
+            la = embed([prompt_a])
+            labels = np.broadcast_to(la[0], (n_frames, la.shape[-1]))
+        negative_labels = (None if negative_prompt is None
+                           else embed([negative_prompt] * n_frames))
+        size = self.diffuser.model.image_size
+        noise = self.diffuser.initialize_image(None, 1, size, seed).cpu().numpy()
+        if seed_b is not None:
+            noise_b = self.diffuser.initialize_image(
+                None, 1, size, seed_b).cpu().numpy()
+            seeds = slerp(noise.ravel(), noise_b.ravel(), ts).reshape(
+                (n_frames,) + noise.shape[1:])
+        else:
+            seeds = np.broadcast_to(noise, (n_frames,) + noise.shape[1:])
+        out, _ = self.diffuser.generate(
+            labels=labels, num_imgs=n_frames, img_size=size,
+            class_guidance=class_guidance, seed=seed, seeds=seeds,
+            n_iter=n_iter, exponent=1, scale_factor=self._scale_factor,
+            sharp_f=0, bright_f=0, output="uint8",
+            negative_labels=negative_labels)
+        return uint8_grid_to_pil(out.cpu().numpy(), nrow=n_frames, padding=4)

@@ -1,4 +1,4 @@
-"""HTTP serving of text-to-image generation: the dependency-free WSGI app.
+"""HTTP serving of image generation: the dependency-free WSGI app.
 
 Counterpart of the WSGI frontend of the JAX package's `serve/app.py`:
 `GET /` (welcome JSON), `GET /healthz` (device inventory snapshotted at
@@ -10,16 +10,20 @@ fields, and, as the JAX frontend, 500 with `{"detail": str(e)}` when the
 body is not JSON, is a JSON value that is not an object (where the
 prompt check does not already answer 422), or generation fails.
 
-Plain text-to-image, with the JAX service's solver fields: sampler
-("ddim", "dpm", "heun"), schedule, eta, cfg_rescale and cache_interval
-(block caching), under its checks (eta and cfg_rescale in [0, 1], eta
-only with sampler="ddim", heun without block caching), each a 422 that
-names the field. Unlike the JAX service, eta and cfg_rescale are not
-snapped to quarters: the sampler's captured graph holds only their branch,
-so any value runs without a new capture. The editing fields (init_image,
-mask, strength, interpolate_to, seed_b, best_of) answer 422 naming their
-ROADMAP item. The FastAPI frontend and the micro-batcher wait (ROADMAP
-item 10).
+Text-to-image with the JAX service's solver fields: sampler ("ddim",
+"dpm", "heun"), schedule, eta, cfg_rescale and cache_interval (block
+caching), under its checks (eta and cfg_rescale in [0, 1], eta only with
+sampler="ddim", heun without block caching), each a 422 that names the
+field. Unlike the JAX service, eta and cfg_rescale are not snapped to
+quarters: the sampler's captured graph holds only their branch, so any
+value runs without a new capture. Editing with the JAX service's fields:
+init_image (base64 PNG or JPEG: img2img, strength 0.5 by default), with
+mask (inpainting, strength 1.0 by default), and interpolate_to and/or
+seed_b (an interpolation strip of max(num_imgs, 2) frames); the solver
+fields apply to text-to-image only, block caching on an init_image
+request warns and samples exactly, and the JAX service's 422s for
+combinations that do not compose. best_of answers 422 naming its ROADMAP
+item. The FastAPI frontend and the micro-batcher wait (ROADMAP item 10).
 """
 
 from __future__ import annotations
@@ -141,6 +145,11 @@ class GenerationService:
                        seed: int = 11, num_imgs: int = 1, img_size: int = 32,
                        n_iter: int = 15, cache_interval: int = 1,
                        negative_prompt: Optional[str] = None,
+                       init_image: Optional[str] = None,
+                       mask: Optional[str] = None,
+                       strength: Optional[float] = None,
+                       interpolate_to: Optional[str] = None,
+                       seed_b: Optional[int] = None,
                        sampler: Optional[str] = None,
                        schedule: str = "poly", cfg_rescale: float = 0.0,
                        eta: float = 0.0) -> bytes:
@@ -153,38 +162,75 @@ class GenerationService:
             pad_to = self._snap_up(num_imgs, self.num_imgs_buckets)
             if pad_to == num_imgs:
                 pad_to = None
-        solver_kw = {}
-        if sampler is not None:
-            solver_kw["sampler"] = sampler
-        if schedule != "poly":
-            solver_kw["schedule"] = schedule
-        img = self.transformer.generate_image_from_text(
-            prompt=prompt, class_guidance=class_guidance, seed=seed,
-            num_imgs=num_imgs, img_size=img_size, n_iter=n_iter,
-            cache_interval=cache_interval, negative_prompt=negative_prompt,
-            pad_to=pad_to, cfg_rescale=cfg_rescale, eta=eta, **solver_kw)
+        edit_kw = dict(class_guidance=class_guidance, seed=seed,
+                       num_imgs=num_imgs, n_iter=n_iter,
+                       negative_prompt=negative_prompt, pad_to=pad_to)
+        if init_image is not None:
+            # img2img / inpainting of a base64 PNG or JPEG
+            if cache_interval > 1:
+                import warnings
+
+                warnings.warn("cache_interval is not supported on the "
+                              "img2img/inpaint path; sampling exactly")
+            if strength is None:  # inpainting regenerates fully by default
+                strength = 1.0 if mask is not None else 0.5
+            src = _open_image(init_image).convert("RGB")
+            if mask is not None:
+                img = self.transformer.inpaint(
+                    src, _open_image(mask).convert("L"), prompt,
+                    strength=strength, **edit_kw)
+            else:
+                img = self.transformer.image_to_image(
+                    src, prompt, strength=strength, **edit_kw)
+        elif interpolate_to is not None or seed_b is not None:
+            # an interpolation strip: num_imgs is the frame count
+            img = self.transformer.interpolate(
+                prompt, interpolate_to, n_frames=max(num_imgs, 2),
+                class_guidance=class_guidance, seed=seed, seed_b=seed_b,
+                n_iter=n_iter, negative_prompt=negative_prompt)
+        else:
+            solver_kw = {}
+            if sampler is not None:
+                solver_kw["sampler"] = sampler
+            if schedule != "poly":
+                solver_kw["schedule"] = schedule
+            img = self.transformer.generate_image_from_text(
+                prompt=prompt, class_guidance=class_guidance, seed=seed,
+                num_imgs=num_imgs, img_size=img_size, n_iter=n_iter,
+                cache_interval=cache_interval,
+                negative_prompt=negative_prompt, pad_to=pad_to,
+                cfg_rescale=cfg_rescale, eta=eta, **solver_kw)
         buf = io.BytesIO()
         img.save(buf, format="JPEG")
         return buf.getvalue()
 
 
+def _open_image(b64: str):
+    """A base64 PNG or JPEG payload as a PIL image."""
+    import base64
+    import io
+
+    import PIL.Image
+
+    return PIL.Image.open(io.BytesIO(base64.b64decode(b64)))
+
+
 WELCOME = {"message": "Welcome to Image Generator"}
-# the text-to-image request fields and their defaults
+# the request fields and their defaults
 REQUEST_DEFAULTS = {"class_guidance": 6, "seed": 11, "num_imgs": 1,
                     "img_size": 32, "n_iter": 15, "cache_interval": 1,
-                    "negative_prompt": None, "sampler": None,
-                    "schedule": "poly", "cfg_rescale": 0.0, "eta": 0.0}
+                    "negative_prompt": None, "init_image": None,
+                    "mask": None, "strength": None, "interpolate_to": None,
+                    "seed_b": None, "sampler": None, "schedule": "poly",
+                    "cfg_rescale": 0.0, "eta": 0.0}
 NON_NULLABLE_FIELDS = ("prompt", "class_guidance", "seed", "num_imgs",
                        "img_size", "n_iter", "cache_interval", "schedule",
                        "cfg_rescale", "eta")
 INT_FIELDS = ("class_guidance", "seed", "num_imgs", "img_size", "n_iter",
               "cache_interval", "seed_b", "best_of")
 # fields of the JAX service that the port does not serve yet -> ROADMAP item
-NOT_PORTED_FIELDS = {
-    "init_image": "item 9 (editing)", "mask": "item 9 (editing)",
-    "strength": "item 9 (editing)", "interpolate_to": "item 9 (editing)",
-    "seed_b": "item 9 (editing)", "best_of": "item 12 (eval towers)",
-}
+NOT_PORTED_FIELDS = {"best_of": "item 12 (eval towers)"}
+EDITING_FIELDS = ("init_image", "interpolate_to", "seed_b")
 
 
 def _validate_int_fields(payload: dict) -> Optional[str]:
@@ -212,7 +258,16 @@ def _validate_int_fields(payload: dict) -> Optional[str]:
 
 
 def _validate_fields(payload: dict) -> Optional[str]:
-    """422-level checks of a text-to-image request; an error text or None."""
+    """422-level checks of a request, in the JAX WSGI app's order; an error
+    text or None."""
+    if payload.get("init_image") is None and (
+            payload.get("mask") is not None
+            or payload.get("strength") is not None):
+        return "mask/strength require init_image"
+    if payload.get("init_image") is not None and (
+            payload.get("interpolate_to") is not None
+            or payload.get("seed_b") is not None):
+        return "interpolate_to/seed_b do not compose with init_image"
     for k in NON_NULLABLE_FIELDS:
         if k in payload and payload[k] is None:
             return f"{k} must not be null"
@@ -240,6 +295,11 @@ def _validate_fields(payload: dict) -> Optional[str]:
         return "eta must be in [0, 1]"
     if payload["eta"] and sampler != "ddim":
         return "eta > 0 (stochastic DDIM) requires sampler='ddim'"
+    non_default = (sampler is not None or schedule != "poly"
+                   or bool(payload["cfg_rescale"]) or bool(payload["eta"]))
+    if non_default and any(payload.get(k) is not None for k in EDITING_FIELDS):
+        return ("sampler/schedule/cfg_rescale/eta apply to plain "
+                "text-to-image requests only")
     if sampler == "heun" and payload.get("cache_interval", 1) > 1:
         return "cache_interval > 1 excludes sampler='heun'"
     if not isinstance(payload["prompt"], str):

@@ -20,7 +20,10 @@ and, up to 1024 tokens, the sep-conv MLP's K5 (`ops/fused_mlp_vjp.py`);
 per-block remat from 2048 tokens. Multires buckets
 (`DataConfig.extra_latent_paths`) interleave whole batches, and a bucket
 off the native grid trains the positional table through a differentiable
-bilinear resize inside the loss. The eval grid samples the
+bilinear resize inside the loss. `TrainConfig.outpaint` fine-tunes a
+widened-input model (`expand_input_channels`): each example's input is
+its noisy latent, then a random edge strip of its clean latent as
+context. The eval grid samples the
 EMA weights through the K1 engine on a sep-conv model's native grid of at
 most 256 tokens, else through a Denoiser with flash attention only (the
 JAX package's `eval_model`). The random draws come from a
@@ -237,7 +240,10 @@ class DiffusionLoss:
     (1.0, the native bucket, is no shift), as the JAX package's
     `_pos_override` and `_resolve_shift` do. A "moe" model adds
     `moe_aux_weight` times its Switch load-balancing loss (the JAX
-    package's sown "losses", train.py:403-416)."""
+    package's sown "losses", train.py:403-416). With train_cfg.outpaint
+    the model's input is [x_noisy, m x], m a random edge strip of each
+    example (`sample_draws`' "context_mask"), as the JAX package's
+    `_outpaint_context`."""
 
     def __init__(self, train_cfg, vae_scale_factor: float,
                  objective: str = "x0", image_size: Optional[int] = None,
@@ -267,11 +273,13 @@ class DiffusionLoss:
         self.beta = (float(train_cfg.beta_a), float(train_cfg.beta_b))
         self.vae_scale_factor = float(vae_scale_factor)
         self.moe_aux_weight = float(train_cfg.moe_aux_weight)
+        self.outpaint = bool(train_cfg.outpaint)
 
     def sample_draws(self, generator: torch.Generator, x) -> Dict[str, Any]:
         """noise_level (n, 1) ~ Beta(a, b) (before any schedule shift),
         noise like x (plus offset_noise times a per-(sample, channel)
-        draw), keep (n, 1): False for the 15% of labels dropped."""
+        draw), keep (n, 1): False for the 15% of labels dropped; with
+        outpaint, context_mask (n, 1, h, w) (`outpaint_context_mask`)."""
         n = x.shape[0]
         dev = generator.device
         noise_level = sample_beta(generator, *self.beta, (n, 1))
@@ -280,7 +288,14 @@ class DiffusionLoss:
             noise = noise + self.offset_noise * torch.randn(
                 (*x.shape[:2], 1, 1), generator=generator, device=dev)
         keep = torch.rand((n, 1), generator=generator, device=dev) >= 0.15
-        return {"noise_level": noise_level, "noise": noise, "keep": keep}
+        draws = {"noise_level": noise_level, "noise": noise, "keep": keep}
+        if self.outpaint:
+            draws["context_mask"] = outpaint_context_mask(
+                torch.randint(0, 4, (n,), generator=generator, device=dev),
+                0.25 + 0.5 * torch.rand((n, 1), generator=generator, device=dev),
+                torch.rand((n,), generator=generator, device=dev) < 0.1,
+                *x.shape[-2:])
+        return draws
 
     def _weight(self, s):
         """Per-sample min-SNR-gamma weight in the objective's target space
@@ -313,7 +328,8 @@ class DiffusionLoss:
         return resize_pos_embed(model.denoiser_trans_block.pos_embed.weight,
                                 native, grid)
 
-    def loss_from_draws(self, model, x, y, noise_level, noise, keep):
+    def loss_from_draws(self, model, x, y, noise_level, noise, keep,
+                        context_mask=None):
         pos = self._pos_override(model, x)
         x = x / self.vae_scale_factor
         k = self._resolve_shift(x)
@@ -323,6 +339,10 @@ class DiffusionLoss:
         x_noisy = nl * noise + (1.0 - nl) * x
         target = (x if self.objective == "x0" else noise
                   if self.objective == "eps" else noise - x)
+        if context_mask is not None:
+            # widened input: the noisy latent, then the masked clean latent;
+            # the loss stays the whole image's
+            x_noisy = torch.cat([x_noisy, context_mask.to(x.dtype) * x], dim=1)
         label = y * keep.to(y.dtype)
         pred = (model(x_noisy, noise_level, label) if pos is None else
                 model(x_noisy, noise_level, label, pos_embed_override=pos))
@@ -338,6 +358,25 @@ class DiffusionLoss:
 
     def __call__(self, model, x, y, generator):
         return self.loss_from_draws(model, x, y, **self.sample_draws(generator, x))
+
+
+def outpaint_context_mask(side, frac, zero, h: int, w: int) -> torch.Tensor:
+    """The outpainting fine-tune's visible strip (n, 1, h, w) float32, as
+    the JAX package's `_outpaint_context` builds it: per example a side
+    (0 left, 1 right, 2 top, 3 bottom; side (n,) ints) whose fraction
+    frac (n, 1) in [0.25, 0.75] of the columns or rows stays visible,
+    and none where zero (n,) is true (about 10%: zero-context sampling
+    keeps working)."""
+    col = torch.arange(w, device=side.device)[None, :]
+    row = torch.arange(h, device=side.device)[None, :]
+    horiz = torch.where((side < 1)[:, None], col < torch.round(frac * w),
+                        col >= w - torch.round(frac * w))
+    vert = torch.where((side < 3)[:, None], row < torch.round(frac * h),
+                       row >= h - torch.round(frac * h))
+    m = torch.where((side < 2)[:, None, None], horiz[:, None, :],
+                    vert[:, :, None])
+    m = torch.where(zero[:, None, None], 0.0, m.float())
+    return m[:, None]
 
 
 def build_loss_fn(model, train_cfg, vae_scale_factor) -> DiffusionLoss:
@@ -444,9 +483,20 @@ def main(config: ModelConfig, device,
         for i, (lp, ep) in enumerate(zip(extra_lat, extra_emb))]
     emb_val = np.load(dataconfig.val_path).astype(np.float32)
     in_ch = denoiser_config.input_channels or denoiser_config.n_channels
-    if in_ch != denoiser_config.n_channels:
-        raise ValueError(f"input_channels={in_ch} != n_channels="
-                         f"{denoiser_config.n_channels} but outpaint=False")
+    if train_config.outpaint:
+        if in_ch != 2 * denoiser_config.n_channels:
+            raise ValueError(
+                f"outpaint=True needs DenoiserConfig.input_channels == "
+                f"2*n_channels ({2 * denoiser_config.n_channels}), got "
+                f"{in_ch}; widen a trained checkpoint with "
+                f"models.denoiser.expand_input_channels and pass it as "
+                f"init_state_dict")
+    elif in_ch != denoiser_config.n_channels:
+        raise ValueError(
+            f"input_channels={in_ch} != n_channels="
+            f"{denoiser_config.n_channels} but outpaint=False: the train "
+            f"step would feed the model {denoiser_config.n_channels}"
+            f"-channel latents")
 
     compute_dtype = resolve_dtype(train_config.compute_dtype)
     fused_layer, fused_mlp, fused_attn = resolve_fused_flags(train_config,

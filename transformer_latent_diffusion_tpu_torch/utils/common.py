@@ -1,5 +1,5 @@
 """Shared utilities of the port: seeded random weights, parameter counts,
-checkpoint files, image grids and PIL conversion."""
+checkpoint files, image grids, PIL conversion and slerp."""
 
 from __future__ import annotations
 
@@ -91,3 +91,25 @@ def to_pil(img_chw: np.ndarray):
     if arr.shape[0] == 1:
         return Image.fromarray(arr[0], mode="L")
     return Image.fromarray(np.transpose(arr, (1, 2, 0)), mode="RGB")
+
+
+def slerp(a: np.ndarray, b: np.ndarray, t) -> np.ndarray:
+    """Spherical linear interpolation between two vectors (the JAX
+    package's `utils.slerp`): `t` a scalar or 1-D array, the result
+    (*t.shape, dim); along the great circle through a/|a| and b/|b| with
+    the magnitudes interpolated linearly, so unit vectors stay unit
+    (pooled CLIP embeddings live on a sphere); near-parallel inputs fall
+    back to lerp. float32 numpy."""
+    a = np.asarray(a, dtype=np.float32)
+    b = np.asarray(b, dtype=np.float32)
+    t = np.asarray(t, dtype=np.float32)[..., None]
+    na = float(np.linalg.norm(a))
+    nb = float(np.linalg.norm(b))
+    cos = float(np.clip(np.dot(a / na, b / nb), -1.0, 1.0))
+    omega = float(np.arccos(cos))
+    if omega < 1e-4:
+        return (1.0 - t) * a + t * b
+    so = np.sin(omega)
+    unit = (np.sin((1.0 - t) * omega) * (a / na)
+            + np.sin(t * omega) * (b / nb)) / so
+    return ((1.0 - t) * na + t * nb) * unit
