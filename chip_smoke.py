@@ -29,6 +29,17 @@ paths, each checked against plain PyTorch versions on the same inputs:
   the widened flagship, interpolate, the HTTP init_image and mask
   requests; and after the training phases the outpaint fine-tune through
   K2);
+- float32 serving (K1 and K7 with the JAX package's default compute
+  dtype, float32): the four float32 bodies (ops/fused_stack_f32.py) at the
+  main path's shapes against their plain versions (TF32 off, rel-L2 within
+  1e-5, two launches bit-equal, ptxas), one float32 engine forward against
+  the plain float32 forward and the float32 W8A8 forward against its plain
+  stack, the library entry point on the float32 flagship (32 images x 50
+  DDIM steps) and its graph, the micro-batcher (`[microbatch]`: concurrent
+  HTTP requests coalesced into one loop, batched images within one uint8
+  step of their solo runs, a full queue answered 503 with Retry-After),
+  and the service with no config, `LTDConfig()` as the JAX service builds
+  it, three default requests over HTTP;
 - int8 serving (TPU kernel K7, the W8A8 decoder layer): its two kernels
   (rowquant, gemm_i8) and the float32-out dwconv_gelu at the main path's
   shapes, one int8-engine forward against the plain int8 stack and the
@@ -830,9 +841,15 @@ def phase_library(cfg, per_layer=None, tag="library"):
 
 @contextlib.contextmanager
 def _wsgi_server(service):
-    """The service's WSGI app on a local socket; yields request(path,
-    body=None, token=...) -> (status, body bytes). Stops the server."""
-    from wsgiref.simple_server import WSGIRequestHandler, make_server
+    """The service's WSGI app on a local socket, one thread per request as
+    `serve.app.serve` runs it; yields request(path, body=None, token=...)
+    -> (status, body bytes), the reply's headers left in
+    `request.headers`. Stops the server."""
+    from socketserver import ThreadingMixIn
+    from wsgiref.simple_server import WSGIRequestHandler, WSGIServer, make_server
+
+    class ThreadingServer(ThreadingMixIn, WSGIServer):
+        daemon_threads = True
 
     from transformer_latent_diffusion_tpu_torch.serve.app import create_wsgi_app
 
@@ -842,7 +859,8 @@ def _wsgi_server(service):
 
     os.environ["API_TOKEN"] = "smoke-token"
     app = create_wsgi_app(service=service)
-    server = make_server("127.0.0.1", 0, app, handler_class=QuietHandler)
+    server = make_server("127.0.0.1", 0, app, server_class=ThreadingServer,
+                         handler_class=QuietHandler)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     base = f"http://127.0.0.1:{server.server_port}"
@@ -855,8 +873,10 @@ def _wsgi_server(service):
         req = urllib.request.Request(base + path, data=data, headers=headers)
         try:
             with urllib.request.urlopen(req, timeout=600) as resp:
+                request.headers = dict(resp.headers)
                 return resp.status, resp.read()
         except urllib.error.HTTPError as e:
+            request.headers = dict(e.headers)
             return e.code, e.read()
 
     try:
@@ -3213,10 +3233,11 @@ def _count_modules():
     from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
     from transformer_latent_diffusion_tpu_torch.ops import fused_mlp_vjp as fm
     from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack_f32 as f32
     from transformer_latent_diffusion_tpu_torch.ops import fused_stack_int8 as q8
     from transformer_latent_diffusion_tpu_torch.ops import layer_variants as lvar
 
-    return fs, lv, att, fm, q8, k6, fb, lvar
+    return fs, lv, att, fm, q8, k6, fb, lvar, f32
 
 
 def _pair_inputs(gen, b, n):
@@ -4014,6 +4035,379 @@ def phase_s4():
     return rows
 
 
+# ------------------------------ float32: K1 and K7 in the JAX default ------------------------------
+
+# each float32 body against its plain version on the card, TF32 off: both
+# sum float32 products in float32, in different orders
+F32_KERNEL_REL_L2 = 1e-5
+# one float32 engine forward against the plain float32 forward (rel-L2)
+F32_ENGINE_REL_L2 = 1e-4
+# the float32 library run: 32 images x 50 DDIM steps, as the bf16 one
+F32_IMGS, F32_ITER = 32, 50
+
+
+def f32_bounds():
+    """Least ms per decoder layer of each float32 body at the main path's
+    shapes (each input read once, each output written once), against the
+    card's float32 rate (no tensor cores: they take float32 as TF32)."""
+    m = B * N
+    gemms = [  # (rows, N, K, extra bytes: bias, residual)
+        (m, 3 * D, D, 0), (m, D, D, 0), (2 * B, 2 * D, D, 0),
+        (m, HIDDEN, D, HIDDEN * 4), (m, D, HIDDEN, m * D * 4 + D * 4)]
+    gbytes = sum(4 * (r * k + n * k + r * n) + ex for r, n, k, ex in gemms)
+    gflops = sum(2 * r * n * k for r, n, k, _ in gemms)
+    return {
+        "ln_gemm_f32": bound(gbytes, gflops, F32_FLOP_S),
+        "self_attention_f32": bound(m * 3 * D * 4 + m * D * 8,
+                                    4 * B * HEADS * N * N * 64, F32_FLOP_S),
+        "cross_attention_f32": bound(m * D * 4 + 2 * B * 2 * D * 4 + m * D * 8 + m * D * 4,
+                                     16 * m * D, F32_FLOP_S),
+        "dwconv_gelu_f32": bound(m * HIDDEN * 8 + 9 * HIDDEN * 4 + HIDDEN * 4,
+                                 26 * m * HIDDEN, F32_FLOP_S),
+    }
+
+
+def phase_float32_kernels():
+    """[float32-kernels]: each float32 body (ops/fused_stack_f32.py) against
+    its plain version at the main path's shapes (batch 64), TF32 off:
+    rel-L2 within F32_KERNEL_REL_L2, two launches bit-equal, ms against
+    the plain version, the bound and one PyTorch call, and ptxas's
+    registers and spills. Returns (worst max-abs, timing, library,
+    bounds), keyed by kernel."""
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
+
+    F = torch.nn.functional
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device="cpu").manual_seed(3)
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g) * std).to(dev)
+
+    m = B * N
+    x = randn(m, D)
+    ln = (1.0 + randn(D, std=0.1), randn(D, std=0.1))
+    wqkv, wq = randn(3 * D, D, std=D ** -0.5), randn(D, D, std=D ** -0.5)
+    wkv = randn(2 * D, D, std=D ** -0.5)
+    w1, b1 = randn(HIDDEN, D, std=D ** -0.5), randn(HIDDEN, std=0.1)
+    w2, b2 = randn(D, HIDDEN, std=HIDDEN ** -0.5), randn(D, std=0.1)
+    xn, act, cond = randn(m, D), randn(m, HIDDEN), randn(2 * B, D)
+    qkv, qc, kv = randn(m, 3 * D), randn(m, D), randn(2 * B, 2 * D)
+    hmat, dw, dwb = randn(m, HIDDEN), randn(9, HIDDEN, std=1 / 3), randn(HIDDEN, std=0.1)
+    xr = x.clone()
+
+    def updates(outs):
+        return torch.cat([(outs[0] - x).flatten(), outs[1].flatten()])
+
+    products = {
+        "qkv": (lambda: fs.ln_gemm(x, wqkv, ln=ln), lambda: fs.ln_gemm_plain(x, wqkv, ln=ln)),
+        "q": (lambda: fs.ln_gemm(x, wq, ln=ln), lambda: fs.ln_gemm_plain(x, wq, ln=ln)),
+        "kv": (lambda: fs.ln_gemm(cond, wkv), lambda: fs.ln_gemm_plain(cond, wkv)),
+        "kv_ragged": (lambda: fs.ln_gemm(cond[:4].contiguous(), wkv),
+                      lambda: fs.ln_gemm_plain(cond[:4], wkv)),
+        "expand": (lambda: fs.ln_gemm(xn, w1, bias=b1),
+                   lambda: fs.ln_gemm_plain(xn, w1, bias=b1)),
+        "contract": (lambda: fs.ln_gemm(act, w2, bias=b2, residual=x.clone()) - x,
+                     lambda: fs.ln_gemm_plain(act, w2, bias=b2, residual=x) - x),
+    }
+    checks = [(f"ln_gemm_f32/{k}", "ln_gemm_f32", kern, plain)
+              for k, (kern, plain) in products.items()] + [
+        ("self_attention_f32", "self_attention_f32",
+         lambda: fs.self_attention(qkv, x.clone(), HEADS, N) - x,
+         lambda: fs.self_attention_plain(qkv, x, HEADS, N) - x),
+        ("cross_attention_f32", "cross_attention_f32",
+         lambda: updates(fs.cross_attention(qc, kv, x.clone(), ln, HEADS, N)),
+         lambda: updates(fs.cross_attention_plain(qc, kv, x, ln, HEADS, N))),
+        ("cross_attention_f32 (ln=None, K7)", "cross_attention_f32",
+         lambda: fs.cross_attention(qc, kv, x.clone(), None, HEADS, N)[0] - x,
+         lambda: fs.cross_attention_plain(qc, kv, x, None, HEADS, N)[0] - x),
+        ("dwconv_gelu_f32", "dwconv_gelu_f32", lambda: fs.dwconv_gelu(hmat, dw, dwb, HW),
+         lambda: fs.dwconv_gelu_plain(hmat, dw, dwb, HW)),
+    ]
+    worst = {}
+    for label, name, kern, plain in checks:
+        r, a, rel_a = _errors(kern(), plain())
+        log(f"[float32-kernels] {label}: rel-L2 {r:.3e} max-abs {a:.3e} ({rel_a:.2e} of "
+            f"max |ref|; bound rel-L2 {F32_KERNEL_REL_L2})")
+        if not r <= F32_KERNEL_REL_L2:
+            raise AssertionError(f"{label} disagrees with its plain version")
+        worst[name] = max(worst.get(name, 0.0), a)
+    # one writer per element and one fixed summation order: two launches bit-equal
+    _bit_equal_twice("ln_gemm_f32 (the five products)", lambda: (
+        fs.ln_gemm(x, wqkv, ln=ln), fs.ln_gemm(x, wq, ln=ln), fs.ln_gemm(cond, wkv),
+        fs.ln_gemm(xn, w1, bias=b1), fs.ln_gemm(act, w2, bias=b2, residual=x.clone())),
+        "float32-kernels")
+    _bit_equal_twice("self_attention_f32",
+                     lambda: fs.self_attention(qkv, x.clone(), HEADS, N), "float32-kernels")
+    _bit_equal_twice("cross_attention_f32",
+                     lambda: fs.cross_attention(qc, kv, x.clone(), ln, HEADS, N),
+                     "float32-kernels")
+    _bit_equal_twice("dwconv_gelu_f32", lambda: fs.dwconv_gelu(hmat, dw, dwb, HW),
+                     "float32-kernels")
+    _ptxas_report("float32-kernels", ("ln_gemm_f32_kernel", "self_attention_f32_kernel",
+                                      "cross_attention_kernel", "dwconv_gelu_kernel"))
+
+    results = {
+        "ln_gemm_f32": (
+            lambda: (fs.ln_gemm(x, wqkv, ln=ln), fs.ln_gemm(x, wq, ln=ln),
+                     fs.ln_gemm(cond, wkv), fs.ln_gemm(xn, w1, bias=b1),
+                     fs.ln_gemm(act, w2, bias=b2, residual=xr)),
+            lambda: (fs.ln_gemm_plain(x, wqkv, ln=ln), fs.ln_gemm_plain(x, wq, ln=ln),
+                     fs.ln_gemm_plain(cond, wkv), fs.ln_gemm_plain(xn, w1, bias=b1),
+                     fs.ln_gemm_plain(act, w2, bias=b2, residual=x))),
+        "self_attention_f32": (lambda: fs.self_attention(qkv, xr, HEADS, N),
+                               lambda: fs.self_attention_plain(qkv, x, HEADS, N)),
+        "cross_attention_f32": (lambda: fs.cross_attention(qc, kv, xr, ln, HEADS, N),
+                                lambda: fs.cross_attention_plain(qc, kv, x, ln, HEADS, N)),
+        "dwconv_gelu_f32": (lambda: fs.dwconv_gelu(hmat, dw, dwb, HW),
+                            lambda: fs.dwconv_gelu_plain(hmat, dw, dwb, HW)),
+    }
+    timing = time_against_plain(results, "float32-kernels")
+    heads = qkv.reshape(B, N, 3, HEADS, 64).permute(2, 0, 3, 1, 4).contiguous()
+    qh = qc.reshape(B, N, HEADS, 64).transpose(1, 2).contiguous()
+    kvh = kv.reshape(B, 2, 2, HEADS, 64).permute(2, 0, 3, 1, 4).contiguous()
+    library = {
+        # F.linear x5 in float32, TF32 off (phase_env)
+        "ln_gemm_f32": time_ms(lambda: (F.linear(x, wqkv), F.linear(x, wq), F.linear(cond, wkv),
+                                        F.linear(xn, w1, b1), F.linear(act, w2, b2))),
+        "self_attention_f32": time_ms(
+            lambda: F.scaled_dot_product_attention(heads[0], heads[1], heads[2])),
+        "cross_attention_f32": time_ms(
+            lambda: F.scaled_dot_product_attention(qh, kvh[0], kvh[1])),
+        "dwconv_gelu_f32": None,  # no one call: a depthwise conv, then a GELU
+    }
+    library["dwconv_gelu_f32 (equal work)"] = time_ms(
+        dw_equal_work(hmat, dw, dwb, HW, out_dtype=torch.float32))
+    bounds = f32_bounds()
+    for name in results:
+        ms, plain_ms = timing[name]
+        lib = library[name]
+        log(f"[float32-kernels] {name}: {ms:.4f} ms per layer, plain {plain_ms:.4f} ms, bound "
+            f"{bounds[name][0]:.4f} ms ({bounds[name][1]}; {bounds[name][0] / ms:.1%} of it), "
+            f"library call {'none' if lib is None else f'{lib:.4f} ms'}")
+    log(f"[float32-kernels] dwconv_gelu_f32: equal-work yardstick (F.conv2d groups=C with "
+        f"bias + F.gelu, float32, cudnn TF32 off) "
+        f"{library['dwconv_gelu_f32 (equal work)']:.4f} ms")
+    return worst, timing, library, bounds
+
+
+def f32_config(cfg):
+    """The flagship with the JAX package's default compute dtype, float32."""
+    from transformer_latent_diffusion_tpu_torch.configs import DenoiserLoad
+
+    return dataclasses.replace(cfg, denoiser_load=DenoiserLoad(dtype="float32"))
+
+
+def phase_float32_engine(cfg32):
+    """[float32-engine]: one float32 fused-engine forward at batch B against
+    the plain float32 Denoiser forward on the card (TF32 off), with its
+    launches (the float32 bodies only) and times; then the W8A8 engine with
+    a float32 compute dtype against its plain stack."""
+    from transformer_latent_diffusion_tpu_torch.models.denoiser import Denoiser
+    from transformer_latent_diffusion_tpu_torch.models.fast_denoiser import make_fused_apply
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack_f32 as f32
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack_int8 as q8
+    from transformer_latent_diffusion_tpu_torch.utils.common import init_random_weights_
+
+    dev = torch.device(DEVICE)
+    den = cfg32.denoiser_cfg
+    model = Denoiser.from_config(den, dtype=torch.float32)
+    init_random_weights_(model, 0)
+    model.to(dev).eval()
+    g = torch.Generator(device="cpu").manual_seed(1)
+    x = torch.randn(B, 4, den.image_size, den.image_size, generator=g).to(dev)
+    noise = torch.full((B, 1), 0.5, device=dev)
+    label = torch.randn(B, den.text_emb_size, generator=g).to(dev)
+    sd = model.state_dict()
+    for quantize in (None, "int8"):
+        tag = "float32 engine" if quantize is None else "float32 W8A8 engine"
+        engine = make_fused_apply(den, compute_dtype=torch.float32, quantize=quantize)
+        with torch.no_grad():
+            prepared = engine.prepare(sd)
+            _reset_counts()
+            out = engine.apply_prepared(prepared, x, noise, label)
+            launches = _counts()
+            if quantize is None:
+                ref = model(x, noise, label)
+                bound_r = F32_ENGINE_REL_L2
+            else:
+                tokens, cond, h, w = engine._prologue(sd, x, noise, label)
+                for layer in prepared["layers"]:
+                    tokens = q8.fused_layer_stack_int8_plain(tokens, cond, layer, h,
+                                                             engine.n_heads)
+                ref = engine._epilogue(sd, tokens, h, w)
+                bound_r = INT8_ENGINE_REL_L2
+        torch.cuda.synchronize()
+        expect = _expect({k: v * den.n_layers
+                          for k, v in f32.launches_per_layer(torch.float32, quantize).items()})
+        r = rel_l2(out, ref)
+        log(f"[float32-engine] {tag} vs the plain float32 "
+            f"{'forward' if quantize is None else 'int8 stack'}, batch {B}: rel-L2 {r:.3e} "
+            f"(bound {bound_r}); launches { {k: v for k, v in launches.items() if v} }")
+        if not (torch.isfinite(out).all() and r <= bound_r):
+            raise AssertionError(f"the {tag} disagrees with its plain version")
+        _require_launches(launches, expect, f"[float32-engine] {tag}")
+        with torch.no_grad():
+            fwd = lambda: engine.apply_prepared(prepared, x, noise, label)  # noqa: E731
+            plain = lambda: model(x, noise, label)  # noqa: E731
+            t_plain = [time_ms(plain, 3, 1)]
+            t_eng = [time_ms(fwd, 3, 1), time_ms(fwd, 3, 1)]
+            t_plain.append(time_ms(plain, 3, 1))
+        log(f"[float32-engine] {tag}, one forward at batch {B}: {np.mean(t_eng):.3f} ms, "
+            f"the plain float32 Denoiser {np.mean(t_plain):.3f} ms (runs {t_eng}, {t_plain})")
+        del prepared
+    del model
+
+
+def phase_float32_serving(smi):
+    """[float32-serving]: the service with no config, `LTDConfig()` as the
+    JAX service builds it (a float32 denoiser of 3 layers, d = 128, 8 x 8
+    tokens): three default requests over HTTP, each with its float32
+    launches (15 DPM++ steps, one image: 15 forwards x 3 layers), the
+    loop's key captured at the second and replayed at the third."""
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack_f32 as f32
+    from transformer_latent_diffusion_tpu_torch.serve.app import GenerationService
+
+    svc = GenerationService(device=DEVICE)
+    tr = svc.transformer
+    if tr.cfg.denoiser_load.dtype != "float32" or tr.diffuser.fast_apply.dtype != torch.float32:
+        raise AssertionError("the service's default is not the float32 LTDConfig()")
+    _reset_counts()
+    phase_serving(svc, "float32-serving")
+    launches = {k: v for k, v in _counts().items() if v}
+    expect = {k: v * tr.cfg.denoiser_cfg.n_layers * 15 * 3
+              for k, v in f32.LAUNCHES_PER_LAYER.items()}
+    graphs = tr.diffuser.graphs
+    log(f"[float32-serving] LTDConfig() (float32, {tr.cfg.denoiser_cfg.n_layers} layers, "
+        f"d = {tr.cfg.denoiser_cfg.embed_dim}): launches of the 3 requests {launches} "
+        f"(expected {expect}); graph captures {graphs.captures}, replays {graphs.replays}; "
+        f"{smi}")
+    _require_launches(launches, expect, "[float32-serving]")
+    if (graphs.captures, graphs.replays) != (1, 2):
+        raise AssertionError("the default request's loop was not captured and replayed")
+    del svc, tr
+
+
+MB_REQS = 8  # concurrent one-image requests: one loop at CFG batch 16
+
+
+def phase_microbatch(tr, smi):
+    """[microbatch]: the service with the micro-batcher on the float32
+    flagship: MB_REQS concurrent one-image HTTP requests coalesce into one
+    sampler call of MB_REQS images (CFG batch 2 x MB_REQS) with one loop's
+    launches; MB_REQS concurrent batcher calls each within one uint8 step
+    of its solo run; a burst past max_queue_imgs answered 503 with
+    Retry-After."""
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack_f32 as f32
+    from transformer_latent_diffusion_tpu_torch.serve.app import GenerationService
+
+    svc = GenerationService(transformer=tr, microbatch=MB_REQS, max_wait_ms=2000.0,
+                            max_queue_imgs=MB_REQS)
+    calls = []
+    orig = tr.diffuser.generate
+    gate = threading.Event()
+    gate.set()
+
+    def spy(*a, **kw):
+        calls.append(kw["num_imgs"])
+        gate.wait(300)
+        return orig(*a, **kw)
+
+    tr.diffuser.generate = spy
+    n_layers = tr.cfg.denoiser_cfg.n_layers
+    loop = {k: v * n_layers * 15 for k, v in f32.LAUNCHES_PER_LAYER.items()}
+
+    def concurrently(fns):
+        out = [None] * len(fns)
+        threads = [threading.Thread(target=lambda i=i: out.__setitem__(i, fns[i]()))
+                   for i in range(len(fns))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return out
+
+    try:
+        with _wsgi_server(svc) as request:
+            walls = []
+            for round_ in range(3):  # the bucket's loop: eager, captured, replayed
+                calls.clear()
+                _reset_counts()
+                t0 = time.perf_counter()
+                replies = concurrently([
+                    lambda i=i: request("/generate-image/", {"prompt": f"a cute cat {i}",
+                                                             "seed": i})
+                    for i in range(MB_REQS)])
+                wall = time.perf_counter() - t0
+                walls.append(wall)
+                launches = {k: v for k, v in _counts().items() if v}
+                log(f"[microbatch] round {round_}: {MB_REQS} concurrent one-image requests "
+                    f"in {wall:.3f} s: statuses {[s for s, _ in replies]}, sampler calls "
+                    f"{calls} (CFG batch {2 * sum(calls)}), launches {launches} (one loop: "
+                    f"{loop})")
+                if any(s != 200 or not b.startswith(b"\xff\xd8\xff") for s, b in replies):
+                    raise AssertionError("[microbatch] a request failed")
+                if calls != [MB_REQS]:
+                    raise AssertionError(f"[microbatch] requests did not coalesce: {calls}")
+                _require_launches(launches, loop, "[microbatch] one batched loop")
+            # a burst past the queue's bound: the sampler held until it is in
+            gate.clear()
+            held = threading.Thread(target=lambda: concurrently([
+                lambda i=i: request("/generate-image/", {"prompt": f"burst {i}", "seed": i})
+                for i in range(MB_REQS)]))
+            held.start()
+            for _ in range(3000):
+                if svc.batcher.queue_depth() == MB_REQS:
+                    break
+                time.sleep(0.01)
+            status, body = request("/generate-image/", {"prompt": "one too many"})
+            retry = request.headers.get("Retry-After")
+            health = json.loads(request("/healthz")[1])
+            gate.set()
+            held.join()
+            log(f"[microbatch] burst of {MB_REQS + 1} against max_queue_imgs {MB_REQS}: the "
+                f"last -> {status} {body[:80]!r}, Retry-After {retry} s; /healthz queue "
+                f"{health['queue_imgs']}/{health['queue_limit']}")
+            if status != 503 or retry is None or health["queue_imgs"] != MB_REQS:
+                raise AssertionError("[microbatch] the full queue was not answered 503 with "
+                                     "Retry-After")
+        # the same 8 requests one after another, without the batcher (each
+        # a replay of the one-image loop after its first two calls)
+        solo_svc = GenerationService(transformer=tr)
+        with _wsgi_server(solo_svc) as request:
+            for i in range(2):
+                request("/generate-image/", {"prompt": "warm-up", "seed": i})
+            t0 = time.perf_counter()
+            for i in range(MB_REQS):
+                request("/generate-image/", {"prompt": f"a cute cat {i}", "seed": i})
+            serial = time.perf_counter() - t0
+        log(f"[microbatch] {MB_REQS} requests: {walls[-1]:.3f} s coalesced (the replay "
+            f"round), {serial:.3f} s one after another without the batcher; {smi}")
+
+        # pixels: each batched image against its solo run (no JPEG between)
+        tr.diffuser.generate = orig
+        reqs = [dict(prompt=f"a photo of thing {i}", seed=100 + i,
+                     class_guidance=2.0 + i) for i in range(MB_REQS)]
+        calls.clear()
+        tr.diffuser.generate = spy
+        batched = concurrently([lambda r=r: svc.batcher.generate(**r, n_iter=15, timeout=600)
+                                for r in reqs])
+        tr.diffuser.generate = orig
+        worst = 0
+        for r, img in zip(reqs, batched):  # PIL grids of one image, as the solo call's
+            solo = tr.generate_image_from_text(r["prompt"], seed=r["seed"], num_imgs=1,
+                                               n_iter=15, class_guidance=r["class_guidance"])
+            worst = max(worst, int(np.abs(np.asarray(img).astype(np.int32)
+                                          - np.asarray(solo).astype(np.int32)).max()))
+        log(f"[microbatch] {MB_REQS} concurrent batcher calls (sampler calls {calls}): each "
+            f"image against its solo run, max |uint8 diff| {worst} (bound 1); {smi}")
+        if calls != [MB_REQS] or worst > 1:
+            raise AssertionError("[microbatch] batched images differ from their solo runs")
+    finally:
+        gate.set()
+        tr.diffuser.generate = orig
+        svc.batcher.close()
+
+
 def main():
     from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
 
@@ -4034,6 +4428,23 @@ def main():
     phase_resized_grid(tr)
     phase_editing(tr, smi)
     del tr
+    torch.cuda.empty_cache()
+
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack_f32 as f32
+
+    f_worst, f_timing, f_library, f_bounds = phase_float32_kernels()
+    cfg32 = f32_config(cfg)
+    phase_float32_engine(cfg32)
+    torch.cuda.empty_cache()
+    tr, f_launches, ips32 = phase_library(cfg32, f32.LAUNCHES_PER_LAYER, "float32-library")
+    log(f"[float32-library] {ips32:.3f} images/s (float32, the JAX default) against "
+        f"{ips:.3f} (bf16 engine, the library phase above)")
+    phase_sampler_graph(tr, f32.LAUNCHES_PER_LAYER, "float32-sampler-graph",
+                        GRAPH_BRIEF_IMGS, GRAPH_BRIEF_ITER)
+    phase_microbatch(tr, smi)
+    del tr
+    torch.cuda.empty_cache()
+    phase_float32_serving(smi)
     torch.cuda.empty_cache()
 
     from transformer_latent_diffusion_tpu_torch.ops import fused_stack_int8 as q8
@@ -4126,10 +4537,16 @@ def main():
                "flash_attention_bwd": "csrc/flash_attention_bwd.cu",
                # composes the K1/K2 kernels and dwconv_gelu_bwd.cu's row-band body
                "fused_mlp_sepconv_bwd": "ops/fused_mlp_vjp.py",
-               "rowquant": "csrc/rowquant.cu", "gemm_i8": "csrc/gemm_i8.cu"}
+               "rowquant": "csrc/rowquant.cu", "gemm_i8": "csrc/gemm_i8.cu",
+               # the float32 bodies (ops/fused_stack_f32.py)
+               "ln_gemm_f32": "csrc/ln_gemm_f32.cu",
+               "self_attention_f32": "csrc/self_attention_f32.cu",
+               "cross_attention_f32": "csrc/cross_attention.cu",
+               "dwconv_gelu_f32": "csrc/dwconv_gelu.cu"}
     kernels = []
     for names, tpu, counts, err, tim, lib, bnd in (
             (fs.KERNELS, TPU_KERNEL, launches, worst, timing, library, bounds),
+            (f32.KERNELS, TPU_KERNEL, f_launches, f_worst, f_timing, f_library, f_bounds),
             (lv.KERNELS, TPU_K2_BWD, t_launches, t_worst, t_timing, t_library, t_bounds),
             (("flash_attention",), TPU_K3, h_launches, h_worst, h_timing, h_library,
              h_bounds),

@@ -139,3 +139,32 @@ def test_cached_refresh_is_the_forward_on_both_engines(setup, quantize):
     assert delta.dtype == torch.bfloat16 and delta2 is delta
     assert torch.isfinite(out2).all()
     assert (out2 - full).abs().max() < 0.05 * full.abs().max()
+
+
+def test_widened_model_samples_exactly_and_warns(setup):
+    """A widened (context-channel, outpainting) model does not block-cache:
+    JAX's fused engine does not take it, so its generator samples exactly
+    and warns (sampling/diffusion.py:332-334, 398-405). The port keeps the
+    engine route and does the same: cache_interval=3 warns and gives the
+    cache_interval=1 trajectory bit for bit."""
+    from transformer_latent_diffusion_tpu_torch.models.denoiser import expand_input_channels
+
+    _, (model, _) = setup
+    wide_cfg = pc.DenoiserConfig(**{**asdict(CFG), "input_channels": 8})
+    sd = expand_input_channels(model.state_dict(), 4, 8, CFG.patch_size)
+    name = "denoiser_trans_block.patchify_and_embed.0.weight"
+    gen_w = torch.Generator().manual_seed(5)  # context weights that matter
+    sd[name][:, 4:] = 0.05 * torch.randn(sd[name][:, 4:].shape, generator=gen_w)
+    wide = Denoiser.from_config(wide_cfg)
+    wide.load_state_dict(sd)
+    gen = DiffusionGenerator(wide.eval(), fast_apply=make_fused_apply(
+        wide_cfg, compute_dtype=torch.float32), device="cpu")
+    assert gen.uses_engine(16)  # the engine route stays
+    labels = np.random.default_rng(1).standard_normal((2, CFG.text_emb_size)).astype(np.float32)
+    ctx = np.random.default_rng(2).standard_normal((2, 4, 16, 16)).astype(np.float32)
+    kw = dict(num_imgs=2, img_size=16, n_iter=7, seed=3, sharp_f=0, bright_f=0,
+              sampler="ddim", context_latents=ctx)
+    _, exact = gen.generate(labels, cache_interval=1, **kw)
+    with pytest.warns(UserWarning, match="falling back to exact sampling"):
+        _, cached = gen.generate(labels, cache_interval=3, **kw)
+    torch.testing.assert_close(cached, exact, atol=0, rtol=0)

@@ -22,6 +22,7 @@ from transformer_latent_diffusion_tpu_torch.ops import fused_block as fb
 from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
 from transformer_latent_diffusion_tpu_torch.ops import fused_mlp_vjp as fm
 from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
+from transformer_latent_diffusion_tpu_torch.ops import fused_stack_f32 as f32
 from transformer_latent_diffusion_tpu_torch.ops import fused_stack_int8 as q8
 from transformer_latent_diffusion_tpu_torch.ops import layer_variants as lvar
 
@@ -1179,3 +1180,120 @@ def test_inpaint_graph_keeps_the_region_on_card(sampler):
             eager[:, 3] += 0.1 * mask.cuda()[:, 0]
             eager[:, 0] += 0.1 * mask.cuda()[:, 0]
             assert torch.equal(got, eager)
+
+
+# ------------------------------ K1 and K7 with float32 weights ------------------------------
+
+
+def _f32_cases(dev):
+    """(name, kernel call, plain call, float32 body) at small shapes, a
+    residual-updating call compared through its update: the four float32
+    bodies, ln_gemm in each mode, the ragged tiles (N = 200 tokens, 144
+    columns, 72 rows)."""
+    g = torch.Generator().manual_seed(7)
+    b, hw, d, heads = 2, 8, 192, 3
+    n, m = hw * hw, 2 * hw * hw
+
+    def r(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g) * std).to(dev)
+
+    x, ln = r(m, d), (1 + r(d, std=0.1), r(d, std=0.1))
+    w, w1, b1 = r(3 * d, d, std=d ** -0.5), r(4 * d, d, std=d ** -0.5), r(4 * d)
+    w2, b2, act = r(d, 4 * d, std=(4 * d) ** -0.5), r(d), r(m, 4 * d)
+    qkv, qc, kv = r(m, 3 * d), r(m, d), r(2 * b, 2 * d)
+    qkv200, x200 = r(2 * 200, 3 * d), r(2 * 200, d)
+    hmat, dw, dwb = r(m, 4 * d), r(9, 4 * d, std=1 / 3), r(4 * d)
+    wr = r(144, d, std=d ** -0.5)
+    return [
+        ("ln_gemm ln", lambda: fs.ln_gemm(x, w, ln=ln), lambda: fs.ln_gemm_plain(x, w, ln=ln),
+         "ln_gemm_f32"),
+        ("ln_gemm bias", lambda: fs.ln_gemm(act, w2, bias=b2),
+         lambda: fs.ln_gemm_plain(act, w2, bias=b2), "ln_gemm_f32"),
+        ("ln_gemm residual", lambda: fs.ln_gemm(act, w2, bias=b2, residual=x.clone()) - x,
+         lambda: fs.ln_gemm_plain(act, w2, bias=b2, residual=x) - x, "ln_gemm_f32"),
+        ("ln_gemm ragged", lambda: fs.ln_gemm(x[:72].contiguous(), wr, bias=b1[:144].contiguous()),
+         lambda: fs.ln_gemm_plain(x[:72], wr, bias=b1[:144]), "ln_gemm_f32"),
+        ("ln_gemm expand", lambda: fs.ln_gemm(x, w1, bias=b1),
+         lambda: fs.ln_gemm_plain(x, w1, bias=b1), "ln_gemm_f32"),
+        ("self_attention", lambda: fs.self_attention(qkv, x.clone(), heads, n) - x,
+         lambda: fs.self_attention_plain(qkv, x, heads, n) - x, "self_attention_f32"),
+        ("self_attention N=200", lambda: fs.self_attention(qkv200, x200.clone(), heads, 200) - x200,
+         lambda: fs.self_attention_plain(qkv200, x200, heads, 200) - x200,
+         "self_attention_f32"),
+        ("cross_attention", lambda: _cat_update(fs.cross_attention(qc, kv, x.clone(), ln, heads, n), x),
+         lambda: _cat_update(fs.cross_attention_plain(qc, kv, x, ln, heads, n), x),
+         "cross_attention_f32"),
+        ("cross_attention ln=None", lambda: fs.cross_attention(qc, kv, x.clone(), None, heads, n)[0] - x,
+         lambda: fs.cross_attention_plain(qc, kv, x, None, heads, n)[0] - x,
+         "cross_attention_f32"),
+        ("dwconv_gelu", lambda: fs.dwconv_gelu(hmat, dw, dwb, hw),
+         lambda: fs.dwconv_gelu_plain(hmat, dw, dwb, hw), "dwconv_gelu_f32"),
+    ]
+
+
+def _cat_update(outs, x):
+    return torch.cat([(outs[0] - x).flatten(), outs[1].flatten()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(10))
+def test_float32_body_matches_plain_on_card(case):
+    """Each float32 body against its plain version on the card, TF32 off:
+    both sum float32 products in float32, in other orders, so rel-L2 within
+    1e-5; one launch counted in fused_stack_f32.LAUNCHES and none in the
+    bf16 counts; two launches bit-equal."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name, kern, plain, body = _f32_cases("cuda")[case]
+    want = plain()
+    before, bf16_before = dict(f32.LAUNCHES), dict(fs.LAUNCHES)
+    got = kern()
+    torch.cuda.synchronize()
+    assert f32.LAUNCHES[body] == before[body] + 1 and dict(fs.LAUNCHES) == bf16_before
+    assert got.dtype == torch.float32
+    assert _rel_l2(got, want) <= 1e-5, name
+    assert torch.equal(got, kern()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_float32_stack_matches_plain_on_card(quantize):
+    """Two float32 layers of K1 (rel-L2 of the update within 1e-4) and of
+    K7 (within the [int8] bound of chip_smoke.py, 0.04: its rowquant flips)
+    against the plain stacks, at d = 192 on an 8 x 8 grid, with the float32
+    bodies' launches per layer."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(9)
+    d, hw, b = 192, 8, 4
+    params = {}
+    for i in range(2):
+        pre = f"denoiser_trans_block.decoder_blocks.{i}"
+        for name, shape in (("norm1.weight", (d,)), ("norm1.bias", (d,)),
+                            ("norm2.weight", (d,)), ("norm2.bias", (d,)),
+                            ("norm3.weight", (d,)), ("norm3.bias", (d,)),
+                            ("self_attention.qkv_linear.weight", (3 * d, d)),
+                            ("cross_attention.q_linear.weight", (d, d)),
+                            ("cross_attention.kv_linear.weight", (2 * d, d)),
+                            ("mlp.mlp.0.weight", (4 * d, d, 1, 1)), ("mlp.mlp.0.bias", (4 * d,)),
+                            ("mlp.mlp.1.weight", (4 * d, 1, 3, 3)), ("mlp.mlp.1.bias", (4 * d,)),
+                            ("mlp.mlp.3.weight", (d, 4 * d, 1, 1)), ("mlp.mlp.3.bias", (d,))):
+            fan = shape[1] if len(shape) > 1 and shape[1] > 1 else 9
+            params[f"{pre}.{name}"] = (torch.randn(*shape, generator=g) * fan ** -0.5
+                                       + (1.0 if name.startswith("norm") and "weight" in name
+                                          else 0.0)).cuda()
+    x = torch.randn(b, hw * hw, d, generator=g).cuda()
+    cond = torch.randn(b, 2, d, generator=g).cuda()
+    pack, run, plain_run = ((fs.pack_layer_stack, fs.fused_layer_stack,
+                             fs.fused_layer_stack_plain) if quantize is None else
+                            (q8.pack_layer_stack_int8, q8.fused_layer_stack_int8,
+                             q8.fused_layer_stack_int8_plain))
+    stack = pack(params, [0, 1], torch.float32)
+    f32.reset_launch_counts()
+    got = run(x, cond, stack, hw, 3)
+    torch.cuda.synchronize()
+    want = plain_run(x, cond, stack, hw, 3)
+    per_layer = f32.launches_per_layer(torch.float32, quantize)
+    assert f32.LAUNCHES == {k: 2 * per_layer.get(k, 0) for k in f32.KERNELS}
+    assert _rel_l2(got - x, want - x) <= (1e-4 if quantize is None else 0.04)
+

@@ -206,12 +206,14 @@ def test_image_grids_match_jax():
 
 
 def test_cuda_configs_the_kernels_cannot_run_raise_at_construction():
-    """On CUDA the fused engine takes bf16 weights and has no switch off
-    its kernels: a float32 denoiser or use_pallas=False is refused when the
-    transformer is built, before any tensor reaches the device (so this
-    runs without a card), not on the first request."""
+    """On CUDA the fused engine takes bf16 or float32 weights and has no
+    switch off its kernels: a float16 denoiser or use_pallas=False is
+    refused when the transformer is built, before any tensor reaches the
+    device (so this runs without a card), not on the first request. (The
+    JAX default, float32, builds on CUDA: tests/test_torch_port_float32_engine.py.)"""
+    f16 = pc.DenoiserLoad(dtype="float16")
     with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        DiffusionTransformer(_tiny_ltd(), device="cuda")
+        DiffusionTransformer(_tiny_ltd(denoiser_load=f16), device="cuda")
     bf16 = pc.DenoiserLoad(dtype="bfloat16")
     with pytest.raises(NotImplementedError, match="use_pallas"):
         DiffusionTransformer(_tiny_ltd(denoiser_load=bf16, use_pallas=False),

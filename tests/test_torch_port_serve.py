@@ -118,12 +118,13 @@ def test_unknown_route_is_404_and_service_needs_a_device():
 
 
 def test_default_config_runs_bf16():
-    """With no config the service builds `default_config()`, whose bf16
-    denoiser is what the CUDA kernels take; LTDConfig() itself keeps the
-    JAX package's float32 default."""
-    assert default_config().denoiser_load.dtype == "bfloat16"
-    assert default_config().denoiser_cfg == pc.LTDConfig().denoiser_cfg
-    assert pc.LTDConfig().denoiser_load.dtype == "float32"
+    """With no config the service builds `default_config()`, which is
+    `LTDConfig()`, the JAX service's default: a float32 denoiser (the
+    kernels' float32 bodies on CUDA). bf16 is one config field away."""
+    assert default_config() == pc.LTDConfig()
+    assert default_config().denoiser_load.dtype == "float32"
+    bf16 = pc.LTDConfig(denoiser_load=pc.DenoiserLoad(dtype="bfloat16"))
+    assert bf16.denoiser_cfg == default_config().denoiser_cfg
 
 
 class _FailingService:

@@ -243,7 +243,7 @@ _UNPORTED_TRAIN = (
     ("pipeline_parallel", bool, "item 14 (parallelism)"),
     ("sequence_parallel", bool, "item 14 (parallelism)"),
     ("lora_rank", lambda v: v > 0, "item 11 (LoRA)"),
-    ("use_wandb", bool, "item 12 (logging)"),
+    ("use_wandb", bool, "item 7 (logging)"),
     ("param_dtype", lambda v: v != "float32", "item 7 (bf16 master weights)"),
 )
 
@@ -258,8 +258,8 @@ def check_train_config(cfg: ModelConfig) -> None:
             raise NotImplementedError(
                 f"TrainConfig.{name}={value!r} is not ported yet (ROADMAP {item})")
     if cfg.denoiser_config.dropout:
-        raise NotImplementedError("dropout > 0 is not ported yet (ROADMAP, "
-                                  "what the training slice left out)")
+        raise NotImplementedError("dropout > 0 is not ported yet (ROADMAP "
+                                  "item 7 (dropout))")
 
 
 def config_to_json(cfg) -> str:

@@ -220,3 +220,38 @@ def clip_text_state_dict(params: Dict[str, Any]) -> StateDict:
         _linear(sd, f"{base}.mlp.c_proj", blk["mlp_c_proj"])
         i += 1
     return sd
+
+
+def hf_clip_state_dict(sd):
+    """HF transformers CLIPModel / CLIPTextModel keys (`text_model.*`, e.g.
+    openai/clip-vit-large-patch14) -> openai CLIP's text-side layout, which
+    `ClipTextModel` loads: the separate q/k/v projections fused into
+    `attn.in_proj_*` (q, k, v stacked on the output axis), and the (proj,
+    width) `text_projection.weight` transposed to openai's (width, proj)
+    matrix; vision keys are dropped. The rename of the JAX package's
+    `convert_hf_clip_state_dict` (models/torch_compat.py), onto torch's
+    layout. Values are torch tensors."""
+    import torch
+
+    pre = "text_model."
+    out = {
+        "token_embedding.weight": sd[pre + "embeddings.token_embedding.weight"],
+        "positional_embedding": sd[pre + "embeddings.position_embedding.weight"],
+        "ln_final.weight": sd[pre + "final_layer_norm.weight"],
+        "ln_final.bias": sd[pre + "final_layer_norm.bias"],
+        "text_projection": sd["text_projection.weight"].T,
+    }
+    i = 0
+    while f"{pre}encoder.layers.{i}.layer_norm1.weight" in sd:
+        src, dst = f"{pre}encoder.layers.{i}", f"transformer.resblocks.{i}"
+        for part in ("weight", "bias"):
+            out[f"{dst}.attn.in_proj_{part}"] = torch.cat(
+                [sd[f"{src}.self_attn.{n}_proj.{part}"] for n in "qkv"])
+        for a, b in (("attn.out_proj", "self_attn.out_proj"), ("ln_1", "layer_norm1"),
+                     ("ln_2", "layer_norm2"), ("mlp.c_fc", "mlp.fc1"),
+                     ("mlp.c_proj", "mlp.fc2")):
+            out[f"{dst}.{a}.weight"] = sd[f"{src}.{b}.weight"]
+            out[f"{dst}.{a}.bias"] = sd[f"{src}.{b}.bias"]
+        i += 1
+    return out
+

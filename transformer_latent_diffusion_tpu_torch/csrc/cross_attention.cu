@@ -41,6 +41,13 @@
 // the per-head dot products over all heads, and one pair of probabilities
 // (rounded to bf16) weighs every column of V. The lanes accumulate their
 // products over the heads first and reduce once.
+//
+// T (a template parameter) is the compute dtype of qc, kv and xn: bf16, or
+// float32 when the weights are float32 (the JAX package's default
+// configuration, `mxu` float32: ltd_cross_attention_f32). The float32 form
+// reads 4 bytes per query element and writes 4 per LN3 element, keeps the
+// probabilities unrounded, and is otherwise the same walk: still
+// memory-bound, one warp per token.
 
 #include "common.cuh"
 
@@ -51,18 +58,41 @@ constexpr int THREADS = 32 * TOKENS_PER_BLOCK;
 constexpr int MAX_HEADS = 12;  // heads whose updated row a lane keeps in registers
 constexpr float LN_EPS = 1e-5f;
 
-template <bool SUMMED>
+// Two adjacent elements of a row (pair index c) widened to float32.
+__device__ __forceinline__ float2 pair(const bf16* p, int c) {
+  return __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(p)[c]);
+}
+__device__ __forceinline__ float2 pair(const float* p, int c) {
+  return reinterpret_cast<const float2*>(p)[c];
+}
+// A probability as the compute dtype holds it: rounded to bf16, or kept.
+__device__ __forceinline__ float as_t(float p, const bf16*) {
+  return __bfloat162float(__float2bfloat16_rn(p));
+}
+__device__ __forceinline__ float as_t(float p, const float*) { return p; }
+__device__ __forceinline__ void put_pair(bf16* p, int c, float x, float y) {
+  reinterpret_cast<uint32_t*>(p)[c] = pack_bf16x2(x, y);
+}
+__device__ __forceinline__ void put_pair(float* p, int c, float x, float y) {
+  reinterpret_cast<float2*>(p)[c] = make_float2(x, y);
+}
+
+// T: the compute dtype of qc, kv and xn (bf16, or float32: then the
+// probabilities are not rounded, as the TPU kernel's `.astype(mxu)` is a
+// no-op for a float32 mxu).
+template <typename T, bool SUMMED>
 __global__ void __launch_bounds__(THREADS)
-cross_attention_kernel(const bf16* __restrict__ qc, const bf16* __restrict__ kv,
+cross_attention_kernel(const T* __restrict__ qc, const T* __restrict__ kv,
                        float* __restrict__ resid, const float* __restrict__ ln_s,
-                       const float* __restrict__ ln_b, bf16* __restrict__ xn, int N, int D,
+                       const float* __restrict__ ln_b, T* __restrict__ xn, int N, int D,
                        int n_heads, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* kvs = reinterpret_cast<bf16*>(smem);  // (2, 2D): [k | v] of cond tokens 0 and 1
+  T* kvs = reinterpret_cast<T*>(smem);  // (2, 2D): [k | v] of cond tokens 0 and 1
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
-  const bf16* kvb = kv + static_cast<size_t>(b) * 4 * D;
-  for (int c = tid; c < D; c += THREADS)  // 4D bf16 = D chunks of 8 bytes
+  const T* kvb = kv + static_cast<size_t>(b) * 4 * D;
+  const int chunks = 4 * D * static_cast<int>(sizeof(T)) / 8;  // 8-byte chunks of 4D elements
+  for (int c = tid; c < chunks; c += THREADS)
     reinterpret_cast<uint2*>(kvs)[c] = reinterpret_cast<const uint2*>(kvb)[c];
   __syncthreads();
 
@@ -71,29 +101,29 @@ cross_attention_kernel(const bf16* __restrict__ qc, const bf16* __restrict__ kv,
   const int n = blockIdx.x * TOKENS_PER_BLOCK + warp;
   if (n >= N) return;
   const size_t row = static_cast<size_t>(b) * N + n;
-  const __nv_bfloat162* q2 = reinterpret_cast<const __nv_bfloat162*>(qc + row * D);
+  const T* q2 = qc + row * D;
   float2* x2 = reinterpret_cast<float2*>(resid + row * D);
-  const __nv_bfloat162* k0 = reinterpret_cast<const __nv_bfloat162*>(kvs);
-  const __nv_bfloat162* v0 = reinterpret_cast<const __nv_bfloat162*>(kvs + D);
-  const __nv_bfloat162* k1 = reinterpret_cast<const __nv_bfloat162*>(kvs + 2 * D);
-  const __nv_bfloat162* v1 = reinterpret_cast<const __nv_bfloat162*>(kvs + 3 * D);
+  const T* k0 = kvs;
+  const T* v0 = kvs + D;
+  const T* k1 = kvs + 2 * D;
+  const T* v1 = kvs + 3 * D;
 
-  // 2-way float32 softmax of the scores s0, s1; probabilities rounded to bf16
+  // 2-way float32 softmax of the scores s0, s1; probabilities in T
   auto probs = [&](float s0, float s1, float& p0, float& p1) {
     const float m = fmaxf(s0, s1);
     const float e0 = expf(s0 - m), e1 = expf(s1 - m);
     const float den = e0 + e1;
-    p0 = __bfloat162float(__float2bfloat16_rn(e0 / den));
-    p1 = __bfloat162float(__float2bfloat16_rn(e1 / den));
+    p0 = as_t(e0 / den, qc);
+    p1 = as_t(e1 / den, qc);
   };
   float p0_all = 0.f, p1_all = 0.f;  // SUMMED: one pair for every head
   if constexpr (SUMMED) {
     float a0s = 0.f, a1s = 0.f;
     for (int h = 0; h < n_heads; ++h) {
       const int c = h * 32 + lane;
-      const float2 q = __bfloat1622float2(q2[c]);
-      const float2 a0 = __bfloat1622float2(k0[c]);
-      const float2 a1 = __bfloat1622float2(k1[c]);
+      const float2 q = pair(q2, c);
+      const float2 a0 = pair(k0, c);
+      const float2 a1 = pair(k1, c);
       a0s += q.x * a0.x + q.y * a0.y;
       a1s += q.x * a1.x + q.y * a1.y;
     }
@@ -105,17 +135,17 @@ cross_attention_kernel(const bf16* __restrict__ qc, const bf16* __restrict__ kv,
   auto updated = [&](int h) { return x2[h * 32 + lane]; };
   float sum = 0.f;
   auto attend = [&](int h) {
-    const int c = h * 32 + lane;  // bf16 pair index within the row
+    const int c = h * 32 + lane;  // pair index within the row
     float p0 = p0_all, p1 = p1_all;
     if constexpr (!SUMMED) {
-      const float2 q = __bfloat1622float2(q2[c]);
-      const float2 a0 = __bfloat1622float2(k0[c]);
-      const float2 a1 = __bfloat1622float2(k1[c]);
+      const float2 q = pair(q2, c);
+      const float2 a0 = pair(k0, c);
+      const float2 a1 = pair(k1, c);
       probs(warp_sum(q.x * a0.x + q.y * a0.y) * scale, warp_sum(q.x * a1.x + q.y * a1.y) * scale,
             p0, p1);
     }
-    const float2 b0 = __bfloat1622float2(v0[c]);
-    const float2 b1 = __bfloat1622float2(v1[c]);
+    const float2 b0 = pair(v0, c);
+    const float2 b1 = pair(v1, c);
     float2 x = x2[c];
     x.x += p0 * b0.x + p1 * b1.x;
     x.y += p0 * b0.y + p1 * b1.y;
@@ -145,12 +175,12 @@ cross_attention_kernel(const bf16* __restrict__ qc, const bf16* __restrict__ kv,
     sq += d0 * d0 + d1 * d1;
   }
   const float rstd = rsqrtf(warp_sum(sq) / D + LN_EPS);
-  uint32_t* xn2 = reinterpret_cast<uint32_t*>(xn + row * D);
+  T* xn2 = xn + row * D;
   auto normalise = [&](int h, float2 x) {
     const int c = h * 32 + lane;
     const float2 sc = reinterpret_cast<const float2*>(ln_s)[c];
     const float2 sh = reinterpret_cast<const float2*>(ln_b)[c];
-    xn2[c] = pack_bf16x2((x.x - mean) * rstd * sc.x + sh.x, (x.y - mean) * rstd * sc.y + sh.y);
+    put_pair(xn2, c, (x.x - mean) * rstd * sc.x + sh.x, (x.y - mean) * rstd * sc.y + sh.y);
   };
 #pragma unroll
   for (int h = 0; h < MAX_HEADS; ++h)
@@ -167,20 +197,44 @@ cross_attention_kernel(const bf16* __restrict__ qc, const bf16* __restrict__ kv,
 // not read). summed != 0: one head as wide as D (see the header). Requires
 // D == n_heads * 64 (any n_heads >= 1 whose 8 D bytes of K/V fit a block's
 // shared memory: D <= 29056).
-LTD_API int ltd_cross_attention(const void* qc, const void* kv, float* resid, const float* ln_s,
-                                const float* ln_b, void* xn, int B, int N, int D, int n_heads,
-                                int summed, void* stream) {
-  if (n_heads < 1 || D != n_heads * 64) return static_cast<int>(cudaErrorInvalidValue);
+namespace {
+
+template <typename T, bool SUMMED>
+int launch(const void* qc, const void* kv, float* resid, const float* ln_s, const float* ln_b,
+           void* xn, int B, int N, int D, int n_heads, cudaStream_t stream) {
   dim3 grid((N + TOKENS_PER_BLOCK - 1) / TOKENS_PER_BLOCK, B);
-  const size_t smem = static_cast<size_t>(4) * D * sizeof(bf16);
-  auto kernel = summed ? cross_attention_kernel<true> : cross_attention_kernel<false>;
+  const size_t smem = static_cast<size_t>(4) * D * sizeof(T);
+  auto kernel = cross_attention_kernel<T, SUMMED>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qc), static_cast<const bf16*>(kv), resid, ln_s, ln_b,
-      static_cast<bf16*>(xn), N, D, n_heads, 0.125f);
+  kernel<<<grid, THREADS, smem, stream>>>(static_cast<const T*>(qc), static_cast<const T*>(kv),
+                                          resid, ln_s, ln_b, static_cast<T*>(xn), N, D, n_heads,
+                                          0.125f);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+LTD_API int ltd_cross_attention(const void* qc, const void* kv, float* resid, const float* ln_s,
+                                const float* ln_b, void* xn, int B, int N, int D, int n_heads,
+                                int summed, void* stream) {
+  if (n_heads < 1 || D != n_heads * 64) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return summed ? launch<bf16, true>(qc, kv, resid, ln_s, ln_b, xn, B, N, D, n_heads, s)
+                : launch<bf16, false>(qc, kv, resid, ln_s, ln_b, xn, B, N, D, n_heads, s);
+}
+
+// The float32 form (compute dtype float32: the JAX package's default
+// configuration): qc (B*N, D), kv (B*2, 2D) and xn (B*N, D) float32, the
+// probabilities not rounded; otherwise as ltd_cross_attention without
+// `summed`. D <= 14528 (16 D bytes of K/V in a block's shared memory).
+LTD_API int ltd_cross_attention_f32(const float* qc, const float* kv, float* resid,
+                                    const float* ln_s, const float* ln_b, float* xn, int B, int N,
+                                    int D, int n_heads, void* stream) {
+  if (n_heads < 1 || D != n_heads * 64) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<float, false>(qc, kv, resid, ln_s, ln_b, xn, B, N, D, n_heads,
+                              static_cast<cudaStream_t>(stream));
 }

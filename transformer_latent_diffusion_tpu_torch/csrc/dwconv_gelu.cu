@@ -29,6 +29,11 @@
 // against 0.060 ms of bytes. So the slab's copy has to overlap the
 // arithmetic, and the arithmetic has to be lean.
 //
+// The float32 compute dtype (the JAX package's default configuration: the
+// TPU kernel's `dw` in float32) takes float32 taps (template parameter WT)
+// with a float32 h and output: the same body, its taps loaded as 16-byte
+// float32 groups instead of widened from bf16, the same float32 sums.
+//
 // What this design does about that (dwconv_gelu_kernel):
 // - A unit of work is (image, 64 channels) for the whole-grid body, or
 //   (image, band of `band` grid rows, 64 channels) for the row-band body.
@@ -193,10 +198,11 @@ __device__ __forceinline__ void to_float(const Lanes<float>& v, float* f) {
 // Units: u = (b * bands + band) * chunks + chunk; slab s of the ring holds
 // unit blockIdx.x + k * gridDim.x for k % stages == s. Thread t owns the
 // channels c0 + TV (t % TG) .. + TV - 1 of runs of TSEG pixels of a row.
-// CT: the type of the stored c (float32, or bf16).
-template <typename T, bool BAND, typename CT>
+// CT: the type of the stored c (float32, or bf16). WT: the taps' type
+// (bf16, or float32 for a float32 compute dtype).
+template <typename T, bool BAND, typename CT, typename WT>
 __global__ void __launch_bounds__(THREADS, 2)
-dwconv_gelu_kernel(const __grid_constant__ CUtensorMap map_h, const bf16* __restrict__ dw,
+dwconv_gelu_kernel(const __grid_constant__ CUtensorMap map_h, const WT* __restrict__ dw,
                    const float* __restrict__ dwb, void* __restrict__ out,
                    CT* __restrict__ c_out, int B, int hw, int C, int band, int stages,
                    int slab_bytes, bool out_f32) {
@@ -238,8 +244,12 @@ dwconv_gelu_kernel(const __grid_constant__ CUtensorMap map_h, const bf16* __rest
     const int c = c0 + grp * TV;
     float w[9][TV];
 #pragma unroll
-    for (int t = 0; t < 9; ++t)
-      to_float(Lanes<bf16>{*reinterpret_cast<const uint2*>(dw + t * C + c)}, w[t]);
+    for (int t = 0; t < 9; ++t) {
+      if constexpr (sizeof(WT) == 2)
+        to_float(Lanes<bf16>{*reinterpret_cast<const uint2*>(dw + t * C + c)}, w[t]);
+      else
+        to_float(Lanes<float>{*reinterpret_cast<const float4*>(dw + t * C + c)}, w[t]);
+    }
     const float4 b4 = *reinterpret_cast<const float4*>(dwb + c);
     const float bias[TV] = {b4.x, b4.y, b4.z, b4.w};
     const int s = k % stages;
@@ -306,7 +316,7 @@ dwconv_gelu_kernel(const __grid_constant__ CUtensorMap map_h, const bf16* __rest
   }
 }
 
-template <typename T, bool BAND, typename CT>
+template <typename T, bool BAND, typename CT, typename WT = bf16>
 int launch_tma(const void* h, const void* dw, const float* dwb, void* out, void* c_out, int B,
                int hw, int C, int band, bool out_f32, cudaStream_t s) {
   const int rows = BAND ? band : hw;
@@ -327,7 +337,7 @@ int launch_tma(const void* h, const void* dw, const float* dwb, void* out, void*
                                                   : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                              4, h, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err) return err;
-  auto kernel = dwconv_gelu_kernel<T, BAND, CT>;
+  auto kernel = dwconv_gelu_kernel<T, BAND, CT, WT>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   int per_sm = 0;
@@ -337,7 +347,7 @@ int launch_tma(const void* h, const void* dw, const float* dwb, void* out, void*
   const int units = B * bands * (C / CHUNK);
   const int fit = sm_count() * (per_sm > 0 ? per_sm : 1);
   kernel<<<units < fit ? units : fit, THREADS, smem, s>>>(
-      map, static_cast<const bf16*>(dw), dwb, out, static_cast<CT*>(c_out), B, hw, C, band,
+      map, static_cast<const WT*>(dw), dwb, out, static_cast<CT*>(c_out), B, hw, C, band,
       stages, slab, out_f32);
   return static_cast<int>(cudaGetLastError());
 }
@@ -352,14 +362,24 @@ int launch_tma(const void* h, const void* dw, const float* dwb, void* out, void*
 // else the grid rows of each block of the row-band body. dw_mode: 0 base,
 // 1 none, 2 commuted (the TMA body, as base). Requires C % 64 == 0; the
 // TMA body its slab within 227 KB (see the header); dw_mode 1 float32 h
-// and c (band not read); c_bf16 bf16 h.
+// and c (band not read); c_bf16 bf16 h. dw_f32 != 0: float32 taps (the
+// float32 compute dtype), with float32 h, no c, dw_mode base or commuted.
 LTD_API int ltd_dwconv_gelu(const void* h, const void* dw, const float* dwb, void* out,
                             void* c_out, int B, int hw, int C, int h_f32, int out_f32,
-                            int band, int c_bf16, int dw_mode, void* stream) {
+                            int band, int c_bf16, int dw_mode, int dw_f32, void* stream) {
   if (C % CHUNK || band < 0 || dw_mode < DW_BASE || dw_mode > DW_COMMUTED)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool of = out_f32 != 0;
+  if (dw_f32) {
+    if (!h_f32 || c_bf16 || c_out != nullptr || dw_mode == DW_NONE)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return band > 0
+               ? launch_tma<float, true, float, float>(h, dw, dwb, out, nullptr, B, hw, C, band,
+                                                       of, s)
+               : launch_tma<float, false, float, float>(h, dw, dwb, out, nullptr, B, hw, C, 0, of,
+                                                        s);
+  }
   if (dw_mode == DW_NONE)
     return h_f32 && !c_bf16 ? launch_pointwise(h, dwb, out, c_out,
                                                static_cast<size_t>(B) * hw * hw, C, of, s)

@@ -38,7 +38,10 @@ SIGNATURES = {
     "ltd_ln_gemm_scratch_rows": (_I, _I, _I, _I),
     "ltd_self_attention": (_P, _P, _I, _I, _I, _I, _P),
     "ltd_cross_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "ltd_dwconv_gelu": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "ltd_dwconv_gelu": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "ltd_ln_gemm_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ltd_self_attention_f32": (_P, _P, _I, _I, _I, _I, _P),
+    "ltd_cross_attention_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ltd_weight_grad": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ltd_colsum": (_P, _P, _P, _P, _I, _I, _I, _P),
     "ltd_layernorm_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),

@@ -32,6 +32,12 @@ query and K/V, the expanded hidden state and the GELU output are rounded
 to the weights' dtype (bf16) after float32 accumulation; softmax
 probabilities are rounded to that dtype before they weigh V.
 
+With float32 weights (the JAX package's default configuration) every one
+of those is float32 and nothing is rounded: each wrapper sends such a
+call to its float32 body (`ops/fused_stack_f32.py`: SIMT FFMA kernels on
+the CUDA cores, since the tensor cores take float32 only as TF32), whose
+launches count in that module's `LAUNCHES`.
+
 The training layer (`ops/fused_layer_vjp.py`, TPU kernel K2) runs the same
 kernels in three more modes: `ln_gemm(out_dtype=torch.float32)` (the
 float32 hidden state, and the backward's dX = dY W products),
@@ -226,6 +232,14 @@ def _ptr(t: Optional[torch.Tensor]):
     return ctypes.c_void_p(t.data_ptr()) if t is not None else None
 
 
+def _f32():
+    """The float32 bodies (`ops/fused_stack_f32.py`, which imports this
+    module)."""
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack_f32
+
+    return fused_stack_f32
+
+
 def ln_gemm(a, w, bias=None, ln=None, residual=None, out_dtype=None,
             return_xn=False, w_transposed=False):
     """Kernel wrapper of `ln_gemm_plain` (same arguments and result; with
@@ -234,10 +248,18 @@ def ln_gemm(a, w, bias=None, ln=None, residual=None, out_dtype=None,
     On CUDA: w bf16 (N, K), or (K, N) with w_transposed (read as stored,
     no copy), N % 8 == 0 (a ragged last column tile is masked) and
     K % 32 == 0; a float32 with `ln`, else bf16; bias, ln and residual
-    float32; out_dtype bf16 or float32."""
+    float32; out_dtype bf16 or float32. Or w float32 (N, K) with a float32
+    a, float32 out and N % 4 == 0, K % 8 == 0: the float32 body
+    (`fused_stack_f32.ln_gemm_f32`)."""
     if a.device.type == "cpu":
         return ln_gemm_plain(a, w, bias, ln, residual, out_dtype, return_xn,
                              w_transposed)
+    if w.dtype == torch.float32:
+        _require(not (w_transposed or return_xn)
+                 and out_dtype in (None, torch.float32),
+                 "ln_gemm: float32 weights take (N, K) w and give float32 "
+                 "out, no return_xn")
+        return _f32().ln_gemm_f32(a, w, bias, ln, residual)
     scale, shift = ln if ln is not None else (None, None)
     extra = [t for t in (bias, scale, shift, residual) if t is not None]
     dev = _on_cuda("ln_gemm", a, w, *extra)
@@ -245,7 +267,8 @@ def ln_gemm(a, w, bias=None, ln=None, residual=None, out_dtype=None,
     n = w.shape[1] if w_transposed else w.shape[0]
     want = (k, n) if w_transposed else (n, k)
     _require(w.dtype == torch.bfloat16 and w.shape == want,
-             f"ln_gemm: w must be bf16 {want}, got {w.dtype} {tuple(w.shape)}")
+             f"ln_gemm: w must be bf16 or float32 {want}, got {w.dtype} "
+             f"{tuple(w.shape)}")
     _require(n % 8 == 0 and k % 32 == 0,
              f"ln_gemm: needs N % 8 == 0 and K % 32 == 0, got N={n} K={k}")
     _require(a.dtype == (torch.float32 if ln is not None else torch.bfloat16),
@@ -289,14 +312,17 @@ def self_attention(qkv, residual, n_heads: int, n_tokens: int):
     """Kernel wrapper of `self_attention_plain`; updates `residual` in place
     on CUDA. Needs head dim 64, N <= 256 (a ragged last 64-token tile is
     masked in the kernel) and contiguous, 16-byte aligned qkv and
-    residual (the kernel's TMA tensor maps)."""
+    residual (the kernel's TMA tensor maps). float32 qkv takes the float32
+    body (`fused_stack_f32.self_attention_f32`)."""
     if qkv.device.type == "cpu":
         return self_attention_plain(qkv, residual, n_heads, n_tokens)
+    if qkv.dtype == torch.float32:
+        return _f32().self_attention_f32(qkv, residual, n_heads, n_tokens)
     dev = _on_cuda("self_attention", qkv, residual)
     m, three_d = qkv.shape
     d = three_d // 3
     _require(qkv.dtype == torch.bfloat16 and residual.dtype == torch.float32,
-             "self_attention: qkv bf16, residual float32")
+             "self_attention: qkv bf16 or float32, residual float32")
     _require(d == 64 * n_heads and residual.shape == (m, d),
              "self_attention: needs head dim 64 and residual (B*N, D)")
     _require(0 < n_tokens <= 256 and m % n_tokens == 0,
@@ -316,10 +342,16 @@ def cross_attention(qc, kv, residual, ln, n_heads: int, n_tokens: int,
     """Kernel wrapper of `cross_attention_plain`; on CUDA it updates
     `residual` in place and returns it with the new bf16 `xn` (None, and
     no LayerNorm, when ln is None). Needs head dim 64 (any number of
-    heads)."""
+    heads). float32 qc and kv take the float32 body
+    (`fused_stack_f32.cross_attention_f32`; not `summed`), whose xn is
+    float32."""
     if qc.device.type == "cpu":
         return cross_attention_plain(qc, kv, residual, ln, n_heads, n_tokens,
                                      summed)
+    if qc.dtype == torch.float32:
+        _require(not summed, "cross_attention: summed takes bf16 qc and kv")
+        return _f32().cross_attention_f32(qc, kv, residual, ln, n_heads,
+                                          n_tokens)
     scale, shift = ln if ln is not None else (None, None)
     lnp = [t for t in (scale, shift) if t is not None]
     dev = _on_cuda("cross_attention", qc, kv, residual, *lnp)
@@ -328,7 +360,8 @@ def cross_attention(qc, kv, residual, ln, n_heads: int, n_tokens: int,
     _require(qc.dtype == torch.bfloat16 and kv.dtype == torch.bfloat16
              and residual.dtype == torch.float32
              and all(t.dtype == torch.float32 and t.numel() == d for t in lnp),
-             "cross_attention: qc and kv bf16; residual and ln (D,) float32")
+             "cross_attention: qc and kv bf16 (or both float32); residual and "
+             "ln (D,) float32")
     _require(d == 64 * n_heads and m == b * n_tokens
              and kv.shape == (2 * b, 2 * d) and residual.shape == (m, d),
              "cross_attention: needs head dim 64, kv (2B, 2D), residual (B*N, D)")
@@ -391,16 +424,25 @@ def dwconv_gelu(h, dw, dwb, hw: int, return_c=False, out_dtype=None,
                 dw_mode="base", c_dtype=None):
     """Kernel wrapper of `dwconv_gelu_plain`. Needs C % 64 == 0 on CUDA;
     h bf16 or float32, dw bf16, dwb float32, out_dtype bf16 (the default)
-    or float32, and the modes and grids that `dwconv_gelu_route` takes."""
+    or float32, and the modes and grids that `dwconv_gelu_route` takes. Or
+    dw float32 with a float32 h (base mode, no c, float32 out): the float32
+    body (`fused_stack_f32.dwconv_gelu_f32`)."""
     _require(dw_mode in DW_MODES, f"dwconv_gelu: dw_mode is one of {DW_MODES}")
     if h.device.type == "cpu":
         return dwconv_gelu_plain(h, dw, dwb, hw, return_c, out_dtype, dw_mode,
                                  c_dtype)
+    if dw.dtype == torch.float32:
+        _require(dw_mode == "base" and not return_c and c_dtype is None
+                 and out_dtype in (None, torch.float32),
+                 "dwconv_gelu: float32 taps take the base mode, without c, "
+                 "float32 out")
+        return _f32().dwconv_gelu_f32(h, dw, dwb, hw)
     dev = _on_cuda("dwconv_gelu", h, dw, dwb)
     m, c = h.shape
     _require(h.dtype in (torch.bfloat16, torch.float32)
              and dw.dtype == torch.bfloat16 and dwb.dtype == torch.float32,
-             "dwconv_gelu: h bf16 or float32, dw bf16, dwb float32")
+             "dwconv_gelu: h bf16 or float32, dw bf16 (or float32 with float32 "
+             "h), dwb float32")
     _require(c % DW_CHUNK == 0 and m % (hw * hw) == 0
              and dw.shape == (9, c) and dwb.numel() == c,
              "dwconv_gelu: needs C % 64 == 0, (B*hw*hw, C) rows, dw (9, C), "
@@ -420,7 +462,7 @@ def dwconv_gelu(h, dw, dwb, hw: int, return_c=False, out_dtype=None,
                               int(h.dtype == torch.float32),
                               int(out_dtype == torch.float32), band,
                               int(c_dtype == torch.bfloat16),
-                              DW_MODES.index(dw_mode), _stream(dev))
+                              DW_MODES.index(dw_mode), 0, _stream(dev))
     _check_launch(err, "dwconv_gelu")
     return (out, c_out) if return_c else out
 

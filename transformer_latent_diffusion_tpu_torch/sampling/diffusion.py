@@ -561,7 +561,9 @@ class DiffusionGenerator:
                 def forward_cached(x2, noises, labels, delta, refresh):
                     return engine.apply_prepared_cached(
                         prepared, x2, noises, labels, delta, refresh)
-            route = ("engine", getattr(engine, "quantize", None))
+            # the compute dtype too: a float32 engine's loop is its own graph
+            route = ("engine", getattr(engine, "quantize", None),
+                     str(getattr(engine, "dtype", None)))
         elif resize_grid is not None:
             model = self.model  # not self: a captured graph holds forward
             pos = self._packed(("pos", resize_grid), lambda: resize_pos_embed(
@@ -578,7 +580,9 @@ class DiffusionGenerator:
 
         if fresh_noise or eta or mask is not None:
             cache_interval = 1  # block caching: plain DDIM/DPM loops only
-        if cache_interval > 1 and forward_cached is None:
+        # a widened (context-channel) model samples exactly, as in JAX, whose
+        # fused engine does not take it (sampling/diffusion.py:332-334)
+        if cache_interval > 1 and (forward_cached is None or in_ch > n_ch):
             warnings.warn(
                 "cache_interval > 1 requires the fused engine (fast_apply "
                 "with apply_prepared_cached) and <= 256 tokens; falling "

@@ -77,13 +77,15 @@ def _launch_counters() -> List[Dict[str, int]]:
         fused_layer_vjp,
         fused_mlp_vjp,
         fused_stack,
+        fused_stack_f32,
         fused_stack_int8,
         layer_variants,
     )
 
     return [m.LAUNCHES for m in (attention, fused_attn_vjp, fused_block,
                                  fused_layer_vjp, fused_mlp_vjp, fused_stack,
-                                 fused_stack_int8, layer_variants)]
+                                 fused_stack_f32, fused_stack_int8,
+                                 layer_variants)]
 
 
 @dataclass

@@ -12,7 +12,9 @@ so on CUDA through the same fused engine as text-to-image.
 
 On a CUDA device the denoiser runs the hand-written kernels, as the JAX
 package runs its Pallas kernels on the TPU (sampling/pipeline.py:113-131,
-225-237): grids of at most 16 x 16 tokens at the native size go through
+225-237), in the configured compute dtype: float32, the default of
+`DenoiserLoad`, runs the kernels' float32 bodies
+(`ops/fused_stack_f32.py`), bfloat16 their bf16 ones: grids of at most 16 x 16 tokens at the native size go through
 the fused engine (K1); larger grids (512 and 1024 px deployments, or a
 256 px model sampled on a larger grid) through the `Denoiser`'s linen path
 with flash attention (K3) in every self-attention and, for a native grid
@@ -87,11 +89,12 @@ def pool_mask_to_latent(mask, want: int) -> np.ndarray:
     return m[None, None]  # (1,1,S,S) broadcasts over batch+channels
 
 
-def _load_or_init(module, path, seed: int, keep=None):
-    """Weights from `path` when it exists (keys filtered by `keep`, then a
+def _load_or_init(module, path, seed: int, kind: str, keep=None, cfg=None):
+    """Weights of the `kind` tower from `path` when it exists, in any
+    format `load_state_dict_file` reads (keys filtered by `keep`, then a
     strict load), else seeded random weights."""
     if path and os.path.exists(path):
-        sd = load_state_dict_file(path)
+        sd = load_state_dict_file(path, kind, cfg)
         if keep is not None:
             sd = {k: v for k, v in sd.items() if keep(k)}
         module.load_state_dict(sd)
@@ -144,12 +147,23 @@ class DiffusionTransformer:
                 "LTDConfig.use_pallas=False: the port has no switch off its "
                 "kernels; on CUDA the denoiser always runs them (the plain "
                 "versions serve the CPU only)")
-        if self.device.type == "cuda" and dtype != torch.bfloat16:
+        if self.device.type == "cuda" and dtype not in (torch.bfloat16,
+                                                        torch.float32):
             raise NotImplementedError(
                 f"DenoiserLoad.dtype={cfg.denoiser_load.dtype!r}: on CUDA the "
-                "denoiser's kernels take bf16 weights only, so set "
-                "DenoiserLoad.dtype='bfloat16' (a float32 engine on CUDA is "
-                "ROADMAP item 4)")
+                "denoiser's kernels take bf16 or float32 weights, so set "
+                "DenoiserLoad.dtype to 'bfloat16' or 'float32' (other "
+                "compute dtypes on CUDA are ROADMAP item 4)")
+        den_cfg = cfg.denoiser_cfg
+        if (self.device.type == "cuda" and dtype == torch.float32
+                and not (uses_fused_engine(cfg, self.device)
+                         and den_cfg.image_size // den_cfg.patch_size <= 16)):
+            raise NotImplementedError(
+                "DenoiserLoad.dtype='float32' on CUDA runs the fused engine's "
+                "float32 bodies (a sep-conv model of at most 16 x 16 tokens); "
+                "the linen path's kernels (flash attention, the fused MLP) "
+                "take bf16, so set DenoiserLoad.dtype='bfloat16' (their "
+                "float32 bodies are ROADMAP item 4)")
 
         load = cfg.denoiser_load
         if load.file_url is not None and not (
@@ -160,11 +174,12 @@ class DiffusionTransformer:
         denoiser = Denoiser.from_config(
             cfg.denoiser_cfg, dtype=dtype,
             **denoiser_kernel_flags(cfg, self.device))
-        _load_or_init(denoiser, load.local_filename, seed)
+        _load_or_init(denoiser, load.local_filename, seed, "denoiser",
+                      cfg=cfg.denoiser_cfg)
         denoiser.to(self.device).eval()
 
         self.vae = AutoencoderKL.from_config(cfg.vae_cfg)
-        _load_or_init(self.vae, cfg.vae_cfg.weights_path, seed + 1,
+        _load_or_init(self.vae, cfg.vae_cfg.weights_path, seed + 1, "vae",
                       keep=lambda k: k.startswith(("decoder.", "encoder.",
                                                    "post_quant_conv.",
                                                    "quant_conv.")))
@@ -173,7 +188,7 @@ class DiffusionTransformer:
         self.clip_model = ClipTextModel.from_config(
             cfg.clip_cfg, dtype=resolve_dtype(cfg.clip_cfg.clip_dtype))
         text_keys = set(self.clip_model.state_dict())
-        _load_or_init(self.clip_model, cfg.clip_cfg.weights_path, seed + 2,
+        _load_or_init(self.clip_model, cfg.clip_cfg.weights_path, seed + 2, "clip",
                       keep=text_keys.__contains__)
         self.clip_model.to(self.device).eval()
         clip_file = cfg.clip_cfg.weights_path

@@ -3,8 +3,11 @@
 
 --config (or the SERVE_CONFIG environment variable) points at a
 `config_to_json(LTDConfig(...))` file: weights, sizes and dtypes. Without
-it the service runs `serve.app.default_config()` (bf16 denoiser); on CUDA
-a config must set `denoiser_load.dtype` to "bfloat16"."""
+it the service runs `serve.app.default_config()`, `LTDConfig()` (a float32
+denoiser, the kernels' float32 bodies on CUDA), as the JAX service does.
+The SERVE_* environment variables set the micro-batcher (SERVE_MICROBATCH,
+SERVE_MICROBATCH_WAIT_MS, SERVE_MICROBATCH_MAX_QUEUE), the buckets, the
+request timeout and the startup warm-up (SERVE_WARMUP)."""
 
 import argparse
 import os

@@ -23,24 +23,40 @@ seed_b (an interpolation strip of max(num_imgs, 2) frames); the solver
 fields apply to text-to-image only, block caching on an init_image
 request warns and samples exactly, and the JAX service's 422s for
 combinations that do not compose. best_of answers 422 naming its ROADMAP
-item. The FastAPI frontend and the micro-batcher wait (ROADMAP item 10).
+item.
+
+Under load, as the JAX service: `microbatch` (or SERVE_MICROBATCH, a max
+batch size) sends text-to-image and editing requests through the
+micro-batcher (`serve/batcher.py`), which coalesces concurrent requests
+into one sampler call; a request that would overflow its bounded queue is
+answered 503 with a Retry-After header; /healthz reports the queue
+(`queue_imgs`, `queue_limit`) and "warming" while the startup warm-up
+(`warmup` or SERVE_WARMUP) runs. The FastAPI frontend waits (ROADMAP item
+10): `fastapi` is not a dependency of the port.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import threading
 import time
 from typing import Optional
 
-from transformer_latent_diffusion_tpu_torch.configs import DenoiserLoad, LTDConfig
+from transformer_latent_diffusion_tpu_torch.configs import LTDConfig
+from transformer_latent_diffusion_tpu_torch.serve.errors import QueueFull
+
+# "read the SERVE_* environment variable, else the class default"
+_ENV_DEFAULT = object()
 
 
 def default_config() -> LTDConfig:
-    """What the service runs when given no config: `LTDConfig()` with a
-    bf16 denoiser, the dtype the CUDA kernels take."""
-    return LTDConfig(denoiser_load=DenoiserLoad(dtype="bfloat16"))
+    """What the service runs when given no config: `LTDConfig()`, as the
+    JAX service (its float32 denoiser runs the kernels' float32 bodies on
+    CUDA; `LTDConfig(denoiser_load=DenoiserLoad(dtype="bfloat16"))` serves
+    the bf16 ones)."""
+    return LTDConfig()
 
 
 class GenerationService:
@@ -50,8 +66,19 @@ class GenerationService:
     snapped up to a bucket (the padded images are generated
     and dropped) and n_iter up to a bucket (the largest bucket caps the
     step count), so that only a few batch shapes and step counts ever
-    run. SERVE_NUM_IMGS_BUCKETS / SERVE_N_ITER_BUCKETS override the
-    buckets ("" or "0" disables)."""
+    run. `num_imgs_buckets` / `n_iter_buckets` (else SERVE_NUM_IMGS_BUCKETS
+    / SERVE_N_ITER_BUCKETS; "" or "0" disables) set the buckets.
+
+    The JAX service's load settings: `microbatch` (else SERVE_MICROBATCH),
+    the micro-batcher's max batch (None or 0: no batcher): text-to-image
+    requests without block caching and editing requests of at most that
+    many images ride it, interpolation strips and larger requests take the
+    solo path; `max_wait_ms` (else SERVE_MICROBATCH_WAIT_MS, 25) its wait
+    for a batch to fill; `max_queue_imgs` its queue bound (else
+    SERVE_MICROBATCH_MAX_QUEUE, 8 x microbatch); `request_timeout_s` (else
+    SERVE_TIMEOUT_S, 900) how long a request waits for the batcher;
+    `warmup` (else SERVE_WARMUP) runs the default request once in a
+    background thread at startup, /healthz saying "warming" meanwhile."""
 
     DEFAULT_NUM_IMGS_BUCKETS = (1, 2, 4, 8, 16, 32)
     DEFAULT_N_ITER_BUCKETS = (4, 8, 15, 25, 50)
@@ -75,7 +102,11 @@ class GenerationService:
         return buckets[-1]
 
     def __init__(self, cfg: Optional[LTDConfig] = None, device=None,
-                 transformer=None):
+                 transformer=None, microbatch: Optional[int] = None,
+                 max_wait_ms=_ENV_DEFAULT,
+                 request_timeout_s: Optional[float] = None,
+                 num_imgs_buckets=_ENV_DEFAULT, n_iter_buckets=_ENV_DEFAULT,
+                 warmup=_ENV_DEFAULT, max_queue_imgs: Optional[int] = None):
         if transformer is None:
             if device is None:
                 raise ValueError("GenerationService needs a device "
@@ -87,12 +118,32 @@ class GenerationService:
             transformer = DiffusionTransformer(cfg or default_config(),
                                                device=device)
         self.transformer = transformer
-        nb = self._env_buckets("SERVE_NUM_IMGS_BUCKETS",
-                               self.DEFAULT_NUM_IMGS_BUCKETS)
-        ib = self._env_buckets("SERVE_N_ITER_BUCKETS",
-                               self.DEFAULT_N_ITER_BUCKETS)
-        self.num_imgs_buckets = tuple(sorted(nb)) if nb else None
-        self.n_iter_buckets = tuple(sorted(ib)) if ib else None
+        if num_imgs_buckets is _ENV_DEFAULT:
+            num_imgs_buckets = self._env_buckets("SERVE_NUM_IMGS_BUCKETS",
+                                                 self.DEFAULT_NUM_IMGS_BUCKETS)
+        if n_iter_buckets is _ENV_DEFAULT:
+            n_iter_buckets = self._env_buckets("SERVE_N_ITER_BUCKETS",
+                                               self.DEFAULT_N_ITER_BUCKETS)
+        self.num_imgs_buckets = (tuple(sorted(num_imgs_buckets))
+                                 if num_imgs_buckets else None)
+        self.n_iter_buckets = (tuple(sorted(n_iter_buckets))
+                               if n_iter_buckets else None)
+        if microbatch is None and os.getenv("SERVE_MICROBATCH"):
+            microbatch = int(os.environ["SERVE_MICROBATCH"])
+        if max_wait_ms is _ENV_DEFAULT:
+            max_wait_ms = float(os.getenv("SERVE_MICROBATCH_WAIT_MS", "25"))
+        if request_timeout_s is None:
+            request_timeout_s = float(os.getenv("SERVE_TIMEOUT_S", "900"))
+        self.request_timeout_s = request_timeout_s
+        self.batcher = None
+        if microbatch:
+            from transformer_latent_diffusion_tpu_torch.serve.batcher import (
+                MicroBatcher,
+            )
+
+            self.batcher = MicroBatcher(transformer, max_batch=microbatch,
+                                        max_wait_ms=max_wait_ms,
+                                        max_queue_imgs=max_queue_imgs)
         self._stats_lock = threading.Lock()
         self._stats = {"requests": 0, "images": 0, "errors": 0,
                        "generate_seconds": 0.0}
@@ -109,6 +160,20 @@ class GenerationService:
         else:
             self._device_info = {"backend": dev.type, "n_devices": 1,
                                  "device_kind": dev.type}
+        self._warmup_thread = None
+        if warmup is _ENV_DEFAULT:
+            warmup = os.getenv("SERVE_WARMUP", "") not in ("", "0")
+        if warmup:
+            def _warm():
+                try:  # not generate_jpeg: the warm-up is not a request
+                    self._generate_jpeg("warmup", num_imgs=1)
+                except Exception as e:  # the server stays up
+                    print(f"serve warmup failed: {type(e).__name__}: {e}",
+                          flush=True)
+
+            self._warmup_thread = threading.Thread(
+                target=_warm, name="serve-warmup", daemon=True)
+            self._warmup_thread.start()
 
     def effective_n_iter(self, n_iter) -> Optional[int]:
         """The step count a request actually runs after bucketing."""
@@ -119,11 +184,29 @@ class GenerationService:
         return n_iter
 
     def health(self) -> dict:
-        info = {"status": "ok", "microbatch": False}
+        """The /healthz payload: "warming" while the startup warm-up runs,
+        the batcher's queue, the device inventory snapshotted at start and
+        the request counters."""
+        warming = (self._warmup_thread is not None
+                   and self._warmup_thread.is_alive())
+        info = {"status": "warming" if warming else "ok",
+                "microbatch": self.batcher is not None}
+        if self.batcher is not None:
+            info["queue_imgs"] = self.batcher.queue_depth()
+            info["queue_limit"] = self.batcher.max_queue_imgs
         info.update(self._device_info)
         with self._stats_lock:
             info.update(self._stats)
         return info
+
+    def retry_after_hint(self) -> int:
+        """Seconds a client answered 503 should wait: the mean time of the
+        requests served so far, at least 1 (2 before any was served)."""
+        with self._stats_lock:
+            n = self._stats["requests"] - self._stats["errors"]
+            if n > 0:
+                return max(1, math.ceil(self._stats["generate_seconds"] / n))
+        return 2
 
     def generate_jpeg(self, prompt: str, num_imgs: int = 1, **kwargs) -> bytes:
         """Counted and timed wrapper of `_generate_jpeg` (feeds /healthz)."""
@@ -175,7 +258,14 @@ class GenerationService:
             if strength is None:  # inpainting regenerates fully by default
                 strength = 1.0 if mask is not None else 0.5
             src = _open_image(init_image).convert("RGB")
-            if mask is not None:
+            if self.batcher is not None and num_imgs <= self.batcher.max_batch:
+                img = self.batcher.generate(
+                    prompt=prompt, class_guidance=class_guidance, seed=seed,
+                    num_imgs=num_imgs, n_iter=n_iter,
+                    negative_prompt=negative_prompt, init_image=src,
+                    mask=None if mask is None else _open_image(mask).convert("L"),
+                    strength=strength, timeout=self.request_timeout_s)
+            elif mask is not None:
                 img = self.transformer.inpaint(
                     src, _open_image(mask).convert("L"), prompt,
                     strength=strength, **edit_kw)
@@ -188,6 +278,14 @@ class GenerationService:
                 prompt, interpolate_to, n_frames=max(num_imgs, 2),
                 class_guidance=class_guidance, seed=seed, seed_b=seed_b,
                 n_iter=n_iter, negative_prompt=negative_prompt)
+        elif (self.batcher is not None and cache_interval == 1
+                and num_imgs <= self.batcher.max_batch):
+            img = self.batcher.generate(
+                prompt=prompt, class_guidance=class_guidance, seed=seed,
+                num_imgs=num_imgs, img_size=img_size, n_iter=n_iter,
+                negative_prompt=negative_prompt, sampler=sampler,
+                schedule=schedule, cfg_rescale=cfg_rescale, eta=eta,
+                timeout=self.request_timeout_s)
         else:
             solver_kw = {}
             if sampler is not None:
@@ -321,7 +419,8 @@ def _check_token(auth_header: Optional[str]):
 
 
 _REASONS = {200: "OK", 401: "Unauthorized", 404: "Not Found",
-            422: "Unprocessable Entity", 500: "Internal Server Error"}
+            422: "Unprocessable Entity", 500: "Internal Server Error",
+            503: "Service Unavailable"}
 
 
 def create_wsgi_app(cfg: Optional[LTDConfig] = None, service=None,
@@ -373,6 +472,10 @@ def create_wsgi_app(cfg: Optional[LTDConfig] = None, service=None,
                          if eff is not None and eff != kwargs["n_iter"] else [])
                 return respond(200, jpeg, content_type="image/jpeg",
                                extra_headers=extra)
+            except QueueFull as e:  # the batcher's queue is at its bound
+                return respond(503, json.dumps({"detail": str(e)}).encode(),
+                               extra_headers=[("Retry-After",
+                                               str(svc.retry_after_hint()))])
             except Exception as e:
                 return detail(500, str(e))
         return detail(404, "Not Found")

@@ -2,6 +2,7 @@
 
 
 class QueueFull(RuntimeError):
-    """The request queue is at capacity. Raised by the micro-batcher, which
-    is not ported yet (ROADMAP item 10); frontends answer it with a 503
-    and a Retry-After header."""
+    """The request queue is at capacity: raised by the micro-batcher
+    (`serve/batcher.py`) for a request that would pass its
+    `max_queue_imgs`; the WSGI frontend answers it with a 503 and a
+    Retry-After header."""

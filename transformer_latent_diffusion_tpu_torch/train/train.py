@@ -562,7 +562,7 @@ def main(config: ModelConfig, device,
             path = config.vae_cfg.weights_path
             if path and os.path.exists(path):
                 dec.load_state_dict({k: v for k, v in load_state_dict_file(
-                    path).items() if k.startswith(("decoder.", "post_quant_conv."))})
+                    path, "vae").items() if k.startswith(("decoder.", "post_quant_conv."))})
             else:
                 init_random_weights_(dec, train_config.seed + 1)
             vae.append(dec.to(device, resolve_dtype(config.vae_cfg.vae_dtype)).eval())
