@@ -156,6 +156,10 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOP_S = 989e12
 INT8_TENSOR_OP_S = 1979e12
 F32_FLOP_S = 67e12
+# TF32 on the tensor cores; the float32 bodies ln_gemm_f32 and
+# self_attention_f32 run each float32 product as three TF32 products of
+# the operands' parts (3xTF32), so their float32 work goes at a third of it
+TF32_TENSOR_FLOP_S = 495e12
 # kernel vs plain version on the same inputs: rel-L2 and max-abs bounds
 # (max-abs relative to the plain output's largest magnitude). The two
 # accumulate the same bf16 products in float32 in different orders, so a
@@ -4046,20 +4050,24 @@ F32_ENGINE_REL_L2 = 1e-4
 F32_IMGS, F32_ITER = 32, 50
 
 
-def f32_bounds():
+def f32_bounds(tensor_cores=True):
     """Least ms per decoder layer of each float32 body at the main path's
-    shapes (each input read once, each output written once), against the
-    card's float32 rate (no tensor cores: they take float32 as TF32)."""
+    shapes (each input read once, each output written once). The products
+    of ln_gemm_f32 and self_attention_f32 run on the tensor cores as three
+    TF32 products each (3xTF32: TF32_TENSOR_FLOP_S / 3 of float32 work);
+    with tensor_cores=False, at the card's float32 FFMA rate, as the other
+    two bodies' operations always are."""
     m = B * N
     gemms = [  # (rows, N, K, extra bytes: bias, residual)
         (m, 3 * D, D, 0), (m, D, D, 0), (2 * B, 2 * D, D, 0),
         (m, HIDDEN, D, HIDDEN * 4), (m, D, HIDDEN, m * D * 4 + D * 4)]
     gbytes = sum(4 * (r * k + n * k + r * n) + ex for r, n, k, ex in gemms)
     gflops = sum(2 * r * n * k for r, n, k, _ in gemms)
+    split = TF32_TENSOR_FLOP_S / 3 if tensor_cores else F32_FLOP_S
     return {
-        "ln_gemm_f32": bound(gbytes, gflops, F32_FLOP_S),
+        "ln_gemm_f32": bound(gbytes, gflops, split),
         "self_attention_f32": bound(m * 3 * D * 4 + m * D * 8,
-                                    4 * B * HEADS * N * N * 64, F32_FLOP_S),
+                                    4 * B * HEADS * N * N * 64, split),
         "cross_attention_f32": bound(m * D * 4 + 2 * B * 2 * D * 4 + m * D * 8 + m * D * 4,
                                      16 * m * D, F32_FLOP_S),
         "dwconv_gelu_f32": bound(m * HIDDEN * 8 + 9 * HIDDEN * 4 + HIDDEN * 4,
@@ -4071,9 +4079,10 @@ def phase_float32_kernels():
     """[float32-kernels]: each float32 body (ops/fused_stack_f32.py) against
     its plain version at the main path's shapes (batch 64), TF32 off:
     rel-L2 within F32_KERNEL_REL_L2, two launches bit-equal, ms against
-    the plain version, the bound and one PyTorch call, and ptxas's
-    registers and spills. Returns (worst max-abs, timing, library,
-    bounds), keyed by kernel."""
+    the plain version, the bound (3xTF32 for the two tensor-core bodies,
+    the FFMA bound beside it), one PyTorch call and the equal-work
+    yardsticks, and ptxas's registers, spills and `wgmma` serialisation.
+    Returns (worst max-abs, timing, library, bounds), keyed by kernel."""
     from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
 
     F = torch.nn.functional
@@ -4177,16 +4186,52 @@ def phase_float32_kernels():
     }
     library["dwconv_gelu_f32 (equal work)"] = time_ms(
         dw_equal_work(hmat, dw, dwb, HW, out_dtype=torch.float32))
-    bounds = f32_bounds()
+    xe = x.clone()
+
+    def ln_gemm_equal_work():
+        # what the five calls compute, in float32 PyTorch calls: the two
+        # LayerNorms, the products with their biases, the residual add
+        return (F.linear(F.layer_norm(x, (D,), ln[0], ln[1], 1e-5), wqkv),
+                F.linear(F.layer_norm(x, (D,), ln[0], ln[1], 1e-5), wq),
+                F.linear(cond, wkv), F.linear(xn, w1, b1), xe.add_(F.linear(act, w2, b2)))
+
+    def self_attention_equal_work():
+        # the head reshape, SDPA, the heads back into rows, the residual add
+        o = F.scaled_dot_product_attention(*qkv.reshape(B, N, 3, HEADS, 64)
+                                           .permute(2, 0, 3, 1, 4).unbind(0))
+        return xe.add_(o.transpose(1, 2).reshape(m, D))
+
+    library["ln_gemm_f32 (equal work)"] = time_ms(ln_gemm_equal_work)
+    library["self_attention_f32 (equal work)"] = time_ms(self_attention_equal_work)
+    bounds, ffma = f32_bounds(), f32_bounds(tensor_cores=False)
+    log("[float32-kernels] ln_gemm_f32 and self_attention_f32 run their products on the "
+        "tensor cores in TF32 parts by design (3xTF32 wgmma); the plain versions and the "
+        f"PyTorch yardsticks run with TF32 off (matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32}, cudnn.allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32})")
     for name in results:
         ms, plain_ms = timing[name]
         lib = library[name]
+        eq = library.get(f"{name} (equal work)")
+        tc = (f" (3xTF32 at {TF32_TENSOR_FLOP_S / 3e12:.0f} TFLOP/s; FFMA bound "
+              f"{ffma[name][0]:.4f} ms, {ffma[name][0] / ms:.1%} of it)"
+              if name in ("ln_gemm_f32", "self_attention_f32") else "")
         log(f"[float32-kernels] {name}: {ms:.4f} ms per layer, plain {plain_ms:.4f} ms, bound "
-            f"{bounds[name][0]:.4f} ms ({bounds[name][1]}; {bounds[name][0] / ms:.1%} of it), "
-            f"library call {'none' if lib is None else f'{lib:.4f} ms'}")
-    log(f"[float32-kernels] dwconv_gelu_f32: equal-work yardstick (F.conv2d groups=C with "
-        f"bias + F.gelu, float32, cudnn TF32 off) "
-        f"{library['dwconv_gelu_f32 (equal work)']:.4f} ms")
+            f"{bounds[name][0]:.4f} ms ({bounds[name][1]}{tc}; {bounds[name][0] / ms:.1%} of "
+            f"it), library call {'none' if lib is None else f'{lib:.4f} ms'}"
+            + ("" if eq is None else f", equal work {eq:.4f} ms"))
+    # ln_gemm_f32's five products apart, each against its own 3xTF32 bound
+    parts = {"qkv (LN1)": (lambda: fs.ln_gemm(x, wqkv, ln=ln), m, 3 * D, D),
+             "q (LN2)": (lambda: fs.ln_gemm(x, wq, ln=ln), m, D, D),
+             "kv": (lambda: fs.ln_gemm(cond, wkv), 2 * B, 2 * D, D),
+             "expand": (lambda: fs.ln_gemm(xn, w1, bias=b1), m, HIDDEN, D),
+             "contract": (lambda: fs.ln_gemm(act, w2, bias=b2, residual=xr), m, D, HIDDEN)}
+    split = []
+    for label, (fn, r, n, k) in parts.items():
+        ms = time_ms(fn)
+        least = bound(4 * (r * k + n * k + r * n), 2 * r * n * k, TF32_TENSOR_FLOP_S / 3)[0]
+        split.append(f"{label} {ms:.4f} ms ({least / ms:.1%} of its bound)")
+    log("[float32-kernels] ln_gemm_f32 by product: " + ", ".join(split))
     return worst, timing, library, bounds
 
 

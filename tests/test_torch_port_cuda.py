@@ -1189,7 +1189,10 @@ def _f32_cases(dev):
     """(name, kernel call, plain call, float32 body) at small shapes, a
     residual-updating call compared through its update: the four float32
     bodies, ln_gemm in each mode, the ragged tiles (N = 200 tokens, 144
-    columns, 72 rows)."""
+    columns, 72 rows), the widths 64 and 1024 (the LayerNorm prologue at
+    K = 1024, the contract at K = 4096), the conditioning K/V at 4 and 128
+    rows, K = 200 (not a multiple of 32) and self_attention at 1 and 16
+    heads."""
     g = torch.Generator().manual_seed(7)
     b, hw, d, heads = 2, 8, 192, 3
     n, m = hw * hw, 2 * hw * hw
@@ -1197,13 +1200,26 @@ def _f32_cases(dev):
     def r(*shape, std=1.0):
         return (torch.randn(*shape, generator=g) * std).to(dev)
 
-    x, ln = r(m, d), (1 + r(d, std=0.1), r(d, std=0.1))
+    def lnp(k):
+        return 1 + r(k, std=0.1), r(k, std=0.1)
+
+    x, ln = r(m, d), lnp(d)
     w, w1, b1 = r(3 * d, d, std=d ** -0.5), r(4 * d, d, std=d ** -0.5), r(4 * d)
     w2, b2, act = r(d, 4 * d, std=(4 * d) ** -0.5), r(d), r(m, 4 * d)
     qkv, qc, kv = r(m, 3 * d), r(m, d), r(2 * b, 2 * d)
     qkv200, x200 = r(2 * 200, 3 * d), r(2 * 200, d)
     hmat, dw, dwb = r(m, 4 * d), r(9, 4 * d, std=1 / 3), r(4 * d)
     wr = r(144, d, std=d ** -0.5)
+    # the widths 64 and 1024 (one and 16 heads), K = 200, the conditioning K/V
+    x64, ln64, w64 = r(m, 64), lnp(64), r(3 * 64, 64, std=64 ** -0.5)
+    act64, w64c, b64 = r(m, 256), r(64, 256, std=256 ** -0.5), r(64)
+    x1k, ln1k, w1k = r(72, 1024), lnp(1024), r(3 * 1024, 1024, std=1024 ** -0.5)
+    act4k, w4k, b4k = r(72, 4096), r(1024, 4096, std=4096 ** -0.5), r(1024)
+    x1kr = r(72, 1024)
+    x200k, ln200k, w200k = r(m, 200), lnp(200), r(96, 200, std=200 ** -0.5)
+    cond, wkv = r(128, d), r(2 * d, d, std=d ** -0.5)
+    qkv1, x1 = r(2 * 64, 3 * 64), r(2 * 64, 64)
+    qkv16, x16 = r(2 * 256, 3 * 1024), r(2 * 256, 1024)
     return [
         ("ln_gemm ln", lambda: fs.ln_gemm(x, w, ln=ln), lambda: fs.ln_gemm_plain(x, w, ln=ln),
          "ln_gemm_f32"),
@@ -1228,7 +1244,31 @@ def _f32_cases(dev):
          "cross_attention_f32"),
         ("dwconv_gelu", lambda: fs.dwconv_gelu(hmat, dw, dwb, hw),
          lambda: fs.dwconv_gelu_plain(hmat, dw, dwb, hw), "dwconv_gelu_f32"),
+        ("ln_gemm ln D=64", lambda: fs.ln_gemm(x64, w64, ln=ln64),
+         lambda: fs.ln_gemm_plain(x64, w64, ln=ln64), "ln_gemm_f32"),
+        ("ln_gemm contract D=64", lambda: fs.ln_gemm(act64, w64c, bias=b64, residual=x64.clone()) - x64,
+         lambda: fs.ln_gemm_plain(act64, w64c, bias=b64, residual=x64) - x64, "ln_gemm_f32"),
+        ("ln_gemm ln D=1024", lambda: fs.ln_gemm(x1k, w1k, ln=ln1k),
+         lambda: fs.ln_gemm_plain(x1k, w1k, ln=ln1k), "ln_gemm_f32"),
+        ("ln_gemm contract K=4096", lambda: fs.ln_gemm(act4k, w4k, bias=b4k, residual=x1kr.clone()) - x1kr,
+         lambda: fs.ln_gemm_plain(act4k, w4k, bias=b4k, residual=x1kr) - x1kr, "ln_gemm_f32"),
+        ("ln_gemm ln K=200", lambda: fs.ln_gemm(x200k, w200k, ln=ln200k),
+         lambda: fs.ln_gemm_plain(x200k, w200k, ln=ln200k), "ln_gemm_f32"),
+        ("ln_gemm K=200", lambda: fs.ln_gemm(x200k, w200k), lambda: fs.ln_gemm_plain(x200k, w200k),
+         "ln_gemm_f32"),
+        ("ln_gemm kv M=4", lambda: fs.ln_gemm(cond[:4].contiguous(), wkv),
+         lambda: fs.ln_gemm_plain(cond[:4], wkv), "ln_gemm_f32"),
+        ("ln_gemm kv M=128", lambda: fs.ln_gemm(cond, wkv), lambda: fs.ln_gemm_plain(cond, wkv),
+         "ln_gemm_f32"),
+        ("self_attention 1 head", lambda: fs.self_attention(qkv1, x1.clone(), 1, 64) - x1,
+         lambda: fs.self_attention_plain(qkv1, x1, 1, 64) - x1, "self_attention_f32"),
+        ("self_attention 16 heads", lambda: fs.self_attention(qkv16, x16.clone(), 16, 256) - x16,
+         lambda: fs.self_attention_plain(qkv16, x16, 16, 256) - x16, "self_attention_f32"),
     ]
+
+
+# the number of _f32_cases (the cases are made on the card, inside the test)
+F32_CASES = 20
 
 
 def _cat_update(outs, x):
@@ -1236,7 +1276,7 @@ def _cat_update(outs, x):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", range(10))
+@pytest.mark.parametrize("case", range(F32_CASES))
 def test_float32_body_matches_plain_on_card(case):
     """Each float32 body against its plain version on the card, TF32 off:
     both sum float32 products in float32, in other orders, so rel-L2 within
@@ -1244,7 +1284,9 @@ def test_float32_body_matches_plain_on_card(case):
     bf16 counts; two launches bit-equal."""
     _need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
-    name, kern, plain, body = _f32_cases("cuda")[case]
+    cases = _f32_cases("cuda")
+    assert len(cases) == F32_CASES
+    name, kern, plain, body = cases[case]
     want = plain()
     before, bf16_before = dict(f32.LAUNCHES), dict(fs.LAUNCHES)
     got = kern()

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the TMA + wgmma kernels
 // (self_attention.cu, gemm_bwd.cu, ln_gemm.cu, flash_attention.cu,
 // flash_attention_bwd.cu, attention_bwd.cu, gemm_i8.cu, dwconv_gelu.cu,
-// head_group_attention.cu):
+// head_group_attention.cu, ln_gemm_f32.cu, self_attention_f32.cu):
 // mbarriers, TMA tensor copies, wgmma shared-memory descriptors and the
 // wgmma instructions themselves, in PTX.
 #pragma once
@@ -565,4 +565,77 @@ __device__ __forceinline__ void store_acc64(bf16* out, size_t stride, size_t bas
     if (r + 8 < limit)
       *reinterpret_cast<uint32_t*>(o1 + 8 * j) = pack_bf16x2(acc[4 * j + 2], acc[4 * j + 3]);
   }
+}
+
+// ------------------------ TF32 parts (the float32 bodies) ------------------------
+// A float32 x runs on the tensor cores as x = hi + lo, two TF32 values (a
+// 10-bit mantissa each): hi = tf32(x), lo = tf32(x - hi), each rounded to
+// nearest (ties away from zero); x - hi is exact in float32, and hi + lo
+// keeps ~22 of x's 24 bits. A product a b is then a_lo b_hi + a_hi b_lo +
+// a_hi b_hi (the dropped a_lo b_lo is ~2^-22 of it), three TF32 wgmma.
+
+// x rounded to the nearest TF32 (low 13 bits zero), ties away from zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x's TF32 parts: hi = tf32(x), lo = tf32(x - hi)
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// The A fragment of a TF32 m64k8 wgmma: thread t of the warpgroup holds a[0]
+// at row 16 (t / 32) + (t % 32) / 4, column t % 4; a[1] 8 rows below; a[2]
+// and a[3] those rows at column t % 4 + 4. tf32_frag splits a thread's four
+// float32 values x into the fragments of their hi and lo parts.
+__device__ __forceinline__ void tf32_frag(const float (&x)[4], uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) tf32_split(x[i], hi[i], lo[i]);
+}
+
+// d (64 x 64, float32) += A (64 x 8, TF32 in registers: tf32_frag's layout)
+// B (8 x 64, TF32 in shared memory, K-major: the only layout of the 32-bit
+// forms, which take no transpose flags); scale_d = 0: d = A B, d's old
+// values ignored
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                       uint64_t db, uint32_t scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128, float32) += A (64 x 8, TF32 in registers: tf32_frag's layout)
+// B (8 x 128, TF32 in shared memory, K-major: the only layout of the 32-bit
+// forms, which take no transpose flags); scale_d = 0: d = A B, d's old
+// values ignored
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                        uint64_t db, uint32_t scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }

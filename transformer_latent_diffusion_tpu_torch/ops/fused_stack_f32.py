@@ -9,15 +9,19 @@ in `mxu = weights.dtype`, so qkv, the cross-attention query and K/V, the
 LN3 rows, the expanded hidden state, the taps and the GELU output stay
 float32, the softmax probabilities are not rounded, and `_mm` multiplies
 float32 operands with float32 accumulation. Hopper's tensor cores take
-float32 only as TF32 (a 10-bit mantissa), so these bodies run on the CUDA
-cores:
+float32 only as TF32 (a 10-bit mantissa), so the two bodies that carry
+the layer's products split each float32 operand into two TF32 parts and
+run each product as three TF32 `wgmma` (3xTF32, csrc/hopper.cuh), at
+float32 accuracy; the other two run on the CUDA cores:
 
-  ln_gemm_f32          csrc/ln_gemm_f32.cu: register-blocked SIMT FFMA
-                       GEMM with the LayerNorm prologue and the bias /
-                       residual epilogue (the layer's five products)
-  self_attention_f32   csrc/self_attention_f32.cu: per (batch, head,
-                       64-query tile) exact softmax attention in float32,
-                       added into the residual
+  ln_gemm_f32          csrc/ln_gemm_f32.cu: TMA + 3xTF32 `wgmma` GEMM
+                       (A split in registers, W split in shared memory
+                       as it lands) with the LayerNorm prologue and the
+                       bias / residual epilogue (the layer's five products)
+  self_attention_f32   csrc/self_attention_f32.cu: TMA + 3xTF32 `wgmma`
+                       per (batch, head, 64-query tile), K and V split by
+                       the producer warps, the exact float32 softmax in
+                       registers, added into the residual
   cross_attention_f32  csrc/cross_attention.cu's body on float32 qc, kv
                        and LN3 rows
   dwconv_gelu_f32      csrc/dwconv_gelu.cu's TMA body with float32 taps
