@@ -53,6 +53,19 @@ paths, each checked against plain PyTorch versions on the same inputs:
   (the flagship's seeded weights with the positional table upsampled; 32
   images, 50-step DDIM, CFG 6), its HTTP service, and a 1024 px deployment
   (4 images x 20 DDIM steps, cut from 32 x 50 for time);
+- float32 on the linen path (K3's float32 body, flash_attention_f32, and
+  K5's float32 route, with the JAX package's default compute dtype):
+  `[float32-hires-kernels]` holds flash_attention_f32 at 512 px, 1024 px,
+  256 px, a ragged 400-token grid and widths 64 and 1024, and K5's float32
+  route at 512 px, against their plain versions (TF32 off, rel-L2 within
+  1e-5, two launches bit-equal, ptxas), beside SDPA in float32 and K5's
+  equal work; `[float32-hires-model]` one 512 px float32 forward against
+  the plain float32 forward; `[float32-hires-library]` the 512 px library
+  run (32 x 50), its loop's graph replay against its eager loop, the HTTP
+  default request, 512 px with quantize="int8" (K3/K5, no K7), 1024 px (4
+  x 20) and the "mlp" and "moe" flagships (8 x 20 at 256 px); and
+  `[float32-resized-grid]` the 256 px float32 flagship sampled on a 32 x
+  32 grid;
 - training (TPU kernel K2, the differentiable decoder layer): each
   backward kernel at the flagship layer's shapes (batch 128), one layer's
   forward and backward against the plain layer, one train step's
@@ -926,12 +939,15 @@ def phase_serving(service, tag="serving"):
             f"{health['requests']} requests on {health['device_kind']}")
 
 
-def phase_resized_grid(tr):
+def phase_resized_grid(tr, tag="resized-grid"):
     """The 256 px flagship sampled on a 32 x 32-token grid (generate with
     img_size=64): the positional table resized once, the Denoiser's linen
-    path (flash attention; the MLP plain, as the JAX gates have it for a
-    native 16 x 16 grid), not the fused engine."""
+    path (flash attention, its float32 body for a float32 model; the MLP
+    plain, as the JAX gates have it for a native 16 x 16 grid), not the
+    fused engine."""
     den = tr.cfg.denoiser_cfg
+    flash = ("flash_attention_f32" if tr.diffuser.model.dtype == torch.float32
+             else "flash_attention")
     labels = tr.clip_model.encode_text(["a cute cat"] * 4)
 
     def run():
@@ -948,12 +964,12 @@ def phase_resized_grid(tr):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _counts()
-    expect = _expect({"flash_attention": den.n_layers * RESIZE_ITER})
+    expect = _expect({flash: den.n_layers * RESIZE_ITER})
     px = 16 * den.image_size
-    log(f"[resized-grid] 256 px model, generate(img_size={2 * den.image_size}): "
-        f"4 images x {RESIZE_ITER} DDIM steps in {wall:.3f} s; launches "
+    log(f"[{tag}] 256 px {tr.cfg.denoiser_load.dtype} model, generate(img_size="
+        f"{2 * den.image_size}): 4 images x {RESIZE_ITER} DDIM steps in {wall:.3f} s; launches "
         f"{ {k: v for k, v in launches.items() if v} } (expected only "
-        f"flash_attention {expect['flash_attention']})")
+        f"{flash} {expect[flash]})")
     if img.shape != (4, px, px, 3) or not torch.isfinite(x0).all():
         raise AssertionError(f"resized-grid images {tuple(img.shape)}")
     if launches != expect:
@@ -2061,10 +2077,11 @@ def phase_hires_kernels():
     return worst, timing, library, bounds
 
 
-def hires_config(tmp, image_size):
-    """The flagship LTDConfig at `image_size` (64: 512 px, 128: 1024 px),
-    whose denoiser file holds the 256 px flagship's seeded random weights
-    with the positional table upsampled (train.highres)."""
+def hires_config(tmp, image_size, dtype="bfloat16"):
+    """The flagship LTDConfig at `image_size` (64: 512 px, 128: 1024 px) and
+    compute dtype `dtype`, whose denoiser file holds the 256 px flagship's
+    seeded random weights with the positional table upsampled
+    (train.highres)."""
     import dataclasses
 
     from transformer_latent_diffusion_tpu_torch.configs import DenoiserLoad
@@ -2081,32 +2098,40 @@ def hires_config(tmp, image_size):
     torch.save(upsample_denoiser_params(sd, den.image_size, image_size, den.patch_size), path)
     return dataclasses.replace(
         base, denoiser_cfg=dataclasses.replace(den, image_size=image_size),
-        denoiser_load=DenoiserLoad(dtype="bfloat16", local_filename=path))
+        denoiser_load=DenoiserLoad(dtype=dtype, local_filename=path))
 
 
-def _hires_per_layer(den):
-    """Kernel launches per decoder layer on the linen path, by the JAX
-    package's gates: flash attention always, the fused MLP (two ln_gemm
-    launches, one dwconv_gelu) for a native grid of 16 < hw <= 32."""
+def _hires_per_layer(den, dtype="bfloat16"):
+    """Kernel launches per decoder layer on the linen path in compute dtype
+    `dtype`, by the JAX package's gates: flash attention always, the fused
+    sep-conv MLP (two ln_gemm launches, one dwconv_gelu; their float32
+    bodies in float32) for a native grid of 16 < hw <= 32."""
     hw = den.image_size // den.patch_size
-    per_layer = {"flash_attention": 1}
-    if 16 < hw <= 32:
-        per_layer.update(fused_mlp_sepconv=1, ln_gemm=2, dwconv_gelu=1)
+    if dtype == "float32":
+        per_layer = {"flash_attention_f32": 1}
+        mlp = {"fused_mlp_sepconv_f32": 1, "ln_gemm_f32": 2, "dwconv_gelu_f32": 1}
+    else:
+        per_layer = {"flash_attention": 1}
+        mlp = {"fused_mlp_sepconv": 1, "ln_gemm": 2, "dwconv_gelu": 1}
+    if 16 < hw <= 32 and den.mlp_class == "sep_conv":
+        per_layer.update(mlp)
     return per_layer
 
 
-def phase_hires_model(cfg):
+def phase_hires_model(cfg, tag="hires-model", bound_r=HIRES_MODEL_REL_L2):
     """One 512 px Denoiser forward at batch HR_B with the kernels (K3, K5)
-    against the same module's plain bf16 forward; its launches and times."""
+    against the same module's plain forward in the config's compute dtype;
+    its launches and times."""
     from transformer_latent_diffusion_tpu_torch.models.denoiser import Denoiser
     from transformer_latent_diffusion_tpu_torch.utils.common import load_state_dict_file
 
     dev = torch.device(DEVICE)
     den = cfg.denoiser_cfg
+    dname = cfg.denoiser_load.dtype
     sd = load_state_dict_file(cfg.denoiser_load.local_filename)
     models = {}
     for flag in (True, False):
-        mdl = Denoiser.from_config(den, dtype=torch.bfloat16, use_pallas=flag,
+        mdl = Denoiser.from_config(den, dtype=getattr(torch, dname), use_pallas=flag,
                                    fused_mlp_vjp=flag)
         mdl.load_state_dict(sd)
         models[flag] = mdl.to(dev).eval()
@@ -2123,25 +2148,26 @@ def phase_hires_model(cfg):
     r = rel_l2(out, ref)
     cos = float(torch.nn.functional.cosine_similarity(
         out.double().flatten(), ref.double().flatten(), dim=0))
-    expect = {k: v * den.n_layers for k, v in _hires_per_layer(den).items()}
-    log(f"[hires-model] 512 px Denoiser, kernels vs plain bf16 forward, batch {HR_B}: "
-        f"rel-L2 {r:.5f} (bound {HIRES_MODEL_REL_L2}), cos {cos:.6f}; launches "
-        f"{launches} (expected {expect})")
-    if not (torch.isfinite(out).all() and r < HIRES_MODEL_REL_L2):
+    expect = {k: v * den.n_layers for k, v in _hires_per_layer(den, dname).items()}
+    log(f"[{tag}] 512 px Denoiser, kernels vs plain {dname} forward, batch {HR_B}: "
+        f"rel-L2 {r:.3e} (bound {bound_r}), cos {cos:.9f}; launches "
+        f"{launches} (expected {expect}, no other kernel)")
+    if not (torch.isfinite(out).all() and r < bound_r):
         raise AssertionError("the 512 px kernels' forward disagrees with the plain forward")
     if launches != expect:
         raise AssertionError(f"512 px forward launches {launches} != {expect}")
+    reps, warm = (5, 2) if dname == "bfloat16" else (3, 1)
     with torch.no_grad():
         fwd = lambda flag: models[flag](x, noise, label)  # noqa: E731
-        tk = [time_ms(lambda: fwd(True), 5, 2)]
-        tp = [time_ms(lambda: fwd(False), 5, 2), time_ms(lambda: fwd(False), 5, 2)]
-        tk.append(time_ms(lambda: fwd(True), 5, 2))
-        log(f"[hires-model] one 512 px forward at batch {HR_B}: kernels "
-            f"{sum(tk) / 2:.3f} ms, plain bf16 {sum(tp) / 2:.3f} ms (runs {tk}, {tp})")
+        tk = [time_ms(lambda: fwd(True), reps, warm)]
+        tp = [time_ms(lambda: fwd(False), reps, warm), time_ms(lambda: fwd(False), reps, warm)]
+        tk.append(time_ms(lambda: fwd(True), reps, warm))
+        log(f"[{tag}] one 512 px forward at batch {HR_B}: kernels "
+            f"{sum(tk) / 2:.3f} ms, plain {dname} {sum(tp) / 2:.3f} ms (runs {tk}, {tp})")
     del models, out, ref
 
 
-def _breakdown(tr, n_imgs, n_iter):
+def _breakdown(tr, n_imgs, n_iter, tag="hires-breakdown"):
     """Where a library run's time goes: one denoiser forward at the CFG
     batch (host clock around it, and a profile of its device time by
     kernel), the VAE decode and the CLIP encode, each timed alone."""
@@ -2163,7 +2189,7 @@ def _breakdown(tr, n_imgs, n_iter):
             torch.cuda.synchronize()
     busy, by_kernel = _device_time(prof)
     px = 8 * den.image_size
-    log(f"[hires-breakdown] {px} px, batch {2 * n_imgs}: one denoiser forward {fwd_ms:.3f} ms "
+    log(f"[{tag}] {px} px, batch {2 * n_imgs}: one denoiser forward {fwd_ms:.3f} ms "
         f"(x {n_iter} calls = {fwd_ms * n_iter / 1e3:.3f} s), VAE decode of {n_imgs} images "
         f"{vae_ms:.3f} ms, CLIP encode {clip_ms:.3f} ms; profiled forward: device busy "
         f"{busy:.3f} ms ({busy / fwd_ms:.1%} of the timed forward); by kernel, us: {by_kernel}")
@@ -2188,18 +2214,21 @@ def _device_time(prof, top=14):
     return busy, "; ".join(f"{e.key[:70]} x{e.count} {_device_us(e):.0f}" for e in rows[:top])
 
 
-def phase_hires_library(cfg, n_imgs, n_iter, smi):
-    """DiffusionTransformer on a hi-res deployment: a warm-up run, then a
-    timed run of n_imgs images x n_iter DDIM steps (CFG 6) with its exact
-    launch counts, images/s and peak memory."""
+def phase_hires_library(cfg, n_imgs, n_iter, smi, tag="hires-library", breakdown=True):
+    """DiffusionTransformer on a linen-path deployment (hi-res, or another
+    FFN): a warm-up run, then a timed run of n_imgs images x n_iter DDIM
+    steps (CFG 6) with its exact launch counts, images/s and peak memory;
+    with `breakdown`, where one run's time goes."""
     from transformer_latent_diffusion_tpu_torch.sampling import DiffusionTransformer
 
     den = cfg.denoiser_cfg
+    what = (f"{8 * den.image_size} px {cfg.denoiser_load.dtype}"
+            + (f" {den.mlp_class}" if den.mlp_class != "sep_conv" else "")
+            + (f" quantize={cfg.quantize}" if cfg.quantize else ""))
     t0 = time.perf_counter()
     tr = DiffusionTransformer(cfg, device=DEVICE, seed=0)
     torch.cuda.synchronize()
-    log(f"[hires-library] {8 * den.image_size} px DiffusionTransformer built in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[{tag}] {what} DiffusionTransformer built in {time.perf_counter() - t0:.1f} s")
 
     def run():
         return tr.generate_array_from_text("a cute cat", num_imgs=n_imgs, n_iter=n_iter,
@@ -2216,8 +2245,9 @@ def phase_hires_library(cfg, n_imgs, n_iter, smi):
     launches = _counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     px = 8 * den.image_size
-    expect = _expect({k: v * den.n_layers * n_iter for k, v in _hires_per_layer(den).items()})
-    log(f"[hires-library] {px} px: generate_array_from_text {n_imgs} imgs x {n_iter} DDIM "
+    expect = _expect({k: v * den.n_layers * n_iter
+                      for k, v in _hires_per_layer(den, cfg.denoiser_load.dtype).items()})
+    log(f"[{tag}] {what}: generate_array_from_text {n_imgs} imgs x {n_iter} DDIM "
         f"steps: {wall:.3f} s ({n_imgs / wall:.3f} imgs/s; warm-up runs: the first "
         f"{warm:.3f} s, eager, the second {capture:.3f} s, the loop's capture, which holds "
         f"{held:.3f} GiB), peak "
@@ -2226,8 +2256,9 @@ def phase_hires_library(cfg, n_imgs, n_iter, smi):
     if imgs.shape != (n_imgs, px, px, 3) or imgs.dtype.name != "uint8" or float(imgs.std()) <= 0:
         raise AssertionError(f"images {imgs.shape} {imgs.dtype}")
     if launches != expect:
-        raise AssertionError(f"{px} px launches {launches} != expected {expect}")
-    _breakdown(tr, n_imgs, n_iter)
+        raise AssertionError(f"{what} launches {launches} != expected {expect}")
+    if breakdown:
+        _breakdown(tr, n_imgs, n_iter, f"{tag}-breakdown".replace("-library", ""))
     return tr, launches
 
 
@@ -4453,6 +4484,158 @@ def phase_microbatch(tr, smi):
         svc.batcher.close()
 
 
+# ------------------------------ float32 on the linen path: K3 and K5 ------------------------------
+
+# flash_attention_f32 against the plain float32 attention, (images, tokens,
+# heads): 512 px, 1024 px, 256 px (the FFN models) and a ragged grid at the
+# flagship's 12 heads, then widths 64 and 1024
+F32_FLASH_CASES = ((HR_B, HR_N, HEADS), (XR_B, XR_N, HEADS), (B, N, HEADS),
+                   (RAG_B, RAG_N, HEADS), (8, HR_N, 1), (8, HR_N, 16))
+# one float32 512 px Denoiser forward, kernels (K3 and K5's float32 bodies)
+# vs the plain float32 forward (rel-L2): measured 1.181e-06 on an H100 80GB
+# HBM3 at 700 W (random weights, batch 64); the bound leaves about 3x margin
+F32_HIRES_MODEL_REL_L2 = 4e-6
+# the "mlp" and "moe" flagships in float32: images x DDIM steps of the library run
+F32_FFN_IMGS, F32_FFN_ITER = 8, 20
+
+
+def phase_float32_hires_kernels():
+    """[float32-hires-kernels]: K3's float32 body (flash_attention_f32) on the
+    strided q, k, v views of a fused float32 QKV at F32_FLASH_CASES, and K5's
+    float32 route (ln_gemm_f32, dwconv_gelu_f32's row band, ln_gemm_f32) at
+    512 px, each against its plain version in float32 with TF32 off: rel-L2
+    within F32_KERNEL_REL_L2, two launches bit-equal, ptxas's registers,
+    spills and `wgmma` serialisation; times beside the plain versions, SDPA
+    in float32 (K3's one call), the equal-work calls (K5's) and the 3xTF32
+    bounds. Returns (worst max-abs, timing, library, bounds), keyed by
+    flash_attention_f32 and fused_mlp_sepconv_f32."""
+    from transformer_latent_diffusion_tpu_torch.ops import attention as att
+    from transformer_latent_diffusion_tpu_torch.ops import fused_mlp_vjp as fm
+
+    tag = "float32-hires-kernels"
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device="cpu").manual_seed(12)
+    F = torch.nn.functional
+    split = TF32_TENSOR_FLOP_S / 3  # float32 work as three TF32 products
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g) * std).to(dev)
+
+    def check(label, got, want):
+        r, a, rel_a = _errors(got, want)
+        log(f"[{tag}] {label}: rel-L2 {r:.3e} max-abs {a:.3e} ({rel_a:.2e} of max |ref|; "
+            f"bound rel-L2 {F32_KERNEL_REL_L2})")
+        if not (got.dtype == torch.float32 and r <= F32_KERNEL_REL_L2):
+            raise AssertionError(f"{label} disagrees with its plain version")
+        return a
+
+    worst, timing, library, bounds = {}, {}, {}, {}
+    with torch.no_grad():
+        for b, n, heads in F32_FLASH_CASES:
+            d = 64 * heads
+            q, k, v = randn(b, n, 3 * d).chunk(3, dim=-1)  # strided row views
+            label = f"flash_attention_f32 B={b} N={n} D={d}"
+            kern = lambda: att.flash_attention(q, k, v, heads)  # noqa: E731
+            plain = lambda: att.multi_head_attention(q, k, v, heads)  # noqa: E731
+            worst["flash_attention_f32"] = max(worst.get("flash_attention_f32", 0.0),
+                                               check(label, kern(), plain()))
+            _bit_equal_twice(label, kern, tag)
+            if heads != HEADS or n in (N, RAG_N):
+                continue
+            # the 512 px and 1024 px shapes: times, SDPA in float32, the bound
+            heads_t = [t.reshape(b, n, heads, 64).transpose(1, 2).contiguous() for t in (q, k, v)]
+            sdpa = time_ms(lambda: F.scaled_dot_product_attention(*heads_t), 5, 1)
+            flops = 4 * b * heads * n * n * 64
+            bnd = bound(4 * b * n * d * 4, flops, split)
+            if n == HR_N:  # the 512 px main path's shape
+                ms, plain_ms = time_against_plain({label: (kern, plain)}, tag)[label]
+                timing["flash_attention_f32"] = (ms, plain_ms)
+                library["flash_attention_f32"] = sdpa
+                bounds["flash_attention_f32"] = bnd
+            else:
+                ms = time_ms(kern, 5, 1)
+            log(f"[{tag}] {label}: {ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s of float32 "
+                f"work; SDPA float32 (TF32 off) {sdpa:.4f} ms; bound {bnd[0]:.4f} ms "
+                f"({bnd[1]}, 3xTF32; {bnd[0] / ms:.1%} of it); "
+                f"{'no slower than' if ms <= sdpa else f'{ms / sdpa:.2f}x'} SDPA")
+            del heads_t
+        del q, k, v
+        _ptxas_report(tag, ("flash_attention_f32_kernel",))
+
+        m = HR_B * HR_N
+        x = randn(HR_B, HR_N, D)
+        w1, b1 = randn(HIDDEN, D, std=D ** -0.5), randn(HIDDEN, std=0.1)
+        w2, b2 = randn(D, HIDDEN, std=HIDDEN ** -0.5), randn(D, std=0.1)
+        dw, dwb = randn(9, HIDDEN, std=1 / 3), randn(HIDDEN, std=0.1)
+        args = (x, w1, b1, dw, dwb, w2, b2, HR_HW)
+        kern = lambda: fm.fused_mlp_sepconv(*args)  # noqa: E731
+        plain = lambda: fm.fused_mlp_sepconv_plain(*args)  # noqa: E731
+        _reset_counts()
+        got = kern()
+        launches = {k_: v_ for k_, v_ in _counts().items() if v_}
+        worst["fused_mlp_sepconv_f32"] = check("fused_mlp_sepconv_f32 hw=32", got, plain())
+        del got
+        want = {"fused_mlp_sepconv_f32": 1, "ln_gemm_f32": 2, "dwconv_gelu_f32": 1}
+        log(f"[{tag}] fused_mlp_sepconv_f32: one call's launches {launches} (expected {want})")
+        _require_launches(launches, want, f"[{tag}] fused_mlp_sepconv_f32")
+        _bit_equal_twice("fused_mlp_sepconv_f32 hw=32", kern, tag)
+        timing.update(time_against_plain({"fused_mlp_sepconv_f32": (kern, plain)}, tag))
+        library["fused_mlp_sepconv_f32"] = None  # no one call: two products around a conv
+        library["fused_mlp_sepconv_f32 (equal work)"] = time_ms(
+            sepconv_equal_work(*args), 5, 1)
+        bounds["fused_mlp_sepconv_f32"] = bound(
+            2 * m * D * 4 + 2 * HIDDEN * D * 4 + 9 * HIDDEN * 4 + (2 * HIDDEN + D) * 4,
+            4 * m * D * HIDDEN, split)
+        ms = timing["fused_mlp_sepconv_f32"][0]
+        log(f"[{tag}] fused_mlp_sepconv_f32: equal-work yardstick (F.linear, F.conv2d "
+            f"groups=C + bias, F.gelu, F.linear, float32, TF32 off) "
+            f"{library['fused_mlp_sepconv_f32 (equal work)']:.4f} ms; bound "
+            f"{bounds['fused_mlp_sepconv_f32'][0]:.4f} ms (3xTF32; "
+            f"{bounds['fused_mlp_sepconv_f32'][0] / ms:.1%} of it)")
+        del x, args
+    torch.cuda.synchronize()
+    return worst, timing, library, bounds
+
+
+def phase_float32_linen(smi):
+    """The float32 linen path through the library: [float32-hires-model]
+    (one 512 px forward vs the plain float32 forward, exact launches),
+    [float32-hires-library] (512 px 32 x 50 with its breakdown, the loop's
+    graph replay against its eager loop, the HTTP default request, 512 px
+    with quantize="int8", 1024 px 4 x 20, the "mlp" and "moe" flagships 8
+    x 20 at 256 px), each with exact launch counts. Returns the 512 px
+    library run's launches."""
+    from transformer_latent_diffusion_tpu_torch.serve.app import GenerationService
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg512 = hires_config(tmp, 64, "float32")
+        phase_hires_model(cfg512, "float32-hires-model", F32_HIRES_MODEL_REL_L2)
+        torch.cuda.empty_cache()
+        tr, launches = phase_hires_library(cfg512, HR_IMGS, HR_ITER, smi,
+                                           "float32-hires-library")
+        phase_sampler_graph(tr, _hires_per_layer(cfg512.denoiser_cfg, "float32"),
+                            "float32-hires-sampler-graph", GRAPH_BRIEF_IMGS, GRAPH_BRIEF_ITER)
+        phase_serving(GenerationService(transformer=tr), "float32-hires-serving")
+        del tr
+        torch.cuda.empty_cache()
+        tr, _ = phase_hires_library(dataclasses.replace(cfg512, quantize="int8"),
+                                    GRAPH_BRIEF_IMGS, GRAPH_BRIEF_ITER, smi,
+                                    "float32-hires-library", breakdown=False)
+        del tr
+        torch.cuda.empty_cache()
+        tr, _ = phase_hires_library(hires_config(tmp, 128, "float32"), XR_IMGS, XR_ITER, smi,
+                                    "float32-hires-library")
+        del tr
+        torch.cuda.empty_cache()
+    for mlp_class in ("mlp", "moe"):
+        tr, _ = phase_hires_library(f32_config(ffn_config(mlp_class)), F32_FFN_IMGS,
+                                    F32_FFN_ITER, smi, "float32-hires-library",
+                                    breakdown=False)
+        del tr
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
 
@@ -4486,6 +4669,7 @@ def main():
         f"{ips:.3f} (bf16 engine, the library phase above)")
     phase_sampler_graph(tr, f32.LAUNCHES_PER_LAYER, "float32-sampler-graph",
                         GRAPH_BRIEF_IMGS, GRAPH_BRIEF_ITER)
+    phase_resized_grid(tr, "float32-resized-grid")
     phase_microbatch(tr, smi)
     del tr
     torch.cuda.empty_cache()
@@ -4537,6 +4721,10 @@ def main():
         del tr
         torch.cuda.empty_cache()
 
+    fh_worst, fh_timing, fh_library, fh_bounds = phase_float32_hires_kernels()
+    torch.cuda.empty_cache()
+    fh_launches = phase_float32_linen(smi)
+
     t_worst, t_timing, t_library, t_bounds = phase_train_kernels()
     torch.cuda.empty_cache()
     per_layer, _, _ = phase_train_layer()
@@ -4587,7 +4775,11 @@ def main():
                "ln_gemm_f32": "csrc/ln_gemm_f32.cu",
                "self_attention_f32": "csrc/self_attention_f32.cu",
                "cross_attention_f32": "csrc/cross_attention.cu",
-               "dwconv_gelu_f32": "csrc/dwconv_gelu.cu"}
+               "dwconv_gelu_f32": "csrc/dwconv_gelu.cu",
+               # K3's and K5's float32 forms on the linen path
+               "flash_attention_f32": "csrc/flash_attention_f32.cu",
+               # composes ln_gemm_f32.cu and dwconv_gelu.cu's float32 row-band body
+               "fused_mlp_sepconv_f32": "ops/fused_mlp_vjp.py"}
     kernels = []
     for names, tpu, counts, err, tim, lib, bnd in (
             (fs.KERNELS, TPU_KERNEL, launches, worst, timing, library, bounds),
@@ -4597,6 +4789,10 @@ def main():
              h_bounds),
             (("fused_mlp_sepconv",), TPU_K5, h_launches, h_worst, h_timing, h_library,
              h_bounds),
+            (("flash_attention_f32",), TPU_K3, fh_launches, fh_worst, fh_timing, fh_library,
+             fh_bounds),
+            (("fused_mlp_sepconv_f32",), TPU_K5, fh_launches, fh_worst, fh_timing, fh_library,
+             fh_bounds),
             (q8.KERNELS, TPU_K7, i_launches, i_worst, i_timing, i_library, i_bounds)):
         for name in names:
             kernels.append({

@@ -1339,3 +1339,73 @@ def test_float32_stack_matches_plain_on_card(quantize):
     assert f32.LAUNCHES == {k: 2 * per_layer.get(k, 0) for k in f32.KERNELS}
     assert _rel_l2(got - x, want - x) <= (1e-4 if quantize is None else 0.04)
 
+
+
+# ------------------------------ the float32 linen path: K3 and K5 ------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,heads", [(2, 256, 2), (3, 400, 1), (1, 1024, 16), (2, 8, 3),
+                                       (1, 1296, 2)])
+def test_flash_attention_f32_matches_plain_on_card(b, n, heads):
+    """K3's float32 body on the strided q, k, v column views of a fused
+    float32 QKV (any width 64 x heads, ragged query and key tiles) against
+    `attention_plain` in float32 with TF32 off: rel-L2 within 1e-5, one
+    launch counted under flash_attention_f32 and none under the bf16 body,
+    two launches bit-equal; and its cross form, Nq != Nk."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(n + heads)
+    qkv = torch.randn(b, n, 3 * 64 * heads, generator=g).cuda()
+    q, k, v = qkv.chunk(3, dim=-1)
+    with torch.no_grad():
+        want = att.multi_head_attention(q, k, v, heads)  # the plain math on the card
+        before = dict(att.LAUNCHES)
+        got = att.multi_head_attention(q, k, v, heads, use_pallas=True)
+        torch.cuda.synchronize()
+        assert att.LAUNCHES["flash_attention_f32"] == before["flash_attention_f32"] + 1
+        assert att.LAUNCHES["flash_attention"] == before["flash_attention"]
+        assert got.dtype == torch.float32 and got.shape == (b, n, 64 * heads)
+        assert _rel_l2(got, want) <= 1e-5
+        assert torch.equal(got, att.flash_attention(q, k, v, heads))
+        kc = torch.randn(b, 2 * n + 9, 2 * 64 * heads, generator=g).cuda()
+        k2, v2 = kc.chunk(2, dim=-1)
+        cross = att.flash_attention(q, k2, v2, heads)
+        assert _rel_l2(cross, att.multi_head_attention(q, k2, v2, heads)) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_flash_attention_f32_refuses_a_gradient_on_card():
+    _need_card()
+    q, k, v = torch.randn(1, 64, 192, device="cuda", requires_grad=True).chunk(3, dim=-1)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+        att.flash_attention(q, k, v, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,d", [(20, 128), (32, 64)])
+def test_fused_mlp_float32_route_matches_plain_on_card(hw, d):
+    """K5's float32 route (ln_gemm_f32, dwconv_gelu_f32's row band,
+    ln_gemm_f32) against `fused_mlp_sepconv_plain` in float32 with TF32
+    off: rel-L2 within 1e-5 and exactly its three float32 launches."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(hw)
+    hidden = 4 * d
+
+    def r(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g) * std).cuda()
+
+    args = (r(2, hw * hw, d), r(hidden, d, std=d ** -0.5), r(hidden, std=0.1),
+            r(9, hidden, std=1 / 3), r(hidden, std=0.1), r(d, hidden, std=hidden ** -0.5),
+            r(d, std=0.1))
+    with torch.no_grad():
+        want = fm.fused_mlp_sepconv_plain(*args, hw)
+        before, bf16_before = dict(f32.LAUNCHES), dict(fs.LAUNCHES)
+        got = fm.fused_mlp_sepconv(*args, hw)
+        torch.cuda.synchronize()
+    assert {k: f32.LAUNCHES[k] - before[k] for k in f32.KERNELS} == {
+        "ln_gemm_f32": 2, "self_attention_f32": 0, "cross_attention_f32": 0,
+        "dwconv_gelu_f32": 1}
+    assert dict(fs.LAUNCHES) == bf16_before
+    assert got.dtype == torch.float32 and _rel_l2(got, want) <= 1e-5

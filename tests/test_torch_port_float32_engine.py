@@ -14,9 +14,11 @@ configuration (`DenoiserLoad.dtype="float32"`), on the CPU.
   the dtype combinations the bodies do not take raise ValueError.
 - A rehearsal of the CUDA wiring: `DiffusionTransformer` on "cuda" with
   float32 weights builds a float32 engine (the modules' moves to the card
-  mapped to the CPU), float16 and a float32 linen-path deployment raise
-  naming ROADMAP item 4, and the sampler's graph key holds the engine's
-  compute dtype, so a float32 loop is a graph of its own.
+  mapped to the CPU), a float32 linen-path deployment (past 16 x 16
+  tokens, or the "mlp" FFN) builds its float32 Denoiser with the JAX
+  package's kernel flags, float16 raises naming ROADMAP item 4, and the
+  sampler's graph key holds the engine's compute dtype, so a float32 loop
+  is a graph of its own.
 The kernels themselves are held against these plain versions on the card
 (tests/test_torch_port_cuda.py, chip_smoke.py's [float32-kernels])."""
 
@@ -43,7 +45,10 @@ from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
 from transformer_latent_diffusion_tpu_torch.ops import fused_stack_f32 as f32
 from transformer_latent_diffusion_tpu_torch.ops import fused_stack_int8 as q8
 from transformer_latent_diffusion_tpu_torch.sampling.diffusion import DiffusionGenerator
-from transformer_latent_diffusion_tpu_torch.sampling.pipeline import DiffusionTransformer
+from transformer_latent_diffusion_tpu_torch.sampling.pipeline import (
+    DiffusionTransformer,
+    denoiser_kernel_flags,
+)
 
 torch.set_num_threads(2)
 
@@ -244,9 +249,11 @@ def _tiny_ltd(dtype, **den):
 
 def test_cuda_wiring_rehearsal(monkeypatch):
     """On "cuda": the JAX default (float32) builds the float32 engine, bf16
-    the bf16 one, W8A8 with float32 the float32 K7; float16 and a float32
-    deployment past 16 x 16 tokens (the linen path, whose kernels take
-    bf16) raise at construction, naming ROADMAP item 4."""
+    the bf16 one, W8A8 with float32 the float32 K7; a float32 deployment
+    past 16 x 16 tokens, and one with the "mlp" FFN, build the float32
+    linen path (flash attention everywhere, the fused MLP on a 32 x 32
+    grid: the JAX package's flags); float16 raises at construction,
+    naming ROADMAP item 4."""
     with _cuda_on_cpu(monkeypatch):
         for dtype, quantize, want in (("float32", None, torch.float32),
                                       ("bfloat16", None, torch.bfloat16),
@@ -258,11 +265,14 @@ def test_cuda_wiring_rehearsal(monkeypatch):
             assert engine.quantize == quantize and tr.diffuser.model.dtype == want
         with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
             DiffusionTransformer(_tiny_ltd("float16"), device="cuda")
-        with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-            DiffusionTransformer(replace(_tiny_ltd("float32"), denoiser_cfg=pc.DenoiserConfig(
-                image_size=64, embed_dim=64, n_layers=2, noise_embed_dims=64)), device="cuda")
-        with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-            DiffusionTransformer(_tiny_ltd("float32", mlp_class="mlp"), device="cuda")
+        hires = replace(_tiny_ltd("float32"), denoiser_cfg=pc.DenoiserConfig(
+            image_size=64, embed_dim=64, n_layers=2, noise_embed_dims=64))
+        for cfg, fused_mlp in ((hires, True), (_tiny_ltd("float32", mlp_class="mlp"), False)):
+            model = DiffusionTransformer(cfg, device="cuda").diffuser.model
+            assert model.dtype == torch.float32
+            assert (model.use_pallas, model.fused_mlp_vjp) == (True, fused_mlp)
+            assert {"use_pallas": True, "fused_mlp_vjp": fused_mlp} == denoiser_kernel_flags(
+                cfg, "cuda")
 
 
 def test_graph_key_holds_the_engine_dtype():

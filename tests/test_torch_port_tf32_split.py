@@ -1,5 +1,6 @@
 """The arithmetic of the 3xTF32 float32 bodies (csrc/ln_gemm_f32.cu,
-csrc/self_attention_f32.cu), emulated in numpy on the CPU.
+csrc/self_attention_f32.cu, csrc/flash_attention_f32.cu), emulated in
+numpy on the CPU.
 
 Each float32 operand x runs on Hopper's tensor cores as two TF32 parts,
 hi = tf32(x) and lo = tf32(x - hi) (`cvt.rna.tf32.f32`: round to nearest,
@@ -7,12 +8,14 @@ ties away from zero, low 13 bits zero), and a product a b as
 a_lo b_hi + a_hi b_lo + a_hi b_hi. The tensor cores add each 8-deep
 product into their float32 accumulator with truncation; the kernels
 therefore sum one K step's products in a fresh partial (32 deep in
-ln_gemm_f32, one 64-key chunk in self_attention_f32's P V) and add the
+ln_gemm_f32, one 64-key chunk in the attention bodies' P V) and add the
 partials in float32 with ordinary rounding. Here: the split itself, that
-schedule against float64 at the main path's K (768, 3072) and in the
-attention chain (scores, exact softmax, split P, P V), within the card's
-bound of 1e-5 rel-L2 with margin, the softmax's division, and the index
-maps the kernels use to feed P to P V and to transpose V (no card
+schedule against float64 at the main path's K (768, 3072), in the
+attention chain (scores, exact softmax, split P, P V) and in
+flash_attention_f32's streaming form of it (an online softmax over 64-key
+chunks at 1024 and 4096 keys), within the card's bound of 1e-5 rel-L2
+with margin, the softmax's division, and the index maps the kernels use
+to feed P to P V and to transpose V (csrc/f32_chunk.cuh; no card
 needed)."""
 
 from __future__ import annotations
@@ -178,8 +181,57 @@ def test_attention_chain_is_float32_accurate(n):
     assert _rel(o, ref) <= MARGIN * F32_KERNEL_REL_L2, (_rel(o, ref), plain)
 
 
+def _flash_schedule(q, k, v, n):
+    """flash_attention_f32.cu's schedule for the query rows q against n keys
+    (k, v zero past n up to whole 64-key chunks, as TMA fills them): per
+    chunk S = Q K^T in 3xTF32 (one chain), keys past n at -inf, the running
+    max m over the chunk's scores, c = exp((m_old - m) / 8), e = exp(s / 8
+    - m / 8) in float32, each thread's sum of its 16 keys of a row (keys
+    8 j + 2 t4 and + 1) carried as l = l c + sum by FMA; P V in 3xTF32 into
+    a fresh partial (one chain per chunk) and O = O c + partial by FMA;
+    at the end the quad's four sums added as the shuffles add them, and
+    O / l."""
+    rows = q.shape[0]
+    m = np.full(rows, -np.inf, np.float32)
+    l = np.zeros((rows, 4), np.float32)
+    o = np.zeros((rows, 64), np.float32)
+
+    def fma(a, b, c):  # a b + c rounded once to float32
+        return (a.astype(np.float64) * b.astype(np.float64) + c).astype(np.float32)
+
+    for c0 in range(0, k.shape[0], 64):
+        s = tc_product(q, k[c0:c0 + 64].T)
+        s[:, np.arange(c0, c0 + 64) >= n] = -np.inf
+        mx = np.maximum(m, s.max(-1))
+        cf = np.exp((m - mx) * np.float32(0.125))
+        e = np.exp(fma(s, np.float32(0.125), -mx[:, None].astype(np.float64) * 0.125))
+        pairs = e.reshape(rows, 8, 4, 2).sum(-1, dtype=np.float32)  # (rows, j, t4)
+        sums = np.zeros((rows, 4), np.float32)
+        for j in range(8):
+            sums = sums + pairs[:, j]
+        l = fma(l, cf[:, None], sums)
+        o = fma(o, cf[:, None], tc_product(e, v[c0:c0 + 64]))
+        m = mx
+    return o / ((l[:, 0] + l[:, 1]) + (l[:, 2] + l[:, 3]))[:, None]
+
+
+@pytest.mark.parametrize("n", [1024, 4096, 400])
+def test_flash_schedule_is_float32_accurate(n):
+    """flash_attention_f32's streaming chain for 8 query rows at the 512 px
+    and 1024 px token counts and a ragged grid's, against float64."""
+    rng = np.random.default_rng(n)
+    keys = -(-n // 64) * 64
+    q = rng.standard_normal((8, 64)).astype(np.float32)
+    k = np.zeros((keys, 64), np.float32)
+    v = np.zeros((keys, 64), np.float32)
+    k[:n] = rng.standard_normal((n, 64))
+    v[:n] = rng.standard_normal((n, 64))
+    got = _rel(_flash_schedule(q, k, v, n), _attention_ref(q, k, v, n))
+    assert got <= MARGIN * F32_KERNEL_REL_L2, got
+
+
 def _slot(key):
-    """The V^T slot of key `key` of a chunk (self_attention_f32.cu's splitter)."""
+    """The V^T slot of key `key` of a chunk (f32_chunk.cuh's splitter)."""
     return (key & ~7) | ((key & 7) >> 1) | ((key & 1) << 2)
 
 
@@ -200,13 +252,13 @@ def test_score_accumulators_feed_p_v_in_slot_order():
 
 
 def _sw_off(row, col):
-    """self_attention_f32.cu's sw_off: element (row, col) of a 64 x 64 float32
+    """f32_chunk.cuh's sw_off: element (row, col) of a 64 x 64 float32
     chunk held as two 128-byte-swizzled 64 x 32 boxes."""
     return (col >> 5) * 8192 + row * 128 + ((((col & 31) >> 2) ^ (row & 7)) << 4) + (col & 3) * 4
 
 
 def _v_unit(u):
-    """self_attention_f32.cu's V^T split unit u (0..511): (kg, h, dq, e),
+    """f32_chunk.cuh's V^T split unit u (0..511): (kg, h, dq, e),
     keys 8 kg + 2 i + h (i = 0..3) x head columns 4 dq + 2 e and + 1."""
     lane, w = u & 31, u >> 5
     return w >> 1, (lane >> 3) & 1, (lane & 7) | ((w & 1) << 3), (lane >> 4) & 1

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the TMA + wgmma kernels
 // (self_attention.cu, gemm_bwd.cu, ln_gemm.cu, flash_attention.cu,
 // flash_attention_bwd.cu, attention_bwd.cu, gemm_i8.cu, dwconv_gelu.cu,
-// head_group_attention.cu, ln_gemm_f32.cu, self_attention_f32.cu):
+// head_group_attention.cu, ln_gemm_f32.cu, self_attention_f32.cu,
+// flash_attention_f32.cu):
 // mbarriers, TMA tensor copies, wgmma shared-memory descriptors and the
 // wgmma instructions themselves, in PTX.
 #pragma once
@@ -613,6 +614,23 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uin
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64, float32) = A (64 x 8, TF32 in registers) B (8 x 64, TF32 in
+// shared memory, K-major); d is written only (see wgmma_m64n128k16_ss_first)
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs_first(float (&d)[32], const uint32_t (&a)[4],
+                                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0));
 }
 
 // d (64 x 128, float32) += A (64 x 8, TF32 in registers: tf32_frag's layout)

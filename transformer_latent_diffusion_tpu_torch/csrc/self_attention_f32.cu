@@ -23,7 +23,8 @@
 //   a 3-D tensor map over (B, N, 3D), two 64 x 32 boxes, 128-byte swizzled,
 //   into a ring of four raw slots (keys past N arrive as zeros). The
 //   producer warpgroup's three other warps turn each raw chunk into its
-//   TF32 parts in a ring of four split slots (hi and lo, 16 KB each): K as
+//   TF32 parts (f32_chunk.cuh, shared with flash_attention_f32.cu) in a
+//   ring of four split slots (hi and lo, 16 KB each): K as
 //   it is (keys are the rows of the B operand, the head columns its K),
 //   V transposed in 4 x 2 blocks, since the 32-bit wgmma forms take K-major
 //   operands only and the keys are P V's K. A chunk's keys are written in
@@ -64,72 +65,20 @@
 // Shared memory: 4 x 16 KB raw slots, 4 x 32 KB split slots, 17 KB for
 // the exchange and O, 210 KB: one block per SM.
 
-#include "hopper.cuh"
+#include "f32_chunk.cuh"
 
 #include <math.h>
 
 namespace {
 
-constexpr int DH = 64;                       // head dim
-constexpr int TILE = 64;                     // queries of a tile, keys of a chunk
-constexpr int BOX_BYTES = TILE * 128;        // 64 rows x 32 float32, 128-byte swizzled
-constexpr int RAW_BYTES = 2 * BOX_BYTES;     // a chunk of K or V as it is loaded
-constexpr int PART_BYTES = 2 * BOX_BYTES;    // one TF32 part of a split chunk
-constexpr int SPLIT_BYTES = 2 * PART_BYTES;  // its hi and lo parts
+using namespace f32chunk;
+
 constexpr int RAW_SLOTS = 4, SPLIT_SLOTS = 4;
 constexpr int CONSUMERS = 2;
-constexpr int SPLITTERS = 96;  // warps 1-3 of the producer warpgroup
 constexpr int THREADS = (CONSUMERS + 1) * 128;
 // + the tile's O staging (16 KB) and the softmax's row maxima and sums (1 KB)
 constexpr int SMEM = 1024 + RAW_SLOTS * RAW_BYTES + SPLIT_SLOTS * SPLIT_BYTES + 2 * BOX_BYTES +
                      4 * 64 * 4 + 2 * (RAW_SLOTS + SPLIT_SLOTS) * 8;
-
-// byte offset of element (row, col) of a 64 x 64 float32 chunk held as two
-// 64-row x 32-column boxes in the 128-byte swizzle (16-byte chunk c of row r
-// at c ^ (r % 8))
-__device__ __forceinline__ int sw_off(int row, int col) {
-  return (col >> 5) * BOX_BYTES + row * 128 + ((((col & 31) >> 2) ^ (row & 7)) << 4) + (col & 3) * 4;
-}
-
-// the B-operand descriptor of K step kk (columns 8 kk ..) of a split chunk's part
-__device__ __forceinline__ uint64_t part_desc(const unsigned char* part, int kk) {
-  return sw128_desc(part + (kk >> 2) * BOX_BYTES + (kk & 3) * 32, 16, 1024);
-}
-
-// 8 TF32 steps of one 64-key chunk into a 64 x 64 product: d = A B, A's
-// fragments made by frag(kk, x) (the 4 floats of step kk, split here), B
-// the chunk's parts hi and lo. The fragments are double-buffered; returns
-// with every product done.
-template <typename Frag>
-__device__ __forceinline__ void chunk_products(float (&d)[32], const unsigned char* hi,
-                                               const unsigned char* lo, Frag frag) {
-  uint32_t fh[2][4], fl[2][4];
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const int b = kk & 1;
-    float x[4];
-    frag(kk, x);
-    tf32_frag(x, fh[b], fl[b]);
-    wgmma_fence();
-    const uint64_t dh = part_desc(hi, kk), dl = part_desc(lo, kk);
-    wgmma_m64n64k8_tf32_rs(d, fl[b], dh, kk > 0);
-    wgmma_m64n64k8_tf32_rs(d, fh[b], dl, 1);
-    wgmma_m64n64k8_tf32_rs(d, fh[b], dh, 1);
-    wgmma_commit();
-    // the previous step's products are done: its fragments may be rewritten
-    if (kk == 7) {
-      wgmma_wait<0>();
-    } else if (kk > 0) {
-      wgmma_wait<1>();
-    }
-  }
-  fence_regs(d);
-#pragma unroll
-  for (int b = 0; b < 2; ++b) {
-    fence_regs(fh[b]);
-    fence_regs(fl[b]);
-  }
-}
 
 // The consumer warpgroups' shared state: the ring of split chunks, the
 // softmax's cross-warpgroup row maxima and sums, and warpgroup 1's O for
@@ -420,48 +369,7 @@ self_attention_f32_kernel(const __grid_constant__ CUtensorMap map_qkv,
           const unsigned char* src = raw + rs * RAW_BYTES;
           unsigned char* hi = split + ss * SPLIT_BYTES;
           unsigned char* lo = hi + PART_BYTES;
-          if (i < NK) {
-            // K: the same layout, element by element
-            for (int e = sid; e < RAW_BYTES / 16; e += SPLITTERS) {
-              const float4 v = reinterpret_cast<const float4*>(src)[e];
-              uint32_t h[4], l[4];
-              tf32_split(v.x, h[0], l[0]);
-              tf32_split(v.y, h[1], l[1]);
-              tf32_split(v.z, h[2], l[2]);
-              tf32_split(v.w, h[3], l[3]);
-              reinterpret_cast<uint4*>(hi)[e] = make_uint4(h[0], h[1], h[2], h[3]);
-              reinterpret_cast<uint4*>(lo)[e] = make_uint4(l[0], l[1], l[2], l[3]);
-            }
-          } else {
-            // V^T: a unit is 4 keys of one parity of an 8-key block (k = 8 kg
-            // + 2 i + h, i = 0..3: slots 8 kg + 4 h + i, 16 contiguous bytes
-            // of a V^T row) x 2 head columns 4 dq + 2 e ..: four 8-byte reads,
-            // the 4 x 2 transposed, four 16-byte writes (a 4 x 4 block would
-            // not fit the producer's 40 registers). A warp's lanes take
-            // dq % 8, h and e, so its reads hit each bank twice for 256 bytes
-            // and its writes each bank group 4 times for 512: no conflict
-            // beyond the minimum.
-            for (int u = sid; u < 512; u += SPLITTERS) {
-              const int l = u & 31, w = u >> 5;
-              const int dq = (l & 7) | ((w & 1) << 3), h = (l >> 3) & 1, e = (l >> 4) & 1;
-              const int kg = w >> 1, c = 4 * dq + 2 * e;
-              float2 v[4];
-#pragma unroll
-              for (int i = 0; i < 4; ++i)
-                v[i] = *reinterpret_cast<const float2*>(src + sw_off(8 * kg + 2 * i + h, c));
-#pragma unroll
-              for (int j = 0; j < 2; ++j) {
-                uint4 hv, lv;
-                tf32_split(j ? v[0].y : v[0].x, hv.x, lv.x);
-                tf32_split(j ? v[1].y : v[1].x, hv.y, lv.y);
-                tf32_split(j ? v[2].y : v[2].x, hv.z, lv.z);
-                tf32_split(j ? v[3].y : v[3].x, hv.w, lv.w);
-                const int off = sw_off(c + j, 8 * kg + 4 * h);
-                *reinterpret_cast<uint4*>(hi + off) = hv;
-                *reinterpret_cast<uint4*>(lo + off) = lv;
-              }
-            }
-          }
+          split_chunk(src, hi, lo, i >= NK, sid);
           fence_proxy_async();  // the parts become visible to the wgmma reads
           mbar_arrive(&raw_empty[rs]);
           mbar_arrive(&split_full[ss]);

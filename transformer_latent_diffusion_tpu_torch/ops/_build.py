@@ -49,6 +49,7 @@ SIGNATURES = {
     "ltd_self_attention_bwd": (_P, _P, _P, _I, _I, _I, _I, _P),
     "ltd_cross_attention_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ltd_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "ltd_flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "ltd_flash_attention_variant": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                     _I, _I, _P),
     "ltd_head_group_attention": (_P, _P, _I, _I, _I, _I, _I, _I, _P),

@@ -27,6 +27,16 @@ for "plain", where the JAX package runs XLA, torch autograd through
 (`attention_plain`, `attention_bwd_plain`); on any other device they
 launch the kernels or raise.
 
+Float32 q, k and v (the JAX package's default compute dtype on the linen
+path: 512 and 1024 px deployments, the "mlp" and "moe" FFNs, a model
+sampled on another grid) take K3's float32 body,
+`csrc/flash_attention_f32.cu` (`flash_attention_f32`): the same streaming
+over 64-key chunks, each float32 product run on the tensor cores as three
+TF32 products of the operands' parts (3xTF32), the probabilities not
+rounded, a float32 output. Its launches count in `LAUNCHES` apart from
+the bf16 body's. Its backward is float32 training (ROADMAP item 7): on
+CUDA a float32 call that asks for a gradient raises.
+
 The probe scripts/probe_attn_softmax.py (S3) times four softmax forms of
 the same attention: `flash_attention_variant` runs them as template
 flags of the same kernel (exp or exp2; p normalised before it is rounded,
@@ -49,7 +59,8 @@ from transformer_latent_diffusion_tpu_torch.ops.fused_stack import (
     _stream,
 )
 
-KERNELS = ("flash_attention", "flash_attention_bwd", "flash_attention_variant")
+KERNELS = ("flash_attention", "flash_attention_f32", "flash_attention_bwd",
+           "flash_attention_variant")
 # launches of each kernel since the last reset_launch_counts()
 # (flash_attention_bwd is two kernels, dq then dk/dv, and counts both)
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -64,6 +75,9 @@ K4B_MAX_TOKENS = 8192
 # the backward kernel's query and key tiles
 BWD_TILE = 64
 LOG2E = 1.4426950408889634
+# what a float32 call that needs the attention's gradient raises on CUDA
+FLOAT32_GRAD = ("flash_attention: the float32 backward on CUDA is float32 "
+                "training, not ported yet (ROADMAP item 7); train in bfloat16")
 
 
 def reset_launch_counts() -> None:
@@ -142,22 +156,29 @@ def _row_stride(name: str, t) -> int:
     _require(t.stride(2) == 1 and t.stride(0) == n * t.stride(1),
              f"flash_attention: {name} must be (B*N, row) rows with unit "
              f"column stride, got strides {t.stride()}")
-    _require(t.stride(1) % 8 == 0 and t.data_ptr() % 16 == 0,
+    _require(t.stride(1) * t.element_size() % 16 == 0 and t.data_ptr() % 16 == 0,
              f"flash_attention: {name}'s rows must be 16-byte aligned")
     return t.stride(1)
 
 
-def _check_qkv(q, k, v, n_heads: int) -> torch.device:
-    dev = q.device
-    if dev.type != "cuda":
+def _cuda_device(t) -> torch.device:
+    """The device of a kernel's operand, which must be a CUDA one."""
+    if t.device.type != "cuda":
         raise ValueError(f"flash_attention: the kernel runs on CUDA tensors "
-                         f"(CPU tensors take the plain version); got {dev}")
+                         f"(CPU tensors take the plain version); got {t.device}")
+    return t.device
+
+
+def _check_qkv(q, k, v, n_heads: int) -> torch.device:
+    """The device of q, k and v, all bf16 or all float32 (the two bodies)."""
+    dev = _cuda_device(q)
     b, nq, d = q.shape
     nk = k.shape[1]
     for name, t in (("k", k), ("v", v)):
         _require(t.device == dev, f"flash_attention: {name} on {t.device}, q on {dev}")
-    _require(all(t.dtype == torch.bfloat16 for t in (q, k, v)),
-             "flash_attention: q, k and v must be bf16")
+    _require(q.dtype in (torch.bfloat16, torch.float32)
+             and k.dtype == q.dtype and v.dtype == q.dtype,
+             "flash_attention: q, k and v must be all bf16 or all float32")
     _require(d == HEAD_DIM * n_heads and k.shape == (b, nk, d) and v.shape == k.shape,
              f"flash_attention: needs head dim {HEAD_DIM} and k, v (B, Nk, D)")
     _require(nq >= MIN_TOKENS and nk >= MIN_TOKENS,
@@ -168,12 +189,22 @@ def _check_qkv(q, k, v, n_heads: int) -> torch.device:
 def _flash_forward(q, k, v, n_heads: int, with_lse: bool = False):
     """(out, lse): the kernel's output and, with_lse, each query row's
     float32 log-sum-exp (B, H, Nq), else None. CPU tensors: the plain
-    version and no lse."""
+    version and no lse; float32 ones the float32 body, without lse."""
     if q.device.type == "cpu":
         return _mha_plain(q, k, v, n_heads), None
     dev = _check_qkv(q, k, v, n_heads)
     b, nq, d = q.shape
     strides = [_row_stride(name, t) for name, t in (("q", q), ("k", k), ("v", v))]
+    if q.dtype == torch.float32:
+        if with_lse:
+            raise NotImplementedError(FLOAT32_GRAD)
+        out = torch.empty((b, nq, d), dtype=torch.float32, device=dev)
+        lib = load_library()
+        LAUNCHES["flash_attention_f32"] += 1
+        err = lib.ltd_flash_attention_f32(_ptr(q), _ptr(k), _ptr(v), _ptr(out), b, nq,
+                                          k.shape[1], n_heads, *strides, _stream(dev))
+        _check_launch(err, "flash_attention_f32")
+        return out, None
     out = torch.empty((b, nq, d), dtype=torch.bfloat16, device=dev)
     lse = (torch.empty((b, n_heads, nq), dtype=torch.float32, device=dev)
            if with_lse else None)
@@ -198,6 +229,8 @@ def flash_attention_bwd(q, k, v, g, n_heads: int, o=None, lse=None):
         grads = attention_bwd_plain(*(_heads(t, n_heads) for t in (q, k, v, g)))
         return tuple(_merge(t) for t in grads)
     dev = _check_qkv(q, k, v, n_heads)
+    if q.dtype == torch.float32:
+        raise NotImplementedError(FLOAT32_GRAD)
     b, n, d = q.shape
     _require(k.shape[1] == n and n % BWD_TILE == 0,
              f"flash_attention_bwd: needs Nq == Nk and N % {BWD_TILE} == 0")
@@ -233,10 +266,14 @@ class FlashAttentionFunction(torch.autograd.Function):
     backward kernel will read it); the backward takes
     `attention_bwd_route`'s choice: `flash_attention_bwd` for "k4a" and
     "k4b", torch autograd through the plain math for "plain". The forward
-    saves q, k, v, its output and the log-sum-exp."""
+    saves q, k, v, its output and the log-sum-exp. On CUDA float32 operands
+    raise (ROADMAP item 7): the float32 body has no backward yet."""
 
     @staticmethod
     def forward(ctx, q, k, v, n_heads: int):
+        if q.device.type != "cpu" and q.dtype == torch.float32:
+            _cuda_device(q)
+            raise NotImplementedError(FLOAT32_GRAD)
         route = attention_bwd_route(q.shape[1], k.shape[1], q.shape[2] // n_heads)
         out, lse = _flash_forward(q, k, v, n_heads, with_lse=route != "plain")
         ctx.save_for_backward(q, k, v, out, lse)
@@ -262,9 +299,10 @@ def flash_attention(q, k, v, n_heads: int):
     (B, Nq, D) with the heads merged, like `multi_head_attention`;
     differentiable (`FlashAttentionFunction`) where a gradient is asked for.
 
-    On CUDA: q, k, v bf16 with head dim 64, Nq and Nk >= 8, each a view
-    of evenly spaced rows with unit column stride (the column blocks of a
-    fused projection are)."""
+    On CUDA: q, k, v all bf16 (K3's bf16 body) or all float32 (its float32
+    body, `flash_attention_f32`; no gradient) with head dim 64, Nq and
+    Nk >= 8, each a view of evenly spaced rows with unit column stride
+    (the column blocks of a fused projection are)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttentionFunction.apply(q, k, v, n_heads)
     return _flash_forward(q, k, v, n_heads)[0]
@@ -316,6 +354,7 @@ def flash_attention_variant(q, k, v, n_heads: int, use_exp2: bool, postdiv: bool
     if q.device.type == "cpu":
         return attention_variant_plain(q, k, v, n_heads, use_exp2, postdiv)
     dev = _check_qkv(q, k, v, n_heads)
+    _require(q.dtype == torch.bfloat16, "flash_attention_variant: q, k and v must be bf16")
     b, nq, d = q.shape
     strides = [_row_stride(name, t) for name, t in (("q", q), ("k", k), ("v", v))]
     out = torch.empty((b, nq, d), dtype=torch.bfloat16, device=dev)

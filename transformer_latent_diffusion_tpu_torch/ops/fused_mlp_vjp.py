@@ -20,15 +20,25 @@ square grid of 256 < N <= 1024 tokens.
 
 A Hopper SM cannot hold one image's float32 hidden state (1024 x 3072 x 4
 bytes = 12.6 MB), so both passes are launches of the decoder layer's
-kernels (`ops/fused_stack.py`, `ops/fused_layer_vjp.py`), with h, c and
-the float32 gradient da in device memory:
+kernels (`ops/fused_stack.py`, `ops/fused_stack_f32.py`,
+`ops/fused_layer_vjp.py`), with h, c and the float32 gradient da in device
+memory. The forward runs in the weights' dtype, bf16 or float32 (the JAX
+package's default compute dtype, whose TPU kernel rounds nothing):
 
-  forward   ln_gemm      h = x W1 + b1, float32 out (streaming mode)
-            dwconv_gelu  a = bf16(GELU(dw3x3(h) + dwb)) on the float32 h,
-                         through its row-band body at hw = 32
-            ln_gemm      y = a W2 + b2 in x's dtype, no residual (the block
-                         adds the residual outside, as the linen path does)
-  backward  ln_gemm, dwconv_gelu   the forward recomputed: h, and a with c
+  forward   bf16 x and weights          float32 x and weights
+            ln_gemm                     ln_gemm_f32 (3xTF32)
+              h = x W1 + b1, float32      h = x W1 + b1, float32
+            dwconv_gelu                 dwconv_gelu_f32
+              a = bf16(GELU(dw3x3(h)      a = GELU(dw3x3(h) + dwb),
+              + dwb)), row-band body      float32, row-band body at
+              at hw = 32                  hw = 32
+            ln_gemm                     ln_gemm_f32
+              y = a W2 + b2 in x's        y = a W2 + b2, float32
+              dtype
+            (no residual: the block adds it outside, as the linen path does)
+  backward  bf16 only (float32 training is ROADMAP item 7: on CUDA a
+            float32 call that needs the gradient raises)
+            ln_gemm, dwconv_gelu   the forward recomputed: h, and a with c
             weight_grad  dW2 = g^T a
             colsum       db2 = the column sums of the float32 g
             ln_gemm      da = g W2, float32 out
@@ -57,11 +67,12 @@ import torch
 from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
 from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
 
-KERNELS = ("fused_mlp_sepconv", "fused_mlp_sepconv_bwd")
+KERNELS = ("fused_mlp_sepconv", "fused_mlp_sepconv_f32", "fused_mlp_sepconv_bwd")
 # calls that launched the kernels since the last reset_launch_counts(); the
-# launches themselves count under their kernels' names: the forward's
+# launches themselves count under their kernels' names: the bf16 forward's
 # under "ln_gemm" (2 per call) and "dwconv_gelu" (1) in fused_stack.LAUNCHES,
-# the backward's under "ln_gemm" (3), "dwconv_gelu" (1) and, in
+# the float32 forward's under "ln_gemm_f32" (2) and "dwconv_gelu_f32" (1)
+# in fused_stack_f32.LAUNCHES, the backward's under "ln_gemm" (3), "dwconv_gelu" (1) and, in
 # fused_layer_vjp.LAUNCHES, "weight_grad" (2), "colsum" (1) and
 # "dwconv_gelu_bwd" (1)
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -130,15 +141,23 @@ def _require_cuda(name: str, x):
                 f"plain version); got {x.device}")
 
 
+# what a float32 call that needs the MLP's gradient raises on CUDA
+FLOAT32_GRAD = ("fused_mlp_sepconv: the float32 backward on CUDA is float32 "
+                "training, not ported yet (ROADMAP item 7); train in bfloat16")
+
+
 def _forward(x, w1, b1, dw, dwb, w2, b2, hw: int):
     if x.device.type == "cpu":
         return fused_mlp_sepconv_plain(x, w1, b1, dw, dwb, w2, b2, hw)
     _require_cuda("fused_mlp_sepconv", x)
     fs._require(x.dim() == 3 and x.shape[1] == hw * hw,
                 f"fused_mlp_sepconv: x must be (B, {hw * hw}, D)")
-    fs._require(x.dtype == torch.bfloat16, "fused_mlp_sepconv: x must be bf16")
+    fs._require(x.dtype in (torch.bfloat16, torch.float32)
+                and all(t.dtype == x.dtype for t in (w1, dw, w2)),
+                "fused_mlp_sepconv: x, w1, dw and w2 must be all bf16 or all float32")
     y = _mlp(x.contiguous(), w1, b1, dw, dwb, w2, b2, hw, _KERNEL_OPS)
-    LAUNCHES["fused_mlp_sepconv"] += 1
+    LAUNCHES["fused_mlp_sepconv_f32" if x.dtype == torch.float32
+             else "fused_mlp_sepconv"] += 1
     return y
 
 
@@ -150,6 +169,8 @@ def fused_mlp_sepconv_bwd(x, g, w1, b1, dw, dwb, w2, hw: int):
     if x.device.type == "cpu":
         return fused_mlp_sepconv_bwd_plain(x, g, w1, b1, dw, dwb, w2, hw)
     _require_cuda("fused_mlp_sepconv_bwd", x)
+    if x.dtype == torch.float32:
+        raise NotImplementedError(FLOAT32_GRAD)
     fs._require(x.dim() == 3 and x.shape[1] == hw * hw and g.shape == x.shape,
                 f"fused_mlp_sepconv_bwd: x and g must be (B, {hw * hw}, D)")
     fs._require(x.dtype == torch.bfloat16 and g.dtype == torch.bfloat16,
@@ -164,10 +185,15 @@ class FusedMLPFunction(torch.autograd.Function):
     """The sep-conv MLP as an autograd function over the kernels (their
     plain versions on CPU tensors). The forward saves x and the weights
     only, as the TPU kernel's `_vjp_fwd` does; the backward recomputes.
-    Gradients come back in each input's dtype."""
+    Gradients come back in each input's dtype. On CUDA float32 raises
+    (ROADMAP item 7): the backward's kernels take bf16."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, dw, dwb, w2, b2, hw: int):
+        if x.device.type != "cpu":
+            _require_cuda("fused_mlp_sepconv", x)
+            if x.dtype == torch.float32:
+                raise NotImplementedError(FLOAT32_GRAD)
         ctx.save_for_backward(x, w1, b1, dw, dwb, w2)
         ctx.hw, ctx.b2_dtype = hw, b2.dtype
         return _forward(x, w1, b1, dw, dwb, w2, b2, hw)
@@ -185,7 +211,9 @@ class FusedMLPFunction(torch.autograd.Function):
 def fused_mlp_sepconv(x, w1, b1, dw, dwb, w2, b2, hw: int):
     """Kernel route of `fused_mlp_sepconv_plain` (same arguments and
     result): on CUDA two `ln_gemm` launches and one `dwconv_gelu` launch,
-    x and the weights bf16; on CPU tensors the plain version.
+    x and the weights bf16, or their float32 bodies (`ln_gemm_f32` twice,
+    `dwconv_gelu_f32` once), x and the weights float32; on CPU tensors the
+    plain version.
     Differentiable (`FusedMLPFunction`) where a gradient is asked for."""
     args = (x, w1, b1, dw, dwb, w2, b2)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):

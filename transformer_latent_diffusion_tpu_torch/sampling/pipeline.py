@@ -13,12 +13,15 @@ so on CUDA through the same fused engine as text-to-image.
 On a CUDA device the denoiser runs the hand-written kernels, as the JAX
 package runs its Pallas kernels on the TPU (sampling/pipeline.py:113-131,
 225-237), in the configured compute dtype: float32, the default of
-`DenoiserLoad`, runs the kernels' float32 bodies
-(`ops/fused_stack_f32.py`), bfloat16 their bf16 ones: grids of at most 16 x 16 tokens at the native size go through
-the fused engine (K1); larger grids (512 and 1024 px deployments, or a
-256 px model sampled on a larger grid) through the `Denoiser`'s linen path
-with flash attention (K3) in every self-attention and, for a native grid
-of 16 < hw <= 32 tokens a side, the fused sep-conv MLP (K5's forward).
+`DenoiserLoad`, runs the kernels' float32 bodies (`ops/fused_stack_f32.py`
+for the engines, `flash_attention_f32` and the float32 route of the fused
+MLP on the linen path), bfloat16 their bf16 ones; other dtypes raise
+(ROADMAP item 4). Grids of at most 16 x 16 tokens at the native size go
+through the fused engine (K1); larger grids (512 and 1024 px deployments,
+or a 256 px model sampled on a larger grid) through the `Denoiser`'s linen
+path with flash attention (K3) in every self-attention and, for a native
+grid of 16 < hw <= 32 tokens a side, the fused sep-conv MLP (K5's
+forward).
 `LTDConfig.quantize="int8"` builds the W8A8 engine (K7) instead of K1's,
 behind the same gate, so a hi-res int8 deployment runs K3/K5 and no K7,
 as in JAX. The engines pack the sep-conv layer: a model with the "mlp" or
@@ -154,16 +157,6 @@ class DiffusionTransformer:
                 "denoiser's kernels take bf16 or float32 weights, so set "
                 "DenoiserLoad.dtype to 'bfloat16' or 'float32' (other "
                 "compute dtypes on CUDA are ROADMAP item 4)")
-        den_cfg = cfg.denoiser_cfg
-        if (self.device.type == "cuda" and dtype == torch.float32
-                and not (uses_fused_engine(cfg, self.device)
-                         and den_cfg.image_size // den_cfg.patch_size <= 16)):
-            raise NotImplementedError(
-                "DenoiserLoad.dtype='float32' on CUDA runs the fused engine's "
-                "float32 bodies (a sep-conv model of at most 16 x 16 tokens); "
-                "the linen path's kernels (flash attention, the fused MLP) "
-                "take bf16, so set DenoiserLoad.dtype='bfloat16' (their "
-                "float32 bodies are ROADMAP item 4)")
 
         load = cfg.denoiser_load
         if load.file_url is not None and not (

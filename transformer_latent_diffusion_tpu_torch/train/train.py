@@ -10,9 +10,10 @@ checkpoints, held-out validation loss, resume and graceful preemption.
 
 PyTorch runs eagerly, so the JAX package's one jitted step becomes a
 Python step over an `nn.Module` with float32 master weights computing in
-`compute_dtype`. On CUDA its decoder blocks take the hand-written kernels
-by the JAX package's gates: K2 (`ops/fused_layer_vjp.py`) on square grids
-of at most 256 tokens with the sep-conv FFN; the attention pair K6
+`compute_dtype`, bf16 on CUDA (float32 there is ROADMAP item 7). On CUDA
+its decoder blocks take the hand-written kernels by the JAX package's
+gates: K2 (`ops/fused_layer_vjp.py`) on square grids of at most 256
+tokens with the sep-conv FFN; the attention pair K6
 (`ops/fused_attn_vjp.py`) in the other blocks of at most 256 tokens (the
 "mlp" and "moe" FFNs, whose MoE adds its Switch load-balancing loss);
 beyond, flash attention with its backward (K3/K4, `ops/attention.py`)
@@ -460,6 +461,16 @@ def main(config: ModelConfig, device,
     dataconfig = config.data_config
     device = torch.device(device)
     on_cuda = device.type == "cuda"
+    compute_dtype = resolve_dtype(train_config.compute_dtype)
+    if on_cuda and compute_dtype != torch.bfloat16:
+        # the training kernels' backward bodies take bf16 (their float32
+        # forms are float32 training); refused before any data is read
+        item = ("item 7 (float32 training)" if compute_dtype == torch.float32
+                else "item 4 (other compute dtypes)")
+        raise NotImplementedError(
+            f"TrainConfig.compute_dtype={train_config.compute_dtype!r} on CUDA: "
+            f"the training kernels take bf16, so set compute_dtype='bfloat16' "
+            f"(ROADMAP {item})")
 
     def log(*a):
         print(*a, flush=True)
@@ -498,7 +509,6 @@ def main(config: ModelConfig, device,
             f"step would feed the model {denoiser_config.n_channels}"
             f"-channel latents")
 
-    compute_dtype = resolve_dtype(train_config.compute_dtype)
     fused_layer, fused_mlp, fused_attn = resolve_fused_flags(train_config,
                                                              on_cuda)
     # remat's auto choice covers the largest bucket of the run
