@@ -47,7 +47,9 @@ paths, each checked against plain PyTorch versions on the same inputs:
   `quantize="int8"` deployment, and S1 (the MLP product pair at
   scripts/microbench_int8.py's shapes, bf16 against W8A8);
 - hi-res serving (TPU kernels K3, flash attention, and K5's forward, the
-  fused sep-conv MLP): each at the 512 px and 1024 px shapes (and a ragged
+  fused sep-conv MLP, whose band kernel mlp_band_fwd is also held against
+  its plain version and timed beside the launches it replaced): each at
+  the 512 px and 1024 px shapes (and a ragged
   400-token grid), one 512 px Denoiser forward with the kernels against
   the plain bf16 forward, the library entry point on a 512 px deployment
   (the flagship's seeded weights with the positional table upsampled; 32
@@ -84,7 +86,8 @@ paths, each checked against plain PyTorch versions on the same inputs:
   step's gradients with K6 against the plain bf16 autograd path, ms per
   step and peak memory, and `train.main` (10 steps, an eval grid);
 - hi-res training (TPU kernels K4a/K4b, the flash-attention backward, and
-  K5's backward, the sep-conv MLP's): each at the 512 px and 1024 px
+  K5's backward, the sep-conv MLP's, with its band kernel mlp_band_bwd and
+  the launches it replaced): each at the 512 px and 1024 px
   shapes against its plain version, one 512 px step's gradients against
   the plain bf16 autograd path, ms per step and peak memory at 512 px
   (batch 64) and 1024 px (batch 16, remat), remat's gradients against
@@ -2039,8 +2042,23 @@ def phase_hires_kernels():
         bounds["fused_mlp_sepconv"] = bound(
             2 * m * D * 2 + 2 * HIDDEN * D * 2 + 9 * HIDDEN * 2 + (2 * HIDDEN + D) * 4,
             4 * m * D * HIDDEN, BF16_TENSOR_FLOP_S)
-        # its three launches one by one, and the row-band body against its plain version
+        # the band kernel against its plain version, two launches bit-equal,
+        # timed; then the route's two launches one by one, the composition
+        # that the band kernel replaced (ln_gemm's float32 h, dwconv_gelu's
+        # row band) on the same inputs, and that row-band body (the float32
+        # route and the 1024 px plan keep it) against its plain version
         x2 = x.reshape(m, D)
+        band = lambda: fm.mlp_band_fwd(x2, w1, b1, dw, dwb, HR_HW)  # noqa: E731
+        band_plain = lambda: fm.mlp_band_fwd_plain(x2, w1, b1, dw, dwb, HR_HW)  # noqa: E731
+        worst["mlp_band_fwd"] = _check("mlp_band_fwd hw=32", (band(),), (band_plain(),),
+                                       "hires-kernels")
+        _bit_equal_twice("mlp_band_fwd hw=32", band, "hires-kernels")
+        timing.update(time_against_plain({"mlp_band_fwd": (band, band_plain)}, "hires-kernels"))
+        library["mlp_band_fwd"] = None  # no one call: a product, a depthwise conv, a GELU
+        # x, W1, the taps and biases in, a out; the expand product
+        bounds["mlp_band_fwd"] = bound(m * D * 2 + HIDDEN * D * 2 + 9 * HIDDEN * 2
+                                       + 2 * HIDDEN * 4 + m * HIDDEN * 2,
+                                       2 * m * D * HIDDEN, BF16_TENSOR_FLOP_S)
         h = fs.ln_gemm(x2, w1, bias=b1, out_dtype=torch.float32)
         a = fs.dwconv_gelu(h, dw, dwb, HR_HW)
         _check("dwconv_gelu float32 row bands hw=32", (a,),
@@ -2050,27 +2068,38 @@ def phase_hires_kernels():
         log(f"[hires-kernels] dwconv_gelu row bands: equal-work yardstick (F.conv2d groups=C "
             f"with bias + F.gelu in float32, then bf16) "
             f"{time_ms(dw_equal_work(h, dw, dwb, HR_HW)):.4f} ms")
-        parts = {"ln_gemm expand (float32 h)": lambda: fs.ln_gemm(x2, w1, bias=b1,
-                                                                  out_dtype=torch.float32),
-                 "dwconv_gelu row bands": lambda: fs.dwconv_gelu(h, dw, dwb, HR_HW),
-                 "ln_gemm contract": lambda: fs.ln_gemm(a, w2, bias=b2)}
+        a = band()
+        parts = {"mlp_band_fwd": band,
+                 "ln_gemm contract": lambda: fs.ln_gemm(a, w2, bias=b2),
+                 "composition replaced: ln_gemm expand (float32 h)": lambda: fs.ln_gemm(
+                     x2, w1, bias=b1, out_dtype=torch.float32),
+                 "composition replaced: dwconv_gelu row bands": lambda: fs.dwconv_gelu(
+                     h, dw, dwb, HR_HW),
+                 "composition replaced: all three launches": lambda: fs.ln_gemm(
+                     fs.dwconv_gelu(fs.ln_gemm(x2, w1, bias=b1, out_dtype=torch.float32), dw,
+                                    dwb, HR_HW), w2, bias=b2)}
         part_bounds = {
-            "ln_gemm expand (float32 h)": bound(m * D * 2 + HIDDEN * D * 2 + m * HIDDEN * 4,
-                                                2 * m * D * HIDDEN, BF16_TENSOR_FLOP_S),
-            "dwconv_gelu row bands": bound(m * HIDDEN * 6, 26 * m * HIDDEN, F32_FLOP_S),
+            "mlp_band_fwd": bounds["mlp_band_fwd"],
             "ln_gemm contract": bound(m * HIDDEN * 2 + HIDDEN * D * 2 + m * D * 2,
-                                      2 * m * D * HIDDEN, BF16_TENSOR_FLOP_S)}
-        # the two products against one F.linear on the same operands (bf16 out)
-        part_linear = {"ln_gemm expand (float32 h)": lambda: F.linear(x2, w1, b1.to(bf)),
+                                      2 * m * D * HIDDEN, BF16_TENSOR_FLOP_S),
+            "composition replaced: ln_gemm expand (float32 h)": bound(
+                m * D * 2 + HIDDEN * D * 2 + m * HIDDEN * 4, 2 * m * D * HIDDEN,
+                BF16_TENSOR_FLOP_S),
+            "composition replaced: dwconv_gelu row bands": bound(
+                m * HIDDEN * 6, 26 * m * HIDDEN, F32_FLOP_S),
+            "composition replaced: all three launches": bounds["fused_mlp_sepconv"]}
+        # the products against one F.linear on the same operands (bf16 out)
+        part_linear = {"mlp_band_fwd": lambda: F.linear(x2, w1, b1.to(bf)),
                        "ln_gemm contract": lambda: F.linear(a, w2, b2.to(bf))}
         for name, fn in parts.items():
             ms = time_ms(fn)
             extra = ""
             if name in part_linear:
-                extra = (f", {2 * m * D * HIDDEN / ms / 1e9:.1f} TFLOP/s; F.linear "
-                         f"{time_ms(part_linear[name]):.4f} ms")
+                extra = (f", {2 * m * D * HIDDEN / ms / 1e9:.1f} TFLOP/s of its product; "
+                         f"F.linear {time_ms(part_linear[name]):.4f} ms")
             log(f"[hires-kernels] K5 part {name}: {ms:.4f} ms, bound "
                 f"{part_bounds[name][0]:.4f} ms ({part_bounds[name][1]}){extra}")
+        _ptxas_report("hires-kernels", ("mlp_band_fwd_kernel",))
         del x, x2, h, a
     torch.cuda.synchronize()
     log(f"[hires-kernels] bounds (ms): { {k: round(v[0], 4) for k, v in bounds.items()} }")
@@ -2104,15 +2133,15 @@ def hires_config(tmp, image_size, dtype="bfloat16"):
 def _hires_per_layer(den, dtype="bfloat16"):
     """Kernel launches per decoder layer on the linen path in compute dtype
     `dtype`, by the JAX package's gates: flash attention always, the fused
-    sep-conv MLP (two ln_gemm launches, one dwconv_gelu; their float32
-    bodies in float32) for a native grid of 16 < hw <= 32."""
+    sep-conv MLP (bf16: the band kernel and one ln_gemm; float32: two
+    ln_gemm_f32 launches and one dwconv_gelu_f32; fused_mlp_vjp's
+    ROUTE_LAUNCHES) for a native grid of 16 < hw <= 32."""
+    from transformer_latent_diffusion_tpu_torch.ops import fused_mlp_vjp as fm
+
     hw = den.image_size // den.patch_size
-    if dtype == "float32":
-        per_layer = {"flash_attention_f32": 1}
-        mlp = {"fused_mlp_sepconv_f32": 1, "ln_gemm_f32": 2, "dwconv_gelu_f32": 1}
-    else:
-        per_layer = {"flash_attention": 1}
-        mlp = {"fused_mlp_sepconv": 1, "ln_gemm": 2, "dwconv_gelu": 1}
+    route = "fused_mlp_sepconv_f32" if dtype == "float32" else "fused_mlp_sepconv"
+    per_layer = {"flash_attention_f32" if dtype == "float32" else "flash_attention": 1}
+    mlp = {route: 1, **fm.ROUTE_LAUNCHES[route]}
     if 16 < hw <= 32 and den.mlp_class == "sep_conv":
         per_layer.update(mlp)
     return per_layer
@@ -2928,7 +2957,42 @@ def phase_hires_train_kernels():
         f"{bounds['fused_mlp_sepconv_bwd'][0]:.4f} ms ({bounds['fused_mlp_sepconv_bwd'][1]}); "
         f"the composition's own traffic (float32 h, c, da and bf16 a, dh, each written and "
         f"read) {extra / 1e9:.2f} GB = {extra / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s")
-    del args, x, gr
+    # the band kernel against its plain version, twice bit-equal, timed; the
+    # route it replaced (eight launches, the float32 h, c and da through
+    # device memory) on the same inputs; colsum on the bf16 g
+    x2, g2 = x.reshape(m, D), gr.reshape(m, D)
+    band = lambda: fm.mlp_band_bwd(x2, g2, w1, b1, dw, dwb, w2, HR_HW)  # noqa: E731
+    band_plain = lambda: fm.mlp_band_bwd_plain(x2, g2, w1, b1, dw, dwb, w2, HR_HW)  # noqa: E731
+    worst["mlp_band_bwd"] = _check("mlp_band_bwd hw=32 (a, dh, taps, ddwb, db1)", band(),
+                                   band_plain(), "hires-train-kernels")
+    _bit_equal_twice("mlp_band_bwd hw=32", band, "hires-train-kernels")
+    timing.update(time_against_plain({"mlp_band_bwd": (band, band_plain)},
+                                     "hires-train-kernels"))
+    library["mlp_band_bwd"] = None  # no one call: two products, the depthwise and GELU backward
+    # x, g, W1, W2, the taps and biases in, a and dh out, the 11 sums; the
+    # two products (h recomputed, da)
+    bounds["mlp_band_bwd"] = bound(2 * m * D * 2 + 2 * HIDDEN * D * 2 + 9 * HIDDEN * 2
+                                   + 2 * HIDDEN * 4 + 2 * m * HIDDEN * 2 + 11 * HIDDEN * 4,
+                                   4 * m * D * HIDDEN, BF16_TENSOR_FLOP_S)
+    ms = timing["mlp_band_bwd"][0]
+    log(f"[hires-train-kernels] mlp_band_bwd hw=32 B={HT_B}: {ms:.4f} ms, bound "
+        f"{bounds['mlp_band_bwd'][0]:.4f} ms ({bounds['mlp_band_bwd'][1]}; "
+        f"{bounds['mlp_band_bwd'][0] / ms:.0%} of it), "
+        f"{4 * m * D * HIDDEN / ms / 1e9:.1f} TFLOP/s of its two products")
+    replaced = time_ms(lambda: _k5_bwd_replaced(x, gr, w1, b1, dw, dwb, w2, HR_HW), 10, 2)
+    route = timing["fused_mlp_sepconv_bwd"][0]
+    log(f"[hires-train-kernels] fused_mlp_sepconv_bwd: {route:.4f} ms (band route, 5 launches) "
+        f"against {replaced:.4f} ms for the route it replaced (8 launches, float32 h, c and "
+        f"da through device memory) on the same inputs, and "
+        f"{library['fused_mlp_sepconv_bwd (equal work)']:.4f} ms of equal work")
+    _check("colsum bf16 g (db2)", (lv.colsum(g2),), (lv.colsum_plain(g2),),
+           "hires-train-kernels")
+    _bit_equal_twice("colsum bf16 g (db2)", lambda: lv.colsum(g2), "hires-train-kernels")
+    log(f"[hires-train-kernels] colsum of the bf16 g ({m} x {D}): "
+        f"{time_ms(lambda: lv.colsum(g2)):.4f} ms; float32 copy, then colsum (the route "
+        f"it replaced): {time_ms(lambda: lv.colsum(g2.float())):.4f} ms")
+    _ptxas_report("hires-train-kernels", ("mlp_band_bwd_kernel", "colsum_kernel"))
+    del args, x, gr, x2, g2
     h, c, da = randn(m, HIDDEN), randn(m, HIDDEN), randn(m, HIDDEN, std=1e-3)
     body = lv.dwconv_gelu_bwd_body(HR_HW)
     key = "dwconv_gelu_bwd (row band)"
@@ -2952,6 +3016,26 @@ def phase_hires_train_kernels():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return worst, timing, library, bounds
+
+
+def _k5_bwd_replaced(x, g, w1, b1, dw, dwb, w2, hw):
+    """K5's backward as the port composed it before the band kernels: the
+    forward recomputed by ln_gemm and dwconv_gelu (float32 h and c in device
+    memory), dW2, db2 from a float32 copy of g, da = g W2 (float32),
+    dwconv_gelu_bwd's row bands, dW1, dx: eight launches. A yardstick
+    only: no path runs it."""
+    from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
+
+    b, n, d = x.shape
+    x2, g2 = x.reshape(b * n, d), g.reshape(b * n, d)
+    h = fs.ln_gemm(x2, w1, bias=b1, out_dtype=torch.float32)
+    a, c = fs.dwconv_gelu(h, dw, dwb, hw, return_c=True)
+    dw2, db2 = lv.weight_grad(g2, a), lv.colsum(g2.float())
+    dh, ddw, ddwb, db1 = lv.dwconv_gelu_bwd(
+        fs.ln_gemm(g2, w2, out_dtype=torch.float32, w_transposed=True), c, h, dw, hw)
+    return (fs.ln_gemm(dh, w1, out_dtype=x.dtype, w_transposed=True), lv.weight_grad(dh, x2),
+            db1, ddw, ddwb, dw2, db2)
 
 
 def _require_launches(got, expect, what):
@@ -3050,6 +3134,8 @@ def phase_hires_train_step(smi):
     remat's gradients against no remat (batch XR_CHECK_B), ms per step,
     peak memory and launches at batch XT_B with remat on (auto from 2048
     tokens)."""
+    from transformer_latent_diffusion_tpu_torch.ops import fused_mlp_vjp as fm
+
     n_layers = flagship_configs().denoiser_cfg.n_layers
     sd512 = _hires_sd(HT_SIZE)
     models = {True: _hires_model(HT_SIZE, sd512, fused_layer_vjp=True, use_pallas=True),
@@ -3068,17 +3154,21 @@ def phase_hires_train_step(smi):
 
     per_layer = _hires_layer_launches(HT_SIZE, HT_B)
     log(f"[hires-train-step] 512 px, one block's forward + backward at batch {HT_B}: {per_layer}")
-    # K3 and K5's forward, K4's two kernels, K5's backward (the K1/K2 kernels
-    # under them: ln_gemm, dwconv_gelu, weight_grad, colsum, dwconv_gelu_bwd)
-    # and nothing of K1's attention or K2's own backward kernels
+    # K3 and K5's forward, K4's two kernels, K5's backward (the band kernels
+    # and the K1/K2 kernels around them: ln_gemm, weight_grad, colsum) and
+    # nothing of K1's attention, dwconv_gelu or K2's own backward kernels
     calls = {"flash_attention": 1, "flash_attention_bwd": 2, "fused_mlp_sepconv": 1,
              "fused_mlp_sepconv_bwd": 1}
     _require_launches({k: per_layer.get(k, 0) for k in calls}, calls, "512 px block")
-    _require_launches(set(per_layer), {*calls, "ln_gemm", "dwconv_gelu", "weight_grad",
-                                       "colsum", "dwconv_gelu_bwd"}, "512 px block kernels")
-    # K5's backward: db2 in one colsum launch; dwconv_gelu_bwd sums its own partials
-    _require_launches({k: per_layer[k] for k in ("colsum", "dwconv_gelu_bwd")},
-                      {"colsum": 1, "dwconv_gelu_bwd": 1}, "512 px block's K5 backward")
+    _require_launches(set(per_layer), {*calls, "mlp_band_fwd", "mlp_band_bwd", "ln_gemm",
+                                       "weight_grad", "colsum"}, "512 px block kernels")
+    # K5: the forward's band kernel and contract product, the backward's band
+    # kernel (which sums its own partials), dW2 and dW1, db2 in one colsum
+    # launch from the bf16 g, dx
+    k5 = {k: v for r in ("fused_mlp_sepconv", "fused_mlp_sepconv_bwd")
+          for k, v in fm.ROUTE_LAUNCHES[r].items()}
+    k5["ln_gemm"] = 2
+    _require_launches({k: per_layer.get(k, 0) for k in k5}, k5, "512 px block's K5")
     ms512, peak512, launches, prof512 = _time_steps(models[True], HT_B, HT_SIZE)
     expect = {k: v * n_layers for k, v in per_layer.items()}
     log(f"[hires-train-step] 512 px flagship, batch {HT_B}, bf16 compute, float32 master "
@@ -4765,10 +4855,12 @@ def main():
                "self_attention_bwd": "csrc/attention_bwd.cu",
                "cross_attention_bwd": "csrc/attention_bwd.cu",
                "flash_attention": "csrc/flash_attention.cu",
-               # composes ln_gemm.cu and dwconv_gelu.cu's row-band body
+               # K5's band kernels, and the routes that compose them with
+               # ln_gemm.cu (forward), gemm_bwd.cu and ln_gemm.cu (backward)
+               "mlp_band_fwd": "csrc/mlp_band_fwd.cu",
+               "mlp_band_bwd": "csrc/mlp_band_bwd.cu",
                "fused_mlp_sepconv": "ops/fused_mlp_vjp.py",
                "flash_attention_bwd": "csrc/flash_attention_bwd.cu",
-               # composes the K1/K2 kernels and dwconv_gelu_bwd.cu's row-band body
                "fused_mlp_sepconv_bwd": "ops/fused_mlp_vjp.py",
                "rowquant": "csrc/rowquant.cu", "gemm_i8": "csrc/gemm_i8.cu",
                # the float32 bodies (ops/fused_stack_f32.py)
@@ -4787,8 +4879,8 @@ def main():
             (lv.KERNELS, TPU_K2_BWD, t_launches, t_worst, t_timing, t_library, t_bounds),
             (("flash_attention",), TPU_K3, h_launches, h_worst, h_timing, h_library,
              h_bounds),
-            (("fused_mlp_sepconv",), TPU_K5, h_launches, h_worst, h_timing, h_library,
-             h_bounds),
+            (("fused_mlp_sepconv", "mlp_band_fwd"), TPU_K5, h_launches, h_worst, h_timing,
+             h_library, h_bounds),
             (("flash_attention_f32",), TPU_K3, fh_launches, fh_worst, fh_timing, fh_library,
              fh_bounds),
             (("fused_mlp_sepconv_f32",), TPU_K5, fh_launches, fh_worst, fh_timing, fh_library,
@@ -4805,8 +4897,8 @@ def main():
                 kernels[-1]["equal_work_ms"] = lib[f"{name} (equal work)"]
     # K4a and K4b are one Hopper kernel: a row at 512 px (B = 64, N = 1024;
     # launches of the fine-tune) and one at 4096 tokens (B = 2; launches of
-    # the 1024 px step); K5's backward and its row-band dwconv_gelu_bwd at
-    # 512 px (launches of the fine-tune)
+    # the 1024 px step); K5's backward route and its band kernel at 512 px
+    # (launches of the fine-tune)
     for row, name, key, tpu, counts, err in (
             ("flash_attention_bwd", "flash_attention_bwd", "flash_attention_bwd", TPU_K4A,
              ft_launches, "flash_attention_bwd"),
@@ -4814,9 +4906,8 @@ def main():
              xr_launches, "flash_attention_bwd"),
             ("fused_mlp_sepconv_bwd", "fused_mlp_sepconv_bwd", "fused_mlp_sepconv_bwd",
              TPU_K5_BWD, ft_launches, "fused_mlp_sepconv_bwd"),
-            ("dwconv_gelu_bwd (row band, hw = 32)", "dwconv_gelu_bwd",
-             "dwconv_gelu_bwd (row band)", TPU_K5_BWD, ft_launches,
-             "dwconv_gelu_bwd (row band)")):
+            ("mlp_band_bwd", "mlp_band_bwd", "mlp_band_bwd", TPU_K5_BWD, ft_launches,
+             "mlp_band_bwd")):
         kernels.append({
             "name": row, "route": "cuda", "source": f"{port}/{sources[name]}",
             "replaces": tpu, "launches": counts[name], "max_abs_err": ht_worst[err],

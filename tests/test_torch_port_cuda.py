@@ -15,6 +15,7 @@ import math
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from transformer_latent_diffusion_tpu_torch.ops import attention as att
 from transformer_latent_diffusion_tpu_torch.ops import fused_attn_vjp as k6
@@ -181,15 +182,31 @@ def test_flash_attention_matches_plain_on_card(n):
     assert float((out.detach().float() - got).abs().max()) == 0.0
 
 
+def _route_launches():
+    """The launches counted since the modules' last reset, nonzero ones."""
+    counts = {**fs.LAUNCHES, **lv.LAUNCHES, **fm.LAUNCHES}
+    return {k: v for k, v in counts.items() if v}
+
+
+def _reset_route_counts():
+    for mod in (fs, lv, fm):
+        mod.reset_launch_counts()
+
+
 @pytest.mark.cuda
 def test_fused_mlp_sepconv_and_band_body_match_plain_on_card():
-    """K5's forward at hw = 32 (float32 h through the row-band body of
-    dwconv_gelu) against its plain version: rel-L2 below 1e-2. D = 128:
-    ln_gemm's output width is a multiple of 128."""
+    """K5's forward at hw = 32 (the band kernel, then the contract product)
+    against its plain version: rel-L2 below 1e-2, with exactly its two
+    launches (`ROUTE_LAUNCHES`); the bf16 row-band body of dwconv_gelu on a
+    float32 h against its plain version. D = 128: ln_gemm's output width is
+    a multiple of 128."""
     _need_card()
     args = _port_mlp_args(*_mlp_inputs(32, d=128), torch.bfloat16, "cuda")
     with torch.no_grad():
+        _reset_route_counts()
         got = fm.fused_mlp_sepconv(*args, 32).float()
+        torch.cuda.synchronize()
+        launches = _route_launches()
         want = fm.fused_mlp_sepconv_plain(*args, 32).float()
         h = torch.randn(2 * 32 * 32, 256, device="cuda")
         band = fs.dwconv_gelu(h, args[3], args[4], 32).float()
@@ -197,6 +214,73 @@ def test_fused_mlp_sepconv_and_band_body_match_plain_on_card():
     torch.cuda.synchronize()
     assert float((got - want).norm() / want.norm()) < 1e-2
     assert float((band - band_want).norm() / band_want.norm()) < 1e-2
+    assert launches == {**fm.ROUTE_LAUNCHES["fused_mlp_sepconv"], "fused_mlp_sepconv": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [4, 17, 24, 32])
+def test_mlp_band_fwd_matches_plain_on_card(hw):
+    """`mlp_band_fwd` (one cluster of ceil(hw^2 / 128) tiles an image and
+    128 channels) against `mlp_band_fwd_plain` at hw 4, 17 (a ragged last
+    tile, rows across tiles), 24 and 32, d 128, hidden 512: rel-L2 below
+    1e-2 (bf16 out), two launches bit-equal, one launch counted."""
+    _need_card()
+    x, w1, b1, dw, dwb, _, _ = _port_mlp_args(*_mlp_inputs(hw, d=128, hidden=512, seed=hw),
+                                              torch.bfloat16, "cuda")
+    x = x.reshape(-1, 128)
+    before = fm.LAUNCHES["mlp_band_fwd"]
+    got = fm.mlp_band_fwd(x, w1, b1, dw, dwb, hw)
+    again = fm.mlp_band_fwd(x, w1, b1, dw, dwb, hw)
+    want = fm.mlp_band_fwd_plain(x, w1, b1, dw, dwb, hw)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES["mlp_band_fwd"] == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _rel_l2(got.float(), want.float()) < 1e-2
+    assert torch.equal(got, again)
+
+
+class _Allocations(TorchDispatchMode):
+    """Records the dtype and size of every tensor an op makes (the kernels'
+    own launches go through ctypes and make none)."""
+
+    def __init__(self):
+        super().__init__()
+        self.made = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in out if isinstance(out, (tuple, list)) else (out,):
+            if isinstance(t, torch.Tensor):
+                self.made.append((t.dtype, t.numel()))
+        return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [4, 17, 24, 32])
+def test_mlp_band_bwd_matches_plain_on_card(hw):
+    """`mlp_band_bwd` against `mlp_band_bwd_plain` at hw 4, 17, 24 and 32,
+    d 128, hidden 512: a, dh, the taps, ddwb and db1 each within rel-L2
+    1e-2, two launches bit-equal (the sums in a fixed order, the counters
+    left zero), one launch counted, and no float32 tensor of (B hw^2,
+    hidden) elements, or a multiple of them, made: h, c, da and dc stay on
+    chip."""
+    _need_card()
+    x, w1, b1, dw, dwb, w2, _ = _port_mlp_args(*_mlp_inputs(hw, d=128, hidden=512, seed=hw),
+                                               torch.bfloat16, "cuda")
+    x = x.reshape(-1, 128)
+    g = torch.randn(x.shape, device="cuda").to(torch.bfloat16)
+    before = fm.LAUNCHES["mlp_band_bwd"]
+    with _Allocations() as allocs:
+        got = fm.mlp_band_bwd(x, g, w1, b1, dw, dwb, w2, hw)
+    again = fm.mlp_band_bwd(x, g, w1, b1, dw, dwb, w2, hw)
+    want = fm.mlp_band_bwd_plain(x, g, w1, b1, dw, dwb, w2, hw)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES["mlp_band_bwd"] == before + 2
+    for u, w in zip(got, want):
+        assert u.shape == w.shape and _rel_l2(u.float(), w.float()) < 1e-2
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    whole = x.shape[0] * 512  # a float32 (B hw^2, hidden) tensor's elements
+    assert not [m for m in allocs.made if m[0] == torch.float32 and m[1] % whole == 0]
 
 
 @pytest.mark.cuda
@@ -222,20 +306,28 @@ def test_flash_attention_bwd_matches_plain_on_card(n):
 
 @pytest.mark.cuda
 def test_fused_mlp_sepconv_bwd_matches_plain_on_card():
-    """K5's backward at hw = 32 (the row-band dwconv_gelu_bwd body) against
-    `fused_mlp_sepconv_bwd_plain`: each of the 7 outputs within rel-L2
-    1e-2. D = 128: weight_grad's and ln_gemm's output widths are multiples
-    of 128."""
+    """K5's backward at hw = 32 (the band kernel and the products around
+    it) against `fused_mlp_sepconv_bwd_plain`: each of the 7 outputs within
+    rel-L2 1e-2, with exactly its five launches (`ROUTE_LAUNCHES`) and no
+    float32 tensor of (B hw^2, hidden) elements made. D = 128:
+    weight_grad's and ln_gemm's output widths are multiples of 128."""
     _need_card()
     args = _port_mlp_args(*_mlp_inputs(32, d=128), torch.bfloat16, "cuda")
     g = torch.randn(args[0].shape, device="cuda").to(torch.bfloat16)
     x, w1, b1, dw, dwb, w2, _ = args
-    got = fm.fused_mlp_sepconv_bwd(x, g, w1, b1, dw, dwb, w2, 32)
+    _reset_route_counts()
+    with _Allocations() as allocs:
+        got = fm.fused_mlp_sepconv_bwd(x, g, w1, b1, dw, dwb, w2, 32)
+    torch.cuda.synchronize()
+    launches = _route_launches()
     want = fm.fused_mlp_sepconv_bwd_plain(x, g, w1, b1, dw, dwb, w2, 32)
     torch.cuda.synchronize()
     for u, w in zip(got, want):
         assert _rel_l2(u.float(), w.float()) < 1e-2
     assert math.isfinite(float(got[0].float().sum()))
+    assert launches == {**fm.ROUTE_LAUNCHES["fused_mlp_sepconv_bwd"], "fused_mlp_sepconv_bwd": 1}
+    whole = x.numel() // x.shape[-1] * w1.shape[0]  # a (B hw^2, hidden) tensor's elements
+    assert not [m for m in allocs.made if m[0] == torch.float32 and m[1] % whole == 0]
 
 
 # ------------------------------ K7 ------------------------------
@@ -1073,12 +1165,29 @@ def test_colsum_shapes_match_plain_on_card(r, c):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("r,c", [(1, 768), (2048, 768), (2048 + 37, 768), (1025, 33)])
+def test_colsum_bf16_matches_plain_on_card(r, c):
+    """colsum on bf16 rows (K5's db2 from its bf16 upstream gradient, read
+    as it is): against `colsum_plain` (the float32 sums of the widened
+    values; rel-L2 < 1e-2, max-abs < 2e-2 of the scale), two launches
+    bit-equal; C = 33 takes 2-byte loads."""
+    _need_card()
+    gen = torch.Generator().manual_seed(r + c)
+    x = torch.randn(r, c, generator=gen).to("cuda", torch.bfloat16)
+    got, again = lv.colsum(x), lv.colsum(x)
+    want = lv.colsum_plain(x)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (c,) and _close(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
 def test_backward_colsum_launches_drop_on_card():
     """The launches that the in-kernel sums take away: a K2 layer's backward
     runs 4 colsum launches (db2 and the three layernorm_bwd partials, each
-    one launch) and one dwconv_gelu_bwd; K5's backward 8 launches in all
-    (ln_gemm 3, dwconv_gelu 1, weight_grad 2, colsum 1 for db2 at 2048
-    rows, dwconv_gelu_bwd 1)."""
+    one launch) and one dwconv_gelu_bwd; K5's backward 5 launches in all
+    (mlp_band_bwd 1, which sums its own partials, weight_grad 2, colsum 1
+    for db2 from the bf16 g at 2048 rows, ln_gemm 1)."""
     _need_card()
     x, cond, g, params = _layer_args(2, 16, seed=9)
     x.requires_grad_(True)
@@ -1089,14 +1198,11 @@ def test_backward_colsum_launches_drop_on_card():
     args = _port_mlp_args(*_mlp_inputs(32, d=128), torch.bfloat16, "cuda")
     xm, w1, b1, dw, dwb, w2, _ = args
     gm = torch.randn(xm.shape, device="cuda").to(torch.bfloat16)
-    lv.reset_launch_counts()
-    fs.reset_launch_counts()
+    _reset_route_counts()
     fm.fused_mlp_sepconv_bwd(xm, gm, w1, b1, dw, dwb, w2, 32)
     torch.cuda.synchronize()
-    counts = {**{k: v for k, v in fs.LAUNCHES.items() if v},
-              **{k: v for k, v in lv.LAUNCHES.items() if v}}
-    assert counts == {"ln_gemm": 3, "dwconv_gelu": 1, "weight_grad": 2, "colsum": 1,
-                      "dwconv_gelu_bwd": 1}
+    assert _route_launches() == {"mlp_band_bwd": 1, "weight_grad": 2, "colsum": 1,
+                                 "ln_gemm": 1, "fused_mlp_sepconv_bwd": 1}
 
 
 # ------------------------------ the sampler's CUDA graph ------------------------------

@@ -140,7 +140,8 @@ def _mlp_args(dtype, hw=32, d=128, grad=False):
 def test_fused_mlp_takes_its_float32_route(fake_card, dtype):
     """K5's forward at hw = 32: float32 operands make the float32 bodies'
     three launches (the depthwise + GELU on its row-band body, float32
-    taps), bf16 ones the bf16 kernels' three."""
+    taps), bf16 ones the bf16 route's two (the band kernel, then the
+    contract product)."""
     dt = getattr(torch, dtype)
     with torch.no_grad():
         y = fm.fused_mlp_sepconv(*_mlp_args(dt), 32)
@@ -155,12 +156,13 @@ def test_fused_mlp_takes_its_float32_route(fake_card, dtype):
                                 "cross_attention_f32": 0, "dwconv_gelu_f32": 1}
         assert not any(fs.LAUNCHES.values())
     else:
-        assert fake_card.names() == ["ltd_ln_gemm", "ltd_dwconv_gelu", "ltd_ln_gemm"]
-        assert fs.LAUNCHES == {"ln_gemm": 2, "self_attention": 0, "cross_attention": 0,
-                               "dwconv_gelu": 1}
+        assert fake_card.names() == ["ltd_mlp_band_fwd", "ltd_ln_gemm"]
+        assert fs.LAUNCHES == {"ln_gemm": 1, "self_attention": 0, "cross_attention": 0,
+                               "dwconv_gelu": 0}
         assert not any(f32.LAUNCHES.values())
-    route = "fused_mlp_sepconv_f32" if dtype == "float32" else "fused_mlp_sepconv"
-    assert fm.LAUNCHES == {k: int(k == route) for k in fm.KERNELS}
+    route = (("fused_mlp_sepconv_f32",) if dtype == "float32"
+             else ("fused_mlp_sepconv", "mlp_band_fwd"))
+    assert fm.LAUNCHES == {k: int(k in route) for k in fm.KERNELS}
 
 
 def _mlp_bwd_call():

@@ -68,8 +68,9 @@ def test_wrapper_takes_w_transposed_on_cpu(mode):
 
 def test_dx_products_read_w_as_stored(monkeypatch):
     """The dX products of K2 (`_dx_of`, K6 through it) and of K5's backward
-    hand `ln_gemm` the weight as stored with w_transposed=True: no
-    transposed copy is made."""
+    take the weight as stored, no transposed copy made: `ln_gemm` with
+    w_transposed=True for K2's and for K5's dx = dh W1, and K5's band
+    kernel (da = g W2 inside it) W2 (D, hidden) as it is."""
     seen = []
     real = fs.ln_gemm
 
@@ -94,8 +95,14 @@ def test_dx_products_read_w_as_stored(monkeypatch):
     dw = torch.randn(9, hidden, generator=gen).to(torch.bfloat16)
     dwb = torch.randn(hidden, generator=gen)
     seen.clear()
-    ops = (fs.ln_gemm,) + fm._KERNEL_OPS[1:]
+    handed = []
+
+    def band(*args):  # the band kernel's w2, as _mlp_bwd hands it over
+        handed.append(args[6])
+        return fm._KERNEL_BWD_OPS[0](*args)
+
+    ops = (band,) + fm._KERNEL_BWD_OPS[1:3] + (fs.ln_gemm,)
     fm._mlp_bwd(x, g, w1, b1, dw, dwb, w2, hw, ops)
     transposed = [w_ for w_, flag in seen if flag]
-    assert len(transposed) == 2
-    assert transposed[0] is w2 and transposed[1] is w1
+    assert len(handed) == 1 and handed[0] is w2
+    assert len(transposed) == 1 and transposed[0] is w1

@@ -110,6 +110,25 @@ def test_solver_fields_are_served(app, body):
     assert out[:3] == b"\xff\xd8\xff"
 
 
+@pytest.mark.parametrize("path,token,status", [
+    ("/generate-image/", None, 401), ("/generate-image/", "wrong", 401),
+    ("/nowhere", TOKEN, 404)], ids=["no_token", "wrong_token", "unknown_route"])
+def test_body_is_read_before_an_early_answer(path, token, status):
+    """A POST answered before its body is parsed still has its body read
+    whole: closing a socket with unread bytes resets the connection, which
+    can cut the reply short on the client's side."""
+    raw = json.dumps({"prompt": "x" * 1000}).encode()
+    environ = {"REQUEST_METHOD": "POST", "PATH_INFO": path,
+               "CONTENT_LENGTH": str(len(raw)), "wsgi.input": io.BytesIO(raw)}
+    if token is not None:
+        environ["HTTP_AUTHORIZATION"] = f"Bearer {token}"
+    seen = {}
+    b"".join(create_wsgi_app(service=object())(
+        environ, lambda s, h: seen.setdefault("status", int(s.split()[0]))))
+    assert seen["status"] == status
+    assert environ["wsgi.input"].tell() == len(raw)
+
+
 def test_unknown_route_is_404_and_service_needs_a_device():
     status, _, _ = call(create_wsgi_app(service=object()), "GET", "/nowhere")
     assert status == 404

@@ -61,7 +61,10 @@
 //   rows, 8 runs of consecutive slices, each in slice order, then the runs
 //   in order. The order depends only on R and C: two launches on the same
 //   input give the same bits, and no second launch is needed.
-// C % 4 != 0 (rows not 16-byte aligned) takes 4-byte loads.
+// C % 4 != 0 (rows not 16-byte aligned) takes 4-byte loads. x may be bf16
+// (the sep-conv MLP's db2 from its bf16 upstream gradient, read as it
+// arrives): widened to float32 as it is read, 8-byte loads of 4 columns
+// (2-byte ones where C % 4 != 0); the sums are float32 as before.
 
 #include "hopper.cuh"
 
@@ -251,6 +254,27 @@ __device__ __forceinline__ float4 cs_load(const float* x, int r, int R, int c, i
   return v;
 }
 
+// the same for bf16 rows (streamed from device memory), widened exactly
+template <bool FROM_L2>
+__device__ __forceinline__ float4 cs_load(const bf16* x, int r, int R, int c, int C, bool vec) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (r >= R) return v;
+  const bf16* p = x + static_cast<size_t>(r) * C + c;
+  if (vec) {
+    if (c < C) {
+      const uint2 u = __ldcs(reinterpret_cast<const uint2*>(p));
+      v = make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                      __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+    }
+  } else {
+    if (c < C) v.x = __bfloat162float(p[0]);
+    if (c + 1 < C) v.y = __bfloat162float(p[1]);
+    if (c + 2 < C) v.z = __bfloat162float(p[2]);
+    if (c + 3 < C) v.w = __bfloat162float(p[3]);
+  }
+  return v;
+}
+
 __device__ __forceinline__ void cs_add(float4& s, const float4& v) {
   s.x += v.x, s.y += v.y, s.z += v.z, s.w += v.w;
 }
@@ -266,9 +290,11 @@ __device__ __forceinline__ void cs_store(float* p, int c, int C, bool vec, const
   }
 }
 
-// blockIdx.x: the column tile of 128 columns; blockIdx.y: the slice of rows
+// blockIdx.x: the column tile of 128 columns; blockIdx.y: the slice of
+// rows; T: x's type (float32, or bf16)
+template <typename T>
 __global__ void __launch_bounds__(CS_THREADS)
-colsum_kernel(const float* __restrict__ x, float* __restrict__ out, float* __restrict__ ws,
+colsum_kernel(const T* __restrict__ x, float* __restrict__ out, float* __restrict__ ws,
               int* __restrict__ counters, int R, int C, int slice, bool vec) {
   __shared__ float4 part[CS_LANES][CS_VCOLS];
   __shared__ int last;
@@ -350,15 +376,21 @@ LTD_API int ltd_weight_grad(const void* dy, const void* x, float* out, float* ws
   return static_cast<int>(cudaGetLastError());
 }
 
-// x: (R, C) float32; out: (C,) float32, the column sums. slice: rows per
-// block, a multiple of 8; ws: (ceil(R / slice), C) float32 workspace;
-// counters: ceil(C / 128) int32, zero, and left zero.
-LTD_API int ltd_colsum(const float* x, float* out, float* ws, int* counters, int R, int C,
-                       int slice, void* stream) {
+// x: (R, C) float32, or bf16 when x_bf16 is non-zero; out: (C,) float32,
+// the column sums. slice: rows per block, a multiple of 8; ws: (ceil(R /
+// slice), C) float32 workspace; counters: ceil(C / 128) int32, zero, and
+// left zero.
+LTD_API int ltd_colsum(const void* x, float* out, float* ws, int* counters, int R, int C,
+                       int slice, int x_bf16, void* stream) {
   if (R < 1 || C < 1 || slice < CS_LANES || slice % CS_LANES || (R - 1) / slice >= 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((C + 4 * CS_VCOLS - 1) / (4 * CS_VCOLS), (R + slice - 1) / slice);
-  colsum_kernel<<<grid, CS_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, out, ws, counters, R, C, slice, C % 4 == 0);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_bf16)
+    colsum_kernel<bf16><<<grid, CS_THREADS, 0, s>>>(static_cast<const bf16*>(x), out, ws,
+                                                    counters, R, C, slice, C % 4 == 0);
+  else
+    colsum_kernel<float><<<grid, CS_THREADS, 0, s>>>(static_cast<const float*>(x), out, ws,
+                                                     counters, R, C, slice, C % 4 == 0);
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,7 +43,7 @@ SIGNATURES = {
     "ltd_self_attention_f32": (_P, _P, _I, _I, _I, _I, _P),
     "ltd_cross_attention_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ltd_weight_grad": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "ltd_colsum": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "ltd_colsum": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ltd_layernorm_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "ltd_dwconv_gelu_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "ltd_self_attention_bwd": (_P, _P, _P, _I, _I, _I, _I, _P),
@@ -59,6 +59,9 @@ SIGNATURES = {
                                     _I, _I, _I, _I, _I, _I, _I, _P),
     "ltd_rowquant": (_P, _P, _P, _P, _P, _I, _I, _P),
     "ltd_gemm_i8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ltd_mlp_band_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ltd_mlp_band_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _P),
 }
 
 _lib = None

@@ -377,7 +377,7 @@ def weight_grad_plain(dy, x):
 
 
 def colsum_plain(x):
-    """Column sums of a float32 (R, C) matrix -> (C,)."""
+    """Column sums of a float32 or bf16 (R, C) matrix -> (C,), float32."""
     return x.float().sum(0)
 
 
@@ -467,12 +467,13 @@ def _zeroed_counters(dev: torch.device, n: int) -> torch.Tensor:
 
 def colsum(x):
     """Kernel wrapper of `colsum_plain`: one launch at any R, deterministic
-    (the slices' sums are added in a fixed order inside the kernel)."""
+    (the slices' sums are added in a fixed order inside the kernel); x
+    float32, or bf16 (read as it is, widened in the kernel)."""
     if x.device.type == "cpu":
         return colsum_plain(x)
     dev = _on_cuda("colsum", x)
-    _require(x.dtype == torch.float32 and x.ndim == 2 and x.numel() > 0,
-             "colsum: x must be a non-empty float32 (R, C) matrix")
+    _require(x.dtype in (torch.float32, torch.bfloat16) and x.ndim == 2 and x.numel() > 0,
+             "colsum: x must be a non-empty float32 or bf16 (R, C) matrix")
     r, c = x.shape
     rows = colsum_slice_rows(r, c)
     # the sums, then the slices' sums (at most COLSUM_BLOCKS rows of c), in
@@ -483,7 +484,8 @@ def colsum(x):
     lib = load_library()
     _count("colsum")
     _check_launch(lib.ltd_colsum(_ptr(x), _ptr(out), _ptr(ws), _ptr(counters), r, c,
-                                 rows, _stream(dev)), "colsum")
+                                 rows, int(x.dtype == torch.bfloat16), _stream(dev)),
+                  "colsum")
     return out
 
 

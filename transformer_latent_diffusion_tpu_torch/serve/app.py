@@ -423,6 +423,17 @@ _REASONS = {200: "OK", 401: "Unauthorized", 404: "Not Found",
             503: "Service Unavailable"}
 
 
+def _read_body(environ) -> bytes:
+    """The request's body, read whole before any answer. A server that
+    answers (a 401, a 404) and closes with the body still unread sends a
+    reset, which can discard the part of its reply not yet sent."""
+    try:
+        length = int(environ.get("CONTENT_LENGTH") or 0)
+    except ValueError:
+        return b""
+    return environ["wsgi.input"].read(length) if length > 0 else b""
+
+
 def create_wsgi_app(cfg: Optional[LTDConfig] = None, service=None,
                     device=None):
     """The WSGI app over `service`, or over a new GenerationService built
@@ -432,6 +443,7 @@ def create_wsgi_app(cfg: Optional[LTDConfig] = None, service=None,
     def app(environ, start_response):
         method = environ["REQUEST_METHOD"]
         path = environ.get("PATH_INFO", "/")
+        raw = _read_body(environ)
 
         def respond(status_code, body, content_type="application/json",
                     extra_headers=()):
@@ -458,8 +470,8 @@ def create_wsgi_app(cfg: Optional[LTDConfig] = None, service=None,
             # (a body that is not JSON, or a JSON value without .get) is a
             # 500 with str(e) as its detail (the reference's 500 semantics)
             try:
-                length = int(environ.get("CONTENT_LENGTH") or 0)
-                payload = json.loads(environ["wsgi.input"].read(length) or b"{}")
+                int(environ.get("CONTENT_LENGTH") or 0)  # a malformed length is a 500
+                payload = json.loads(raw or b"{}")
                 if "prompt" not in payload:
                     return detail(422, "prompt is required")
                 err = _validate_int_fields(payload) or _validate_fields(payload)
