@@ -40,10 +40,13 @@ paths, each checked against plain PyTorch versions on the same inputs:
   step of their solo runs, a full queue answered 503 with Retry-After),
   and the service with no config, `LTDConfig()` as the JAX service builds
   it, three default requests over HTTP;
-- int8 serving (TPU kernel K7, the W8A8 decoder layer): its two kernels
-  (rowquant, gemm_i8) and the float32-out dwconv_gelu at the main path's
-  shapes, one int8-engine forward against the plain int8 stack and the
-  plain bf16 forward, the library entry point and the HTTP service on a
+- int8 serving (TPU kernel K7, the W8A8 decoder layer): its kernels at
+  the main path's shapes (ln_gemm_i8, LN1-3 quantized in the int8
+  product's prologue, and dwconv_gelu_q8, the GELU row quantized in the
+  depthwise kernel, each bit-equal to the two launches it replaced and
+  timed beside them; gemm_i8; rowquant, S1's), one int8-engine forward
+  against the plain int8 stack and the plain bf16 forward (both profiled
+  by kernel), the library entry point and the HTTP service on a
   `quantize="int8"` deployment, and S1 (the MLP product pair at
   scripts/microbench_int8.py's shapes, bf16 against W8A8);
 - hi-res serving (TPU kernels K3, flash attention, and K5's forward, the
@@ -437,9 +440,10 @@ def pair_equal_work(x, ln1s, ln1b, wqkv, ln2s, ln2b, wq, k_cond, v_cond, heads):
 def int8_layer_equal_work(tokens, cond, layer, hw, heads):
     """The same work as one W8A8 layer (K7) in PyTorch calls: the layer of
     `ops/fused_stack_int8.py` with each stage a PyTorch composition:
-    F.layer_norm + |max| + scale + round for rowquant, `torch._int_mm` and
-    the scales for gemm_i8, F.linear for the cond K/V, SDPA for the two
-    attentions, F.conv2d + F.gelu for the depthwise stage."""
+    F.layer_norm + |max| + scale + round, then `torch._int_mm` and the
+    scales for ln_gemm_i8; F.conv2d + F.gelu, then |max| + scale + round
+    for dwconv_gelu_q8; `torch._int_mm` and the scales for gemm_i8;
+    F.linear for the cond K/V, SDPA for the two attentions."""
     from transformer_latent_diffusion_tpu_torch.ops import fused_stack_int8 as q8
     from transformer_latent_diffusion_tpu_torch.scripts.microbench_int8 import (
         int_mm_equal_work,
@@ -474,11 +478,14 @@ def int8_layer_equal_work(tokens, cond, layer, hw, heads):
     def ca(qc, kv, residual, ln, n_heads, n):
         return attend(qc, kv, residual, n, 2), None
 
-    def dwg(h, dw, dwb, hw_, out_dtype=None):
-        y = dw_equal_work(h, dw, dwb, hw_, out_dtype or torch.bfloat16)()  # NCHW view
-        return y.permute(0, 2, 3, 1).reshape(h.shape)
+    def lnq(x, ln, wq, cs, bias=None, out_dtype=torch.bfloat16):
+        return int_mm_equal_work(*quant(x, ln), wq, cs, bias=bias, out_dtype=out_dtype)
 
-    ops = (quant, int_mm_equal_work, gemm, sa, ca, dwg)
+    def dwq(h, dw, dwb, hw_):
+        y = dw_equal_work(h, dw, dwb, hw_, torch.float32)()  # NCHW view
+        return quant(y.permute(0, 2, 3, 1).reshape(h.shape))
+
+    ops = (lnq, int_mm_equal_work, gemm, sa, ca, dwq)
     return lambda: q8._layer_stack_int8(tokens, cond, layer, hw, heads, ops)
 
 
@@ -516,7 +523,7 @@ def phase_kernels():
     qkv = randn(m, 3 * D, dtype=torch.bfloat16)
     qc = randn(m, D, dtype=torch.bfloat16)
     kv = randn(2 * B, 2 * D, dtype=torch.bfloat16)
-    hmat = randn(m, HIDDEN, dtype=torch.bfloat16)
+    h = randn(m, HIDDEN, dtype=torch.bfloat16)
     dw = randn(9, HIDDEN, std=1 / 3, dtype=torch.bfloat16)
     dwb = randn(HIDDEN, std=0.1)
 
@@ -598,10 +605,10 @@ def phase_kernels():
             lambda: fs.cross_attention(qc, kv, xr, ln, HEADS, N),
             lambda: fs.cross_attention_plain(qc, kv, x, ln, HEADS, N)),
         "dwconv_gelu": (
-            lambda: fs.dwconv_gelu(hmat, dw, dwb, HW),
-            lambda: fs.dwconv_gelu_plain(hmat, dw, dwb, HW),
-            lambda: fs.dwconv_gelu(hmat, dw, dwb, HW),
-            lambda: fs.dwconv_gelu_plain(hmat, dw, dwb, HW)),
+            lambda: fs.dwconv_gelu(h, dw, dwb, HW),
+            lambda: fs.dwconv_gelu_plain(h, dw, dwb, HW),
+            lambda: fs.dwconv_gelu(h, dw, dwb, HW),
+            lambda: fs.dwconv_gelu_plain(h, dw, dwb, HW)),
     }
     # one whole layer: the four kernels against the plain stack
     params = {f"denoiser_trans_block.decoder_blocks.0.{k}": v for k, v in {
@@ -662,8 +669,8 @@ def phase_kernels():
         log(f"[kernels] {name}: library call {ms if ms is None else f'{ms:.4f}'} ms")
     # dwconv_gelu on its TMA body: two launches bit-equal, the equal-work
     # yardstick (F.conv2d, groups = C, with bias, then F.gelu), ptxas
-    _bit_equal_twice("dwconv_gelu", lambda: fs.dwconv_gelu(hmat, dw, dwb, HW), "kernels")
-    eq_dw = time_ms(dw_equal_work(hmat, dw, dwb, HW))
+    _bit_equal_twice("dwconv_gelu", lambda: fs.dwconv_gelu(h, dw, dwb, HW), "kernels")
+    eq_dw = time_ms(dw_equal_work(h, dw, dwb, HW))
     library["dwconv_gelu (equal work)"] = eq_dw
     ms = timing["dwconv_gelu"][0]
     log(f"[kernels] dwconv_gelu: {ms:.4f} ms; equal-work yardstick (F.conv2d groups=C with "
@@ -1591,18 +1598,25 @@ def phase_outpaint_train(per_layer, smi):
 
 
 def phase_int8_kernels():
-    """K7's kernels against their plain versions at the main path's shapes
-    (M = B*N = 16384 rows): rowquant with LN (K = 768) and without (the
-    GELU output, K = 3072), int8 values within one step; gemm_i8 at the
+    """K7's kernels at the main path's shapes (M = B*N = 16384 rows): the
+    route's two fused kernels, ln_gemm_i8 (LN1-3 quantized in the int8
+    product's prologue: the QKV and Q products in bf16 and float32, expand
+    + b1 in float32) and dwconv_gelu_q8 (depthwise + GELU quantized per
+    pixel: bf16 and float32 taps), each against its plain version and
+    bit-equal to the two launches it replaced on the same inputs (rowquant
+    then gemm_i8; the float32-out dwconv_gelu then rowquant); gemm_i8 at the
     four product shapes on the same int8 operands as its plain version;
-    dwconv_gelu with its float32 output. Times per layer, bounds, and
-    torch._int_mm (int32 out, no epilogue) as gemm_i8's yardstick."""
+    rowquant (S1's; int8 values within one step); the float32-out
+    dwconv_gelu. Times per layer beside the replaced launches, bounds,
+    equal-work yardsticks, and torch._int_mm (int32 out, no epilogue) as
+    gemm_i8's yardstick."""
     from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
     from transformer_latent_diffusion_tpu_torch.ops import fused_stack_int8 as q8
 
     dev = torch.device(DEVICE)
     g = torch.Generator(device="cpu").manual_seed(13)
     f32 = torch.float32
+    F = torch.nn.functional
 
     def randn(*shape, std=1.0, dtype=f32):
         return (torch.randn(*shape, generator=g) * std).to(dev, dtype)
@@ -1610,7 +1624,7 @@ def phase_int8_kernels():
     m = B * N
     x = randn(m, D)
     ln = (1.0 + randn(D, std=0.1), randn(D, std=0.1))
-    act = torch.nn.functional.gelu(randn(m, HIDDEN))  # a GELU output's distribution
+    act = F.gelu(randn(m, HIDDEN))  # a GELU output's distribution
     b1, b2 = randn(HIDDEN, std=0.1), randn(D, std=0.1)
     worst = {}
     for name, args in (("LN, K=768", (x, ln)), ("no LN, K=3072", (act, None))):
@@ -1658,23 +1672,89 @@ def phase_int8_kernels():
             raise AssertionError(f"gemm_i8/{name} disagrees with its plain version")
         worst["gemm_i8"] = max(worst.get("gemm_i8", 0.0), err)
     del products["qkv576"], got, again, want
+
+    # ln_gemm_i8: the three LayerNorm products (and the float32 compute
+    # dtype's QKV), against the plain version and bit-equal to rowquant +
+    # gemm_i8 on the same rows (quant_row.cuh keeps rowquant's arithmetic)
+    ln_products = {"qkv": ("qkv", {}), "q": ("q", {}),
+                   "expand": ("expand", {"bias": b1, "out_dtype": f32}),
+                   "qkv, float32 out": ("qkv", {"out_dtype": f32})}
+    for name, (wn, kw) in ln_products.items():
+        got = q8.ln_gemm_i8(x, ln, *w[wn], **kw)
+        again = q8.ln_gemm_i8(x, ln, *w[wn], **kw)
+        composed = q8.gemm_i8(*q8.rowquant(x, ln), *w[wn], **kw)
+        want = q8.ln_gemm_i8_plain(x, ln, *w[wn], **kw)
+        r, err, rel = _errors(got, want)
+        same = torch.equal(got, composed)
+        log(f"[int8-kernels] ln_gemm_i8/{name}: vs plain rel-L2 {r:.2e} max-abs {err:.3e} "
+            f"({rel:.2e} of max |ref|; bounds {KERNEL_REL_L2}, {KERNEL_MAX_ABS}), bit-equal to "
+            f"rowquant + gemm_i8: {same}, two launches bit-equal: {torch.equal(got, again)}")
+        if not (same and torch.equal(got, again) and r < KERNEL_REL_L2 and rel < KERNEL_MAX_ABS):
+            raise AssertionError(f"ln_gemm_i8/{name} disagrees with the launches it replaced "
+                                 f"or its plain version")
+        worst["ln_gemm_i8"] = max(worst.get("ln_gemm_i8", 0.0), err)
+    del got, again, composed, want
     _ptxas_report("int8-kernels", ("gemm_i8_kernel",))
+
     h = randn(m, HIDDEN)
     dw, dwb = randn(9, HIDDEN, std=1 / 3, dtype=torch.bfloat16), randn(HIDDEN, std=0.1)
     _check("dwconv_gelu float32 in and out", (fs.dwconv_gelu(h, dw, dwb, HW, out_dtype=f32),),
            (fs.dwconv_gelu_plain(h, dw, dwb, HW, out_dtype=f32),), "int8-kernels")
     _bit_equal_twice("dwconv_gelu float32 in and out",
                      lambda: fs.dwconv_gelu(h, dw, dwb, HW, out_dtype=f32), "int8-kernels")
+    # dwconv_gelu_q8: bit-equal to rowquant(dwconv_gelu(h, float32 out)) on
+    # the same h, with the bf16 engine's taps and the float32 engine's
+    for taps, dwt in (("bf16 taps", dw), ("float32 taps", dw.float())):
+        got = q8.dwconv_gelu_q8(h, dwt, dwb, HW)
+        again = q8.dwconv_gelu_q8(h, dwt, dwb, HW)
+        composed = q8.rowquant(fs.dwconv_gelu(h, dwt, dwb, HW, out_dtype=f32))
+        want = q8.dwconv_gelu_q8_plain(h, dwt, dwb, HW)
+        same = all(torch.equal(u, v) for u, v in zip(got, composed))
+        twice = all(torch.equal(u, v) for u, v in zip(got, again))
+        diff = (got[0].int() - want[0].int()).abs()
+        share = float((diff > 0).float().mean())
+        srel = float(((got[1] - want[1]).abs() / want[1]).max())
+        log(f"[int8-kernels] dwconv_gelu_q8 ({taps}), batch {B}, hw = {HW}: bit-equal to "
+            f"rowquant(dwconv_gelu(h, float32 out)): {same}, two launches bit-equal: {twice}; "
+            f"vs plain int8 max |diff| {int(diff.max())}, share differing {share:.2e} (bound "
+            f"{ROWQUANT_FLIP_SHARE}), scale max rel diff {srel:.2e} (bound 1e-6)")
+        if not (same and twice and int(diff.max()) <= 1 and share <= ROWQUANT_FLIP_SHARE
+                and srel <= 1e-6):
+            raise AssertionError(f"dwconv_gelu_q8 ({taps}) disagrees with the launches it "
+                                 f"replaced or its plain version")
+        worst["dwconv_gelu_q8"] = max(worst.get("dwconv_gelu_q8", 0.0), float(diff.max()))
+    del got, again, composed, want
+    _ptxas_report("int8-kernels", ("dwconv_gelu_q8_kernel",))
     torch.cuda.synchronize()
 
     xr = x.clone()
-    layer = {  # name: (the kernels of one layer, their plain versions)
+    lnq = [(x, ln, *w["qkv"]), (x, ln, *w["q"]), (x, ln, *w["expand"])]
+    lnkw = [{}, {}, {"bias": b1, "out_dtype": f32}]
+    layer = {  # name: (the kernel's launches in one layer, their plain versions)
+        "ln_gemm_i8": (lambda: [q8.ln_gemm_i8(*a, **k) for a, k in zip(lnq, lnkw)],
+                       lambda: [q8.ln_gemm_i8_plain(*a, **k) for a, k in zip(lnq, lnkw)]),
+        "dwconv_gelu_q8": (lambda: q8.dwconv_gelu_q8(h, dw, dwb, HW),
+                           lambda: q8.dwconv_gelu_q8_plain(h, dw, dwb, HW)),
+        "gemm_i8": (lambda: run(q8.gemm_i8, "contract", xr),
+                    lambda: run(q8.gemm_i8_plain, "contract", x)),
+        # S1's kernel, timed as the layer ran it before: LN1-3 and the GELU row
         "rowquant": (lambda: [q8.rowquant(x, ln) for _ in range(3)] + [q8.rowquant(act)],
                      lambda: [q8.rowquant_plain(x, ln) for _ in range(3)]
-                     + [q8.rowquant_plain(act)]),
-        "gemm_i8": (lambda: [run(q8.gemm_i8, k, xr) for k in products],
-                    lambda: [run(q8.gemm_i8_plain, k, x) for k in products])}
+                     + [q8.rowquant_plain(act)])}
     timing = time_against_plain(layer, "int8-kernels")
+    # the launches each fused kernel replaced, on the same inputs, in turns
+    replaced = {
+        "ln_gemm_i8": lambda: [q8.gemm_i8(*q8.rowquant(xx, lnp), wq, cs, **k)
+                               for (xx, lnp, wq, cs), k in zip(lnq, lnkw)],
+        "dwconv_gelu_q8": lambda: q8.rowquant(fs.dwconv_gelu(h, dw, dwb, HW,
+                                                             out_dtype=f32))}
+    for name, old in replaced.items():
+        o1 = time_ms(old)
+        n1 = time_ms(layer[name][0])
+        n2 = time_ms(layer[name][0])
+        o2 = time_ms(old)
+        log(f"[int8-kernels] {name}: {(n1 + n2) / 2:.4f} ms a layer (runs {n1:.4f}/{n2:.4f}) "
+            f"against the launches it replaced {(o1 + o2) / 2:.4f} ms (runs {o1:.4f}/{o2:.4f})")
     ops = {"qkv": (m, 3 * D, D), "q": (m, D, D), "expand": (m, HIDDEN, D),
            "contract": (m, D, HIDDEN)}
     lib = {}
@@ -1690,10 +1770,8 @@ def phase_int8_kernels():
         f"{time_ms(lambda: fs.dwconv_gelu(h, dw, dwb, HW, out_dtype=f32)):.4f} ms (bf16 out "
         f"{time_ms(lambda: fs.dwconv_gelu(h, dw, dwb, HW)):.4f} ms; plain, float32 out "
         f"{time_ms(lambda: fs.dwconv_gelu_plain(h, dw, dwb, HW, out_dtype=f32), 3, 1):.4f} ms)")
-    library = {"gemm_i8": time_ms(lambda: [torch._int_mm(products[k][0], w[k][0].t())
-                                           for k in products]),
-               "rowquant": None}  # no one call: a LayerNorm, a row max, a division, a round
-    F = torch.nn.functional
+    library = {"gemm_i8": lib["contract"], "rowquant": None,  # no one call: LN, max, scale, round
+               "ln_gemm_i8": None, "dwconv_gelu_q8": None}
 
     def quant_equal_work(rows, lnp):
         # the same work as rowquant in PyTorch calls: F.layer_norm (where
@@ -1702,25 +1780,39 @@ def phase_int8_kernels():
         scale = y.abs().amax(-1, keepdim=True).clamp_min(1e-8) * (1.0 / 127.0)
         return torch.round(y * (1.0 / scale)).to(torch.int8), scale
 
+    def int_mm_scaled(a, r, wq, cs, bias=None, out_dtype=torch.bfloat16):
+        deq = torch._int_mm(a, wq.t()).float() * r * cs
+        return (deq if bias is None else deq + bias).to(out_dtype)
+
+    dw_work = dw_equal_work(h, dw, dwb, HW, f32)
     library["rowquant (equal work)"] = time_ms(
         lambda: [quant_equal_work(x, ln) for _ in range(3)] + [quant_equal_work(act, None)])
-    log(f"[int8-kernels] rowquant: {timing['rowquant'][0]:.4f} ms a layer; equal-work "
-        f"yardstick (F.layer_norm + |max| + scale + round, 3 LN rows of 768 and one GELU row "
-        f"of 3072) {library['rowquant (equal work)']:.4f} ms")
-    log(f"[int8-kernels] dwconv_gelu float32 in and out: equal-work yardstick (F.conv2d "
-        f"groups=C with bias + F.gelu, float32) "
-        f"{time_ms(dw_equal_work(h, dw, dwb, HW, f32)):.4f} ms")
+    library["ln_gemm_i8 (equal work)"] = time_ms(
+        lambda: [int_mm_scaled(*quant_equal_work(xx, lnp), wq, cs, **k)
+                 for (xx, lnp, wq, cs), k in zip(lnq, lnkw)])
+    library["dwconv_gelu_q8 (equal work)"] = time_ms(
+        lambda: quant_equal_work(dw_work().permute(0, 2, 3, 1).reshape(m, HIDDEN), None))
+    log(f"[int8-kernels] equal-work yardsticks a layer: ln_gemm_i8 (F.layer_norm + |max| + "
+        f"scale + round, torch._int_mm + scales, x3) {library['ln_gemm_i8 (equal work)']:.4f} "
+        f"ms; dwconv_gelu_q8 (F.conv2d groups=C with bias + F.gelu, float32, then |max| + "
+        f"scale + round) {library['dwconv_gelu_q8 (equal work)']:.4f} ms; rowquant (3 LN rows "
+        f"of 768 and one GELU row of 3072) {library['rowquant (equal work)']:.4f} ms")
     # least time per layer: each input read once, each output written once
-    gbytes = sum(mm * kk + nn * kk + 4 * (mm + nn) for mm, nn, kk in ops.values()) \
-        + m * 3 * D * 2 + m * D * 2 + (m * HIDDEN * 4 + HIDDEN * 4) + (m * D * 8 + D * 4)
-    gops = sum(2 * mm * nn * kk for mm, nn, kk in ops.values())
+    lbytes = sum(mm * kk * 4 + 2 * kk * 4 + nn * kk + 4 * nn + mm * nn * ob + eb
+                 for (mm, nn, kk), ob, eb in ((ops["qkv"], 2, 0), (ops["q"], 2, 0),
+                                              (ops["expand"], 4, HIDDEN * 4)))
+    lops = sum(2 * mm * nn * kk for mm, nn, kk in (ops["qkv"], ops["q"], ops["expand"]))
+    cm, cn, ck = ops["contract"]
+    gbytes = cm * ck + cn * ck + 4 * (cm + cn) + cn * 4 + cm * cn * 8
     rbytes = 3 * (m * D * 5 + m * 4 + 2 * D * 4) + m * HIDDEN * 5 + m * 4
-    bounds = {"gemm_i8": bound(gbytes, gops, INT8_TENSOR_OP_S),
+    qbytes = m * HIDDEN * 4 + 9 * HIDDEN * 2 + HIDDEN * 4 + m * HIDDEN + m * 4
+    bounds = {"ln_gemm_i8": bound(lbytes, lops, INT8_TENSOR_OP_S),
+              "dwconv_gelu_q8": bound(qbytes, 28 * m * HIDDEN, F32_FLOP_S),
+              "gemm_i8": bound(gbytes, 2 * cm * cn * ck, INT8_TENSOR_OP_S),
               "rowquant": bound(rbytes, 3 * 12 * m * D + 4 * m * HIDDEN, F32_FLOP_S)}
-    log(f"[int8-kernels] per layer: gemm_i8 {timing['gemm_i8'][0]:.4f} ms (bound "
-        f"{bounds['gemm_i8'][0]:.4f} {bounds['gemm_i8'][1]}, torch._int_mm "
-        f"{library['gemm_i8']:.4f}); rowquant {timing['rowquant'][0]:.4f} ms (bound "
-        f"{bounds['rowquant'][0]:.4f} {bounds['rowquant'][1]})")
+    log("[int8-kernels] per layer: " + "; ".join(
+        f"{k} {timing[k][0]:.4f} ms (bound {bounds[k][0]:.4f} {bounds[k][1]})"
+        for k in ("ln_gemm_i8", "dwconv_gelu_q8", "gemm_i8", "rowquant")))
     del x, act, h, xq, aq, xr
     torch.cuda.empty_cache()
     return worst, timing, library, bounds
@@ -1783,7 +1875,11 @@ def phase_int8_engine(cfg8):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fwd8()
             torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof16:
+            fwd16()
+            torch.cuda.synchronize()
     busy, by_kernel = _device_time(prof)
+    busy16, by_kernel16 = _device_time(prof16)
     with torch.no_grad():
         tokens, cond, h, w = engine._prologue(sd, x, noise, label)
         layer0 = prepared["layers"][0]
@@ -1804,7 +1900,11 @@ def phase_int8_engine(cfg8):
         f"{sum(t16) / 2:.3f} ms (runs {t8}, {t16}); profiled W8A8 forward: device busy "
         f"{busy:.3f} ms ({busy / den.n_layers:.3f} a layer, least time of one W8A8 layer "
         f"{layer:.4f} ms by operations); by kernel, us: {by_kernel}")
+    log(f"[int8-engine] profiled bf16 engine forward beside it: device busy {busy16:.3f} ms; "
+        f"by kernel, us: {by_kernel16}")
     del model, prepared, prepared_bf16
+    return {"w8a8_ms": sum(t8) / 2, "bf16_ms": sum(t16) / 2, "busy_ms": busy,
+            "bf16_busy_ms": busy16, "layer_ms": t_layer}
 
 
 def phase_s1():
@@ -4222,7 +4322,7 @@ def phase_float32_kernels():
     w2, b2 = randn(D, HIDDEN, std=HIDDEN ** -0.5), randn(D, std=0.1)
     xn, act, cond = randn(m, D), randn(m, HIDDEN), randn(2 * B, D)
     qkv, qc, kv = randn(m, 3 * D), randn(m, D), randn(2 * B, 2 * D)
-    hmat, dw, dwb = randn(m, HIDDEN), randn(9, HIDDEN, std=1 / 3), randn(HIDDEN, std=0.1)
+    h, dw, dwb = randn(m, HIDDEN), randn(9, HIDDEN, std=1 / 3), randn(HIDDEN, std=0.1)
     xr = x.clone()
 
     def updates(outs):
@@ -4250,8 +4350,8 @@ def phase_float32_kernels():
         ("cross_attention_f32 (ln=None, K7)", "cross_attention_f32",
          lambda: fs.cross_attention(qc, kv, x.clone(), None, HEADS, N)[0] - x,
          lambda: fs.cross_attention_plain(qc, kv, x, None, HEADS, N)[0] - x),
-        ("dwconv_gelu_f32", "dwconv_gelu_f32", lambda: fs.dwconv_gelu(hmat, dw, dwb, HW),
-         lambda: fs.dwconv_gelu_plain(hmat, dw, dwb, HW)),
+        ("dwconv_gelu_f32", "dwconv_gelu_f32", lambda: fs.dwconv_gelu(h, dw, dwb, HW),
+         lambda: fs.dwconv_gelu_plain(h, dw, dwb, HW)),
     ]
     worst = {}
     for label, name, kern, plain in checks:
@@ -4271,7 +4371,7 @@ def phase_float32_kernels():
     _bit_equal_twice("cross_attention_f32",
                      lambda: fs.cross_attention(qc, kv, x.clone(), ln, HEADS, N),
                      "float32-kernels")
-    _bit_equal_twice("dwconv_gelu_f32", lambda: fs.dwconv_gelu(hmat, dw, dwb, HW),
+    _bit_equal_twice("dwconv_gelu_f32", lambda: fs.dwconv_gelu(h, dw, dwb, HW),
                      "float32-kernels")
     _ptxas_report("float32-kernels", ("ln_gemm_f32_kernel", "self_attention_f32_kernel",
                                       "cross_attention_kernel", "dwconv_gelu_kernel"))
@@ -4288,8 +4388,8 @@ def phase_float32_kernels():
                                lambda: fs.self_attention_plain(qkv, x, HEADS, N)),
         "cross_attention_f32": (lambda: fs.cross_attention(qc, kv, xr, ln, HEADS, N),
                                 lambda: fs.cross_attention_plain(qc, kv, x, ln, HEADS, N)),
-        "dwconv_gelu_f32": (lambda: fs.dwconv_gelu(hmat, dw, dwb, HW),
-                            lambda: fs.dwconv_gelu_plain(hmat, dw, dwb, HW)),
+        "dwconv_gelu_f32": (lambda: fs.dwconv_gelu(h, dw, dwb, HW),
+                            lambda: fs.dwconv_gelu_plain(h, dw, dwb, HW)),
     }
     timing = time_against_plain(results, "float32-kernels")
     heads = qkv.reshape(B, N, 3, HEADS, 64).permute(2, 0, 3, 1, 4).contiguous()
@@ -4306,7 +4406,7 @@ def phase_float32_kernels():
         "dwconv_gelu_f32": None,  # no one call: a depthwise conv, then a GELU
     }
     library["dwconv_gelu_f32 (equal work)"] = time_ms(
-        dw_equal_work(hmat, dw, dwb, HW, out_dtype=torch.float32))
+        dw_equal_work(h, dw, dwb, HW, out_dtype=torch.float32))
     xe = x.clone()
 
     def ln_gemm_equal_work():
@@ -4770,11 +4870,13 @@ def main():
 
     i_worst, i_timing, i_library, i_bounds = phase_int8_kernels()
     cfg8 = dataclasses.replace(cfg, quantize="int8")
-    phase_int8_engine(cfg8)
+    fwd8 = phase_int8_engine(cfg8)
     torch.cuda.empty_cache()
     tr, i_launches, ips8 = phase_library(cfg8, q8.LAUNCHES_PER_LAYER, "int8-library")
     log(f"[int8-library] {ips8:.3f} images/s (W8A8) against {ips:.3f} (bf16 engine, the "
-        f"library phase above)")
+        f"library phase above); W8A8 forward at batch {B} {fwd8['w8a8_ms']:.3f} ms against "
+        f"the bf16 engine's {fwd8['bf16_ms']:.3f} ms (below it: "
+        f"{fwd8['w8a8_ms'] < fwd8['bf16_ms']}), one W8A8 layer {fwd8['layer_ms']:.4f} ms")
     phase_sampler_graph(tr, q8.LAUNCHES_PER_LAYER, "int8-sampler-graph", GRAPH_BRIEF_IMGS,
                         GRAPH_BRIEF_ITER)
     del tr
@@ -4863,6 +4965,7 @@ def main():
                "flash_attention_bwd": "csrc/flash_attention_bwd.cu",
                "fused_mlp_sepconv_bwd": "ops/fused_mlp_vjp.py",
                "rowquant": "csrc/rowquant.cu", "gemm_i8": "csrc/gemm_i8.cu",
+               "ln_gemm_i8": "csrc/gemm_i8.cu", "dwconv_gelu_q8": "csrc/dwconv_gelu.cu",
                # the float32 bodies (ops/fused_stack_f32.py)
                "ln_gemm_f32": "csrc/ln_gemm_f32.cu",
                "self_attention_f32": "csrc/self_attention_f32.cu",
@@ -4885,7 +4988,9 @@ def main():
              fh_bounds),
             (("fused_mlp_sepconv_f32",), TPU_K5, fh_launches, fh_worst, fh_timing, fh_library,
              fh_bounds),
-            (q8.KERNELS, TPU_K7, i_launches, i_worst, i_timing, i_library, i_bounds)):
+            # rowquant is off K7's path: its launches are S1's run's
+            (q8.KERNELS, TPU_K7, {**i_launches, "rowquant": s1["launches"]["rowquant"]},
+             i_worst, i_timing, i_library, i_bounds)):
         for name in names:
             kernels.append({
                 "name": name, "route": "cuda", "source": f"{port}/{sources[name]}",

@@ -342,8 +342,13 @@ def _int8_stage_args(name, device):
 
     if name == "rowquant":
         return (r(m, k),), {"ln": (r(k), r(k))}
+    if name == "dwconv_gelu_q8":  # 4 images of a 4 x 4 grid
+        return (r(m, k), r(9, k, dtype=torch.bfloat16), r(k), 4), {}
     xq = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8).to(device)
     wq = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8).to(device)
+    if name == "ln_gemm_i8":
+        return (r(m, k), (r(k), r(k)), wq, r(1, n).abs()), {"bias": r(n),
+                                                             "out_dtype": torch.float32}
     return (xq, r(m, 1).abs(), wq, r(1, n).abs()), {"bias": r(n), "residual": r(m, n)}
 
 
@@ -353,8 +358,11 @@ def test_int8_kernel_matches_plain_on_card(name):
     """The CUDA kernel against its plain version on the card, at the small
     shapes above: gemm_i8 on the same int8 operands is exact by
     construction (integer sums, the same float32 epilogue roundings);
-    rowquant's LayerNorm statistics are summed in another order, so int8
-    values within 1 in under 0.1% of elements and scales within 1e-6."""
+    rowquant's LayerNorm statistics are summed in another order, and
+    dwconv_gelu_q8's `erff` may differ from torch.erf in a last bit, so
+    int8 values within 1 in under 0.1% of elements and scales within 1e-6;
+    ln_gemm_i8's rare flipped int8 value moves an output by about one
+    quantization step: rel-L2 < 1e-2 and max-abs < 2e-2 of the scale."""
     _need_card()
     args, kw = _int8_stage_args(name, "cuda")
     kw_plain = {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
@@ -365,6 +373,8 @@ def test_int8_kernel_matches_plain_on_card(name):
     assert q8.LAUNCHES[name] == before + 1
     if name == "gemm_i8":
         torch.testing.assert_close(got, want, atol=0, rtol=0)
+    elif name == "ln_gemm_i8":
+        assert _close(got, want)
     else:
         diff = (got[0].int() - want[0].int()).abs()
         assert diff.max() <= 1 and (diff > 0).float().mean() < 1e-3
@@ -1009,6 +1019,70 @@ def test_widened_kernel_matches_plain_on_card(name, d):
                 torch.testing.assert_close(u, w, atol=0, rtol=1e-6)
             else:
                 assert _close(u.float(), w.float()), (name, d)
+
+
+def _fused_int8_cases(name, d):
+    """(fused kernel call, the unfused kernels' composition, plain call)
+    triples of `name` at embed_dim d (hidden 4 d), 2 images of a 16 x 16
+    grid: ln_gemm_i8 in its three output modes (qkv and qc in bf16 or
+    float32, expand float32 + b1); dwconv_gelu_q8 with bf16 and float32
+    taps."""
+    gen = torch.Generator().manual_seed(d + 1)
+    hw, hid = 16, 4 * d
+    m = 2 * hw * hw
+
+    def r(*shape, std=1.0, base=0.0, dtype=torch.float32):
+        return (base + torch.randn(*shape, generator=gen) * std).to("cuda", dtype)
+
+    if name == "dwconv_gelu_q8":
+        h = r(m, hid)
+        dwb = r(hid, std=0.1)
+        cases = []
+        for taps in (torch.bfloat16, torch.float32):
+            dw = r(9, hid, std=1 / 3, dtype=taps)
+            cases.append((lambda dw=dw: q8.dwconv_gelu_q8(h, dw, dwb, hw),
+                          lambda dw=dw: q8.rowquant(fs.dwconv_gelu(h, dw, dwb, hw,
+                                                                   out_dtype=torch.float32)),
+                          lambda dw=dw: q8.dwconv_gelu_q8_plain(h, dw, dwb, hw)))
+        return cases
+    x = r(m, d, std=2.0)
+    ln = (r(d, std=0.1, base=1.0), r(d, std=0.1))
+    cases = []
+    for n, kw in ((3 * d, {"out_dtype": torch.bfloat16}), (3 * d, {"out_dtype": torch.float32}),
+                  (hid, {"bias": r(hid, std=0.1), "out_dtype": torch.float32})):
+        wq, cs = q8.colquant(r(n, d, std=d ** -0.5, dtype=torch.bfloat16))
+        cases.append((lambda wq=wq, cs=cs, kw=kw: q8.ln_gemm_i8(x, ln, wq, cs, **kw),
+                      lambda wq=wq, cs=cs, kw=kw: q8.gemm_i8(*q8.rowquant(x, ln), wq, cs, **kw),
+                      lambda wq=wq, cs=cs, kw=kw: q8.ln_gemm_i8_plain(x, ln, wq, cs, **kw)))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", (768,) + WIDTHS)
+@pytest.mark.parametrize("name", ["ln_gemm_i8", "dwconv_gelu_q8"])
+def test_fused_int8_kernel_matches_composition_on_card(name, d):
+    """The W8A8 layer's two fused kernels at the flagship's width and at
+    embed_dim 64, 192 and 1024 (ragged N and K tiles, LayerNorm rows past
+    768, GELU rows past 3072, clusters of 4 and 8 ranks): bit-equal to the
+    launches they replace on the same inputs (rowquant's arithmetic, the
+    same GELU values, the same epilogue), two launches bit-equal, one
+    launch counted a call, and against the plain version as
+    test_int8_kernel_matches_plain_on_card holds them."""
+    _need_card()
+    for fused, unfused, plain in _fused_int8_cases(name, d):
+        before = q8.LAUNCHES[name]
+        got = _tuple(fused())
+        assert q8.LAUNCHES[name] == before + 1
+        again, composed, want = _tuple(fused()), _tuple(unfused()), _tuple(plain())
+        torch.cuda.synchronize()
+        for u, v, c in zip(got, again, composed):
+            assert torch.equal(u, v) and torch.equal(u, c), (name, d)
+        if name == "ln_gemm_i8":
+            assert _close(got[0].float(), want[0].float()), d
+        else:
+            diff = (got[0].int() - want[0].int()).abs()
+            assert diff.max() <= 1 and (diff > 0).float().mean() < 1e-3
+            torch.testing.assert_close(got[1], want[1], atol=0, rtol=1e-6)
 
 
 GEMM_I8_MODES = ("bf16", "f32_bias", "residual")

@@ -211,8 +211,8 @@ def test_per_layer_launches_name_the_float32_bodies():
         "ln_gemm_f32": 5, "self_attention_f32": 1, "cross_attention_f32": 1,
         "dwconv_gelu_f32": 1}
     assert f32.launches_per_layer(torch.float32, "int8") == {
-        "rowquant": 4, "gemm_i8": 4, "ln_gemm_f32": 1, "self_attention_f32": 1,
-        "cross_attention_f32": 1, "dwconv_gelu_f32": 1}
+        "ln_gemm_i8": 3, "gemm_i8": 1, "dwconv_gelu_q8": 1, "ln_gemm_f32": 1,
+        "self_attention_f32": 1, "cross_attention_f32": 1}
     assert f32.launches_per_layer(torch.bfloat16) == fs.LAUNCHES_PER_LAYER
     assert f32.launches_per_layer(torch.bfloat16, "int8") == q8.LAUNCHES_PER_LAYER
 

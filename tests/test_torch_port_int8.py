@@ -21,7 +21,8 @@ from transformer_latent_diffusion_tpu.models.fast_denoiser import (
     make_fused_apply as jax_make_fused_apply,
 )
 from transformer_latent_diffusion_tpu.ops import fused_stack_int8 as jq
-from transformer_latent_diffusion_tpu.ops.fused_block import _ln_f32
+from transformer_latent_diffusion_tpu.ops.fused_block import _gelu_exact, _ln_f32
+from transformer_latent_diffusion_tpu.ops.fused_mlp_vjp import _dw_fwd
 from transformer_latent_diffusion_tpu.utils import init_denoiser_params
 from transformer_latent_diffusion_tpu_torch import configs as pc
 from transformer_latent_diffusion_tpu_torch import convert
@@ -145,6 +146,134 @@ def test_gemm_i8_plain_matches_jax(mode):
         got = q8.gemm_i8_plain(xq, rs, wq, cs, bias=torch.from_numpy(bias),
                                residual=torch.from_numpy(resid))
     np.testing.assert_array_equal(got.float().numpy(), np.asarray(want))
+
+
+LN_PRODUCTS = {  # the three LayerNorm products of a layer: (N, output dtype, bias)
+    "qkv_bf16": (384, torch.bfloat16, False),
+    "qkv_float32": (384, torch.float32, False),
+    "expand_bias": (512, torch.float32, True)}
+
+
+@pytest.mark.parametrize("mode", sorted(LN_PRODUCTS))
+def test_ln_gemm_i8_plain_matches_jax(mode):
+    """The LayerNorm product's plain version against the JAX kernel's
+    `_ln_f32` then `_qmm` (+ b1 for expand; rounded to bf16 for the bf16
+    compute dtype's qkv and qc) on the same rows and JAX `_colquant`
+    weights. The LayerNorm statistics may be summed in another order, so a
+    rare int8 value may move by one, which moves an output by about one
+    quantization step: max-abs within 1e-3 of the output's scale
+    (measured: bf16 equal to the bit, float32 within 3.0e-7 of the scale:
+    the two epilogues' float32 roundings)."""
+    n, out_dtype, with_bias = LN_PRODUCTS[mode]
+    rng = np.random.default_rng(8)
+    k = 256
+    x = _rows(9, k=k)
+    ln = _ln_params(10, k=k)
+    w = (rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32)
+    b1 = (0.1 * rng.standard_normal(n)).astype(np.float32)
+    wq_j, cs_j = jq._colquant(jnp.asarray(w))
+    xn = _ln_f32(jnp.asarray(x), jnp.asarray(ln[0]), jnp.asarray(ln[1]))
+    want = jq._qmm(xn, wq_j, cs_j)
+    if with_bias:
+        want = want + jnp.asarray(b1)
+    if out_dtype == torch.bfloat16:
+        want = want.astype(jnp.bfloat16).astype(jnp.float32)
+    got = q8.ln_gemm_i8_plain(torch.from_numpy(x), tuple(map(torch.from_numpy, ln)),
+                              torch.from_numpy(np.asarray(wq_j).T.copy()),
+                              torch.from_numpy(np.array(cs_j)),
+                              torch.from_numpy(b1) if with_bias else None, out_dtype=out_dtype)
+    assert got.dtype == out_dtype and got.shape == (x.shape[0], n)
+    want = np.asarray(want)
+    assert np.abs(got.float().numpy() - want).max() <= 1e-3 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("taps", ["bfloat16", "float32"])
+def test_dwconv_gelu_q8_plain_matches_jax(taps):
+    """The quantized GELU row's plain version against the JAX kernel's
+    stage on the same float32 hidden state: `_dw_fwd` per image, + dwb,
+    `_gelu_exact` (an erf polynomial within 1.5e-7 of the exact erf the
+    port takes), `_rowquant` over each pixel's channels. The GELU values
+    may differ in their last float32 bits, so int8 values within one step
+    in under 0.1% of elements and scales within 1e-6 relative (measured:
+    bf16 taps int8 equal, float32 taps one value in 8.1e-5 of them moved
+    by one; scales within 1.7e-7)."""
+    jdt, tdt = DTYPES[taps]
+    rng = np.random.default_rng(11)
+    b, hw, hid = 3, 4, 256
+    h = rng.standard_normal((b * hw * hw, hid)).astype(np.float32)
+    dw = (rng.standard_normal((9, hid)) / 3).astype(np.float32)
+    dwb = (0.1 * rng.standard_normal(hid)).astype(np.float32)
+    dwl = jnp.asarray(dw, jdt).astype(jnp.float32)
+    want_q, want_s = [], []
+    for i in range(b):
+        acc = _dw_fwd(jnp.asarray(h[i * hw * hw:(i + 1) * hw * hw]).reshape(hw, hw, hid),
+                      dwl, hw) + jnp.asarray(dwb)
+        q, s = jq._rowquant(_gelu_exact(acc).reshape(hw * hw, hid))
+        want_q.append(np.asarray(q))
+        want_s.append(np.asarray(s))
+    want_q, want_s = np.concatenate(want_q), np.concatenate(want_s)
+    got_q, got_s = q8.dwconv_gelu_q8_plain(torch.from_numpy(h),
+                                           torch.from_numpy(dw).to(tdt),
+                                           torch.from_numpy(dwb), hw)
+    assert got_q.dtype == torch.int8 and got_q.shape == h.shape
+    assert got_s.dtype == torch.float32 and got_s.shape == (h.shape[0], 1)
+    diff = np.abs(got_q.numpy().astype(int) - want_q.astype(int))
+    assert diff.max() <= 1 and (diff > 0).mean() < 1e-3
+    np.testing.assert_allclose(got_s.numpy(), want_s, rtol=1e-6, atol=0)
+
+
+def test_fused_int8_stages_compose_the_unfused_ones():
+    """The route's two fused stages are the compositions they replace, to
+    the bit: `ln_gemm_i8_plain` is `rowquant_plain(x, ln)` then
+    `gemm_i8_plain`, `dwconv_gelu_q8_plain` is the float32-out
+    `dwconv_gelu_plain` then `rowquant_plain`; and a layer launches no
+    rowquant and no float32-out dwconv_gelu, eight launches in all."""
+    g = torch.Generator().manual_seed(12)
+    x = torch.randn(32, 128, generator=g) * 2
+    ln = (1 + 0.1 * torch.randn(128, generator=g), 0.1 * torch.randn(128, generator=g))
+    wq, cs = q8.colquant(torch.randn(256, 128, generator=g) / 12)
+    b1 = torch.randn(256, generator=g)
+    xq, rs = q8.rowquant_plain(x, ln)
+    torch.testing.assert_close(
+        q8.ln_gemm_i8_plain(x, ln, wq, cs, b1, out_dtype=torch.float32),
+        q8.gemm_i8_plain(xq, rs, wq, cs, b1, out_dtype=torch.float32), atol=0, rtol=0)
+    h = torch.randn(2 * 16, 256, generator=g)
+    dw, dwb = torch.randn(9, 256, generator=g).bfloat16(), torch.randn(256, generator=g)
+    got = q8.dwconv_gelu_q8_plain(h, dw, dwb, 4)
+    want = q8.rowquant_plain(fs.dwconv_gelu_plain(h, dw, dwb, 4, out_dtype=torch.float32))
+    for u, v in zip(got, want):
+        torch.testing.assert_close(u, v, atol=0, rtol=0)
+    assert sum(q8.LAUNCHES_PER_LAYER.values()) == 8
+    assert "rowquant" not in q8.LAUNCHES_PER_LAYER
+    assert "dwconv_gelu" not in q8.LAUNCHES_PER_LAYER
+
+
+@pytest.mark.parametrize("heads", [1, 2, 3, 12, 16])
+def test_dwconv_gelu_q8_plan_fits_every_width(heads):
+    """The quantizing depthwise kernel's clusters at every width the JAX
+    package runs (hidden = 4 x 64 x heads) on the engine's grids (hw <= 16):
+    at most 8 ranks, each a whole number of 128-channel groups (a warp's
+    lanes share their pixels), a run of 4 or 8 pixels a thread, the most
+    of the block's 384 threads at work, and a ring of 4 grid rows within
+    the card's 227 KB of shared memory; a grid too wide, or channels not in
+    128s, raise ValueError."""
+    c = 256 * heads
+    for hw in (2, 4, 8, 16):
+        ranks, tseg = q8.dwconv_gelu_q8_plan(hw, c)
+        assert ranks in (1, 2, 4, 8) and c % (128 * ranks) == 0 and tseg in (4, 8)
+        used = c // ranks // 4 * -(-hw // tseg)
+        assert used <= q8.Q8_THREADS
+        assert 4 * (hw + 2) * (c // ranks) * 4 < fs.SMEM_PER_BLOCK
+        for r in (1, 2, 4, 8):  # no layout that fits puts more threads to work
+            for t in (4, 8):
+                if c % (128 * r) == 0 and 4 * (hw + 2) * (c // r) * 4 < 200_000:
+                    other = c // r // 4 * -(-hw // t)
+                    assert other > q8.Q8_THREADS or other <= used
+    assert q8.dwconv_gelu_q8_plan(16, 3072) == (4, 8)
+    with pytest.raises(ValueError):
+        q8.dwconv_gelu_q8_plan(256, c)
+    with pytest.raises(ValueError):
+        q8.dwconv_gelu_q8_plan(16, c + 64)
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -334,8 +463,13 @@ def _stage_args(name, device):
 
     if name == "rowquant":
         return (r(m, k),), {"ln": (r(k), r(k))}
+    if name == "dwconv_gelu_q8":  # 4 images of a 4 x 4 grid
+        return (r(m, k), r(9, k, dtype=torch.bfloat16), r(k), 4), {}
     xq = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8).to(device)
     wq = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8).to(device)
+    if name == "ln_gemm_i8":
+        return (r(m, k), (r(k), r(k)), wq, r(1, n).abs()), {"bias": r(n),
+                                                             "out_dtype": torch.float32}
     return (xq, r(m, 1).abs(), wq, r(1, n).abs()), {"bias": r(n), "residual": r(m, n)}
 
 

@@ -7,8 +7,10 @@
 // 2304) and LN2 -> Q (768 -> 768), both rounded to bf16 (:81, 86); LN3 ->
 // expand (768 -> 3072) + b1, kept float32 (:92-93); GELU -> contract
 // (3072 -> 768), added with b2 into the residual (:99-100). A_q and its
-// per-row scales come from rowquant.cu; W_q and its per-output-channel
-// scales from ops/fused_stack_int8.py::pack_layer_stack_int8.
+// per-row scales come from this kernel's LayerNorm prologue (the LN
+// products, below) or from dwconv_gelu.cu's dwconv_gelu_q8 (the
+// contract); W_q and its per-output-channel scales from
+// ops/fused_stack_int8.py::pack_layer_stack_int8.
 //
 // What it computes: acc = sum_k A_q[m, k] * W_q[n, k] in int32 (exact),
 // then deq = (float(acc) * rs[m]) * cs[n] with each product rounded
@@ -61,8 +63,31 @@
 //   registers, even batched and asked of L2 ahead, stalled each
 //   warpgroup on the loads: on an H100 it was the contract product's
 //   largest cost.)
+//
+// LayerNorm mode (`ltd_ln_gemm_i8`, the LN1 -> QKV, LN2 -> Q and LN3 ->
+// expand products): A is the float32 residual, and the kernel takes LN1-3
+// and their per-row quantization in a prologue, in place of a rowquant.cu
+// launch. All 12 warps of every block first quantize rows of the whole
+// batch, a row a warp at a time, rowquant.cu's arithmetic and summation
+// order (quant_row.cuh: one warp a row, lane-strided float4s in
+// registers), so the int8 rows and scales are rowquant's bit for bit, into
+// an L2-resident scratch (12.6 MB at M = 16384, K = 768) and its scales;
+// a grid-wide barrier (every block of the persistent grid is resident: one
+// a SM) then lets the plain mode's persistent tile walk run unchanged on
+// them. So the products keep the plain mode's tile order, in which the
+// SMs that run at once share each A row block.
+// What was tried first, after ln_gemm.cu's LayerNorm mode (on an H100,
+// NVIDIA H100 80GB HBM3): a unit of a row block and all its column tiles,
+// its rows quantized by the consumer warpgroups before its products. At
+// one unit an SM the prologue was not overlapped (~50 us where its bytes
+// take ~15), its registers made ptxas spill the products' (the consumers
+// are compiled for the launch bounds' 168), and an SM walking one row
+// block's 12 expand tiles took ~30 us longer than the plain tile order:
+// 0.41-0.50 ms for the three products against 0.33-0.35 for rowquant and
+// gemm_i8.
 
 #include "hopper.cuh"
+#include "quant_row.cuh"
 
 namespace {
 
@@ -83,15 +108,70 @@ constexpr int CONSUMERS = 2;
 constexpr int THREADS = (CONSUMERS + 1) * 128;
 constexpr int RES_COLS = 32;  // the residual mode's pass: one 64 x 32 float32 box, two in flight
 constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + CONSUMERS * OUT_BYTES + (2 * STAGES + 4) * 8;
+constexpr int LN_VEC = 8;  // float4s a lane holds of a LayerNorm row: K <= 1024 in registers
 
 enum Out { OUT_BF16 = 0, OUT_F32 = 1, OUT_RESIDUAL = 2 };
 
-template <int MODE>
+// Every block of the grid waits here until all have arrived (the grid is
+// resident at once: one block an SM, at most one per SM). sync[0] counts
+// the arrivals, sync[1] the departures; the last to leave sets both back
+// to zero, so the next launch on the stream finds them so. The writes
+// before it (generic stores) are visible after it to every block, TMA
+// loads (the async proxy) included.
+__device__ __forceinline__ void grid_sync(unsigned* sync) {
+  fence_proxy_async_global();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(&sync[0], 1u);
+    while (atomicAdd(&sync[0], 0u) < gridDim.x) __nanosleep(100);
+    __threadfence();
+    if (atomicAdd(&sync[1], 1u) + 1 == gridDim.x) {
+      atomicExch(&sync[0], 0u);
+      atomicExch(&sync[1], 0u);
+    }
+  }
+  __syncthreads();
+  fence_proxy_async_global();
+}
+
+// The LayerNorm mode's prologue: LN(x) and the per-row quantization of
+// rows of the whole batch by every warp of the grid (row w of each warp w
+// of the grid's, then the grid's next rows), one row at a time, the warp's
+// next row asked of L2 while this one is quantized; rowquant.cu's
+// arithmetic and order (quant_row.cuh). Its own function, not inlined:
+// ptxas compiles the kernel for the launch bounds' 168 registers, and
+// inlined (one row or two a warp, the row held in 4 to 8 float4s) it made
+// the bf16 product's registers spill. On an H100 at M = 16384, K = 768 it
+// takes ~36 us (the inlined, spilling form ~27; two rows a warp at a time
+// ~41).
+__device__ __noinline__ void ln_prologue(const float* __restrict__ a32,
+                                         const float* __restrict__ ln_s,
+                                         const float* __restrict__ ln_b,
+                                         int8_t* __restrict__ rows, float* rs_out, int M, int K) {
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.x * (THREADS / 32);
+  for (int r = blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5); r < M; r += warps) {
+    if (lane == 0 && r + warps < M)
+      prefetch_l2(a32 + static_cast<size_t>(r + warps) * K, K * 4);
+    uint32_t* q = reinterpret_cast<uint32_t*>(rows + static_cast<size_t>(r) * K);
+    const float rs = qrow::quant_row<LN_VEC>(a32 + static_cast<size_t>(r) * K, ln_s, ln_b, q, K,
+                                             lane);
+    if (lane == 0) rs_out[r] = rs;
+  }
+}
+
+// LN: a32 (M, K) float32 rows and the LayerNorm's ln_s, ln_b are quantized
+// into `rows` (M, K) int8, which map_a reads, and rs_out (M,), which is
+// rs; sync: two counters, zero.
+template <int MODE, bool LN>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_i8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
-               const __grid_constant__ CUtensorMap map_o, const float* __restrict__ rs,
+               const __grid_constant__ CUtensorMap map_o, const float* rs,
                const float* __restrict__ cs, const float* __restrict__ bias,
-               float* __restrict__ resid, int M, int N, int K) {
+               float* __restrict__ resid, const float* __restrict__ a32,
+               const float* __restrict__ ln_s, const float* __restrict__ ln_b,
+               int8_t* __restrict__ rows, float* rs_out, unsigned* sync, int M, int N, int K) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = align1024(smem_raw);
   unsigned char* stage_out = ring + STAGES * STAGE_BYTES;
@@ -108,6 +188,10 @@ gemm_i8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
     mbar_fence_init();
   }
   __syncthreads();
+  if constexpr (LN) {
+    ln_prologue(a32, ln_s, ln_b, rows, rs_out, M, K);
+    grid_sync(sync);
+  }
   const int nk = (K + BK - 1) / BK;
   const int n_tiles = (N + BN - 1) / BN;
   const int units = ((M + BM - 1) / BM) * n_tiles;
@@ -360,6 +444,39 @@ int encode_i8(CUtensorMap* map, const void* ptr, int cols, int rows) {
                     CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
+// The maps of a, w and the output, then the launch (LN: a is the scratch
+// the prologue fills from a32)
+int launch(const void* a, const float* rs, const void* w, const float* cs, const float* bias,
+           void* out, float* resid, const float* a32, const float* ln_s, const float* ln_b,
+           float* rs_out, unsigned* sync, int M, int N, int K, int out_f32, cudaStream_t stream) {
+  const bool ln = a32 != nullptr;
+  CUtensorMap map_a, map_w, map_o;
+  const int mode = resid != nullptr ? OUT_RESIDUAL : out_f32 ? OUT_F32 : OUT_BF16;
+  int err = encode_i8(&map_a, a, K, M);
+  if (!err) err = encode_i8(&map_w, w, K, N);
+  if (!err && mode == OUT_BF16)
+    err = encode_out(&map_o, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, out, N, M, 2, 64);
+  else if (!err)  // float32 out, or the residual read and written through it
+    err = encode_out(&map_o, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, mode == OUT_F32 ? out : resid, N,
+                     M, 4, 32);
+  if (err) return err;
+  const void* kernel =
+      ln ? (mode == OUT_F32 ? (const void*)gemm_i8_kernel<OUT_F32, true>
+                            : (const void*)gemm_i8_kernel<OUT_BF16, true>)
+         : (mode == OUT_RESIDUAL ? (const void*)gemm_i8_kernel<OUT_RESIDUAL, false>
+            : mode == OUT_F32    ? (const void*)gemm_i8_kernel<OUT_F32, false>
+                                 : (const void*)gemm_i8_kernel<OUT_BF16, false>);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int units = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  const int grid = units < sm_count() ? units : sm_count();
+  int8_t* rows = ln ? static_cast<int8_t*>(const_cast<void*>(a)) : nullptr;
+  void* args[] = {&map_a, &map_w, &map_o, &rs, &cs, &bias, &resid, &a32, &ln_s, &ln_b,
+                  &rows, &rs_out, &sync, &M, &N, &K};
+  e = cudaLaunchKernel(kernel, dim3(grid), dim3(THREADS), args, SMEM, stream);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
 }  // namespace
 
 // a: (M, K) int8 rows, rs: (M,) float32 row scales. w: (N, K) int8 (the
@@ -373,25 +490,24 @@ LTD_API int ltd_gemm_i8(const void* a, const float* rs, const void* w, const flo
                         int out_f32, void* stream) {
   if (M < 1 || N < 16 || K < 16 || N % 16 || K % 16 || (out == nullptr) == (resid == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap map_a, map_w, map_o;
-  const int mode = resid != nullptr ? OUT_RESIDUAL : out_f32 ? OUT_F32 : OUT_BF16;
-  int err = encode_i8(&map_a, a, K, M);
-  if (!err) err = encode_i8(&map_w, w, K, N);
-  if (!err && mode == OUT_BF16)
-    err = encode_out(&map_o, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, out, N, M, 2, 64);
-  else if (!err)  // float32 out, or the residual read and written through it
-    err = encode_out(&map_o, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, mode == OUT_F32 ? out : resid, N,
-                     M, 4, 32);
-  if (err) return err;
-  const void* kernel = mode == OUT_RESIDUAL ? (const void*)gemm_i8_kernel<OUT_RESIDUAL>
-                       : mode == OUT_F32    ? (const void*)gemm_i8_kernel<OUT_F32>
-                                            : (const void*)gemm_i8_kernel<OUT_BF16>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int units = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
-  const int grid = units < sm_count() ? units : sm_count();
-  void* args[] = {&map_a, &map_w, &map_o, &rs, &cs, &bias, &resid, &M, &N, &K};
-  e = cudaLaunchKernel(kernel, dim3(grid), dim3(THREADS), args, SMEM,
-                       static_cast<cudaStream_t>(stream));
-  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+  return launch(a, rs, w, cs, bias, out, resid, nullptr, nullptr, nullptr, nullptr, nullptr, M,
+                N, K, out_f32, static_cast<cudaStream_t>(stream));
+}
+
+// LN(x) quantized per row, then the int8 product, in one launch: what
+// ltd_rowquant(x, ln_s, ln_b) then ltd_gemm_i8 on its rows give, bit for
+// bit. x: (M, K) float32; ln_s, ln_b: (K,) float32. w, cs, bias, out and
+// out_f32 as ltd_gemm_i8's (no residual). scratch: (M, K) int8 and rs:
+// (M,) float32, the quantized rows and their scales (written). sync: two
+// unsigned counters, zero (left zero). Requires N % 16 == 0 and K % 16 ==
+// 0, any M >= 1; every pointer 16-byte aligned.
+LTD_API int ltd_ln_gemm_i8(const float* x, const float* ln_s, const float* ln_b, const void* w,
+                           const float* cs, const float* bias, void* out, void* scratch,
+                           float* rs, unsigned* sync, int M, int N, int K, int out_f32,
+                           void* stream) {
+  if (M < 1 || N < 16 || K < 16 || N % 16 || K % 16 || x == nullptr || ln_s == nullptr ||
+      ln_b == nullptr || out == nullptr || scratch == nullptr || rs == nullptr || sync == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch(scratch, rs, w, cs, bias, out, nullptr, x, ln_s, ln_b, rs, sync, M, N, K,
+                out_f32, static_cast<cudaStream_t>(stream));
 }

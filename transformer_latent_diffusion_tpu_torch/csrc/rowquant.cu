@@ -5,7 +5,14 @@
 // transformer_latent_diffusion_tpu/ops/fused_stack_int8.py::_layer_stack_int8_kernel:
 // `_rowquant` (:48-53) of the LN1, LN2 and LN3 outputs (`_ln_f32`,
 // ops/fused_block.py:40-43; fused_stack_int8.py:80, 85, 91) and of the
-// float32 GELU output over its full 3072-wide row (:99).
+// float32 GELU output over its full 3072-wide row (:99). The W8A8 layer
+// now quantizes those rows inside its fused kernels (gemm_i8.cu's
+// LayerNorm mode, ln_gemm_i8, for LN1-3; dwconv_gelu.cu's dwconv_gelu_q8
+// for the GELU row), with this kernel's arithmetic and order
+// (quant_row.cuh holds them for those kernels; the smoke holds their int8
+// rows and scales bit-equal to this kernel's); this kernel stays for the
+// probe S1 (scripts/microbench_int8.py), which quantizes its rows on their
+// own.
 //
 // What it computes, per row of K float32 values x:
 //   y      = LN(x) (mean, then mean of squared deviations, eps 1e-5,

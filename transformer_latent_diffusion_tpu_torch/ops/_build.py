@@ -59,6 +59,8 @@ SIGNATURES = {
                                     _I, _I, _I, _I, _I, _I, _I, _P),
     "ltd_rowquant": (_P, _P, _P, _P, _P, _I, _I, _P),
     "ltd_gemm_i8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ltd_ln_gemm_i8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ltd_dwconv_gelu_q8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "ltd_mlp_band_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ltd_mlp_band_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _P),

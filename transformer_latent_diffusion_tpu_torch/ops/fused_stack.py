@@ -47,8 +47,10 @@ float32 pre-GELU values). The hi-res sep-conv MLP (`ops/fused_mlp_vjp.py`,
 TPU kernel K5's forward) runs `dwconv_gelu` on a float32 hidden state at
 hw = 32, which takes its row-band body (`dwconv_gelu_body`). The W8A8
 stack (`ops/fused_stack_int8.py`, TPU kernel K7) runs `cross_attention`
-without its LN3 output (`ln=None`) and `dwconv_gelu` with a float32
-output (`out_dtype=torch.float32`). The probes of `scripts/` run
+without its LN3 output (`ln=None`), and its depthwise stage as a
+quantizing form of `dwconv_gelu`'s body (`fused_stack_int8.dwconv_gelu_q8`,
+csrc/dwconv_gelu.cu); `dwconv_gelu` with a float32 output
+(`out_dtype=torch.float32`) is what that form quantizes. The probes of `scripts/` run
 `cross_attention` with the heads summed into one (`summed=True`, the
 "onehead" layer variant) and `dwconv_gelu` without the convolution or with
 its shifts commuted (`dw_mode`) or with a bf16 pre-GELU output

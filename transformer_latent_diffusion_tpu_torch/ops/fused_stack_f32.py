@@ -29,7 +29,9 @@ float32 accuracy; the other two run on the CUDA cores:
 The wrappers of `ops/fused_stack.py` (`ln_gemm`, `self_attention`,
 `cross_attention`, `dwconv_gelu`) send a call whose weights or operands
 are float32 here, so K1's stack and K7's run unchanged with float32
-weights. Each body counts its launches in this module's `LAUNCHES`,
+weights (K7's int8 kernels take the float32 compute dtype themselves:
+`fused_stack_int8.ln_gemm_i8` gives float32 qkv and qc, and
+`dwconv_gelu_q8` takes float32 taps). Each body counts its launches in this module's `LAUNCHES`,
 apart from the bf16 bodies' counts. The plain versions are those of
 `ops/fused_stack.py`, which take any dtype; CPU tensors run them.
 """
@@ -51,10 +53,11 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 LAUNCHES_PER_LAYER = {"ln_gemm_f32": 5, "self_attention_f32": 1,
                       "cross_attention_f32": 1, "dwconv_gelu_f32": 1}
 # ... and of K7 (quantize="int8") with a float32 compute dtype: its int8
-# kernels (ops/fused_stack_int8.LAUNCHES) and one of each float32 body
-LAUNCHES_PER_LAYER_INT8 = {"rowquant": 4, "gemm_i8": 4, "ln_gemm_f32": 1,
-                           "self_attention_f32": 1, "cross_attention_f32": 1,
-                           "dwconv_gelu_f32": 1}
+# kernels (ops/fused_stack_int8.LAUNCHES; dwconv_gelu_q8 with float32 taps)
+# and the float32 bodies of its K/V product and attentions
+LAUNCHES_PER_LAYER_INT8 = {"ln_gemm_i8": 3, "gemm_i8": 1, "dwconv_gelu_q8": 1,
+                           "ln_gemm_f32": 1, "self_attention_f32": 1,
+                           "cross_attention_f32": 1}
 F32 = torch.float32
 
 

@@ -1,4 +1,4 @@
-"""The W8A8 decoder-layer stack of the int8 engine: two hand-written CUDA
+"""The W8A8 decoder-layer stack of the int8 engine: four hand-written CUDA
 kernels beside K1's, and their plain PyTorch versions.
 
 Counterpart of the JAX package's `ops/fused_stack_int8.py`, whose Pallas
@@ -7,27 +7,37 @@ layers as `ops/fused_stack.py`'s K1 does, with the four large projections
 (QKV, cross-attention Q, MLP expand and contract) in int8: per-row dynamic
 symmetric int8 activations, per-output-channel int8 weights
 (`pack_layer_stack_int8`), int32 accumulation and a float32
-dequantization. Here a layer is twelve launches of six kernels (sources
-in `csrc/`, built by `ops/_build.py`):
+dequantization. Here a layer is eight launches of six kernels (sources in
+`csrc/`, built by `ops/_build.py`):
 
-  rowquant         (csrc/rowquant.cu) optional float32 LayerNorm, then
-                   per-row int8 quantization: LN1, LN2, LN3, GELU output
+  ln_gemm_i8       (csrc/gemm_i8.cu, its LayerNorm mode) LN1, LN2 or LN3
+                   in float32 and its per-row int8 quantization in a
+                   prologue over the batch's rows (then a grid-wide
+                   barrier), then the int8 product: QKV and Q (out in the
+                   compute dtype), expand (float32 + b1)
+  dwconv_gelu_q8   (csrc/dwconv_gelu.cu) the 3x3 depthwise + dwb + exact
+                   GELU of the float32 expanded hidden state, quantized per
+                   pixel over all its channels (a thread-block cluster over
+                   the channels, the maxima through distributed shared
+                   memory): the contract product's int8 rows and scales,
+                   the float32 GELU output never written
   gemm_i8          (csrc/gemm_i8.cu) int8 x int8 -> int32 on the tensor
-                   cores with the dequantization epilogue: QKV and Q
-                   (bf16 out), expand (float32 + b1), contract (added
-                   with b2 into the float32 residual, in place)
-  ln_gemm          K1's, the conditioning K/V projection (bf16)
+                   cores with the dequantization epilogue: the contract
+                   product, added with b2 into the float32 residual in place
+  ln_gemm          K1's, the conditioning K/V projection (compute dtype)
   self_attention   K1's
-  cross_attention  K1's, without its LN3 output (`ln=None`): rowquant
+  cross_attention  K1's, without its LN3 output (`ln=None`): ln_gemm_i8
                    takes LN3 of the updated residual in float32
-  dwconv_gelu      K1's, float32 hidden state in and float32 GELU out
 
-Why LN3 moved out of `cross_attention`: the int8 route quantizes LN3's
-float32 output, not a bf16 one, so the LayerNorm has to feed the
-quantization directly. Fusing both into `cross_attention` would save one
-read of the float32 residual (50 MB per layer at batch 64, ~15 us at
-3.35 TB/s); keeping every quantized row in `rowquant` keeps one place
-where the quantization rounds, which the parity checks hold.
+`rowquant` (csrc/rowquant.cu), the per-row quantization on its own, is
+not on the layer's path: the probe S1 (scripts/microbench_int8.py)
+launches it, and both fused kernels share its arithmetic
+(csrc/quant_row.cuh), so their int8 rows and scales are rowquant's bit
+for bit.
+
+Why LN3 is not fused into `cross_attention`: the int8 route quantizes
+LN3's float32 output, not a bf16 one, so the LayerNorm feeds the
+quantization directly, inside the product that reads the int8 rows.
 
 Rounding points are the TPU kernel's (fused_stack_int8.py:48-102): LN1-3
 outputs and the GELU output are quantized in float32, never rounded to
@@ -52,15 +62,15 @@ import torch
 
 from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
 from transformer_latent_diffusion_tpu_torch.ops._build import load_library
+from transformer_latent_diffusion_tpu_torch.ops.fused_layer_vjp import _zeroed_counters
 
-KERNELS = ("rowquant", "gemm_i8")
+KERNELS = ("rowquant", "gemm_i8", "ln_gemm_i8", "dwconv_gelu_q8")
 # launches of each kernel since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 # kernel launches per decoder layer, K1's kernels (counted in
 # fused_stack.LAUNCHES) included
-LAUNCHES_PER_LAYER = {"rowquant": 4, "gemm_i8": 4, "ln_gemm": 1,
-                      "self_attention": 1, "cross_attention": 1,
-                      "dwconv_gelu": 1}
+LAUNCHES_PER_LAYER = {"ln_gemm_i8": 3, "gemm_i8": 1, "dwconv_gelu_q8": 1,
+                      "ln_gemm": 1, "self_attention": 1, "cross_attention": 1}
 # the projections quantized to int8, and their scales' names
 QUANTIZED = (("wqkv", "sqkv"), ("wq", "sq"), ("w1", "s1"), ("w2", "s2"))
 
@@ -103,6 +113,62 @@ def gemm_i8_plain(xq, rs, wq, cs, bias=None, residual=None,
     if bias is not None:
         deq = deq + bias.reshape(-1)
     return deq.to(out_dtype)
+
+
+def ln_gemm_i8_plain(x, ln, wq, cs, bias=None, out_dtype=torch.bfloat16):
+    """LN(x) quantized per row, then its int8 product: `rowquant_plain(x,
+    ln)` and `gemm_i8_plain` on its rows. x: (M, K) float32; ln: (scale,
+    shift) float32; wq (N, K) int8, cs (1, N), bias (N,) or None; returns
+    (deq + bias) in `out_dtype`."""
+    xq, rs = rowquant_plain(x, ln)
+    return gemm_i8_plain(xq, rs, wq, cs, bias, out_dtype=out_dtype)
+
+
+def dwconv_gelu_q8_plain(h, dw, dwb, hw: int):
+    """(q, rscale): the float32 GELU(depthwise3x3(h) + dwb) of
+    `fs.dwconv_gelu_plain` quantized per pixel over its channels by
+    `rowquant_plain`. h: (B*hw*hw, C) float32; dw: (9, C) in the compute
+    dtype; dwb: (C,) float32."""
+    return rowquant_plain(fs.dwconv_gelu_plain(h, dw, dwb, hw, out_dtype=torch.float32))
+
+
+# dwconv_gelu_q8's threads a block, and the least grid rows in its ring
+Q8_THREADS = 384
+Q8_MIN_SLOTS = 4
+
+
+def dwconv_gelu_q8_plan(hw: int, c: int):
+    """(ranks, tseg) of a `dwconv_gelu_q8` launch (pure: no device is
+    touched). A cluster of `ranks` blocks (at most 8, the portable cluster
+    size) splits each pixel's C channels into slices of whole 128-channel
+    groups, so a warp's 32 lanes own 4 channels each of the same pixels,
+    and a thread walks `tseg` pixels of a row (4 or 8). Of the layouts
+    whose (slice / 4) x ceil(hw / tseg) threads fit the block's 384 and
+    whose ring of 4 grid rows ((hw + 2) x slice float32 each) and maxima
+    fit its shared memory (csrc/dwconv_gelu.cu, q8_smem_bytes), the one
+    with the most threads at work, then the longer runs (fewer slab reads
+    and sums a pixel; on an H100 the flagship's 4 ranks of 8-pixel runs
+    took 0.224 ms a layer against 0.253 for 8 ranks of 4). Raises
+    ValueError where none fits."""
+    fs._require(c % 128 == 0 and c > 0 and hw > 0,
+                f"dwconv_gelu_q8: needs C % 128 == 0, got C={c}")
+    best = None
+    for ranks in (8, 4, 2, 1):
+        if c % (128 * ranks):
+            continue
+        piece = c // ranks
+        for tseg in (8, 4):
+            threads = piece // 4 * -(-hw // tseg)
+            smem = (128 + Q8_MIN_SLOTS * (hw + 2) * piece * 4 + Q8_MIN_SLOTS * 8 + 8
+                    + 3 * -(-hw // tseg) * (piece // 128) * tseg * 4)
+            if threads <= Q8_THREADS and smem <= fs.SMEM_PER_BLOCK and hw + 2 <= 256:
+                key = (threads, tseg, ranks)
+                if best is None or key > best[0]:
+                    best = (key, (ranks, tseg))
+    fs._require(best is not None,
+                f"dwconv_gelu_q8: a {hw}-wide grid of {c} channels takes no thread layout "
+                f"or shared memory of a block")
+    return best[1]
 
 
 # ------------------------------ kernel wrappers ------------------------------
@@ -171,17 +237,82 @@ def gemm_i8(xq, rs, wq, cs, bias=None, residual=None, out_dtype=torch.bfloat16):
     return residual if residual is not None else out
 
 
+def ln_gemm_i8(x, ln, wq, cs, bias=None, out_dtype=torch.bfloat16):
+    """Kernel wrapper of `ln_gemm_i8_plain` (same arguments and result),
+    one launch. On CUDA: x float32 (M, K), ln float32 (K,) each, wq int8
+    (N, K) with N % 16 == 0 and K % 16 == 0 (ragged last tiles are
+    masked), cs and bias float32; out_dtype bf16 or float32."""
+    if x.device.type == "cpu":
+        return ln_gemm_i8_plain(x, ln, wq, cs, bias, out_dtype)
+    scale, shift = ln
+    extra = [t for t in (bias,) if t is not None]
+    dev = fs._on_cuda("ln_gemm_i8", x, scale, shift, wq, cs, *extra)
+    m, k = x.shape
+    n = wq.shape[0]
+    fs._require(x.dtype == torch.float32 and wq.dtype == torch.int8 and wq.shape == (n, k),
+                f"ln_gemm_i8: x float32 (M, K), wq int8 (N, {k}); got {x.dtype}, "
+                f"{wq.dtype} {tuple(wq.shape)}")
+    fs._require(n % 16 == 0 and k % 16 == 0 and n > 0 and k > 0,
+                f"ln_gemm_i8: needs N % 16 == 0 and K % 16 == 0, got N={n} K={k}")
+    fs._require(all(t.dtype == torch.float32 for t in (scale, shift, cs, *extra))
+                and scale.numel() == k and shift.numel() == k,
+                "ln_gemm_i8: ln float32 (K,) each; cs and bias float32")
+    fs._require(cs.numel() == n and (bias is None or bias.numel() == n),
+                "ln_gemm_i8: cs and bias have N elements")
+    fs._require(out_dtype in (torch.bfloat16, torch.float32),
+                "ln_gemm_i8: out_dtype is bf16 or float32")
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    # the prologue's int8 rows and scales, and the grid barrier's counters
+    scratch = torch.empty((m, k), dtype=torch.int8, device=dev)
+    rs = torch.empty((m, 1), dtype=torch.float32, device=dev)
+    sync = _zeroed_counters(dev, 2)
+    lib = load_library()
+    LAUNCHES["ln_gemm_i8"] += 1
+    err = lib.ltd_ln_gemm_i8(fs._ptr(x), fs._ptr(scale), fs._ptr(shift), fs._ptr(wq),
+                             fs._ptr(cs), fs._ptr(bias), fs._ptr(out), fs._ptr(scratch),
+                             fs._ptr(rs), fs._ptr(sync), m, n, k,
+                             int(out_dtype == torch.float32), fs._stream(dev))
+    fs._check_launch(err, "ln_gemm_i8")
+    return out
+
+
+def dwconv_gelu_q8(h, dw, dwb, hw: int):
+    """Kernel wrapper of `dwconv_gelu_q8_plain` (same arguments and
+    result), one launch. On CUDA: h float32 (B*hw*hw, C) with C % 128 == 0,
+    dw (9, C) bf16 or float32 (the float32 compute dtype), dwb float32, and
+    a grid that `dwconv_gelu_q8_plan` takes."""
+    if h.device.type == "cpu":
+        return dwconv_gelu_q8_plain(h, dw, dwb, hw)
+    dev = fs._on_cuda("dwconv_gelu_q8", h, dw, dwb)
+    m, c = h.shape
+    fs._require(h.dtype == torch.float32 and dw.dtype in (torch.bfloat16, torch.float32)
+                and dwb.dtype == torch.float32,
+                "dwconv_gelu_q8: h float32, dw bf16 or float32, dwb float32")
+    fs._require(m % (hw * hw) == 0 and dw.shape == (9, c) and dwb.numel() == c,
+                "dwconv_gelu_q8: needs (B*hw*hw, C) rows, dw (9, C), dwb (C,)")
+    ranks, tseg = dwconv_gelu_q8_plan(hw, c)
+    q = torch.empty((m, c), dtype=torch.int8, device=dev)
+    rs = torch.empty((m, 1), dtype=torch.float32, device=dev)
+    lib = load_library()
+    LAUNCHES["dwconv_gelu_q8"] += 1
+    err = lib.ltd_dwconv_gelu_q8(fs._ptr(h), fs._ptr(dw), fs._ptr(dwb), fs._ptr(q),
+                                 fs._ptr(rs), m // (hw * hw), hw, c, ranks, tseg,
+                                 int(dw.dtype == torch.float32), fs._stream(dev))
+    fs._check_launch(err, "dwconv_gelu_q8")
+    return q, rs
+
+
 # ------------------------------ the layer stack ------------------------------
 
-_KERNEL_OPS = (rowquant, gemm_i8, fs.ln_gemm, fs.self_attention,
-               fs.cross_attention, fs.dwconv_gelu)
-_PLAIN_OPS = (rowquant_plain, gemm_i8_plain, fs.ln_gemm_plain,
+_KERNEL_OPS = (ln_gemm_i8, gemm_i8, fs.ln_gemm, fs.self_attention,
+               fs.cross_attention, dwconv_gelu_q8)
+_PLAIN_OPS = (ln_gemm_i8_plain, gemm_i8_plain, fs.ln_gemm_plain,
               fs.self_attention_plain, fs.cross_attention_plain,
-              fs.dwconv_gelu_plain)
+              dwconv_gelu_q8_plain)
 
 
 def _layer_stack_int8(x, cond, stack, hw: int, n_heads: int, ops):
-    quant, qmm, gemm, sa, ca, dwg = ops
+    lnq, qmm, gemm, sa, ca, dwq = ops
     b, n, d = x.shape
     mxu = stack["wkv"].dtype
     f32 = torch.float32
@@ -192,18 +323,15 @@ def _layer_stack_int8(x, cond, stack, hw: int, n_heads: int, ops):
         def p(name):
             return stack[name][l]
 
-        xq, rs = quant(xres, (p("ln1s"), p("ln1b")))
-        qkv = qmm(xq, rs, p("wqkv"), p("sqkv"), out_dtype=mxu)
+        qkv = lnq(xres, (p("ln1s"), p("ln1b")), p("wqkv"), p("sqkv"), out_dtype=mxu)
         xres = sa(qkv, xres, n_heads, n)
-        xq, rs = quant(xres, (p("ln2s"), p("ln2b")))
-        qc = qmm(xq, rs, p("wq"), p("sq"), out_dtype=mxu)
+        qc = lnq(xres, (p("ln2s"), p("ln2b")), p("wq"), p("sq"), out_dtype=mxu)
         kv = gemm(c2, p("wkv"))
         xres, _ = ca(qc, kv, xres, None, n_heads, n)
-        xq, rs = quant(xres, (p("ln3s"), p("ln3b")))
-        hmat = qmm(xq, rs, p("w1"), p("s1"), bias=p("b1"), out_dtype=f32)
-        act = dwg(hmat, p("dw"), p("dwb"), hw, out_dtype=f32)
-        xq, rs = quant(act)
-        xres = qmm(xq, rs, p("w2"), p("s2"), bias=p("b2"), residual=xres)
+        hmat = lnq(xres, (p("ln3s"), p("ln3b")), p("w1"), p("s1"), bias=p("b1"),
+                   out_dtype=f32)
+        aq, ars = dwq(hmat, p("dw"), p("dwb"), hw)
+        xres = qmm(aq, ars, p("w2"), p("s2"), bias=p("b2"), residual=xres)
     return xres.reshape(b, n, d).to(x.dtype)
 
 
