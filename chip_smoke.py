@@ -2916,6 +2916,463 @@ def phase_train_main(per_layer, smi):
     return launches, wall / steps
 
 
+# ------------------------------ float32 training at 256 px (K2, K6) ------------------------------
+
+# float32 training: the flagship step's gradients, kernels vs the plain
+# float32 autograd Denoiser (TF32 off), global and worst leaf. Measured on an
+# H100 80GB HBM3 at 700 W: 9.76e-7 global, 1.79e-6 worst leaf; about 3x
+# margin
+F32_STEP_GRAD_REL_L2 = 3e-6
+F32_STEP_GRAD_LEAF_REL_L2 = 6e-6
+# the same for the "mlp" and "moe" FFNs through K6, per parameter group
+# (worst group measured: 9.14e-7 mlp, 1.05e-6 moe, no MoE route flipped)
+F32_FFN_GRAD_REL_L2 = {"mlp": 3e-6, "moe": 3e-6}
+# one float32 layer's or pair's outputs against the plain layer
+F32_LAYER_REL_L2 = 1e-5
+
+
+def _f32_torch_layer(x, cond, params):
+    """The decoder layer as F.layer_norm + F.linear + SDPA + a grouped
+    conv2d + F.gelu (a yardstick the port never calls)."""
+    F = torch.nn.functional
+    ln3s, ln3b, w1, b1, dw, dwb, w2, b2 = params[7:]
+    x2 = _sdpa_pair(x, cond, params[:7])
+    b, n, d = x.shape
+    h = F.linear(F.layer_norm(x2, (d,), ln3s, ln3b), w1, b1)
+    hc = h.reshape(b, HW, HW, -1).permute(0, 3, 1, 2)
+    c = F.conv2d(hc, dw.t().reshape(-1, 1, 3, 3), dwb, padding=1, groups=hc.shape[1])
+    return x2 + F.linear(F.gelu(c).permute(0, 2, 3, 1).reshape(b, n, -1), w2, b2)
+
+
+def _fwd_bwd_ms(fn, inputs, g):
+    """ms of fn(*inputs) and its gradients for all of `inputs` (autograd)."""
+    def run():
+        return torch.autograd.grad(fn(*inputs), inputs, g)
+    return time_ms(run, reps=5, warmup=1)
+
+
+def f32_train_bounds():
+    """Least ms of each float32 training body at batch TB (each input read
+    once, each output written once): the products, the attention's too, at
+    the 3xTF32 rate (TF32_TENSOR_FLOP_S / 3), the rest at the FFMA rate or
+    the bytes."""
+    m = TB * N
+    tc = TF32_TENSOR_FLOP_S / 3
+    prods = [(m, 3 * D, D), (m, D, D), (2 * TB, 2 * D, D), (m, HIDDEN, D), (m, D, HIDDEN)]
+    flops = sum(2 * r * n * k for r, n, k in prods)
+    att = 4 * TB * HEADS * N * N * 64
+    att_bwd = 10 * TB * HEADS * N * N * 64
+    contract = 2 * m * D * HIDDEN
+    pair = 2 * m * 4 * D * D + 2 * 2 * TB * 2 * D * D
+    return {
+        # dW of the five products, dY and X read, dW written
+        "weight_grad_f32": bound(sum(4 * (r * n + r * k + n * k) for r, n, k in prods), flops, tc),
+        # the recompute's two LayerNorm products with their rows, and the
+        # five dX = dY W products
+        "ln_gemm_f32 (training modes)": bound(
+            4 * (2 * m * D + 4 * D * D + m * 4 * D + 2 * m * D)
+            + sum(4 * (r * n + n * k + r * k) for r, n, k in prods),
+            2 * m * 4 * D * D + flops, tc),
+        "dwconv_gelu_f32 (c)": bound(3 * m * HIDDEN * 4 + 10 * HIDDEN * 4, 26 * m * HIDDEN,
+                                     F32_FLOP_S),
+        # its five products (s, dp, dq, dk, dv) at float32 accuracy
+        "self_attention_bwd_f32": bound(7 * m * D * 4, att_bwd, tc),
+        "cross_attention_bwd_f32": bound(3 * m * D * 4 + 2 * 2 * TB * 2 * D * 4, 10 * m * D,
+                                         F32_FLOP_S),
+        "dwconv_gelu_bwd_f32": bound(4 * m * HIDDEN * 4 + 20 * HIDDEN * 4, 56 * m * HIDDEN,
+                                     F32_FLOP_S),
+        "layernorm_bwd (float32)": bound(3 * (m * D * 16 + D * 4), 3 * 15 * m * D, F32_FLOP_S),
+        "colsum (float32)": bound(m * D * 4 + D * 4, m * D, F32_FLOP_S),
+        # one layer's forward and backward (the recompute included)
+        "K2 f32": bound(0, (flops + att) + (flops - contract + att) + 2 * flops + att_bwd, tc),
+        "K6 f32": bound(0, 2 * (pair + att) + 2 * pair + att_bwd, tc),
+    }
+
+
+def phase_float32_train_kernels():
+    """[float32-train-kernels]: each float32 body of K2's and K6's backward
+    (ops/fused_layer_vjp_f32.py, and ln_gemm_f32's and dwconv_gelu_f32's
+    training modes) with layernorm_bwd and colsum, at the flagship's
+    float32 training shapes (batch TB) against its plain version with
+    TF32 off: rel-L2 within F32_KERNEL_REL_L2, two launches bit-equal, ms
+    per layer beside the plain version, the bound and one PyTorch call;
+    ptxas's registers and spills. Then one float32 K2 layer and one K6
+    pair, forward and backward, against their plain versions. Returns
+    (worst max-abs, timing, library, bounds), keyed by row."""
+    from transformer_latent_diffusion_tpu_torch.ops import fused_attn_vjp as k6
+    from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
+
+    tag = "float32-train-kernels"
+    F = torch.nn.functional
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device="cpu").manual_seed(21)
+    f32 = torch.float32
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g) * std).to(dev)
+
+    m = TB * N
+    x, xn, cond = randn(m, D), randn(m, D), randn(2 * TB, D)
+    ln = (1 + randn(D, std=0.1), randn(D, std=0.1))
+    wqkv, wq = randn(3 * D, D, std=D ** -0.5), randn(D, D, std=D ** -0.5)
+    wkv = randn(2 * D, D, std=D ** -0.5)
+    w1, w2 = randn(HIDDEN, D, std=D ** -0.5), randn(D, HIDDEN, std=HIDDEN ** -0.5)
+    gy, dh, act = randn(m, D, std=1e-2), randn(m, HIDDEN, std=1e-2), randn(m, HIDDEN)
+    dqkv, dqc, dkv = randn(m, 3 * D, std=1e-2), randn(m, D, std=1e-2), randn(2 * TB, 2 * D)
+    qkv, qc, kv = randn(m, 3 * D), randn(m, D), randn(2 * TB, 2 * D)
+    h, c, dw, dwb = randn(m, HIDDEN), randn(m, HIDDEN), randn(9, HIDDEN, std=1 / 3), \
+        randn(HIDDEN, std=0.1)
+    x1 = randn(m, D)
+    rn = RAGGED_NS[-1]
+    qkv_r, gy_r = randn(RAGGED_B * rn, 3 * D), randn(RAGGED_B * rn, D, std=1e-2)
+
+    def cat(ts):
+        return torch.cat([t.flatten() for t in _tuple(ts)])
+
+    # (row, label, kernel, plain): each product of a layer apart
+    wg = [(dqkv, xn), (dqc, xn), (dkv, cond), (dh, xn), (gy, act)]
+    dx = [(dqkv, wqkv), (dqc, wq), (dkv, wkv), (dh, w1), (gy, w2)]
+    checks = [("ln_gemm_f32 (training modes)", f"ln_gemm_f32/LN rows out {lbl}",
+               lambda w=w: cat(fs.ln_gemm(x, w, ln=ln, return_xn=True)),
+               lambda w=w: cat(fs.ln_gemm_plain(x, w, ln=ln, return_xn=True)))
+              for lbl, w in (("qkv", wqkv), ("q", wq))]
+    checks += [("ln_gemm_f32 (training modes)", f"ln_gemm_f32/dX {tuple(w.shape)}",
+                lambda u=u, w=w: fs.ln_gemm(u, w, out_dtype=f32, w_transposed=True),
+                lambda u=u, w=w: fs.ln_gemm_plain(u, w, out_dtype=f32, w_transposed=True))
+               for u, w in dx]
+    checks += [("weight_grad_f32", f"weight_grad_f32 {tuple(u.shape)}^T {tuple(v.shape)}",
+                lambda u=u, v=v: lv.weight_grad(u, v), lambda u=u, v=v: lv.weight_grad_plain(u, v))
+               for u, v in wg]
+    checks += [
+        ("dwconv_gelu_f32 (c)", "dwconv_gelu_f32/c out",
+         lambda: cat(fs.dwconv_gelu(h, dw, dwb, HW, return_c=True)),
+         lambda: cat(fs.dwconv_gelu_plain(h, dw, dwb, HW, return_c=True))),
+        ("self_attention_bwd_f32", "self_attention_bwd_f32",
+         lambda: lv.self_attention_bwd(qkv, gy, HEADS, N),
+         lambda: lv.self_attention_bwd_plain(qkv, gy, HEADS, N)),
+        ("self_attention_bwd_f32", f"self_attention_bwd_f32 (N = {rn}, a ragged tile)",
+         lambda: lv.self_attention_bwd(qkv_r, gy_r, HEADS, rn),
+         lambda: lv.self_attention_bwd_plain(qkv_r, gy_r, HEADS, rn)),
+        ("cross_attention_bwd_f32", "cross_attention_bwd_f32",
+         lambda: cat(lv.cross_attention_bwd(qc, kv, gy, HEADS, N)),
+         lambda: cat(lv.cross_attention_bwd_plain(qc, kv, gy, HEADS, N))),
+        ("dwconv_gelu_bwd_f32", "dwconv_gelu_bwd_f32",
+         lambda: cat(lv.dwconv_gelu_bwd(dh, c, h, dw, HW)),
+         lambda: cat(lv.dwconv_gelu_bwd_plain(dh, c, h, dw, HW))),
+        ("layernorm_bwd (float32)", "layernorm_bwd",
+         lambda: cat(lv.layernorm_bwd(gy, x1, ln[0], x)),
+         lambda: cat(lv.layernorm_bwd_plain(gy, x1, ln[0], x))),
+        ("colsum (float32)", "colsum", lambda: lv.colsum(gy), lambda: lv.colsum_plain(gy)),
+    ]
+    worst = {}
+    for row, label, kern, plain in checks:
+        r, a, rel_a = _errors(kern(), plain())
+        log(f"[{tag}] {label}: rel-L2 {r:.3e} max-abs {a:.3e} ({rel_a:.2e} of max |ref|; "
+            f"bound rel-L2 {F32_KERNEL_REL_L2})")
+        if not r <= F32_KERNEL_REL_L2:
+            raise AssertionError(f"{label} disagrees with its plain version")
+        _bit_equal_twice(label, kern, tag)
+        worst[row] = max(worst.get(row, 0.0), a)
+    _ptxas_report(tag, ("ln_gemm_f32_kernel", "weight_grad_f32_kernel",
+                        "self_attention_bwd_f32_kernel", "cross_attention_bwd_kernel",
+                        "dwconv_gelu_bwd_kernel", "layernorm_bwd_kernel", "colsum_kernel"))
+
+    def per_layer(fn, cases):
+        return lambda: [fn(*cs) for cs in cases]
+
+    ln_modes = ([(x, wqkv, None, ln, None, f32, True), (x, wq, None, ln, None, f32, True)]
+                + [(u, w, None, None, None, f32, False, True) for u, w in dx])
+    results = {
+        "weight_grad_f32": (per_layer(lv.weight_grad, wg), per_layer(lv.weight_grad_plain, wg)),
+        "ln_gemm_f32 (training modes)": (per_layer(fs.ln_gemm, ln_modes),
+                                         per_layer(fs.ln_gemm_plain, ln_modes)),
+        "dwconv_gelu_f32 (c)": (lambda: fs.dwconv_gelu(h, dw, dwb, HW, return_c=True),
+                                lambda: fs.dwconv_gelu_plain(h, dw, dwb, HW, return_c=True)),
+        "self_attention_bwd_f32": (lambda: lv.self_attention_bwd(qkv, gy, HEADS, N),
+                                   lambda: lv.self_attention_bwd_plain(qkv, gy, HEADS, N)),
+        "cross_attention_bwd_f32": (lambda: lv.cross_attention_bwd(qc, kv, gy, HEADS, N),
+                                    lambda: lv.cross_attention_bwd_plain(qc, kv, gy, HEADS, N)),
+        "dwconv_gelu_bwd_f32": (lambda: lv.dwconv_gelu_bwd(dh, c, h, dw, HW),
+                                lambda: lv.dwconv_gelu_bwd_plain(dh, c, h, dw, HW)),
+        # the three of a layer
+        "layernorm_bwd (float32)": (
+            lambda: [lv.layernorm_bwd(gy, x1, ln[0], x) for _ in range(3)],
+            lambda: [lv.layernorm_bwd_plain(gy, x1, ln[0], x) for _ in range(3)]),
+        "colsum (float32)": (lambda: lv.colsum(gy), lambda: lv.colsum_plain(gy)),
+    }
+    timing = time_against_plain(results, tag)
+    # one PyTorch call computing the same function, TF32 off: the products
+    # as u.t() @ v and dY @ W (the LayerNorm rows' mode has no one call);
+    # the attention backwards and the depthwise one as autograd's backward
+    # alone through SDPA and through the grouped conv2d + F.gelu
+    hs = [t.contiguous().requires_grad_(True)
+          for t in qkv.reshape(TB, N, 3, HEADS, 64).permute(2, 0, 3, 1, 4)]
+    gh = gy.reshape(TB, N, HEADS, 64).transpose(1, 2).contiguous()
+    out = F.scaled_dot_product_attention(*hs)
+    kvh = [t.contiguous() for t in kv.reshape(TB, 2, 2, HEADS, 64).permute(2, 0, 3, 1, 4)]
+    cs = [qc.reshape(TB, N, HEADS, 64).transpose(1, 2).contiguous().requires_grad_(True),
+          *(t.requires_grad_(True) for t in kvh)]
+    cout = F.scaled_dot_product_attention(*cs)
+    library = {
+        "weight_grad_f32": time_ms(lambda: [u.t() @ v for u, v in wg]),
+        "ln_gemm_f32 (training modes)": None,
+        "ln_gemm_f32 (training modes) (dX = dY @ W)": time_ms(lambda: [u @ w for u, w in dx]),
+        "dwconv_gelu_f32 (c)": None,
+        "self_attention_bwd_f32": time_ms(
+            lambda: torch.autograd.grad(out, hs, gh, retain_graph=True)),
+        "cross_attention_bwd_f32": time_ms(
+            lambda: torch.autograd.grad(cout, cs, gh, retain_graph=True)),
+        "dwconv_gelu_bwd_f32": time_ms(dwb_equal_work(dh, h, dw, dwb, HW)),
+        "layernorm_bwd (float32)": None,
+        "colsum (float32)": time_ms(lambda: gy.sum(0)),
+    }
+    del hs, out, kvh, cs, cout, gh
+
+    # one float32 K2 layer and one K6 pair at batch TB, forward and backward
+    pg = torch.Generator(device="cpu").manual_seed(22)
+
+    def p(*shape, std=1.0, base=0.0):
+        return (base + torch.randn(*shape, generator=pg) * std).to(dev)
+
+    params = [p(D, std=0.1, base=1.0), p(D, std=0.1), p(3 * D, D, std=D ** -0.5),
+              p(D, std=0.1, base=1.0), p(D, std=0.1), p(D, D, std=D ** -0.5),
+              p(2 * D, D, std=D ** -0.5), p(D, std=0.1, base=1.0), p(D, std=0.1),
+              p(HIDDEN, D, std=D ** -0.5), p(HIDDEN, std=0.1), p(9, HIDDEN, std=1 / 3),
+              p(HIDDEN, std=0.1), p(D, HIDDEN, std=HIDDEN ** -0.5), p(D, std=0.1)]
+    xl, cl, gl = p(TB, N, D), p(TB, 2, D), p(TB, N, D, std=1e-3)
+    layer_rels = {}
+    for row, fwd, bwd, fwd_plain, bwd_plain, ps in (
+            ("K2 f32", lambda a, b, q: lv.fused_layer_fwd(a, b, q, HEADS, HW),
+             lambda a, b, gg, q: lv.fused_layer_bwd(a, b, gg, q, HEADS, HW),
+             lambda a, b, q: lv.fused_layer_fwd_plain(a, b, q, HEADS, HW),
+             lambda a, b, gg, q: lv.fused_layer_bwd_plain(a, b, gg, q, HEADS, HW), params),
+            ("K6 f32", lambda a, b, q: k6.fused_attention_pair_fwd(a, b, *q, HEADS),
+             lambda a, b, gg, q: k6.fused_attention_pair_bwd(a, b, gg, *q, HEADS),
+             lambda a, b, q: k6.fused_attention_pair_fwd_plain(a, b, *q, HEADS),
+             lambda a, b, gg, q: k6.fused_attention_pair_bwd_plain(a, b, gg, *q, HEADS),
+             params[:7])):
+        _reset_counts()
+        got = (fwd(xl, cl, ps) - xl, *_flat(bwd(xl, cl, gl, ps)))
+        launches = {k: v for k, v in _counts().items() if v}
+        want = (fwd_plain(xl, cl, ps) - xl, *_flat(bwd_plain(xl, cl, gl, ps)))
+        rels = [rel_l2(u, v) for u, v in zip(got, want)]
+        layer_rels[row] = max(rels)
+        worst[row] = max(float((u - v).abs().max()) for u, v in zip(got, want))
+        log(f"[{tag}] {row}: one layer's forward update and its {len(rels) - 1} gradients vs "
+            f"the plain float32 layer, rel-L2 " + " ".join(f"{v:.2e}" for v in rels)
+            + f" (bound {F32_LAYER_REL_L2}); launches {launches}")
+        if not max(rels) <= F32_LAYER_REL_L2:
+            raise AssertionError(f"the float32 {row} layer disagrees with its plain version")
+        timing.update(time_against_plain({row: (
+            lambda: (fwd(xl, cl, ps), bwd(xl, cl, gl, ps)),
+            lambda: (fwd_plain(xl, cl, ps), bwd_plain(xl, cl, gl, ps)))}, tag))
+        leaves = [t.detach().clone().requires_grad_(True) for t in (xl, cl, *ps)]
+        if row == "K2 f32":
+            library[row] = _fwd_bwd_ms(lambda a, b, *q: _f32_torch_layer(a, b, q), leaves, gl)
+        else:
+            library[row] = _fwd_bwd_ms(lambda a, b, *q: _sdpa_pair(a, b, q), leaves, gl)
+        del leaves, got, want
+    bounds = f32_train_bounds()
+    log(f"[{tag}] products run on the tensor cores in TF32 parts by design (3xTF32 wgmma); "
+        f"the plain versions and the PyTorch calls run with TF32 off (matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32}, cudnn.allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32})")
+    for name, (ms, plain_ms) in timing.items():
+        lib = library.get(name)
+        extra = library.get(f"{name} (dX = dY @ W)")
+        log(f"[{tag}] {name}: {ms:.4f} ms per layer, plain {plain_ms:.4f} ms, bound "
+            f"{bounds[name][0]:.4f} ms ({bounds[name][1]}; {bounds[name][0] / ms:.1%} of it), "
+            f"library call {'none' if lib is None else f'{lib:.4f} ms'}"
+            + ("" if extra is None else f"; its dX products as dY @ W {extra:.4f} ms"))
+    return worst, timing, library, bounds
+
+
+def _flat(outs):
+    """A backward's outputs as one flat list of tensors."""
+    flat = []
+    for o in outs:
+        flat.extend(o if isinstance(o, (list, tuple)) else [o])
+    return flat
+
+
+def _f32_step_models(den):
+    """The float32 Denoiser through the kernels (the flags train.main sets
+    on CUDA) and the plain float32 autograd one, the same seeded weights."""
+    from transformer_latent_diffusion_tpu_torch.models.denoiser import Denoiser
+    from transformer_latent_diffusion_tpu_torch.utils.common import init_random_weights_
+
+    models = {}
+    for fused in (True, False):
+        mdl = Denoiser.from_config(den, dtype=torch.float32, fused_layer_vjp=fused,
+                                   use_pallas=fused)
+        models[fused] = init_random_weights_(mdl, 0).to(DEVICE).train()
+    return models
+
+
+def phase_float32_train_step(smi, mlp_class="sep_conv"):
+    """[float32-train-step] (or [float32-<ffn>-train]): the flagship 101M at
+    256 px, batch TB, float32 master weights and compute: one step's
+    gradients through the kernels (K2, or K6 beside the "mlp"/"moe" FFN)
+    against the plain float32 autograd Denoiser on the same weights and
+    draws; exact launches of one step (the float32 bodies, no bf16 kernel);
+    ms per step and samples/s over 5 steps after 2 warm-up steps
+    (`_time_steps`), peak memory and a profile of one step. Returns (the launches of
+    one step, ms per step)."""
+    from transformer_latent_diffusion_tpu_torch.configs import TrainConfig
+    from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp_f32 as fb
+
+    sep = mlp_class == "sep_conv"
+    tag = "float32-train-step" if sep else f"float32-{mlp_class}-train"
+    den = flagship_configs().denoiser_cfg if sep else ffn_config(mlp_class).denoiser_cfg
+    models = _f32_step_models(den)
+    gen = torch.Generator(device="cpu").manual_seed(23)
+    x = torch.randn(TB, 4, den.image_size, den.image_size, generator=gen).to(DEVICE)
+    y = torch.randn(TB, den.text_emb_size, generator=gen).to(DEVICE)
+    tc = TrainConfig(batch_size=TB, compute_dtype="float32")
+    if sep:
+        glob, leaf, leaf_name = _grad_check(models, x, y, tc)
+        log(f"[{tag}] gradients, kernels vs plain float32 autograd (TF32 off), same draws: "
+            f"global rel-L2 {glob:.3e} (bound {F32_STEP_GRAD_REL_L2}), worst leaf {leaf:.3e} "
+            f"{leaf_name} (bound {F32_STEP_GRAD_LEAF_REL_L2})")
+        if not (glob < F32_STEP_GRAD_REL_L2 and leaf < F32_STEP_GRAD_LEAF_REL_L2):
+            raise AssertionError("the float32 train step's gradients disagree with the plain "
+                                 "float32 step")
+    else:
+        stats, flips = _group_grad_check(models, x, y, tc)
+        log(f"[{tag}] gradients, K6 vs plain float32 autograd (TF32 off), same draws, per "
+            f"group (rel-L2, cosine): "
+            + "; ".join(f"{k} {v[0]:.3e}, {v[1]:.7f}" for k, v in stats.items())
+            + f" (bound {F32_FFN_GRAD_REL_L2[mlp_class]}); MoE routes that differ {flips:.2e}")
+        if not all(v[0] < F32_FFN_GRAD_REL_L2[mlp_class] for v in stats.values()):
+            raise AssertionError(f"the float32 {mlp_class} step's gradients disagree with the "
+                                 f"plain float32 step")
+    plain = models.pop(False)
+    del plain
+    torch.cuda.empty_cache()
+    ms, peak, launches, (busy, wall, by_kernel) = _time_steps(
+        models[True], TB, den.image_size, dtype=torch.float32, den=den)
+    per_layer = fb.K2_LAUNCHES_PER_LAYER if sep else fb.K6_LAUNCHES_PER_LAYER
+    expect = {k: v * den.n_layers for k, v in per_layer.items()}
+    if not sep:
+        expect.update(fused_attention_pair_vjp=den.n_layers,
+                      fused_attention_pair_vjp_bwd=den.n_layers)
+    _require_launches(launches, expect, f"[{tag}] one step")
+    log(f"[{tag}] flagship 101M{'' if sep else f' ({mlp_class} FFN)'}, 256 px, batch {TB}, "
+        f"float32 master weights and compute, Adam + EMA: {ms:.2f} ms/step "
+        f"({TB / ms * 1e3:.1f} samples/s) over 5 steps after 2 warm-up steps, "
+        f"peak memory {peak:.2f} GiB; launches of one step {launches} (exact); one profiled "
+        f"step: device busy {busy:.1f} ms of {wall:.1f} ms, top kernels {by_kernel} | {smi}")
+    del models
+    torch.cuda.empty_cache()
+    return launches, ms
+
+
+def _group_grad_check(models, x, y, train_cfg):
+    """Per parameter group (attention pair, FFN, rest): rel-L2 and cosine of
+    models[True]'s gradients against models[False]'s on the same batch and
+    draws, and the share of MoE routes that differ between the two."""
+    from transformer_latent_diffusion_tpu_torch.train import train as tt
+
+    loss_fn = tt.build_loss_fn(models[True], train_cfg, 8.0)
+    draws = loss_fn.sample_draws(torch.Generator(device=DEVICE).manual_seed(24), x)
+    grads, routes = {}, {}
+    for key, mdl in models.items():
+        routes[key] = _route_recorder(mdl)
+        loss_fn.loss_from_draws(mdl, x, y, **draws).backward()
+        grads[key] = {k: p.grad.float() for k, p in mdl.named_parameters()}
+        mdl.zero_grad(set_to_none=True)
+    groups = _param_groups(grads[False])
+    stats = {}
+    for name in sorted(set(groups.values())):
+        keys = [k for k, v in groups.items() if v == name]
+        u = torch.cat([grads[True][k].flatten() for k in keys]).double()
+        w = torch.cat([grads[False][k].flatten() for k in keys]).double()
+        stats[name] = (float((u - w).norm() / w.norm()),
+                       float(torch.nn.functional.cosine_similarity(u, w, dim=0)))
+    return stats, _flip_share(routes[True], routes[False])
+
+
+def phase_float32_train_main(smi, mlp_class="sep_conv", per_step=None):
+    """[float32-train-main] (or [float32-<ffn>-train-main]): train.main with
+    compute_dtype="float32" at batch TB on random latents, one eval grid at
+    step 0: TRAIN_STEPS steps of the flagship through K2 (its eval grid
+    through the float32 K1 engine), or FFN_TRAIN_STEPS of the "mlp" /
+    "moe" flagship through K6 (`per_step`: the launches of one of its
+    steps; its eval grid through `flash_attention_f32`). Exact launches
+    and a falling loss. Returns the run's launches."""
+    from transformer_latent_diffusion_tpu_torch.configs import DataConfig, ModelConfig, TrainConfig
+    from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp_f32 as fb
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack_f32 as f32
+    from transformer_latent_diffusion_tpu_torch.train import main as train_main
+
+    sep = mlp_class == "sep_conv"
+    tag = "float32-train-main" if sep else f"float32-{mlp_class}-train-main"
+    cfg = flagship_configs() if sep else ffn_config(mlp_class)
+    den = cfg.denoiser_cfg
+    n_layers = den.n_layers
+    want_steps = TRAIN_STEPS if sep else FFN_TRAIN_STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(2)
+        n = want_steps * TB + TB // 2
+        size = (den.n_channels, den.image_size, den.image_size)
+        paths = [os.path.join(tmp, f) for f in ("latents.npy", "text_emb.npy", "val_emb.npy")]
+        np.save(paths[0], rng.standard_normal((n, *size), dtype=np.float32))
+        np.save(paths[1], rng.standard_normal((n, den.text_emb_size), dtype=np.float32))
+        np.save(paths[2], rng.standard_normal((8, den.text_emb_size), dtype=np.float32))
+        mcfg = ModelConfig(
+            data_config=DataConfig(*paths), denoiser_config=den,
+            train_config=TrainConfig(batch_size=TB, n_epoch=1, compute_dtype="float32",
+                                     save_model=False, save_and_eval_every_iters=1000,
+                                     checkpoint_dir=os.path.join(tmp, "ckpts"),
+                                     model_name="smoke"),
+            vae_cfg=cfg.vae_cfg)
+        _reset_counts()
+        t0 = time.perf_counter()
+        r = train_main(mcfg, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        modes = dict(f32.MODE_LAUNCHES)
+        eval_png = os.path.exists(os.path.join(tmp, "ckpts", "smoke", "eval",
+                                               "emb_val_cfg:4.5_seed:10.png"))
+    losses, steps = r["losses"], r["global_step"]
+    if sep:
+        expect = {k: v * n_layers * steps for k, v in fb.K2_LAUNCHES_PER_LAYER.items()}
+        for k, v in f32.LAUNCHES_PER_LAYER.items():
+            expect[k] = expect.get(k, 0) + v * n_layers * EVAL_CALLS
+        expect_modes = {k: v * n_layers * steps for k, v in fb.K2_MODE_LAUNCHES_PER_LAYER.items()}
+    else:
+        expect = {k: v * steps for k, v in per_step.items()}
+        expect["flash_attention_f32"] = n_layers * EVAL_CALLS  # the step-0 eval grid
+        expect_modes = None  # per_step, measured, holds the kernels' launches only
+    expect = {k: v for k, v in expect.items() if v}
+    got = {k: v for k, v in launches.items() if v}
+    log(f"[{tag}] train.main, compute_dtype float32, {mlp_class} FFN, batch {TB}, {steps} "
+        f"steps in {wall:.1f} s (one eval grid included: {eval_png}); losses "
+        f"{' '.join(f'{v:.3f}' for v in losses)}; model dtype {r['model'].dtype}; launches "
+        f"{got} (expected {expect}); training modes {modes} (expected {expect_modes}) | {smi}")
+    if sep:
+        # as [train-main]: the first full-lr Adam step from the seeded init
+        # spikes the loss, so the last 10 must also end below step 1's and
+        # the loss still fall from steps 11-15 to 16-20
+        first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+        mid, end = float(np.mean(losses[-10:-5])), float(np.mean(losses[-5:]))
+        falls = last < first and last < losses[0] and end < mid
+    else:  # as [<ffn>-train]
+        tail = float(np.mean(losses[-3:]))
+        falls = tail < losses[0] and tail < max(losses[:5])
+    if steps != want_steps or not all(np.isfinite(losses)) or not falls or not eval_png:
+        raise AssertionError(f"float32 {mlp_class} train.main: {steps} steps, losses "
+                             f"{losses}, eval grid {eval_png}")
+    _require_launches(got, expect, f"float32 {mlp_class} train.main")
+    if expect_modes is not None:
+        _require_launches(modes, expect_modes, f"float32 {mlp_class} train.main's training-mode")
+    del r
+    torch.cuda.empty_cache()
+    return {**launches, **modes}
+
+
 # ------------------------------ hi-res training (K4, K5's backward) ------------------------------
 
 # one hi-res train step's gradients, kernels vs the plain bf16 autograd
@@ -3163,7 +3620,7 @@ def _grad_check(models, x, y, train_cfg=None):
     return (num / den2) ** 0.5, leaf, leaf_name
 
 
-def _time_steps(mdl, batch, size):
+def _time_steps(mdl, batch, size, dtype=torch.bfloat16, den=None):
     """ms per step (host clock around 5 steps ending in a synchronise,
     after 2 warm-up steps) and peak GiB of train_step (Adam, EMA) at
     `batch`; the launches of one step; a profile of one more step (device
@@ -3181,8 +3638,8 @@ def _time_steps(mdl, batch, size):
     y = torch.randn(batch, 768, generator=gen).to(DEVICE)
     tc = TrainConfig(batch_size=batch)
     opt, sched = tt.make_optimizer(tc, mdl.parameters())
-    den = dataclasses.replace(flagship_configs().denoiser_cfg, image_size=size)
-    ema = Denoiser.from_config(den, dtype=torch.bfloat16).to(DEVICE).requires_grad_(False)
+    den = dataclasses.replace(den or flagship_configs().denoiser_cfg, image_size=size)
+    ema = Denoiser.from_config(den, dtype=dtype).to(DEVICE).requires_grad_(False)
     state = {"model": mdl, "ema_model": ema, "optimizer": opt, "scheduler": sched, "step": 0}
     grads_of = tt.make_grads_of(tt.build_loss_fn(mdl, tc, 8.0))
     sgen = torch.Generator(device=DEVICE).manual_seed(6)
@@ -3456,13 +3913,14 @@ def _count_modules():
     from transformer_latent_diffusion_tpu_torch.ops import fused_attn_vjp as k6
     from transformer_latent_diffusion_tpu_torch.ops import fused_block as fb
     from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
+    from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp_f32 as lv32
     from transformer_latent_diffusion_tpu_torch.ops import fused_mlp_vjp as fm
     from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
     from transformer_latent_diffusion_tpu_torch.ops import fused_stack_f32 as f32
     from transformer_latent_diffusion_tpu_torch.ops import fused_stack_int8 as q8
     from transformer_latent_diffusion_tpu_torch.ops import layer_variants as lvar
 
-    return fs, lv, att, fm, q8, k6, fb, lvar, f32
+    return fs, lv, att, fm, q8, k6, fb, lvar, f32, lv32
 
 
 def _pair_inputs(gen, b, n):
@@ -4925,6 +5383,17 @@ def main():
     t_launches, _ = phase_train_main(per_layer, smi)
     torch.cuda.empty_cache()
     phase_outpaint_train(per_layer, smi)
+    torch.cuda.empty_cache()
+
+    # float32 training at 256 px: K2's and K6's float32 backward bodies
+    f2_worst, f2_timing, f2_library, f2_bounds = phase_float32_train_kernels()
+    torch.cuda.empty_cache()
+    phase_float32_train_step(smi)
+    f2_launches = phase_float32_train_main(smi)
+    f6_launches = {}
+    for mlp_class in ("moe", "mlp"):
+        f6_step, _ = phase_float32_train_step(smi, mlp_class)
+        f6_launches[mlp_class] = phase_float32_train_main(smi, mlp_class, f6_step)
 
     ht_worst, ht_timing, ht_library, ht_bounds = phase_hires_train_kernels()
     hr_layer, xr_launches = phase_hires_train_step(smi)
@@ -5022,6 +5491,36 @@ def main():
         })
         if f"{key} (equal work)" in ht_library:
             kernels[-1]["equal_work_ms"] = ht_library[f"{key} (equal work)"]
+    # the float32 training bodies (ops/fused_layer_vjp_f32.py) and the
+    # training modes of ln_gemm_f32 and dwconv_gelu_f32: launches of the
+    # float32 train.main (K2), the modes' from fused_stack_f32.MODE_LAUNCHES;
+    # "K2 f32" and "K6 f32" are one layer's forward and backward, whose
+    # launches are the layer backward passes of that run (one
+    # dwconv_gelu_bwd_f32 each) and K6's calls in the float32 MoE train.main
+    for row, src, tpu, launched in (
+            ("weight_grad_f32", "csrc/gemm_bwd_f32.cu", TPU_K2_BWD,
+             f2_launches["weight_grad_f32"]),
+            ("self_attention_bwd_f32", "csrc/attention_bwd_f32.cu", TPU_K2_BWD,
+             f2_launches["self_attention_bwd_f32"]),
+            ("cross_attention_bwd_f32", "csrc/attention_bwd.cu", TPU_K2_BWD,
+             f2_launches["cross_attention_bwd_f32"]),
+            ("dwconv_gelu_bwd_f32", "csrc/dwconv_gelu_bwd.cu", TPU_K2_BWD,
+             f2_launches["dwconv_gelu_bwd_f32"]),
+            ("ln_gemm_f32 (training modes)", "csrc/ln_gemm_f32.cu", TPU_K2_BWD,
+             f2_launches["ln_gemm_f32 return_xn"] + f2_launches["ln_gemm_f32 w_transposed"]),
+            ("dwconv_gelu_f32 (c)", "csrc/dwconv_gelu.cu", TPU_K2_BWD,
+             f2_launches["dwconv_gelu_f32 return_c"]),
+            ("K2 f32", "ops/fused_layer_vjp.py", TPU_K2_BWD,
+             f2_launches["dwconv_gelu_bwd_f32"]),
+            ("K6 f32", "ops/fused_attn_vjp.py", TPU_K6_BWD,
+             f6_launches["moe"]["fused_attention_pair_vjp"]
+             + f6_launches["moe"]["fused_attention_pair_vjp_bwd"])):
+        kernels.append({
+            "name": row, "route": "cuda", "source": f"{port}/{src}", "replaces": tpu,
+            "launches": launched, "max_abs_err": f2_worst[row], "ms": f2_timing[row][0],
+            "plain_ms": f2_timing[row][1], "bound_ms": f2_bounds[row][0],
+            "bound_by": f2_bounds[row][1], "library_ms": f2_library[row],
+        })
     # K6's launches: the MoE model's train.main; K8's and K9's: their entry
     # points (no path of the system calls them, as in the JAX package)
     for name, tpu, src, counts in (

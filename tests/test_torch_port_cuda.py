@@ -1589,3 +1589,148 @@ def test_fused_mlp_float32_route_matches_plain_on_card(hw, d):
         "dwconv_gelu_f32": 1}
     assert dict(fs.LAUNCHES) == bf16_before
     assert got.dtype == torch.float32 and _rel_l2(got, want) <= 1e-5
+
+
+# ------------------------------ float32 training (K2, K6) ------------------------------
+
+
+def _f32_train_cases(d, device="cuda"):
+    """(label, kernel, plain, counter) of each float32 training body at
+    embed_dim d (64 x n_heads: ragged product tiles at 64 and 192)."""
+    from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp_f32 as lv32
+
+    g = torch.Generator().manual_seed(d)
+    heads, hw, b = d // 64, 8, 3
+    n, hid = hw * hw, 4 * d
+    m = b * n
+
+    def r(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g) * std).to(device)
+
+    def cat(ts):
+        return torch.cat([t.flatten() for t in _tuple(ts)])
+
+    x, ln = r(m, d), (1 + r(d, std=0.1), r(d, std=0.1))
+    w, wt = r(3 * d, d, std=d ** -0.5), r(hid, d, std=hid ** -0.5)
+    dy, xs = r(m, hid, std=0.1), r(m, d)
+    qkv, dout = r(m, 3 * d), r(m, d, std=0.1)
+    qc, kv = r(m, d), r(2 * b, 2 * d)
+    da, c, h, dw = r(m, hid, std=0.1), r(m, hid), r(m, hid), r(9, hid, std=1 / 3)
+    rn = 37  # a ragged last key and query tile
+    qkv_r, dout_r = r(2 * rn, 3 * d), r(2 * rn, d, std=0.1)
+    f32_ = torch.float32
+    return [
+        ("ln_gemm_f32 return_xn", lambda: cat(fs.ln_gemm(x, w, ln=ln, return_xn=True)),
+         lambda: cat(fs.ln_gemm_plain(x, w, ln=ln, return_xn=True)), (f32, "ln_gemm_f32")),
+        ("ln_gemm_f32 w_transposed",
+         lambda: fs.ln_gemm(dy, wt, out_dtype=f32_, w_transposed=True),
+         lambda: fs.ln_gemm_plain(dy, wt, out_dtype=f32_, w_transposed=True),
+         (f32, "ln_gemm_f32")),
+        ("dwconv_gelu_f32 return_c", lambda: cat(fs.dwconv_gelu(h, dw, r(hid), hw, return_c=True)),
+         None, (f32, "dwconv_gelu_f32")),
+        ("weight_grad_f32", lambda: lv.weight_grad(dy, xs), lambda: lv.weight_grad_plain(dy, xs),
+         (lv32, "weight_grad_f32")),
+        ("self_attention_bwd_f32", lambda: lv.self_attention_bwd(qkv, dout, heads, n),
+         lambda: lv.self_attention_bwd_plain(qkv, dout, heads, n),
+         (lv32, "self_attention_bwd_f32")),
+        ("self_attention_bwd_f32 N=37", lambda: lv.self_attention_bwd(qkv_r, dout_r, heads, rn),
+         lambda: lv.self_attention_bwd_plain(qkv_r, dout_r, heads, rn),
+         (lv32, "self_attention_bwd_f32")),
+        ("cross_attention_bwd_f32", lambda: cat(lv.cross_attention_bwd(qc, kv, dout, heads, n)),
+         lambda: cat(lv.cross_attention_bwd_plain(qc, kv, dout, heads, n)),
+         (lv32, "cross_attention_bwd_f32")),
+        ("dwconv_gelu_bwd_f32", lambda: cat(lv.dwconv_gelu_bwd(da, c, h, dw, hw)),
+         lambda: cat(lv.dwconv_gelu_bwd_plain(da, c, h, dw, hw)),
+         (lv32, "dwconv_gelu_bwd_f32")),
+    ]
+
+
+F32_TRAIN_CASES = 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 192, 1024])
+@pytest.mark.parametrize("case", range(F32_TRAIN_CASES))
+def test_float32_training_body_matches_plain_on_card(case, d):
+    """Each float32 body of K2's and K6's backward (and ln_gemm_f32's and
+    dwconv_gelu_f32's training modes) against its plain version on the
+    card at embed_dim d, TF32 off: rel-L2 within 1e-5, one launch in its
+    own counter and none in the bf16 counts, two launches bit-equal."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = _f32_train_cases(d)
+    assert len(cases) == F32_TRAIN_CASES
+    name, kern, plain, (mod, counter) = cases[case]
+    if plain is None:  # dwconv_gelu's c mode: the same tensors through the plain version
+        g = torch.Generator().manual_seed(5)
+        h, dw, dwb = (torch.randn(*s, generator=g).cuda() for s in
+                      ((3 * 64, 4 * d), (9, 4 * d), (4 * d,)))
+
+        def kern():
+            return torch.cat([t.flatten() for t in fs.dwconv_gelu(h, dw, dwb, 8, return_c=True)])
+
+        def plain():
+            return torch.cat([t.flatten() for t in fs.dwconv_gelu_plain(h, dw, dwb, 8,
+                                                                        return_c=True)])
+    want = plain()
+    before, bf16_before = dict(mod.LAUNCHES), (dict(fs.LAUNCHES), dict(lv.LAUNCHES))
+    got = kern()
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES[counter] == before[counter] + 1, name
+    assert (dict(fs.LAUNCHES), dict(lv.LAUNCHES)) == bf16_before, name
+    assert got.dtype == torch.float32
+    assert _rel_l2(got, want) <= 1e-5, name
+    assert torch.equal(got, kern()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 192])
+def test_float32_layer_and_pair_match_plain_on_card(d):
+    """One float32 K2 layer and one K6 pair, forward and backward through
+    the autograd functions, against the plain layer on the card (every
+    output within rel-L2 1e-5) with exactly `K2_LAUNCHES_PER_LAYER` /
+    `K6_LAUNCHES_PER_LAYER` launches and no bf16 one."""
+    from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp_f32 as lv32
+
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(d + 1)
+    hw, b, hid = 8, 3, 4 * d
+    heads, n = d // 64, hw * hw
+
+    def r(*shape, std=1.0, base=0.0):
+        return (base + torch.randn(*shape, generator=g) * std).cuda()
+
+    params = [r(d, std=0.1, base=1.0), r(d, std=0.1), r(3 * d, d, std=d ** -0.5),
+              r(d, std=0.1, base=1.0), r(d, std=0.1), r(d, d, std=d ** -0.5),
+              r(2 * d, d, std=d ** -0.5), r(d, std=0.1, base=1.0), r(d, std=0.1),
+              r(hid, d, std=d ** -0.5), r(hid, std=0.1), r(9, hid, std=1 / 3), r(hid, std=0.1),
+              r(d, hid, std=hid ** -0.5), r(d, std=0.1)]
+    x, cond, gy = r(b, n, d), r(b, 2, d), r(b, n, d, std=1e-2)
+    counted = (fs, f32, lv, lv32)
+    for which, per_layer in (("k2", lv32.K2_LAUNCHES_PER_LAYER),
+                             ("k6", lv32.K6_LAUNCHES_PER_LAYER)):
+        leaves = [t.clone().requires_grad_(True) for t in
+                  [x, cond] + (params if which == "k2" else params[:7])]
+        for mod in counted:
+            mod.reset_launch_counts()
+        if which == "k2":
+            out = lv.fused_layer(leaves[0], leaves[1], leaves[2:], heads, hw)
+        else:
+            out = k6.fused_attention_pair_vjp(*leaves, heads)
+        out.backward(gy)
+        torch.cuda.synchronize()
+        got = {k: v for mod in counted for k, v in mod.LAUNCHES.items() if v}
+        assert got == per_layer, which
+        with torch.no_grad():
+            if which == "k2":
+                want_out = lv.fused_layer_fwd_plain(x, cond, params, heads, hw)
+                dx, dcond, grads = lv.fused_layer_bwd_plain(x, cond, gy, params, heads, hw)
+                want = [dx, dcond, *grads]
+            else:
+                want_out = k6.fused_attention_pair_fwd_plain(x, cond, *params[:7], heads)
+                want = list(k6.fused_attention_pair_bwd_plain(x, cond, gy, *params[:7], heads))
+        assert _rel_l2(out.detach() - x, want_out - x) <= 1e-5, which
+        for i, (t, w) in enumerate(zip(leaves, want)):
+            assert t.grad.dtype == torch.float32
+            assert _rel_l2(t.grad, w) <= 1e-5, (which, i)

@@ -173,11 +173,11 @@ def _meta(*shape, dtype=torch.float32):
 BAD_FLOAT32_CALLS = {
     "ln_gemm bf16 a without ln": lambda: fs.ln_gemm(_meta(8, 64, dtype=torch.bfloat16),
                                                     _meta(16, 64)),
-    "ln_gemm w_transposed": lambda: fs.ln_gemm(_meta(8, 64), _meta(64, 16), w_transposed=True),
+    "ln_gemm w_transposed": lambda: fs.ln_gemm(_meta(8, 64), _meta(64, 16), w_transposed=True,
+                                               ln=(_meta(64), _meta(64))),
     "ln_gemm bf16 out": lambda: fs.ln_gemm(_meta(8, 64), _meta(16, 64),
                                            out_dtype=torch.bfloat16),
-    "ln_gemm return_xn": lambda: fs.ln_gemm(_meta(8, 64), _meta(16, 64),
-                                            ln=(_meta(64), _meta(64)), return_xn=True),
+    "ln_gemm return_xn": lambda: fs.ln_gemm(_meta(8, 64), _meta(16, 64), return_xn=True),
     "ln_gemm K % 8": lambda: fs.ln_gemm(_meta(8, 60), _meta(16, 60)),
     "self_attention bf16 residual": lambda: fs.self_attention(
         _meta(32, 384), _meta(32, 128, dtype=torch.bfloat16), 2, 16),
@@ -189,7 +189,7 @@ BAD_FLOAT32_CALLS = {
     "dwconv_gelu bf16 h": lambda: fs.dwconv_gelu(_meta(32, 64, dtype=torch.bfloat16),
                                                  _meta(9, 64), _meta(64), 4),
     "dwconv_gelu return_c": lambda: fs.dwconv_gelu(_meta(32, 64), _meta(9, 64), _meta(64), 4,
-                                                   return_c=True),
+                                                   return_c=True, c_dtype=torch.bfloat16),
     "dwconv_gelu mode none": lambda: fs.dwconv_gelu(_meta(32, 64), _meta(9, 64), _meta(64), 4,
                                                     dw_mode="none"),
     "dwconv_gelu bf16 out": lambda: fs.dwconv_gelu(_meta(32, 64), _meta(9, 64), _meta(64), 4,

@@ -205,10 +205,10 @@ def test_float16_still_raises(fake_card):
 # ------------------------------ training ------------------------------
 
 
-def _train_cfg(tmp_path, compute_dtype, data=None):
+def _train_cfg(tmp_path, compute_dtype, data=None, image_size=8):
     return pc.ModelConfig(
         data_config=data or pc.DataConfig(*(str(tmp_path / f"absent_{i}.npy") for i in range(3))),
-        denoiser_config=pc.DenoiserConfig(image_size=8, embed_dim=64, n_layers=2,
+        denoiser_config=pc.DenoiserConfig(image_size=image_size, embed_dim=64, n_layers=2,
                                           noise_embed_dims=64),
         train_config=pc.TrainConfig(n_epoch=1, batch_size=8, save_model=False,
                                     save_and_eval_every_iters=10 ** 9,
@@ -220,9 +220,26 @@ def _train_cfg(tmp_path, compute_dtype, data=None):
 @pytest.mark.parametrize("dtype,item", [("float32", ITEM_7), ("float16", "ROADMAP item 4")])
 def test_train_main_refuses_other_compute_dtypes_on_cuda(tmp_path, dtype, item):
     """Before the first step, and before any data is read (the data files
-    do not exist)."""
+    do not exist): float16 at any size, float32 past 256 tokens (a 20 x 20
+    grid: K4's and K5's backward have no float32 body yet; at most 256
+    tokens float32 trains, tests/test_torch_port_float32_train.py)."""
+    size = 40 if dtype == "float32" else 8
     with pytest.raises(NotImplementedError, match=item):
-        ttrain.main(_train_cfg(tmp_path, dtype), device="cuda")
+        ttrain.main(_train_cfg(tmp_path, dtype, image_size=size), device="cuda")
+
+
+def test_train_main_refuses_a_float32_bucket_past_256_tokens_on_cuda(tmp_path):
+    """A multires bucket past 256 tokens (20 x 20, its size read from the
+    .npy header) beside a native 4 x 4 grid: float32 on CUDA still raises
+    naming item 7, before the native data (absent) is read."""
+    bucket = tmp_path / "bucket.npy"
+    np.save(bucket, np.zeros((2, 4, 40, 40), np.float32))
+    data = pc.DataConfig(*(str(tmp_path / f"absent_{i}.npy") for i in range(3)),
+                         extra_latent_paths=(str(bucket),),
+                         extra_text_emb_paths=(str(tmp_path / "absent_emb.npy"),))
+    assert ttrain.trained_tokens(_train_cfg(tmp_path, "float32", data)) == 400
+    with pytest.raises(NotImplementedError, match=ITEM_7):
+        ttrain.main(_train_cfg(tmp_path, "float32", data), device="cuda")
 
 
 def test_train_main_in_float32_on_cpu(tmp_path):

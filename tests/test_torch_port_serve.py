@@ -193,3 +193,61 @@ def test_500_and_non_object_bodies_answer_as_the_jax_app(raw):
         assert got[0] == 500
     if raw == b'{"prompt": "a cat"}':
         assert got == (500, {"detail": "the card is gone"})
+
+
+class _RecordingTransformer:
+    """A `transformer=` stand-in for both packages' services: records the
+    keyword arguments of each text-to-image call and answers one image."""
+
+    consistency = False
+    device = torch.device("cpu")
+
+    def __init__(self):
+        self.calls = []
+
+    def generate_image_from_text(self, **kwargs):
+        import PIL.Image
+
+        self.calls.append(kwargs)
+        return PIL.Image.new("RGB", (8, 8))
+
+
+def _solver_values(calls):
+    """(eta, cfg_rescale) of each recorded call; an absent knob is 0.0, as
+    the JAX service leaves a snapped zero out of the call."""
+    return [(kw.get("eta", 0.0), kw.get("cfg_rescale", 0.0)) for kw in calls]
+
+
+@pytest.mark.parametrize("microbatch", [None, 4], ids=["direct", "batcher"])
+@pytest.mark.parametrize("eta,cfg_rescale", [(0.1, 0.1), (0.3, 0.6), (0.9, 0.1)])
+def test_eta_and_cfg_rescale_snap_to_quarters_as_the_jax_service(microbatch, eta,
+                                                                  cfg_rescale):
+    """The values of eta and cfg_rescale that reach the transformer (direct)
+    or the micro-batcher's grouping key (batcher) are the JAX service's:
+    snapped to quarters after the 422 checks."""
+    from transformer_latent_diffusion_tpu.serve.app import GenerationService as JaxService
+    from transformer_latent_diffusion_tpu.serve.app import create_wsgi_app as jax_app
+
+    body = {"prompt": "a cat", "n_iter": 4, "sampler": "ddim", "eta": eta,
+            "cfg_rescale": cfg_rescale}
+    seen = {}
+    for name, service_cls, make_app in (("jax", JaxService, jax_app),
+                                        ("port", GenerationService, create_wsgi_app)):
+        tr = _RecordingTransformer()
+        svc = service_cls(transformer=tr, microbatch=microbatch, warmup=False)
+        try:
+            if microbatch:
+                batched = []
+
+                def record(*args, _log=batched, **kwargs):
+                    _log.append(kwargs)
+                    return tr.generate_image_from_text()
+                svc.batcher.generate = record
+            status, _, _ = call(make_app(service=svc), "POST", "/generate-image/", body)
+        finally:
+            if svc.batcher is not None:
+                svc.batcher.close()
+        assert status == 200, name
+        seen[name] = _solver_values(batched if microbatch else tr.calls)
+    want = [(round(eta * 4) / 4, round(cfg_rescale * 4) / 4)]
+    assert seen["port"] == seen["jax"] == want

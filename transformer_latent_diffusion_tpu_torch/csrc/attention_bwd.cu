@@ -70,7 +70,10 @@
 // a warp per token (a lane holds 2 of the head's 64 columns; dot products
 // are warp-shuffle sums), dqc written per token, dk and dv of the two
 // conditioning tokens summed over the batch element's tokens in registers
-// and then over the 8 warps in a fixed order in shared memory.
+// and then over the 8 warps in a fixed order in shared memory. The same
+// body with T = float is the cross-attention backward of the float32
+// compute dtype (nothing rounded); the float32 self-attention backward is
+// attention_bwd_f32.cu.
 
 #include "hopper.cuh"
 
@@ -494,28 +497,59 @@ int launch_self(const void* qkv, const float* dout, void* dqkv, int B, int N, in
 
 constexpr int CA_WARPS = 8;
 
+// Two columns c, c + 1 of a T row as float32 (pair c), the value in T's
+// rounding (bf16: rounded to bf16; float32: as it is), and two float32
+// values stored as T.
+__device__ __forceinline__ float2 ca_pair(const bf16* p, int c) {
+  return __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(p)[c]);
+}
+__device__ __forceinline__ float2 ca_pair(const float* p, int c) {
+  return reinterpret_cast<const float2*>(p)[c];
+}
+template <typename T>
+__device__ __forceinline__ float ca_round(float x) {
+  if constexpr (sizeof(T) == 2) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  } else {
+    return x;
+  }
+}
+__device__ __forceinline__ void ca_store(bf16* p, int c, float x, float y) {
+  reinterpret_cast<uint32_t*>(p)[c] = pack_bf16x2(x, y);
+}
+__device__ __forceinline__ void ca_store(float* p, int c, float x, float y) {
+  reinterpret_cast<float2*>(p)[c] = make_float2(x, y);
+}
+__device__ __forceinline__ void ca_store1(bf16* p, float x) { *p = __float2bfloat16_rn(x); }
+__device__ __forceinline__ void ca_store1(float* p, float x) { *p = x; }
+
+// T: the compute dtype of qc, kv, dqc and dkv: bf16 (the TPU kernel's
+// rounding points: the output gradient, ds and p rounded to bf16 before
+// their products), or float32 (the float32 compute dtype: nothing rounded,
+// the same sums)
+template <typename T>
 __global__ void __launch_bounds__(CA_WARPS * 32)
-cross_attention_bwd_kernel(const bf16* __restrict__ qc, const bf16* __restrict__ kv,
-                           const float* __restrict__ dout, bf16* __restrict__ dqc,
-                           bf16* __restrict__ dkv, int N, int D) {
+cross_attention_bwd_kernel(const T* __restrict__ qc, const T* __restrict__ kv,
+                           const float* __restrict__ dout, T* __restrict__ dqc,
+                           T* __restrict__ dkv, int N, int D) {
   __shared__ float red[CA_WARPS][4][DH];
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int c = h * 32 + lane;  // bf16 pair index within a row
-  const __nv_bfloat162* kv2 = reinterpret_cast<const __nv_bfloat162*>(kv + static_cast<size_t>(b) * 4 * D);
-  const float2 k0 = __bfloat1622float2(kv2[c]);
-  const float2 v0 = __bfloat1622float2(kv2[D / 2 + c]);
-  const float2 k1 = __bfloat1622float2(kv2[D + c]);
-  const float2 v1 = __bfloat1622float2(kv2[3 * D / 2 + c]);
+  const int c = h * 32 + lane;  // column pair index within a row
+  const T* kvb = kv + static_cast<size_t>(b) * 4 * D;
+  const float2 k0 = ca_pair(kvb, c);
+  const float2 v0 = ca_pair(kvb, D / 2 + c);
+  const float2 k1 = ca_pair(kvb, D + c);
+  const float2 v1 = ca_pair(kvb, 3 * D / 2 + c);
   float2 dk0 = make_float2(0.f, 0.f), dk1 = dk0, dv0 = dk0, dv1 = dk0;
 
   for (int n = warp; n < N; n += CA_WARPS) {
     const size_t row = static_cast<size_t>(b) * N + n;
-    const float2 q = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(qc + row * D)[c]);
+    const float2 q = ca_pair(qc + row * D, c);
     const float2 gf = reinterpret_cast<const float2*>(dout + row * D)[c];
-    const float2 gh = __bfloat1622float2(__floats2bfloat162_rn(gf.x, gf.y));
+    const float2 gh = make_float2(ca_round<T>(gf.x), ca_round<T>(gf.y));
     const float s0 = warp_sum(q.x * k0.x + q.y * k0.y) * SCALE;
     const float s1 = warp_sum(q.x * k1.x + q.y * k1.y) * SCALE;
     const float m = fmaxf(s0, s1);
@@ -525,12 +559,11 @@ cross_attention_bwd_kernel(const bf16* __restrict__ qc, const bf16* __restrict__
     const float dp0 = warp_sum(gh.x * v0.x + gh.y * v0.y);
     const float dp1 = warp_sum(gh.x * v1.x + gh.y * v1.y);
     const float dl = dp0 * p0 + dp1 * p1;
-    const float ds0 = __bfloat162float(__float2bfloat16_rn(p0 * (dp0 - dl) * SCALE));
-    const float ds1 = __bfloat162float(__float2bfloat16_rn(p1 * (dp1 - dl) * SCALE));
-    reinterpret_cast<uint32_t*>(dqc + row * D)[c] =
-        pack_bf16x2(ds0 * k0.x + ds1 * k1.x, ds0 * k0.y + ds1 * k1.y);
-    const float pl0 = __bfloat162float(__float2bfloat16_rn(p0));
-    const float pl1 = __bfloat162float(__float2bfloat16_rn(p1));
+    const float ds0 = ca_round<T>(p0 * (dp0 - dl) * SCALE);
+    const float ds1 = ca_round<T>(p1 * (dp1 - dl) * SCALE);
+    ca_store(dqc + row * D, c, ds0 * k0.x + ds1 * k1.x, ds0 * k0.y + ds1 * k1.y);
+    const float pl0 = ca_round<T>(p0);
+    const float pl1 = ca_round<T>(p1);
     dk0.x += ds0 * q.x, dk0.y += ds0 * q.y;
     dk1.x += ds1 * q.x, dk1.y += ds1 * q.y;
     dv0.x += pl0 * gh.x, dv0.y += pl0 * gh.y;
@@ -549,9 +582,8 @@ cross_attention_bwd_kernel(const bf16* __restrict__ qc, const bf16* __restrict__
 #pragma unroll
   for (int w = 0; w < CA_WARPS; ++w) t += red[w][j][d];
   const size_t out_row = static_cast<size_t>(2 * b + (j >> 1)) * 2 * D;
-  dkv[out_row + (j & 1) * D + h * DH + d] = __float2bfloat16_rn(t);
+  ca_store1(dkv + out_row + (j & 1) * D + h * DH + d, t);
 }
-
 
 }  // namespace
 
@@ -579,8 +611,21 @@ LTD_API int ltd_self_attention_bwd(const void* qkv, const float* dout, void* dqk
 LTD_API int ltd_cross_attention_bwd(const void* qc, const void* kv, const float* dout, void* dqc,
                                     void* dkv, int B, int N, int D, int H, void* stream) {
   if (H < 1 || D != H * DH) return static_cast<int>(cudaErrorInvalidValue);
-  cross_attention_bwd_kernel<<<dim3(H, B), CA_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qc), static_cast<const bf16*>(kv), dout, static_cast<bf16*>(dqc),
-      static_cast<bf16*>(dkv), N, D);
+  cross_attention_bwd_kernel<bf16>
+      <<<dim3(H, B), CA_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const bf16*>(qc), static_cast<const bf16*>(kv), dout,
+          static_cast<bf16*>(dqc), static_cast<bf16*>(dkv), N, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float32 form (the float32 compute dtype): qc, kv, dqc and dkv
+// float32, as ltd_cross_attention_bwd's otherwise; nothing is rounded.
+LTD_API int ltd_cross_attention_bwd_f32(const float* qc, const float* kv, const float* dout,
+                                        float* dqc, float* dkv, int B, int N, int D, int H,
+                                        void* stream) {
+  if (H < 1 || D != H * DH) return static_cast<int>(cudaErrorInvalidValue);
+  cross_attention_bwd_kernel<float>
+      <<<dim3(H, B), CA_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(qc, kv, dout, dqc,
+                                                                            dkv, N, D);
   return static_cast<int>(cudaGetLastError());
 }

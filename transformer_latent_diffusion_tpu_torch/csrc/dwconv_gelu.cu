@@ -674,7 +674,8 @@ int launch_q8(const void* h, const void* dw, const float* dwb, void* q, float* r
 // 1 none, 2 commuted (the TMA body, as base). Requires C % 64 == 0; the
 // TMA body its slab within 227 KB (see the header); dw_mode 1 float32 h
 // and c (band not read); c_bf16 bf16 h. dw_f32 != 0: float32 taps (the
-// float32 compute dtype), with float32 h, no c, dw_mode base or commuted.
+// float32 compute dtype), with float32 h, dw_mode base or commuted, and c
+// (the training layer's float32 form) float32 or none.
 LTD_API int ltd_dwconv_gelu(const void* h, const void* dw, const float* dwb, void* out,
                             void* c_out, int B, int hw, int C, int h_f32, int out_f32,
                             int band, int c_bf16, int dw_mode, int dw_f32, void* stream) {
@@ -683,12 +684,11 @@ LTD_API int ltd_dwconv_gelu(const void* h, const void* dw, const float* dwb, voi
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool of = out_f32 != 0;
   if (dw_f32) {
-    if (!h_f32 || c_bf16 || c_out != nullptr || dw_mode == DW_NONE)
-      return static_cast<int>(cudaErrorInvalidValue);
+    if (!h_f32 || c_bf16 || dw_mode == DW_NONE) return static_cast<int>(cudaErrorInvalidValue);
     return band > 0
-               ? launch_tma<float, true, float, float>(h, dw, dwb, out, nullptr, B, hw, C, band,
+               ? launch_tma<float, true, float, float>(h, dw, dwb, out, c_out, B, hw, C, band,
                                                        of, s)
-               : launch_tma<float, false, float, float>(h, dw, dwb, out, nullptr, B, hw, C, 0, of,
+               : launch_tma<float, false, float, float>(h, dw, dwb, out, c_out, B, hw, C, 0, of,
                                                         s);
   }
   if (dw_mode == DW_NONE)

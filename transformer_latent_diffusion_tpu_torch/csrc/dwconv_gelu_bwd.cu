@@ -12,7 +12,10 @@
 // `_bwd_kernel` :135-179, at hw = 32) and the "bf16res" backward of the
 // probe scripts/probe_train_bwd_stage.py (`pallas_bwd_variant`,
 // pallas_call at :259), which keeps c and h in bf16 (widened to float32
-// as they are read; the arithmetic is the same).
+// as they are read; the arithmetic is the same). With float32 taps (the
+// training layer's float32 compute dtype: the TPU kernel's `dw` and `mxu`
+// float32) it reads float32 taps and writes dhid in float32, unrounded; the
+// sums and their order are the same.
 //
 // What it computes: dc with the exact GELU' (Phi(c) + c phi(c), `erff`
 // and `expf`); dhid in the TPU kernel's order (row taps per column shift,
@@ -202,12 +205,13 @@ __device__ __forceinline__ void sum_chunk(const float* ws, float* sums, float4* 
 // 255) computes dc of unit k + 1 in place while the walk group (256 ..
 // 511) walks unit k. A thread owns the channels c0 + TV (t % TG) .. + TV -
 // 1 of a pixel (dc group) or of runs of TSEG pixels of a row (walk group).
-template <typename IT>
+// IT: the type of c and h; WT: the taps' and dhid's (bf16, or float32)
+template <typename IT, typename WT>
 __global__ void __launch_bounds__(THREADS, 1)
 dwconv_gelu_bwd_kernel(const __grid_constant__ CUtensorMap map_da,
                        const __grid_constant__ CUtensorMap map_c,
-                       const __grid_constant__ CUtensorMap map_h, const bf16* __restrict__ dw,
-                       bf16* __restrict__ dhid, float* __restrict__ ws, float* __restrict__ sums,
+                       const __grid_constant__ CUtensorMap map_h, const WT* __restrict__ dw,
+                       WT* __restrict__ dhid, float* __restrict__ ws, float* __restrict__ sums,
                        int* __restrict__ counters, int B, int hw, int C, int band) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
@@ -306,7 +310,7 @@ dwconv_gelu_bwd_kernel(const __grid_constant__ CUtensorMap map_da,
     float w[9][TV];  // flipped: w[t] is tap 8 - t
 #pragma unroll
     for (int t = 0; t < 9; ++t)
-      to_float(Lanes<bf16, TV>{*reinterpret_cast<const uint2*>(dw + (8 - t) * C + c)}, w[t]);
+      to_float(*reinterpret_cast<const Lanes<WT, TV>*>(dw + (8 - t) * C + c), w[t]);
     const int s = k % STAGES;
     const Lanes<float, TV>* dcs =
         reinterpret_cast<const Lanes<float, TV>*>(base + s * stage_stride);
@@ -367,8 +371,11 @@ dwconv_gelu_bwd_kernel(const __grid_constant__ CUtensorMap map_da,
             acc[10][e] += g[e];
           }
           const size_t at = (img + static_cast<size_t>(r0 + i) * hw + col - 2) * C + c;
-          *reinterpret_cast<uint2*>(dhid + at) =
-              make_uint2(pack_bf16x2(g[0], g[1]), pack_bf16x2(g[2], g[3]));
+          if constexpr (sizeof(WT) == 2)
+            *reinterpret_cast<uint2*>(dhid + at) =
+                make_uint2(pack_bf16x2(g[0], g[1]), pack_bf16x2(g[2], g[3]));
+          else
+            *reinterpret_cast<float4*>(dhid + at) = make_float4(g[0], g[1], g[2], g[3]);
         }
 #pragma unroll
         for (int e = 0; e < TV; ++e) {
@@ -453,7 +460,7 @@ int encode(CUtensorMap* map, const void* ptr, int item, int B, int hw, int C, in
                     4, ptr, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
-template <typename IT>
+template <typename IT, typename WT = bf16>
 int launch(const float* da, const void* c, const void* h, const void* dw, void* dhid, float* ws,
            float* sums, int* counters, int B, int hw, int C, int band, cudaStream_t s) {
   const int smem = smem_bytes(band, hw, sizeof(IT));
@@ -464,13 +471,13 @@ int launch(const float* da, const void* c, const void* h, const void* dw, void* 
   if (!err) err = encode(&map_c, c, sizeof(IT), B, hw, C, band);
   if (!err) err = encode(&map_h, h, sizeof(IT), B, hw, C, band);
   if (err) return err;
-  auto kernel = dwconv_gelu_bwd_kernel<IT>;
+  auto kernel = dwconv_gelu_bwd_kernel<IT, WT>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int units = B * ((hw + band - 1) / band) * (C / CHUNK);
   const int grid = units < sm_count() ? units : sm_count();
-  kernel<<<grid, THREADS, smem, s>>>(map_da, map_c, map_h, static_cast<const bf16*>(dw),
-                                     static_cast<bf16*>(dhid), ws, sums, counters, B, hw, C,
+  kernel<<<grid, THREADS, smem, s>>>(map_da, map_c, map_h, static_cast<const WT*>(dw),
+                                     static_cast<WT*>(dhid), ws, sums, counters, B, hw, C,
                                      band);
   return static_cast<int>(cudaGetLastError());
 }
@@ -480,8 +487,9 @@ int launch(const float* da, const void* c, const void* h, const void* dw, void* 
 // da: (B*hw*hw, C) float32 token rows of a row-major hw x hw grid (the
 // upstream gradient of the GELU output); c, h: the same rows of the
 // pre-GELU values and the convolution's input, float32, or bf16 when
-// in_bf16 is non-zero. dw: (9, C) bf16 taps, tap di*3+dj. dhid: (B*hw*hw,
-// C) bf16. band: grid rows per unit (hw: the whole grid). ws: (B *
+// in_bf16 is non-zero. dw: (9, C) bf16 taps, tap di*3+dj, or float32 when
+// dw_f32 is non-zero (with float32 c and h). dhid: (B*hw*hw, C) in dw's
+// type. band: grid rows per unit (hw: the whole grid). ws: (B *
 // ceil(hw / band), 11, C) float32 workspace; sums: (11, C) float32 out,
 // the 9 tap gradients, ddwb and db1; counters: C / 32 int32, zero, and
 // left zero.
@@ -489,10 +497,12 @@ int launch(const float* da, const void* c, const void* h, const void* dw, void* 
 // within a block's shared memory (ops/fused_layer_vjp.py::dwconv_gelu_bwd_body).
 LTD_API int ltd_dwconv_gelu_bwd(const float* da, const void* c, const void* h, const void* dw,
                                 void* dhid, float* ws, float* sums, int* counters, int B, int hw,
-                                int C, int band, int in_bf16, void* stream) {
-  if (C % CHUNK || B < 1 || hw < 1 || band < 1 || band > hw)
+                                int C, int band, int in_bf16, int dw_f32, void* stream) {
+  if (C % CHUNK || B < 1 || hw < 1 || band < 1 || band > hw || (dw_f32 && in_bf16))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dw_f32)
+    return launch<float, float>(da, c, h, dw, dhid, ws, sums, counters, B, hw, C, band, s);
   return in_bf16 ? launch<bf16>(da, c, h, dw, dhid, ws, sums, counters, B, hw, C, band, s)
                  : launch<float>(da, c, h, dw, dhid, ws, sums, counters, B, hw, C, band, s);
 }

@@ -113,11 +113,12 @@ constexpr int LN_VEC = 8;  // float4s a lane holds of a LayerNorm row: K <= 1024
 enum Out { OUT_BF16 = 0, OUT_F32 = 1, OUT_RESIDUAL = 2 };
 
 // Every block of the grid waits here until all have arrived (the grid is
-// resident at once: one block an SM, at most one per SM). sync[0] counts
-// the arrivals, sync[1] the departures; the last to leave sets both back
-// to zero, so the next launch on the stream finds them so. The writes
-// before it (generic stores) are visible after it to every block, TMA
-// loads (the async proxy) included.
+// resident at once: one block an SM, at most one per SM, launched
+// cooperatively, so a grid that could not be resident is refused).
+// sync[0] counts the arrivals, sync[1] the departures; the last to leave
+// sets both back to zero, so the next launch on the stream finds them so.
+// The writes before it (generic stores) are visible after it to every
+// block, TMA loads (the async proxy) included.
 __device__ __forceinline__ void grid_sync(unsigned* sync) {
   fence_proxy_async_global();
   __syncthreads();
@@ -473,7 +474,10 @@ int launch(const void* a, const float* rs, const void* w, const float* cs, const
   int8_t* rows = ln ? static_cast<int8_t*>(const_cast<void*>(a)) : nullptr;
   void* args[] = {&map_a, &map_w, &map_o, &rs, &cs, &bias, &resid, &a32, &ln_s, &ln_b,
                   &rows, &rs_out, &sync, &M, &N, &K};
-  e = cudaLaunchKernel(kernel, dim3(grid), dim3(THREADS), args, SMEM, stream);
+  // the LayerNorm mode's grid_sync needs every block resident at once: a
+  // cooperative launch refuses a grid that cannot be (an error, not a hang)
+  e = ln ? cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(THREADS), args, SMEM, stream)
+         : cudaLaunchKernel(kernel, dim3(grid), dim3(THREADS), args, SMEM, stream);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 

@@ -49,6 +49,20 @@
 //   first), which is then added into the tile's float32 sum with ordinary
 //   rounding (64 FADD a thread): the error stays at float32's (~3e-7;
 //   tests/test_torch_port_tf32_split.py emulates both).
+// - The training layer's float32 forms (TPU kernel K2,
+//   transformer_latent_diffusion_tpu/ops/fused_layer_vjp.py::_bwd_kernel
+//   with float32 weights) add two modes. `xn` (LayerNorm mode): the
+//   consumers of a row block's first column tile also store the float32
+//   normalised values they split, the rows the backward's dW products
+//   read. W transposed (the input-gradient products dX = dY W, W stored
+//   (out, in) = (K, N) of this product): the 32-bit `wgmma` forms take
+//   K-major operands only, so W's 32 x 128 tile lands by TMA as stored
+//   (one unswizzled box, N-major) in a raw slot of its stage, and the
+//   splitters transpose it as they split it, each 16-byte chunk of 4 K
+//   values gathered from 4 rows of the raw tile (consecutive threads on
+//   consecutive columns: no bank conflict) into the swizzled K-major hi and
+//   lo parts the consumers read as in the other modes. The raw slot costs
+//   16 KB a stage, so this mode's ring has 3 stages of 64 KB.
 // - A persistent grid (one block per SM) walks the work: whole output tiles
 //   with the column tile fastest, so the SMs that run at once share each A
 //   row block in L2 and all of W (at most 9.4 MB) stays there.
@@ -70,7 +84,7 @@
 //   its products are summed in one fixed order, so two launches give
 //   bit-equal results.
 
-#include "hopper.cuh"
+#include "f32_tile.cuh"
 
 namespace {
 
@@ -82,6 +96,12 @@ constexpr int A_BYTES = 2 * BOX_BYTES;  // A's 128 x 32 of a stage
 constexpr int W_BYTES = 2 * BOX_BYTES;  // W's 128 x 32: its hi part after the split
 constexpr int STAGE_BYTES = A_BYTES + 2 * W_BYTES;  // + W's lo part
 constexpr int STAGES = 4;
+// W transposed: W's raw tile beside its parts, in a ring of 3 stages
+constexpr int T_STAGE_BYTES = STAGE_BYTES + W_BYTES;
+constexpr int T_STAGES = 3;
+static_assert(T_STAGES * T_STAGE_BYTES <= STAGES * STAGE_BYTES, "the rings share one budget");
+static_assert(f32tile::TILE_BYTES == W_BYTES && f32tile::ROWS == BN && f32tile::DEPTH == BK,
+              "W's transposed tile is f32_tile.cuh's");
 constexpr int OUT_BYTES = 2 * BOX_BYTES;  // a warpgroup's output staging: 64 rows x 64 columns
 constexpr int OUT_COLS = 64;
 constexpr int CONSUMERS = 2;
@@ -150,14 +170,19 @@ struct Walk {
   __device__ int t1(int u) const { return min(t0(u) + per, n_tiles); }
 };
 
-template <bool LN>
+// LN: the LayerNorm prologue; XN: also store its float32 rows into xn; WT:
+// W stored transposed, (K, N)
+template <bool LN, bool XN, bool WT>
 __global__ void __launch_bounds__(THREADS, 1)
 ln_gemm_f32_kernel(const __grid_constant__ CUtensorMap map_a,
                    const __grid_constant__ CUtensorMap map_w,
                    const __grid_constant__ CUtensorMap map_o, const float* __restrict__ a,
                    const float* __restrict__ ln_s, const float* __restrict__ ln_b,
-                   const float* __restrict__ bias, int M, int N, int K, int resid, int splits,
-                   int per) {
+                   const float* __restrict__ bias, float* __restrict__ xn, int M, int N, int K,
+                   int resid, int splits, int per) {
+  constexpr int NSTAGES = WT ? T_STAGES : STAGES;
+  constexpr int SBYTES = WT ? T_STAGE_BYTES : STAGE_BYTES;
+  constexpr int RAW = WT ? W_BYTES : 0;  // W's raw tile after A, before its parts
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   unsigned char* ring = smem;
@@ -167,7 +192,7 @@ ln_gemm_f32_kernel(const __grid_constant__ CUtensorMap map_a,
   uint64_t* empty = split + STAGES;
   const int tid = threadIdx.x;
   if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < NSTAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&split[s], SPLITTERS);
       mbar_init(&empty[s], CONSUMERS);
@@ -193,12 +218,16 @@ ln_gemm_f32_kernel(const __grid_constant__ CUtensorMap map_a,
             const int k0 = kc * BK;
             mbar_wait(&empty[stage], phase ^ 1);
             mbar_arrive_expect_tx(&full[stage], A_BYTES + W_BYTES);
-            unsigned char* st = ring + stage * STAGE_BYTES;
+            unsigned char* st = ring + stage * SBYTES;
             tma_load_2d(st, &map_a, &full[stage], k0, m0);
             tma_load_2d(st + BOX_BYTES, &map_a, &full[stage], k0, m0 + 64);
-            tma_load_2d(st + A_BYTES, &map_w, &full[stage], k0, n0);
-            tma_load_2d(st + A_BYTES + BOX_BYTES, &map_w, &full[stage], k0, n0 + 64);
-            if (++stage == STAGES) {
+            if (WT) {  // one 128 x 32 box of W (K, N) as stored, into the raw slot
+              tma_load_2d(st + A_BYTES, &map_w, &full[stage], n0, k0);
+            } else {
+              tma_load_2d(st + A_BYTES, &map_w, &full[stage], k0, n0);
+              tma_load_2d(st + A_BYTES + BOX_BYTES, &map_w, &full[stage], k0, n0 + 64);
+            }
+            if (++stage == NSTAGES) {
               stage = 0;
               phase ^= 1;
             }
@@ -212,8 +241,14 @@ ln_gemm_f32_kernel(const __grid_constant__ CUtensorMap map_a,
       for (int u = blockIdx.x; u < walk.units; u += gridDim.x) steps += (walk.t1(u) - walk.t0(u)) * nk;
       for (int it = 0; it < steps; ++it) {
         mbar_wait(&full[stage], phase);
-        float4* w = reinterpret_cast<float4*>(ring + stage * STAGE_BYTES + A_BYTES);
+        float4* w = reinterpret_cast<float4*>(ring + stage * SBYTES + A_BYTES + RAW);
         float4* lo = w + W_BYTES / 16;
+        if (WT) {
+          f32tile::split_transposed(
+              reinterpret_cast<const float*>(ring + stage * SBYTES + A_BYTES),
+                           reinterpret_cast<unsigned char*>(w),
+                           reinterpret_cast<unsigned char*>(lo), sid);
+        } else {
         for (int i = sid; i < W_BYTES / 16; i += SPLITTERS) {
           const float4 v = w[i];
           uint32_t h[4], l[4];
@@ -226,9 +261,10 @@ ln_gemm_f32_kernel(const __grid_constant__ CUtensorMap map_a,
           lo[i] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]),
                               __uint_as_float(l[3]));
         }
+        }
         fence_proxy_async();  // the parts become visible to the wgmma reads
         mbar_arrive(&split[stage]);
-        if (++stage == STAGES) {
+        if (++stage == NSTAGES) {
           stage = 0;
           phase ^= 1;
         }
@@ -258,10 +294,10 @@ ln_gemm_f32_kernel(const __grid_constant__ CUtensorMap map_a,
         for (int kc = 0; kc < nk; ++kc) {
           mbar_wait(&full[stage], phase);   // A has landed
           mbar_wait(&split[stage], phase);  // W's parts are written
-          const unsigned char* st = ring + stage * STAGE_BYTES;
+          const unsigned char* st = ring + stage * SBYTES;
           // row r of this warpgroup's 64 x 32 box of A (16-byte chunk c at c ^ g)
           const unsigned char* as = st + wg * BOX_BYTES + r * 128 + t4 * 4;
-          const unsigned char* wh = st + A_BYTES;
+          const unsigned char* wh = st + A_BYTES + RAW;
           const unsigned char* wl = wh + W_BYTES;
           const int k0 = kc * BK;
           float part[BN / 2];  // the first product of the stage overwrites it
@@ -288,6 +324,17 @@ ln_gemm_f32_kernel(const __grid_constant__ CUtensorMap map_a,
               } else {
                 x[0] = x[1] = x[2] = x[3] = 0.f;
               }
+              if (XN && t == 0 && k < K) {  // the row block's first tile stores its rows
+                const int row = m0 + wg * 64 + r;
+                if (row < M) {
+                  xn[static_cast<size_t>(row) * K + k] = x[0];
+                  xn[static_cast<size_t>(row) * K + k + 4] = x[2];
+                }
+                if (row + 8 < M) {
+                  xn[static_cast<size_t>(row + 8) * K + k] = x[1];
+                  xn[static_cast<size_t>(row + 8) * K + k + 4] = x[3];
+                }
+              }
             }
             tf32_frag(x, fh[b], fl[b]);
             wgmma_fence();
@@ -313,7 +360,7 @@ ln_gemm_f32_kernel(const __grid_constant__ CUtensorMap map_a,
           if (wt == 0) mbar_arrive(&empty[stage]);
 #pragma unroll
           for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
-          if (++stage == STAGES) {
+          if (++stage == NSTAGES) {
             stage = 0;
             phase ^= 1;
           }
@@ -405,27 +452,34 @@ int encode_f32(CUtensorMap* map, const void* ptr, int cols, int rows) {
 }  // namespace
 
 // a: (M, K) float32 (the residual when ln_s/ln_b are given: LayerNorm
-// prologue). w: (N, K) float32. bias: (N,) float32 or null. out: (M, N)
+// prologue). w: (N, K) float32, or (K, N) when w_transposed is non-zero
+// (then out = a @ w; no LayerNorm). bias: (N,) float32 or null. out: (M, N)
 // float32; with resid != 0 it is the float32 residual, updated in place
-// (out += acc + bias). Requires N % 4 == 0, K % 8 == 0, any M >= 1, every
-// pointer 16-byte aligned (TMA).
+// (out += acc + bias). xn: null, or (M, K) float32 for the LayerNorm's
+// rows (LayerNorm mode only). Requires N % 4 == 0, K % 8 == 0, any M >= 1,
+// every pointer 16-byte aligned (TMA).
 LTD_API int ltd_ln_gemm_f32(const float* a, const float* ln_s, const float* ln_b, const float* w,
-                            const float* bias, float* out, int resid, int M, int N, int K,
-                            void* stream) {
-  if (M < 1 || N < 4 || N % 4 || K < 8 || K % 8 || out == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
+                            const float* bias, float* out, float* xn, int resid, int M, int N,
+                            int K, int w_transposed, void* stream) {
   const bool ln = ln_s != nullptr;
+  if (M < 1 || N < 4 || N % 4 || K < 8 || K % 8 || out == nullptr || (xn != nullptr && !ln) ||
+      (w_transposed && ln))
+    return static_cast<int>(cudaErrorInvalidValue);
   int splits, per, grid;
   plan(ln, M, N, &splits, &per, &grid);
   CUtensorMap map_a, map_w, map_o;
   int err = encode_f32(&map_a, a, K, M);
-  if (!err) err = encode_f32(&map_w, w, K, N);
+  if (!err) err = w_transposed ? f32tile::encode_rows(&map_w, w, N, K) : encode_f32(&map_w, w, K, N);
   if (!err) err = encode_f32(&map_o, out, N, M);
   if (err) return err;
-  const void* kernel = ln ? (const void*)ln_gemm_f32_kernel<true> : (const void*)ln_gemm_f32_kernel<false>;
+  const void* kernel =
+      ln ? (xn != nullptr ? (const void*)ln_gemm_f32_kernel<true, true, false>
+                          : (const void*)ln_gemm_f32_kernel<true, false, false>)
+         : (w_transposed ? (const void*)ln_gemm_f32_kernel<false, false, true>
+                         : (const void*)ln_gemm_f32_kernel<false, false, false>);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  void* args[] = {&map_a, &map_w, &map_o, &a, &ln_s, &ln_b, &bias,
+  void* args[] = {&map_a, &map_w, &map_o, &a, &ln_s, &ln_b, &bias, &xn,
                   &M,     &N,     &K,     &resid, &splits, &per};
   e = cudaLaunchKernel(kernel, dim3(grid), dim3(THREADS), args, SMEM,
                        static_cast<cudaStream_t>(stream));

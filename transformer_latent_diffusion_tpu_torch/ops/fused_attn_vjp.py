@@ -55,6 +55,10 @@ recompute about 0.56 TFLOP. The kernels are K1's and K2's (their notes in
 `csrc/`); the float32 residuals and gradients between them cross device
 memory, traffic the TPU kernel keeps in VMEM.
 
+With float32 weights (float32 training) every stage is the float32 body
+of its kernel (`ops/fused_stack_f32.py`, `ops/fused_layer_vjp_f32.py`)
+and nothing is rounded; the launches count under those bodies' names.
+
 `fused_attention_pair_fwd_plain` / `fused_attention_pair_bwd_plain` write
 the TPU kernels out in one piece; `fused_attention_pair_vjp` (an autograd
 function, `FusedAttnPairFunction`) runs the kernels for CUDA tensors, or

@@ -31,7 +31,11 @@ order, so here:
 Each kernel has a plain PyTorch version here (`*_plain`), and a wrapper
 that runs the plain version for CPU tensors and otherwise checks its
 inputs, launches the kernel, raises if the launch failed and counts it in
-`LAUNCHES`. `fused_layer_fwd_plain` / `fused_layer_bwd_plain` write the
+`LAUNCHES`. With float32 weights (`TrainConfig(compute_dtype="float32")`:
+the TPU kernel's `mxu` is the weights' dtype, so nothing is rounded) the
+same composition runs the float32 bodies: K1's of `ops/fused_stack_f32.py`
+for the recompute and the dX products, and `ops/fused_layer_vjp_f32.py`'s
+for the rest, to which the wrappers below send float32 operands. `fused_layer_fwd_plain` / `fused_layer_bwd_plain` write the
 whole layer's math out in one piece (the TPU kernel's `_fwd_kernel` and
 `_bwd_kernel`); `FusedLayerFunction` is the autograd function over the
 kernel path.
@@ -442,6 +446,14 @@ def _count(name: str) -> None:
     LAUNCHES[name] += 1
 
 
+def _f32():
+    """The float32 bodies of the backward and their launch counts
+    (`ops/fused_layer_vjp_f32.py`, which imports this module)."""
+    from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp_f32
+
+    return fused_layer_vjp_f32
+
+
 def colsum_slice_rows(r: int, c: int) -> int:
     """The rows of an (r, c) x that one `colsum` block sums: about
     COLSUM_BLOCKS blocks in all, slices of at least 64 rows, a multiple of
@@ -489,9 +501,12 @@ def colsum(x):
     return out
 
 
-# weight_grad's output tile (rows n, columns k) and the rows of M per stage
+# weight_grad's output tile (rows n, columns k) and the rows of M per stage;
+# the float32 body's (csrc/gemm_bwd_f32.cu)
 WG_TILE = (128, 256)
 WG_STAGE_ROWS = 64
+WG_TILE_F32 = (128, 128)
+WG_STAGE_ROWS_F32 = 32
 # ints per record of a plan's table (csrc/gemm_bwd.cu)
 WG_RECORD = 8
 # below this many stages per SM, weight_grad runs whole tiles
@@ -533,9 +548,12 @@ class WeightGradPlan:
 
 
 @functools.lru_cache(maxsize=64)
-def weight_grad_plan(m: int, n: int, k: int, sms: int) -> WeightGradPlan:
+def weight_grad_plan(m: int, n: int, k: int, sms: int, tile: Tuple[int, int] = WG_TILE,
+                     stage_rows: int = WG_STAGE_ROWS) -> WeightGradPlan:
     """The work plan of `weight_grad` for dY (m, n) and X (m, k) on `sms`
-    SMs (pure: no device is touched).
+    SMs (pure: no device is touched), in output tiles of `tile` and stages
+    of `stage_rows` rows of M (the float32 body's: WG_TILE_F32,
+    WG_STAGE_ROWS_F32).
 
     With fewer than WG_MIN_STAGES stages per SM (the cond rows' M = 16 or
     256) a split tile's float32 partials would cost more than they save:
@@ -550,9 +568,9 @@ def weight_grad_plan(m: int, n: int, k: int, sms: int) -> WeightGradPlan:
     if m < 1 or n < 8 or k < 8 or n % 8 or k % 8 or sms < 1:
         raise ValueError(f"weight_grad_plan: needs M >= 1, N % 8 == 0 and K % 8 "
                          f"== 0, got {m}, {n}, {k} on {sms} SMs")
-    tile_cols = -(-k // WG_TILE[1])
-    tiles = -(-n // WG_TILE[0]) * tile_cols
-    depth = -(-m // WG_STAGE_ROWS)
+    tile_cols = -(-k // tile[1])
+    tiles = -(-n // tile[0]) * tile_cols
+    depth = -(-m // stage_rows)
     total = tiles * depth
     # (tile, first stage, stages, offset in its split) per block
     if total < WG_MIN_STAGES * sms:
@@ -593,10 +611,12 @@ def weight_grad_plan(m: int, n: int, k: int, sms: int) -> WeightGradPlan:
 
 
 @functools.lru_cache(maxsize=64)
-def _plan_on(m: int, n: int, k: int, dev: torch.device):
+def _plan_on(m: int, n: int, k: int, dev: torch.device, tile: Tuple[int, int] = WG_TILE,
+             stage_rows: int = WG_STAGE_ROWS):
     """`weight_grad_plan` for `dev`'s SMs, and its int32 table on `dev`
     (copied there once per shape)."""
-    plan = weight_grad_plan(m, n, k, torch.cuda.get_device_properties(dev).multi_processor_count)
+    plan = weight_grad_plan(m, n, k, torch.cuda.get_device_properties(dev).multi_processor_count,
+                            tile, stage_rows)
     return plan, torch.tensor(plan.table(), dtype=torch.int32, device=dev)
 
 
@@ -605,9 +625,12 @@ def weight_grad(dy, x):
     contiguous bf16 with N % 8 == 0 and K % 8 == 0 (ragged last tiles are
     masked), any M. One launch:
     the partial sums of a tile cut over several SMs are combined by the
-    kernel itself, in a fixed order (`weight_grad_plan`)."""
+    kernel itself, in a fixed order (`weight_grad_plan`). Float32 dy
+    takes the float32 body (`fused_layer_vjp_f32.weight_grad_f32`)."""
     if dy.device.type == "cpu":
         return weight_grad_plain(dy, x)
+    if dy.dtype == torch.float32:
+        return _f32().weight_grad_f32(dy, x)
     dev = _on_cuda("weight_grad", dy, x)
     m, n = dy.shape
     k = x.shape[1]
@@ -763,32 +786,38 @@ def dwconv_gelu_bwd_plan(images: int, hw: int, channels: int,
 
 def dwconv_gelu_bwd(da, c, h, dw, hw: int):
     """Kernel wrapper of `dwconv_gelu_bwd_plain`; on CUDA da float32, c and
-    h both float32 or both bf16 (the "bf16res" residuals), dw bf16 (9, C),
+    h both float32 or both bf16 (the "bf16res" residuals), dw (9, C),
     C % 32 == 0 and a grid that `dwconv_gelu_bwd_body` cuts. One launch:
-    the kernel sums its units' partials itself."""
+    the kernel sums its units' partials itself. bf16 taps give a bf16
+    dhid; float32 taps (float32 c and h) the float32 mode, a float32 dhid,
+    counted as "dwconv_gelu_bwd_f32" in `fused_layer_vjp_f32.LAUNCHES`."""
     if da.device.type == "cpu":
         return dwconv_gelu_bwd_plain(da, c, h, dw, hw)
     dev = _on_cuda("dwconv_gelu_bwd", da, c, h, dw)
     m, ch = da.shape
+    f32 = dw.dtype == torch.float32
     _require(da.dtype == torch.float32 and c.dtype == h.dtype
-             and c.dtype in (torch.float32, torch.bfloat16)
-             and dw.dtype == torch.bfloat16 and c.shape == (m, ch)
+             and c.dtype in ((torch.float32,) if f32 else (torch.float32, torch.bfloat16))
+             and dw.dtype in (torch.float32, torch.bfloat16) and c.shape == (m, ch)
              and h.shape == (m, ch) and dw.shape == (9, ch),
              "dwconv_gelu_bwd: float32 da, c and h (M, C) both float32 or "
-             "both bf16, and bf16 dw (9, C)")
+             "both bf16, and dw (9, C) bf16, or float32 with float32 c and h")
     _require(ch % DWB_CHUNK == 0 and m % (hw * hw) == 0 and m > 0,
              f"dwconv_gelu_bwd: needs C % {DWB_CHUNK} == 0 and (B*hw*hw, C) rows")
     plan = dwconv_gelu_bwd_plan(m // (hw * hw), hw, ch, c.dtype)
-    dhid = torch.empty((m, ch), dtype=torch.bfloat16, device=dev)
+    dhid = torch.empty((m, ch), dtype=dw.dtype, device=dev)
     sums = torch.empty((11, ch), dtype=torch.float32, device=dev)
     ws = torch.empty((plan.rows * 11, ch), dtype=torch.float32, device=dev)
     counters = _zeroed_counters(dev, plan.chunks)
     lib = load_library()
-    _count("dwconv_gelu_bwd")
+    if f32:
+        _f32().LAUNCHES["dwconv_gelu_bwd_f32"] += 1
+    else:
+        _count("dwconv_gelu_bwd")
     _check_launch(lib.ltd_dwconv_gelu_bwd(_ptr(da), _ptr(c), _ptr(h), _ptr(dw),
                                           _ptr(dhid), _ptr(ws), _ptr(sums), _ptr(counters),
                                           plan.images, hw, ch, plan.band,
-                                          int(c.dtype == torch.bfloat16), _stream(dev)),
+                                          int(c.dtype == torch.bfloat16), int(f32), _stream(dev)),
                   "dwconv_gelu_bwd")
     return dhid, sums[:9], sums[9], sums[10]
 
@@ -796,9 +825,12 @@ def dwconv_gelu_bwd(da, c, h, dw, hw: int):
 def self_attention_bwd(qkv, dout, n_heads: int, n_tokens: int):
     """Kernel wrapper of `self_attention_bwd_plain`: one kernel, one launch
     counted. On CUDA: qkv bf16, dout float32, head dim 64 and N <= 256 (a
-    ragged last 64-token tile is masked in the kernel)."""
+    ragged last 64-token tile is masked in the kernel); float32 qkv takes
+    the float32 body (`fused_layer_vjp_f32.self_attention_bwd_f32`)."""
     if qkv.device.type == "cpu":
         return self_attention_bwd_plain(qkv, dout, n_heads, n_tokens)
+    if qkv.dtype == torch.float32:
+        return _f32().self_attention_bwd_f32(qkv, dout, n_heads, n_tokens)
     dev = _on_cuda("self_attention_bwd", qkv, dout)
     m, three_d = qkv.shape
     d = three_d // 3
@@ -821,26 +853,32 @@ def self_attention_bwd(qkv, dout, n_heads: int, n_tokens: int):
 
 def cross_attention_bwd(qc, kv, dout, n_heads: int, n_tokens: int):
     """Kernel wrapper of `cross_attention_bwd_plain`. On CUDA: qc and kv
-    bf16, dout float32, head dim 64 (any number of heads)."""
+    both bf16 or both float32, dout float32, head dim 64 (any number of
+    heads). Float32 qc and kv take the body's float32 instance (float32
+    dqc and dkv), counted as "cross_attention_bwd_f32" in
+    `fused_layer_vjp_f32.LAUNCHES`."""
     if qc.device.type == "cpu":
         return cross_attention_bwd_plain(qc, kv, dout, n_heads, n_tokens)
     dev = _on_cuda("cross_attention_bwd", qc, kv, dout)
     m, d = qc.shape
     b = m // n_tokens
-    _require(qc.dtype == kv.dtype == torch.bfloat16
+    _require(qc.dtype == kv.dtype and qc.dtype in (torch.bfloat16, torch.float32)
              and dout.dtype == torch.float32 and dout.shape == (m, d)
              and kv.shape == (2 * b, 2 * d) and d == 64 * n_heads
              and m == b * n_tokens,
-             "cross_attention_bwd: qc bf16 (B*N, D), kv bf16 (2B, 2D), dout "
-             "float32 (B*N, D), head dim 64")
+             "cross_attention_bwd: qc (B*N, D) and kv (2B, 2D) both bf16 or both "
+             "float32, dout float32 (B*N, D), head dim 64")
     dqc = torch.empty_like(qc)
     dkv = torch.empty_like(kv)
     lib = load_library()
-    _count("cross_attention_bwd")
-    _check_launch(lib.ltd_cross_attention_bwd(_ptr(qc), _ptr(kv), _ptr(dout),
-                                              _ptr(dqc), _ptr(dkv), b, n_tokens,
-                                              d, n_heads, _stream(dev)),
-                  "cross_attention_bwd")
+    if qc.dtype == torch.float32:
+        _f32().LAUNCHES["cross_attention_bwd_f32"] += 1
+        entry, name = lib.ltd_cross_attention_bwd_f32, "cross_attention_bwd_f32"
+    else:
+        _count("cross_attention_bwd")
+        entry, name = lib.ltd_cross_attention_bwd, "cross_attention_bwd"
+    _check_launch(entry(_ptr(qc), _ptr(kv), _ptr(dout), _ptr(dqc), _ptr(dkv), b, n_tokens,
+                        d, n_heads, _stream(dev)), name)
     return dqc, dkv
 
 

@@ -34,9 +34,11 @@ probabilities are rounded to that dtype before they weigh V.
 
 With float32 weights (the JAX package's default configuration) every one
 of those is float32 and nothing is rounded: each wrapper sends such a
-call to its float32 body (`ops/fused_stack_f32.py`: SIMT FFMA kernels on
-the CUDA cores, since the tensor cores take float32 only as TF32), whose
-launches count in that module's `LAUNCHES`.
+call to its float32 body (`ops/fused_stack_f32.py`: 3xTF32 tensor-core
+products for ln_gemm and self_attention, FFMA on the CUDA cores for the
+other two), whose launches count in that module's `LAUNCHES`; the
+training layer's modes below take float32 there too (TrainConfig(
+compute_dtype="float32")).
 
 The training layer (`ops/fused_layer_vjp.py`, TPU kernel K2) runs the same
 kernels in three more modes: `ln_gemm(out_dtype=torch.float32)` (the
@@ -250,18 +252,17 @@ def ln_gemm(a, w, bias=None, ln=None, residual=None, out_dtype=None,
     On CUDA: w bf16 (N, K), or (K, N) with w_transposed (read as stored,
     no copy), N % 8 == 0 (a ragged last column tile is masked) and
     K % 32 == 0; a float32 with `ln`, else bf16; bias, ln and residual
-    float32; out_dtype bf16 or float32. Or w float32 (N, K) with a float32
-    a, float32 out and N % 4 == 0, K % 8 == 0: the float32 body
-    (`fused_stack_f32.ln_gemm_f32`)."""
+    float32; out_dtype bf16 or float32. Or w float32 (N, K), or (K, N)
+    with w_transposed, with a float32 a, float32 out (and xn) and
+    N % 4 == 0, K % 8 == 0: the float32 body (`fused_stack_f32.ln_gemm_f32`)."""
     if a.device.type == "cpu":
         return ln_gemm_plain(a, w, bias, ln, residual, out_dtype, return_xn,
                              w_transposed)
     if w.dtype == torch.float32:
-        _require(not (w_transposed or return_xn)
-                 and out_dtype in (None, torch.float32),
-                 "ln_gemm: float32 weights take (N, K) w and give float32 "
-                 "out, no return_xn")
-        return _f32().ln_gemm_f32(a, w, bias, ln, residual)
+        _require(out_dtype in (None, torch.float32),
+                 "ln_gemm: float32 weights give float32 out")
+        return _f32().ln_gemm_f32(a, w, bias, ln, residual, return_xn,
+                                  w_transposed)
     scale, shift = ln if ln is not None else (None, None)
     extra = [t for t in (bias, scale, shift, residual) if t is not None]
     dev = _on_cuda("ln_gemm", a, w, *extra)
@@ -427,18 +428,18 @@ def dwconv_gelu(h, dw, dwb, hw: int, return_c=False, out_dtype=None,
     """Kernel wrapper of `dwconv_gelu_plain`. Needs C % 64 == 0 on CUDA;
     h bf16 or float32, dw bf16, dwb float32, out_dtype bf16 (the default)
     or float32, and the modes and grids that `dwconv_gelu_route` takes. Or
-    dw float32 with a float32 h (base mode, no c, float32 out): the float32
+    dw float32 with a float32 h (base mode, float32 out and c): the float32
     body (`fused_stack_f32.dwconv_gelu_f32`)."""
     _require(dw_mode in DW_MODES, f"dwconv_gelu: dw_mode is one of {DW_MODES}")
     if h.device.type == "cpu":
         return dwconv_gelu_plain(h, dw, dwb, hw, return_c, out_dtype, dw_mode,
                                  c_dtype)
     if dw.dtype == torch.float32:
-        _require(dw_mode == "base" and not return_c and c_dtype is None
+        _require(dw_mode == "base" and c_dtype in (None, torch.float32)
                  and out_dtype in (None, torch.float32),
-                 "dwconv_gelu: float32 taps take the base mode, without c, "
-                 "float32 out")
-        return _f32().dwconv_gelu_f32(h, dw, dwb, hw)
+                 "dwconv_gelu: float32 taps take the base mode, float32 out "
+                 "and c")
+        return _f32().dwconv_gelu_f32(h, dw, dwb, hw, return_c)
     dev = _on_cuda("dwconv_gelu", h, dw, dwb)
     m, c = h.shape
     _require(h.dtype in (torch.bfloat16, torch.float32)

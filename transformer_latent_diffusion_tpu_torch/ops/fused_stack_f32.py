@@ -17,7 +17,9 @@ float32 accuracy; the other two run on the CUDA cores:
   ln_gemm_f32          csrc/ln_gemm_f32.cu: TMA + 3xTF32 `wgmma` GEMM
                        (A split in registers, W split in shared memory
                        as it lands) with the LayerNorm prologue and the
-                       bias / residual epilogue (the layer's five products)
+                       bias / residual epilogue (the layer's five products;
+                       for the training layer also the float32 LayerNorm
+                       rows, and W read transposed for dX = dY W)
   self_attention_f32   csrc/self_attention_f32.cu: TMA + 3xTF32 `wgmma`
                        per (batch, head, 64-query tile), K and V split by
                        the producer warps, the exact float32 softmax in
@@ -25,6 +27,7 @@ float32 accuracy; the other two run on the CUDA cores:
   cross_attention_f32  csrc/cross_attention.cu's body on float32 qc, kv
                        and LN3 rows
   dwconv_gelu_f32      csrc/dwconv_gelu.cu's TMA body with float32 taps
+                       (and, for the training layer, the float32 c)
 
 The wrappers of `ops/fused_stack.py` (`ln_gemm`, `self_attention`,
 `cross_attention`, `dwconv_gelu`) send a call whose weights or operands
@@ -58,12 +61,18 @@ LAUNCHES_PER_LAYER = {"ln_gemm_f32": 5, "self_attention_f32": 1,
 LAUNCHES_PER_LAYER_INT8 = {"ln_gemm_i8": 3, "gemm_i8": 1, "dwconv_gelu_q8": 1,
                            "ln_gemm_f32": 1, "self_attention_f32": 1,
                            "cross_attention_f32": 1}
+# launches of the training layer's modes (ops/fused_layer_vjp.py), each
+# one also counted in LAUNCHES under its kernel
+MODES = ("ln_gemm_f32 return_xn", "ln_gemm_f32 w_transposed", "dwconv_gelu_f32 return_c")
+MODE_LAUNCHES: Dict[str, int] = {name: 0 for name in MODES}
 F32 = torch.float32
 
 
 def reset_launch_counts() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
+    for name in MODES:
+        MODE_LAUNCHES[name] = 0
 
 
 def launches_per_layer(dtype, quantize=None) -> Dict[str, int]:
@@ -77,17 +86,21 @@ def launches_per_layer(dtype, quantize=None) -> Dict[str, int]:
     return dict(q8.LAUNCHES_PER_LAYER if quantize else fs.LAUNCHES_PER_LAYER)
 
 
-def ln_gemm_f32(a, w, bias=None, ln=None, residual=None):
+def ln_gemm_f32(a, w, bias=None, ln=None, residual=None, return_xn=False,
+                w_transposed=False):
     """`fs.ln_gemm_plain` for float32 a and w (N, K) on CUDA: float32 out,
-    or the residual updated in place. Needs N % 4 == 0, K % 8 == 0,
-    contiguous 16-byte aligned operands."""
+    or the residual updated in place; with return_xn (and ln) also the
+    float32 normalised rows; with w_transposed w is (K, N), read as stored
+    (the training layer's dX = dY W; no LayerNorm). Needs N % 4 == 0,
+    K % 8 == 0, contiguous 16-byte aligned operands."""
     scale, shift = ln if ln is not None else (None, None)
     extra = [t for t in (bias, scale, shift, residual) if t is not None]
     dev = fs._on_cuda("ln_gemm", a, w, *extra)
     m, k = a.shape
-    n = w.shape[0]
-    fs._require(a.dtype == F32 and w.dtype == F32 and w.shape == (n, k),
-                f"ln_gemm: float32 w must be (N, {k}) with a float32 a")
+    n = w.shape[1] if w_transposed else w.shape[0]
+    want = (k, n) if w_transposed else (n, k)
+    fs._require(a.dtype == F32 and w.dtype == F32 and w.shape == want,
+                f"ln_gemm: float32 w must be {want} with a float32 a")
     fs._require(n % 4 == 0 and k % 8 == 0,
                 f"ln_gemm: float32 weights need N % 4 == 0 and K % 8 == 0, got N={n} K={k}")
     fs._require(all(t.dtype == F32 for t in extra),
@@ -95,18 +108,24 @@ def ln_gemm_f32(a, w, bias=None, ln=None, residual=None):
     fs._require(bias is None or bias.numel() == n, "ln_gemm: bias must have N elements")
     fs._require(ln is None or (scale.numel() == k and shift.numel() == k),
                 "ln_gemm: LayerNorm scale/shift must have K elements")
+    fs._require(ln is not None or not return_xn, "ln_gemm: return_xn needs the LayerNorm prologue")
+    fs._require(ln is None or not w_transposed,
+                "ln_gemm: float32 w_transposed takes no LayerNorm prologue")
     if residual is not None:
         fs._require(residual.shape == (m, n), "ln_gemm: residual must be (M, N)")
         out = residual
     else:
         out = torch.empty((m, n), dtype=F32, device=dev)
+    xn = torch.empty((m, k), dtype=F32, device=dev) if return_xn else None
     lib = load_library()
     LAUNCHES["ln_gemm_f32"] += 1
+    MODE_LAUNCHES["ln_gemm_f32 return_xn"] += int(return_xn)
+    MODE_LAUNCHES["ln_gemm_f32 w_transposed"] += int(w_transposed)
     err = lib.ltd_ln_gemm_f32(fs._ptr(a), fs._ptr(scale), fs._ptr(shift), fs._ptr(w),
-                              fs._ptr(bias), fs._ptr(out), int(residual is not None), m, n, k,
-                              fs._stream(dev))
+                              fs._ptr(bias), fs._ptr(out), fs._ptr(xn), int(residual is not None),
+                              m, n, k, int(w_transposed), fs._stream(dev))
     fs._check_launch(err, "ln_gemm_f32")
-    return out
+    return (out, xn) if return_xn else out
 
 
 def self_attention_f32(qkv, residual, n_heads: int, n_tokens: int):
@@ -154,9 +173,10 @@ def cross_attention_f32(qc, kv, residual, ln, n_heads: int, n_tokens: int):
     return residual, xn
 
 
-def dwconv_gelu_f32(h, dw, dwb, hw: int):
-    """`fs.dwconv_gelu_plain` for float32 h and taps on CUDA (base mode, no
-    c), float32 out. Needs C % 64 == 0 and a grid that
+def dwconv_gelu_f32(h, dw, dwb, hw: int, return_c=False):
+    """`fs.dwconv_gelu_plain` for float32 h and taps on CUDA (base mode),
+    float32 out, and with return_c the float32 pre-GELU values too (the
+    training layer's recompute). Needs C % 64 == 0 and a grid that
     `fs.dwconv_gelu_body` holds in float32."""
     dev = fs._on_cuda("dwconv_gelu", h, dw, dwb)
     m, c = h.shape
@@ -167,10 +187,12 @@ def dwconv_gelu_f32(h, dw, dwb, hw: int):
                 "dwconv_gelu: needs C % 64 == 0, (B*hw*hw, C) rows, dw (9, C), dwb (C,)")
     band = fs.dwconv_gelu_body(hw, F32)
     out = torch.empty((m, c), dtype=F32, device=dev)
+    c_out = torch.empty((m, c), dtype=F32, device=dev) if return_c else None
     lib = load_library()
     LAUNCHES["dwconv_gelu_f32"] += 1
-    err = lib.ltd_dwconv_gelu(fs._ptr(h), fs._ptr(dw), fs._ptr(dwb), fs._ptr(out), None,
+    MODE_LAUNCHES["dwconv_gelu_f32 return_c"] += int(return_c)
+    err = lib.ltd_dwconv_gelu(fs._ptr(h), fs._ptr(dw), fs._ptr(dwb), fs._ptr(out), fs._ptr(c_out),
                               m // (hw * hw), hw, c, 1, 1, band, 0,
                               fs.DW_MODES.index("base"), 1, fs._stream(dev))
     fs._check_launch(err, "dwconv_gelu_f32")
-    return out
+    return (out, c_out) if return_c else out

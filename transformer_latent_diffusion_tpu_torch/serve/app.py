@@ -14,9 +14,9 @@ Text-to-image with the JAX service's solver fields: sampler ("ddim",
 "dpm", "heun"), schedule, eta, cfg_rescale and cache_interval (block
 caching), under its checks (eta and cfg_rescale in [0, 1], eta only with
 sampler="ddim", heun without block caching), each a 422 that names the
-field. Unlike the JAX service, eta and cfg_rescale are not snapped to
-quarters: the sampler's captured graph holds only their branch, so any
-value runs without a new capture. Editing with the JAX service's fields:
+field. As the JAX service, eta and cfg_rescale are then snapped to
+quarters (round(v * 4) / 4), before the micro-batcher's grouping key or
+the sampler sees them. Editing with the JAX service's fields:
 init_image (base64 PNG or JPEG: img2img, strength 0.5 by default), with
 mask (inpainting, strength 1.0 by default), and interpolate_to and/or
 seed_b (an interpolation strip of max(num_imgs, 2) frames); the solver
@@ -238,6 +238,10 @@ class GenerationService:
                        eta: float = 0.0) -> bytes:
         import io
 
+        # the JAX service's quarters (its serve/app.py:272-276), before the
+        # micro-batcher groups by them and before the sampler runs them
+        cfg_rescale = round(cfg_rescale * 4) / 4.0
+        eta = round(eta * 4) / 4.0
         if self.n_iter_buckets:
             n_iter = self._snap_up(n_iter, self.n_iter_buckets)
         pad_to = None

@@ -10,7 +10,9 @@ checkpoints, held-out validation loss, resume and graceful preemption.
 
 PyTorch runs eagerly, so the JAX package's one jitted step becomes a
 Python step over an `nn.Module` with float32 master weights computing in
-`compute_dtype`, bf16 on CUDA (float32 there is ROADMAP item 7). On CUDA
+`compute_dtype`: bf16, or on CUDA float32 where every trained grid is of
+at most 256 tokens (K2 and K6 have float32 backward bodies; K4's and
+K5's, past 256 tokens, are ROADMAP item 7). On CUDA
 its decoder blocks take the hand-written kernels by the JAX package's
 gates: K2 (`ops/fused_layer_vjp.py`) on square grids of at most 256
 tokens with the sep-conv FFN; the attention pair K6
@@ -25,8 +27,8 @@ bilinear resize inside the loss. `TrainConfig.outpaint` fine-tunes a
 widened-input model (`expand_input_channels`): each example's input is
 its noisy latent, then a random edge strip of its clean latent as
 context. The eval grid samples the
-EMA weights through the K1 engine on a sep-conv model's native grid of at
-most 256 tokens, else through a Denoiser with flash attention only (the
+EMA weights through the K1 engine of the compute dtype on a sep-conv
+model's native grid of at most 256 tokens, else through a Denoiser with flash attention only (the
 JAX package's `eval_model`). The random draws come from a
 `torch.Generator` on the device, reseeded per step from (seed, step);
 they do not reproduce the JAX package's threefry draws, so the loss is
@@ -50,6 +52,7 @@ from transformer_latent_diffusion_tpu_torch.configs import (
     resolve_dtype,
 )
 from transformer_latent_diffusion_tpu_torch.data.loader import LatentBatcher
+from transformer_latent_diffusion_tpu_torch.models.blocks import FUSED_LAYER_MAX_TOKENS
 from transformer_latent_diffusion_tpu_torch.models.denoiser import (
     Denoiser,
     resize_pos_embed,
@@ -448,6 +451,39 @@ def _state_dict(state) -> Dict[str, Any]:
             "step": state["step"]}
 
 
+def trained_tokens(config: ModelConfig) -> int:
+    """The most tokens of a grid that `main` trains: the model's native
+    grid and every multires bucket's, whose sizes come from the .npy
+    headers of `DataConfig.extra_latent_paths` (no data is read)."""
+    den = config.denoiser_config
+    sizes = [den.image_size] + [
+        int(np.load(path, mmap_mode="r").shape[-1])
+        for path in config.data_config.extra_latent_paths or ()]
+    return max((size // den.patch_size) ** 2 for size in sizes)
+
+
+def check_cuda_compute_dtype(config: ModelConfig) -> None:
+    """Raise NotImplementedError, naming its ROADMAP item, for a compute
+    dtype that the training kernels do not take on CUDA: float16 (item 4),
+    and float32 past FUSED_LAYER_MAX_TOKENS tokens, where the hi-res
+    backward kernels (K4, K5) have no float32 body yet (item 7)."""
+    name = config.train_config.compute_dtype
+    dtype = resolve_dtype(name)
+    if dtype == torch.bfloat16:
+        return
+    if dtype != torch.float32:
+        raise NotImplementedError(
+            f"TrainConfig.compute_dtype={name!r} on CUDA: the training kernels take bf16 "
+            f"or float32 (ROADMAP item 4 (other compute dtypes))")
+    tokens = trained_tokens(config)
+    if tokens > FUSED_LAYER_MAX_TOKENS:
+        raise NotImplementedError(
+            f"TrainConfig.compute_dtype={name!r} on CUDA trains grids of at most "
+            f"{FUSED_LAYER_MAX_TOKENS} tokens (K2 and K6 have float32 backward bodies); "
+            f"this run trains {tokens}, whose hi-res backward kernels (K4, K5) take "
+            f"bf16: set compute_dtype='bfloat16' (ROADMAP item 7 (float32 training))")
+
+
 def main(config: ModelConfig, device,
          init_state_dict: Optional[Dict[str, torch.Tensor]] = None
          ) -> Dict[str, Any]:
@@ -462,15 +498,8 @@ def main(config: ModelConfig, device,
     device = torch.device(device)
     on_cuda = device.type == "cuda"
     compute_dtype = resolve_dtype(train_config.compute_dtype)
-    if on_cuda and compute_dtype != torch.bfloat16:
-        # the training kernels' backward bodies take bf16 (their float32
-        # forms are float32 training); refused before any data is read
-        item = ("item 7 (float32 training)" if compute_dtype == torch.float32
-                else "item 4 (other compute dtypes)")
-        raise NotImplementedError(
-            f"TrainConfig.compute_dtype={train_config.compute_dtype!r} on CUDA: "
-            f"the training kernels take bf16, so set compute_dtype='bfloat16' "
-            f"(ROADMAP {item})")
+    if on_cuda:  # refused before any data is read
+        check_cuda_compute_dtype(config)
 
     def log(*a):
         print(*a, flush=True)
@@ -576,9 +605,9 @@ def main(config: ModelConfig, device,
             else:
                 init_random_weights_(dec, train_config.seed + 1)
             vae.append(dec.to(device, resolve_dtype(config.vae_cfg.vae_dtype)).eval())
-        # the K1 engine packs the sep-conv layer; the other FFNs sample
-        # through the linen path (flash attention on CUDA)
-        engine = (make_fused_apply(denoiser_config, torch.bfloat16)
+        # the K1 engine of the compute dtype packs the sep-conv layer; the
+        # other FFNs sample through the linen path (flash attention on CUDA)
+        engine = (make_fused_apply(denoiser_config, compute_dtype)
                   if on_cuda and denoiser_config.mlp_class == "sep_conv"
                   else None)
         return DiffusionGenerator(ema_model, vae=vae[0], fast_apply=engine,
