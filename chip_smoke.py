@@ -96,7 +96,19 @@ paths, each checked against plain PyTorch versions on the same inputs:
   (batch 64) and 1024 px (batch 16, remat), remat's gradients against
   no remat, `finetune_highres` from the 256 px flagship's seeded weights to
   512 px (16 steps, an eval, checkpoints), and `train.main` on a 512 px
-  model with a 256 px bucket (multires).
+  model with a 256 px bucket (multires);
+- float32 training past 256 tokens (K4a/K4b's float32 body,
+  flash_attention_bwd_f32, after K3's float32 forward with its row
+  log-sum-exp, and K5's float32 backward route): `[float32-hires-train-
+  kernels]` each at the 512 px and 1024 px shapes (and a ragged 576
+  tokens) against its plain float32 version (TF32 off, rel-L2 within
+  1e-5, two launches bit-equal, ptxas) beside autograd through SDPA and
+  K5's equal work; `[float32-hires-train-step]` one 512 px step's
+  gradients against the plain float32 step, ms per step and peak memory
+  at 512 px (batch 64) and 1024 px (batch 16, remat; its gradients
+  against no remat); `[float32-hires-finetune]` `finetune_highres` to 512
+  px in float32 (4 steps, an eval, checkpoints); `[float32-multires]`
+  the multires run in float32 (K2's float32 bodies on the 256 px bucket).
 
 It checks that each path's run launched its kernels the expected number
 of times, and no other kernel of the port. Any failure raises: there is
@@ -216,8 +228,12 @@ INT8_ENGINE_REL_L2 = 0.04
 INT8_COSINE = 0.995
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the run's log, after the seconds since the script began."""
+    print(f"{time.perf_counter() - T_START:7.1f}s {msg}", flush=True)
 
 
 def rel_l2(a, b) -> float:
@@ -3396,15 +3412,15 @@ def _hires_sd(image_size):
     return upsample_denoiser_params(sd, den.image_size, image_size, den.patch_size)
 
 
-def _hires_model(image_size, sd, **flags):
-    """The flagship Denoiser at `image_size` on `sd`, bf16 compute, on the
-    card, in train mode."""
+def _hires_model(image_size, sd, dtype=torch.bfloat16, **flags):
+    """The flagship Denoiser at `image_size` on `sd`, computing in `dtype`
+    (bf16 or float32), on the card, in train mode."""
     import dataclasses
 
     from transformer_latent_diffusion_tpu_torch.models.denoiser import Denoiser
 
     den = dataclasses.replace(flagship_configs().denoiser_cfg, image_size=image_size)
-    mdl = Denoiser.from_config(den, dtype=torch.bfloat16, **flags)
+    mdl = Denoiser.from_config(den, dtype=dtype, **flags)
     mdl.load_state_dict(sd)
     return mdl.to(DEVICE).train()
 
@@ -3620,9 +3636,9 @@ def _grad_check(models, x, y, train_cfg=None):
     return (num / den2) ** 0.5, leaf, leaf_name
 
 
-def _time_steps(mdl, batch, size, dtype=torch.bfloat16, den=None):
-    """ms per step (host clock around 5 steps ending in a synchronise,
-    after 2 warm-up steps) and peak GiB of train_step (Adam, EMA) at
+def _time_steps(mdl, batch, size, dtype=torch.bfloat16, den=None, warmup=2, reps=5):
+    """ms per step (host clock around `reps` steps ending in a synchronise,
+    after `warmup` warm-up steps) and peak GiB of train_step (Adam, EMA) at
     `batch`; the launches of one step; a profile of one more step (device
     busy ms, host ms, the top kernels)."""
     import dataclasses
@@ -3643,17 +3659,17 @@ def _time_steps(mdl, batch, size, dtype=torch.bfloat16, den=None):
     state = {"model": mdl, "ema_model": ema, "optimizer": opt, "scheduler": sched, "step": 0}
     grads_of = tt.make_grads_of(tt.build_loss_fn(mdl, tc, 8.0))
     sgen = torch.Generator(device=DEVICE).manual_seed(6)
-    for _ in range(2):
+    for _ in range(warmup):
         tt.train_step(state, grads_of, tc, x, y, sgen)
     _reset_counts()
     tt.train_step(state, grads_of, tc, x, y, sgen)
     launches = {k: v for k, v in _counts().items() if v}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    for _ in range(5):
+    for _ in range(reps):
         tt.train_step(state, grads_of, tc, x, y, sgen)
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / 5 * 1e3
+    ms = (time.perf_counter() - t0) / reps * 1e3
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3665,18 +3681,17 @@ def _time_steps(mdl, batch, size, dtype=torch.bfloat16, den=None):
     return ms, peak, launches, (busy, wall, by_kernel)
 
 
-def _hires_layer_launches(size, batch):
+def _hires_layer_launches(size, batch, dtype=torch.bfloat16):
     """The kernel launches of one flagship decoder block's forward and
     backward on the hi-res component route (fused_layer_vjp and use_pallas
-    beyond K2's gate), at `size` and `batch`."""
+    beyond K2's gate), at `size` and `batch`, computing in `dtype`."""
     from transformer_latent_diffusion_tpu_torch.models.blocks import DecoderBlock
 
     n = (size // 2) ** 2
-    block = DecoderBlock(D, 4, dtype=torch.bfloat16, fused_layer_vjp=True,
-                         use_pallas=True).to(DEVICE)
+    block = DecoderBlock(D, 4, dtype=dtype, fused_layer_vjp=True, use_pallas=True).to(DEVICE)
     gen = torch.Generator(device="cpu").manual_seed(14)
-    x = torch.randn(batch, n, D, generator=gen).to(DEVICE, torch.bfloat16).requires_grad_(True)
-    cond = torch.randn(batch, 2, D, generator=gen).to(DEVICE, torch.bfloat16)
+    x = torch.randn(batch, n, D, generator=gen).to(DEVICE, dtype).requires_grad_(True)
+    cond = torch.randn(batch, 2, D, generator=gen).to(DEVICE, dtype)
     _reset_counts()
     block(x, cond).float().square().mean().backward()
     launches = {k: v for k, v in _counts().items() if v}
@@ -3833,26 +3848,32 @@ def phase_hires_finetune(per_layer, smi):
     return launches
 
 
-def phase_multires(per_layer, smi):
+def phase_multires(per_layer, smi, compute_dtype="bfloat16", steps=MR_STEPS, tag="multires"):
     """train.main on a 512 px model with a 256 px bucket (batch HT_B,
-    MR_STEPS batches each, interleaved; the 256 px batches add the
-    positional table resized onto their 16 x 16 grid): the 1024-token
-    batches launch K3, K4 and K5, the 256-token ones K2; exact counts."""
+    `steps` batches each, interleaved; the 256 px batches add the
+    positional table resized onto their 16 x 16 grid), computing in
+    `compute_dtype`: the 1024-token batches launch K3, K4 and K5, the
+    256-token ones K2 (in float32: their float32 bodies); exact counts."""
     from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
+    from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp_f32 as fb
     from transformer_latent_diffusion_tpu_torch.train import main as train_main
 
     n_layers = flagship_configs().denoiser_cfg.n_layers
-    gen = torch.Generator(device="cpu").manual_seed(17)
-    params = _layer_params(gen, torch.device(DEVICE))
-    x = torch.randn(HT_B, N, D, generator=gen).to(DEVICE, torch.bfloat16).requires_grad_(True)
-    cond = torch.randn(HT_B, 2, D, generator=gen).to(DEVICE, torch.bfloat16)
-    _reset_counts()
-    lv.fused_layer(x, cond, params, HEADS, HW).float().square().mean().backward()
-    k2_layer = {k: v for k, v in _counts().items() if v}
-    del params, x, cond
+    if compute_dtype == "float32":
+        k2_layer = dict(fb.K2_LAUNCHES_PER_LAYER)
+    else:
+        gen = torch.Generator(device="cpu").manual_seed(17)
+        params = _layer_params(gen, torch.device(DEVICE))
+        x = torch.randn(HT_B, N, D, generator=gen).to(DEVICE, torch.bfloat16).requires_grad_(True)
+        cond = torch.randn(HT_B, 2, D, generator=gen).to(DEVICE, torch.bfloat16)
+        _reset_counts()
+        lv.fused_layer(x, cond, params, HEADS, HW).float().square().mean().backward()
+        k2_layer = {k: v for k, v in _counts().items() if v}
+        del params, x, cond
     with tempfile.TemporaryDirectory() as tmp:
-        cfg = _hires_train_config(tmp, HT_SIZE, MR_STEPS * HT_B, save_model=False)
-        lat, emb = _write_latents(tmp, MR_STEPS * HT_B, HT_SIZE // 2, 32)
+        cfg = _hires_train_config(tmp, HT_SIZE, steps * HT_B, save_model=False,
+                                  compute_dtype=compute_dtype)
+        lat, emb = _write_latents(tmp, steps * HT_B, HT_SIZE // 2, 32)
         cfg.data_config.extra_latent_paths = (lat,)
         cfg.data_config.extra_text_emb_paths = (emb,)
         _reset_counts()
@@ -3864,18 +3885,342 @@ def phase_multires(per_layer, smi):
     expect = {}
     for counts in (per_layer, k2_layer):
         for k, v in counts.items():
-            expect[k] = expect.get(k, 0) + v * n_layers * MR_STEPS
-    expect["flash_attention"] = expect.get("flash_attention", 0) + n_layers * EVAL_CALLS
+            expect[k] = expect.get(k, 0) + v * n_layers * steps
+    flash = "flash_attention_f32" if compute_dtype == "float32" else "flash_attention"
+    expect[flash] = expect.get(flash, 0) + n_layers * EVAL_CALLS
     losses = r["losses"]
-    log(f"[multires] train.main, 512 px model + 256 px bucket, batch {HT_B}: "
-        f"{r['global_step']} steps in {wall:.1f} s (step-0 eval grid included); losses "
-        f"{' '.join(f'{v:.3f}' for v in losses)}; K2 per layer at batch {HT_B} {k2_layer}; "
-        f"launches {launches} (expected {expect}) | {smi}")
-    if r["global_step"] != 2 * MR_STEPS or not all(np.isfinite(losses)):
-        raise AssertionError(f"multires: {r['global_step']} steps, losses {losses}")
-    _require_launches(launches, expect, "multires")
+    log(f"[{tag}] train.main, 512 px model + 256 px bucket, batch {HT_B}, {compute_dtype} "
+        f"compute: {r['global_step']} steps in {wall:.1f} s (step-0 eval grid included); "
+        f"losses {' '.join(f'{v:.3f}' for v in losses)}; K2 per layer at batch {HT_B} "
+        f"{k2_layer}; launches {launches} (expected {expect}) | {smi}")
+    if r["global_step"] != 2 * steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: {r['global_step']} steps, losses {losses}")
+    _require_launches(launches, expect, tag)
     del r
     torch.cuda.empty_cache()
+
+
+# ------------------------------ float32 hi-res training (K4 and K5's backward in float32) ------------------------------
+
+# the float32 hi-res phases: K4's float32 body checked at a ragged N (a
+# last 128-row block of 64 rows) besides the path's 1024 and 4096 tokens;
+# K4b checked against its plain version at batch XT_GRAD_B and timed at the
+# 1024 px batch XT_B. The 512 px step's gradients against the plain
+# float32 step at batch HT_GRAD_B: measured (see PERF.md, PR 22) and
+# bounded at about 3x; the 1024 px step timed over F32_XT_REPS steps after
+# one warm-up step (cut from 5 after 2 for the script's time);
+# finetune_highres and the multires run in float32 at a few steps
+F32_K4_RAGGED_N, F32_K4_RAGGED_B = 576, 4
+F32_HT_GRAD_REL_L2 = 3e-6
+F32_HT_GRAD_LEAF_REL_L2 = 6e-6
+F32_XT_REPS = 2
+F32_FT_STEPS = 4
+F32_MR_STEPS = 1
+
+
+def _k5_bwd_f32_launches():
+    """K5's float32 backward route: one call's launches by kernel."""
+    from transformer_latent_diffusion_tpu_torch.ops import fused_mlp_vjp as fm
+
+    return {**fm.ROUTE_LAUNCHES["fused_mlp_sepconv_bwd_f32"], "fused_mlp_sepconv_bwd_f32": 1}
+
+
+def phase_float32_hires_train_kernels():
+    """[float32-hires-train-kernels]: K4's float32 body
+    (flash_attention_bwd_f32, after K3's float32 forward with its
+    log-sum-exp) at N = 1024 (B = 64, K4a), 4096 (B = XT_GRAD_B against
+    the plain version, timed at the 1024 px batch XT_B; K4b) and a ragged
+    576, and K5's float32 backward route at hw = 32 (B = 64) with its two
+    row-band kernels (dwconv_gelu_f32 with c, dwconv_gelu_bwd_f32), each
+    against its plain float32 version with TF32 off: rel-L2 within
+    F32_KERNEL_REL_L2, two launches bit-equal; the forward's lse against
+    torch.logsumexp and its o bit-equal to the call without lse; ptxas's
+    registers and spills (a spill fails); times against the 3xTF32 bounds,
+    autograd through SDPA in float32 (K4) and the equal-work autograd
+    (K5). Returns (worst max-abs, timing, library, bounds) keyed by
+    flash_attention_bwd_f32, k4b_f32 and fused_mlp_sepconv_bwd_f32."""
+    from transformer_latent_diffusion_tpu_torch.ops import attention as att
+    from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
+    from transformer_latent_diffusion_tpu_torch.ops import fused_mlp_vjp as fm
+    from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
+
+    tag = "float32-hires-train-kernels"
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device="cpu").manual_seed(22)
+    F = torch.nn.functional
+    split = TF32_TENSOR_FLOP_S / 3  # float32 work as three TF32 products
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g) * std).to(dev)
+
+    def check(label, got, want):
+        worst = 0.0
+        for u, w in zip(_tuple(got), _tuple(want)):
+            r, a, rel_a = _errors(u, w)
+            worst = max(worst, a)
+            log(f"[{tag}] {label}: rel-L2 {r:.3e} max-abs {a:.3e} ({rel_a:.2e} of max |ref|; "
+                f"bound rel-L2 {F32_KERNEL_REL_L2})")
+            if not (u.dtype == torch.float32 and r <= F32_KERNEL_REL_L2):
+                raise AssertionError(f"{label} disagrees with its plain version")
+        return worst
+
+    def k4_bound(b, n):
+        # q, k, v, o, g in, dq, dk, dv out, lse in; five products of 2 N^2 64
+        return bound(8 * b * n * D * 4 + b * HEADS * n * 4, 10 * b * HEADS * n * n * 64, split)
+
+    worst, timing, library, bounds = {}, {}, {}, {}
+    for b, n, key in ((HT_B, HR_N, "flash_attention_bwd_f32"), (XT_GRAD_B, XR_N, None),
+                      (F32_K4_RAGGED_B, F32_K4_RAGGED_N, None)):
+        q, k, v = randn(b, n, 3 * D).chunk(3, dim=-1)  # strided row views, as the model's
+        gr = randn(b, n, D, std=1e-2)
+        with torch.no_grad():
+            o, lse = att._flash_forward(q, k, v, HEADS, with_lse=True)
+            if not torch.equal(o, att._flash_forward(q, k, v, HEADS)[0]):
+                raise AssertionError(f"flash_attention_f32 N={n}: o with lse differs from o")
+            heads = [att._heads(t, HEADS) for t in (q, k, v, gr)]
+            s = heads[0] @ heads[1].transpose(-1, -2) * 0.125
+            r_lse = rel_l2(lse, torch.logsumexp(s, -1))
+            del s
+        log(f"[{tag}] flash_attention_f32 B={b} N={n} with lse: o bit-equal to the call "
+            f"without it; lse rel-L2 {r_lse:.3e} against torch.logsumexp")
+        if not r_lse <= F32_KERNEL_REL_L2:
+            raise AssertionError("flash_attention_f32's lse disagrees with torch.logsumexp")
+        kern = lambda: att.flash_attention_bwd(q, k, v, gr, HEADS, o=o, lse=lse)  # noqa: E731
+        plain = lambda: tuple(att._merge(t) for t in att.attention_bwd_plain(*heads))  # noqa: E731
+        name = f"flash_attention_bwd_f32 B={b} N={n} ({att.attention_bwd_route(n, n, 64)})"
+        att.reset_launch_counts()
+        err = check(name, kern(), plain())
+        _require_launches({k_: att.LAUNCHES[k_] for k_ in ("flash_attention_bwd",
+                                                          "flash_attention_bwd_f32")},
+                          {"flash_attention_bwd": 0, "flash_attention_bwd_f32": 2}, name)
+        worst["flash_attention_bwd_f32"] = max(worst.get("flash_attention_bwd_f32", 0.0), err)
+        _bit_equal_twice(name, kern, tag)
+        if key is not None:
+            t = time_against_plain({name: (kern, plain)}, tag)[name]
+            hs = [h_.contiguous().requires_grad_(True) for h_ in heads[:3]]
+            out = F.scaled_dot_product_attention(*hs)
+            sdpa = time_ms(lambda: torch.autograd.grad(out, hs, heads[3], retain_graph=True),
+                           5, 1)
+            bnd = k4_bound(b, n)
+            log(f"[{tag}] {name}: {t[0]:.4f} ms, {10 * b * HEADS * n * n * 64 / t[0] / 1e9:.1f} "
+                f"TFLOP/s of float32 work; autograd through SDPA float32 (TF32 off) {sdpa:.4f} "
+                f"ms; bound {bnd[0]:.4f} ms ({bnd[1]}, 3xTF32; {bnd[0] / t[0]:.1%} of it)")
+            timing[key], library[key], bounds[key] = t, sdpa, bnd
+            del hs, out
+        del q, k, v, gr, o, lse, heads
+    # K4b at the 1024 px batch: checked above at batch XT_GRAD_B; here
+    # timed, its plain version over the batch in slices of XT_GRAD_B images
+    # (whole, it would hold 16 x 12 x 4096^2 float32 scores several times)
+    q, k, v = randn(XT_B, XR_N, 3 * D).chunk(3, dim=-1)
+    gr = randn(XT_B, XR_N, D, std=1e-2)
+    with torch.no_grad():
+        o, lse = att._flash_forward(q, k, v, HEADS, with_lse=True)
+    heads = [att._heads(t_, HEADS) for t_ in (q, k, v, gr)]
+    kern = lambda: att.flash_attention_bwd(q, k, v, gr, HEADS, o=o, lse=lse)  # noqa: E731
+    plain = lambda: [att.attention_bwd_plain(*(h_[i:i + XT_GRAD_B] for h_ in heads))  # noqa: E731
+                     for i in range(0, XT_B, XT_GRAD_B)]
+    name = f"flash_attention_bwd_f32 B={XT_B} N={XR_N} (k4b, the 1024 px step's shape)"
+    _bit_equal_twice(name, kern, tag)
+    ms, plain_ms = time_against_plain({name: (kern, plain)}, tag)[name]
+    bnd = k4_bound(XT_B, XR_N)
+    hs = [h_.contiguous().requires_grad_(True) for h_ in heads[:3]]
+    out = F.scaled_dot_product_attention(*hs)
+    sdpa = time_ms(lambda: torch.autograd.grad(out, hs, heads[3], retain_graph=True), 5, 1)
+    timing["k4b_f32"], library["k4b_f32"], bounds["k4b_f32"] = (ms, plain_ms), sdpa, bnd
+    log(f"[{tag}] {name}: {ms:.4f} ms, {10 * XT_B * HEADS * XR_N ** 2 * 64 / ms / 1e9:.1f} "
+        f"TFLOP/s; plain in slices of {XT_GRAD_B} images {plain_ms:.4f} ms; autograd through "
+        f"SDPA float32 {sdpa:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}, 3xTF32; "
+        f"{bnd[0] / ms:.1%} of it)")
+    del q, k, v, gr, o, lse, heads, hs, out
+    torch.cuda.empty_cache()
+    _ptxas_report(tag, ("flash_bwd_f32_kernel", "flash_attention_f32_kernel"))
+
+    m = HT_B * HR_N
+    x = randn(HT_B, HR_N, D)
+    gr = randn(HT_B, HR_N, D, std=1e-2)
+    w1, b1 = randn(HIDDEN, D, std=D ** -0.5), randn(HIDDEN, std=0.1)
+    dw, dwb = randn(9, HIDDEN, std=1 / 3), randn(HIDDEN, std=0.1)
+    w2 = randn(D, HIDDEN, std=HIDDEN ** -0.5)
+    args = (x, gr, w1, b1, dw, dwb, w2, HR_HW)
+    kern = lambda: fm.fused_mlp_sepconv_bwd(*args)  # noqa: E731
+    plain = lambda: fm.fused_mlp_sepconv_bwd_plain(*args)  # noqa: E731
+    _reset_counts()
+    got = kern()
+    launches = {k_: v_ for k_, v_ in _counts().items() if v_}
+    _require_launches(launches, _k5_bwd_f32_launches(), f"[{tag}] fused_mlp_sepconv_bwd_f32")
+    key = "fused_mlp_sepconv_bwd_f32"
+    worst[key] = check(f"{key} hw=32 (7 outputs)", got, plain())
+    del got
+    log(f"[{tag}] {key}: one call's launches {launches} (exact)")
+    _bit_equal_twice(f"{key} hw=32", kern, tag)
+    timing.update(time_against_plain({key: (kern, plain)}, tag))
+    library[key] = None  # no one call takes these inputs
+    library[f"{key} (equal work)"] = time_ms(
+        sepconv_bwd_equal_work(x, gr, w1, b1, dw, dwb, w2, HR_HW), 5, 1)
+    # five products of 2 M 768 3072 (h recomputed, da, dx, dW1, dW2); x, g
+    # and the weights in, dx and the weight gradients out
+    bounds[key] = bound(3 * m * D * 4 + 2 * HIDDEN * D * 4 + 9 * HIDDEN * 4 + 2 * HIDDEN * 4
+                        + 2 * HIDDEN * D * 4 + (11 * HIDDEN + D) * 4,
+                        10 * m * D * HIDDEN, split)
+    ms = timing[key][0]
+    log(f"[{tag}] {key}: {ms:.4f} ms, bound {bounds[key][0]:.4f} ms ({bounds[key][1]}, "
+        f"3xTF32; {bounds[key][0] / ms:.1%} of it); equal-work yardstick (autograd's backward "
+        f"through F.linear, F.conv2d + F.gelu, F.linear, float32, TF32 off; 7 gradients) "
+        f"{library[f'{key} (equal work)']:.4f} ms")
+    # its two row-band kernels at hw = 32, each against its plain version
+    x2, g2 = x.reshape(m, D), gr.reshape(m, D)
+    h = fs.ln_gemm(x2, w1, bias=b1, out_dtype=torch.float32)
+    dwc = lambda: fs.dwconv_gelu(h, dw, dwb, HR_HW, return_c=True)  # noqa: E731
+    label = f"dwconv_gelu_f32 with c, row bands of {fs.dwconv_gelu_body(HR_HW, torch.float32)}"
+    check(label, dwc(), fs.dwconv_gelu_plain(h, dw, dwb, HR_HW, return_c=True))
+    _bit_equal_twice(label, dwc, tag)
+    a, c = dwc()
+    da = fs.ln_gemm(g2, w2, out_dtype=torch.float32, w_transposed=True)
+    dwbk = lambda: lv.dwconv_gelu_bwd(da, c, h, dw, HR_HW)  # noqa: E731
+    band = lv.dwconv_gelu_bwd_body(HR_HW, torch.float32)
+    label2 = f"dwconv_gelu_bwd_f32, row bands of {band}"
+    check(label2, dwbk(), lv.dwconv_gelu_bwd_plain(da, c, h, dw, HR_HW))
+    _bit_equal_twice(label2, dwbk, tag)
+    log(f"[{tag}] hw=32 B={HT_B}: {label} {time_ms(dwc, 5, 1):.4f} ms, {label2} "
+        f"{time_ms(dwbk, 5, 1):.4f} ms")
+    del args, x, gr, x2, g2, h, a, c, da
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[{tag}] phase seconds {time.perf_counter() - t0:.1f}")
+    return worst, timing, library, bounds
+
+
+def phase_float32_hires_train_step(smi):
+    """[float32-hires-train-step]: the flagship in float32 (compute and
+    master weights). 512 px: one step's gradients at batch HT_GRAD_B
+    through the kernels (K3, K4a, K5 in float32) against the plain float32
+    autograd Denoiser on the same weights and draws; one block's launches
+    (the float32 bodies only); ms per step and peak memory at batch HT_B,
+    a profile of one step (device busy, kernel time by name). 1024 px:
+    remat's gradients against no remat at batch XR_CHECK_B, then ms per
+    step (F32_XT_REPS steps), peak memory and launches at batch XT_B with
+    remat. Returns (one 512 px block's launches, one 1024 px step's)."""
+    from transformer_latent_diffusion_tpu_torch.configs import TrainConfig
+    from transformer_latent_diffusion_tpu_torch.ops import fused_mlp_vjp as fm
+
+    tag = "float32-hires-train-step"
+    t0 = time.perf_counter()
+    f32 = torch.float32
+    n_layers = flagship_configs().denoiser_cfg.n_layers
+    tc = TrainConfig(compute_dtype="float32")
+    sd512 = _hires_sd(HT_SIZE)
+    models = {True: _hires_model(HT_SIZE, sd512, f32, fused_layer_vjp=True, use_pallas=True),
+              False: _hires_model(HT_SIZE, sd512, f32)}
+    gen = torch.Generator(device="cpu").manual_seed(25)
+    x = torch.randn(HT_GRAD_B, 4, HT_SIZE, HT_SIZE, generator=gen).to(DEVICE)
+    y = torch.randn(HT_GRAD_B, 768, generator=gen).to(DEVICE)
+    glob, leaf, leaf_name = _grad_check(models, x, y, tc)
+    log(f"[{tag}] 512 px gradients at batch {HT_GRAD_B}, kernels (K3, K4a, K5 in float32) vs "
+        f"plain float32 autograd (TF32 off), same draws: global rel-L2 {glob:.3e} (bound "
+        f"{F32_HT_GRAD_REL_L2}), worst leaf {leaf:.3e} {leaf_name} (bound "
+        f"{F32_HT_GRAD_LEAF_REL_L2})")
+    if not (glob < F32_HT_GRAD_REL_L2 and leaf < F32_HT_GRAD_LEAF_REL_L2):
+        raise AssertionError("the float32 512 px step's gradients disagree with the plain "
+                             "float32 step")
+    del models[False]
+    torch.cuda.empty_cache()
+
+    per_layer = _hires_layer_launches(HT_SIZE, HT_B, f32)
+    # K3's and K4's float32 bodies, K5's float32 forward and backward routes
+    # and nothing of a bf16 body
+    calls = {"flash_attention_f32": 1, "flash_attention_bwd_f32": 2, "fused_mlp_sepconv_f32": 1}
+    expect_layer = dict(calls)
+    for k, v in [*_k5_bwd_f32_launches().items(),
+                 *fm.ROUTE_LAUNCHES["fused_mlp_sepconv_f32"].items()]:
+        expect_layer[k] = expect_layer.get(k, 0) + v
+    log(f"[{tag}] 512 px, one float32 block's forward + backward at batch {HT_B}: "
+        f"{per_layer} (expected {expect_layer})")
+    _require_launches(per_layer, expect_layer, f"[{tag}] 512 px float32 block")
+    ms512, peak512, launches, prof512 = _time_steps(models[True], HT_B, HT_SIZE, dtype=f32)
+    expect = {k: v * n_layers for k, v in per_layer.items()}
+    log(f"[{tag}] 512 px flagship, batch {HT_B}, float32 compute and master weights, Adam + "
+        f"EMA: {ms512:.2f} ms/step ({HT_B / ms512 * 1e3:.1f} samples/s) over 5 steps after 2 "
+        f"warm-up steps, peak memory {peak512:.2f} GiB; launches of one step {launches} "
+        f"(expected {expect}) | {smi}")
+    _require_launches(launches, expect, f"[{tag}] 512 px step")
+    log(f"[{tag}] 512 px profiled step: device busy {prof512[0]:.1f} ms of "
+        f"{prof512[1]:.1f} ms ({prof512[0] / prof512[1]:.1%}); by kernel, us: {prof512[2]}")
+    del models
+    torch.cuda.empty_cache()
+
+    sd1024 = _hires_sd(XT_SIZE)
+    gen = torch.Generator(device="cpu").manual_seed(26)
+    x = torch.randn(XR_CHECK_B, 4, XT_SIZE, XT_SIZE, generator=gen).to(DEVICE)
+    y = torch.randn(XR_CHECK_B, 768, generator=gen).to(DEVICE)
+    models = {remat: _hires_model(XT_SIZE, sd1024, f32, fused_layer_vjp=True, use_pallas=True,
+                                  remat=remat) for remat in (True, False)}
+    glob, leaf, leaf_name = _grad_check(models, x, y, tc)
+    log(f"[{tag}] 1024 px float32 gradients at batch {XR_CHECK_B}, remat vs no remat: global "
+        f"rel-L2 {glob:.2e}, worst leaf {leaf:.2e} {leaf_name} (bound {REMAT_REL_L2})")
+    if not leaf < REMAT_REL_L2:
+        raise AssertionError("float32 remat's gradients differ from no remat's")
+    del models[False]
+    torch.cuda.empty_cache()
+    ms1024, peak1024, launches1024, prof1024 = _time_steps(
+        models[True], XT_B, XT_SIZE, dtype=f32, warmup=1, reps=F32_XT_REPS)
+    expect = {"flash_attention_f32": 2 * n_layers, "flash_attention_bwd_f32": 2 * n_layers}
+    log(f"[{tag}] 1024 px flagship, batch {XT_B}, float32, remat: {ms1024:.2f} ms/step "
+        f"({XT_B / ms1024 * 1e3:.2f} samples/s) over {F32_XT_REPS} steps after 1 warm-up step, "
+        f"peak memory {peak1024:.2f} GiB; launches of one step {launches1024} (expected "
+        f"{expect}: the forward's flash attention again in the recompute, no K5 beyond 1024 "
+        f"tokens) | {smi}")
+    _require_launches(launches1024, expect, f"[{tag}] 1024 px step")
+    log(f"[{tag}] 1024 px profiled step: device busy {prof1024[0]:.1f} ms of "
+        f"{prof1024[1]:.1f} ms ({prof1024[0] / prof1024[1]:.1%}); by kernel, us: {prof1024[2]}")
+    del models
+    torch.cuda.empty_cache()
+    log(f"[{tag}] phase seconds {time.perf_counter() - t0:.1f}")
+    return per_layer, launches1024
+
+
+def phase_float32_hires_finetune(per_layer, smi):
+    """[float32-hires-finetune]: finetune_highres from the 256 px
+    flagship's seeded weights to a 512 px config at batch HT_B in float32
+    (compute_dtype="float32"): F32_FT_STEPS steps, the step-0 eval grid
+    (flash_attention_f32 only) and checkpoints; finite losses, the eval
+    PNG, exact launches (`per_layer`: one float32 block's)."""
+    from transformer_latent_diffusion_tpu_torch.models.denoiser import Denoiser
+    from transformer_latent_diffusion_tpu_torch.train.highres import finetune_highres
+    from transformer_latent_diffusion_tpu_torch.utils.common import init_random_weights_
+
+    tag = "float32-hires-finetune"
+    den = flagship_configs().denoiser_cfg
+    base = init_random_weights_(Denoiser.from_config(den), 0).state_dict()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = _hires_train_config(tmp, HT_SIZE, F32_FT_STEPS * HT_B, compute_dtype="float32")
+        _reset_counts()
+        t0 = time.perf_counter()
+        r = finetune_highres(cfg, base, den.image_size, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in _counts().items() if v}
+        losses, steps = r["losses"], r["global_step"]
+        expect = {k: v * den.n_layers * steps for k, v in per_layer.items()}
+        expect["flash_attention_f32"] = (expect.get("flash_attention_f32", 0)
+                                         + den.n_layers * EVAL_CALLS)
+        ckpt = sorted(os.listdir(os.path.join(tmp, "ckpts", "ft")))
+        eval_png = os.path.join(tmp, "ckpts", "ft", "eval", "emb_val_cfg:4.5_seed:10.png")
+        log(f"[{tag}] finetune_highres 256 -> 512 px in float32, batch {HT_B}, {steps} steps "
+            f"in {wall:.1f} s (eval grid and checkpoints included); losses "
+            f"{' '.join(f'{v:.4f}' for v in losses)}; model dtype {r['model'].dtype}; "
+            f"checkpoints {ckpt}; eval PNG {os.path.exists(eval_png)}; launches {launches} "
+            f"(expected {expect}) | {smi}")
+        if (steps != F32_FT_STEPS or not all(np.isfinite(losses))
+                or r["model"].dtype != torch.float32):
+            raise AssertionError(f"float32 finetune_highres: {steps} steps, losses {losses}")
+        _require_launches(launches, expect, f"[{tag}]")
+        if not os.path.exists(eval_png) or ckpt != ["0", str(steps), "eval"]:
+            raise AssertionError(f"eval grid or checkpoints missing: {ckpt}")
+        del r
+    torch.cuda.empty_cache()
+    log(f"[{tag}] phase seconds {wall:.1f}")
+    return launches
 
 
 # ------------------------------ K6, K8, K9 and the other FFNs ------------------------------
@@ -5401,6 +5746,13 @@ def main():
     phase_multires(hr_layer, smi)
     torch.cuda.empty_cache()
 
+    # float32 training past 256 tokens: K4's and K5's float32 backward bodies
+    fht_worst, fht_timing, fht_library, fht_bounds = phase_float32_hires_train_kernels()
+    fhr_layer, fxr_launches = phase_float32_hires_train_step(smi)
+    fft_launches = phase_float32_hires_finetune(fhr_layer, smi)
+    phase_multires(fhr_layer, smi, "float32", F32_MR_STEPS, "float32-multires")
+    torch.cuda.empty_cache()
+
     p_worst, p_timing, p_library, p_bounds, p_launches = phase_attn_pair_kernels()
     torch.cuda.empty_cache()
     ffn_launches = {}
@@ -5521,6 +5873,27 @@ def main():
             "plain_ms": f2_timing[row][1], "bound_ms": f2_bounds[row][0],
             "bound_by": f2_bounds[row][1], "library_ms": f2_library[row],
         })
+    # K4a/K4b's float32 body (one kernel: a row at 512 px, B = 64, launches
+    # of the float32 fine-tune; one at 4096 tokens, B = 16, launches of one
+    # float32 1024 px step) and K5's float32 backward route (launches of
+    # the float32 fine-tune)
+    for row, src, key, tpu, launched in (
+            ("flash_attention_bwd_f32", "csrc/flash_attention_bwd_f32.cu",
+             "flash_attention_bwd_f32", TPU_K4A, fft_launches["flash_attention_bwd_f32"]),
+            ("flash_attention_bwd_f32 (N = 4096)", "csrc/flash_attention_bwd_f32.cu", "k4b_f32",
+             TPU_K4B, fxr_launches["flash_attention_bwd_f32"]),
+            ("fused_mlp_sepconv_bwd_f32", "ops/fused_mlp_vjp.py", "fused_mlp_sepconv_bwd_f32",
+             TPU_K5_BWD, fft_launches["fused_mlp_sepconv_bwd_f32"])):
+        err = fht_worst["fused_mlp_sepconv_bwd_f32" if key.startswith("fused") else
+                        "flash_attention_bwd_f32"]
+        kernels.append({
+            "name": row, "route": "cuda", "source": f"{port}/{src}", "replaces": tpu,
+            "launches": launched, "max_abs_err": err, "ms": fht_timing[key][0],
+            "plain_ms": fht_timing[key][1], "bound_ms": fht_bounds[key][0],
+            "bound_by": fht_bounds[key][1], "library_ms": fht_library[key],
+        })
+        if f"{key} (equal work)" in fht_library:
+            kernels[-1]["equal_work_ms"] = fht_library[f"{key} (equal work)"]
     # K6's launches: the MoE model's train.main; K8's and K9's: their entry
     # points (no path of the system calls them, as in the JAX package)
     for name, tpu, src, counts in (

@@ -21,6 +21,7 @@ from transformer_latent_diffusion_tpu_torch.ops import attention as att
 from transformer_latent_diffusion_tpu_torch.ops import fused_attn_vjp as k6
 from transformer_latent_diffusion_tpu_torch.ops import fused_block as fb
 from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
+from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp_f32 as lv32
 from transformer_latent_diffusion_tpu_torch.ops import fused_mlp_vjp as fm
 from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
 from transformer_latent_diffusion_tpu_torch.ops import fused_stack_f32 as f32
@@ -1555,11 +1556,76 @@ def test_flash_attention_f32_matches_plain_on_card(b, n, heads):
 
 
 @pytest.mark.cuda
-def test_flash_attention_f32_refuses_a_gradient_on_card():
+@pytest.mark.parametrize("n", [512, 400])
+def test_flash_attention_f32_gradient_takes_its_float32_body_on_card(n):
+    """A float32 flash_attention that needs a gradient: K3's float32 body
+    with the log-sum-exp, then (512 tokens, route "k4a") the float32
+    backward body's two launches, or (400, "plain") autograd through the
+    plain math; the gradients of q, k, v against torch autograd through
+    `attention_plain` in float32 with TF32 off, within rel-L2 1e-5."""
     _need_card()
-    q, k, v = torch.randn(1, 64, 192, device="cuda", requires_grad=True).chunk(3, dim=-1)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        att.flash_attention(q, k, v, 1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(n)
+    qkv = torch.randn(2, n, 3 * 128, generator=g).cuda().requires_grad_(True)
+    gr = torch.randn(2, n, 128, generator=g).cuda()
+    att.reset_launch_counts()
+    got = torch.autograd.grad(att.flash_attention(*qkv.chunk(3, dim=-1), 2), qkv, gr)[0]
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in att.LAUNCHES.items() if v}
+    want = torch.autograd.grad(att._mha_plain(*qkv.chunk(3, dim=-1), 2), qkv, gr)[0]
+    bwd = {"flash_attention_bwd_f32": 2} if n == 512 else {}
+    assert launches == {"flash_attention_f32": 1, **bwd}
+    assert got.dtype == torch.float32 and _rel_l2(got, want) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,heads", [(2, 512, 2), (2, 1024, 1), (3, 576, 2), (1, 4096, 1),
+                                       (1, 1024, 12)])
+def test_flash_attention_bwd_f32_matches_plain_on_card(b, n, heads):
+    """K4's float32 body (`flash_attention_bwd_f32`, after K3's float32
+    forward with its log-sum-exp) on the strided q, k, v column views of a
+    fused float32 QKV against `attention_bwd_plain` in float32 with TF32
+    off: dq, dk, dv each within rel-L2 1e-5, exactly its two launches and
+    none of the bf16 body's, two launches bit-equal. K4a's 512 and 1024
+    tokens, K4b's 4096, 576 (a ragged last 128-row block), widths 64 to
+    768."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(n + heads)
+    q, k, v = torch.randn(b, n, 3 * 64 * heads, generator=g).cuda().chunk(3, dim=-1)
+    gr = (torch.randn(b, n, 64 * heads, generator=g) * 0.1).cuda()
+    o, lse = att._flash_forward(q, k, v, heads, with_lse=True)
+    att.reset_launch_counts()
+    got = att.flash_attention_bwd(q, k, v, gr, heads, o=o, lse=lse)
+    torch.cuda.synchronize()
+    assert {k_: v_ for k_, v_ in att.LAUNCHES.items() if v_} == {"flash_attention_bwd_f32": 2}
+    again = att.flash_attention_bwd(q, k, v, gr, heads, o=o, lse=lse)
+    want = att.flash_attention_bwd(*(t.cpu() for t in (q, k, v, gr)), heads)
+    for u, a, w in zip(got, again, want):
+        assert u.dtype == torch.float32 and _rel_l2(u, w) <= 1e-5
+        assert torch.equal(u, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nq,nk,heads", [(2, 1024, 1024, 2), (3, 400, 400, 1),
+                                           (2, 200, 521, 3)])
+def test_flash_attention_f32_lse_on_card(b, nq, nk, heads):
+    """K3's float32 body with the log-sum-exp: o bit-equal to the call
+    without it, and each query row's lse within rel-L2 1e-6 of
+    torch.logsumexp of the float64 scaled scores (self- and cross-shaped,
+    ragged tiles)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(nq + nk)
+    q = torch.randn(b, nq, 64 * heads, generator=g).cuda()
+    k, v = torch.randn(b, nk, 2 * 64 * heads, generator=g).cuda().chunk(2, dim=-1)
+    o, lse = att._flash_forward(q, k, v, heads, with_lse=True)
+    o0, none = att._flash_forward(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(o, o0)
+    s = att._heads(q, heads).double() @ att._heads(k, heads).double().transpose(-1, -2)
+    assert lse.shape == (b, heads, nq)
+    assert _rel_l2(lse, torch.logsumexp(s / 8, -1)) <= 1e-6
 
 
 @pytest.mark.cuda
@@ -1589,6 +1655,41 @@ def test_fused_mlp_float32_route_matches_plain_on_card(hw, d):
         "dwconv_gelu_f32": 1}
     assert dict(fs.LAUNCHES) == bf16_before
     assert got.dtype == torch.float32 and _rel_l2(got, want) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,d", [(20, 64), (20, 128), (32, 64), (32, 128)])
+def test_fused_mlp_float32_bwd_route_matches_plain_on_card(hw, d):
+    """K5's float32 backward route (ln_gemm_f32, dwconv_gelu_f32 with c,
+    ln_gemm_f32 with W2 as stored, dwconv_gelu_bwd_f32 in row bands at hw =
+    32 and on the whole grid at 20, weight_grad_f32 twice, colsum,
+    ln_gemm_f32) against `fused_mlp_sepconv_bwd_plain` in float32 with TF32
+    off: each of the 7 outputs within rel-L2 1e-5, exactly its launches
+    (`ROUTE_LAUNCHES`), two calls bit-equal."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(hw + d)
+    hidden = 4 * d
+
+    def r(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g) * std).cuda()
+
+    args = (r(2, hw * hw, d), r(2, hw * hw, d, std=0.1), r(hidden, d, std=d ** -0.5),
+            r(hidden, std=0.1), r(9, hidden, std=1 / 3), r(hidden, std=0.1),
+            r(d, hidden, std=hidden ** -0.5), hw)
+    counted = (fs, f32, lv, lv32, fm)
+    for mod in counted:
+        mod.reset_launch_counts()
+    got = fm.fused_mlp_sepconv_bwd(*args)
+    torch.cuda.synchronize()
+    launches = {k: v for mod in counted for k, v in mod.LAUNCHES.items() if v}
+    again = fm.fused_mlp_sepconv_bwd(*args)
+    want = fm.fused_mlp_sepconv_bwd_plain(*args)
+    assert launches == {**fm.ROUTE_LAUNCHES["fused_mlp_sepconv_bwd_f32"],
+                        "fused_mlp_sepconv_bwd_f32": 1}
+    for u, a, w in zip(got, again, want):
+        assert u.dtype == torch.float32 and _rel_l2(u, w) <= 1e-5
+        assert torch.equal(u, a)
 
 
 # ------------------------------ float32 training (K2, K6) ------------------------------

@@ -10,10 +10,10 @@ band, `ln_gemm_f32`).
   the device checks replaced by stand-ins, meta tensors for CUDA ones):
   float32 `flash_attention` calls the float32 entry point and counts it,
   bf16 the bf16 one; float32 `fused_mlp_sepconv` makes exactly its three
-  float32 launches; float32 with a gradient, and the float32 K5 backward,
-  raise naming ROADMAP item 7 (float32 training); float16 raises.
-- `train.main` with a float32 compute dtype raises on CUDA before it reads
-  any data, and trains on the CPU (the plain versions).
+  float32 launches; float16 raises. (The float32 gradients, K4's and K5's
+  float32 backward bodies, are tests/test_torch_port_float32_hires_train.py.)
+- `train.main` with float16 on CUDA raises before it reads any data, and
+  float32 trains on the CPU (the plain versions).
 - The slice against JAX on a 36 x 36-token grid (the 1024 px analogue: K5
   off past 1024 tokens, as in JAX): prompt -> CLIP -> 3-step DDIM with
   CFG 6 -> VAE -> uint8 on a tiny float32 model with the kernel flags the
@@ -55,9 +55,6 @@ from transformer_latent_diffusion_tpu_torch.sampling.pipeline import denoiser_ke
 from transformer_latent_diffusion_tpu_torch.train import train as ttrain
 
 torch.set_num_threads(2)
-
-ITEM_7 = "ROADMAP item 7"
-
 
 # ------------------------------ the wrappers' dispatch ------------------------------
 
@@ -123,9 +120,8 @@ def test_flash_attention_sends_float32_to_its_body(fake_card, dtype):
     assert fake_card.names() == [f"ltd_{name}"]
     assert att.LAUNCHES == {k_: int(k_ == name) for k_ in att.KERNELS}
     # B, Nq, Nk, heads and the three row strides (the fused projection's
-    # 3D), after q, k, v, out (and the bf16 body's lse)
-    first = 4 if dtype == "float32" else 5
-    assert fake_card.calls[0][1][first:first + 7] == (2, 400, 400, 2, 384, 384, 384)
+    # 3D), after q, k, v, out and lse (null: no gradient)
+    assert fake_card.calls[0][1][4:12] == (None, 2, 400, 400, 2, 384, 384, 384)
 
 
 def _mlp_args(dtype, hw=32, d=128, grad=False):
@@ -165,29 +161,6 @@ def test_fused_mlp_takes_its_float32_route(fake_card, dtype):
     assert fm.LAUNCHES == {k: int(k in route) for k in fm.KERNELS}
 
 
-def _mlp_bwd_call():
-    x, w1, b1, dw, dwb, w2, _ = _mlp_args(torch.float32)
-    return fm.fused_mlp_sepconv_bwd(x, _meta(*x.shape), w1, b1, dw, dwb, w2, 32)
-
-
-GRAD_CALLS = {
-    "flash_attention with a gradient": lambda: att.flash_attention(
-        *_qkv(torch.float32, grad=True), 2),
-    "flash_attention_bwd": lambda: att.flash_attention_bwd(
-        *_qkv(torch.float32), _meta(2, 400, 128), 2),
-    "fused_mlp_sepconv with a gradient": lambda: fm.fused_mlp_sepconv(
-        *_mlp_args(torch.float32, grad=True), 32),
-    "fused_mlp_sepconv_bwd": _mlp_bwd_call,
-}
-
-
-@pytest.mark.parametrize("case", sorted(GRAD_CALLS))
-def test_float32_gradients_raise_naming_item_7(fake_card, case):
-    with torch.enable_grad(), pytest.raises(NotImplementedError, match=ITEM_7):
-        GRAD_CALLS[case]()
-    assert fake_card.calls == []
-
-
 def test_float16_still_raises(fake_card):
     with torch.no_grad():
         with pytest.raises(ValueError, match="all bf16 or all float32"):
@@ -217,29 +190,13 @@ def _train_cfg(tmp_path, compute_dtype, data=None, image_size=8):
         vae_cfg=pc.VaeConfig(block_out_channels=(8, 16), layers_per_block=1))
 
 
-@pytest.mark.parametrize("dtype,item", [("float32", ITEM_7), ("float16", "ROADMAP item 4")])
+@pytest.mark.parametrize("dtype,item", [("float16", "ROADMAP item 4")])
 def test_train_main_refuses_other_compute_dtypes_on_cuda(tmp_path, dtype, item):
     """Before the first step, and before any data is read (the data files
-    do not exist): float16 at any size, float32 past 256 tokens (a 20 x 20
-    grid: K4's and K5's backward have no float32 body yet; at most 256
-    tokens float32 trains, tests/test_torch_port_float32_train.py)."""
-    size = 40 if dtype == "float32" else 8
+    do not exist): float16 at any size. (float32 trains at every size on
+    CUDA: tests/test_torch_port_float32_hires_train.py.)"""
     with pytest.raises(NotImplementedError, match=item):
-        ttrain.main(_train_cfg(tmp_path, dtype, image_size=size), device="cuda")
-
-
-def test_train_main_refuses_a_float32_bucket_past_256_tokens_on_cuda(tmp_path):
-    """A multires bucket past 256 tokens (20 x 20, its size read from the
-    .npy header) beside a native 4 x 4 grid: float32 on CUDA still raises
-    naming item 7, before the native data (absent) is read."""
-    bucket = tmp_path / "bucket.npy"
-    np.save(bucket, np.zeros((2, 4, 40, 40), np.float32))
-    data = pc.DataConfig(*(str(tmp_path / f"absent_{i}.npy") for i in range(3)),
-                         extra_latent_paths=(str(bucket),),
-                         extra_text_emb_paths=(str(tmp_path / "absent_emb.npy"),))
-    assert ttrain.trained_tokens(_train_cfg(tmp_path, "float32", data)) == 400
-    with pytest.raises(NotImplementedError, match=ITEM_7):
-        ttrain.main(_train_cfg(tmp_path, "float32", data), device="cuda")
+        ttrain.main(_train_cfg(tmp_path, dtype), device="cuda")
 
 
 def test_train_main_in_float32_on_cpu(tmp_path):

@@ -461,7 +461,6 @@ def test_train_main_takes_float32_at_256_tokens_on_cuda(tmp_path):
                                           noise_embed_dims=64),
         train_config=pc.TrainConfig(compute_dtype="float32", save_model=False,
                                     checkpoint_dir=str(tmp_path / "ckpts")))
-    assert ttrain.trained_tokens(cfg) == 256
     ttrain.check_cuda_compute_dtype(cfg)
     with pytest.raises(FileNotFoundError):
         ttrain.main(cfg, device="cuda")

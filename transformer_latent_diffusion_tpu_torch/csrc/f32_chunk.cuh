@@ -1,5 +1,6 @@
 // The key/value chunks of the float32 attention bodies (self_attention_f32.cu,
-// flash_attention_f32.cu) and the 3xTF32 products over them.
+// flash_attention_f32.cu; in flash_attention_bwd_f32.cu also the query and
+// gradient chunks) and the 3xTF32 products over them.
 //
 // A chunk is 64 keys x 64 head columns of float32, loaded by TMA as two
 // 64-row x 32-column boxes in the 128-byte swizzle (a "raw" chunk). The

@@ -52,6 +52,9 @@
 //   divided by l and stored from the registers (rows past Nq skipped). Each
 //   output element has one writer and every sum a fixed order: two
 //   launches are bit-equal.
+// - With `lse` (training: the backward, flash_attention_bwd_f32.cu, reads
+//   it), the threads of t % 4 == 0 also write each row's float32
+//   log-sum-exp m / 8 + log(l); o is computed as without it.
 // Shared memory: 4 x 16 KB raw slots and 4 x 32 KB split slots, 193 KB: one
 // block per SM.
 
@@ -93,8 +96,8 @@ struct Item {
 // chunk of keys in the ring, in order, each chunk waited for and released.
 __device__ __forceinline__ void consume(const unsigned char* split, uint64_t* split_full,
                                         uint64_t* split_empty, const float* __restrict__ q,
-                                        float* __restrict__ out, int B, int Nq, int Nk, int H,
-                                        int q_row, int wg, int wt) {
+                                        float* __restrict__ out, float* __restrict__ lse, int B,
+                                        int Nq, int Nk, int H, int q_row, int wg, int wt) {
   const int lane = wt & 31;
   const int g = lane >> 2;
   const int t4 = lane & 3;
@@ -217,6 +220,11 @@ __device__ __forceinline__ void consume(const unsigned char* split, uint64_t* sp
 
     l0 = quad_sum(l0);
     l1 = quad_sum(l1);
+    if (lse != nullptr && t4 == 0) {
+      float* lr = lse + (static_cast<size_t>(item.b) * H + item.h) * Nq;
+      if (r0 < Nq) lr[r0] = fmaf(m0, 0.125f, logf(l0));
+      if (r1 < Nq) lr[r1] = fmaf(m1, 0.125f, logf(l1));
+    }
     float* o0 = out + (static_cast<size_t>(item.b) * Nq + r0) * D + item.h * DH + 2 * t4;
     float* o1 = o0 + static_cast<size_t>(8) * D;
 #pragma unroll
@@ -233,7 +241,8 @@ __device__ __forceinline__ void consume(const unsigned char* split, uint64_t* sp
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_f32_kernel(const __grid_constant__ CUtensorMap map_k,
                            const __grid_constant__ CUtensorMap map_v, const float* __restrict__ q,
-                           float* __restrict__ out, int B, int Nq, int Nk, int H, int q_row) {
+                           float* __restrict__ out, float* __restrict__ lse, int B, int Nq, int Nk,
+                           int H, int q_row) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   unsigned char* raw = smem;
@@ -310,7 +319,8 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap map_k,
     }
   } else {
     setmaxnreg_inc<232>();
-    consume(split, split_full, split_empty, q, out, B, Nq, Nk, H, q_row, tid >> 7, tid & 127);
+    consume(split, split_full, split_empty, q, out, lse, B, Nq, Nk, H, q_row, tid >> 7,
+            tid & 127);
   }
 }
 
@@ -329,12 +339,13 @@ int view_map(CUtensorMap* map, const void* ptr, int B, int N, int D, int row) {
 
 // q: (B*Nq, *) float32 rows with row stride q_row elements, head h at
 // columns h*64; k, v: (B*Nk, *) float32 rows with strides k_row, v_row.
-// out: (B*Nq, D) float32, D = n_heads * 64. Row strides are multiples of 4
-// and k, v 16-byte aligned (TMA). Requires Nq, Nk >= 1 (the wrapper asks
-// for >= 8).
+// out: (B*Nq, D) float32, D = n_heads * 64. lse: null, or (B, n_heads, Nq)
+// float32, each query row's log-sum-exp of its scaled scores. Row strides
+// are multiples of 4 and k, v 16-byte aligned (TMA). Requires Nq, Nk >= 1
+// (the wrapper asks for >= 8).
 LTD_API int ltd_flash_attention_f32(const float* q, const float* k, const float* v, float* out,
-                                    int B, int Nq, int Nk, int n_heads, int q_row, int k_row,
-                                    int v_row, void* stream) {
+                                    float* lse, int B, int Nq, int Nk, int n_heads, int q_row,
+                                    int k_row, int v_row, void* stream) {
   if (B < 1 || Nq < 1 || Nk < 1 || n_heads < 1 || q_row % 4 || k_row % 4 || v_row % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   const int D = n_heads * DH;
@@ -349,7 +360,7 @@ LTD_API int ltd_flash_attention_f32(const float* q, const float* k, const float*
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int items = B * n_heads * ((Nq + QT - 1) / QT);
   flash_attention_f32_kernel<<<items < sms ? items : sms, THREADS, SMEM,
-                               static_cast<cudaStream_t>(stream)>>>(map_k, map_v, q, out, B, Nq,
-                                                                    Nk, n_heads, q_row);
+                               static_cast<cudaStream_t>(stream)>>>(map_k, map_v, q, out, lse, B,
+                                                                    Nq, Nk, n_heads, q_row);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,7 +2,7 @@
 // (self_attention.cu, gemm_bwd.cu, ln_gemm.cu, flash_attention.cu,
 // flash_attention_bwd.cu, attention_bwd.cu, gemm_i8.cu, dwconv_gelu.cu,
 // head_group_attention.cu, ln_gemm_f32.cu, self_attention_f32.cu,
-// flash_attention_f32.cu):
+// flash_attention_f32.cu, flash_attention_bwd_f32.cu):
 // mbarriers, TMA tensor copies, wgmma shared-memory descriptors and the
 // wgmma instructions themselves, in PTX.
 #pragma once

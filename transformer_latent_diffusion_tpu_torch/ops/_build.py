@@ -52,7 +52,7 @@ SIGNATURES = {
     "ltd_self_attention_bwd": (_P, _P, _P, _I, _I, _I, _I, _P),
     "ltd_cross_attention_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ltd_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "ltd_flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "ltd_flash_attention_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "ltd_flash_attention_variant": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                     _I, _I, _P),
     "ltd_head_group_attention": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -60,6 +60,10 @@ SIGNATURES = {
                                    _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "ltd_flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _I, _P),
+    "ltd_flash_attention_bwd_f32_dq": (_P, _P, _P, _P, _P, _P, _P, _P,
+                                       _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "ltd_flash_attention_bwd_f32_dkv": (_P, _P, _P, _P, _P, _P, _P, _P,
+                                        _I, _I, _I, _I, _I, _I, _I, _P),
     "ltd_rowquant": (_P, _P, _P, _P, _P, _I, _I, _P),
     "ltd_gemm_i8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ltd_ln_gemm_i8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

@@ -34,8 +34,13 @@ sampled on another grid) take K3's float32 body,
 over 64-key chunks, each float32 product run on the tensor cores as three
 TF32 products of the operands' parts (3xTF32), the probabilities not
 rounded, a float32 output. Its launches count in `LAUNCHES` apart from
-the bf16 body's. Its backward is float32 training (ROADMAP item 7): on
-CUDA a float32 call that asks for a gradient raises.
+the bf16 body's. With a gradient asked for (float32 training past 256
+tokens) it also writes each row's log-sum-exp, and the "k4a" and "k4b"
+routes take the backward's float32 body,
+`csrc/flash_attention_bwd_f32.cu` (`flash_attention_bwd_f32`, counted
+apart too): the bf16 body's two kernels (dq, then dk/dv) with each
+product run as 3xTF32, p and ds not rounded, as the TPU kernels compute
+with float32 inputs.
 
 The probe scripts/probe_attn_softmax.py (S3) times four softmax forms of
 the same attention: `flash_attention_variant` runs them as template
@@ -60,9 +65,10 @@ from transformer_latent_diffusion_tpu_torch.ops.fused_stack import (
 )
 
 KERNELS = ("flash_attention", "flash_attention_f32", "flash_attention_bwd",
-           "flash_attention_variant")
+           "flash_attention_bwd_f32", "flash_attention_variant")
 # launches of each kernel since the last reset_launch_counts()
-# (flash_attention_bwd is two kernels, dq then dk/dv, and counts both)
+# (flash_attention_bwd and its float32 body are two kernels each, dq then
+# dk/dv, and count both)
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 # the kernels' head width (csrc/flash_attention*.cu)
 HEAD_DIM = 64
@@ -75,9 +81,6 @@ K4B_MAX_TOKENS = 8192
 # the backward kernel's query and key tiles
 BWD_TILE = 64
 LOG2E = 1.4426950408889634
-# what a float32 call that needs the attention's gradient raises on CUDA
-FLOAT32_GRAD = ("flash_attention: the float32 backward on CUDA is float32 "
-                "training, not ported yet (ROADMAP item 7); train in bfloat16")
 
 
 def reset_launch_counts() -> None:
@@ -189,30 +192,22 @@ def _check_qkv(q, k, v, n_heads: int) -> torch.device:
 def _flash_forward(q, k, v, n_heads: int, with_lse: bool = False):
     """(out, lse): the kernel's output and, with_lse, each query row's
     float32 log-sum-exp (B, H, Nq), else None. CPU tensors: the plain
-    version and no lse; float32 ones the float32 body, without lse."""
+    version and no lse; bf16 ones the bf16 body, float32 ones the float32
+    body (`flash_attention_f32`)."""
     if q.device.type == "cpu":
         return _mha_plain(q, k, v, n_heads), None
     dev = _check_qkv(q, k, v, n_heads)
     b, nq, d = q.shape
     strides = [_row_stride(name, t) for name, t in (("q", q), ("k", k), ("v", v))]
-    if q.dtype == torch.float32:
-        if with_lse:
-            raise NotImplementedError(FLOAT32_GRAD)
-        out = torch.empty((b, nq, d), dtype=torch.float32, device=dev)
-        lib = load_library()
-        LAUNCHES["flash_attention_f32"] += 1
-        err = lib.ltd_flash_attention_f32(_ptr(q), _ptr(k), _ptr(v), _ptr(out), b, nq,
-                                          k.shape[1], n_heads, *strides, _stream(dev))
-        _check_launch(err, "flash_attention_f32")
-        return out, None
-    out = torch.empty((b, nq, d), dtype=torch.bfloat16, device=dev)
+    name = "flash_attention_f32" if q.dtype == torch.float32 else "flash_attention"
+    out = torch.empty((b, nq, d), dtype=q.dtype, device=dev)
     lse = (torch.empty((b, n_heads, nq), dtype=torch.float32, device=dev)
            if with_lse else None)
     lib = load_library()
-    LAUNCHES["flash_attention"] += 1
-    err = lib.ltd_flash_attention(_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), b,
-                                  nq, k.shape[1], n_heads, *strides, _stream(dev))
-    _check_launch(err, "flash_attention")
+    LAUNCHES[name] += 1
+    err = getattr(lib, f"ltd_{name}")(_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), b,
+                                      nq, k.shape[1], n_heads, *strides, _stream(dev))
+    _check_launch(err, name)
     return out, lse
 
 
@@ -221,42 +216,42 @@ def flash_attention_bwd(q, k, v, g, n_heads: int, o=None, lse=None):
     (dq, dk, dv), each (B, N, D) with the heads merged.
 
     On CUDA: self-attention (Nq == Nk) with N % 64 == 0, q, k, v, g and
-    the forward's output o bf16 with head dim 64, each a view of evenly
-    spaced rows with unit column stride; lse the forward's (B, H, N)
-    float32 log-sum-exp. Two launches: dq (which also writes rowsum(g o)),
-    then dk and dv. On CPU tensors the plain version (o and lse unused)."""
+    the forward's output o all bf16 (the bf16 body) or all float32 (the
+    float32 body, `flash_attention_bwd_f32`) with head dim 64, each a view
+    of evenly spaced rows with unit column stride; lse the forward's
+    (B, H, N) float32 log-sum-exp. Two launches: dq (which also writes
+    rowsum(g o)), then dk and dv. On CPU tensors the plain version (o and
+    lse unused)."""
     if q.device.type == "cpu":
         grads = attention_bwd_plain(*(_heads(t, n_heads) for t in (q, k, v, g)))
         return tuple(_merge(t) for t in grads)
     dev = _check_qkv(q, k, v, n_heads)
-    if q.dtype == torch.float32:
-        raise NotImplementedError(FLOAT32_GRAD)
     b, n, d = q.shape
     _require(k.shape[1] == n and n % BWD_TILE == 0,
              f"flash_attention_bwd: needs Nq == Nk and N % {BWD_TILE} == 0")
     _require(o is not None and lse is not None,
              "flash_attention_bwd: needs the forward's output o and lse")
     for name, t in (("o", o), ("g", g)):
-        _require(t.device == dev and t.dtype == torch.bfloat16 and t.shape == q.shape,
-                 f"flash_attention_bwd: {name} must be bf16 (B, N, D) on {dev}")
+        _require(t.device == dev and t.dtype == q.dtype and t.shape == q.shape,
+                 f"flash_attention_bwd: {name} must be {q.dtype} (B, N, D) on {dev}")
     _require(lse.device == dev and lse.dtype == torch.float32 and lse.is_contiguous()
              and lse.shape == (b, n_heads, n) and lse.data_ptr() % 16 == 0,
              "flash_attention_bwd: lse must be contiguous 16-byte aligned float32 (B, H, N)")
     strides = [_row_stride(name, t) for name, t in
                (("q", q), ("k", k), ("v", v), ("o", o), ("g", g))]
     delta = torch.empty_like(lse)
-    dq, dk, dv = (torch.empty((b, n, d), dtype=torch.bfloat16, device=dev)
-                  for _ in range(3))
+    dq, dk, dv = (torch.empty((b, n, d), dtype=q.dtype, device=dev) for _ in range(3))
+    name = "flash_attention_bwd_f32" if q.dtype == torch.float32 else "flash_attention_bwd"
     lib = load_library()
     stream = _stream(dev)
-    LAUNCHES["flash_attention_bwd"] += 1
-    _check_launch(lib.ltd_flash_attention_bwd_dq(
+    LAUNCHES[name] += 1
+    _check_launch(getattr(lib, f"ltd_{name}_dq")(
         _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(g), _ptr(lse), _ptr(delta), _ptr(dq),
-        b, n, n_heads, *strides, stream), "flash_attention_bwd (dq)")
-    LAUNCHES["flash_attention_bwd"] += 1
-    _check_launch(lib.ltd_flash_attention_bwd_dkv(
+        b, n, n_heads, *strides, stream), f"{name} (dq)")
+    LAUNCHES[name] += 1
+    _check_launch(getattr(lib, f"ltd_{name}_dkv")(
         _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv),
-        b, n, n_heads, *strides[:3], strides[4], stream), "flash_attention_bwd (dk, dv)")
+        b, n, n_heads, *strides[:3], strides[4], stream), f"{name} (dk, dv)")
     return dq, dk, dv
 
 
@@ -266,14 +261,11 @@ class FlashAttentionFunction(torch.autograd.Function):
     backward kernel will read it); the backward takes
     `attention_bwd_route`'s choice: `flash_attention_bwd` for "k4a" and
     "k4b", torch autograd through the plain math for "plain". The forward
-    saves q, k, v, its output and the log-sum-exp. On CUDA float32 operands
-    raise (ROADMAP item 7): the float32 body has no backward yet."""
+    saves q, k, v, its output and the log-sum-exp. bf16 and float32
+    operands each take their dtype's bodies."""
 
     @staticmethod
     def forward(ctx, q, k, v, n_heads: int):
-        if q.device.type != "cpu" and q.dtype == torch.float32:
-            _cuda_device(q)
-            raise NotImplementedError(FLOAT32_GRAD)
         route = attention_bwd_route(q.shape[1], k.shape[1], q.shape[2] // n_heads)
         out, lse = _flash_forward(q, k, v, n_heads, with_lse=route != "plain")
         ctx.save_for_backward(q, k, v, out, lse)
@@ -300,7 +292,7 @@ def flash_attention(q, k, v, n_heads: int):
     differentiable (`FlashAttentionFunction`) where a gradient is asked for.
 
     On CUDA: q, k, v all bf16 (K3's bf16 body) or all float32 (its float32
-    body, `flash_attention_f32`; no gradient) with head dim 64, Nq and
+    body, `flash_attention_f32`) with head dim 64, Nq and
     Nk >= 8, each a view of evenly spaced rows with unit column stride
     (the column blocks of a fused projection are)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

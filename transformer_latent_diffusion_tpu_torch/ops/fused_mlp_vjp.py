@@ -23,9 +23,10 @@ bytes = 12.6 MB). The band kernels (csrc/mlp_band_fwd.cu,
 csrc/mlp_band_bwd.cu; csrc/mlp_band.cuh) keep it on chip all the same: a
 block owns 128 tokens x 128 hidden channels of one image, the blocks of an
 image's tiles form a thread-block cluster, and the 3x3 taps read the
-neighbouring tiles through distributed shared memory (`BandPlan`). The
-forward runs in the weights' dtype, bf16 or float32 (the JAX package's
-default compute dtype, whose TPU kernel rounds nothing):
+neighbouring tiles through distributed shared memory (`BandPlan`). Both
+directions run in the weights' dtype, bf16 or float32 (the JAX package's
+default compute dtype, whose TPU kernel rounds nothing); the float32
+routes compose the float32 bodies of the other kernels:
 
   forward   bf16 x and weights          float32 x and weights
             mlp_band_fwd                ln_gemm_f32 (3xTF32)
@@ -37,19 +38,30 @@ default compute dtype, whose TPU kernel rounds nothing):
               y = a W2 + b2 in x's        y = a W2 + b2, float32
               dtype
             (no residual: the block adds it outside, as the linen path does)
-  backward  bf16 only (float32 training is ROADMAP item 7: on CUDA a
-            float32 call that needs the gradient raises)
-            mlp_band_bwd  h = x W1 + b1 and da = g W2 (recomputed, float32),
-                         c, dc = da GELU'(c) on chip; a and dh (bf16) out,
-                         the 9 tap sums, ddwb and db1 (float32)
-            weight_grad  dW2 = g^T a
-            colsum       db2 = the column sums of g (bf16, read as it is)
-            weight_grad  dW1 = dh^T x
-            ln_gemm      dx = dh W1 in x's dtype
+  backward  mlp_band_bwd                ln_gemm_f32
+              h = x W1 + b1 and           h = x W1 + b1
+              da = g W2 (recomputed,    dwconv_gelu_f32, return_c
+              float32), c, dc =           a = GELU(c) and c, row band
+              da GELU'(c) on chip;      ln_gemm_f32, w_transposed
+              a and dh (bf16) out,        da = g W2
+              the 9 tap sums, ddwb      dwconv_gelu_bwd_f32, row bands
+              and db1 (float32)           dh, the 9 tap sums, ddwb, db1
+            weight_grad                 weight_grad_f32
+              dW2 = g^T a                 dW2 = g^T a
+            colsum                      colsum
+              db2 = the column sums       db2 = the column sums of g
+              of g (bf16, read as it is)
+            weight_grad                 weight_grad_f32
+              dW1 = dh^T x                dW1 = dh^T x
+            ln_gemm                     ln_gemm_f32, w_transposed
+              dx = dh W1 in x's dtype     dx = dh W1
 
-`ROUTE_LAUNCHES` has these launches. Device memory sees x, g, a and dh,
-never h, c, da or dc. The GELU is the exact erf, where the TPU kernel uses
-a polynomial (`_erf_poly`, within ~1e-7).
+`ROUTE_LAUNCHES` has these launches. On the bf16 route device memory sees
+x, g, a and dh, never h, c, da or dc; the float32 route (the TPU kernel
+rounds nothing in float32, and neither does it) composes the float32
+bodies of K1 and K2, with h, c, a, da and dh through device memory. The
+GELU is the exact erf, where the TPU kernel uses a polynomial
+(`_erf_poly`, within ~1e-7).
 
 Weights are in the port's (out, in) layout: w1 (hidden, D), w2 (D,
 hidden), dw (9, hidden) with tap di*3+dj; b1, dwb, b2 float32. The
@@ -67,21 +79,26 @@ from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
 from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
 
 KERNELS = ("mlp_band_fwd", "mlp_band_bwd", "fused_mlp_sepconv", "fused_mlp_sepconv_f32",
-           "fused_mlp_sepconv_bwd")
+           "fused_mlp_sepconv_bwd", "fused_mlp_sepconv_bwd_f32")
 # since the last reset_launch_counts(): the launches of the band kernels
-# ("mlp_band_fwd", "mlp_band_bwd"), and the calls of the three routes
-# ("fused_mlp_sepconv", "fused_mlp_sepconv_f32", "fused_mlp_sepconv_bwd"),
-# whose other launches count under their kernels' names (ROUTE_LAUNCHES)
+# ("mlp_band_fwd", "mlp_band_bwd"), and the calls of the four routes
+# ("fused_mlp_sepconv", "fused_mlp_sepconv_f32", "fused_mlp_sepconv_bwd",
+# "fused_mlp_sepconv_bwd_f32"), whose other launches count under their
+# kernels' names (ROUTE_LAUNCHES)
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 # the kernel launches of one call of each route on CUDA; ln_gemm and
 # dwconv_gelu count in fused_stack.LAUNCHES, their float32 bodies in
 # fused_stack_f32.LAUNCHES, weight_grad and colsum in
-# fused_layer_vjp.LAUNCHES
+# fused_layer_vjp.LAUNCHES, weight_grad_f32 and dwconv_gelu_bwd_f32 in
+# fused_layer_vjp_f32.LAUNCHES
 ROUTE_LAUNCHES = {
     "fused_mlp_sepconv": {"mlp_band_fwd": 1, "ln_gemm": 1},
     "fused_mlp_sepconv_f32": {"ln_gemm_f32": 2, "dwconv_gelu_f32": 1},
     "fused_mlp_sepconv_bwd": {"mlp_band_bwd": 1, "weight_grad": 2, "colsum": 1,
                               "ln_gemm": 1},
+    "fused_mlp_sepconv_bwd_f32": {"ln_gemm_f32": 3, "dwconv_gelu_f32": 1,
+                                  "dwconv_gelu_bwd_f32": 1, "weight_grad_f32": 2,
+                                  "colsum": 1},
 }
 
 
@@ -234,11 +251,6 @@ def _require_cuda(name: str, x):
                 f"plain version); got {x.device}")
 
 
-# what a float32 call that needs the MLP's gradient raises on CUDA
-FLOAT32_GRAD = ("fused_mlp_sepconv: the float32 backward on CUDA is float32 "
-                "training, not ported yet (ROADMAP item 7); train in bfloat16")
-
-
 def _band_checks(name, x, w1, b1, dw, dwb, hw: int):
     """The shapes and dtypes that a band kernel takes; its plan."""
     m, d = x.shape
@@ -307,9 +319,23 @@ def _band_f32(x, w1, b1, dw, dwb, hw: int):
     return fs.dwconv_gelu(fs.ln_gemm(x, w1, bias=b1, out_dtype=torch.float32), dw, dwb, hw)
 
 
+def _band_bwd_f32(x, g, w1, b1, dw, dwb, w2, hw: int):
+    """The float32 route's `mlp_band_bwd`: h by `ln_gemm_f32`, a and c by
+    `dwconv_gelu_f32`'s row band with return_c, da = g W2 by `ln_gemm_f32`
+    with W2 read as stored, then dh, the 9 tap sums, ddwb and db1 by
+    `dwconv_gelu_bwd`'s float32 mode in row bands (float32 operands send
+    `fs`'s and `lv`'s wrappers to their float32 bodies)."""
+    h = fs.ln_gemm(x, w1, bias=b1, out_dtype=torch.float32)
+    a, c = fs.dwconv_gelu(h, dw, dwb, hw, return_c=True)
+    da = fs.ln_gemm(g, w2, out_dtype=torch.float32, w_transposed=True)
+    dh, ddw, ddwb, db1 = lv.dwconv_gelu_bwd(da, c, h, dw, hw)
+    return a, dh, ddw, ddwb, db1
+
+
 _KERNEL_OPS = (mlp_band_fwd, fs.ln_gemm)
 _F32_OPS = (_band_f32, fs.ln_gemm)
 _KERNEL_BWD_OPS = (mlp_band_bwd, lv.weight_grad, lv.colsum, fs.ln_gemm)
+_F32_BWD_OPS = (_band_bwd_f32, lv.weight_grad, lv.colsum, fs.ln_gemm)
 
 
 def _forward(x, w1, b1, dw, dwb, w2, b2, hw: int):
@@ -329,21 +355,22 @@ def _forward(x, w1, b1, dw, dwb, w2, b2, hw: int):
 
 def fused_mlp_sepconv_bwd(x, g, w1, b1, dw, dwb, w2, hw: int):
     """Kernel route of `fused_mlp_sepconv_bwd_plain` (same arguments and
-    results): on CUDA the five launches of the module docstring
-    (`ROUTE_LAUNCHES`), x and g bf16 (B, hw*hw, D), the weights bf16; on
-    CPU tensors the plain version."""
+    results): on CUDA the launches of the module docstring
+    (`ROUTE_LAUNCHES`): x, g and the weights all bf16 (five launches) or
+    all float32 (nine, the float32 bodies); on CPU tensors the plain
+    version."""
     if x.device.type == "cpu":
         return fused_mlp_sepconv_bwd_plain(x, g, w1, b1, dw, dwb, w2, hw)
     _require_cuda("fused_mlp_sepconv_bwd", x)
-    if x.dtype == torch.float32:
-        raise NotImplementedError(FLOAT32_GRAD)
     fs._require(x.dim() == 3 and x.shape[1] == hw * hw and g.shape == x.shape,
                 f"fused_mlp_sepconv_bwd: x and g must be (B, {hw * hw}, D)")
-    fs._require(x.dtype == torch.bfloat16 and g.dtype == torch.bfloat16,
-                "fused_mlp_sepconv_bwd: x and g must be bf16")
+    fs._require(x.dtype in (torch.bfloat16, torch.float32)
+                and all(t.dtype == x.dtype for t in (g, w1, dw, w2)),
+                "fused_mlp_sepconv_bwd: x, g, w1, dw and w2 must be all bf16 or all float32")
+    f32 = x.dtype == torch.float32
     out = _mlp_bwd(x.contiguous(), g.contiguous(), w1, b1, dw, dwb, w2, hw,
-                   _KERNEL_BWD_OPS)
-    LAUNCHES["fused_mlp_sepconv_bwd"] += 1
+                   _F32_BWD_OPS if f32 else _KERNEL_BWD_OPS)
+    LAUNCHES["fused_mlp_sepconv_bwd_f32" if f32 else "fused_mlp_sepconv_bwd"] += 1
     return out
 
 
@@ -351,15 +378,11 @@ class FusedMLPFunction(torch.autograd.Function):
     """The sep-conv MLP as an autograd function over the kernels (their
     plain versions on CPU tensors). The forward saves x and the weights
     only, as the TPU kernel's `_vjp_fwd` does; the backward recomputes.
-    Gradients come back in each input's dtype. On CUDA float32 raises
-    (ROADMAP item 7): the backward's kernels take bf16."""
+    Gradients come back in each input's dtype; bf16 and float32 operands
+    each take their dtype's route."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, dw, dwb, w2, b2, hw: int):
-        if x.device.type != "cpu":
-            _require_cuda("fused_mlp_sepconv", x)
-            if x.dtype == torch.float32:
-                raise NotImplementedError(FLOAT32_GRAD)
         ctx.save_for_backward(x, w1, b1, dw, dwb, w2)
         ctx.hw, ctx.b2_dtype = hw, b2.dtype
         return _forward(x, w1, b1, dw, dwb, w2, b2, hw)

@@ -10,9 +10,8 @@ checkpoints, held-out validation loss, resume and graceful preemption.
 
 PyTorch runs eagerly, so the JAX package's one jitted step becomes a
 Python step over an `nn.Module` with float32 master weights computing in
-`compute_dtype`: bf16, or on CUDA float32 where every trained grid is of
-at most 256 tokens (K2 and K6 have float32 backward bodies; K4's and
-K5's, past 256 tokens, are ROADMAP item 7). On CUDA
+`compute_dtype`: bf16 or float32 (the JAX package's default; every
+training kernel has a float32 body). On CUDA
 its decoder blocks take the hand-written kernels by the JAX package's
 gates: K2 (`ops/fused_layer_vjp.py`) on square grids of at most 256
 tokens with the sep-conv FFN; the attention pair K6
@@ -52,7 +51,6 @@ from transformer_latent_diffusion_tpu_torch.configs import (
     resolve_dtype,
 )
 from transformer_latent_diffusion_tpu_torch.data.loader import LatentBatcher
-from transformer_latent_diffusion_tpu_torch.models.blocks import FUSED_LAYER_MAX_TOKENS
 from transformer_latent_diffusion_tpu_torch.models.denoiser import (
     Denoiser,
     resize_pos_embed,
@@ -451,37 +449,15 @@ def _state_dict(state) -> Dict[str, Any]:
             "step": state["step"]}
 
 
-def trained_tokens(config: ModelConfig) -> int:
-    """The most tokens of a grid that `main` trains: the model's native
-    grid and every multires bucket's, whose sizes come from the .npy
-    headers of `DataConfig.extra_latent_paths` (no data is read)."""
-    den = config.denoiser_config
-    sizes = [den.image_size] + [
-        int(np.load(path, mmap_mode="r").shape[-1])
-        for path in config.data_config.extra_latent_paths or ()]
-    return max((size // den.patch_size) ** 2 for size in sizes)
-
-
 def check_cuda_compute_dtype(config: ModelConfig) -> None:
     """Raise NotImplementedError, naming its ROADMAP item, for a compute
-    dtype that the training kernels do not take on CUDA: float16 (item 4),
-    and float32 past FUSED_LAYER_MAX_TOKENS tokens, where the hi-res
-    backward kernels (K4, K5) have no float32 body yet (item 7)."""
+    dtype that the training kernels do not take on CUDA: float16 (item
+    4). bf16 and float32 train at every grid size."""
     name = config.train_config.compute_dtype
-    dtype = resolve_dtype(name)
-    if dtype == torch.bfloat16:
-        return
-    if dtype != torch.float32:
+    if resolve_dtype(name) not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(
             f"TrainConfig.compute_dtype={name!r} on CUDA: the training kernels take bf16 "
             f"or float32 (ROADMAP item 4 (other compute dtypes))")
-    tokens = trained_tokens(config)
-    if tokens > FUSED_LAYER_MAX_TOKENS:
-        raise NotImplementedError(
-            f"TrainConfig.compute_dtype={name!r} on CUDA trains grids of at most "
-            f"{FUSED_LAYER_MAX_TOKENS} tokens (K2 and K6 have float32 backward bodies); "
-            f"this run trains {tokens}, whose hi-res backward kernels (K4, K5) take "
-            f"bf16: set compute_dtype='bfloat16' (ROADMAP item 7 (float32 training))")
 
 
 def main(config: ModelConfig, device,
