@@ -167,6 +167,8 @@ HR_N = HR_HW * HR_HW
 XR_N, XR_B = 64 * 64, 8
 RAG_N, RAG_B = 400, 2
 HR_IMGS, HR_ITER = 32, 50
+# the float32 512 px library: cut from 32 x 50 for the script's time
+F32_HR_IMGS = 16
 XR_IMGS, XR_ITER = 4, 20  # 1024 px: cut from 32 x 50 for time
 RESIZE_ITER = 4  # steps of the 256 px model sampled on the 512 px grid
 # hi-res training: 512 px at batch 64 and 1024 px at batch 16 (the JAX
@@ -3091,7 +3093,7 @@ def phase_float32_train_kernels():
         _bit_equal_twice(label, kern, tag)
         worst[row] = max(worst.get(row, 0.0), a)
     _ptxas_report(tag, ("ln_gemm_f32_kernel", "weight_grad_f32_kernel",
-                        "self_attention_bwd_f32_kernel", "cross_attention_bwd_kernel",
+                        "flash_bwd_f32_kernel", "cross_attention_bwd_kernel",
                         "dwconv_gelu_bwd_kernel", "layernorm_bwd_kernel", "colsum_kernel"))
 
     def per_layer(fn, cases):
@@ -5593,7 +5595,7 @@ def phase_float32_hires_kernels():
 def phase_float32_linen(smi):
     """The float32 linen path through the library: [float32-hires-model]
     (one 512 px forward vs the plain float32 forward, exact launches),
-    [float32-hires-library] (512 px 32 x 50 with its breakdown, the loop's
+    [float32-hires-library] (512 px 16 x 50 with its breakdown, the loop's
     graph replay against its eager loop, the HTTP default request, 512 px
     with quantize="int8", 1024 px 4 x 20, the "mlp" and "moe" flagships 8
     x 20 at 256 px), each with exact launch counts. Returns the 512 px
@@ -5604,7 +5606,7 @@ def phase_float32_linen(smi):
         cfg512 = hires_config(tmp, 64, "float32")
         phase_hires_model(cfg512, "float32-hires-model", F32_HIRES_MODEL_REL_L2)
         torch.cuda.empty_cache()
-        tr, launches = phase_hires_library(cfg512, HR_IMGS, HR_ITER, smi,
+        tr, launches = phase_hires_library(cfg512, F32_HR_IMGS, HR_ITER, smi,
                                            "float32-hires-library")
         phase_sampler_graph(tr, _hires_per_layer(cfg512.denoiser_cfg, "float32"),
                             "float32-hires-sampler-graph", GRAPH_BRIEF_IMGS, GRAPH_BRIEF_ITER)
@@ -5852,7 +5854,7 @@ def main():
     for row, src, tpu, launched in (
             ("weight_grad_f32", "csrc/gemm_bwd_f32.cu", TPU_K2_BWD,
              f2_launches["weight_grad_f32"]),
-            ("self_attention_bwd_f32", "csrc/attention_bwd_f32.cu", TPU_K2_BWD,
+            ("self_attention_bwd_f32", "csrc/flash_attention_bwd_f32.cu", TPU_K2_BWD,
              f2_launches["self_attention_bwd_f32"]),
             ("cross_attention_bwd_f32", "csrc/attention_bwd.cu", TPU_K2_BWD,
              f2_launches["cross_attention_bwd_f32"]),

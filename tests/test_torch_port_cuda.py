@@ -1607,6 +1607,30 @@ def test_flash_attention_bwd_f32_matches_plain_on_card(b, n, heads):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,n,heads", [(2, 64, 2), (3, 144, 2), (2, 200, 1), (2, 256, 12),
+                                       (2, 1, 1), (3, 37, 2)])
+def test_self_attention_bwd_f32_matches_plain_on_card(b, n, heads):
+    """The float32 self-attention backward of K2 and K6
+    (`self_attention_bwd_f32`: csrc/flash_attention_bwd_f32.cu's dq kernel
+    with the row statistics made from the keys, then its dk/dv kernel) on
+    packed float32 qkv against `self_attention_bwd_plain` with TF32 off:
+    rel-L2 within 1e-5 at whole and ragged N (a last tile of 16, 8, 1 and
+    37 rows), exactly two launches, two calls bit-equal."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(7 * n + heads)
+    qkv = torch.randn(b * n, 3 * 64 * heads, generator=g).cuda()
+    dout = (torch.randn(b * n, 64 * heads, generator=g) * 0.1).cuda()
+    lv32.reset_launch_counts()
+    got = lv.self_attention_bwd(qkv, dout, heads, n)
+    torch.cuda.synchronize()
+    assert {k_: v_ for k_, v_ in lv32.LAUNCHES.items() if v_} == {"self_attention_bwd_f32": 2}
+    want = lv.self_attention_bwd_plain(qkv, dout, heads, n)
+    assert got.dtype == torch.float32 and _rel_l2(got, want) <= 1e-5
+    assert torch.equal(got, lv.self_attention_bwd(qkv, dout, heads, n))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,nq,nk,heads", [(2, 1024, 1024, 2), (3, 400, 400, 1),
                                            (2, 200, 521, 3)])
 def test_flash_attention_f32_lse_on_card(b, nq, nk, heads):
@@ -1747,6 +1771,8 @@ def _f32_train_cases(d, device="cuda"):
 
 
 F32_TRAIN_CASES = 8
+# the float32 bodies that are more than one kernel: launches a call
+F32_LAUNCHES_A_CALL = {"self_attention_bwd_f32": 2}
 
 
 @pytest.mark.cuda
@@ -1755,8 +1781,9 @@ F32_TRAIN_CASES = 8
 def test_float32_training_body_matches_plain_on_card(case, d):
     """Each float32 body of K2's and K6's backward (and ln_gemm_f32's and
     dwconv_gelu_f32's training modes) against its plain version on the
-    card at embed_dim d, TF32 off: rel-L2 within 1e-5, one launch in its
-    own counter and none in the bf16 counts, two launches bit-equal."""
+    card at embed_dim d, TF32 off: rel-L2 within 1e-5, its launches in its
+    own counter (one, or two for self_attention_bwd_f32's dq and dk/dv
+    kernels) and none in the bf16 counts, two calls bit-equal."""
     _need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     cases = _f32_train_cases(d)
@@ -1777,7 +1804,7 @@ def test_float32_training_body_matches_plain_on_card(case, d):
     before, bf16_before = dict(mod.LAUNCHES), (dict(fs.LAUNCHES), dict(lv.LAUNCHES))
     got = kern()
     torch.cuda.synchronize()
-    assert mod.LAUNCHES[counter] == before[counter] + 1, name
+    assert mod.LAUNCHES[counter] == before[counter] + F32_LAUNCHES_A_CALL.get(counter, 1), name
     assert (dict(fs.LAUNCHES), dict(lv.LAUNCHES)) == bf16_before, name
     assert got.dtype == torch.float32
     assert _rel_l2(got, want) <= 1e-5, name

@@ -363,7 +363,8 @@ BODY_CALLS = {
     "weight_grad": (lambda: lv.weight_grad(_meta(M, 3 * D), _meta(M, D)),
                     "ltd_weight_grad_f32", "weight_grad_f32"),
     "self_attention_bwd": (lambda: lv.self_attention_bwd(_meta(M, 3 * D), _meta(M, D), H, N),
-                           "ltd_self_attention_bwd_f32", "self_attention_bwd_f32"),
+                           ("ltd_self_attention_bwd_f32_dq", "ltd_self_attention_bwd_f32_dkv"),
+                           "self_attention_bwd_f32"),
     "cross_attention_bwd": (lambda: lv.cross_attention_bwd(_meta(M, D), _meta(2 * B, 2 * D),
                                                            _meta(M, D), H, N),
                             "ltd_cross_attention_bwd_f32", "cross_attention_bwd_f32"),
@@ -376,12 +377,14 @@ BODY_CALLS = {
 @pytest.mark.parametrize("case", sorted(BODY_CALLS))
 def test_float32_operands_take_the_float32_body(fake_card, case):
     """Each float32 call of the backward's wrappers launches its float32
-    entry point once and steps that body's counter alone; every output
-    is float32."""
-    call, entry, counter = BODY_CALLS[case]
+    entry points once each (self_attention_bwd's body is two kernels, dq
+    then dk/dv) and steps that body's counter alone, once a launch; every
+    output is float32."""
+    call, entries, counter = BODY_CALLS[case]
+    entries = [entries] if isinstance(entries, str) else list(entries)
     out = call()
-    assert fake_card.calls == [entry]
-    assert _launches() == {counter: 1}
+    assert fake_card.calls == entries
+    assert _launches() == {counter: len(entries)}
     mode = case.split()[1:]  # a training mode of a forward body: its own count too
     assert _modes() == ({f"{counter} {mode[0]}": 1} if mode else {})
     for t in out if isinstance(out, tuple) else (out,):

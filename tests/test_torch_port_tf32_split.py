@@ -1,6 +1,6 @@
 """The arithmetic of the 3xTF32 float32 bodies (csrc/ln_gemm_f32.cu,
-csrc/self_attention_f32.cu, csrc/flash_attention_f32.cu), emulated in
-numpy on the CPU.
+csrc/self_attention_f32.cu, csrc/flash_attention_f32.cu,
+csrc/flash_attention_bwd_f32.cu), emulated in numpy on the CPU.
 
 Each float32 operand x runs on Hopper's tensor cores as two TF32 parts,
 hi = tf32(x) and lo = tf32(x - hi) (`cvt.rna.tf32.f32`: round to nearest,
@@ -16,7 +16,12 @@ flash_attention_f32's streaming form of it (an online softmax over 64-key
 chunks at 1024 and 4096 keys), within the card's bound of 1e-5 rel-L2
 with margin, the softmax's division, and the index maps the kernels use
 to feed P to P V and to transpose V (csrc/f32_chunk.cuh; no card
-needed)."""
+needed). The backward kernels split with `tf32_split_fast` (lo left for
+the tensor cores to read, emulated as its truncation): their schedules
+(the self-attention's row statistics made from the keys, both kernels'
+products, each into a fresh tile) against float64 at the layer's and the
+512 px token counts, the row quads' key map, and their turns on the
+tensor cores over the ring of split slots, run as a state machine."""
 
 from __future__ import annotations
 
@@ -45,6 +50,23 @@ def tf32_parts(x):
     return hi, tf32_rna(x - hi)
 
 
+def tf32_trunc(x):
+    """A TF32 operand as the tensor cores read a 32-bit value: its low 13
+    bits ignored (round toward zero)."""
+    bits = np.asarray(x, dtype=np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def tf32_parts_fast(x):
+    """`tf32_split_fast`'s parts as the tensor cores read them: hi =
+    tf32(x) (the integer add and mask: `tf32_rna`'s formula), lo = x - hi
+    (exact) kept as it is, read as its truncation (the least accurate
+    reading; a rounding one would give `tf32_parts`)."""
+    x = np.asarray(x, dtype=np.float32)
+    hi = tf32_rna(x)
+    return hi, tf32_trunc(x - hi)
+
+
 def _rz32(x64):
     """float64 -> float32 rounded toward zero (the tensor cores' adds)."""
     f = x64.astype(np.float32)
@@ -53,13 +75,14 @@ def _rz32(x64):
     return f
 
 
-def tc_product(a, b, flush=None):
+def tc_product(a, b, flush=None, split=tf32_parts):
     """a (M, K) @ b (K, N), float32 operands, as the kernels issue it: per
     8-deep step lo b_hi, hi b_lo, hi b_hi, each an exact 8-term sum added
     into a float32 partial with truncation; every `flush` columns of K the
-    partial is added into a float32 sum with rounding (None: one chain)."""
-    ah, al = tf32_parts(a)
-    bh, bl = tf32_parts(b)
+    partial is added into a float32 sum with rounding (None: one chain).
+    `split`: the operands' parts (round to nearest, or tf32_parts_trunc)."""
+    ah, al = split(a)
+    bh, bl = split(b)
     total = np.zeros((a.shape[0], b.shape[1]), np.float32)
     part = np.zeros_like(total)
     for k0 in range(0, a.shape[1], 8):
@@ -111,6 +134,23 @@ def test_tf32_parts_reconstruct_within_2_pow_minus_22(scale):
                                   x.astype(np.float64) - hi.astype(np.float64))
     err = np.abs(x.astype(np.float64) - (hi.astype(np.float64) + lo.astype(np.float64)))
     assert np.all(err <= 2.0 ** -22 * np.abs(x.astype(np.float64)))
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-30, 1e30])
+def test_tf32_fast_parts_reconstruct_within_2_pow_minus_21(scale):
+    """The backward kernels' split as the tensor cores read it at worst (lo
+    truncated): both parts TF32 (low 13 bits zero), hi round to nearest,
+    lo = x - hi exact before it is read, hi + lo within 2^-21 of x."""
+    rng = np.random.default_rng(1)
+    x = (rng.standard_normal(1 << 16) * scale).astype(np.float32)
+    hi, lo = tf32_parts_fast(x)
+    np.testing.assert_array_equal(hi, tf32_parts(x)[0])
+    for part in (hi, lo):
+        assert not np.any(part.view(np.uint32) & np.uint32(0x1FFF))
+    np.testing.assert_array_equal((x - hi).astype(np.float64),
+                                  x.astype(np.float64) - hi.astype(np.float64))
+    err = np.abs(x.astype(np.float64) - (hi.astype(np.float64) + lo.astype(np.float64)))
+    assert np.all(err <= 2.0 ** -21 * np.abs(x.astype(np.float64)))
 
 
 # the main path's products: (name, K, N, LayerNorm prologue)
@@ -318,3 +358,232 @@ def test_softmax_division_by_reciprocal_and_one_fma_is_exact():
         q = _rn32(ef * inv)
         got = _rn32(_rn32(ef - q * sf) * inv + q)  # fmaf(fmaf(-q, sum, e), inv, q)
         assert got == _rn32(ef / sf), (ei, si)
+
+
+# ---- the float32 attention backwards (csrc/flash_attention_bwd_f32.cu) ----
+
+
+def _tc(a, b):
+    """A product of the backward kernels: 3xTF32 in one chain of 8-deep
+    steps into a fresh tile, the parts made by `tf32_split_fast`."""
+    return tc_product(a, b, split=tf32_parts_fast)
+
+
+def _fma(a, b, c):
+    """a b + c rounded once to float32 (float32 operands: a b is exact in
+    float64)."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def _thread_keys(t4):
+    """The keys of a 64-key chunk that thread t4 of a row's quad holds, in
+    its loop's order (j outer, e inner): 8 j + 2 t4 + e."""
+    return [8 * j + 2 * t4 + e for j in range(8) for e in range(2)]
+
+
+def _row_stats(q, k, g, v, n):
+    """The dq kernel's first pass (self-attention mode) for the query rows
+    q: per 64-key chunk S = Q K^T and dP = g V^T in 3xTF32 (a fresh tile
+    each), each thread's running max m of its keys' s (keys past n left
+    out), l = l c + sum exp(s / 8 - m / 8) and t = t c + sum exp(..) dp by
+    FMA; then the quad's four merged (max, rescale, the shuffles' sums)
+    into lse = m / 8 + log l and D = t / l, float32."""
+    rows, sc = q.shape[0], np.float32(0.125)
+    m = np.full((rows, 4), -np.inf, np.float32)
+    l = np.zeros((rows, 4), np.float32)
+    t = np.zeros((rows, 4), np.float32)
+    for c0 in range(0, k.shape[0], 64):
+        s, dp = _tc(q, k[c0:c0 + 64].T), _tc(g, v[c0:c0 + 64].T)
+        for t4 in range(4):
+            keys = [c for c in _thread_keys(t4) if c0 + c < n]
+            if not keys:
+                continue
+            mx = np.maximum(m[:, t4], s[:, keys].max(1))
+            nm = -mx * sc
+            cf = np.exp(_fma(m[:, t4], sc, nm))
+            ls = np.zeros(rows, np.float32)
+            ts = np.zeros(rows, np.float32)
+            for c in keys:
+                ex = np.exp(_fma(s[:, c], sc, nm))
+                ls = ls + ex
+                ts = _fma(ex, dp[:, c], ts)
+            l[:, t4], t[:, t4], m[:, t4] = _fma(l[:, t4], cf, ls), _fma(t[:, t4], cf, ts), mx
+    mq = m.max(1)
+    with np.errstate(invalid="ignore"):
+        cf = np.exp(_fma(m, sc, (-mq * sc)[:, None]))
+    lq, tq = l * cf, t * cf
+    lq = (lq[:, 0] + lq[:, 1]) + (lq[:, 2] + lq[:, 3])
+    tq = (tq[:, 0] + tq[:, 1]) + (tq[:, 2] + tq[:, 3])
+    return _fma(mq, sc, np.log(lq)), tq / lq
+
+
+def _bwd_schedule(q, k, v, g, n, lse, delta, q_rows, k_rows):
+    """The two kernels' schedule: dq of the query rows q_rows (per key
+    chunk S and dP in 3xTF32, p = exp(s / 8 - lse), ds = p (dp - D) / 8,
+    keys past n at 0, dq += a fresh 3xTF32 partial of ds K), dk and dv of
+    the key rows k_rows (per query chunk S^T, dP^T, p^T, ds^T from the
+    chunk's lse and D, rows past n at lse = +inf and D = 0; dk += ds^T Q,
+    dv += p^T g, each a fresh partial), all float32."""
+    sc = np.float32(0.125)
+    dq = np.zeros((len(q_rows), 64), np.float32)
+    for c0 in range(0, k.shape[0], 64):
+        s = _tc(q[q_rows], k[c0:c0 + 64].T)
+        dp = _tc(g[q_rows], v[c0:c0 + 64].T)
+        p = np.exp(_fma(s, sc, -lse[q_rows][:, None]))
+        ds = (p * (dp - delta[q_rows][:, None])) * sc
+        ds[:, np.arange(c0, c0 + 64) >= n] = 0
+        dq = dq + _tc(ds, k[c0:c0 + 64])
+    dk = np.zeros((len(k_rows), 64), np.float32)
+    dv = np.zeros((len(k_rows), 64), np.float32)
+    for c0 in range(0, q.shape[0], 64):
+        st = _tc(k[k_rows], q[c0:c0 + 64].T)
+        dpt = _tc(v[k_rows], g[c0:c0 + 64].T)
+        with np.errstate(invalid="ignore"):
+            pt = np.exp(_fma(st, sc, -lse[c0:c0 + 64][None]))
+        dst = (pt * (dpt - delta[c0:c0 + 64][None])) * sc
+        dk = dk + _tc(dst, q[c0:c0 + 64])
+        dv = dv + _tc(pt, g[c0:c0 + 64])
+    return dq, dk, dv
+
+
+def _bwd_ref(q, k, v, g, n):
+    """float64 dq, dk, dv of softmax(q k^T / 8) v over the first n rows."""
+    q, k, v, g = (x[:n].astype(np.float64) for x in (q, k, v, g))
+    s = q @ k.T / 8.0
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    dp = g @ v.T
+    ds = p * (dp - (p * dp).sum(-1, keepdims=True)) / 8.0
+    return ds @ k, ds.T @ q, p.T @ g, p, dp
+
+
+def _padded_qkvg(rng, n, std_g):
+    """q, k, v, g of n rows, zero to whole 64-row chunks (as TMA fills the
+    chunks past n)."""
+    rows = -(-n // 64) * 64
+    out = []
+    for std in (1.0, 1.0, 1.0, std_g):
+        x = np.zeros((rows, 64), np.float32)
+        x[:n] = rng.standard_normal((n, 64)) * std
+        out.append(x)
+    return out
+
+
+@pytest.mark.parametrize("n", [256, 200, 144, 64, 37])
+def test_self_attention_bwd_schedule_is_float32_accurate(n):
+    """self_attention_bwd_f32 on the flash kernels: the dq kernel's row
+    statistics made from the keys (lse and D = sum p dp, rows past n
+    padded as lse = +inf, D = 0), then both kernels' products, for one head
+    at the layer's token counts (whole, and ragged at 200, 144 and 37), against
+    float64; lse and D against float64 too."""
+    rng = np.random.default_rng(n + 7)
+    q, k, v, g = _padded_qkvg(rng, n, 0.1)
+    lse, delta = _row_stats(q, k, g, v, n)
+    rows = q.shape[0]
+    lse[n:], delta[n:] = np.inf, 0
+    dq, dk, dv = _bwd_schedule(q, k, v, g, n, lse, delta, np.arange(n), np.arange(n))
+    rdq, rdk, rdv, p, dp = _bwd_ref(q, k, v, g, n)
+    s64 = q[:n].astype(np.float64) @ k[:n].T.astype(np.float64) / 8.0
+    ref_lse = s64.max(-1) + np.log(np.exp(s64 - s64.max(-1, keepdims=True)).sum(-1))
+    assert rows % 64 == 0
+    assert _rel(lse[:n], ref_lse) <= MARGIN * F32_KERNEL_REL_L2
+    assert _rel(delta[:n], (p * dp).sum(-1)) <= MARGIN * F32_KERNEL_REL_L2
+    for name, got, ref in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        assert _rel(got, ref) <= MARGIN * F32_KERNEL_REL_L2, (name, _rel(got, ref))
+
+
+@pytest.mark.parametrize("n", [1024, 576])
+def test_flash_bwd_schedule_is_float32_accurate(n):
+    """flash_attention_bwd_f32's two kernels at the 512 px token count (and
+    a last 128-row block of 64 rows): D = rowsum(g o) by each row's two
+    threads (32 columns each, FMA, then added), lse the forward's, and the
+    products of 8 query rows' dq and 8 key rows' dk, dv against float64."""
+    rng = np.random.default_rng(n)
+    q, k, v, g = _padded_qkvg(rng, n, 0.1)
+    rdq, rdk, rdv, p, dp = _bwd_ref(q, k, v, g, n)
+    o = (p @ v[:n].astype(np.float64)).astype(np.float32)
+    halves = []
+    for h in range(2):
+        acc = np.zeros(n, np.float32)
+        for c in range(32 * h, 32 * h + 32):
+            acc = _fma(g[:n, c], o[:, c], acc)
+        halves.append(acc)
+    delta = halves[0] + halves[1]
+    s64 = q[:n].astype(np.float64) @ k[:n].T.astype(np.float64) / 8.0
+    lse = (s64.max(-1) + np.log(np.exp(s64 - s64.max(-1, keepdims=True)).sum(-1))).astype(
+        np.float32)
+    rows = np.array([0, 1, 63, 64, 300, 511, n - 2, n - 1])
+    dq, dk, dv = _bwd_schedule(q, k, v, g, n, lse, delta, rows, rows)
+    for name, got, ref in (("dq", dq, rdq[rows]), ("dk", dk, rdk[rows]), ("dv", dv, rdv[rows])):
+        assert _rel(got, ref) <= MARGIN * F32_KERNEL_REL_L2, (name, _rel(got, ref))
+
+
+def test_row_quads_hold_every_key_once():
+    """The row statistics' index map: the four threads of a row's quad hold
+    the keys 8 j + 2 t4 + e of each chunk, every key once (so the merged
+    max and sums see the whole row), and their accumulators s[4 j + 2 h +
+    e] of rows r (h = 0) and r + 8 (h = 1) are the m64n64 accumulator
+    layout's (row 8 (i / 2) + .., column 8 j + 2 t4 + i % 2 for s[4 j + i])."""
+    assert sorted(c for t4 in range(4) for c in _thread_keys(t4)) == list(range(64))
+    for t4 in range(4):
+        for j in range(8):
+            for h in range(2):
+                for e in range(2):
+                    i = 2 * h + e  # the accumulator s[4 j + i]
+                    assert (i // 2, 8 * j + 2 * t4 + i % 2) == (h, _thread_keys(t4)[2 * j + e])
+
+
+def _ring_schedule(mode, n_chunks, items):
+    """The split ring's positions in the kernel's order and each consumer
+    run's positions: per chunk dq takes K, V (S and dP), then K^T (dS K);
+    its self-attention mode first a pass of K, V per chunk; dk/dv takes Q,
+    g (S^T and dP^T), then Q^T, g^T (dk and dv). Returns the runs of one
+    warpgroup: (item, positions, reads the item)."""
+    runs, p = [], 0
+    for it in range(items):
+        passes = 2 if mode == "dq_stats" else 1
+        for pas in range(passes):
+            for c in range(n_chunks):
+                last_t0 = pas == passes - 1 and c == n_chunks - 1
+                runs.append((it, [p, p + 1], True, last_t0))
+                p += 2
+                if mode == "dq_stats" and pas == 0:
+                    continue
+                width = 2 if mode == "dkv" else 1
+                runs.append((it, list(range(p, p + width)), False, False))
+                p += width
+    return runs, p
+
+
+@pytest.mark.parametrize("mode", ["dq", "dq_stats", "dkv"])
+@pytest.mark.parametrize("n_chunks", [1, 2, 3, 4, 16])
+def test_turns_and_split_ring_never_deadlock(mode, n_chunks):
+    """The ping-pong protocol of the consumer warpgroups over the ring of
+    four split slots, run as a state machine: warpgroup 0's run i, then
+    warpgroup 1's run i, then warpgroup 0's run i + 1 (the turns); a run
+    waits for its positions to be split and for its item; the splitters
+    fill position p once both warpgroups have released p - 4; an item is
+    loaded once both have finished their last run that reads the previous
+    one. Every run of three items completes."""
+    runs, n_pos = _ring_schedule(mode, n_chunks, 3)
+    released = {0: set(), 1: set()}
+    item_done = {0: set(), 1: set()}
+    split, nxt = 0, {0: 0, 1: 0}  # positions split; each warpgroup's next run
+    turn = 0
+    while min(nxt.values()) < len(runs):
+        progressed = False
+        # the splitters, in order
+        while split < n_pos and (split < 4 or all(split - 4 in released[w] for w in (0, 1))):
+            split, progressed = split + 1, True
+        w = turn
+        if nxt[w] < len(runs):
+            it, pos, reads_item, last_t0 = runs[nxt[w]]
+            loaded = it == 0 or all(it - 1 in item_done[x] for x in (0, 1))
+            if all(x < split for x in pos) and (loaded or not reads_item):
+                released[w].update(pos)
+                if last_t0:
+                    item_done[w].add(it)
+                nxt[w] += 1
+                turn, progressed = 1 - w, True
+        assert progressed, (mode, n_chunks, nxt, split)

@@ -40,8 +40,20 @@ __device__ __forceinline__ uint64_t part_desc(const unsigned char* part, int kk)
   return sw128_desc(part + (kk >> 2) * BOX_BYTES + (kk & 3) * 32, 16, 1024);
 }
 
+// x's TF32 parts: tf32_split's, or (FAST) tf32_split_fast's
+template <bool FAST>
+__device__ __forceinline__ void split_parts(float x, uint32_t& hi, uint32_t& lo) {
+  if (FAST) {
+    tf32_split_fast(x, hi, lo);
+  } else {
+    tf32_split(x, hi, lo);
+  }
+}
+
 // Splitter `sid` (0..SPLITTERS-1) of the producer warps: its share of the
-// raw chunk `src` into the parts hi and lo, K as it is or (is_v) V^T.
+// raw chunk `src` into the parts hi and lo, K as it is or (is_v) V^T; FAST:
+// the parts by tf32_split_fast (flash_attention_bwd_f32.cu).
+template <bool FAST = false>
 __device__ __forceinline__ void split_chunk(const unsigned char* src, unsigned char* hi,
                                             unsigned char* lo, bool is_v, int sid) {
   if (!is_v) {
@@ -49,10 +61,10 @@ __device__ __forceinline__ void split_chunk(const unsigned char* src, unsigned c
     for (int e = sid; e < RAW_BYTES / 16; e += SPLITTERS) {
       const float4 v = reinterpret_cast<const float4*>(src)[e];
       uint32_t h[4], l[4];
-      tf32_split(v.x, h[0], l[0]);
-      tf32_split(v.y, h[1], l[1]);
-      tf32_split(v.z, h[2], l[2]);
-      tf32_split(v.w, h[3], l[3]);
+      split_parts<FAST>(v.x, h[0], l[0]);
+      split_parts<FAST>(v.y, h[1], l[1]);
+      split_parts<FAST>(v.z, h[2], l[2]);
+      split_parts<FAST>(v.w, h[3], l[3]);
       reinterpret_cast<uint4*>(hi)[e] = make_uint4(h[0], h[1], h[2], h[3]);
       reinterpret_cast<uint4*>(lo)[e] = make_uint4(l[0], l[1], l[2], l[3]);
     }
@@ -76,10 +88,10 @@ __device__ __forceinline__ void split_chunk(const unsigned char* src, unsigned c
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       uint4 hv, lv;
-      tf32_split(j ? v[0].y : v[0].x, hv.x, lv.x);
-      tf32_split(j ? v[1].y : v[1].x, hv.y, lv.y);
-      tf32_split(j ? v[2].y : v[2].x, hv.z, lv.z);
-      tf32_split(j ? v[3].y : v[3].x, hv.w, lv.w);
+      split_parts<FAST>(j ? v[0].y : v[0].x, hv.x, lv.x);
+      split_parts<FAST>(j ? v[1].y : v[1].x, hv.y, lv.y);
+      split_parts<FAST>(j ? v[2].y : v[2].x, hv.z, lv.z);
+      split_parts<FAST>(j ? v[3].y : v[3].x, hv.w, lv.w);
       const int off = sw_off(c + j, 8 * kg + 4 * h);
       *reinterpret_cast<uint4*>(hi + off) = hv;
       *reinterpret_cast<uint4*>(lo + off) = lv;

@@ -1,64 +1,86 @@
 // flash_attention_bwd_f32: dq, dk, dv of o = softmax(q k^T / sqrt(64)) v per
-// (image, head), float32 q, k, v, o and g, N tokens with N % 64 == 0, at
-// float32 accuracy on the tensor cores (3xTF32 wgmma): the float32 form of
-// flash_attention_bwd.cu.
+// (image, head), float32 q, k, v and g (the gradient of o), at float32
+// accuracy on the tensor cores (3xTF32 wgmma); and, on the same two
+// kernels, self_attention_bwd_f32, the training layer's self-attention
+// backward in float32.
 //
-// Replaces transformer_latent_diffusion_tpu/ops/attention.py::
-// _pallas_attention_bwd (`_flash_bwd_kernel`, pallas_call at attention.py:247,
-// K4a, 512 <= N <= 2048) and ::_pallas_attention_bwd_tiled
-// (`_flash_bwd_tiled_kernel`, pallas_call at attention.py:313, K4b, N <= 8192)
-// when their inputs are float32 (TrainConfig(compute_dtype="float32"), the
-// JAX package's default, past 256 tokens: finetune_highres to 512 and 1024
-// px, multires buckets). The TPU kernels compute in q's dtype: in float32 p
-// and ds / sqrt(dh) are not rounded and every sum is float32.
+// Replaces, when their inputs are float32 (TrainConfig(compute_dtype=
+// "float32"), the JAX package's default):
+// - transformer_latent_diffusion_tpu/ops/attention.py::_pallas_attention_bwd
+//   (`_flash_bwd_kernel`, pallas_call at attention.py:247, K4a, 512 <= N <=
+//   2048) and ::_pallas_attention_bwd_tiled (`_flash_bwd_tiled_kernel`,
+//   pallas_call at attention.py:313, K4b, N <= 8192): finetune_highres to
+//   512 and 1024 px, multires buckets;
+// - the self-attention backward of transformer_latent_diffusion_tpu/ops/
+//   fused_layer_vjp.py::_bwd_kernel (:221-236, pallas_call at :289; K2) and
+//   of ops/fused_attn_vjp.py::_bwd_kernel (pallas_call at :276; K6), N <=
+//   256, ragged N allowed.
+// The TPU kernels compute in the weights' dtype: in float32 p and ds / 8
+// are not rounded and every sum is float32.
 //
-// What bounds it on the H100: five products of 2 N^2 64 operations per
-// (image, head), float32, each run as three TF32 products: at 512 px (B =
-// 64, 12 heads, N = 1024) 515 GFLOP of float32 work, 3.12 ms at 495 / 3
-// TFLOP/s; at 1024 px (B = 16, N = 4096) 2.06 TFLOP, 12.5 ms. The bytes
-// (q, k, v, o, g in, dq, dk, dv out: 1.6 GB at 512 px) take 0.48 ms. This
-// design recomputes q k^T and g v^T in both kernels (7 products, 4.4 ms of
-// TF32 work at 512 px).
+// What bounds it on the H100: operations. The function needs five products
+// of 2 N^2 64 operations per (image, head), each run as three TF32
+// products: at 512 px (B = 64, 12 heads, N = 1024) 515 GFLOP of float32
+// work, 3.12 ms at 495 / 3 TFLOP/s; at 1024 px (B = 16, N = 4096) 12.5 ms;
+// in the 256 px layer (B = 128, N = 256) 0.39 ms. The bytes take less (q,
+// k, v, o, g in, dq, dk, dv out: 1.6 GB at 512 px, 0.48 ms).
 //
-// What this design does about that. flash_attention_bwd.cu's split into two
-// kernels (dq, which also writes D = rowsum(g o); then dk and dv, so every
-// output element has one writer and every sum a fixed order: two launches
-// are bit-equal), built on flash_attention_f32.cu's float32 machinery
-// (f32_chunk.cuh):
+// What this design does about that. Two kernels, dq then dk/dv, so every
+// output element has one writer and every sum a fixed order (two launches
+// are bit-equal). They recompute S = Q K^T and dP = g V^T in both (7
+// products; the flash route) and, in the self-attention mode, the dq
+// kernel first makes each row's statistics itself in a pass of S and dP
+// over the keys (the layer's recompute keeps neither o nor lse): 9
+// products, 0.70 ms of 3xTF32 work at the 256 px layer's shapes.
 // - A persistent grid (one block per SM) walks work items (image, head,
-//   128-row block): query rows for dq, key rows for dk/dv; the blocks of a
-//   head one after another, so the SMs that run at once share L2.
+//   128-row block): query rows for dq, key rows for dk/dv.
 // - The item's two operands of 128 rows (Q and g for dq, K and V for dk/dv)
-//   arrive by TMA, 128-byte swizzled, as they are stored, into one 64 KB
-//   buffer. They are the A operands of the products whose rows they are:
-//   each consumer thread splits its 4 values of a K step into TF32 parts
-//   in registers as the step is issued (no parts kept: 128 registers of
-//   them would not fit beside the accumulators).
-// - The other side streams through in chunks of 64 rows (K and V for dq, Q
-//   and g for dk/dv). One producer thread brings each chunk with TMA into
-//   a ring of two raw slots; the producer warpgroup's three other warps
-//   split it into a ring of four split slots (hi and lo parts, 32 KB):
-//   as it is (the B operand of a product over the head columns: S = Q K^T,
-//   dP = g V^T, S^T = K Q^T, dP^T = V g^T) and transposed, in the key
-//   order of each 8 that puts the score accumulators straight into the A
-//   fragments (the B operand of a product over the chunk's rows: dq += dS
-//   K, dk += dS^T Q, dv += P^T g). dq splits a K chunk both ways and a V
-//   chunk as it is (3 slots a chunk); dk/dv splits Q and g both ways (4).
+//   arrive by TMA through 3-D maps over (B, N, columns), 128-byte swizzled,
+//   as they are stored, into one 64 KB buffer: rows past N arrive as zeros,
+//   never as the next image's rows. They are the A operands of the products
+//   whose rows they are. The dq kernel splits its 64 query rows' fragments
+//   into TF32 parts once an item and keeps them in 64 registers; the other
+//   operand (and in dk/dv both) each consumer thread splits 4 values at a
+//   time as a K step is issued, the next step's values read while the
+//   tensor cores run this one. Every split is hopper.cuh's tf32_split_fast
+//   (hi rounded to nearest by an integer add and mask, lo = x - hi left for
+//   the tensor cores to read: 3 instructions a value where the cvt.rna form
+//   takes 10).
+// - The other side streams in chunks of 64 rows (K and V for dq, Q and g
+//   for dk/dv). One producer thread brings each chunk by TMA into a ring of
+//   two raw slots; the producer warpgroup's three other warps split it
+//   (f32_chunk.cuh's split_chunk, its fast form) into a ring of four split
+//   slots of 32 KB (hi and lo parts), as it is (the B operand of a product
+//   over the head columns: S, dP, S^T = K Q^T, dP^T = V g^T) and
+//   transposed, keys in the order of each 8 that puts the score
+//   accumulators straight into A fragments (the B operand of a product over
+//   the chunk's rows: dq += dS K, dk += dS^T Q, dv += P^T g). Per chunk dq
+//   takes K, V, K^T; dk/dv Q, g, Q^T, g^T, in that order, so the slots a
+//   chunk's first products wait for are those the previous chunk's first
+//   products freed.
 // - Two consumer warpgroups (`setmaxnreg`: 232 registers, the producer's 40)
-//   own 64 rows of the item each and share every split chunk, so a split
-//   is paid once per 128 rows. Per chunk, each product is 8 K steps of 3
-//   TF32 `wgmma` m64n64k8 (the small terms first) into a fresh 64 x 64
-//   float32 tile; the tile is added into the running dq (or dk, dv) with
-//   ordinary float32 rounding, since the tensor cores may add with
-//   truncation and one chain over 4096 rows would drift past float32
-//   accuracy. p = exp(s / 8 - lse) by `expf`, ds = p (dp - D) / 8, neither
-//   rounded.
-// - dk/dv reads the chunk's 64 lse and D values by a bulk copy into a ring
-//   of two 512-byte slots.
-// Rows of a ragged last 128-row block (N % 128 == 64) past N arrive as
-// zeros: query rows past N add nothing to dk and dv in the dk/dv kernel
-// (they are never streamed: chunks run to N) and are not stored by the dq
-// kernel; keys past N are not stored.
+//   own 64 rows of the item each and share every split chunk. A chunk is two
+//   runs of wgmma per warpgroup: S and dP together (16 K steps of three
+//   m64n64k8 TF32 wgmma, the small terms first, each product into a fresh
+//   64 x 64 tile), then the products over the chunk's rows (dq: 8 steps; dk
+//   and dv: 16). The warpgroups take the tensor cores in turns (two named
+//   barriers, ping-pong): a warpgroup hands the turn over once its run's
+//   last step is issued, then waits for its results and does its exponentials
+//   (p = exp(s / 8 - lse) by `expf`, ds = p (dp - D) / 8, neither rounded)
+//   while the other's run keeps the tensor cores busy. Each partial tile is
+//   added into the running dq (or dk, dv) with ordinary float32 rounding,
+//   since the tensor cores may add with truncation and one chain over 4096
+//   rows would drift past float32 accuracy.
+// - Flash route: the dq kernel writes D = rowsum(g o) for the dk/dv kernel,
+//   which reads the chunk's 64 lse and D values by a bulk copy into a ring
+//   of two 512-byte slots. Self-attention: the dq kernel's first pass over
+//   the keys carries each thread's running max m, sum l of exp(s / 8 - m)
+//   and sum t of exp(s / 8 - m) dp per row, merges them over the row's four
+//   threads in a fixed order, and writes lse = m / 8 + log l and D = t / l,
+//   rows past N (to the chunks' end) as lse = +inf and D = 0, so that those
+//   query rows add nothing in the dk/dv kernel.
+// Keys past N take p = 0 in the dq kernel; query rows past N are not
+// stored, nor are keys past N by the dk/dv kernel.
 // Shared memory: the 64 KB item, 4 x 32 KB split slots, 2 x 16 KB raw
 // slots, 1 KB of row statistics: 226 KB, one block per SM.
 
@@ -77,15 +99,17 @@ constexpr int ITEM_BYTES = 2 * CONSUMERS * RAW_BYTES;  // its two operands: 64 K
 constexpr int RAW_SLOTS = 2, SPLIT_SLOTS = 4, STAT_SLOTS = 2;
 constexpr int STAT_BYTES = 2 * TILE * 4;  // lse, then D, of a chunk's 64 queries
 constexpr float SCALE = 0.125f;           // 1 / sqrt(64)
+constexpr int TURN_BAR = 3;               // named barriers 3 and 4: the warpgroups' turns
 
-// split slots a chunk takes: dq K (as it is, transposed) and V (as it is);
-// dk/dv Q and g, each both ways
-constexpr int DQ_SPLITS = 3, DKV_SPLITS = 4;
+// DQ: the flash route's dq kernel (lse given, D = rowsum(g o) written);
+// DQ_STATS: the self-attention's (lse and D made from the keys, written);
+// DKV: the dk/dv kernel of both
+enum Mode { DQ, DQ_STATS, DKV };
 
-template <bool DKV>
+template <int MODE>
 constexpr int smem_bytes() {
   return 1024 + ITEM_BYTES + SPLIT_SLOTS * SPLIT_BYTES + RAW_SLOTS * RAW_BYTES +
-         (DKV ? STAT_SLOTS * STAT_BYTES : CONSUMERS * TILE * 4) +
+         (MODE == DKV ? STAT_SLOTS * STAT_BYTES : CONSUMERS * TILE * 4) +
          8 * (2 + 2 * RAW_SLOTS + 2 * SPLIT_SLOTS + 2 * STAT_SLOTS);
 }
 
@@ -115,12 +139,12 @@ __device__ __forceinline__ void acc_frag(const float (&s)[32], int kk, float (&x
   x[3] = s[4 * kk + 3];
 }
 
-// rows r, r + 8 of a 64 x 64 accumulator tile to (B*N, D) float32 rows,
-// head columns at `col`; rows at or past `limit` skipped
-__device__ __forceinline__ void store_rows(float* out, size_t row0, int r, int limit, int D,
+// rows r, r + 8 of a 64 x 64 accumulator tile to float32 rows `ld` elements
+// apart, head columns at `col`; rows at or past `limit` skipped
+__device__ __forceinline__ void store_rows(float* out, size_t row0, int r, int limit, int ld,
                                            int col, const float (&acc)[32]) {
-  float* o0 = out + (row0 + r) * D + col;
-  float* o1 = o0 + static_cast<size_t>(8) * D;
+  float* o0 = out + (row0 + r) * ld + col;
+  float* o1 = o0 + static_cast<size_t>(8) * ld;
 #pragma unroll
   for (int d = 0; d < 8; ++d) {
     if (r < limit) *reinterpret_cast<float2*>(o0 + 8 * d) = make_float2(acc[4 * d], acc[4 * d + 1]);
@@ -144,34 +168,197 @@ struct Ring {
   }
 };
 
-// dq of the warpgroup's 64 query rows of each item: D = rowsum(g o) first
-// (written to `delta` for the dk/dv kernel), then per key chunk S = Q K^T,
-// dP = g V^T, dS = P (dP - D) / 8, dq += dS K.
+// The consumer warpgroups' turns on the tensor cores: warpgroup wg takes
+// its turn at barrier TURN_BAR + wg, which completes when the other
+// warpgroup has passed the turn on (arrived). Warpgroup 1 passes once
+// before its first run and warpgroup 0 takes once after its last, so the
+// arrivals and waits pair up exactly.
+struct Turn {
+  int wg;
+  __device__ __forceinline__ void take() const { named_barrier(TURN_BAR + wg, 2 * 128); }
+  __device__ __forceinline__ void pass() const {
+    named_barrier_arrive(TURN_BAR + (wg ^ 1), 2 * 128);
+  }
+};
+
+// One run of 3xTF32 wgmma: NP (1 or 2) products of one chunk, each 8 K steps
+// into a fresh 64 x 64 tile: d0 = A0 B0, then d1 = A1 B1, B the split parts
+// (hi, then lo) at b0 / b1, A's float32 values of step kk given by f0 /
+// f1(kk, x) and split here, each step's three wgmma the small terms first.
+// Two steps are in flight; the next step's values are read while the
+// tensor cores run this one. The turn is passed on once the last step is
+// issued; returns with every product done.
+template <int NP, typename F0, typename F1>
+__device__ __forceinline__ void products(float (&d0)[32], const unsigned char* b0, F0 f0,
+                                         float (&d1)[32], const unsigned char* b1, F1 f1,
+                                         const Turn& turn) {
+  constexpr int STEPS = 8 * NP;
+  uint32_t fh[2][4], fl[2][4];
+  float x[4];
+  f0(0, x);
+#pragma unroll
+  for (int i = 0; i < STEPS; ++i) {
+    const int b = i & 1, kk = i & 7;
+    tf32_frag_fast(x, fh[b], fl[b]);
+    if (i + 1 < 8) {
+      f0(i + 1, x);
+    } else if (i + 1 < STEPS) {
+      f1(i - 7, x);
+    }
+    wgmma_fence();
+    const unsigned char* part = i < 8 ? b0 : b1;
+    float(&d)[32] = i < 8 ? d0 : d1;
+    const uint64_t dh = part_desc(part, kk), dl = part_desc(part + PART_BYTES, kk);
+    if (kk == 0) {
+      wgmma_m64n64k8_tf32_rs_first(d, fl[b], dh);
+    } else {
+      wgmma_m64n64k8_tf32_rs(d, fl[b], dh, 1);
+    }
+    wgmma_m64n64k8_tf32_rs(d, fh[b], dl, 1);
+    wgmma_m64n64k8_tf32_rs(d, fh[b], dh, 1);
+    wgmma_commit();
+    if (i == STEPS - 1) {
+      turn.pass();
+      wgmma_wait<0>();
+    } else if (i > 0) {
+      // the previous step's products are done: its fragments may be rewritten
+      wgmma_wait<1>();
+    }
+  }
+  fence_regs(d0);
+  if (NP == 2) fence_regs(d1);
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    fence_regs(fh[b]);
+    fence_regs(fl[b]);
+  }
+}
+
+// S and dP of a chunk as products<2> does them, S's A fragments given
+// split (the dq kernel's query rows, split once an item and kept in 64
+// registers): S's 24 wgmma go out at once, then dP's steps as products<2>
+// issues them.
+template <typename F1>
+__device__ __forceinline__ void products_pre(float (&d0)[32], const unsigned char* b0,
+                                             const uint32_t (&ah)[8][4],
+                                             const uint32_t (&al)[8][4], float (&d1)[32],
+                                             const unsigned char* b1, F1 f1, const Turn& turn) {
+  uint32_t fh[2][4], fl[2][4];
+  float x[4];
+  f1(0, x);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint64_t dh = part_desc(b0, kk), dl = part_desc(b0 + PART_BYTES, kk);
+    if (kk == 0) {
+      wgmma_m64n64k8_tf32_rs_first(d0, al[kk], dh);
+    } else {
+      wgmma_m64n64k8_tf32_rs(d0, al[kk], dh, 1);
+    }
+    wgmma_m64n64k8_tf32_rs(d0, ah[kk], dl, 1);
+    wgmma_m64n64k8_tf32_rs(d0, ah[kk], dh, 1);
+  }
+  wgmma_commit();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int b = i & 1;
+    tf32_frag_fast(x, fh[b], fl[b]);
+    if (i + 1 < 8) f1(i + 1, x);
+    wgmma_fence();
+    const uint64_t dh = part_desc(b1, i), dl = part_desc(b1 + PART_BYTES, i);
+    if (i == 0) {
+      wgmma_m64n64k8_tf32_rs_first(d1, fl[b], dh);
+    } else {
+      wgmma_m64n64k8_tf32_rs(d1, fl[b], dh, 1);
+    }
+    wgmma_m64n64k8_tf32_rs(d1, fh[b], dl, 1);
+    wgmma_m64n64k8_tf32_rs(d1, fh[b], dh, 1);
+    wgmma_commit();
+    if (i == 7) {
+      turn.pass();
+      wgmma_wait<0>();
+    } else {
+      wgmma_wait<1>();
+    }
+  }
+  fence_regs(d0);
+  fence_regs(d1);
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    fence_regs(fh[b]);
+    fence_regs(fl[b]);
+  }
+}
+
+// The self-attention's first pass, one chunk: each of the thread's rows r
+// (h = 0) and r + 8 (h = 1) over its 16 keys of the chunk (8 j + 2 t4 and
+// + 1, from key k0; keys at or past N left out): the running max m of s,
+// the sum l of exp(s / 8 - m / 8) and the sum t of exp(s / 8 - m / 8) dp,
+// both rescaled when m grows.
+__device__ __forceinline__ void stats_chunk(const float (&s)[32], const float (&dp)[32], int k0,
+                                            int N, int t4, float (&m)[2], float (&l)[2],
+                                            float (&t)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = m[h];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (k0 + 8 * j + 2 * t4 + e < N) mx = fmaxf(mx, s[4 * j + 2 * h + e]);
+    if (mx == -INFINITY) continue;  // no key of this thread yet
+    const float nm = -mx * SCALE;
+    const float cf = expf(fmaf(m[h], SCALE, nm));  // 0 for the first keys, 1 if m holds
+    float ls = 0.f, ts = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (k0 + 8 * j + 2 * t4 + e < N) {
+          const float ex = expf(fmaf(s[4 * j + 2 * h + e], SCALE, nm));
+          ls += ex;
+          ts = fmaf(ex, dp[4 * j + 2 * h + e], ts);
+        }
+    l[h] = fmaf(l[h], cf, ls);
+    t[h] = fmaf(t[h], cf, ts);
+    m[h] = mx;
+  }
+}
+
+// dq of the warpgroup's 64 query rows of each item. DQ: D = rowsum(g o)
+// first (written to `delta` for the dk/dv kernel). DQ_STATS: a first pass
+// of S and dP over the key chunks for lse and D (both written, rows past N
+// padded). Then per key chunk S = Q K^T and dP = g V^T, dS = P (dP - D) / 8
+// with P = exp(S / 8 - lse), dq += dS K.
+template <int MODE>
 __device__ __forceinline__ void consume_dq(const unsigned char* item_buf, const Ring& ring,
-                                           uint64_t* ifull, uint64_t* iempty, float* dsh,
-                                           const float* __restrict__ o,
-                                           const float* __restrict__ g,
-                                           const float* __restrict__ lse,
+                                           const Turn& turn, uint64_t* ifull, uint64_t* iempty,
+                                           float* dsh, const float* __restrict__ o,
+                                           const float* __restrict__ g, float* __restrict__ lse,
                                            float* __restrict__ delta, float* __restrict__ dq,
-                                           int B, int N, int H, int o_row, int g_row, int wg,
-                                           int wt) {
+                                           int B, int N, int H, int o_row, int g_row,
+                                           int out_row, int wg, int wt) {
   const int lane = wt & 31;
   const int t4 = lane & 3;
   const int r = (wt >> 5) * 16 + (lane >> 2);  // this thread's rows r, r + 8 of the 64
   const int n_blk = (N + BLOCK - 1) / BLOCK;
   const int items = B * H * n_blk;
-  const int n_chunks = N / TILE;
-  const int D = H * DH;
+  const int n_chunks = (N + TILE - 1) / TILE;
+  const int np = n_chunks * TILE;  // the statistics' row length
   float* dw = dsh + wg * TILE;
   const unsigned char* qa = item_buf + wg * RAW_BYTES;
   const unsigned char* ga = item_buf + (CONSUMERS + wg) * RAW_BYTES;
+  auto fq = [&](int kk, float(&x)[4]) { raw_frag(qa, r, 8 * kk + t4, x); };
+  auto fg = [&](int kk, float(&x)[4]) { raw_frag(ga, r, 8 * kk + t4, x); };
   int qi = 0, p = 0;
   for (int it = blockIdx.x; it < items; it += gridDim.x, ++qi) {
     const Item item(it, n_blk, H);
     const int q0 = item.r0 + wg * TILE;  // this warpgroup's first query
     const size_t bh = static_cast<size_t>(item.b) * H + item.h;
-    // D of the warpgroup's 64 rows: two threads a row, 32 columns each
-    {
+    const int r0 = q0 + r, r1 = r0 + 8;
+    float d0, d1, nl0, nl1;  // D and -lse of rows r0, r1
+    if constexpr (MODE == DQ) {
+      // D of the warpgroup's 64 rows: two threads a row, 32 columns each
       const int rr = wt >> 1, half = wt & 1, row = q0 + rr;
       float acc = 0.f;
       if (row < N) {
@@ -191,49 +378,103 @@ __device__ __forceinline__ void consume_dq(const unsigned char* item_buf, const 
       acc += __shfl_xor_sync(0xffffffffu, acc, 1);
       if (!half) {
         dw[rr] = acc;
-        if (row < N) delta[bh * N + row] = acc;
+        if (row < N) delta[bh * np + row] = acc;
       }
+      named_barrier(1 + wg, 128);
+      d0 = dw[r];
+      d1 = dw[r + 8];
+      nl0 = r0 < N ? -lse[bh * np + r0] : 0.f;
+      nl1 = r1 < N ? -lse[bh * np + r1] : 0.f;
+      named_barrier(1 + wg, 128);  // dw is read: the next item may write it
     }
-    named_barrier(1 + wg, 128);
-    const int r0 = q0 + r, r1 = r0 + 8;
-    const float d0 = dw[r], d1 = dw[r + 8];
-    const float nl0 = r0 < N ? -lse[bh * N + r0] : 0.f;
-    const float nl1 = r1 < N ? -lse[bh * N + r1] : 0.f;
-    named_barrier(1 + wg, 128);  // dw is read: the next item may write it
-
     mbar_wait(ifull, qi & 1);
+    uint32_t qh[8][4], ql[8][4];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      float x[4];
+      fq(kk, x);
+      tf32_frag_fast(x, qh[kk], ql[kk]);
+    }
+    if constexpr (MODE == DQ_STATS) {
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, t[2] = {0.f, 0.f};
+      for (int c = 0; c < n_chunks; ++c, p += 2) {
+        float s[32], dp[32];
+        const unsigned char* kc = ring.wait(p);
+        const unsigned char* vc = ring.wait(p + 1);
+        turn.take();
+        products_pre(s, kc, qh, ql, dp, vc, fg, turn);
+        ring.release(p);
+        ring.release(p + 1);
+        stats_chunk(s, dp, c * TILE, N, t4, m, l, t);
+      }
+      // the row's four threads merged, in one order: lse = m / 8 + log l,
+      // D = t / l
+      float lse_r[2], d_r[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mq = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
+        mq = fmaxf(mq, __shfl_xor_sync(0xffffffffu, mq, 2));
+        const float cf = expf(fmaf(m[h], SCALE, -mq * SCALE));
+        float lq = l[h] * cf, tq = t[h] * cf;
+        lq += __shfl_xor_sync(0xffffffffu, lq, 1);
+        tq += __shfl_xor_sync(0xffffffffu, tq, 1);
+        lq += __shfl_xor_sync(0xffffffffu, lq, 2);
+        tq += __shfl_xor_sync(0xffffffffu, tq, 2);
+        lse_r[h] = fmaf(mq, SCALE, logf(lq));
+        d_r[h] = tq / lq;
+      }
+      if (t4 == 0) {
+        // rows to the chunks' end (a last item may run past it)
+        if (r0 < np) {
+          lse[bh * np + r0] = r0 < N ? lse_r[0] : INFINITY;
+          delta[bh * np + r0] = r0 < N ? d_r[0] : 0.f;
+        }
+        if (r1 < np) {
+          lse[bh * np + r1] = r1 < N ? lse_r[1] : INFINITY;
+          delta[bh * np + r1] = r1 < N ? d_r[1] : 0.f;
+        }
+      }
+      // rows past N are not stored: any finite values do
+      nl0 = r0 < N ? -lse_r[0] : 0.f;
+      nl1 = r1 < N ? -lse_r[1] : 0.f;
+      d0 = r0 < N ? d_r[0] : 0.f;
+      d1 = r1 < N ? d_r[1] : 0.f;
+    }
+
     float acc[32];
 #pragma unroll
     for (int e = 0; e < 32; ++e) acc[e] = 0.f;
-    for (int c = 0; c < n_chunks; ++c, p += DQ_SPLITS) {
+    for (int c = 0; c < n_chunks; ++c, p += 3) {
       float s[32], dp[32];
       const unsigned char* kc = ring.wait(p);
-      chunk_products<true>(s, kc, kc + PART_BYTES,
-                           [&](int kk, float (&x)[4]) { raw_frag(qa, r, 8 * kk + t4, x); });
+      const unsigned char* vc = ring.wait(p + 1);
+      turn.take();
+      products_pre(s, kc, qh, ql, dp, vc, fg, turn);
       ring.release(p);
-      const unsigned char* vc = ring.wait(p + 2);
-      chunk_products<true>(dp, vc, vc + PART_BYTES,
-                           [&](int kk, float (&x)[4]) { raw_frag(ga, r, 8 * kk + t4, x); });
-      ring.release(p + 2);
-      // ds = p (dp - D) / 8, p = exp(s / 8 - lse): s[4 j + e] is row r + 8 (e / 2)
+      ring.release(p + 1);
+      if (c == n_chunks - 1 && wt == 0) mbar_arrive(iempty);  // the item is read
+      // ds = p (dp - D) / 8, p = exp(s / 8 - lse): s[4 j + e] is row r + 8 (e / 2),
+      // key 8 j + 2 t4 + e % 2 of the chunk; keys past N take p = 0
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const bool lo = e < 2;
           const float pr = expf(fmaf(s[4 * j + e], SCALE, lo ? nl0 : nl1));
-          s[4 * j + e] = pr * (dp[4 * j + e] - (lo ? d0 : d1)) * SCALE;
+          const float ds = pr * (dp[4 * j + e] - (lo ? d0 : d1)) * SCALE;
+          s[4 * j + e] = c * TILE + 8 * j + 2 * t4 + (e & 1) < N ? ds : 0.f;
         }
       }
-      const unsigned char* ktc = ring.wait(p + 1);
-      chunk_products<true>(dp, ktc, ktc + PART_BYTES,
-                           [&](int kk, float (&x)[4]) { acc_frag(s, kk, x); });
-      ring.release(p + 1);
+      const unsigned char* ktc = ring.wait(p + 2);
+      turn.take();
+      products<1>(dp, ktc, [&](int kk, float(&x)[4]) { acc_frag(s, kk, x); }, dp, ktc, fq,
+                  turn);
+      ring.release(p + 2);
 #pragma unroll
       for (int e = 0; e < 32; ++e) acc[e] += dp[e];
     }
-    if (wt == 0) mbar_arrive(iempty);  // every product that read the item is done
-    store_rows(dq, static_cast<size_t>(item.b) * N + q0, r, N - q0, D, item.h * DH + 2 * t4, acc);
+    store_rows(dq, static_cast<size_t>(item.b) * N + q0, r, N - q0, out_row, item.h * DH + 2 * t4,
+               acc);
   }
 }
 
@@ -241,20 +482,21 @@ __device__ __forceinline__ void consume_dq(const unsigned char* item_buf, const 
 // K Q^T, dP^T = V g^T, P^T = exp(S^T / 8 - lse), dS^T = P^T (dP^T - D) / 8,
 // dk += dS^T Q, dv += P^T g.
 __device__ __forceinline__ void consume_dkv(const unsigned char* item_buf, const Ring& ring,
-                                            uint64_t* ifull, uint64_t* iempty,
+                                            const Turn& turn, uint64_t* ifull, uint64_t* iempty,
                                             const unsigned char* stats, uint64_t* stat_full,
                                             uint64_t* stat_empty, float* __restrict__ dk,
-                                            float* __restrict__ dv, int B, int N, int H, int wg,
-                                            int wt) {
+                                            float* __restrict__ dv, int B, int N, int H,
+                                            int out_row, int wg, int wt) {
   const int lane = wt & 31;
   const int t4 = lane & 3;
   const int r = (wt >> 5) * 16 + (lane >> 2);
   const int n_blk = (N + BLOCK - 1) / BLOCK;
   const int items = B * H * n_blk;
-  const int n_chunks = N / TILE;
-  const int D = H * DH;
+  const int n_chunks = (N + TILE - 1) / TILE;
   const unsigned char* ka = item_buf + wg * RAW_BYTES;
   const unsigned char* va = item_buf + (CONSUMERS + wg) * RAW_BYTES;
+  auto fk = [&](int kk, float(&x)[4]) { raw_frag(ka, r, 8 * kk + t4, x); };
+  auto fv = [&](int kk, float(&x)[4]) { raw_frag(va, r, 8 * kk + t4, x); };
   int qi = 0, p = 0, sp = 0;
   for (int it = blockIdx.x; it < items; it += gridDim.x, ++qi) {
     const Item item(it, n_blk, H);
@@ -263,17 +505,16 @@ __device__ __forceinline__ void consume_dkv(const unsigned char* item_buf, const
     float dka[32], dva[32];
 #pragma unroll
     for (int e = 0; e < 32; ++e) dka[e] = dva[e] = 0.f;
-    for (int c = 0; c < n_chunks; ++c, p += DKV_SPLITS, ++sp) {
+    for (int c = 0; c < n_chunks; ++c, p += 4, ++sp) {
       // rows: this warpgroup's keys; columns: the chunk's queries
-      float sT[32], dpT[32], part[32];
+      float sT[32], dpT[32];
       const unsigned char* qc = ring.wait(p);
-      chunk_products<true>(sT, qc, qc + PART_BYTES,
-                           [&](int kk, float (&x)[4]) { raw_frag(ka, r, 8 * kk + t4, x); });
+      const unsigned char* gc = ring.wait(p + 1);
+      turn.take();
+      products<2>(sT, qc, fk, dpT, gc, fv, turn);
       ring.release(p);
-      const unsigned char* gc = ring.wait(p + 2);
-      chunk_products<true>(dpT, gc, gc + PART_BYTES,
-                           [&](int kk, float (&x)[4]) { raw_frag(va, r, 8 * kk + t4, x); });
-      ring.release(p + 2);
+      ring.release(p + 1);
+      if (c == n_chunks - 1 && wt == 0) mbar_arrive(iempty);  // the item is read
       const int st = sp % STAT_SLOTS;
       mbar_wait(&stat_full[st], (sp / STAT_SLOTS) & 1);
       const float* ls = reinterpret_cast<const float*>(stats + st * STAT_BYTES);
@@ -292,38 +533,42 @@ __device__ __forceinline__ void consume_dkv(const unsigned char* item_buf, const
         }
       }
       mbar_arrive(&stat_empty[st]);  // every consumer thread has read the slot
-      const unsigned char* qtc = ring.wait(p + 1);
-      chunk_products<true>(part, qtc, qtc + PART_BYTES,
-                           [&](int kk, float (&x)[4]) { acc_frag(dpT, kk, x); });
-      ring.release(p + 1);
-#pragma unroll
-      for (int e = 0; e < 32; ++e) dka[e] += part[e];
+      float pk[32], pv[32];
+      const unsigned char* qtc = ring.wait(p + 2);
       const unsigned char* gtc = ring.wait(p + 3);
-      chunk_products<true>(part, gtc, gtc + PART_BYTES,
-                           [&](int kk, float (&x)[4]) { acc_frag(sT, kk, x); });
+      turn.take();
+      products<2>(pk, qtc, [&](int kk, float(&x)[4]) { acc_frag(dpT, kk, x); }, pv, gtc,
+                  [&](int kk, float(&x)[4]) { acc_frag(sT, kk, x); }, turn);
+      ring.release(p + 2);
       ring.release(p + 3);
 #pragma unroll
-      for (int e = 0; e < 32; ++e) dva[e] += part[e];
+      for (int e = 0; e < 32; ++e) {
+        dka[e] += pk[e];
+        dva[e] += pv[e];
+      }
     }
-    if (wt == 0) mbar_arrive(iempty);
     const size_t row0 = static_cast<size_t>(item.b) * N + k0;
-    store_rows(dk, row0, r, N - k0, D, item.h * DH + 2 * t4, dka);
-    store_rows(dv, row0, r, N - k0, D, item.h * DH + 2 * t4, dva);
+    store_rows(dk, row0, r, N - k0, out_row, item.h * DH + 2 * t4, dka);
+    store_rows(dv, row0, r, N - k0, out_row, item.h * DH + 2 * t4, dva);
   }
 }
 
-// DKV = false: the dq kernel (item operands a0 = q, a1 = g; the stream r0 =
-// k, r1 = v). DKV = true: the dk/dv kernel (items a0 = k, a1 = v; the
-// stream r0 = q, r1 = g, with the chunk's lse and D).
-template <bool DKV>
+// DQ, DQ_STATS: the dq kernel (item operands a0 = q, a1 = g; the stream r0
+// = k, r1 = v; DQ_STATS streams them twice). DKV: the dk/dv kernel (items
+// a0 = k, a1 = v; the stream r0 = q, r1 = g, with the chunk's lse and D).
+// lse and D rows are N long rounded up to whole 64-row chunks.
+template <int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_f32_kernel(const __grid_constant__ CUtensorMap map_a0,
                      const __grid_constant__ CUtensorMap map_a1,
                      const __grid_constant__ CUtensorMap map_r0,
                      const __grid_constant__ CUtensorMap map_r1, const float* __restrict__ o,
-                     const float* __restrict__ g, const float* __restrict__ lse,
+                     const float* __restrict__ g, float* __restrict__ lse,
                      float* __restrict__ delta, float* __restrict__ out0,
-                     float* __restrict__ out1, int B, int N, int H, int o_row, int g_row) {
+                     float* __restrict__ out1, int B, int N, int H, int o_row, int g_row,
+                     int out_row) {
+  constexpr bool DKV_K = MODE == DKV;
+  constexpr int PASSES = MODE == DQ_STATS ? 2 : 1;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   unsigned char* item_buf = smem;
@@ -331,7 +576,7 @@ flash_bwd_f32_kernel(const __grid_constant__ CUtensorMap map_a0,
   unsigned char* raw = split + SPLIT_SLOTS * SPLIT_BYTES;
   unsigned char* extra = raw + RAW_SLOTS * RAW_BYTES;  // dq: D per row; dk/dv: the stat ring
   uint64_t* ifull = reinterpret_cast<uint64_t*>(
-      extra + (DKV ? STAT_SLOTS * STAT_BYTES : CONSUMERS * TILE * 4));
+      extra + (DKV_K ? STAT_SLOTS * STAT_BYTES : CONSUMERS * TILE * 4));
   uint64_t* iempty = ifull + 1;
   uint64_t* raw_full = iempty + 1;
   uint64_t* raw_empty = raw_full + RAW_SLOTS;
@@ -360,7 +605,7 @@ flash_bwd_f32_kernel(const __grid_constant__ CUtensorMap map_a0,
   __syncthreads();
   const int n_blk = (N + BLOCK - 1) / BLOCK;
   const int items = B * H * n_blk;
-  const int n_chunks = N / TILE;
+  const int n_chunks = (N + TILE - 1) / TILE;
 
   if (tid >= CONSUMERS * 128) {
     setmaxnreg_dec<40>();
@@ -384,70 +629,83 @@ flash_bwd_f32_kernel(const __grid_constant__ CUtensorMap map_a0,
                         item.r0 + TILE * w, item.b);
           }
         }
-        const size_t stat = (static_cast<size_t>(item.b) * H + item.h) * N;
-        for (int c = 0; c < n_chunks; ++c) {
+        const size_t stat = (static_cast<size_t>(item.b) * H + item.h) * n_chunks * TILE;
+        for (int pass = 0; pass < PASSES; ++pass) {
+          for (int c = 0; c < n_chunks; ++c) {
 #pragma unroll
-          for (int op = 0; op < 2; ++op, ++rp) {
-            const int slot = rp % RAW_SLOTS;
-            mbar_wait(&raw_empty[slot], ((rp / RAW_SLOTS) & 1) ^ 1);
-            mbar_arrive_expect_tx(&raw_full[slot], RAW_BYTES);
-            unsigned char* dst = raw + slot * RAW_BYTES;
-            const CUtensorMap* map = op ? &map_r1 : &map_r0;
-            tma_load_3d(dst, map, &raw_full[slot], col, c * TILE, item.b);
-            tma_load_3d(dst + BOX_BYTES, map, &raw_full[slot], col + 32, c * TILE, item.b);
-          }
-          if (DKV) {
-            const int st = sp % STAT_SLOTS;
-            mbar_wait(&stat_empty[st], ((sp / STAT_SLOTS) & 1) ^ 1);
-            mbar_arrive_expect_tx(&stat_full[st], STAT_BYTES);
-            unsigned char* dst = extra + st * STAT_BYTES;
-            bulk_load(dst, lse + stat + c * TILE, TILE * 4, &stat_full[st]);
-            bulk_load(dst + TILE * 4, delta + stat + c * TILE, TILE * 4, &stat_full[st]);
-            ++sp;
+            for (int op = 0; op < 2; ++op, ++rp) {
+              const int slot = rp % RAW_SLOTS;
+              mbar_wait(&raw_empty[slot], ((rp / RAW_SLOTS) & 1) ^ 1);
+              mbar_arrive_expect_tx(&raw_full[slot], RAW_BYTES);
+              unsigned char* dst = raw + slot * RAW_BYTES;
+              const CUtensorMap* map = op ? &map_r1 : &map_r0;
+              tma_load_3d(dst, map, &raw_full[slot], col, c * TILE, item.b);
+              tma_load_3d(dst + BOX_BYTES, map, &raw_full[slot], col + 32, c * TILE, item.b);
+            }
+            if (DKV_K) {
+              const int st = sp % STAT_SLOTS;
+              mbar_wait(&stat_empty[st], ((sp / STAT_SLOTS) & 1) ^ 1);
+              mbar_arrive_expect_tx(&stat_full[st], STAT_BYTES);
+              unsigned char* dst = extra + st * STAT_BYTES;
+              bulk_load(dst, lse + stat + c * TILE, TILE * 4, &stat_full[st]);
+              bulk_load(dst + TILE * 4, delta + stat + c * TILE, TILE * 4, &stat_full[st]);
+              ++sp;
+            }
           }
         }
       }
     } else if (pt >= 32) {
-      // the splitters: each raw chunk as it is, then transposed (dq's V: as
-      // it is only)
+      // the splitters, per chunk: r0 as it is, r1 as it is, then (but in
+      // the statistics pass) r0 transposed, and for dk/dv r1 transposed
       const int sid = pt - 32;
       int rp = 0, p = 0;
+      auto put = [&](const unsigned char* src, bool transposed) {
+        const int ss = p % SPLIT_SLOTS;
+        mbar_wait(&split_empty[ss], ((p / SPLIT_SLOTS) & 1) ^ 1);
+        unsigned char* hi = split + ss * SPLIT_BYTES;
+        split_chunk<true>(src, hi, hi + PART_BYTES, transposed, sid);
+        fence_proxy_async();  // the parts become visible to the wgmma reads
+        mbar_arrive(&split_full[ss]);
+        ++p;
+      };
       for (int it = blockIdx.x; it < items; it += gridDim.x) {
-        for (int c = 0; c < n_chunks; ++c) {
-#pragma unroll
-          for (int op = 0; op < 2; ++op, ++rp) {
-            const int slot = rp % RAW_SLOTS;
-            mbar_wait(&raw_full[slot], (rp / RAW_SLOTS) & 1);
-            const unsigned char* src = raw + slot * RAW_BYTES;
-            const int outs = (DKV || op == 0) ? 2 : 1;
-            for (int k = 0; k < outs; ++k, ++p) {
-              const int ss = p % SPLIT_SLOTS;
-              mbar_wait(&split_empty[ss], ((p / SPLIT_SLOTS) & 1) ^ 1);
-              unsigned char* hi = split + ss * SPLIT_BYTES;
-              split_chunk(src, hi, hi + PART_BYTES, k == 1, sid);
-              fence_proxy_async();  // the parts become visible to the wgmma reads
-              mbar_arrive(&split_full[ss]);
-            }
-            mbar_arrive(&raw_empty[slot]);
+        for (int pass = 0; pass < PASSES; ++pass) {
+          for (int c = 0; c < n_chunks; ++c, rp += 2) {
+            const int s0 = rp % RAW_SLOTS, s1 = (rp + 1) % RAW_SLOTS;
+            const unsigned char* src0 = raw + s0 * RAW_BYTES;
+            const unsigned char* src1 = raw + s1 * RAW_BYTES;
+            mbar_wait(&raw_full[s0], (rp / RAW_SLOTS) & 1);
+            put(src0, false);
+            mbar_wait(&raw_full[s1], ((rp + 1) / RAW_SLOTS) & 1);
+            put(src1, false);
+            if (pass == PASSES - 1) put(src0, true);
+            mbar_arrive(&raw_empty[s0]);
+            if (DKV_K) put(src1, true);
+            mbar_arrive(&raw_empty[s1]);
           }
         }
       }
     }
   } else {
     setmaxnreg_inc<232>();
+    const int wg = tid >> 7;
     const Ring ring{split, split_full, split_empty, tid & 127};
-    if (DKV) {
-      consume_dkv(item_buf, ring, ifull, iempty, extra, stat_full, stat_empty, out0, out1, B, N,
-                  H, tid >> 7, tid & 127);
+    const Turn turn{wg};
+    if (wg == 1) turn.pass();  // warpgroup 0 runs first
+    if constexpr (DKV_K) {
+      consume_dkv(item_buf, ring, turn, ifull, iempty, extra, stat_full, stat_empty, out0, out1,
+                  B, N, H, out_row, wg, tid & 127);
     } else {
-      consume_dq(item_buf, ring, ifull, iempty, reinterpret_cast<float*>(extra), o, g, lse, delta,
-                 out0, B, N, H, o_row, g_row, tid >> 7, tid & 127);
+      consume_dq<MODE>(item_buf, ring, turn, ifull, iempty, reinterpret_cast<float*>(extra), o, g,
+                       lse, delta, out0, B, N, H, o_row, g_row, out_row, wg, tid & 127);
     }
+    if (wg == 0) turn.take();  // warpgroup 1's last pass
   }
 }
 
 // a 3-D map over the float32 (B, N, row) view: columns [0, D), N tokens, B
-// images, 64-row x 32-column boxes, 128-byte swizzle
+// images, 64-row x 32-column boxes, 128-byte swizzle (rows past N read as
+// zeros)
 int view_map(CUtensorMap* map, const void* ptr, int B, int N, int D, int row) {
   const uint64_t dims[3] = {static_cast<uint64_t>(D), static_cast<uint64_t>(N),
                             static_cast<uint64_t>(B)};
@@ -458,13 +716,13 @@ int view_map(CUtensorMap* map, const void* ptr, int B, int N, int D, int row) {
                     CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-template <bool DKV>
-int launch(const void* a0, const void* a1, const void* r0, const void* r1, const float* o,
-           const float* g, const float* lse, float* delta, float* out0, float* out1, int B, int N,
+template <int MODE>
+int launch(const float* a0, const float* a1, const float* r0, const float* r1, const float* o,
+           const float* g, float* lse, float* delta, float* out0, float* out1, int B, int N,
            int H, int a0_row, int a1_row, int r0_row, int r1_row, int o_row, int g_row,
-           cudaStream_t stream) {
-  if (B < 1 || N < TILE || N % TILE || H < 1 || a0_row % 4 || a1_row % 4 || r0_row % 4 ||
-      r1_row % 4 || o_row % 4 || g_row % 4)
+           int out_row, cudaStream_t stream) {
+  if (B < 1 || N < 1 || H < 1 || a0_row % 4 || a1_row % 4 || r0_row % 4 || r1_row % 4 ||
+      o_row % 4 || g_row % 4 || out_row % 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const int D = H * DH;
   CUtensorMap ma0, ma1, mr0, mr1;
@@ -472,21 +730,23 @@ int launch(const void* a0, const void* a1, const void* r0, const void* r1, const
   if (int err = view_map(&ma1, a1, B, N, D, a1_row)) return err;
   if (int err = view_map(&mr0, r0, B, N, D, r0_row)) return err;
   if (int err = view_map(&mr1, r1, B, N, D, r1_row)) return err;
-  constexpr int smem = smem_bytes<DKV>();
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_f32_kernel<DKV>,
+  constexpr int smem = smem_bytes<MODE>();
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_f32_kernel<MODE>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int items = B * H * ((N + BLOCK - 1) / BLOCK);
-  flash_bwd_f32_kernel<DKV><<<items < sms ? items : sms, THREADS, smem, stream>>>(
-      ma0, ma1, mr0, mr1, o, g, lse, delta, out0, out1, B, N, H, o_row, g_row);
+  flash_bwd_f32_kernel<MODE><<<items < sms ? items : sms, THREADS, smem, stream>>>(
+      ma0, ma1, mr0, mr1, o, g, lse, delta, out0, out1, B, N, H, o_row, g_row, out_row);
   return static_cast<int>(cudaGetLastError());
 }
 
-static_assert(smem_bytes<true>() <= 232448 && smem_bytes<false>() <= 232448,
+static_assert(smem_bytes<DKV>() <= 232448 && smem_bytes<DQ>() <= 232448,
               "flash_attention_bwd_f32: shared memory past a block's 227 KB");
+
+constexpr int NMAX_SELF = 4 * TILE;  // the self-attention's tokens at most
 
 }  // namespace
 
@@ -501,8 +761,10 @@ LTD_API int ltd_flash_attention_bwd_f32_dq(const float* q, const float* k, const
                                            float* delta, float* dq, int B, int N, int n_heads,
                                            int q_row, int k_row, int v_row, int o_row, int g_row,
                                            void* stream) {
-  return launch<false>(q, g, k, v, o, g, lse, delta, dq, nullptr, B, N, n_heads, q_row, g_row,
-                       k_row, v_row, o_row, g_row, static_cast<cudaStream_t>(stream));
+  if (N % TILE) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<DQ>(q, g, k, v, o, g, const_cast<float*>(lse), delta, dq, nullptr, B, N,
+                    n_heads, q_row, g_row, k_row, v_row, o_row, g_row, n_heads * DH,
+                    static_cast<cudaStream_t>(stream));
 }
 
 // The same q, k, v, g, lse and the delta the dq kernel wrote (both 16-byte
@@ -512,7 +774,38 @@ LTD_API int ltd_flash_attention_bwd_f32_dkv(const float* q, const float* k, cons
                                             float* dk, float* dv, int B, int N, int n_heads,
                                             int q_row, int k_row, int v_row, int g_row,
                                             void* stream) {
-  return launch<true>(k, v, q, g, nullptr, g, lse, const_cast<float*>(delta), dk, dv, B, N,
-                      n_heads, k_row, v_row, q_row, g_row, g_row, g_row,
-                      static_cast<cudaStream_t>(stream));
+  if (N % TILE) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<DKV>(k, v, q, g, nullptr, g, const_cast<float*>(lse), const_cast<float*>(delta),
+                     dk, dv, B, N, n_heads, k_row, v_row, q_row, g_row, g_row, g_row,
+                     n_heads * DH, static_cast<cudaStream_t>(stream));
+}
+
+// The self-attention backward, its dq kernel. qkv: (B*N, 3D) float32 rows
+// [q | k | v] of the forward; dout: (B*N, D) float32, the gradient of the
+// attention's output; stats: 2 B n_heads Np float32 (Np = N rounded up to
+// a multiple of 64), written here (lse, then D, rows past N padded); dqkv:
+// (B*N, 3D) float32, its dq columns written here. D = n_heads * 64, 1 <= N
+// <= 256, all 16-byte aligned. Run it before ltd_self_attention_bwd_f32_dkv.
+LTD_API int ltd_self_attention_bwd_f32_dq(const float* qkv, const float* dout, float* stats,
+                                          float* dqkv, int B, int N, int n_heads, void* stream) {
+  const int D = n_heads * DH;
+  if (N > NMAX_SELF || n_heads < 1) return static_cast<int>(cudaErrorInvalidValue);
+  float* delta = stats + static_cast<size_t>(B) * n_heads * ((N + TILE - 1) / TILE) * TILE;
+  return launch<DQ_STATS>(qkv, dout, qkv + D, qkv + 2 * D, nullptr, dout, stats, delta, dqkv,
+                          nullptr, B, N, n_heads, 3 * D, D, 3 * D, 3 * D, D, D, 3 * D,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// Its dk/dv kernel: the same qkv, dout and the stats the dq kernel wrote;
+// the dk and dv columns of dqkv written here.
+LTD_API int ltd_self_attention_bwd_f32_dkv(const float* qkv, const float* dout,
+                                           const float* stats, float* dqkv, int B, int N,
+                                           int n_heads, void* stream) {
+  const int D = n_heads * DH;
+  if (N > NMAX_SELF || n_heads < 1) return static_cast<int>(cudaErrorInvalidValue);
+  float* lse = const_cast<float*>(stats);
+  float* delta = lse + static_cast<size_t>(B) * n_heads * ((N + TILE - 1) / TILE) * TILE;
+  return launch<DKV>(qkv + D, qkv + 2 * D, qkv, dout, nullptr, dout, lse, delta, dqkv + D,
+                     dqkv + 2 * D, B, N, n_heads, 3 * D, 3 * D, 3 * D, D, D, D, 3 * D,
+                     static_cast<cudaStream_t>(stream));
 }

@@ -597,6 +597,23 @@ __device__ __forceinline__ void tf32_frag(const float (&x)[4], uint32_t (&hi)[4]
   for (int i = 0; i < 4; ++i) tf32_split(x[i], hi[i], lo[i]);
 }
 
+// x's TF32 parts in three instructions where tf32_split takes ten (sm_90
+// has no cvt.rna.tf32.f32: it runs as four): hi = tf32(x), rounded to
+// nearest (ties away) as an integer add and mask (x finite), and lo = x -
+// hi, exact, kept as it is: the tensor cores read the top 19 bits of a
+// 32-bit TF32 operand, so lo counts as tf32(lo) or its truncation, and hi +
+// lo keeps ~21 of x's 24 bits either way.
+__device__ __forceinline__ void tf32_split_fast(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void tf32_frag_fast(const float (&x)[4], uint32_t (&hi)[4],
+                                               uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) tf32_split_fast(x[i], hi[i], lo[i]);
+}
+
 // d (64 x 64, float32) += A (64 x 8, TF32 in registers: tf32_frag's layout)
 // B (8 x 64, TF32 in shared memory, K-major: the only layout of the 32-bit
 // forms, which take no transpose flags); scale_d = 0: d = A B, d's old

@@ -47,7 +47,8 @@ SIGNATURES = {
     "ltd_layernorm_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "ltd_dwconv_gelu_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "ltd_weight_grad_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "ltd_self_attention_bwd_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "ltd_self_attention_bwd_f32_dq": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "ltd_self_attention_bwd_f32_dkv": (_P, _P, _P, _P, _I, _I, _I, _P),
     "ltd_cross_attention_bwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ltd_self_attention_bwd": (_P, _P, _P, _I, _I, _I, _I, _P),
     "ltd_cross_attention_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

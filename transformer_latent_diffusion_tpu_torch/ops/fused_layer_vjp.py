@@ -826,7 +826,8 @@ def self_attention_bwd(qkv, dout, n_heads: int, n_tokens: int):
     """Kernel wrapper of `self_attention_bwd_plain`: one kernel, one launch
     counted. On CUDA: qkv bf16, dout float32, head dim 64 and N <= 256 (a
     ragged last 64-token tile is masked in the kernel); float32 qkv takes
-    the float32 body (`fused_layer_vjp_f32.self_attention_bwd_f32`)."""
+    the float32 body (`fused_layer_vjp_f32.self_attention_bwd_f32`, two
+    kernels, counted there)."""
     if qkv.device.type == "cpu":
         return self_attention_bwd_plain(qkv, dout, n_heads, n_tokens)
     if qkv.dtype == torch.float32:

@@ -19,9 +19,10 @@ wrappers send each float32 call to a float32 body:
                            over weight_grad's work plan (128 x 128 tiles,
                            32-row stages), both operands split and
                            transposed on chip
-  self_attention_bwd_f32   csrc/attention_bwd_f32.cu: FFMA, one block a
-                           (head, batch element), query-major dq and row
-                           statistics, then key-major dk and dv
+  self_attention_bwd_f32   csrc/flash_attention_bwd_f32.cu's two kernels
+                           (K4's float32 body): dq, which first makes each
+                           row's log-sum-exp and D = sum p dp from the keys,
+                           then dk and dv; 3xTF32 `wgmma`, ragged N
   cross_attention_bwd_f32  csrc/attention_bwd.cu's SIMT body in float32
                            (`fused_layer_vjp.cross_attention_bwd`)
   dwconv_gelu_bwd_f32      csrc/dwconv_gelu_bwd.cu's TMA body with float32
@@ -32,9 +33,9 @@ wrappers send each float32 call to a float32 body:
 Each body counts its launches in this module's `LAUNCHES`, apart from the
 bf16 bodies' counts, so a float32 run shows no bf16 backward launch. The
 plain versions are those of `ops/fused_layer_vjp.py`, which take any
-dtype; CPU tensors run them. The float32 training path stops at 256
-tokens: past it, K4's and K5's backward have no float32 body yet (ROADMAP
-item 7).
+dtype; CPU tensors run them. Past 256 tokens float32 training takes the
+linen path's float32 bodies instead (`ops/attention.py`'s
+`flash_attention_bwd` and `ops/fused_mlp_vjp.py`).
 """
 
 from __future__ import annotations
@@ -57,12 +58,12 @@ F32 = torch.float32
 K2_LAUNCHES_PER_LAYER = {
     "ln_gemm_f32": 14, "self_attention_f32": 2, "cross_attention_f32": 2,
     "dwconv_gelu_f32": 2, "weight_grad_f32": 5, "dwconv_gelu_bwd_f32": 1,
-    "cross_attention_bwd_f32": 1, "self_attention_bwd_f32": 1,
+    "cross_attention_bwd_f32": 1, "self_attention_bwd_f32": 2,
     "layernorm_bwd": 3, "colsum": 4}
 # ... and of one float32 K6 pair (the "mlp" and "moe" FFNs' blocks)
 K6_LAUNCHES_PER_LAYER = {
     "ln_gemm_f32": 9, "self_attention_f32": 2, "cross_attention_f32": 2,
-    "weight_grad_f32": 3, "cross_attention_bwd_f32": 1, "self_attention_bwd_f32": 1,
+    "weight_grad_f32": 3, "cross_attention_bwd_f32": 1, "self_attention_bwd_f32": 2,
     "layernorm_bwd": 2, "colsum": 2}
 # of which ln_gemm_f32's and dwconv_gelu_f32's training modes
 # (`fused_stack_f32.MODE_LAUNCHES`): the recompute's LayerNorm products
@@ -105,7 +106,10 @@ def weight_grad_f32(dy, x):
 
 def self_attention_bwd_f32(qkv, dout, n_heads: int, n_tokens: int):
     """`lv.self_attention_bwd_plain` for float32 qkv (B*N, 3D) and dout
-    (B*N, D) on CUDA: float32 dqkv. Head dim 64, N <= 256; one launch."""
+    (B*N, D) on CUDA: float32 dqkv. Head dim 64, N <= 256 (ragged N
+    allowed). Two launches, counted both: dq, which also writes each row's
+    log-sum-exp and D into a scratch of 2 B H ceil(N / 64) 64 floats, then
+    dk and dv."""
     dev = fs._on_cuda("self_attention_bwd", qkv, dout)
     m, three_d = qkv.shape
     d = three_d // 3
@@ -114,10 +118,16 @@ def self_attention_bwd_f32(qkv, dout, n_heads: int, n_tokens: int):
                 "self_attention_bwd: float32 qkv (B*N, 3D) and dout (B*N, D), head dim 64")
     fs._require(0 < n_tokens <= 256 and m % n_tokens == 0,
                 f"self_attention_bwd: needs N <= 256 and (B*N) rows, got {n_tokens}")
+    fs._require(fs.tma_operand(qkv) and fs.tma_operand(dout),
+                "self_attention_bwd: qkv and dout must be contiguous and 16-byte aligned")
+    b = m // n_tokens
+    stats = torch.empty((2, b, n_heads, -(-n_tokens // 64) * 64), dtype=F32, device=dev)
     dqkv = torch.empty_like(qkv)
     lib = load_library()
-    LAUNCHES["self_attention_bwd_f32"] += 1
-    fs._check_launch(lib.ltd_self_attention_bwd_f32(fs._ptr(qkv), fs._ptr(dout), fs._ptr(dqkv),
-                                                    m // n_tokens, n_tokens, d, n_heads,
-                                                    fs._stream(dev)), "self_attention_bwd_f32")
+    stream = fs._stream(dev)
+    for part in ("dq", "dkv"):
+        LAUNCHES["self_attention_bwd_f32"] += 1
+        fs._check_launch(getattr(lib, f"ltd_self_attention_bwd_f32_{part}")(
+            fs._ptr(qkv), fs._ptr(dout), fs._ptr(stats), fs._ptr(dqkv), b, n_tokens, n_heads,
+            stream), f"self_attention_bwd_f32 ({part})")
     return dqkv
