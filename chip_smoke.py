@@ -2969,6 +2969,11 @@ def _fwd_bwd_ms(fn, inputs, g):
     return time_ms(run, reps=5, warmup=1)
 
 
+# ln_gemm_f32's training modes at ragged (M, N, K): M past a row block,
+# N = 4 mod 128, K = 8 mod 32
+LN_GEMM_F32_RAGGED = ((37, 132, 40), (300, 260, 200))
+
+
 def f32_train_bounds():
     """Least ms of each float32 training body at batch TB (each input read
     once, each output written once): the products, the attention's too, at
@@ -2985,12 +2990,12 @@ def f32_train_bounds():
     return {
         # dW of the five products, dY and X read, dW written
         "weight_grad_f32": bound(sum(4 * (r * n + r * k + n * k) for r, n, k in prods), flops, tc),
-        # the recompute's two LayerNorm products with their rows, and the
-        # five dX = dY W products
-        "ln_gemm_f32 (training modes)": bound(
-            4 * (2 * m * D + 4 * D * D + m * 4 * D + 2 * m * D)
-            + sum(4 * (r * n + n * k + r * k) for r, n, k in prods),
-            2 * m * 4 * D * D + flops, tc),
+        # the recompute's two LayerNorm products with their rows (x read,
+        # xn and the output written), and the five dX = dY W products
+        "ln_gemm_f32 return_xn": bound(4 * (2 * m * D + 4 * D * D + m * 4 * D + 2 * m * D),
+                                       2 * m * 4 * D * D, tc),
+        "ln_gemm_f32 w_transposed": bound(sum(4 * (r * n + n * k + r * k) for r, n, k in prods),
+                                          flops, tc),
         "dwconv_gelu_f32 (c)": bound(3 * m * HIDDEN * 4 + 10 * HIDDEN * 4, 26 * m * HIDDEN,
                                      F32_FLOP_S),
         # its five products (s, dp, dq, dk, dv) at float32 accuracy
@@ -3051,14 +3056,27 @@ def phase_float32_train_kernels():
     # (row, label, kernel, plain): each product of a layer apart
     wg = [(dqkv, xn), (dqc, xn), (dkv, cond), (dh, xn), (gy, act)]
     dx = [(dqkv, wqkv), (dqc, wq), (dkv, wkv), (dh, w1), (gy, w2)]
-    checks = [("ln_gemm_f32 (training modes)", f"ln_gemm_f32/LN rows out {lbl}",
+    checks = [("ln_gemm_f32 return_xn", f"ln_gemm_f32/LN rows out {lbl}",
                lambda w=w: cat(fs.ln_gemm(x, w, ln=ln, return_xn=True)),
                lambda w=w: cat(fs.ln_gemm_plain(x, w, ln=ln, return_xn=True)))
               for lbl, w in (("qkv", wqkv), ("q", wq))]
-    checks += [("ln_gemm_f32 (training modes)", f"ln_gemm_f32/dX {tuple(w.shape)}",
+    checks += [("ln_gemm_f32 w_transposed", f"ln_gemm_f32/dX {tuple(w.shape)}",
                 lambda u=u, w=w: fs.ln_gemm(u, w, out_dtype=f32, w_transposed=True),
                 lambda u=u, w=w: fs.ln_gemm_plain(u, w, out_dtype=f32, w_transposed=True))
                for u, w in dx]
+    # both modes at ragged shapes: M past a row block, N = 4 mod 128, K = 8 mod 32
+    for rm, rn_, rk in LN_GEMM_F32_RAGGED:
+        xr, ur = randn(rm, rk), randn(rm, rk, std=1e-2)
+        wr, wtr = randn(rn_, rk, std=rk ** -0.5), randn(rk, rn_, std=rk ** -0.5)
+        lnr = (1 + randn(rk, std=0.1), randn(rk, std=0.1))
+        shape = f"M={rm} N={rn_} K={rk}"
+        checks += [
+            ("ln_gemm_f32 return_xn", f"ln_gemm_f32/LN rows out {shape}",
+             lambda xr=xr, wr=wr, lnr=lnr: cat(fs.ln_gemm(xr, wr, ln=lnr, return_xn=True)),
+             lambda xr=xr, wr=wr, lnr=lnr: cat(fs.ln_gemm_plain(xr, wr, ln=lnr, return_xn=True))),
+            ("ln_gemm_f32 w_transposed", f"ln_gemm_f32/dX {shape}",
+             lambda ur=ur, wtr=wtr: fs.ln_gemm(ur, wtr, out_dtype=f32, w_transposed=True),
+             lambda ur=ur, wtr=wtr: fs.ln_gemm_plain(ur, wtr, out_dtype=f32, w_transposed=True))]
     checks += [("weight_grad_f32", f"weight_grad_f32 {tuple(u.shape)}^T {tuple(v.shape)}",
                 lambda u=u, v=v: lv.weight_grad(u, v), lambda u=u, v=v: lv.weight_grad_plain(u, v))
                for u, v in wg]
@@ -3092,19 +3110,22 @@ def phase_float32_train_kernels():
             raise AssertionError(f"{label} disagrees with its plain version")
         _bit_equal_twice(label, kern, tag)
         worst[row] = max(worst.get(row, 0.0), a)
-    _ptxas_report(tag, ("ln_gemm_f32_kernel", "weight_grad_f32_kernel",
+    _ptxas_report(tag, ("ln_gemm_f32_parts_kernel", "split_w_kernel", "ln_rows_kernel",
+                        "weight_grad_f32_kernel",
                         "flash_bwd_f32_kernel", "cross_attention_bwd_kernel",
                         "dwconv_gelu_bwd_kernel", "layernorm_bwd_kernel", "colsum_kernel"))
 
     def per_layer(fn, cases):
         return lambda: [fn(*cs) for cs in cases]
 
-    ln_modes = ([(x, wqkv, None, ln, None, f32, True), (x, wq, None, ln, None, f32, True)]
-                + [(u, w, None, None, None, f32, False, True) for u, w in dx])
+    xn_calls = [(x, wqkv, None, ln, None, f32, True), (x, wq, None, ln, None, f32, True)]
+    dx_calls = [(u, w, None, None, None, f32, False, True) for u, w in dx]
     results = {
         "weight_grad_f32": (per_layer(lv.weight_grad, wg), per_layer(lv.weight_grad_plain, wg)),
-        "ln_gemm_f32 (training modes)": (per_layer(fs.ln_gemm, ln_modes),
-                                         per_layer(fs.ln_gemm_plain, ln_modes)),
+        "ln_gemm_f32 return_xn": (per_layer(fs.ln_gemm, xn_calls),
+                                  per_layer(fs.ln_gemm_plain, xn_calls)),
+        "ln_gemm_f32 w_transposed": (per_layer(fs.ln_gemm, dx_calls),
+                                     per_layer(fs.ln_gemm_plain, dx_calls)),
         "dwconv_gelu_f32 (c)": (lambda: fs.dwconv_gelu(h, dw, dwb, HW, return_c=True),
                                 lambda: fs.dwconv_gelu_plain(h, dw, dwb, HW, return_c=True)),
         "self_attention_bwd_f32": (lambda: lv.self_attention_bwd(qkv, gy, HEADS, N),
@@ -3121,7 +3142,7 @@ def phase_float32_train_kernels():
     }
     timing = time_against_plain(results, tag)
     # one PyTorch call computing the same function, TF32 off: the products
-    # as u.t() @ v and dY @ W (the LayerNorm rows' mode has no one call);
+    # as u.t() @ v and dY @ W (the LayerNorm rows' mode has none);
     # the attention backwards and the depthwise one as autograd's backward
     # alone through SDPA and through the grouped conv2d + F.gelu
     hs = [t.contiguous().requires_grad_(True)
@@ -3134,8 +3155,8 @@ def phase_float32_train_kernels():
     cout = F.scaled_dot_product_attention(*cs)
     library = {
         "weight_grad_f32": time_ms(lambda: [u.t() @ v for u, v in wg]),
-        "ln_gemm_f32 (training modes)": None,
-        "ln_gemm_f32 (training modes) (dX = dY @ W)": time_ms(lambda: [u @ w for u, w in dx]),
+        "ln_gemm_f32 return_xn": None,
+        "ln_gemm_f32 w_transposed": time_ms(lambda: [u @ w for u, w in dx]),
         "dwconv_gelu_f32 (c)": None,
         "self_attention_bwd_f32": time_ms(
             lambda: torch.autograd.grad(out, hs, gh, retain_graph=True)),
@@ -3198,11 +3219,9 @@ def phase_float32_train_kernels():
         f"{torch.backends.cudnn.allow_tf32})")
     for name, (ms, plain_ms) in timing.items():
         lib = library.get(name)
-        extra = library.get(f"{name} (dX = dY @ W)")
         log(f"[{tag}] {name}: {ms:.4f} ms per layer, plain {plain_ms:.4f} ms, bound "
             f"{bounds[name][0]:.4f} ms ({bounds[name][1]}; {bounds[name][0] / ms:.1%} of it), "
-            f"library call {'none' if lib is None else f'{lib:.4f} ms'}"
-            + ("" if extra is None else f"; its dX products as dY @ W {extra:.4f} ms"))
+            f"library call {'none' if lib is None else f'{lib:.4f} ms'}")
     return worst, timing, library, bounds
 
 
@@ -5860,8 +5879,10 @@ def main():
              f2_launches["cross_attention_bwd_f32"]),
             ("dwconv_gelu_bwd_f32", "csrc/dwconv_gelu_bwd.cu", TPU_K2_BWD,
              f2_launches["dwconv_gelu_bwd_f32"]),
-            ("ln_gemm_f32 (training modes)", "csrc/ln_gemm_f32.cu", TPU_K2_BWD,
-             f2_launches["ln_gemm_f32 return_xn"] + f2_launches["ln_gemm_f32 w_transposed"]),
+            ("ln_gemm_f32 return_xn", "csrc/ln_gemm_f32.cu", TPU_K2_BWD,
+             f2_launches["ln_gemm_f32 return_xn"]),
+            ("ln_gemm_f32 w_transposed", "csrc/ln_gemm_f32.cu", TPU_K2_BWD,
+             f2_launches["ln_gemm_f32 w_transposed"]),
             ("dwconv_gelu_f32 (c)", "csrc/dwconv_gelu.cu", TPU_K2_BWD,
              f2_launches["dwconv_gelu_f32 return_c"]),
             ("K2 f32", "ops/fused_layer_vjp.py", TPU_K2_BWD,

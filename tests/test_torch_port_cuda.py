@@ -1812,6 +1812,91 @@ def test_float32_training_body_matches_plain_on_card(case, d):
 
 
 @pytest.mark.cuda
+def test_tma_wrappers_launch_in_a_thread_without_a_context_on_card():
+    """A thread that has made no CUDA runtime call has no current context,
+    and PyTorch's autograd worker runs a backward's wrappers in such a
+    thread once the caching allocator serves their tensors: the TMA
+    kernels' wrappers still launch there. Each call runs once here (its
+    blocks then cached, its outputs kept on the host), then in a fresh
+    thread: no error, bit-equal outputs."""
+    import threading
+
+    _need_card()
+    g = torch.Generator().manual_seed(7)
+
+    def r(*shape, std=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g) * std).to(device="cuda", dtype=dtype)
+
+    q, k, v = r(2, 512, 3 * 128).chunk(3, dim=-1)
+    gr = r(2, 512, 128, std=0.1)
+    o, lse = att._flash_forward(q, k, v, 2, with_lse=True)
+    x, w, wt, dy = r(300, 256), r(384, 256, std=1 / 16), r(256, 384, std=1 / 16), r(300, 256)
+    calls = {
+        "flash_attention_bwd_f32": lambda: att.flash_attention_bwd(q, k, v, gr, 2, o=o, lse=lse),
+        "ln_gemm_f32": lambda: fs.ln_gemm(x, w),
+        "ln_gemm_f32 w_transposed": lambda: fs.ln_gemm(dy, wt, out_dtype=torch.float32,
+                                                       w_transposed=True),
+        "ln_gemm (bf16)": lambda: fs.ln_gemm(x, w.to(torch.bfloat16), ln=(1 + x[0], x[1])),
+    }
+    for name, fn in calls.items():
+        want = [t.cpu() for t in _tuple(fn())]
+        torch.cuda.synchronize()
+        out = {}
+
+        def run():
+            try:
+                out["got"] = _tuple(fn())
+            except RuntimeError as err:
+                out["err"] = err
+
+        t = threading.Thread(target=run)
+        t.start()
+        t.join()
+        assert "err" not in out, (name, out.get("err"))
+        assert all(torch.equal(u.cpu(), v) for u, v in zip(out["got"], want)), name
+
+
+# ragged M (37, 300), N = 4 mod 128, K = 8 mod 32
+LN_GEMM_F32_TRAIN_SHAPES = [(37, 132, 40), (300, 260, 200), (37, 4, 8), (300, 388, 72)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["return_xn", "w_transposed"])
+@pytest.mark.parametrize("m,n,k", LN_GEMM_F32_TRAIN_SHAPES)
+def test_ln_gemm_f32_training_modes_ragged_on_card(mode, m, n, k):
+    """ln_gemm_f32's training modes (W's TF32 parts written by the split
+    pre-pass, the row pass for return_xn, the product on the parts with the
+    consumer warpgroups in turns) at ragged shapes against the plain
+    version, TF32 off: every output within rel-L2 1e-5, one launch in
+    LAUNCHES and in the mode's MODE_LAUNCHES, two launches bit-equal."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(m + n + k)
+
+    def r(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g) * std).cuda()
+
+    if mode == "return_xn":
+        a, w = r(m, k), r(n, k, std=k ** -0.5)
+        kw = {"ln": (1 + r(k, std=0.1), r(k, std=0.1)), "return_xn": True}
+    else:
+        a, w = r(m, k, std=1e-2), r(k, n, std=k ** -0.5)
+        kw = {"w_transposed": True}
+    want = _tuple(fs.ln_gemm_plain(a, w, out_dtype=torch.float32, **kw))
+    before, modes = f32.LAUNCHES["ln_gemm_f32"], dict(f32.MODE_LAUNCHES)
+    got = _tuple(fs.ln_gemm(a, w, out_dtype=torch.float32, **kw))
+    again = _tuple(fs.ln_gemm(a, w, out_dtype=torch.float32, **kw))
+    torch.cuda.synchronize()
+    assert f32.LAUNCHES["ln_gemm_f32"] == before + 2
+    assert f32.MODE_LAUNCHES[f"ln_gemm_f32 {mode}"] == modes[f"ln_gemm_f32 {mode}"] + 2
+    assert len(got) == len(want) == (2 if mode == "return_xn" else 1)
+    for u, v, x in zip(got, want, again):
+        assert u.shape == v.shape and u.dtype == torch.float32
+        assert _rel_l2(u, v) <= 1e-5, (mode, m, n, k)
+        assert torch.equal(u, x), (mode, m, n, k)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 192])
 def test_float32_layer_and_pair_match_plain_on_card(d):
     """One float32 K2 layer and one K6 pair, forward and backward through

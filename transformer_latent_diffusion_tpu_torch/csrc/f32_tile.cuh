@@ -1,9 +1,8 @@
-// The transposed 128 x 32 float32 tiles of the 3xTF32 GEMMs (ln_gemm_f32.cu's
-// W-transposed mode, gemm_bwd_f32.cu's weight_grad_f32).
+// The transposed 128 x 32 float32 tiles of gemm_bwd_f32.cu's weight_grad_f32.
 //
 // The 32-bit `wgmma` forms take K-major operands only. A B operand stored
-// N-major (W (K, N) of dX = dY W; X (M, K) of dW = dY^T X, whose reduction
-// runs over the rows) lands by TMA as stored: one unswizzled box of 32 rows
+// N-major (X (M, K) of dW = dY^T X, whose reduction runs over the rows)
+// lands by TMA as stored: one unswizzled box of 32 rows
 // of K (the reduction) x 128 floats of N, 16 KB, in a raw slot. The
 // producer warpgroup's three splitter warps then write it transposed into
 // its two TF32 parts (hopper.cuh's tf32_split: hi = tf32(x), lo = tf32(x -

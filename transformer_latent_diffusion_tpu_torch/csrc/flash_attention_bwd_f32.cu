@@ -99,7 +99,6 @@ constexpr int ITEM_BYTES = 2 * CONSUMERS * RAW_BYTES;  // its two operands: 64 K
 constexpr int RAW_SLOTS = 2, SPLIT_SLOTS = 4, STAT_SLOTS = 2;
 constexpr int STAT_BYTES = 2 * TILE * 4;  // lse, then D, of a chunk's 64 queries
 constexpr float SCALE = 0.125f;           // 1 / sqrt(64)
-constexpr int TURN_BAR = 3;               // named barriers 3 and 4: the warpgroups' turns
 
 // DQ: the flash route's dq kernel (lse given, D = rowsum(g o) written);
 // DQ_STATS: the self-attention's (lse and D made from the keys, written);
@@ -165,19 +164,6 @@ struct Ring {
   }
   __device__ __forceinline__ void release(int p) const {
     if (wt == 0) mbar_arrive(&empty[p % SPLIT_SLOTS]);
-  }
-};
-
-// The consumer warpgroups' turns on the tensor cores: warpgroup wg takes
-// its turn at barrier TURN_BAR + wg, which completes when the other
-// warpgroup has passed the turn on (arrived). Warpgroup 1 passes once
-// before its first run and warpgroup 0 takes once after its last, so the
-// arrivals and waits pair up exactly.
-struct Turn {
-  int wg;
-  __device__ __forceinline__ void take() const { named_barrier(TURN_BAR + wg, 2 * 128); }
-  __device__ __forceinline__ void pass() const {
-    named_barrier_arrive(TURN_BAR + (wg ^ 1), 2 * 128);
   }
 };
 

@@ -17,9 +17,18 @@
 // innermost first: dims[i] elements and box[i] per box; strides[i] bytes
 // between consecutive indices of dimension i + 1. Elements outside the
 // tensor read as zero and are not written. 0 on success.
+// cuTensorMapEncodeTiled needs a context current in the calling thread,
+// which a thread that has made no runtime call yet lacks (PyTorch's
+// autograd worker, whose tensors come from the caching allocator, runs a
+// backward's wrappers so): cudaFree(nullptr) makes the current device's
+// primary context current.
 static inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* ptr,
                              const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
                              CUtensorMapSwizzle swizzle) {
+  CUcontext ctx = nullptr;
+  if (cuCtxGetCurrent(&ctx) != CUDA_SUCCESS || ctx == nullptr) {
+    if (cudaFree(nullptr) != cudaSuccess) return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   CUresult r = cuTensorMapEncodeTiled(
       map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(ptr),
@@ -208,6 +217,18 @@ __device__ __forceinline__ void named_barrier(int id, int count) {
 __device__ __forceinline__ void named_barrier_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
+
+// Two consumer warpgroups' turns on the tensor cores (ping-pong; named
+// barriers 3 and 4): warpgroup wg takes its turn at barrier 3 + wg, which
+// completes when the other warpgroup has passed the turn on (arrived).
+// Warpgroup 1 passes once before its first run and warpgroup 0 takes once
+// after its last, so the arrivals and waits pair up exactly.
+struct Turn {
+  static constexpr int BAR = 3;
+  int wg;
+  __device__ __forceinline__ void take() const { named_barrier(BAR + wg, 2 * 128); }
+  __device__ __forceinline__ void pass() const { named_barrier_arrive(BAR + (wg ^ 1), 2 * 128); }
+};
 
 // 2^x as one MUFU.EX2 (`ex2.approx.ftz`: relative error ~2^-22; -inf gives 0)
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -612,6 +633,19 @@ __device__ __forceinline__ void tf32_frag_fast(const float (&x)[4], uint32_t (&h
                                                uint32_t (&lo)[4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) tf32_split_fast(x[i], hi[i], lo[i]);
+}
+
+// tf32_frag's parts in five instructions a value where it takes ten: hi
+// and lo each rounded to nearest (ties away) as an integer add and mask,
+// the same bits as cvt.rna for finite x (a NaN whose payload lies only in
+// the 13 dropped bits would come out as inf)
+__device__ __forceinline__ void tf32_frag_int(const float (&x)[4], uint32_t (&hi)[4],
+                                              uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    hi[i] = (__float_as_uint(x[i]) + 0x1000u) & 0xFFFFE000u;
+    lo[i] = (__float_as_uint(x[i] - __uint_as_float(hi[i])) + 0x1000u) & 0xFFFFE000u;
+  }
 }
 
 // d (64 x 64, float32) += A (64 x 8, TF32 in registers: tf32_frag's layout)

@@ -17,9 +17,12 @@ float32 accuracy; the other two run on the CUDA cores:
   ln_gemm_f32          csrc/ln_gemm_f32.cu: TMA + 3xTF32 `wgmma` GEMM
                        (A split in registers, W split in shared memory
                        as it lands) with the LayerNorm prologue and the
-                       bias / residual epilogue (the layer's five products;
-                       for the training layer also the float32 LayerNorm
-                       rows, and W read transposed for dX = dY W)
+                       bias / residual epilogue (the layer's five products).
+                       The training layer's modes (the float32 LayerNorm
+                       rows returned; W read transposed for dX = dY W) run
+                       a split pre-pass of W into its TF32 parts, a row
+                       pass for the rows, and the product on the parts,
+                       in one call
   self_attention_f32   csrc/self_attention_f32.cu: TMA + 3xTF32 `wgmma`
                        per (batch, head, 64-query tile), K and V split by
                        the producer warps, the exact float32 softmax in
