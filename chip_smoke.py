@@ -331,7 +331,7 @@ def _ptxas_report(tag, fragments):
             continue
         elif "spill stores" in line:
             found.setdefault(name, {})["spills"] = line.strip()
-        elif "registers" in line:
+        elif "Used" in line and "registers" in line:  # not C7519's "use of registers" note
             found.setdefault(name, {})["registers"] = line.split("Used")[1].split(",")[0].strip()
     for fn, info in sorted(found.items()):
         frag = next(f for f in fragments if f in fn)
@@ -5505,6 +5505,10 @@ def phase_microbatch(tr, smi):
 # flagship's 12 heads, then widths 64 and 1024
 F32_FLASH_CASES = ((HR_B, HR_N, HEADS), (XR_B, XR_N, HEADS), (B, N, HEADS),
                    (RAG_B, RAG_N, HEADS), (8, HR_N, 1), (8, HR_N, 16))
+# ragged (Nq, Nk) on both sides of the body's 64-key chunks and 128-query
+# items, self- and cross-shaped (2 images, 2 heads), with and without lse
+F32_FLASH_RAGGED = ((8, 8), (63, 65), (65, 63), (127, 129), (129, 127), (191, 193),
+                    (193, 257), (257, 191), (8, 257))
 # one float32 512 px Denoiser forward, kernels (K3 and K5's float32 bodies)
 # vs the plain float32 forward (rel-L2): measured 1.181e-06 on an H100 80GB
 # HBM3 at 700 W (random weights, batch 64); the bound leaves about 3x margin
@@ -5574,6 +5578,21 @@ def phase_float32_hires_kernels():
                 f"{'no slower than' if ms <= sdpa else f'{ms / sdpa:.2f}x'} SDPA")
             del heads_t
         del q, k, v
+        for nq, nk in F32_FLASH_RAGGED:
+            q = randn(2, nq, 128)
+            k, v = randn(2, nk, 256).chunk(2, dim=-1)
+            label = f"flash_attention_f32 B=2 Nq={nq} Nk={nk} D=128"
+            o, lse = att._flash_forward(q, k, v, 2, with_lse=True)
+            worst["flash_attention_f32"] = max(worst["flash_attention_f32"],
+                                               check(label, o, att.multi_head_attention(q, k, v, 2)))
+            s = att._heads(q, 2).double() @ att._heads(k, 2).double().transpose(-1, -2)
+            r_lse = rel_l2(lse, torch.logsumexp(s / 8, -1))
+            if not (torch.equal(o, att._flash_forward(q, k, v, 2)[0]) and r_lse <= 1e-6):
+                raise AssertionError(f"{label}: o with lse differs from o, or lse rel-L2 "
+                                     f"{r_lse:.3e} past 1e-6")
+        log(f"[{tag}] flash_attention_f32 at {len(F32_FLASH_RAGGED)} ragged (Nq, Nk): within "
+            f"the bound, o with lse bit-equal to o, lse within 1e-6 of torch.logsumexp")
+        del q, k, v, o, lse, s
         _ptxas_report(tag, ("flash_attention_f32_kernel",))
 
         m = HR_B * HR_N

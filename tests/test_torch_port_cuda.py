@@ -1527,10 +1527,12 @@ def test_float32_stack_matches_plain_on_card(quantize):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,heads", [(2, 256, 2), (3, 400, 1), (1, 1024, 16), (2, 8, 3),
-                                       (1, 1296, 2)])
+                                       (1, 1296, 2), (2, 63, 2), (2, 65, 1), (2, 127, 2),
+                                       (2, 129, 2), (2, 191, 1), (2, 193, 2), (2, 257, 2)])
 def test_flash_attention_f32_matches_plain_on_card(b, n, heads):
     """K3's float32 body on the strided q, k, v column views of a fused
-    float32 QKV (any width 64 x heads, ragged query and key tiles) against
+    float32 QKV (any width 64 x heads, ragged query and key tiles on both
+    sides of the kernel's 64-key chunks and 128-query items) against
     `attention_plain` in float32 with TF32 off: rel-L2 within 1e-5, one
     launch counted under flash_attention_f32 and none under the bf16 body,
     two launches bit-equal; and its cross form, Nq != Nk."""
@@ -1632,7 +1634,8 @@ def test_self_attention_bwd_f32_matches_plain_on_card(b, n, heads):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,nq,nk,heads", [(2, 1024, 1024, 2), (3, 400, 400, 1),
-                                           (2, 200, 521, 3)])
+                                           (2, 200, 521, 3), (2, 63, 65, 2), (2, 129, 127, 1),
+                                           (2, 193, 257, 2), (2, 8, 191, 2), (2, 257, 8, 1)])
 def test_flash_attention_f32_lse_on_card(b, nq, nk, heads):
     """K3's float32 body with the log-sum-exp: o bit-equal to the call
     without it, and each query row's lse within rel-L2 1e-6 of

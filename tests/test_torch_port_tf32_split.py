@@ -11,17 +11,18 @@ therefore sum one K step's products in a fresh partial (32 deep in
 ln_gemm_f32, one 64-key chunk in the attention bodies' P V) and add the
 partials in float32 with ordinary rounding. Here: the split itself, that
 schedule against float64 at the main path's K (768, 3072), in the
-attention chain (scores, exact softmax, split P, P V) and in
-flash_attention_f32's streaming form of it (an online softmax over 64-key
-chunks at 1024 and 4096 keys), within the card's bound of 1e-5 rel-L2
-with margin, the softmax's division, and the index maps the kernels use
-to feed P to P V and to transpose V (csrc/f32_chunk.cuh; no card
-needed). The backward kernels split with `tf32_split_fast` (lo left for
-the tensor cores to read, emulated as its truncation): their schedules
-(the self-attention's row statistics made from the keys, both kernels'
-products, each into a fresh tile) against float64 at the layer's and the
-512 px token counts, the row quads' key map, and their turns on the
-tensor cores over the ring of split slots, run as a state machine."""
+attention chain (scores, exact softmax, split P, P V), within the card's
+bound of 1e-5 rel-L2 with margin, the softmax's division, and the index
+maps the kernels use to feed P to P V and to transpose V
+(csrc/f32_chunk.cuh; no card needed). The backward kernels and
+flash_attention_f32 split with `tf32_split_fast` (lo left for the tensor
+cores to read, emulated as its truncation): their schedules (the forward's
+online softmax over 64-key chunks by ex2 at 400 to 4096 keys and its
+log-sum-exp; the self-attention's row statistics made from the keys, both
+backward kernels' products, each into a fresh tile) against float64 at
+the layer's and the 512 px and 1024 px token counts, the row quads' key
+map, and the kernels' turns on the tensor cores over their rings, run as
+state machines."""
 
 from __future__ import annotations
 
@@ -57,6 +58,14 @@ def tf32_trunc(x):
     return (bits & np.uint32(0xFFFFE000)).view(np.float32)
 
 
+def tf32_parts_as_stored(x):
+    """The parts flash_attention_f32's splitters store for K and V: x as it
+    is, read by the tensor cores as its truncation, and lo = x -
+    trunc(x) (exact), read truncated too."""
+    hi = tf32_trunc(x)
+    return hi, tf32_trunc(np.asarray(x, dtype=np.float32) - hi)
+
+
 def tf32_parts_fast(x):
     """`tf32_split_fast`'s parts as the tensor cores read them: hi =
     tf32(x) (the integer add and mask: `tf32_rna`'s formula), lo = x - hi
@@ -75,14 +84,15 @@ def _rz32(x64):
     return f
 
 
-def tc_product(a, b, flush=None, split=tf32_parts):
+def tc_product(a, b, flush=None, split=tf32_parts, split_b=None):
     """a (M, K) @ b (K, N), float32 operands, as the kernels issue it: per
     8-deep step lo b_hi, hi b_lo, hi b_hi, each an exact 8-term sum added
     into a float32 partial with truncation; every `flush` columns of K the
     partial is added into a float32 sum with rounding (None: one chain).
-    `split`: the operands' parts (round to nearest, or tf32_parts_trunc)."""
+    `split`: the operands' parts (round to nearest, or tf32_parts_fast);
+    `split_b`, if given, b's."""
     ah, al = split(a)
-    bh, bl = split(b)
+    bh, bl = (split_b or split)(b)
     total = np.zeros((a.shape[0], b.shape[1]), np.float32)
     part = np.zeros_like(total)
     for k0 in range(0, a.shape[1], 8):
@@ -221,53 +231,84 @@ def test_attention_chain_is_float32_accurate(n):
     assert _rel(o, ref) <= MARGIN * F32_KERNEL_REL_L2, (_rel(o, ref), plain)
 
 
+SCALE_LOG2E = np.float32(0.18033688011112042)  # log2(e) / 8, as the kernel rounds it
+LN2 = np.float32(0.69314718055994531)
+
+
+def _ex2(x):
+    """`ex2.approx.ftz.f32` as the emulation takes it: 2^x rounded to
+    float32, then moved by its relative error bound, 2^-22, up or down with
+    the parity of x's bits (a fixed sign that varies with the data)."""
+    x = np.ascontiguousarray(x, np.float32)
+    sign = np.where(x.view(np.uint32) & 1, 1.0, -1.0)
+    return (np.exp2(x.astype(np.float64)) * (1 + sign * 2.0 ** -22)).astype(np.float32)
+
+
 def _flash_schedule(q, k, v, n):
     """flash_attention_f32.cu's schedule for the query rows q against n keys
-    (k, v zero past n up to whole 64-key chunks, as TMA fills them): per
-    chunk S = Q K^T in 3xTF32 (one chain), keys past n at -inf, the running
-    max m over the chunk's scores, c = exp((m_old - m) / 8), e = exp(s / 8
-    - m / 8) in float32, each thread's sum of its 16 keys of a row (keys
-    8 j + 2 t4 and + 1) carried as l = l c + sum by FMA; P V in 3xTF32 into
-    a fresh partial (one chain per chunk) and O = O c + partial by FMA;
-    at the end the quad's four sums added as the shuffles add them, and
-    O / l."""
+    (k, v zero past n up to whole 64-key chunks, as TMA fills them), Q's
+    and P's TF32 parts `tf32_split_fast`'s, K's and V's as the splitters
+    store them (`tf32_parts_as_stored`): per chunk S = Q K^T in 3xTF32 (one
+    chain), keys past n at -inf; the row's offset nm = -(m C) (C = log2(e)
+    / 8, m the running max; +inf before the first chunk) as min(nm_old,
+    -(chunk max C)) in float32, c = ex2(nm - nm_old) where nm moved (else
+    1: a drift of ex2's error at 0 over the chunks would add up), e = ex2(s
+    C + nm) by one FFMA; each thread's sum of its 16 keys of a row (keys 8 j + 2 t4 and
+    + 1) carried as l = l c + sum by FMA; P V in 3xTF32 on P's fast parts
+    into a fresh partial (one chain per chunk) and O = O c + partial by
+    FMA; at the end the quad's four sums added as the shuffles add them,
+    O / l, and lse = log(l) - nm log(2) by FMA. Returns (o, lse)."""
     rows = q.shape[0]
-    m = np.full(rows, -np.inf, np.float32)
+    nm = np.full(rows, np.inf, np.float32)
     l = np.zeros((rows, 4), np.float32)
     o = np.zeros((rows, 64), np.float32)
-
-    def fma(a, b, c):  # a b + c rounded once to float32
-        return (a.astype(np.float64) * b.astype(np.float64) + c).astype(np.float32)
-
     for c0 in range(0, k.shape[0], 64):
-        s = tc_product(q, k[c0:c0 + 64].T)
+        s = tc_product(q, k[c0:c0 + 64].T, split=tf32_parts_fast, split_b=tf32_parts_as_stored)
         s[:, np.arange(c0, c0 + 64) >= n] = -np.inf
-        mx = np.maximum(m, s.max(-1))
-        cf = np.exp((m - mx) * np.float32(0.125))
-        e = np.exp(fma(s, np.float32(0.125), -mx[:, None].astype(np.float64) * 0.125))
+        new = np.minimum(nm, -(s.max(-1) * SCALE_LOG2E))
+        cf = np.where(new == nm, np.float32(1), _ex2(new - nm))
+        e = _ex2(_fma(s, SCALE_LOG2E, new[:, None]))
         pairs = e.reshape(rows, 8, 4, 2).sum(-1, dtype=np.float32)  # (rows, j, t4)
         sums = np.zeros((rows, 4), np.float32)
         for j in range(8):
             sums = sums + pairs[:, j]
-        l = fma(l, cf[:, None], sums)
-        o = fma(o, cf[:, None], tc_product(e, v[c0:c0 + 64]))
-        m = mx
-    return o / ((l[:, 0] + l[:, 1]) + (l[:, 2] + l[:, 3]))[:, None]
+        l = _fma(l, cf[:, None], sums)
+        o = _fma(o, cf[:, None], tc_product(e, v[c0:c0 + 64], split=tf32_parts_fast,
+                                            split_b=tf32_parts_as_stored))
+        nm = new
+    total = (l[:, 0] + l[:, 1]) + (l[:, 2] + l[:, 3])
+    return o / total[:, None], _fma(nm, -LN2, np.log(total))
+
+
+def _check_flash_schedule(rows, n):
+    """The schedule for `rows` query rows against n keys: o within a quarter
+    of the card's bound of float64, lse within the card test's 1e-6."""
+    rng = np.random.default_rng(n)
+    keys = -(-n // 64) * 64
+    q = rng.standard_normal((rows, 64)).astype(np.float32)
+    k = np.zeros((keys, 64), np.float32)
+    v = np.zeros((keys, 64), np.float32)
+    k[:n] = rng.standard_normal((n, 64))
+    v[:n] = rng.standard_normal((n, 64))
+    o, lse = _flash_schedule(q, k, v, n)
+    got = _rel(o, _attention_ref(q, k, v, n))
+    assert got <= MARGIN * F32_KERNEL_REL_L2, got
+    s64 = q.astype(np.float64) @ k[:n].T.astype(np.float64) / 8.0
+    ref_lse = s64.max(-1) + np.log(np.exp(s64 - s64.max(-1, keepdims=True)).sum(-1))
+    assert _rel(lse, ref_lse) <= 1e-6, _rel(lse, ref_lse)
 
 
 @pytest.mark.parametrize("n", [1024, 4096, 400])
 def test_flash_schedule_is_float32_accurate(n):
     """flash_attention_f32's streaming chain for 8 query rows at the 512 px
     and 1024 px token counts and a ragged grid's, against float64."""
-    rng = np.random.default_rng(n)
-    keys = -(-n // 64) * 64
-    q = rng.standard_normal((8, 64)).astype(np.float32)
-    k = np.zeros((keys, 64), np.float32)
-    v = np.zeros((keys, 64), np.float32)
-    k[:n] = rng.standard_normal((n, 64))
-    v[:n] = rng.standard_normal((n, 64))
-    got = _rel(_flash_schedule(q, k, v, n), _attention_ref(q, k, v, n))
-    assert got <= MARGIN * F32_KERNEL_REL_L2, got
+    _check_flash_schedule(8, n)
+
+
+def test_flash_schedule_cross_shaped_is_float32_accurate():
+    """The same for a cross-shaped call (Nq != Nk): 200 query rows against
+    521 keys, a ragged last chunk of 9."""
+    _check_flash_schedule(200, 521)
 
 
 def _slot(key):
@@ -326,6 +367,43 @@ def test_v_transpose_is_conflict_free_and_complete():
                 for i in range(4):
                     assert _slot(8 * kg + 2 * i + h) == 8 * kg + 4 * h + i
                     written.add((4 * dq + 2 * e + j, 8 * kg + 4 * h + i))
+    assert written == {(d, s) for d in range(64) for s in range(64)}
+
+
+def _vt_block(u):
+    """flash_attention_f32.cu's V^T split unit u (0..255): (kg, h, dq),
+    keys 8 kg + 2 i + h (i = 0..3) x head columns 4 dq .. 4 dq + 3."""
+    l3 = u & 7
+    dq = l3 | ((u >> 3) & 8)
+    kb = (((l3 >> 1) ^ (u >> 3)) & 7) | ((u >> 4) & 8)
+    return kb >> 1, kb & 1, dq
+
+
+def test_flash_v_transpose_blocks_are_conflict_free_and_complete():
+    """flash_attention_f32's V^T pass in 4 x 4 blocks: a unit reads 4 keys x
+    4 head columns (four 16-byte reads) and writes each column's 4 keys as
+    16 contiguous bytes of V^T (slots 8 kg + 4 h ..). Each quarter warp (8
+    consecutive units of a splitter warp, whose units start at multiples of
+    32) reads and writes 8 distinct 16-byte bank groups (one wavefront an
+    instruction, the least); every (dim, slot) is written once, with the key
+    _slot maps to it; the 16 bytes read are 4 columns of one row."""
+    written = set()
+    for q0 in range(0, 256, 8):
+        units = [_vt_block(u) for u in range(q0, q0 + 8)]
+        for i in range(4):
+            offs = [_sw_off(8 * kg + 2 * i + h, 4 * dq) for kg, h, dq in units]
+            assert all(_sw_off(8 * kg + 2 * i + h, 4 * dq + 3) == off + 12
+                       for (kg, h, dq), off in zip(units, offs))
+            assert sorted((off // 16) % 8 for off in offs) == list(range(8))
+        for j in range(4):
+            offs = [_sw_off(4 * dq + j, 8 * kg + 4 * h) for kg, h, dq in units]
+            assert sorted((off // 16) % 8 for off in offs) == list(range(8))
+            for kg, h, dq in units:
+                for i in range(4):
+                    assert _slot(8 * kg + 2 * i + h) == 8 * kg + 4 * h + i
+                    assert _sw_off(4 * dq + j, 8 * kg + 4 * h + i) == (
+                        _sw_off(4 * dq + j, 8 * kg + 4 * h) + 4 * i)
+                    written.add((4 * dq + j, 8 * kg + 4 * h + i))
     assert written == {(d, s) for d in range(64) for s in range(64)}
 
 
@@ -587,3 +665,32 @@ def test_turns_and_split_ring_never_deadlock(mode, n_chunks):
                 nxt[w] += 1
                 turn, progressed = 1 - w, True
         assert progressed, (mode, n_chunks, nxt, split)
+
+
+@pytest.mark.parametrize("raw_slots,split_slots", [(2, 6), (4, 4), (2, 4)])
+@pytest.mark.parametrize("n_chunks", [1, 2, 3, 4, 16])
+@pytest.mark.parametrize("items", [1, 3])
+def test_forward_turns_and_rings_never_deadlock(raw_slots, split_slots, n_chunks, items):
+    """flash_attention_f32's roles, run as a state machine over `items`
+    work items of one block: the TMA thread loads ring position p (per
+    chunk K, then V) into a raw slot once the splitters have split p -
+    raw_slots; the splitters split p once it is loaded and both consumer
+    warpgroups have released p - split_slots; each warpgroup's run r (S of
+    chunk r / 2, or P V) waits for position r to be split and for its turn
+    (warpgroup 0's run r, warpgroup 1's run r, warpgroup 0's run r + 1),
+    and releases r when done. Every run completes, at the ring depths the
+    kernel and its A/B variants build."""
+    n_pos = 2 * n_chunks * items
+    loaded = split = 0
+    released = {0: 0, 1: 0}  # positions below this one are released
+    turn = 0
+    while min(released.values()) < n_pos:
+        progressed = False
+        if loaded < n_pos and loaded - raw_slots < split:
+            loaded, progressed = loaded + 1, True
+        if split < loaded and split - split_slots < min(released.values()):
+            split, progressed = split + 1, True
+        r = released[turn]
+        if r < n_pos and r < split:
+            released[turn], turn, progressed = r + 1, 1 - turn, True
+        assert progressed, (raw_slots, split_slots, n_chunks, items, loaded, split, released)

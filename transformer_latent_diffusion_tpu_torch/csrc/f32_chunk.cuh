@@ -103,9 +103,11 @@ __device__ __forceinline__ void split_chunk(const unsigned char* src, unsigned c
 // fragments made by frag(kk, x) (the 4 floats of step kk, split here), B
 // the chunk's parts hi and lo, the small terms first (lo B_hi, hi B_lo,
 // hi B_hi). The first product ignores d's old values; WRITE_ONLY: it does
-// not take them as an input either (wgmma_m64n64k8_tf32_rs_first).
-// flash_attention_f32 takes that form; in self_attention_f32's 4-chunk
-// body it cost a 4-byte spill, so that kernel keeps the read-write one.
+// not take them as an input either (wgmma_m64n64k8_tf32_rs_first): the
+// per-step variant of flash_attention_f32's P V in
+// scripts/flash_attention_f32_ab.py takes that form; in self_attention_f32's
+// 4-chunk body it cost a 4-byte spill, so that kernel keeps the read-write
+// one.
 // The fragments are double-buffered; returns with every product done.
 template <bool WRITE_ONLY = false, typename Frag>
 __device__ __forceinline__ void chunk_products(float (&d)[32], const unsigned char* hi,
