@@ -2059,7 +2059,9 @@ def _width_step(d, mlp_class):
         raise AssertionError(f"the {route} step at D = {d} disagrees with the plain path")
     need = (("weight_grad", "layernorm_bwd", "cross_attention_bwd", "self_attention_bwd",
              "dwconv_gelu_bwd") if route == "K2" else
-            ("fused_attention_pair_vjp", "fused_attention_pair_vjp_bwd"))
+            ("fused_attention_pair_vjp", "fused_attention_pair_vjp_bwd", "pair_qkv",
+             "self_attention_x1", "pair_cross_fwd", "pair_cross_bwd", "pair_dkv",
+             "pair_ln_bwd"))
     missing = [k for k in need if not launches.get(k)]
     if missing:
         raise AssertionError(f"the {route} step at D = {d} launched no {missing}")
@@ -4337,19 +4339,61 @@ def _sdpa_pair(x, cond, params):
     return x1 + merge(F.scaled_dot_product_attention(heads(qc), heads(kc), heads(vc)))
 
 
+# the bf16 K6 route's kernels (ops/fused_attn_vjp.py; csrc/attn_pair.cu and
+# self_attention.cu's X1 body), as scripts/attn_pair_ab.py names their
+# calls: the JSON line's rows, with the wrapper whose count each row's
+# launches are (pair_cross_bwd's call also launches pair_dkv; each
+# pair_ln_bwd mode is one of the wrapper's two calls a backward)
+K6_ROUTE_ROWS = {"pair_qkv": "pair_qkv", "self_attention_x1": "self_attention_x1",
+                 "pair_cross_fwd": "pair_cross_fwd", "pair_cross_bwd + pair_dkv": "pair_cross_bwd",
+                 "pair_ln_bwd (LN2)": "pair_ln_bwd", "pair_ln_bwd (LN1)": "pair_ln_bwd"}
+K6_ROUTE_PTXAS = ("pair_gemm_kernel", "pair_dkv_kernel") + tuple(
+    f"self_attention_kernelILi{nt}ELb1" for nt in range(1, 5))
+
+
+def _route_bounds(b, n):
+    """(least ms, bound by) of each route kernel's call at (b, n): each
+    input read once, each output written once (bf16 2 bytes, float32 4,
+    the LayerNorm statistics 8 a row), or its products at the bf16 peak."""
+    m = b * n
+    lnb = m * 8 + D * 4  # statistics and the LayerNorm scale
+    part = -(-m // 128) * 2 * D * 4
+    return {
+        "pair_qkv": bound(m * D * 2 + 3 * D * D * 2 + m * 3 * D * 2 + m * D * 2 + m * 8,
+                          2 * m * D * 3 * D, BF16_TENSOR_FLOP_S),
+        "self_attention_x1": bound(m * 3 * D * 2 + m * D * 2 + m * D * 4,
+                                   4 * b * HEADS * n * n * 64, BF16_TENSOR_FLOP_S),
+        "pair_cross_fwd": bound(m * D * 4 + D * D * 2 + 4 * b * D * 2 + m * D * 2,
+                                2 * m * D * D, BF16_TENSOR_FLOP_S),
+        "pair_cross_bwd + pair_dkv": bound(
+            m * D * 4 + D * D * 2 + 4 * b * D * 2 + m * D * 2 + 2 * m * D * 2 + m * 8
+            + 4 * b * D * 2, 2 * m * D * D, BF16_TENSOR_FLOP_S),
+        "pair_ln_bwd (LN2)": bound(m * D * 2 + D * D * 2 + m * D * 4 + lnb + m * D * 2
+                                   + m * D * 4 + part, 2 * m * D * D, BF16_TENSOR_FLOP_S),
+        "pair_ln_bwd (LN1)": bound(m * 3 * D * 2 + 3 * D * D * 2 + m * D * 2 + lnb
+                                   + m * D * 4 + m * D * 2 + part, 2 * m * 3 * D * D,
+                                   BF16_TENSOR_FLOP_S),
+    }
+
+
 def phase_attn_pair_kernels():
     """self_attention and self_attention_bwd on ragged tiles (N = 144,
     200), K6 forward and backward (all nine outputs) at the training
-    shapes and on the ragged tiles, K8 and K9 at the 256 px serving shapes,
-    each against its plain version; K8's and K9's launches through their
-    entry points; times, bounds, and autograd through F.layer_norm +
-    F.linear + SDPA beside K6."""
+    shapes and on the ragged tiles, each kernel of its bf16 route against
+    its plain version there (two launches bit-equal, ptxas's registers and
+    spills), K8 and K9 at the 256 px serving shapes, each against its
+    plain version; K8's and K9's launches through their entry points;
+    times, bounds, the route's per-launch profile beside the composite's
+    it replaced, and autograd through F.layer_norm + F.linear + SDPA
+    beside K6."""
     from transformer_latent_diffusion_tpu_torch.ops import fused_attn_vjp as k6
     from transformer_latent_diffusion_tpu_torch.ops import fused_block as fb
     from transformer_latent_diffusion_tpu_torch.ops import fused_layer_vjp as lv
     from transformer_latent_diffusion_tpu_torch.ops import fused_stack as fs
+    from transformer_latent_diffusion_tpu_torch.scripts import attn_pair_ab as ab
 
     tag = "attn-pair-kernels"
+    _ptxas_report(tag, K6_ROUTE_PTXAS)
     dev = torch.device(DEVICE)
     gen = torch.Generator(device="cpu").manual_seed(8)
     bf = torch.bfloat16
@@ -4382,9 +4426,20 @@ def phase_attn_pair_kernels():
             + f" (bound {LAYER_GRAD_REL_L2}), max-abs {err_b:.3e}")
         if not (r < LAYER_FWD_REL_L2 and max(rels.values()) < LAYER_GRAD_REL_L2):
             raise AssertionError(f"K6 at N = {n} disagrees with its plain version")
+        cases = ab.kernel_cases(x, cond, g, params, n, HEADS)
+        for name, (kern, plain) in cases.items():
+            got, again = _tuple(kern()), _tuple(kern())
+            err = _check(f"{name} at B = {b}, N = {n}", got, _tuple(plain()), tag)
+            same = all(torch.equal(u, v) for u, v in zip(got, again))
+            log(f"[{tag}] {name} at B = {b}, N = {n}: two launches bit-equal: {same}")
+            if not same:
+                raise AssertionError(f"two launches of {name} differ")
+            if n == N:
+                worst[name] = err
         if n == N:
-            worst = {"fused_attention_pair_vjp": err_f, "fused_attention_pair_vjp_bwd": err_b}
-            main_case = (x, cond, g, params)
+            worst.update({"fused_attention_pair_vjp": err_f,
+                          "fused_attention_pair_vjp_bwd": err_b})
+            main_case, route_cases = (x, cond, g, params), cases
     torch.cuda.synchronize()
 
     x, cond, g, params = main_case
@@ -4404,6 +4459,8 @@ def phase_attn_pair_kernels():
     with torch.no_grad():
         sdpa_fwd = time_ms(lambda: _sdpa_pair(x, cond, params))
     sdpa_both = time_ms(sdpa_fwd_bwd)
+    comp_fwd = time_ms(lambda: k6.composite_fwd(x, cond, params, HEADS))
+    comp_bwd = time_ms(lambda: k6.composite_bwd(x, cond, g, params, HEADS))
     fwd_ops, bwd_ops = _pair_flops(TB, N)
     bounds = {"fused_attention_pair_vjp": bound(0, fwd_ops, BF16_TENSOR_FLOP_S),
               "fused_attention_pair_vjp_bwd": bound(0, bwd_ops, BF16_TENSOR_FLOP_S)}
@@ -4413,7 +4470,31 @@ def phase_attn_pair_kernels():
         f"backward with recompute {timing['fused_attention_pair_vjp_bwd'][0]:.4f} ms (bound "
         f"{bounds['fused_attention_pair_vjp_bwd'][0]:.4f}, {bwd_ops / 1e9:.1f} GFLOP), both "
         f"{k_both:.4f} ms; yardstick, autograd through F.layer_norm + F.linear + SDPA: "
-        f"forward {sdpa_fwd:.4f} ms, forward + backward {sdpa_both:.4f} ms")
+        f"forward {sdpa_fwd:.4f} ms, forward + backward {sdpa_both:.4f} ms; the composite of "
+        f"K1's and K2's kernels the route replaced: {comp_fwd:.4f} / {comp_bwd:.4f} ms")
+    library = {"fused_attention_pair_vjp": None, "fused_attention_pair_vjp_bwd": None,
+               "fused_attention_pair_vjp (autograd)": sdpa_fwd,
+               "fused_attention_pair_vjp_bwd (autograd, forward + backward)": sdpa_both}
+    for name, fn in (("forward", lambda: k6.route_fwd(x, cond, params, HEADS)),
+                     ("backward", lambda: k6.route_bwd(x, cond, g, params, HEADS)),
+                     ("composite forward", lambda: k6.composite_fwd(x, cond, params, HEADS)),
+                     ("composite backward",
+                      lambda: k6.composite_bwd(x, cond, g, params, HEADS))):
+        ab.breakdown(fn, f"K6 {name} at B = {TB}, N = {N}", lambda msg: log(f"[{tag}] {msg}"))
+
+    # the route's kernels at the training shapes, against their plain
+    # versions' times; self_attention_x1 beside SDPA on its q, k, v
+    timing.update(time_against_plain(route_cases, tag))
+    bounds.update(_route_bounds(TB, N))
+    library.update(dict.fromkeys(route_cases))
+    m = TB * N
+    qkv = k6.pair_qkv_plain(x.reshape(m, D), *params[:3])[0]
+    heads = qkv.reshape(TB, N, 3, HEADS, 64).permute(2, 0, 3, 1, 4)
+    library["self_attention_x1"] = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(heads[0], heads[1], heads[2]))
+    log(f"[{tag}] the route's kernels, least times: "
+        + ", ".join(f"{k} {bounds[k][0]:.4f} ms ({bounds[k][1]})" for k in route_cases)
+        + f"; SDPA on self_attention_x1's q, k, v {library['self_attention_x1']:.4f} ms")
 
     # K8 and K9 at the 256 px serving shapes, through their entry points
     x8, cond8, _, p8 = _pair_inputs(gen, B, N)
@@ -4453,7 +4534,9 @@ def phase_attn_pair_kernels():
         0, 4 * m * D * HIDDEN, BF16_TENSOR_FLOP_S)
     log(f"[{tag}] least times: "
         + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in bounds.items()))
-    library = dict.fromkeys(bounds)  # no one PyTorch call computes any of them
+    # no one PyTorch call computes K8 or K9
+    library.update({"fused_block.fused_attention_pair": None,
+                    "fused_block.fused_mlp_sepconv": None})
     library["fused_block.fused_attention_pair (equal work)"] = time_ms(pair_equal_work(*k8, HEADS))
     library["fused_block.fused_mlp_sepconv (equal work)"] = time_ms(sepconv_equal_work(
         x8, *k9[3:], HW, ln=k9[1:3]))
@@ -4644,11 +4727,18 @@ def phase_ffn_train(mlp_class, smi):
         f"launches of the step {per_step}")
     if not all(v[0] < FFN_GRAD_REL_L2[mlp_class] for v in stats.values()):
         raise AssertionError(f"the {mlp_class} step's gradients disagree with the plain path")
-    # K6 in every layer, forward and backward; no flash attention, and none
+    # K6 in every layer, forward and backward, through its bf16 route's
+    # kernels and none of the composite's own; no flash attention, and none
     # of K2's MLP kernels
+    from transformer_latent_diffusion_tpu_torch.ops import fused_attn_vjp as k6
+
+    route = {k: den.n_layers * (k6.ROUTE_LAUNCHES["forward"].get(k, 0)
+                                + k6.ROUTE_LAUNCHES["backward"].get(k, 0))
+             for k in k6.ROUTE_KERNELS}
     watch = {"fused_attention_pair_vjp": den.n_layers,
-             "fused_attention_pair_vjp_bwd": den.n_layers, "flash_attention": 0,
-             "dwconv_gelu": 0, "dwconv_gelu_bwd": 0}
+             "fused_attention_pair_vjp_bwd": den.n_layers, **route, "flash_attention": 0,
+             "dwconv_gelu": 0, "dwconv_gelu_bwd": 0, "cross_attention": 0,
+             "cross_attention_bwd": 0, "layernorm_bwd": 0}
     _require_launches({k: per_step.get(k, 0) for k in watch}, watch, f"the {mlp_class} step")
 
     step_ms = {}
@@ -5953,6 +6043,21 @@ def main():
         })
         if f"{name} (equal work)" in p_library:
             kernels[-1]["equal_work_ms"] = p_library[f"{name} (equal work)"]
+    kernels[-4]["autograd_ms"] = p_library["fused_attention_pair_vjp (autograd)"]
+    kernels[-3]["autograd_ms"] = p_library[
+        "fused_attention_pair_vjp_bwd (autograd, forward + backward)"]
+    # the bf16 K6 route's kernels: launches of the MoE model's train.main
+    # (each pair_ln_bwd mode half of the wrapper's count)
+    for row, counted in K6_ROUTE_ROWS.items():
+        launched = ffn_launches["moe"][counted]
+        src = "csrc/self_attention.cu" if row == "self_attention_x1" else "csrc/attn_pair.cu"
+        kernels.append({
+            "name": row, "route": "cuda", "source": f"{port}/{src}",
+            "replaces": TPU_K6_BWD if "bwd" in row else TPU_K6_FWD,
+            "launches": launched // 2 if counted == "pair_ln_bwd" else launched,
+            "max_abs_err": p_worst[row], "ms": p_timing[row][0], "plain_ms": p_timing[row][1],
+            "bound_ms": p_bounds[row][0], "bound_by": p_bounds[row][1],
+            "library_ms": p_library[row]})
     # the probes (no serving or training path runs them): S1's pair, and a
     # row per variant or mode of S3, S2 and S4 and per kernel mode they add;
     # launches are those of the probe's own run (a kernel mode's: its

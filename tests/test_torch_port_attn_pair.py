@@ -356,3 +356,198 @@ def test_fused_block_of_200_tokens_matches_jax_block():
     vecs = {k: v for k, v in errs.items() if k not in mats}
     assert max(mats.values()) < 0.006, mats
     assert max(vecs.values()) < 0.02, vecs
+
+
+# ------------------------------ K6's bf16 route ------------------------------
+
+# the route's kernels take head dim 64: D = 128, 2 heads; N = 16, a ragged
+# N whose 128-row tiles span many batch elements (13 tokens, 10 elements:
+# 130 rows), and N = 144, where a tile spans two elements as on the card
+RD, RH = 128, 2
+ROUTE_CASES = {"n16": (2, 16), "n13": (10, 13), "n144": (2, 144)}
+ROUTE_PLAIN = ("pair_qkv_plain", "self_attention_x1_plain", "pair_cross_fwd_plain",
+               "pair_cross_bwd_plain", "pair_dkv_plain", "pair_ln_bwd_plain")
+
+
+def _route_args(seed, b, n):
+    """The nine K6 inputs at width RD in the JAX layouts."""
+    rng = np.random.default_rng(seed)
+
+    def arr(*s, scale=0.2):
+        return (rng.standard_normal(s) * scale).astype(np.float32)
+
+    return [arr(b, n, RD, scale=0.5), arr(b, 2, RD, scale=0.5), 1 + arr(RD, scale=0.1),
+            arr(RD, scale=0.1), arr(RD, 3 * RD), 1 + arr(RD, scale=0.1), arr(RD, scale=0.1),
+            arr(RD, RD), arr(RD, 2 * RD)]
+
+
+def _route_in(args, requires_grad=False):
+    """The inputs in the port's layouts and dtypes (bf16 activations and
+    projections, float32 LayerNorm)."""
+    out = []
+    for name, a in zip(NAMES, args):
+        a = a.T.copy() if name in ("wqkv", "wq", "wkv") else a
+        t = torch.from_numpy(a).to(torch.bfloat16 if name in LOWP else torch.float32)
+        out.append(t.requires_grad_(requires_grad))
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(ROUTE_CASES))
+def test_k6_bf16_route_matches_jax_kernel(case):
+    """The bf16 route on CPU tensors (each kernel's plain version, in the
+    kernels' layouts: row tiles, per-element partials) against the JAX K6
+    in interpret mode, through the autograd function: the output within
+    rel-L2 2e-3 of the update and each of the nine gradients within 1e-2
+    (one-step flips of the bf16 roundings, sums in another order).
+
+    Measured: the update 1.3e-3 to 1.6e-3, the gradients at most 5.7e-3."""
+    b, n = ROUTE_CASES[case]
+    args = _route_args(11, b, n)
+    g = (np.random.default_rng(12).standard_normal((b, n, RD)) * 0.1).astype(np.float32)
+    jin = _jax_in(args, jnp.bfloat16)
+    jout, vjp = jax.vjp(lambda *a: jk6(*a, RH, True), *jin)
+    want = vjp(jnp.asarray(g, jnp.bfloat16))
+    tin = _route_in(args, requires_grad=True)
+    out = k6.fused_attention_pair_vjp(*tin, RH)
+    x = args[0]
+    fwd = rel_l2(_np(out) - x, np.asarray(jout, np.float32) - x)
+    out.backward(torch.from_numpy(g).to(torch.bfloat16))
+    errs = {name: rel_l2(_to_jax_layout(name, t.grad), np.asarray(w, np.float32))
+            for name, t, w in zip(NAMES, tin, want)}
+    print(f"{case}: update {fwd:.2e}, gradients {errs}")
+    assert fwd < 2e-3
+    assert max(errs.values()) < 1e-2, errs
+
+
+def test_k6_route_on_cpu_takes_the_plain_versions(monkeypatch):
+    """On CPU tensors in bf16 the entry points run the route with each
+    kernel's plain version, in the route's order, and launch nothing; the
+    results equal `route_fwd` / `route_bwd` run directly."""
+    b, n = ROUTE_CASES["n144"]
+    tin = _route_in(_route_args(13, b, n))
+    x, cond, params = tin[0], tin[1], tin[2:]
+    g = torch.randn(b, n, RD, generator=torch.Generator().manual_seed(14)).to(torch.bfloat16)
+    calls = []
+    for name in ROUTE_PLAIN:
+        real = getattr(k6, name)
+        monkeypatch.setattr(k6, name, lambda *a, _f=real, _n=name: calls.append(_n) or _f(*a))
+    fs.reset_launch_counts(), lv.reset_launch_counts(), k6.reset_launch_counts()
+    out = k6.fused_attention_pair_fwd(x, cond, *params, RH)
+    assert calls == ["pair_qkv_plain", "self_attention_x1_plain", "pair_cross_fwd_plain"]
+    calls.clear()
+    grads = k6.fused_attention_pair_bwd(x, cond, g, *params, RH)
+    # pair_cross_bwd_plain takes LN2 -> Q through pair_qkv_plain
+    assert calls == ["pair_qkv_plain", "self_attention_x1_plain", "pair_cross_bwd_plain",
+                     "pair_qkv_plain", "pair_dkv_plain", "pair_ln_bwd_plain",
+                     "pair_ln_bwd_plain"]
+    assert not any(fs.LAUNCHES.values()) and not any(lv.LAUNCHES.values())
+    assert not any(k6.LAUNCHES.values())
+    assert torch.equal(out, k6.route_fwd(x, cond, params, RH))
+    dx, dcond, rest = k6.route_bwd(x, cond, g, params, RH)
+    assert out.dtype == grads[0].dtype == grads[1].dtype == torch.bfloat16
+    for u, w in zip(grads, (dx, dcond, *rest)):
+        assert torch.equal(u, w.reshape(u.shape))
+
+
+def _route_stage_inputs(seed):
+    """The route's intermediate tensors at the "n13" case, each from the
+    plain versions: (x rows, cond rows, g rows, params, qkv, stats1, x1,
+    kv)."""
+    b, n = ROUTE_CASES["n13"]
+    tin = _route_in(_route_args(seed, b, n))
+    x, cond, params = tin[0].reshape(b * n, RD), tin[1].reshape(2 * b, RD), tin[2:]
+    g = (torch.randn(b * n, RD, generator=torch.Generator().manual_seed(seed)) * 0.1).to(
+        torch.bfloat16)
+    ln1s, ln1b, wqkv, ln2s, ln2b, wq, wkv = params
+    qkv, _, stats1 = k6.pair_qkv_plain(x, ln1s, ln1b, wqkv)
+    x1 = k6.self_attention_x1_plain(qkv, x, RH, n)
+    kv = fs.ln_gemm_plain(cond, wkv)
+    return x, cond, g, params, qkv, stats1, x1, kv
+
+
+@pytest.mark.parametrize("name", ["pair_qkv", "self_attention_x1", "pair_cross_fwd",
+                                  "pair_cross_bwd", "pair_ln_bwd"])
+def test_route_kernel_plain_matches_k2_helpers(name):
+    """Each route kernel's plain version against the plain versions of the
+    K1 / K2 kernels it replaces, at 13 tokens (row tiles spanning ten
+    batch elements): the same roundings, so bit-equal or within float32
+    sum order; the tiles' partial sums (dkv, dscale, dbias) add up to the
+    whole sums within 1e-5 relative (bf16 dkv: one rounding step)."""
+    b, n = ROUTE_CASES["n13"]
+    x, cond, g, params, qkv, stats1, x1, kv = _route_stage_inputs(15)
+    ln1s, ln1b, wqkv, ln2s, ln2b, wq, wkv = params
+    if name == "pair_qkv":
+        got_qkv, got_xn, got_stats = k6.pair_qkv_plain(x, ln1s, ln1b, wqkv)
+        want_qkv, want_xn = fs.ln_gemm_plain(x, wqkv, ln=(ln1s, ln1b), return_xn=True)
+        assert torch.equal(got_qkv, want_qkv) and torch.equal(got_xn, want_xn)
+        xf = x.float()
+        var = (xf - xf.mean(-1, keepdim=True)).square().mean(-1)
+        torch.testing.assert_close(got_stats[:, 0], xf.mean(-1))
+        torch.testing.assert_close(got_stats[:, 1], torch.rsqrt(var + 1e-5))
+    elif name == "self_attention_x1":
+        assert torch.equal(k6.self_attention_x1_plain(qkv, x, RH, n),
+                           fs.self_attention_plain(qkv, x.float(), RH, n))
+    elif name == "pair_cross_fwd":
+        qc = fs.ln_gemm_plain(x1, wq, ln=(ln2s, ln2b))
+        want, _ = fs.cross_attention_plain(qc, kv, x1, None, RH, n)
+        assert torch.equal(k6.pair_cross_fwd_plain(x1, ln2s, ln2b, wq, kv, RH, n),
+                           want.to(torch.bfloat16))
+    elif name == "pair_cross_bwd":
+        dqc, xn2, stats2, part = k6.pair_cross_bwd_plain(x1, ln2s, ln2b, wq, kv, g, RH, n)
+        qc, want_xn2 = fs.ln_gemm_plain(x1, wq, ln=(ln2s, ln2b), return_xn=True)
+        want_dqc, want_dkv = lv.cross_attention_bwd_plain(qc, kv, g.float(), RH, n)
+        assert torch.equal(xn2, want_xn2) and torch.equal(dqc, want_dqc)
+        assert part.shape == (2 * k6.pair_slots(n) * 2, 2 * RD)
+        got = k6.pair_dkv_plain(part, b, n, RD, torch.float32)
+        assert rel_l2(_np(got), _np(want_dkv)) < 4e-3
+        assert torch.equal(k6.pair_dkv_plain(part, b, n, RD), got.to(torch.bfloat16))
+    else:
+        dqc = (torch.randn(b * n, RD, generator=torch.Generator().manual_seed(16)) * 0.1).to(
+            torch.bfloat16)
+        stats2 = k6.pair_qkv_plain(x1, ln2s, ln2b, wq)[2]
+        for dy, w, xs, st, sc, up, dt in ((dqc, wq, x1, stats2, ln2s, g, torch.float32),
+                                           (qkv, wqkv, x, stats1, ln1s, x1, torch.bfloat16)):
+            out, part = k6.pair_ln_bwd_plain(dy, w, xs, st, sc, up, dt)
+            dxn = dy.float() @ w.float()
+            want, ds, db = lv.layernorm_bwd_plain(dxn, xs, sc, up.float())
+            assert out.dtype == dt and part.shape == (2, 2 * RD)
+            torch.testing.assert_close(out, want.to(dt), rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(part.sum(0), torch.cat([ds, db]), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["pair_qkv", "self_attention_x1", "pair_cross_fwd",
+                                  "pair_cross_bwd", "pair_ln_bwd"])
+def test_route_wrappers_refuse_other_devices(name):
+    """Each route kernel's wrapper runs its kernel on CUDA tensors or its
+    plain version on CPU ones; on any other device (meta) it refuses."""
+    b, n = ROUTE_CASES["n16"]
+    x, cond, g, params, qkv, stats1, x1, kv = (
+        t if not isinstance(t, torch.Tensor) else t.to("meta")
+        for t in _route_stage_inputs(17))
+    params = [p.to("meta") for p in params]
+    ln1s, ln1b, wqkv, ln2s, ln2b, wq, wkv = params
+    calls = {
+        "pair_qkv": lambda: k6.pair_qkv(x, ln1s, ln1b, wqkv),
+        "self_attention_x1": lambda: k6.self_attention_x1(qkv, x, RH, 13),
+        "pair_cross_fwd": lambda: k6.pair_cross_fwd(x1, ln2s, ln2b, wq, kv, RH, 13),
+        "pair_cross_bwd": lambda: k6.pair_cross_bwd(x1, ln2s, ln2b, wq, kv, g, RH, 13),
+        "pair_ln_bwd": lambda: k6.pair_ln_bwd(
+            qkv, wqkv, x, stats1, ln1s, x1, torch.bfloat16,
+            torch.empty(2, 4 * RD, device="meta"), 0),
+    }
+    k6.reset_launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        calls[name]()
+    assert not any(k6.LAUNCHES.values())
+
+
+def test_pair_slots_bound_every_tile():
+    """`pair_slots(n)` is at least the number of batch elements any
+    128-row tile spans, for every n up to 300 (the per-element partials of
+    a tile always have a slot): 2 from 128 tokens up, as at N = 144, 200
+    and 256."""
+    for n in range(1, 301):
+        rows = n * 300
+        spans = [((min(t + k6.BM, rows) - 1) // n) - t // n + 1 for t in range(0, rows, k6.BM)]
+        assert max(spans) <= k6.pair_slots(n), n
+    assert [k6.pair_slots(n) for n in (16, 13, 128, 144, 200, 256)] == [9, 11, 2, 2, 2, 2]

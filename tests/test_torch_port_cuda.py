@@ -1950,3 +1950,106 @@ def test_float32_layer_and_pair_match_plain_on_card(d):
         for i, (t, w) in enumerate(zip(leaves, want)):
             assert t.grad.dtype == torch.float32
             assert _rel_l2(t.grad, w) <= 1e-5, (which, i)
+
+
+# ------------------------------ K6's bf16 route ------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 144])
+def test_attn_pair_route_kernels_match_plain_on_card(n):
+    """Each kernel of K6's bf16 route (`csrc/attn_pair.cu`,
+    `self_attention.cu`'s X1 body) against its plain version on the inputs
+    the route gives it, at width 128 and 2 heads, batch 3 (at N = 144 a
+    128-row tile spans two batch elements): every output within rel-L2
+    1e-2 (one-step flips of bf16 roundings), and two launches bit-equal."""
+    from transformer_latent_diffusion_tpu_torch.scripts import attn_pair_ab as ab
+
+    _need_card()
+    args = _k6_inputs(3, n, seed=5)
+    g = (torch.randn(3, n, 128, generator=torch.Generator().manual_seed(6)) * 0.1).to(
+        "cuda", torch.bfloat16)
+    for name, (kern, plain) in ab.kernel_cases(args[0], args[1], g, args[2:], n, 2).items():
+        got, again, want = _tuple(kern()), _tuple(kern()), _tuple(plain())
+        torch.cuda.synchronize()
+        for u, v, w in zip(got, again, want):
+            assert torch.equal(u, v), name
+            assert _rel_l2(u.float(), w.float()) < 1e-2, name
+
+
+@pytest.mark.cuda
+def test_attn_pair_route_launches_on_card():
+    """One bf16 forward and one backward of K6 launch exactly the route's
+    kernels (`ROUTE_LAUNCHES`: 4 and 13) and none of the composite's own."""
+    _need_card()
+    args = _k6_inputs(2, 256, seed=7)
+    g = torch.randn(2, 256, 128, generator=torch.Generator().manual_seed(8)).to(
+        "cuda", torch.bfloat16)
+    counted = (fs, lv, k6)
+    for what, call in (("forward", lambda: k6.fused_attention_pair_fwd(*args, 2)),
+                       ("backward", lambda: k6.fused_attention_pair_bwd(args[0], args[1], g,
+                                                                        *args[2:], 2))):
+        for mod in counted:
+            mod.reset_launch_counts()
+        call()
+        torch.cuda.synchronize()
+        got = {k: v for mod in counted for k, v in mod.LAUNCHES.items()
+               if v and not k.startswith("fused_attention_pair_vjp")}
+        assert got == k6.ROUTE_LAUNCHES[what], what
+
+
+# ---------------- TMA L2 prefetches across back-to-back launches ----------------
+
+# self_attention_bwd (csrc/attention_bwd.cu) prefetches the next pair's
+# q, k, v by TMA, ln_gemm (csrc/ln_gemm.cu) the next unit's float32 rows
+# and gemm_i8 (csrc/gemm_i8.cu) the rows of its LayerNorm mode and of the
+# residual it adds into; each at the training (B = 128) or serving (B = 64)
+# shapes of the flagship layer (N = 256, D = 768)
+PREFETCH_CASES = ("self_attention_bwd (training)", "ln_gemm (training)",
+                  "ln_gemm (serving)", "ln_gemm_i8 (serving)", "gemm_i8 residual (serving)")
+BACK_TO_BACK = 200
+
+
+def _prefetch_call(name):
+    gen = torch.Generator().manual_seed(9)
+    bf = torch.bfloat16
+    d, heads, hid = 768, 12, 3072
+    m = 256 * (128 if "training" in name else 64)
+
+    def r(*s, std=1.0, dtype=torch.float32, base=0.0):
+        return (base + torch.randn(*s, generator=gen) * std).to("cuda", dtype)
+
+    ln = (r(d, std=0.1, base=1.0), r(d, std=0.1))
+    if name.startswith("self_attention_bwd"):
+        qkv, dout = r(m, 3 * d, dtype=bf), r(m, d, std=1e-3)
+        return lambda: lv.self_attention_bwd(qkv, dout, heads, 256)
+    if name.startswith("ln_gemm_i8"):
+        x = r(m, d)
+        wq, cs = q8.colquant(r(3 * d, d, std=d ** -0.5, dtype=bf))
+        return lambda: q8.ln_gemm_i8(x, ln, wq, cs)
+    if name.startswith("ln_gemm"):
+        x, w = r(m, d), r(3 * d, d, std=d ** -0.5, dtype=bf)
+        return lambda: fs.ln_gemm(x, w, ln=ln)
+    aq, ars = q8.rowquant_plain(torch.nn.functional.gelu(r(m, hid)))
+    wq, cs = q8.colquant(r(d, hid, std=hid ** -0.5, dtype=bf))
+    b2, x = r(d, std=0.1), r(m, d)
+    residuals = iter([x.clone() for _ in range(BACK_TO_BACK)])
+    return lambda: q8.gemm_i8(aq, ars, wq, cs, bias=b2, residual=next(residuals))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", PREFETCH_CASES)
+def test_prefetching_kernel_is_bit_equal_over_back_to_back_launches_on_card(name):
+    """The kernels that ask L2 for the next item's rows ahead of use,
+    launched BACK_TO_BACK times in a row on the same inputs: every result
+    bit-equal to the first (a prefetch that raced a launch's loads or
+    stores would show as a differing launch)."""
+    _need_card()
+    call = _prefetch_call(name)
+    outs = [call() for _ in range(BACK_TO_BACK)]
+    torch.cuda.synchronize()
+    differ = [i for i, o in enumerate(outs) if not torch.equal(o, outs[0])]
+    assert not differ, f"{name}: launches {differ[:10]} differ from the first"
+    assert torch.isfinite(outs[0].float()).all()
+    del outs
+    torch.cuda.empty_cache()

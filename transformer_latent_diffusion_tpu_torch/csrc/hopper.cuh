@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the TMA + wgmma kernels
-// (self_attention.cu, gemm_bwd.cu, ln_gemm.cu, flash_attention.cu,
+// (self_attention.cu, gemm_bwd.cu, ln_gemm.cu, attn_pair.cu, flash_attention.cu,
 // flash_attention_bwd.cu, attention_bwd.cu, gemm_i8.cu, dwconv_gelu.cu,
 // head_group_attention.cu, ln_gemm_f32.cu, self_attention_f32.cu,
 // flash_attention_f32.cu, flash_attention_bwd_f32.cu):
@@ -162,6 +162,17 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void*
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// global[box at (c0, c1, c2)] = shared (TMA store); elements outside the
+// tensor are skipped
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 

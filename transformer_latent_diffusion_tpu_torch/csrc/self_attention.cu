@@ -39,6 +39,14 @@
 //   past N are clipped. Each element has one writer and one float32 add,
 //   so two runs give bit-equal residuals.
 //
+// X1 (a template flag; K1's and K2's instantiation is the other) is the
+// body of the bf16 attention pair's route (ops/fused_attn_vjp.py, TPU
+// kernel K6): the residual source is the bf16 input x, read by each thread
+// at its accumulator positions (issued before the tile's products), and
+// x1 = x + O, float32, leaves by a TMA store into x1: the pair makes no
+// float32 copy of x, and x1 is written once and read by nothing else
+// first. The sum is the reduce-add's (float32 x + O).
+//
 // Shared memory at N = 256: a stage holds Q, K and V, 3 x 4 boxes of 8 KB
 // (96 KB); two stages are 192 KB, the two warpgroups' O staging 2 x 16 KB,
 // 224 KB in all plus barriers (227 KB is the limit): hence two stages and
@@ -74,12 +82,13 @@ __device__ __forceinline__ void scores(float (&s)[NT * 32], uint64_t da, uint64_
   if constexpr (NT == 4) wgmma_m64n256k16_ss<0, 0>(s, da, db);
 }
 
-// NT = ceil(N / 64) (1..4): the keys of a pair fill NT boxes
-template <int NT>
+// NT = ceil(N / 64) (1..4): the keys of a pair fill NT boxes; X1: x1 = x
+// + O stored (x bf16 (B*N, D)), else O added into the residual
+template <int NT, bool X1>
 __global__ void __launch_bounds__(THREADS, 1)
 self_attention_kernel(const __grid_constant__ CUtensorMap map_qkv,
-                      const __grid_constant__ CUtensorMap map_res, int n_pairs, int n_heads,
-                      int N, int D) {
+                      const __grid_constant__ CUtensorMap map_res, const bf16* __restrict__ x,
+                      int n_pairs, int n_heads, int N, int D) {
   constexpr int SB = stage_bytes(NT);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
@@ -137,6 +146,18 @@ self_attention_kernel(const __grid_constant__ CUtensorMap map_qkv,
       const unsigned char* ks = qs + NT * BOX_BYTES;
       const unsigned char* vs = qs + 2 * NT * BOX_BYTES;
       for (int qt = wg; qt < NT; qt += CONSUMERS) {
+        // X1: this thread's 2 x 16 elements of x, in flight during the products
+        uint32_t xr[X1 ? 16 : 1];
+        if constexpr (X1) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int n = qt * TILE + r_lo + 8 * h;
+            const bf16* xp = x + (static_cast<size_t>(b) * N + (n < N ? n : 0)) * D + col + 2 * t4;
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              xr[8 * h + j] = n < N ? __ldg(reinterpret_cast<const unsigned int*>(xp + 8 * j)) : 0u;
+          }
+        }
         // S = Q K^T: Q (64 x 64) and K (keys x 64) both K-major
         float s[NT * 32];
 #pragma unroll
@@ -210,6 +231,17 @@ self_attention_kernel(const __grid_constant__ CUtensorMap map_qkv,
         fence_regs(o);
 #pragma unroll
         for (int kc = 0; kc < NT * 4; ++kc) fence_regs(pa[kc]);
+        if constexpr (X1) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const float2 xv =
+                  __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xr[8 * h + j]));
+              o[4 * j + 2 * h] = xv.x + o[4 * j + 2 * h];
+              o[4 * j + 2 * h + 1] = xv.y + o[4 * j + 2 * h + 1];
+            }
+        }
 
         // stage O as two 64 x 32 float32 boxes in the residual map's
         // 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8)),
@@ -230,8 +262,13 @@ self_attention_kernel(const __grid_constant__ CUtensorMap map_qkv,
         fence_proxy_async();
         named_barrier(1 + wg, 128);
         if (wt == 0) {
-          tma_reduce_add_3d(&map_res, obuf, col, qt * TILE, b);
-          tma_reduce_add_3d(&map_res, obuf + OUT_BYTES / 2, col + 32, qt * TILE, b);
+          if constexpr (X1) {
+            tma_store_3d(&map_res, obuf, col, qt * TILE, b);
+            tma_store_3d(&map_res, obuf + OUT_BYTES / 2, col + 32, qt * TILE, b);
+          } else {
+            tma_reduce_add_3d(&map_res, obuf, col, qt * TILE, b);
+            tma_reduce_add_3d(&map_res, obuf + OUT_BYTES / 2, col + 32, qt * TILE, b);
+          }
           bulk_commit();
         }
       }
@@ -246,8 +283,9 @@ self_attention_kernel(const __grid_constant__ CUtensorMap map_qkv,
   }
 }
 
-template <int NT>
-int launch(const void* qkv, float* resid, int B, int N, int D, int n_heads, cudaStream_t s) {
+template <int NT, bool X1>
+int launch(const void* qkv, float* resid, const bf16* x, int B, int N, int D, int n_heads,
+           cudaStream_t s) {
   CUtensorMap map_qkv, map_res;
   const uint64_t qdims[3] = {static_cast<uint64_t>(3 * D), static_cast<uint64_t>(N),
                              static_cast<uint64_t>(B)};
@@ -265,15 +303,15 @@ int launch(const void* qkv, float* resid, int B, int N, int D, int n_heads, cuda
                    CU_TENSOR_MAP_SWIZZLE_128B);
   if (err) return err;
   const int smem = smem_bytes(NT);
-  cudaError_t e = cudaFuncSetAttribute(self_attention_kernel<NT>,
+  cudaError_t e = cudaFuncSetAttribute(self_attention_kernel<NT, X1>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int pairs = B * n_heads;
-  self_attention_kernel<NT><<<pairs < sms ? pairs : sms, THREADS, smem, s>>>(map_qkv, map_res,
-                                                                             pairs, n_heads, N, D);
+  self_attention_kernel<NT, X1><<<pairs < sms ? pairs : sms, THREADS, smem, s>>>(
+      map_qkv, map_res, x, pairs, n_heads, N, D);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -287,9 +325,24 @@ LTD_API int ltd_self_attention(const void* qkv, float* resid, int B, int N, int 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N < 1 || N > 256 || D != n_heads * DH) return static_cast<int>(cudaErrorInvalidValue);
   switch ((N + TILE - 1) / TILE) {
-    case 1: return launch<1>(qkv, resid, B, N, D, n_heads, s);
-    case 2: return launch<2>(qkv, resid, B, N, D, n_heads, s);
-    case 3: return launch<3>(qkv, resid, B, N, D, n_heads, s);
-    default: return launch<4>(qkv, resid, B, N, D, n_heads, s);
+    case 1: return launch<1, false>(qkv, resid, nullptr, B, N, D, n_heads, s);
+    case 2: return launch<2, false>(qkv, resid, nullptr, B, N, D, n_heads, s);
+    case 3: return launch<3, false>(qkv, resid, nullptr, B, N, D, n_heads, s);
+    default: return launch<4, false>(qkv, resid, nullptr, B, N, D, n_heads, s);
+  }
+}
+
+// The X1 body: x1 (B*N, D) float32 = x + attention, x (B*N, D) bf16 (the
+// attention pair's input rows); otherwise as ltd_self_attention.
+LTD_API int ltd_self_attention_x1(const void* qkv, const void* x, float* x1, int B, int N, int D,
+                                  int n_heads, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N < 1 || N > 256 || D != n_heads * DH) return static_cast<int>(cudaErrorInvalidValue);
+  const bf16* xb = static_cast<const bf16*>(x);
+  switch ((N + TILE - 1) / TILE) {
+    case 1: return launch<1, true>(qkv, x1, xb, B, N, D, n_heads, s);
+    case 2: return launch<2, true>(qkv, x1, xb, B, N, D, n_heads, s);
+    case 3: return launch<3, true>(qkv, x1, xb, B, N, D, n_heads, s);
+    default: return launch<4, true>(qkv, x1, xb, B, N, D, n_heads, s);
   }
 }

@@ -72,6 +72,14 @@ SIGNATURES = {
     "ltd_mlp_band_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ltd_mlp_band_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _P),
+    # the bf16 attention pair's route (csrc/attn_pair.cu, self_attention.cu)
+    "ltd_self_attention_x1": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "ltd_pair_scratch_rows": (_I, _I, _I, _I),
+    "ltd_pair_qkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "ltd_pair_cross_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "ltd_pair_cross_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _P),
+    "ltd_pair_ln_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lib = None

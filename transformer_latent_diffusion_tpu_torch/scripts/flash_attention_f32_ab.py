@@ -17,7 +17,8 @@ torch.logsumexp, each bit-equal over two calls. Then the script times them in tu
 new, old with CUDA events at N = 1024 B = 64 (512 px), N = 4096 B = 8
 (1024 px) and N = 256 B = 64 (the float32 "mlp" / "moe" models at 256 px),
 12 heads, beside the bound (4 N^2 64 operations per (image, head) at the
-3xTF32 rate, or q, k, v and o moved once, the larger). `--quick` checks
+3xTF32 rate, or q, k, v and o moved once, the larger), SDPA in float32
+(TF32 off) on the same q, k, v and the plain version. `--quick` checks
 only. `--variants` also builds copies of the current source with one lever
 taken out at a time (`EDITS`: the turns, P's split once a chunk, the K/V
 split form and the rings' depths, the exponentials; and the products or
@@ -311,6 +312,14 @@ def main(argv=None):
                 t = time_ms(new, reps)
                 print(f"[time] {label} B={b} N={n}: new {t:.4f} ms; bound {bnd:.4f} ms "
                       f"({bnd / t:.1%} of it)", flush=True)
+            def heads(t):
+                return t.reshape(b, n, HEADS, 64).transpose(1, 2)
+
+            sdpa = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                heads(q), heads(k), heads(v)), reps)
+            plain = time_ms(lambda: att.multi_head_attention(q, k, v, HEADS), max(reps // 5, 2))
+            print(f"[time] {label} B={b} N={n}: SDPA float32 (TF32 off) {sdpa:.4f} ms, "
+                  f"plain {plain:.4f} ms", flush=True)
             if args.variants:
                 want = att.multi_head_attention(q, k, v, HEADS)
                 for name, (lib, _) in libs.items():
